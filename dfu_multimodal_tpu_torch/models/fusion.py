@@ -1,0 +1,75 @@
+"""The multimodal late-fusion classifier (counterpart of the
+``FusionMLP`` / ``MultimodalFusionClassifier`` of
+``dfu_multimodal_tpu/models/fusion.py``).
+
+ResNet50(RGB) ⊕ ViT-B/16(thermal) -> concat (2816) -> MLP 512 -> 256 -> 2
+with ReLU + Dropout.  Submodule names follow the reference's torch model
+(``rgb_branch``, ``thermal_branch``, ``fusion.{0,3,6}``), the keys
+``tools/convert_torch.py::convert_state_dict("multimodal", ...)`` reads.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+from torch import nn
+
+from dfu_multimodal_tpu_torch.models.common import canonical_dtype
+from dfu_multimodal_tpu_torch.models.resnet import ResNet50
+from dfu_multimodal_tpu_torch.models.vit import ViTBase16
+from dfu_multimodal_tpu_torch.ops.fused_mlp import (fused_mlp,
+                                                    fusion_mlp_params)
+
+
+class FusionMLP(nn.Sequential):
+    """Linear, ReLU, Dropout, Linear, ReLU, Dropout, Linear.  In eval mode
+    the three layers run as the one fused kernel (``ops.fused_mlp``) in
+    the features' dtype; in train mode as the Sequential (dropout sits
+    between the layers there)."""
+
+    def __init__(self, in_dim: int = 2816, num_classes: int = 2,
+                 drop_rate: float = 0.5):
+        super().__init__(
+            nn.Linear(in_dim, 512), nn.ReLU(), nn.Dropout(drop_rate),
+            nn.Linear(512, 256), nn.ReLU(), nn.Dropout(drop_rate),
+            nn.Linear(256, num_classes))
+
+    @property
+    def fc1(self) -> nn.Linear:
+        return self[0]
+
+    @property
+    def fc2(self) -> nn.Linear:
+        return self[3]
+
+    @property
+    def fc3(self) -> nn.Linear:
+        return self[6]
+
+    def forward(self, fused: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return super().forward(fused)
+        w1, b1, w2, b2, w3, b3 = fusion_mlp_params(self)
+        dt = fused.dtype
+        return fused_mlp(fused, w1.to(dt), b1, w2.to(dt), b2, w3.to(dt), b3)
+
+
+class MultimodalFusionClassifier(nn.Module):
+    """Late fusion of ResNet50 (RGB) and ViT-B/16 (thermal); inputs are
+    NHWC images already normalised, returns (B, num_classes) logits."""
+
+    def __init__(self, num_classes: int = 2, drop_rate: float = 0.5,
+                 dtype: Union[str, torch.dtype] = torch.float32,
+                 image_size: int = 224):
+        super().__init__()
+        dtype = canonical_dtype(dtype)
+        self.rgb_branch = ResNet50(dtype=dtype)
+        self.thermal_branch = ViTBase16(dtype=dtype, image_size=image_size)
+        self.fusion = FusionMLP(2048 + 768, num_classes, drop_rate)
+
+    def forward(self, rgb: torch.Tensor,
+                thermal: torch.Tensor) -> torch.Tensor:
+        fused = torch.cat([self.rgb_branch(rgb), self.thermal_branch(thermal)],
+                          dim=-1)                      # (B, 2816) fp32
+        return self.fusion(fused)

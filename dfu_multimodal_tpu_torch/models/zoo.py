@@ -1,0 +1,86 @@
+"""Model registry (counterpart of ``dfu_multimodal_tpu/models/zoo.py``).
+
+Only the flagship ``multimodal`` entry is ported so far; the other
+families join as their modules land.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from dfu_multimodal_tpu_torch.models.fusion import MultimodalFusionClassifier
+from dfu_multimodal_tpu_torch.models.vit import ViT
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    name: str
+    make: Callable[..., nn.Module]
+    inputs: Tuple[str, ...]           # keys of the batch dict it consumes
+
+
+_REGISTRY: Dict[str, ModelSpec] = {}
+
+
+def register(spec: ModelSpec) -> ModelSpec:
+    _REGISTRY[spec.name] = spec
+    return spec
+
+
+register(ModelSpec("multimodal", MultimodalFusionClassifier,
+                   ("rgb", "thermal")))
+
+
+def get(name: str) -> ModelSpec:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown model {name!r}; have {sorted(_REGISTRY)}")
+
+
+def build(name: str, *, num_classes: int = 2,
+          drop_rate: Optional[float] = None,
+          dtype: Union[str, torch.dtype] = torch.float32,
+          **kwargs) -> Tuple[nn.Module, ModelSpec]:
+    """``drop_rate=None`` keeps the model class's own default.  Extra
+    kwargs (e.g. ``image_size``) go to the model class."""
+    spec = get(name)
+    dr = {} if drop_rate is None else {"drop_rate": drop_rate}
+    return spec.make(num_classes=num_classes, dtype=dtype, **dr,
+                     **kwargs), spec
+
+
+@torch.no_grad()
+def init_model(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-initialise every parameter and buffer in place from
+    ``generator`` (which must live on the module's device), with the JAX
+    package's initialisers: LeCun-normal Linear/conv weights, zero biases,
+    identity LayerNorm/BatchNorm (running mean 0, var 1), zero CLS token
+    and a N(0, 0.02) position embedding."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            m.weight.normal_(0.0, m.weight[0].numel() ** -0.5,
+                             generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            if isinstance(m, nn.BatchNorm2d):
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+                m.num_batches_tracked.zero_()
+        elif isinstance(m, ViT):
+            m.cls_token.zero_()
+            m.pos_embed.normal_(0.0, 0.02, generator=generator)
+    return module
+
+
+def param_count(module: nn.Module) -> int:
+    """Trainable parameters (BatchNorm running stats are buffers, as they
+    are ``batch_stats`` rather than ``params`` in the JAX count)."""
+    return sum(p.numel() for p in module.parameters())

@@ -1,0 +1,417 @@
+// ViT encoder-block forward kernels for Hopper (sm_90a).
+//
+// Replaces: dfu_multimodal_tpu/ops/vit_block.py::_attn_block_kernel (K1,
+//   x + proj(MHA(qkv(LN1(x))))) and ::_mlp_block_kernel (K2,
+//   x + fc2(GELU(fc1(LN2(x))))), the two Pallas kernels of the fused
+//   ViT-B/16 encoder forward.
+//
+// What bounds it on the H100: at the serving batch (8 images, 1576 token
+//   rows) each block reads 14 MB of bf16 weights for ~22 GFLOP, so the
+//   GEMMs sit near the ~295 FLOP/byte ridge and the launches are short;
+//   at batch 128 the GEMMs are tensor-core bound (~350 GFLOP per block).
+//   Attention is 2·N²·D per head and small next to the projections
+//   (N = 197 is ragged, D = 64).
+//
+// What the design does about it: the TPU kernel keeps one image's whole
+//   block in VMEM.  A Hopper SM has 227 KB of shared memory and blocks
+//   run in parallel in no order, so each TPU kernel becomes a chain of
+//   launches that each fill the card: a warp-per-row fp32 LayerNorm, one
+//   tiled GEMM template (bf16 operands on the tensor cores through WMMA,
+//   fp32 operands on the FMA pipes, fp32 accumulation either way) whose
+//   epilogue adds the bias and applies exact-erf GELU or the residual,
+//   and an attention core that holds one head's K and V in shared memory
+//   with an exact two-pass fp32 softmax.  The qkv (B, N, 3C), attention
+//   output and MLP hidden (B·N, 4C) intermediates go through HBM; fusing
+//   them away (and wgmma/TMA pipelining of the GEMM) is later work.
+//
+// Numerics follow the Pallas kernel: fp32 LayerNorm statistics, matmul
+// operands in the compute dtype with fp32 accumulation, q·kᵀ scaled by
+// 1/sqrt(D) in fp32, softmax statistics in fp32, the un-normalised exp
+// matrix rounded to the compute dtype as the P·V operand and the division
+// by the fp32 row sum deferred past P·V.  GELU is the exact erf form
+// (the Pallas kernel's logistic approximation exists only because Mosaic
+// cannot lower erf).
+
+#include "common.cuh"
+
+#include <mma.h>
+
+namespace dfu {
+namespace {
+
+enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESID = 2 };
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+// out[row, col] = epilogue(acc + bias[col]) in the compute dtype.
+template <typename T, int EPI>
+__device__ __forceinline__ void store_out(float acc, int row, int col, int n,
+                                          const float* __restrict__ bias,
+                                          const T* __restrict__ resid,
+                                          T* __restrict__ out) {
+  const size_t i = static_cast<size_t>(row) * n + col;
+  float v = acc + bias[col];
+  if (EPI == EPI_BIAS_GELU) v = gelu_erf(v);
+  // x + o with o rounded to the compute dtype first, as the TPU kernel
+  if (EPI == EPI_BIAS_RESID) v = to_f(resid[i]) + to_f(from_f<T>(v));
+  out[i] = from_f<T>(v);
+}
+
+// ----------------------------------------------------------- LayerNorm
+// One warp per row; three passes over the row (mean, centred variance,
+// write), all in fp32.  rows x C in, rows x C out in the compute dtype.
+template <typename T>
+__global__ void layernorm_kernel(const T* __restrict__ x,
+                                 const float* __restrict__ g,
+                                 const float* __restrict__ b,
+                                 T* __restrict__ y, int rows, int c,
+                                 float eps) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* xr = x + static_cast<size_t>(row) * c;
+  T* yr = y + static_cast<size_t>(row) * c;
+  float s = 0.f;
+  for (int i = lane; i < c; i += 32) s += to_f(xr[i]);
+  const float mu = warp_sum(s) / c;
+  float v = 0.f;
+  for (int i = lane; i < c; i += 32) {
+    const float d = to_f(xr[i]) - mu;
+    v += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(v) / c + eps);
+  for (int i = lane; i < c; i += 32)
+    yr[i] = from_f<T>((to_f(xr[i]) - mu) * rstd * g[i] + b[i]);
+}
+
+// --------------------------------------------------- bf16 GEMM (WMMA)
+// out (M, N) = epilogue(A (M, K) @ B (K, N)), row-major, bf16 operands,
+// fp32 accumulation.  A 64x64 output tile per block of 4 warps, each warp
+// a 32x32 quadrant of 2x2 16x16x16 WMMA fragments; K in steps of 32.
+// Ragged M/N/K are zero-filled on load and masked on store.
+constexpr int WBM = 64, WBN = 64, WBK = 32;
+constexpr int WLDA = WBK + 8, WLDB = WBN + 8, WLDC = WBN + 4;
+
+template <int EPI>
+__global__ void __launch_bounds__(128)
+gemm_bf16_wmma(const bf16* __restrict__ A, const bf16* __restrict__ B,
+               const float* __restrict__ bias, const bf16* __restrict__ resid,
+               bf16* __restrict__ out, int m, int n, int k) {
+  using namespace nvcuda;
+  __shared__ __align__(32) bf16 As[WBM * WLDA];
+  __shared__ __align__(32) bf16 Bs[WBK * WLDB];
+  __shared__ __align__(32) float Cs[WBM * WLDC];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int row0 = blockIdx.y * WBM, col0 = blockIdx.x * WBN;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = 0; k0 < k; k0 += WBK) {
+    for (int i = tid; i < WBM * WBK; i += 128) {
+      const int r = i / WBK, c = i % WBK;
+      const int gr = row0 + r, gc = k0 + c;
+      As[r * WLDA + c] =
+          (gr < m && gc < k) ? A[static_cast<size_t>(gr) * k + gc] : zero;
+    }
+    for (int i = tid; i < WBK * WBN; i += 128) {
+      const int r = i / WBN, c = i % WBN;
+      const int gr = k0 + r, gc = col0 + c;
+      Bs[r * WLDB + c] =
+          (gr < k && gc < n) ? B[static_cast<size_t>(gr) * n + gc] : zero;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < WBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * WLDA + kk,
+                               WLDA);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], Bs + kk * WLDB + wn * 32 + j * 16, WLDB);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * WLDC + wn * 32 + j * 16,
+                              acc[i][j], WLDC, wmma::mem_row_major);
+  __syncthreads();
+  for (int i = tid; i < WBM * WBN; i += 128) {
+    const int r = i / WBN, c = i % WBN;
+    const int gr = row0 + r, gc = col0 + c;
+    if (gr < m && gc < n)
+      store_out<bf16, EPI>(Cs[r * WLDC + c], gr, gc, n, bias, resid, out);
+  }
+}
+
+// ---------------------------------------------------- fp32 GEMM (SIMT)
+// Same contract with fp32 operands on the FMA pipes (no TF32): a 64x64
+// tile per block of 256 threads, 4x4 outputs per thread, K in steps of 16.
+constexpr int SBM = 64, SBN = 64, SBK = 16;
+
+template <int EPI>
+__global__ void __launch_bounds__(256)
+gemm_f32_simt(const float* __restrict__ A, const float* __restrict__ B,
+              const float* __restrict__ bias, const float* __restrict__ resid,
+              float* __restrict__ out, int m, int n, int k) {
+  __shared__ float As[SBK][SBM + 4];  // transposed: As[k][m]
+  __shared__ float Bs[SBK][SBN + 4];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int row0 = blockIdx.y * SBM, col0 = blockIdx.x * SBN;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < k; k0 += SBK) {
+    for (int i = tid; i < SBM * SBK; i += 256) {
+      const int r = i / SBK, c = i % SBK;
+      const int gr = row0 + r, gc = k0 + c;
+      As[c][r] = (gr < m && gc < k) ? A[static_cast<size_t>(gr) * k + gc] : 0.f;
+    }
+    for (int i = tid; i < SBK * SBN; i += 256) {
+      const int r = i / SBN, c = i % SBN;
+      const int gr = k0 + r, gc = col0 + c;
+      Bs[r][c] = (gr < k && gc < n) ? B[static_cast<size_t>(gr) * n + gc] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < SBK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gr = row0 + ty * 4 + i, gc = col0 + tx * 4 + j;
+      if (gr < m && gc < n)
+        store_out<float, EPI>(acc[i][j], gr, gc, n, bias, resid, out);
+    }
+}
+
+// ------------------------------------------------------ attention core
+// qkv (B, N, 3C) packed [q | k | v], heads sliced by column, -> attn
+// (B, N, C).  One block per (query chunk, head, image); the head's K and V
+// are staged in shared memory as fp32 (K rows padded to D+1 floats so
+// that lanes reading different keys hit different banks).  One warp per
+// query row: the q row lives in registers, each lane scores keys
+// j = lane, lane+32, ..., the row max and sum are warp reductions, and
+// each lane accumulates D/32 output columns over all keys.
+constexpr int ATT_QCHUNK = 64, ATT_THREADS = 256;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(ATT_THREADS)
+attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n,
+                 int heads, float scale) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_QCHUNK;
+  const int c = heads * D, ld = 3 * c;
+  float* ks = smem;                    // n x (D + 1)
+  float* vs = ks + n * (D + 1);        // n x D
+  float* ps = vs + n * D;              // one n-row of scores per warp
+  const T* base = qkv + static_cast<size_t>(b) * n * ld;
+
+  for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
+    const int j = i / D, d = i % D;
+    const T* row = base + static_cast<size_t>(j) * ld + h * D + d;
+    ks[j * (D + 1) + d] = to_f(row[c]);
+    vs[j * D + d] = to_f(row[2 * c]);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  float* p = ps + warp * n;
+  const int qend = min(q0 + ATT_QCHUNK, n);
+  constexpr int PER = (D + 31) / 32;
+
+  for (int qi = q0 + warp; qi < qend; qi += nwarps) {
+    float q[D];
+    const T* qrow = base + static_cast<size_t>(qi) * ld + h * D;
+#pragma unroll
+    for (int d = 0; d < D; ++d) q[d] = to_f(qrow[d]);
+
+    float mx = -INFINITY;
+    for (int j = lane; j < n; j += 32) {
+      const float* kr = ks + j * (D + 1);
+      float s = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) s = fmaf(q[d], kr[d], s);
+      s *= scale;
+      p[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = expf(p[j] - mx);
+      sum += e;
+      p[j] = to_f(from_f<T>(e));       // P·V operand in the compute dtype
+    }
+    sum = warp_sum(sum);
+    __syncwarp();
+
+    float o[PER];
+#pragma unroll
+    for (int t = 0; t < PER; ++t) o[t] = 0.f;
+    for (int j = 0; j < n; ++j) {
+      const float pj = p[j];
+#pragma unroll
+      for (int t = 0; t < PER; ++t) {
+        const int d = lane + 32 * t;
+        if (d < D) o[t] = fmaf(pj, vs[j * D + d], o[t]);
+      }
+    }
+    T* orow = out + (static_cast<size_t>(b) * n + qi) * c + h * D;
+#pragma unroll
+    for (int t = 0; t < PER; ++t) {
+      const int d = lane + 32 * t;
+      if (d < D) orow[d] = from_f<T>(o[t] / sum);
+    }
+    __syncwarp();                      // p is rewritten by the next row
+  }
+}
+
+template <int EPI>
+void launch_gemm(int dtype, const void* a, const void* b, const float* bias,
+                 const void* resid, void* out, int m, int n, int k,
+                 cudaStream_t s) {
+  if (dtype == DT_BF16) {
+    dim3 grid(cdiv(n, WBN), cdiv(m, WBM));
+    gemm_bf16_wmma<EPI><<<grid, 128, 0, s>>>(
+        static_cast<const bf16*>(a), static_cast<const bf16*>(b), bias,
+        static_cast<const bf16*>(resid), static_cast<bf16*>(out), m, n, k);
+  } else {
+    dim3 grid(cdiv(n, SBN), cdiv(m, SBM));
+    gemm_f32_simt<EPI><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(b), bias,
+        static_cast<const float*>(resid), static_cast<float*>(out), m, n, k);
+  }
+}
+
+template <typename T, int D>
+int launch_attention(const void* qkv, void* out, int batch, int n, int heads,
+                     float scale, cudaStream_t s) {
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(n) * (2 * D + 1) +
+                       static_cast<size_t>(ATT_THREADS / 32) * n);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(cdiv(n, ATT_QCHUNK), heads, batch);
+  attention_kernel<T, D><<<grid, ATT_THREADS, smem, s>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(out), n, heads, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_attention(int d, const void* qkv, void* out, int batch, int n,
+                       int heads, float scale, cudaStream_t s) {
+  switch (d) {
+    case 16: return launch_attention<T, 16>(qkv, out, batch, n, heads, scale, s);
+    case 32: return launch_attention<T, 32>(qkv, out, batch, n, heads, scale, s);
+    case 64: return launch_attention<T, 64>(qkv, out, batch, n, heads, scale, s);
+    case 128: return launch_attention<T, 128>(qkv, out, batch, n, heads, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+}  // namespace dfu
+
+using namespace dfu;
+
+extern "C" {
+
+const char* dfu_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// x, y: rows x c in the compute dtype; g, b: c fp32.
+int dfu_layernorm(int device, int dtype, const void* x, const void* g,
+                  const void* b, void* y, int rows, int c, float eps,
+                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = 256, rows_per_block = threads / 32;
+  const int blocks = cdiv(rows, rows_per_block);
+  if (dtype == DT_BF16)
+    layernorm_kernel<bf16><<<blocks, threads, 0, s>>>(
+        static_cast<const bf16*>(x), static_cast<const float*>(g),
+        static_cast<const float*>(b), static_cast<bf16*>(y), rows, c, eps);
+  else
+    layernorm_kernel<float><<<blocks, threads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g),
+        static_cast<const float*>(b), static_cast<float*>(y), rows, c, eps);
+  DFU_RETURN_LAST_ERROR();
+}
+
+// out (m, n) = epilogue(a (m, k) @ b (k, n) + bias); epi 0: bias,
+// 1: bias + exact GELU, 2: bias + residual (resid (m, n)).
+int dfu_gemm(int device, int dtype, int epi, const void* a, const void* b,
+             const void* bias, const void* resid, void* out, int m, int n,
+             int k, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bf = static_cast<const float*>(bias);
+  switch (epi) {
+    case EPI_BIAS:
+      launch_gemm<EPI_BIAS>(dtype, a, b, bf, resid, out, m, n, k, s);
+      break;
+    case EPI_BIAS_GELU:
+      launch_gemm<EPI_BIAS_GELU>(dtype, a, b, bf, resid, out, m, n, k, s);
+      break;
+    case EPI_BIAS_RESID:
+      launch_gemm<EPI_BIAS_RESID>(dtype, a, b, bf, resid, out, m, n, k, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DFU_RETURN_LAST_ERROR();
+}
+
+// qkv (batch, n, 3·heads·d) -> out (batch, n, heads·d); d in {16,32,64,128}.
+int dfu_attention(int device, int dtype, const void* qkv, void* out,
+                  int batch, int n, int heads, int d, float scale,
+                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_BF16)
+    return dispatch_attention<bf16>(d, qkv, out, batch, n, heads, scale, s);
+  return dispatch_attention<float>(d, qkv, out, batch, n, heads, scale, s);
+}
+
+}  // extern "C"

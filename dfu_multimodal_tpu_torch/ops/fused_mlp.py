@@ -1,0 +1,73 @@
+"""Fusion-head MLP forward: a hand-written Hopper kernel + its plain version.
+
+Counterpart of ``dfu_multimodal_tpu/ops/fused_mlp.py``:
+relu(relu(x@w1+b1)@w2+b2)@w3+b3 in one launch (``csrc/fused_mlp.cu``),
+the eval forward of the multimodal late-fusion head.  A CPU tensor takes
+:func:`fused_mlp_ref`; a CUDA tensor launches the kernel or raises.
+Weights are (in, out) in x's dtype, biases fp32; the result is fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from dfu_multimodal_tpu_torch.ops import _build
+
+_I, _P = _build.I, _build.P
+_SIGNATURES = {"dfu_fused_mlp": [_I, _I] + [_P] * 8 + [_I] * 5 + [_P]}
+
+
+def _mm_f32(a, b):
+    return torch.matmul(a.float(), b.float())
+
+
+def fused_mlp_ref(x, w1, b1, w2, b2, w3, b3):
+    """Plain version with the kernel's numerics (mirrors the JAX
+    ``_fused_mlp_ref``)."""
+    h = torch.relu(_mm_f32(x, w1) + b1.float()).to(x.dtype)
+    h = torch.relu(_mm_f32(h, w2) + b2.float()).to(x.dtype)
+    return _mm_f32(h, w3) + b3.float()
+
+
+def fused_mlp(x: torch.Tensor,
+              w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor,
+              w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+    """x (B, D0) -> (B, D3) float32 through the three layers."""
+    if x.device.type == "cpu":
+        return fused_mlp_ref(x, w1, b1, w2, b2, w3, b3)
+    _build.check_cuda_operands(
+        "fused_mlp", x, {"x": x, "w1": w1, "w2": w2, "w3": w3},
+        {"b1": b1, "b2": b2, "b3": b3})
+    batch, d0 = x.shape
+    d1, d2, d3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    if (w1.shape != (d0, d1) or w2.shape != (d1, d2) or w3.shape != (d2, d3)
+            or b1.shape != (d1,) or b2.shape != (d2,) or b3.shape != (d3,)):
+        raise ValueError(
+            f"fused_mlp: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 "
+            f"{tuple(w2.shape)}, w3 {tuple(w3.shape)} do not chain")
+    out = torch.empty((batch, d3), dtype=torch.float32, device=x.device)
+    lib = _build.load("fused_mlp", _SIGNATURES)
+    _build.check(lib, lib.dfu_fused_mlp(
+        x.device.index, _build.DTYPE_CODES[x.dtype], x.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        w3.data_ptr(), b3.data_ptr(), out.data_ptr(), batch, d0, d1, d2, d3,
+        _build.stream_of(x)), "fused_mlp")
+    fused_mlp.launches += 1
+    return out
+
+
+# launch count: one per call that ran the kernel (CPU calls do not count)
+fused_mlp.launches = 0
+
+
+def fusion_mlp_params(fusion: nn.Module) -> Tuple[torch.Tensor, ...]:
+    """(w1, b1, w2, b2, w3, b3) of a ``models.fusion.FusionMLP``, weights
+    transposed to (in, out) and made contiguous (a copy per call)."""
+    fc1, fc2, fc3 = fusion.fc1, fusion.fc2, fusion.fc3
+    return (fc1.weight.t().contiguous(), fc1.bias,
+            fc2.weight.t().contiguous(), fc2.bias,
+            fc3.weight.t().contiguous(), fc3.bias)

@@ -1,0 +1,123 @@
+"""JAX -> port weight bridge: the inverse of
+``dfu_multimodal_tpu/tools/convert_torch.py``.
+
+:func:`variables_to_state_dict` takes a JAX variables tree of numpy
+arrays (``params`` and ``batch_stats`` as ``zoo.init_model`` or a
+checkpoint restore produce them) and returns the port model's
+``state_dict``:
+
+- the scanned ViT ``encoder`` leaves (depth, ...) are un-stacked into
+  ``blocks.{i}``;
+- conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in);
+- the patch-embed dense kernel (P·P·C, O) -> the conv (O, C, P, P);
+- BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, ``batch_stats``
+  ``mean``/``var`` -> ``running_mean``/``running_var``.
+
+No jax import: the arrays only need ``numpy.asarray``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+
+def _conv(kernel) -> torch.Tensor:
+    """HWIO -> OIHW."""
+    return _t(np.asarray(kernel).transpose(3, 2, 0, 1))
+
+
+def _dense(kernel) -> torch.Tensor:
+    """(in, out) -> (out, in)."""
+    return _t(np.asarray(kernel).T)
+
+
+def _batchnorm(out: StateDict, key: str, params: Mapping,
+               stats: Mapping) -> None:
+    out[f"{key}.weight"] = _t(params["scale"])
+    out[f"{key}.bias"] = _t(params["bias"])
+    out[f"{key}.running_mean"] = _t(stats["mean"])
+    out[f"{key}.running_var"] = _t(stats["var"])
+    out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def resnet_state_dict(params: Mapping, stats: Mapping,
+                      prefix: str = "") -> StateDict:
+    """JAX ResNet trunk subtree -> torchvision-layout keys."""
+    out: StateDict = {}
+    out[f"{prefix}conv1.weight"] = _conv(params["stem_conv"]["kernel"])
+    _batchnorm(out, f"{prefix}bn1", params["stem_bn"], stats["stem_bn"])
+    for scope in sorted(k for k in params if k.startswith("stage")):
+        stage, block = scope[len("stage"):].split("_block")
+        base = f"{prefix}layer{stage}.{block}"
+        p, s = params[scope], stats[scope]
+        for i in (1, 2, 3):
+            out[f"{base}.conv{i}.weight"] = _conv(p[f"conv{i}"]["kernel"])
+            _batchnorm(out, f"{base}.bn{i}", p[f"bn{i}"], s[f"bn{i}"])
+        if "down_conv" in p:
+            out[f"{base}.downsample.0.weight"] = _conv(
+                p["down_conv"]["kernel"])
+            _batchnorm(out, f"{base}.downsample.1", p["down_bn"],
+                       s["down_bn"])
+    return out
+
+
+def vit_state_dict(params: Mapping, prefix: str = "") -> StateDict:
+    """JAX ViT trunk subtree -> timm-layout keys."""
+    out: StateDict = {}
+    out[f"{prefix}cls_token"] = _t(params["cls_token"])
+    out[f"{prefix}pos_embed"] = _t(params["pos_embed"])
+    kernel = np.asarray(params["patch_embed"]["kernel"])    # (P·P·C, O)
+    patch = int(round((kernel.shape[0] / 3) ** 0.5))
+    out[f"{prefix}patch_embed.proj.weight"] = _t(
+        kernel.reshape(patch, patch, 3, -1).transpose(3, 2, 0, 1))
+    out[f"{prefix}patch_embed.proj.bias"] = _t(params["patch_embed"]["bias"])
+
+    enc = params["encoder"]                        # scanned (depth, ...) stack
+    depth = np.asarray(enc["norm1"]["scale"]).shape[0]
+    for i in range(depth):
+        blk = _index_tree(enc, i)
+        base = f"{prefix}blocks.{i}"
+        for norm in ("norm1", "norm2"):
+            out[f"{base}.{norm}.weight"] = _t(blk[norm]["scale"])
+            out[f"{base}.{norm}.bias"] = _t(blk[norm]["bias"])
+        for ours, theirs in (("attn.qkv", blk["attn"]["qkv"]),
+                             ("attn.proj", blk["attn"]["proj"]),
+                             ("mlp.fc1", blk["mlp_fc1"]),
+                             ("mlp.fc2", blk["mlp_fc2"])):
+            out[f"{base}.{ours}.weight"] = _dense(theirs["kernel"])
+            out[f"{base}.{ours}.bias"] = _t(theirs["bias"])
+    out[f"{prefix}norm.weight"] = _t(params["norm"]["scale"])
+    out[f"{prefix}norm.bias"] = _t(params["norm"]["bias"])
+    return out
+
+
+def _index_tree(tree: Mapping, i: int) -> Dict[str, Any]:
+    return {k: (_index_tree(v, i) if isinstance(v, Mapping)
+                else np.asarray(v)[i]) for k, v in tree.items()}
+
+
+def variables_to_state_dict(model_name: str,
+                            variables: Mapping) -> StateDict:
+    """JAX variables of zoo model ``model_name`` -> the port model's
+    state_dict (load with ``load_state_dict(..., strict=True)``)."""
+    if model_name != "multimodal":
+        raise ValueError(f"no bridge for model {model_name!r} yet")
+    params = variables["params"]
+    stats = variables["batch_stats"]
+    out = resnet_state_dict(params["rgb_branch"], stats["rgb_branch"],
+                            "rgb_branch.")
+    out.update(vit_state_dict(params["thermal_branch"], "thermal_branch."))
+    # fusion/fc{1,2,3} -> the Sequential's Linear layers at 0, 3, 6
+    for idx, name in (("0", "fc1"), ("3", "fc2"), ("6", "fc3")):
+        out[f"fusion.{idx}.weight"] = _dense(params["fusion"][name]["kernel"])
+        out[f"fusion.{idx}.bias"] = _t(params["fusion"][name]["bias"])
+    return out

@@ -1,0 +1,150 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test skips without a CUDA device; this file imports no jax
+(the card's machine has none), so run it there without the JAX conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
+
+Tolerances: fp32 kernels vs fp32 plain versions differ only in the
+order of fp32 sums (1e-4); bf16 kernels vs bf16 plain versions may round
+an intermediate (qkv, attention, hidden) one bf16 step apart, and the
+kernel defers the softmax division past P·V (2e-2).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dfu_multimodal_tpu_torch.ops import fused_mlp as fm
+from dfu_multimodal_tpu_torch.ops import vit_block as vb
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _randn(gen, *shape, scale=1.0, offset=0.0, dtype=torch.float32):
+    t = torch.randn(*shape, generator=gen, device=gen.device)
+    return (offset + scale * t).to(dtype)
+
+
+def _block_args(dev, b, n, c, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn(g, b, n, c, dtype=dtype)
+    ln = (_randn(g, c, scale=0.1, offset=1.0), _randn(g, c, scale=0.1))
+    attn = (_randn(g, c, 3 * c, scale=c ** -0.5, dtype=dtype),
+            _randn(g, 3 * c, scale=0.1),
+            _randn(g, c, c, scale=c ** -0.5, dtype=dtype),
+            _randn(g, c, scale=0.1))
+    mlp = (_randn(g, c, 4 * c, scale=c ** -0.5, dtype=dtype),
+           _randn(g, 4 * c, scale=0.1),
+           _randn(g, 4 * c, c, scale=(4 * c) ** -0.5, dtype=dtype),
+           _randn(g, c, scale=0.1))
+    return x, ln, attn, mlp
+
+
+def _assert_close(out, ref, tol):
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    out, ref = out.float(), ref.float()
+    assert bool(torch.isfinite(out).all())
+    err = (out - ref).abs()
+    bound = tol + tol * ref.abs()
+    assert bool((err <= bound).all()), float(err.max())
+
+
+# (batch, tokens, width, heads): the ViT-B/16 block at the serving batch,
+# and small widths reaching every head dim the attention core takes
+SHAPES = [(2, 197, 768, 12), (3, 20, 64, 4), (2, 33, 128, 4),
+          (1, 9, 512, 4)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_attn_block_kernel_matches_plain(shape, dtype):
+    dev = _cuda()
+    b, n, c, heads = shape
+    x, (g1, b1), (wqkv, bqkv, wproj, bproj), _ = _block_args(
+        dev, b, n, c, dtype, seed=1)
+    before = vb.attn_block.launches
+    out = vb.attn_block(x, g1, b1, wqkv, bqkv, wproj, bproj, heads)
+    torch.cuda.synchronize()
+    assert vb.attn_block.launches == before + 1
+    ref = vb.attn_block_ref(x, g1, b1, wqkv, bqkv, wproj, bproj, heads)
+    _assert_close(out, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_mlp_block_kernel_matches_plain(shape, dtype):
+    dev = _cuda()
+    b, n, c, _ = shape
+    x, (g2, b2), _, (w1, bb1, w2, bb2) = _block_args(dev, b, n, c, dtype,
+                                                      seed=2)
+    before = vb.mlp_block.launches
+    out = vb.mlp_block(x, g2, b2, w1, bb1, w2, bb2)
+    torch.cuda.synchronize()
+    assert vb.mlp_block.launches == before + 1
+    _assert_close(out, vb.mlp_block_ref(x, g2, b2, w1, bb1, w2, bb2),
+                  TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("batch", [1, 8, 13])
+def test_fused_mlp_kernel_matches_plain(batch, dtype):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(batch)
+    dims = (2816, 512, 256, 2)
+    args = [_randn(g, batch, dims[0], dtype=dtype)]
+    for din, dout in zip(dims[:-1], dims[1:]):
+        args += [_randn(g, din, dout, scale=din ** -0.5, dtype=dtype),
+                 _randn(g, dout, scale=0.1)]
+    before = fm.fused_mlp.launches
+    out = fm.fused_mlp(*args)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp.launches == before + 1
+    _assert_close(out, fm.fused_mlp_ref(*args), TOL[dtype])
+
+
+def test_kernels_refuse_bad_operands():
+    dev = _cuda()
+    x, (g1, b1), (wqkv, bqkv, wproj, bproj), _ = _block_args(
+        dev, 1, 9, 64, torch.float32, seed=3)
+    with pytest.raises(TypeError):          # weights not in x's dtype
+        vb.attn_block(x, g1, b1, wqkv.bfloat16(), bqkv, wproj, bproj, 4)
+    with pytest.raises(ValueError):         # operand on another device
+        vb.attn_block(x, g1.cpu(), b1, wqkv, bqkv, wproj, bproj, 4)
+    with pytest.raises(ValueError):         # head dim 12 has no kernel
+        vb.attn_block(x[..., :48].contiguous(), g1[:48], b1[:48],
+                      wqkv[:48, :144].contiguous(), bqkv[:144],
+                      wproj[:48, :48].contiguous(), bproj[:48], 4)
+
+
+def test_multimodal_eval_on_card_matches_cpu():
+    """The whole eval step in fp32 on the card against the same weights
+    on the CPU (plain versions): only summation order differs."""
+    dev = _cuda()
+    from dfu_multimodal_tpu_torch.models import zoo
+    from dfu_multimodal_tpu_torch.train.engine import (Trainer, TrainConfig,
+                                                       rgb_modality,
+                                                       thermal_modality)
+    mods = {"rgb": rgb_modality(), "thermal": thermal_modality()}
+    cfg = TrainConfig(compute_dtype="float32")
+    cpu = Trainer("multimodal", cfg, mods, device="cpu", image_size=32)
+    zoo.init_model(cpu.module, torch.Generator().manual_seed(0))
+    card = Trainer("multimodal", cfg, mods, device=dev, image_size=32)
+    card.module.load_state_dict(cpu.module.state_dict())
+    rng = np.random.default_rng(0)
+    batch = {m: rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8)
+             for m in mods}
+    ref = cpu.eval_step(batch)
+    out = card.eval_step(batch)
+    np.testing.assert_allclose(out["probs"].cpu().numpy(),
+                               ref["probs"].numpy(), rtol=1e-4, atol=1e-5)

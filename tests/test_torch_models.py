@@ -1,0 +1,221 @@
+"""Port models against the JAX package's flax models on the CPU, with the
+same weights carried across by the weight bridge (tools/convert_jax.py).
+
+The JAX variables are made by the JAX initialisers, then every vector
+leaf (biases, LayerNorm/BatchNorm params, BN statistics, CLS token and
+position embedding) is perturbed with numpy noise from a seed, so a key
+that lands in the wrong place cannot hide behind a zero or a one.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dfu_multimodal_tpu.config import (TrainConfig, rgb_modality,
+                                       thermal_modality)
+from dfu_multimodal_tpu.data.transforms import eval_normalize
+from dfu_multimodal_tpu.models import zoo as jax_zoo
+from dfu_multimodal_tpu.models.resnet import ResNet50 as JaxResNet50
+from dfu_multimodal_tpu.models.vit import ViT as JaxViT
+from dfu_multimodal_tpu.tools.convert_torch import convert_state_dict
+from dfu_multimodal_tpu_torch.models import zoo
+from dfu_multimodal_tpu_torch.models.resnet import ResNet50
+from dfu_multimodal_tpu_torch.models.vit import ViT
+from dfu_multimodal_tpu_torch.tools.convert_jax import (
+    resnet_state_dict, variables_to_state_dict, vit_state_dict)
+from dfu_multimodal_tpu_torch.train.engine import Trainer
+
+torch.set_num_threads(1)
+
+REPO_ROOT = Path(__file__).resolve().parents[1]
+IMAGE = 32
+
+
+def _perturb(variables, seed):
+    """numpy copy of a JAX variables tree with every non-kernel leaf
+    moved off its initial value (BN variances stay positive)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        x = np.asarray(x, np.float32)
+        name = str(path[-1].key)
+        if name == "var":
+            return x * rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        if name == "kernel":
+            return x
+        return x + 0.05 * rng.standard_normal(x.shape).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, variables)
+
+
+def _images(batch, seed):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((batch, IMAGE, IMAGE, 3)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_multimodal():
+    """(module, spec, perturbed numpy variables) of the JAX multimodal
+    model at full width, image 32."""
+    module, spec = jax_zoo.build("multimodal")
+    variables = jax_zoo.init_model(module, spec, jax.random.PRNGKey(0),
+                                   image_size=IMAGE)
+    return module, spec, _perturb(variables, seed=0)
+
+
+# ------------------------------------------------------------------- ViT
+
+
+def _tiny_vit_variables():
+    kw = dict(depth=2, hidden_dim=64, num_heads=4, patch_size=8)
+    x = _images(2, seed=1)
+    flax_vit = JaxViT(block_impl="flax", attention_impl="xla", **kw)
+    variables = _perturb(flax_vit.init({"params": jax.random.PRNGKey(1)},
+                                       jnp.asarray(x), train=False), seed=1)
+    port = ViT(image_size=IMAGE, **kw)
+    port.load_state_dict(vit_state_dict(variables["params"]), strict=True)
+    return kw, variables, x, port.eval()
+
+
+@pytest.mark.parametrize("block_impl,rtol,atol", [
+    # fp32 flax blocks: the same math, summed in another order
+    ("flax", 1e-4, 1e-4),
+    # fused Pallas blocks in interpret mode: their logistic GELU against
+    # the port's exact erf GELU (the reference's budget, test_ops.py:173)
+    ("fused_interpret", 1e-3, 3e-3)])
+def test_tiny_vit_matches_flax(block_impl, rtol, atol):
+    kw, variables, x, port = _tiny_vit_variables()
+    jvit = JaxViT(block_impl=block_impl, attention_impl="xla", **kw)
+    ref = jvit.apply(variables, jnp.asarray(x), train=False)
+    with torch.no_grad():
+        out = port(torch.from_numpy(x))
+    assert out.dtype == torch.float32 and out.shape == (2, 64)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               rtol=rtol, atol=atol)
+
+
+# ---------------------------------------------------------------- ResNet
+
+
+def test_resnet50_matches_flax():
+    x = _images(2, seed=2)
+    jres = JaxResNet50()
+    variables = _perturb(jres.init({"params": jax.random.PRNGKey(2)},
+                                   jnp.asarray(x), train=False), seed=2)
+    ref = np.asarray(jres.apply(variables, jnp.asarray(x), train=False))
+    port = ResNet50()
+    port.load_state_dict(resnet_state_dict(variables["params"],
+                                           variables["batch_stats"]),
+                         strict=True)
+    with torch.no_grad():
+        out = port.eval()(torch.from_numpy(x))
+    assert out.dtype == torch.float32 and out.shape == (2, 2048)
+    # fp32 convs summed in another order through 53 layers
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4,
+                               atol=1e-4 * np.abs(ref).max())
+
+
+# ------------------------------------------------------------ multimodal
+
+
+def _trainer():
+    return Trainer("multimodal", TrainConfig(compute_dtype="float32"),
+                   {"rgb": rgb_modality(), "thermal": thermal_modality()},
+                   device="cpu", image_size=IMAGE)
+
+
+def test_multimodal_eval_step_matches_jax(jax_multimodal):
+    module, spec, variables = jax_multimodal
+    rng = np.random.default_rng(3)
+    batch = {m: rng.integers(0, 256, (3, IMAGE, IMAGE, 3), dtype=np.uint8)
+             for m in ("rgb", "thermal")}
+    modalities = {"rgb": rgb_modality(), "thermal": thermal_modality()}
+    inputs = {m: eval_normalize(jnp.asarray(batch[m]), modalities[m],
+                                jnp.float32) for m in batch}
+    logits = jax_zoo.apply_model(module, spec, variables, inputs,
+                                 train=False)
+    ref = np.asarray(jax.nn.softmax(logits, axis=-1)[:, 1])
+
+    trainer = _trainer()
+    trainer.module.load_state_dict(
+        variables_to_state_dict("multimodal", variables), strict=True)
+    out = trainer.eval_step(batch)
+    np.testing.assert_allclose(out["probs"].numpy(), ref, rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_array_equal(out["preds"].numpy(),
+                                  np.argmax(np.asarray(logits), axis=-1))
+
+
+def test_bridge_round_trip(jax_multimodal):
+    """variables -> port state_dict -> convert_torch.convert_state_dict
+    onto an all-zero tree gives back every original leaf, exactly."""
+    _, _, variables = jax_multimodal
+    sd = variables_to_state_dict("multimodal", variables)
+    zeros = jax.tree.map(np.zeros_like, variables)
+    merged, skipped = convert_state_dict("multimodal", sd, zeros)
+    assert skipped == 0
+    flat_ref = dict(jax.tree_util.tree_leaves_with_path(variables))
+    flat_out = dict(jax.tree_util.tree_leaves_with_path(merged))
+    assert flat_out.keys() == flat_ref.keys()
+    for path, ref in flat_ref.items():
+        np.testing.assert_array_equal(np.asarray(flat_out[path]), ref,
+                                      err_msg=str(path))
+
+
+def test_bridge_loads_strict_and_counts_params(jax_multimodal):
+    _, _, variables = jax_multimodal
+    model, _ = zoo.build("multimodal", image_size=IMAGE)
+    sd = variables_to_state_dict("multimodal", variables)
+    assert sd.keys() == model.state_dict().keys()
+    model.load_state_dict(sd, strict=True)
+    assert zoo.param_count(model) == jax_zoo.param_count(variables)
+
+
+def test_param_count_at_224():
+    model, spec = zoo.build("multimodal")
+    assert spec.inputs == ("rgb", "thermal")
+    assert zoo.param_count(model) == 110_880_834    # tests/test_models.py
+
+
+NO_JAX_SCRIPT = r"""
+import sys
+for name in ("jax", "jaxlib", "flax"):
+    sys.modules[name] = None            # any import of them now fails
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import dfu_multimodal_tpu_torch.ops._build
+import dfu_multimodal_tpu_torch.serve.engine
+import dfu_multimodal_tpu_torch.tools.convert_jax
+from dfu_multimodal_tpu_torch.models import zoo
+from dfu_multimodal_tpu_torch.train.engine import (
+    Trainer, TrainConfig, rgb_modality, thermal_modality)
+
+trainer = Trainer("multimodal", TrainConfig(compute_dtype="float32"),
+                  {"rgb": rgb_modality(), "thermal": thermal_modality()},
+                  device="cpu", image_size=32)
+zoo.init_model(trainer.module, torch.Generator().manual_seed(0))
+rng = np.random.default_rng(0)
+batch = {m: rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
+         for m in ("rgb", "thermal")}
+probs = trainer.eval_step(batch)["probs"]
+assert probs.shape == (2,) and bool(torch.isfinite(probs).all())
+loaded = [m for m, v in sys.modules.items() if v is not None
+          and m.split(".")[0] in ("jax", "jaxlib", "flax")]
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_port_imports_and_runs_without_jax():
+    proc = subprocess.run([sys.executable, "-c", NO_JAX_SCRIPT],
+                          cwd=REPO_ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
