@@ -1,43 +1,68 @@
-"""Drive the PyTorch port's multimodal serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device   — name, count, and nvidia-smi's name and power limit;
-2. build    — nvcc builds the kernels from ops/csrc (sm_90a); prints the
-              build seconds and ptxas's register / spill report;
-3. kernels  — each hand-written kernel against its plain PyTorch version
-              on the card at the serving path's shapes (ViT-B/16 blocks at
-              B = 8 and 128 in fp32 and bf16, the fusion head at B = 8, 13,
-              128 in fp32), with error and CUDA-event times;
-4. slice    — the full-width multimodal model (ResNet50 + ViT-B/16, random
+2. build    — nvcc builds the kernels from ops/csrc (sm_90a), one process
+              per source, all at once; prints the build seconds and
+              ptxas's register / spill report;
+3. kernels  — each forward kernel against its plain PyTorch version on
+              the card at the serving and training paths' shapes
+              (ViT-B/16 blocks at B = 8, 16 and 128 in fp32 and bf16, the
+              fusion head at B = 8, 13, 128 in fp32), with error and
+              CUDA-event times;
+3b. backward kernels — K4 ``mlp_block_bwd`` and K5
+              ``qkv_attention_fwdbwd`` against their plain versions at
+              B = 16 and 128 in fp32 and bf16, likewise;
+4. serve    — the full-width multimodal model (ResNet50 + ViT-B/16, random
               weights from a seeded generator) behind Trainer +
               ServingEngine(max_batch=8) in bf16: 24 requests from 3
               threads, launch counts, and the card (bf16 and fp32) against
               the CPU's plain fp32 path on the same weights and inputs;
-5. the kernels' JSON line, then the device JSON line last.
+5. train    — the full-width thermal_only ViT-B/16 (seeded weights) in
+              bf16 at batch 16, built by ``tools/profile_train.py``'s
+              ``recipe_trainer`` (the trainer that tool profiles): 8 steps
+              of ``run_train_epoch`` over a 128-image synthetic dataset
+              (step ms, images/s, peak memory, loss per step, 12 launches
+              per step of each ViT kernel), then one fp32 train step on
+              the card against the CPU's plain fp32 step on the same
+              weights and batch, each parameter's gradient within 1e-5 of
+              its own max|g|;
+6. the kernels' JSON line (times, bounds, launches), then the device JSON
+   line last.
 
 Exits non-zero with no result line when no CUDA device is present.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from dfu_multimodal_tpu_torch.config import AugmentConfig
+from dfu_multimodal_tpu_torch.data.loader import ArrayDataset
 from dfu_multimodal_tpu_torch.models import zoo
 from dfu_multimodal_tpu_torch.ops import _build
+from dfu_multimodal_tpu_torch.ops import attention as at
 from dfu_multimodal_tpu_torch.ops import fused_mlp as fm
 from dfu_multimodal_tpu_torch.ops import vit_block as vb
 from dfu_multimodal_tpu_torch.serve.engine import ServingEngine
+from dfu_multimodal_tpu_torch.tools.profile_train import (TRAIN_BATCH,
+                                                          recipe_trainer,
+                                                          synthetic_thermal)
 from dfu_multimodal_tpu_torch.train.engine import (Trainer, TrainConfig,
+                                                   class_weights_from_labels,
                                                    rgb_modality,
                                                    thermal_modality)
 
@@ -83,17 +108,28 @@ def phase_device() -> str:
 # ---------------------------------------------------------------- phase 2
 
 
+SOURCES = ("vit_block", "fused_mlp", "attention")
+
+
 def phase_build() -> None:
-    for name in ("vit_block", "fused_mlp"):
+    def build(name):
         t0 = time.perf_counter()
         _build.build(name)
-        log(f"[build] {name}.cu: {time.perf_counter() - t0:.2f} s "
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc per source
+        seconds = dict(zip(SOURCES, pool.map(build, SOURCES)))
+    log(f"[build] all sources in {time.perf_counter() - t0:.2f} s")
+    for name in SOURCES:
+        log(f"[build] {name}.cu: {seconds[name]:.2f} s "
             f"-> {_build.library_path(name)}")
         for line in _build.ptxas_log(name).splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 log(f"[ptxas] {line.strip()}")
     # bind the entry points now, so a missing symbol fails this phase
     vb._lib()
+    at._lib()
     _build.load("fused_mlp", fm._SIGNATURES)
 
 
@@ -108,13 +144,23 @@ def _randn(gen, *shape, scale=1.0, offset=0.0, dtype=torch.float32):
 
 
 def _check_and_time(label, kernel, plain, tol):
-    out = kernel()
+    """Hold the kernel's output(s) against the plain version's within
+    |err| <= tol·(1 + |ref|), then time both in turns."""
+    outs, refs = kernel(), None
     torch.cuda.synchronize()
-    ref = plain()
-    abs_err, rel_err = max_errors(out, ref)
-    bound = tol * (1.0 + ref.float().abs())
-    ok = bool(torch.isfinite(out.float()).all()) and bool(
-        ((out.float() - ref.float()).abs() <= bound).all())
+    refs = plain()
+    if isinstance(outs, torch.Tensor):
+        outs, refs = (outs,), (refs,)
+    abs_err = rel_err = 0.0
+    ok = True
+    for out, ref in zip(outs, refs):
+        a, r = max_errors(out, ref)
+        abs_err, rel_err = max(abs_err, a), max(rel_err, r)
+        bound = tol * (1.0 + ref.float().abs())
+        ok = ok and out.shape == ref.shape and bool(
+            torch.isfinite(out.float()).all()) and bool(
+            ((out.float() - ref.float()).abs() <= bound).all())
+    del outs, refs
     k_ms, p_ms = cuda_ms(kernel), cuda_ms(plain)
     p_ms2, k_ms2 = cuda_ms(plain), cuda_ms(kernel)     # turns: p, k, k, p
     k_ms, p_ms = (k_ms + k_ms2) / 2, (p_ms + p_ms2) / 2
@@ -133,7 +179,7 @@ def phase_kernels(dev) -> dict:
     n, c, heads = 197, 768, 12
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for b in (8, 128):
+        for b in (8, 16, 128):       # serving 8, training 16, a large batch
             g = torch.Generator(device=dev).manual_seed(b)
             x = _randn(g, b, n, c, dtype=dtype)
             ln = (_randn(g, c, scale=0.1, offset=1.0),
@@ -175,6 +221,43 @@ def phase_kernels(dev) -> dict:
                               KERNEL_TOL[torch.float32])
         if b == 8:
             main["fused_mlp"] = res
+    return main
+
+
+# --------------------------------------------------------------- phase 3b
+
+
+def phase_backward_kernels(dev) -> dict:
+    """K4 and K5 against their plain versions at the training path's
+    shapes (ViT-B/16, B = 16) and at B = 128."""
+    n, c, heads = 197, 768, 12
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (16, 128):
+            g = torch.Generator(device=dev).manual_seed(2000 + b)
+            x = _randn(g, b, n, c, dtype=dtype)
+            dout = _randn(g, b, n, c, dtype=dtype)
+            ln = (_randn(g, c, scale=0.1, offset=1.0),
+                  _randn(g, c, scale=0.1))
+            w1 = _randn(g, c, 4 * c, scale=c ** -0.5, dtype=dtype)
+            b1 = _randn(g, 4 * c, scale=0.1)
+            w2 = _randn(g, 4 * c, c, scale=(4 * c) ** -0.5, dtype=dtype)
+            qkv = _randn(g, b, n, 3 * c, dtype=dtype)
+            tag = f"{str(dtype).split('.')[1]} B={b}"
+            mlp = _check_and_time(
+                f"mlp_block_bwd {tag}",
+                lambda: vb.mlp_block_bwd(x, dout, *ln, w1, b1, w2),
+                lambda: vb.mlp_block_bwd_ref(x, dout, *ln, w1, b1, w2),
+                KERNEL_TOL[dtype])
+            att = _check_and_time(
+                f"qkv_attention_fwdbwd {tag}",
+                lambda: at.qkv_attention_fwdbwd(qkv, dout, heads),
+                lambda: at.qkv_attention_fwdbwd_ref(qkv, dout, heads),
+                KERNEL_TOL[dtype])
+            if dtype == torch.bfloat16 and b == 16:  # the training shape
+                main["mlp_block_bwd"], main["qkv_attention_fwdbwd"] = mlp, att
+            del x, dout, w1, w2, qkv
+            torch.cuda.empty_cache()
     return main
 
 
@@ -303,6 +386,188 @@ def phase_slice(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 5
+
+TRAIN_IMAGES, TRAIN_PARAMS = 128, 85_800_194
+# card fp32 vs CPU fp32 train step on the same weights and batch: the
+# gradients differ in summation order only, so each parameter's gradient
+# is held within GRAD_TOL of that parameter's own max|g|; the params after
+# one AdamW step within 2·lr (Adam's first step is lr·sign(g), and a
+# gradient that is ~0 — e.g. the key bias's — may take either sign)
+GRAD_TOL = 1e-5
+TRAIN_KERNELS = ("attn_block", "mlp_block", "mlp_block_bwd",
+                 "qkv_attention_fwdbwd")
+
+
+def _train_launches() -> dict:
+    return {"attn_block": vb.attn_block.launches,
+            "mlp_block": vb.mlp_block.launches,
+            "mlp_block_bwd": vb.mlp_block_bwd.launches,
+            "qkv_attention_fwdbwd": at.qkv_attention_fwdbwd.launches}
+
+
+def _reset_launches() -> None:
+    vb.attn_block.launches = vb.mlp_block.launches = 0
+    vb.mlp_block_bwd.launches = at.qkv_attention_fwdbwd.launches = 0
+    fm.fused_mlp.launches = 0
+
+
+class _StepMeter:
+    """Host clock around a synchronize after every step, and the loss."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.ms, self.losses = [], []
+
+    def update(self, n, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.ms.append((now - self.t) * 1e3)
+        self.t = now
+        self.losses.append(float(metrics["loss"]))
+
+
+def _neutral_thermal():
+    """The thermal modality with every augmentation probability and angle
+    0: the warp is the identity and no blur applies."""
+    aug = AugmentConfig(horizontal_flip_prob=0.0, vertical_flip_prob=0.0,
+                        rotation_degrees=0.0, aug_prob=0.0,
+                        affine_degrees=0.0, color_jitter=False)
+    return dataclasses.replace(thermal_modality(), augment=aug)
+
+
+def phase_train(dev) -> dict:
+    images, labels = synthetic_thermal(TRAIN_IMAGES)
+    data = ArrayDataset({"thermal": images}, labels)
+    weights = class_weights_from_labels(labels)
+    tr = recipe_trainer(dev, labels)
+    cfg = tr.cfg
+    n_params = zoo.param_count(tr.module)
+    log(f"[train] thermal_only at {IMAGE}x{IMAGE}: {n_params:,} params on "
+        f"{dev}, compute bfloat16, batch {TRAIN_BATCH}, lr "
+        f"{cfg.learning_rate:g}, AdamW mu {cfg.optimizer_mu_dtype}")
+    if n_params != TRAIN_PARAMS:
+        raise AssertionError(f"param count {n_params} != {TRAIN_PARAMS:,}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    first = {"thermal": data.arrays["thermal"][:TRAIN_BATCH],
+             "label": labels[:TRAIN_BATCH],
+             "valid": np.ones(TRAIN_BATCH, np.float32)}
+    t0 = time.perf_counter()
+    tr.train_step(first, gen)                 # warm-up: optimizer, handles
+    torch.cuda.synchronize(dev)
+    log(f"[train] warm-up step {1e3 * (time.perf_counter() - t0):.1f} ms")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    meter = _StepMeter()
+    epoch = tr.run_train_epoch(data, np.random.default_rng(1), gen,
+                               meter=meter)
+    launches = _train_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = len(meter.ms)
+    steady = meter.ms[1:]
+    mean_ms = sum(steady) / len(steady)
+    log(f"[train] {steps} steps, step ms "
+        f"{[round(m, 3) for m in meter.ms]}; mean of steps 2-{steps} "
+        f"{mean_ms:.3f} ms = {1e3 * TRAIN_BATCH / mean_ms:.1f} images/s; "
+        f"peak device memory {peak / 2**20:.1f} MiB")
+    log(f"[train] loss per step {[round(x, 5) for x in meter.losses]}; "
+        f"epoch loss {epoch.loss:.5f} acc {epoch.accuracy:.4f} "
+        f"f1 {epoch.f1:.4f}")
+    log(f"[train] launches {launches}")
+    if steps != TRAIN_IMAGES // TRAIN_BATCH:
+        raise AssertionError(f"{steps} steps, expected "
+                             f"{TRAIN_IMAGES // TRAIN_BATCH}")
+    if not all(np.isfinite(meter.losses)):
+        raise AssertionError(f"non-finite loss: {meter.losses}")
+    want = {k: 12 * steps for k in TRAIN_KERNELS}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+
+    # one fp32 step on the card against the CPU's plain fp32 step
+    cfg32 = TrainConfig(batch_size=4, compute_dtype="float32",
+                        optimizer_mu_dtype="float32", drop_rate=0.0)
+    mods = {"thermal": _neutral_thermal()}
+    card = Trainer("thermal_only", cfg32, mods, class_weights=weights,
+                   device=dev, image_size=IMAGE)
+    cpu = Trainer("thermal_only", cfg32, mods, class_weights=weights,
+                  device="cpu", image_size=IMAGE)
+    state = {k: v.detach().cpu() for k, v in tr.variables().items()}
+    card.module.load_state_dict(state)
+    cpu.module.load_state_dict(state)
+    batch = {"thermal": data.arrays["thermal"][:4], "label": labels[:4],
+             "valid": np.array([1, 1, 1, 0], np.float32)}
+    out_card = card.train_step(batch, torch.Generator(device=dev))
+    out_cpu = cpu.train_step(batch, torch.Generator())
+    cpu_params = dict(cpu.module.named_parameters())
+    g_rel, p_err = {}, 0.0
+    for name, p in card.module.named_parameters():
+        q = cpu_params[name]
+        g_rel[name] = float((p.grad.cpu() - q.grad).abs().max()) / float(
+            q.grad.abs().max())
+        p_err = max(p_err, float((p.detach().cpu() - q.detach()).abs().max()))
+    worst = sorted(g_rel, key=g_rel.get, reverse=True)[:3]
+    lr = cfg32.learning_rate
+    loss_card, loss_cpu = float(out_card["loss"]), float(out_cpu["loss"])
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    ok = (max(g_rel.values()) <= GRAD_TOL and p_err <= 2 * lr
+          and loss_rel <= 1e-4
+          and torch.equal(out_card["counts"].cpu(), out_cpu["counts"]))
+    log(f"[train] card fp32 vs CPU fp32 step: loss {loss_card:.6f} vs "
+        f"{loss_cpu:.6f} (rel {loss_rel:.2e}, tol 1e-4); grad max|d| per "
+        f"parameter / its max|g|, worst {len(worst)} of {len(g_rel)}: "
+        f"{ {k: f'{g_rel[k]:.3e}' for k in worst} } (tol {GRAD_TOL:g}); "
+        f"param max|d| after AdamW {p_err:.3e} (tol 2*lr = {2 * lr:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("card fp32 train step disagrees with the CPU")
+    return launches
+
+
+# ---------------------------------------------------------------- bounds
+
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _bound(flops: float, nbytes: float, dtype) -> dict:
+    """Least time the card could take: the larger of operations over the
+    dtype's peak rate and bytes over the memory rate (each input read
+    once, each output written once)."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def kernel_bounds() -> dict:
+    """Bounds at each kernel's path shape: K1-K2 at the serving batch 8,
+    K3 at batch 8 in fp32, K4-K5 at the training batch 16, ViT-B/16."""
+    n, c, hid, heads = 197, 768, 3072, 12
+    bf, f32 = 2, 4
+    r8, r16 = 8 * n, TRAIN_BATCH * n
+    fdims = (2816, 512, 256, 2)
+    fw = sum(a * b + b for a, b in zip(fdims[:-1], fdims[1:]))
+    return {
+        "attn_block": _bound(
+            2 * r8 * c * 4 * c + 4 * 8 * n * n * c,
+            2 * r8 * c * bf + 4 * c * c * bf + 6 * c * f32, torch.bfloat16),
+        "mlp_block": _bound(
+            4 * r8 * c * hid,
+            2 * r8 * c * bf + 2 * c * hid * bf + (3 * c + hid) * f32,
+            torch.bfloat16),
+        "fused_mlp": _bound(
+            2 * 8 * sum(a * b for a, b in zip(fdims[:-1], fdims[1:])),
+            (8 * fdims[0] + fw + 8 * fdims[-1]) * f32, torch.float32),
+        "mlp_block_bwd": _bound(
+            6 * r16 * c * hid,
+            4 * r16 * c * bf + 2 * c * hid * bf + 2 * r16 * hid * bf
+            + (4 * c + hid) * f32, torch.bfloat16),
+        "qkv_attention_fwdbwd": _bound(
+            12 * TRAIN_BATCH * n * n * c, 8 * r16 * c * bf,
+            torch.bfloat16),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -310,17 +575,26 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name = phase_device()
     phase_build()
-    main_shapes = phase_kernels(dev)
+    times = phase_kernels(dev)
+    times.update(phase_backward_kernels(dev))
     launches = phase_slice(dev)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
-    sources = {"attn_block": ("vit_block.cu", "vit_block.py:122"),
-               "mlp_block": ("vit_block.cu", "vit_block.py:564"),
-               "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:27")}
+    launches.update({k: v for k, v in phase_train(dev).items()
+                     if k in ("mlp_block_bwd", "qkv_attention_fwdbwd")})
+    for mod in ("jax", "dfu_multimodal_tpu"):
+        if mod in sys.modules:
+            raise AssertionError(f"the port imported {mod}")
+    bounds = kernel_bounds()
+    sources = {
+        "attn_block": ("vit_block.cu", "vit_block.py:122"),
+        "mlp_block": ("vit_block.cu", "vit_block.py:564"),
+        "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:27"),
+        "mlp_block_bwd": ("vit_block.cu", "vit_block.py:652"),
+        "qkv_attention_fwdbwd": ("attention.cu", "attention.py:334")}
     kernels = [{"name": k, "route": "cuda",
                 "source": f"dfu_multimodal_tpu_torch/ops/csrc/{src}",
                 "replaces": f"dfu_multimodal_tpu/ops/{tpu}",
-                "launches": launches[k], **main_shapes[k]}
+                "launches": launches[k], **times[k], **bounds[k],
+                "library_ms": None}
                for k, (src, tpu) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,20 +2,24 @@
 ``dfu_multimodal_tpu``.
 
 The JAX package stays the reference; this package mirrors its module
-names.  Ported so far: the multimodal serving path.
+names.  Ported so far: the multimodal serving path and the thermal_only
+train step.
 
 - ``ops``      hand-written Hopper kernels (``ops/csrc/*.cu``, built with
                nvcc at first use) beside their plain PyTorch versions;
-               a CPU tensor takes the plain version, a CUDA tensor the kernel
+               a CPU tensor takes the plain version, a CUDA tensor the
+               kernel; the ViT blocks' autograd Functions
 - ``models``   ResNet50 (torchvision layout), ViT-B/16 (timm layout), the
-               fusion classifier and the model registry
-- ``data``     the eval transform
-- ``train``    the eval half of the Trainer
+               ViT and fusion classifiers and the model registry
+- ``data``     the eval and train transforms, the in-memory dataset and
+               batching
+- ``eval``     confusion counts, accuracy and F1
+- ``train``    the Trainer (eval step, train step, train epoch) and AdamW
 - ``serve``    the micro-batching ServingEngine
 - ``tools``    the JAX -> port weight bridge
+- ``config``   the port's copy of the configuration dataclasses
 
-No module imports jax or flax; ``dfu_multimodal_tpu.config`` (host-only)
-is shared.
+No module imports jax, flax or the JAX package.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,34 +1,39 @@
 """ViT-B/16 in PyTorch, timm key layout, blocks on the port's kernels.
 
 Counterpart of ``dfu_multimodal_tpu/models/vit.py`` (``ViT`` with the fused
-block path): 224x224 -> 14x14 patches + CLS = 197 tokens, 12 pre-LN
-encoder blocks, 12 heads, MLP ratio 4, CLS-token features.  Each block's
-forward calls ``ops.vit_block.attn_block`` and ``mlp_block``.
+block path, and ``ViTClassifier``): 224x224 -> 14x14 patches + CLS = 197
+tokens, 12 pre-LN encoder blocks, 12 heads, MLP ratio 4, CLS-token
+features.  Each block runs the trainable ``ops.vit_block.AttnBlock`` and
+``MlpBlock`` (forward kernels K1/K2; backward K5/K4 in the hand chain
+rules, rematerialised from the block inputs).
 
 Parameters are fp32 in timm's layout (``patch_embed.proj`` conv-shaped,
 ``blocks.{i}.norm1/attn.qkv/attn.proj/norm2/mlp.fc1/mlp.fc2``, ``norm``);
 compute runs in ``dtype``.  Every forward transposes the Linear weights to
 the kernels' (in, out) layout and casts them to the compute dtype — one
-copy of the trunk's weights per call.
+copy of the trunk's weights per call.  The copy is differentiable (JAX's
+``astype`` VJP): a weight gradient computed in the compute dtype reaches
+the fp32 parameter through it, so a bf16 step rounds weight gradients to
+bf16 first, as the JAX package does.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from dfu_multimodal_tpu_torch.models.common import canonical_dtype
-from dfu_multimodal_tpu_torch.ops.vit_block import attn_block, mlp_block
+from dfu_multimodal_tpu_torch.ops.vit_block import AttnBlock, MlpBlock
 
 LN_EPS = 1e-6
 
 
 def _in_out(linear: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """A Linear's (out, in) weight as a contiguous (in, out) ``dtype``
-    tensor (one copy)."""
+    tensor (one copy; gradients flow back through it)."""
     w = linear.weight
     return torch.empty((w.shape[1], w.shape[0]), dtype=dtype,
                        device=w.device).copy_(w.t())
@@ -67,13 +72,13 @@ class EncoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        x = attn_block(x, self.norm1.weight, self.norm1.bias,
-                       _in_out(self.attn.qkv, dt), self.attn.qkv.bias,
-                       _in_out(self.attn.proj, dt), self.attn.proj.bias,
-                       self.num_heads)
-        return mlp_block(x, self.norm2.weight, self.norm2.bias,
-                         _in_out(self.mlp.fc1, dt), self.mlp.fc1.bias,
-                         _in_out(self.mlp.fc2, dt), self.mlp.fc2.bias)
+        x = AttnBlock.apply(x, self.norm1.weight, self.norm1.bias,
+                            _in_out(self.attn.qkv, dt), self.attn.qkv.bias,
+                            _in_out(self.attn.proj, dt), self.attn.proj.bias,
+                            self.num_heads)
+        return MlpBlock.apply(x, self.norm2.weight, self.norm2.bias,
+                              _in_out(self.mlp.fc1, dt), self.mlp.fc1.bias,
+                              _in_out(self.mlp.fc2, dt), self.mlp.fc2.bias)
 
 
 class PatchEmbed(nn.Module):
@@ -134,3 +139,43 @@ class ViT(nn.Module):
 def ViTBase16(dtype: Union[str, torch.dtype] = torch.float32,
               image_size: int = 224) -> ViT:
     return ViT(image_size=image_size, dtype=dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout drawn from an explicit generator (on x's device):
+    keep with probability 1 - rate and scale by 1/(1 - rate), as flax's
+    ``nn.Dropout``."""
+    if rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
+
+
+class ViTClassifier(nn.Module):
+    """ViT-B/16 trunk + Dropout + Linear(768 -> num_classes) head in fp32:
+    the reference's ``ThermalOnlyModel``.  The trunk's keys carry the
+    ``vit.`` prefix, which the JAX package's torch converter strips; the
+    head is ``head``.  Dropout is active in train mode and draws from the
+    ``generator`` given to forward (required then)."""
+
+    def __init__(self, num_classes: int = 2, drop_rate: float = 0.5,
+                 dtype: Union[str, torch.dtype] = torch.float32,
+                 image_size: int = 224, **vit_kwargs):
+        super().__init__()
+        self.drop_rate = drop_rate
+        self.vit = ViT(image_size=image_size, dtype=dtype, **vit_kwargs)
+        hidden = self.vit.pos_embed.shape[-1]
+        self.head = nn.Linear(hidden, num_classes)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        feats = self.vit(x)
+        if self.training and self.drop_rate > 0.0:
+            if generator is None:
+                raise ValueError("ViTClassifier in train mode draws its "
+                                 "dropout from an explicit generator")
+            feats = dropout(feats, self.drop_rate, generator)
+        return self.head(feats.float())

@@ -1,7 +1,8 @@
 """Model registry (counterpart of ``dfu_multimodal_tpu/models/zoo.py``).
 
-Only the flagship ``multimodal`` entry is ported so far; the other
-families join as their modules land.
+Ported so far: the flagship ``multimodal`` fusion model and the
+``thermal_only`` ViT classifier; the other families join as their modules
+land.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 from torch import nn
 
 from dfu_multimodal_tpu_torch.models.fusion import MultimodalFusionClassifier
-from dfu_multimodal_tpu_torch.models.vit import ViT
+from dfu_multimodal_tpu_torch.models.vit import ViT, ViTClassifier
 
 
 @dataclass(frozen=True)
@@ -31,6 +32,7 @@ def register(spec: ModelSpec) -> ModelSpec:
     return spec
 
 
+register(ModelSpec("thermal_only", ViTClassifier, ("thermal",)))
 register(ModelSpec("multimodal", MultimodalFusionClassifier,
                    ("rgb", "thermal")))
 

@@ -1,62 +1,102 @@
-// ViT encoder-block forward kernels for Hopper (sm_90a).
+// ViT encoder-block kernels for Hopper (sm_90a): forward and backward.
 //
 // Replaces: dfu_multimodal_tpu/ops/vit_block.py::_attn_block_kernel (K1,
-//   x + proj(MHA(qkv(LN1(x))))) and ::_mlp_block_kernel (K2,
-//   x + fc2(GELU(fc1(LN2(x))))), the two Pallas kernels of the fused
-//   ViT-B/16 encoder forward.
+//   x + proj(MHA(qkv(LN1(x))))), ::_mlp_block_kernel (K2,
+//   x + fc2(GELU(fc1(LN2(x))))) and ::_mlp_block_bwd_kernel (K4: LN2/fc1
+//   recompute, dGELU, dx with the LN backward, y/h/dhpre for the weight
+//   gradients, dg2/db2), the Pallas kernels of the fused ViT-B/16 encoder.
+//   The attention-block backward (vit_block.py::_attn_block_bwd) also runs
+//   its LayerNorm, data products and LN backward on these kernels.
 //
 // What bounds it on the H100: at the serving batch (8 images, 1576 token
-//   rows) each block reads 14 MB of bf16 weights for ~22 GFLOP, so the
-//   GEMMs sit near the ~295 FLOP/byte ridge and the launches are short;
-//   at batch 128 the GEMMs are tensor-core bound (~350 GFLOP per block).
-//   Attention is 2·N²·D per head and small next to the projections
-//   (N = 197 is ragged, D = 64).
+//   rows) each forward block reads 14 MB of bf16 weights for ~22 GFLOP,
+//   so the GEMMs sit near the ~295 FLOP/byte ridge and the launches are
+//   short; at batch 128 the GEMMs are tensor-core bound (~350 GFLOP per
+//   block).  K4 at the training batch (16 images, 3152 rows) is three
+//   GEMMs of 14.9 GFLOP each (44.6 GFLOP) against 68 MB of operands and
+//   outputs: operation-bound (45 us at the bf16 peak).  Attention is
+//   2·N²·D per head and small next to the projections (N = 197 is
+//   ragged, D = 64).
 //
-// What the design does about it: the TPU kernel keeps one image's whole
-//   block in VMEM.  A Hopper SM has 227 KB of shared memory and blocks
-//   run in parallel in no order, so each TPU kernel becomes a chain of
-//   launches that each fill the card: a warp-per-row fp32 LayerNorm, one
-//   tiled GEMM template (bf16 operands on the tensor cores through WMMA,
-//   fp32 operands on the FMA pipes, fp32 accumulation either way) whose
-//   epilogue adds the bias and applies exact-erf GELU or the residual,
-//   and an attention core that holds one head's K and V in shared memory
-//   with an exact two-pass fp32 softmax.  The qkv (B, N, 3C), attention
-//   output and MLP hidden (B·N, 4C) intermediates go through HBM; fusing
-//   them away (and wgmma/TMA pipelining of the GEMM) is later work.
+// What the design does about it: the TPU kernels keep one image's (or
+//   128 rows') whole block in VMEM and carry sums across a sequential
+//   grid.  A Hopper SM has 227 KB of shared memory and blocks run in
+//   parallel in no order, so each TPU kernel becomes a chain of launches
+//   that each fill the card: a warp-per-row fp32 LayerNorm, one tiled GEMM
+//   template (bf16 operands on the tensor cores through WMMA, fp32
+//   operands on the FMA pipes, fp32 accumulation either way; B read as
+//   stored or transposed, so dh = g·w2ᵀ and dy = dhpre·w1ᵀ need no copy of
+//   the weights) whose epilogue adds the bias and applies exact-erf GELU,
+//   the residual, or the exact dGELU of the fc1 pre-activation, and an
+//   attention core that holds one head's K and V in shared memory with an
+//   exact two-pass fp32 softmax.  K4's dg2/db2, a sum over all rows that
+//   the TPU grid accumulated in order, becomes per-64-row column partials
+//   in a (blocks, C) fp32 buffer reduced by a second pass: deterministic,
+//   no atomics.  The ragged row edge (3152 rows) is masked in every
+//   kernel, so nothing is padded.  The qkv, attention output, MLP hidden
+//   and fc1 pre-activation intermediates go through HBM; fusing them away
+//   (and wgmma/TMA pipelining of the GEMM) is later work.
 //
-// Numerics follow the Pallas kernel: fp32 LayerNorm statistics, matmul
+// Numerics follow the Pallas kernels: fp32 LayerNorm statistics, matmul
 // operands in the compute dtype with fp32 accumulation, q·kᵀ scaled by
 // 1/sqrt(D) in fp32, softmax statistics in fp32, the un-normalised exp
 // matrix rounded to the compute dtype as the P·V operand and the division
-// by the fp32 row sum deferred past P·V.  GELU is the exact erf form
-// (the Pallas kernel's logistic approximation exists only because Mosaic
-// cannot lower erf).
+// by the fp32 row sum deferred past P·V.  GELU is the exact erf form, and
+// its derivative Φ(x) + x·φ(x) (the Pallas kernels' logistic approximation
+// exists only because Mosaic cannot lower erf).
 
 #include "common.cuh"
 
 #include <mma.h>
 
+#include <type_traits>
+
 namespace dfu {
 namespace {
 
-enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESID = 2 };
+enum Epilogue {
+  EPI_BIAS = 0,           // out = T(acc + bias)
+  EPI_BIAS_GELU = 1,      // out = T(gelu(acc + bias))
+  EPI_BIAS_RESID = 2,     // out = T(aux + T(acc + bias)), aux (m, n) T
+  EPI_BIAS_GELU_AUX = 3,  // aux = acc + bias (fp32), out = T(gelu(aux))
+  EPI_DGELU = 4,          // out = T(acc * gelu'(aux)), aux (m, n) fp32
+  EPI_NONE = 5,           // out = T(acc)
+  EPI_F32 = 6             // out = acc, out fp32
+};
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
 }
 
-// out[row, col] = epilogue(acc + bias[col]) in the compute dtype.
+// d/dv gelu_erf(v) = Phi(v) + v * phi(v)
+__device__ __forceinline__ float dgelu_erf(float v) {
+  return 0.5f * (1.0f + erff(v * 0.70710678118654752f)) +
+         v * 0.39894228040143268f * expf(-0.5f * v * v);
+}
+
+// out[row, col] = epilogue(acc), in the compute dtype T unless EPI_F32.
 template <typename T, int EPI>
 __device__ __forceinline__ void store_out(float acc, int row, int col, int n,
                                           const float* __restrict__ bias,
-                                          const T* __restrict__ resid,
-                                          T* __restrict__ out) {
+                                          void* __restrict__ aux,
+                                          void* __restrict__ out) {
   const size_t i = static_cast<size_t>(row) * n + col;
-  float v = acc + bias[col];
-  if (EPI == EPI_BIAS_GELU) v = gelu_erf(v);
-  // x + o with o rounded to the compute dtype first, as the TPU kernel
-  if (EPI == EPI_BIAS_RESID) v = to_f(resid[i]) + to_f(from_f<T>(v));
-  out[i] = from_f<T>(v);
+  if constexpr (EPI == EPI_F32) {
+    static_cast<float*>(out)[i] = acc;
+    return;
+  } else {
+    float v = acc;
+    if constexpr (EPI == EPI_DGELU)
+      v *= dgelu_erf(static_cast<const float*>(aux)[i]);
+    if constexpr (EPI <= EPI_BIAS_GELU_AUX) v += bias[col];
+    if constexpr (EPI == EPI_BIAS_GELU_AUX) static_cast<float*>(aux)[i] = v;
+    if constexpr (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_AUX)
+      v = gelu_erf(v);
+    // x + o with o rounded to the compute dtype first, as the TPU kernel
+    if constexpr (EPI == EPI_BIAS_RESID)
+      v = to_f(static_cast<const T*>(aux)[i]) + to_f(from_f<T>(v));
+    static_cast<T*>(out)[i] = from_f<T>(v);
+  }
 }
 
 // ----------------------------------------------------------- LayerNorm
@@ -87,21 +127,27 @@ __global__ void layernorm_kernel(const T* __restrict__ x,
 }
 
 // --------------------------------------------------- bf16 GEMM (WMMA)
-// out (M, N) = epilogue(A (M, K) @ B (K, N)), row-major, bf16 operands,
-// fp32 accumulation.  A 64x64 output tile per block of 4 warps, each warp
-// a 32x32 quadrant of 2x2 16x16x16 WMMA fragments; K in steps of 32.
-// Ragged M/N/K are zero-filled on load and masked on store.
+// out (M, N) = epilogue(A (M, K) @ B), row-major, bf16 operands, fp32
+// accumulation; B is stored (K, N), or (N, K) and read transposed when
+// TRANS_B (an nn.Linear weight in its own (out, in) layout).  A 64x64
+// output tile per block of 4 warps, each warp a 32x32 quadrant of 2x2
+// 16x16x16 WMMA fragments; K in steps of 32.  A transposed B tile is
+// staged as stored ((N, K) rows, coalesced along K) and read by col_major
+// fragments.  Ragged M/N/K are zero-filled on load and masked on store.
 constexpr int WBM = 64, WBN = 64, WBK = 32;
-constexpr int WLDA = WBK + 8, WLDB = WBN + 8, WLDC = WBN + 4;
+constexpr int WLDA = WBK + 8, WLDB = WBN + 8, WLDBT = WBK + 8, WLDC = WBN + 4;
+constexpr int WBS = (WBK * WLDB > WBN * WLDBT) ? WBK * WLDB : WBN * WLDBT;
 
-template <int EPI>
+template <int EPI, bool TRANS_B>
 __global__ void __launch_bounds__(128)
 gemm_bf16_wmma(const bf16* __restrict__ A, const bf16* __restrict__ B,
-               const float* __restrict__ bias, const bf16* __restrict__ resid,
-               bf16* __restrict__ out, int m, int n, int k) {
+               const float* __restrict__ bias, void* __restrict__ aux,
+               void* __restrict__ out, int m, int n, int k) {
   using namespace nvcuda;
+  using BLayout = std::conditional_t<TRANS_B, wmma::col_major,
+                                     wmma::row_major>;
   __shared__ __align__(32) bf16 As[WBM * WLDA];
-  __shared__ __align__(32) bf16 Bs[WBK * WLDB];
+  __shared__ __align__(32) bf16 Bs[WBS];
   __shared__ __align__(32) float Cs[WBM * WLDC];
   const int tid = threadIdx.x, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
@@ -121,24 +167,38 @@ gemm_bf16_wmma(const bf16* __restrict__ A, const bf16* __restrict__ B,
       As[r * WLDA + c] =
           (gr < m && gc < k) ? A[static_cast<size_t>(gr) * k + gc] : zero;
     }
-    for (int i = tid; i < WBK * WBN; i += 128) {
-      const int r = i / WBN, c = i % WBN;
-      const int gr = k0 + r, gc = col0 + c;
-      Bs[r * WLDB + c] =
-          (gr < k && gc < n) ? B[static_cast<size_t>(gr) * n + gc] : zero;
+    if constexpr (TRANS_B) {
+      for (int i = tid; i < WBN * WBK; i += 128) {
+        const int c = i / WBK, r = i % WBK;      // c: n index, r: k index
+        const int gr = k0 + r, gc = col0 + c;
+        Bs[c * WLDBT + r] =
+            (gr < k && gc < n) ? B[static_cast<size_t>(gc) * k + gr] : zero;
+      }
+    } else {
+      for (int i = tid; i < WBK * WBN; i += 128) {
+        const int r = i / WBN, c = i % WBN;
+        const int gr = k0 + r, gc = col0 + c;
+        Bs[r * WLDB + c] =
+            (gr < k && gc < n) ? B[static_cast<size_t>(gr) * n + gc] : zero;
+      }
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < WBK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * WLDA + kk,
                                WLDA);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * WLDB + wn * 32 + j * 16, WLDB);
+      for (int j = 0; j < 2; ++j) {
+        const int n0 = wn * 32 + j * 16;
+        if constexpr (TRANS_B)
+          wmma::load_matrix_sync(b[j], Bs + n0 * WLDBT + kk, WLDBT);
+        else
+          wmma::load_matrix_sync(b[j], Bs + kk * WLDB + n0, WLDB);
+      }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -158,7 +218,7 @@ gemm_bf16_wmma(const bf16* __restrict__ A, const bf16* __restrict__ B,
     const int r = i / WBN, c = i % WBN;
     const int gr = row0 + r, gc = col0 + c;
     if (gr < m && gc < n)
-      store_out<bf16, EPI>(Cs[r * WLDC + c], gr, gc, n, bias, resid, out);
+      store_out<bf16, EPI>(Cs[r * WLDC + c], gr, gc, n, bias, aux, out);
   }
 }
 
@@ -167,11 +227,11 @@ gemm_bf16_wmma(const bf16* __restrict__ A, const bf16* __restrict__ B,
 // tile per block of 256 threads, 4x4 outputs per thread, K in steps of 16.
 constexpr int SBM = 64, SBN = 64, SBK = 16;
 
-template <int EPI>
+template <int EPI, bool TRANS_B>
 __global__ void __launch_bounds__(256)
 gemm_f32_simt(const float* __restrict__ A, const float* __restrict__ B,
-              const float* __restrict__ bias, const float* __restrict__ resid,
-              float* __restrict__ out, int m, int n, int k) {
+              const float* __restrict__ bias, void* __restrict__ aux,
+              void* __restrict__ out, int m, int n, int k) {
   __shared__ float As[SBK][SBM + 4];  // transposed: As[k][m]
   __shared__ float Bs[SBK][SBN + 4];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -189,9 +249,13 @@ gemm_f32_simt(const float* __restrict__ A, const float* __restrict__ B,
       As[c][r] = (gr < m && gc < k) ? A[static_cast<size_t>(gr) * k + gc] : 0.f;
     }
     for (int i = tid; i < SBK * SBN; i += 256) {
-      const int r = i / SBN, c = i % SBN;
+      // TRANS_B: k index fastest, so the global reads run along B's rows
+      const int r = TRANS_B ? i % SBK : i / SBN;
+      const int c = TRANS_B ? i / SBK : i % SBN;
       const int gr = k0 + r, gc = col0 + c;
-      Bs[r][c] = (gr < k && gc < n) ? B[static_cast<size_t>(gr) * n + gc] : 0.f;
+      const size_t at = TRANS_B ? static_cast<size_t>(gc) * k + gr
+                                : static_cast<size_t>(gr) * n + gc;
+      Bs[r][c] = (gr < k && gc < n) ? B[at] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -214,8 +278,95 @@ gemm_f32_simt(const float* __restrict__ A, const float* __restrict__ B,
     for (int j = 0; j < 4; ++j) {
       const int gr = row0 + ty * 4 + i, gc = col0 + tx * 4 + j;
       if (gr < m && gc < n)
-        store_out<float, EPI>(acc[i][j], gr, gc, n, bias, resid, out);
+        store_out<float, EPI>(acc[i][j], gr, gc, n, bias, aux, out);
     }
+}
+
+// ---------------------------------------------------- LayerNorm backward
+// dx = resid + rstd·(dxhat − mean(dxhat) − xhat·mean(dxhat·xhat)) with
+// dxhat = dy·gamma, one warp per row in fp32 (statistics recomputed from
+// x as the forward does); each row's mean and rstd go to `stats` (2, rows)
+// for the column pass.
+template <typename T>
+__global__ void layernorm_bwd_rows(const T* __restrict__ x,
+                                   const T* __restrict__ resid,
+                                   const float* __restrict__ dy,
+                                   const float* __restrict__ gamma,
+                                   T* __restrict__ dx,
+                                   float* __restrict__ stats, int rows, int c,
+                                   float eps) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const size_t base = static_cast<size_t>(row) * c;
+  float s = 0.f;
+  for (int i = lane; i < c; i += 32) s += to_f(x[base + i]);
+  const float mu = warp_sum(s) / c;
+  float v = 0.f;
+  for (int i = lane; i < c; i += 32) {
+    const float d = to_f(x[base + i]) - mu;
+    v += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(v) / c + eps);
+  float m1 = 0.f, m2 = 0.f;
+  for (int i = lane; i < c; i += 32) {
+    const float dxh = dy[base + i] * gamma[i];
+    m1 += dxh;
+    m2 += dxh * (to_f(x[base + i]) - mu) * rstd;
+  }
+  m1 = warp_sum(m1) / c;
+  m2 = warp_sum(m2) / c;
+  for (int i = lane; i < c; i += 32) {
+    const float xh = (to_f(x[base + i]) - mu) * rstd;
+    const float dxh = dy[base + i] * gamma[i];
+    dx[base + i] =
+        from_f<T>(to_f(resid[base + i]) + rstd * (dxh - m1 - xh * m2));
+  }
+  if (lane == 0) {
+    stats[row] = mu;
+    stats[rows + row] = rstd;
+  }
+}
+
+// Column partials over LNB_ROWS rows: partial[0][blk][col] = Σ dy·xhat,
+// partial[1][blk][col] = Σ dy.  One thread per column, rows in order.
+constexpr int LNB_ROWS = 64, LNB_THREADS = 128;
+
+template <typename T>
+__global__ void layernorm_bwd_partials(const T* __restrict__ x,
+                                       const float* __restrict__ dy,
+                                       const float* __restrict__ stats,
+                                       float* __restrict__ partial, int rows,
+                                       int c) {
+  const int col = blockIdx.x * LNB_THREADS + threadIdx.x;
+  const int blk = blockIdx.y, nblk = gridDim.y;
+  if (col >= c) return;
+  const int r0 = blk * LNB_ROWS, r1 = min(r0 + LNB_ROWS, rows);
+  float s1 = 0.f, s2 = 0.f;
+  for (int r = r0; r < r1; ++r) {
+    const size_t i = static_cast<size_t>(r) * c + col;
+    const float xh = (to_f(x[i]) - stats[r]) * stats[rows + r];
+    s1 += dy[i] * xh;
+    s2 += dy[i];
+  }
+  partial[static_cast<size_t>(blk) * c + col] = s1;
+  partial[static_cast<size_t>(nblk + blk) * c + col] = s2;
+}
+
+// dgamma[col] = Σ_blk partial[0][blk][col], dbeta likewise, blocks in order.
+__global__ void layernorm_bwd_reduce(const float* __restrict__ partial,
+                                     float* __restrict__ dgamma,
+                                     float* __restrict__ dbeta, int nblk,
+                                     int c) {
+  const int col = blockIdx.x * LNB_THREADS + threadIdx.x;
+  if (col >= c) return;
+  float s1 = 0.f, s2 = 0.f;
+  for (int b = 0; b < nblk; ++b) {
+    s1 += partial[static_cast<size_t>(b) * c + col];
+    s2 += partial[static_cast<size_t>(nblk + b) * c + col];
+  }
+  dgamma[col] = s1;
+  dbeta[col] = s2;
 }
 
 // ------------------------------------------------------ attention core
@@ -301,21 +452,51 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n,
   }
 }
 
-template <int EPI>
+template <int EPI, bool TRANS_B>
 void launch_gemm(int dtype, const void* a, const void* b, const float* bias,
-                 const void* resid, void* out, int m, int n, int k,
-                 cudaStream_t s) {
+                 void* aux, void* out, int m, int n, int k, cudaStream_t s) {
   if (dtype == DT_BF16) {
     dim3 grid(cdiv(n, WBN), cdiv(m, WBM));
-    gemm_bf16_wmma<EPI><<<grid, 128, 0, s>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(b), bias,
-        static_cast<const bf16*>(resid), static_cast<bf16*>(out), m, n, k);
+    gemm_bf16_wmma<EPI, TRANS_B><<<grid, 128, 0, s>>>(
+        static_cast<const bf16*>(a), static_cast<const bf16*>(b), bias, aux,
+        out, m, n, k);
   } else {
     dim3 grid(cdiv(n, SBN), cdiv(m, SBM));
-    gemm_f32_simt<EPI><<<grid, 256, 0, s>>>(
+    gemm_f32_simt<EPI, TRANS_B><<<grid, 256, 0, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(b), bias,
-        static_cast<const float*>(resid), static_cast<float*>(out), m, n, k);
+        aux, out, m, n, k);
   }
+}
+
+template <int EPI>
+void launch_gemm_t(int dtype, int trans_b, const void* a, const void* b,
+                   const float* bias, void* aux, void* out, int m, int n,
+                   int k, cudaStream_t s) {
+  if (trans_b)
+    launch_gemm<EPI, true>(dtype, a, b, bias, aux, out, m, n, k, s);
+  else
+    launch_gemm<EPI, false>(dtype, a, b, bias, aux, out, m, n, k, s);
+}
+
+template <typename T>
+void launch_layernorm_bwd(const void* x, const void* resid, const void* dy,
+                          const void* gamma, void* dx, void* stats,
+                          void* partial, void* dgamma, void* dbeta, int rows,
+                          int c, float eps, cudaStream_t s) {
+  const int threads = 256, rows_per_block = threads / 32;
+  layernorm_bwd_rows<T><<<cdiv(rows, rows_per_block), threads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(resid),
+      static_cast<const float*>(dy), static_cast<const float*>(gamma),
+      static_cast<T*>(dx), static_cast<float*>(stats), rows, c, eps);
+  const int nblk = cdiv(rows, LNB_ROWS);
+  layernorm_bwd_partials<T><<<dim3(cdiv(c, LNB_THREADS), nblk), LNB_THREADS,
+                              0, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dy),
+      static_cast<const float*>(stats), static_cast<float*>(partial), rows,
+      c);
+  layernorm_bwd_reduce<<<cdiv(c, LNB_THREADS), LNB_THREADS, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dgamma),
+      static_cast<float*>(dbeta), nblk, c);
 }
 
 template <typename T, int D>
@@ -377,25 +558,51 @@ int dfu_layernorm(int device, int dtype, const void* x, const void* g,
   DFU_RETURN_LAST_ERROR();
 }
 
-// out (m, n) = epilogue(a (m, k) @ b (k, n) + bias); epi 0: bias,
-// 1: bias + exact GELU, 2: bias + residual (resid (m, n)).
-int dfu_gemm(int device, int dtype, int epi, const void* a, const void* b,
-             const void* bias, const void* resid, void* out, int m, int n,
-             int k, void* stream) {
+// x, resid, dx: rows x c in the compute dtype; dy: rows x c fp32; gamma,
+// dgamma, dbeta: c fp32; scratch stats (2, rows) and partial
+// (2, ceil(rows / 64), c) fp32.  See layernorm_bwd_rows.
+int dfu_layernorm_bwd(int device, int dtype, const void* x, const void* resid,
+                      const void* dy, const void* gamma, void* dx,
+                      void* stats, void* partial, void* dgamma, void* dbeta,
+                      int rows, int c, float eps, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_BF16)
+    launch_layernorm_bwd<bf16>(x, resid, dy, gamma, dx, stats, partial,
+                               dgamma, dbeta, rows, c, eps, s);
+  else
+    launch_layernorm_bwd<float>(x, resid, dy, gamma, dx, stats, partial,
+                                dgamma, dbeta, rows, c, eps, s);
+  DFU_RETURN_LAST_ERROR();
+}
+
+// out (m, n) = epilogue(a (m, k) @ B): B = b (k, n), or b (n, k) read
+// transposed when trans_b.  epi is an Epilogue; aux is the residual
+// (m, n) in the compute dtype for EPI_BIAS_RESID, the fp32 (m, n)
+// pre-activation written by EPI_BIAS_GELU_AUX and read by EPI_DGELU, else
+// unused; bias (n) fp32 for epi <= EPI_BIAS_GELU_AUX; out is fp32 for
+// EPI_F32, else the compute dtype.
+int dfu_gemm(int device, int dtype, int epi, int trans_b, const void* a,
+             const void* b, const void* bias, void* aux, void* out, int m,
+             int n, int k, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
   switch (epi) {
-    case EPI_BIAS:
-      launch_gemm<EPI_BIAS>(dtype, a, b, bf, resid, out, m, n, k, s);
+#define DFU_GEMM_CASE(E)                                                  \
+    case E:                                                               \
+      launch_gemm_t<E>(dtype, trans_b, a, b, bf, aux, out, m, n, k, s);   \
       break;
-    case EPI_BIAS_GELU:
-      launch_gemm<EPI_BIAS_GELU>(dtype, a, b, bf, resid, out, m, n, k, s);
-      break;
-    case EPI_BIAS_RESID:
-      launch_gemm<EPI_BIAS_RESID>(dtype, a, b, bf, resid, out, m, n, k, s);
-      break;
+    DFU_GEMM_CASE(EPI_BIAS)
+    DFU_GEMM_CASE(EPI_BIAS_GELU)
+    DFU_GEMM_CASE(EPI_BIAS_RESID)
+    DFU_GEMM_CASE(EPI_BIAS_GELU_AUX)
+    DFU_GEMM_CASE(EPI_DGELU)
+    DFU_GEMM_CASE(EPI_NONE)
+    DFU_GEMM_CASE(EPI_F32)
+#undef DFU_GEMM_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

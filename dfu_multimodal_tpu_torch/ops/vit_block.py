@@ -1,40 +1,62 @@
-"""ViT encoder-block forward: hand-written Hopper kernels + plain versions.
+"""ViT encoder blocks: hand-written Hopper kernels, plain versions, and the
+rematerialising backward.
 
-Counterpart of ``dfu_multimodal_tpu/ops/vit_block.py`` (the fused Pallas
-``attn_block`` / ``mlp_block``):
+Counterpart of ``dfu_multimodal_tpu/ops/vit_block.py``:
 
-  ``attn_block``:  x + proj(attention(qkv(LN1(x))))
-  ``mlp_block``:   x + fc2(gelu(fc1(LN2(x))))
+  ``attn_block``:  x + proj(attention(qkv(LN1(x))))     (K1, forward)
+  ``mlp_block``:   x + fc2(gelu(fc1(LN2(x))))           (K2, forward)
+  ``mlp_block_bwd``: LN2/fc1 recompute, dGELU, dx with the LN backward,
+                   emits y, h, dhpre, dg2, db2           (K4)
 
-Dispatch is by device only.  A CPU tensor takes the plain PyTorch version
-(:func:`attn_block_ref`, :func:`mlp_block_ref`); a CUDA tensor launches the
-kernels of ``csrc/vit_block.cu`` (LayerNorm, tiled GEMM with a bias / GELU
-/ residual epilogue, attention core) or raises.  Arguments keep the JAX
-order and layouts: x (B, N, C) in the compute dtype, weights (in, out) in
-the compute dtype, LayerNorm params and biases fp32.
+and the two hand chain rules the custom VJPs run: :func:`attn_block_bwd`
+(LN1 and qkv recompute, the K5 attention fwd+bwd of ``ops.attention``,
+the projection and qkv products, LN backward in fp32) and
+:func:`mlp_block_grads` (K4 plus the big-K weight-gradient products).
+:class:`AttnBlock` and :class:`MlpBlock` are the ``torch.autograd.
+Function``s: forward = K1 / K2, saving only the block inputs (remat, as
+the JAX custom VJPs), backward = the chain rules.
 
-Forward only: the backward and the ToMe key ``bias`` are not ported yet
-(``bias`` raises ``NotImplementedError``).  GELU is exact erf on both
-paths, where the Pallas kernel uses a logistic approximation.
+Dispatch is by device only.  A CPU tensor takes the plain versions
+(``*_ref``); a CUDA tensor launches the kernels of ``csrc/vit_block.cu``
+and ``csrc/attention.cu`` or raises.  Arguments keep the JAX order and
+layouts: x (B, N, C) in the compute dtype, weights (in, out) in the
+compute dtype, LayerNorm params and biases fp32.  The weight-gradient
+products dw = aᵀ·b are fp32-result ``torch.matmul``s outside the kernels
+(as the JAX package leaves them to XLA), rounded to the weight's dtype.
+
+GELU is exact erf on both paths (the Pallas kernels use a logistic
+approximation only because Mosaic cannot lower erf), so the backward uses
+the exact dGELU Φ(x) + x·φ(x).  The ToMe key ``bias`` is not ported
+(``bias`` raises ``NotImplementedError``).  Plain versions accumulate in
+fp32, or in fp64 for fp64 inputs (``torch.autograd.gradcheck``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from dfu_multimodal_tpu_torch.ops import _build
+from dfu_multimodal_tpu_torch.ops.attention import (
+    acc_dtype as _acc, qkv_attention_fwdbwd, qkv_attention_fwdbwd_ref)
 
 LN_EPS = 1e-6
-_EPI_BIAS, _EPI_BIAS_GELU, _EPI_BIAS_RESID = 0, 1, 2
+# epilogues of csrc/vit_block.cu::dfu_gemm
+(_EPI_BIAS, _EPI_BIAS_GELU, _EPI_BIAS_RESID, _EPI_BIAS_GELU_AUX, _EPI_DGELU,
+ _EPI_NONE, _EPI_F32) = range(7)
 _HEAD_DIMS = (16, 32, 64, 128)          # head dims the attention core takes
 
 _I, _P, _F = _build.I, _build.P, _build.F
 _SIGNATURES = {
     "dfu_layernorm": [_I, _I, _P, _P, _P, _P, _I, _I, _F, _P],
-    "dfu_gemm": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "dfu_layernorm_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _F, _P],
+    "dfu_gemm": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dfu_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _P],
 }
+_LNB_ROWS = 64      # rows per LN-backward column partial (csrc LNB_ROWS)
 
 
 def _lib():
@@ -44,19 +66,47 @@ def _lib():
 # ------------------------------------------------------- plain versions
 
 
+def _ln_stats(x, eps=LN_EPS):
+    """(xhat, rstd) of a LayerNorm over the last axis, in fp32."""
+    xf = x.to(_acc(x))
+    xc = xf - xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    return xc * rstd, rstd
+
+
 def _layernorm_f32(x, scale, bias, eps=LN_EPS):
     """LayerNorm over the last axis in fp32 (the TPU kernel's numerics)."""
-    xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    xc = xf - mu
-    var = (xc * xc).mean(-1, keepdim=True)
-    return xc * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    xhat, _ = _ln_stats(x, eps)
+    return xhat * scale.to(xhat.dtype) + bias.to(xhat.dtype)
 
 
 def _mm_f32(a, b):
     """a @ b with compute-dtype operands and an fp32 result (JAX's
     ``preferred_element_type=float32``): bf16 products are exact in fp32."""
-    return torch.matmul(a.float(), b.float())
+    acc = _acc(a)
+    return torch.matmul(a.to(acc), b.to(acc))
+
+
+def _gelu_grad(h):
+    """d/dx of exact-erf GELU: Φ(x) + x·φ(x)."""
+    cdf = 0.5 * (1.0 + torch.erf(h * 0.5 ** 0.5))
+    pdf = torch.exp(-0.5 * h * h) / math.sqrt(2.0 * math.pi)
+    return cdf + h * pdf
+
+
+def _ln_bwd_ref(x, resid, dy, gamma):
+    """LayerNorm backward in fp32 with the block's residual gradient:
+    dx = resid + rstd·(dxhat − mean(dxhat) − xhat·mean(dxhat·xhat)),
+    dgamma = Σ dy·xhat, dbeta = Σ dy over rows.  x, resid in the compute
+    dtype; dy fp32 (…, C)."""
+    xhat, rstd = _ln_stats(x)
+    dxhat = dy * gamma.to(dy.dtype)
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = (resid.to(dy.dtype) + rstd * (dxhat - m1 - xhat * m2)).to(x.dtype)
+    c = x.shape[-1]
+    return (dx, (dy * xhat).reshape(-1, c).sum(0),
+            dy.reshape(-1, c).sum(0))
 
 
 def attn_block_ref(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads: int,
@@ -68,26 +118,79 @@ def attn_block_ref(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads: int,
     b, n, c = x.shape
     d = c // num_heads
     y = _layernorm_f32(x, g1, b1).to(x.dtype)
-    qkv = (_mm_f32(y, wqkv) + bqkv.float()).to(x.dtype)
+    qkv = (_mm_f32(y, wqkv) + bqkv.to(_acc(x))).to(x.dtype)
     qkv = qkv.reshape(b, n, 3, num_heads, d)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-    logits = _mm_f32(q.float() * d ** -0.5, k.transpose(-1, -2))
+    logits = _mm_f32(q.to(_acc(x)) * d ** -0.5, k.transpose(-1, -2))
     p = torch.softmax(logits, dim=-1)
     attn = _mm_f32(p.to(x.dtype), v)
     attn = attn.transpose(1, 2).reshape(b, n, c).to(x.dtype)
-    o = (_mm_f32(attn, wproj) + bproj.float()).to(x.dtype)
+    o = (_mm_f32(attn, wproj) + bproj.to(_acc(x))).to(x.dtype)
     return x + o
 
 
 def mlp_block_ref(x, g2, b2, w1, b1, w2, b2b):
     """Plain version of :func:`mlp_block`, exact-erf GELU."""
     y = _layernorm_f32(x, g2, b2).to(x.dtype)
-    h = F.gelu(_mm_f32(y, w1) + b1.float()).to(x.dtype)
-    o = (_mm_f32(h, w2) + b2b.float()).to(x.dtype)
+    h = F.gelu(_mm_f32(y, w1) + b1.to(_acc(x))).to(x.dtype)
+    o = (_mm_f32(h, w2) + b2b.to(_acc(x))).to(x.dtype)
     return x + o
 
 
+def mlp_block_bwd_ref(x, g, g2, b2, w1, b1, w2):
+    """Plain version of :func:`mlp_block_bwd`: the Pallas kernel's
+    numerics with exact-erf GELU.  Returns dx, y, h, dhpre in x's dtype
+    ((R, C) rows for y, (R, H) for h and dhpre; dx keeps x's shape) and
+    dg2, db2 (C,) in fp32."""
+    c, hidden = w1.shape
+    x2, g2d = x.reshape(-1, c), g.reshape(-1, c)
+    y = _layernorm_f32(x2, g2, b2).to(x.dtype)
+    hpre = _mm_f32(y, w1) + b1.to(_acc(x))
+    h = F.gelu(hpre).to(x.dtype)
+    dh = _mm_f32(g2d, w2.t())
+    dhpre = (dh * _gelu_grad(hpre)).to(x.dtype)
+    dy = _mm_f32(dhpre, w1.t())
+    dx, dg2, db2 = _ln_bwd_ref(x2, g2d, dy, g2)
+    return dx.reshape(x.shape), y, h, dhpre, dg2, db2
+
+
 # --------------------------------------------------------------- kernels
+
+
+def _launch_layernorm(lib, x, g, b, y, rows, c, what):
+    _build.check(lib, lib.dfu_layernorm(
+        x.device.index, _build.DTYPE_CODES[x.dtype], x.data_ptr(),
+        g.data_ptr(), b.data_ptr(), y.data_ptr(), rows, c, LN_EPS,
+        _build.stream_of(x)), what)
+
+
+def _launch_gemm(lib, epi, trans_b, a, b, bias, aux, out, m, n, k, what):
+    """out (m, n) = epilogue(a (m, k) @ B) with B = b (k, n), or b (n, k)
+    transposed when ``trans_b``."""
+    _build.check(lib, lib.dfu_gemm(
+        a.device.index, _build.DTYPE_CODES[a.dtype], epi, int(trans_b),
+        a.data_ptr(), b.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if aux is None else aux.data_ptr(), out.data_ptr(), m, n, k,
+        _build.stream_of(a)), what)
+
+
+def _launch_layernorm_bwd(lib, x, resid, dy, gamma, rows, c, what):
+    """-> (dx in x's dtype, dgamma, dbeta fp32): the warp-per-row dx pass,
+    then per-block column partials reduced in a fixed order (no atomics,
+    so the sums are deterministic)."""
+    nblk = -(-rows // _LNB_ROWS)
+    dx = torch.empty_like(x)
+    stats = torch.empty((2, rows), dtype=torch.float32, device=x.device)
+    partial = torch.empty((2, nblk, c), dtype=torch.float32, device=x.device)
+    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty_like(dgamma)
+    _build.check(lib, lib.dfu_layernorm_bwd(
+        x.device.index, _build.DTYPE_CODES[x.dtype], x.data_ptr(),
+        resid.data_ptr(), dy.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
+        stats.data_ptr(), partial.data_ptr(), dgamma.data_ptr(),
+        dbeta.data_ptr(), rows, c, LN_EPS, _build.stream_of(x)), what)
+    return dx, dgamma, dbeta
 
 
 def attn_block(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
@@ -114,27 +217,37 @@ def attn_block(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
             f"{tuple(wqkv.shape)}, wproj {tuple(wproj.shape)}: want "
             f"C = heads * D with D in {_HEAD_DIMS} and (C, 3C), (C, C) "
             f"weights")
-    lib, dev, rows = _lib(), x.device.index, bsz * n
-    dt, stream = _build.DTYPE_CODES[x.dtype], _build.stream_of(x)
+    lib, rows = _lib(), bsz * n
     y = torch.empty_like(x)
     qkv = torch.empty((bsz, n, 3 * c), dtype=x.dtype, device=x.device)
     attn = torch.empty_like(x)
     out = torch.empty_like(x)
-    _build.check(lib, lib.dfu_layernorm(
-        dev, dt, x.data_ptr(), g1.data_ptr(), b1.data_ptr(), y.data_ptr(),
-        rows, c, LN_EPS, stream), "attn_block LayerNorm")
-    _build.check(lib, lib.dfu_gemm(
-        dev, dt, _EPI_BIAS, y.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-        None, qkv.data_ptr(), rows, 3 * c, c, stream), "attn_block qkv")
+    _launch_layernorm(lib, x, g1, b1, y, rows, c, "attn_block LayerNorm")
+    _launch_gemm(lib, _EPI_BIAS, False, y, wqkv, bqkv, None, qkv, rows,
+                 3 * c, c, "attn_block qkv")
     _build.check(lib, lib.dfu_attention(
-        dev, dt, qkv.data_ptr(), attn.data_ptr(), bsz, n, num_heads, d,
-        d ** -0.5, stream), "attn_block attention")
-    _build.check(lib, lib.dfu_gemm(
-        dev, dt, _EPI_BIAS_RESID, attn.data_ptr(), wproj.data_ptr(),
-        bproj.data_ptr(), x.data_ptr(), out.data_ptr(), rows, c, c, stream),
-        "attn_block proj")
+        x.device.index, _build.DTYPE_CODES[x.dtype], qkv.data_ptr(),
+        attn.data_ptr(), bsz, n, num_heads, d, d ** -0.5,
+        _build.stream_of(x)), "attn_block attention")
+    _launch_gemm(lib, _EPI_BIAS_RESID, False, attn, wproj, bproj, x, out,
+                 rows, c, c, "attn_block proj")
     attn_block.launches += 1
     return out
+
+
+def _check_mlp(name, x, g2, b2, w1, b1, w2, extra=None):
+    compute = {"x": x, "w1": w1, "w2": w2, **(extra or {})}
+    _build.check_cuda_operands(name, x, compute,
+                               {"g2": g2, "b2": b2, "b1": b1})
+    c = x.shape[-1]
+    hidden = w1.shape[-1]
+    if (w1.shape != (c, hidden) or w2.shape != (hidden, c)
+            or g2.shape != (c,) or b2.shape != (c,)
+            or b1.shape != (hidden,)):
+        raise ValueError(
+            f"{name}: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 "
+            f"{tuple(w2.shape)}: want (C, H) and (H, C) weights")
+    return x.numel() // c, c, hidden
 
 
 def mlp_block(x: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
@@ -144,36 +257,200 @@ def mlp_block(x: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
     in x's dtype; g2, b2, b1, b2b fp32."""
     if x.device.type == "cpu":
         return mlp_block_ref(x, g2, b2, w1, b1, w2, b2b)
-    _build.check_cuda_operands(
-        "mlp_block", x, {"x": x, "w1": w1, "w2": w2},
-        {"g2": g2, "b2": b2, "b1": b1, "b2b": b2b})
-    bsz, n, c = x.shape
-    hidden = w1.shape[-1]
-    if (w1.shape != (c, hidden) or w2.shape != (hidden, c)
-            or g2.shape != (c,) or b2.shape != (c,)
-            or b1.shape != (hidden,) or b2b.shape != (c,)):
-        raise ValueError(
-            f"mlp_block: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 "
-            f"{tuple(w2.shape)}: want (C, H) and (H, C) weights")
-    lib, dev, rows = _lib(), x.device.index, bsz * n
-    dt, stream = _build.DTYPE_CODES[x.dtype], _build.stream_of(x)
+    rows, c, hidden = _check_mlp("mlp_block", x, g2, b2, w1, b1, w2)
+    _build.check_cuda_operands("mlp_block", x, {}, {"b2b": b2b})
+    if b2b.shape != (c,):
+        raise ValueError(f"mlp_block: b2b {tuple(b2b.shape)}, want ({c},)")
+    lib = _lib()
     y = torch.empty_like(x)
-    h = torch.empty((bsz, n, hidden), dtype=x.dtype, device=x.device)
+    h = torch.empty((rows, hidden), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    _build.check(lib, lib.dfu_layernorm(
-        dev, dt, x.data_ptr(), g2.data_ptr(), b2.data_ptr(), y.data_ptr(),
-        rows, c, LN_EPS, stream), "mlp_block LayerNorm")
-    _build.check(lib, lib.dfu_gemm(
-        dev, dt, _EPI_BIAS_GELU, y.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        None, h.data_ptr(), rows, hidden, c, stream), "mlp_block fc1")
-    _build.check(lib, lib.dfu_gemm(
-        dev, dt, _EPI_BIAS_RESID, h.data_ptr(), w2.data_ptr(),
-        b2b.data_ptr(), x.data_ptr(), out.data_ptr(), rows, c, hidden,
-        stream), "mlp_block fc2")
+    _launch_layernorm(lib, x, g2, b2, y, rows, c, "mlp_block LayerNorm")
+    _launch_gemm(lib, _EPI_BIAS_GELU, False, y, w1, b1, None, h, rows,
+                 hidden, c, "mlp_block fc1")
+    _launch_gemm(lib, _EPI_BIAS_RESID, False, h, w2, b2b, x, out, rows, c,
+                 hidden, "mlp_block fc2")
     mlp_block.launches += 1
     return out
+
+
+def mlp_block_bwd(x: torch.Tensor, g: torch.Tensor, g2: torch.Tensor,
+                  b2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                  w2: torch.Tensor):
+    """Backward of :func:`mlp_block` from its inputs and the output
+    gradient g (x's shape and dtype): returns dx (x's shape), the
+    recomputed y = LN2(x) (R, C), h = gelu(fc1) (R, H), dhpre (R, H) in
+    x's dtype — the operands of the weight-gradient products — and dg2,
+    db2 (C,) fp32.  R = B·N rows, unpadded."""
+    if x.device.type == "cpu":
+        return mlp_block_bwd_ref(x, g, g2, b2, w1, b1, w2)
+    rows, c, hidden = _check_mlp("mlp_block_bwd", x, g2, b2, w1, b1, w2,
+                                 {"g": g})
+    if g.shape != x.shape:
+        raise ValueError(f"mlp_block_bwd: g {tuple(g.shape)} != x "
+                         f"{tuple(x.shape)}")
+    lib, dev = _lib(), x.device
+    y = torch.empty((rows, c), dtype=x.dtype, device=dev)
+    hpre = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
+    h = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
+    dhpre = torch.empty_like(h)
+    dy = torch.empty((rows, c), dtype=torch.float32, device=dev)
+    _launch_layernorm(lib, x, g2, b2, y, rows, c, "mlp_block_bwd LayerNorm")
+    _launch_gemm(lib, _EPI_BIAS_GELU_AUX, False, y, w1, b1, hpre, h, rows,
+                 hidden, c, "mlp_block_bwd fc1")
+    _launch_gemm(lib, _EPI_DGELU, True, g, w2, None, hpre, dhpre, rows,
+                 hidden, c, "mlp_block_bwd dh")
+    _launch_gemm(lib, _EPI_F32, True, dhpre, w1, None, None, dy, rows, c,
+                 hidden, "mlp_block_bwd dy")
+    dx, dg2, db2 = _launch_layernorm_bwd(lib, x, g, dy, g2, rows, c,
+                                         "mlp_block_bwd LayerNorm bwd")
+    mlp_block_bwd.launches += 1
+    return dx, y, h, dhpre, dg2, db2
 
 
 # launch counts: one per call that ran the kernels (CPU calls do not count)
 attn_block.launches = 0
 mlp_block.launches = 0
+mlp_block_bwd.launches = 0
+
+
+# ---------------------------------------------------------- chain rules
+
+
+def _wgrad(a, b, dtype):
+    """aᵀ·b over all rows with an fp32 result, rounded to ``dtype`` (the
+    weight's): a big-K product left to torch, as JAX leaves it to XLA."""
+    return _mm_f32(a.reshape(-1, a.shape[-1]).t(),
+                   b.reshape(-1, b.shape[-1])).to(dtype)
+
+
+def _colsum(t):
+    """Σ over rows in fp32 (fp64 for fp64 inputs)."""
+    return t.reshape(-1, t.shape[-1]).to(_acc(t)).sum(0)
+
+
+def _lazy(thunks, needs):
+    """Each thunk's value where ``needs`` asks for it, else None (and the
+    thunk, a weight-gradient product or column sum, never runs)."""
+    return tuple(f() if need else None for f, need in zip(thunks, needs))
+
+
+def mlp_block_grads(x, g, g2, b2, w1, b1, w2, b2b_dtype, needs=(True,) * 7):
+    """Hand chain rule of the JAX ``_mlp_block_bwd``: K4, then
+    dw1 = yᵀ·dhpre, db1 = Σ dhpre, dw2 = hᵀ·g, db2b = Σ g.  Returns the
+    gradients of (x, g2, b2, w1, b1, w2, b2b), each in its input's dtype
+    (weights in the compute dtype; the fp32 masters receive them through
+    the cast, as in JAX); an entry whose ``needs`` is false is None and
+    its product is not computed."""
+    dx, y, h, dhpre, dg2, db2 = mlp_block_bwd(x, g, g2, b2, w1, b1, w2)
+    return _lazy((lambda: dx, lambda: dg2.to(g2.dtype),
+                  lambda: db2.to(b2.dtype),
+                  lambda: _wgrad(y, dhpre, w1.dtype),
+                  lambda: _colsum(dhpre).to(b1.dtype),
+                  lambda: _wgrad(h, g, w2.dtype),
+                  lambda: _colsum(g).to(b2b_dtype)), needs)
+
+
+def _attn_grads(dx, dg1, db1, y, dqkv, attn, g, wqkv, wproj, needs):
+    return _lazy((lambda: dx, lambda: dg1, lambda: db1,
+                  lambda: _wgrad(y, dqkv, wqkv.dtype),
+                  lambda: _colsum(dqkv),
+                  lambda: _wgrad(attn, g, wproj.dtype),
+                  lambda: _colsum(g)), needs)
+
+
+def attn_block_bwd_ref(x, g, g1, b1, wqkv, bqkv, wproj, num_heads,
+                       needs=(True,) * 7):
+    """Plain version of :func:`attn_block_bwd` (the JAX
+    ``_attn_block_bwd`` in torch, with the plain K5 on every device)."""
+    y = _layernorm_f32(x, g1, b1).to(x.dtype)
+    qkv = (_mm_f32(y, wqkv) + bqkv.to(_acc(x))).to(x.dtype)
+    dattn = _mm_f32(g, wproj.t()).to(x.dtype)
+    attn, dqkv = qkv_attention_fwdbwd_ref(qkv, dattn, num_heads)
+    dy = _mm_f32(dqkv, wqkv.t())
+    dx, dg1, db1 = _ln_bwd_ref(x, g, dy, g1)
+    return _attn_grads(dx, dg1, db1, y, dqkv, attn, g, wqkv, wproj, needs)
+
+
+def attn_block_bwd(x: torch.Tensor, g: torch.Tensor, g1: torch.Tensor,
+                   b1: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
+                   wproj: torch.Tensor, num_heads: int, needs=(True,) * 7):
+    """Hand chain rule of the JAX ``_attn_block_bwd`` (remat from the
+    block inputs): recompute LN1 and qkv, dattn = g·wprojᵀ, K5 (attention
+    re-forward + backward, softmax once per head), dwproj = attnᵀ·g,
+    dy = dqkv·wqkvᵀ, dwqkv = yᵀ·dqkv, dbqkv, then the LN backward in
+    fp32 with the residual g.  Returns the gradients of (x, g1, b1, wqkv,
+    bqkv, wproj, bproj): dx in x's dtype, weights in their dtype, the
+    rest fp32; an entry whose ``needs`` is false is None and its product
+    is not computed.  On a CUDA tensor the LayerNorm, the three data
+    products and the LN backward run on the port's kernels."""
+    if x.device.type == "cpu":
+        return attn_block_bwd_ref(x, g, g1, b1, wqkv, bqkv, wproj, num_heads,
+                                  needs)
+    _build.check_cuda_operands(
+        "attn_block_bwd", x, {"x": x, "g": g, "wqkv": wqkv, "wproj": wproj},
+        {"g1": g1, "b1": b1, "bqkv": bqkv})
+    bsz, n, c = x.shape
+    if (g.shape != x.shape or wqkv.shape != (c, 3 * c)
+            or wproj.shape != (c, c) or bqkv.shape != (3 * c,)
+            or g1.shape != (c,) or b1.shape != (c,)):
+        raise ValueError(
+            f"attn_block_bwd: x {tuple(x.shape)}, g {tuple(g.shape)}, wqkv "
+            f"{tuple(wqkv.shape)}, wproj {tuple(wproj.shape)}")
+    lib, rows, dev = _lib(), bsz * n, x.device
+    y = torch.empty_like(x)
+    qkv = torch.empty((bsz, n, 3 * c), dtype=x.dtype, device=dev)
+    dattn = torch.empty_like(x)
+    dy = torch.empty((bsz, n, c), dtype=torch.float32, device=dev)
+    _launch_layernorm(lib, x, g1, b1, y, rows, c, "attn_block_bwd LayerNorm")
+    _launch_gemm(lib, _EPI_BIAS, False, y, wqkv, bqkv, None, qkv, rows,
+                 3 * c, c, "attn_block_bwd qkv")
+    _launch_gemm(lib, _EPI_NONE, True, g, wproj, None, None, dattn, rows, c,
+                 c, "attn_block_bwd dattn")
+    attn, dqkv = qkv_attention_fwdbwd(qkv, dattn, num_heads)
+    _launch_gemm(lib, _EPI_F32, True, dqkv, wqkv, None, None, dy, rows, c,
+                 3 * c, "attn_block_bwd dy")
+    dx, dg1, db1 = _launch_layernorm_bwd(lib, x, g, dy, g1, rows, c,
+                                         "attn_block_bwd LayerNorm bwd")
+    return _attn_grads(dx, dg1, db1, y, dqkv, attn, g, wqkv, wproj, needs)
+
+
+class AttnBlock(torch.autograd.Function):
+    """Trainable :func:`attn_block` (the JAX custom VJP): forward K1,
+    saving only the block inputs; backward :func:`attn_block_bwd`.
+    ``apply(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads)``."""
+
+    @staticmethod
+    def forward(ctx, x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(x, g1, b1, wqkv, bqkv, wproj)
+        return attn_block(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not any(ctx.needs_input_grad):
+            return (None,) * 8
+        x, g1, b1, wqkv, bqkv, wproj = ctx.saved_tensors
+        grads = attn_block_bwd(x, g.contiguous(), g1, b1, wqkv, bqkv, wproj,
+                               ctx.num_heads, ctx.needs_input_grad[:7])
+        return grads + (None,)
+
+
+class MlpBlock(torch.autograd.Function):
+    """Trainable :func:`mlp_block` (the JAX custom VJP): forward K2,
+    saving only the block inputs; backward :func:`mlp_block_grads` (K4).
+    ``apply(x, g2, b2, w1, b1, w2, b2b)``."""
+
+    @staticmethod
+    def forward(ctx, x, g2, b2, w1, b1, w2, b2b):
+        ctx.b2b_dtype = b2b.dtype
+        ctx.save_for_backward(x, g2, b2, w1, b1, w2)
+        return mlp_block(x, g2, b2, w1, b1, w2, b2b)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not any(ctx.needs_input_grad):
+            return (None,) * 7
+        x, g2, b2, w1, b1, w2 = ctx.saved_tensors
+        return mlp_block_grads(x, g.contiguous(), g2, b2, w1, b1, w2,
+                               ctx.b2b_dtype, ctx.needs_input_grad)

@@ -13,6 +13,10 @@ checkpoint restore produce them) and returns the port model's
 - BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, ``batch_stats``
   ``mean``/``var`` -> ``running_mean``/``running_var``.
 
+Models: ``multimodal`` (``rgb_branch`` / ``thermal_branch`` / ``fusion``)
+and ``thermal_only`` (the JAX trunk scope ``ViT_0`` -> ``vit.``, the
+``head`` Dense -> ``head``).
+
 No jax import: the arrays only need ``numpy.asarray``.
 """
 
@@ -27,7 +31,7 @@ StateDict = Dict[str, torch.Tensor]
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
 def _conv(kernel) -> torch.Tensor:
@@ -109,9 +113,14 @@ def variables_to_state_dict(model_name: str,
                             variables: Mapping) -> StateDict:
     """JAX variables of zoo model ``model_name`` -> the port model's
     state_dict (load with ``load_state_dict(..., strict=True)``)."""
+    params = variables["params"]
+    if model_name == "thermal_only":
+        out = vit_state_dict(params["ViT_0"], "vit.")
+        out["head.weight"] = _dense(params["head"]["kernel"])
+        out["head.bias"] = _t(params["head"]["bias"])
+        return out
     if model_name != "multimodal":
         raise ValueError(f"no bridge for model {model_name!r} yet")
-    params = variables["params"]
     stats = variables["batch_stats"]
     out = resnet_state_dict(params["rgb_branch"], stats["rgb_branch"],
                             "rgb_branch.")

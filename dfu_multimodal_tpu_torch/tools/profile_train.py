@@ -1,0 +1,124 @@
+"""Where the time of the thermal_only train step goes, on one card.
+
+    python -m dfu_multimodal_tpu_torch.tools.profile_train [--steps 3]
+        [--top 25]
+
+Builds the full-width thermal_only ViT-B/16 through :func:`recipe_trainer`
+(seeded weights, bf16 compute, the thermal recipe's batch of 16 — the
+trainer ``chip_smoke.py`` drives), runs two warm-up steps on the first
+batch of :func:`synthetic_thermal`, then ``--steps`` train steps under
+``torch.profiler`` and prints: the card's name and power limit, the
+host-clock step time, device time by kernel (self time, summed over the
+window and per step, largest first), the device's busy time and idle
+share of the window, and one JSON line with the totals.  Needs a CUDA
+device; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from dfu_multimodal_tpu_torch.models import zoo
+from dfu_multimodal_tpu_torch.train.engine import (Trainer, TrainConfig,
+                                                   class_weights_from_labels,
+                                                   thermal_modality)
+
+
+# the thermal recipe (cli/train_thermal_only.py): batch 16 at 224x224
+TRAIN_BATCH, IMAGE = 16, 224
+
+
+def synthetic_thermal(n: int, seed: int = 0):
+    """(images (n, 224, 224, 3) uint8, labels (n,) int32), random from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 2, n).astype(np.int32)
+    images = rng.integers(0, 256, (n, IMAGE, IMAGE, 3), dtype=np.uint8)
+    return images, labels
+
+
+def recipe_trainer(device, labels) -> Trainer:
+    """The full-width thermal_only ViT-B/16 as the recipe trains it: bf16
+    compute, batch 16, class weights from ``labels``, weights drawn from a
+    generator seeded with 0."""
+    trainer = Trainer("thermal_only",
+                      TrainConfig(batch_size=TRAIN_BATCH,
+                                  compute_dtype="bfloat16"),
+                      {"thermal": thermal_modality()},
+                      class_weights=class_weights_from_labels(labels),
+                      device=device, image_size=IMAGE)
+    zoo.init_model(trainer.module,
+                   torch.Generator(device=device).manual_seed(0))
+    return trainer
+
+
+def _device_ms(event) -> float:
+    us = getattr(event, "self_device_time_total", None)
+    if us is None:                     # older torch
+        us = event.self_cuda_time_total
+    return us / 1e3
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+
+    images, labels = synthetic_thermal(TRAIN_BATCH)
+    batch = {"thermal": images, "label": labels,
+             "valid": np.ones(TRAIN_BATCH, np.float32)}
+    trainer = recipe_trainer(dev, labels)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(2):
+        trainer.train_step(batch, gen)
+    torch.cuda.synchronize(dev)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            trainer.train_step(batch, gen)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: an operator's own "self device time" repeats the time
+    # of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _device_ms(e) > 0]
+    busy_ms = sum(_device_ms(e) for e in events)
+    events.sort(key=_device_ms, reverse=True)
+    print(f"[profile] batch {TRAIN_BATCH}, {args.steps} steps: host "
+          f"{wall_ms / args.steps:.3f} ms per step; device busy "
+          f"{busy_ms / args.steps:.3f} ms per step; idle share "
+          f"{1.0 - busy_ms / wall_ms:.4f}", flush=True)
+    for e in events[:args.top]:
+        ms = _device_ms(e)
+        print(f"[profile] {ms / args.steps:9.3f} ms/step {ms / busy_ms:7.2%} "
+              f"calls/step {e.count / args.steps:7.1f}  {e.key[:110]}",
+              flush=True)
+    print(json.dumps({"batch": TRAIN_BATCH, "steps": args.steps,
+                      "step_ms": wall_ms / args.steps,
+                      "device_busy_ms": busy_ms / args.steps,
+                      "idle_share": 1.0 - busy_ms / wall_ms}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,14 +6,18 @@ card.  Every test skips without a CUDA device; this file imports no jax
 
 Tolerances: fp32 kernels vs fp32 plain versions differ only in the
 order of fp32 sums (1e-4); bf16 kernels vs bf16 plain versions may round
-an intermediate (qkv, attention, hidden) one bf16 step apart, and the
-kernel defers the softmax division past P·V (2e-2).
+an intermediate (qkv, attention, hidden, dhpre, dS) one bf16 step apart,
+and the forward kernel defers the softmax division past P·V (2e-2).
+Each bound is tol·(1 + |ref|).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from dfu_multimodal_tpu_torch.ops import attention as at
 from dfu_multimodal_tpu_torch.ops import fused_mlp as fm
 from dfu_multimodal_tpu_torch.ops import vit_block as vb
 
@@ -148,3 +152,112 @@ def test_multimodal_eval_on_card_matches_cpu():
     out = card.eval_step(batch)
     np.testing.assert_allclose(out["probs"].cpu().numpy(),
                                ref["probs"].numpy(), rtol=1e-4, atol=1e-5)
+
+
+def _assert_all_close(outs, refs, tol):
+    assert len(outs) == len(refs)
+    for out, ref in zip(outs, refs):
+        _assert_close(out, ref, tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_mlp_block_bwd_kernel_matches_plain(shape, dtype):
+    dev = _cuda()
+    b, n, c, _ = shape
+    x, (g2, b2), _, (w1, bb1, w2, _) = _block_args(dev, b, n, c, dtype,
+                                                    seed=4)
+    g = _randn(torch.Generator(device=dev).manual_seed(5), b, n, c,
+               dtype=dtype)
+    before = vb.mlp_block_bwd.launches
+    outs = vb.mlp_block_bwd(x, g, g2, b2, w1, bb1, w2)
+    torch.cuda.synchronize()
+    assert vb.mlp_block_bwd.launches == before + 1
+    _assert_all_close(outs, vb.mlp_block_bwd_ref(x, g, g2, b2, w1, bb1, w2),
+                      TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES[:3])      # head dims 64, 16, 32
+def test_qkv_attention_fwdbwd_kernel_matches_plain(shape, dtype):
+    dev = _cuda()
+    b, n, c, heads = shape
+    gen = torch.Generator(device=dev).manual_seed(6)
+    qkv = _randn(gen, b, n, 3 * c, dtype=dtype)
+    do = _randn(gen, b, n, c, dtype=dtype)
+    before = at.qkv_attention_fwdbwd.launches
+    outs = at.qkv_attention_fwdbwd(qkv, do, heads)
+    torch.cuda.synchronize()
+    assert at.qkv_attention_fwdbwd.launches == before + 1
+    _assert_all_close(outs, at.qkv_attention_fwdbwd_ref(qkv, do, heads),
+                      TOL[dtype])
+
+
+def test_qkv_attention_fwdbwd_refuses_head_dim_128():
+    dev = _cuda()
+    qkv = torch.zeros(1, 9, 3 * 512, device=dev)
+    with pytest.raises(ValueError):
+        at.qkv_attention_fwdbwd(qkv, torch.zeros(1, 9, 512, device=dev), 4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES[:3])
+def test_attn_block_bwd_chain_matches_plain(shape, dtype):
+    dev = _cuda()
+    b, n, c, heads = shape
+    x, (g1, b1), (wqkv, bqkv, wproj, _), _ = _block_args(dev, b, n, c,
+                                                         dtype, seed=7)
+    g = _randn(torch.Generator(device=dev).manual_seed(8), b, n, c,
+               dtype=dtype)
+    outs = vb.attn_block_bwd(x, g, g1, b1, wqkv, bqkv, wproj, heads)
+    torch.cuda.synchronize()
+    refs = vb.attn_block_bwd_ref(x, g, g1, b1, wqkv, bqkv, wproj, heads)
+    # the weight gradients sum B·N rows: relative to their scale
+    for out, ref in zip(outs, refs):
+        scale = float(ref.float().abs().max())
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        err = float((out.float() - ref.float()).abs().max())
+        assert err <= TOL[dtype] * (1.0 + scale), (err, scale)
+
+
+def test_thermal_train_step_on_card_matches_cpu():
+    """One fp32 train step of a small thermal_only model on the card
+    against the same step on the CPU (plain versions): gradients differ in
+    summation order only; params after AdamW within 2·lr (a ~0 gradient
+    may take either sign)."""
+    dev = _cuda()
+    from dfu_multimodal_tpu_torch.config import AugmentConfig
+    from dfu_multimodal_tpu_torch.models import zoo
+    from dfu_multimodal_tpu_torch.train.engine import (Trainer, TrainConfig,
+                                                       thermal_modality)
+    cfg = TrainConfig(compute_dtype="float32", optimizer_mu_dtype="float32",
+                      drop_rate=0.0, batch_size=4)
+    # identity augmentation on both sides: zero flip/rotation/aug odds
+    aug = AugmentConfig(horizontal_flip_prob=0.0, vertical_flip_prob=0.0,
+                        rotation_degrees=0.0, aug_prob=0.0,
+                        color_jitter=False)
+    mods = {"thermal": dataclasses.replace(thermal_modality(), augment=aug)}
+    tiny = dict(image_size=32, depth=2, hidden_dim=64, num_heads=4,
+                patch_size=8)
+    cpu = Trainer("thermal_only", cfg, mods, device="cpu", **tiny)
+    zoo.init_model(cpu.module, torch.Generator().manual_seed(0))
+    card = Trainer("thermal_only", cfg, mods, device=dev, **tiny)
+    card.module.load_state_dict(cpu.module.state_dict())
+    rng = np.random.default_rng(0)
+    batch = {"thermal": rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8),
+             "label": np.array([0, 1, 1, 0], np.int32),
+             "valid": np.array([1, 1, 1, 0], np.float32)}
+    before = (vb.mlp_block_bwd.launches, at.qkv_attention_fwdbwd.launches)
+    out = card.train_step(batch, torch.Generator(device=dev))
+    ref = cpu.train_step(batch, torch.Generator())
+    assert (vb.mlp_block_bwd.launches, at.qkv_attention_fwdbwd.launches) \
+        == (before[0] + 2, before[1] + 2)
+    assert float(out["loss"]) == pytest.approx(float(ref["loss"]), rel=1e-5)
+    cpu_params = dict(cpu.module.named_parameters())
+    for name, p in card.module.named_parameters():
+        q = cpu_params[name]
+        # each parameter's gradient against its own largest entry
+        assert float((p.grad.cpu() - q.grad).abs().max()) \
+            <= 1e-4 * float(q.grad.abs().max()), name
+        assert float((p.detach().cpu() - q.detach()).abs().max()) \
+            <= 2 * cfg.learning_rate

@@ -185,7 +185,7 @@ def test_param_count_at_224():
 
 NO_JAX_SCRIPT = r"""
 import sys
-for name in ("jax", "jaxlib", "flax"):
+for name in ("jax", "jaxlib", "flax", "dfu_multimodal_tpu"):
     sys.modules[name] = None            # any import of them now fails
 import numpy as np
 import torch
@@ -193,6 +193,7 @@ torch.set_num_threads(1)
 import dfu_multimodal_tpu_torch.ops._build
 import dfu_multimodal_tpu_torch.serve.engine
 import dfu_multimodal_tpu_torch.tools.convert_jax
+from dfu_multimodal_tpu_torch.data.loader import ArrayDataset
 from dfu_multimodal_tpu_torch.models import zoo
 from dfu_multimodal_tpu_torch.train.engine import (
     Trainer, TrainConfig, rgb_modality, thermal_modality)
@@ -206,8 +207,20 @@ batch = {m: rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
          for m in ("rgb", "thermal")}
 probs = trainer.eval_step(batch)["probs"]
 assert probs.shape == (2,) and bool(torch.isfinite(probs).all())
+
+thermal = Trainer("thermal_only",
+                  TrainConfig(compute_dtype="float32", batch_size=2),
+                  {"thermal": thermal_modality()}, device="cpu",
+                  image_size=32, depth=2, hidden_dim=64, num_heads=4,
+                  patch_size=8)
+zoo.init_model(thermal.module, torch.Generator().manual_seed(0))
+data = ArrayDataset({"thermal": batch["thermal"]}, np.array([0, 1]))
+epoch = thermal.run_train_epoch(data, np.random.default_rng(0),
+                                torch.Generator().manual_seed(0))
+assert np.isfinite(epoch.loss), epoch
 loaded = [m for m, v in sys.modules.items() if v is not None
-          and m.split(".")[0] in ("jax", "jaxlib", "flax")]
+          and m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                  "dfu_multimodal_tpu")]
 assert not loaded, loaded
 print("ok")
 """
