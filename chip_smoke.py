@@ -17,6 +17,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 3b. backward kernels — K4 ``mlp_block_bwd`` and K5
               ``qkv_attention_fwdbwd`` against their plain versions at
               B = 16 and 128 in fp32 and bf16, likewise;
+3c. int8 kernels — ``attn_block_q8``, ``mlp_block_q8`` (K7) and
+              ``attn_block_q8s``, ``mlp_block_q8s`` (K8) against their plain
+              versions at B = 8 and 128 in fp32 and bf16;
 4. serve    — the full-width multimodal model (ResNet50 + ViT-B/16, random
               weights from a seeded generator) behind Trainer +
               ServingEngine(max_batch=8) in bf16: 24 requests from 3
@@ -31,7 +34,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               the card against the CPU's plain fp32 step on the same
               weights and batch, each parameter's gradient within 1e-5 of
               its own max|g|;
-6. the kernels' JSON line (times, bounds, launches), then the device JSON
+6. int8     — the full-width thermal_only ViT-B/16 (seeded weights)
+              quantised on the card by ``quantize_for_serving`` behind
+              ``ServingEngine(max_batch=8)`` in bf16: 24 requests from 3
+              threads, 12 launches per batch of each dynamic int8 block and
+              none of the bf16 blocks, the card (bf16 and fp32) against the
+              CPU's plain int8 fp32 path on the same quantised weights, and
+              how many predictions agree with the bf16 model; then the
+              calibrated static configuration (16 synthetic normalised
+              images calibrated on the card, 3 eval batches through the
+              q8s kernels, card against CPU likewise);
+7. the kernels' JSON line (times, bounds, launches), then the device JSON
    line last.
 
 Exits non-zero with no result line when no CUDA device is present.
@@ -52,12 +65,16 @@ import torch
 
 from dfu_multimodal_tpu_torch.config import AugmentConfig
 from dfu_multimodal_tpu_torch.data.loader import ArrayDataset
+from dfu_multimodal_tpu_torch.data.transforms import eval_normalize
 from dfu_multimodal_tpu_torch.models import zoo
+from dfu_multimodal_tpu_torch.models.vit import quantize_variables
 from dfu_multimodal_tpu_torch.ops import _build
 from dfu_multimodal_tpu_torch.ops import attention as at
 from dfu_multimodal_tpu_torch.ops import fused_mlp as fm
 from dfu_multimodal_tpu_torch.ops import vit_block as vb
-from dfu_multimodal_tpu_torch.serve.engine import ServingEngine
+from dfu_multimodal_tpu_torch.ops import vit_block_q8 as q8
+from dfu_multimodal_tpu_torch.serve.engine import (ServingEngine,
+                                                   quantize_for_serving)
 from dfu_multimodal_tpu_torch.tools.profile_train import (TRAIN_BATCH,
                                                           recipe_trainer,
                                                           synthetic_thermal)
@@ -108,7 +125,7 @@ def phase_device() -> str:
 # ---------------------------------------------------------------- phase 2
 
 
-SOURCES = ("vit_block", "fused_mlp", "attention")
+SOURCES = ("vit_block", "fused_mlp", "attention", "vit_block_q8")
 
 
 def phase_build() -> None:
@@ -130,6 +147,7 @@ def phase_build() -> None:
     # bind the entry points now, so a missing symbol fails this phase
     vb._lib()
     at._lib()
+    q8._lib()
     _build.load("fused_mlp", fm._SIGNATURES)
 
 
@@ -143,30 +161,35 @@ def _randn(gen, *shape, scale=1.0, offset=0.0, dtype=torch.float32):
     return (offset + scale * t).to(dtype)
 
 
-def _check_and_time(label, kernel, plain, tol):
+def _check_and_time(label, kernel, plain, tol, mean_tol=None):
     """Hold the kernel's output(s) against the plain version's within
-    |err| <= tol·(1 + |ref|), then time both in turns."""
+    |err| <= tol·(1 + |ref|) (and, with ``mean_tol``, the mean of
+    |err| / (1 + |ref|) within it), then time both in turns."""
     outs, refs = kernel(), None
     torch.cuda.synchronize()
     refs = plain()
     if isinstance(outs, torch.Tensor):
         outs, refs = (outs,), (refs,)
-    abs_err = rel_err = 0.0
+    abs_err = rel_err = mean_err = 0.0
     ok = True
     for out, ref in zip(outs, refs):
         a, r = max_errors(out, ref)
         abs_err, rel_err = max(abs_err, a), max(rel_err, r)
-        bound = tol * (1.0 + ref.float().abs())
+        scaled = (out.float() - ref.float()).abs() / (1.0 + ref.float().abs())
+        mean_err = max(mean_err, float(scaled.mean()))
         ok = ok and out.shape == ref.shape and bool(
-            torch.isfinite(out.float()).all()) and bool(
-            ((out.float() - ref.float()).abs() <= bound).all())
+            torch.isfinite(out.float()).all()) and bool((scaled <= tol).all())
+    if mean_tol is not None:
+        ok = ok and mean_err <= mean_tol
     del outs, refs
     k_ms, p_ms = cuda_ms(kernel), cuda_ms(plain)
     p_ms2, k_ms2 = cuda_ms(plain), cuda_ms(kernel)     # turns: p, k, k, p
     k_ms, p_ms = (k_ms + k_ms2) / 2, (p_ms + p_ms2) / 2
+    mean = ("" if mean_tol is None else
+            f" mean_err={mean_err:.3e} (tol {mean_tol:g})")
     log(f"[kernel] {label}: max_abs_err={abs_err:.3e} max_rel_err="
-        f"{rel_err:.3e} tol=|err|<={tol:g}*(1+|ref|) kernel_ms={k_ms:.4f} "
-        f"plain_ms={p_ms:.4f} {'ok' if ok else 'FAIL'}")
+        f"{rel_err:.3e} tol=|err|<={tol:g}*(1+|ref|){mean} kernel_ms="
+        f"{k_ms:.4f} plain_ms={p_ms:.4f} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label}: kernel disagrees with its plain "
                              f"version (max abs err {abs_err:.3e})")
@@ -261,6 +284,78 @@ def phase_backward_kernels(dev) -> dict:
     return main
 
 
+# --------------------------------------------------------------- phase 3c
+
+# int8 kernels vs their plain versions: the two take the LayerNorm and
+# attention sums in another order, so a value within an ulp of a rounding
+# boundary quantises one int8 step apart; when it is a row's absmax the
+# whole row's scale moves, up to the int8 noise itself.  So each element
+# within 2e-2·(1+|ref|), and the mean of |err|/(1+|ref|) within 5e-4,
+# which a systematic fault (a wrong scale, a wrong chunk) would exceed.
+Q8_TOL, Q8_MEAN_TOL = 2e-2, 5e-4
+# calibrated act scales of the static kernels' inputs: LN output, then
+# attention / GELU output
+Q8_ACT = (4.5 / 127, 1.5 / 127)
+Q8_BATCHES = (8, 128)        # the serving batch, and a large one
+
+
+def _q8_dense(gen, din, dout):
+    w = _randn(gen, din, dout, scale=din ** -0.5)
+    w_q8, s = q8.quantize_weight(w)
+    return w_q8, s, _randn(gen, dout, scale=0.1)
+
+
+def phase_q8_kernels(dev) -> dict:
+    """K7 and K8 against their plain versions at the serving path's shape
+    (ViT-B/16, B = 8) and at B = 128, in fp32 and bf16."""
+    n, c, heads = 197, 768, 12
+    inv = torch.tensor([1.0 / a for a in Q8_ACT], device=dev)
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in Q8_BATCHES:
+            g = torch.Generator(device=dev).manual_seed(3000 + b)
+            x = _randn(g, b, n, c, dtype=dtype)
+            ln = (_randn(g, c, scale=0.1, offset=1.0),
+                  _randn(g, c, scale=0.1))
+            wqkv, sqkv, bqkv = _q8_dense(g, c, 3 * c)
+            wproj, sproj, bproj = _q8_dense(g, c, c)
+            w1, s1, b1 = _q8_dense(g, c, 4 * c)
+            w2, s2, b2 = _q8_dense(g, 4 * c, c)
+            attn = (*ln, wqkv, sqkv, bqkv, wproj, sproj, bproj)
+            attn_s = (*ln, wqkv, sqkv * Q8_ACT[0], bqkv, wproj,
+                      sproj * Q8_ACT[1], bproj, inv)
+            mlp = (*ln, w1, s1, b1, w2, s2, b2)
+            mlp_s = (*ln, w1, s1 * Q8_ACT[0], b1, w2, s2 * Q8_ACT[1], b2,
+                     inv)
+            tag = f"{str(dtype).split('.')[1]} B={b}"
+            res = {
+                "attn_block_q8": _check_and_time(
+                    f"attn_block_q8 {tag}",
+                    lambda: q8.attn_block_q8(x, *attn, heads),
+                    lambda: q8.attn_block_q8_ref(x, *attn, heads),
+                    Q8_TOL, Q8_MEAN_TOL),
+                "mlp_block_q8": _check_and_time(
+                    f"mlp_block_q8 {tag}",
+                    lambda: q8.mlp_block_q8(x, *mlp),
+                    lambda: q8.mlp_block_q8_ref(x, *mlp),
+                    Q8_TOL, Q8_MEAN_TOL),
+                "attn_block_q8s": _check_and_time(
+                    f"attn_block_q8s {tag}",
+                    lambda: q8.attn_block_q8s(x, *attn_s, heads),
+                    lambda: q8.attn_block_q8s_ref(x, *attn_s, heads),
+                    Q8_TOL, Q8_MEAN_TOL),
+                "mlp_block_q8s": _check_and_time(
+                    f"mlp_block_q8s {tag}",
+                    lambda: q8.mlp_block_q8s(x, *mlp_s),
+                    lambda: q8.mlp_block_q8s_ref(x, *mlp_s),
+                    Q8_TOL, Q8_MEAN_TOL)}
+            if dtype == torch.bfloat16 and b == 8:   # the serving shape
+                main = res
+            del x, attn, attn_s, mlp, mlp_s
+            torch.cuda.empty_cache()
+    return main
+
+
 # ---------------------------------------------------------------- phase 4
 
 N_REQUESTS, N_THREADS, IMAGE = 24, 3, 224
@@ -284,6 +379,53 @@ def _logits(trainer, batch):
         return trainer.module(*trainer._preprocess_eval(inputs)).float().cpu()
 
 
+def _drive(engine, samples, tag):
+    """Start ``engine``, set every launch count to 0, submit ``samples``
+    from N_THREADS client threads at a random pace, and stop it.  Returns
+    the results in request order and the engine's stats, after checking
+    that every request was served without error."""
+    futures = [None] * len(samples)
+    errors = []
+
+    def client(k: int) -> None:
+        try:
+            pace = np.random.default_rng(100 + k)
+            for i in range(k, len(samples), N_THREADS):
+                futures[i] = engine.submit(samples[i])
+                time.sleep(float(pace.uniform(0.0, 0.02)))
+        except Exception as exc:              # re-raised below
+            errors.append(exc)
+
+    t0 = time.perf_counter()
+    with engine:
+        log(f"[{tag}] engine start (every bucket on the batcher thread): "
+            f"{time.perf_counter() - t0:.3f} s")
+        _reset_launches()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(N_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors:
+            raise errors[0]
+        results = [f.result(timeout=600) for f in futures]
+    stats = engine.stats()
+    hist = stats["batch_size_hist"]
+    log(f"[{tag}] {stats['requests']} requests in {sum(hist.values())} "
+        f"batches, batch sizes {hist}, errors {stats['errors']}")
+    log(f"[{tag}] request latency p50={stats['latency_ms']['p50']:.3f} ms "
+        f"p99={stats['latency_ms']['p99']:.3f} ms")
+    if stats["requests"] != len(samples) or stats["errors"]:
+        raise AssertionError(f"stats counted {stats['requests']} requests, "
+                             f"{stats['errors']} errors")
+    probs = np.array([p for p, _ in results])
+    if not (np.isfinite(probs).all() and (probs >= 0).all()
+            and (probs <= 1).all()):
+        raise AssertionError(f"served probabilities out of [0, 1]: {probs}")
+    return results, stats
+
+
 def phase_slice(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     served = _trainer("bfloat16", dev)
@@ -304,54 +446,15 @@ def phase_slice(dev) -> dict:
     log(f"[slice] warmup of buckets {engine.buckets}: "
         f"{time.perf_counter() - t0:.2f} s")
 
-    futures = [None] * N_REQUESTS
-    errors = []
-
-    def client(k: int) -> None:
-        try:
-            pace = np.random.default_rng(100 + k)
-            for i in range(k, N_REQUESTS, N_THREADS):
-                futures[i] = engine.submit(samples[i])
-                time.sleep(float(pace.uniform(0.0, 0.02)))
-        except Exception as exc:              # re-raised below
-            errors.append(exc)
-
-    t0 = time.perf_counter()
-    with engine:
-        log(f"[slice] engine start (every bucket on the batcher thread): "
-            f"{time.perf_counter() - t0:.3f} s")
-        vb.attn_block.launches = vb.mlp_block.launches = 0
-        fm.fused_mlp.launches = 0
-        threads = [threading.Thread(target=client, args=(k,))
-                   for k in range(N_THREADS)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        if errors:
-            raise errors[0]
-        results = [f.result(timeout=600) for f in futures]
+    results, stats = _drive(engine, samples, "slice")
     launches = {"attn_block": vb.attn_block.launches,
                 "mlp_block": vb.mlp_block.launches,
                 "fused_mlp": fm.fused_mlp.launches}
-    stats = engine.stats()
     peak = torch.cuda.max_memory_allocated(dev)
-    hist = stats["batch_size_hist"]
-    n_batches = sum(hist.values())
-    log(f"[slice] {stats['requests']} requests in {n_batches} batches, "
-        f"batch sizes {hist}, errors {stats['errors']}")
-    log(f"[slice] request latency p50={stats['latency_ms']['p50']:.3f} ms "
-        f"p99={stats['latency_ms']['p99']:.3f} ms; peak device memory "
-        f"{peak / 2**20:.1f} MiB")
-    log(f"[slice] launches {launches}")
-
+    n_batches = sum(stats["batch_size_hist"].values())
+    log(f"[slice] peak device memory {peak / 2**20:.1f} MiB; launches "
+        f"{launches}")
     probs = np.array([p for p, _ in results])
-    if stats["requests"] != N_REQUESTS or stats["errors"]:
-        raise AssertionError(f"stats counted {stats['requests']} requests, "
-                             f"{stats['errors']} errors")
-    if not (np.isfinite(probs).all() and (probs >= 0).all()
-            and (probs <= 1).all()):
-        raise AssertionError(f"served probabilities out of [0, 1]: {probs}")
     want = {"attn_block": 12 * n_batches, "mlp_block": 12 * n_batches,
             "fused_mlp": n_batches}
     if launches != want:
@@ -410,6 +513,8 @@ def _reset_launches() -> None:
     vb.attn_block.launches = vb.mlp_block.launches = 0
     vb.mlp_block_bwd.launches = at.qkv_attention_fwdbwd.launches = 0
     fm.fused_mlp.launches = 0
+    q8.attn_block_q8.launches = q8.mlp_block_q8.launches = 0
+    q8.attn_block_q8s.launches = q8.mlp_block_q8s.launches = 0
 
 
 class _StepMeter:
@@ -524,47 +629,195 @@ def phase_train(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 6
+
+CALIB_IMAGES = 16
+# card vs CPU, int8 both on the same quantised weights: fp32 differs in
+# summation order only, plus the int8 roundings that flips, each up to one
+# int8 step of a row (or a row's scale), compounding through 12 blocks:
+# max|dlogit| measured 1.15e-2·(1+max|logit|) in this phase's first run,
+# so 3e-2; bf16 also rounds every activation to 8 bits (SLICE_TOL)
+INT8_TOL = {"float32": {"logits": 3e-2, "probs": 1e-2},
+            "bfloat16": SLICE_TOL["bfloat16"]}
+
+
+def _q8_launches() -> dict:
+    """The int8 blocks' launch counts, and the bf16 blocks' (which the
+    int8 path must not run)."""
+    return {"attn_block_q8": q8.attn_block_q8.launches,
+            "mlp_block_q8": q8.mlp_block_q8.launches,
+            "attn_block_q8s": q8.attn_block_q8s.launches,
+            "mlp_block_q8s": q8.mlp_block_q8s.launches,
+            "attn_block": vb.attn_block.launches,
+            "mlp_block": vb.mlp_block.launches}
+
+
+def _thermal(dtype: str, device, block_impl: str = "fused") -> Trainer:
+    return Trainer("thermal_only", TrainConfig(compute_dtype=dtype),
+                   {"thermal": thermal_modality()}, device=device,
+                   image_size=IMAGE, block_impl=block_impl)
+
+
+def _int8_vs_cpu(tag, served, block_impl, batches) -> None:
+    """The served int8 trainer (bf16) and an fp32 int8 trainer on the
+    card against the CPU's plain int8 fp32 path, all three on the served
+    trainer's quantised weights."""
+    state = {k: v.detach().cpu() for k, v in served.variables().items()}
+    cpu = _thermal("float32", "cpu", block_impl)
+    cpu.module.load_state_dict(state)
+    card32 = _thermal("float32", served.device, block_impl)
+    card32.module.load_state_dict(state)
+    ref = torch.cat([_logits(cpu, b) for b in batches])
+    ref_probs = torch.softmax(ref, -1)[:, 1]
+    scale = 1.0 + float(ref.abs().max())
+    for dtype, trainer in (("float32", card32), ("bfloat16", served)):
+        logits = torch.cat([_logits(trainer, b) for b in batches])
+        dl = float((logits - ref).abs().max())
+        dp = float((torch.softmax(logits, -1)[:, 1] - ref_probs).abs().max())
+        tol = INT8_TOL[dtype]
+        ok = dl <= tol["logits"] * scale and dp <= tol["probs"]
+        log(f"[{tag}] card {dtype} vs CPU float32, int8 both: max|dlogit|="
+            f"{dl:.3e} (tol {tol['logits']:g}*(1+max|logit|={scale:.3f})), "
+            f"max|dprob|={dp:.3e} (tol {tol['probs']:g}), preds agree "
+            f"{int((logits.argmax(-1) == ref.argmax(-1)).sum())}/{len(ref)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"card {dtype} int8 disagrees with the CPU")
+
+
+def phase_int8(dev) -> dict:
+    """Int8 serving of the full-width thermal_only ViT-B/16: the dynamic
+    configuration behind the ServingEngine, then the calibrated static
+    one through three eval steps.  Returns the int8 launch counts."""
+    images, _ = synthetic_thermal(N_REQUESTS + CALIB_IMAGES, seed=3)
+    samples = [{"thermal": im} for im in images[:N_REQUESTS]]
+    batches = [{"thermal": images[i:i + 8]} for i in range(0, N_REQUESTS, 8)]
+    base = _thermal("bfloat16", dev)
+    zoo.init_model(base.module, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    served = quantize_for_serving(base, image_size=IMAGE)
+    torch.cuda.synchronize(dev)
+    log(f"[int8] thermal_only at {IMAGE}x{IMAGE} quantised on {dev} by "
+        f"quantize_for_serving in {time.perf_counter() - t0:.2f} s; compute "
+        f"bfloat16, blocks {type(served.module.vit.blocks[0]).__name__}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine = ServingEngine(served, image_size=IMAGE, max_batch=8)
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize(dev)
+    log(f"[int8] warmup of buckets {engine.buckets}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    results, stats = _drive(engine, samples, "int8")
+    launches = _q8_launches()
+    n_batches = sum(stats["batch_size_hist"].values())
+    log(f"[int8] peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB; launches "
+        f"{launches}")
+    want = {k: 0 for k in launches}
+    want.update(attn_block_q8=12 * n_batches, mlp_block_q8=12 * n_batches)
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    counts = {k: launches[k] for k in ("attn_block_q8", "mlp_block_q8")}
+    _int8_vs_cpu("int8", served, "fused_q8", batches)
+    bf16 = torch.cat([_logits(base, b) for b in batches]).argmax(-1)
+    int8 = torch.tensor([pred for _, pred in results])
+    log(f"[int8] predictions equal to the bf16 model's on the same inputs: "
+        f"{int((bf16 == int8).sum())}/{N_REQUESTS}")
+
+    # the calibrated static configuration
+    t0 = time.perf_counter()
+    calib = eval_normalize(torch.as_tensor(images[N_REQUESTS:], device=dev),
+                           thermal_modality(), torch.float32)
+    qstate = quantize_variables(base.variables(), calib_batches=[calib])
+    static = _thermal("bfloat16", dev, "fused_q8s")
+    static.module.load_state_dict(qstate)
+    torch.cuda.synchronize(dev)
+    act = qstate["vit.blocks.0.act_scales"].tolist()
+    log(f"[int8 static] calibrated on {CALIB_IMAGES} normalised images and "
+        f"quantised on {dev} in {time.perf_counter() - t0:.2f} s; block 0 "
+        f"act_scales {[round(a, 6) for a in act]}")
+    static.eval_step(batches[0])                          # warm-up
+    torch.cuda.synchronize(dev)
+    _reset_launches()
+    ms = []
+    for b in batches:
+        t0 = time.perf_counter()
+        probs = static.eval_step(b)["probs"]
+        torch.cuda.synchronize(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if not bool(torch.isfinite(probs).all()):
+            raise AssertionError(f"static int8 probabilities {probs}")
+    launches = _q8_launches()
+    log(f"[int8 static] eval step ms at batch 8 {[round(m, 3) for m in ms]};"
+        f" launches {launches}")
+    want = {k: 0 for k in launches}
+    want.update(attn_block_q8s=12 * len(batches),
+                mlp_block_q8s=12 * len(batches))
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    counts.update((k, launches[k]) for k in ("attn_block_q8s",
+                                             "mlp_block_q8s"))
+    _int8_vs_cpu("int8 static", static, "fused_q8s", batches)
+    return counts
+
+
 # ---------------------------------------------------------------- bounds
 
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
-def _bound(flops: float, nbytes: float, dtype) -> dict:
-    """Least time the card could take: the larger of operations over the
-    dtype's peak rate and bytes over the memory rate (each input read
-    once, each output written once)."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+def _bound(ops: dict, nbytes: float) -> dict:
+    """Least time the card could take: the larger of the operations over
+    their type's peak rate (``ops`` maps a dtype to its operation count;
+    the times of the types add) and the bytes over the memory rate (each
+    input read once, each output written once)."""
+    t_ops = sum(n / PEAK_FLOPS[dtype] for dtype, n in ops.items())
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def kernel_bounds() -> dict:
-    """Bounds at each kernel's path shape: K1-K2 at the serving batch 8,
-    K3 at batch 8 in fp32, K4-K5 at the training batch 16, ViT-B/16."""
+    """Bounds at each kernel's path shape: K1-K2 and the int8 blocks at
+    the serving batch 8, K3 at batch 8 in fp32, K4-K5 at the training
+    batch 16, ViT-B/16."""
     n, c, hid, heads = 197, 768, 3072, 12
     bf, f32 = 2, 4
     r8, r16 = 8 * n, TRAIN_BATCH * n
     fdims = (2816, 512, 256, 2)
     fw = sum(a * b + b for a, b in zip(fdims[:-1], fdims[1:]))
+    attn_flops = 4 * 8 * n * n * c             # q·kᵀ and P·V
+    # int8 blocks: x in and out in bf16, int8 weights, fp32 vectors (LN,
+    # scales, biases) and, static, the two reciprocal scales
+    attn_q8 = ({torch.int8: 2 * r8 * c * 4 * c, torch.bfloat16: attn_flops},
+               2 * r8 * c * bf + 4 * c * c + 10 * c * f32)
+    mlp_q8 = ({torch.int8: 4 * r8 * c * hid},
+              2 * r8 * c * bf + 2 * c * hid + (4 * c + 2 * hid) * f32)
     return {
         "attn_block": _bound(
-            2 * r8 * c * 4 * c + 4 * 8 * n * n * c,
-            2 * r8 * c * bf + 4 * c * c * bf + 6 * c * f32, torch.bfloat16),
+            {torch.bfloat16: 2 * r8 * c * 4 * c + attn_flops},
+            2 * r8 * c * bf + 4 * c * c * bf + 6 * c * f32),
         "mlp_block": _bound(
-            4 * r8 * c * hid,
-            2 * r8 * c * bf + 2 * c * hid * bf + (3 * c + hid) * f32,
-            torch.bfloat16),
+            {torch.bfloat16: 4 * r8 * c * hid},
+            2 * r8 * c * bf + 2 * c * hid * bf + (3 * c + hid) * f32),
         "fused_mlp": _bound(
-            2 * 8 * sum(a * b for a, b in zip(fdims[:-1], fdims[1:])),
-            (8 * fdims[0] + fw + 8 * fdims[-1]) * f32, torch.float32),
+            {torch.float32: 2 * 8 * sum(
+                a * b for a, b in zip(fdims[:-1], fdims[1:]))},
+            (8 * fdims[0] + fw + 8 * fdims[-1]) * f32),
         "mlp_block_bwd": _bound(
-            6 * r16 * c * hid,
+            {torch.bfloat16: 6 * r16 * c * hid},
             4 * r16 * c * bf + 2 * c * hid * bf + 2 * r16 * hid * bf
-            + (4 * c + hid) * f32, torch.bfloat16),
+            + (4 * c + hid) * f32),
         "qkv_attention_fwdbwd": _bound(
-            12 * TRAIN_BATCH * n * n * c, 8 * r16 * c * bf,
-            torch.bfloat16),
+            {torch.bfloat16: 12 * TRAIN_BATCH * n * n * c},
+            8 * r16 * c * bf),
+        "attn_block_q8": _bound(*attn_q8),
+        "mlp_block_q8": _bound(*mlp_q8),
+        "attn_block_q8s": _bound(attn_q8[0], attn_q8[1] + 2 * f32),
+        "mlp_block_q8s": _bound(mlp_q8[0], mlp_q8[1] + 2 * f32),
     }
 
 
@@ -577,9 +830,11 @@ def main() -> int:
     phase_build()
     times = phase_kernels(dev)
     times.update(phase_backward_kernels(dev))
+    times.update(phase_q8_kernels(dev))
     launches = phase_slice(dev)
     launches.update({k: v for k, v in phase_train(dev).items()
                      if k in ("mlp_block_bwd", "qkv_attention_fwdbwd")})
+    launches.update(phase_int8(dev))
     for mod in ("jax", "dfu_multimodal_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"the port imported {mod}")
@@ -589,7 +844,11 @@ def main() -> int:
         "mlp_block": ("vit_block.cu", "vit_block.py:564"),
         "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:27"),
         "mlp_block_bwd": ("vit_block.cu", "vit_block.py:652"),
-        "qkv_attention_fwdbwd": ("attention.cu", "attention.py:334")}
+        "qkv_attention_fwdbwd": ("attention.cu", "attention.py:334"),
+        "attn_block_q8": ("vit_block_q8.cu", "vit_block_q8.py:70"),
+        "mlp_block_q8": ("vit_block_q8.cu", "vit_block_q8.py:107"),
+        "attn_block_q8s": ("vit_block_q8.cu", "vit_block_q8.py:157"),
+        "mlp_block_q8s": ("vit_block_q8.cu", "vit_block_q8.py:202")}
     kernels = [{"name": k, "route": "cuda",
                 "source": f"dfu_multimodal_tpu_torch/ops/csrc/{src}",
                 "replaces": f"dfu_multimodal_tpu/ops/{tpu}",

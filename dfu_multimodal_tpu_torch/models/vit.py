@@ -1,25 +1,35 @@
 """ViT-B/16 in PyTorch, timm key layout, blocks on the port's kernels.
 
 Counterpart of ``dfu_multimodal_tpu/models/vit.py`` (``ViT`` with the fused
-block path, and ``ViTClassifier``): 224x224 -> 14x14 patches + CLS = 197
-tokens, 12 pre-LN encoder blocks, 12 heads, MLP ratio 4, CLS-token
-features.  Each block runs the trainable ``ops.vit_block.AttnBlock`` and
-``MlpBlock`` (forward kernels K1/K2; backward K5/K4 in the hand chain
-rules, rematerialised from the block inputs).
+block paths, ``ViTClassifier`` and the int8 converters): 224x224 -> 14x14
+patches + CLS = 197 tokens, 12 pre-LN encoder blocks, 12 heads, MLP ratio
+4, CLS-token features.
 
-Parameters are fp32 in timm's layout (``patch_embed.proj`` conv-shaped,
+``block_impl`` picks the encoder block:
+
+- ``"fused"`` (default): the trainable ``ops.vit_block.AttnBlock`` and
+  ``MlpBlock`` (forward kernels K1/K2; backward K5/K4 in the hand chain
+  rules, rematerialised from the block inputs);
+- ``"fused_q8"``: the serving-only int8 blocks of ``ops.vit_block_q8``
+  with dynamic per-row activation scales (K7);
+- ``"fused_q8s"``: the same with calibrated static activation scales (K8).
+
+fp32 parameters are in timm's layout (``patch_embed.proj`` conv-shaped,
 ``blocks.{i}.norm1/attn.qkv/attn.proj/norm2/mlp.fc1/mlp.fc2``, ``norm``);
-compute runs in ``dtype``.  Every forward transposes the Linear weights to
-the kernels' (in, out) layout and casts them to the compute dtype — one
-copy of the trunk's weights per call.  The copy is differentiable (JAX's
-``astype`` VJP): a weight gradient computed in the compute dtype reaches
-the fp32 parameter through it, so a bf16 step rounds weight gradients to
-bf16 first, as the JAX package does.
+compute runs in ``dtype``.  Every fused forward transposes the Linear
+weights to the kernels' (in, out) layout and casts them to the compute
+dtype — one copy of the trunk's weights per call.  The copy is
+differentiable (JAX's ``astype`` VJP): a weight gradient computed in the
+compute dtype reaches the fp32 parameter through it, so a bf16 step rounds
+weight gradients to bf16 first, as the JAX package does.  The int8 blocks
+hold their weights as buffers already in the kernels' (in, out) int8
+layout, quantised once at load (:func:`quantize_variables`), and copy
+nothing per call.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Iterable, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +37,9 @@ from torch import nn
 
 from dfu_multimodal_tpu_torch.models.common import canonical_dtype
 from dfu_multimodal_tpu_torch.ops.vit_block import AttnBlock, MlpBlock
+from dfu_multimodal_tpu_torch.ops.vit_block_q8 import (
+    attn_block_q8, attn_block_q8s, mlp_block_q8, mlp_block_q8s, over_qmax,
+    quantize_weight)
 
 LN_EPS = 1e-6
 
@@ -81,6 +94,91 @@ class EncoderBlock(nn.Module):
                               _in_out(self.mlp.fc2, dt), self.mlp.fc2.bias)
 
 
+class QDense(nn.Module):
+    """An int8 dense layer's tensors (the JAX ``_QDenseParams`` tree):
+    ``kernel_q8`` int8 (in, out) in the kernels' layout, the per-output-
+    channel ``scale`` and the ``bias``, fp32.  Buffers, not parameters: a
+    serving block has nothing to train."""
+
+    def __init__(self, din: int, dout: int):
+        super().__init__()
+        self.register_buffer("kernel_q8",
+                             torch.zeros(din, dout, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(dout))
+        self.register_buffer("bias", torch.zeros(dout))
+
+
+class QAttention(nn.Module):
+    """``attn.qkv`` / ``attn.proj`` int8 holders."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.qkv = QDense(dim, 3 * dim)
+        self.proj = QDense(dim, dim)
+
+
+class QMlp(nn.Module):
+    """``mlp.fc1`` / ``mlp.fc2`` int8 holders."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = QDense(dim, hidden)
+        self.fc2 = QDense(hidden, dim)
+
+
+class QuantizedEncoderBlock(nn.Module):
+    """Serving-only int8 encoder block (``ops.vit_block_q8``, K7): dynamic
+    per-row activation scales; attention stays in the compute dtype.  Its
+    tensors come from a trained fp32 block through
+    :func:`quantize_encoder_params`."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.num_heads = num_heads
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = QAttention(dim)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = QMlp(dim, mlp_ratio * dim)
+
+    def _operands(self):
+        qkv, proj = self.attn.qkv, self.attn.proj
+        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        return ((self.norm1.weight, self.norm1.bias, qkv.kernel_q8,
+                 qkv.scale, qkv.bias, proj.kernel_q8, proj.scale, proj.bias),
+                (self.norm2.weight, self.norm2.bias, fc1.kernel_q8,
+                 fc1.scale, fc1.bias, fc2.kernel_q8, fc2.scale, fc2.bias))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        attn, mlp = self._operands()
+        x = attn_block_q8(x, *attn, self.num_heads)
+        return mlp_block_q8(x, *mlp)
+
+
+class StaticQuantizedEncoderBlock(QuantizedEncoderBlock):
+    """Int8 encoder block with CALIBRATED static activation scales
+    (``ops.vit_block_q8`` q8s kernels, K8): the act scales are folded into
+    the weight scales at conversion time, and the (4,) ``act_scales``
+    buffer = [s_ln1, s_attn, s_ln2, s_gelu] gives the quantisation
+    reciprocals."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
+                 dtype: torch.dtype):
+        super().__init__(dim, num_heads, mlp_ratio, dtype)
+        self.register_buffer("act_scales", torch.ones(4))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        attn, mlp = self._operands()
+        a = self.act_scales
+        x = attn_block_q8s(x, *attn, 1.0 / a[:2], self.num_heads)
+        return mlp_block_q8s(x, *mlp, 1.0 / a[2:])
+
+
+# block_impl -> encoder block class (the JAX ``ViT._resolve_block``)
+BLOCK_IMPLS = {"fused": EncoderBlock, "fused_q8": QuantizedEncoderBlock,
+               "fused_q8s": StaticQuantizedEncoderBlock}
+
+
 class PatchEmbed(nn.Module):
     """timm's ``patch_embed.proj`` conv parameters, applied as ONE matmul
     over (row, col, channel)-flattened patches, as the JAX trunk does."""
@@ -105,20 +203,25 @@ class PatchEmbed(nn.Module):
 class ViT(nn.Module):
     """ViT trunk returning fp32 CLS features (B, hidden_dim).  The
     position-embedding length is fixed by ``image_size`` here (JAX infers
-    it from the init input)."""
+    it from the init input).  ``block_impl``: ``"fused"``, ``"fused_q8"``
+    or ``"fused_q8s"`` (module docstring)."""
 
     def __init__(self, image_size: int = 224, patch_size: int = 16,
                  hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_ratio: int = 4,
-                 dtype: Union[str, torch.dtype] = torch.float32):
+                 dtype: Union[str, torch.dtype] = torch.float32,
+                 block_impl: str = "fused"):
         super().__init__()
+        if block_impl not in BLOCK_IMPLS:
+            raise ValueError(f"unknown block impl: {block_impl!r}")
         self.dtype = canonical_dtype(dtype)
         tokens = (image_size // patch_size) ** 2 + 1
         self.patch_embed = PatchEmbed(patch_size, hidden_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, hidden_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, tokens, hidden_dim))
         self.blocks = nn.ModuleList(
-            EncoderBlock(hidden_dim, num_heads, mlp_ratio, self.dtype)
+            BLOCK_IMPLS[block_impl](hidden_dim, num_heads, mlp_ratio,
+                                    self.dtype)
             for _ in range(depth))
         self.norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)
 
@@ -159,14 +262,17 @@ class ViTClassifier(nn.Module):
     the reference's ``ThermalOnlyModel``.  The trunk's keys carry the
     ``vit.`` prefix, which the JAX package's torch converter strips; the
     head is ``head``.  Dropout is active in train mode and draws from the
-    ``generator`` given to forward (required then)."""
+    ``generator`` given to forward (required then).  ``block_impl`` picks
+    the trunk's encoder block (``ViT``)."""
 
     def __init__(self, num_classes: int = 2, drop_rate: float = 0.5,
                  dtype: Union[str, torch.dtype] = torch.float32,
-                 image_size: int = 224, **vit_kwargs):
+                 image_size: int = 224, block_impl: str = "fused",
+                 **vit_kwargs):
         super().__init__()
         self.drop_rate = drop_rate
-        self.vit = ViT(image_size=image_size, dtype=dtype, **vit_kwargs)
+        self.vit = ViT(image_size=image_size, dtype=dtype,
+                       block_impl=block_impl, **vit_kwargs)
         hidden = self.vit.pos_embed.shape[-1]
         self.head = nn.Linear(hidden, num_classes)
 
@@ -179,3 +285,189 @@ class ViTClassifier(nn.Module):
                                  "dropout from an explicit generator")
             feats = dropout(feats, self.drop_rate, generator)
         return self.head(feats.float())
+
+
+# ------------------------------------------------------- int8 converters
+#
+# They work on a trunk's fp32 state_dict (keys without the trunk prefix,
+# e.g. ``blocks.0.attn.qkv.weight``) and return new dicts: the fp32
+# original is left as it is.  Tensors stay on their device, so a trunk on
+# the card is calibrated and quantised on the card.
+
+_DENSES = ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")
+# the calibration point whose absmax scales each dense layer's input
+CALIBRATION_POINTS = ("ln1_out", "proj_in", "ln2_out", "gelu_out")
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _block_ids(trunk: Mapping[str, torch.Tensor]) -> Sequence[int]:
+    return sorted({int(k.split(".")[1]) for k in trunk
+                   if k.startswith("blocks.")})
+
+
+def vit_config_from_params(trunk: Mapping[str, torch.Tensor],
+                           num_heads: Optional[int] = None) -> Dict[str, int]:
+    """Derive the ViT architecture from a trunk state_dict so calibration
+    and conversion never assume ViT-B/16: ``hidden_dim`` and
+    ``patch_size`` from the patch-embedding conv, ``depth`` from the
+    ``blocks.{i}``, ``mlp_ratio`` from fc1, and (the port's ViT fixes its
+    token count; JAX infers it from the input) ``image_size`` from the
+    position embedding.  ``num_heads`` is not recoverable from shapes —
+    defaults to hidden_dim // 64 (the universal ViT head size) unless
+    given."""
+    hidden, cin, patch, patch_w = trunk["patch_embed.proj.weight"].shape
+    if cin != 3 or patch != patch_w:
+        raise ValueError(f"patch_embed input dim {cin * patch * patch_w} "
+                         "is not p*p*3")
+    ids = _block_ids(trunk)
+    if not ids:
+        raise ValueError("no blocks.N entries in the ViT trunk state_dict")
+    mlp_hidden = trunk[f"blocks.{ids[0]}.mlp.fc1.weight"].shape[0]
+    grid = round((trunk["pos_embed"].shape[1] - 1) ** 0.5)
+    return dict(patch_size=patch, hidden_dim=hidden, depth=len(ids),
+                num_heads=num_heads or max(hidden // 64, 1),
+                mlp_ratio=mlp_hidden // hidden, image_size=grid * patch)
+
+
+def quantize_encoder_params(trunk: Mapping[str, torch.Tensor],
+                            act_absmax: Optional[Mapping] = None
+                            ) -> StateDict:
+    """fp32 ViT-trunk state_dict -> the int8 state_dict of a
+    ``QuantizedEncoderBlock`` trunk (or, with ``act_absmax`` calibration,
+    a ``StaticQuantizedEncoderBlock`` one): every block's four Linear
+    ``weight``/``bias`` become ``kernel_q8`` int8 (in, out), ``scale`` fp32
+    (per output channel) and ``bias``.  Run ONCE at load time.
+
+    ``act_absmax``: :func:`calibrate_vit_absmax`'s (depth,) absmax per
+    calibration point.  When given, the act scale a = max(absmax, 1e-6) /
+    127 of each layer's input is folded into its weight scale and each
+    block gets ``act_scales`` = [ln1, attn, ln2, gelu] — the static
+    kernels then skip all dynamic absmax work."""
+    ids = _block_ids(trunk)
+    if not ids:
+        raise ValueError("no blocks.N entries in the ViT trunk state_dict")
+    acts = None if act_absmax is None else {
+        p: over_qmax(torch.clamp_min(act_absmax[p], 1e-6))
+        for p in CALIBRATION_POINTS}
+    out = dict(trunk)
+    for i in ids:
+        for dense, point in zip(_DENSES, CALIBRATION_POINTS):
+            base = f"blocks.{i}.{dense}"
+            kernel_q8, scale = quantize_weight(out.pop(f"{base}.weight").t())
+            if acts is not None:
+                scale = scale * acts[point][i]
+            out[f"{base}.kernel_q8"] = kernel_q8
+            out[f"{base}.scale"] = scale
+        if acts is not None:
+            out[f"blocks.{i}.act_scales"] = torch.stack(
+                [acts[p][i] for p in CALIBRATION_POINTS])
+    return out
+
+
+@torch.no_grad()
+def _calibration_forward(trunk: Mapping[str, torch.Tensor], x: torch.Tensor,
+                         cfg: Mapping[str, int], dtype: torch.dtype
+                         ) -> StateDict:
+    """The blocks of the flax ``EncoderBlock`` trunk with
+    ``attention_impl="xla"`` in plain PyTorch ops (``F.layer_norm``,
+    ``torch.matmul``, softmax attention, exact GELU) in ``dtype``,
+    recording max|·| at each calibration point; returns (depth,) fp32 per
+    point.  JAX runs this forward outside Pallas, so it is no kernel's
+    plain version and runs on whatever device its tensors are on."""
+    p, hidden, heads = cfg["patch_size"], cfg["hidden_dim"], cfg["num_heads"]
+    d = hidden // heads
+    b, h, w, c = x.shape
+    gh, gw = h // p, w // p
+    x = x.to(dtype).reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(b, gh * gw, p * p * c)
+    kernel = trunk["patch_embed.proj.weight"].permute(2, 3, 1, 0)
+    x = (torch.matmul(x, kernel.reshape(p * p * c, -1).to(dtype))
+         + trunk["patch_embed.proj.bias"].to(dtype))
+    cls = trunk["cls_token"].to(dtype).expand(b, -1, -1)
+    x = torch.cat([cls, x], dim=1) + trunk["pos_embed"].to(dtype)
+    n = x.shape[1]
+    record: Dict[str, list] = {pt: [] for pt in CALIBRATION_POINTS}
+
+    def tap(point, t):
+        record[point].append(t.float().abs().amax())
+        return t
+
+    def dense(t, name):
+        return F.linear(t, trunk[f"{name}.weight"].to(dtype),
+                        trunk[f"{name}.bias"].to(dtype))
+
+    def norm(t, name):
+        return F.layer_norm(t.float(), (hidden,), trunk[f"{name}.weight"],
+                            trunk[f"{name}.bias"], LN_EPS).to(dtype)
+
+    for i in range(cfg["depth"]):
+        pre = f"blocks.{i}"
+        y = tap("ln1_out", norm(x, f"{pre}.norm1"))
+        qkv = dense(y, f"{pre}.attn.qkv").reshape(b, n, 3, heads, d)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        logits = torch.matmul((q * d ** -0.5).float(),
+                              k.float().transpose(-1, -2))
+        probs = torch.softmax(logits, dim=-1).to(dtype)
+        o = torch.matmul(probs, v).transpose(1, 2).reshape(b, n, hidden)
+        x = x + dense(tap("proj_in", o), f"{pre}.attn.proj")
+        y = tap("ln2_out", norm(x, f"{pre}.norm2"))
+        y = tap("gelu_out", F.gelu(dense(y, f"{pre}.mlp.fc1")))
+        x = x + dense(y, f"{pre}.mlp.fc2")
+    return {pt: torch.stack(v) for pt, v in record.items()}
+
+
+def calibrate_vit_absmax(trunk: Mapping[str, torch.Tensor],
+                         batches: Iterable[torch.Tensor],
+                         dtype: Union[str, torch.dtype] = torch.float32,
+                         num_heads: Optional[int] = None) -> StateDict:
+    """Run NORMALIZED image batches (B, H, W, 3) through the float trunk
+    (:func:`_calibration_forward`) and return the running max of each
+    calibration point, (depth,) fp32 each, which
+    :func:`quantize_encoder_params` consumes as ``act_absmax``.  The
+    architecture is derived from ``trunk`` (any depth/width/patch size)."""
+    cfg = vit_config_from_params(trunk, num_heads)
+    merged = None
+    for x in batches:
+        cal = _calibration_forward(trunk, x, cfg, canonical_dtype(dtype))
+        merged = cal if merged is None else {
+            pt: torch.maximum(merged[pt], cal[pt]) for pt in cal}
+    if merged is None:
+        # an empty (or exhausted) iterable would otherwise build the
+        # DYNAMIC tree when static calibration was requested
+        raise ValueError(
+            "calibrate_vit_absmax got zero calibration batches "
+            "(empty or exhausted iterable)")
+    return merged
+
+
+def quantize_variables(state_dict: Mapping[str, torch.Tensor],
+                       trunk_prefixes: Sequence[str] = ("vit.",
+                                                        "thermal_branch."),
+                       calib_batches: Optional[Iterable[torch.Tensor]] = None,
+                       dtype: Union[str, torch.dtype] = torch.float32
+                       ) -> StateDict:
+    """Quantize every ViT trunk of a model's state_dict for the int8
+    serving path (trunks under ``vit.`` in ``thermal_only``,
+    ``thermal_branch.`` in ``multimodal``).  Returns a new state_dict; the
+    fp32 original is untouched.
+
+    Without ``calib_batches``: dynamic per-row activation quantization
+    (``block_impl="fused_q8"``).  With ``calib_batches`` (normalized image
+    batches): static calibrated activation scales (``block_impl=
+    "fused_q8s"`` — no absmax work in the kernels; the calibration takes
+    the head count :func:`vit_config_from_params` defaults to)."""
+    batches = None if calib_batches is None else list(calib_batches)
+    new = dict(state_dict)
+    for prefix in trunk_prefixes:
+        trunk = {k[len(prefix):]: v for k, v in state_dict.items()
+                 if k.startswith(prefix)}
+        if not _block_ids(trunk):
+            continue
+        absmax = (None if batches is None
+                  else calibrate_vit_absmax(trunk, batches, dtype))
+        for k in trunk:
+            del new[prefix + k]
+        new.update((prefix + k, v) for k, v in
+                   quantize_encoder_params(trunk, absmax).items())
+    return new

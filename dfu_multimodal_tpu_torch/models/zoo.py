@@ -49,7 +49,9 @@ def build(name: str, *, num_classes: int = 2,
           dtype: Union[str, torch.dtype] = torch.float32,
           **kwargs) -> Tuple[nn.Module, ModelSpec]:
     """``drop_rate=None`` keeps the model class's own default.  Extra
-    kwargs (e.g. ``image_size``) go to the model class."""
+    kwargs go to the model class: ``image_size``, and for
+    ``thermal_only`` the trunk's ``block_impl`` (``"fused"``,
+    ``"fused_q8"``, ``"fused_q8s"``) and cut-down widths (``depth``...)."""
     spec = get(name)
     dr = {} if drop_rate is None else {"drop_rate": drop_rate}
     return spec.make(num_classes=num_classes, dtype=dtype, **dr,

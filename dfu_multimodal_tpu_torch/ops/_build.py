@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -111,16 +111,20 @@ def stream_of(t: torch.Tensor) -> int:
 
 def check_cuda_operands(name: str, x: torch.Tensor,
                         compute: Dict[str, torch.Tensor],
-                        fp32: Dict[str, torch.Tensor]) -> None:
+                        fp32: Dict[str, torch.Tensor],
+                        int8: Optional[Dict[str, torch.Tensor]] = None
+                        ) -> None:
     """Raise unless ``x`` lies on a CUDA device in fp32 or bf16 and every
     operand lies contiguous on that device: ``compute`` operands in x's
-    dtype, ``fp32`` operands (LayerNorm params, biases) in fp32."""
+    dtype, ``fp32`` operands (LayerNorm params, biases, scales) in fp32,
+    ``int8`` operands (quantised weights) in int8."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: compute dtype must be float32 or "
                         f"bfloat16, got {x.dtype}")
-    for want, group in ((x.dtype, compute), (torch.float32, fp32)):
+    for want, group in ((x.dtype, compute), (torch.float32, fp32),
+                        (torch.int8, int8 or {})):
         for arg, t in group.items():
             if t.device != x.device:
                 raise ValueError(

@@ -27,15 +27,16 @@
 //   operands on the FMA pipes, fp32 accumulation either way; B read as
 //   stored or transposed, so dh = g·w2ᵀ and dy = dhpre·w1ᵀ need no copy of
 //   the weights) whose epilogue adds the bias and applies exact-erf GELU,
-//   the residual, or the exact dGELU of the fc1 pre-activation, and an
-//   attention core that holds one head's K and V in shared memory with an
-//   exact two-pass fp32 softmax.  K4's dg2/db2, a sum over all rows that
-//   the TPU grid accumulated in order, becomes per-64-row column partials
-//   in a (blocks, C) fp32 buffer reduced by a second pass: deterministic,
-//   no atomics.  The ragged row edge (3152 rows) is masked in every
-//   kernel, so nothing is padded.  The qkv, attention output, MLP hidden
-//   and fc1 pre-activation intermediates go through HBM; fusing them away
-//   (and wgmma/TMA pipelining of the GEMM) is later work.
+//   the residual, or the exact dGELU of the fc1 pre-activation, and the
+//   attention core of attention_core.cuh, which holds one head's K and V
+//   in shared memory with an exact two-pass fp32 softmax.  K4's dg2/db2, a
+//   sum over all rows that the TPU grid accumulated in order, becomes
+//   per-64-row column partials in a (blocks, C) fp32 buffer reduced by a
+//   second pass: deterministic, no atomics.  The ragged row edge (3152
+//   rows) is masked in every kernel, so nothing is padded.  The qkv,
+//   attention output, MLP hidden and fc1 pre-activation intermediates go
+//   through HBM; fusing them away (and wgmma/TMA pipelining of the GEMM)
+//   is later work.
 //
 // Numerics follow the Pallas kernels: fp32 LayerNorm statistics, matmul
 // operands in the compute dtype with fp32 accumulation, q·kᵀ scaled by
@@ -45,6 +46,7 @@
 // its derivative Φ(x) + x·φ(x) (the Pallas kernels' logistic approximation
 // exists only because Mosaic cannot lower erf).
 
+#include "attention_core.cuh"
 #include "common.cuh"
 
 #include <mma.h>
@@ -369,89 +371,6 @@ __global__ void layernorm_bwd_reduce(const float* __restrict__ partial,
   dbeta[col] = s2;
 }
 
-// ------------------------------------------------------ attention core
-// qkv (B, N, 3C) packed [q | k | v], heads sliced by column, -> attn
-// (B, N, C).  One block per (query chunk, head, image); the head's K and V
-// are staged in shared memory as fp32 (K rows padded to D+1 floats so
-// that lanes reading different keys hit different banks).  One warp per
-// query row: the q row lives in registers, each lane scores keys
-// j = lane, lane+32, ..., the row max and sum are warp reductions, and
-// each lane accumulates D/32 output columns over all keys.
-constexpr int ATT_QCHUNK = 64, ATT_THREADS = 256;
-
-template <typename T, int D>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n,
-                 int heads, float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_QCHUNK;
-  const int c = heads * D, ld = 3 * c;
-  float* ks = smem;                    // n x (D + 1)
-  float* vs = ks + n * (D + 1);        // n x D
-  float* ps = vs + n * D;              // one n-row of scores per warp
-  const T* base = qkv + static_cast<size_t>(b) * n * ld;
-
-  for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
-    const int j = i / D, d = i % D;
-    const T* row = base + static_cast<size_t>(j) * ld + h * D + d;
-    ks[j * (D + 1) + d] = to_f(row[c]);
-    vs[j * D + d] = to_f(row[2 * c]);
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  float* p = ps + warp * n;
-  const int qend = min(q0 + ATT_QCHUNK, n);
-  constexpr int PER = (D + 31) / 32;
-
-  for (int qi = q0 + warp; qi < qend; qi += nwarps) {
-    float q[D];
-    const T* qrow = base + static_cast<size_t>(qi) * ld + h * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) q[d] = to_f(qrow[d]);
-
-    float mx = -INFINITY;
-    for (int j = lane; j < n; j += 32) {
-      const float* kr = ks + j * (D + 1);
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(q[d], kr[d], s);
-      s *= scale;
-      p[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float e = expf(p[j] - mx);
-      sum += e;
-      p[j] = to_f(from_f<T>(e));       // P·V operand in the compute dtype
-    }
-    sum = warp_sum(sum);
-    __syncwarp();
-
-    float o[PER];
-#pragma unroll
-    for (int t = 0; t < PER; ++t) o[t] = 0.f;
-    for (int j = 0; j < n; ++j) {
-      const float pj = p[j];
-#pragma unroll
-      for (int t = 0; t < PER; ++t) {
-        const int d = lane + 32 * t;
-        if (d < D) o[t] = fmaf(pj, vs[j * D + d], o[t]);
-      }
-    }
-    T* orow = out + (static_cast<size_t>(b) * n + qi) * c + h * D;
-#pragma unroll
-    for (int t = 0; t < PER; ++t) {
-      const int d = lane + 32 * t;
-      if (d < D) orow[d] = from_f<T>(o[t] / sum);
-    }
-    __syncwarp();                      // p is rewritten by the next row
-  }
-}
-
 template <int EPI, bool TRANS_B>
 void launch_gemm(int dtype, const void* a, const void* b, const float* bias,
                  void* aux, void* out, int m, int n, int k, cudaStream_t s) {
@@ -497,34 +416,6 @@ void launch_layernorm_bwd(const void* x, const void* resid, const void* dy,
   layernorm_bwd_reduce<<<cdiv(c, LNB_THREADS), LNB_THREADS, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(dgamma),
       static_cast<float*>(dbeta), nblk, c);
-}
-
-template <typename T, int D>
-int launch_attention(const void* qkv, void* out, int batch, int n, int heads,
-                     float scale, cudaStream_t s) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(n) * (2 * D + 1) +
-                       static_cast<size_t>(ATT_THREADS / 32) * n);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(cdiv(n, ATT_QCHUNK), heads, batch);
-  attention_kernel<T, D><<<grid, ATT_THREADS, smem, s>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), n, heads, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_attention(int d, const void* qkv, void* out, int batch, int n,
-                       int heads, float scale, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch_attention<T, 16>(qkv, out, batch, n, heads, scale, s);
-    case 32: return launch_attention<T, 32>(qkv, out, batch, n, heads, scale, s);
-    case 64: return launch_attention<T, 64>(qkv, out, batch, n, heads, scale, s);
-    case 128: return launch_attention<T, 128>(qkv, out, batch, n, heads, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
@@ -617,8 +508,10 @@ int dfu_attention(int device, int dtype, const void* qkv, void* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
-    return dispatch_attention<bf16>(d, qkv, out, batch, n, heads, scale, s);
-  return dispatch_attention<float>(d, qkv, out, batch, n, heads, scale, s);
+    return dispatch_attention<bf16, bf16>(d, qkv, out, batch, n, heads,
+                                         scale, s);
+  return dispatch_attention<float, float>(d, qkv, out, batch, n, heads,
+                                         scale, s);
 }
 
 }  // extern "C"

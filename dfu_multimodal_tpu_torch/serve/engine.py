@@ -11,9 +11,12 @@
 - Latency is end to end per request (submit -> result on the caller's
   future), kept in a bounded reservoir for p50/p99.
 
-One device, so no mesh padding.  Not ported yet: explanations, drift
-monitoring, shadow traffic, ``pipeline_depth > 1``, the decision
-threshold and temperature, and the int8 / ToMe rebuilds.
+One device, so no mesh padding.  :func:`quantize_for_serving` rebuilds a
+trainer around the int8 serving path (``thermal_only``: the fused int8 ViT
+blocks, ``ops/vit_block_q8.py``).  Not ported yet: the int8 ResNet trunk
+(``models/resnet_q8.py``, so int8 ``multimodal``), explanations, drift
+monitoring, shadow traffic, ``pipeline_depth > 1``, the decision threshold
+and temperature, and the ToMe rebuild.
 """
 
 from __future__ import annotations
@@ -26,6 +29,49 @@ from concurrent.futures import Future, InvalidStateError
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from dfu_multimodal_tpu_torch.models.vit import quantize_variables
+from dfu_multimodal_tpu_torch.train.engine import Trainer
+
+# models with an int8 serving path, and the subset whose ResNet trunk
+# needs activation-scale calibration images (the JAX package's sets)
+RESNET_TRUNK_MODELS = frozenset(
+    {"rgb_only", "multimodal", "resnet18_rgb", "resnet18_thermal"})
+INT8_MODELS = RESNET_TRUNK_MODELS | {"thermal_only"}
+
+
+def quantize_for_serving(trainer: Trainer, image_size: int = 224,
+                         calib_u8: Optional[np.ndarray] = None) -> Trainer:
+    """Rebuild a trainer around the int8 serving path: a new ``Trainer``
+    on the same device with ``block_impl="fused_q8"`` (the fused int8 ViT
+    blocks, dynamic per-row activation scales) holding the trunk quantised
+    once by ``models/vit.py::quantize_variables``; the source trainer's
+    fp32 weights are left as they are.  On the card the quantisation runs
+    on the card.
+
+    ``calib_u8`` calibrates a ResNet trunk's activation scales in the JAX
+    package; ``thermal_only`` has none and ignores it.  Models with a
+    ResNet trunk raise ``NotImplementedError``: the int8 ResNet
+    (``models/resnet_q8.py``) is not ported yet."""
+    model_name = trainer.spec.name
+    if model_name not in INT8_MODELS:
+        # the int8 paths are trunk-specific — reject other models with
+        # the contract instead of failing deep inside the conversion
+        raise ValueError(
+            f"int8 serving is not supported for model {model_name!r}: "
+            f"it covers {sorted(INT8_MODELS)}. Serve other models "
+            "fp32/bf16.")
+    if model_name in RESNET_TRUNK_MODELS:
+        raise NotImplementedError(
+            f"int8 serving of {model_name!r} needs the int8 ResNet trunk "
+            "(models/resnet_q8.py), which is not ported yet")
+    qtrainer = Trainer(model_name, trainer.cfg, trainer.modalities,
+                       device=trainer.device,
+                       **{**trainer.model_kwargs, "image_size": image_size,
+                          "block_impl": "fused_q8"})
+    qtrainer.module.load_state_dict(quantize_variables(trainer.variables()),
+                                    strict=True)
+    return qtrainer
 
 
 class EngineOverloaded(RuntimeError):

@@ -9,6 +9,9 @@ checkpoint restore produce them) and returns the port model's
 - the scanned ViT ``encoder`` leaves (depth, ...) are un-stacked into
   ``blocks.{i}``;
 - conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in);
+- an int8 dense (``models/vit.py::quantize_variables`` trees) keeps its
+  ``kernel_q8`` int8 (in, out) as it is, beside its ``scale`` and
+  ``bias``, and a static block's ``act_scales`` (4,) comes along;
 - the patch-embed dense kernel (P·P·C, O) -> the conv (O, C, P, P);
 - BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, ``batch_stats``
   ``mean``/``var`` -> ``running_mean``/``running_var``.
@@ -44,6 +47,18 @@ def _dense(kernel) -> torch.Tensor:
     return _t(np.asarray(kernel).T)
 
 
+def _vit_dense(out: StateDict, key: str, params: Mapping) -> None:
+    """A ViT block's dense layer: fp32 ``weight`` (out, in), or the int8
+    ``kernel_q8`` in the kernels' own (in, out) layout plus ``scale``."""
+    if "kernel_q8" in params:
+        out[f"{key}.kernel_q8"] = torch.from_numpy(
+            np.array(params["kernel_q8"], dtype=np.int8, order="C"))
+        out[f"{key}.scale"] = _t(params["scale"])
+    else:
+        out[f"{key}.weight"] = _dense(params["kernel"])
+    out[f"{key}.bias"] = _t(params["bias"])
+
+
 def _batchnorm(out: StateDict, key: str, params: Mapping,
                stats: Mapping) -> None:
     out[f"{key}.weight"] = _t(params["scale"])
@@ -75,7 +90,8 @@ def resnet_state_dict(params: Mapping, stats: Mapping,
 
 
 def vit_state_dict(params: Mapping, prefix: str = "") -> StateDict:
-    """JAX ViT trunk subtree -> timm-layout keys."""
+    """JAX ViT trunk subtree (fp32, or int8 from ``quantize_variables``)
+    -> timm-layout keys."""
     out: StateDict = {}
     out[f"{prefix}cls_token"] = _t(params["cls_token"])
     out[f"{prefix}pos_embed"] = _t(params["pos_embed"])
@@ -97,8 +113,9 @@ def vit_state_dict(params: Mapping, prefix: str = "") -> StateDict:
                              ("attn.proj", blk["attn"]["proj"]),
                              ("mlp.fc1", blk["mlp_fc1"]),
                              ("mlp.fc2", blk["mlp_fc2"])):
-            out[f"{base}.{ours}.weight"] = _dense(theirs["kernel"])
-            out[f"{base}.{ours}.bias"] = _t(theirs["bias"])
+            _vit_dense(out, f"{base}.{ours}", theirs)
+        if "act_scales" in blk:
+            out[f"{base}.act_scales"] = _t(blk["act_scales"])
     out[f"{prefix}norm.weight"] = _t(params["norm"]["scale"])
     out[f"{prefix}norm.bias"] = _t(params["norm"]["bias"])
     return out

@@ -102,7 +102,8 @@ class Trainer:
     load them with ``module.load_state_dict`` (e.g. from
     ``tools.convert_jax.variables_to_state_dict``) or draw them with
     ``models.zoo.init_model``.  Extra keyword arguments go to the model
-    class (e.g. ``depth`` for a cut-down trunk)."""
+    class (e.g. ``depth`` for a cut-down trunk, ``block_impl`` for the
+    int8 ViT blocks)."""
 
     def __init__(self, model_name: str, cfg: TrainConfig,
                  modalities: Dict[str, ModalityConfig], *,
@@ -112,9 +113,12 @@ class Trainer:
         self.cfg = cfg
         self.device = torch.device(device)
         self.compute_dtype = canonical_dtype(cfg.compute_dtype)
+        # the model class's arguments, so a rebuild (e.g. the int8 serving
+        # trainer of serve/engine.py) gets the same architecture
+        self.model_kwargs = dict(image_size=image_size, **model_kwargs)
         self.module, self.spec = zoo.build(
             model_name, drop_rate=cfg.drop_rate, dtype=self.compute_dtype,
-            image_size=image_size, **model_kwargs)
+            **self.model_kwargs)
         self.module.to(self.device)
         self.modalities = modalities
         self.class_weights = (None if class_weights is None else

@@ -20,6 +20,7 @@ import torch
 from dfu_multimodal_tpu_torch.ops import attention as at
 from dfu_multimodal_tpu_torch.ops import fused_mlp as fm
 from dfu_multimodal_tpu_torch.ops import vit_block as vb
+from dfu_multimodal_tpu_torch.ops import vit_block_q8 as q8
 
 pytestmark = pytest.mark.gpu
 
@@ -261,3 +262,134 @@ def test_thermal_train_step_on_card_matches_cpu():
             <= 1e-4 * float(q.grad.abs().max()), name
         assert float((p.detach().cpu() - q.detach()).abs().max()) \
             <= 2 * cfg.learning_rate
+
+
+# --------------------------------------------------------- int8 (K7, K8)
+
+# int8 kernels vs their plain versions: the two take the LayerNorm and
+# attention sums in another order, so a value within an ulp of a rounding
+# boundary quantises one int8 step apart, and when it is a row's absmax
+# the whole row's scale moves (up to the int8 noise itself).  Each element
+# within 2e-2·(1+|ref|); the mean of |err|/(1+|ref|) within 5e-4, which a
+# systematic fault (a wrong scale, a wrong chunk) would exceed.
+Q8_TOL, Q8_MEAN_TOL = 2e-2, 5e-4
+# 60 and 1576 rows: neither a multiple of the GEMM's 64-row tile; C = 64
+# with 4 hidden chunks of 64, and the ViT-B/16 block at the serving batch
+Q8_SHAPES = [(3, 20, 64, 4), (8, 197, 768, 12)]
+Q8_ACT = (4.5 / 127, 1.5 / 127)        # calibrated act scales (static)
+Q8_KERNELS = {"attn_block_q8": (q8.attn_block_q8, q8.attn_block_q8_ref),
+              "mlp_block_q8": (q8.mlp_block_q8, q8.mlp_block_q8_ref),
+              "attn_block_q8s": (q8.attn_block_q8s, q8.attn_block_q8s_ref),
+              "mlp_block_q8s": (q8.mlp_block_q8s, q8.mlp_block_q8s_ref)}
+
+
+def _q8_args(dev, name, shape, dtype, seed):
+    """x and the remaining arguments of int8 kernel ``name``: int8
+    weights from quantize_weight, static scales folded as the converter
+    does, the head count last for the attention blocks."""
+    b, n, c, heads = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn(g, b, n, c, dtype=dtype)
+    ln = (_randn(g, c, scale=0.1, offset=1.0), _randn(g, c, scale=0.1))
+
+    def dense(din, dout, act):
+        w_q8, s = q8.quantize_weight(_randn(g, din, dout, scale=din ** -0.5))
+        return w_q8, s * act, _randn(g, dout, scale=0.1)
+
+    static = name.endswith("s")
+    act = Q8_ACT if static else (1.0, 1.0)
+    if name.startswith("attn"):
+        args = (*ln, *dense(c, 3 * c, act[0]), *dense(c, c, act[1]))
+    else:
+        args = (*ln, *dense(c, 4 * c, act[0]), *dense(4 * c, c, act[1]))
+    if static:
+        args += (torch.tensor([1.0 / a for a in Q8_ACT], device=dev),)
+    return x, args + ((heads,) if name.startswith("attn") else ())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", Q8_SHAPES)
+@pytest.mark.parametrize("name", list(Q8_KERNELS))
+def test_q8_kernel_matches_plain(name, shape, dtype):
+    dev = _cuda()
+    kernel, plain = Q8_KERNELS[name]
+    x, args = _q8_args(dev, name, shape, dtype, seed=10)
+    before = kernel.launches
+    out = kernel(x, *args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = plain(x, *args)
+    assert out.dtype == ref.dtype == dtype and out.shape == ref.shape
+    assert bool(torch.isfinite(out.float()).all())
+    scaled = (out.float() - ref.float()).abs() / (1.0 + ref.float().abs())
+    assert float(scaled.max()) <= Q8_TOL, float(scaled.max())
+    assert float(scaled.mean()) <= Q8_MEAN_TOL, float(scaled.mean())
+
+
+def test_q8_kernels_refuse_bad_int8_weights():
+    dev = _cuda()
+    x, (g1, b1, wq, sq, bq, wp, sp, bp, heads) = _q8_args(
+        dev, "attn_block_q8", (1, 9, 64, 4), torch.float32, seed=11)
+    before = q8.attn_block_q8.launches
+    with pytest.raises(ValueError):         # an int8 weight on the CPU
+        q8.attn_block_q8(x, g1, b1, wq.cpu(), sq, bq, wp, sp, bp, heads)
+    with pytest.raises(ValueError):         # an int8 weight not contiguous
+        q8.attn_block_q8(x, g1, b1, wq.t().contiguous().t(), sq, bq, wp, sp,
+                         bp, heads)
+    with pytest.raises(TypeError):          # a weight that is not int8
+        q8.attn_block_q8(x, g1, b1, wq.float(), sq, bq, wp, sp, bp, heads)
+    x, (g2, b2, w1, s1, bb1, w2, s2, bb2, inv) = _q8_args(
+        dev, "mlp_block_q8s", (1, 9, 64, 4), torch.float32, seed=12)
+    with pytest.raises(ValueError):         # w2 transposed, not contiguous
+        q8.mlp_block_q8s(x, g2, b2, w1, s1, bb1, w1.t(), s2, bb2, inv)
+    with pytest.raises(ValueError):         # inv_scales on the CPU
+        q8.mlp_block_q8s(x, g2, b2, w1, s1, bb1, w2, s2, bb2, inv.cpu())
+    assert q8.attn_block_q8.launches == before
+
+
+@pytest.mark.parametrize("block_impl", ["fused_q8", "fused_q8s"])
+def test_thermal_int8_eval_on_card_matches_cpu(block_impl):
+    """A small thermal_only model quantised (on the card through
+    quantize_for_serving, or calibrated on the CPU) and evaluated in fp32
+    on the card against the same int8 weights on the CPU (plain versions):
+    sums in another order, plus the int8 roundings that flips."""
+    dev = _cuda()
+    from dfu_multimodal_tpu_torch.models import zoo
+    from dfu_multimodal_tpu_torch.models.vit import quantize_variables
+    from dfu_multimodal_tpu_torch.serve.engine import quantize_for_serving
+    from dfu_multimodal_tpu_torch.train.engine import (Trainer, TrainConfig,
+                                                       thermal_modality)
+    mods = {"thermal": thermal_modality()}
+    tiny = dict(image_size=32, depth=2, hidden_dim=64, num_heads=4,
+                patch_size=8)
+
+    def trainer(device, impl):
+        return Trainer("thermal_only", TrainConfig(compute_dtype="float32"),
+                       mods, device=device, block_impl=impl, **tiny)
+
+    fp32 = trainer("cpu", "fused")
+    zoo.init_model(fp32.module, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"thermal": rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8)}
+    if block_impl == "fused_q8":
+        card_fp32 = trainer(dev, "fused")
+        card_fp32.module.load_state_dict(fp32.variables())
+        card = quantize_for_serving(card_fp32, image_size=32)
+        state = quantize_variables(fp32.variables())
+        for k, v in card.variables().items():   # quantised on the card
+            assert torch.equal(v.cpu(), state[k]), k
+    else:
+        calib = torch.from_numpy(rng.standard_normal((4, 32, 32, 3)).astype(
+            np.float32))
+        state = quantize_variables(fp32.variables(), calib_batches=[calib])
+        card = trainer(dev, block_impl)
+        card.module.load_state_dict(state)
+    cpu = trainer("cpu", block_impl)
+    cpu.module.load_state_dict(state)
+    kernel = Q8_KERNELS[f"attn_block_{block_impl[6:]}"][0]
+    before = kernel.launches
+    out = card.eval_step(batch)
+    assert kernel.launches == before + 2            # one per block
+    ref = cpu.eval_step(batch)
+    np.testing.assert_allclose(out["probs"].cpu().numpy(),
+                               ref["probs"].numpy(), rtol=0, atol=1e-2)

@@ -218,6 +218,12 @@ data = ArrayDataset({"thermal": batch["thermal"]}, np.array([0, 1]))
 epoch = thermal.run_train_epoch(data, np.random.default_rng(0),
                                 torch.Generator().manual_seed(0))
 assert np.isfinite(epoch.loss), epoch
+
+from dfu_multimodal_tpu_torch.serve.engine import quantize_for_serving
+int8 = quantize_for_serving(thermal, image_size=32)
+assert int8.variables()["vit.blocks.0.attn.qkv.kernel_q8"].dtype == torch.int8
+probs = int8.eval_step({"thermal": batch["thermal"]})["probs"]
+assert probs.shape == (2,) and bool(torch.isfinite(probs).all())
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "flax",
                                   "dfu_multimodal_tpu")]
