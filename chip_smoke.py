@@ -20,6 +20,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 3c. int8 kernels — ``attn_block_q8``, ``mlp_block_q8`` (K7) and
               ``attn_block_q8s``, ``mlp_block_q8s`` (K8) against their plain
               versions at B = 8 and 128 in fp32 and bf16;
+3d. ResNet kernels — the fused bottleneck (K11, identity and projection)
+              against its plain version at ResNet-50's five stride-1 block
+              shapes, B = 8 and 128, fp32 and bf16, each beside the time
+              of the port's cuDNN ``Bottleneck.forward`` (eval) and the
+              kernel's bound;
 4. serve    — the full-width multimodal model (ResNet50 + ViT-B/16, random
               weights from a seeded generator) behind Trainer +
               ServingEngine(max_batch=8) in bf16: 24 requests from 3
@@ -44,7 +49,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               calibrated static configuration (16 synthetic normalised
               images calibrated on the card, 3 eval batches through the
               q8s kernels, card against CPU likewise);
-7. the kernels' JSON line (times, bounds, launches), then the device JSON
+7. rgb      — the full-width rgb_only ResNet-50 (seeded weights, BN
+              statistics off identity) built as ``Trainer(...,
+              block_impl="fused")`` behind ``ServingEngine(max_batch=8)`` in
+              bf16: 24 requests from 3 threads, 12 identity and 1
+              projection bottleneck launches per batch and none of the ViT
+              or fusion-head kernels, the card (bf16 and fp32) against the
+              CPU's plain fp32 path, and the card's fused fp32 against its
+              cuDNN fp32 blocks (``block_impl="flax"``, TF32 off); the
+              bf16 eval step at batch 8 with fused and with cuDNN blocks,
+              and a profile of the fused steps (device busy, idle share);
+8. the kernels' JSON line (times, bounds, launches), then the device JSON
    line last.
 
 Exits non-zero with no result line when no CUDA device is present.
@@ -62,15 +77,19 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from dfu_multimodal_tpu_torch.config import AugmentConfig
 from dfu_multimodal_tpu_torch.data.loader import ArrayDataset
 from dfu_multimodal_tpu_torch.data.transforms import eval_normalize
 from dfu_multimodal_tpu_torch.models import zoo
+from dfu_multimodal_tpu_torch.models.resnet import Bottleneck
 from dfu_multimodal_tpu_torch.models.vit import quantize_variables
 from dfu_multimodal_tpu_torch.ops import _build
 from dfu_multimodal_tpu_torch.ops import attention as at
 from dfu_multimodal_tpu_torch.ops import fused_mlp as fm
+from dfu_multimodal_tpu_torch.ops import resnet_block as rb
 from dfu_multimodal_tpu_torch.ops import vit_block as vb
 from dfu_multimodal_tpu_torch.ops import vit_block_q8 as q8
 from dfu_multimodal_tpu_torch.serve.engine import (ServingEngine,
@@ -125,7 +144,8 @@ def phase_device() -> str:
 # ---------------------------------------------------------------- phase 2
 
 
-SOURCES = ("vit_block", "fused_mlp", "attention", "vit_block_q8")
+SOURCES = ("vit_block", "fused_mlp", "attention", "vit_block_q8",
+           "resnet_block")
 
 
 def phase_build() -> None:
@@ -148,6 +168,7 @@ def phase_build() -> None:
     vb._lib()
     at._lib()
     q8._lib()
+    rb._lib()
     _build.load("fused_mlp", fm._SIGNATURES)
 
 
@@ -356,6 +377,73 @@ def phase_q8_kernels(dev) -> dict:
     return main
 
 
+# --------------------------------------------------------------- phase 3d
+
+# ResNet-50's stride-1 bottlenecks: (label, H = W, Cin, Cmid, Cout); the
+# projection block is stage 1's first, the others are identity blocks
+RESNET_BLOCKS = (("stage1 block0 proj", 56, 64, 64, 256),
+                 ("stage1 blocks1-2", 56, 256, 64, 256),
+                 ("stage2 blocks1-3", 28, 512, 128, 512),
+                 ("stage3 blocks1-5", 14, 1024, 256, 1024),
+                 ("stage4 blocks1-2", 7, 2048, 512, 2048))
+RESNET_BATCHES = (8, 128)            # the serving batch, and a large one
+# the kernels line's shape of each variant, at B = 8 in bf16
+RESNET_MAIN = {"stage3 blocks1-5": "bottleneck",
+               "stage1 block0 proj": "bottleneck_proj"}
+
+
+def _bottleneck_weights(gen, cin, cmid, cout, dtype):
+    """BN-folded (w1, b1, w2, b2, w3, b3[, wd, bd]) in the kernel's layouts;
+    the projection when Cin != Cout."""
+    args = [_randn(gen, cin, cmid, scale=cin ** -0.5, dtype=dtype),
+            _randn(gen, cmid, scale=0.1),
+            _randn(gen, 9 * cmid, cmid, scale=(9 * cmid) ** -0.5,
+                   dtype=dtype),
+            _randn(gen, cmid, scale=0.1),
+            _randn(gen, cmid, cout, scale=cmid ** -0.5, dtype=dtype),
+            _randn(gen, cout, scale=0.1)]
+    if cin != cout:
+        args += [_randn(gen, cin, cout, scale=cin ** -0.5, dtype=dtype),
+                 _randn(gen, cout, scale=0.1)]
+    return args
+
+
+def _cudnn_block_ms(dev, x, cin, cmid) -> float:
+    """The default path's yardstick for the same block: the port's
+    ``Bottleneck.forward`` in eval (cuDNN convs, BatchNorm, ReLU, add: a
+    few launches, not one library call) on x's channels-last view."""
+    block = Bottleneck(cin, cmid).to(dev).eval()
+    xc = x.permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        return cuda_ms(lambda: block(xc))
+
+
+def phase_resnet_kernels(dev) -> dict:
+    """K11 against its plain version at every stride-1 bottleneck shape of
+    ResNet-50, B = 8 and 128, fp32 and bf16."""
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in RESNET_BATCHES:
+            for label, hw, cin, cmid, cout in RESNET_BLOCKS:
+                g = torch.Generator(device=dev).manual_seed(4000 + b + hw)
+                x = _randn(g, b, hw, hw, cin, dtype=dtype)
+                args = _bottleneck_weights(g, cin, cmid, cout, dtype)
+                tag = f"{label} {str(dtype).split('.')[1]} B={b}"
+                bound = _bottleneck_bound(b, hw, cin, cmid, cout)
+                log(f"[resnet] {tag}: cuDNN Bottleneck.forward (eval) "
+                    f"{_cudnn_block_ms(dev, x, cin, cmid):.4f} ms; bound "
+                    f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})")
+                res = _check_and_time(
+                    f"fused_bottleneck {tag}",
+                    lambda: rb.fused_bottleneck(x, *args),
+                    lambda: rb.bottleneck_ref(x, *args), KERNEL_TOL[dtype])
+                if dtype == torch.bfloat16 and b == 8 and label in RESNET_MAIN:
+                    main[RESNET_MAIN[label]] = res
+                del x, args
+                torch.cuda.empty_cache()
+    return main
+
+
 # ---------------------------------------------------------------- phase 4
 
 N_REQUESTS, N_THREADS, IMAGE = 24, 3, 224
@@ -459,6 +547,9 @@ def phase_slice(dev) -> dict:
             "fused_mlp": n_batches}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
+    if _resnet_launches() != {"bottleneck": 0, "bottleneck_proj": 0}:
+        raise AssertionError(f"the multimodal RGB branch launched the fused "
+                             f"bottleneck: {_resnet_launches()}")
 
     # the card (served bf16, and fp32) against the CPU's plain fp32 path
     cpu = _trainer("float32", "cpu")
@@ -515,6 +606,12 @@ def _reset_launches() -> None:
     fm.fused_mlp.launches = 0
     q8.attn_block_q8.launches = q8.mlp_block_q8.launches = 0
     q8.attn_block_q8s.launches = q8.mlp_block_q8s.launches = 0
+    rb.fused_bottleneck.launches = rb.fused_bottleneck.proj_launches = 0
+
+
+def _resnet_launches() -> dict:
+    return {"bottleneck": rb.fused_bottleneck.launches,
+            "bottleneck_proj": rb.fused_bottleneck.proj_launches}
 
 
 class _StepMeter:
@@ -668,21 +765,9 @@ def _int8_vs_cpu(tag, served, block_impl, batches) -> None:
     card32 = _thermal("float32", served.device, block_impl)
     card32.module.load_state_dict(state)
     ref = torch.cat([_logits(cpu, b) for b in batches])
-    ref_probs = torch.softmax(ref, -1)[:, 1]
-    scale = 1.0 + float(ref.abs().max())
     for dtype, trainer in (("float32", card32), ("bfloat16", served)):
-        logits = torch.cat([_logits(trainer, b) for b in batches])
-        dl = float((logits - ref).abs().max())
-        dp = float((torch.softmax(logits, -1)[:, 1] - ref_probs).abs().max())
-        tol = INT8_TOL[dtype]
-        ok = dl <= tol["logits"] * scale and dp <= tol["probs"]
-        log(f"[{tag}] card {dtype} vs CPU float32, int8 both: max|dlogit|="
-            f"{dl:.3e} (tol {tol['logits']:g}*(1+max|logit|={scale:.3f})), "
-            f"max|dprob|={dp:.3e} (tol {tol['probs']:g}), preds agree "
-            f"{int((logits.argmax(-1) == ref.argmax(-1)).sum())}/{len(ref)} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"card {dtype} int8 disagrees with the CPU")
+        _compare(f"[{tag}] card {dtype} vs CPU float32, int8 both", trainer,
+                 ref, batches, INT8_TOL[dtype])
 
 
 def phase_int8(dev) -> dict:
@@ -762,6 +847,142 @@ def phase_int8(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 7
+
+RGB_PARAMS = 23_512_130     # ResNet-50 trunk 23,508,032 + head 4,098
+
+
+def _rgb(dtype: str, device, block_impl: str = "fused") -> Trainer:
+    return Trainer("rgb_only", TrainConfig(compute_dtype=dtype),
+                   {"rgb": rgb_modality()}, device=device, image_size=IMAGE,
+                   block_impl=block_impl)
+
+
+@torch.no_grad()
+def _perturb_batchnorm(module, gen) -> None:
+    """Move every BatchNorm's statistics and affine parameters off their
+    identity init (from ``gen``), so the kernel path's folding is
+    exercised."""
+    for m in module.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_var.uniform_(0.5, 1.5, generator=gen)
+            m.running_mean.normal_(0.0, 0.1, generator=gen)
+            m.weight.normal_(1.0, 0.1, generator=gen)
+            m.bias.normal_(0.0, 0.1, generator=gen)
+
+
+def _compare(label, trainer, ref, batches, tol) -> None:
+    """The trainer's logits of ``batches`` against ``ref``: max|dlogit|
+    within tol["logits"]·(1+max|ref logit|) and max|dprob| within
+    tol["probs"]."""
+    logits = torch.cat([_logits(trainer, b) for b in batches])
+    scale = 1.0 + float(ref.abs().max())
+    dl = float((logits - ref).abs().max())
+    dp = float((torch.softmax(logits, -1)[:, 1]
+                - torch.softmax(ref, -1)[:, 1]).abs().max())
+    ok = dl <= tol["logits"] * scale and dp <= tol["probs"]
+    log(f"{label}: max|dlogit|={dl:.3e} (tol {tol['logits']:g}*(1+max"
+        f"|logit|={scale:.3f})), max|dprob|={dp:.3e} (tol {tol['probs']:g}),"
+        f" preds agree {int((logits.argmax(-1) == ref.argmax(-1)).sum())}/"
+        f"{len(ref)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: disagree")
+
+
+def phase_rgb(dev) -> dict:
+    """Serving of the full-width rgb_only model with every stride-1
+    bottleneck on K11.  Returns K11's launch counts."""
+    torch.backends.cuda.matmul.allow_tf32 = False    # fp32 is compared
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats(dev)
+    served = _rgb("bfloat16", dev)
+    zoo.init_model(served.module, torch.Generator(device=dev).manual_seed(0))
+    _perturb_batchnorm(served.module,
+                       torch.Generator(device=dev).manual_seed(1))
+    n_params = zoo.param_count(served.module)
+    log(f"[rgb] rgb_only at {IMAGE}x{IMAGE}: {n_params:,} params on {dev}, "
+        f"compute bfloat16, block_impl fused")
+    if n_params != RGB_PARAMS:
+        raise AssertionError(f"param count {n_params} != {RGB_PARAMS:,}")
+    rng = np.random.default_rng(4)
+    samples = [{"rgb": rng.integers(0, 256, (IMAGE, IMAGE, 3), dtype=np.uint8)}
+               for _ in range(N_REQUESTS)]
+    engine = ServingEngine(served, image_size=IMAGE, max_batch=8)
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize(dev)
+    log(f"[rgb] warmup of buckets {engine.buckets}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    _, stats = _drive(engine, samples, "rgb")
+    launches = {**_resnet_launches(), **_q8_launches(),
+                "fused_mlp": fm.fused_mlp.launches}
+    n_batches = sum(stats["batch_size_hist"].values())
+    log(f"[rgb] peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB; launches "
+        f"{launches}")
+    want = {k: 0 for k in launches}
+    want.update(bottleneck=12 * n_batches, bottleneck_proj=n_batches)
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    counts = _resnet_launches()
+
+    # the card (served bf16, fused fp32) against the CPU's plain fp32 path,
+    # and the card's fused fp32 against its cuDNN fp32 blocks
+    state = {k: v.detach().cpu() for k, v in served.variables().items()}
+    trainers = {}
+    for name, device, block_impl in (("cpu", "cpu", "fused"),
+                                     ("fused", dev, "fused"),
+                                     ("cudnn", dev, "flax")):
+        trainers[name] = _rgb("float32", device, block_impl)
+        trainers[name].module.load_state_dict(state)
+    batches = [{"rgb": np.stack([s["rgb"] for s in samples[i:i + 8]])}
+               for i in range(0, N_REQUESTS, 8)]
+    ref = torch.cat([_logits(trainers["cpu"], b) for b in batches])
+    _compare("[rgb] card fused float32 vs CPU float32", trainers["fused"],
+             ref, batches, SLICE_TOL["float32"])
+    _compare("[rgb] card fused bfloat16 (served) vs CPU float32", served, ref,
+             batches, SLICE_TOL["bfloat16"])
+    cudnn = torch.cat([_logits(trainers["cudnn"], b) for b in batches])
+    _compare("[rgb] card fused float32 vs card cuDNN float32 (TF32 off)",
+             trainers["fused"], cudnn, batches, SLICE_TOL["float32"])
+
+    # the bf16 eval step at batch 8, fused blocks against cuDNN blocks
+    # (host clock + sync), and the fused step's device busy time
+    cudnn16 = _rgb("bfloat16", dev, "flax")
+    cudnn16.module.load_state_dict(state)
+    for name, trainer in (("fused", served), ("cuDNN", cudnn16)):
+        trainer.eval_step(batches[0])                         # warm-up
+        ms = []
+        for b in batches:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            trainer.eval_step(b)
+            torch.cuda.synchronize(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        log(f"[rgb] eval step ms at batch 8, bf16, {name} blocks: "
+            f"{[round(m, 3) for m in ms]}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            served.eval_step(b)
+        torch.cuda.synchronize(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    # the rgb path's only kernels of the port's own are K11's launches
+    busy = {k: sum(e.self_device_time_total for e in kernels
+                   if ("dfu::" in e.key) == (k == "K11")) / 1e3
+            for k in ("K11", "other")}
+    n = len(batches)
+    log(f"[rgb] profiled fused eval steps: host {wall_ms / n:.3f} ms per "
+        f"step; device busy {sum(busy.values()) / n:.3f} ms (K11's "
+        f"launches {busy['K11'] / n:.3f}, other kernels "
+        f"{busy['other'] / n:.3f}); idle share "
+        f"{1.0 - sum(busy.values()) / wall_ms:.4f}")
+    return counts
+
+
 # ---------------------------------------------------------------- bounds
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
@@ -780,10 +1001,23 @@ def _bound(ops: dict, nbytes: float) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def _bottleneck_bound(b, hw, cin, cmid, cout) -> dict:
+    """K11 in bf16: 2·rows·(Cin·Cmid + 9·Cmid² + Cmid·Cout [+ Cin·Cout])
+    operations; x read and the output written once, bf16 weights, fp32
+    biases.  The projection variant when Cin != Cout."""
+    rows, proj = b * hw * hw, cin != cout
+    weights = (cin * cmid + 9 * cmid * cmid + cmid * cout
+               + (cin * cout if proj else 0))
+    biases = 2 * cmid + cout + (cout if proj else 0)
+    return _bound({torch.bfloat16: 2 * rows * weights},
+                  2 * (rows * (cin + cout) + weights) + 4 * biases)
+
+
 def kernel_bounds() -> dict:
     """Bounds at each kernel's path shape: K1-K2 and the int8 blocks at
     the serving batch 8, K3 at batch 8 in fp32, K4-K5 at the training
-    batch 16, ViT-B/16."""
+    batch 16, ViT-B/16; K11 at batch 8, ResNet-50 stage 3 (identity) and
+    stage 1 block 0 (projection)."""
     n, c, hid, heads = 197, 768, 3072, 12
     bf, f32 = 2, 4
     r8, r16 = 8 * n, TRAIN_BATCH * n
@@ -818,6 +1052,8 @@ def kernel_bounds() -> dict:
         "mlp_block_q8": _bound(*mlp_q8),
         "attn_block_q8s": _bound(attn_q8[0], attn_q8[1] + 2 * f32),
         "mlp_block_q8s": _bound(mlp_q8[0], mlp_q8[1] + 2 * f32),
+        "bottleneck": _bottleneck_bound(8, 14, 1024, 256, 1024),
+        "bottleneck_proj": _bottleneck_bound(8, 56, 64, 64, 256),
     }
 
 
@@ -831,10 +1067,12 @@ def main() -> int:
     times = phase_kernels(dev)
     times.update(phase_backward_kernels(dev))
     times.update(phase_q8_kernels(dev))
+    times.update(phase_resnet_kernels(dev))
     launches = phase_slice(dev)
     launches.update({k: v for k, v in phase_train(dev).items()
                      if k in ("mlp_block_bwd", "qkv_attention_fwdbwd")})
     launches.update(phase_int8(dev))
+    launches.update(phase_rgb(dev))
     for mod in ("jax", "dfu_multimodal_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"the port imported {mod}")
@@ -848,7 +1086,9 @@ def main() -> int:
         "attn_block_q8": ("vit_block_q8.cu", "vit_block_q8.py:70"),
         "mlp_block_q8": ("vit_block_q8.cu", "vit_block_q8.py:107"),
         "attn_block_q8s": ("vit_block_q8.cu", "vit_block_q8.py:157"),
-        "mlp_block_q8s": ("vit_block_q8.cu", "vit_block_q8.py:202")}
+        "mlp_block_q8s": ("vit_block_q8.cu", "vit_block_q8.py:202"),
+        "bottleneck": ("resnet_block.cu", "resnet_block.py:108"),
+        "bottleneck_proj": ("resnet_block.cu", "resnet_block.py:130")}
     kernels = [{"name": k, "route": "cuda",
                 "source": f"dfu_multimodal_tpu_torch/ops/csrc/{src}",
                 "replaces": f"dfu_multimodal_tpu/ops/{tpu}",

@@ -1,26 +1,37 @@
-"""ResNet-50 in PyTorch, torchvision key layout, eval on cuDNN.
+"""ResNet-50 in PyTorch, torchvision key layout, and the ``rgb_only``
+classifier.
 
-Counterpart of ``dfu_multimodal_tpu/models/resnet.py`` (``ResNet50`` on the
-flax/XLA conv path, which is the JAX default: its Pallas bottleneck is
-opt-in).  torchvision "v1.5" bottleneck (stride on the 3x3 conv), keys
-``conv1``, ``bn1``, ``layer{1-4}.{i}.conv{1,2,3}/bn{1,2,3}`` and
-``layer{s}.0.downsample.{0,1}``.  BN eps 1e-5; flax ``momentum=0.9`` is
-torch's ``momentum=0.1`` (the default).
+Counterpart of ``dfu_multimodal_tpu/models/resnet.py`` (``ResNet50``,
+``FusedBottleneck``, ``ResNetClassifier``).  torchvision "v1.5"
+bottleneck (stride on the 3x3 conv), keys ``conv1``, ``bn1``,
+``layer{1-4}.{i}.conv{1,2,3}/bn{1,2,3}`` and ``layer{s}.0.downsample.{0,1}``.
+BN eps 1e-5; flax ``momentum=0.9`` is torch's ``momentum=0.1`` (the
+default).
 
 The public input is NHWC like the JAX trunk; it is viewed as channels-last
 NCHW (no copy) and the convs run channels-last in the compute dtype, with
 the fp32 weights cast per call.  Returns fp32 pooled features (B, 2048).
+
+``block_impl`` picks the bottleneck, as in JAX: ``"flax"`` runs every
+block on cuDNN convs with BatchNorm; ``"fused"`` runs each stride-1
+bottleneck in eval mode through the fused kernel (``ops/resnet_block.py``,
+K11), BatchNorm folded into the convs per call; strided blocks and train
+mode stay on cuDNN.  ``"auto"`` resolves to ``"flax"`` on every device, as
+the JAX default does.  Both impls hold the same parameters and buffers.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dfu_multimodal_tpu_torch.models.common import canonical_dtype
+from dfu_multimodal_tpu_torch.models.common import canonical_dtype, dropout
+from dfu_multimodal_tpu_torch.ops.resnet_block import FusedBottleneck
+
+BLOCK_IMPLS = ("auto", "flax", "fused")
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -29,12 +40,28 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, w, None, conv.stride, conv.padding)
 
 
+def _fold_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval-time BN is affine per channel: fold it into the conv, in fp32.
+    Returns the folded OIHW weight and the fp32 bias."""
+    s = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+    return conv.weight * s[:, None, None, None], bn.bias - bn.running_mean * s
+
+
+def _dense(conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A folded 1x1 conv as the kernel's (Cin, Cout) weight in ``dtype``."""
+    w, b = _fold_bn(conv, bn)
+    return w[:, :, 0, 0].t().to(dtype).contiguous(), b.contiguous()
+
+
 class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, width: int, stride: int = 1):
         super().__init__()
         cout = width * self.expansion
+        self.stride = stride
         self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(width)
         self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1,
@@ -57,6 +84,27 @@ class Bottleneck(nn.Module):
             shortcut = self.downsample[1](_conv(self.downsample[0], x))
         return F.relu(y + shortcut)
 
+    def forward_fused(self, x: torch.Tensor) -> torch.Tensor:
+        """The same block through the fused kernel (stride 1, eval): BN
+        folded into the convs, weights in x's dtype, biases fp32.  x and
+        the result are channels-last NCHW; the kernel sees their NHWC
+        views, so no copy is made either way."""
+        if self.stride != 1:
+            raise ValueError("the fused bottleneck is stride-1 only")
+        dt = x.dtype
+        w1, b1 = _dense(self.conv1, self.bn1, dt)
+        w2, b2 = _fold_bn(self.conv2, self.bn2)
+        cmid = w2.shape[0]
+        # row-stacked 3x3 taps, (dy, dx) row-major: HWIO reshaped
+        w2 = w2.permute(2, 3, 1, 0).reshape(9 * cmid, cmid).to(dt)
+        w3, b3 = _dense(self.conv3, self.bn3, dt)
+        wd = bd = None
+        if self.downsample is not None:
+            wd, bd = _dense(self.downsample[0], self.downsample[1], dt)
+        out = FusedBottleneck.apply(x.permute(0, 2, 3, 1), w1, b1, w2, b2,
+                                    w3, b3, wd, bd)
+        return out.permute(0, 3, 1, 2)
+
 
 class ResNet(nn.Module):
     """Bottleneck ResNet trunk returning pooled fp32 features
@@ -64,9 +112,14 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  widths: Sequence[int] = (64, 128, 256, 512),
-                 dtype: Union[str, torch.dtype] = torch.float32):
+                 dtype: Union[str, torch.dtype] = torch.float32,
+                 block_impl: str = "auto"):
         super().__init__()
+        if block_impl not in BLOCK_IMPLS:
+            raise ValueError(f"unknown block_impl {block_impl!r}; have "
+                             f"{BLOCK_IMPLS}")
         self.dtype = canonical_dtype(dtype)
+        self.block_impl = block_impl
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
         cin = 64
@@ -85,10 +138,54 @@ class ResNet(nn.Module):
         x = x.to(self.dtype).permute(0, 3, 1, 2)      # channels-last NCHW
         x = F.relu(self.bn1(_conv(self.conv1, x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
+        # eval only: train-mode BN needs batch statistics
+        fused = self.block_impl == "fused" and not self.training
         for i in range(1, self.num_stages + 1):
-            x = getattr(self, f"layer{i}")(x)
+            for block in getattr(self, f"layer{i}"):
+                x = (block.forward_fused(x) if fused and block.stride == 1
+                     else block(x))
         return x.mean(dim=(2, 3)).float()
 
 
-def ResNet50(dtype: Union[str, torch.dtype] = torch.float32) -> ResNet:
-    return ResNet((3, 4, 6, 3), (64, 128, 256, 512), dtype=dtype)
+def ResNet50(dtype: Union[str, torch.dtype] = torch.float32,
+             block_impl: str = "auto") -> ResNet:
+    return ResNet((3, 4, 6, 3), (64, 128, 256, 512), dtype=dtype,
+                  block_impl=block_impl)
+
+
+class ResNetClassifier(nn.Module):
+    """ResNet-50 trunk + Dropout + Linear(2048 -> num_classes) head in
+    fp32: the reference's ``RGBOnlyModel`` (the ``rgb_only`` zoo model).
+    The trunk's keys carry the ``resnet.`` prefix, the head is ``head``.
+    Dropout is active in train mode and draws from the ``generator`` given
+    to forward (required then).  ``block_impl`` picks the trunk's
+    bottleneck (:class:`ResNet`).  ``image_size`` is accepted for the
+    Trainer's uniform model arguments; the trunk pools any size."""
+
+    def __init__(self, num_classes: int = 2, drop_rate: float = 0.5,
+                 dtype: Union[str, torch.dtype] = torch.float32,
+                 image_size: int = 224, block_impl: str = "auto",
+                 trunk: str = "resnet50"):
+        super().__init__()
+        if trunk != "resnet50":
+            raise NotImplementedError(
+                f"trunk {trunk!r} is not ported yet (the ResNet-18 "
+                "BasicBlock student); the port has trunk='resnet50'")
+        if block_impl == "int8":
+            raise NotImplementedError(
+                "block_impl='int8' needs the int8 ResNet "
+                "(models/resnet_q8.py), which is not ported yet")
+        del image_size
+        self.drop_rate = drop_rate
+        self.resnet = ResNet50(dtype=dtype, block_impl=block_impl)
+        self.head = nn.Linear(2048, num_classes)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        feats = self.resnet(x)
+        if self.training and self.drop_rate > 0.0:
+            if generator is None:
+                raise ValueError("ResNetClassifier in train mode draws its "
+                                 "dropout from an explicit generator")
+            feats = dropout(feats, self.drop_rate, generator)
+        return self.head(feats)

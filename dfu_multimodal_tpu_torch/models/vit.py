@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dfu_multimodal_tpu_torch.models.common import canonical_dtype
+from dfu_multimodal_tpu_torch.models.common import canonical_dtype, dropout
 from dfu_multimodal_tpu_torch.ops.vit_block import AttnBlock, MlpBlock
 from dfu_multimodal_tpu_torch.ops.vit_block_q8 import (
     attn_block_q8, attn_block_q8s, mlp_block_q8, mlp_block_q8s, over_qmax,
@@ -242,19 +242,6 @@ class ViT(nn.Module):
 def ViTBase16(dtype: Union[str, torch.dtype] = torch.float32,
               image_size: int = 224) -> ViT:
     return ViT(image_size=image_size, dtype=dtype)
-
-
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout drawn from an explicit generator (on x's device):
-    keep with probability 1 - rate and scale by 1/(1 - rate), as flax's
-    ``nn.Dropout``."""
-    if rate == 0.0:
-        return x
-    if rate >= 1.0:
-        return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return x * keep.to(x.dtype) / (1.0 - rate)
 
 
 class ViTClassifier(nn.Module):

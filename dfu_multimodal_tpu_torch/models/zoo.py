@@ -1,8 +1,8 @@
 """Model registry (counterpart of ``dfu_multimodal_tpu/models/zoo.py``).
 
-Ported so far: the flagship ``multimodal`` fusion model and the
-``thermal_only`` ViT classifier; the other families join as their modules
-land.
+Ported so far: the three reference models — the flagship ``multimodal``
+fusion model, the ``thermal_only`` ViT classifier and the ``rgb_only``
+ResNet-50 classifier; the other families join as their modules land.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from dfu_multimodal_tpu_torch.models.fusion import MultimodalFusionClassifier
+from dfu_multimodal_tpu_torch.models.resnet import ResNetClassifier
 from dfu_multimodal_tpu_torch.models.vit import ViT, ViTClassifier
 
 
@@ -32,6 +33,7 @@ def register(spec: ModelSpec) -> ModelSpec:
     return spec
 
 
+register(ModelSpec("rgb_only", ResNetClassifier, ("rgb",)))
 register(ModelSpec("thermal_only", ViTClassifier, ("thermal",)))
 register(ModelSpec("multimodal", MultimodalFusionClassifier,
                    ("rgb", "thermal")))
@@ -49,9 +51,10 @@ def build(name: str, *, num_classes: int = 2,
           dtype: Union[str, torch.dtype] = torch.float32,
           **kwargs) -> Tuple[nn.Module, ModelSpec]:
     """``drop_rate=None`` keeps the model class's own default.  Extra
-    kwargs go to the model class: ``image_size``, and for
-    ``thermal_only`` the trunk's ``block_impl`` (``"fused"``,
-    ``"fused_q8"``, ``"fused_q8s"``) and cut-down widths (``depth``...)."""
+    kwargs go to the model class: ``image_size``; for ``thermal_only``
+    the trunk's ``block_impl`` (``"fused"``, ``"fused_q8"``,
+    ``"fused_q8s"``) and cut-down widths (``depth``...); for ``rgb_only``
+    the trunk's ``block_impl`` (``"auto"``, ``"flax"``, ``"fused"``)."""
     spec = get(name)
     dr = {} if drop_rate is None else {"drop_rate": drop_rate}
     return spec.make(num_classes=num_classes, dtype=dtype, **dr,

@@ -1,0 +1,315 @@
+// The port's hand-written GEMM tiles, shared by the ViT blocks
+// (vit_block.cu) and the ResNet bottleneck (resnet_block.cu):
+//
+//   out (M, N) = epilogue(A (M, K) @ B)
+//
+// row-major, fp32 accumulation; B is stored (K, N), or (N, K) and read
+// transposed when TRANS_B.  bf16 operands run on the tensor cores through
+// WMMA, fp32 operands on the FMA pipes (no TF32).  A is staged through a
+// loader: DenseA reads a row-major (M, K) matrix, Conv3x3A gathers the
+// nine taps of a stride-1, same-padding 3x3 convolution on image-major
+// NHWC rows (the implicit GEMM of the ResNet bottleneck).  Ragged M/N/K
+// are zero-filled on load and masked on store.  The A and B tiles are
+// loaded element by element and not pipelined (TMA + wgmma is later work).
+#pragma once
+
+#include "common.cuh"
+
+#include <mma.h>
+
+#include <type_traits>
+
+namespace dfu {
+namespace {
+
+enum Epilogue {
+  EPI_BIAS = 0,            // out = T(acc + bias)
+  EPI_BIAS_GELU = 1,       // out = T(gelu(acc + bias))
+  EPI_BIAS_RESID = 2,      // out = T(aux + T(acc + bias)), aux (m, n) T
+  EPI_BIAS_GELU_AUX = 3,   // aux = acc + bias (fp32), out = T(gelu(aux))
+  EPI_DGELU = 4,           // out = T(acc * gelu'(aux)), aux (m, n) fp32
+  EPI_NONE = 5,            // out = T(acc)
+  EPI_F32 = 6,             // out = acc, out fp32
+  EPI_BIAS_RELU = 7,       // out = T(max(acc + bias, 0))
+  EPI_BIAS_RESID_RELU = 8  // out = T(max(aux + T(acc + bias), 0)), aux T
+};
+
+__host__ __device__ constexpr bool epi_has_bias(int epi) {
+  return epi <= EPI_BIAS_GELU_AUX || epi == EPI_BIAS_RELU ||
+         epi == EPI_BIAS_RESID_RELU;
+}
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+// d/dv gelu_erf(v) = Phi(v) + v * phi(v)
+__device__ __forceinline__ float dgelu_erf(float v) {
+  return 0.5f * (1.0f + erff(v * 0.70710678118654752f)) +
+         v * 0.39894228040143268f * expf(-0.5f * v * v);
+}
+
+// out[row, col] = epilogue(acc), in the compute dtype T unless EPI_F32.
+template <typename T, int EPI>
+__device__ __forceinline__ void store_out(float acc, int row, int col, int n,
+                                          const float* __restrict__ bias,
+                                          void* __restrict__ aux,
+                                          void* __restrict__ out) {
+  const size_t i = static_cast<size_t>(row) * n + col;
+  if constexpr (EPI == EPI_F32) {
+    static_cast<float*>(out)[i] = acc;
+    return;
+  } else {
+    float v = acc;
+    if constexpr (EPI == EPI_DGELU)
+      v *= dgelu_erf(static_cast<const float*>(aux)[i]);
+    if constexpr (epi_has_bias(EPI)) v += bias[col];
+    if constexpr (EPI == EPI_BIAS_GELU_AUX) static_cast<float*>(aux)[i] = v;
+    if constexpr (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_AUX)
+      v = gelu_erf(v);
+    // aux + o with o rounded to the compute dtype first, as the TPU
+    // kernels add the residual in the compute dtype
+    if constexpr (EPI == EPI_BIAS_RESID || EPI == EPI_BIAS_RESID_RELU)
+      v = to_f(static_cast<const T*>(aux)[i]) + to_f(from_f<T>(v));
+    if constexpr (EPI == EPI_BIAS_RELU || EPI == EPI_BIAS_RESID_RELU)
+      v = fmaxf(v, 0.f);
+    static_cast<T*>(out)[i] = from_f<T>(v);
+  }
+}
+
+// ------------------------------------------------------------ A loaders
+// A thread of a tile loads one fixed column of each K step for a fixed
+// set of rows, so a loader splits an element's address into a Row part
+// (computed once per block) and a Col part (once per K step); at() gives
+// the element or 0 outside A.
+
+// A (m, k) row-major.
+template <typename T>
+struct DenseA {
+  const T* a;
+  int m, k;
+  struct Row { const T* p; };            // null past the ragged row edge
+  struct Col { int kk; bool ok; };
+  __device__ __forceinline__ Row row(int r) const {
+    return {r < m ? a + static_cast<size_t>(r) * k : nullptr};
+  }
+  __device__ __forceinline__ Col col(int kk) const { return {kk, kk < k}; }
+  __device__ __forceinline__ T at(Row r, Col c) const {
+    return (r.p != nullptr && c.ok) ? r.p[c.kk] : from_f<T>(0.f);
+  }
+};
+
+// The implicit GEMM of a 3x3, stride-1, same-padding convolution: y is
+// (m, c) with m = B·h·w image-major NHWC rows, K = 9·c with the taps
+// (dy, dx) row-major, A[r, t·c + ch] = y[r + dy·w + dx, ch] when the
+// neighbour lies inside the same image (0 <= row+dy < h, 0 <= col+dx < w,
+// row = (r / w) mod h), else 0 — which also masks the rows a shift would
+// carry across an image boundary.
+template <typename T>
+struct Conv3x3A {
+  const T* y;
+  int m, c, h, w;
+  struct Row { int r, yy, xx; };          // r < 0 past the ragged row edge
+  struct Col { int off, ch, dy, dx; bool ok; };
+  __device__ __forceinline__ Row row(int r) const {
+    if (r >= m) return {-1, 0, 0};
+    return {r, (r / w) % h, r % w};
+  }
+  __device__ __forceinline__ Col col(int kk) const {
+    const int t = kk / c, dy = t / 3 - 1, dx = t % 3 - 1;
+    return {dy * w + dx, kk - t * c, dy, dx, kk < 9 * c};
+  }
+  __device__ __forceinline__ T at(Row r, Col q) const {
+    const int yy = r.yy + q.dy, xx = r.xx + q.dx;
+    const bool in = r.r >= 0 && q.ok && yy >= 0 && yy < h && xx >= 0 &&
+                    xx < w;
+    return in ? y[static_cast<size_t>(r.r + q.off) * c + q.ch]
+              : from_f<T>(0.f);
+  }
+};
+
+// --------------------------------------------------- bf16 GEMM (WMMA)
+// A 64x64 output tile per block of 4 warps, each warp a 32x32 quadrant of
+// 2x2 16x16x16 WMMA fragments; K in steps of 32.  A transposed B tile is
+// staged as stored ((N, K) rows, coalesced along K) and read by col_major
+// fragments.
+constexpr int WBM = 64, WBN = 64, WBK = 32, WTHREADS = 128;
+constexpr int WLDA = WBK + 8, WLDB = WBN + 8, WLDBT = WBK + 8, WLDC = WBN + 4;
+constexpr int WBS = (WBK * WLDB > WBN * WLDBT) ? WBK * WLDB : WBN * WLDBT;
+
+template <int EPI, bool TRANS_B, typename ALoad>
+__global__ void __launch_bounds__(WTHREADS)
+gemm_bf16_wmma(ALoad A, const bf16* __restrict__ B,
+               const float* __restrict__ bias, void* __restrict__ aux,
+               void* __restrict__ out, int m, int n, int k) {
+  using namespace nvcuda;
+  using BLayout = std::conditional_t<TRANS_B, wmma::col_major,
+                                     wmma::row_major>;
+  constexpr int RSTEP = WTHREADS / WBK, NROWS = WBM / RSTEP;
+  __shared__ __align__(32) bf16 As[WBM * WLDA];
+  __shared__ __align__(32) bf16 Bs[WBS];
+  __shared__ __align__(32) float Cs[WBM * WLDC];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int row0 = blockIdx.y * WBM, col0 = blockIdx.x * WBN;
+  const int a_col = tid % WBK, a_row = tid / WBK;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  typename ALoad::Row rows[NROWS];
+#pragma unroll
+  for (int j = 0; j < NROWS; ++j) rows[j] = A.row(row0 + a_row + j * RSTEP);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = 0; k0 < k; k0 += WBK) {
+    const typename ALoad::Col col = A.col(k0 + a_col);
+#pragma unroll
+    for (int j = 0; j < NROWS; ++j)
+      As[(a_row + j * RSTEP) * WLDA + a_col] = A.at(rows[j], col);
+    if constexpr (TRANS_B) {
+      for (int i = tid; i < WBN * WBK; i += WTHREADS) {
+        const int c = i / WBK, r = i % WBK;      // c: n index, r: k index
+        const int gr = k0 + r, gc = col0 + c;
+        Bs[c * WLDBT + r] =
+            (gr < k && gc < n) ? B[static_cast<size_t>(gc) * k + gr] : zero;
+      }
+    } else {
+      for (int i = tid; i < WBK * WBN; i += WTHREADS) {
+        const int r = i / WBN, c = i % WBN;
+        const int gr = k0 + r, gc = col0 + c;
+        Bs[r * WLDB + c] =
+            (gr < k && gc < n) ? B[static_cast<size_t>(gr) * n + gc] : zero;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < WBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * WLDA + kk,
+                               WLDA);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int n0 = wn * 32 + j * 16;
+        if constexpr (TRANS_B)
+          wmma::load_matrix_sync(b[j], Bs + n0 * WLDBT + kk, WLDBT);
+        else
+          wmma::load_matrix_sync(b[j], Bs + kk * WLDB + n0, WLDB);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * WLDC + wn * 32 + j * 16,
+                              acc[i][j], WLDC, wmma::mem_row_major);
+  __syncthreads();
+  for (int i = tid; i < WBM * WBN; i += WTHREADS) {
+    const int r = i / WBN, c = i % WBN;
+    const int gr = row0 + r, gc = col0 + c;
+    if (gr < m && gc < n)
+      store_out<bf16, EPI>(Cs[r * WLDC + c], gr, gc, n, bias, aux, out);
+  }
+}
+
+// ---------------------------------------------------- fp32 GEMM (SIMT)
+// Same contract with fp32 operands on the FMA pipes (no TF32): a 64x64
+// tile per block of 256 threads, 4x4 outputs per thread, K in steps of 16.
+constexpr int SBM = 64, SBN = 64, SBK = 16, STHREADS = 256;
+
+template <int EPI, bool TRANS_B, typename ALoad>
+__global__ void __launch_bounds__(STHREADS)
+gemm_f32_simt(ALoad A, const float* __restrict__ B,
+              const float* __restrict__ bias, void* __restrict__ aux,
+              void* __restrict__ out, int m, int n, int k) {
+  constexpr int RSTEP = STHREADS / SBK, NROWS = SBM / RSTEP;
+  __shared__ float As[SBK][SBM + 4];  // transposed: As[k][m]
+  __shared__ float Bs[SBK][SBN + 4];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int row0 = blockIdx.y * SBM, col0 = blockIdx.x * SBN;
+  const int a_col = tid % SBK, a_row = tid / SBK;
+
+  typename ALoad::Row rows[NROWS];
+#pragma unroll
+  for (int j = 0; j < NROWS; ++j) rows[j] = A.row(row0 + a_row + j * RSTEP);
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < k; k0 += SBK) {
+    const typename ALoad::Col col = A.col(k0 + a_col);
+#pragma unroll
+    for (int j = 0; j < NROWS; ++j)
+      As[a_col][a_row + j * RSTEP] = A.at(rows[j], col);
+    for (int i = tid; i < SBK * SBN; i += STHREADS) {
+      // TRANS_B: k index fastest, so the global reads run along B's rows
+      const int r = TRANS_B ? i % SBK : i / SBN;
+      const int c = TRANS_B ? i / SBK : i % SBN;
+      const int gr = k0 + r, gc = col0 + c;
+      const size_t at = TRANS_B ? static_cast<size_t>(gc) * k + gr
+                                : static_cast<size_t>(gr) * n + gc;
+      Bs[r][c] = (gr < k && gc < n) ? B[at] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < SBK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gr = row0 + ty * 4 + i, gc = col0 + tx * 4 + j;
+      if (gr < m && gc < n)
+        store_out<float, EPI>(acc[i][j], gr, gc, n, bias, aux, out);
+    }
+}
+
+// out (m, n) = epilogue(A @ B) in the compute dtype `dtype`, with A staged
+// by ALoad<T>{a, m, args...} (DenseA: args = k; Conv3x3A: c, h, w).
+template <int EPI, bool TRANS_B, template <typename> class ALoad,
+          typename... Args>
+void launch_gemm(int dtype, const void* a, const void* b, const float* bias,
+                 void* aux, void* out, int m, int n, int k, cudaStream_t s,
+                 Args... args) {
+  if (dtype == DT_BF16) {
+    dim3 grid(cdiv(n, WBN), cdiv(m, WBM));
+    gemm_bf16_wmma<EPI, TRANS_B><<<grid, WTHREADS, 0, s>>>(
+        ALoad<bf16>{static_cast<const bf16*>(a), m, args...},
+        static_cast<const bf16*>(b), bias, aux, out, m, n, k);
+  } else {
+    dim3 grid(cdiv(n, SBN), cdiv(m, SBM));
+    gemm_f32_simt<EPI, TRANS_B><<<grid, STHREADS, 0, s>>>(
+        ALoad<float>{static_cast<const float*>(a), m, args...},
+        static_cast<const float*>(b), bias, aux, out, m, n, k);
+  }
+}
+
+}  // namespace
+}  // namespace dfu

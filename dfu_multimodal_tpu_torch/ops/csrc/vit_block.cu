@@ -23,11 +23,11 @@
 //   grid.  A Hopper SM has 227 KB of shared memory and blocks run in
 //   parallel in no order, so each TPU kernel becomes a chain of launches
 //   that each fill the card: a warp-per-row fp32 LayerNorm, one tiled GEMM
-//   template (bf16 operands on the tensor cores through WMMA, fp32
-//   operands on the FMA pipes, fp32 accumulation either way; B read as
-//   stored or transposed, so dh = g·w2ᵀ and dy = dhpre·w1ᵀ need no copy of
-//   the weights) whose epilogue adds the bias and applies exact-erf GELU,
-//   the residual, or the exact dGELU of the fc1 pre-activation, and the
+//   template (gemm_tile.cuh: bf16 operands on the tensor cores through
+//   WMMA, fp32 operands on the FMA pipes, fp32 accumulation either way; B
+//   read as stored or transposed, so dh = g·w2ᵀ and dy = dhpre·w1ᵀ need no
+//   copy of the weights) whose epilogue adds the bias and applies exact-erf
+//   GELU, the residual, or the exact dGELU of the fc1 pre-activation, and the
 //   attention core of attention_core.cuh, which holds one head's K and V
 //   in shared memory with an exact two-pass fp32 softmax.  K4's dg2/db2, a
 //   sum over all rows that the TPU grid accumulated in order, becomes
@@ -48,58 +48,10 @@
 
 #include "attention_core.cuh"
 #include "common.cuh"
-
-#include <mma.h>
-
-#include <type_traits>
+#include "gemm_tile.cuh"
 
 namespace dfu {
 namespace {
-
-enum Epilogue {
-  EPI_BIAS = 0,           // out = T(acc + bias)
-  EPI_BIAS_GELU = 1,      // out = T(gelu(acc + bias))
-  EPI_BIAS_RESID = 2,     // out = T(aux + T(acc + bias)), aux (m, n) T
-  EPI_BIAS_GELU_AUX = 3,  // aux = acc + bias (fp32), out = T(gelu(aux))
-  EPI_DGELU = 4,          // out = T(acc * gelu'(aux)), aux (m, n) fp32
-  EPI_NONE = 5,           // out = T(acc)
-  EPI_F32 = 6             // out = acc, out fp32
-};
-
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-}
-
-// d/dv gelu_erf(v) = Phi(v) + v * phi(v)
-__device__ __forceinline__ float dgelu_erf(float v) {
-  return 0.5f * (1.0f + erff(v * 0.70710678118654752f)) +
-         v * 0.39894228040143268f * expf(-0.5f * v * v);
-}
-
-// out[row, col] = epilogue(acc), in the compute dtype T unless EPI_F32.
-template <typename T, int EPI>
-__device__ __forceinline__ void store_out(float acc, int row, int col, int n,
-                                          const float* __restrict__ bias,
-                                          void* __restrict__ aux,
-                                          void* __restrict__ out) {
-  const size_t i = static_cast<size_t>(row) * n + col;
-  if constexpr (EPI == EPI_F32) {
-    static_cast<float*>(out)[i] = acc;
-    return;
-  } else {
-    float v = acc;
-    if constexpr (EPI == EPI_DGELU)
-      v *= dgelu_erf(static_cast<const float*>(aux)[i]);
-    if constexpr (EPI <= EPI_BIAS_GELU_AUX) v += bias[col];
-    if constexpr (EPI == EPI_BIAS_GELU_AUX) static_cast<float*>(aux)[i] = v;
-    if constexpr (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_AUX)
-      v = gelu_erf(v);
-    // x + o with o rounded to the compute dtype first, as the TPU kernel
-    if constexpr (EPI == EPI_BIAS_RESID)
-      v = to_f(static_cast<const T*>(aux)[i]) + to_f(from_f<T>(v));
-    static_cast<T*>(out)[i] = from_f<T>(v);
-  }
-}
 
 // ----------------------------------------------------------- LayerNorm
 // One warp per row; three passes over the row (mean, centred variance,
@@ -126,162 +78,6 @@ __global__ void layernorm_kernel(const T* __restrict__ x,
   const float rstd = rsqrtf(warp_sum(v) / c + eps);
   for (int i = lane; i < c; i += 32)
     yr[i] = from_f<T>((to_f(xr[i]) - mu) * rstd * g[i] + b[i]);
-}
-
-// --------------------------------------------------- bf16 GEMM (WMMA)
-// out (M, N) = epilogue(A (M, K) @ B), row-major, bf16 operands, fp32
-// accumulation; B is stored (K, N), or (N, K) and read transposed when
-// TRANS_B (an nn.Linear weight in its own (out, in) layout).  A 64x64
-// output tile per block of 4 warps, each warp a 32x32 quadrant of 2x2
-// 16x16x16 WMMA fragments; K in steps of 32.  A transposed B tile is
-// staged as stored ((N, K) rows, coalesced along K) and read by col_major
-// fragments.  Ragged M/N/K are zero-filled on load and masked on store.
-constexpr int WBM = 64, WBN = 64, WBK = 32;
-constexpr int WLDA = WBK + 8, WLDB = WBN + 8, WLDBT = WBK + 8, WLDC = WBN + 4;
-constexpr int WBS = (WBK * WLDB > WBN * WLDBT) ? WBK * WLDB : WBN * WLDBT;
-
-template <int EPI, bool TRANS_B>
-__global__ void __launch_bounds__(128)
-gemm_bf16_wmma(const bf16* __restrict__ A, const bf16* __restrict__ B,
-               const float* __restrict__ bias, void* __restrict__ aux,
-               void* __restrict__ out, int m, int n, int k) {
-  using namespace nvcuda;
-  using BLayout = std::conditional_t<TRANS_B, wmma::col_major,
-                                     wmma::row_major>;
-  __shared__ __align__(32) bf16 As[WBM * WLDA];
-  __shared__ __align__(32) bf16 Bs[WBS];
-  __shared__ __align__(32) float Cs[WBM * WLDC];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int row0 = blockIdx.y * WBM, col0 = blockIdx.x * WBN;
-  const bf16 zero = __float2bfloat16_rn(0.f);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < k; k0 += WBK) {
-    for (int i = tid; i < WBM * WBK; i += 128) {
-      const int r = i / WBK, c = i % WBK;
-      const int gr = row0 + r, gc = k0 + c;
-      As[r * WLDA + c] =
-          (gr < m && gc < k) ? A[static_cast<size_t>(gr) * k + gc] : zero;
-    }
-    if constexpr (TRANS_B) {
-      for (int i = tid; i < WBN * WBK; i += 128) {
-        const int c = i / WBK, r = i % WBK;      // c: n index, r: k index
-        const int gr = k0 + r, gc = col0 + c;
-        Bs[c * WLDBT + r] =
-            (gr < k && gc < n) ? B[static_cast<size_t>(gc) * k + gr] : zero;
-      }
-    } else {
-      for (int i = tid; i < WBK * WBN; i += 128) {
-        const int r = i / WBN, c = i % WBN;
-        const int gr = k0 + r, gc = col0 + c;
-        Bs[r * WLDB + c] =
-            (gr < k && gc < n) ? B[static_cast<size_t>(gr) * n + gc] : zero;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < WBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * WLDA + kk,
-                               WLDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n0 = wn * 32 + j * 16;
-        if constexpr (TRANS_B)
-          wmma::load_matrix_sync(b[j], Bs + n0 * WLDBT + kk, WLDBT);
-        else
-          wmma::load_matrix_sync(b[j], Bs + kk * WLDB + n0, WLDB);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * WLDC + wn * 32 + j * 16,
-                              acc[i][j], WLDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < WBM * WBN; i += 128) {
-    const int r = i / WBN, c = i % WBN;
-    const int gr = row0 + r, gc = col0 + c;
-    if (gr < m && gc < n)
-      store_out<bf16, EPI>(Cs[r * WLDC + c], gr, gc, n, bias, aux, out);
-  }
-}
-
-// ---------------------------------------------------- fp32 GEMM (SIMT)
-// Same contract with fp32 operands on the FMA pipes (no TF32): a 64x64
-// tile per block of 256 threads, 4x4 outputs per thread, K in steps of 16.
-constexpr int SBM = 64, SBN = 64, SBK = 16;
-
-template <int EPI, bool TRANS_B>
-__global__ void __launch_bounds__(256)
-gemm_f32_simt(const float* __restrict__ A, const float* __restrict__ B,
-              const float* __restrict__ bias, void* __restrict__ aux,
-              void* __restrict__ out, int m, int n, int k) {
-  __shared__ float As[SBK][SBM + 4];  // transposed: As[k][m]
-  __shared__ float Bs[SBK][SBN + 4];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int row0 = blockIdx.y * SBM, col0 = blockIdx.x * SBN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < k; k0 += SBK) {
-    for (int i = tid; i < SBM * SBK; i += 256) {
-      const int r = i / SBK, c = i % SBK;
-      const int gr = row0 + r, gc = k0 + c;
-      As[c][r] = (gr < m && gc < k) ? A[static_cast<size_t>(gr) * k + gc] : 0.f;
-    }
-    for (int i = tid; i < SBK * SBN; i += 256) {
-      // TRANS_B: k index fastest, so the global reads run along B's rows
-      const int r = TRANS_B ? i % SBK : i / SBN;
-      const int c = TRANS_B ? i / SBK : i % SBN;
-      const int gr = k0 + r, gc = col0 + c;
-      const size_t at = TRANS_B ? static_cast<size_t>(gc) * k + gr
-                                : static_cast<size_t>(gr) * n + gc;
-      Bs[r][c] = (gr < k && gc < n) ? B[at] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < SBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gr = row0 + ty * 4 + i, gc = col0 + tx * 4 + j;
-      if (gr < m && gc < n)
-        store_out<float, EPI>(acc[i][j], gr, gc, n, bias, aux, out);
-    }
 }
 
 // ---------------------------------------------------- LayerNorm backward
@@ -371,30 +167,16 @@ __global__ void layernorm_bwd_reduce(const float* __restrict__ partial,
   dbeta[col] = s2;
 }
 
-template <int EPI, bool TRANS_B>
-void launch_gemm(int dtype, const void* a, const void* b, const float* bias,
-                 void* aux, void* out, int m, int n, int k, cudaStream_t s) {
-  if (dtype == DT_BF16) {
-    dim3 grid(cdiv(n, WBN), cdiv(m, WBM));
-    gemm_bf16_wmma<EPI, TRANS_B><<<grid, 128, 0, s>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(b), bias, aux,
-        out, m, n, k);
-  } else {
-    dim3 grid(cdiv(n, SBN), cdiv(m, SBM));
-    gemm_f32_simt<EPI, TRANS_B><<<grid, 256, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), bias,
-        aux, out, m, n, k);
-  }
-}
-
 template <int EPI>
 void launch_gemm_t(int dtype, int trans_b, const void* a, const void* b,
                    const float* bias, void* aux, void* out, int m, int n,
                    int k, cudaStream_t s) {
   if (trans_b)
-    launch_gemm<EPI, true>(dtype, a, b, bias, aux, out, m, n, k, s);
+    launch_gemm<EPI, true, DenseA>(dtype, a, b, bias, aux, out, m, n, k, s,
+                                   k);
   else
-    launch_gemm<EPI, false>(dtype, a, b, bias, aux, out, m, n, k, s);
+    launch_gemm<EPI, false, DenseA>(dtype, a, b, bias, aux, out, m, n, k, s,
+                                    k);
 }
 
 template <typename T>

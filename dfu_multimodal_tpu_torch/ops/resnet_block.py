@@ -1,0 +1,150 @@
+"""Fused stride-1 ResNet bottleneck: hand-written Hopper kernel, plain
+version, and the rematerialising backward.
+
+Counterpart of ``dfu_multimodal_tpu/ops/resnet_block.py::
+fused_bottleneck`` (the Pallas ``_bottleneck_kernel`` and
+``_bottleneck_proj_kernel``, K11).  With BatchNorm folded into the
+convolutions by the caller (``models/resnet.py``):
+
+    out = relu(sc + T(conv3(relu(conv3x3(relu(conv1 x + b1)) + b2)) + b3))
+
+with sc = x (identity, Cin == Cout) or T(x @ wd + bd) (projection).
+Arguments keep the JAX layouts: x (B, H, W, Cin) NHWC in the compute
+dtype; w1 (Cin, Cmid), w2 (9·Cmid, Cmid) row-stacked 3x3 taps ((dy, dx)
+row-major, i.e. HWIO reshaped), w3 (Cmid, Cout), wd (Cin, Cout) in the
+compute dtype; biases fp32.
+
+Dispatch is by device only: a CPU tensor takes :func:`bottleneck_ref`, a
+CUDA tensor launches ``csrc/resnet_block.cu`` or raises.
+:class:`FusedBottleneck` is the ``torch.autograd.Function``: forward the
+kernel, backward autograd through :func:`bottleneck_ref` from the saved
+inputs (remat, as the JAX custom VJP; there is no backward kernel).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from dfu_multimodal_tpu_torch.ops import _build
+from dfu_multimodal_tpu_torch.ops.attention import acc_dtype as _acc
+from dfu_multimodal_tpu_torch.ops.vit_block import _mm_f32
+
+_I, _P = _build.I, _build.P
+_SIGNATURES = {
+    "dfu_bottleneck": [_I, _I] + [_P] * 13 + [_I] * 6 + [_P],
+}
+
+
+def _lib():
+    return _build.load("resnet_block", _SIGNATURES)
+
+
+def bottleneck_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
+                   b3: torch.Tensor, wd: Optional[torch.Tensor] = None,
+                   bd: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`fused_bottleneck` (mirrors the JAX
+    ``_bottleneck_ref``): fp32 accumulation, y1 and y2 rounded to the
+    compute dtype after bias and ReLU, y3 rounded after its bias, the
+    projection shortcut rounded before the add, and the residual add and
+    ReLU in the compute dtype."""
+    acc = _acc(x)
+    cmid = w1.shape[1]
+    y1 = torch.relu(_mm_f32(x, w1) + b1.to(acc)).to(x.dtype)
+    w2k = w2.to(acc).reshape(3, 3, cmid, cmid).permute(3, 2, 0, 1)  # OIHW
+    y2 = F.conv2d(y1.to(acc).permute(0, 3, 1, 2), w2k, padding=1)
+    y2 = torch.relu(y2.permute(0, 2, 3, 1) + b2.to(acc)).to(x.dtype)
+    y3 = (_mm_f32(y2, w3) + b3.to(acc)).to(x.dtype)
+    sc = x if wd is None else (_mm_f32(x, wd) + bd.to(acc)).to(x.dtype)
+    return torch.relu(sc + y3)
+
+
+def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                     w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
+                     b3: torch.Tensor, wd: Optional[torch.Tensor] = None,
+                     bd: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One stride-1 bottleneck with BatchNorm pre-folded.  x (B, H, W, Cin)
+    contiguous NHWC; returns (B, H, W, Cout) contiguous in x's dtype.
+    ``wd``/``bd`` give the projection shortcut, else Cin == Cout.  Counts
+    ``fused_bottleneck.launches`` (identity) and ``.proj_launches``."""
+    if (wd is None) != (bd is None):
+        raise ValueError("fused_bottleneck: give both wd and bd, or neither")
+    if x.device.type == "cpu":
+        return bottleneck_ref(x, w1, b1, w2, b2, w3, b3, wd, bd)
+    proj = wd is not None
+    compute = {"x": x, "w1": w1, "w2": w2, "w3": w3}
+    fp32 = {"b1": b1, "b2": b2, "b3": b3}
+    if proj:
+        compute["wd"], fp32["bd"] = wd, bd
+    _build.check_cuda_operands("fused_bottleneck", x, compute, fp32)
+    if x.dim() != 4:
+        raise ValueError(f"fused_bottleneck: x {tuple(x.shape)}, want "
+                         f"(B, H, W, C)")
+    bsz, h, w, cin = x.shape
+    cmid, cout = w1.shape[-1], w3.shape[-1]
+    want = {"w1": (cin, cmid), "b1": (cmid,), "w2": (9 * cmid, cmid),
+            "b2": (cmid,), "w3": (cmid, cout), "b3": (cout,)}
+    if proj:
+        want.update(wd=(cin, cout), bd=(cout,))
+    got = {k: tuple(t.shape) for k, t in {**compute, **fp32}.items()
+           if k != "x"}
+    if got != want or (not proj and cin != cout):
+        raise ValueError(
+            f"fused_bottleneck: x {tuple(x.shape)} with {got}; want {want}"
+            + ("" if proj else " and Cin == Cout (identity shortcut)"))
+    lib, rows = _lib(), bsz * h * w
+    y1 = torch.empty((rows, cmid), dtype=x.dtype, device=x.device)
+    y2 = torch.empty_like(y1)
+    sc = (torch.empty((rows, cout), dtype=x.dtype, device=x.device)
+          if proj else None)
+    out = torch.empty((bsz, h, w, cout), dtype=x.dtype, device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    _build.check(lib, lib.dfu_bottleneck(
+        x.device.index, _build.DTYPE_CODES[x.dtype], x.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        w3.data_ptr(), b3.data_ptr(), ptr(wd), ptr(bd), y1.data_ptr(),
+        y2.data_ptr(), ptr(sc), out.data_ptr(), rows, h, w, cin, cmid, cout,
+        _build.stream_of(x)), "fused_bottleneck")
+    if proj:
+        fused_bottleneck.proj_launches += 1
+    else:
+        fused_bottleneck.launches += 1
+    return out
+
+
+# launch counts: one per call that ran the kernels (CPU calls do not count)
+fused_bottleneck.launches = 0
+fused_bottleneck.proj_launches = 0
+
+
+class FusedBottleneck(torch.autograd.Function):
+    """Trainable :func:`fused_bottleneck` (the JAX custom VJP): forward
+    the kernel, saving only its inputs; backward rematerialises through
+    :func:`bottleneck_ref` under autograd (Grad-CAM differentiates the
+    serving forward).  ``apply(x, w1, b1, w2, b2, w3, b3, wd, bd)`` with
+    ``wd = bd = None`` for the identity shortcut."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, w3, b3, wd, bd):
+        ctx.save_for_backward(x, w1, b1, w2, b2, w3, b3, wd, bd)
+        return fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd, bd)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        if not any(needs):
+            return (None,) * 9
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(saved, needs)]
+            out = bottleneck_ref(*inputs)
+            wanted = [t for t, n in zip(inputs, needs) if n]
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return tuple(next(grads) if n else None for n in needs)

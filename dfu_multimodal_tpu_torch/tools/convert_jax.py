@@ -16,9 +16,10 @@ checkpoint restore produce them) and returns the port model's
 - BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, ``batch_stats``
   ``mean``/``var`` -> ``running_mean``/``running_var``.
 
-Models: ``multimodal`` (``rgb_branch`` / ``thermal_branch`` / ``fusion``)
-and ``thermal_only`` (the JAX trunk scope ``ViT_0`` -> ``vit.``, the
-``head`` Dense -> ``head``).
+Models: ``multimodal`` (``rgb_branch`` / ``thermal_branch`` / ``fusion``),
+``thermal_only`` (the JAX trunk scope ``ViT_0`` -> ``vit.``, the ``head``
+Dense -> ``head``) and ``rgb_only`` (``ResNet_0`` params and batch stats
+-> ``resnet.``, ``head`` -> ``head``).
 
 No jax import: the arrays only need ``numpy.asarray``.
 """
@@ -131,8 +132,13 @@ def variables_to_state_dict(model_name: str,
     """JAX variables of zoo model ``model_name`` -> the port model's
     state_dict (load with ``load_state_dict(..., strict=True)``)."""
     params = variables["params"]
-    if model_name == "thermal_only":
-        out = vit_state_dict(params["ViT_0"], "vit.")
+    if model_name in ("thermal_only", "rgb_only"):
+        if model_name == "thermal_only":
+            out = vit_state_dict(params["ViT_0"], "vit.")
+        else:
+            out = resnet_state_dict(params["ResNet_0"],
+                                    variables["batch_stats"]["ResNet_0"],
+                                    "resnet.")
         out["head.weight"] = _dense(params["head"]["kernel"])
         out["head.bias"] = _t(params["head"]["bias"])
         return out

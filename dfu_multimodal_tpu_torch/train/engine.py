@@ -23,7 +23,9 @@ learning-rate schedules, the shard_map (``*_spmd``) steps and any mesh
 but the single-device default — each raises ``NotImplementedError`` when
 the train step is first built — and ``fit`` (it needs checkpoint restore,
 ROADMAP Queue A1).  The multimodal and rgb_only train steps (cuDNN
-ResNet training with BatchNorm) are not ported yet either.
+ResNet training with BatchNorm) are not ported yet either; their eval
+steps are (``rgb_only`` with ``block_impl="fused"`` runs each stride-1
+bottleneck through the fused kernel).
 """
 
 from __future__ import annotations
@@ -103,7 +105,7 @@ class Trainer:
     ``tools.convert_jax.variables_to_state_dict``) or draw them with
     ``models.zoo.init_model``.  Extra keyword arguments go to the model
     class (e.g. ``depth`` for a cut-down trunk, ``block_impl`` for the
-    int8 ViT blocks)."""
+    int8 ViT blocks or the fused ResNet bottleneck)."""
 
     def __init__(self, model_name: str, cfg: TrainConfig,
                  modalities: Dict[str, ModalityConfig], *,
@@ -158,7 +160,10 @@ class Trainer:
         if self.spec.name not in TRAINABLE_MODELS:
             raise NotImplementedError(
                 f"the {self.spec.name!r} train step is not ported yet "
-                f"(trainable: {TRAINABLE_MODELS})")
+                f"(trainable: {TRAINABLE_MODELS}); the ResNet models "
+                "(rgb_only, multimodal) need cuDNN ResNet training with "
+                "live BatchNorm statistics, which has no kernel and is "
+                "queued after the kernels")
         _check_train_config(self.cfg)
         return AdamW(self.module.parameters(),
                      lr=learning_rate_schedule(self.cfg),

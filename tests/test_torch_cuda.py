@@ -19,6 +19,7 @@ import torch
 
 from dfu_multimodal_tpu_torch.ops import attention as at
 from dfu_multimodal_tpu_torch.ops import fused_mlp as fm
+from dfu_multimodal_tpu_torch.ops import resnet_block as rb
 from dfu_multimodal_tpu_torch.ops import vit_block as vb
 from dfu_multimodal_tpu_torch.ops import vit_block_q8 as q8
 
@@ -393,3 +394,131 @@ def test_thermal_int8_eval_on_card_matches_cpu(block_impl):
     ref = cpu.eval_step(batch)
     np.testing.assert_allclose(out["probs"].cpu().numpy(),
                                ref["probs"].numpy(), rtol=0, atol=1e-2)
+
+
+# ------------------------------------------------- fused ResNet bottleneck
+
+# (batch, H=W, Cin, Cmid, Cout): ResNet-50's stage 1 projection block and
+# stage 3 / stage 4 identity blocks at small batches (a 64-row tile spans
+# several 7x7 images), and ragged small shapes (K = 9·24 and 40 not
+# multiples of the tile's K step, a projection with Cin < Cout)
+BOTTLENECK_SHAPES = [(2, 56, 64, 64, 256), (2, 14, 1024, 256, 1024),
+                     (3, 7, 2048, 512, 2048), (3, 6, 16, 8, 32),
+                     (2, 5, 40, 24, 40)]
+
+
+def _bottleneck_args(dev, shape, dtype, seed):
+    """x (B, H, W, Cin) and (w1, b1, w2, b2, w3, b3[, wd, bd]): weights in
+    the compute dtype, biases fp32; the projection when Cin != Cout."""
+    b, hw, cin, cmid, cout = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn(g, b, hw, hw, cin, dtype=dtype)
+    args = [_randn(g, cin, cmid, scale=cin ** -0.5, dtype=dtype),
+            _randn(g, cmid, scale=0.1),
+            _randn(g, 9 * cmid, cmid, scale=(9 * cmid) ** -0.5, dtype=dtype),
+            _randn(g, cmid, scale=0.1),
+            _randn(g, cmid, cout, scale=cmid ** -0.5, dtype=dtype),
+            _randn(g, cout, scale=0.1)]
+    if cin != cout:
+        args += [_randn(g, cin, cout, scale=cin ** -0.5, dtype=dtype),
+                 _randn(g, cout, scale=0.1)]
+    return x, args
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", BOTTLENECK_SHAPES)
+def test_bottleneck_kernel_matches_plain(shape, dtype):
+    dev = _cuda()
+    x, args = _bottleneck_args(dev, shape, dtype, seed=5)
+    proj = len(args) == 8
+    before = (rb.fused_bottleneck.launches, rb.fused_bottleneck.proj_launches)
+    out = rb.fused_bottleneck(x, *args)
+    torch.cuda.synchronize()
+    assert (rb.fused_bottleneck.launches,
+            rb.fused_bottleneck.proj_launches) == (before[0] + (not proj),
+                                                   before[1] + proj)
+    _assert_close(out, rb.bottleneck_ref(x, *args), TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(3, 6, 16, 8, 32), (2, 5, 40, 24, 40)])
+def test_bottleneck_remat_backward_on_card(shape):
+    """FusedBottleneck on the card in fp32: the kernel forward and the
+    gradients of x and every weight (remat through the plain version)
+    against autograd of the plain version on the CPU."""
+    dev = _cuda()
+    x, args = _bottleneck_args(dev, shape, torch.float32, seed=6)
+    extra = [] if len(args) == 8 else [None, None]
+    grads = {}
+    for where in (dev, "cpu"):
+        leaves = [t.detach().to(where).requires_grad_(True)
+                  for t in [x] + args]
+        if where == "cpu":
+            out = rb.bottleneck_ref(*leaves, *extra)
+        else:
+            out = rb.FusedBottleneck.apply(*leaves, *extra)
+        (out ** 2).sum().backward()
+        grads[str(where)] = [out.detach().cpu()] + [t.grad.cpu()
+                                                    for t in leaves]
+    for got, ref in zip(grads[str(dev)], grads["cpu"]):
+        _assert_close(got, ref, TOL[torch.float32])
+
+
+def test_bottleneck_refuses_bad_operands():
+    """A CUDA operand the kernel does not take raises; nothing falls back
+    to the plain version."""
+    dev = _cuda()
+    x, args = _bottleneck_args(dev, (2, 6, 32, 8, 32), torch.float32, seed=7)
+    before = rb.fused_bottleneck.launches
+    with pytest.raises(TypeError):          # half precision has no kernel
+        rb.fused_bottleneck(x.half(), *args)
+    with pytest.raises(TypeError):          # weight not in x's dtype
+        rb.fused_bottleneck(x, args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError):         # operand on another device
+        rb.fused_bottleneck(x, *args[:5], args[5].cpu())
+    with pytest.raises(ValueError):         # NCHW view: not NHWC-contiguous
+        rb.fused_bottleneck(x.permute(0, 3, 1, 2).contiguous().permute(
+            0, 2, 3, 1), *args)
+    with pytest.raises(ValueError):         # identity needs Cin == Cout
+        rb.fused_bottleneck(x[..., :16].contiguous(),
+                            args[0][:16].contiguous(), *args[1:])
+    with pytest.raises(ValueError):         # w2 is (9·Cmid, Cmid)
+        rb.fused_bottleneck(x, args[0], args[1], args[2][:64].contiguous(),
+                            *args[3:])
+    assert rb.fused_bottleneck.launches == before
+
+
+def test_rgb_only_fused_eval_on_card_matches_cpu_and_cudnn():
+    """The rgb_only eval step with block_impl="fused" in fp32 on the card
+    against the same weights on the CPU (plain versions) and against the
+    card's cuDNN blocks (TF32 off): only summation order and where BN is
+    applied differ.  One eval step launches 12 identity and 1 projection
+    bottleneck."""
+    dev = _cuda()
+    from dfu_multimodal_tpu_torch.models import zoo
+    from dfu_multimodal_tpu_torch.train.engine import (Trainer, TrainConfig,
+                                                       rgb_modality)
+    mods = {"rgb": rgb_modality()}
+    cfg = TrainConfig(compute_dtype="float32")
+    cpu = Trainer("rgb_only", cfg, mods, device="cpu", image_size=64,
+                  block_impl="fused")
+    zoo.init_model(cpu.module, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():                   # BN statistics off identity
+        for m in cpu.module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+                m.running_mean.normal_(0.0, 0.1, generator=g)
+    rng = np.random.default_rng(0)
+    batch = {"rgb": rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)}
+    ref = cpu.eval_step(batch)["probs"].numpy()
+    for block_impl in ("fused", "flax"):
+        card = Trainer("rgb_only", cfg, mods, device=dev, image_size=64,
+                       block_impl=block_impl)
+        card.module.load_state_dict(cpu.module.state_dict())
+        before = (rb.fused_bottleneck.launches,
+                  rb.fused_bottleneck.proj_launches)
+        out = card.eval_step(batch)["probs"].cpu().numpy()
+        launched = (rb.fused_bottleneck.launches - before[0],
+                    rb.fused_bottleneck.proj_launches - before[1])
+        assert launched == ((12, 1) if block_impl == "fused" else (0, 0))
+        np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)

@@ -177,6 +177,42 @@ def test_bridge_loads_strict_and_counts_params(jax_multimodal):
     assert zoo.param_count(model) == jax_zoo.param_count(variables)
 
 
+@pytest.fixture(scope="module")
+def jax_rgb_only_variables():
+    """Perturbed numpy variables of the JAX rgb_only model (ResNet-50 +
+    head) at full width, image 32."""
+    module, spec = jax_zoo.build("rgb_only")
+    return _perturb(jax_zoo.init_model(module, spec, jax.random.PRNGKey(5),
+                                       image_size=IMAGE), seed=5)
+
+
+def test_bridge_loads_strict_rgb_only(jax_rgb_only_variables):
+    """The bridge's rgb_only case: ResNet_0 -> resnet., head -> head, a
+    strict load into both trunk impls, the JAX param count, and the exact
+    round trip back through convert_torch.convert_state_dict (which reads
+    the reference's head name, ``fc.1``, so the head is renamed for it)."""
+    variables = jax_rgb_only_variables
+    sd = variables_to_state_dict("rgb_only", variables)
+    for block_impl in ("flax", "fused"):
+        model, spec = zoo.build("rgb_only", image_size=IMAGE,
+                                block_impl=block_impl)
+        assert spec.inputs == ("rgb",)
+        assert sd.keys() == model.state_dict().keys()
+        model.load_state_dict(sd, strict=True)
+    assert zoo.param_count(model) == jax_zoo.param_count(variables)
+    assert zoo.param_count(model) == 23_512_130
+    zeros = jax.tree.map(np.zeros_like, variables)
+    reference_keys = {k.replace("head.", "fc.1.", 1): v for k, v in sd.items()}
+    merged, skipped = convert_state_dict("rgb_only", reference_keys, zeros)
+    assert skipped == 0
+    flat_ref = dict(jax.tree_util.tree_leaves_with_path(variables))
+    flat_out = dict(jax.tree_util.tree_leaves_with_path(merged))
+    assert flat_out.keys() == flat_ref.keys()
+    for path, ref in flat_ref.items():
+        np.testing.assert_array_equal(np.asarray(flat_out[path]), ref,
+                                      err_msg=str(path))
+
+
 def test_param_count_at_224():
     model, spec = zoo.build("multimodal")
     assert spec.inputs == ("rgb", "thermal")
@@ -223,6 +259,13 @@ from dfu_multimodal_tpu_torch.serve.engine import quantize_for_serving
 int8 = quantize_for_serving(thermal, image_size=32)
 assert int8.variables()["vit.blocks.0.attn.qkv.kernel_q8"].dtype == torch.int8
 probs = int8.eval_step({"thermal": batch["thermal"]})["probs"]
+assert probs.shape == (2,) and bool(torch.isfinite(probs).all())
+
+rgb = Trainer("rgb_only", TrainConfig(compute_dtype="float32"),
+              {"rgb": rgb_modality()}, device="cpu", image_size=32,
+              block_impl="fused")
+zoo.init_model(rgb.module, torch.Generator().manual_seed(0))
+probs = rgb.eval_step({"rgb": batch["rgb"]})["probs"]
 assert probs.shape == (2,) and bool(torch.isfinite(probs).all())
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "flax",
