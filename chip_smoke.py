@@ -25,6 +25,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               shapes, B = 8 and 128, fp32 and bf16, each beside the time
               of the port's cuDNN ``Bottleneck.forward`` (eval) and the
               kernel's bound;
+3e. attention kernels — K6 ``qkv_attention_fwd`` / ``_bwd`` and K9
+              ``flash_attention_fwd`` / ``_bwd`` against their plain
+              versions at ViT-B/16's attention (N = 197, 12 heads, D = 64)
+              at B = 8, 16 and 128 in fp32 and bf16, and at N = 40 with
+              D = 8 and 32 (the scale that is no power of two), each beside
+              ``F.scaled_dot_product_attention`` on the same operands (for
+              K6 the strided q/k/v views of the packed tensor; for the
+              backward rows SDPA forward + backward beside the kernel's
+              forward + backward); then K9's own entry point,
+              ``flash_attention`` forward and backward through autograd
+              at B = 16 in bf16, with its launches counted;
 4. serve    — the full-width multimodal model (ResNet50 + ViT-B/16, random
               weights from a seeded generator) behind Trainer +
               ServingEngine(max_batch=8) in bf16: 24 requests from 3
@@ -59,8 +70,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               cuDNN fp32 blocks (``block_impl="flax"``, TF32 off); the
               bf16 eval step at batch 8 with fused and with cuDNN blocks,
               and a profile of the fused steps (device busy, idle share);
-8. the kernels' JSON line (times, bounds, launches), then the device JSON
-   line last.
+8. flax serve — the full-width thermal_only ViT-B/16 with the flax blocks
+              (``block_impl="flax", attention_impl="pallas"``, seeded
+              weights) behind ``ServingEngine(max_batch=8)`` in bf16: 24
+              requests from 3 threads, 12 K6 forward launches per batch
+              and none of the fused, int8 or ResNet kernels; card fp32
+              against the CPU's plain fp32 path and against the card's
+              fused blocks on the same weights, card bf16 against CPU fp32
+              with every prediction equal; the bf16 eval step at batch 8
+              with flax/pallas, flax/xla and fused blocks;
+9. flax train — the same model from ``recipe_trainer(..., "flax",
+              "pallas")``: 8 bf16 steps of ``run_train_epoch`` at batch 16
+              (step ms, images/s, peak memory, 12 K6 forward and 12 K6
+              backward launches per step and none of K1, K2, K4, K5), then
+              a card fp32 step against the CPU's plain fp32 step at phase
+              5's budgets;
+then the kernels' JSON line (times, bounds, launches, the SDPA times),
+and the device JSON line last.
 
 Exits non-zero with no result line when no CUDA device is present.
 """
@@ -77,6 +103,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -444,6 +471,135 @@ def phase_resnet_kernels(dev) -> dict:
     return main
 
 
+
+# --------------------------------------------------------------- phase 3e
+
+ATTN_BATCHES = (8, 16, 128)      # serving 8, training 16, a large batch
+# (B, heads, N, D) of the small cases: the scale d**-0.5 is no power of
+# two at D = 8 and 32, so the scores are scaled after the product
+ATTN_SMALL = ((2, 4, 40, 8), (2, 4, 40, 32))
+
+
+def _turns(a, b):
+    """Mean ms per call of ``a`` and of ``b``, timed in turns a, b, b, a."""
+    a1, b1 = cuda_ms(a), cuda_ms(b)
+    b2, a2 = cuda_ms(b), cuda_ms(a)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def _sdpa_fwd_bwd(q, k, v, do):
+    """SDPA forward + backward: (dq, dk, dv) of <SDPA(q, k, v), do>."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    return torch.autograd.grad(F.scaled_dot_product_attention(q, k, v),
+                               (q, k, v), do)
+
+
+def _attention_case(g, b, heads, n, d, dtype) -> dict:
+    """K6 and K9, forward and backward, against their plain versions on
+    one shape, each row with SDPA's time on the same operands."""
+    c = heads * d
+    tol = KERNEL_TOL[dtype]
+    tag = f"{str(dtype).split('.')[1]} B={b} N={n} H={heads} D={d}"
+    qkv = _randn(g, b, n, 3 * c, dtype=dtype)
+    do = _randn(g, b, n, c, dtype=dtype)
+    q6, k6, v6 = at._unpack(qkv, heads)           # strided (B, H, N, D)
+    do6 = do.view(b, n, heads, d).transpose(1, 2)
+    q, k, v, do9 = (_randn(g, b, heads, n, d, dtype=dtype) for _ in range(4))
+    res = {
+        "qkv_attention_fwd": _check_and_time(
+            f"qkv_attention_fwd {tag}", lambda: at.qkv_attention_fwd(qkv,
+                                                                     heads),
+            lambda: at.qkv_attention_ref(qkv, heads), tol),
+        "qkv_attention_bwd": _check_and_time(
+            f"qkv_attention_bwd {tag}",
+            lambda: at.qkv_attention_bwd(qkv, do, heads),
+            lambda: at.qkv_attention_bwd_ref(qkv, do, heads), tol),
+        "flash_attention_fwd": _check_and_time(
+            f"flash_attention_fwd {tag}",
+            lambda: at.flash_attention_fwd(q, k, v),
+            lambda: at.flash_attention_ref(q, k, v), tol),
+        "flash_attention_bwd": _check_and_time(
+            f"flash_attention_bwd {tag}",
+            lambda: at.flash_attention_bwd(q, k, v, do9),
+            lambda: at.flash_attention_bwd_ref(q, k, v, do9), tol)}
+    # SDPA in turns with the kernels: a forward row beside one SDPA call;
+    # a backward row's forward + backward beside SDPA forward + backward
+    # (a backward needs the forward's statistics, so no single call
+    # computes it: its library_ms stays null)
+    pairs = {
+        "qkv_attention_fwd": (
+            lambda: at.qkv_attention_fwd(qkv, heads),
+            lambda: F.scaled_dot_product_attention(q6, k6, v6)),
+        "flash_attention_fwd": (
+            lambda: at.flash_attention_fwd(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v)),
+        "qkv_attention_bwd": (
+            lambda: (at.qkv_attention_fwd(qkv, heads),
+                     at.qkv_attention_bwd(qkv, do, heads)),
+            lambda: _sdpa_fwd_bwd(q6, k6, v6, do6)),
+        "flash_attention_bwd": (
+            lambda: (at.flash_attention_fwd(q, k, v),
+                     at.flash_attention_bwd(q, k, v, do9)),
+            lambda: _sdpa_fwd_bwd(q, k, v, do9))}
+    for name, (kernel, library) in pairs.items():
+        k_ms, l_ms = _turns(kernel, library)
+        if name.endswith("_fwd"):
+            res[name]["library_ms"] = l_ms
+            log(f"[attention] {name} {tag}: kernel {k_ms:.4f} ms, SDPA "
+                f"{l_ms:.4f} ms")
+        else:
+            res[name].update(library_ms=None, fwd_bwd_ms=k_ms,
+                             library_fwd_bwd_ms=l_ms)
+            log(f"[attention] {name} {tag}: kernel forward + backward "
+                f"{k_ms:.4f} ms, SDPA forward + backward {l_ms:.4f} ms")
+    return res
+
+
+def phase_attention_kernels(dev) -> tuple:
+    """K6 and K9 against their plain versions at ViT-B/16's attention,
+    then K9's entry point through autograd.  Returns (the rows at the
+    paths' shapes: forward at B = 8, backward at B = 16, bf16; K9's
+    launch counts)."""
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in ATTN_BATCHES:
+            g = torch.Generator(device=dev).manual_seed(5000 + b)
+            res = _attention_case(g, b, 12, 197, 64, dtype)
+            if dtype == torch.bfloat16 and b == 8:    # the serving shape
+                main.update((k, v) for k, v in res.items()
+                            if k.endswith("_fwd"))
+            if dtype == torch.bfloat16 and b == TRAIN_BATCH:
+                main.update((k, v) for k, v in res.items()
+                            if k.endswith("_bwd"))
+            torch.cuda.empty_cache()
+        for shape in ATTN_SMALL:
+            g = torch.Generator(device=dev).manual_seed(5500 + shape[-1])
+            _attention_case(g, *shape, dtype)
+
+    # K9 is on no model path: its path is its own trainable entry point
+    g = torch.Generator(device=dev).manual_seed(5900)
+    q, k, v = (_randn(g, TRAIN_BATCH, 12, 197, 64, dtype=torch.bfloat16
+                      ).requires_grad_() for _ in range(3))
+    do = _randn(g, TRAIN_BATCH, 12, 197, 64, dtype=torch.bfloat16)
+    _reset_launches()
+    at.flash_attention(q, k, v).backward(do)
+    torch.cuda.synchronize(dev)
+    launches = {"flash_attention_fwd": at.flash_attention_fwd.launches,
+                "flash_attention_bwd": at.flash_attention_bwd.launches}
+    log(f"[attention] flash_attention forward + backward through autograd "
+        f"at B={TRAIN_BATCH} bf16: launches {launches}")
+    if launches != {"flash_attention_fwd": 1, "flash_attention_bwd": 1}:
+        raise AssertionError(f"flash_attention launches {launches}")
+    grads = at.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                       do)
+    for t, ref in zip((q, k, v), grads):
+        a, _ = max_errors(t.grad, ref)
+        if a > KERNEL_TOL[torch.bfloat16] * (1 + float(ref.float().abs(
+                ).max())):
+            raise AssertionError(f"flash_attention gradient off by {a}")
+    return main, launches
+
+
 # ---------------------------------------------------------------- phase 4
 
 N_REQUESTS, N_THREADS, IMAGE = 24, 3, 224
@@ -594,15 +750,21 @@ TRAIN_KERNELS = ("attn_block", "mlp_block", "mlp_block_bwd",
 
 
 def _train_launches() -> dict:
+    """The launch counts of every kernel a thermal_only train step may
+    run: the fused blocks' (K1, K2, K4, K5) and the flax blocks' (K6)."""
     return {"attn_block": vb.attn_block.launches,
             "mlp_block": vb.mlp_block.launches,
             "mlp_block_bwd": vb.mlp_block_bwd.launches,
-            "qkv_attention_fwdbwd": at.qkv_attention_fwdbwd.launches}
+            "qkv_attention_fwdbwd": at.qkv_attention_fwdbwd.launches,
+            "qkv_attention_fwd": at.qkv_attention_fwd.launches,
+            "qkv_attention_bwd": at.qkv_attention_bwd.launches}
 
 
 def _reset_launches() -> None:
     vb.attn_block.launches = vb.mlp_block.launches = 0
     vb.mlp_block_bwd.launches = at.qkv_attention_fwdbwd.launches = 0
+    at.qkv_attention_fwd.launches = at.qkv_attention_bwd.launches = 0
+    at.flash_attention_fwd.launches = at.flash_attention_bwd.launches = 0
     fm.fused_mlp.launches = 0
     q8.attn_block_q8.launches = q8.mlp_block_q8.launches = 0
     q8.attn_block_q8s.launches = q8.mlp_block_q8s.launches = 0
@@ -638,18 +800,11 @@ def _neutral_thermal():
     return dataclasses.replace(thermal_modality(), augment=aug)
 
 
-def phase_train(dev) -> dict:
-    images, labels = synthetic_thermal(TRAIN_IMAGES)
-    data = ArrayDataset({"thermal": images}, labels)
-    weights = class_weights_from_labels(labels)
-    tr = recipe_trainer(dev, labels)
-    cfg = tr.cfg
-    n_params = zoo.param_count(tr.module)
-    log(f"[train] thermal_only at {IMAGE}x{IMAGE}: {n_params:,} params on "
-        f"{dev}, compute bfloat16, batch {TRAIN_BATCH}, lr "
-        f"{cfg.learning_rate:g}, AdamW mu {cfg.optimizer_mu_dtype}")
-    if n_params != TRAIN_PARAMS:
-        raise AssertionError(f"param count {n_params} != {TRAIN_PARAMS:,}")
+def _train_run(tag, dev, tr, data, labels) -> tuple:
+    """A warm-up step on the first batch, then one epoch of
+    ``run_train_epoch`` (8 steps) with every launch count set to 0 just
+    before it; logs step ms, images/s, peak memory and the losses.
+    Returns (the launch counts of the epoch, its step count)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     first = {"thermal": data.arrays["thermal"][:TRAIN_BATCH],
              "label": labels[:TRAIN_BATCH],
@@ -657,7 +812,7 @@ def phase_train(dev) -> dict:
     t0 = time.perf_counter()
     tr.train_step(first, gen)                 # warm-up: optimizer, handles
     torch.cuda.synchronize(dev)
-    log(f"[train] warm-up step {1e3 * (time.perf_counter() - t0):.1f} ms")
+    log(f"[{tag}] warm-up step {1e3 * (time.perf_counter() - t0):.1f} ms")
 
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_launches()
@@ -669,31 +824,65 @@ def phase_train(dev) -> dict:
     steps = len(meter.ms)
     steady = meter.ms[1:]
     mean_ms = sum(steady) / len(steady)
-    log(f"[train] {steps} steps, step ms "
+    log(f"[{tag}] {steps} steps, step ms "
         f"{[round(m, 3) for m in meter.ms]}; mean of steps 2-{steps} "
         f"{mean_ms:.3f} ms = {1e3 * TRAIN_BATCH / mean_ms:.1f} images/s; "
         f"peak device memory {peak / 2**20:.1f} MiB")
-    log(f"[train] loss per step {[round(x, 5) for x in meter.losses]}; "
+    log(f"[{tag}] loss per step {[round(x, 5) for x in meter.losses]}; "
         f"epoch loss {epoch.loss:.5f} acc {epoch.accuracy:.4f} "
         f"f1 {epoch.f1:.4f}")
-    log(f"[train] launches {launches}")
+    log(f"[{tag}] launches {launches}")
     if steps != TRAIN_IMAGES // TRAIN_BATCH:
         raise AssertionError(f"{steps} steps, expected "
                              f"{TRAIN_IMAGES // TRAIN_BATCH}")
     if not all(np.isfinite(meter.losses)):
         raise AssertionError(f"non-finite loss: {meter.losses}")
-    want = {k: 12 * steps for k in TRAIN_KERNELS}
+    return launches, steps
+
+
+def _train_data():
+    images, labels = synthetic_thermal(TRAIN_IMAGES)
+    return (ArrayDataset({"thermal": images}, labels), labels,
+            class_weights_from_labels(labels))
+
+
+def _check_train_trainer(tag, tr, dev) -> None:
+    cfg = tr.cfg
+    n_params = zoo.param_count(tr.module)
+    log(f"[{tag}] thermal_only at {IMAGE}x{IMAGE}: {n_params:,} params on "
+        f"{dev}, compute bfloat16, blocks "
+        f"{type(tr.module.vit.blocks[0]).__name__}, batch {TRAIN_BATCH}, "
+        f"lr {cfg.learning_rate:g}, AdamW mu {cfg.optimizer_mu_dtype}")
+    if n_params != TRAIN_PARAMS:
+        raise AssertionError(f"param count {n_params} != {TRAIN_PARAMS:,}")
+
+
+def phase_train(dev) -> dict:
+    data, labels, weights = _train_data()
+    tr = recipe_trainer(dev, labels)
+    _check_train_trainer("train", tr, dev)
+    launches, steps = _train_run("train", dev, tr, data, labels)
+    want = {k: 12 * steps if k in TRAIN_KERNELS else 0 for k in launches}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
+    _fp32_step_vs_cpu("train", dev, tr, data, labels, weights)
+    return launches
 
-    # one fp32 step on the card against the CPU's plain fp32 step
+
+def _fp32_step_vs_cpu(tag, dev, tr, data, labels, weights,
+                      **model_kw) -> None:
+    """One fp32 train step on the card against the CPU's plain fp32 step
+    on ``tr``'s weights and the first 4 images of ``data``: each
+    parameter's gradient within GRAD_TOL of its own max|g|, the params
+    after AdamW within 2·lr, the loss within 1e-4 relative and the
+    confusion counts equal."""
     cfg32 = TrainConfig(batch_size=4, compute_dtype="float32",
                         optimizer_mu_dtype="float32", drop_rate=0.0)
     mods = {"thermal": _neutral_thermal()}
     card = Trainer("thermal_only", cfg32, mods, class_weights=weights,
-                   device=dev, image_size=IMAGE)
+                   device=dev, image_size=IMAGE, **model_kw)
     cpu = Trainer("thermal_only", cfg32, mods, class_weights=weights,
-                  device="cpu", image_size=IMAGE)
+                  device="cpu", image_size=IMAGE, **model_kw)
     state = {k: v.detach().cpu() for k, v in tr.variables().items()}
     card.module.load_state_dict(state)
     cpu.module.load_state_dict(state)
@@ -715,15 +904,15 @@ def phase_train(dev) -> dict:
     ok = (max(g_rel.values()) <= GRAD_TOL and p_err <= 2 * lr
           and loss_rel <= 1e-4
           and torch.equal(out_card["counts"].cpu(), out_cpu["counts"]))
-    log(f"[train] card fp32 vs CPU fp32 step: loss {loss_card:.6f} vs "
+    log(f"[{tag}] card fp32 vs CPU fp32 step: loss {loss_card:.6f} vs "
         f"{loss_cpu:.6f} (rel {loss_rel:.2e}, tol 1e-4); grad max|d| per "
         f"parameter / its max|g|, worst {len(worst)} of {len(g_rel)}: "
         f"{ {k: f'{g_rel[k]:.3e}' for k in worst} } (tol {GRAD_TOL:g}); "
         f"param max|d| after AdamW {p_err:.3e} (tol 2*lr = {2 * lr:g}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("card fp32 train step disagrees with the CPU")
-    return launches
+        raise AssertionError(f"[{tag}] card fp32 train step disagrees with "
+                             "the CPU")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -749,10 +938,12 @@ def _q8_launches() -> dict:
             "mlp_block": vb.mlp_block.launches}
 
 
-def _thermal(dtype: str, device, block_impl: str = "fused") -> Trainer:
+def _thermal(dtype: str, device, block_impl: str = "fused",
+             attention_impl: str = "auto") -> Trainer:
     return Trainer("thermal_only", TrainConfig(compute_dtype=dtype),
                    {"thermal": thermal_modality()}, device=device,
-                   image_size=IMAGE, block_impl=block_impl)
+                   image_size=IMAGE, block_impl=block_impl,
+                   attention_impl=attention_impl)
 
 
 def _int8_vs_cpu(tag, served, block_impl, batches) -> None:
@@ -951,36 +1142,159 @@ def phase_rgb(dev) -> dict:
     cudnn16 = _rgb("bfloat16", dev, "flax")
     cudnn16.module.load_state_dict(state)
     for name, trainer in (("fused", served), ("cuDNN", cudnn16)):
-        trainer.eval_step(batches[0])                         # warm-up
-        ms = []
-        for b in batches:
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            trainer.eval_step(b)
-            torch.cuda.synchronize(dev)
-            ms.append(1e3 * (time.perf_counter() - t0))
         log(f"[rgb] eval step ms at batch 8, bf16, {name} blocks: "
-            f"{[round(m, 3) for m in ms]}")
+            f"{[round(m, 3) for m in _eval_ms(trainer, batches, dev)]}")
+    # the rgb path's only kernels of the port's own are K11's launches
+    _profile_eval("rgb", served, batches, dev, "K11")
+    return counts
+
+
+def _eval_ms(trainer, batches, dev) -> list:
+    """Host-clock ms of each batch's eval step (synchronised), after a
+    warm-up step."""
+    trainer.eval_step(batches[0])
+    ms = []
+    for b in batches:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        trainer.eval_step(b)
+        torch.cuda.synchronize(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms
+
+
+def _profile_eval(tag, trainer, batches, dev, own: str) -> None:
+    """Eval steps under torch.profiler: host ms per step, the device's
+    busy time split into the port's own kernels (``own``; every port
+    kernel's name starts in ``dfu::``) and the others, and the idle
+    share."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in batches:
-            served.eval_step(b)
+            trainer.eval_step(b)
         torch.cuda.synchronize(dev)
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    # the rgb path's only kernels of the port's own are K11's launches
     busy = {k: sum(e.self_device_time_total for e in kernels
-                   if ("dfu::" in e.key) == (k == "K11")) / 1e3
-            for k in ("K11", "other")}
+                   if ("dfu::" in e.key) == (k == own)) / 1e3
+            for k in (own, "other")}
     n = len(batches)
-    log(f"[rgb] profiled fused eval steps: host {wall_ms / n:.3f} ms per "
-        f"step; device busy {sum(busy.values()) / n:.3f} ms (K11's "
-        f"launches {busy['K11'] / n:.3f}, other kernels "
+    log(f"[{tag}] profiled eval steps: host {wall_ms / n:.3f} ms per "
+        f"step; device busy {sum(busy.values()) / n:.3f} ms ({own}'s "
+        f"launches {busy[own] / n:.3f}, other kernels "
         f"{busy['other'] / n:.3f}); idle share "
         f"{1.0 - sum(busy.values()) / wall_ms:.4f}")
-    return counts
+
+
+# ---------------------------------------------------------------- phase 8
+
+# card fp32 flax blocks vs card fp32 fused blocks (K1/K2) on the same
+# weights: both exact-erf GELU and fp32 throughout; they differ in sum
+# order and in where the softmax divides (K1 after P·V, K6 before)
+FLAX_FUSED_TOL = {"logits": 1e-4, "probs": 1e-5}
+
+
+def _all_launches() -> dict:
+    """Every kernel's launch count."""
+    return {**_train_launches(), **_q8_launches(), **_resnet_launches(),
+            "fused_mlp": fm.fused_mlp.launches,
+            "flash_attention_fwd": at.flash_attention_fwd.launches,
+            "flash_attention_bwd": at.flash_attention_bwd.launches}
+
+
+def phase_flax_serve(dev) -> dict:
+    """Serving of the full-width thermal_only ViT-B/16 with the flax blocks
+    and the packed-qkv attention kernel K6.  Returns K6's forward
+    launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False    # fp32 is compared
+    served = _thermal("bfloat16", dev, "flax", "pallas")
+    zoo.init_model(served.module, torch.Generator(device=dev).manual_seed(0))
+    n_params = zoo.param_count(served.module)
+    log(f"[flax serve] thermal_only at {IMAGE}x{IMAGE}: {n_params:,} params "
+        f"on {dev}, compute bfloat16, blocks "
+        f"{type(served.module.vit.blocks[0]).__name__}, attention "
+        f"{served.module.vit.blocks[0].attn.attention_impl}")
+    if n_params != TRAIN_PARAMS:
+        raise AssertionError(f"param count {n_params} != {TRAIN_PARAMS:,}")
+    images, _ = synthetic_thermal(N_REQUESTS, seed=5)
+    samples = [{"thermal": im} for im in images]
+    batches = [{"thermal": images[i:i + 8]} for i in range(0, N_REQUESTS, 8)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine = ServingEngine(served, image_size=IMAGE, max_batch=8)
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize(dev)
+    log(f"[flax serve] warmup of buckets {engine.buckets}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    results, stats = _drive(engine, samples, "flax serve")
+    launches = _all_launches()
+    n_batches = sum(stats["batch_size_hist"].values())
+    log(f"[flax serve] peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB; launches "
+        f"{launches}")
+    want = {k: 0 for k in launches}
+    want["qkv_attention_fwd"] = 12 * n_batches
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+
+    # the card (fp32 and the served bf16) against the CPU's plain fp32
+    # path, and the card's flax fp32 against its fused fp32 blocks
+    state = {k: v.detach().cpu() for k, v in served.variables().items()}
+    trainers = {}
+    for name, dtype, device, block_impl, attention_impl in (
+            ("cpu", "float32", "cpu", "flax", "pallas"),
+            ("flax32", "float32", dev, "flax", "pallas"),
+            ("fused32", "float32", dev, "fused", "auto"),
+            ("xla16", "bfloat16", dev, "flax", "xla"),
+            ("fused16", "bfloat16", dev, "fused", "auto")):
+        trainers[name] = _thermal(dtype, device, block_impl, attention_impl)
+        trainers[name].module.load_state_dict(state)
+    ref = torch.cat([_logits(trainers["cpu"], b) for b in batches])
+    _compare("[flax serve] card flax float32 vs CPU float32",
+             trainers["flax32"], ref, batches, SLICE_TOL["float32"])
+    fused = torch.cat([_logits(trainers["fused32"], b) for b in batches])
+    _compare("[flax serve] card flax float32 vs card fused float32 (K1/K2)",
+             trainers["flax32"], fused, batches, FLAX_FUSED_TOL)
+    _compare("[flax serve] card flax bfloat16 (served) vs CPU float32",
+             served, ref, batches, SLICE_TOL["bfloat16"])
+    preds = torch.tensor([pred for _, pred in results])
+    agree = int((preds == ref.argmax(-1)).sum())
+    margin = float((ref[:, 1] - ref[:, 0]).abs().min())
+    log(f"[flax serve] served predictions equal to the CPU float32 ones: "
+        f"{agree}/{N_REQUESTS} (smallest CPU logit margin {margin:.3e})")
+    if agree != N_REQUESTS:
+        raise AssertionError("served bf16 predictions differ from the CPU's")
+
+    # the bf16 eval step at batch 8 on the same weights, in turns
+    impls = (("flax/pallas", served), ("flax/xla", trainers["xla16"]),
+             ("fused", trainers["fused16"]))
+    for name, trainer in impls + impls[::-1]:
+        log(f"[flax serve] eval step ms at batch 8, bf16, {name} blocks: "
+            f"{[round(m, 3) for m in _eval_ms(trainer, batches, dev)]}")
+    _profile_eval("flax serve", served, batches, dev, "K6")
+    return {"qkv_attention_fwd": launches["qkv_attention_fwd"]}
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+def phase_flax_train(dev) -> dict:
+    """Training of the full-width thermal_only ViT-B/16 with the flax
+    blocks: K6 forward and backward on every block.  Returns K6's
+    backward launches."""
+    data, labels, weights = _train_data()
+    tr = recipe_trainer(dev, labels, "flax", "pallas")
+    _check_train_trainer("flax train", tr, dev)
+    launches, steps = _train_run("flax train", dev, tr, data, labels)
+    want = {k: 0 for k in launches}
+    want.update(qkv_attention_fwd=12 * steps, qkv_attention_bwd=12 * steps)
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    _fp32_step_vs_cpu("flax train", dev, tr, data, labels, weights,
+                      block_impl="flax", attention_impl="pallas")
+    return {"qkv_attention_bwd": launches["qkv_attention_bwd"]}
 
 
 # ---------------------------------------------------------------- bounds
@@ -1014,10 +1328,13 @@ def _bottleneck_bound(b, hw, cin, cmid, cout) -> dict:
 
 
 def kernel_bounds() -> dict:
-    """Bounds at each kernel's path shape: K1-K2 and the int8 blocks at
-    the serving batch 8, K3 at batch 8 in fp32, K4-K5 at the training
-    batch 16, ViT-B/16; K11 at batch 8, ResNet-50 stage 3 (identity) and
-    stage 1 block 0 (projection)."""
+    """Bounds at each kernel's path shape: K1-K2, the int8 blocks and the
+    K6/K9 forwards at the serving batch 8, K3 at batch 8 in fp32, K4-K5
+    and the K6/K9 backwards at the training batch 16, ViT-B/16; K11 at
+    batch 8, ResNet-50 stage 3 (identity) and stage 1 block 0
+    (projection).  K6/K9 forward: q·kᵀ and P·V, q, k, v read and o
+    written; backward: five products, q, k, v and dO read and dq, dk,
+    dv written."""
     n, c, hid, heads = 197, 768, 3072, 12
     bf, f32 = 2, 4
     r8, r16 = 8 * n, TRAIN_BATCH * n
@@ -1048,13 +1365,21 @@ def kernel_bounds() -> dict:
         "qkv_attention_fwdbwd": _bound(
             {torch.bfloat16: 12 * TRAIN_BATCH * n * n * c},
             8 * r16 * c * bf),
+        "qkv_attention_fwd": _bound({torch.bfloat16: attn_flops},
+                                    4 * r8 * c * bf),
+        "qkv_attention_bwd": _bound(
+            {torch.bfloat16: 10 * TRAIN_BATCH * n * n * c},
+            7 * r16 * c * bf),
         "attn_block_q8": _bound(*attn_q8),
         "mlp_block_q8": _bound(*mlp_q8),
         "attn_block_q8s": _bound(attn_q8[0], attn_q8[1] + 2 * f32),
         "mlp_block_q8s": _bound(mlp_q8[0], mlp_q8[1] + 2 * f32),
         "bottleneck": _bottleneck_bound(8, 14, 1024, 256, 1024),
         "bottleneck_proj": _bottleneck_bound(8, 56, 64, 64, 256),
-    }
+    } | {f"flash_attention_{p}": bounds for p, bounds in (
+        ("fwd", _bound({torch.bfloat16: attn_flops}, 4 * r8 * c * bf)),
+        ("bwd", _bound({torch.bfloat16: 10 * TRAIN_BATCH * n * n * c},
+                       7 * r16 * c * bf)))}
 
 
 def main() -> int:
@@ -1068,11 +1393,15 @@ def main() -> int:
     times.update(phase_backward_kernels(dev))
     times.update(phase_q8_kernels(dev))
     times.update(phase_resnet_kernels(dev))
-    launches = phase_slice(dev)
+    attention, launches = phase_attention_kernels(dev)
+    times.update(attention)
+    launches.update(phase_slice(dev))
     launches.update({k: v for k, v in phase_train(dev).items()
                      if k in ("mlp_block_bwd", "qkv_attention_fwdbwd")})
     launches.update(phase_int8(dev))
     launches.update(phase_rgb(dev))
+    launches.update(phase_flax_serve(dev))
+    launches.update(phase_flax_train(dev))
     for mod in ("jax", "dfu_multimodal_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"the port imported {mod}")
@@ -1083,17 +1412,23 @@ def main() -> int:
         "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:27"),
         "mlp_block_bwd": ("vit_block.cu", "vit_block.py:652"),
         "qkv_attention_fwdbwd": ("attention.cu", "attention.py:334"),
+        "qkv_attention_fwd": ("attention.cu", "attention.py:208"),
+        "qkv_attention_bwd": ("attention.cu", "attention.py:222"),
         "attn_block_q8": ("vit_block_q8.cu", "vit_block_q8.py:70"),
         "mlp_block_q8": ("vit_block_q8.cu", "vit_block_q8.py:107"),
         "attn_block_q8s": ("vit_block_q8.cu", "vit_block_q8.py:157"),
         "mlp_block_q8s": ("vit_block_q8.cu", "vit_block_q8.py:202"),
+        "flash_attention_fwd": ("attention.cu", "attention.py:73"),
+        "flash_attention_bwd": ("attention.cu", "attention.py:88"),
         "bottleneck": ("resnet_block.cu", "resnet_block.py:108"),
         "bottleneck_proj": ("resnet_block.cu", "resnet_block.py:130")}
+    # library_ms: SDPA's time where one call computes the kernel's
+    # function (the K6/K9 forwards), else null
     kernels = [{"name": k, "route": "cuda",
                 "source": f"dfu_multimodal_tpu_torch/ops/csrc/{src}",
                 "replaces": f"dfu_multimodal_tpu/ops/{tpu}",
-                "launches": launches[k], **times[k], **bounds[k],
-                "library_ms": None}
+                "launches": launches[k], "library_ms": None, **times[k],
+                **bounds[k]}
                for k, (src, tpu) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

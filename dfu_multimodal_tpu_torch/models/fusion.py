@@ -57,15 +57,20 @@ class FusionMLP(nn.Sequential):
 
 class MultimodalFusionClassifier(nn.Module):
     """Late fusion of ResNet50 (RGB) and ViT-B/16 (thermal); inputs are
-    NHWC images already normalised, returns (B, num_classes) logits."""
+    NHWC images already normalised, returns (B, num_classes) logits.
+    ``block_impl`` and ``attention_impl`` go to the thermal branch's ViT,
+    as in the JAX fusion model."""
 
     def __init__(self, num_classes: int = 2, drop_rate: float = 0.5,
                  dtype: Union[str, torch.dtype] = torch.float32,
-                 image_size: int = 224):
+                 image_size: int = 224, block_impl: str = "fused",
+                 attention_impl: str = "auto"):
         super().__init__()
         dtype = canonical_dtype(dtype)
         self.rgb_branch = ResNet50(dtype=dtype)
-        self.thermal_branch = ViTBase16(dtype=dtype, image_size=image_size)
+        self.thermal_branch = ViTBase16(dtype=dtype, image_size=image_size,
+                                        block_impl=block_impl,
+                                        attention_impl=attention_impl)
         self.fusion = FusionMLP(2048 + 768, num_classes, drop_rate)
 
     def forward(self, rgb: torch.Tensor,

@@ -1,47 +1,61 @@
 """ViT-B/16 in PyTorch, timm key layout, blocks on the port's kernels.
 
-Counterpart of ``dfu_multimodal_tpu/models/vit.py`` (``ViT`` with the fused
-block paths, ``ViTClassifier`` and the int8 converters): 224x224 -> 14x14
-patches + CLS = 197 tokens, 12 pre-LN encoder blocks, 12 heads, MLP ratio
-4, CLS-token features.
+Counterpart of ``dfu_multimodal_tpu/models/vit.py`` (``ViT`` with the flax
+and fused block paths, ``ViTClassifier`` and the int8 converters):
+224x224 -> 14x14 patches + CLS = 197 tokens, 12 pre-LN encoder blocks, 12
+heads, MLP ratio 4, CLS-token features.
 
 ``block_impl`` picks the encoder block:
 
 - ``"fused"`` (default): the trainable ``ops.vit_block.AttnBlock`` and
   ``MlpBlock`` (forward kernels K1/K2; backward K5/K4 in the hand chain
   rules, rematerialised from the block inputs);
+- ``"flax"``: the unfused block (:class:`EncoderBlock`): LayerNorm and
+  the Linears as PyTorch ops, attention by ``attention_impl`` —
+  ``"pallas"`` (what ``"auto"`` resolves to) runs the trainable packed-qkv
+  kernel ``ops.attention.qkv_attention`` (K6 forward and backward),
+  ``"xla"`` plain softmax attention in PyTorch ops (:func:`xla_attention`);
 - ``"fused_q8"``: the serving-only int8 blocks of ``ops.vit_block_q8``
   with dynamic per-row activation scales (K7);
 - ``"fused_q8s"``: the same with calibrated static activation scales (K8).
 
-fp32 parameters are in timm's layout (``patch_embed.proj`` conv-shaped,
-``blocks.{i}.norm1/attn.qkv/attn.proj/norm2/mlp.fc1/mlp.fc2``, ``norm``);
-compute runs in ``dtype``.  Every fused forward transposes the Linear
-weights to the kernels' (in, out) layout and casts them to the compute
-dtype — one copy of the trunk's weights per call.  The copy is
-differentiable (JAX's ``astype`` VJP): a weight gradient computed in the
-compute dtype reaches the fp32 parameter through it, so a bf16 step rounds
-weight gradients to bf16 first, as the JAX package does.  The int8 blocks
-hold their weights as buffers already in the kernels' (in, out) int8
-layout, quantised once at load (:func:`quantize_variables`), and copy
-nothing per call.
+Every block declares the same keys: fp32 parameters in timm's layout
+(``patch_embed.proj`` conv-shaped, ``blocks.{i}.norm1/attn.qkv/attn.proj/
+norm2/mlp.fc1/mlp.fc2``, ``norm``; the int8 blocks hold ``kernel_q8`` and
+``scale`` for a Linear's ``weight``), so one checkpoint loads into the
+flax and the fused blocks alike.  Compute runs in ``dtype``.  The fused
+and flax forwards cast the Linear weights to the compute dtype per call
+(the fused one also transposes them to the kernels' (in, out) layout) —
+one copy of the trunk's weights per call.  The copy is differentiable
+(JAX's ``astype`` VJP): a weight gradient computed in the compute dtype
+reaches the fp32 parameter through it, so a bf16 step rounds weight
+gradients to bf16 first, as the JAX package does.  The int8 blocks hold
+their weights as buffers already in the kernels' (in, out) int8 layout,
+quantised once at load (:func:`quantize_variables`), and copy nothing per
+call.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping, Optional, Sequence, Union
+from typing import (Dict, Iterable, List, Mapping, Optional, Sequence,
+                    Union)
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from dfu_multimodal_tpu_torch.models.common import canonical_dtype, dropout
+from dfu_multimodal_tpu_torch.ops.attention import qkv_attention
 from dfu_multimodal_tpu_torch.ops.vit_block import AttnBlock, MlpBlock
 from dfu_multimodal_tpu_torch.ops.vit_block_q8 import (
     attn_block_q8, attn_block_q8s, mlp_block_q8, mlp_block_q8s, over_qmax,
     quantize_weight)
 
 LN_EPS = 1e-6
+# the calibration point whose absmax scales each dense layer's input
+CALIBRATION_POINTS = ("ln1_out", "proj_in", "ln2_out", "gelu_out")
+# a forward's calibration record: max|·| of each point, one entry a block
+Calibration = Dict[str, List[torch.Tensor]]
 
 
 def _in_out(linear: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -52,6 +66,50 @@ def _in_out(linear: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
                        device=w.device).copy_(w.t())
 
 
+def _linear(x: torch.Tensor, linear: nn.Linear,
+            dtype: torch.dtype) -> torch.Tensor:
+    """A Linear in the compute dtype (weights cast per call, as flax's
+    ``nn.Dense(dtype=...)`` does)."""
+    return F.linear(x, linear.weight.to(dtype), linear.bias.to(dtype))
+
+
+def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm,
+                dtype: torch.dtype) -> torch.Tensor:
+    """LayerNorm with fp32 statistics, output in the compute dtype."""
+    return F.layer_norm(x.float(), x.shape[-1:], norm.weight, norm.bias,
+                        LN_EPS).to(dtype)
+
+
+def _tap(calibration: Optional[Calibration], point: str,
+         t: torch.Tensor) -> torch.Tensor:
+    if calibration is not None:
+        calibration[point].append(t.float().abs().amax())
+    return t
+
+
+def xla_attention(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """Plain softmax attention in PyTorch ops, the JAX ``xla_attention``:
+    q, k, v (B, H, N, D) -> (B, H, N, D).  q is scaled in the compute
+    dtype, the scores accumulate in fp32, the softmax is fp32 and P is
+    cast to the compute dtype before P·V.  JAX runs this outside Pallas,
+    so it is no kernel's plain version and runs on any device."""
+    logits = torch.matmul((q * q.shape[-1] ** -0.5).float(),
+                          k.float().transpose(-1, -2))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(probs, v)
+
+
+def resolve_attention_impl(impl: str) -> str:
+    """``"auto"`` -> ``"pallas"`` (the port has no partitioner to keep a
+    kernel from); ``"xla"`` and ``"pallas"`` pass through."""
+    if impl == "auto":
+        return "pallas"
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown attention impl: {impl!r}")
+    return impl
+
+
 class Attention(nn.Module):
     """Parameter holder with timm's ``attn.qkv`` / ``attn.proj`` keys."""
 
@@ -59,6 +117,35 @@ class Attention(nn.Module):
         super().__init__()
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+
+
+class MultiHeadAttention(Attention):
+    """The flax block's attention (the JAX ``MultiHeadAttention``): the qkv
+    Linear, attention by ``attention_impl``, the output projection.
+    ``"pallas"`` runs the packed-qkv kernel on the (B, N, 3C) qkv output;
+    ``"xla"`` splits the heads and runs :func:`xla_attention`."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
+                 attention_impl: str = "auto"):
+        super().__init__(dim)
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.attention_impl = resolve_attention_impl(attention_impl)
+
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                calibration: Optional[Calibration] = None) -> torch.Tensor:
+        if bias is not None:
+            raise NotImplementedError("the ToMe key bias is not ported yet")
+        b, n, c = x.shape
+        qkv = _linear(x, self.qkv, self.dtype)
+        if self.attention_impl == "pallas":
+            out = qkv_attention(qkv, self.num_heads)
+        else:
+            q, k, v = qkv.reshape(b, n, 3, self.num_heads,
+                                  c // self.num_heads).permute(2, 0, 3, 1, 4)
+            out = xla_attention(q, k, v).transpose(1, 2).reshape(b, n, c)
+        return _linear(_tap(calibration, "proj_in", out), self.proj,
+                       self.dtype)
 
 
 class Mlp(nn.Module):
@@ -71,6 +158,32 @@ class Mlp(nn.Module):
 
 
 class EncoderBlock(nn.Module):
+    """The flax pre-LN encoder block (the JAX ``EncoderBlock``): LN1,
+    :class:`MultiHeadAttention`, residual, LN2, fc1, exact-erf GELU, fc2,
+    residual.  ``calibration`` records max|·| at the four int8
+    quantisation points (:data:`CALIBRATION_POINTS`)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
+                 dtype: torch.dtype, attention_impl: str = "auto"):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = MultiHeadAttention(dim, num_heads, dtype, attention_impl)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = Mlp(dim, mlp_ratio * dim)
+
+    def forward(self, x: torch.Tensor,
+                calibration: Optional[Calibration] = None) -> torch.Tensor:
+        dt = self.dtype
+        y = _tap(calibration, "ln1_out", _layer_norm(x, self.norm1, dt))
+        x = x + self.attn(y, calibration=calibration)
+        y = _tap(calibration, "ln2_out", _layer_norm(x, self.norm2, dt))
+        y = _tap(calibration, "gelu_out",
+                 F.gelu(_linear(y, self.mlp.fc1, dt)))
+        return x + _linear(y, self.mlp.fc2, dt)
+
+
+class FusedEncoderBlock(nn.Module):
     """Pre-LN encoder block computed by the attn/mlp block kernels."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
@@ -175,7 +288,8 @@ class StaticQuantizedEncoderBlock(QuantizedEncoderBlock):
 
 
 # block_impl -> encoder block class (the JAX ``ViT._resolve_block``)
-BLOCK_IMPLS = {"fused": EncoderBlock, "fused_q8": QuantizedEncoderBlock,
+BLOCK_IMPLS = {"flax": EncoderBlock, "fused": FusedEncoderBlock,
+               "fused_q8": QuantizedEncoderBlock,
                "fused_q8s": StaticQuantizedEncoderBlock}
 
 
@@ -203,35 +317,44 @@ class PatchEmbed(nn.Module):
 class ViT(nn.Module):
     """ViT trunk returning fp32 CLS features (B, hidden_dim).  The
     position-embedding length is fixed by ``image_size`` here (JAX infers
-    it from the init input).  ``block_impl``: ``"fused"``, ``"fused_q8"``
-    or ``"fused_q8s"`` (module docstring)."""
+    it from the init input).  ``block_impl``: ``"fused"``, ``"flax"``,
+    ``"fused_q8"`` or ``"fused_q8s"``; ``attention_impl`` (``"auto"``,
+    ``"pallas"``, ``"xla"``) is taken for every block impl, as in JAX, and
+    used by the flax block only (module docstring)."""
 
     def __init__(self, image_size: int = 224, patch_size: int = 16,
                  hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_ratio: int = 4,
                  dtype: Union[str, torch.dtype] = torch.float32,
-                 block_impl: str = "fused"):
+                 block_impl: str = "fused", attention_impl: str = "auto"):
         super().__init__()
         if block_impl not in BLOCK_IMPLS:
             raise ValueError(f"unknown block impl: {block_impl!r}")
+        attention_impl = resolve_attention_impl(attention_impl)
         self.dtype = canonical_dtype(dtype)
         tokens = (image_size // patch_size) ** 2 + 1
         self.patch_embed = PatchEmbed(patch_size, hidden_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, hidden_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, tokens, hidden_dim))
+        extra = ({"attention_impl": attention_impl}
+                 if block_impl == "flax" else {})
         self.blocks = nn.ModuleList(
             BLOCK_IMPLS[block_impl](hidden_dim, num_heads, mlp_ratio,
-                                    self.dtype)
+                                    self.dtype, **extra)
             for _ in range(depth))
         self.norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                calibration: Optional[Calibration] = None) -> torch.Tensor:
+        """x (B, H, W, 3) NHWC.  ``calibration`` (flax blocks only): a
+        record of :data:`CALIBRATION_POINTS` to lists, to which every block
+        appends its max|·| at each point."""
         dt = self.dtype
         x = self.patch_embed(x.to(dt))
         cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         for block in self.blocks:
-            x = block(x)
+            x = block(x) if calibration is None else block(x, calibration)
         # LayerNorm is per token: normalising only the CLS row is the
         # same as normalising all and taking row 0.
         cls = F.layer_norm(x[:, 0].float(), x.shape[-1:], self.norm.weight,
@@ -240,8 +363,10 @@ class ViT(nn.Module):
 
 
 def ViTBase16(dtype: Union[str, torch.dtype] = torch.float32,
-              image_size: int = 224) -> ViT:
-    return ViT(image_size=image_size, dtype=dtype)
+              image_size: int = 224, block_impl: str = "fused",
+              attention_impl: str = "auto") -> ViT:
+    return ViT(image_size=image_size, dtype=dtype, block_impl=block_impl,
+               attention_impl=attention_impl)
 
 
 class ViTClassifier(nn.Module):
@@ -282,8 +407,6 @@ class ViTClassifier(nn.Module):
 # the card is calibrated and quantised on the card.
 
 _DENSES = ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")
-# the calibration point whose absmax scales each dense layer's input
-CALIBRATION_POINTS = ("ln1_out", "proj_in", "ln2_out", "gelu_out")
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -352,71 +475,27 @@ def quantize_encoder_params(trunk: Mapping[str, torch.Tensor],
     return out
 
 
-@torch.no_grad()
-def _calibration_forward(trunk: Mapping[str, torch.Tensor], x: torch.Tensor,
-                         cfg: Mapping[str, int], dtype: torch.dtype
-                         ) -> StateDict:
-    """The blocks of the flax ``EncoderBlock`` trunk with
-    ``attention_impl="xla"`` in plain PyTorch ops (``F.layer_norm``,
-    ``torch.matmul``, softmax attention, exact GELU) in ``dtype``,
-    recording max|·| at each calibration point; returns (depth,) fp32 per
-    point.  JAX runs this forward outside Pallas, so it is no kernel's
-    plain version and runs on whatever device its tensors are on."""
-    p, hidden, heads = cfg["patch_size"], cfg["hidden_dim"], cfg["num_heads"]
-    d = hidden // heads
-    b, h, w, c = x.shape
-    gh, gw = h // p, w // p
-    x = x.to(dtype).reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
-    x = x.reshape(b, gh * gw, p * p * c)
-    kernel = trunk["patch_embed.proj.weight"].permute(2, 3, 1, 0)
-    x = (torch.matmul(x, kernel.reshape(p * p * c, -1).to(dtype))
-         + trunk["patch_embed.proj.bias"].to(dtype))
-    cls = trunk["cls_token"].to(dtype).expand(b, -1, -1)
-    x = torch.cat([cls, x], dim=1) + trunk["pos_embed"].to(dtype)
-    n = x.shape[1]
-    record: Dict[str, list] = {pt: [] for pt in CALIBRATION_POINTS}
-
-    def tap(point, t):
-        record[point].append(t.float().abs().amax())
-        return t
-
-    def dense(t, name):
-        return F.linear(t, trunk[f"{name}.weight"].to(dtype),
-                        trunk[f"{name}.bias"].to(dtype))
-
-    def norm(t, name):
-        return F.layer_norm(t.float(), (hidden,), trunk[f"{name}.weight"],
-                            trunk[f"{name}.bias"], LN_EPS).to(dtype)
-
-    for i in range(cfg["depth"]):
-        pre = f"blocks.{i}"
-        y = tap("ln1_out", norm(x, f"{pre}.norm1"))
-        qkv = dense(y, f"{pre}.attn.qkv").reshape(b, n, 3, heads, d)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        logits = torch.matmul((q * d ** -0.5).float(),
-                              k.float().transpose(-1, -2))
-        probs = torch.softmax(logits, dim=-1).to(dtype)
-        o = torch.matmul(probs, v).transpose(1, 2).reshape(b, n, hidden)
-        x = x + dense(tap("proj_in", o), f"{pre}.attn.proj")
-        y = tap("ln2_out", norm(x, f"{pre}.norm2"))
-        y = tap("gelu_out", F.gelu(dense(y, f"{pre}.mlp.fc1")))
-        x = x + dense(y, f"{pre}.mlp.fc2")
-    return {pt: torch.stack(v) for pt, v in record.items()}
-
-
 def calibrate_vit_absmax(trunk: Mapping[str, torch.Tensor],
                          batches: Iterable[torch.Tensor],
                          dtype: Union[str, torch.dtype] = torch.float32,
                          num_heads: Optional[int] = None) -> StateDict:
     """Run NORMALIZED image batches (B, H, W, 3) through the float trunk
-    (:func:`_calibration_forward`) and return the running max of each
-    calibration point, (depth,) fp32 each, which
-    :func:`quantize_encoder_params` consumes as ``act_absmax``.  The
+    — ``ViT(block_impl="flax", attention_impl="xla")`` on the trunk's
+    device, with a calibration record, as the JAX package does — and
+    return the running max of each calibration point, (depth,) fp32 each,
+    which :func:`quantize_encoder_params` consumes as ``act_absmax``.  The
     architecture is derived from ``trunk`` (any depth/width/patch size)."""
-    cfg = vit_config_from_params(trunk, num_heads)
+    with torch.device("meta"):
+        vit = ViT(dtype=dtype, block_impl="flax", attention_impl="xla",
+                  **vit_config_from_params(trunk, num_heads))
+    vit.to_empty(device=trunk["pos_embed"].device)
+    vit.load_state_dict(trunk, strict=True)
     merged = None
     for x in batches:
-        cal = _calibration_forward(trunk, x, cfg, canonical_dtype(dtype))
+        record: Calibration = {pt: [] for pt in CALIBRATION_POINTS}
+        with torch.no_grad():
+            vit(x, calibration=record)
+        cal = {pt: torch.stack(v) for pt, v in record.items()}
         merged = cal if merged is None else {
             pt: torch.maximum(merged[pt], cal[pt]) for pt in cal}
     if merged is None:

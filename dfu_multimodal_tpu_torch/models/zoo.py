@@ -52,9 +52,12 @@ def build(name: str, *, num_classes: int = 2,
           **kwargs) -> Tuple[nn.Module, ModelSpec]:
     """``drop_rate=None`` keeps the model class's own default.  Extra
     kwargs go to the model class: ``image_size``; for ``thermal_only``
-    the trunk's ``block_impl`` (``"fused"``, ``"fused_q8"``,
-    ``"fused_q8s"``) and cut-down widths (``depth``...); for ``rgb_only``
-    the trunk's ``block_impl`` (``"auto"``, ``"flax"``, ``"fused"``)."""
+    the trunk's ``block_impl`` (``"fused"``, ``"flax"``, ``"fused_q8"``,
+    ``"fused_q8s"``), ``attention_impl`` (``"auto"``, ``"pallas"``,
+    ``"xla"``; the flax block's attention) and cut-down widths
+    (``depth``...); for ``multimodal`` the thermal branch's ``block_impl``
+    and ``attention_impl``; for ``rgb_only`` the trunk's ``block_impl``
+    (``"auto"``, ``"flax"``, ``"fused"``)."""
     spec = get(name)
     dr = {} if drop_rate is None else {"drop_rate": drop_rate}
     return spec.make(num_classes=num_classes, dtype=dtype, **dr,

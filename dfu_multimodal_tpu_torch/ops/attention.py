@@ -1,34 +1,55 @@
-"""Packed-qkv attention forward + backward in one kernel: hand-written
-Hopper kernel + plain version.
+"""Softmax attention: hand-written Hopper kernels, plain versions and the
+trainable entry points.
 
-Counterpart of ``dfu_multimodal_tpu/ops/attention.py::
-qkv_attention_fwdbwd`` (the Pallas ``_qkv_attention_fwdbwd_kernel``),
-which the attention-block backward calls: from the packed qkv (B, N, 3C)
-and the attention output's gradient do (B, N, C) it computes each head's
-softmax ONCE and emits both the re-forward output attn (B, N, C) (the
-projection weight gradient needs it) and dqkv (B, N, 3C), packed
-[dq | dk | dv] by column as qkv is.
+Counterpart of ``dfu_multimodal_tpu/ops/attention.py``:
 
-Dispatch is by device only: a CPU tensor takes
-:func:`qkv_attention_fwdbwd_ref`, a CUDA tensor launches
-``csrc/attention.cu`` or raises.
+- ``qkv_attention_fwd`` / ``qkv_attention_bwd`` (K6, the Pallas
+  ``_qkv_attention_fwd_kernel`` / ``_qkv_attention_bwd_kernel``): the
+  packed qkv (B, N, 3C) straight from the qkv Linear -> attn (B, N, C);
+  backward (qkv, do) -> dqkv (B, N, 3C), packed [dq | dk | dv] by column
+  as qkv is, the softmax recomputed.  :func:`qkv_attention` is the
+  trainable ``QkvAttention`` (the JAX custom VJP), which the flax-block
+  ViT's ``MultiHeadAttention`` calls with ``attention_impl="pallas"``.
+- ``flash_attention_fwd`` / ``flash_attention_bwd`` (K9, ``_attention_fwd_
+  kernel`` / ``_attention_bwd_kernel``): the same function over separate
+  q, k, v (B, H, N, D); :func:`flash_attention` is the trainable
+  ``FlashAttention``.
+- ``qkv_attention_fwdbwd`` (K5, ``_qkv_attention_fwdbwd_kernel``), which
+  the attention-block backward calls: the softmax computed ONCE for both
+  the re-forward output attn (the projection weight gradient needs it) and
+  dqkv.
+
+All three run one CUDA source (``csrc/attention.cu``) with one set of
+numerics, and so do their plain versions (:func:`_probs`,
+:func:`_attend`, :func:`_grads`).  Dispatch is by device only: a CPU
+tensor takes the plain version (``*_ref``), a CUDA tensor launches the
+kernel or raises.  A head that does not fit one block's shared memory
+raises ``ValueError``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from dfu_multimodal_tpu_torch.ops import _build
 
-_HEAD_DIMS = (16, 32, 64)          # head dims the kernel takes
+_HEAD_DIMS = (8, 16, 32, 64)       # head dims the kernels are built for
 
 _I, _P, _F = _build.I, _build.P, _build.F
 _SIGNATURES = {
+    "dfu_attention_fits": [_I, _I, _I],
+    "dfu_qkv_attention_fwd": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "dfu_qkv_attention_bwd": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                              _P],
     "dfu_qkv_attention_fwdbwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _F, _I, _P],
+    "dfu_attention_fwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                          _P],
+    "dfu_attention_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _F, _I, _P],
 }
 
 
@@ -46,73 +67,297 @@ def acc_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
-def qkv_attention_fwdbwd_ref(qkv: torch.Tensor, do: torch.Tensor,
-                             num_heads: int
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version, the Pallas kernel's numerics: compute-dtype score
-    operands with fp32 accumulation (q pre-scaled by d**-0.5 in the
-    compute dtype when that is a power of two, else the scores scaled
-    after the product), fp32 softmax statistics with P normalised BEFORE
-    P·V, P cast to the compute dtype for o = P·V and dv = Pᵀ·do,
-    ds = P∘(dp − rowsum(dp∘P)) cast to the compute dtype,
-    dq = ds·k·scale, dk = dsᵀ·q·scale."""
-    b, n, c3 = qkv.shape
-    c = c3 // 3
-    d = c // num_heads
-    dt, acc = qkv.dtype, acc_dtype(qkv)
-    scale = d ** -0.5
-    heads = qkv.reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
-    q, k, v = heads[0], heads[1], heads[2]                # (B, H, N, D)
-    dov = do.reshape(b, n, num_heads, d).transpose(1, 2)
+# ------------------------------------------------------- plain versions
+#
+# The Pallas kernels' numerics (``_softmax_probs_c`` and the kernels
+# around it): compute-dtype score operands with fp32 accumulation (q
+# pre-scaled by d**-0.5 in the compute dtype when that is a power of two,
+# else the scores scaled after the product), fp32 softmax statistics with
+# P normalised BEFORE P·V, P cast to the compute dtype for o = P·V and
+# dv = Pᵀ·do, ds = P∘(dp − rowsum(dp∘P)) cast to the compute dtype,
+# dq = ds·k·scale, dk = dsᵀ·q·scale.  q, k, v, do are (B, H, N, D) in the
+# compute dtype; results are in the accumulation dtype.
+
+
+def _probs(q: torch.Tensor, k: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(P, P_c): the softmax probabilities, and P rounded to the compute
+    dtype, both in the accumulation dtype."""
+    dt, acc = q.dtype, acc_dtype(q)
+    scale = q.shape[-1] ** -0.5
     kt = k.to(acc).transpose(-1, -2)
     if _is_pow2(scale):
         s = torch.matmul((q * scale).to(dt).to(acc), kt)
     else:
         s = torch.matmul(q.to(acc), kt) * scale
     p = torch.softmax(s, dim=-1)
-    p_c = p.to(dt).to(acc)
-    o = torch.matmul(p_c, v.to(acc))
-    dv = torch.matmul(p_c.transpose(-1, -2), dov.to(acc))
-    dp = torch.matmul(dov.to(acc), v.to(acc).transpose(-1, -2))
-    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).to(acc)
+    return p, p.to(dt).to(acc)
+
+
+def _attend(p_c: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(p_c, v.to(p_c.dtype))
+
+
+def _grads(p, p_c, q, k, v, do):
+    acc = p.dtype
+    scale = q.shape[-1] ** -0.5
+    dv = torch.matmul(p_c.transpose(-1, -2), do.to(acc))
+    dp = torch.matmul(do.to(acc), v.to(acc).transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(q.dtype).to(acc)
     dq = torch.matmul(ds, k.to(acc)) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q.to(acc)) * scale
-    attn = o.to(dt).transpose(1, 2).reshape(b, n, c)
-    dqkv = torch.stack([dq, dk, dv]).to(dt)               # (3, B, H, N, D)
-    dqkv = dqkv.permute(1, 3, 0, 2, 4).reshape(b, n, c3)
-    return attn, dqkv
+    return dq, dk, dv
+
+
+def _unpack(qkv: torch.Tensor, num_heads: int):
+    """(B, N, 3C) -> q, k, v views (B, H, N, D)."""
+    b, n, c3 = qkv.shape
+    heads = qkv.reshape(b, n, 3, num_heads, c3 // (3 * num_heads))
+    return heads.permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def _merge_heads(o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, N, D) -> (B, N, H·D) in ``dtype``."""
+    b, h, n, d = o.shape
+    return o.to(dtype).transpose(1, 2).reshape(b, n, h * d)
+
+
+def _pack_grads(dq, dk, dv, dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, N, D) x 3 -> (B, N, 3·H·D) packed [dq | dk | dv]."""
+    b, h, n, d = dq.shape
+    dqkv = torch.stack([dq, dk, dv]).to(dtype)            # (3, B, H, N, D)
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(b, n, 3 * h * d)
+
+
+def _heads_of(do: torch.Tensor, num_heads: int) -> torch.Tensor:
+    b, n, c = do.shape
+    return do.reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
+
+
+def qkv_attention_ref(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain version of K6's forward: qkv (B, N, 3C) -> attn (B, N, C)."""
+    q, k, v = _unpack(qkv, num_heads)
+    return _merge_heads(_attend(_probs(q, k)[1], v), qkv.dtype)
+
+
+def qkv_attention_bwd_ref(qkv: torch.Tensor, do: torch.Tensor,
+                          num_heads: int) -> torch.Tensor:
+    """Plain version of K6's backward: (qkv, do (B, N, C)) -> dqkv."""
+    q, k, v = _unpack(qkv, num_heads)
+    p, p_c = _probs(q, k)
+    return _pack_grads(*_grads(p, p_c, q, k, v, _heads_of(do, num_heads)),
+                       qkv.dtype)
+
+
+def qkv_attention_fwdbwd_ref(qkv: torch.Tensor, do: torch.Tensor,
+                             num_heads: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5: (qkv, do) -> (attn, dqkv), the softmax once."""
+    q, k, v = _unpack(qkv, num_heads)
+    p, p_c = _probs(q, k)
+    grads = _grads(p, p_c, q, k, v, _heads_of(do, num_heads))
+    return (_merge_heads(_attend(p_c, v), qkv.dtype),
+            _pack_grads(*grads, qkv.dtype))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9's forward: q, k, v (B, H, N, D) -> o."""
+    return _attend(_probs(q, k)[1], v).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor
+                            ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of K9's backward: (q, k, v, do) -> (dq, dk, dv)."""
+    p, p_c = _probs(q, k)
+    return tuple(g.to(q.dtype) for g in _grads(p, p_c, q, k, v, do))
+
+
+# -------------------------------------------------------------- wrappers
+
+
+def _check_head(name: str, lib, n: int, d: int, bwd: bool) -> None:
+    if d not in _HEAD_DIMS or not lib.dfu_attention_fits(int(bwd), n, d):
+        raise ValueError(
+            f"{name}: no kernel for {n} rows of head dim {d} (head dims "
+            f"{_HEAD_DIMS}, and a head's K and V must fit one block's "
+            "shared memory)")
+
+
+def _packed_dims(name: str, qkv: torch.Tensor, num_heads: int,
+                 do: Optional[torch.Tensor] = None) -> Tuple[int, int, int]:
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    if c3 != 3 * c or c % num_heads or (do is not None
+                                        and do.shape != (b, n, c)):
+        raise ValueError(
+            f"{name}: qkv {tuple(qkv.shape)}"
+            + ("" if do is None else f", do {tuple(do.shape)}")
+            + f" with {num_heads} heads: want (B, N, 3C), (B, N, C) and "
+            "C a multiple of the head count")
+    return b, n, c // num_heads
+
+
+def _scale_args(d: int) -> Tuple[float, int]:
+    scale = d ** -0.5
+    return scale, int(_is_pow2(scale))
+
+
+def qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """K6 forward: qkv (B, N, 3C) -> attn (B, N, C) in qkv's dtype."""
+    if qkv.device.type == "cpu":
+        return qkv_attention_ref(qkv, num_heads)
+    _build.check_cuda_operands("qkv_attention_fwd", qkv, {"qkv": qkv}, {})
+    b, n, d = _packed_dims("qkv_attention_fwd", qkv, num_heads)
+    lib = _lib()
+    _check_head("qkv_attention_fwd", lib, n, d, bwd=False)
+    attn = qkv.new_empty((b, n, num_heads * d))
+    _build.check(lib, lib.dfu_qkv_attention_fwd(
+        qkv.device.index, _build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(),
+        attn.data_ptr(), b, n, num_heads, d, *_scale_args(d),
+        _build.stream_of(qkv)), "qkv_attention_fwd")
+    qkv_attention_fwd.launches += 1
+    return attn
+
+
+def qkv_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
+                      num_heads: int) -> torch.Tensor:
+    """K6 backward: (qkv (B, N, 3C), do (B, N, C)) -> dqkv (B, N, 3C)."""
+    if qkv.device.type == "cpu":
+        return qkv_attention_bwd_ref(qkv, do, num_heads)
+    _build.check_cuda_operands("qkv_attention_bwd", qkv,
+                               {"qkv": qkv, "do": do}, {})
+    b, n, d = _packed_dims("qkv_attention_bwd", qkv, num_heads, do)
+    lib = _lib()
+    _check_head("qkv_attention_bwd", lib, n, d, bwd=True)
+    dqkv = torch.empty_like(qkv)
+    _build.check(lib, lib.dfu_qkv_attention_bwd(
+        qkv.device.index, _build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(),
+        do.data_ptr(), dqkv.data_ptr(), b, n, num_heads, d, *_scale_args(d),
+        _build.stream_of(qkv)), "qkv_attention_bwd")
+    qkv_attention_bwd.launches += 1
+    return dqkv
 
 
 def qkv_attention_fwdbwd(qkv: torch.Tensor, do: torch.Tensor,
                          num_heads: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(qkv (B, N, 3C), do (B, N, C)) -> (attn (B, N, C), dqkv (B, N, 3C))
-    in qkv's dtype, softmax computed once per head."""
+    """K5: (qkv (B, N, 3C), do (B, N, C)) -> (attn (B, N, C), dqkv
+    (B, N, 3C)) in qkv's dtype, softmax computed once per head."""
     if qkv.device.type == "cpu":
         return qkv_attention_fwdbwd_ref(qkv, do, num_heads)
     _build.check_cuda_operands("qkv_attention_fwdbwd", qkv,
                                {"qkv": qkv, "do": do}, {})
-    b, n, c3 = qkv.shape
-    c = c3 // 3
-    d = c // num_heads
-    if (c3 != 3 * c or d * num_heads != c or d not in _HEAD_DIMS
-            or do.shape != (b, n, c)):
-        raise ValueError(
-            f"qkv_attention_fwdbwd: qkv {tuple(qkv.shape)}, do "
-            f"{tuple(do.shape)} with {num_heads} heads: want (B, N, 3C), "
-            f"(B, N, C) and C = heads * D with D in {_HEAD_DIMS}")
+    b, n, d = _packed_dims("qkv_attention_fwdbwd", qkv, num_heads, do)
     lib = _lib()
+    _check_head("qkv_attention_fwdbwd", lib, n, d, bwd=True)
     attn = torch.empty_like(do)
     dqkv = torch.empty_like(qkv)
-    scale = d ** -0.5
     _build.check(lib, lib.dfu_qkv_attention_fwdbwd(
         qkv.device.index, _build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(),
         do.data_ptr(), attn.data_ptr(), dqkv.data_ptr(), b, n, num_heads, d,
-        scale, int(_is_pow2(scale)), _build.stream_of(qkv)),
-        "qkv_attention_fwdbwd")
+        *_scale_args(d), _build.stream_of(qkv)), "qkv_attention_fwdbwd")
     qkv_attention_fwdbwd.launches += 1
     return attn, dqkv
 
 
-# launch count: one per call that ran the kernel (CPU calls do not count)
+def _bhnd_dims(name: str, q: torch.Tensor, *others: torch.Tensor):
+    if q.dim() != 4 or any(t.shape != q.shape for t in others):
+        raise ValueError(f"{name}: want q, k, v (and do) of one shape "
+                         f"(B, H, N, D), got "
+                         f"{[tuple(t.shape) for t in (q, *others)]}")
+    return q.shape
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """K9 forward: q, k, v (B, H, N, D) -> o (B, H, N, D) in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v)
+    _build.check_cuda_operands("flash_attention_fwd", q,
+                               {"q": q, "k": k, "v": v}, {})
+    b, h, n, d = _bhnd_dims("flash_attention_fwd", q, k, v)
+    lib = _lib()
+    _check_head("flash_attention_fwd", lib, n, d, bwd=False)
+    o = torch.empty_like(q)
+    _build.check(lib, lib.dfu_attention_fwd(
+        q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, n, d,
+        *_scale_args(d), _build.stream_of(q)), "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return o
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """K9 backward: (q, k, v, do), all (B, H, N, D) -> (dq, dk, dv)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, do)
+    _build.check_cuda_operands("flash_attention_bwd", q,
+                               {"q": q, "k": k, "v": v, "do": do}, {})
+    b, h, n, d = _bhnd_dims("flash_attention_bwd", q, k, v, do)
+    lib = _lib()
+    _check_head("flash_attention_bwd", lib, n, d, bwd=True)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    _build.check(lib, lib.dfu_attention_bwd(
+        q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, n, d, *_scale_args(d),
+        _build.stream_of(q)), "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+# launch counts: one per call that ran the kernel (CPU calls do not count)
+qkv_attention_fwd.launches = 0
+qkv_attention_bwd.launches = 0
 qkv_attention_fwdbwd.launches = 0
+flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0
+
+
+# -------------------------------------------------------------- autograd
+
+
+class QkvAttention(torch.autograd.Function):
+    """Trainable packed-qkv attention (the JAX ``_qkv_attention`` custom
+    VJP): forward K6, backward K6's own kernel; saves only qkv."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        return qkv_attention_fwd(qkv, num_heads)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (qkv,) = ctx.saved_tensors
+        return qkv_attention_bwd(qkv, g.contiguous(), ctx.num_heads), None
+
+
+class FlashAttention(torch.autograd.Function):
+    """Trainable (B, H, N, D) attention (the JAX ``_flash_attention``
+    custom VJP): forward and backward K9; saves only q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(q, k, v)
+        return flash_attention_fwd(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return flash_attention_bwd(*ctx.saved_tensors, g.contiguous())
+
+
+def qkv_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Packed-qkv attention (B, N, 3C) -> (B, N, C), trainable."""
+    return QkvAttention.apply(qkv, num_heads)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Softmax attention over q, k, v (B, H, N, D) -> (B, H, N, D),
+    trainable."""
+    return FlashAttention.apply(q, k, v)

@@ -1,11 +1,15 @@
 """Where the time of the thermal_only train step goes, on one card.
 
     python -m dfu_multimodal_tpu_torch.tools.profile_train [--steps 3]
-        [--top 25]
+        [--top 25] [--block-impl fused|flax]
+        [--attention-impl auto|pallas|xla]
 
 Builds the full-width thermal_only ViT-B/16 through :func:`recipe_trainer`
 (seeded weights, bf16 compute, the thermal recipe's batch of 16 — the
-trainer ``chip_smoke.py`` drives), runs two warm-up steps on the first
+trainer ``chip_smoke.py`` drives; ``--block-impl fused``, the default,
+runs the fused blocks K1/K2 with their K4/K5 backward, ``--block-impl
+flax`` the flax blocks with the packed-qkv attention K6 under
+``--attention-impl pallas``), runs two warm-up steps on the first
 batch of :func:`synthetic_thermal`, then ``--steps`` train steps under
 ``torch.profiler`` and prints: the card's name and power limit, the
 host-clock step time, device time by kernel (self time, summed over the
@@ -46,16 +50,19 @@ def synthetic_thermal(n: int, seed: int = 0):
     return images, labels
 
 
-def recipe_trainer(device, labels) -> Trainer:
+def recipe_trainer(device, labels, block_impl: str = "fused",
+                   attention_impl: str = "auto") -> Trainer:
     """The full-width thermal_only ViT-B/16 as the recipe trains it: bf16
     compute, batch 16, class weights from ``labels``, weights drawn from a
-    generator seeded with 0."""
+    generator seeded with 0; ``block_impl`` / ``attention_impl`` pick the
+    trunk's blocks."""
     trainer = Trainer("thermal_only",
                       TrainConfig(batch_size=TRAIN_BATCH,
                                   compute_dtype="bfloat16"),
                       {"thermal": thermal_modality()},
                       class_weights=class_weights_from_labels(labels),
-                      device=device, image_size=IMAGE)
+                      device=device, image_size=IMAGE,
+                      block_impl=block_impl, attention_impl=attention_impl)
     zoo.init_model(trainer.module,
                    torch.Generator(device=device).manual_seed(0))
     return trainer
@@ -72,6 +79,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--block-impl", default="fused", choices=("fused",
+                                                              "flax"))
+    ap.add_argument("--attention-impl", default="auto",
+                    choices=("auto", "pallas", "xla"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -85,7 +96,8 @@ def main(argv=None) -> int:
     images, labels = synthetic_thermal(TRAIN_BATCH)
     batch = {"thermal": images, "label": labels,
              "valid": np.ones(TRAIN_BATCH, np.float32)}
-    trainer = recipe_trainer(dev, labels)
+    trainer = recipe_trainer(dev, labels, args.block_impl,
+                             args.attention_impl)
     gen = torch.Generator(device=dev).manual_seed(1)
     for _ in range(2):
         trainer.train_step(batch, gen)
@@ -104,7 +116,9 @@ def main(argv=None) -> int:
               if e.device_type == DeviceType.CUDA and _device_ms(e) > 0]
     busy_ms = sum(_device_ms(e) for e in events)
     events.sort(key=_device_ms, reverse=True)
-    print(f"[profile] batch {TRAIN_BATCH}, {args.steps} steps: host "
+    print(f"[profile] block_impl {args.block_impl}, attention_impl "
+          f"{args.attention_impl}, batch {TRAIN_BATCH}, {args.steps} "
+          f"steps: host "
           f"{wall_ms / args.steps:.3f} ms per step; device busy "
           f"{busy_ms / args.steps:.3f} ms per step; idle share "
           f"{1.0 - busy_ms / wall_ms:.4f}", flush=True)
@@ -113,7 +127,9 @@ def main(argv=None) -> int:
         print(f"[profile] {ms / args.steps:9.3f} ms/step {ms / busy_ms:7.2%} "
               f"calls/step {e.count / args.steps:7.1f}  {e.key[:110]}",
               flush=True)
-    print(json.dumps({"batch": TRAIN_BATCH, "steps": args.steps,
+    print(json.dumps({"block_impl": args.block_impl,
+                      "attention_impl": args.attention_impl,
+                      "batch": TRAIN_BATCH, "steps": args.steps,
                       "step_ms": wall_ms / args.steps,
                       "device_busy_ms": busy_ms / args.steps,
                       "idle_share": 1.0 - busy_ms / wall_ms}), flush=True)

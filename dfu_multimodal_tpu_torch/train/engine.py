@@ -9,8 +9,15 @@ Train step (the default path of the JAX ``train_step``), for the
 BatchNorm-free ``thermal_only`` ViT:
 
     uint8 batch -> augment_and_normalize -> model (train mode, dropout)
-      -> class-weighted CE over the valid rows -> backward (the ViT blocks'
-      hand chain rules, kernels K4/K5 on the card) -> AdamW
+      -> class-weighted CE over the valid rows -> backward -> AdamW
+
+where the backward runs, on the card, the fused blocks' hand chain rules
+(kernels K4/K5; ``block_impl="fused"``, the default) or, with
+``block_impl="flax", attention_impl="pallas"``, PyTorch's autograd
+through the flax blocks' LayerNorms and Linears with the packed-qkv
+attention's own backward kernel (K6); ``attention_impl="xla"`` runs the
+flax blocks' attention as plain PyTorch ops.  The int8 block impls are
+serving-only.
 
 with the reference's semantics: torch's weighted-mean reduction
 Σ wᵢ·ceᵢ / Σ wᵢ with wᵢ = class_weight[yᵢ]·validᵢ, weighted-with-
@@ -105,7 +112,8 @@ class Trainer:
     ``tools.convert_jax.variables_to_state_dict``) or draw them with
     ``models.zoo.init_model``.  Extra keyword arguments go to the model
     class (e.g. ``depth`` for a cut-down trunk, ``block_impl`` for the
-    int8 ViT blocks or the fused ResNet bottleneck)."""
+    ViT blocks, ``attention_impl`` for the flax block's attention, or the
+    fused ResNet bottleneck)."""
 
     def __init__(self, model_name: str, cfg: TrainConfig,
                  modalities: Dict[str, ModalityConfig], *,

@@ -522,3 +522,111 @@ def test_rgb_only_fused_eval_on_card_matches_cpu_and_cudnn():
                     rb.fused_bottleneck.proj_launches - before[1])
         assert launched == ((12, 1) if block_impl == "fused" else (0, 0))
         np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------- attention (K6, K9)
+
+# packed (batch, tokens, width, heads): head dims 64, 16, 32 and 8
+QKV_SHAPES = SHAPES[:3] + [(3, 20, 32, 4)]
+# (B, H, N, D): ViT-B/16 at the serving batch, tests/test_ops.py's shapes
+# and the non-power-of-two scale at D = 32
+FLASH_SHAPES = [(2, 12, 197, 64), (1, 2, 16, 8), (2, 4, 40, 16),
+                (2, 4, 40, 32)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", QKV_SHAPES)
+def test_qkv_attention_kernels_match_plain(shape, dtype):
+    dev = _cuda()
+    b, n, c, heads = shape
+    gen = torch.Generator(device=dev).manual_seed(20)
+    qkv = _randn(gen, b, n, 3 * c, dtype=dtype)
+    do = _randn(gen, b, n, c, dtype=dtype)
+    before = (at.qkv_attention_fwd.launches, at.qkv_attention_bwd.launches)
+    out = at.qkv_attention_fwd(qkv, heads)
+    dqkv = at.qkv_attention_bwd(qkv, do, heads)
+    torch.cuda.synchronize()
+    assert (at.qkv_attention_fwd.launches,
+            at.qkv_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _assert_close(out, at.qkv_attention_ref(qkv, heads), TOL[dtype])
+    _assert_close(dqkv, at.qkv_attention_bwd_ref(qkv, do, heads), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_kernels_match_plain(shape, dtype):
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v, do = (_randn(gen, *shape, dtype=dtype) for _ in range(4))
+    before = (at.flash_attention_fwd.launches,
+              at.flash_attention_bwd.launches)
+    out = at.flash_attention_fwd(q, k, v)
+    grads = at.flash_attention_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    assert (at.flash_attention_fwd.launches,
+            at.flash_attention_bwd.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    _assert_close(out, at.flash_attention_ref(q, k, v), TOL[dtype])
+    _assert_all_close(grads, at.flash_attention_bwd_ref(q, k, v, do),
+                      TOL[dtype])
+
+
+def test_attention_kernels_refuse_a_head_that_does_not_fit():
+    """400 rows of D = 64: the backward's K, V, dK and dV exceed a
+    block's shared memory, so the wrappers raise (no plain fallback)."""
+    dev = _cuda()
+    qkv = torch.zeros(1, 400, 3 * 64, device=dev)
+    do = torch.zeros(1, 400, 64, device=dev)
+    with pytest.raises(ValueError):
+        at.qkv_attention_bwd(qkv, do, 1)
+    q = torch.zeros(1, 1, 400, 64, device=dev)
+    with pytest.raises(ValueError):
+        at.flash_attention_bwd(q, q, q, q)
+    with pytest.raises(TypeError):
+        at.qkv_attention_fwd(qkv.double(), 1)
+
+
+def test_flax_thermal_on_card_matches_cpu():
+    """A small thermal_only model with ``block_impl="flax",
+    attention_impl="pallas"``: the card's fp32 eval step and train step
+    (K6 forward and backward, one launch each per block) against the
+    CPU's plain versions, at the budgets of the fused train step test."""
+    dev = _cuda()
+    from dfu_multimodal_tpu_torch.config import AugmentConfig
+    from dfu_multimodal_tpu_torch.models import zoo
+    from dfu_multimodal_tpu_torch.train.engine import (Trainer, TrainConfig,
+                                                       thermal_modality)
+    cfg = TrainConfig(compute_dtype="float32", optimizer_mu_dtype="float32",
+                      drop_rate=0.0, batch_size=4)
+    aug = AugmentConfig(horizontal_flip_prob=0.0, vertical_flip_prob=0.0,
+                        rotation_degrees=0.0, aug_prob=0.0,
+                        color_jitter=False)
+    mods = {"thermal": dataclasses.replace(thermal_modality(), augment=aug)}
+    tiny = dict(image_size=32, depth=2, hidden_dim=64, num_heads=4,
+                patch_size=8, block_impl="flax", attention_impl="pallas")
+    cpu = Trainer("thermal_only", cfg, mods, device="cpu", **tiny)
+    zoo.init_model(cpu.module, torch.Generator().manual_seed(0))
+    card = Trainer("thermal_only", cfg, mods, device=dev, **tiny)
+    card.module.load_state_dict(cpu.module.state_dict())
+    rng = np.random.default_rng(0)
+    batch = {"thermal": rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8),
+             "label": np.array([0, 1, 1, 0], np.int32),
+             "valid": np.array([1, 1, 1, 0], np.float32)}
+    probs = card.eval_step(batch)["probs"].cpu()
+    torch.testing.assert_close(probs, cpu.eval_step(batch)["probs"],
+                               rtol=1e-4, atol=1e-5)
+    before = (at.qkv_attention_fwd.launches, at.qkv_attention_bwd.launches,
+              vb.attn_block.launches, at.qkv_attention_fwdbwd.launches)
+    out = card.train_step(batch, torch.Generator(device=dev))
+    ref = cpu.train_step(batch, torch.Generator())
+    assert (at.qkv_attention_fwd.launches, at.qkv_attention_bwd.launches,
+            vb.attn_block.launches, at.qkv_attention_fwdbwd.launches) \
+        == (before[0] + 2, before[1] + 2, before[2], before[3])
+    assert float(out["loss"]) == pytest.approx(float(ref["loss"]), rel=1e-5)
+    cpu_params = dict(cpu.module.named_parameters())
+    for name, p in card.module.named_parameters():
+        q = cpu_params[name]
+        assert float((p.grad.cpu() - q.grad).abs().max()) \
+            <= 1e-4 * float(q.grad.abs().max()), name
+        assert float((p.detach().cpu() - q.detach()).abs().max()) \
+            <= 2 * cfg.learning_rate

@@ -72,25 +72,35 @@ def jax_multimodal():
 # ------------------------------------------------------------------- ViT
 
 
-def _tiny_vit_variables():
+def _tiny_vit_variables(**port_kw):
     kw = dict(depth=2, hidden_dim=64, num_heads=4, patch_size=8)
     x = _images(2, seed=1)
     flax_vit = JaxViT(block_impl="flax", attention_impl="xla", **kw)
     variables = _perturb(flax_vit.init({"params": jax.random.PRNGKey(1)},
                                        jnp.asarray(x), train=False), seed=1)
-    port = ViT(image_size=IMAGE, **kw)
+    port = ViT(image_size=IMAGE, **kw, **port_kw)
     port.load_state_dict(vit_state_dict(variables["params"]), strict=True)
     return kw, variables, x, port.eval()
 
 
-@pytest.mark.parametrize("block_impl,rtol,atol", [
-    # fp32 flax blocks: the same math, summed in another order
-    ("flax", 1e-4, 1e-4),
+@pytest.mark.parametrize("block_impl,rtol,atol,port_kw", [
+    # fp32 flax blocks against the port's fused blocks: the same math,
+    # summed in another order
+    pytest.param("flax", 1e-4, 1e-4, {}, id="flax-0.0001-0.0001"),
     # fused Pallas blocks in interpret mode: their logistic GELU against
     # the port's exact erf GELU (the reference's budget, test_ops.py:173)
-    ("fused_interpret", 1e-3, 3e-3)])
-def test_tiny_vit_matches_flax(block_impl, rtol, atol):
-    kw, variables, x, port = _tiny_vit_variables()
+    pytest.param("fused_interpret", 1e-3, 3e-3, {},
+                 id="fused_interpret-0.001-0.003"),
+    # the port's flax blocks, attention by the packed-qkv kernel's plain
+    # version (its normalise-before-P·V numerics) or by xla_attention
+    pytest.param("flax", 1e-4, 1e-4,
+                 dict(block_impl="flax", attention_impl="pallas"),
+                 id="port_flax_pallas"),
+    pytest.param("flax", 1e-4, 1e-4,
+                 dict(block_impl="flax", attention_impl="xla"),
+                 id="port_flax_xla")])
+def test_tiny_vit_matches_flax(block_impl, rtol, atol, port_kw):
+    kw, variables, x, port = _tiny_vit_variables(**port_kw)
     jvit = JaxViT(block_impl=block_impl, attention_impl="xla", **kw)
     ref = jvit.apply(variables, jnp.asarray(x), train=False)
     with torch.no_grad():
@@ -98,6 +108,40 @@ def test_tiny_vit_matches_flax(block_impl, rtol, atol):
     assert out.dtype == torch.float32 and out.shape == (2, 64)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref),
                                rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("attention_impl", ["pallas", "xla"])
+def test_tiny_vit_flax_bf16_matches_flax(attention_impl):
+    """bf16 compute, the port's flax blocks against the JAX flax blocks
+    (xla attention): both round every activation to bf16, at places that
+    differ a little (F.linear and XLA's bf16 dot, P normalised before or
+    after the cast), so the reference's bf16 budget (test_ops.py) on
+    features the final LayerNorm scales to O(1)."""
+    kw, variables, x, port = _tiny_vit_variables(
+        block_impl="flax", attention_impl=attention_impl,
+        dtype=torch.bfloat16)
+    jvit = JaxViT(block_impl="flax", attention_impl="xla",
+                  dtype=jnp.bfloat16, **kw)
+    ref = np.asarray(jvit.apply(variables, jnp.asarray(x), train=False),
+                     np.float32)
+    with torch.no_grad():
+        out = port(torch.from_numpy(x))
+    assert out.dtype == torch.float32 and out.shape == (2, 64)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=5e-2, atol=5e-2)
+
+
+def test_one_jax_tree_loads_into_every_float_block():
+    """The flax and fused blocks declare the same keys: one JAX trunk
+    loads strictly into both and both compute the same features."""
+    kw, variables, x, fused = _tiny_vit_variables()
+    sd = vit_state_dict(variables["params"])
+    flax = ViT(image_size=IMAGE, block_impl="flax", **kw)
+    assert flax.state_dict().keys() == fused.state_dict().keys() == sd.keys()
+    flax.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        a = flax.eval()(torch.from_numpy(x))
+        b = fused(torch.from_numpy(x))
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------- ResNet
@@ -260,6 +304,19 @@ int8 = quantize_for_serving(thermal, image_size=32)
 assert int8.variables()["vit.blocks.0.attn.qkv.kernel_q8"].dtype == torch.int8
 probs = int8.eval_step({"thermal": batch["thermal"]})["probs"]
 assert probs.shape == (2,) and bool(torch.isfinite(probs).all())
+
+flax = Trainer("thermal_only",
+               TrainConfig(compute_dtype="float32", batch_size=2),
+               {"thermal": thermal_modality()}, device="cpu",
+               image_size=32, depth=2, hidden_dim=64, num_heads=4,
+               patch_size=8, block_impl="flax", attention_impl="pallas")
+zoo.init_model(flax.module, torch.Generator().manual_seed(0))
+probs = flax.eval_step({"thermal": batch["thermal"]})["probs"]
+assert probs.shape == (2,) and bool(torch.isfinite(probs).all())
+out = flax.train_step({"thermal": batch["thermal"], "label": np.array([0, 1]),
+                       "valid": np.ones(2, np.float32)},
+                      torch.Generator().manual_seed(0))
+assert bool(torch.isfinite(out["loss"])), out
 
 rgb = Trainer("rgb_only", TrainConfig(compute_dtype="float32"),
               {"rgb": rgb_modality()}, device="cpu", image_size=32,

@@ -112,3 +112,54 @@ def test_malformed_samples_raise_to_their_caller(trainer):
         eng.submit({"depth": good["rgb"]})
     with pytest.raises(ValueError, match="at least one"):
         eng.submit({})
+
+
+def test_multimodal_flax_blocks_equal_fused(trainer):
+    """``multimodal`` hands ``block_impl`` / ``attention_impl`` to its
+    thermal branch: the flax blocks with the packed-qkv attention give
+    the fused blocks' eval step on the same weights, within the fp32
+    budget of the model tests (1e-4; the same math summed in another
+    order)."""
+    flax = Trainer("multimodal", TrainConfig(compute_dtype="float32"),
+                   {"rgb": rgb_modality(), "thermal": thermal_modality()},
+                   device="cpu", image_size=IMAGE, block_impl="flax",
+                   attention_impl="pallas")
+    assert type(flax.module.thermal_branch.blocks[0]).__name__ == \
+        "EncoderBlock"
+    flax.module.load_state_dict(trainer.variables(), strict=True)
+    samples = _samples(3, seed=6)
+    batch = {m: np.stack([s[m] for s in samples]) for m in ("rgb", "thermal")}
+    ref, out = trainer.eval_step(batch), flax.eval_step(batch)
+    np.testing.assert_allclose(out["probs"].numpy(), ref["probs"].numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert out["preds"].tolist() == ref["preds"].tolist()
+
+
+def test_flax_thermal_trainer_serves_and_quantises():
+    """A tiny flax/``pallas`` thermal_only trainer behind the engine
+    returns its eval step's probabilities; ``quantize_for_serving`` of it
+    builds the ``fused_q8`` trainer (the blocks share their keys)."""
+    from dfu_multimodal_tpu_torch.models.vit import QuantizedEncoderBlock
+    from dfu_multimodal_tpu_torch.serve.engine import quantize_for_serving
+
+    tr = Trainer("thermal_only", TrainConfig(compute_dtype="float32"),
+                 {"thermal": thermal_modality()}, device="cpu",
+                 image_size=IMAGE, depth=2, hidden_dim=64, num_heads=4,
+                 patch_size=8, block_impl="flax", attention_impl="pallas")
+    zoo.init_model(tr.module, torch.Generator().manual_seed(0))
+    samples = [{"thermal": s["thermal"]} for s in _samples(3, seed=7)]
+    with ServingEngine(tr, image_size=IMAGE, max_batch=4) as eng:
+        served = eng.predict(samples)
+    direct = tr.eval_step({"thermal": np.stack([s["thermal"]
+                                                for s in samples])})
+    np.testing.assert_allclose([p for p, _ in served],
+                               direct["probs"].numpy(), rtol=1e-5,
+                               atol=1e-6)
+    assert [pred for _, pred in served] == direct["preds"].tolist()
+
+    q = quantize_for_serving(tr, image_size=IMAGE)
+    assert q.model_kwargs["block_impl"] == "fused_q8"
+    assert all(type(b) is QuantizedEncoderBlock for b in q.module.vit.blocks)
+    probs = q.eval_step({"thermal": np.stack([s["thermal"]
+                                              for s in samples])})["probs"]
+    assert bool(torch.isfinite(probs).all())

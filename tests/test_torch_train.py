@@ -324,22 +324,27 @@ def _batches():
     return out
 
 
-def _port_trainer(**overrides):
+def _port_trainer(block_impl="fused", attention_impl="auto", **overrides):
     cfg = port_config.TrainConfig(**{**CFG, **overrides})
     mod = _neutral(port_config.thermal_modality, port_config.AugmentConfig)
     return port_engine.Trainer("thermal_only", cfg, {"thermal": mod},
                                class_weights=CLASS_WEIGHTS, device="cpu",
-                               image_size=IMAGE, **TINY)
+                               image_size=IMAGE, block_impl=block_impl,
+                               attention_impl=attention_impl, **TINY)
 
 
-def test_train_steps_match_jax_trainer():
-    """Two steps of the port's train_step against the JAX single-device
-    jit Trainer.train_step (flax blocks, fp32, fp32 first moment, no
-    dropout, identity augmentation) from the same weights.  Loss: 1e-5
-    relative (the same fp32 math).  Params after each AdamW step: within
-    2·lr, the reference's budget — where a gradient is ~0 its sign may
-    differ between the two packages, and Adam's first update is
-    lr·sign(g)."""
+@pytest.mark.parametrize("block_impl,attention_impl", [
+    ("fused", "auto"), ("flax", "pallas"), ("flax", "xla")])
+def test_train_steps_match_jax_trainer(block_impl, attention_impl):
+    """Two steps of the port's train_step — the fused blocks' hand chain
+    rules, or autograd through the flax blocks with the packed-qkv
+    attention's own backward (``"pallas"``) or plain attention
+    (``"xla"``) — against the JAX single-device jit Trainer.train_step
+    (flax blocks, fp32, fp32 first moment, no dropout, identity
+    augmentation) from the same weights.  Loss: 1e-5 relative (the same
+    fp32 math).  Params after each AdamW step: within 2·lr, the
+    reference's budget — where a gradient is ~0 its sign may differ
+    between the two packages, and Adam's first update is lr·sign(g)."""
     variables = _tiny_variables()
     cfg = jax_config.TrainConfig(**CFG, mesh=jax_config.MeshConfig(data=1))
     mod = _neutral(jax_config.thermal_modality, jax_config.AugmentConfig)
@@ -352,7 +357,7 @@ def test_train_steps_match_jax_trainer():
                                               variables["params"]),
                           opt_state=jt.tx.init(variables["params"]))
 
-    pt = _port_trainer()
+    pt = _port_trainer(block_impl, attention_impl)
     pt.module.load_state_dict(variables_to_state_dict("thermal_only",
                                                       variables))
     gen = torch.Generator().manual_seed(0)
