@@ -5,7 +5,10 @@ and fused block paths, ``ViTClassifier`` and the int8 converters):
 224x224 -> 14x14 patches + CLS = 197 tokens, 12 pre-LN encoder blocks, 12
 heads, MLP ratio 4, CLS-token features.
 
-``block_impl`` picks the encoder block:
+``block_impl`` picks the encoder block (``"auto"`` resolves to
+``"fused"``, as the JAX ``ViT._resolve_block`` does where the kernels
+run: here the kernels always run on the card and their plain versions on
+the CPU):
 
 - ``"fused"`` (default): the trainable ``ops.vit_block.AttnBlock`` and
   ``MlpBlock`` (forward kernels K1/K2; backward K5/K4 in the hand chain
@@ -98,6 +101,15 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor,
                           k.float().transpose(-1, -2))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(probs, v)
+
+
+def resolve_block_impl(impl: str) -> str:
+    """``"auto"`` -> ``"fused"`` (the JAX ``ViT._resolve_block`` where
+    the kernels run); the others pass through, an unknown one raises."""
+    impl = "fused" if impl == "auto" else impl
+    if impl not in BLOCK_IMPLS:
+        raise ValueError(f"unknown block impl: {impl!r}")
+    return impl
 
 
 def resolve_attention_impl(impl: str) -> str:
@@ -317,10 +329,11 @@ class PatchEmbed(nn.Module):
 class ViT(nn.Module):
     """ViT trunk returning fp32 CLS features (B, hidden_dim).  The
     position-embedding length is fixed by ``image_size`` here (JAX infers
-    it from the init input).  ``block_impl``: ``"fused"``, ``"flax"``,
-    ``"fused_q8"`` or ``"fused_q8s"``; ``attention_impl`` (``"auto"``,
-    ``"pallas"``, ``"xla"``) is taken for every block impl, as in JAX, and
-    used by the flax block only (module docstring)."""
+    it from the init input).  ``block_impl``: ``"auto"`` (``"fused"``),
+    ``"fused"``, ``"flax"``, ``"fused_q8"`` or ``"fused_q8s"``;
+    ``attention_impl`` (``"auto"``, ``"pallas"``, ``"xla"``) is taken for
+    every block impl, as in JAX, and used by the flax block only (module
+    docstring)."""
 
     def __init__(self, image_size: int = 224, patch_size: int = 16,
                  hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
@@ -328,8 +341,7 @@ class ViT(nn.Module):
                  dtype: Union[str, torch.dtype] = torch.float32,
                  block_impl: str = "fused", attention_impl: str = "auto"):
         super().__init__()
-        if block_impl not in BLOCK_IMPLS:
-            raise ValueError(f"unknown block impl: {block_impl!r}")
+        block_impl = resolve_block_impl(block_impl)
         attention_impl = resolve_attention_impl(attention_impl)
         self.dtype = canonical_dtype(dtype)
         tokens = (image_size // patch_size) ** 2 + 1

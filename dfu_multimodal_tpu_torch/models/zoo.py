@@ -64,17 +64,26 @@ def build(name: str, *, num_classes: int = 2,
                      **kwargs), spec
 
 
+# std of a unit normal truncated to [-2, 2] (flax's variance_scaling
+# "truncated_normal" divides its stddev by this constant)
+_TRUNC_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_model(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialise every parameter and buffer in place from
     ``generator`` (which must live on the module's device), with the JAX
-    package's initialisers: LeCun-normal Linear/conv weights, zero biases,
-    identity LayerNorm/BatchNorm (running mean 0, var 1), zero CLS token
-    and a N(0, 0.02) position embedding."""
+    package's initialisers: LeCun-normal Linear/conv weights (flax's
+    ``lecun_normal``: a normal truncated at ±2σ, σ chosen so that the
+    truncated draw has variance 1/fan_in), zero biases, identity
+    LayerNorm/BatchNorm (running mean 0, var 1), zero CLS token and a
+    N(0, 0.02) position embedding."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
-            m.weight.normal_(0.0, m.weight[0].numel() ** -0.5,
-                             generator=generator)
+            # fan_in = in (Linear) or cin·kh·kw (conv), flax's kh·kw·cin
+            s = m.weight[0].numel() ** -0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, 0.0, s, -2.0 * s, 2.0 * s,
+                                  generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):

@@ -23,8 +23,13 @@ All three run one CUDA source (``csrc/attention.cu``) with one set of
 numerics, and so do their plain versions (:func:`_probs`,
 :func:`_attend`, :func:`_grads`).  Dispatch is by device only: a CPU
 tensor takes the plain version (``*_ref``), a CUDA tensor launches the
-kernel or raises.  A head that does not fit one block's shared memory
-raises ``ValueError``.
+kernel or raises.  Every token count runs: a head whose K and V fit one
+block's shared memory takes the whole-head kernels, a longer one the
+tiled kernels that stream K and V through shared memory in key tiles
+(the forward past N ≈ 420, the backward past N = 208 at D = 64; the
+FlashAttention-2 split for the backward, no atomics).  Both give the same
+results.  Only a head dim other than 8, 16, 32 or 64 raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -40,16 +45,15 @@ _HEAD_DIMS = (8, 16, 32, 64)       # head dims the kernels are built for
 
 _I, _P, _F = _build.I, _build.P, _build.F
 _SIGNATURES = {
-    "dfu_attention_fits": [_I, _I, _I],
     "dfu_qkv_attention_fwd": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "dfu_qkv_attention_bwd": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                              _P],
-    "dfu_qkv_attention_fwdbwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _F, _I, _P],
+    "dfu_qkv_attention_bwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                              _I, _P],
+    "dfu_qkv_attention_fwdbwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _F, _I, _P],
     "dfu_attention_fwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                           _P],
-    "dfu_attention_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _F, _I, _P],
+    "dfu_attention_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _F, _I, _P],
 }
 
 
@@ -72,21 +76,22 @@ def acc_dtype(t: torch.Tensor) -> torch.dtype:
 # The Pallas kernels' numerics (``_softmax_probs_c`` and the kernels
 # around it): compute-dtype score operands with fp32 accumulation (q
 # pre-scaled by d**-0.5 in the compute dtype when that is a power of two,
-# else the scores scaled after the product), fp32 softmax statistics with
+# or always with ``prescale`` — the attention-block backward K10's policy
+# — else the scores scaled after the product), fp32 softmax statistics with
 # P normalised BEFORE P·V, P cast to the compute dtype for o = P·V and
 # dv = Pᵀ·do, ds = P∘(dp − rowsum(dp∘P)) cast to the compute dtype,
 # dq = ds·k·scale, dk = dsᵀ·q·scale.  q, k, v, do are (B, H, N, D) in the
 # compute dtype; results are in the accumulation dtype.
 
 
-def _probs(q: torch.Tensor, k: torch.Tensor
+def _probs(q: torch.Tensor, k: torch.Tensor, prescale: bool = False
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(P, P_c): the softmax probabilities, and P rounded to the compute
     dtype, both in the accumulation dtype."""
     dt, acc = q.dtype, acc_dtype(q)
     scale = q.shape[-1] ** -0.5
     kt = k.to(acc).transpose(-1, -2)
-    if _is_pow2(scale):
+    if prescale or _is_pow2(scale):
         s = torch.matmul((q * scale).to(dt).to(acc), kt)
     else:
         s = torch.matmul(q.to(acc), kt) * scale
@@ -150,11 +155,12 @@ def qkv_attention_bwd_ref(qkv: torch.Tensor, do: torch.Tensor,
 
 
 def qkv_attention_fwdbwd_ref(qkv: torch.Tensor, do: torch.Tensor,
-                             num_heads: int
+                             num_heads: int, prescale: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K5: (qkv, do) -> (attn, dqkv), the softmax once."""
+    """Plain version of K5: (qkv, do) -> (attn, dqkv), the softmax once.
+    ``prescale``: q scaled in the compute dtype for every head dim (K10)."""
     q, k, v = _unpack(qkv, num_heads)
-    p, p_c = _probs(q, k)
+    p, p_c = _probs(q, k, prescale)
     grads = _grads(p, p_c, q, k, v, _heads_of(do, num_heads))
     return (_merge_heads(_attend(p_c, v), qkv.dtype),
             _pack_grads(*grads, qkv.dtype))
@@ -177,12 +183,19 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 # -------------------------------------------------------------- wrappers
 
 
-def _check_head(name: str, lib, n: int, d: int, bwd: bool) -> None:
-    if d not in _HEAD_DIMS or not lib.dfu_attention_fits(int(bwd), n, d):
-        raise ValueError(
-            f"{name}: no kernel for {n} rows of head dim {d} (head dims "
-            f"{_HEAD_DIMS}, and a head's K and V must fit one block's "
-            "shared memory)")
+def _check_head(name: str, d: int) -> None:
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{name}: no kernel for head dim {d} (head dims "
+                         f"{_HEAD_DIMS})")
+
+
+def _row_stats_scratch(b: int, heads: int, n: int,
+                      device: torch.device) -> torch.Tensor:
+    """fp32 scratch of a backward kernel: each query row's softmax max,
+    sum and rowsum(dP∘P), which the tiled kernels pass from the query
+    side to the key side (unused by the whole-head kernel)."""
+    return torch.empty((3, b * heads * n), dtype=torch.float32,
+                       device=device)
 
 
 def _packed_dims(name: str, qkv: torch.Tensor, num_heads: int,
@@ -210,8 +223,8 @@ def qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         return qkv_attention_ref(qkv, num_heads)
     _build.check_cuda_operands("qkv_attention_fwd", qkv, {"qkv": qkv}, {})
     b, n, d = _packed_dims("qkv_attention_fwd", qkv, num_heads)
+    _check_head("qkv_attention_fwd", d)
     lib = _lib()
-    _check_head("qkv_attention_fwd", lib, n, d, bwd=False)
     attn = qkv.new_empty((b, n, num_heads * d))
     _build.check(lib, lib.dfu_qkv_attention_fwd(
         qkv.device.index, _build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(),
@@ -229,12 +242,14 @@ def qkv_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
     _build.check_cuda_operands("qkv_attention_bwd", qkv,
                                {"qkv": qkv, "do": do}, {})
     b, n, d = _packed_dims("qkv_attention_bwd", qkv, num_heads, do)
+    _check_head("qkv_attention_bwd", d)
     lib = _lib()
-    _check_head("qkv_attention_bwd", lib, n, d, bwd=True)
     dqkv = torch.empty_like(qkv)
+    stats = _row_stats_scratch(b, num_heads, n, qkv.device)
     _build.check(lib, lib.dfu_qkv_attention_bwd(
         qkv.device.index, _build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(),
-        do.data_ptr(), dqkv.data_ptr(), b, n, num_heads, d, *_scale_args(d),
+        do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, n, num_heads, d,
+        *_scale_args(d),
         _build.stream_of(qkv)), "qkv_attention_bwd")
     qkv_attention_bwd.launches += 1
     return dqkv
@@ -250,14 +265,16 @@ def qkv_attention_fwdbwd(qkv: torch.Tensor, do: torch.Tensor,
     _build.check_cuda_operands("qkv_attention_fwdbwd", qkv,
                                {"qkv": qkv, "do": do}, {})
     b, n, d = _packed_dims("qkv_attention_fwdbwd", qkv, num_heads, do)
+    _check_head("qkv_attention_fwdbwd", d)
     lib = _lib()
-    _check_head("qkv_attention_fwdbwd", lib, n, d, bwd=True)
     attn = torch.empty_like(do)
     dqkv = torch.empty_like(qkv)
+    stats = _row_stats_scratch(b, num_heads, n, qkv.device)
     _build.check(lib, lib.dfu_qkv_attention_fwdbwd(
         qkv.device.index, _build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(),
-        do.data_ptr(), attn.data_ptr(), dqkv.data_ptr(), b, n, num_heads, d,
-        *_scale_args(d), _build.stream_of(qkv)), "qkv_attention_fwdbwd")
+        do.data_ptr(), attn.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b,
+        n, num_heads, d, *_scale_args(d), _build.stream_of(qkv)),
+        "qkv_attention_fwdbwd")
     qkv_attention_fwdbwd.launches += 1
     return attn, dqkv
 
@@ -278,8 +295,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     _build.check_cuda_operands("flash_attention_fwd", q,
                                {"q": q, "k": k, "v": v}, {})
     b, h, n, d = _bhnd_dims("flash_attention_fwd", q, k, v)
+    _check_head("flash_attention_fwd", d)
     lib = _lib()
-    _check_head("flash_attention_fwd", lib, n, d, bwd=False)
     o = torch.empty_like(q)
     _build.check(lib, lib.dfu_attention_fwd(
         q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(),
@@ -297,13 +314,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_cuda_operands("flash_attention_bwd", q,
                                {"q": q, "k": k, "v": v, "do": do}, {})
     b, h, n, d = _bhnd_dims("flash_attention_bwd", q, k, v, do)
+    _check_head("flash_attention_bwd", d)
     lib = _lib()
-    _check_head("flash_attention_bwd", lib, n, d, bwd=True)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = _row_stats_scratch(b, h, n, q.device)
     _build.check(lib, lib.dfu_attention_bwd(
         q.device.index, _build.DTYPE_CODES[q.dtype], q.data_ptr(),
         k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, n, d, *_scale_args(d),
+        dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, h, n, d,
+        *_scale_args(d),
         _build.stream_of(q)), "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -14,6 +14,14 @@
 // 1/sqrt(D), fp32 softmax statistics, the un-normalised exp matrix rounded
 // to the compute dtype as the P·V operand, and the division by the fp32
 // row sum deferred past P·V.
+//
+// A head whose K and V do not fit one block's shared memory (N ≈ 420 at
+// D = 64: serving at 336² or 384², N = 442 or 577) runs attention_tiled
+// instead: ATT_TROWS query rows per block, K and V streamed through
+// shared memory in ATT_TK-key tiles, two passes (the row max, then exp,
+// the row sum and e·V against that max).  Each lane takes the keys lane,
+// lane + 32, ... of each tile in order, so the sum and e·V run in the
+// whole-head kernel's order and the output is the same, bit for bit.
 #pragma once
 
 #include "common.cuh"
@@ -22,6 +30,9 @@ namespace dfu {
 namespace {
 
 constexpr int ATT_QCHUNK = 64, ATT_THREADS = 256;
+constexpr int ATT_TK = 64, ATT_RPW = 2;          // the tiled kernel's
+constexpr int ATT_TROWS = (ATT_THREADS / 32) * ATT_RPW;
+constexpr size_t ATT_MAX_SMEM = 232448;          // bytes a block may hold
 
 template <typename T, typename TO, int D>
 __global__ void __launch_bounds__(ATT_THREADS)
@@ -97,17 +108,117 @@ attention_kernel(const T* __restrict__ qkv, TO* __restrict__ out, int n,
 }
 
 template <typename T, typename TO, int D>
+__global__ void __launch_bounds__(ATT_THREADS)
+attention_tiled(const T* __restrict__ qkv, TO* __restrict__ out, int n,
+                int heads, float scale) {
+  extern __shared__ float smem[];
+  constexpr int PER = (D + 31) / 32;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_TROWS;
+  const int c = heads * D, ld = 3 * c;
+  float* ks = smem;                    // ATT_TK x (D + 1)
+  float* vs = ks + ATT_TK * (D + 1);   // ATT_TK x D
+  float* qs = vs + ATT_TK * D;         // ATT_TROWS x D
+  float* ps = qs + ATT_TROWS * D;      // one ATT_TK-row of e per warp
+  const T* base = qkv + static_cast<size_t>(b) * n * ld;
+  for (int i = threadIdx.x; i < ATT_TROWS * D; i += blockDim.x) {
+    const int qi = q0 + i / D, d = i % D;
+    qs[i] = qi < n ? to_f(base[static_cast<size_t>(qi) * ld + h * D + d])
+                   : 0.f;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* p = ps + warp * ATT_TK;
+  float mx[ATT_RPW], sum[ATT_RPW], o[ATT_RPW][PER];
+#pragma unroll
+  for (int r = 0; r < ATT_RPW; ++r) {
+    mx[r] = -INFINITY;
+    sum[r] = 0.f;
+#pragma unroll
+    for (int t = 0; t < PER; ++t) o[r][t] = 0.f;
+  }
+  // pass 0: the row max; pass 1: e = exp(s - max), its sum and e·V
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int j0 = 0; j0 < n; j0 += ATT_TK) {
+      const int cnt = min(ATT_TK, n - j0);
+      for (int i = threadIdx.x; i < cnt * D; i += blockDim.x) {
+        const int j = i / D, d = i % D;
+        const T* row = base + static_cast<size_t>(j0 + j) * ld + h * D + d;
+        ks[j * (D + 1) + d] = to_f(row[c]);
+        if (pass == 1) vs[j * D + d] = to_f(row[2 * c]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < ATT_RPW; ++r) {
+        const float* q = qs + (warp * ATT_RPW + r) * D;
+        for (int jj = lane; jj < cnt; jj += 32) {
+          const float* kr = ks + jj * (D + 1);
+          float s = 0.f;
+#pragma unroll
+          for (int d = 0; d < D; ++d) s = fmaf(q[d], kr[d], s);
+          s *= scale;
+          if (pass == 0) {
+            mx[r] = fmaxf(mx[r], s);
+          } else {
+            const float e = expf(s - mx[r]);
+            sum[r] += e;
+            p[jj] = to_f(from_f<T>(e));  // P·V operand, compute dtype
+          }
+        }
+        if (pass == 1) {
+          __syncwarp();
+          for (int jj = 0; jj < cnt; ++jj) {
+            const float pj = p[jj];
+#pragma unroll
+            for (int t = 0; t < PER; ++t) {
+              const int d = lane + 32 * t;
+              if (d < D) o[r][t] = fmaf(pj, vs[jj * D + d], o[r][t]);
+            }
+          }
+          __syncwarp();                // p is the next row's
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int r = 0; r < ATT_RPW; ++r) {
+      if (pass == 0)
+        mx[r] = warp_max(mx[r]);
+      else
+        sum[r] = warp_sum(sum[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < ATT_RPW; ++r) {
+    const int qi = q0 + warp * ATT_RPW + r;
+    if (qi >= n) continue;
+    TO* orow = out + (static_cast<size_t>(b) * n + qi) * c + h * D;
+#pragma unroll
+    for (int t = 0; t < PER; ++t) {
+      const int d = lane + 32 * t;
+      if (d < D) orow[d] = from_f<TO>(o[r][t] / sum[r]);
+    }
+  }
+}
+
+// The whole-head kernel when the head's K and V fit one block, else the
+// tiled one (the same output).
+template <typename T, typename TO, int D>
 int launch_attention(const void* qkv, void* out, int batch, int n, int heads,
                      float scale, cudaStream_t s) {
-  const size_t smem =
+  const size_t whole =
       sizeof(float) * (static_cast<size_t>(n) * (2 * D + 1) +
                        static_cast<size_t>(ATT_THREADS / 32) * n);
+  const bool tiled = whole > ATT_MAX_SMEM;
+  const size_t smem =
+      tiled ? sizeof(float) * (ATT_TK * (2 * D + 1) + ATT_TROWS * D +
+                               (ATT_THREADS / 32) * ATT_TK)
+            : whole;
+  auto kernel = tiled ? attention_tiled<T, TO, D> : attention_kernel<T, TO, D>;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T, TO, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(cdiv(n, ATT_QCHUNK), heads, batch);
-  attention_kernel<T, TO, D><<<grid, ATT_THREADS, smem, s>>>(
+  dim3 grid(cdiv(n, tiled ? ATT_TROWS : ATT_QCHUNK), heads, batch);
+  kernel<<<grid, ATT_THREADS, smem, s>>>(
       static_cast<const T*>(qkv), static_cast<TO*>(out), n, heads, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -311,5 +311,19 @@ void launch_gemm(int dtype, const void* a, const void* b, const float* bias,
   }
 }
 
+// out (m, n) = epilogue(a (m, k) @ B) over a dense row-major A, with B
+// = b (k, n), or b (n, k) read transposed when trans_b.
+template <int EPI>
+void launch_gemm_t(int dtype, int trans_b, const void* a, const void* b,
+                   const float* bias, void* aux, void* out, int m, int n,
+                   int k, cudaStream_t s) {
+  if (trans_b)
+    launch_gemm<EPI, true, DenseA>(dtype, a, b, bias, aux, out, m, n, k, s,
+                                   k);
+  else
+    launch_gemm<EPI, false, DenseA>(dtype, a, b, bias, aux, out, m, n, k, s,
+                                    k);
+}
+
 }  // namespace
 }  // namespace dfu

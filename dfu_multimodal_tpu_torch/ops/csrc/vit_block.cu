@@ -5,8 +5,11 @@
 //   x + fc2(GELU(fc1(LN2(x))))) and ::_mlp_block_bwd_kernel (K4: LN2/fc1
 //   recompute, dGELU, dx with the LN backward, y/h/dhpre for the weight
 //   gradients, dg2/db2), the Pallas kernels of the fused ViT-B/16 encoder.
-//   The attention-block backward (vit_block.py::_attn_block_bwd) also runs
-//   its LayerNorm, data products and LN backward on these kernels.
+//   The attention-block backward chain rule (vit_block.py::_attn_block_bwd)
+//   also runs its LayerNorm, data products and LN backward on these
+//   kernels; the one-kernel attention-block backward K10 has its own entry
+//   in attn_block_bwd.cu over the same LayerNorm (layernorm.cuh) and GEMM
+//   (gemm_tile.cuh) kernels.
 //
 // What bounds it on the H100: at the serving batch (8 images, 1576 token
 //   rows) each forward block reads 14 MB of bf16 weights for ~22 GFLOP,
@@ -22,14 +25,16 @@
 //   128 rows') whole block in VMEM and carry sums across a sequential
 //   grid.  A Hopper SM has 227 KB of shared memory and blocks run in
 //   parallel in no order, so each TPU kernel becomes a chain of launches
-//   that each fill the card: a warp-per-row fp32 LayerNorm, one tiled GEMM
-//   template (gemm_tile.cuh: bf16 operands on the tensor cores through
-//   WMMA, fp32 operands on the FMA pipes, fp32 accumulation either way; B
-//   read as stored or transposed, so dh = g·w2ᵀ and dy = dhpre·w1ᵀ need no
-//   copy of the weights) whose epilogue adds the bias and applies exact-erf
-//   GELU, the residual, or the exact dGELU of the fc1 pre-activation, and the
+//   that each fill the card: a warp-per-row fp32 LayerNorm
+//   (layernorm.cuh), one tiled GEMM template (gemm_tile.cuh: bf16
+//   operands on the tensor cores through WMMA, fp32 operands on the FMA
+//   pipes, fp32 accumulation either way; B read as stored or transposed,
+//   so dh = g·w2ᵀ and dy = dhpre·w1ᵀ need no copy of the weights) whose
+//   epilogue adds the bias and applies exact-erf GELU, the residual, or
+//   the exact dGELU of the fc1 pre-activation, and the
 //   attention core of attention_core.cuh, which holds one head's K and V
-//   in shared memory with an exact two-pass fp32 softmax.  K4's dg2/db2, a
+//   in shared memory (or, past ~420 tokens at D = 64, streams them in key
+//   tiles) with an exact two-pass fp32 softmax.  K4's dg2/db2, a
 //   sum over all rows that the TPU grid accumulated in order, becomes
 //   per-64-row column partials in a (blocks, C) fp32 buffer reduced by a
 //   second pass: deterministic, no atomics.  The ragged row edge (3152
@@ -49,159 +54,7 @@
 #include "attention_core.cuh"
 #include "common.cuh"
 #include "gemm_tile.cuh"
-
-namespace dfu {
-namespace {
-
-// ----------------------------------------------------------- LayerNorm
-// One warp per row; three passes over the row (mean, centred variance,
-// write), all in fp32.  rows x C in, rows x C out in the compute dtype.
-template <typename T>
-__global__ void layernorm_kernel(const T* __restrict__ x,
-                                 const float* __restrict__ g,
-                                 const float* __restrict__ b,
-                                 T* __restrict__ y, int rows, int c,
-                                 float eps) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const T* xr = x + static_cast<size_t>(row) * c;
-  T* yr = y + static_cast<size_t>(row) * c;
-  float s = 0.f;
-  for (int i = lane; i < c; i += 32) s += to_f(xr[i]);
-  const float mu = warp_sum(s) / c;
-  float v = 0.f;
-  for (int i = lane; i < c; i += 32) {
-    const float d = to_f(xr[i]) - mu;
-    v += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(v) / c + eps);
-  for (int i = lane; i < c; i += 32)
-    yr[i] = from_f<T>((to_f(xr[i]) - mu) * rstd * g[i] + b[i]);
-}
-
-// ---------------------------------------------------- LayerNorm backward
-// dx = resid + rstd·(dxhat − mean(dxhat) − xhat·mean(dxhat·xhat)) with
-// dxhat = dy·gamma, one warp per row in fp32 (statistics recomputed from
-// x as the forward does); each row's mean and rstd go to `stats` (2, rows)
-// for the column pass.
-template <typename T>
-__global__ void layernorm_bwd_rows(const T* __restrict__ x,
-                                   const T* __restrict__ resid,
-                                   const float* __restrict__ dy,
-                                   const float* __restrict__ gamma,
-                                   T* __restrict__ dx,
-                                   float* __restrict__ stats, int rows, int c,
-                                   float eps) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const size_t base = static_cast<size_t>(row) * c;
-  float s = 0.f;
-  for (int i = lane; i < c; i += 32) s += to_f(x[base + i]);
-  const float mu = warp_sum(s) / c;
-  float v = 0.f;
-  for (int i = lane; i < c; i += 32) {
-    const float d = to_f(x[base + i]) - mu;
-    v += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(v) / c + eps);
-  float m1 = 0.f, m2 = 0.f;
-  for (int i = lane; i < c; i += 32) {
-    const float dxh = dy[base + i] * gamma[i];
-    m1 += dxh;
-    m2 += dxh * (to_f(x[base + i]) - mu) * rstd;
-  }
-  m1 = warp_sum(m1) / c;
-  m2 = warp_sum(m2) / c;
-  for (int i = lane; i < c; i += 32) {
-    const float xh = (to_f(x[base + i]) - mu) * rstd;
-    const float dxh = dy[base + i] * gamma[i];
-    dx[base + i] =
-        from_f<T>(to_f(resid[base + i]) + rstd * (dxh - m1 - xh * m2));
-  }
-  if (lane == 0) {
-    stats[row] = mu;
-    stats[rows + row] = rstd;
-  }
-}
-
-// Column partials over LNB_ROWS rows: partial[0][blk][col] = Σ dy·xhat,
-// partial[1][blk][col] = Σ dy.  One thread per column, rows in order.
-constexpr int LNB_ROWS = 64, LNB_THREADS = 128;
-
-template <typename T>
-__global__ void layernorm_bwd_partials(const T* __restrict__ x,
-                                       const float* __restrict__ dy,
-                                       const float* __restrict__ stats,
-                                       float* __restrict__ partial, int rows,
-                                       int c) {
-  const int col = blockIdx.x * LNB_THREADS + threadIdx.x;
-  const int blk = blockIdx.y, nblk = gridDim.y;
-  if (col >= c) return;
-  const int r0 = blk * LNB_ROWS, r1 = min(r0 + LNB_ROWS, rows);
-  float s1 = 0.f, s2 = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    const size_t i = static_cast<size_t>(r) * c + col;
-    const float xh = (to_f(x[i]) - stats[r]) * stats[rows + r];
-    s1 += dy[i] * xh;
-    s2 += dy[i];
-  }
-  partial[static_cast<size_t>(blk) * c + col] = s1;
-  partial[static_cast<size_t>(nblk + blk) * c + col] = s2;
-}
-
-// dgamma[col] = Σ_blk partial[0][blk][col], dbeta likewise, blocks in order.
-__global__ void layernorm_bwd_reduce(const float* __restrict__ partial,
-                                     float* __restrict__ dgamma,
-                                     float* __restrict__ dbeta, int nblk,
-                                     int c) {
-  const int col = blockIdx.x * LNB_THREADS + threadIdx.x;
-  if (col >= c) return;
-  float s1 = 0.f, s2 = 0.f;
-  for (int b = 0; b < nblk; ++b) {
-    s1 += partial[static_cast<size_t>(b) * c + col];
-    s2 += partial[static_cast<size_t>(nblk + b) * c + col];
-  }
-  dgamma[col] = s1;
-  dbeta[col] = s2;
-}
-
-template <int EPI>
-void launch_gemm_t(int dtype, int trans_b, const void* a, const void* b,
-                   const float* bias, void* aux, void* out, int m, int n,
-                   int k, cudaStream_t s) {
-  if (trans_b)
-    launch_gemm<EPI, true, DenseA>(dtype, a, b, bias, aux, out, m, n, k, s,
-                                   k);
-  else
-    launch_gemm<EPI, false, DenseA>(dtype, a, b, bias, aux, out, m, n, k, s,
-                                    k);
-}
-
-template <typename T>
-void launch_layernorm_bwd(const void* x, const void* resid, const void* dy,
-                          const void* gamma, void* dx, void* stats,
-                          void* partial, void* dgamma, void* dbeta, int rows,
-                          int c, float eps, cudaStream_t s) {
-  const int threads = 256, rows_per_block = threads / 32;
-  layernorm_bwd_rows<T><<<cdiv(rows, rows_per_block), threads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(resid),
-      static_cast<const float*>(dy), static_cast<const float*>(gamma),
-      static_cast<T*>(dx), static_cast<float*>(stats), rows, c, eps);
-  const int nblk = cdiv(rows, LNB_ROWS);
-  layernorm_bwd_partials<T><<<dim3(cdiv(c, LNB_THREADS), nblk), LNB_THREADS,
-                              0, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dy),
-      static_cast<const float*>(stats), static_cast<float*>(partial), rows,
-      c);
-  layernorm_bwd_reduce<<<cdiv(c, LNB_THREADS), LNB_THREADS, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dgamma),
-      static_cast<float*>(dbeta), nblk, c);
-}
-
-}  // namespace
-}  // namespace dfu
+#include "layernorm.cuh"
 
 using namespace dfu;
 
@@ -218,16 +71,10 @@ int dfu_layernorm(int device, int dtype, const void* x, const void* g,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256, rows_per_block = threads / 32;
-  const int blocks = cdiv(rows, rows_per_block);
   if (dtype == DT_BF16)
-    layernorm_kernel<bf16><<<blocks, threads, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<const float*>(g),
-        static_cast<const float*>(b), static_cast<bf16*>(y), rows, c, eps);
+    launch_layernorm<bf16>(x, g, b, y, rows, c, eps, s);
   else
-    layernorm_kernel<float><<<blocks, threads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g),
-        static_cast<const float*>(b), static_cast<float*>(y), rows, c, eps);
+    launch_layernorm<float>(x, g, b, y, rows, c, eps, s);
   DFU_RETURN_LAST_ERROR();
 }
 

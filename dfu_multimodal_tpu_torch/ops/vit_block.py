@@ -16,13 +16,25 @@ the projection and qkv products, LN backward in fp32) and
 Function``s: forward = K1 / K2, saving only the block inputs (remat, as
 the JAX custom VJPs), backward = the chain rules.
 
+:func:`attn_block_bwd_fused` is K10 (``_attn_block_bwd_kernel``, the
+JAX package's alternative one-kernel VJP ``_attn_block_bwd_fused``): the
+whole attention-block backward, dx and all six parameter gradients, from
+one C entry of ``csrc/attn_block_bwd.cu`` that runs only the port's own
+kernels, the weight gradients included.  :class:`AttnBlockFusedBwd` puts
+it behind autograd (forward K1, backward K10).  No model selects it, as
+no model of the JAX package does; its entry point is the op.  Attention
+at any token count: a head too long for one block's shared memory runs
+the tiled attention kernels of ``csrc/attention_kernels.cuh``.
+
 Dispatch is by device only.  A CPU tensor takes the plain versions
 (``*_ref``); a CUDA tensor launches the kernels of ``csrc/vit_block.cu``
 and ``csrc/attention.cu`` or raises.  Arguments keep the JAX order and
 layouts: x (B, N, C) in the compute dtype, weights (in, out) in the
-compute dtype, LayerNorm params and biases fp32.  The weight-gradient
-products dw = aᵀ·b are fp32-result ``torch.matmul``s outside the kernels
-(as the JAX package leaves them to XLA), rounded to the weight's dtype.
+compute dtype, LayerNorm params and biases fp32.  The chain rules'
+weight-gradient products dw = aᵀ·b are fp32-result ``torch.matmul``s
+outside the kernels (as the JAX package leaves them to XLA), rounded to
+the weight's dtype; K10 computes them in its own kernels, as the TPU
+kernel does.
 
 GELU is exact erf on both paths (the Pallas kernels use a logistic
 approximation only because Mosaic cannot lower erf), so the backward uses
@@ -33,6 +45,7 @@ fp32, or in fp64 for fp64 inputs (``torch.autograd.gradcheck``).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -40,7 +53,8 @@ import torch.nn.functional as F
 
 from dfu_multimodal_tpu_torch.ops import _build
 from dfu_multimodal_tpu_torch.ops.attention import (
-    acc_dtype as _acc, qkv_attention_fwdbwd, qkv_attention_fwdbwd_ref)
+    _HEAD_DIMS as _ATTN_HEAD_DIMS, acc_dtype as _acc, qkv_attention_fwdbwd,
+    qkv_attention_fwdbwd_ref)
 
 LN_EPS = 1e-6
 # epilogues of csrc/vit_block.cu::dfu_gemm
@@ -49,6 +63,11 @@ LN_EPS = 1e-6
 _HEAD_DIMS = (16, 32, 64, 128)          # head dims the attention core takes
 
 _I, _P, _F = _build.I, _build.P, _build.F
+_K10_SIGNATURES = {
+    "dfu_attn_block_bwd_scratch": [_I, _I, _I, _I, _I, _P],
+    "dfu_attn_block_bwd_fused": [_I, _I] + [_P] * 15 + [_I, _I, _I, _I, _F,
+                                                       _F, _P],
+}
 _SIGNATURES = {
     "dfu_layernorm": [_I, _I, _P, _P, _P, _P, _I, _I, _F, _P],
     "dfu_layernorm_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -360,13 +379,15 @@ def _attn_grads(dx, dg1, db1, y, dqkv, attn, g, wqkv, wproj, needs):
 
 
 def attn_block_bwd_ref(x, g, g1, b1, wqkv, bqkv, wproj, num_heads,
-                       needs=(True,) * 7):
+                       needs=(True,) * 7, prescale=False):
     """Plain version of :func:`attn_block_bwd` (the JAX
-    ``_attn_block_bwd`` in torch, with the plain K5 on every device)."""
+    ``_attn_block_bwd`` in torch, with the plain K5 on every device).
+    ``prescale``: q scaled in the compute dtype for every head dim, as
+    K10 does (:func:`attn_block_bwd_fused_ref`)."""
     y = _layernorm_f32(x, g1, b1).to(x.dtype)
     qkv = (_mm_f32(y, wqkv) + bqkv.to(_acc(x))).to(x.dtype)
     dattn = _mm_f32(g, wproj.t()).to(x.dtype)
-    attn, dqkv = qkv_attention_fwdbwd_ref(qkv, dattn, num_heads)
+    attn, dqkv = qkv_attention_fwdbwd_ref(qkv, dattn, num_heads, prescale)
     dy = _mm_f32(dqkv, wqkv.t())
     dx, dg1, db1 = _ln_bwd_ref(x, g, dy, g1)
     return _attn_grads(dx, dg1, db1, y, dqkv, attn, g, wqkv, wproj, needs)
@@ -454,3 +475,98 @@ class MlpBlock(torch.autograd.Function):
         x, g2, b2, w1, b1, w2 = ctx.saved_tensors
         return mlp_block_grads(x, g.contiguous(), g2, b2, w1, b1, w2,
                                ctx.b2b_dtype, ctx.needs_input_grad)
+
+
+# ------------------------------------------------------------------ K10
+
+
+def _k10_lib():
+    return _build.load("attn_block_bwd", _K10_SIGNATURES)
+
+
+def attn_block_bwd_fused_ref(x, g, g1, b1, wqkv, bqkv, wproj, bproj,
+                             num_heads):
+    """Plain version of :func:`attn_block_bwd_fused`: K10's numerics
+    (``_attn_block_bwd_kernel``), which are the chain rule's but for q
+    scaled in the compute dtype for every head dim; each gradient rounded
+    to its input's dtype."""
+    grads = attn_block_bwd_ref(x, g, g1, b1, wqkv, bqkv, wproj, num_heads,
+                               prescale=True)
+    return tuple(t.to(p.dtype) for t, p in
+                 zip(grads, (x, g1, b1, wqkv, bqkv, wproj, bproj)))
+
+
+def attn_block_bwd_fused(x: torch.Tensor, g: torch.Tensor,
+                         g1: torch.Tensor, b1: torch.Tensor,
+                         wqkv: torch.Tensor, bqkv: torch.Tensor,
+                         wproj: torch.Tensor, bproj: torch.Tensor,
+                         num_heads: int):
+    """K10: the whole backward of :func:`attn_block` from its inputs and
+    the output gradient g (x's shape and dtype).  Returns the gradients of
+    (x, g1, b1, wqkv, bqkv, wproj, bproj), the order of the JAX VJP: dx in
+    x's dtype, the others computed in fp32 (summed over the batch in a
+    fixed order, no atomics) and rounded to their parameter's dtype
+    (bproj is read for its dtype only).  On a CUDA tensor one C entry runs
+    the port's kernels alone, nothing of torch between the inputs and the
+    fp32 results."""
+    if x.device.type == "cpu":
+        return attn_block_bwd_fused_ref(x, g, g1, b1, wqkv, bqkv, wproj,
+                                        bproj, num_heads)
+    _build.check_cuda_operands(
+        "attn_block_bwd_fused", x,
+        {"x": x, "g": g, "wqkv": wqkv, "wproj": wproj},
+        {"g1": g1, "b1": b1, "bqkv": bqkv})
+    bsz, n, c = x.shape
+    d = c // num_heads
+    if (d * num_heads != c or d not in _ATTN_HEAD_DIMS or g.shape != x.shape
+            or wqkv.shape != (c, 3 * c) or wproj.shape != (c, c)
+            or g1.shape != (c,) or b1.shape != (c,)
+            or bqkv.shape != (3 * c,) or bproj.shape != (c,)):
+        raise ValueError(
+            f"attn_block_bwd_fused: x {tuple(x.shape)}, g {tuple(g.shape)} "
+            f"with {num_heads} heads, wqkv {tuple(wqkv.shape)}, wproj "
+            f"{tuple(wproj.shape)}: want C = heads * D with D in "
+            f"{_ATTN_HEAD_DIMS} and (C, 3C), (C, C) weights")
+    lib, dev = _k10_lib(), x.device
+    code = _build.DTYPE_CODES[x.dtype]
+    nbytes = ctypes.c_longlong()
+    _build.check(lib, lib.dfu_attn_block_bwd_scratch(
+        code, bsz, n, c, num_heads, ctypes.addressof(nbytes)),
+        "attn_block_bwd_fused scratch")
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+    dx = torch.empty_like(x)
+    dwqkv, dbqkv, dwproj, dbproj, dg1, db1 = (
+        torch.empty(shape, dtype=torch.float32, device=dev)
+        for shape in ((c, 3 * c), (3 * c,), (c, c), (c,), (c,), (c,)))
+    _build.check(lib, lib.dfu_attn_block_bwd_fused(
+        dev.index, code, *(t.data_ptr() for t in (
+            x, g, g1, b1, wqkv, bqkv, wproj, dx, dwqkv, dbqkv, dwproj,
+            dbproj, dg1, db1, scratch)), bsz, n, c, num_heads, d ** -0.5,
+        LN_EPS, _build.stream_of(x)), "attn_block_bwd_fused")
+    attn_block_bwd_fused.launches += 1
+    return (dx, dg1.to(g1.dtype), db1.to(b1.dtype), dwqkv.to(wqkv.dtype),
+            dbqkv.to(bqkv.dtype), dwproj.to(wproj.dtype),
+            dbproj.to(bproj.dtype))
+
+
+attn_block_bwd_fused.launches = 0
+
+
+class AttnBlockFusedBwd(torch.autograd.Function):
+    """Trainable :func:`attn_block` with K10 as its backward (the JAX
+    tests' ``fused_bwd_block``): forward K1, saving only the block
+    inputs; backward :func:`attn_block_bwd_fused`.
+    ``apply(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads)``."""
+
+    @staticmethod
+    def forward(ctx, x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(x, g1, b1, wqkv, bqkv, wproj, bproj)
+        return attn_block(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, g1, b1, wqkv, bqkv, wproj, bproj = ctx.saved_tensors
+        grads = attn_block_bwd_fused(x, g.contiguous(), g1, b1, wqkv, bqkv,
+                                     wproj, bproj, ctx.num_heads)
+        return grads + (None,)

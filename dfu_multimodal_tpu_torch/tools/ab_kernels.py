@@ -1,13 +1,22 @@
-"""Time the ViT kernels of two checkouts on one card, in turns.
+"""Time the ViT kernels of two checkouts on one card, in turns, and
+compare their outputs bit for bit.
 
     python -m dfu_multimodal_tpu_torch.tools.ab_kernels PARENT_DIR
 
-Runs ``chip_smoke.py``'s forward and backward kernel phases (3 and 3b:
-K1-K5 against their plain versions, CUDA events) from PARENT_DIR, from
-this checkout twice, then from PARENT_DIR again — parent, change,
-change, parent — each in a process of its own, which builds its
-checkout's kernels into that checkout's ``build/``.  Prints the card's
-name and power limit, then each kernel line prefixed by its turn.  Two
+Runs ``chip_smoke.py``'s kernel phases 3, 3b, 3c and 3e (K1-K9 against
+their plain versions, CUDA events) from PARENT_DIR, from this checkout
+twice, then from PARENT_DIR again — parent, change, change, parent —
+each in a process of its own, which builds its checkout's kernels into
+that checkout's ``build/``.  Each turn also hashes the outputs of K1,
+K4, K5 (alone and in the chain rule ``attn_block_bwd``), K6, K7, K8, K9
+and, where the checkout has it, K10 at ViT-B/16's attention (N = 197,
+B = 16, seeded inputs, fp32 and bf16) through the public entry points
+(:data:`BITS`), and runs phase 6 (int8 serving, its card vs CPU checks)
+with this checkout's ``zoo.init_model`` in both checkouts, so that a
+change of the int8 path shows apart from a change of the initial weights
+(:data:`INT8`; a failed check there is printed, not fatal).  Prints the
+card's name and power limit, each kernel and int8 line prefixed by its
+turn, and whether every turn's hash of each output is the same.  Two
 versions are compared only within one run: two runs may land on two
 cards.  Needs a CUDA device; exits non-zero without one.
 """
@@ -23,7 +32,75 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[2]
 PHASES = ("import torch, chip_smoke as cs; dev = torch.device('cuda', 0); "
-          "cs.phase_kernels(dev); cs.phase_backward_kernels(dev)")
+          "cs.phase_kernels(dev); cs.phase_backward_kernels(dev); "
+          "cs.phase_q8_kernels(dev); cs.phase_attention_kernels(dev)")
+# phase 6 of the checkout in the working directory, with the weights
+# drawn by this checkout's initialiser (zoo.py at ZOO)
+INT8 = """
+import importlib.util, sys, torch, chip_smoke as cs
+from dfu_multimodal_tpu_torch.models import zoo
+spec = importlib.util.spec_from_file_location("zoo_of_change", {zoo!r})
+mod = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+zoo.init_model = mod.init_model
+cs.phase_int8(torch.device("cuda", 0))
+"""
+ZOO = ROOT / "dfu_multimodal_tpu_torch" / "models" / "zoo.py"
+# sha1 of each kernel's outputs on seeded inputs at N = 197
+BITS = r"""
+import hashlib
+import torch
+from dfu_multimodal_tpu_torch.ops import attention as at
+from dfu_multimodal_tpu_torch.ops import vit_block as vb
+from dfu_multimodal_tpu_torch.ops import vit_block_q8 as q8
+dev = torch.device("cuda", 0)
+b, n, c, heads = 16, 197, 768, 12
+
+
+def sha(*ts):
+    m = hashlib.sha1()
+    for t in ts:
+        m.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy())
+    return m.hexdigest()[:16]
+
+
+for dt in (torch.float32, torch.bfloat16):
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def r(*shape, s=1.0, o=0.0, dtype=dt):
+        return (o + s * torch.randn(*shape, generator=g, device=dev)).to(dtype)
+
+    x, do, qkv = r(b, n, c), r(b, n, c), r(b, n, 3 * c)
+    q, k, v, d9 = (r(b, heads, n, c // heads) for _ in range(4))
+    ln = (r(c, s=0.1, o=1.0, dtype=torch.float32),
+          r(c, s=0.1, dtype=torch.float32))
+    w = (r(c, 3 * c, s=c ** -0.5), r(3 * c, s=0.1, dtype=torch.float32),
+         r(c, c, s=c ** -0.5), r(c, s=0.1, dtype=torch.float32))
+    wq = (*q8.quantize_weight(w[0].float()), w[1],
+          *q8.quantize_weight(w[2].float()), w[3])
+    act = (4.5 / 127, 1.5 / 127)       # K8's calibrated act scales
+    wqs = (wq[0], wq[1] * act[0], wq[2], wq[3], wq[4] * act[1], wq[5],
+           torch.tensor([1 / a for a in act], device=dev))
+    mlp = (r(c, 4 * c, s=c ** -0.5), r(4 * c, s=0.1, dtype=torch.float32),
+           r(4 * c, c, s=(4 * c) ** -0.5))
+    outs = {
+        "K1 attn_block": (vb.attn_block(x, *ln, *w, heads),),
+        "K4 mlp_block_bwd": vb.mlp_block_bwd(x, do, *ln, *mlp),
+        "K5 chain attn_block_bwd": vb.attn_block_bwd(x, do, *ln, *w[:3],
+                                                     heads),
+        "K5 qkv_attention_fwdbwd": at.qkv_attention_fwdbwd(qkv, do, heads),
+        "K6 qkv_attention_fwd": (at.qkv_attention_fwd(qkv, heads),),
+        "K6 qkv_attention_bwd": (at.qkv_attention_bwd(qkv, do, heads),),
+        "K7 attn_block_q8": (q8.attn_block_q8(x, *ln, *wq, heads),),
+        "K8 attn_block_q8s": (q8.attn_block_q8s(x, *ln, *wqs, heads),),
+        "K9 flash_attention_fwd": (at.flash_attention_fwd(q, k, v),),
+        "K9 flash_attention_bwd": at.flash_attention_bwd(q, k, v, d9)}
+    if hasattr(vb, "attn_block_bwd_fused"):
+        outs["K10 attn_block_bwd_fused"] = vb.attn_block_bwd_fused(
+            x, do, *ln, *w, heads)
+    for name, ts in outs.items():
+        print(f"[bits] {name} {str(dt).split('.')[1]} {sha(*ts)}")
+"""
 
 
 def main(argv=None) -> int:
@@ -40,17 +117,31 @@ def main(argv=None) -> int:
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     parent = args.parent.resolve()
+    hashes = {}
+    int8 = INT8.format(zoo=str(ZOO))
     for turn, (tag, tree) in enumerate((("parent", parent), ("change", ROOT),
                                         ("change", ROOT), ("parent", parent)),
                                        start=1):
-        proc = subprocess.run([sys.executable, "-c", PHASES], cwd=tree,
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-            return proc.returncode
-        for line in proc.stdout.splitlines():
-            if line.startswith("[kernel]"):
-                print(f"[turn {turn} {tag}] {line}", flush=True)
+        for code in (PHASES, BITS, int8):
+            proc = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                                  capture_output=True, text=True)
+            if proc.returncode != 0 and code is not int8:
+                print(proc.stdout + proc.stderr, file=sys.stderr)
+                return proc.returncode
+            for line in proc.stdout.splitlines():
+                if line.startswith(("[kernel]", "[split]", "[int8")):
+                    print(f"[turn {turn} {tag}] {line}", flush=True)
+                if line.startswith("[bits]"):
+                    key, digest = line.rsplit(" ", 1)
+                    hashes.setdefault(key, []).append(digest)
+            if code is int8:
+                print(f"[turn {turn} {tag}] phase 6 exit code "
+                      f"{proc.returncode}", flush=True)
+                if proc.returncode != 0:
+                    print(proc.stderr[-600:], flush=True)
+    for key, digests in hashes.items():
+        print(f"{key}: {' '.join(digests)}; equal in all "
+              f"{len(digests)} turns: {len(set(digests)) == 1}", flush=True)
     return 0
 
 

@@ -67,9 +67,10 @@ def _assert_close(out, ref, tol):
 
 
 # (batch, tokens, width, heads): the ViT-B/16 block at the serving batch,
-# and small widths reaching every head dim the attention core takes
+# small widths reaching every head dim the attention core takes, and 577
+# tokens (a 384² image), where the core takes its tiled kernel
 SHAPES = [(2, 197, 768, 12), (3, 20, 64, 4), (2, 33, 128, 4),
-          (1, 9, 512, 4)]
+          (1, 9, 512, 4), (1, 577, 128, 2)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -572,18 +573,103 @@ def test_flash_attention_kernels_match_plain(shape, dtype):
 
 
 def test_attention_kernels_refuse_a_head_that_does_not_fit():
-    """400 rows of D = 64: the backward's K, V, dK and dV exceed a
-    block's shared memory, so the wrappers raise (no plain fallback)."""
+    """400 rows of D = 64: past one block's shared memory for the
+    whole-head kernels (the backward's K, V, dK and dV; the forward's K
+    and V), so the tiled kernels run, and match their plain versions; a
+    head dim no kernel takes (128) is still refused, with no plain
+    fallback."""
     dev = _cuda()
-    qkv = torch.zeros(1, 400, 3 * 64, device=dev)
-    do = torch.zeros(1, 400, 64, device=dev)
-    with pytest.raises(ValueError):
-        at.qkv_attention_bwd(qkv, do, 1)
-    q = torch.zeros(1, 1, 400, 64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for dtype in DTYPES:
+        qkv = _randn(gen, 2, 400, 3 * 128, dtype=dtype)
+        do = _randn(gen, 2, 400, 128, dtype=dtype)
+        _assert_close(at.qkv_attention_fwd(qkv, 2),
+                      at.qkv_attention_ref(qkv, 2), TOL[dtype])
+        _assert_all_close(at.qkv_attention_fwdbwd(qkv, do, 2),
+                          at.qkv_attention_fwdbwd_ref(qkv, do, 2),
+                          TOL[dtype])
+        _assert_close(at.qkv_attention_bwd(qkv, do, 2),
+                      at.qkv_attention_bwd_ref(qkv, do, 2), TOL[dtype])
+        q, k, v, dob = (_randn(gen, 1, 2, 400, 64, dtype=dtype)
+                        for _ in range(4))
+        _assert_close(at.flash_attention_fwd(q, k, v),
+                      at.flash_attention_ref(q, k, v), TOL[dtype])
+        _assert_all_close(at.flash_attention_bwd(q, k, v, dob),
+                          at.flash_attention_bwd_ref(q, k, v, dob),
+                          TOL[dtype])
+    q = torch.zeros(1, 1, 400, 128, device=dev)
     with pytest.raises(ValueError):
         at.flash_attention_bwd(q, q, q, q)
+    with pytest.raises(ValueError):
+        at.qkv_attention_fwd(torch.zeros(1, 400, 3 * 128, device=dev), 1)
     with pytest.raises(TypeError):
-        at.qkv_attention_fwd(qkv.double(), 1)
+        at.qkv_attention_fwd(qkv.double(), 2)
+
+
+# (batch, tokens, width, heads): ViT-B/16's block; D = 8 and 32, where
+# K10 scales q before the product and K5 after it; 226 tokens (a 240²
+# image), which takes the tiled attention kernels
+K10_SHAPES = [(2, 197, 768, 12), (2, 40, 32, 4), (2, 40, 128, 4),
+              (1, 226, 128, 2)]
+# bf16: K10's distance from the fp32 result within 10% of the plain's
+K10_VS_PLAIN = 0.1
+
+
+def _k10_args(dev, b, n, c, dtype, seed):
+    x, (g1, b1), (wqkv, bqkv, wproj, bproj), _ = _block_args(
+        dev, b, n, c, dtype, seed)
+    g = _randn(torch.Generator(device=dev).manual_seed(seed + 1), b, n, c,
+               dtype=dtype)
+    return x, g, g1, b1, wqkv, bqkv, wproj, bproj
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", K10_SHAPES)
+def test_attn_block_bwd_fused_kernel_matches_plain(shape, dtype):
+    """K10 against its plain version: dx per element, and the six
+    parameter gradients (each in its parameter's dtype) per element in
+    fp32; in bf16 within tol·(1 + max|ref|) of each gradient, as they are
+    sums over all rows of bf16-rounded terms whose rounding noise follows
+    the terms, not the sum (the k-bias gradient is 0 in exact
+    arithmetic), and each of the seven results no further from the fp32
+    result on the same values than the plain version is, within
+    K10_VS_PLAIN of its distance plus fp32's TOL·(1 + max|fp32|) for the
+    summation order.  One launch per call."""
+    dev = _cuda()
+    b, n, c, heads = shape
+    args = _k10_args(dev, b, n, c, dtype, seed=60)
+    before = vb.attn_block_bwd_fused.launches
+    out = vb.attn_block_bwd_fused(*args, heads)
+    torch.cuda.synchronize()
+    assert vb.attn_block_bwd_fused.launches == before + 1
+    ref = vb.attn_block_bwd_fused_ref(*args, heads)
+    _assert_close(out[0], ref[0], TOL[dtype])
+    for o, r, p in zip(out[1:], ref[1:], args[2:]):
+        assert o.dtype == r.dtype == p.dtype and o.shape == r.shape
+        if dtype == torch.float32:
+            _assert_close(o, r, TOL[dtype])
+        else:
+            err = float((o.float() - r.float()).abs().max())
+            assert err <= TOL[dtype] * (1 + float(r.float().abs().max()))
+    if dtype == torch.bfloat16:
+        truth = vb.attn_block_bwd_fused_ref(*(a.float() for a in args),
+                                            heads)
+        for i, (o, r, t) in enumerate(zip(out, ref, truth)):
+            k10 = float((o.float() - t).abs().max())
+            plain = float((r.float() - t).abs().max())
+            slack = TOL[torch.float32] * (1 + float(t.abs().max()))
+            assert k10 <= (1 + K10_VS_PLAIN) * plain + slack, (i, k10, plain)
+
+
+def test_attn_block_bwd_fused_is_deterministic():
+    """No atomics: two calls give equal bits, the tiled attention too."""
+    dev = _cuda()
+    for shape in (K10_SHAPES[0], K10_SHAPES[-1]):
+        b, n, c, heads = shape
+        args = _k10_args(dev, b, n, c, torch.bfloat16, seed=61)
+        first = vb.attn_block_bwd_fused(*args, heads)
+        second = vb.attn_block_bwd_fused(*args, heads)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_flax_thermal_on_card_matches_cpu():

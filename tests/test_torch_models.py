@@ -30,6 +30,9 @@ from dfu_multimodal_tpu_torch.models.vit import ViT
 from dfu_multimodal_tpu_torch.tools.convert_jax import (
     resnet_state_dict, variables_to_state_dict, vit_state_dict)
 from dfu_multimodal_tpu_torch.train.engine import Trainer
+from dfu_multimodal_tpu_torch.train.engine import TrainConfig as PortConfig
+from dfu_multimodal_tpu_torch.train.engine import \
+    thermal_modality as port_thermal
 
 torch.set_num_threads(1)
 
@@ -261,6 +264,73 @@ def test_param_count_at_224():
     model, spec = zoo.build("multimodal")
     assert spec.inputs == ("rgb", "thermal")
     assert zoo.param_count(model) == 110_880_834    # tests/test_models.py
+
+
+# ------------------------------------------------------- initialisers
+
+# flax's lecun_normal: a normal truncated at ±2σ_p with σ_p =
+# fan_in^-0.5 / 0.87962566, so that the draw's std is fan_in^-0.5
+TRUNC_STD = 0.87962566103423978
+
+
+@pytest.mark.parametrize("module,fan_in,jax_shape", [
+    (torch.nn.Linear(768, 3072), 768, (768, 3072)),
+    (torch.nn.Conv2d(64, 256, 3), 3 * 3 * 64, (3, 3, 64, 256))],
+    ids=["linear_768_3072", "conv3x3_64"])
+def test_init_model_draws_lecun_normal(module, fan_in, jax_shape):
+    """init_model's weights against jax.nn.initializers.lecun_normal() on
+    the same shape: std within 1% of it, and every |w| within 2·σ_p (the
+    truncation), which the untruncated N(0, 1/fan_in) draw of the same
+    generator breaks."""
+    zoo.init_model(module, torch.Generator().manual_seed(0))
+    w = module.weight.detach()
+    ref = np.asarray(jax.nn.initializers.lecun_normal()(
+        jax.random.PRNGKey(0), jax_shape, jnp.float32))
+    assert abs(float(w.std()) / float(ref.std()) - 1.0) <= 0.01
+    bound = 2.0 * fan_in ** -0.5 / TRUNC_STD
+    assert float(w.abs().max()) <= bound
+    assert float(np.abs(ref).max()) <= bound * (1 + 1e-6)
+    old = torch.empty_like(w).normal_(0.0, fan_in ** -0.5,
+                                      generator=torch.Generator()
+                                      .manual_seed(0))
+    assert float(old.abs().max()) > bound
+    assert module.bias is None or not bool(module.bias.any())
+
+
+# ------------------------------------------------------ block_impl auto
+
+
+def test_block_impl_auto_builds_fused_blocks():
+    """``block_impl="auto"`` resolves to the fused blocks (the JAX
+    ``ViT._resolve_block`` where the kernels run): the same block class
+    and the same features as ``"fused"`` on the same weights."""
+    kw, variables, x, fused = _tiny_vit_variables(block_impl="fused")
+    _, _, _, auto = _tiny_vit_variables(block_impl="auto")
+    assert [type(b) for b in auto.blocks] == [type(b) for b in fused.blocks]
+    assert type(auto.blocks[0]).__name__ == "FusedEncoderBlock"
+    with torch.no_grad():
+        assert torch.equal(auto(torch.from_numpy(x)),
+                           fused(torch.from_numpy(x)))
+    with pytest.raises(ValueError):
+        ViT(image_size=IMAGE, block_impl="fast")
+
+
+def test_trainer_block_impl_auto_takes_a_train_step():
+    trainer = Trainer("thermal_only",
+                      PortConfig(compute_dtype="float32", batch_size=2),
+                      {"thermal": port_thermal()}, device="cpu",
+                      image_size=IMAGE, depth=2, hidden_dim=64, num_heads=4,
+                      patch_size=8, block_impl="auto")
+    assert type(trainer.module.vit.blocks[0]).__name__ == "FusedEncoderBlock"
+    zoo.init_model(trainer.module, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    out = trainer.train_step(
+        {"thermal": rng.integers(0, 256, (2, IMAGE, IMAGE, 3), np.uint8),
+         "label": np.array([0, 1]), "valid": np.ones(2, np.float32)},
+        torch.Generator().manual_seed(0))
+    assert bool(torch.isfinite(out["loss"]))
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in trainer.module.parameters())
 
 
 NO_JAX_SCRIPT = r"""
