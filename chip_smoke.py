@@ -52,6 +52,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               B = 32 in bf16 (12 K10 launches per backward and no K5),
               bit-equal across two runs, timed in turns beside
               ``AttnBlock``'s chain;
+3g. K12     — ``fused_stage`` (one cooperative launch for a stage's
+              identity bottlenecks) against its plain version
+              ``stage_ref`` at ResNet-50's four stage tails, B = 8 and
+              128, fp32 (whole stage within KERNEL_TOL) and bf16 (each
+              block within KERNEL_TOL, the stage's mean distance from the
+              fp32 result within 10% of the plain version's), bit-equal to
+              the K11 chain and across two calls, timed in turns beside
+              the plain version, the K11 chain and the cuDNN chain
+              (``Bottleneck.forward``, eval) of the same blocks; a seeded
+              full-width ResNet-50's ``layer3[1:]`` (BN off identity, the
+              activations of 8 images) on K12 against its cuDNN blocks
+              within phase 7's budget; the device kernels of one call (the
+              port's stage kernel only, no GEMM-tile launch; profiled in
+              a fresh process);
+              ``FusedStage`` gradients on the card (fp32) against autograd
+              through ``stage_ref`` on the CPU; then its entry point,
+              ``FusedStage`` over the four stage tails of a ResNet-50
+              forward and backward in bf16 (4 launches, no K11);
 4. serve    — the full-width multimodal model (ResNet50 + ViT-B/16, random
               weights from a seeded generator) behind Trainer +
               ServingEngine(max_batch=8) in bf16: 24 requests from 3
@@ -108,7 +126,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               loss finite; then for each a depth-2 model's fp32 train
               step on the card against the CPU's plain step at phase 5's
               budgets;
-then the kernels' JSON line (times, bounds, launches, the SDPA times),
+then the kernels' JSON line (times, bounds, launches, the SDPA times,
+K10's and K12's chain times),
 and the device JSON line last.
 
 Exits non-zero with no result line when no CUDA device is present.
@@ -123,6 +142,7 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -134,7 +154,7 @@ from dfu_multimodal_tpu_torch.config import AugmentConfig
 from dfu_multimodal_tpu_torch.data.loader import ArrayDataset
 from dfu_multimodal_tpu_torch.data.transforms import eval_normalize
 from dfu_multimodal_tpu_torch.models import zoo
-from dfu_multimodal_tpu_torch.models.resnet import Bottleneck
+from dfu_multimodal_tpu_torch.models.resnet import Bottleneck, ResNet50
 from dfu_multimodal_tpu_torch.models.vit import quantize_variables
 from dfu_multimodal_tpu_torch.ops import _build
 from dfu_multimodal_tpu_torch.ops import attention as at
@@ -913,6 +933,307 @@ def phase_k10(dev) -> tuple:
     return main, {"attn_block_bwd_fused": launches["attn_block_bwd_fused"]}
 
 
+# --------------------------------------------------------------- phase 3g
+
+# ResNet-50's stride-1 stage tails, the identity blocks after each stage's
+# first: (label, H = W, C, Cmid, blocks)
+RESNET_STAGES = (("stage1", 56, 256, 64, 2), ("stage2", 28, 512, 128, 3),
+                 ("stage3", 14, 1024, 256, 5), ("stage4", 7, 2048, 512, 2))
+STAGE_MAIN = "stage3"           # the kernels line's shape, B = 8 in bf16
+# bf16: over a stage the one-step roundings that KERNEL_TOL admits for one
+# block carry into the next block, so each block is held within KERNEL_TOL
+# of its plain version on the same input (the stage equals the K11 chain
+# bit for bit), and the whole stage's mean distance from the fp32 result
+# on the same values within STAGE_VS_PLAIN of the plain version's
+STAGE_VS_PLAIN = 0.1
+
+
+def _stage_modules(dev, c, cmid, n, gen) -> list:
+    """n identity ``Bottleneck``s (eval) with seeded weights and BatchNorm
+    statistics off identity: their folded_weights feed the kernels, their
+    forward is the cuDNN yardstick of the same blocks."""
+    mods = []
+    for _ in range(n):
+        m = Bottleneck(c, cmid).to(dev).eval()
+        zoo.init_model(m, gen)
+        _perturb_batchnorm(m, gen)
+        mods.append(m)
+    return mods
+
+
+def _k11_chain(x, blocks) -> list:
+    """The inputs and outputs of the K11 chain over ``blocks``."""
+    hs = [x]
+    for blk in blocks:
+        hs.append(rb.fused_bottleneck(hs[-1], *blk))
+    return hs
+
+
+def _stage_case(label, x, blocks, mods) -> dict:
+    """K12 against its plain version (fp32: the whole stage within
+    KERNEL_TOL; bf16: STAGE_VS_PLAIN's two checks), bit-equal to the K11
+    chain and across two calls, then timed in turns with the plain
+    version, the K11 chain and the cuDNN chain of the same blocks."""
+    dtype, tol = x.dtype, KERNEL_TOL[x.dtype]
+    out = rb.fused_stage(x, blocks)
+    again = rb.fused_stage(x, blocks)
+    hs = _k11_chain(x, blocks)
+    ref = rb.stage_ref(x, blocks)
+    torch.cuda.synchronize()
+    abs_err, rel_err = max_errors(out, ref)
+    scaled = float(((out.float() - ref.float()).abs()
+                    / (1.0 + ref.float().abs())).max())
+    chain_equal, calls_equal = torch.equal(out, hs[-1]), torch.equal(out,
+                                                                     again)
+    finite = bool(torch.isfinite(out.float()).all())
+    ok = chain_equal and calls_equal and finite and out.shape == x.shape
+    if dtype == torch.float32:
+        ok = ok and scaled <= tol
+        detail = f"whole stage |err|/(1+|ref|) {scaled:.3e} (tol {tol:g})"
+    else:
+        per_block = max(float(((o.float() - r.float()).abs()
+                               / (1.0 + r.float().abs())).max())
+                        for o, r in ((hs[k + 1], rb.bottleneck_ref(hs[k],
+                                                                   *blk))
+                                     for k, blk in enumerate(blocks)))
+        truth = rb.stage_ref(x.float(), [[t.float() for t in blk]
+                                         for blk in blocks])
+        d_k = float((out.float() - truth).abs().mean())
+        d_p = float((ref.float() - truth).abs().mean())
+        ok = (ok and per_block <= tol
+              and d_k <= (1 + STAGE_VS_PLAIN) * d_p)
+        detail = (f"each block |err|/(1+|ref|) {per_block:.3e} (tol {tol:g}"
+                  f"); whole stage {scaled:.3e}; mean|err| against the fp32 "
+                  f"result, K12 / plain {d_k:.3e} / {d_p:.3e} (within "
+                  f"{1 + STAGE_VS_PLAIN:g}x)")
+    log(f"[stage] fused_stage {label}: max_abs_err={abs_err:.3e} "
+        f"max_rel_err={rel_err:.3e}; {detail}; bit-equal to the K11 chain: "
+        f"{chain_equal}; two calls bit-equal: {calls_equal} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fused_stage {label} disagrees")
+    del out, again, hs, ref
+    xc = x.permute(0, 3, 1, 2)                 # channels-last NCHW view
+
+    def k12():
+        return rb.fused_stage(x, blocks)
+
+    def plain():
+        return rb.stage_ref(x, blocks)
+
+    def chain():
+        return _k11_chain(x, blocks)[-1]
+
+    def cudnn():
+        with torch.inference_mode():
+            h = xc
+            for m in mods:
+                h = m(h)
+            return h
+
+    k_ms, p_ms = _turns(k12, plain)
+    c_ms, n_ms = _turns(chain, cudnn)
+    k_ms2, c_ms2 = _turns(k12, chain)
+    res = {"max_abs_err": abs_err, "ms": (k_ms + k_ms2) / 2,
+           "plain_ms": p_ms, "chain_ms": (c_ms + c_ms2) / 2,
+           "cudnn_ms": n_ms}
+    log(f"[stage] {label}: K12 {res['ms']:.4f} ms ({k_ms:.4f}, "
+        f"{k_ms2:.4f}), K11 chain {res['chain_ms']:.4f} ms, cuDNN "
+        f"Bottleneck.forward chain (eval) {n_ms:.4f} ms, plain {p_ms:.4f} "
+        f"ms, in turns")
+    return res
+
+
+def _stage_tails(net, dtype) -> list:
+    """The folded identity tails of the four stages of a ResNet."""
+    with torch.no_grad():
+        return [[blk.folded_weights(dtype) for blk in getattr(
+            net, f"layer{i}")[1:]] for i in range(1, 5)]
+
+
+# one fused_stage call under torch.profiler in a fresh process: late in
+# this long process the profiler kept the host's cudaLaunchCooperativeKernel
+# but not the device's record of the kernel (plain launches were kept),
+# while a fresh process records both.  Prints the device kernels (name,
+# count) and the host's launch calls (cudaLaunch*, cuLaunch*) as JSON.
+STAGE_PROFILE = r"""
+import json, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from dfu_multimodal_tpu_torch.ops import resnet_block as rb
+dt, dev = getattr(torch, "{dtype}"), torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(7200)
+def r(*shape, s=1.0, d=dt):
+    return (s * torch.randn(*shape, generator=g, device=dev)).to(d)
+c, m = 1024, 256                      # ResNet-50's stage 3 tail, B = 8
+x = r(8, 14, 14, c)
+blocks = [(r(c, m, s=c ** -0.5), r(m, s=0.1, d=torch.float32),
+           r(9 * m, m, s=(9 * m) ** -0.5), r(m, s=0.1, d=torch.float32),
+           r(m, c, s=m ** -0.5), r(c, s=0.1, d=torch.float32))
+          for _ in range(5)]
+rb.fused_stage(x, blocks)             # warm
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    rb.fused_stage(x, blocks)
+    torch.cuda.synchronize()
+events = prof.key_averages()
+print(json.dumps([
+    [[e.key, e.count] for e in events if e.device_type == DeviceType.CUDA],
+    [[e.key, e.count] for e in events
+     if e.device_type == DeviceType.CPU and "Launch" in e.key]]))
+"""
+
+
+def _stage_kernel_names(dtype) -> tuple:
+    """The device kernels (name, count) of one fused_stage call at stage
+    3's tail, B = 8, and the launch calls the host made (STAGE_PROFILE)."""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         STAGE_PROFILE.format(dtype=str(dtype).split(".")[1])],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        check=True)
+    names, calls = json.loads(proc.stdout.strip().splitlines()[-1])
+    return [tuple(n) for n in names], [tuple(c) for c in calls]
+
+
+def phase_stage(dev) -> tuple:
+    """K12 against its plain version at ResNet-50's four stage tails, B = 8
+    and 128, fp32 and bf16 (bit-equal to the K11 chain, two calls
+    bit-equal, timed beside the K11 and cuDNN chains); a seeded full-width
+    ResNet-50's layer3 tail against its cuDNN blocks; the kernels of one
+    call; FusedStage's gradients; then the entry point over the four tails
+    of a ResNet-50 forward and backward.  Returns (the row at stage 3, B =
+    8, bf16; the entry point's launch counts)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in RESNET_BATCHES:
+            for label, hw, c, cmid, n in RESNET_STAGES:
+                g = torch.Generator(device=dev).manual_seed(7000 + b + hw)
+                mods = _stage_modules(dev, c, cmid, n, g)
+                with torch.no_grad():
+                    blocks = [m.folded_weights(dtype) for m in mods]
+                x = _randn(g, b, hw, hw, c, dtype=dtype)
+                bound = _stage_bound(b, hw, c, [cmid] * n)
+                tag = f"{label} {str(dtype).split('.')[1]} B={b}"
+                log(f"[stage] {tag}: {n} blocks, bound "
+                    f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})")
+                res = _stage_case(tag, x, blocks, mods)
+                if dtype == torch.bfloat16 and b == 8 and label == STAGE_MAIN:
+                    main["stage"] = res
+                del x, blocks, mods
+                torch.cuda.empty_cache()
+
+    # a seeded full-width ResNet-50 (BN off identity): layer3's tail on
+    # K12 against its cuDNN blocks, on the activations a batch of images
+    # brings there, within phase 7's budget
+    net = ResNet50(block_impl="flax").to(dev).eval()
+    zoo.init_model(net, torch.Generator(device=dev).manual_seed(7100))
+    _perturb_batchnorm(net, torch.Generator(device=dev).manual_seed(7101))
+    images = _randn(torch.Generator(device=dev).manual_seed(7102), 8, IMAGE,
+                    IMAGE, 3)
+    for dtype, name in ((torch.float32, "float32"),
+                        (torch.bfloat16, "bfloat16")):
+        net.dtype = dtype
+        seen = {}
+        hook = net.layer3[1].register_forward_pre_hook(
+            lambda m, a: seen.setdefault("x", a[0]))
+        with torch.no_grad():
+            net(images)
+            hook.remove()
+            h = seen["x"].contiguous(memory_format=torch.channels_last)
+            ref = net.layer3[1:](h)
+            out = rb.fused_stage(h.permute(0, 2, 3, 1),
+                                 _stage_tails(net, dtype)[2])
+        d = float((out.permute(0, 3, 1, 2).float() - ref.float()).abs().max())
+        scale = 1.0 + float(ref.float().abs().max())
+        tol = SLICE_TOL[name]["logits"]
+        ok = d <= tol * scale
+        log(f"[stage] ResNet-50 layer3[1:] {name} B=8 at {IMAGE}x{IMAGE}: "
+            f"K12 vs cuDNN blocks max|d|={d:.3e} (tol {tol:g}*(1+max|ref|="
+            f"{scale:.3f})) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"fused_stage vs layer3[1:] {name}")
+    net.dtype = torch.float32
+
+    # one call's device kernels: the port's own stage kernel only
+    for dtype in (torch.float32, torch.bfloat16):
+        names, calls = _stage_kernel_names(dtype)
+        log(f"[stage] {str(dtype).split('.')[1]} B=8: one call runs "
+            f"{names}; host launch calls {calls}")
+        if len(names) != 1 or names[0][1] != 1 or "dfu::" not in names[0][0] \
+                or "stage_" not in names[0][0] \
+                or calls != [("cudaLaunchCooperativeKernel", 1)]:
+            raise AssertionError(f"fused_stage ran {names}, {calls}")
+
+    # FusedStage's gradients on the card (fp32) against autograd through
+    # stage_ref on the CPU: JAX's budgets, 5e-5 for x and 1e-4 for the
+    # weights, of 1 + max|ref| of each tensor — the weight gradients are
+    # sums over the B·H·W rows and x's over 5 blocks' channels, so their
+    # rounding noise follows the summed terms, not the element (as phase 5
+    # holds each parameter's gradient against its own max|g|)
+    blocks = _stage_tails(net, torch.float32)[2]
+    x = _randn(torch.Generator(device=dev).manual_seed(7300), 2, 14, 14,
+               1024)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        leaves = [t.detach().to(where).requires_grad_()
+                  for t in [x] + rb.FusedStage.flat(blocks)]
+        if where == "cuda":
+            out = rb.FusedStage.apply(*leaves)
+        else:
+            out = rb.stage_ref(leaves[0], [leaves[i:i + 6] for i in range(
+                1, len(leaves), 6)])
+        (out ** 2).sum().backward()
+        grads[where] = [t.grad.cpu() for t in leaves]
+    worst, element = [0.0, 0.0], [0.0, 0.0]
+    for i, (a, r) in enumerate(zip(grads["cuda"], grads["cpu"])):
+        d = (a - r).abs()
+        worst[i > 0] = max(worst[i > 0],
+                           float(d.max()) / (1.0 + float(r.abs().max())))
+        element[i > 0] = max(element[i > 0], float((d / (1.0 + r.abs())
+                                                    ).max()))
+    ok = worst[0] <= 5e-5 and worst[1] <= 1e-4
+    log(f"[stage] FusedStage gradients, card fp32 vs CPU autograd through "
+        f"stage_ref (B=2, layer3[1:]), max|d|/(1+max|ref|) per tensor: x "
+        f"{worst[0]:.3e} (tol 5e-5), weights {worst[1]:.3e} (tol 1e-4); "
+        f"per element |d|/(1+|ref|), not held: x {element[0]:.3e}, weights "
+        f"{element[1]:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("FusedStage gradients disagree")
+
+    # the entry point: the four identity tails of a ResNet-50 through
+    # FusedStage, forward and backward, bf16 at B = 8
+    net.dtype = torch.bfloat16
+    seen = {}
+    hooks = [getattr(net, f"layer{i}")[1].register_forward_pre_hook(
+        lambda m, a, i=i: seen.setdefault(i, a[0])) for i in range(1, 5)]
+    with torch.no_grad():
+        net(images)
+    for hk in hooks:
+        hk.remove()
+    tails = _stage_tails(net, torch.bfloat16)
+    _reset_launches()
+    for i, blocks in enumerate(tails, start=1):
+        h = seen[i].permute(0, 2, 3, 1).contiguous().requires_grad_()
+        out = rb.FusedStage.apply(h, *rb.FusedStage.flat(blocks))
+        out.float().square().sum().backward()
+        if not bool(torch.isfinite(h.grad.float()).all()):
+            raise AssertionError(f"layer{i} tail gradient not finite")
+    torch.cuda.synchronize(dev)
+    launches = {"stage": rb.fused_stage.launches,
+                "bottleneck": rb.fused_bottleneck.launches}
+    log(f"[stage] FusedStage over ResNet-50's four stage tails, forward + "
+        f"backward, bf16 B=8: launches {launches}")
+    if launches != {"stage": 4, "bottleneck": 0}:
+        raise AssertionError(f"stage launches {launches}")
+    del net, tails, seen, images
+    torch.cuda.empty_cache()
+    return main, {"stage": launches["stage"]}
+
+
 # ---------------------------------------------------------------- phase 4
 
 N_REQUESTS, N_THREADS, IMAGE = 24, 3, 224
@@ -1016,7 +1337,7 @@ def phase_slice(dev) -> dict:
             "fused_mlp": n_batches}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
-    if _resnet_launches() != {"bottleneck": 0, "bottleneck_proj": 0}:
+    if any(_resnet_launches().values()):
         raise AssertionError(f"the multimodal RGB branch launched the fused "
                              f"bottleneck: {_resnet_launches()}")
 
@@ -1082,11 +1403,13 @@ def _reset_launches() -> None:
     q8.attn_block_q8.launches = q8.mlp_block_q8.launches = 0
     q8.attn_block_q8s.launches = q8.mlp_block_q8s.launches = 0
     rb.fused_bottleneck.launches = rb.fused_bottleneck.proj_launches = 0
+    rb.fused_stage.launches = 0
 
 
 def _resnet_launches() -> dict:
     return {"bottleneck": rb.fused_bottleneck.launches,
-            "bottleneck_proj": rb.fused_bottleneck.proj_launches}
+            "bottleneck_proj": rb.fused_bottleneck.proj_launches,
+            "stage": rb.fused_stage.launches}
 
 
 class _StepMeter:
@@ -1435,7 +1758,7 @@ def phase_rgb(dev) -> dict:
     want.update(bottleneck=12 * n_batches, bottleneck_proj=n_batches)
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
-    counts = _resnet_launches()
+    counts = {k: v for k, v in _resnet_launches().items() if k != "stage"}
 
     # the card (served bf16, fused fp32) against the CPU's plain fp32 path,
     # and the card's fused fp32 against its cuDNN fp32 blocks
@@ -1710,6 +2033,17 @@ def _bottleneck_bound(b, hw, cin, cmid, cout) -> dict:
                   2 * (rows * (cin + cout) + weights) + 4 * biases)
 
 
+def _stage_bound(b, hw, c, cmids) -> dict:
+    """K12 in bf16: 2·rows·(2·C·Cmid + 9·Cmid²) operations per block;
+    x read and the output written once, each block's bf16 weights and
+    fp32 biases read once."""
+    rows = b * hw * hw
+    weights = sum(2 * c * m + 9 * m * m for m in cmids)
+    biases = sum(2 * m + c for m in cmids)
+    return _bound({torch.bfloat16: 2 * rows * weights},
+                  2 * (2 * rows * c + weights) + 4 * biases)
+
+
 def kernel_bounds() -> dict:
     """Bounds at each kernel's path shape: K1-K2, the int8 blocks and the
     K6/K9 forwards at the serving batch 8, K3 at batch 8 in fp32, K4-K5,
@@ -1759,6 +2093,7 @@ def kernel_bounds() -> dict:
         "mlp_block_q8s": _bound(mlp_q8[0], mlp_q8[1] + 2 * f32),
         "bottleneck": _bottleneck_bound(8, 14, 1024, 256, 1024),
         "bottleneck_proj": _bottleneck_bound(8, 56, 64, 64, 256),
+        "stage": _stage_bound(8, 14, 1024, [256] * 5),
         # K10: qkv 6, dattn 2, dwproj 2, dwqkv 6, dy 6 (units of B·N·C²),
         # attention forward 4 and backward 8 (B·N²·C); x, g read and dx
         # written, the weights read, dwqkv and dwproj written in fp32,
@@ -1789,6 +2124,9 @@ def main() -> int:
     k10, k10_launches = phase_k10(dev)
     times.update(k10)
     launches.update(k10_launches)
+    stage, stage_launches = phase_stage(dev)
+    times.update(stage)
+    launches.update(stage_launches)
     launches.update(phase_slice(dev))
     launches.update({k: v for k, v in phase_train(dev).items()
                      if k in ("mlp_block_bwd", "qkv_attention_fwdbwd")})
@@ -1817,7 +2155,8 @@ def main() -> int:
         "flash_attention_bwd": ("attention.cu", "attention.py:88"),
         "bottleneck": ("resnet_block.cu", "resnet_block.py:108"),
         "bottleneck_proj": ("resnet_block.cu", "resnet_block.py:130"),
-        "attn_block_bwd_fused": ("attn_block_bwd.cu", "vit_block.py:264")}
+        "attn_block_bwd_fused": ("attn_block_bwd.cu", "vit_block.py:264"),
+        "stage": ("resnet_block.cu", "resnet_block.py:116")}
     # library_ms: SDPA's time where one call computes the kernel's
     # function (the K6/K9 forwards), else null (no single PyTorch call
     # computes K10: its row carries the K5 chain rule's time as chain_ms)

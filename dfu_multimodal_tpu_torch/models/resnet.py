@@ -84,6 +84,22 @@ class Bottleneck(nn.Module):
             shortcut = self.downsample[1](_conv(self.downsample[0], x))
         return F.relu(y + shortcut)
 
+    def folded_weights(self, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
+        """The block in the fused kernels' layouts, BN folded into the
+        convs in fp32: (w1, b1, w2, b2, w3, b3), plus (wd, bd) with a
+        projection shortcut; weights in ``dtype``, biases fp32
+        (``ops/resnet_block.py``).  Differentiable in the parameters."""
+        w1, b1 = _dense(self.conv1, self.bn1, dtype)
+        w2, b2 = _fold_bn(self.conv2, self.bn2)
+        cmid = w2.shape[0]
+        # row-stacked 3x3 taps, (dy, dx) row-major: HWIO reshaped
+        w2 = w2.permute(2, 3, 1, 0).reshape(9 * cmid, cmid).to(dtype)
+        w3, b3 = _dense(self.conv3, self.bn3, dtype)
+        if self.downsample is None:
+            return w1, b1, w2, b2, w3, b3
+        return (w1, b1, w2, b2, w3, b3,
+                *_dense(self.downsample[0], self.downsample[1], dtype))
+
     def forward_fused(self, x: torch.Tensor) -> torch.Tensor:
         """The same block through the fused kernel (stride 1, eval): BN
         folded into the convs, weights in x's dtype, biases fp32.  x and
@@ -91,18 +107,9 @@ class Bottleneck(nn.Module):
         views, so no copy is made either way."""
         if self.stride != 1:
             raise ValueError("the fused bottleneck is stride-1 only")
-        dt = x.dtype
-        w1, b1 = _dense(self.conv1, self.bn1, dt)
-        w2, b2 = _fold_bn(self.conv2, self.bn2)
-        cmid = w2.shape[0]
-        # row-stacked 3x3 taps, (dy, dx) row-major: HWIO reshaped
-        w2 = w2.permute(2, 3, 1, 0).reshape(9 * cmid, cmid).to(dt)
-        w3, b3 = _dense(self.conv3, self.bn3, dt)
-        wd = bd = None
-        if self.downsample is not None:
-            wd, bd = _dense(self.downsample[0], self.downsample[1], dt)
-        out = FusedBottleneck.apply(x.permute(0, 2, 3, 1), w1, b1, w2, b2,
-                                    w3, b3, wd, bd)
+        w = self.folded_weights(x.dtype)
+        out = FusedBottleneck.apply(x.permute(0, 2, 3, 1), *w,
+                                    *(None,) * (8 - len(w)))
         return out.permute(0, 3, 1, 2)
 
 

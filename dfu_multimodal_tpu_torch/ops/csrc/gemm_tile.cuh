@@ -11,6 +11,10 @@
 // NHWC rows (the implicit GEMM of the ResNet bottleneck).  Ragged M/N/K
 // are zero-filled on load and masked on store.  The A and B tiles are
 // loaded element by element and not pipelined (TMA + wgmma is later work).
+// Each tile body is a __device__ function of its origin and its shared
+// buffers: the __global__ kernels below run one tile per block, and a
+// persistent kernel (resnet_block.cu's stage kernel) loops one block
+// over many tiles with buffers (WmmaSmem, SimtSmem) it declares once.
 #pragma once
 
 #include "common.cuh"
@@ -137,21 +141,32 @@ constexpr int WBM = 64, WBN = 64, WBK = 32, WTHREADS = 128;
 constexpr int WLDA = WBK + 8, WLDB = WBN + 8, WLDBT = WBK + 8, WLDC = WBN + 4;
 constexpr int WBS = (WBK * WLDB > WBN * WLDBT) ? WBK * WLDB : WBN * WLDBT;
 
+// The shared memory of one bf16 tile: a persistent kernel declares it
+// once and passes it to every tile it computes (a __shared__ array
+// declared inside the tile function would be allocated once for each
+// instantiation).
+struct WmmaSmem {
+  __align__(32) bf16 As[WBM * WLDA];
+  __align__(32) bf16 Bs[WBS];
+  __align__(32) float Cs[WBM * WLDC];
+};
+
+// The output tile at (row0, col0), computed by the block's WTHREADS
+// threads.  It ends with the epilogue reading Cs: a caller that runs
+// another tile with the same buffers synchronises the block first.
 template <int EPI, bool TRANS_B, typename ALoad>
-__global__ void __launch_bounds__(WTHREADS)
-gemm_bf16_wmma(ALoad A, const bf16* __restrict__ B,
+__device__ __forceinline__ void
+gemm_bf16_tile(ALoad A, const bf16* __restrict__ B,
                const float* __restrict__ bias, void* __restrict__ aux,
-               void* __restrict__ out, int m, int n, int k) {
+               void* __restrict__ out, int m, int n, int k, int row0,
+               int col0, bf16* __restrict__ As, bf16* __restrict__ Bs,
+               float* __restrict__ Cs) {
   using namespace nvcuda;
   using BLayout = std::conditional_t<TRANS_B, wmma::col_major,
                                      wmma::row_major>;
   constexpr int RSTEP = WTHREADS / WBK, NROWS = WBM / RSTEP;
-  __shared__ __align__(32) bf16 As[WBM * WLDA];
-  __shared__ __align__(32) bf16 Bs[WBS];
-  __shared__ __align__(32) float Cs[WBM * WLDC];
   const int tid = threadIdx.x, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
-  const int row0 = blockIdx.y * WBM, col0 = blockIdx.x * WBN;
   const int a_col = tid % WBK, a_row = tid / WBK;
   const bf16 zero = __float2bfloat16_rn(0.f);
 
@@ -225,21 +240,42 @@ gemm_bf16_wmma(ALoad A, const bf16* __restrict__ B,
   }
 }
 
+// One 64x64 output tile per block: grid (cdiv(n, WBN), cdiv(m, WBM)).
+template <int EPI, bool TRANS_B, typename ALoad>
+__global__ void __launch_bounds__(WTHREADS)
+gemm_bf16_wmma(ALoad A, const bf16* __restrict__ B,
+               const float* __restrict__ bias, void* __restrict__ aux,
+               void* __restrict__ out, int m, int n, int k) {
+  __shared__ __align__(32) bf16 As[WBM * WLDA];
+  __shared__ __align__(32) bf16 Bs[WBS];
+  __shared__ __align__(32) float Cs[WBM * WLDC];
+  gemm_bf16_tile<EPI, TRANS_B>(A, B, bias, aux, out, m, n, k,
+                               blockIdx.y * WBM, blockIdx.x * WBN, As, Bs,
+                               Cs);
+}
+
 // ---------------------------------------------------- fp32 GEMM (SIMT)
 // Same contract with fp32 operands on the FMA pipes (no TF32): a 64x64
 // tile per block of 256 threads, 4x4 outputs per thread, K in steps of 16.
 constexpr int SBM = 64, SBN = 64, SBK = 16, STHREADS = 256;
 
+struct SimtSmem {
+  float As[SBK][SBM + 4];  // transposed: As[k][m]
+  float Bs[SBK][SBN + 4];
+};
+
+// The output tile at (row0, col0), computed by the block's STHREADS
+// threads; as gemm_bf16_tile, a caller that runs another tile with the
+// same buffers synchronises the block first.
 template <int EPI, bool TRANS_B, typename ALoad>
-__global__ void __launch_bounds__(STHREADS)
-gemm_f32_simt(ALoad A, const float* __restrict__ B,
+__device__ __forceinline__ void
+gemm_f32_tile(ALoad A, const float* __restrict__ B,
               const float* __restrict__ bias, void* __restrict__ aux,
-              void* __restrict__ out, int m, int n, int k) {
+              void* __restrict__ out, int m, int n, int k, int row0,
+              int col0, float (*__restrict__ As)[SBM + 4],
+              float (*__restrict__ Bs)[SBN + 4]) {
   constexpr int RSTEP = STHREADS / SBK, NROWS = SBM / RSTEP;
-  __shared__ float As[SBK][SBM + 4];  // transposed: As[k][m]
-  __shared__ float Bs[SBK][SBN + 4];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int row0 = blockIdx.y * SBM, col0 = blockIdx.x * SBN;
   const int a_col = tid % SBK, a_row = tid / SBK;
 
   typename ALoad::Row rows[NROWS];
@@ -289,6 +325,18 @@ gemm_f32_simt(ALoad A, const float* __restrict__ B,
       if (gr < m && gc < n)
         store_out<float, EPI>(acc[i][j], gr, gc, n, bias, aux, out);
     }
+}
+
+// One 64x64 output tile per block: grid (cdiv(n, SBN), cdiv(m, SBM)).
+template <int EPI, bool TRANS_B, typename ALoad>
+__global__ void __launch_bounds__(STHREADS)
+gemm_f32_simt(ALoad A, const float* __restrict__ B,
+              const float* __restrict__ bias, void* __restrict__ aux,
+              void* __restrict__ out, int m, int n, int k) {
+  __shared__ float As[SBK][SBM + 4];
+  __shared__ float Bs[SBK][SBN + 4];
+  gemm_f32_tile<EPI, TRANS_B>(A, B, bias, aux, out, m, n, k,
+                              blockIdx.y * SBM, blockIdx.x * SBN, As, Bs);
 }
 
 // out (m, n) = epilogue(A @ B) in the compute dtype `dtype`, with A staged

@@ -39,7 +39,143 @@
 #include "common.cuh"
 #include "gemm_tile.cuh"
 
+#include <cooperative_groups.h>
+
 using namespace dfu;
+
+// ------------------------------------------------------ the stage kernel
+//
+// Replaces: dfu_multimodal_tpu/ops/resnet_block.py::_stage_kernel (K12):
+//   the stride-1 identity bottlenecks of one ResNet stage chained in one
+//   kernel, x <- relu(x + T(conv3(relu(conv3x3(relu(conv1 x + b1)) + b2))
+//   + b3)) for each block, BatchNorm folded by the caller, Cin = Cout = C
+//   and each block's own Cmid.  On the TPU the activations between blocks
+//   never leave VMEM.
+//
+// What bounds it on the H100: ResNet-50's stage tails at the serving batch
+//   (8 images, bf16) do 3.49 GFLOP per block against one read of x, one
+//   write of the output and each block's weights: 7.8 us at 56x56 (bytes),
+//   10.6, 17.7 and 7.1 us at 28x28, 14x14 and 7x7 (operations;
+//   chip_smoke.py::kernel_bounds).
+//
+// What the design does about it: one SM holds 227 KB of shared memory and
+//   one 56x56x256 bf16 image is 1.6 MB, so the TPU's whole-image blocks do
+//   not carry over.  This is one persistent cooperative launch per stage:
+//   a grid no larger than the card can hold at once walks block by block
+//   through three phases, conv1 + bias + ReLU -> y1, the 3x3 implicit GEMM
+//   + bias + ReLU -> y2, conv3 + bias + residual + ReLU -> the next
+//   activation, each block of threads looping over the phase's 64x64
+//   output tiles (gemm_tile.cuh, the tiles K11 runs, so the result equals
+//   the chain of K11 calls bit for bit) with a grid-wide barrier between
+//   phases (3n - 1 in all): the 3x3 reads neighbouring rows of y1, conv3
+//   all of y2's columns and the next conv1 all of the activation's.  y1,
+//   y2 and a second activation buffer are scratch that the wrapper
+//   allocates; at the serving batch they fit the 50 MB L2 (stage 1: 12.8
+//   MB per activation, 3.2 MB each for y1 and y2), so the barrier takes
+//   the place of a launch gap and most inter-block traffic stays in L2.
+//   Tiles plus a halo kept in shared memory, or clusters with distributed
+//   shared memory, are the next speed work.
+//
+// Block k reads its input (x for k = 0) and writes the other buffer; the
+// caller's x is never written, and the order is chosen so that the last
+// block writes out.
+
+namespace dfu {
+namespace {
+
+namespace cg = cooperative_groups;
+
+// the most blocks one launch takes (ResNet-152's stage 3 has 35 identity
+// blocks): the weight pointers travel in the kernel's parameter space
+constexpr int kMaxStageBlocks = 40;
+
+struct StageParams {
+  const void* x;
+  void* out;
+  void* buf;          // the second activation buffer (rows, c); n >= 2
+  void* y1;           // (rows, max cmid) scratch, the compute dtype
+  void* y2;
+  const void* w[kMaxStageBlocks][3];     // w1 (c, cmid), w2 (9·cmid,
+  const float* b[kMaxStageBlocks][3];    // cmid), w3 (cmid, c); b1, b2, b3
+  int cmid[kMaxStageBlocks];
+  int nblocks, rows, h, w_img, c;
+};
+
+// The tiles of one phase, out (m, n) = epilogue(A @ B): block i of the
+// grid computes tiles i, i + gridDim.x, ... (row-major over the tile
+// grid), then synchronises so that the next tile may reuse its buffers.
+template <int EPI, typename ALoad>
+__device__ __forceinline__ void phase_tiles(ALoad A, const bf16* B,
+                                            const float* bias, void* aux,
+                                            void* out, int m, int n, int k,
+                                            WmmaSmem& sm) {
+  const int tn = (n + WBN - 1) / WBN, tiles = tn * ((m + WBM - 1) / WBM);
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    gemm_bf16_tile<EPI, false>(A, B, bias, aux, out, m, n, k,
+                               (t / tn) * WBM, (t % tn) * WBN, sm.As, sm.Bs,
+                               sm.Cs);
+    __syncthreads();
+  }
+}
+
+template <int EPI, typename ALoad>
+__device__ __forceinline__ void phase_tiles(ALoad A, const float* B,
+                                            const float* bias, void* aux,
+                                            void* out, int m, int n, int k,
+                                            SimtSmem& sm) {
+  const int tn = (n + SBN - 1) / SBN, tiles = tn * ((m + SBM - 1) / SBM);
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    gemm_f32_tile<EPI, false>(A, B, bias, aux, out, m, n, k,
+                              (t / tn) * SBM, (t % tn) * SBN, sm.As, sm.Bs);
+    __syncthreads();
+  }
+}
+
+template <typename T, typename Smem>
+__device__ __forceinline__ void stage_body(const StageParams& p, Smem& sm) {
+  cg::grid_group grid = cg::this_grid();
+  const int rows = p.rows, c = p.c;
+  T* y1 = static_cast<T*>(p.y1);
+  T* y2 = static_cast<T*>(p.y2);
+  const T* cur = static_cast<const T*>(p.x);
+  for (int blk = 0; blk < p.nblocks; ++blk) {
+    const int cmid = p.cmid[blk];
+    T* nxt = static_cast<T*>(((p.nblocks - 1 - blk) % 2 == 0) ? p.out
+                                                              : p.buf);
+    phase_tiles<EPI_BIAS_RELU>(DenseA<T>{cur, rows, c},
+                               static_cast<const T*>(p.w[blk][0]),
+                               p.b[blk][0], nullptr, y1, rows, cmid, c, sm);
+    grid.sync();
+    phase_tiles<EPI_BIAS_RELU>(Conv3x3A<T>{y1, rows, cmid, p.h, p.w_img},
+                               static_cast<const T*>(p.w[blk][1]),
+                               p.b[blk][1], nullptr, y2, rows, cmid,
+                               9 * cmid, sm);
+    grid.sync();
+    phase_tiles<EPI_BIAS_RESID_RELU>(DenseA<T>{y2, rows, cmid},
+                                     static_cast<const T*>(p.w[blk][2]),
+                                     p.b[blk][2], const_cast<T*>(cur), nxt,
+                                     rows, c, cmid, sm);
+    if (blk + 1 < p.nblocks) grid.sync();
+    cur = nxt;
+  }
+}
+
+// __grid_constant__: the blocks' tables are indexed at run time, read in
+// the parameter space where they arrive, not copied per thread.
+__global__ void __launch_bounds__(WTHREADS)
+stage_bf16_wmma(const __grid_constant__ StageParams p) {
+  __shared__ WmmaSmem sm;
+  stage_body<bf16>(p, sm);
+}
+
+__global__ void __launch_bounds__(STHREADS)
+stage_f32_simt(const __grid_constant__ StageParams p) {
+  __shared__ SimtSmem sm;
+  stage_body<float>(p, sm);
+}
+
+}  // namespace
+}  // namespace dfu
 
 extern "C" {
 
@@ -78,6 +214,74 @@ int dfu_bottleneck(int device, int dtype, const void* x, const void* w1,
   launch_gemm<EPI_BIAS_RESID_RELU, false, DenseA>(
       dtype, y2, w3, static_cast<const float*>(b3),
       const_cast<void*>(shortcut), out, rows, cout, cmid, s, cmid);
+  DFU_RETURN_LAST_ERROR();
+}
+
+int dfu_stage_max_blocks() { return kMaxStageBlocks; }
+
+// One cooperative launch for n identity bottlenecks on x (rows, c) in the
+// compute dtype, rows = B·h·w image-major.  weights holds 6·n pointers,
+// block by block (w1, b1, w2, b2, w3, b3) in fused_bottleneck's layouts;
+// cmids the n Cmid.  Scratch: y1, y2 (rows, max cmid) and, for n >= 2,
+// buf (rows, c), all in the compute dtype.  Returns cudaErrorNotSupported
+// on a card without cooperative launch, and the launch's own error
+// (cudaErrorCooperativeLaunchTooLarge among them) otherwise.
+int dfu_resnet_stage(int device, int dtype, const void* x,
+                     const void* const* weights, const int* cmids,
+                     int nblocks, void* y1, void* y2, void* buf, void* out,
+                     int rows, int h, int w, int c, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (nblocks < 1 || nblocks > kMaxStageBlocks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int coop = 0, sms = 0;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  StageParams p{};
+  p.x = x;
+  p.out = out;
+  p.buf = buf;
+  p.y1 = y1;
+  p.y2 = y2;
+  p.nblocks = nblocks;
+  p.rows = rows;
+  p.h = h;
+  p.w_img = w;
+  p.c = c;
+  const bool bf = dtype == DT_BF16;
+  const int bm = bf ? WBM : SBM, bn = bf ? WBN : SBN;
+  int tiles = 0;                 // of the largest phase
+  for (int i = 0; i < nblocks; ++i) {
+    const void* const* wb = weights + 6 * i;
+    p.w[i][0] = wb[0];
+    p.w[i][1] = wb[2];
+    p.w[i][2] = wb[4];
+    p.b[i][0] = static_cast<const float*>(wb[1]);
+    p.b[i][1] = static_cast<const float*>(wb[3]);
+    p.b[i][2] = static_cast<const float*>(wb[5]);
+    p.cmid[i] = cmids[i];
+    const int widest = cmids[i] > c ? cmids[i] : c;
+    const int t = cdiv(rows, bm) * cdiv(widest, bn);
+    if (t > tiles) tiles = t;
+  }
+  const void* kernel = bf ? reinterpret_cast<const void*>(stage_bf16_wmma)
+                          : reinterpret_cast<const void*>(stage_f32_simt);
+  const int threads = bf ? WTHREADS : STHREADS;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const int grid = tiles < per_sm * sms ? tiles : per_sm * sms;
+  void* args[] = {&p};
+  // a refused launch returns its error and leaves it as the last error:
+  // read it back so that it is cleared, not reported by the next call
+  cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args, 0,
+                              static_cast<cudaStream_t>(stream));
   DFU_RETURN_LAST_ERROR();
 }
 

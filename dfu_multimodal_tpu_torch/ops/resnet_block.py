@@ -1,10 +1,12 @@
-"""Fused stride-1 ResNet bottleneck: hand-written Hopper kernel, plain
-version, and the rematerialising backward.
+"""Fused stride-1 ResNet bottleneck and whole-stage chain: hand-written
+Hopper kernels, plain versions, and the rematerialising backwards.
 
 Counterpart of ``dfu_multimodal_tpu/ops/resnet_block.py::
 fused_bottleneck`` (the Pallas ``_bottleneck_kernel`` and
-``_bottleneck_proj_kernel``, K11).  With BatchNorm folded into the
-convolutions by the caller (``models/resnet.py``):
+``_bottleneck_proj_kernel``, K11) and ``::fused_stage`` (the Pallas
+``_stage_kernel``, K12: a stage's identity bottlenecks in one launch).
+With BatchNorm folded into the convolutions by the caller
+(``models/resnet.py::Bottleneck.folded_weights``):
 
     out = relu(sc + T(conv3(relu(conv3x3(relu(conv1 x + b1)) + b2)) + b3))
 
@@ -14,16 +16,18 @@ dtype; w1 (Cin, Cmid), w2 (9·Cmid, Cmid) row-stacked 3x3 taps ((dy, dx)
 row-major, i.e. HWIO reshaped), w3 (Cmid, Cout), wd (Cin, Cout) in the
 compute dtype; biases fp32.
 
-Dispatch is by device only: a CPU tensor takes :func:`bottleneck_ref`, a
-CUDA tensor launches ``csrc/resnet_block.cu`` or raises.
-:class:`FusedBottleneck` is the ``torch.autograd.Function``: forward the
-kernel, backward autograd through :func:`bottleneck_ref` from the saved
-inputs (remat, as the JAX custom VJP; there is no backward kernel).
+Dispatch is by device only: a CPU tensor takes the plain version
+(:func:`bottleneck_ref`, :func:`stage_ref`), a CUDA tensor launches
+``csrc/resnet_block.cu`` or raises.  :class:`FusedBottleneck` and
+:class:`FusedStage` are the ``torch.autograd.Function``s: forward the
+kernel, backward autograd through the plain version from the saved
+inputs (remat, as the JAX custom VJPs; there is no backward kernel).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +39,9 @@ from dfu_multimodal_tpu_torch.ops.vit_block import _mm_f32
 _I, _P = _build.I, _build.P
 _SIGNATURES = {
     "dfu_bottleneck": [_I, _I] + [_P] * 13 + [_I] * 6 + [_P],
+    "dfu_resnet_stage": [_I, _I, _P, _P, _P, _I] + [_P] * 4 + [_I] * 4
+    + [_P],
+    "dfu_stage_max_blocks": [],
 }
 
 
@@ -137,14 +144,132 @@ class FusedBottleneck(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
-        needs = ctx.needs_input_grad
-        if not any(needs):
-            return (None,) * 9
-        with torch.enable_grad():
-            inputs = [None if t is None else t.detach().requires_grad_(n)
-                      for t, n in zip(saved, needs)]
-            out = bottleneck_ref(*inputs)
-            wanted = [t for t, n in zip(inputs, needs) if n]
-            grads = iter(torch.autograd.grad(out, wanted, g))
-        return tuple(next(grads) if n else None for n in needs)
+        return _remat_grads(bottleneck_ref, ctx, g)
+
+
+def _remat_grads(plain, ctx, g) -> tuple:
+    """The gradients an autograd Function's backward returns: autograd
+    through ``plain`` run again on the saved inputs (None stays None)."""
+    needs = ctx.needs_input_grad
+    if not any(needs):
+        return (None,) * len(needs)
+    with torch.enable_grad():
+        inputs = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, needs)]
+        out = plain(*inputs)
+        wanted = [t for t, n in zip(inputs, needs) if n]
+        grads = iter(torch.autograd.grad(out, wanted, g))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+# ------------------------------------------------------------ the stage
+
+Block = Tuple[torch.Tensor, ...]
+_STAGE_NAMES = ("w1", "b1", "w2", "b2", "w3", "b3")
+
+
+def stage_ref(x: torch.Tensor, blocks: Sequence[Block]) -> torch.Tensor:
+    """Plain version of :func:`fused_stage` (mirrors the JAX
+    ``_stage_ref``): :func:`bottleneck_ref` of each identity block in
+    turn."""
+    for w1, b1, w2, b2, w3, b3 in blocks:
+        x = bottleneck_ref(x, w1, b1, w2, b2, w3, b3)
+    return x
+
+
+def _check_stage(x: torch.Tensor, blocks: Sequence[Block]) -> list:
+    """Raise unless ``blocks`` is a non-empty sequence of identity
+    bottlenecks (w1, b1, w2, b2, w3, b3) on x's C = Cin = Cout, each with
+    its own Cmid.  Returns the Cmids."""
+    if x.dim() != 4:
+        raise ValueError(f"fused_stage: x {tuple(x.shape)}, want "
+                         f"(B, H, W, C)")
+    if not blocks:
+        raise ValueError("fused_stage: blocks is empty")
+    c, cmids = x.shape[-1], []
+    for i, blk in enumerate(blocks):
+        if len(blk) != 6:
+            raise ValueError(
+                f"fused_stage: block {i} has {len(blk)} tensors; the stage "
+                f"takes identity blocks only, (w1, b1, w2, b2, w3, b3) "
+                f"(a projection shortcut runs on fused_bottleneck)")
+        cmid = blk[0].shape[-1]
+        want = {"w1": (c, cmid), "b1": (cmid,), "w2": (9 * cmid, cmid),
+                "b2": (cmid,), "w3": (cmid, c), "b3": (c,)}
+        got = {k: tuple(t.shape) for k, t in zip(_STAGE_NAMES, blk)}
+        if got != want:
+            raise ValueError(
+                f"fused_stage: block {i} of x {tuple(x.shape)} has {got}; "
+                f"want {want} (identity: Cin == Cout == C)")
+        cmids.append(cmid)
+    return cmids
+
+
+def fused_stage(x: torch.Tensor, blocks: Sequence[Block]) -> torch.Tensor:
+    """A stage's stride-1 identity bottlenecks, BatchNorm pre-folded, in
+    ONE kernel launch.  x (B, H, W, C) contiguous NHWC; ``blocks`` a
+    sequence of (w1, b1, w2, b2, w3, b3) in :func:`fused_bottleneck`'s
+    layouts, each with Cin == Cout == C and its own Cmid.  Returns (B, H,
+    W, C) contiguous in x's dtype, equal bit for bit to the chain of
+    :func:`fused_bottleneck` calls over the same blocks.  Counts
+    ``fused_stage.launches``."""
+    cmids = _check_stage(x, blocks)
+    if x.device.type == "cpu":
+        return stage_ref(x, blocks)
+    for i, blk in enumerate(blocks):
+        w1, b1, w2, b2, w3, b3 = blk
+        _build.check_cuda_operands(
+            f"fused_stage block {i}", x, {"x": x, "w1": w1, "w2": w2,
+                                          "w3": w3},
+            {"b1": b1, "b2": b2, "b3": b3})
+    lib = _lib()
+    if len(blocks) > lib.dfu_stage_max_blocks():
+        raise ValueError(f"fused_stage: {len(blocks)} blocks; one launch "
+                         f"takes at most {lib.dfu_stage_max_blocks()}")
+    bsz, h, w, c = x.shape
+    rows = bsz * h * w
+    y1 = torch.empty((rows, max(cmids)), dtype=x.dtype, device=x.device)
+    y2 = torch.empty_like(y1)
+    buf = torch.empty_like(x) if len(blocks) > 1 else None
+    out = torch.empty_like(x)
+    weights = (ctypes.c_void_p * (6 * len(blocks)))(
+        *[t.data_ptr() for blk in blocks for t in blk])
+    _build.check(lib, lib.dfu_resnet_stage(
+        x.device.index, _build.DTYPE_CODES[x.dtype], x.data_ptr(), weights,
+        (ctypes.c_int * len(cmids))(*cmids), len(blocks), y1.data_ptr(),
+        y2.data_ptr(), None if buf is None else buf.data_ptr(),
+        out.data_ptr(), rows, h, w, c, _build.stream_of(x)), "fused_stage")
+    fused_stage.launches += 1
+    return out
+
+
+# launch count: one per call that ran the kernel (CPU calls do not count)
+fused_stage.launches = 0
+
+
+class FusedStage(torch.autograd.Function):
+    """Trainable :func:`fused_stage` (the JAX custom VJP): forward the
+    kernel, saving only x and the weights; backward rematerialises
+    through :func:`stage_ref` under autograd.  ``apply(x, *flat)`` with
+    ``flat`` the blocks' tensors in order, six per block
+    (:meth:`flat`)."""
+
+    @staticmethod
+    def flat(blocks: Sequence[Block]) -> list:
+        return [t for blk in blocks for t in blk]
+
+    @staticmethod
+    def forward(ctx, x, *flat):
+        ctx.save_for_backward(x, *flat)
+        return fused_stage(x, _blocks(flat))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _remat_grads(lambda x, *flat: stage_ref(x, _blocks(flat)),
+                            ctx, g)
+
+
+def _blocks(flat: Sequence[torch.Tensor]) -> list:
+    """Six tensors per block, in order (a short last block is refused by
+    fused_stage's checks)."""
+    return [tuple(flat[i:i + 6]) for i in range(0, len(flat), 6)]

@@ -1,17 +1,20 @@
-"""Time the ViT kernels of two checkouts on one card, in turns, and
-compare their outputs bit for bit.
+"""Time the kernels of two checkouts on one card, in turns, and compare
+their outputs bit for bit.
 
     python -m dfu_multimodal_tpu_torch.tools.ab_kernels PARENT_DIR
 
-Runs ``chip_smoke.py``'s kernel phases 3, 3b, 3c and 3e (K1-K9 against
-their plain versions, CUDA events) from PARENT_DIR, from this checkout
-twice, then from PARENT_DIR again — parent, change, change, parent —
-each in a process of its own, which builds its checkout's kernels into
-that checkout's ``build/``.  Each turn also hashes the outputs of K1,
-K4, K5 (alone and in the chain rule ``attn_block_bwd``), K6, K7, K8, K9
-and, where the checkout has it, K10 at ViT-B/16's attention (N = 197,
-B = 16, seeded inputs, fp32 and bf16) through the public entry points
-(:data:`BITS`), and runs phase 6 (int8 serving, its card vs CPU checks)
+Runs ``chip_smoke.py``'s kernel phases 3, 3b, 3c, 3d and 3e (K1-K9 and
+K11 against their plain versions, CUDA events) from PARENT_DIR, from
+this checkout twice, then from PARENT_DIR again — parent, change,
+change, parent — each in a process of its own, which builds its
+checkout's kernels into that checkout's ``build/``.  Each turn also
+hashes the outputs of K1, K2, K4, K5 (alone and in the chain rule
+``attn_block_bwd``), K6, K7, K8, K9 and, where the checkout has it, K10
+at ViT-B/16's attention (N = 197, B = 16, seeded inputs, fp32 and bf16),
+of K11 at ResNet-50's stage 3 identity block and stage 1 projection
+block and, where the checkout has it, of K12 at stage 3's tail (B = 8)
+through the public entry points (:data:`BITS`), and runs phase 6 (int8
+serving, its card vs CPU checks)
 with this checkout's ``zoo.init_model`` in both checkouts, so that a
 change of the int8 path shows apart from a change of the initial weights
 (:data:`INT8`; a failed check there is printed, not fatal).  Prints the
@@ -33,7 +36,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 PHASES = ("import torch, chip_smoke as cs; dev = torch.device('cuda', 0); "
           "cs.phase_kernels(dev); cs.phase_backward_kernels(dev); "
-          "cs.phase_q8_kernels(dev); cs.phase_attention_kernels(dev)")
+          "cs.phase_q8_kernels(dev); cs.phase_resnet_kernels(dev); "
+          "cs.phase_attention_kernels(dev)")
 # phase 6 of the checkout in the working directory, with the weights
 # drawn by this checkout's initialiser (zoo.py at ZOO)
 INT8 = """
@@ -51,6 +55,7 @@ BITS = r"""
 import hashlib
 import torch
 from dfu_multimodal_tpu_torch.ops import attention as at
+from dfu_multimodal_tpu_torch.ops import resnet_block as rb
 from dfu_multimodal_tpu_torch.ops import vit_block as vb
 from dfu_multimodal_tpu_torch.ops import vit_block_q8 as q8
 dev = torch.device("cuda", 0)
@@ -83,8 +88,24 @@ for dt in (torch.float32, torch.bfloat16):
            torch.tensor([1 / a for a in act], device=dev))
     mlp = (r(c, 4 * c, s=c ** -0.5), r(4 * c, s=0.1, dtype=torch.float32),
            r(4 * c, c, s=(4 * c) ** -0.5))
+    b2b = r(c, s=0.1, dtype=torch.float32)
+
+    def bottleneck(cin, cmid, cout):       # BN-folded, fused_bottleneck's
+        return [r(cin, cmid, s=cin ** -0.5),   # layouts
+                r(cmid, s=0.1, dtype=torch.float32),
+                r(9 * cmid, cmid, s=(9 * cmid) ** -0.5),
+                r(cmid, s=0.1, dtype=torch.float32),
+                r(cmid, cout, s=cmid ** -0.5),
+                r(cout, s=0.1, dtype=torch.float32)]
+
+    x3 = r(8, 14, 14, 1024)                   # stage 3, B = 8
+    stage3 = [bottleneck(1024, 256, 1024) for _ in range(5)]
+    x1 = r(8, 56, 56, 64)                     # stage 1's projection block
+    proj = bottleneck(64, 64, 256) + [r(64, 256, s=0.125),
+                                      r(256, s=0.1, dtype=torch.float32)]
     outs = {
         "K1 attn_block": (vb.attn_block(x, *ln, *w, heads),),
+        "K2 mlp_block": (vb.mlp_block(x, *ln, *mlp, b2b),),
         "K4 mlp_block_bwd": vb.mlp_block_bwd(x, do, *ln, *mlp),
         "K5 chain attn_block_bwd": vb.attn_block_bwd(x, do, *ln, *w[:3],
                                                      heads),
@@ -98,6 +119,15 @@ for dt in (torch.float32, torch.bfloat16):
     if hasattr(vb, "attn_block_bwd_fused"):
         outs["K10 attn_block_bwd_fused"] = vb.attn_block_bwd_fused(
             x, do, *ln, *w, heads)
+    outs["K11 fused_bottleneck stage3"] = (rb.fused_bottleneck(
+        x3, *stage3[0]),)
+    outs["K11 fused_bottleneck proj"] = (rb.fused_bottleneck(x1, *proj),)
+    h = x3
+    for blk in stage3:
+        h = rb.fused_bottleneck(h, *blk)
+    outs["K11 chain stage3"] = (h,)
+    if hasattr(rb, "fused_stage"):
+        outs["K12 fused_stage stage3"] = (rb.fused_stage(x3, stage3),)
     for name, ts in outs.items():
         print(f"[bits] {name} {str(dt).split('.')[1]} {sha(*ts)}")
 """

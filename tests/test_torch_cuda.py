@@ -525,6 +525,122 @@ def test_rgb_only_fused_eval_on_card_matches_cpu_and_cudnn():
         np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
 
 
+# ------------------------------------------------- whole-stage kernel K12
+
+# (batch, H=W, C, Cmid, blocks): ResNet-50's four stage tails, and a small
+# ragged stage (K = 9·24 and 40 not multiples of the tile's K step)
+STAGE_SHAPES = [(2, 56, 256, 64, 2), (2, 28, 512, 128, 3),
+                (2, 14, 1024, 256, 5), (2, 7, 2048, 512, 2),
+                (3, 5, 40, 24, 3)]
+
+
+def _stage_args(dev, shape, dtype, seed):
+    """x (B, H, W, C) and the blocks' (w1, b1, w2, b2, w3, b3)."""
+    b, hw, c, cmid, n = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn(g, b, hw, hw, c, dtype=dtype)
+    blocks = [(_randn(g, c, cmid, scale=c ** -0.5, dtype=dtype),
+               _randn(g, cmid, scale=0.1),
+               _randn(g, 9 * cmid, cmid, scale=(9 * cmid) ** -0.5,
+                      dtype=dtype),
+               _randn(g, cmid, scale=0.1),
+               _randn(g, cmid, c, scale=cmid ** -0.5, dtype=dtype),
+               _randn(g, c, scale=0.1)) for _ in range(n)]
+    return x, blocks
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", STAGE_SHAPES)
+def test_stage_kernel_matches_plain(shape, dtype):
+    """One launch per call.  fp32: the stage within TOL of stage_ref.
+    bf16: the one-step roundings TOL admits for a block carry into the
+    next, so each block of the chain that the kernel runs is held within
+    TOL of its plain version on the same input."""
+    dev = _cuda()
+    x, blocks = _stage_args(dev, shape, dtype, seed=8)
+    before = rb.fused_stage.launches
+    out = rb.fused_stage(x, blocks)
+    torch.cuda.synchronize()
+    assert rb.fused_stage.launches == before + 1
+    if dtype == torch.float32:
+        _assert_close(out, rb.stage_ref(x, blocks), TOL[dtype])
+        return
+    h = x
+    for blk in blocks:
+        nxt = rb.fused_bottleneck(h, *blk)
+        _assert_close(nxt, rb.bottleneck_ref(h, *blk), TOL[dtype])
+        h = nxt
+    assert torch.equal(out, h)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", STAGE_SHAPES)
+def test_stage_kernel_equals_the_k11_chain(shape, dtype):
+    dev = _cuda()
+    x, blocks = _stage_args(dev, shape, dtype, seed=9)
+    h = x
+    for blk in blocks:
+        h = rb.fused_bottleneck(h, *blk)
+    assert torch.equal(rb.fused_stage(x, blocks), h)
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 40, 24, 3), (2, 7, 64, 16, 2)])
+def test_stage_remat_backward_on_card(shape):
+    """FusedStage on the card in fp32: the kernel forward and the
+    gradients of x and every block weight (remat through stage_ref)
+    against autograd of stage_ref on the CPU."""
+    dev = _cuda()
+    x, blocks = _stage_args(dev, shape, torch.float32, seed=10)
+    results = {}
+    for where in (dev, "cpu"):
+        leaves = [t.detach().to(where).requires_grad_(True)
+                  for t in [x] + rb.FusedStage.flat(blocks)]
+        if where == "cpu":
+            out = rb.stage_ref(leaves[0], [leaves[i:i + 6] for i in range(
+                1, len(leaves), 6)])
+        else:
+            out = rb.FusedStage.apply(*leaves)
+        (out ** 2).sum().backward()
+        results[str(where)] = [out.detach().cpu()] + [t.grad.cpu()
+                                                      for t in leaves]
+    for got, ref in zip(results[str(dev)], results["cpu"]):
+        _assert_close(got, ref, TOL[torch.float32])
+
+
+def test_stage_refuses_bad_operands():
+    """A CUDA operand the kernel does not take raises; nothing falls back
+    to the plain version or to the K11 chain."""
+    dev = _cuda()
+    x, blocks = _stage_args(dev, (2, 6, 32, 8, 3), torch.float32, seed=11)
+    before = (rb.fused_stage.launches, rb.fused_bottleneck.launches)
+    w1, b1, w2, b2, w3, b3 = blocks[1]
+    with pytest.raises(TypeError):          # half precision has no kernel
+        rb.fused_stage(x.half(), blocks)
+    with pytest.raises(TypeError):          # weight not in x's dtype
+        rb.fused_stage(x, [blocks[0], (w1.bfloat16(), b1, w2, b2, w3, b3)])
+    with pytest.raises(ValueError):         # operand on another device
+        rb.fused_stage(x, [blocks[0], (w1, b1, w2, b2, w3, b3.cpu())])
+    with pytest.raises(ValueError):         # NCHW view: not NHWC-contiguous
+        rb.fused_stage(x.permute(0, 3, 1, 2).contiguous().permute(
+            0, 2, 3, 1), blocks)
+    with pytest.raises(ValueError):         # projection: identity only
+        rb.fused_stage(x, [blocks[0] + (w1, b1)])
+    with pytest.raises(ValueError):         # w2 is (9·Cmid, Cmid)
+        rb.fused_stage(x, [(w1, b1, w2[:64].contiguous(), b2, w3, b3)])
+    with pytest.raises(ValueError):         # more blocks than one launch
+        rb.fused_stage(x, blocks * 14)
+    assert (rb.fused_stage.launches, rb.fused_bottleneck.launches) == before
+
+
+def test_stage_kernel_is_deterministic():
+    """No atomics: two calls give equal bits."""
+    dev = _cuda()
+    for dtype in DTYPES:
+        x, blocks = _stage_args(dev, (8, 14, 1024, 256, 5), dtype, seed=12)
+        assert torch.equal(rb.fused_stage(x, blocks),
+                           rb.fused_stage(x, blocks))
+
+
 # ------------------------------------------------- attention (K6, K9)
 
 # packed (batch, tokens, width, heads): head dims 64, 16, 32 and 8
