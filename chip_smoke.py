@@ -7,8 +7,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device   — name, count, and nvidia-smi's name and power limit;
 2. build    — nvcc builds the kernels from ops/csrc (sm_90a), one process
-              per source, all at once; prints the build seconds and
-              ptxas's register / spill report;
+              per source, all at once; prints the build seconds,
+              ptxas's register / spill report and the tensor-core (HMMA)
+              instruction count of the bf16 attention forward;
 3. kernels  — each forward kernel against its plain PyTorch version on
               the card at the serving and training paths' shapes
               (ViT-B/16 blocks at B = 8, 16 and 128 in fp32 and bf16, K1
@@ -40,7 +41,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               ``flash_attention`` forward and backward through autograd
               at B = 16 in bf16, with its launches counted; K6 and K9 also
               at N = 226, 257 and 577 (B = 16, 12 heads, D = 64: the
-              tiled kernels);
+              tiled kernels, but for the bf16 forward, one tensor-core
+              kernel at every N); the bf16 forwards also against the fp32
+              result on the same values (no further from it than their
+              plain versions, FWD_VS_PLAIN), two calls bit-equal, and
+              their device time beside SDPA's from the profiler;
 3f. K10     — ``attn_block_bwd_fused`` (the one-kernel attention-block
               backward) against its plain version at ViT-B/16's block,
               B = 16 and 32, fp32 and bf16, each beside the K5 chain rule
@@ -127,7 +132,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               step on the card against the CPU's plain step at phase 5's
               budgets;
 then the kernels' JSON line (times, bounds, launches, the SDPA times,
-K10's and K12's chain times),
+the K6/K9 forwards' device times and SDPA's, K10's and K12's chain
+times),
 and the device JSON line last.
 
 Exits non-zero with no result line when no CUDA device is present.
@@ -137,6 +143,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -234,6 +241,7 @@ def phase_build() -> None:
         for line in _build.ptxas_log(name).splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 log(f"[ptxas] {line.strip()}")
+    _log_tensor_core_sass("attention", "attention_fwd_mma")
     # bind the entry points now, so a missing symbol fails this phase
     vb._lib()
     at._lib()
@@ -241,6 +249,24 @@ def phase_build() -> None:
     rb._lib()
     vb._k10_lib()
     _build.load("fused_mlp", fm._SIGNATURES)
+
+
+def _log_tensor_core_sass(name: str, kernel: str) -> None:
+    """The count of tensor-core instructions (HMMA) in the SASS of each
+    instantiation of ``kernel`` in library ``name`` (cuobjdump -sass,
+    beside nvcc), which shows that the kernel runs on the tensor cores."""
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        log(f"[sass] {kernel}: HMMA count not measured (no {tool})")
+        return
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    for section in sass.split("Function : ")[1:]:
+        func = section.split(None, 1)[0]
+        if kernel in func:
+            ops = re.findall(r"HMMA\.[\w.]+", section)
+            log(f"[sass] {func}: {len(ops)} HMMA instructions "
+                f"({', '.join(sorted(set(ops))) or 'none'})")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -251,9 +277,10 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # 240², 256² and 384² images
 LARGE_N = (226, 257, 577)
 # at D = 64 the largest head each whole-head kernel takes, and the next,
-# which goes to its tiled kernel: the backward of K5/K6/K9, the forward
-# of K6/K9 (attention_kernels.cuh's bwd_smem, fwd_smem) and K1/K7/K8's
-# attention core (attention_core.cuh's launch_attention)
+# which goes to its tiled kernel: the backward of K5/K6/K9, the fp32
+# forward of K6/K9 (attention_kernels.cuh's bwd_smem, fwd_smem; the bf16
+# forward is one kernel for every N) and K1/K7/K8's attention core
+# (attention_core.cuh's launch_attention)
 SPLIT_BWD, SPLIT_FWD, SPLIT_CORE = (208, 209), (421, 422), (424, 425)
 
 
@@ -608,6 +635,9 @@ ATTN_BATCHES = (8, 16, 128)      # serving 8, training 16, a large batch
 # (B, heads, N, D) of the small cases: the scale d**-0.5 is no power of
 # two at D = 8 and 32, so the scores are scaled after the product
 ATTN_SMALL = ((2, 4, 40, 8), (2, 4, 40, 32))
+# bf16 forwards: the kernel's distance from the fp32 result on the same
+# values within 10% of the plain version's (as K10_VS_PLAIN in phase 3f)
+FWD_VS_PLAIN = 0.1
 
 
 def _turns(a, b):
@@ -624,9 +654,52 @@ def _sdpa_fwd_bwd(q, k, v, do):
                                (q, k, v), do)
 
 
+def _device_ms(fn, iters: int = 20):
+    """Device time per call of ``fn``: the sum of its kernels' times from
+    the profiler over ``iters`` calls, after a warm-up call (the host's
+    launch cost left out); None when the profiler recorded no kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters if us > 0 else None
+
+
+def _ms_or_none(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def _bf16_fwd_checks(tag, name, kernel, plain, fp32) -> None:
+    """A bf16 forward (the tensor-core kernel) no further from the fp32
+    result on the same values than its plain version: max|err| within
+    FWD_VS_PLAIN of the plain's, plus fp32's KERNEL_TOL·(1 + max|fp32|)
+    for the summation order; two calls bit-equal."""
+    out, again = kernel(), kernel()
+    truth = fp32().float()
+    a = float((out.float() - truth).abs().max())
+    p = float((plain().float() - truth).abs().max())
+    slack = KERNEL_TOL[torch.float32] * (1 + float(truth.abs().max()))
+    near, equal = a <= (1 + FWD_VS_PLAIN) * p + slack, torch.equal(out, again)
+    log(f"[attention] {name} {tag}: max|err| against the fp32 result on "
+        f"the same values, kernel / plain {a:.3e} / {p:.3e} (kernel within "
+        f"{1 + FWD_VS_PLAIN:g}x plain + {slack:.2e}) "
+        f"{'ok' if near else 'FAIL'}; two calls bit-equal: {equal}")
+    if not (near and equal):
+        raise AssertionError(f"{name} {tag}: further from the fp32 result "
+                             "than its plain version, or two calls differ")
+
+
 def _attention_case(g, b, heads, n, d, dtype) -> dict:
     """K6 and K9, forward and backward, against their plain versions on
-    one shape, each row with SDPA's time on the same operands."""
+    one shape, each row with SDPA's time on the same operands; in bf16 the
+    forwards (the tensor-core kernel) also against the fp32 result and
+    across two calls (_bf16_fwd_checks), with their device time and SDPA's
+    (_device_ms)."""
     c = heads * d
     tol = KERNEL_TOL[dtype]
     tag = f"{str(dtype).split('.')[1]} B={b} N={n} H={heads} D={d}"
@@ -652,6 +725,17 @@ def _attention_case(g, b, heads, n, d, dtype) -> dict:
             f"flash_attention_bwd {tag}",
             lambda: at.flash_attention_bwd(q, k, v, do9),
             lambda: at.flash_attention_bwd_ref(q, k, v, do9), tol)}
+    if dtype == torch.bfloat16:
+        _bf16_fwd_checks(
+            tag, "qkv_attention_fwd",
+            lambda: at.qkv_attention_fwd(qkv, heads),
+            lambda: at.qkv_attention_ref(qkv, heads),
+            lambda: at.qkv_attention_ref(qkv.float(), heads))
+        _bf16_fwd_checks(
+            tag, "flash_attention_fwd",
+            lambda: at.flash_attention_fwd(q, k, v),
+            lambda: at.flash_attention_ref(q, k, v),
+            lambda: at.flash_attention_ref(q.float(), k.float(), v.float()))
     # SDPA in turns with the kernels: a forward row beside one SDPA call;
     # a backward row's forward + backward beside SDPA forward + backward
     # (a backward needs the forward's statistics, so no single call
@@ -677,6 +761,11 @@ def _attention_case(g, b, heads, n, d, dtype) -> dict:
             res[name]["library_ms"] = l_ms
             log(f"[attention] {name} {tag}: kernel {k_ms:.4f} ms, SDPA "
                 f"{l_ms:.4f} ms")
+            if dtype == torch.bfloat16:
+                d_ms, ld_ms = _device_ms(kernel), _device_ms(library)
+                res[name].update(device_ms=d_ms, library_device_ms=ld_ms)
+                log(f"[attention] {name} {tag}: device time (profiler) "
+                    f"kernel {_ms_or_none(d_ms)}, SDPA {_ms_or_none(ld_ms)}")
         else:
             res[name].update(library_ms=None, fwd_bwd_ms=k_ms,
                              library_fwd_bwd_ms=l_ms)
@@ -710,10 +799,12 @@ def phase_attention_kernels(dev) -> tuple:
             g = torch.Generator(device=dev).manual_seed(5600 + n)
             rows[n] = _attention_case(g, TRAIN_BATCH, 12, n, 64, dtype)
             torch.cuda.empty_cache()
-        for name, split in (("qkv_attention_fwd", SPLIT_FWD),
-                            ("flash_attention_fwd", SPLIT_FWD),
-                            ("qkv_attention_bwd", SPLIT_BWD),
-                            ("flash_attention_bwd", SPLIT_BWD)):
+        splits = [("qkv_attention_bwd", SPLIT_BWD),
+                  ("flash_attention_bwd", SPLIT_BWD)]
+        if dtype == torch.float32:      # the bf16 forward has no split
+            splits += [("qkv_attention_fwd", SPLIT_FWD),
+                       ("flash_attention_fwd", SPLIT_FWD)]
+        for name, split in splits:
             _log_split(f"{name} {str(dtype).split('.')[1]} B={TRAIN_BATCH}",
                        [(n, rows[n][name]) for n in split])
 
@@ -2145,13 +2236,13 @@ def main() -> int:
         "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:27"),
         "mlp_block_bwd": ("vit_block.cu", "vit_block.py:652"),
         "qkv_attention_fwdbwd": ("attention.cu", "attention.py:334"),
-        "qkv_attention_fwd": ("attention.cu", "attention.py:208"),
+        "qkv_attention_fwd": ("attention_fwd_mma.cuh", "attention.py:208"),
         "qkv_attention_bwd": ("attention.cu", "attention.py:222"),
         "attn_block_q8": ("vit_block_q8.cu", "vit_block_q8.py:70"),
         "mlp_block_q8": ("vit_block_q8.cu", "vit_block_q8.py:107"),
         "attn_block_q8s": ("vit_block_q8.cu", "vit_block_q8.py:157"),
         "mlp_block_q8s": ("vit_block_q8.cu", "vit_block_q8.py:202"),
-        "flash_attention_fwd": ("attention.cu", "attention.py:73"),
+        "flash_attention_fwd": ("attention_fwd_mma.cuh", "attention.py:73"),
         "flash_attention_bwd": ("attention.cu", "attention.py:88"),
         "bottleneck": ("resnet_block.cu", "resnet_block.py:108"),
         "bottleneck_proj": ("resnet_block.cu", "resnet_block.py:130"),

@@ -23,13 +23,18 @@ All three run one CUDA source (``csrc/attention.cu``) with one set of
 numerics, and so do their plain versions (:func:`_probs`,
 :func:`_attend`, :func:`_grads`).  Dispatch is by device only: a CPU
 tensor takes the plain version (``*_ref``), a CUDA tensor launches the
-kernel or raises.  Every token count runs: a head whose K and V fit one
-block's shared memory takes the whole-head kernels, a longer one the
-tiled kernels that stream K and V through shared memory in key tiles
-(the forward past N ≈ 420, the backward past N = 208 at D = 64; the
-FlashAttention-2 split for the backward, no atomics).  Both give the same
-results.  Only a head dim other than 8, 16, 32 or 64 raises
-``ValueError``.
+kernel or raises.  Every token count runs.  The bf16 forwards of K6 and
+K9 run one tensor-core kernel for every N (``csrc/attention_fwd_mma.cuh``:
+two passes over 64-key tiles, the running max and sum, then P normalised
+before P·V; :func:`_attend_two_pass` is its tile walk in plain PyTorch);
+it needs 16-byte-aligned operands and raises ``ValueError`` for others.
+The fp32 forwards and every backward run SIMT kernels: a head whose K
+and V fit one block's shared memory takes the whole-head kernels, a
+longer one the tiled kernels that stream K and V through shared memory
+in key tiles (the fp32 forward past N ≈ 420, the backward past N = 208
+at D = 64; the FlashAttention-2 split for the backward, no atomics).
+Both give the same results.  A head dim other than 8, 16, 32 or 64
+raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -101,6 +106,48 @@ def _probs(q: torch.Tensor, k: torch.Tensor, prescale: bool = False
 
 def _attend(p_c: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(p_c, v.to(p_c.dtype))
+
+
+def _attend_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     tile: int = 64) -> torch.Tensor:
+    """The bf16 forward kernel's algorithm (``csrc/attention_fwd_mma.cuh``)
+    in plain PyTorch, for the tests: pass 1 walks the key tiles keeping the
+    running row max and the running sum of exp(S − max), rescaled when the
+    max grows; pass 2 recomputes each tile's S and adds P·V with P =
+    exp(S − max) · (1 / sum) rounded to the compute dtype.  Keys past N
+    (the last tile's padding) score −inf.  q, k, v (B, H, N, D) in the
+    compute dtype -> o in the accumulation dtype, as :func:`_attend`."""
+    dt, acc = q.dtype, acc_dtype(q)
+    n, d = q.shape[-2:]
+    scale = d ** -0.5
+    pow2 = _is_pow2(scale)
+    qs = ((q * scale).to(dt) if pow2 else q).to(acc)
+    pad = -n % tile
+    kp, vp = (torch.nn.functional.pad(t.to(acc), (0, 0, 0, pad))
+              for t in (k, v))
+    past = torch.arange(n + pad, device=q.device) >= n
+
+    def scores(j0: int) -> torch.Tensor:
+        s = torch.matmul(qs, kp[..., j0:j0 + tile, :].transpose(-1, -2))
+        if not pow2:
+            s = s * scale
+        return s.masked_fill(past[j0:j0 + tile], -math.inf)
+
+    m = torch.full((*q.shape[:-1], 1), -math.inf, dtype=acc,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    for j0 in range(0, n, tile):
+        s = scores(j0)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(
+            -1, keepdim=True)
+        m = m_new
+    inv = 1.0 / l
+    o = torch.zeros(q.shape, dtype=acc, device=q.device)
+    for j0 in range(0, n, tile):
+        p_c = (torch.exp(scores(j0) - m) * inv).to(dt).to(acc)
+        o = o + torch.matmul(p_c, vp[..., j0:j0 + tile, :])
+    return o
 
 
 def _grads(p, p_c, q, k, v, do):
@@ -198,6 +245,16 @@ def _row_stats_scratch(b: int, heads: int, n: int,
                        device=device)
 
 
+def _check_aligned(name: str, **operands: torch.Tensor) -> None:
+    """The bf16 forward kernel copies 16-byte row chunks (cp.async): its
+    operands' base addresses must be 16-byte aligned (their strides are,
+    for every head dim the kernels take)."""
+    for arg, t in operands.items():
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} at address {t.data_ptr():#x} "
+                             "is not 16-byte aligned")
+
+
 def _packed_dims(name: str, qkv: torch.Tensor, num_heads: int,
                  do: Optional[torch.Tensor] = None) -> Tuple[int, int, int]:
     b, n, c3 = qkv.shape
@@ -224,6 +281,7 @@ def qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     _build.check_cuda_operands("qkv_attention_fwd", qkv, {"qkv": qkv}, {})
     b, n, d = _packed_dims("qkv_attention_fwd", qkv, num_heads)
     _check_head("qkv_attention_fwd", d)
+    _check_aligned("qkv_attention_fwd", qkv=qkv)
     lib = _lib()
     attn = qkv.new_empty((b, n, num_heads * d))
     _build.check(lib, lib.dfu_qkv_attention_fwd(
@@ -296,6 +354,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                                {"q": q, "k": k, "v": v}, {})
     b, h, n, d = _bhnd_dims("flash_attention_fwd", q, k, v)
     _check_head("flash_attention_fwd", d)
+    _check_aligned("flash_attention_fwd", q=q, k=k, v=v)
     lib = _lib()
     o = torch.empty_like(q)
     _build.check(lib, lib.dfu_attention_fwd(

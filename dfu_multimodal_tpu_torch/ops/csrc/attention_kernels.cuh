@@ -37,12 +37,15 @@
 //   all 256 threads add the tile's dSᵀ·Q and Pᵀ·dO into dK and dV
 //   accumulators kept in shared memory across the tiles (in row order: no
 //   atomics, deterministic); K, V, dK, dV and the tile's rows take 220 KB
-//   of the 227 KB a block may hold at N = 197, D = 64.  Every product runs
+//   of the 227 KB a block may hold at N = 197, D = 64.  These products run
 //   on the FMA pipes (SIMT fp32): the tensor cores, TMA and more than one
-//   backward block per SM are later work.
+//   backward block per SM are later work for the backward.  The bf16
+//   forward is another kernel, on the tensor cores, for every N
+//   (attention_fwd_mma.cuh); the fp32 forward keeps the SIMT kernels
+//   described here.
 //
 // A head whose whole-head kernel does not fit one block's shared memory
-//   (the forward past N ≈ 420, the backward past N = 208 at D = 64) runs
+//   (the fp32 forward past N ≈ 420, the backward past N = 208 at D = 64) runs
 //   the tiled kernels instead, which stream K and V through shared memory
 //   in TK-key tiles and keep only a few query rows per block:
 //   - forward (attention_fwd_tiled): three passes over the key tiles per
@@ -71,6 +74,9 @@
 // to the compute dtype, dQ = dS·K·scale and dK = dSᵀ·Q·scale (Q unscaled).
 #pragma once
 
+#include <type_traits>
+
+#include "attention_fwd_mma.cuh"
 #include "common.cuh"
 
 namespace dfu {
@@ -683,19 +689,26 @@ int launch_smem(K kernel, dim3 grid, size_t smem, cudaStream_t s,
 
 // ------------------------------------------------------------ launchers
 
+// The forward: bf16 on the tensor cores (attention_fwd_mma.cuh, every n),
+// fp32 on the SIMT kernels (whole-head, or tiled past one block).
 template <typename T, int D>
 struct Fwd {
   static int run(Strided<const T> q, Strided<const T> k, Strided<const T> v,
                  Strided<T> o, float* /*stats*/, int batch, int heads, int n,
                  float scale, int pow2, cudaStream_t s) {
-    const size_t smem = fwd_smem(n, D);
-    if (smem > MAX_SMEM)
-      return launch_smem(attention_fwd_tiled<T, D>,
-                         dim3(cdiv(n, QROWS), heads, batch), fwd_tiled_smem(D),
-                         s, q, k, v, o, n, scale, pow2);
-    return launch_smem(attention_fwd_kernel<T, D>,
-                       dim3(cdiv(n, FWD_ROWS), heads, batch), smem, s, q, k,
-                       v, o, n, scale, pow2);
+    if constexpr (std::is_same_v<T, bf16>) {
+      return launch_attention_fwd_mma<D>(q, k, v, o, batch, heads, n, scale,
+                                         pow2, s);
+    } else {
+      const size_t smem = fwd_smem(n, D);
+      if (smem > MAX_SMEM)
+        return launch_smem(attention_fwd_tiled<T, D>,
+                           dim3(cdiv(n, QROWS), heads, batch),
+                           fwd_tiled_smem(D), s, q, k, v, o, n, scale, pow2);
+      return launch_smem(attention_fwd_kernel<T, D>,
+                         dim3(cdiv(n, FWD_ROWS), heads, batch), smem, s, q, k,
+                         v, o, n, scale, pow2);
+    }
   }
 };
 

@@ -3,8 +3,9 @@ their outputs bit for bit.
 
     python -m dfu_multimodal_tpu_torch.tools.ab_kernels PARENT_DIR
 
-Runs ``chip_smoke.py``'s kernel phases 3, 3b, 3c, 3d and 3e (K1-K9 and
-K11 against their plain versions, CUDA events) from PARENT_DIR, from
+Runs ``chip_smoke.py``'s kernel phases 3, 3b, 3c, 3d, 3e and, where the
+checkout has them, 3f and 3g (K1-K12 against their plain versions, CUDA
+events) from PARENT_DIR, from
 this checkout twice, then from PARENT_DIR again — parent, change,
 change, parent — each in a process of its own, which builds its
 checkout's kernels into that checkout's ``build/``.  Each turn also
@@ -13,8 +14,9 @@ hashes the outputs of K1, K2, K4, K5 (alone and in the chain rule
 at ViT-B/16's attention (N = 197, B = 16, seeded inputs, fp32 and bf16),
 of K11 at ResNet-50's stage 3 identity block and stage 1 projection
 block and, where the checkout has it, of K12 at stage 3's tail (B = 8)
-through the public entry points (:data:`BITS`), and runs phase 6 (int8
-serving, its card vs CPU checks)
+through the public entry points, and of the K6 and K9 forwards at N = 577
+as well (:data:`BITS`), and runs phase 6 (int8 serving, its card vs CPU
+checks)
 with this checkout's ``zoo.init_model`` in both checkouts, so that a
 change of the int8 path shows apart from a change of the initial weights
 (:data:`INT8`; a failed check there is printed, not fatal).  Prints the
@@ -22,6 +24,11 @@ card's name and power limit, each kernel and int8 line prefixed by its
 turn, and whether every turn's hash of each output is the same.  Two
 versions are compared only within one run: two runs may land on two
 cards.  Needs a CUDA device; exits non-zero without one.
+
+Hashes intended to change against the parent of the bf16 tensor-core
+forward (``csrc/attention_fwd_mma.cuh``): the bf16 ``K6
+qkv_attention_fwd`` and ``K9 flash_attention_fwd`` lines (N = 197 and
+577).  Every other line, the fp32 forwards' included, is held equal.
 """
 
 from __future__ import annotations
@@ -37,7 +44,9 @@ ROOT = Path(__file__).resolve().parents[2]
 PHASES = ("import torch, chip_smoke as cs; dev = torch.device('cuda', 0); "
           "cs.phase_kernels(dev); cs.phase_backward_kernels(dev); "
           "cs.phase_q8_kernels(dev); cs.phase_resnet_kernels(dev); "
-          "cs.phase_attention_kernels(dev)")
+          "cs.phase_attention_kernels(dev); "
+          "[phase(dev) for phase in (getattr(cs, 'phase_k10', None), "
+          "getattr(cs, 'phase_stage', None)) if phase]")
 # phase 6 of the checkout in the working directory, with the weights
 # drawn by this checkout's initialiser (zoo.py at ZOO)
 INT8 = """
@@ -116,6 +125,12 @@ for dt in (torch.float32, torch.bfloat16):
         "K8 attn_block_q8s": (q8.attn_block_q8s(x, *ln, *wqs, heads),),
         "K9 flash_attention_fwd": (at.flash_attention_fwd(q, k, v),),
         "K9 flash_attention_bwd": at.flash_attention_bwd(q, k, v, d9)}
+    qkv_l = r(2, 577, 3 * c)                  # a 384² image's tokens
+    q_l, k_l, v_l = (r(2, heads, 577, c // heads) for _ in range(3))
+    outs["K6 qkv_attention_fwd N=577"] = (at.qkv_attention_fwd(qkv_l,
+                                                               heads),)
+    outs["K9 flash_attention_fwd N=577"] = (at.flash_attention_fwd(
+        q_l, k_l, v_l),)
     if hasattr(vb, "attn_block_bwd_fused"):
         outs["K10 attn_block_bwd_fused"] = vb.attn_block_bwd_fused(
             x, do, *ln, *w, heads)
@@ -159,7 +174,8 @@ def main(argv=None) -> int:
                 print(proc.stdout + proc.stderr, file=sys.stderr)
                 return proc.returncode
             for line in proc.stdout.splitlines():
-                if line.startswith(("[kernel]", "[split]", "[int8")):
+                if line.startswith(("[kernel]", "[split]", "[int8", "[k10]",
+                                    "[stage]")):
                     print(f"[turn {turn} {tag}] {line}", flush=True)
                 if line.startswith("[bits]"):
                     key, digest = line.rsplit(" ", 1)

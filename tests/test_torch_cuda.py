@@ -12,6 +12,7 @@ Each bound is tol·(1 + |ref|).
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -690,8 +691,9 @@ def test_flash_attention_kernels_match_plain(shape, dtype):
 
 def test_attention_kernels_refuse_a_head_that_does_not_fit():
     """400 rows of D = 64: past one block's shared memory for the
-    whole-head kernels (the backward's K, V, dK and dV; the forward's K
-    and V), so the tiled kernels run, and match their plain versions; a
+    whole-head kernels (the backward's K, V, dK and dV; the fp32
+    forward's K and V; the bf16 forward is one kernel for every N), so
+    the tiled kernels run, and match their plain versions; a
     head dim no kernel takes (128) is still refused, with no plain
     fallback."""
     dev = _cuda()
@@ -720,6 +722,62 @@ def test_attention_kernels_refuse_a_head_that_does_not_fit():
         at.qkv_attention_fwd(torch.zeros(1, 400, 3 * 128, device=dev), 1)
     with pytest.raises(TypeError):
         at.qkv_attention_fwd(qkv.double(), 2)
+
+
+# the bf16 forwards of K6 and K9 run one tensor-core kernel
+# (csrc/attention_fwd_mma.cuh) for every token count and head dim: one
+# partial 64-key tile up to ten (577, a 384² image); D = 8 and 32 scale the
+# scores after the product
+MMA_TOKENS = [1, 5, 16, 40, 197, 226, 577]
+MMA_HEAD_DIMS = [8, 16, 32, 64]
+
+
+@pytest.mark.parametrize("d", MMA_HEAD_DIMS)
+@pytest.mark.parametrize("n", MMA_TOKENS)
+def test_bf16_attention_forwards_match_plain(n, d):
+    """The bf16 K6 and K9 forwards against their plain versions within the
+    bf16 budget, one launch a call, two calls bit-equal."""
+    dev = _cuda()
+    b, heads = 2, 3
+    gen = torch.Generator(device=dev).manual_seed(1000 * d + n)
+    qkv = _randn(gen, b, n, 3 * heads * d, dtype=torch.bfloat16)
+    q, k, v = (_randn(gen, b, heads, n, d, dtype=torch.bfloat16)
+               for _ in range(3))
+    for fn, plain, args in ((at.qkv_attention_fwd, at.qkv_attention_ref,
+                             (qkv, heads)),
+                            (at.flash_attention_fwd, at.flash_attention_ref,
+                             (q, k, v))):
+        before = fn.launches
+        out, again = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        _assert_close(out, plain(*args), TOL[torch.bfloat16])
+        assert torch.equal(out, again)
+
+
+def test_bf16_attention_forwards_refuse_misaligned_operands():
+    """The tensor-core forward copies 16-byte chunks: a bf16 operand whose
+    base lies 2 bytes past a 16-byte boundary raises ValueError (no SIMT
+    fallback); the same offset in fp32 runs the SIMT kernels."""
+    dev = _cuda()
+    b, heads, n, d = 2, 2, 40, 16
+
+    def offset(dtype, *shape):            # contiguous, one element in
+        flat = torch.randn(1 + math.prod(shape), device=dev).to(dtype)
+        return flat[1:].view(*shape)
+
+    qkv = offset(torch.bfloat16, b, n, 3 * heads * d)
+    assert qkv.is_contiguous() and qkv.data_ptr() % 16 == 2
+    with pytest.raises(ValueError):
+        at.qkv_attention_fwd(qkv, heads)
+    q = offset(torch.bfloat16, b, heads, n, d)
+    k = torch.randn(b, heads, n, d, device=dev).to(torch.bfloat16)
+    for args in ((q, k, k), (k, q, k), (k, k, q)):
+        with pytest.raises(ValueError):
+            at.flash_attention_fwd(*args)
+    qkv32 = offset(torch.float32, b, n, 3 * heads * d)
+    _assert_close(at.qkv_attention_fwd(qkv32, heads),
+                  at.qkv_attention_ref(qkv32, heads), TOL[torch.float32])
 
 
 # (batch, tokens, width, heads): ViT-B/16's block; D = 8 and 32, where
