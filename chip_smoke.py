@@ -8,8 +8,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. device   — name, count, and nvidia-smi's name and power limit;
 2. build    — nvcc builds the kernels from ops/csrc (sm_90a), one process
               per source, all at once; prints the build seconds,
-              ptxas's register / spill report and the tensor-core (HMMA)
-              instruction count of the bf16 attention forward;
+              ptxas's register / spill report and warnings, the
+              tensor-core (HMMA) instruction count of the bf16 attention
+              forward and the warpgroup (HGMMA) count of K4's bf16
+              products (gemm_sm90.cuh), failing on a count of zero;
 3. kernels  — each forward kernel against its plain PyTorch version on
               the card at the serving and training paths' shapes
               (ViT-B/16 blocks at B = 8, 16 and 128 in fp32 and bf16, K1
@@ -19,7 +21,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 3b. backward kernels — K4 ``mlp_block_bwd`` and K5
               ``qkv_attention_fwdbwd`` against their plain versions at
               B = 16 and 128 in fp32 and bf16, likewise, and K5 at
-              N = 226, 257 and 577 (B = 16: the tiled kernels);
+              N = 226, 257 and 577 (B = 16: the tiled kernels); the bf16
+              K4 (TMA + wgmma products) also no further from the fp32
+              result than its plain version, two calls bit-equal, its
+              device time by kernel beside the CUDA-event time, its three
+              products through ``torch.matmul`` (cuBLAS) as a yardstick
+              in turns, and the host's cost of a tensor map;
 3c. int8 kernels — ``attn_block_q8``, ``mlp_block_q8`` (K7) and
               ``attn_block_q8s``, ``mlp_block_q8s`` (K8) against their plain
               versions at B = 8 and 128 in fp32 and bf16, and K7's
@@ -141,6 +148,7 @@ Exits non-zero with no result line when no CUDA device is present.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import re
@@ -239,9 +247,13 @@ def phase_build() -> None:
         log(f"[build] {name}.cu: {seconds[name]:.2f} s "
             f"-> {_build.library_path(name)}")
         for line in _build.ptxas_log(name).splitlines():
-            if "registers" in line or "spill" in line or "entry" in line:
+            if any(w in line for w in ("registers", "spill", "entry",
+                                       "warning")):
                 log(f"[ptxas] {line.strip()}")
     _log_tensor_core_sass("attention", "attention_fwd_mma")
+    # K4's bf16 products (gemm_sm90.cuh): warpgroup MMAs, or the phase fails
+    _log_tensor_core_sass("vit_block", "gemm_kernel", op="HGMMA",
+                          required=True)
     # bind the entry points now, so a missing symbol fails this phase
     vb._lib()
     at._lib()
@@ -251,22 +263,32 @@ def phase_build() -> None:
     _build.load("fused_mlp", fm._SIGNATURES)
 
 
-def _log_tensor_core_sass(name: str, kernel: str) -> None:
-    """The count of tensor-core instructions (HMMA) in the SASS of each
-    instantiation of ``kernel`` in library ``name`` (cuobjdump -sass,
-    beside nvcc), which shows that the kernel runs on the tensor cores."""
+def _log_tensor_core_sass(name: str, kernel: str, op: str = "HMMA",
+                          required: bool = False) -> None:
+    """The count of tensor-core instructions ``op`` (HMMA: mma.sync;
+    HGMMA: wgmma) in the SASS of each instantiation of ``kernel`` in
+    library ``name`` (cuobjdump -sass, beside nvcc), which shows that the
+    kernel runs on the tensor cores.  ``required``: raise when the tool
+    is missing, no instantiation is found, or one has none."""
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     if not tool.is_file():
-        log(f"[sass] {kernel}: HMMA count not measured (no {tool})")
+        log(f"[sass] {kernel}: {op} count not measured (no {tool})")
+        if required:
+            raise AssertionError(f"{kernel}: no cuobjdump to count {op}")
         return
     sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, check=True).stdout
+    counts = []
     for section in sass.split("Function : ")[1:]:
         func = section.split(None, 1)[0]
         if kernel in func:
-            ops = re.findall(r"HMMA\.[\w.]+", section)
-            log(f"[sass] {func}: {len(ops)} HMMA instructions "
+            ops = re.findall(rf"\b{op}\.[\w.]+", section)
+            counts.append(len(ops))
+            log(f"[sass] {func}: {len(ops)} {op} instructions "
                 f"({', '.join(sorted(set(ops))) or 'none'})")
+    if required and (not counts or min(counts) == 0):
+        raise AssertionError(f"{kernel} in lib{name}.so: {op} counts "
+                             f"{counts}, want at least one in each")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -421,10 +443,62 @@ def phase_kernels(dev) -> dict:
 
 # --------------------------------------------------------------- phase 3b
 
+K4_OUTPUTS = ("dx", "y", "h", "dhpre", "dg2", "db2")
+K4_TENSOR_MAPS = 6              # encoded on the host for each bf16 call
+
+
+def _k4_bf16_checks(tag, args, res) -> None:
+    """The bf16 K4 (TMA + wgmma products, csrc/gemm_sm90.cuh): each output
+    no further from the fp32 result on the same values than the plain
+    version and two calls bit-equal (_bf16_fwd_checks); its device time
+    (profiler, by kernel) beside the CUDA-event time; and a yardstick,
+    logged and never called by the port: its three products through
+    ``torch.matmul`` (cuBLAS, bf16 results) on the same operands, timed
+    in turns with the kernel (no single PyTorch call computes K4, so its
+    library_ms stays null)."""
+    def kernel():
+        return vb.mlp_block_bwd(*args)
+
+    _bf16_fwd_checks(tag, "mlp_block_bwd", kernel,
+                     lambda: vb.mlp_block_bwd_ref(*args),
+                     lambda: vb.mlp_block_bwd_ref(*(t.float() for t in args)),
+                     prefix="kernel", names=K4_OUTPUTS)
+    _, g, _, _, w1, _, w2 = args
+    _, y, _, dhpre, _, _ = kernel()
+    g2d = g.reshape(y.shape)
+
+    def products():
+        return (torch.matmul(y, w1), torch.matmul(g2d, w2.t()),
+                torch.matmul(dhpre, w1.t()))
+
+    k_ms, l_ms = _turns(kernel, products)
+    split = _device_split(kernel)
+    res.update(device_ms=sum(split.values()) or None,
+               cublas_products_ms=l_ms,
+               cublas_products_device_ms=_device_ms(products))
+    log(f"[kernel] mlp_block_bwd {tag}: CUDA events {k_ms:.4f} ms, device "
+        f"(profiler) {_ms_or_none(res['device_ms'])}: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    log(f"[kernel] mlp_block_bwd {tag}: yardstick, its three products "
+        f"through torch.matmul (cuBLAS, bf16): events {l_ms:.4f} ms, device "
+        f"{_ms_or_none(res['cublas_products_device_ms'])}")
+
+
+def _log_tensor_map_cost(x) -> None:
+    """The host's cost of one tensor map of K4's bf16 products (the C
+    entry encodes K4_TENSOR_MAPS a call), over 1000 encodings."""
+    lib, ns = vb._lib(), ctypes.c_double()
+    rows, c = x.numel() // x.shape[-1], x.shape[-1]
+    _build.check(lib, lib.dfu_tensor_map_encode_ns(
+        x.data_ptr(), rows, c, 1000, ctypes.addressof(ns)), "encode")
+    log(f"[kernel] mlp_block_bwd: tensor-map encoding on the host "
+        f"{ns.value:.1f} ns each, {K4_TENSOR_MAPS} a bf16 call")
+
 
 def phase_backward_kernels(dev) -> dict:
     """K4 and K5 against their plain versions at the training path's
-    shapes (ViT-B/16, B = 16) and at B = 128."""
+    shapes (ViT-B/16, B = 16) and at B = 128; in bf16 K4 also against the
+    fp32 result, across two calls and beside cuBLAS (_k4_bf16_checks)."""
     n, c, heads = 197, 768, 12
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -444,6 +518,8 @@ def phase_backward_kernels(dev) -> dict:
                 lambda: vb.mlp_block_bwd(x, dout, *ln, w1, b1, w2),
                 lambda: vb.mlp_block_bwd_ref(x, dout, *ln, w1, b1, w2),
                 KERNEL_TOL[dtype])
+            if dtype == torch.bfloat16:
+                _k4_bf16_checks(tag, (x, dout, *ln, w1, b1, w2), mlp)
             att = _check_and_time(
                 f"qkv_attention_fwdbwd {tag}",
                 lambda: at.qkv_attention_fwdbwd(qkv, dout, heads),
@@ -451,6 +527,7 @@ def phase_backward_kernels(dev) -> dict:
                 KERNEL_TOL[dtype])
             if dtype == torch.bfloat16 and b == 16:  # the training shape
                 main["mlp_block_bwd"], main["qkv_attention_fwdbwd"] = mlp, att
+                _log_tensor_map_cost(x)
             del x, dout, w1, w2, qkv
             torch.cuda.empty_cache()
         rows = []
@@ -654,10 +731,10 @@ def _sdpa_fwd_bwd(q, k, v, do):
                                (q, k, v), do)
 
 
-def _device_ms(fn, iters: int = 20):
-    """Device time per call of ``fn``: the sum of its kernels' times from
-    the profiler over ``iters`` calls, after a warm-up call (the host's
-    launch cost left out); None when the profiler recorded no kernel."""
+def _device_split(fn, iters: int = 20) -> dict:
+    """Device ms per call of each kernel ``fn`` runs (short name: the
+    kernel's own, template arguments kept), from the profiler over
+    ``iters`` calls after a warm-up call."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -665,31 +742,56 @@ def _device_ms(fn, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters if us > 0 else None
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = e.key.removeprefix("void ").replace(
+                "(anonymous namespace)::", "").split("(")[0]
+            name = name.split("<")[0].rsplit("::", 1)[-1] + (
+                "<" + name.split("<", 1)[1] if "<" in name else "")
+            split[name] = (split.get(name, 0.0)
+                           + e.self_device_time_total / 1e3 / iters)
+    return split
+
+
+def _device_ms(fn, iters: int = 20):
+    """Device time per call of ``fn``: the sum of its kernels' times from
+    the profiler over ``iters`` calls, after a warm-up call (the host's
+    launch cost left out); None when the profiler recorded no kernel."""
+    return sum(_device_split(fn, iters).values()) or None
 
 
 def _ms_or_none(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def _bf16_fwd_checks(tag, name, kernel, plain, fp32) -> None:
-    """A bf16 forward (the tensor-core kernel) no further from the fp32
-    result on the same values than its plain version: max|err| within
-    FWD_VS_PLAIN of the plain's, plus fp32's KERNEL_TOL·(1 + max|fp32|)
-    for the summation order; two calls bit-equal."""
-    out, again = kernel(), kernel()
-    truth = fp32().float()
-    a = float((out.float() - truth).abs().max())
-    p = float((plain().float() - truth).abs().max())
-    slack = KERNEL_TOL[torch.float32] * (1 + float(truth.abs().max()))
-    near, equal = a <= (1 + FWD_VS_PLAIN) * p + slack, torch.equal(out, again)
-    log(f"[attention] {name} {tag}: max|err| against the fp32 result on "
-        f"the same values, kernel / plain {a:.3e} / {p:.3e} (kernel within "
-        f"{1 + FWD_VS_PLAIN:g}x plain + {slack:.2e}) "
-        f"{'ok' if near else 'FAIL'}; two calls bit-equal: {equal}")
-    if not (near and equal):
+def _bf16_fwd_checks(tag, name, kernel, plain, fp32, prefix="attention",
+                     names=None) -> None:
+    """A bf16 tensor-core kernel (the K6/K9 forwards, K4's products) no
+    further from the fp32 result on the same values than its plain
+    version: each output's max|err| within FWD_VS_PLAIN of the plain's,
+    plus fp32's KERNEL_TOL·(1 + max|fp32|) for the summation order; two
+    calls bit-equal.  ``names`` labels the outputs of a kernel that
+    returns a tuple of them."""
+    outs, again, truths, plains = kernel(), kernel(), fp32(), plain()
+    if names is None:
+        outs, again, truths, plains = (outs,), (again,), (truths,), (plains,)
+    ok = True
+    for label, out, out2, truth, ref in zip(names or ("",), outs, again,
+                                            truths, plains):
+        truth = truth.float()
+        a = float((out.float() - truth).abs().max())
+        p = float((ref.float() - truth).abs().max())
+        slack = KERNEL_TOL[torch.float32] * (1 + float(truth.abs().max()))
+        near = a <= (1 + FWD_VS_PLAIN) * p + slack
+        equal = torch.equal(out, out2)
+        ok = ok and near and equal
+        log(f"[{prefix}] {name}{' ' + label if label else ''} {tag}: "
+            f"max|err| against the fp32 result on the same values, kernel "
+            f"/ plain {a:.3e} / {p:.3e} (kernel within "
+            f"{1 + FWD_VS_PLAIN:g}x plain + {slack:.2e}) "
+            f"{'ok' if near else 'FAIL'}; two calls bit-equal: {equal}")
+    if not ok:
         raise AssertionError(f"{name} {tag}: further from the fp32 result "
                              "than its plain version, or two calls differ")
 
@@ -2234,7 +2336,7 @@ def main() -> int:
         "attn_block": ("vit_block.cu", "vit_block.py:122"),
         "mlp_block": ("vit_block.cu", "vit_block.py:564"),
         "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:27"),
-        "mlp_block_bwd": ("vit_block.cu", "vit_block.py:652"),
+        "mlp_block_bwd": ("gemm_sm90.cuh", "vit_block.py:652"),
         "qkv_attention_fwdbwd": ("attention.cu", "attention.py:334"),
         "qkv_attention_fwd": ("attention_fwd_mma.cuh", "attention.py:208"),
         "qkv_attention_bwd": ("attention.cu", "attention.py:222"),

@@ -1,0 +1,616 @@
+// K4's bf16 products on Hopper's TMA and wgmma (sm_90a): a warp-
+// specialised, persistent GEMM with fc1 and dh fused into one dual product.
+//
+// Replaces (with the LayerNorm kernels of layernorm.cuh around it)
+//   dfu_multimodal_tpu/ops/vit_block.py::_mlp_block_bwd_kernel (K4), in
+//   bf16: per row block, y = LN2(x), hpre = y·w1 + b1, h = gelu(hpre),
+//   dh = g·w2ᵀ, dhpre = dh·gelu'(hpre), dy = dhpre·w1ᵀ, then the LN
+//   backward; hpre and dh stay in VMEM for each hidden chunk, so "no fp32
+//   GELU/LN intermediate ever reaches HBM".  fp32 (the parity dtype) keeps
+//   gemm_tile.cuh's SIMT chain.
+//
+// What bounds it on the H100: at the training batch (16 images, 3152
+//   rows, C = 768, hidden = 3072) the three products are 14.9 GFLOP each,
+//   44.6 GFLOP, 45 us at the 989 TFLOP/s bf16 peak, against ~27 us for
+//   its operands and outputs at 3.35 TB/s: operations.  Only wgmma reaches
+//   that rate, so the products run on it; and the chain it replaces wrote
+//   and read back the fp32 pre-activation (38.7 MB each way), which this
+//   design never writes.
+//
+// What the design does about it:
+//   - the dual product (y, g) -> (h, dhpre): each 128 x 128 output tile
+//     (rows x hidden) accumulates y·w1 and g·w2ᵀ in two fp32 register
+//     accumulators over the same k loop (K = C); the epilogue forms
+//     hpre = acc1 + b1 in registers, writes h and then dhpre in bf16 to a
+//     16 KB shared buffer per consumer group and stores each by TMA
+//     (stores straight from the accumulator layout, 4 bytes a thread,
+//     cost about as much as the products);
+//   - the dy product dhpre·w1ᵀ (K = hidden) on the same kernel with one
+//     accumulator and fp32 stores, in 128 x DY_BN tiles: 192 wide gives
+//     100 tiles at B = 16, one round on 132 SMs, and was the fastest of
+//     64, 96, 128 and 192 at B = 16 and 128;
+//   - 384 threads a block, one block an SM, persistent over the tiles
+//     (tile = blockIdx.x + i·gridDim.x), so the next tile's loads run
+//     under this tile's epilogue: warpgroup 2 is the producer (setmaxnreg
+//     40; one thread issues cp.async.bulk.tensor loads into a ring of
+//     STAGES shared-memory stages, each completing on its mbarrier), the
+//     warpgroups 0 and 1 the consumers (setmaxnreg 232), 64 rows each, on
+//     wgmma.mma_async m64nNk16 with A and B read through shared-memory
+//     descriptors; a consumer releases a stage as soon as the wgmma group
+//     that read it has retired (wait_group 0: with 3 stages, releasing one
+//     k step later, wait_group 1, is slower: tools/bench_k4.py);
+//   - tiles are 64 bf16 (128 bytes) deep, 128-byte swizzled by TMA, and
+//     read by the matching descriptors: y, g and dhpre are K-major A; w2
+//     read as w2ᵀ and w1 read as w1ᵀ are K-major B (their rows are the
+//     output columns); fc1's w1 (C, hidden) is an MN-major B, loaded as
+//     two 64-column boxes and read through wgmma's transpose bit, so no
+//     copy of any weight is made;
+//   - the ragged row edge (3152 = 24.6 x 128) and any K or N that is no
+//     multiple of the tile are zero-filled by TMA loads, and clipped by
+//     the TMA stores (h, dhpre) or masked (dy) on the way out.
+//     TMA needs 16-byte-aligned bases and row strides: the wrapper raises
+//     ValueError otherwise (C and hidden multiples of 8).
+//   - sums have a fixed order (k16 steps in k order, no split-K, no
+//     atomics): two calls give the same bits.
+//
+// Numbers: the chain's and the Pallas kernel's, bf16 operands with fp32
+// accumulation, hpre kept in fp32 (registers), h = bf16(gelu_erf(hpre)),
+// dhpre = bf16(dh · dgelu_erf(hpre)) with gemm_tile.cuh's gelu_erf and
+// dgelu_erf, dy in fp32.  The k sums take the WMMA tile's order too
+// (16-deep tensor-core steps in k order into fp32), and on an H100 the
+// outputs equal the WMMA chain's bit for bit.
+//
+// Tensor maps are encoded on the host for every call
+// (cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point: no -lcuda) and passed as a __grid_constant__ parameter.
+#pragma once
+
+#include "common.cuh"
+#include "gemm_tile.cuh"
+
+#include <cuda.h>
+#include <stdint.h>
+
+namespace dfu {
+namespace {
+namespace sm90 {
+
+constexpr int BM = 128, BK = 64, THREADS = 384;
+constexpr int TILE_A = BM * BK * 2;     // 16 KB: 128 rows of 128 bytes
+constexpr int BOX_MN = 64 * BK * 2;     // one 64 x 64 MN-major box, 8 KB
+constexpr int SMEM_RING = 196608;       // bytes of stages a block may take
+constexpr int DY_BN = 192;              // the dy product's tile width
+
+// The operands of one launch.  Dual: a1 = y, b1 = w1 (MN-major), a2 = g,
+// b2 = w2 (read as w2ᵀ), bias = b1, o1 = h, o2 = dhpre (bf16, stored by
+// TMA in 64 x 64 boxes).  Else: a1 = dhpre, b1 = w1 (read as w1ᵀ), out1
+// = dy (fp32).
+struct Args {
+  CUtensorMap a1, b1, a2, b2, o1, o2;
+  const float* bias;
+  void* out1;
+  int m, n, k;
+};
+
+template <int BN, bool DUAL>
+struct Tile {
+  static_assert(!DUAL || BN == 128, "the dual product's B1 is two boxes");
+  static constexpr int TILE_B = BN * BK * 2;
+  static constexpr int STAGE = DUAL ? 2 * (TILE_A + TILE_B) : TILE_A + TILE_B;
+  static constexpr int STAGES = SMEM_RING / STAGE;   // 3 dual, 4 dy
+  // offsets in a stage, each a multiple of 1024 (the swizzle's period)
+  static constexpr int A1 = 0, B1 = TILE_A, A2 = TILE_A + TILE_B,
+                       B2 = 2 * TILE_A + TILE_B;
+  // the dual product's epilogue buffer of each consumer group: 64 rows of
+  // h (then of dhpre), 128 bf16 each
+  static constexpr int EPI_WG = DUAL ? 64 * BN * 2 : 0;
+  // the ring, the epilogue buffers, the full and empty barriers, and 1 KB
+  // to align the ring
+  static constexpr int SMEM = STAGES * STAGE + 2 * EPI_WG + 2 * STAGES * 8 +
+                              1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// The box of `map` at (c0 innermost, c1) into shared memory at dst; its
+// bytes complete on barrier bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// A wgmma shared-memory descriptor of a 128-byte-swizzled tile at `addr`
+// (1024-byte-aligned swizzle atoms of 8 rows x 128 bytes): lbo and sbo in
+// bytes.  K-major: sbo = 1024 (the next 8 rows), lbo unused.  MN-major:
+// lbo = the stride of 64-element MN chunks, sbo = 1024 (the next 8 k).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of accumulator registers across
+// the asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// Shared-memory byte offset of row r (0..63), columns 8j + 2·(lane % 4)
+// and the next, in a buffer of 64-column boxes (8 KB each, 128-byte rows)
+// whose 16-byte chunks are swizzled as TMA's 128-byte mode lays them: the
+// eight rows a warp writes at once fall on distinct banks.
+__device__ __forceinline__ uint32_t epi_offset(int r, int j, int lane) {
+  return (j >> 3) * 8192 + r * 128 + (((j & 7) ^ (r & 7)) << 4) +
+         ((lane & 3) << 2);
+}
+
+__device__ __forceinline__ void st_shared_bf16x2(uint32_t addr, float lo,
+                                                 float hi) {
+  const __nv_bfloat162 v(from_f<bf16>(lo), from_f<bf16>(hi));
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+               "r"(*reinterpret_cast<const uint32_t*>(&v))
+               : "memory");
+}
+
+// Named barrier `id` over the 128 threads of one warpgroup.
+__device__ __forceinline__ void sync_group(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// The 64 x 64 box of shared memory at src to `map` at (c0, c1): rows and
+// columns outside the tensor are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}],"
+      " [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A consumer group's 64 x 128 bf16 buffer (written by its 128 threads) to
+// `map` at columns n0.., rows row0..: the writes made visible to TMA, one
+// thread stores the boxes that lie inside the tensor and waits until TMA
+// has read them, so the buffer may be written again.
+template <typename P>
+__device__ __forceinline__ void store_tile(const CUtensorMap* map,
+                                           uint32_t buf, int n0, int row0,
+                                           const P& p, int wg) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  sync_group(1 + wg);
+  if (threadIdx.x % 128 == 0 && row0 < p.m) {
+    tma_store(map, buf, n0, row0);
+    if (n0 + 64 < p.n) tma_store(map, buf + 8192, n0 + 64, row0);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+  sync_group(1 + wg);
+}
+
+// d (64 x N, fp32) += A (64 x 16) · B (16 x N): A K-major, B K-major, or
+// MN-major when TRANS_B; both through descriptors.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, %99;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+}
+
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a,
+                                      uint64_t b) {
+  static_assert(N == 128 || N == 192, "tile widths of the two products");
+  if constexpr (N == 128) wgmma_m64n128k16<TRANS_B>(d, a, b);
+  else wgmma_m64n192k16<TRANS_B>(d, a, b);
+}
+
+// One block: 384 threads; warpgroups 0 and 1 consume (64 rows each),
+// warpgroup 2 produces.  Output tiles BM x BN, walked persistently.
+template <int BN, bool DUAL>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_kernel(const __grid_constant__ Args p) {
+  using T = Tile<BN, DUAL>;
+  extern __shared__ uint8_t smem_raw[];
+  // the ring starts on a 1024-byte boundary of the shared window
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t epi = ring + T::STAGES * T::STAGE;    // 2 x EPI_WG
+  const uint32_t full = epi + 2 * T::EPI_WG;            // STAGES barriers
+  const uint32_t empty = full + T::STAGES * 8;          // STAGES barriers
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);        // the producer's expect_tx
+      mbar_init(empty + 8 * s, 2);       // one arrival per consumer group
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int n_tiles = (p.n + BN - 1) / BN;
+  const int tiles = (p.m + BM - 1) / BM * n_tiles;
+  const int kblocks = (p.k + BK - 1) / BK;
+
+  if (wg == 2) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * 128) {
+      tma_prefetch(&p.a1);
+      tma_prefetch(&p.b1);
+      if constexpr (DUAL) {
+        tma_prefetch(&p.a2);
+        tma_prefetch(&p.b2);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
+        for (int kb = 0; kb < kblocks; ++kb) {
+          const int k0 = kb * BK;
+          const uint32_t st = ring + stage * T::STAGE, bar = full + 8 * stage;
+          mbar_wait(empty + 8 * stage, phase ^ 1);   // the slot is free
+          mbar_expect_tx(bar, T::STAGE);
+          tma_load(st + T::A1, &p.a1, bar, k0, m0);
+          if constexpr (DUAL) {
+            tma_load(st + T::B1, &p.b1, bar, n0, k0);
+            tma_load(st + T::B1 + BOX_MN, &p.b1, bar, n0 + 64, k0);
+            tma_load(st + T::A2, &p.a2, bar, k0, m0);
+            tma_load(st + T::B2, &p.b2, bar, k0, n0);
+          } else {
+            tma_load(st + T::B1, &p.b1, bar, k0, n0);
+          }
+          if (++stage == T::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    constexpr int R = BN / 2;
+    float acc1[R], acc2[DUAL ? R : 1];
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const uint32_t a_rows = wg * 64 * 128;   // this group's 64 rows of A
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc1[i] = 0.f;
+      if constexpr (DUAL) {
+#pragma unroll
+        for (int i = 0; i < R; ++i) acc2[i] = 0.f;
+      }
+      for (int kb = 0; kb < kblocks; ++kb) {
+        mbar_wait(full + 8 * stage, phase);
+        const uint32_t st = ring + stage * T::STAGE;
+        fence_regs(acc1);
+        if constexpr (DUAL) fence_regs(acc2);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          // a k16 step is 32 bytes along a K-major row, 16 rows (2048
+          // bytes) down an MN-major box
+          const uint64_t a1 = desc_sw128(st + T::A1 + a_rows + 32 * kk, 16,
+                                         1024);
+          if constexpr (DUAL) {
+            wgmma<BN, 1>(acc1, a1,
+                         desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
+            wgmma<BN, 0>(acc2,
+                         desc_sw128(st + T::A2 + a_rows + 32 * kk, 16, 1024),
+                         desc_sw128(st + T::B2 + 32 * kk, 16, 1024));
+          } else {
+            wgmma<BN, 0>(acc1, a1, desc_sw128(st + T::B1 + 32 * kk, 16, 1024));
+          }
+        }
+        wgmma_commit();
+        fence_regs(acc1);
+        if constexpr (DUAL) fence_regs(acc2);
+        wgmma_wait();       // this stage's products have read it
+        if (threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * stage);
+        if (++stage == T::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      fence_regs(acc1);
+      if constexpr (DUAL) fence_regs(acc2);
+
+      // epilogue: accumulator i of n-octet j holds row 16·warp + lane/4
+      // (+8 for i = 2, 3) and columns 8j + 2·(lane % 4) (+1 for odd i)
+      if constexpr (DUAL) {
+        // h to this group's 64 x 128 buffer (the layout TMA stores:
+        // two 64-column boxes, 128-byte rows, chunks swizzled by row),
+        // dhpre kept in acc2; stored by TMA, then dhpre likewise
+        const uint32_t buf = epi + wg * T::EPI_WG;
+        const int r = warp * 16 + (lane >> 2);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * (lane & 3);
+          const float bias0 = col < p.n ? p.bias[col] : 0.f;
+          const float bias1 = col < p.n ? p.bias[col + 1] : 0.f;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int i = 4 * j + 2 * half;
+            const float hp0 = acc1[i] + bias0, hp1 = acc1[i + 1] + bias1;
+            acc2[i] *= dgelu_erf(hp0);
+            acc2[i + 1] *= dgelu_erf(hp1);
+            st_shared_bf16x2(buf + epi_offset(r + 8 * half, j, lane),
+                             gelu_erf(hp0), gelu_erf(hp1));
+          }
+        }
+        store_tile(&p.o1, buf, n0, m0 + wg * 64, p, wg);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            st_shared_bf16x2(buf + epi_offset(r + 8 * half, j, lane),
+                             acc2[4 * j + 2 * half],
+                             acc2[4 * j + 2 * half + 1]);
+        store_tile(&p.o2, buf, n0, m0 + wg * 64, p, wg);
+      } else {
+        const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * (lane & 3);
+          if (col >= p.n) continue;        // n % 8 == 0: col + 1 < n too
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = row0 + 8 * half;
+            if (row >= p.m) continue;
+            reinterpret_cast<float2*>(static_cast<float*>(p.out1) +
+                                      static_cast<size_t>(row) * p.n +
+                                      col)[0] =
+                make_float2(acc1[4 * j + 2 * half],
+                            acc1[4 * j + 2 * half + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ host
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime loaded; null if the
+// driver has none.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major (rows, cols) bf16 matrix as boxes of 64 columns (128 bytes,
+// swizzled) x box_rows rows; out-of-bounds elements load as zeros.
+inline cudaError_t encode(CUtensorMap* map, const void* base, int rows,
+                          int cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// One persistent launch of gemm_kernel<BN, DUAL>: min(tiles, SMs) blocks.
+template <int BN, bool DUAL>
+cudaError_t launch(const Args& args, int device, cudaStream_t s) {
+  using T = Tile<BN, DUAL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_kernel<BN, DUAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::SMEM);
+  int sms = 0;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return err;
+  const int tiles = cdiv(args.m, BM) * cdiv(args.n, BN);
+  gemm_kernel<BN, DUAL><<<tiles < sms ? tiles : sms, THREADS, T::SMEM, s>>>(
+      args);
+  return cudaGetLastError();
+}
+
+// K4's bf16 products: (y, g) -> h, dhpre (the dual product), then
+// dy = dhpre·w1ᵀ in fp32.  y, g (rows, c); w1 (c, hidden); w2 (hidden, c);
+// b1 (hidden) fp32; h, dhpre (rows, hidden) bf16; dy (rows, c) fp32.  All
+// bases 16-byte aligned, c and hidden multiples of 8.
+inline cudaError_t mlp_bwd_products(const void* y, const void* g,
+                                    const void* w1, const float* b1,
+                                    const void* w2, void* h, void* dhpre,
+                                    float* dy, int rows, int c, int hidden,
+                                    int device, cudaStream_t s) {
+  if (rows < 1 || c < 8 || hidden < 8 || c % 8 || hidden % 8)
+    return cudaErrorInvalidValue;
+  Args dual{};
+  cudaError_t err = encode(&dual.a1, y, rows, c, BM);
+  if (err == cudaSuccess) err = encode(&dual.b1, w1, c, hidden, BK);
+  if (err == cudaSuccess) err = encode(&dual.a2, g, rows, c, BM);
+  if (err == cudaSuccess) err = encode(&dual.b2, w2, hidden, c, 128);
+  if (err == cudaSuccess) err = encode(&dual.o1, h, rows, hidden, 64);
+  if (err == cudaSuccess) err = encode(&dual.o2, dhpre, rows, hidden, 64);
+  if (err != cudaSuccess) return err;
+  dual.bias = b1;
+  dual.m = rows;
+  dual.n = hidden;
+  dual.k = c;
+  err = launch<128, true>(dual, device, s);
+  if (err != cudaSuccess) return err;
+  Args dyp{};
+  err = encode(&dyp.a1, dhpre, rows, hidden, BM);
+  if (err == cudaSuccess) err = encode(&dyp.b1, w1, c, hidden, DY_BN);
+  if (err != cudaSuccess) return err;
+  dyp.out1 = dy;
+  dyp.m = rows;
+  dyp.n = c;
+  dyp.k = hidden;
+  return launch<DY_BN, false>(dyp, device, s);
+}
+
+}  // namespace sm90
+}  // namespace
+}  // namespace dfu

@@ -38,10 +38,13 @@
 //   sum over all rows that the TPU grid accumulated in order, becomes
 //   per-64-row column partials in a (blocks, C) fp32 buffer reduced by a
 //   second pass: deterministic, no atomics.  The ragged row edge (3152
-//   rows) is masked in every kernel, so nothing is padded.  The qkv,
-//   attention output, MLP hidden and fc1 pre-activation intermediates go
-//   through HBM; fusing them away (and wgmma/TMA pipelining of the GEMM)
-//   is later work.
+//   rows) is masked in every kernel, so nothing is padded.  K4 in bf16
+//   runs its three products on gemm_sm90.cuh instead (TMA + wgmma, fc1
+//   and dh in one dual product whose fp32 pre-activation stays in
+//   registers; dfu_mlp_block_bwd_gemms); fp32 K4 keeps the chain through
+//   the fp32 pre-activation.  The qkv, attention output and MLP hidden
+//   intermediates of K1/K2 go through HBM; fusing them away, and moving
+//   K1/K2 onto the wgmma GEMM, is later work.
 //
 // Numerics follow the Pallas kernels: fp32 LayerNorm statistics, matmul
 // operands in the compute dtype with fp32 accumulation, q·kᵀ scaled by
@@ -53,8 +56,11 @@
 
 #include "attention_core.cuh"
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
 #include "layernorm.cuh"
+
+#include <chrono>
 
 using namespace dfu;
 
@@ -127,6 +133,41 @@ int dfu_gemm(int device, int dtype, int epi, int trans_b, const void* a,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   DFU_RETURN_LAST_ERROR();
+}
+
+// K4's bf16 products on the TMA + wgmma GEMM (gemm_sm90.cuh): the dual
+// product h = bf16(gelu(y·w1 + b1)), dhpre = bf16((g·w2ᵀ)·gelu'(y·w1 + b1))
+// in one launch, then dy = dhpre·w1ᵀ (fp32) in a second.  y, g (rows, c),
+// w1 (c, hidden), w2 (hidden, c), h, dhpre (rows, hidden) bf16; b1
+// (hidden) and dy (rows, c) fp32; bases 16-byte aligned, c and hidden
+// multiples of 8 (else cudaErrorInvalidValue).
+int dfu_mlp_block_bwd_gemms(int device, const void* y, const void* g,
+                            const void* w1, const void* b1, const void* w2,
+                            void* h, void* dhpre, void* dy, int rows, int c,
+                            int hidden, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(sm90::mlp_bwd_products(
+      y, g, w1, static_cast<const float*>(b1), w2, h, dhpre,
+      static_cast<float*>(dy), rows, c, hidden, device,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The host cost of one tensor map of the products above: encodes the map
+// of a (rows, cols) bf16 matrix at `base` `iters` times and writes the
+// mean nanoseconds to *ns.
+int dfu_tensor_map_encode_ns(const void* base, int rows, int cols, int iters,
+                             double* ns) {
+  CUtensorMap map;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i) {
+    const cudaError_t err = sm90::encode(&map, base, rows, cols, sm90::BM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const std::chrono::duration<double, std::nano> dt =
+      std::chrono::steady_clock::now() - t0;
+  *ns = dt.count() / (iters > 0 ? iters : 1);
+  return 0;
 }
 
 // qkv (batch, n, 3·heads·d) -> out (batch, n, heads·d); d in {16,32,64,128}.

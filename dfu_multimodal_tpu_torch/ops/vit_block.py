@@ -6,7 +6,8 @@ Counterpart of ``dfu_multimodal_tpu/ops/vit_block.py``:
   ``attn_block``:  x + proj(attention(qkv(LN1(x))))     (K1, forward)
   ``mlp_block``:   x + fc2(gelu(fc1(LN2(x))))           (K2, forward)
   ``mlp_block_bwd``: LN2/fc1 recompute, dGELU, dx with the LN backward,
-                   emits y, h, dhpre, dg2, db2           (K4)
+                   emits y, h, dhpre, dg2, db2           (K4; bf16 on the
+                   TMA + wgmma GEMM of csrc/gemm_sm90.cuh)
 
 and the two hand chain rules the custom VJPs run: :func:`attn_block_bwd`
 (LN1 and qkv recompute, the K5 attention fwd+bwd of ``ops.attention``,
@@ -74,8 +75,13 @@ _SIGNATURES = {
                           _I, _F, _P],
     "dfu_gemm": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dfu_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _P],
+    "dfu_mlp_block_bwd_gemms": [_I] + [_P] * 8 + [_I, _I, _I, _P],
+    "dfu_tensor_map_encode_ns": [_P, _I, _I, _I, _P],
 }
 _LNB_ROWS = 64      # rows per LN-backward column partial (csrc LNB_ROWS)
+# K4's bf16 products (csrc/gemm_sm90.cuh): 64-deep k steps; TMA wants
+# 16-byte-aligned bases and row strides
+_SM90_BK, _TMA_ALIGN = 64, 16
 
 
 def _lib():
@@ -173,6 +179,25 @@ def mlp_block_bwd_ref(x, g, g2, b2, w1, b1, w2):
     return dx.reshape(x.shape), y, h, dhpre, dg2, db2
 
 
+def _mlp_bwd_dual_ref(y, g, w1, b1, w2):
+    """The bf16 K4 dual product's algorithm as a plain tile walk (the
+    kernel itself runs only on the card): both accumulators, y·w1 and
+    g·w2ᵀ, summed in fp32 over 64-deep k steps (csrc/gemm_sm90.cuh's BK),
+    then the epilogue in registers: hpre = acc1 + b1, h = gelu(hpre),
+    dhpre = acc2·gelu'(hpre), both in y's dtype.  y, g (R, C)."""
+    acc = _acc(y)
+    acc1 = torch.zeros(y.shape[0], w1.shape[1], dtype=acc,
+                       device=y.device)
+    acc2 = torch.zeros_like(acc1)
+    for k0 in range(0, y.shape[1], _SM90_BK):
+        k = slice(k0, k0 + _SM90_BK)
+        acc1 += y[:, k].to(acc) @ w1[k].to(acc)
+        acc2 += g[:, k].to(acc) @ w2[:, k].t().to(acc)
+    hpre = acc1 + b1.to(acc)
+    return (F.gelu(hpre).to(y.dtype),
+            (acc2 * _gelu_grad(hpre)).to(y.dtype))
+
+
 # --------------------------------------------------------------- kernels
 
 
@@ -210,6 +235,20 @@ def _launch_layernorm_bwd(lib, x, resid, dy, gamma, rows, c, what):
         stats.data_ptr(), partial.data_ptr(), dgamma.data_ptr(),
         dbeta.data_ptr(), rows, c, LN_EPS, _build.stream_of(x)), what)
     return dx, dgamma, dbeta
+
+
+def _check_tma_operands(name, c, hidden, **operands):
+    """The bf16 K4 products load their operands by TMA, which needs
+    16-byte-aligned bases and row strides: raise ValueError unless C and
+    hidden are multiples of 8 and every operand's base is 16-byte
+    aligned (no fallback to another kernel)."""
+    if c % 8 or hidden % 8:
+        raise ValueError(f"{name}: C = {c} and hidden = {hidden} must be "
+                         "multiples of 8 in bf16 (16-byte TMA rows)")
+    for arg, t in operands.items():
+        if t.data_ptr() % _TMA_ALIGN:
+            raise ValueError(f"{name}: {arg} at address {t.data_ptr():#x} "
+                             f"is not {_TMA_ALIGN}-byte aligned")
 
 
 def attn_block(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
@@ -300,7 +339,12 @@ def mlp_block_bwd(x: torch.Tensor, g: torch.Tensor, g2: torch.Tensor,
     gradient g (x's shape and dtype): returns dx (x's shape), the
     recomputed y = LN2(x) (R, C), h = gelu(fc1) (R, H), dhpre (R, H) in
     x's dtype — the operands of the weight-gradient products — and dg2,
-    db2 (C,) fp32.  R = B·N rows, unpadded."""
+    db2 (C,) fp32.  R = B·N rows, unpadded.  On the card, bf16 runs the
+    LayerNorm, the dual product (h and dhpre from one TMA + wgmma launch,
+    the fp32 pre-activation kept in registers), dy = dhpre·w1ᵀ on the
+    same GEMM and the LN backward; it needs C and hidden multiples of 8
+    and 16-byte-aligned g, w1, w2 (ValueError otherwise).  fp32 runs the
+    SIMT chain of csrc/gemm_tile.cuh."""
     if x.device.type == "cpu":
         return mlp_block_bwd_ref(x, g, g2, b2, w1, b1, w2)
     rows, c, hidden = _check_mlp("mlp_block_bwd", x, g2, b2, w1, b1, w2,
@@ -308,19 +352,29 @@ def mlp_block_bwd(x: torch.Tensor, g: torch.Tensor, g2: torch.Tensor,
     if g.shape != x.shape:
         raise ValueError(f"mlp_block_bwd: g {tuple(g.shape)} != x "
                          f"{tuple(x.shape)}")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        _check_tma_operands("mlp_block_bwd", c, hidden, g=g, w1=w1, w2=w2)
     lib, dev = _lib(), x.device
     y = torch.empty((rows, c), dtype=x.dtype, device=dev)
-    hpre = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
     h = torch.empty((rows, hidden), dtype=x.dtype, device=dev)
     dhpre = torch.empty_like(h)
     dy = torch.empty((rows, c), dtype=torch.float32, device=dev)
     _launch_layernorm(lib, x, g2, b2, y, rows, c, "mlp_block_bwd LayerNorm")
-    _launch_gemm(lib, _EPI_BIAS_GELU_AUX, False, y, w1, b1, hpre, h, rows,
-                 hidden, c, "mlp_block_bwd fc1")
-    _launch_gemm(lib, _EPI_DGELU, True, g, w2, None, hpre, dhpre, rows,
-                 hidden, c, "mlp_block_bwd dh")
-    _launch_gemm(lib, _EPI_F32, True, dhpre, w1, None, None, dy, rows, c,
-                 hidden, "mlp_block_bwd dy")
+    if bf16:        # the dual product, then dy, on the TMA + wgmma GEMM
+        _build.check(lib, lib.dfu_mlp_block_bwd_gemms(
+            dev.index, y.data_ptr(), g.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), h.data_ptr(), dhpre.data_ptr(),
+            dy.data_ptr(), rows, c, hidden, _build.stream_of(x)),
+            "mlp_block_bwd products")
+    else:           # fp32: the SIMT chain through the fp32 pre-activation
+        hpre = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
+        _launch_gemm(lib, _EPI_BIAS_GELU_AUX, False, y, w1, b1, hpre, h,
+                     rows, hidden, c, "mlp_block_bwd fc1")
+        _launch_gemm(lib, _EPI_DGELU, True, g, w2, None, hpre, dhpre, rows,
+                     hidden, c, "mlp_block_bwd dh")
+        _launch_gemm(lib, _EPI_F32, True, dhpre, w1, None, None, dy, rows,
+                     c, hidden, "mlp_block_bwd dy")
     dx, dg2, db2 = _launch_layernorm_bwd(lib, x, g, dy, g2, rows, c,
                                          "mlp_block_bwd LayerNorm bwd")
     mlp_block_bwd.launches += 1

@@ -25,10 +25,12 @@ turn, and whether every turn's hash of each output is the same.  Two
 versions are compared only within one run: two runs may land on two
 cards.  Needs a CUDA device; exits non-zero without one.
 
-Hashes intended to change against the parent of the bf16 tensor-core
-forward (``csrc/attention_fwd_mma.cuh``): the bf16 ``K6
-qkv_attention_fwd`` and ``K9 flash_attention_fwd`` lines (N = 197 and
-577).  Every other line, the fp32 forwards' included, is held equal.
+The only hash allowed to change against the parent of the bf16 K4
+products on the TMA + wgmma GEMM (``csrc/gemm_sm90.cuh``) is the ``K4
+mlp_block_bwd bfloat16`` line; on an H100 it stays equal as well (the
+new GEMM adds the same 16-deep tensor-core steps in the same k order as
+the WMMA tile).  Every other line, the fp32 K4 and K1, K2, K5-K12
+included, is held equal.
 """
 
 from __future__ import annotations

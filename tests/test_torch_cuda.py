@@ -181,6 +181,86 @@ def test_mlp_block_bwd_kernel_matches_plain(shape, dtype):
                       TOL[dtype])
 
 
+# the bf16 K4 products (csrc/gemm_sm90.cuh, TMA + wgmma): SHAPES, the
+# ragged row counts 1, 129 and 3152 (B = 16 of ViT-B/16: 24.6 tiles of
+# 128 rows), and widths whose hidden is no multiple of the 128-column tile
+# (C = 8, 24, 40: hidden 32, 96, 160) or whose C is no multiple of the
+# 64-deep k step
+K4_SHAPES = SHAPES + [(1, 1, 768, 12), (1, 129, 768, 12),
+                      (16, 197, 768, 12), (2, 5, 8, 1), (1, 7, 24, 1),
+                      (2, 20, 40, 1)]
+# bf16 K4: each output's distance from the fp32 result within 10% of the
+# plain version's, plus fp32's 1e-4·(1 + max) for the summation order
+K4_VS_PLAIN = 0.1
+
+
+def _k4_args(dev, shape, seed):
+    b, n, c, _ = shape
+    x, (g2, b2), _, (w1, bb1, w2, _) = _block_args(dev, b, n, c,
+                                                    torch.bfloat16, seed)
+    g = _randn(torch.Generator(device=dev).manual_seed(seed + 1), b, n, c,
+               dtype=torch.bfloat16)
+    return x, g, g2, b2, w1, bb1, w2
+
+
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_bf16_mlp_block_bwd_matches_plain(shape):
+    """The bf16 K4 against its plain version within the bf16 budget, one
+    launch a call, two calls bit-equal (fixed sum order, no atomics)."""
+    dev = _cuda()
+    args = _k4_args(dev, shape, seed=40)
+    before = vb.mlp_block_bwd.launches
+    outs, again = vb.mlp_block_bwd(*args), vb.mlp_block_bwd(*args)
+    torch.cuda.synchronize()
+    assert vb.mlp_block_bwd.launches == before + 2
+    _assert_all_close(outs, vb.mlp_block_bwd_ref(*args), TOL[torch.bfloat16])
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
+
+
+@pytest.mark.parametrize("shape", [(2, 197, 768, 12), (16, 197, 768, 12),
+                                   (2, 20, 40, 1)])
+def test_bf16_mlp_block_bwd_no_further_from_fp32_than_plain(shape):
+    dev = _cuda()
+    args = _k4_args(dev, shape, seed=41)
+    outs = vb.mlp_block_bwd(*args)
+    plains = vb.mlp_block_bwd_ref(*args)
+    truths = vb.mlp_block_bwd_ref(*(t.float() for t in args))
+    for out, plain, truth in zip(outs, plains, truths):
+        truth = truth.float()
+        a = float((out.float() - truth).abs().max())
+        p = float((plain.float() - truth).abs().max())
+        slack = TOL[torch.float32] * (1 + float(truth.abs().max()))
+        assert a <= (1 + K4_VS_PLAIN) * p + slack, (a, p, slack)
+
+
+def test_bf16_mlp_block_bwd_refuses_misaligned_operands():
+    """TMA needs 16-byte-aligned bases and rows: a bf16 g, w1 or w2 whose
+    base lies 2 bytes past a 16-byte boundary, or a width that is no
+    multiple of 8, raises ValueError (no fallback); fp32 takes the SIMT
+    chain, which needs neither."""
+    dev = _cuda()
+    args = list(_k4_args(dev, (2, 9, 64, 4), seed=42))
+
+    def offset(t):                        # contiguous, one element in
+        flat = torch.empty(1 + t.numel(), dtype=t.dtype, device=dev)
+        flat[1:].copy_(t.reshape(-1))
+        return flat[1:].view(t.shape)
+
+    for i in (1, 4, 6):                   # g, w1, w2
+        bad = list(args)
+        bad[i] = offset(args[i])
+        assert bad[i].is_contiguous() and bad[i].data_ptr() % 16 == 2
+        with pytest.raises(ValueError):
+            vb.mlp_block_bwd(*bad)
+    narrow = _k4_args(dev, (2, 9, 36, 4), seed=43)       # C = 36
+    with pytest.raises(ValueError):
+        vb.mlp_block_bwd(*narrow)
+    narrow32 = [t.float() if t.dtype == torch.bfloat16 else t
+                for t in narrow]
+    _assert_all_close(vb.mlp_block_bwd(*narrow32),
+                      vb.mlp_block_bwd_ref(*narrow32), TOL[torch.float32])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", SHAPES[:3])      # head dims 64, 16, 32
 def test_qkv_attention_fwdbwd_kernel_matches_plain(shape, dtype):
