@@ -10,8 +10,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               per source, all at once; prints the build seconds,
               ptxas's register / spill report and warnings, the
               tensor-core (HMMA) instruction count of the bf16 attention
-              forward and the warpgroup (HGMMA) count of K4's bf16
-              products (gemm_sm90.cuh), failing on a count of zero;
+              forward and of both kernels of the bf16 attention backward
+              (in attention.cu and attn_block_bwd.cu) and the warpgroup
+              (HGMMA) count of K4's bf16 products (gemm_sm90.cuh),
+              failing on a count of zero but the forward's;
 3. kernels  — each forward kernel against its plain PyTorch version on
               the card at the serving and training paths' shapes
               (ViT-B/16 blocks at B = 8, 16 and 128 in fp32 and bf16, K1
@@ -21,12 +23,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 3b. backward kernels — K4 ``mlp_block_bwd`` and K5
               ``qkv_attention_fwdbwd`` against their plain versions at
               B = 16 and 128 in fp32 and bf16, likewise, and K5 at
-              N = 226, 257 and 577 (B = 16: the tiled kernels); the bf16
-              K4 (TMA + wgmma products) also no further from the fp32
-              result than its plain version, two calls bit-equal, its
-              device time by kernel beside the CUDA-event time, its three
-              products through ``torch.matmul`` (cuBLAS) as a yardstick
-              in turns, and the host's cost of a tensor map;
+              N = 5, 40, 208, 209, 226, 257 and 577 (B = 16; fp32 past
+              208: the tiled kernels); the bf16 K4 (TMA + wgmma
+              products) and K5 (tensor-core backward) also no further
+              from the fp32 result than their plain versions
+              (BF16_VS_PLAIN), two calls bit-equal, their device time by
+              kernel (K5 at B = 16, 128 and N = 577 beside SDPA forward
+              + backward's), K4's three products through
+              ``torch.matmul`` (cuBLAS) as a yardstick in turns, and the
+              host's cost of a tensor map;
 3c. int8 kernels — ``attn_block_q8``, ``mlp_block_q8`` (K7) and
               ``attn_block_q8s``, ``mlp_block_q8s`` (K8) against their plain
               versions at B = 8 and 128 in fp32 and bf16, and K7's
@@ -48,17 +53,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               ``flash_attention`` forward and backward through autograd
               at B = 16 in bf16, with its launches counted; K6 and K9 also
               at N = 226, 257 and 577 (B = 16, 12 heads, D = 64: the
-              tiled kernels, but for the bf16 forward, one tensor-core
-              kernel at every N); the bf16 forwards also against the fp32
-              result on the same values (no further from it than their
-              plain versions, FWD_VS_PLAIN), two calls bit-equal, and
-              their device time beside SDPA's from the profiler;
+              fp32 tiled kernels; bf16 runs one tensor-core path at every
+              N) and at N = 5 and 40 (B = 16); every bf16 output also
+              against the fp32 result on the same values (no further
+              from it than the plain version's, BF16_VS_PLAIN), two calls
+              bit-equal, and the device time from the profiler beside
+              SDPA's (backward rows: backward alone, forward + backward,
+              SDPA forward + backward);
 3f. K10     — ``attn_block_bwd_fused`` (the one-kernel attention-block
               backward) against its plain version at ViT-B/16's block,
               B = 16 and 32, fp32 and bf16, each beside the K5 chain rule
               ``attn_block_bwd`` in turns (and, in fp32, held against
-              its gradients), at N = 40 with D = 8 and 32 and at N = 226;
-              two calls bit-equal; the device kernels one call runs (the
+              its gradients), at N = 40 with D = 8 and 32 and at N = 5,
+              226 and 577; two calls bit-equal; its bf16 device time (and
+              its attention step's) at B = 16 and 32; the device kernels
+              one call runs (the
               port's own only, from the profiler); then its entry point,
               a 12-block ``AttnBlockFusedBwd`` chain through autograd at
               B = 32 in bf16 (12 K10 launches per backward and no K5),
@@ -251,6 +260,11 @@ def phase_build() -> None:
                                        "warning")):
                 log(f"[ptxas] {line.strip()}")
     _log_tensor_core_sass("attention", "attention_fwd_mma")
+    # the bf16 backward of K5/K6/K9 and K10's attention step: tensor-core
+    # MMAs in every instantiation, or the phase fails
+    for name in ("attention", "attn_block_bwd"):
+        for kernel in ("attention_bwd_q_mma", "attention_bwd_kv_mma"):
+            _log_tensor_core_sass(name, kernel, required=True)
     # K4's bf16 products (gemm_sm90.cuh): warpgroup MMAs, or the phase fails
     _log_tensor_core_sass("vit_block", "gemm_kernel", op="HGMMA",
                           required=True)
@@ -450,7 +464,7 @@ K4_TENSOR_MAPS = 6              # encoded on the host for each bf16 call
 def _k4_bf16_checks(tag, args, res) -> None:
     """The bf16 K4 (TMA + wgmma products, csrc/gemm_sm90.cuh): each output
     no further from the fp32 result on the same values than the plain
-    version and two calls bit-equal (_bf16_fwd_checks); its device time
+    version and two calls bit-equal (_bf16_checks); its device time
     (profiler, by kernel) beside the CUDA-event time; and a yardstick,
     logged and never called by the port: its three products through
     ``torch.matmul`` (cuBLAS, bf16 results) on the same operands, timed
@@ -459,7 +473,7 @@ def _k4_bf16_checks(tag, args, res) -> None:
     def kernel():
         return vb.mlp_block_bwd(*args)
 
-    _bf16_fwd_checks(tag, "mlp_block_bwd", kernel,
+    _bf16_checks(tag, "mlp_block_bwd", kernel,
                      lambda: vb.mlp_block_bwd_ref(*args),
                      lambda: vb.mlp_block_bwd_ref(*(t.float() for t in args)),
                      prefix="kernel", names=K4_OUTPUTS)
@@ -495,6 +509,42 @@ def _log_tensor_map_cost(x) -> None:
         f"{ns.value:.1f} ns each, {K4_TENSOR_MAPS} a bf16 call")
 
 
+# token counts of the bf16 backward's small cases: one partial 64-row
+# tile, and 40 of 64
+BWD_SMALL_N = (5, 40)
+
+
+def _k5_bf16_checks(tag, qkv, dout, heads, res, timed=True) -> None:
+    """The bf16 K5 (csrc/attention_bwd_mma.cuh) no further from the fp32
+    result than its plain version and two calls bit-equal
+    (_bf16_checks); with ``timed`` its device time (profiler, by kernel)
+    beside SDPA forward + backward's on the strided views of the same
+    operands, the yardstick (no single call computes K5)."""
+    def kernel():
+        return at.qkv_attention_fwdbwd(qkv, dout, heads)
+
+    _bf16_checks(tag, "qkv_attention_fwdbwd", kernel,
+                 lambda: at.qkv_attention_fwdbwd_ref(qkv, dout, heads),
+                 lambda: at.qkv_attention_fwdbwd_ref(qkv.float(),
+                                                     dout.float(), heads),
+                 names=("attn", "dqkv"))
+    if not timed:
+        return
+    b, n, c = dout.shape
+    q, k, v = at._unpack(qkv, heads)
+    do = dout.view(b, n, heads, c // heads).transpose(1, 2)
+    split = _device_split(kernel)
+    res.update(device_ms=sum(split.values()) or None,
+               library_fwd_bwd_device_ms=_device_ms(
+                   lambda: _sdpa_fwd_bwd(q, k, v, do)))
+    log(f"[kernel] qkv_attention_fwdbwd {tag}: device (profiler) "
+        f"{_ms_or_none(res['device_ms'])}: "
+        + ", ".join(f"{name} {ms:.4f}" for name, ms in split.items())
+        + f"; SDPA forward + backward device "
+        f"{_ms_or_none(res['library_fwd_bwd_device_ms'])}; bound "
+        f"{_attention_bwd_bound(b, n, c, True)}")
+
+
 def phase_backward_kernels(dev) -> dict:
     """K4 and K5 against their plain versions at the training path's
     shapes (ViT-B/16, B = 16) and at B = 128; in bf16 K4 also against the
@@ -525,25 +575,32 @@ def phase_backward_kernels(dev) -> dict:
                 lambda: at.qkv_attention_fwdbwd(qkv, dout, heads),
                 lambda: at.qkv_attention_fwdbwd_ref(qkv, dout, heads),
                 KERNEL_TOL[dtype])
+            if dtype == torch.bfloat16:
+                _k5_bf16_checks(tag, qkv, dout, heads, att)
             if dtype == torch.bfloat16 and b == 16:  # the training shape
                 main["mlp_block_bwd"], main["qkv_attention_fwdbwd"] = mlp, att
                 _log_tensor_map_cost(x)
             del x, dout, w1, w2, qkv
             torch.cuda.empty_cache()
-        rows = []
-        for n_large in (*SPLIT_BWD, *LARGE_N):   # the split, then tiled
-            g = torch.Generator(device=dev).manual_seed(2500 + n_large)
-            qkv = _randn(g, TRAIN_BATCH, n_large, 3 * c, dtype=dtype)
-            dout = _randn(g, TRAIN_BATCH, n_large, c, dtype=dtype)
-            rows.append((n_large, _check_and_time(
-                f"qkv_attention_fwdbwd {str(dtype).split('.')[1]} "
-                f"B={TRAIN_BATCH} N={n_large}",
+        rows = {}
+        # one partial tile, a tile edge, fp32's split, then past it
+        for n_other in (*BWD_SMALL_N, *SPLIT_BWD, *LARGE_N):
+            g = torch.Generator(device=dev).manual_seed(2500 + n_other)
+            qkv = _randn(g, TRAIN_BATCH, n_other, 3 * c, dtype=dtype)
+            dout = _randn(g, TRAIN_BATCH, n_other, c, dtype=dtype)
+            tag = f"{str(dtype).split('.')[1]} B={TRAIN_BATCH} N={n_other}"
+            rows[n_other] = _check_and_time(
+                f"qkv_attention_fwdbwd {tag}",
                 lambda: at.qkv_attention_fwdbwd(qkv, dout, heads),
                 lambda: at.qkv_attention_fwdbwd_ref(qkv, dout, heads),
-                KERNEL_TOL[dtype])))
+                KERNEL_TOL[dtype])
+            if dtype == torch.bfloat16:
+                _k5_bf16_checks(tag, qkv, dout, heads, rows[n_other],
+                                timed=n_other == LARGE_N[-1])
             del qkv, dout
-        _log_split(f"qkv_attention_fwdbwd {str(dtype).split('.')[1]} "
-                   f"B={TRAIN_BATCH}", rows[:2])
+        if dtype == torch.float32:      # the bf16 backward has no split
+            _log_split(f"qkv_attention_fwdbwd float32 B={TRAIN_BATCH}",
+                       [(n, rows[n]) for n in SPLIT_BWD])
     return main
 
 
@@ -710,11 +767,14 @@ def phase_resnet_kernels(dev) -> dict:
 
 ATTN_BATCHES = (8, 16, 128)      # serving 8, training 16, a large batch
 # (B, heads, N, D) of the small cases: the scale d**-0.5 is no power of
-# two at D = 8 and 32, so the scores are scaled after the product
-ATTN_SMALL = ((2, 4, 40, 8), (2, 4, 40, 32))
-# bf16 forwards: the kernel's distance from the fp32 result on the same
-# values within 10% of the plain version's (as K10_VS_PLAIN in phase 3f)
-FWD_VS_PLAIN = 0.1
+# two at D = 8 and 32, so the scores are scaled after the product; then
+# one partial tile (N = 5) and N = 40 at the training batch
+ATTN_SMALL = ((2, 4, 40, 8), (2, 4, 40, 32), (16, 12, 5, 64),
+              (16, 12, 40, 8), (16, 12, 40, 32))
+# bf16 tensor-core kernels (the K6/K9 forwards, the K5/K6/K9 backwards,
+# K4): the kernel's distance from the fp32 result on the same values
+# within 10% of the plain version's (as K10_VS_PLAIN in phase 3f)
+BF16_VS_PLAIN = 0.1
 
 
 def _turns(a, b):
@@ -765,11 +825,12 @@ def _ms_or_none(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def _bf16_fwd_checks(tag, name, kernel, plain, fp32, prefix="attention",
-                     names=None) -> None:
-    """A bf16 tensor-core kernel (the K6/K9 forwards, K4's products) no
-    further from the fp32 result on the same values than its plain
-    version: each output's max|err| within FWD_VS_PLAIN of the plain's,
+def _bf16_checks(tag, name, kernel, plain, fp32, prefix="attention",
+                 names=None) -> None:
+    """A bf16 tensor-core kernel (the K6/K9 forwards, the K5/K6/K9
+    backwards, K4's products) no further from the fp32 result on the same
+    values than its plain version: each output's max|err| within
+    BF16_VS_PLAIN of the plain's,
     plus fp32's KERNEL_TOL·(1 + max|fp32|) for the summation order; two
     calls bit-equal.  ``names`` labels the outputs of a kernel that
     returns a tuple of them."""
@@ -783,13 +844,13 @@ def _bf16_fwd_checks(tag, name, kernel, plain, fp32, prefix="attention",
         a = float((out.float() - truth).abs().max())
         p = float((ref.float() - truth).abs().max())
         slack = KERNEL_TOL[torch.float32] * (1 + float(truth.abs().max()))
-        near = a <= (1 + FWD_VS_PLAIN) * p + slack
+        near = a <= (1 + BF16_VS_PLAIN) * p + slack
         equal = torch.equal(out, out2)
         ok = ok and near and equal
         log(f"[{prefix}] {name}{' ' + label if label else ''} {tag}: "
             f"max|err| against the fp32 result on the same values, kernel "
             f"/ plain {a:.3e} / {p:.3e} (kernel within "
-            f"{1 + FWD_VS_PLAIN:g}x plain + {slack:.2e}) "
+            f"{1 + BF16_VS_PLAIN:g}x plain + {slack:.2e}) "
             f"{'ok' if near else 'FAIL'}; two calls bit-equal: {equal}")
     if not ok:
         raise AssertionError(f"{name} {tag}: further from the fp32 result "
@@ -798,10 +859,11 @@ def _bf16_fwd_checks(tag, name, kernel, plain, fp32, prefix="attention",
 
 def _attention_case(g, b, heads, n, d, dtype) -> dict:
     """K6 and K9, forward and backward, against their plain versions on
-    one shape, each row with SDPA's time on the same operands; in bf16 the
-    forwards (the tensor-core kernel) also against the fp32 result and
-    across two calls (_bf16_fwd_checks), with their device time and SDPA's
-    (_device_ms)."""
+    one shape, each row with SDPA's time on the same operands; in bf16
+    (the tensor-core kernels) every output also against the fp32 result
+    and across two calls (_bf16_checks), with the device time of each
+    kernel and of SDPA (_device_ms; a backward row's backward alone and
+    its forward + backward, beside SDPA's forward + backward)."""
     c = heads * d
     tol = KERNEL_TOL[dtype]
     tag = f"{str(dtype).split('.')[1]} B={b} N={n} H={heads} D={d}"
@@ -828,16 +890,28 @@ def _attention_case(g, b, heads, n, d, dtype) -> dict:
             lambda: at.flash_attention_bwd(q, k, v, do9),
             lambda: at.flash_attention_bwd_ref(q, k, v, do9), tol)}
     if dtype == torch.bfloat16:
-        _bf16_fwd_checks(
+        _bf16_checks(
             tag, "qkv_attention_fwd",
             lambda: at.qkv_attention_fwd(qkv, heads),
             lambda: at.qkv_attention_ref(qkv, heads),
             lambda: at.qkv_attention_ref(qkv.float(), heads))
-        _bf16_fwd_checks(
+        _bf16_checks(
             tag, "flash_attention_fwd",
             lambda: at.flash_attention_fwd(q, k, v),
             lambda: at.flash_attention_ref(q, k, v),
             lambda: at.flash_attention_ref(q.float(), k.float(), v.float()))
+        _bf16_checks(
+            tag, "qkv_attention_bwd",
+            lambda: at.qkv_attention_bwd(qkv, do, heads),
+            lambda: at.qkv_attention_bwd_ref(qkv, do, heads),
+            lambda: at.qkv_attention_bwd_ref(qkv.float(), do.float(), heads))
+        _bf16_checks(
+            tag, "flash_attention_bwd",
+            lambda: at.flash_attention_bwd(q, k, v, do9),
+            lambda: at.flash_attention_bwd_ref(q, k, v, do9),
+            lambda: at.flash_attention_bwd_ref(q.float(), k.float(),
+                                               v.float(), do9.float()),
+            names=("dq", "dk", "dv"))
     # SDPA in turns with the kernels: a forward row beside one SDPA call;
     # a backward row's forward + backward beside SDPA forward + backward
     # (a backward needs the forward's statistics, so no single call
@@ -857,6 +931,9 @@ def _attention_case(g, b, heads, n, d, dtype) -> dict:
             lambda: (at.flash_attention_fwd(q, k, v),
                      at.flash_attention_bwd(q, k, v, do9)),
             lambda: _sdpa_fwd_bwd(q, k, v, do9))}
+    backward = {
+        "qkv_attention_bwd": lambda: at.qkv_attention_bwd(qkv, do, heads),
+        "flash_attention_bwd": lambda: at.flash_attention_bwd(q, k, v, do9)}
     for name, (kernel, library) in pairs.items():
         k_ms, l_ms = _turns(kernel, library)
         if name.endswith("_fwd"):
@@ -873,6 +950,16 @@ def _attention_case(g, b, heads, n, d, dtype) -> dict:
                              library_fwd_bwd_ms=l_ms)
             log(f"[attention] {name} {tag}: kernel forward + backward "
                 f"{k_ms:.4f} ms, SDPA forward + backward {l_ms:.4f} ms")
+            if dtype == torch.bfloat16:
+                d_ms = _device_ms(backward[name])
+                f_ms, ld_ms = _device_ms(kernel), _device_ms(library)
+                res[name].update(device_ms=d_ms, fwd_bwd_device_ms=f_ms,
+                                 library_fwd_bwd_device_ms=ld_ms)
+                log(f"[attention] {name} {tag}: device time (profiler) "
+                    f"backward {_ms_or_none(d_ms)}, forward + backward "
+                    f"{_ms_or_none(f_ms)}, SDPA forward + backward "
+                    f"{_ms_or_none(ld_ms)}; backward's bound "
+                    f"{_attention_bwd_bound(b, n, c)}")
     return res
 
 
@@ -901,10 +988,11 @@ def phase_attention_kernels(dev) -> tuple:
             g = torch.Generator(device=dev).manual_seed(5600 + n)
             rows[n] = _attention_case(g, TRAIN_BATCH, 12, n, 64, dtype)
             torch.cuda.empty_cache()
-        splits = [("qkv_attention_bwd", SPLIT_BWD),
-                  ("flash_attention_bwd", SPLIT_BWD)]
-        if dtype == torch.float32:      # the bf16 forward has no split
-            splits += [("qkv_attention_fwd", SPLIT_FWD),
+        splits = []
+        if dtype == torch.float32:      # no bf16 attention kernel splits
+            splits += [("qkv_attention_bwd", SPLIT_BWD),
+                       ("flash_attention_bwd", SPLIT_BWD),
+                       ("qkv_attention_fwd", SPLIT_FWD),
                        ("flash_attention_fwd", SPLIT_FWD)]
         for name, split in splits:
             _log_split(f"{name} {str(dtype).split('.')[1]} B={TRAIN_BATCH}",
@@ -1018,6 +1106,14 @@ def _k10_case(gen, b, heads, n, c, dtype, chain=True) -> dict:
     res["chain_ms"] = c_ms
     log(f"[k10] {tag}: K10 {k_ms:.4f} ms, K5 chain rule (attn_block_bwd) "
         f"{c_ms:.4f} ms, in turns")
+    if dtype == torch.bfloat16:
+        split = _device_split(lambda: vb.attn_block_bwd_fused(*args, heads))
+        res["device_ms"] = sum(split.values()) or None
+        attention = sum(ms for name, ms in split.items()
+                        if "attention_bwd" in name)
+        log(f"[k10] {tag}: device (profiler) "
+            f"{_ms_or_none(res['device_ms'])}, of which the attention step "
+            f"(attention_bwd_*) {attention:.4f} ms")
     if dtype == torch.float32:
         errs = {}
         for name, a, r in zip(K10_NAMES, first, chain_fn()):
@@ -1074,8 +1170,10 @@ def phase_k10(dev) -> tuple:
         for b, h, n_small, d in K10_SMALL:
             g = torch.Generator(device=dev).manual_seed(6100 + d)
             _k10_case(g, b, h, n_small, h * d, dtype, chain=False)
-        g = torch.Generator(device=dev).manual_seed(6226)
-        _k10_case(g, TRAIN_BATCH, heads, LARGE_N[0], c, dtype, chain=False)
+        # one partial tile, past fp32's split, and a 384² image
+        for n_other in (BWD_SMALL_N[0], LARGE_N[0], LARGE_N[-1]):
+            g = torch.Generator(device=dev).manual_seed(6000 + n_other)
+            _k10_case(g, TRAIN_BATCH, heads, n_other, c, dtype, chain=False)
 
     # one call's device kernels: the port's own only (fp32: the results
     # need no cast; bf16: the two weight gradients' casts to bf16 follow)
@@ -2214,6 +2312,14 @@ def _bound(ops: dict, nbytes: float) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def _attention_bwd_bound(b, n, c, write_o=False) -> dict:
+    """The bf16 attention backward of B images of N tokens over C = heads
+    x D columns: five products (six with K5's O), 2·N²·C operations each
+    an image; q, k, v and dO read and dq, dk, dv (and O) written once."""
+    return _bound({torch.bfloat16: (12 if write_o else 10) * b * n * n * c},
+                  (8 if write_o else 7) * b * n * c * 2)
+
+
 def _bottleneck_bound(b, hw, cin, cmid, cout) -> dict:
     """K11 in bf16: 2·rows·(Cin·Cmid + 9·Cmid² + Cmid·Cout [+ Cin·Cout])
     operations; x read and the output written once, bf16 weights, fp32
@@ -2272,14 +2378,10 @@ def kernel_bounds() -> dict:
             {torch.bfloat16: 6 * r16 * c * hid},
             4 * r16 * c * bf + 2 * c * hid * bf + 2 * r16 * hid * bf
             + (4 * c + hid) * f32),
-        "qkv_attention_fwdbwd": _bound(
-            {torch.bfloat16: 12 * TRAIN_BATCH * n * n * c},
-            8 * r16 * c * bf),
+        "qkv_attention_fwdbwd": _attention_bwd_bound(TRAIN_BATCH, n, c, True),
         "qkv_attention_fwd": _bound({torch.bfloat16: attn_flops},
                                     4 * r8 * c * bf),
-        "qkv_attention_bwd": _bound(
-            {torch.bfloat16: 10 * TRAIN_BATCH * n * n * c},
-            7 * r16 * c * bf),
+        "qkv_attention_bwd": _attention_bwd_bound(TRAIN_BATCH, n, c),
         "attn_block_q8": _bound(*attn_q8),
         "mlp_block_q8": _bound(*mlp_q8),
         "attn_block_q8s": _bound(attn_q8[0], attn_q8[1] + 2 * f32),
@@ -2297,8 +2399,7 @@ def kernel_bounds() -> dict:
             + (5 * c + 6 * c) * f32),
     } | {f"flash_attention_{p}": bounds for p, bounds in (
         ("fwd", _bound({torch.bfloat16: attn_flops}, 4 * r8 * c * bf)),
-        ("bwd", _bound({torch.bfloat16: 10 * TRAIN_BATCH * n * n * c},
-                       7 * r16 * c * bf)))}
+        ("bwd", _attention_bwd_bound(TRAIN_BATCH, n, c)))}
 
 
 def main() -> int:
@@ -2337,15 +2438,16 @@ def main() -> int:
         "mlp_block": ("vit_block.cu", "vit_block.py:564"),
         "fused_mlp": ("fused_mlp.cu", "fused_mlp.py:27"),
         "mlp_block_bwd": ("gemm_sm90.cuh", "vit_block.py:652"),
-        "qkv_attention_fwdbwd": ("attention.cu", "attention.py:334"),
+        "qkv_attention_fwdbwd": ("attention_bwd_mma.cuh",
+                                 "attention.py:334"),
         "qkv_attention_fwd": ("attention_fwd_mma.cuh", "attention.py:208"),
-        "qkv_attention_bwd": ("attention.cu", "attention.py:222"),
+        "qkv_attention_bwd": ("attention_bwd_mma.cuh", "attention.py:222"),
         "attn_block_q8": ("vit_block_q8.cu", "vit_block_q8.py:70"),
         "mlp_block_q8": ("vit_block_q8.cu", "vit_block_q8.py:107"),
         "attn_block_q8s": ("vit_block_q8.cu", "vit_block_q8.py:157"),
         "mlp_block_q8s": ("vit_block_q8.cu", "vit_block_q8.py:202"),
         "flash_attention_fwd": ("attention_fwd_mma.cuh", "attention.py:73"),
-        "flash_attention_bwd": ("attention.cu", "attention.py:88"),
+        "flash_attention_bwd": ("attention_bwd_mma.cuh", "attention.py:88"),
         "bottleneck": ("resnet_block.cu", "resnet_block.py:108"),
         "bottleneck_proj": ("resnet_block.cu", "resnet_block.py:130"),
         "attn_block_bwd_fused": ("attn_block_bwd.cu", "vit_block.py:264"),

@@ -23,18 +23,21 @@ All three run one CUDA source (``csrc/attention.cu``) with one set of
 numerics, and so do their plain versions (:func:`_probs`,
 :func:`_attend`, :func:`_grads`).  Dispatch is by device only: a CPU
 tensor takes the plain version (``*_ref``), a CUDA tensor launches the
-kernel or raises.  Every token count runs.  The bf16 forwards of K6 and
-K9 run one tensor-core kernel for every N (``csrc/attention_fwd_mma.cuh``:
-two passes over 64-key tiles, the running max and sum, then P normalised
-before P·V; :func:`_attend_two_pass` is its tile walk in plain PyTorch);
-it needs 16-byte-aligned operands and raises ``ValueError`` for others.
-The fp32 forwards and every backward run SIMT kernels: a head whose K
-and V fit one block's shared memory takes the whole-head kernels, a
-longer one the tiled kernels that stream K and V through shared memory
-in key tiles (the fp32 forward past N ≈ 420, the backward past N = 208
-at D = 64; the FlashAttention-2 split for the backward, no atomics).
-Both give the same results.  A head dim other than 8, 16, 32 or 64
-raises ``ValueError``.
+kernel or raises.  Every token count runs.  In bf16 every kernel runs on
+the tensor cores, one path for every N: the forwards of K6 and K9
+(``csrc/attention_fwd_mma.cuh``: two passes over 64-key tiles, the
+running max and sum, then P normalised before P·V; :func:`_attend_two_pass`
+is its tile walk in plain PyTorch) and the backwards of K5, K6 and K9
+(``csrc/attention_bwd_mma.cuh``: a query-side kernel that walks the key
+tiles three times and writes dQ (and O) and each row's statistics, then
+a key-side kernel that walks the query tiles for dK and dV; no atomics;
+:func:`_attend_bwd_tiled` is its tile walk).  They need 16-byte-aligned
+operands and raise ``ValueError`` for others.  fp32 runs SIMT kernels: a
+head whose K and V fit one block's shared memory takes the whole-head
+kernels, a longer one the tiled kernels that stream K and V through
+shared memory in key tiles (the forward past N ≈ 420, the backward past
+N = 208 at D = 64), with the same results.  A head dim other than 8, 16,
+32 or 64 raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -150,6 +153,82 @@ def _attend_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+def _attend_bwd_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, prescale: bool = False,
+                      tile: int = 64) -> Tuple[torch.Tensor, ...]:
+    """The bf16 backward kernels' algorithm (``csrc/attention_bwd_mma.cuh``)
+    in plain PyTorch, for the tests.  Query side, three passes over the key
+    tiles: (a) the running row max and the running sum of exp(S − max),
+    rescaled when the max grows; (b) P = exp(S − max) · (1 / sum) in fp32,
+    δ += rowsum(dP∘P) and o += P_c·V; (c) dS = P∘(dP − δ) rounded to the
+    compute dtype and dq += dS·K.  Key side: walks the query tiles in order
+    with the rows' max, 1 / sum and δ (zero past N, as the kernel's stats
+    tile is zero-filled there), masks P and dS of the query rows past N to
+    0, and adds dv += P_cᵀ·dO and dk += dSᵀ·Q.  Keys past N score −inf on
+    the query side.  ``prescale``: q scaled in the compute dtype for every
+    head dim (K10).  q, k, v, do (B, H, N, D) in the compute dtype ->
+    (o, dq, dk, dv) in the accumulation dtype, as :func:`_grads`."""
+    dt, acc = q.dtype, acc_dtype(q)
+    n, d = q.shape[-2:]
+    scale = d ** -0.5
+    pre = prescale or _is_pow2(scale)
+    pad = -n % tile
+    qp, qsp, kp, vp, dop = (
+        torch.nn.functional.pad(t.to(acc), (0, 0, 0, pad))
+        for t in (q, (q * scale).to(dt) if pre else q, k, v, do))
+    past = torch.arange(n + pad, device=q.device) >= n
+
+    def scores(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        s = torch.matmul(a, b.transpose(-1, -2))
+        return s if pre else s * scale
+
+    def key_tile(j0: int):
+        """(S masked past N, dP, K tile, V tile) of every query row
+        against keys j0 .. j0 + tile - 1."""
+        kt, vt = kp[..., j0:j0 + tile, :], vp[..., j0:j0 + tile, :]
+        s = scores(qsp, kt).masked_fill(past[j0:j0 + tile], -math.inf)
+        return s, torch.matmul(dop, vt.transpose(-1, -2)), kt, vt
+
+    m = torch.full((*qp.shape[:-1], 1), -math.inf, dtype=acc,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    for j0 in range(0, n, tile):                     # (a)
+        s = key_tile(j0)[0]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(
+            -1, keepdim=True)
+        m = m_new
+    inv = 1.0 / l
+    delta = torch.zeros_like(m)
+    o = torch.zeros(qp.shape, dtype=acc, device=q.device)
+    dq = torch.zeros_like(o)
+    for j0 in range(0, n, tile):                     # (b)
+        s, dp, _, vt = key_tile(j0)
+        p = torch.exp(s - m) * inv
+        delta = delta + (dp * p).sum(-1, keepdim=True)
+        o = o + torch.matmul(p.to(dt).to(acc), vt)
+    for j0 in range(0, n, tile):                     # (c)
+        s, dp, kt, _ = key_tile(j0)
+        p = torch.exp(s - m) * inv
+        ds = (p * (dp - delta)).to(dt).to(acc)
+        dq = dq + torch.matmul(ds, kt)
+
+    # key side: the stats as the query side stores them (rows < N)
+    m, inv, delta = (t.masked_fill(past[:, None], 0.0).transpose(-1, -2)
+                     for t in (m, inv, delta))
+    dk, dv = torch.zeros_like(o), torch.zeros_like(o)
+    for i0 in range(0, n + pad, tile):
+        rows = slice(i0, i0 + tile)
+        st = scores(kp, qsp[..., rows, :])            # Sᵀ (keys, queries)
+        pt = torch.exp(st - m[..., rows]) * inv[..., rows]
+        dpt = torch.matmul(vp, dop[..., rows, :].transpose(-1, -2))
+        dst = pt * (dpt - delta[..., rows])
+        pt, dst = (t.masked_fill(past[rows], 0.0) for t in (pt, dst))
+        dv = dv + torch.matmul(pt.to(dt).to(acc), dop[..., rows, :])
+        dk = dk + torch.matmul(dst.to(dt).to(acc), qp[..., rows, :])
+    return tuple(t[..., :n, :] for t in (o, dq * scale, dk * scale, dv))
+
+
 def _grads(p, p_c, q, k, v, do):
     acc = p.dtype
     scale = q.shape[-1] ** -0.5
@@ -238,15 +317,16 @@ def _check_head(name: str, d: int) -> None:
 
 def _row_stats_scratch(b: int, heads: int, n: int,
                       device: torch.device) -> torch.Tensor:
-    """fp32 scratch of a backward kernel: each query row's softmax max,
-    sum and rowsum(dP∘P), which the tiled kernels pass from the query
-    side to the key side (unused by the whole-head kernel)."""
+    """fp32 scratch of a backward kernel: each query row's softmax
+    statistics and δ = rowsum(dP∘P), which the query side passes to the
+    key side (the bf16 kernels: max, 1 / sum and δ; the fp32 tiled
+    kernels: max, sum and δ; unused by the fp32 whole-head kernel)."""
     return torch.empty((3, b * heads * n), dtype=torch.float32,
                        device=device)
 
 
 def _check_aligned(name: str, **operands: torch.Tensor) -> None:
-    """The bf16 forward kernel copies 16-byte row chunks (cp.async): its
+    """The bf16 kernels copy 16-byte row chunks (cp.async): their
     operands' base addresses must be 16-byte aligned (their strides are,
     for every head dim the kernels take)."""
     for arg, t in operands.items():
@@ -301,6 +381,7 @@ def qkv_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
                                {"qkv": qkv, "do": do}, {})
     b, n, d = _packed_dims("qkv_attention_bwd", qkv, num_heads, do)
     _check_head("qkv_attention_bwd", d)
+    _check_aligned("qkv_attention_bwd", qkv=qkv, do=do)
     lib = _lib()
     dqkv = torch.empty_like(qkv)
     stats = _row_stats_scratch(b, num_heads, n, qkv.device)
@@ -324,6 +405,7 @@ def qkv_attention_fwdbwd(qkv: torch.Tensor, do: torch.Tensor,
                                {"qkv": qkv, "do": do}, {})
     b, n, d = _packed_dims("qkv_attention_fwdbwd", qkv, num_heads, do)
     _check_head("qkv_attention_fwdbwd", d)
+    _check_aligned("qkv_attention_fwdbwd", qkv=qkv, do=do)
     lib = _lib()
     attn = torch.empty_like(do)
     dqkv = torch.empty_like(qkv)
@@ -374,6 +456,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                {"q": q, "k": k, "v": v, "do": do}, {})
     b, h, n, d = _bhnd_dims("flash_attention_bwd", q, k, v, do)
     _check_head("flash_attention_bwd", d)
+    _check_aligned("flash_attention_bwd", q=q, k=k, v=v, do=do)
     lib = _lib()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     stats = _row_stats_scratch(b, h, n, q.device)

@@ -17,8 +17,9 @@ const char* dfu_error_string(int code) {
 
 // Every entry: d in {8, 16, 32, 64}; scale = d^-0.5; pow2: the scale is a
 // power of two (q pre-scaled in the compute dtype).  A backward takes
-// `stats`, fp32 scratch of 3·batch·heads·n floats that the tiled kernels
-// use when a head does not fit one block (attention_kernels.cuh).
+// `stats`, fp32 scratch of 3·batch·heads·n floats in which its query side
+// leaves each row's statistics for its key side: the bf16 kernels always,
+// fp32 when a head does not fit one block (attention_kernels.cuh).
 
 // K6 forward: qkv (batch, n, 3·heads·d) -> attn (batch, n, heads·d).
 int dfu_qkv_attention_fwd(int device, int dtype, const void* qkv, void* attn,

@@ -38,16 +38,21 @@
 //   accumulators kept in shared memory across the tiles (in row order: no
 //   atomics, deterministic); K, V, dK, dV and the tile's rows take 220 KB
 //   of the 227 KB a block may hold at N = 197, D = 64.  These products run
-//   on the FMA pipes (SIMT fp32): the tensor cores, TMA and more than one
-//   backward block per SM are later work for the backward.  The bf16
-//   forward is another kernel, on the tensor cores, for every N
-//   (attention_fwd_mma.cuh); the fp32 forward keeps the SIMT kernels
-//   described here.
+//   on the FMA pipes (SIMT fp32).
 //
-// A head whose whole-head kernel does not fit one block's shared memory
-//   (the fp32 forward past N ≈ 420, the backward past N = 208 at D = 64) runs
-//   the tiled kernels instead, which stream K and V through shared memory
-//   in TK-key tiles and keep only a few query rows per block:
+// Which kernel runs: bf16 runs none of the SIMT kernels below.  Its
+//   forward (K6, K9) and its backward (K5, K6, K9 and K10's attention
+//   step) are tensor-core kernels with one path for every N:
+//   attention_fwd_mma.cuh (Fwd<bf16, D>) and attention_bwd_mma.cuh
+//   (Bwd<WRITE_O>::At<bf16, D>: a query-side kernel, then a key-side
+//   kernel).  fp32 keeps the SIMT kernels described here: TF32 products
+//   would miss fp32's budget.
+//
+// An fp32 head whose whole-head kernel does not fit one block's shared
+//   memory (the forward past N ≈ 420, the backward past N = 208 at
+//   D = 64) runs the tiled kernels instead, which stream K and V through
+//   shared memory in TK-key tiles and keep only a few query rows per
+//   block:
 //   - forward (attention_fwd_tiled): three passes over the key tiles per
 //     QROWS query rows: the row max, the row sum of exp(S − max), then P
 //     normalised against them and P·V.  Each lane scores the keys lane,
@@ -76,6 +81,7 @@
 
 #include <type_traits>
 
+#include "attention_bwd_mma.cuh"
 #include "attention_fwd_mma.cuh"
 #include "common.cuh"
 
@@ -674,17 +680,11 @@ size_t bwd_keys_smem(int d) {
          (2 * TK * (d + 1) + 2 * TK * d + 2 * WARPS * TK + 3 * WARPS * d);
 }
 
-// Sets a kernel's dynamic shared memory and launches it; returns the
-// CUDA error of either.
+// launch_dyn (attention_bwd_mma.cuh) on THREADS threads a block
 template <typename K, typename... A>
 int launch_smem(K kernel, dim3 grid, size_t smem, cudaStream_t s,
                 A... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, smem, s>>>(args...);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dyn(kernel, grid, THREADS, smem, s, args...);
 }
 
 // ------------------------------------------------------------ launchers
@@ -712,8 +712,12 @@ struct Fwd {
   }
 };
 
-// The backward; `stats` is fp32 scratch of 3·batch·heads·n floats, used
-// only when the head takes the tiled kernels.
+// The backward: bf16 on the tensor cores (attention_bwd_mma.cuh, every
+// n), fp32 on the SIMT kernels (whole-head, or tiled past one block).
+// `stats` is fp32 scratch of 3·batch·heads·n floats: each query row's
+// statistics, passed from the query side to the key side by the bf16
+// kernels and by the fp32 tiled kernels (unused by the fp32 whole-head
+// kernel).
 template <bool WRITE_O>
 struct Bwd {
   template <typename T, int D>
@@ -723,20 +727,26 @@ struct Bwd {
                    Strided<T> dq, Strided<T> dk, Strided<T> dv, float* stats,
                    int batch, int heads, int n, float scale, int pow2,
                    cudaStream_t s) {
-      const size_t smem = bwd_smem(n, D);
-      if (smem <= MAX_SMEM)
-        return launch_smem(attention_bwd_kernel<T, D, WRITE_O>,
-                           dim3(heads, batch), smem, s, q, k, v, dout, o, dq,
-                           dk, dv, n, scale, pow2);
-      const int err = launch_smem(
-          attention_bwd_rows_tiled<T, D, WRITE_O>,
-          dim3(cdiv(n, QROWS), heads, batch), bwd_rows_smem(D), s, q, k, v,
-          dout, o, dq, stats, n, scale, pow2);
-      if (err != 0) return err;
-      return launch_smem(attention_bwd_keys_tiled<T, D>,
-                         dim3(cdiv(n, TK), heads, batch), bwd_keys_smem(D), s,
-                         q, k, v, dout, dk, dv,
-                         static_cast<const float*>(stats), n, scale, pow2);
+      if constexpr (std::is_same_v<T, bf16>) {
+        return launch_attention_bwd_mma<D, WRITE_O>(
+            q, k, v, dout, o, dq, dk, dv, stats, batch, heads, n, scale,
+            pow2, s);
+      } else {
+        const size_t smem = bwd_smem(n, D);
+        if (smem <= MAX_SMEM)
+          return launch_smem(attention_bwd_kernel<T, D, WRITE_O>,
+                             dim3(heads, batch), smem, s, q, k, v, dout, o,
+                             dq, dk, dv, n, scale, pow2);
+        const int err = launch_smem(
+            attention_bwd_rows_tiled<T, D, WRITE_O>,
+            dim3(cdiv(n, QROWS), heads, batch), bwd_rows_smem(D), s, q, k,
+            v, dout, o, dq, stats, n, scale, pow2);
+        if (err != 0) return err;
+        return launch_smem(attention_bwd_keys_tiled<T, D>,
+                           dim3(cdiv(n, TK), heads, batch), bwd_keys_smem(D),
+                           s, q, k, v, dout, dk, dv,
+                           static_cast<const float*>(stats), n, scale, pow2);
+      }
     }
   };
 };

@@ -54,8 +54,8 @@ import torch.nn.functional as F
 
 from dfu_multimodal_tpu_torch.ops import _build
 from dfu_multimodal_tpu_torch.ops.attention import (
-    _HEAD_DIMS as _ATTN_HEAD_DIMS, acc_dtype as _acc, qkv_attention_fwdbwd,
-    qkv_attention_fwdbwd_ref)
+    _HEAD_DIMS as _ATTN_HEAD_DIMS, _check_aligned, acc_dtype as _acc,
+    qkv_attention_fwdbwd, qkv_attention_fwdbwd_ref)
 
 LN_EPS = 1e-6
 # epilogues of csrc/vit_block.cu::dfu_gemm
@@ -581,6 +581,10 @@ def attn_block_bwd_fused(x: torch.Tensor, g: torch.Tensor,
             f"with {num_heads} heads, wqkv {tuple(wqkv.shape)}, wproj "
             f"{tuple(wproj.shape)}: want C = heads * D with D in "
             f"{_ATTN_HEAD_DIMS} and (C, 3C), (C, C) weights")
+    # bf16 operands 16-byte aligned, as every bf16 attention entry takes
+    # them (the attention step itself reads the aligned scratch below)
+    _check_aligned("attn_block_bwd_fused", x=x, g=g, wqkv=wqkv,
+                   wproj=wproj)
     lib, dev = _k10_lib(), x.device
     code = _build.DTYPE_CODES[x.dtype]
     nbytes = ctypes.c_longlong()

@@ -20,17 +20,16 @@ checks)
 with this checkout's ``zoo.init_model`` in both checkouts, so that a
 change of the int8 path shows apart from a change of the initial weights
 (:data:`INT8`; a failed check there is printed, not fatal).  Prints the
-card's name and power limit, each kernel and int8 line prefixed by its
-turn, and whether every turn's hash of each output is the same.  Two
-versions are compared only within one run: two runs may land on two
-cards.  Needs a CUDA device; exits non-zero without one.
+card's name and power limit, each kernel, attention and int8 line
+prefixed by its turn, and whether every turn's hash of each output is
+the same.  Two versions are compared only within one run: two runs may
+land on two cards.  Needs a CUDA device; exits non-zero without one.
 
-The only hash allowed to change against the parent of the bf16 K4
-products on the TMA + wgmma GEMM (``csrc/gemm_sm90.cuh``) is the ``K4
-mlp_block_bwd bfloat16`` line; on an H100 it stays equal as well (the
-new GEMM adds the same 16-deep tensor-core steps in the same k order as
-the WMMA tile).  Every other line, the fp32 K4 and K1, K2, K5-K12
-included, is held equal.
+Against a parent without the bf16 attention backward on the tensor cores
+(``csrc/attention_bwd_mma.cuh``), the bf16 lines of K5, the K5 chain
+rule, the K6 and K9 backwards and K10 change (another summation order
+and the ex2 exponential) and must agree across the two change turns;
+every fp32 line and every other bf16 line is held equal.
 """
 
 from __future__ import annotations
@@ -177,7 +176,7 @@ def main(argv=None) -> int:
                 return proc.returncode
             for line in proc.stdout.splitlines():
                 if line.startswith(("[kernel]", "[split]", "[int8", "[k10]",
-                                    "[stage]")):
+                                    "[stage]", "[attention]")):
                     print(f"[turn {turn} {tag}] {line}", flush=True)
                 if line.startswith("[bits]"):
                     key, digest = line.rsplit(" ", 1)

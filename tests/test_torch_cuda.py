@@ -860,6 +860,103 @@ def test_bf16_attention_forwards_refuse_misaligned_operands():
                   at.qkv_attention_ref(qkv32, heads), TOL[torch.float32])
 
 
+# the bf16 backwards of K5, K6 and K9 run one tensor-core path
+# (csrc/attention_bwd_mma.cuh) for every token count: one partial tile
+# (1, 5) up to ten (577), both sides of the fp32 kernels' split (197,
+# 209); D = 8 and 32 scale the scores after the product
+BWD_TOKENS = [1, 5, 40, 197, 209, 226, 577]
+# bf16: a kernel's distance from the fp32 result within 10% of the plain's
+BF16_VS_PLAIN = 0.1
+
+
+def _assert_no_further_from_fp32(outs, plains, truths):
+    """Each bf16 output no further from the fp32 result on the same
+    values than the plain version: within BF16_VS_PLAIN of its distance,
+    plus fp32's TOL·(1 + max|fp32|) for the summation order."""
+    for i, (out, ref, truth) in enumerate(zip(outs, plains, truths)):
+        truth = truth.float()
+        kernel = float((out.float() - truth).abs().max())
+        plain = float((ref.float() - truth).abs().max())
+        slack = TOL[torch.float32] * (1 + float(truth.abs().max()))
+        assert kernel <= (1 + BF16_VS_PLAIN) * plain + slack, (i, kernel,
+                                                               plain)
+
+
+@pytest.mark.parametrize("d", MMA_HEAD_DIMS)
+@pytest.mark.parametrize("n", BWD_TOKENS)
+def test_bf16_attention_backwards_match_plain(n, d):
+    """The bf16 K5, K6 and K9 backwards against their plain versions within
+    the bf16 budget and no further from the fp32 result than they are, one
+    launch a call, two calls bit-equal."""
+    dev = _cuda()
+    b, heads = 2, 3
+    gen = torch.Generator(device=dev).manual_seed(2000 * d + n)
+    qkv = _randn(gen, b, n, 3 * heads * d, dtype=torch.bfloat16)
+    do = _randn(gen, b, n, heads * d, dtype=torch.bfloat16)
+    q, k, v, dob = (_randn(gen, b, heads, n, d, dtype=torch.bfloat16)
+                    for _ in range(4))
+    for fn, plain, args in (
+            (at.qkv_attention_fwdbwd, at.qkv_attention_fwdbwd_ref,
+             (qkv, do, heads)),
+            (at.qkv_attention_bwd, at.qkv_attention_bwd_ref,
+             (qkv, do, heads)),
+            (at.flash_attention_bwd, at.flash_attention_bwd_ref,
+             (q, k, v, dob))):
+        before = fn.launches
+        out, again = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        if isinstance(out, torch.Tensor):
+            out, again = (out,), (again,)
+        refs = plain(*args)
+        truths = plain(*(a.float() if isinstance(a, torch.Tensor) else a
+                         for a in args))
+        if isinstance(refs, torch.Tensor):
+            refs, truths = (refs,), (truths,)
+        _assert_all_close(out, refs, TOL[torch.bfloat16])
+        _assert_no_further_from_fp32(out, refs, truths)
+        assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_bf16_attention_backwards_refuse_misaligned_operands():
+    """The tensor-core backward copies 16-byte chunks: a bf16 operand of
+    K5, K6, K9 or K10 whose base lies 2 bytes past a 16-byte boundary
+    raises ValueError (no SIMT fallback); the same offset in fp32 runs the
+    SIMT kernels."""
+    dev = _cuda()
+    b, heads, n, d = 2, 2, 40, 16
+
+    def offset(dtype, *shape):            # contiguous, one element in
+        flat = torch.randn(1 + math.prod(shape), device=dev).to(dtype)
+        return flat[1:].view(*shape)
+
+    qkv = offset(torch.bfloat16, b, n, 3 * heads * d)
+    do = offset(torch.bfloat16, b, n, heads * d)
+    assert qkv.data_ptr() % 16 == 2 and do.data_ptr() % 16 == 2
+    good_qkv = torch.randn(b, n, 3 * heads * d, device=dev).bfloat16()
+    good_do = torch.randn(b, n, heads * d, device=dev).bfloat16()
+    for args in ((qkv, good_do), (good_qkv, do)):
+        for fn in (at.qkv_attention_bwd, at.qkv_attention_fwdbwd):
+            with pytest.raises(ValueError):
+                fn(*args, heads)
+    bad = offset(torch.bfloat16, b, heads, n, d)
+    good = torch.randn(b, heads, n, d, device=dev).bfloat16()
+    for i in range(4):
+        args = [good] * 4
+        args[i] = bad
+        with pytest.raises(ValueError):
+            at.flash_attention_bwd(*args)
+    k10 = list(_k10_args(dev, b, n, heads * d, torch.bfloat16, seed=62))
+    k10[0] = offset(torch.bfloat16, b, n, heads * d)
+    with pytest.raises(ValueError):
+        vb.attn_block_bwd_fused(*k10, heads)
+    qkv32 = offset(torch.float32, b, n, 3 * heads * d)
+    do32 = offset(torch.float32, b, n, heads * d)
+    _assert_all_close(at.qkv_attention_fwdbwd(qkv32, do32, heads),
+                      at.qkv_attention_fwdbwd_ref(qkv32, do32, heads),
+                      TOL[torch.float32])
+
+
 # (batch, tokens, width, heads): ViT-B/16's block; D = 8 and 32, where
 # K10 scales q before the product and K5 after it; 226 tokens (a 240²
 # image), which takes the tiled attention kernels
