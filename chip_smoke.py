@@ -11,15 +11,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               ptxas's register / spill report and warnings, the
               tensor-core (HMMA) instruction count of the bf16 attention
               forward and of both kernels of the bf16 attention backward
-              (in attention.cu and attn_block_bwd.cu) and the warpgroup
-              (HGMMA) count of K4's bf16 products (gemm_sm90.cuh),
-              failing on a count of zero but the forward's;
+              (in attention.cu and attn_block_bwd.cu) and of K1's bf16
+              attention step (attention_fwd_mma with the deferred
+              division, in vit_block.cu), and the warpgroup (HGMMA) count
+              of every instantiation of the bf16 products of K1, K2, K4
+              and the attention chain rule (gemm_sm90.cuh's
+              gemm_kernel), failing on a count of zero but the K6/K9
+              forward's;
 3. kernels  — each forward kernel against its plain PyTorch version on
               the card at the serving and training paths' shapes
               (ViT-B/16 blocks at B = 8, 16 and 128 in fp32 and bf16, K1
-              at N = 577 — a 384² image, its attention on the tiled
+              at N = 577 — a 384² image, its fp32 attention on the tiled
               kernel — the fusion head at B = 8, 13, 128 in fp32), with
-              error and CUDA-event times;
+              error and CUDA-event times; the bf16 K1 and K2 (TMA + wgmma
+              products, K1's attention on the tensor cores) also no
+              further from the fp32 result than their plain versions
+              (BF16_VS_PLAIN) and two calls bit-equal, at each B and at
+              N = 577, with their device time by kernel (profiler) beside
+              cuBLAS's products on the same operands through
+              ``torch.matmul`` (and, for K1, SDPA's attention), and the
+              host's tensor-map encoding per block;
 3b. backward kernels — K4 ``mlp_block_bwd`` and K5
               ``qkv_attention_fwdbwd`` against their plain versions at
               B = 16 and 128 in fp32 and bf16, likewise, and K5 at
@@ -260,12 +271,17 @@ def phase_build() -> None:
                                        "warning")):
                 log(f"[ptxas] {line.strip()}")
     _log_tensor_core_sass("attention", "attention_fwd_mma")
+    # K1's bf16 attention step (the deferred division): tensor-core MMAs
+    # in every instantiation, or the phase fails
+    _log_tensor_core_sass("vit_block", "attention_fwd_mma", required=True)
     # the bf16 backward of K5/K6/K9 and K10's attention step: tensor-core
     # MMAs in every instantiation, or the phase fails
     for name in ("attention", "attn_block_bwd"):
         for kernel in ("attention_bwd_q_mma", "attention_bwd_kv_mma"):
             _log_tensor_core_sass(name, kernel, required=True)
-    # K4's bf16 products (gemm_sm90.cuh): warpgroup MMAs, or the phase fails
+    # the bf16 products of K1, K2, K4 and the attention chain rule
+    # (gemm_sm90.cuh): warpgroup MMAs in every instantiation, or the phase
+    # fails
     _log_tensor_core_sass("vit_block", "gemm_kernel", op="HGMMA",
                           required=True)
     # bind the entry points now, so a missing symbol fails this phase
@@ -422,6 +438,9 @@ def phase_kernels(dev) -> dict:
                 lambda: vb.mlp_block(x, *ln, w1, b1, w2, b2),
                 lambda: vb.mlp_block_ref(x, *ln, w1, b1, w2, b2),
                 KERNEL_TOL[dtype])
+            if dtype == torch.bfloat16:
+                _k1_k2_bf16_checks(tag, x, ln, (wqkv, bqkv, wproj, bproj),
+                                   (w1, b1, w2, b2), heads, attn, mlp)
             if dtype == torch.bfloat16 and b == 8:   # the serving shape
                 main["attn_block"], main["mlp_block"] = attn, mlp
             del x, wqkv, wproj, w1, w2
@@ -437,6 +456,13 @@ def phase_kernels(dev) -> dict:
                 f"attn_block {str(dtype).split('.')[1]} B=8 N={n_large}",
                 lambda: vb.attn_block(x, *p, heads),
                 lambda: vb.attn_block_ref(x, *p, heads), KERNEL_TOL[dtype])))
+            if dtype == torch.bfloat16 and n_large == LARGE_N[-1]:
+                _bf16_checks(f"B=8 N={n_large}", "attn_block",
+                             lambda: vb.attn_block(x, *p, heads),
+                             lambda: vb.attn_block_ref(x, *p, heads),
+                             lambda: vb.attn_block_ref(
+                                 x.float(), *(t.float() for t in p), heads),
+                             prefix="kernel")
             del x, p
         _log_split(f"attn_block {str(dtype).split('.')[1]} B=8", rows[1:])
     dims = (2816, 512, 256, 2)
@@ -453,6 +479,71 @@ def phase_kernels(dev) -> dict:
         if b == 8:
             main["fused_mlp"] = res
     return main
+
+
+# the host's tensor maps of one bf16 forward block: two a product (A and
+# B), two products a block
+FWD_TENSOR_MAPS = 4
+
+
+def _k1_k2_bf16_checks(tag, x, ln, attn_w, mlp_w, heads, attn, mlp) -> None:
+    """The bf16 K1 and K2 (TMA + wgmma products, K1's attention step on
+    the tensor cores): each no further from the fp32 result on the same
+    values than its plain version and two calls bit-equal
+    (_bf16_checks); their device time by kernel (profiler) beside the
+    CUDA-event time; and the yardsticks, logged and never called by the
+    port: their two products each through ``torch.matmul`` (cuBLAS, bf16
+    results) on the same operands, timed in turns with the kernel, and
+    for K1 SDPA over the strided views of the block's packed qkv (no
+    single PyTorch call computes either block, so library_ms stays
+    null)."""
+    wqkv, bqkv, wproj, bproj = attn_w
+    w1, b1, w2, b2 = mlp_w
+    b, n, c = x.shape
+    rows = b * n
+    gen = torch.Generator(device=x.device).manual_seed(rows)
+    y = _randn(gen, rows, c, dtype=x.dtype)          # the products' A
+    a_attn = _randn(gen, rows, c, dtype=x.dtype)
+    h = _randn(gen, rows, 4 * c, dtype=x.dtype)
+    qkv = _randn(gen, b, n, 3 * c, dtype=x.dtype)
+    q, k, v = at._unpack(qkv, heads)
+    for name, res, kernel, plain, fp32, products, extra in (
+            ("attn_block", attn,
+             lambda: vb.attn_block(x, *ln, *attn_w, heads),
+             lambda: vb.attn_block_ref(x, *ln, *attn_w, heads),
+             lambda: vb.attn_block_ref(
+                 x.float(), *ln, *(t.float() for t in attn_w), heads),
+             lambda: (torch.matmul(y, wqkv), torch.matmul(a_attn, wproj)),
+             lambda: F.scaled_dot_product_attention(q, k, v)),
+            ("mlp_block", mlp,
+             lambda: vb.mlp_block(x, *ln, *mlp_w),
+             lambda: vb.mlp_block_ref(x, *ln, *mlp_w),
+             lambda: vb.mlp_block_ref(
+                 x.float(), *ln, *(t.float() for t in mlp_w)),
+             lambda: (torch.matmul(y, w1), torch.matmul(h, w2)), None)):
+        _bf16_checks(tag, name, kernel, plain, fp32, prefix="kernel")
+        k_ms, l_ms = _turns(kernel, products)
+        split = _device_split(kernel)
+        res.update(device_ms=sum(split.values()) or None,
+                   cublas_products_ms=l_ms,
+                   cublas_products_device_ms=_device_ms(products))
+        line = (f"[kernel] {name} {tag}: CUDA events {k_ms:.4f} ms, device "
+                f"(profiler) {_ms_or_none(res['device_ms'])}: "
+                + ", ".join(f"{kn} {ms:.4f}" for kn, ms in split.items())
+                + f"; yardstick, its two products through torch.matmul "
+                f"(cuBLAS, bf16): events {l_ms:.4f} ms, device "
+                f"{_ms_or_none(res['cublas_products_device_ms'])}")
+        if extra is not None:
+            res["sdpa_device_ms"] = _device_ms(extra)
+            line += (f"; SDPA on the block's qkv, device "
+                     f"{_ms_or_none(res['sdpa_device_ms'])}")
+        log(line)
+    lib, ns = vb._lib(), ctypes.c_double()
+    _build.check(lib, lib.dfu_tensor_map_encode_ns(
+        y.data_ptr(), rows, c, 1000, ctypes.addressof(ns)), "encode")
+    log(f"[kernel] attn_block / mlp_block {tag}: tensor-map encoding on "
+        f"the host {ns.value:.1f} ns each, {FWD_TENSOR_MAPS} a block "
+        f"({FWD_TENSOR_MAPS * ns.value / 1e3:.2f} us)")
 
 
 # --------------------------------------------------------------- phase 3b

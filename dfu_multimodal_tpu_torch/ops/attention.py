@@ -112,14 +112,18 @@ def _attend(p_c: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _attend_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     tile: int = 64) -> torch.Tensor:
+                     tile: int = 64, defer: bool = False) -> torch.Tensor:
     """The bf16 forward kernel's algorithm (``csrc/attention_fwd_mma.cuh``)
     in plain PyTorch, for the tests: pass 1 walks the key tiles keeping the
     running row max and the running sum of exp(S − max), rescaled when the
     max grows; pass 2 recomputes each tile's S and adds P·V with P =
     exp(S − max) · (1 / sum) rounded to the compute dtype.  Keys past N
-    (the last tile's padding) score −inf.  q, k, v (B, H, N, D) in the
-    compute dtype -> o in the accumulation dtype, as :func:`_attend`."""
+    (the last tile's padding) score −inf.  ``defer``: K1's numerics (the
+    kernel's DEFER flag, the Pallas ``_attention_head``): pass 1 keeps the
+    row max alone; pass 2 adds e = exp(S − max) into the fp32 sum uncast
+    and e rounded to the compute dtype times V into O; O / sum at the end.
+    q, k, v (B, H, N, D) in the compute dtype -> o in the accumulation
+    dtype, as :func:`_attend`."""
     dt, acc = q.dtype, acc_dtype(q)
     n, d = q.shape[-2:]
     scale = d ** -0.5
@@ -142,11 +146,18 @@ def _attend_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for j0 in range(0, n, tile):
         s = scores(j0)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(
-            -1, keepdim=True)
+        if not defer:
+            l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(
+                -1, keepdim=True)
         m = m_new
-    inv = 1.0 / l
     o = torch.zeros(q.shape, dtype=acc, device=q.device)
+    if defer:
+        for j0 in range(0, n, tile):
+            e = torch.exp(scores(j0) - m)
+            l = l + e.sum(-1, keepdim=True)
+            o = o + torch.matmul(e.to(dt).to(acc), vp[..., j0:j0 + tile, :])
+        return o / l
+    inv = 1.0 / l
     for j0 in range(0, n, tile):
         p_c = (torch.exp(scores(j0) - m) * inv).to(dt).to(acc)
         o = o + torch.matmul(p_c, vp[..., j0:j0 + tile, :])

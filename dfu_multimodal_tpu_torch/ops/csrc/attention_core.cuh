@@ -1,6 +1,8 @@
-// The forward attention core shared by the bf16/fp32 encoder block
-// (vit_block.cu, output in the compute dtype) and the int8 serving blocks
-// (vit_block_q8.cu, output fp32, which the next row quantisation reads).
+// The forward attention core shared by the fp32 encoder block
+// (vit_block.cu, output in the compute dtype; the bf16 block runs the
+// tensor-core forward of attention_fwd_mma.cuh) and the int8 serving
+// blocks in both dtypes (vit_block_q8.cu, output fp32, which the next row
+// quantisation reads).
 //
 // qkv (B, N, 3C) packed [q | k | v], heads sliced by column, -> attn
 // (B, N, C) in TO.  One block per (query chunk, head, image); the head's K

@@ -1,11 +1,16 @@
-// The bf16 softmax-attention forward of K6 and K9 on Hopper's tensor
-// cores (sm_90a), over the strided operand of attention_kernels.cuh.
+// The bf16 softmax-attention forward of K6, K9 and K1's attention step on
+// Hopper's tensor cores (sm_90a), over the strided operand of
+// attention_kernels.cuh.
 //
 // Replaces (dfu_multimodal_tpu/ops/attention.py), in bf16:
 //   K9 _attention_fwd_kernel: q, k, v (B, H, N, D) -> o (B, H, N, D);
-//   K6 _qkv_attention_fwd_kernel: packed qkv (B, N, 3C) -> attn (B, N, C).
+//   K6 _qkv_attention_fwd_kernel: packed qkv (B, N, 3C) -> attn (B, N, C);
+// and (dfu_multimodal_tpu/ops/vit_block.py) K1 _attn_block_kernel's
+// per-head _attention_head over its packed qkv, with the DEFER flag.
 // fp32 keeps the SIMT kernels of attention_kernels.cuh (attention_fwd_
-// kernel / attention_fwd_tiled): TF32 products would miss fp32's budget.
+// kernel / attention_fwd_tiled) and of attention_core.cuh (K1, and the
+// int8 blocks K7/K8 in every dtype): TF32 products would miss fp32's
+// budget.
 //
 // What bounds it on the H100: per (image, head) two N x N x D products
 // (S = QKᵀ, O = PV) against q, k, v read once and o written once.  At
@@ -51,13 +56,21 @@
 // normalisation after P·V is a different function).  Keys past N get −inf
 // before the max; query rows past N are zero-filled and never stored.
 //
-// D = 8: the k16 step of S = QKᵀ needs 16 columns, so the upper halves of
+// DEFER, K1's numerics (_attention_head): the softmax division is
+// deferred past P·V.  Pass 1 takes the row max alone (no exponential);
+// pass 2 forms e = exp(S − m) in fp32, adds the uncast e into the fp32
+// row sum l, rounds e to bf16 as the A fragment of O += bf16(e)·V, and the
+// end divides O by l and rounds to bf16 once.  The same two passes and
+// products, one exponential a score instead of two.
+//
+// D = 128 (K1's widest head): 85 KB of shared memory, so two blocks an
+// SM.  D = 8: the k16 step of S = QKᵀ needs 16 columns, so the upper halves of
 // the fragments (Q's a2, a3 and K's b1: columns 8..15) are zero registers;
 // P·V needs nothing extra (its k-dimension is the keys, n8 = D).
 //
 // Needs 16-byte-aligned rows: the base pointers 16-byte aligned (the
 // wrappers raise otherwise) and every stride a multiple of 8 elements,
-// which D in {8, 16, 32, 64} gives both layouts.  Sums have a fixed order
+// which D in {8, 16, 32, 64, 128} gives every layout.  Sums have a fixed order
 // (no atomics): two calls give the same bits.
 #pragma once
 
@@ -150,12 +163,16 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
 
 template <int D>
 struct MmaFwd {
-  static_assert(D == 8 || D == 16 || D == 32 || D == 64, "head dim");
+  static_assert(D == 8 || D == 16 || D == 32 || D == 64 || D == 128,
+                "head dim");
   static constexpr int LDS = D == 8 ? 8 : D + 8;  // shared row, elements
   static constexpr int CHUNKS = D / 8;            // 16-byte chunks a row
   static constexpr int KSTEPS = D < 16 ? 1 : D / 16;  // k16 steps of QKᵀ
   static constexpr int OT = D / 8;                // n8 tiles of O
   static constexpr int TILE = MMA_BN * LDS;       // elements of a tile
+  // Q | K stage 0 | V stage 0 | K stage 1 | V stage 1: 45 KB at D = 64,
+  // 85 KB at D = 128 (dynamic shared memory past 48 KB)
+  static constexpr int SMEM = 5 * TILE * 2;
 };
 
 // Rows r0 .. r0 + 63 of head (b, h) of `x` into `dst` (LDS-element rows);
@@ -219,12 +236,16 @@ __device__ __forceinline__ void score_tile(
   }
 }
 
-template <int D, typename In, typename Out>
+// DEFER: K1's numerics (pass 1 the row max alone; pass 2 the sum from the
+// uncast exponentials and O = bf16(e)·V divided by it at the end), else
+// K6/K9's (P normalised before P·V).
+template <int D, bool DEFER, typename In, typename Out>
 __global__ void __launch_bounds__(MMA_THREADS)
 attention_fwd_mma(In q, In k, In v, Out o, int n, float scale, int pow2) {
   using S = MmaFwd<D>;
   // Q | K stage 0 | V stage 0 | K stage 1 | V stage 1; O is staged in Q's
-  __shared__ __align__(16) bf16 sm[5 * S::TILE];
+  extern __shared__ __align__(16) bf16 fwd_mma_sm[];
+  bf16* const sm = fwd_mma_sm;
   bf16* qs = sm;
   const int h = blockIdx.y, b = blockIdx.z, r0 = blockIdx.x * MMA_BM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -307,22 +328,26 @@ attention_fwd_mma(In q, In k, In v, Out o, int n, float scale, int pow2) {
         mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
         mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
         mt[r] = fmaxf(m[r], mt[r] * post);  // post > 0 keeps the order
-        l[r] *= fast_exp2(m[r] - mt[r]);  // 0 at the first tile
+        if constexpr (!DEFER)
+          l[r] *= fast_exp2(m[r] - mt[r]);  // 0 at the first tile
         m[r] = mt[r];
       }
+      // DEFER: the max alone; its sum is taken in pass 2
+      if constexpr (!DEFER) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        l[0] += fast_exp2(fmaf(s[j][0], post, -m[0])) +
-                fast_exp2(fmaf(s[j][1], post, -m[0]));
-        l[1] += fast_exp2(fmaf(s[j][2], post, -m[1])) +
-                fast_exp2(fmaf(s[j][3], post, -m[1]));
-      }
-      if (st == tiles - 1) {              // the quad's partial sums
+        for (int j = 0; j < 8; ++j) {
+          l[0] += fast_exp2(fmaf(s[j][0], post, -m[0])) +
+                  fast_exp2(fmaf(s[j][1], post, -m[0]));
+          l[1] += fast_exp2(fmaf(s[j][2], post, -m[1])) +
+                  fast_exp2(fmaf(s[j][3], post, -m[1]));
+        }
+        if (st == tiles - 1) {            // the quad's partial sums
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-          inv[r] = 1.f / l[r];
+          for (int r = 0; r < 2; ++r) {
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+            inv[r] = 1.f / l[r];
+          }
         }
       }
     } else {                              // pass 2: O += P·V
@@ -335,12 +360,24 @@ attention_fwd_mma(In q, In k, In v, Out o, int n, float scale, int pow2) {
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const float* f = s[2 * kk + hf];
-          pa[2 * hf] =
-              pack_bf16(fast_exp2(fmaf(f[0], post, -m[0])) * inv[0],
-                        fast_exp2(fmaf(f[1], post, -m[0])) * inv[0]);
-          pa[2 * hf + 1] =
-              pack_bf16(fast_exp2(fmaf(f[2], post, -m[1])) * inv[1],
-                        fast_exp2(fmaf(f[3], post, -m[1])) * inv[1]);
+          if constexpr (DEFER) {
+            // e = exp(S − m) in fp32: its sum uncast, its bf16 the operand
+            const float e0 = fast_exp2(fmaf(f[0], post, -m[0]));
+            const float e1 = fast_exp2(fmaf(f[1], post, -m[0]));
+            const float e2 = fast_exp2(fmaf(f[2], post, -m[1]));
+            const float e3 = fast_exp2(fmaf(f[3], post, -m[1]));
+            l[0] += e0 + e1;
+            l[1] += e2 + e3;
+            pa[2 * hf] = pack_bf16(e0, e1);
+            pa[2 * hf + 1] = pack_bf16(e2, e3);
+          } else {
+            pa[2 * hf] =
+                pack_bf16(fast_exp2(fmaf(f[0], post, -m[0])) * inv[0],
+                          fast_exp2(fmaf(f[1], post, -m[0])) * inv[0]);
+            pa[2 * hf + 1] =
+                pack_bf16(fast_exp2(fmaf(f[2], post, -m[1])) * inv[1],
+                          fast_exp2(fmaf(f[3], post, -m[1])) * inv[1]);
+          }
         }
         // V rows (keys) 16kk + 0..7 | 8..15 by (lane / 8) % 2, columns
         // 16dp + 0..7 | 8..15 by lane / 16, transposed: b0, b1 of O's
@@ -365,6 +402,22 @@ attention_fwd_mma(In q, In k, In v, Out o, int n, float scale, int pow2) {
     __syncthreads();                      // the stage is the next-but-one's
   }
 
+  if constexpr (DEFER) {
+    // the quad's partial sums, then O / l (a division, as the Pallas
+    // kernel's o / s)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int dt = 0; dt < S::OT; ++dt) {
+      oacc[dt][0] /= l[0];
+      oacc[dt][1] /= l[0];
+      oacc[dt][2] /= l[1];
+      oacc[dt][3] /= l[1];
+    }
+  }
   // O in bf16 through the warp's own rows of the Q tile, then 16-byte
   // stores of the rows below n
   const int g = lane >> 2, t = lane & 3;
@@ -386,13 +439,22 @@ attention_fwd_mma(In q, In k, In v, Out o, int n, float scale, int pow2) {
   }
 }
 
-// Launches the bf16 forward on (batch, heads, n) of strided q, k, v, o;
-// returns the CUDA error of the launch.
-template <int D, typename In, typename Out>
+// Launches the bf16 forward on (batch, heads, n) of strided q, k, v, o
+// (DEFER: K1's numerics); returns the CUDA error of the launch.  Past
+// 48 KB of shared memory (D = 128) the limit is raised once per device.
+template <int D, bool DEFER = false, typename In, typename Out>
 int launch_attention_fwd_mma(In q, In k, In v, Out o, int batch, int heads,
                              int n, float scale, int pow2, cudaStream_t s) {
-  attention_fwd_mma<D><<<dim3(cdiv(n, MMA_BM), heads, batch), MMA_THREADS, 0,
-                         s>>>(q, k, v, o, n, scale, pow2);
+  constexpr int smem = MmaFwd<D>::SMEM;
+  if constexpr (smem > 48 * 1024) {
+    static std::atomic<int> limit[MAX_DEVICES];
+    const cudaError_t err = smem_limit_once(
+        attention_fwd_mma<D, DEFER, In, Out>, smem, limit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  attention_fwd_mma<D, DEFER><<<dim3(cdiv(n, MMA_BM), heads, batch),
+                                MMA_THREADS, smem, s>>>(q, k, v, o, n, scale,
+                                                        pow2);
   return static_cast<int>(cudaGetLastError());
 }
 

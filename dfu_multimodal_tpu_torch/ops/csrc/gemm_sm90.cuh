@@ -1,68 +1,84 @@
-// K4's bf16 products on Hopper's TMA and wgmma (sm_90a): a warp-
-// specialised, persistent GEMM with fc1 and dh fused into one dual product.
+// The bf16 products of the ViT blocks on Hopper's TMA and wgmma (sm_90a):
+// one warp-specialised, persistent GEMM, with K4's fc1 and dh fused into a
+// dual product.
 //
-// Replaces (with the LayerNorm kernels of layernorm.cuh around it)
-//   dfu_multimodal_tpu/ops/vit_block.py::_mlp_block_bwd_kernel (K4), in
-//   bf16: per row block, y = LN2(x), hpre = y·w1 + b1, h = gelu(hpre),
-//   dh = g·w2ᵀ, dhpre = dh·gelu'(hpre), dy = dhpre·w1ᵀ, then the LN
-//   backward; hpre and dh stay in VMEM for each hidden chunk, so "no fp32
-//   GELU/LN intermediate ever reaches HBM".  fp32 (the parity dtype) keeps
-//   gemm_tile.cuh's SIMT chain.
+// Replaces, in bf16 (with the LayerNorm kernels of layernorm.cuh and, for
+// K1, the attention step of attention_fwd_mma.cuh around it), the
+// products of dfu_multimodal_tpu/ops/vit_block.py's
+//   _attn_block_kernel (K1): qkv = y·wqkv + bqkv, out = x + (attn·wproj +
+//     bproj);
+//   _mlp_block_kernel (K2): h = gelu(y·w1 + b1), out = x + (h·w2 + b2b);
+//   _mlp_block_bwd_kernel (K4): per row block, y = LN2(x), hpre = y·w1 +
+//     b1, h = gelu(hpre), dh = g·w2ᵀ, dhpre = dh·gelu'(hpre), dy =
+//     dhpre·w1ᵀ, then the LN backward; hpre and dh stay in VMEM for each
+//     hidden chunk, so "no fp32 GELU/LN intermediate ever reaches HBM";
+// and the data products of the attention-block chain rule (vit_block.py::
+// _attn_block_bwd: the qkv recompute, dattn = g·wprojᵀ, dy = dqkv·wqkvᵀ),
+// which the JAX package leaves to XLA.  fp32 (the parity dtype) keeps
+// gemm_tile.cuh's SIMT chain.
 //
-// What bounds it on the H100: at the training batch (16 images, 3152
-//   rows, C = 768, hidden = 3072) the three products are 14.9 GFLOP each,
-//   44.6 GFLOP, 45 us at the 989 TFLOP/s bf16 peak, against ~27 us for
-//   its operands and outputs at 3.35 TB/s: operations.  Only wgmma reaches
-//   that rate, so the products run on it; and the chain it replaces wrote
-//   and read back the fp32 pre-activation (38.7 MB each way), which this
-//   design never writes.
+// What bounds it on the H100: operations.  K4 at the training batch (16
+//   images, 3152 rows, C = 768, hidden = 3072) is three products of 14.9
+//   GFLOP, 45 us at the 989 TFLOP/s bf16 peak against ~27 us for its
+//   operands and outputs at 3.35 TB/s; K1's two products at the serving
+//   batch (1576 rows) are 7.4 GFLOP against 7.9 MB (7.5 us against 2.4
+//   us), K2's 14.9 GFLOP against 14.2 MB.  Only wgmma reaches that rate,
+//   so the products run on it; and K4's chain wrote and read back the fp32
+//   pre-activation (38.7 MB each way), which the dual product never writes.
 //
 // What the design does about it:
-//   - the dual product (y, g) -> (h, dhpre): each 128 x 128 output tile
-//     (rows x hidden) accumulates y·w1 and g·w2ᵀ in two fp32 register
-//     accumulators over the same k loop (K = C); the epilogue forms
-//     hpre = acc1 + b1 in registers, writes h and then dhpre in bf16 to a
-//     16 KB shared buffer per consumer group and stores each by TMA
-//     (stores straight from the accumulator layout, 4 bytes a thread,
-//     cost about as much as the products);
-//   - the dy product dhpre·w1ᵀ (K = hidden) on the same kernel with one
-//     accumulator and fp32 stores, in 128 x DY_BN tiles: 192 wide gives
-//     100 tiles at B = 16, one round on 132 SMs, and was the fastest of
-//     64, 96, 128 and 192 at B = 16 and 128;
-//   - 384 threads a block, one block an SM, persistent over the tiles
-//     (tile = blockIdx.x + i·gridDim.x), so the next tile's loads run
-//     under this tile's epilogue: warpgroup 2 is the producer (setmaxnreg
-//     40; one thread issues cp.async.bulk.tensor loads into a ring of
-//     STAGES shared-memory stages, each completing on its mbarrier), the
+//   - 384 threads a block, one block an SM, persistent over the output
+//     tiles (tile = blockIdx.x + i·gridDim.x), so the next tile's loads
+//     run under this tile's epilogue: warpgroup 2 is the producer
+//     (setmaxnreg 40; one thread starts cp.async.bulk.tensor loads into a
+//     ring of shared-memory stages, each completing on its mbarrier), the
 //     warpgroups 0 and 1 the consumers (setmaxnreg 232), 64 rows each, on
 //     wgmma.mma_async m64nNk16 with A and B read through shared-memory
 //     descriptors; a consumer releases a stage as soon as the wgmma group
 //     that read it has retired (wait_group 0: with 3 stages, releasing one
 //     k step later, wait_group 1, is slower: tools/bench_k4.py);
 //   - tiles are 64 bf16 (128 bytes) deep, 128-byte swizzled by TMA, and
-//     read by the matching descriptors: y, g and dhpre are K-major A; w2
-//     read as w2ᵀ and w1 read as w1ᵀ are K-major B (their rows are the
-//     output columns); fc1's w1 (C, hidden) is an MN-major B, loaded as
-//     two 64-column boxes and read through wgmma's transpose bit, so no
-//     copy of any weight is made;
+//     read by the matching descriptors: every A is K-major; a weight read
+//     as stored ((k, n): qkv, proj, fc1, fc2, and K4's w1 in the dual) is
+//     an MN-major B, loaded as 64-column boxes and read through wgmma's
+//     transpose bit; a weight read transposed ((n, k): K4's w2 and dy's
+//     w1, the chain rule's wproj and wqkv) is a K-major B.  No copy of any
+//     weight is made;
+//   - the dual product (y, g) -> (h, dhpre): each 128 x 128 output tile
+//     (rows x hidden) accumulates y·w1 and g·w2ᵀ in two fp32 register
+//     accumulators over the same k loop (K = C); the epilogue forms
+//     hpre = acc1 + b1 in registers, writes h and then dhpre in bf16 to a
+//     16 KB shared buffer per consumer group and stores each by TMA;
+//   - the single products, 128 x BN tiles: the epilogue (gemm_tile.cuh's
+//     EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESID, EPI_NONE, a uniform branch
+//     on the launch's `epi`) writes bf16 into a padded 64 x BN buffer per
+//     consumer group, whose 128 threads then copy it out in 16-byte
+//     chunks, adding EPI_BIAS_RESID's residual chunk on the way; EPI_F32
+//     (dy) stores fp32 pairs straight from the accumulators.  BN is 64,
+//     96, 128 or 192, chosen per launch by pick_bn from the rounds of
+//     tiles over the SMs (tools/bench_vit_fwd.py times each width); 192
+//     was the fastest dy width of 64, 96, 128 and 192 at B = 16 and 128;
 //   - the ragged row edge (3152 = 24.6 x 128) and any K or N that is no
 //     multiple of the tile are zero-filled by TMA loads, and clipped by
-//     the TMA stores (h, dhpre) or masked (dy) on the way out.
-//     TMA needs 16-byte-aligned bases and row strides: the wrapper raises
-//     ValueError otherwise (C and hidden multiples of 8).
+//     the TMA stores (h, dhpre) or masked on the way out.
+//     TMA needs 16-byte-aligned bases and row strides: the wrappers raise
+//     ValueError otherwise (C, 3C and hidden multiples of 8).
 //   - sums have a fixed order (k16 steps in k order, no split-K, no
 //     atomics): two calls give the same bits.
 //
-// Numbers: the chain's and the Pallas kernel's, bf16 operands with fp32
-// accumulation, hpre kept in fp32 (registers), h = bf16(gelu_erf(hpre)),
-// dhpre = bf16(dh · dgelu_erf(hpre)) with gemm_tile.cuh's gelu_erf and
-// dgelu_erf, dy in fp32.  The k sums take the WMMA tile's order too
-// (16-deep tensor-core steps in k order into fp32), and on an H100 the
-// outputs equal the WMMA chain's bit for bit.
+// Numbers: gemm_tile.cuh's chain and the Pallas kernels', bf16 operands
+// with fp32 accumulation, the epilogue in fp32 rounded to bf16 once (the
+// residual's sum T(aux + T(acc + bias)), as the TPU kernels add it in the
+// compute dtype), K4's hpre kept in fp32 (registers), h =
+// bf16(gelu_erf(hpre)), dhpre = bf16(dh · dgelu_erf(hpre)), dy in fp32.
+// The k sums take the WMMA tile's order too (16-deep tensor-core steps in
+// k order into fp32), and on an H100 K4's outputs equal the WMMA chain's
+// bit for bit.
 //
 // Tensor maps are encoded on the host for every call
 // (cuTensorMapEncodeTiled, reached through the runtime's driver entry
-// point: no -lcuda) and passed as a __grid_constant__ parameter.
+// point: no -lcuda) and passed as a __grid_constant__ parameter; the
+// shared-memory limit and the SM count are asked once per device.
 #pragma once
 
 #include "common.cuh"
@@ -78,36 +94,58 @@ namespace sm90 {
 constexpr int BM = 128, BK = 64, THREADS = 384;
 constexpr int TILE_A = BM * BK * 2;     // 16 KB: 128 rows of 128 bytes
 constexpr int BOX_MN = 64 * BK * 2;     // one 64 x 64 MN-major box, 8 KB
-constexpr int SMEM_RING = 196608;       // bytes of stages a block may take
+constexpr int SMEM_RING = 196608;       // bytes of stages the dual takes
+constexpr int SMEM_MAX = 232448;        // bytes a block may hold on sm_90
 constexpr int DY_BN = 192;              // the dy product's tile width
 
-// The operands of one launch.  Dual: a1 = y, b1 = w1 (MN-major), a2 = g,
+// What a launch computes.  DUAL: K4's dual product.  B_MN: one product
+// whose B (k, n) is read as stored, MN-major (a weight of a forward
+// product); B_K: one product whose B is read from an (n, k) matrix,
+// K-major (a weight read transposed: dy = dhpre·w1ᵀ, dattn = g·wprojᵀ).
+enum Mode { DUAL = 0, B_MN = 1, B_K = 2 };
+
+// The operands of one launch.  DUAL: a1 = y, b1 = w1 (MN-major), a2 = g,
 // b2 = w2 (read as w2ᵀ), bias = b1, o1 = h, o2 = dhpre (bf16, stored by
-// TMA in 64 x 64 boxes).  Else: a1 = dhpre, b1 = w1 (read as w1ᵀ), out1
-// = dy (fp32).
+// TMA in 64 x 64 boxes).  Else: out1 (m, n) = epilogue `epi` (gemm_tile.
+// cuh's Epilogue) of a1 · b1, with bias (n) fp32 and aux the (m, n) bf16
+// residual of EPI_BIAS_RESID; out1 fp32 for EPI_F32, else bf16.
 struct Args {
   CUtensorMap a1, b1, a2, b2, o1, o2;
   const float* bias;
+  const void* aux;
   void* out1;
-  int m, n, k;
+  int m, n, k, epi;
 };
 
-template <int BN, bool DUAL>
+template <int BN, int MODE>
 struct Tile {
-  static_assert(!DUAL || BN == 128, "the dual product's B1 is two boxes");
-  static constexpr int TILE_B = BN * BK * 2;
-  static constexpr int STAGE = DUAL ? 2 * (TILE_A + TILE_B) : TILE_A + TILE_B;
-  static constexpr int STAGES = SMEM_RING / STAGE;   // 3 dual, 4 dy
+  static_assert(MODE != DUAL || BN == 128, "the dual product's B1 is two boxes");
+  // 64-column boxes of an MN-major B (BN = 96 loads two, the second
+  // half used)
+  static constexpr int BOXES = (BN + 63) / 64;
+  static constexpr int TILE_B = MODE == B_K ? BN * BK * 2 : BOXES * BOX_MN;
+  static constexpr int STAGE =
+      MODE == DUAL ? 2 * (TILE_A + TILE_B) : TILE_A + TILE_B;
   // offsets in a stage, each a multiple of 1024 (the swizzle's period)
   static constexpr int A1 = 0, B1 = TILE_A, A2 = TILE_A + TILE_B,
                        B2 = 2 * TILE_A + TILE_B;
-  // the dual product's epilogue buffer of each consumer group: 64 rows of
-  // h (then of dhpre), 128 bf16 each
-  static constexpr int EPI_WG = DUAL ? 64 * BN * 2 : 0;
+  // the epilogue buffer of each consumer group: the dual product's 64
+  // rows of h (then of dhpre), 128 bf16 each in TMA's swizzled boxes;
+  // the single product's 64 rows of BN bf16, each padded by 16 bytes so
+  // that the eight rows a warp writes at once fall on distinct banks
+  static constexpr int LDE = BN + 8;
+  static constexpr int EPI_WG = MODE == DUAL ? 64 * BN * 2 : 64 * LDE * 2;
+  // as many stages as fit beside the epilogue buffers, barriers and the
+  // 1 KB that aligns the ring (3 dual; 4 at BN = 192, 8 at 64)
+  static constexpr int FIT = (SMEM_MAX - 1024 - 2 * EPI_WG - 2 * 8 * 8) /
+                             STAGE;
+  static constexpr int STAGES =
+      MODE == DUAL ? SMEM_RING / STAGE : (FIT < 8 ? FIT : 8);
   // the ring, the epilogue buffers, the full and empty barriers, and 1 KB
   // to align the ring
   static constexpr int SMEM = STAGES * STAGE + 2 * EPI_WG + 2 * STAGES * 8 +
                               1024;
+  static_assert(SMEM <= SMEM_MAX, "shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -252,6 +290,58 @@ __device__ __forceinline__ void store_tile(const CUtensorMap* map,
 // d (64 x N, fp32) += A (64 x 16) · B (16 x N): A K-major, B K-major, or
 // MN-major when TRANS_B; both through descriptors.
 template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, %51;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
                                                  uint64_t b) {
   asm volatile(
@@ -336,17 +426,43 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t a,
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a,
                                       uint64_t b) {
-  static_assert(N == 128 || N == 192, "tile widths of the two products");
-  if constexpr (N == 128) wgmma_m64n128k16<TRANS_B>(d, a, b);
+  static_assert(N == 64 || N == 96 || N == 128 || N == 192, "tile width");
+  if constexpr (N == 64) wgmma_m64n64k16<TRANS_B>(d, a, b);
+  else if constexpr (N == 96) wgmma_m64n96k16<TRANS_B>(d, a, b);
+  else if constexpr (N == 128) wgmma_m64n128k16<TRANS_B>(d, a, b);
   else wgmma_m64n192k16<TRANS_B>(d, a, b);
+}
+
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// Eight bf16 of `a` plus eight of `b`, each sum in fp32 rounded to bf16:
+// EPI_BIAS_RESID's T(aux + T(acc + bias)) once `b` holds T(acc + bias).
+__device__ __forceinline__ uint4 add_bf16x8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  uint4 r;
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    o[i] = __nv_bfloat162(from_f<bf16>(__low2float(x[i]) + __low2float(y[i])),
+                          from_f<bf16>(__high2float(x[i]) +
+                                       __high2float(y[i])));
+  return r;
 }
 
 // One block: 384 threads; warpgroups 0 and 1 consume (64 rows each),
 // warpgroup 2 produces.  Output tiles BM x BN, walked persistently.
-template <int BN, bool DUAL>
+template <int BN, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ Args p) {
-  using T = Tile<BN, DUAL>;
+  using T = Tile<BN, MODE>;
+  constexpr bool DUALP = MODE == DUAL;
   extern __shared__ uint8_t smem_raw[];
   // the ring starts on a 1024-byte boundary of the shared window
   const uint32_t raw = smem_u32(smem_raw);
@@ -373,7 +489,7 @@ gemm_kernel(const __grid_constant__ Args p) {
     if (threadIdx.x == 2 * 128) {
       tma_prefetch(&p.a1);
       tma_prefetch(&p.b1);
-      if constexpr (DUAL) {
+      if constexpr (DUALP) {
         tma_prefetch(&p.a2);
         tma_prefetch(&p.b2);
       }
@@ -387,11 +503,15 @@ gemm_kernel(const __grid_constant__ Args p) {
           mbar_wait(empty + 8 * stage, phase ^ 1);   // the slot is free
           mbar_expect_tx(bar, T::STAGE);
           tma_load(st + T::A1, &p.a1, bar, k0, m0);
-          if constexpr (DUAL) {
+          if constexpr (DUALP) {
             tma_load(st + T::B1, &p.b1, bar, n0, k0);
             tma_load(st + T::B1 + BOX_MN, &p.b1, bar, n0 + 64, k0);
             tma_load(st + T::A2, &p.a2, bar, k0, m0);
             tma_load(st + T::B2, &p.b2, bar, k0, n0);
+          } else if constexpr (MODE == B_MN) {
+#pragma unroll
+            for (int i = 0; i < T::BOXES; ++i)
+              tma_load(st + T::B1 + i * BOX_MN, &p.b1, bar, n0 + 64 * i, k0);
           } else {
             tma_load(st + T::B1, &p.b1, bar, k0, n0);
           }
@@ -406,7 +526,7 @@ gemm_kernel(const __grid_constant__ Args p) {
     // --------------------------------------------------------- consumers
     setmaxnreg_inc<232>();
     constexpr int R = BN / 2;
-    float acc1[R], acc2[DUAL ? R : 1];
+    float acc1[R], acc2[DUALP ? R : 1];
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const uint32_t a_rows = wg * 64 * 128;   // this group's 64 rows of A
     int stage = 0;
@@ -415,7 +535,7 @@ gemm_kernel(const __grid_constant__ Args p) {
       const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
 #pragma unroll
       for (int i = 0; i < R; ++i) acc1[i] = 0.f;
-      if constexpr (DUAL) {
+      if constexpr (DUALP) {
 #pragma unroll
         for (int i = 0; i < R; ++i) acc2[i] = 0.f;
       }
@@ -423,7 +543,7 @@ gemm_kernel(const __grid_constant__ Args p) {
         mbar_wait(full + 8 * stage, phase);
         const uint32_t st = ring + stage * T::STAGE;
         fence_regs(acc1);
-        if constexpr (DUAL) fence_regs(acc2);
+        if constexpr (DUALP) fence_regs(acc2);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
@@ -431,19 +551,22 @@ gemm_kernel(const __grid_constant__ Args p) {
           // bytes) down an MN-major box
           const uint64_t a1 = desc_sw128(st + T::A1 + a_rows + 32 * kk, 16,
                                          1024);
-          if constexpr (DUAL) {
+          if constexpr (DUALP) {
             wgmma<BN, 1>(acc1, a1,
                          desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
             wgmma<BN, 0>(acc2,
                          desc_sw128(st + T::A2 + a_rows + 32 * kk, 16, 1024),
                          desc_sw128(st + T::B2 + 32 * kk, 16, 1024));
+          } else if constexpr (MODE == B_MN) {
+            wgmma<BN, 1>(acc1, a1,
+                         desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
           } else {
             wgmma<BN, 0>(acc1, a1, desc_sw128(st + T::B1 + 32 * kk, 16, 1024));
           }
         }
         wgmma_commit();
         fence_regs(acc1);
-        if constexpr (DUAL) fence_regs(acc2);
+        if constexpr (DUALP) fence_regs(acc2);
         wgmma_wait();       // this stage's products have read it
         if (threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * stage);
         if (++stage == T::STAGES) {
@@ -452,11 +575,11 @@ gemm_kernel(const __grid_constant__ Args p) {
         }
       }
       fence_regs(acc1);
-      if constexpr (DUAL) fence_regs(acc2);
+      if constexpr (DUALP) fence_regs(acc2);
 
       // epilogue: accumulator i of n-octet j holds row 16·warp + lane/4
       // (+8 for i = 2, 3) and columns 8j + 2·(lane % 4) (+1 for odd i)
-      if constexpr (DUAL) {
+      if constexpr (DUALP) {
         // h to this group's 64 x 128 buffer (the layout TMA stores:
         // two 64-column boxes, 128-byte rows, chunks swizzled by row),
         // dhpre kept in acc2; stored by TMA, then dhpre likewise
@@ -486,7 +609,7 @@ gemm_kernel(const __grid_constant__ Args p) {
                              acc2[4 * j + 2 * half],
                              acc2[4 * j + 2 * half + 1]);
         store_tile(&p.o2, buf, n0, m0 + wg * 64, p, wg);
-      } else {
+      } else if (p.epi == EPI_F32) {
         const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
@@ -503,6 +626,53 @@ gemm_kernel(const __grid_constant__ Args p) {
                             acc1[4 * j + 2 * half + 1]);
           }
         }
+      } else {
+        // bf16 out, gemm_tile.cuh's store_out arithmetic: o = T(acc +
+        // bias), T(gelu(acc + bias)) or T(acc) into this group's padded
+        // 64 x BN buffer, then 16-byte chunks of rows below m and columns
+        // below n out to device memory (EPI_BIAS_RESID adds its residual
+        // chunk there: T(aux + o))
+        const uint32_t buf = epi + wg * T::EPI_WG;
+        const int r = warp * 16 + (lane >> 2);
+        const bool bias = p.epi != EPI_NONE;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * (lane & 3);
+          const bool in = bias && col < p.n;
+          const float bias0 = in ? p.bias[col] : 0.f;
+          const float bias1 = in ? p.bias[col + 1] : 0.f;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float v0 = acc1[4 * j + 2 * half], v1 = acc1[4 * j + 2 * half + 1];
+            if (bias) {
+              v0 += bias0;
+              v1 += bias1;
+            }
+            if (p.epi == EPI_BIAS_GELU) {
+              v0 = gelu_erf(v0);
+              v1 = gelu_erf(v1);
+            }
+            st_shared_bf16x2(
+                buf + 2 * ((r + 8 * half) * T::LDE + 8 * j + 2 * (lane & 3)),
+                v0, v1);
+          }
+        }
+        sync_group(1 + wg);
+        constexpr int CHUNKS = BN / 8;     // 16-byte chunks of a tile row
+        const bool resid = p.epi == EPI_BIAS_RESID;
+        for (int i = threadIdx.x % 128; i < 64 * CHUNKS; i += 128) {
+          const int rr = i / CHUNKS, cc = i % CHUNKS;
+          const int row = m0 + wg * 64 + rr, col = n0 + 8 * cc;
+          if (row >= p.m || col >= p.n) continue;
+          const size_t at = static_cast<size_t>(row) * p.n + col;
+          uint4 o = ld_shared_v4(buf + 2 * (rr * T::LDE + 8 * cc));
+          if (resid)
+            o = add_bf16x8(
+                *reinterpret_cast<const uint4*>(
+                    static_cast<const bf16*>(p.aux) + at), o);
+          *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out1) + at) = o;
+        }
+        sync_group(1 + wg);                // the buffer is the next tile's
       }
     }
   }
@@ -557,20 +727,18 @@ inline cudaError_t encode(CUtensorMap* map, const void* base, int rows,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// One persistent launch of gemm_kernel<BN, DUAL>: min(tiles, SMs) blocks.
-template <int BN, bool DUAL>
+// One persistent launch of gemm_kernel<BN, MODE>: min(tiles, SMs) blocks.
+// The shared-memory limit is set and the SM count asked once per device.
+template <int BN, int MODE>
 cudaError_t launch(const Args& args, int device, cudaStream_t s) {
-  using T = Tile<BN, DUAL>;
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel<BN, DUAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::SMEM);
+  using T = Tile<BN, MODE>;
+  static std::atomic<int> limit[MAX_DEVICES];
   int sms = 0;
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
+  cudaError_t err = smem_limit_once(gemm_kernel<BN, MODE>, T::SMEM, limit);
+  if (err == cudaSuccess) err = sm_count(device, &sms);
   if (err != cudaSuccess) return err;
   const int tiles = cdiv(args.m, BM) * cdiv(args.n, BN);
-  gemm_kernel<BN, DUAL><<<tiles < sms ? tiles : sms, THREADS, T::SMEM, s>>>(
+  gemm_kernel<BN, MODE><<<tiles < sms ? tiles : sms, THREADS, T::SMEM, s>>>(
       args);
   return cudaGetLastError();
 }
@@ -598,7 +766,7 @@ inline cudaError_t mlp_bwd_products(const void* y, const void* g,
   dual.m = rows;
   dual.n = hidden;
   dual.k = c;
-  err = launch<128, true>(dual, device, s);
+  err = launch<128, DUAL>(dual, device, s);
   if (err != cudaSuccess) return err;
   Args dyp{};
   err = encode(&dyp.a1, dhpre, rows, hidden, BM);
@@ -608,7 +776,86 @@ inline cudaError_t mlp_bwd_products(const void* y, const void* g,
   dyp.m = rows;
   dyp.n = c;
   dyp.k = hidden;
-  return launch<DY_BN, false>(dyp, device, s);
+  dyp.epi = EPI_F32;
+  return launch<DY_BN, B_K>(dyp, device, s);
+}
+
+// The tile width of a product of m rows, n columns and depth k: the one
+// whose rounds of tiles over the card's SMs cost least, a tile of width w
+// taking w + TILE_FIXED column-equivalents (its A tile, the k loop's fixed
+// steps and the epilogue).  An MN-major B at width 96 loads two 64-column
+// boxes and its n96 steps ran about twice as long per k step as n128's
+// (tools/bench_vit_fwd.py: fc2, k = 3072, 1576 rows, 0.0292 ms at 96
+// against 0.0203 at 128), so past MN96_MAX_K it is not picked.
+constexpr int TILE_FIXED = 64, MN96_MAX_K = 1024;
+
+inline int pick_bn(int m, int n, int k, bool mn_major, int sms) {
+  const int widths[4] = {192, 128, 96, 64};
+  int best = widths[0];
+  long long best_cost = -1;
+  for (const int w : widths) {
+    if (w == 96 && mn_major && k > MN96_MAX_K) continue;
+    const long long tiles =
+        static_cast<long long>(cdiv(m, BM)) * cdiv(n, w);
+    const long long cost = (tiles + sms - 1) / sms * (w + TILE_FIXED);
+    if (best_cost < 0 || cost < best_cost) {
+      best = w;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <int MODE>
+cudaError_t launch_width(int bn, const Args& args, int device,
+                         cudaStream_t s) {
+  switch (bn) {
+    case 64: return launch<64, MODE>(args, device, s);
+    case 96: return launch<96, MODE>(args, device, s);
+    case 128: return launch<128, MODE>(args, device, s);
+    case 192: return launch<192, MODE>(args, device, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// out (m, n) = epilogue(a (m, k) · B) with bf16 operands: B = b (k, n)
+// read as stored (MN-major), or b (n, k) read transposed (K-major) when
+// trans_b; epi one of EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESID (aux the
+// (m, n) bf16 residual), EPI_NONE (bf16 out) or EPI_F32 (fp32 out);
+// bias (n) fp32.  bn: the tile width, 64, 96, 128 or 192, or 0 for
+// pick_bn's.  Bases 16-byte aligned, n and k multiples of 8 (else
+// cudaErrorInvalidValue).  Two tensor maps are encoded a call (a, b).
+inline cudaError_t gemm(int epi, int trans_b, int bn, const void* a,
+                        const void* b, const float* bias, const void* aux,
+                        void* out, int m, int n, int k, int device,
+                        cudaStream_t s) {
+  const bool ok_epi = epi == EPI_BIAS || epi == EPI_BIAS_GELU ||
+                      epi == EPI_BIAS_RESID || epi == EPI_NONE ||
+                      epi == EPI_F32;
+  if (!ok_epi || m < 1 || n < 8 || k < 8 || n % 8 || k % 8)
+    return cudaErrorInvalidValue;
+  if (bn == 0) {
+    int sms = 0;
+    const cudaError_t err = sm_count(device, &sms);
+    if (err != cudaSuccess) return err;
+    bn = pick_bn(m, n, k, !trans_b, sms);
+  }
+  if (bn != 64 && bn != 96 && bn != 128 && bn != 192)
+    return cudaErrorInvalidValue;
+  Args p{};
+  cudaError_t err = encode(&p.a1, a, m, k, BM);
+  if (err == cudaSuccess)
+    err = trans_b ? encode(&p.b1, b, n, k, bn) : encode(&p.b1, b, k, n, BK);
+  if (err != cudaSuccess) return err;
+  p.bias = bias;
+  p.aux = aux;
+  p.out1 = out;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.epi = epi;
+  return trans_b ? launch_width<B_K>(bn, p, device, s)
+                 : launch_width<B_MN>(bn, p, device, s);
 }
 
 }  // namespace sm90

@@ -8,8 +8,8 @@
 //   The attention-block backward chain rule (vit_block.py::_attn_block_bwd)
 //   also runs its LayerNorm, data products and LN backward on these
 //   kernels; the one-kernel attention-block backward K10 has its own entry
-//   in attn_block_bwd.cu over the same LayerNorm (layernorm.cuh) and GEMM
-//   (gemm_tile.cuh) kernels.
+//   in attn_block_bwd.cu over the same LayerNorm (layernorm.cuh) and
+//   gemm_tile.cuh's WMMA / SIMT tiles in both dtypes.
 //
 // What bounds it on the H100: at the serving batch (8 images, 1576 token
 //   rows) each forward block reads 14 MB of bf16 weights for ~22 GFLOP,
@@ -26,25 +26,26 @@
 //   grid.  A Hopper SM has 227 KB of shared memory and blocks run in
 //   parallel in no order, so each TPU kernel becomes a chain of launches
 //   that each fill the card: a warp-per-row fp32 LayerNorm
-//   (layernorm.cuh), one tiled GEMM template (gemm_tile.cuh: bf16
-//   operands on the tensor cores through WMMA, fp32 operands on the FMA
-//   pipes, fp32 accumulation either way; B read as stored or transposed,
-//   so dh = g·w2ᵀ and dy = dhpre·w1ᵀ need no copy of the weights) whose
-//   epilogue adds the bias and applies exact-erf GELU, the residual, or
-//   the exact dGELU of the fc1 pre-activation, and the
-//   attention core of attention_core.cuh, which holds one head's K and V
-//   in shared memory (or, past ~420 tokens at D = 64, streams them in key
-//   tiles) with an exact two-pass fp32 softmax.  K4's dg2/db2, a
-//   sum over all rows that the TPU grid accumulated in order, becomes
-//   per-64-row column partials in a (blocks, C) fp32 buffer reduced by a
-//   second pass: deterministic, no atomics.  The ragged row edge (3152
-//   rows) is masked in every kernel, so nothing is padded.  K4 in bf16
-//   runs its three products on gemm_sm90.cuh instead (TMA + wgmma, fc1
-//   and dh in one dual product whose fp32 pre-activation stays in
-//   registers; dfu_mlp_block_bwd_gemms); fp32 K4 keeps the chain through
-//   the fp32 pre-activation.  The qkv, attention output and MLP hidden
-//   intermediates of K1/K2 go through HBM; fusing them away, and moving
-//   K1/K2 onto the wgmma GEMM, is later work.
+//   (layernorm.cuh); in bf16 the products on gemm_sm90.cuh's persistent
+//   TMA + wgmma GEMM, whose epilogue adds the bias and applies exact-erf
+//   GELU or the residual (K1: qkv, proj; K2: fc1, fc2; K4: fc1 and dh as
+//   one dual product whose fp32 pre-activation stays in registers, then
+//   dy), and K1's attention step on the tensor cores
+//   (attention_fwd_mma.cuh with the deferred division: mma.sync over
+//   64-key cp.async tiles of the packed qkv, two passes); in fp32 the
+//   products on gemm_tile.cuh's SIMT tile (B read as stored or
+//   transposed, so dh = g·w2ᵀ and dy = dhpre·w1ᵀ need no copy of the
+//   weights; K4's epilogues keep the fp32 pre-activation and apply the
+//   exact dGELU) and K1's attention on attention_core.cuh, which holds
+//   one head's K and V in shared memory (or, past ~420 tokens at D = 64,
+//   streams them in key tiles) with an exact two-pass fp32 softmax.  K4's
+//   dg2/db2, a sum over all rows that the TPU grid accumulated in order,
+//   becomes per-64-row column partials in a (blocks, C) fp32 buffer
+//   reduced by a second pass: deterministic, no atomics.  The ragged row
+//   edge (3152 rows) is masked in every kernel, so nothing is padded.
+//   The qkv, attention output and MLP hidden intermediates of K1/K2 go
+//   through HBM, and LayerNorm is its own launch; fusing LN into the
+//   products' A loads is later work.
 //
 // Numerics follow the Pallas kernels: fp32 LayerNorm statistics, matmul
 // operands in the compute dtype with fp32 accumulation, q·kᵀ scaled by
@@ -55,6 +56,7 @@
 // exists only because Mosaic cannot lower erf).
 
 #include "attention_core.cuh"
+#include "attention_kernels.cuh"
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
@@ -63,6 +65,26 @@
 #include <chrono>
 
 using namespace dfu;
+
+namespace {
+
+// An fp32 product on gemm_tile.cuh's SIMT tile (bf16 runs gemm_sm90.cuh).
+template <int EPI>
+void launch_simt(int trans_b, const void* a, const void* b,
+                 const float* bias, void* aux, void* out, int m, int n, int k,
+                 cudaStream_t s) {
+  const dim3 grid(cdiv(n, SBN), cdiv(m, SBM));
+  const DenseA<float> A{static_cast<const float*>(a), m, k};
+  const float* B = static_cast<const float*>(b);
+  if (trans_b)
+    gemm_f32_simt<EPI, true><<<grid, STHREADS, 0, s>>>(A, B, bias, aux, out,
+                                                       m, n, k);
+  else
+    gemm_f32_simt<EPI, false><<<grid, STHREADS, 0, s>>>(A, B, bias, aux, out,
+                                                        m, n, k);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -108,7 +130,10 @@ int dfu_layernorm_bwd(int device, int dtype, const void* x, const void* resid,
 // (m, n) in the compute dtype for EPI_BIAS_RESID, the fp32 (m, n)
 // pre-activation written by EPI_BIAS_GELU_AUX and read by EPI_DGELU, else
 // unused; bias (n) fp32 for epi <= EPI_BIAS_GELU_AUX; out is fp32 for
-// EPI_F32, else the compute dtype.
+// EPI_F32, else the compute dtype.  bf16 runs on the TMA + wgmma GEMM
+// (gemm_sm90.cuh: EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESID, EPI_NONE,
+// EPI_F32; 16-byte-aligned bases, n and k multiples of 8; anything else
+// is cudaErrorInvalidValue), fp32 on gemm_tile.cuh's SIMT tile.
 int dfu_gemm(int device, int dtype, int epi, int trans_b, const void* a,
              const void* b, const void* bias, void* aux, void* out, int m,
              int n, int k, void* stream) {
@@ -116,10 +141,13 @@ int dfu_gemm(int device, int dtype, int epi, int trans_b, const void* a,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
+  if (dtype == DT_BF16)
+    return static_cast<int>(sm90::gemm(epi, trans_b, 0, a, b, bf, aux, out,
+                                       m, n, k, device, s));
   switch (epi) {
 #define DFU_GEMM_CASE(E)                                                  \
     case E:                                                               \
-      launch_gemm_t<E>(dtype, trans_b, a, b, bf, aux, out, m, n, k, s);   \
+      launch_simt<E>(trans_b, a, b, bf, aux, out, m, n, k, s);            \
       break;
     DFU_GEMM_CASE(EPI_BIAS)
     DFU_GEMM_CASE(EPI_BIAS_GELU)
@@ -133,6 +161,30 @@ int dfu_gemm(int device, int dtype, int epi, int trans_b, const void* a,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   DFU_RETURN_LAST_ERROR();
+}
+
+// dfu_gemm's bf16 product at tile width bn (64, 96, 128 or 192; 0 lets
+// gemm_sm90.cuh's pick_bn choose): tools/bench_vit_fwd.py times each.
+int dfu_gemm_sm90(int device, int epi, int trans_b, int bn, const void* a,
+                  const void* b, const void* bias, const void* aux, void* out,
+                  int m, int n, int k, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(sm90::gemm(epi, trans_b, bn, a, b,
+                                     static_cast<const float*>(bias), aux,
+                                     out, m, n, k, device,
+                                     static_cast<cudaStream_t>(stream)));
+}
+
+// The tile width dfu_gemm's bf16 product of m rows, n columns and depth k
+// takes (gemm_sm90.cuh's pick_bn) into *bn.
+int dfu_gemm_sm90_width(int device, int trans_b, int m, int n, int k,
+                        int* bn) {
+  int sms = 0;
+  const cudaError_t err = sm_count(device, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *bn = sm90::pick_bn(m, n, k, !trans_b, sms);
+  return 0;
 }
 
 // K4's bf16 products on the TMA + wgmma GEMM (gemm_sm90.cuh): the dual
@@ -171,15 +223,21 @@ int dfu_tensor_map_encode_ns(const void* base, int rows, int cols, int iters,
 }
 
 // qkv (batch, n, 3·heads·d) -> out (batch, n, heads·d); d in {16,32,64,128}.
+// bf16 runs the tensor-core forward with K1's deferred division
+// (attention_fwd_mma.cuh; 16-byte-aligned qkv and out), fp32 the SIMT
+// core of attention_core.cuh.
 int dfu_attention(int device, int dtype, const void* qkv, void* out,
                   int batch, int n, int heads, int d, float scale,
                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_BF16)
-    return dispatch_attention<bf16, bf16>(d, qkv, out, batch, n, heads,
-                                         scale, s);
+  if (dtype == DT_BF16) {
+    int e2 = 0;     // q is scaled in bf16 when the scale is a power of two
+    const int pow2 = frexpf(scale, &e2) == 0.5f;
+    return qkv_fwd_deferred<bf16>(qkv, out, batch, n, heads, d, scale, pow2,
+                                  s);
+  }
   return dispatch_attention<float, float>(d, qkv, out, batch, n, heads,
                                          scale, s);
 }

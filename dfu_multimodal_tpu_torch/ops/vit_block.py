@@ -6,8 +6,7 @@ Counterpart of ``dfu_multimodal_tpu/ops/vit_block.py``:
   ``attn_block``:  x + proj(attention(qkv(LN1(x))))     (K1, forward)
   ``mlp_block``:   x + fc2(gelu(fc1(LN2(x))))           (K2, forward)
   ``mlp_block_bwd``: LN2/fc1 recompute, dGELU, dx with the LN backward,
-                   emits y, h, dhpre, dg2, db2           (K4; bf16 on the
-                   TMA + wgmma GEMM of csrc/gemm_sm90.cuh)
+                   emits y, h, dhpre, dg2, db2           (K4)
 
 and the two hand chain rules the custom VJPs run: :func:`attn_block_bwd`
 (LN1 and qkv recompute, the K5 attention fwd+bwd of ``ops.attention``,
@@ -16,6 +15,14 @@ the projection and qkv products, LN backward in fp32) and
 :class:`AttnBlock` and :class:`MlpBlock` are the ``torch.autograd.
 Function``s: forward = K1 / K2, saving only the block inputs (remat, as
 the JAX custom VJPs), backward = the chain rules.
+
+In bf16 the products of K1, K2 and K4 and the attention chain rule's data
+products run on the TMA + wgmma GEMM of csrc/gemm_sm90.cuh (the weight
+gradients stay ``torch.matmul``s), and K1's attention step on
+the tensor-core forward of csrc/attention_fwd_mma.cuh with the Pallas
+kernel's deferred softmax division; fp32, the parity dtype, runs the SIMT
+GEMM of csrc/gemm_tile.cuh and the attention core of
+csrc/attention_core.cuh.
 
 :func:`attn_block_bwd_fused` is K10 (``_attn_block_bwd_kernel``, the
 JAX package's alternative one-kernel VJP ``_attn_block_bwd_fused``): the
@@ -54,8 +61,9 @@ import torch.nn.functional as F
 
 from dfu_multimodal_tpu_torch.ops import _build
 from dfu_multimodal_tpu_torch.ops.attention import (
-    _HEAD_DIMS as _ATTN_HEAD_DIMS, _check_aligned, acc_dtype as _acc,
-    qkv_attention_fwdbwd, qkv_attention_fwdbwd_ref)
+    _HEAD_DIMS as _ATTN_HEAD_DIMS, _attend_two_pass, _check_aligned,
+    _merge_heads, _unpack, acc_dtype as _acc, qkv_attention_fwdbwd,
+    qkv_attention_fwdbwd_ref)
 
 LN_EPS = 1e-6
 # epilogues of csrc/vit_block.cu::dfu_gemm
@@ -74,12 +82,14 @@ _SIGNATURES = {
     "dfu_layernorm_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _I, _F, _P],
     "dfu_gemm": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "dfu_gemm_sm90": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "dfu_gemm_sm90_width": [_I, _I, _I, _I, _I, _P],
     "dfu_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _P],
     "dfu_mlp_block_bwd_gemms": [_I] + [_P] * 8 + [_I, _I, _I, _P],
     "dfu_tensor_map_encode_ns": [_P, _I, _I, _I, _P],
 }
 _LNB_ROWS = 64      # rows per LN-backward column partial (csrc LNB_ROWS)
-# K4's bf16 products (csrc/gemm_sm90.cuh): 64-deep k steps; TMA wants
+# the bf16 products (csrc/gemm_sm90.cuh): 64-deep k steps; TMA wants
 # 16-byte-aligned bases and row strides
 _SM90_BK, _TMA_ALIGN = 64, 16
 
@@ -150,6 +160,23 @@ def attn_block_ref(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads: int,
     p = torch.softmax(logits, dim=-1)
     attn = _mm_f32(p.to(x.dtype), v)
     attn = attn.transpose(1, 2).reshape(b, n, c).to(x.dtype)
+    o = (_mm_f32(attn, wproj) + bproj.to(_acc(x))).to(x.dtype)
+    return x + o
+
+
+def _attn_block_tiled_ref(x, g1, b1, wqkv, bqkv, wproj, bproj,
+                          num_heads: int):
+    """The bf16 K1 kernels' algorithm in plain PyTorch, for the tests (the
+    kernels run only on the card): :func:`attn_block_ref`'s LayerNorm and
+    products around the tile walk of the attention step,
+    ``attention._attend_two_pass(defer=True)`` (csrc/attention_fwd_mma.cuh
+    with DEFER: 64-key tiles, pass 1 the row max, pass 2 e = exp(S − max),
+    its uncast fp32 sum and bf16(e)·V, then O / sum), which is the Pallas
+    kernel's deferred division (``_attention_head``)."""
+    y = _layernorm_f32(x, g1, b1).to(x.dtype)
+    qkv = (_mm_f32(y, wqkv) + bqkv.to(_acc(x))).to(x.dtype)
+    attn = _merge_heads(_attend_two_pass(*_unpack(qkv, num_heads),
+                                         defer=True), x.dtype)
     o = (_mm_f32(attn, wproj) + bproj.to(_acc(x))).to(x.dtype)
     return x + o
 
@@ -238,10 +265,11 @@ def _launch_layernorm_bwd(lib, x, resid, dy, gamma, rows, c, what):
 
 
 def _check_tma_operands(name, c, hidden, **operands):
-    """The bf16 K4 products load their operands by TMA, which needs
-    16-byte-aligned bases and row strides: raise ValueError unless C and
-    hidden are multiples of 8 and every operand's base is 16-byte
-    aligned (no fallback to another kernel)."""
+    """The bf16 products load their operands by TMA (and K1/K2 read the
+    residual x in 16-byte chunks), which needs 16-byte-aligned bases and
+    row strides: raise ValueError unless C and ``hidden`` (the wider
+    product's width: 3C, or the MLP's hidden) are multiples of 8 and every
+    operand's base is 16-byte aligned (no fallback to another kernel)."""
     if c % 8 or hidden % 8:
         raise ValueError(f"{name}: C = {c} and hidden = {hidden} must be "
                          "multiples of 8 in bf16 (16-byte TMA rows)")
@@ -256,7 +284,11 @@ def attn_block(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
                wproj: torch.Tensor, bproj: torch.Tensor,
                num_heads: int, bias=None) -> torch.Tensor:
     """x + proj(attention(qkv(LN1(x)))).  x (B, N, C); wqkv (C, 3C) and
-    wproj (C, C) in x's dtype; g1, b1, bqkv, bproj fp32."""
+    wproj (C, C) in x's dtype; g1, b1, bqkv, bproj fp32.  On the card,
+    bf16 runs LN1, qkv and proj on the TMA + wgmma GEMM, and attention on
+    the tensor cores with the deferred division (its tile walk:
+    :func:`_attn_block_tiled_ref`); it needs C a multiple of 8 and
+    16-byte-aligned x, wqkv, wproj (ValueError otherwise)."""
     if bias is not None:
         raise NotImplementedError("the ToMe key bias is not ported yet")
     if x.device.type == "cpu":
@@ -275,6 +307,9 @@ def attn_block(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
             f"{tuple(wqkv.shape)}, wproj {tuple(wproj.shape)}: want "
             f"C = heads * D with D in {_HEAD_DIMS} and (C, 3C), (C, C) "
             f"weights")
+    if x.dtype == torch.bfloat16:
+        _check_tma_operands("attn_block", c, 3 * c, x=x, wqkv=wqkv,
+                            wproj=wproj)
     lib, rows = _lib(), bsz * n
     y = torch.empty_like(x)
     qkv = torch.empty((bsz, n, 3 * c), dtype=x.dtype, device=x.device)
@@ -312,13 +347,17 @@ def mlp_block(x: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
               w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2b: torch.Tensor) -> torch.Tensor:
     """x + fc2(gelu(fc1(LN2(x)))).  x (B, N, C); w1 (C, H) and w2 (H, C)
-    in x's dtype; g2, b2, b1, b2b fp32."""
+    in x's dtype; g2, b2, b1, b2b fp32.  On the card, bf16 runs fc1 and fc2
+    on the TMA + wgmma GEMM; it needs C and H multiples of 8 and
+    16-byte-aligned x, w1, w2 (ValueError otherwise)."""
     if x.device.type == "cpu":
         return mlp_block_ref(x, g2, b2, w1, b1, w2, b2b)
     rows, c, hidden = _check_mlp("mlp_block", x, g2, b2, w1, b1, w2)
     _build.check_cuda_operands("mlp_block", x, {}, {"b2b": b2b})
     if b2b.shape != (c,):
         raise ValueError(f"mlp_block: b2b {tuple(b2b.shape)}, want ({c},)")
+    if x.dtype == torch.bfloat16:
+        _check_tma_operands("mlp_block", c, hidden, x=x, w1=w1, w2=w2)
     lib = _lib()
     y = torch.empty_like(x)
     h = torch.empty((rows, hidden), dtype=x.dtype, device=x.device)
@@ -458,7 +497,9 @@ def attn_block_bwd(x: torch.Tensor, g: torch.Tensor, g1: torch.Tensor,
     bqkv, wproj, bproj): dx in x's dtype, weights in their dtype, the
     rest fp32; an entry whose ``needs`` is false is None and its product
     is not computed.  On a CUDA tensor the LayerNorm, the three data
-    products and the LN backward run on the port's kernels."""
+    products (bf16: on the TMA + wgmma GEMM, which needs C a multiple of 8
+    and 16-byte-aligned g, wqkv, wproj) and the LN backward run on the
+    port's kernels."""
     if x.device.type == "cpu":
         return attn_block_bwd_ref(x, g, g1, b1, wqkv, bqkv, wproj, num_heads,
                                   needs)
@@ -472,6 +513,9 @@ def attn_block_bwd(x: torch.Tensor, g: torch.Tensor, g1: torch.Tensor,
         raise ValueError(
             f"attn_block_bwd: x {tuple(x.shape)}, g {tuple(g.shape)}, wqkv "
             f"{tuple(wqkv.shape)}, wproj {tuple(wproj.shape)}")
+    if x.dtype == torch.bfloat16:
+        _check_tma_operands("attn_block_bwd", c, 3 * c, g=g, wqkv=wqkv,
+                            wproj=wproj)
     lib, rows, dev = _lib(), bsz * n, x.device
     y = torch.empty_like(x)
     qkv = torch.empty((bsz, n, 3 * c), dtype=x.dtype, device=dev)

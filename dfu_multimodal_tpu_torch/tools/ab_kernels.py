@@ -25,11 +25,13 @@ prefixed by its turn, and whether every turn's hash of each output is
 the same.  Two versions are compared only within one run: two runs may
 land on two cards.  Needs a CUDA device; exits non-zero without one.
 
-Against a parent without the bf16 attention backward on the tensor cores
-(``csrc/attention_bwd_mma.cuh``), the bf16 lines of K5, the K5 chain
-rule, the K6 and K9 backwards and K10 change (another summation order
-and the ex2 exponential) and must agree across the two change turns;
-every fp32 line and every other bf16 line is held equal.
+Against a parent whose bf16 K1/K2 products run on the WMMA tile
+(``csrc/gemm_tile.cuh``) and whose bf16 K1 attention runs the SIMT core
+(``csrc/attention_core.cuh``), only the bf16 K1 line changes (its
+attention sums in another order, with the ex2 exponential) and must
+agree across the two change turns; K2's and the K5 chain rule's bf16
+lines stay equal when the wgmma products equal the WMMA tile's bit for
+bit, and every fp32 line and every other bf16 line is held equal.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
     python -m dfu_multimodal_tpu_torch.tools.profile_train [--steps 3]
         [--top 25] [--block-impl fused|flax]
-        [--attention-impl auto|pallas|xla]
+        [--attention-impl auto|pallas|xla] [--eval-multimodal]
 
 Builds the full-width thermal_only ViT-B/16 through :func:`recipe_trainer`
 (seeded weights, bf16 compute, the thermal recipe's batch of 16 — the
@@ -14,7 +14,12 @@ batch of :func:`synthetic_thermal`, then ``--steps`` train steps under
 ``torch.profiler`` and prints: the card's name and power limit, the
 host-clock step time, device time by kernel (self time, summed over the
 window and per step, largest first), the device's busy time and idle
-share of the window, and one JSON line with the totals.  Needs a CUDA
+share of the window, and one JSON line with the totals.
+``--eval-multimodal`` profiles the serving path's step instead: the
+full-width multimodal model (ResNet-50 + ViT-B/16 on K1/K2, the fusion
+head on K3; seeded weights, bf16) through ``Trainer.eval_step`` on a
+batch of 8 random image pairs (``ServingEngine``'s largest bucket), each
+step ending in a copy of the probabilities to the host.  Needs a CUDA
 device; exits non-zero without one.
 """
 
@@ -34,11 +39,13 @@ from torch.profiler import ProfilerActivity, profile
 from dfu_multimodal_tpu_torch.models import zoo
 from dfu_multimodal_tpu_torch.train.engine import (Trainer, TrainConfig,
                                                    class_weights_from_labels,
+                                                   rgb_modality,
                                                    thermal_modality)
 
 
 # the thermal recipe (cli/train_thermal_only.py): batch 16 at 224x224
 TRAIN_BATCH, IMAGE = 16, 224
+EVAL_BATCH = 8                  # ServingEngine's largest bucket
 
 
 def synthetic_thermal(n: int, seed: int = 0):
@@ -68,6 +75,25 @@ def recipe_trainer(device, labels, block_impl: str = "fused",
     return trainer
 
 
+def _multimodal_eval(device):
+    """One serving step of the full-width multimodal model in bf16 (seeded
+    weights) on a batch of EVAL_BATCH random image pairs, ending in the
+    probabilities' copy to the host."""
+    trainer = Trainer("multimodal", TrainConfig(compute_dtype="bfloat16"),
+                      {"rgb": rgb_modality(), "thermal": thermal_modality()},
+                      device=device, image_size=IMAGE)
+    zoo.init_model(trainer.module,
+                   torch.Generator(device=device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {m: rng.integers(0, 256, (EVAL_BATCH, IMAGE, IMAGE, 3),
+                             dtype=np.uint8) for m in ("rgb", "thermal")}
+
+    def step():
+        with torch.inference_mode():
+            trainer.eval_step(batch)["probs"].cpu()
+    return step
+
+
 def _device_ms(event) -> float:
     us = getattr(event, "self_device_time_total", None)
     if us is None:                     # older torch
@@ -83,6 +109,7 @@ def main(argv=None) -> int:
                                                               "flax"))
     ap.add_argument("--attention-impl", default="auto",
                     choices=("auto", "pallas", "xla"))
+    ap.add_argument("--eval-multimodal", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -93,21 +120,28 @@ def main(argv=None) -> int:
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
-    images, labels = synthetic_thermal(TRAIN_BATCH)
-    batch = {"thermal": images, "label": labels,
-             "valid": np.ones(TRAIN_BATCH, np.float32)}
-    trainer = recipe_trainer(dev, labels, args.block_impl,
-                             args.attention_impl)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    if args.eval_multimodal:
+        step, batch_size, what = _multimodal_eval(dev), EVAL_BATCH, "eval"
+    else:
+        images, labels = synthetic_thermal(TRAIN_BATCH)
+        batch = {"thermal": images, "label": labels,
+                 "valid": np.ones(TRAIN_BATCH, np.float32)}
+        trainer = recipe_trainer(dev, labels, args.block_impl,
+                                 args.attention_impl)
+        gen = torch.Generator(device=dev).manual_seed(1)
+
+        def step():
+            trainer.train_step(batch, gen)
+        batch_size, what = TRAIN_BATCH, "train"
     for _ in range(2):
-        trainer.train_step(batch, gen)
+        step()
     torch.cuda.synchronize(dev)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            trainer.train_step(batch, gen)
+            step()
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernels only: an operator's own "self device time" repeats the time
@@ -116,9 +150,11 @@ def main(argv=None) -> int:
               if e.device_type == DeviceType.CUDA and _device_ms(e) > 0]
     busy_ms = sum(_device_ms(e) for e in events)
     events.sort(key=_device_ms, reverse=True)
-    print(f"[profile] block_impl {args.block_impl}, attention_impl "
-          f"{args.attention_impl}, batch {TRAIN_BATCH}, {args.steps} "
-          f"steps: host "
+    label = ("multimodal eval" if args.eval_multimodal else
+             f"block_impl {args.block_impl}, attention_impl "
+             f"{args.attention_impl}")
+    print(f"[profile] {label}, batch {batch_size}, {args.steps} "
+          f"{what} steps: host "
           f"{wall_ms / args.steps:.3f} ms per step; device busy "
           f"{busy_ms / args.steps:.3f} ms per step; idle share "
           f"{1.0 - busy_ms / wall_ms:.4f}", flush=True)
@@ -127,9 +163,9 @@ def main(argv=None) -> int:
         print(f"[profile] {ms / args.steps:9.3f} ms/step {ms / busy_ms:7.2%} "
               f"calls/step {e.count / args.steps:7.1f}  {e.key[:110]}",
               flush=True)
-    print(json.dumps({"block_impl": args.block_impl,
+    print(json.dumps({"step": what, "block_impl": args.block_impl,
                       "attention_impl": args.attention_impl,
-                      "batch": TRAIN_BATCH, "steps": args.steps,
+                      "batch": batch_size, "steps": args.steps,
                       "step_ms": wall_ms / args.steps,
                       "device_busy_ms": busy_ms / args.steps,
                       "idle_share": 1.0 - busy_ms / wall_ms}), flush=True)

@@ -804,6 +804,98 @@ def test_attention_kernels_refuse_a_head_that_does_not_fit():
         at.qkv_attention_fwd(qkv.double(), 2)
 
 
+# the bf16 K1 and K2 run their products on the TMA + wgmma GEMM
+# (csrc/gemm_sm90.cuh) and K1's attention step on the tensor-core forward
+# with the deferred division (csrc/attention_fwd_mma.cuh, DEFER): every
+# head dim K1 takes, (C, heads) by D, at B = 1, 2, 8 and N = 5, 40, 197
+# (ViT-B/16's) and 577 (a 384² image)
+FWD_WIDTHS = {16: (64, 4), 32: (128, 4), 64: (768, 12), 128: (256, 2)}
+
+
+def _assert_mean_no_further_from_fp32(out, plain, truth):
+    """The bf16 output's mean distance from the fp32 result on the same
+    values within BF16_VS_PLAIN of the plain version's, plus fp32's
+    TOL·mean|fp32| for the summation order.  K1's kernel divides by the
+    softmax sum after P·V, as the Pallas kernel does, where its plain
+    version normalises first, as the JAX oracle does: the two round
+    different values, so over a few rows one element's rounding sets the
+    max distance, and the mean is the measure of how far each lies."""
+    truth = truth.float()
+    kernel = float((out.float() - truth).abs().mean())
+    ref = float((plain.float() - truth).abs().mean())
+    slack = TOL[torch.float32] * float(truth.abs().mean())
+    assert kernel <= (1 + BF16_VS_PLAIN) * ref + slack, (kernel, ref)
+
+
+@pytest.mark.parametrize("d", sorted(FWD_WIDTHS))
+@pytest.mark.parametrize("n", [5, 40, 197, 577])
+@pytest.mark.parametrize("b", [1, 2, 8])
+def test_bf16_vit_forward_blocks_match_plain(b, n, d):
+    """The bf16 K1 and K2 against their plain versions within the bf16
+    budget, one launch a call, two calls bit-equal; each no further from
+    the fp32 result on the same values than its plain version: in mean
+    distance, and in max distance than the plain walk of its own numerics
+    (K2: the plain version; K1: its tile walk ``_attn_block_tiled_ref``,
+    the deferred division), both within BF16_VS_PLAIN."""
+    dev = _cuda()
+    c, heads = FWD_WIDTHS[d]
+    x, ln, attn, mlp = _block_args(dev, b, n, c, torch.bfloat16,
+                                   seed=3000 + 10 * n + b)
+    for fn, plains, args in ((vb.attn_block,
+                              (vb.attn_block_ref, vb._attn_block_tiled_ref),
+                              (x, *ln, *attn, heads)),
+                             (vb.mlp_block, (vb.mlp_block_ref,),
+                              (x, *ln, *mlp))):
+        before = fn.launches
+        out, again = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        ref = plains[0](*args)
+        truth = plains[0](*(a.float() if isinstance(a, torch.Tensor) else a
+                            for a in args))
+        _assert_close(out, ref, TOL[torch.bfloat16])
+        _assert_mean_no_further_from_fp32(out, ref, truth)
+        _assert_no_further_from_fp32((out,), (plains[-1](*args),), (truth,))
+        assert torch.equal(out, again)
+
+
+def test_bf16_vit_forward_blocks_refuse_misaligned_operands():
+    """TMA needs 16-byte-aligned bases and rows: a bf16 operand of K1, K2
+    or the attention-block chain rule whose base lies 2 bytes past a
+    16-byte boundary, or an MLP width that is no multiple of 8, raises
+    ValueError (no fallback to another kernel); fp32 takes the SIMT
+    chain, which needs neither."""
+    dev = _cuda()
+    x, ln, attn, mlp = _block_args(dev, 2, 9, 64, torch.bfloat16, seed=45)
+    g = _randn(torch.Generator(device=dev).manual_seed(46), 2, 9, 64,
+               dtype=torch.bfloat16)
+
+    def offset(t):                        # contiguous, one element in
+        flat = torch.empty(1 + t.numel(), dtype=t.dtype, device=dev)
+        flat[1:].copy_(t.reshape(-1))
+        return flat[1:].view(t.shape)
+
+    cases = ((vb.attn_block, [x, *ln, *attn, 4], (0, 3, 5)),
+             (vb.mlp_block, [x, *ln, *mlp], (0, 3, 5)),
+             (vb.attn_block_bwd, [x, g, *ln, *attn[:3], 4], (1, 4, 6)))
+    for fn, args, bad_at in cases:
+        for i in bad_at:
+            bad = list(args)
+            bad[i] = offset(args[i])
+            assert bad[i].is_contiguous() and bad[i].data_ptr() % 16 == 2
+            with pytest.raises(ValueError):
+                fn(*bad)
+    _, ln36, _, mlp36 = _block_args(dev, 2, 9, 36, torch.bfloat16, seed=47)
+    x36 = _randn(torch.Generator(device=dev).manual_seed(48), 2, 9, 36,
+                 dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # C = 36
+        vb.mlp_block(x36, *ln36, *mlp36)
+    args32 = [t.float() for t in (x, *ln, *attn)] + [4]
+    args32[0] = offset(args32[0])
+    _assert_close(vb.attn_block(*args32), vb.attn_block_ref(*args32),
+                  TOL[torch.float32])
+
+
 # the bf16 forwards of K6 and K9 run one tensor-core kernel
 # (csrc/attention_fwd_mma.cuh) for every token count and head dim: one
 # partial 64-key tile up to ten (577, a 384² image); D = 8 and 32 scale the
