@@ -16,8 +16,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               division, in vit_block.cu), and the warpgroup (HGMMA) count
               of every instantiation of the bf16 products of K1, K2, K4
               and the attention chain rule (gemm_sm90.cuh's
-              gemm_kernel), failing on a count of zero but the K6/K9
-              forward's;
+              gemm_kernel), the int8 warpgroup (IGMMA) count of every
+              int8 product of K7/K8 (gemm_kernel in vit_block_q8.cu) and
+              the HMMA count of their bf16 attention step, failing on a
+              count of zero but the K6/K9 forward's, and on any int8
+              WMMA (IMMA) left in vit_block_q8.cu;
 3. kernels  — each forward kernel against its plain PyTorch version on
               the card at the serving and training paths' shapes
               (ViT-B/16 blocks at B = 8, 16 and 128 in fp32 and bf16, K1
@@ -46,7 +49,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 3c. int8 kernels — ``attn_block_q8``, ``mlp_block_q8`` (K7) and
               ``attn_block_q8s``, ``mlp_block_q8s`` (K8) against their plain
               versions at B = 8 and 128 in fp32 and bf16, and K7's
-              attention block at N = 577 (B = 8);
+              attention block at N = 577 (B = 8); each int8 product of
+              the blocks (qkv, proj, fc1, fc2; dynamic and static) on
+              seeded int8 operands, bit for bit against the plain integer
+              arithmetic ``gemm_q8_ref`` (GELU_F32 within Q8_ERF_TOL) at
+              B = 8 and 128 in both dtypes; in bf16 the blocks' device
+              time by kernel (profiler) and each product's beside
+              ``torch._int_mm`` (cuBLASLt s8·s8→s32, a yardstick the port
+              never calls) on the same operands;
 3d. ResNet kernels — the fused bottleneck (K11, identity and projection)
               against its plain version at ResNet-50's five stride-1 block
               shapes, B = 8 and 128, fp32 and bf16, each beside the time
@@ -284,6 +294,13 @@ def phase_build() -> None:
     # fails
     _log_tensor_core_sass("vit_block", "gemm_kernel", op="HGMMA",
                           required=True)
+    # K7/K8: their int8 products on int8 warpgroup MMAs in every
+    # instantiation, no int8 WMMA (IMMA) left, and their bf16 attention
+    # step on mma.sync
+    _log_tensor_core_sass("vit_block_q8", "gemm_kernel", op="IGMMA",
+                          required=True)
+    _log_tensor_core_sass("vit_block_q8", "attention_fwd_mma", required=True)
+    _log_tensor_core_sass("vit_block_q8", "", op="IMMA", forbidden=True)
     # bind the entry points now, so a missing symbol fails this phase
     vb._lib()
     at._lib()
@@ -294,16 +311,20 @@ def phase_build() -> None:
 
 
 def _log_tensor_core_sass(name: str, kernel: str, op: str = "HMMA",
-                          required: bool = False) -> None:
+                          required: bool = False,
+                          forbidden: bool = False) -> None:
     """The count of tensor-core instructions ``op`` (HMMA: mma.sync;
-    HGMMA: wgmma) in the SASS of each instantiation of ``kernel`` in
-    library ``name`` (cuobjdump -sass, beside nvcc), which shows that the
-    kernel runs on the tensor cores.  ``required``: raise when the tool
-    is missing, no instantiation is found, or one has none."""
+    HGMMA / IGMMA: bf16 / int8 wgmma; IMMA: int8 mma / WMMA) in the SASS
+    of each instantiation of ``kernel`` in library ``name`` (cuobjdump
+    -sass, beside nvcc), which shows that the kernel runs on the tensor
+    cores.  ``required``: raise when the tool is missing, no
+    instantiation is found, or one has none.  ``forbidden``: raise when
+    the tool is missing or any function ``kernel`` names ("" every one)
+    has one."""
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     if not tool.is_file():
         log(f"[sass] {kernel}: {op} count not measured (no {tool})")
-        if required:
+        if required or forbidden:
             raise AssertionError(f"{kernel}: no cuobjdump to count {op}")
         return
     sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
@@ -314,11 +335,18 @@ def _log_tensor_core_sass(name: str, kernel: str, op: str = "HMMA",
         if kernel in func:
             ops = re.findall(rf"\b{op}\.[\w.]+", section)
             counts.append(len(ops))
-            log(f"[sass] {func}: {len(ops)} {op} instructions "
-                f"({', '.join(sorted(set(ops))) or 'none'})")
+            if not forbidden or ops:
+                log(f"[sass] {func}: {len(ops)} {op} instructions "
+                    f"({', '.join(sorted(set(ops))) or 'none'})")
     if required and (not counts or min(counts) == 0):
         raise AssertionError(f"{kernel} in lib{name}.so: {op} counts "
                              f"{counts}, want at least one in each")
+    if forbidden:
+        log(f"[sass] lib{name}.so: {sum(counts)} {op} instructions in "
+            f"{len(counts)} functions (none allowed)")
+        if sum(counts):
+            raise AssertionError(f"lib{name}.so: {sum(counts)} {op} "
+                                 "instructions, want none")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -708,6 +736,85 @@ Q8_TOL, Q8_MEAN_TOL = 2e-2, 5e-4
 # attention / GELU output
 Q8_ACT = (4.5 / 127, 1.5 / 127)
 Q8_BATCHES = (8, 128)        # the serving batch, and a large one
+# the int8 products against the plain integer arithmetic: bit for bit (the
+# int32 sums are exact in any order, the flush and epilogues round the
+# same operations in the same order) but GELU_F32, whose erf may differ
+# from PyTorch's gelu in its last bits
+Q8_ERF_TOL = 1e-6
+# a block's int8 products: name -> (dynamic epilogue, static epilogue, n,
+# k, K groups), at ViT-B/16's C = 768, hidden 3072
+Q8_PRODUCTS = {"qkv": (q8.QEPI_OUT, q8.QEPI_OUT, 3 * 768, 768, 1),
+               "proj": (q8.QEPI_RESID, q8.QEPI_RESID, 768, 768, 1),
+               "fc1": (q8.QEPI_GELU_F32, q8.QEPI_GELU_Q8, 3072, 768, 1),
+               "fc2": (q8.QEPI_RESID, q8.QEPI_RESID, 768, 3072, 4)}
+
+
+def _q8_gemm_checks(dev, dtype, b, timed) -> dict:
+    """Each int8 product of the blocks at B images of 197 tokens, with
+    dynamic row scales and static (K8's epilogues), on seeded int8
+    operands and scales: the card's GEMM bit for bit against the plain
+    integer arithmetic (``q8.gemm_q8_ref``; GELU_F32 within
+    Q8_ERF_TOL·(1+|ref|)).  ``timed``: the device ms of each (profiler)
+    beside ``torch._int_mm`` (cuBLASLt s8·s8→s32, no dequantisation) on
+    the same operands, a yardstick the port never calls.  Returns
+    {product: (kernel dynamic ms, kernel static ms, _int_mm ms)}."""
+    rows, lib = b * 197, q8._lib()
+    g = torch.Generator(device=dev).manual_seed(4000 + b)
+    inv = torch.tensor([127 / 1.5], device=dev)
+    times = {}
+    for name, (epi_dyn, epi_st, n, k, groups) in Q8_PRODUCTS.items():
+        a_q = torch.randint(-127, 128, (rows, k), generator=g, device=dev,
+                            dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                          dtype=torch.int8)
+        w_t = w.t().contiguous()
+        row_scale = torch.rand(rows, groups, generator=g, device=dev) \
+            * 0.02 + 1e-3
+        col = torch.rand(n, generator=g, device=dev) * 2e-3 + 1e-4
+        bias = _randn(g, n, scale=0.1)
+        resid = _randn(g, rows, n, dtype=dtype)
+        ms = []
+        for epi, rs, sc in ((epi_dyn, row_scale, col),
+                            (epi_st, None, col * 0.02)):
+            out = torch.empty(rows, n, device=dev, dtype={
+                q8.QEPI_GELU_F32: torch.float32,
+                q8.QEPI_GELU_Q8: torch.int8}.get(epi, dtype))
+
+            def kernel():
+                q8._gemm(lib, dtype, epi, a_q, w_t, rs, sc, bias, resid,
+                         inv.data_ptr(), out, k // groups, name)
+            kernel()
+            torch.cuda.synchronize()
+            ref = q8.gemm_q8_ref(epi, a_q, w, rs, sc, bias, resid, inv,
+                                 k // groups, dtype)
+            if epi == q8.QEPI_GELU_F32:
+                err = float(((out - ref).abs() / (1 + ref.abs())).max())
+                ok, what = err <= Q8_ERF_TOL, f"max {err:.3e} (tol " \
+                    f"{Q8_ERF_TOL:g}·(1+|ref|))"
+            else:
+                diff = int((out != ref).sum())
+                ok, what = diff == 0, f"{diff} elements differ"
+            scales = "static" if rs is None else "dynamic"
+            label = (f"int8 product {name} {scales} "
+                     f"{str(dtype).split('.')[1]} rows={rows}")
+            log(f"[kernel] {label}: against the plain integer arithmetic "
+                f"{what} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{label}: not the plain arithmetic")
+            if timed:
+                ms.append(_device_ms(kernel))
+        if timed:
+            ms.append(_device_ms(lambda: torch._int_mm(a_q, w_t.t())))
+            ops = 2 * rows * n * k
+            log(f"[kernel] int8 product {name} rows={rows} n={n} k={k}: "
+                f"device dynamic {_ms_or_none(ms[0])}, static "
+                f"{_ms_or_none(ms[1])}; yardstick torch._int_mm "
+                f"{_ms_or_none(ms[2])}"
+                + ("" if not ms[0] else
+                   f"; {ops / ms[0] / 1e9:.0f} TOP/s dynamic"))
+            times[name] = tuple(ms)
+        del a_q, w, w_t, resid
+    return times
 
 
 def _q8_dense(gen, din, dout):
@@ -716,9 +823,28 @@ def _q8_dense(gen, din, dout):
     return w_q8, s, _randn(gen, dout, scale=0.1)
 
 
+def _q8_device_split(tag, res, products, blocks) -> None:
+    """The int8 blocks' device time by kernel (profiler) into ``res``
+    (device_ms), beside the yardstick of their two products through
+    ``torch._int_mm`` (int_mm_products_device_ms)."""
+    pairs = {"attn": ("qkv", "proj"), "mlp": ("fc1", "fc2")}
+    for name, fn in blocks.items():
+        split = _device_split(fn)
+        int_mm = sum(products[p][2] or 0.0 for p in pairs[name.split("_")[0]])
+        res[name].update(device_ms=sum(split.values()) or None,
+                         int_mm_products_device_ms=int_mm or None)
+        log(f"[kernel] {name} {tag}: device (profiler) "
+            f"{_ms_or_none(res[name]['device_ms'])}: "
+            + ", ".join(f"{kn} {ms:.4f}" for kn, ms in split.items())
+            + f"; yardstick, its two products through torch._int_mm "
+            f"{_ms_or_none(res[name]['int_mm_products_device_ms'])}")
+
+
 def phase_q8_kernels(dev) -> dict:
     """K7 and K8 against their plain versions at the serving path's shape
-    (ViT-B/16, B = 8) and at B = 128, in fp32 and bf16."""
+    (ViT-B/16, B = 8) and at B = 128, in fp32 and bf16; their int8
+    products against the plain integer arithmetic (_q8_gemm_checks); in
+    bf16 their device time by kernel beside torch._int_mm's products."""
     n, c, heads = 197, 768, 12
     inv = torch.tensor([1.0 / a for a in Q8_ACT], device=dev)
     main = {}
@@ -738,31 +864,37 @@ def phase_q8_kernels(dev) -> dict:
             mlp = (*ln, w1, s1, b1, w2, s2, b2)
             mlp_s = (*ln, w1, s1 * Q8_ACT[0], b1, w2, s2 * Q8_ACT[1], b2,
                      inv)
+            # the weights' K-major copies, made once as the model makes
+            # them (a call without them makes its own)
+            attn_t = (wqkv.t().contiguous(), wproj.t().contiguous())
+            mlp_t = (w1.t().contiguous(), w2.t().contiguous())
             tag = f"{str(dtype).split('.')[1]} B={b}"
-            res = {
-                "attn_block_q8": _check_and_time(
-                    f"attn_block_q8 {tag}",
-                    lambda: q8.attn_block_q8(x, *attn, heads),
-                    lambda: q8.attn_block_q8_ref(x, *attn, heads),
-                    Q8_TOL, Q8_MEAN_TOL),
-                "mlp_block_q8": _check_and_time(
-                    f"mlp_block_q8 {tag}",
-                    lambda: q8.mlp_block_q8(x, *mlp),
-                    lambda: q8.mlp_block_q8_ref(x, *mlp),
-                    Q8_TOL, Q8_MEAN_TOL),
-                "attn_block_q8s": _check_and_time(
-                    f"attn_block_q8s {tag}",
-                    lambda: q8.attn_block_q8s(x, *attn_s, heads),
-                    lambda: q8.attn_block_q8s_ref(x, *attn_s, heads),
-                    Q8_TOL, Q8_MEAN_TOL),
-                "mlp_block_q8s": _check_and_time(
-                    f"mlp_block_q8s {tag}",
-                    lambda: q8.mlp_block_q8s(x, *mlp_s),
-                    lambda: q8.mlp_block_q8s_ref(x, *mlp_s),
-                    Q8_TOL, Q8_MEAN_TOL)}
+            blocks = {
+                "attn_block_q8": lambda: q8.attn_block_q8(
+                    x, *attn, heads, kmajor=attn_t),
+                "mlp_block_q8": lambda: q8.mlp_block_q8(x, *mlp,
+                                                        kmajor=mlp_t),
+                "attn_block_q8s": lambda: q8.attn_block_q8s(
+                    x, *attn_s, heads, kmajor=attn_t),
+                "mlp_block_q8s": lambda: q8.mlp_block_q8s(x, *mlp_s,
+                                                          kmajor=mlp_t)}
+            plains = {
+                "attn_block_q8": lambda: q8.attn_block_q8_ref(x, *attn,
+                                                              heads),
+                "mlp_block_q8": lambda: q8.mlp_block_q8_ref(x, *mlp),
+                "attn_block_q8s": lambda: q8.attn_block_q8s_ref(
+                    x, *attn_s, heads),
+                "mlp_block_q8s": lambda: q8.mlp_block_q8s_ref(x, *mlp_s)}
+            res = {name: _check_and_time(f"{name} {tag}", blocks[name],
+                                         plains[name], Q8_TOL, Q8_MEAN_TOL)
+                   for name in blocks}
+            products = _q8_gemm_checks(dev, dtype, b,
+                                       timed=dtype == torch.bfloat16)
+            if dtype == torch.bfloat16:
+                _q8_device_split(tag, res, products, blocks)
             if dtype == torch.bfloat16 and b == 8:   # the serving shape
                 main = res
-            del x, attn, attn_s, mlp, mlp_s
+            del x, attn, attn_s, mlp, mlp_s, attn_t, mlp_t, blocks, plains
             torch.cuda.empty_cache()
         # a 384² image: the attention core's tiled kernel; and the two
         # sides of its split
@@ -775,9 +907,10 @@ def phase_q8_kernels(dev) -> dict:
             wqkv, sqkv, bqkv = _q8_dense(g, c, 3 * c)
             wproj, sproj, bproj = _q8_dense(g, c, c)
             attn = (*ln, wqkv, sqkv, bqkv, wproj, sproj, bproj)
+            attn_t = (wqkv.t().contiguous(), wproj.t().contiguous())
             rows.append((n_large, _check_and_time(
                 f"attn_block_q8 {str(dtype).split('.')[1]} B=8 N={n_large}",
-                lambda: q8.attn_block_q8(x, *attn, heads),
+                lambda: q8.attn_block_q8(x, *attn, heads, kmajor=attn_t),
                 lambda: q8.attn_block_q8_ref(x, *attn, heads), Q8_TOL,
                 Q8_MEAN_TOL)))
             del x, attn

@@ -223,7 +223,13 @@ class QDense(nn.Module):
     """An int8 dense layer's tensors (the JAX ``_QDenseParams`` tree):
     ``kernel_q8`` int8 (in, out) in the kernels' layout, the per-output-
     channel ``scale`` and the ``bias``, fp32.  Buffers, not parameters: a
-    serving block has nothing to train."""
+    serving block has nothing to train.
+
+    ``kernel_kmajor`` is ``kernel_q8``'s (out, in) copy, which the card's
+    int8 products read (wgmma takes 8-bit operands K-major only).  It is
+    made once per weight version: a non-persistent buffer (not in
+    ``state_dict``, so the JAX bridge and the converters see the JAX
+    layout alone) that ``load_state_dict`` refreshes."""
 
     def __init__(self, din: int, dout: int):
         super().__init__()
@@ -231,6 +237,15 @@ class QDense(nn.Module):
                              torch.zeros(din, dout, dtype=torch.int8))
         self.register_buffer("scale", torch.ones(dout))
         self.register_buffer("bias", torch.zeros(dout))
+        self.register_buffer("kernel_kmajor",
+                             torch.zeros(dout, din, dtype=torch.int8),
+                             persistent=False)
+        self.register_load_state_dict_post_hook(QDense._refresh_kmajor)
+
+    @staticmethod
+    def _refresh_kmajor(module: "QDense", incompatible_keys) -> None:
+        with torch.no_grad():
+            module.kernel_kmajor = module.kernel_q8.t().contiguous()
 
 
 class QAttention(nn.Module):
@@ -274,10 +289,16 @@ class QuantizedEncoderBlock(nn.Module):
                 (self.norm2.weight, self.norm2.bias, fc1.kernel_q8,
                  fc1.scale, fc1.bias, fc2.kernel_q8, fc2.scale, fc2.bias))
 
+    def _kmajor(self):
+        """The K-major copies of (qkv, proj) and of (fc1, fc2)."""
+        return ((self.attn.qkv.kernel_kmajor, self.attn.proj.kernel_kmajor),
+                (self.mlp.fc1.kernel_kmajor, self.mlp.fc2.kernel_kmajor))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         attn, mlp = self._operands()
-        x = attn_block_q8(x, *attn, self.num_heads)
-        return mlp_block_q8(x, *mlp)
+        attn_t, mlp_t = self._kmajor()
+        x = attn_block_q8(x, *attn, self.num_heads, kmajor=attn_t)
+        return mlp_block_q8(x, *mlp, kmajor=mlp_t)
 
 
 class StaticQuantizedEncoderBlock(QuantizedEncoderBlock):
@@ -294,9 +315,11 @@ class StaticQuantizedEncoderBlock(QuantizedEncoderBlock):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         attn, mlp = self._operands()
+        attn_t, mlp_t = self._kmajor()
         a = self.act_scales
-        x = attn_block_q8s(x, *attn, 1.0 / a[:2], self.num_heads)
-        return mlp_block_q8s(x, *mlp, 1.0 / a[2:])
+        x = attn_block_q8s(x, *attn, 1.0 / a[:2], self.num_heads,
+                           kmajor=attn_t)
+        return mlp_block_q8s(x, *mlp, 1.0 / a[2:], kmajor=mlp_t)
 
 
 # block_impl -> encoder block class (the JAX ``ViT._resolve_block``)

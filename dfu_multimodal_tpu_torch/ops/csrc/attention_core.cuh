@@ -215,9 +215,11 @@ int launch_attention(const void* qkv, void* out, int batch, int n, int heads,
                                (ATT_THREADS / 32) * ATT_TK)
             : whole;
   auto kernel = tiled ? attention_tiled<T, TO, D> : attention_kernel<T, TO, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  // the limit each kernel has been given on each device
+  static std::atomic<int> whole_limit[MAX_DEVICES], tiled_limit[MAX_DEVICES];
+  const int bytes = static_cast<int>(smem);
+  const cudaError_t err = tiled ? smem_limit_once(kernel, bytes, tiled_limit)
+                                : smem_limit_once(kernel, bytes, whole_limit);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(cdiv(n, tiled ? ATT_TROWS : ATT_QCHUNK), heads, batch);
   kernel<<<grid, ATT_THREADS, smem, s>>>(

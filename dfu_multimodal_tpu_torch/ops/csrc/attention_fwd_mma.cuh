@@ -5,12 +5,12 @@
 // Replaces (dfu_multimodal_tpu/ops/attention.py), in bf16:
 //   K9 _attention_fwd_kernel: q, k, v (B, H, N, D) -> o (B, H, N, D);
 //   K6 _qkv_attention_fwd_kernel: packed qkv (B, N, 3C) -> attn (B, N, C);
-// and (dfu_multimodal_tpu/ops/vit_block.py) K1 _attn_block_kernel's
-// per-head _attention_head over its packed qkv, with the DEFER flag.
-// fp32 keeps the SIMT kernels of attention_kernels.cuh (attention_fwd_
-// kernel / attention_fwd_tiled) and of attention_core.cuh (K1, and the
-// int8 blocks K7/K8 in every dtype): TF32 products would miss fp32's
-// budget.
+// and (dfu_multimodal_tpu/ops/vit_block.py, vit_block_q8.py) K1
+// _attn_block_kernel's and K7/K8 _attn_block_q8(s)_kernel's per-head
+// _attention_head over their packed qkv, with the DEFER flag (K7/K8 with
+// an fp32 output).  fp32 keeps the SIMT kernels of attention_kernels.cuh
+// (attention_fwd_kernel / attention_fwd_tiled) and of attention_core.cuh
+// (K1, K7, K8): TF32 products would miss fp32's budget.
 //
 // What bounds it on the H100: per (image, head) two N x N x D products
 // (S = QKᵀ, O = PV) against q, k, v read once and o written once.  At
@@ -38,7 +38,8 @@
 //      fragment of the next k16 step of O += P·V (no round trip through
 //      shared memory).
 // O is rounded to bf16 once, staged in the Q tile's shared memory and
-// stored in 16-byte chunks.  Pass 2 recomputes S: 3 N²D products for 2,
+// stored in 16-byte chunks (an fp32 O, the int8 blocks', is stored from
+// the fragments).  Pass 2 recomputes S: 3 N²D products for 2,
 // and each score's exponential is taken twice.  Those, not the bytes,
 // bound it on the card: the exponential is exp(x − y) = 2^(x·log2 e −
 // y·log2 e), one FFMA (the scale after the product folded in) and one
@@ -75,6 +76,8 @@
 #pragma once
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -418,24 +421,39 @@ attention_fwd_mma(In q, In k, In v, Out o, int n, float scale, int pow2) {
       oacc[dt][3] /= l[1];
     }
   }
-  // O in bf16 through the warp's own rows of the Q tile, then 16-byte
-  // stores of the rows below n
   const int g = lane >> 2, t = lane & 3;
-  bf16* ow = qs + 16 * warp * S::LDS;
+  if constexpr (std::is_same_v<decltype(o.p), float*>) {
+    // an fp32 O (the int8 blocks' attention output): fp32 pairs of the
+    // rows below n straight from the fragments, 32 contiguous bytes a
+    // row and quad
 #pragma unroll
-  for (int dt = 0; dt < S::OT; ++dt) {
-    *reinterpret_cast<uint32_t*>(ow + g * S::LDS + 8 * dt + 2 * t) =
-        pack_bf16(oacc[dt][0], oacc[dt][1]);
-    *reinterpret_cast<uint32_t*>(ow + (g + 8) * S::LDS + 8 * dt + 2 * t) =
-        pack_bf16(oacc[dt][2], oacc[dt][3]);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * S::CHUNKS; i += 32) {
-    const int r = i / S::CHUNKS, c = i % S::CHUNKS;
-    const int row = r0 + 16 * warp + r;
-    if (row < n)
-      *reinterpret_cast<uint4*>(o.row(b, h, row) + 8 * c) =
-          *reinterpret_cast<const uint4*>(ow + r * S::LDS + 8 * c);
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + 16 * warp + g + 8 * half;
+      if (row >= n) continue;
+#pragma unroll
+      for (int dt = 0; dt < S::OT; ++dt)
+        *reinterpret_cast<float2*>(o.row(b, h, row) + 8 * dt + 2 * t) =
+            make_float2(oacc[dt][2 * half], oacc[dt][2 * half + 1]);
+    }
+  } else {
+    // O in bf16 through the warp's own rows of the Q tile, then 16-byte
+    // stores of the rows below n
+    bf16* ow = qs + 16 * warp * S::LDS;
+#pragma unroll
+    for (int dt = 0; dt < S::OT; ++dt) {
+      *reinterpret_cast<uint32_t*>(ow + g * S::LDS + 8 * dt + 2 * t) =
+          pack_bf16(oacc[dt][0], oacc[dt][1]);
+      *reinterpret_cast<uint32_t*>(ow + (g + 8) * S::LDS + 8 * dt + 2 * t) =
+          pack_bf16(oacc[dt][2], oacc[dt][3]);
+    }
+    __syncwarp();
+    for (int i = lane; i < 16 * S::CHUNKS; i += 32) {
+      const int r = i / S::CHUNKS, c = i % S::CHUNKS;
+      const int row = r0 + 16 * warp + r;
+      if (row < n)
+        *reinterpret_cast<uint4*>(o.row(b, h, row) + 8 * c) =
+            *reinterpret_cast<const uint4*>(ow + r * S::LDS + 8 * c);
+    }
   }
 }
 

@@ -835,11 +835,12 @@ int bhnd_bwd(const void* q, const void* k, const void* v, const void* dout,
       batch, heads, n, scale, pow2, s);
 }
 
-// K1's attention step in bf16 (vit_block.cu): the tensor-core forward with
-// the softmax division deferred past P·V (attention_fwd_mma.cuh, DEFER),
-// qkv (batch, n, 3·heads·d) -> attn (batch, n, heads·d), d in {16, 32,
-// 64, 128}.
-template <typename T>
+// K1's attention step in bf16 (vit_block.cu), and K7/K8's with an fp32
+// output (TO = float, vit_block_q8.cu): the tensor-core forward with the
+// softmax division deferred past P·V (attention_fwd_mma.cuh, DEFER), qkv
+// (batch, n, 3·heads·d) -> attn (batch, n, heads·d), d in {16, 32, 64,
+// 128}.
+template <typename T, typename TO = T>
 int qkv_fwd_deferred(const void* qkv_, void* attn_, int batch, int n,
                      int heads, int d, float scale, int pow2,
                      cudaStream_t s) {
@@ -849,7 +850,7 @@ int qkv_fwd_deferred(const void* qkv_, void* attn_, int batch, int n,
   const Strided<const T> q = packed(qkv, 0, n, heads, d, 3 * c),
                          k = packed(qkv, 1, n, heads, d, 3 * c),
                          v = packed(qkv, 2, n, heads, d, 3 * c);
-  const Strided<T> o = packed(static_cast<T*>(attn_), 0, n, heads, d, c);
+  const Strided<TO> o = packed(static_cast<TO*>(attn_), 0, n, heads, d, c);
   switch (d) {
     case 16: return launch_attention_fwd_mma<16, true>(q, k, v, o, batch,
                                                        heads, n, scale, pow2,

@@ -1,6 +1,6 @@
-// The bf16 products of the ViT blocks on Hopper's TMA and wgmma (sm_90a):
-// one warp-specialised, persistent GEMM, with K4's fc1 and dh fused into a
-// dual product.
+// The bf16 and int8 products of the ViT blocks on Hopper's TMA and wgmma
+// (sm_90a): one warp-specialised, persistent GEMM, with K4's fc1 and dh
+// fused into a dual product.
 //
 // Replaces, in bf16 (with the LayerNorm kernels of layernorm.cuh and, for
 // K1, the attention step of attention_fwd_mma.cuh around it), the
@@ -15,7 +15,11 @@
 // and the data products of the attention-block chain rule (vit_block.py::
 // _attn_block_bwd: the qkv recompute, dattn = g·wprojᵀ, dy = dqkv·wqkvᵀ),
 // which the JAX package leaves to XLA.  fp32 (the parity dtype) keeps
-// gemm_tile.cuh's SIMT chain.
+// gemm_tile.cuh's SIMT chain.  And, in both compute dtypes, the four int8
+// products of dfu_multimodal_tpu/ops/vit_block_q8.py's _attn_block_q8_
+// kernel / _mlp_block_q8_kernel (K7) and _attn_block_q8s_kernel /
+// _mlp_block_q8s_kernel (K8), launched by vit_block_q8.cu (the int8
+// modes, below).
 //
 // What bounds it on the H100: operations.  K4 at the training batch (16
 //   images, 3152 rows, C = 768, hidden = 3072) is three products of 14.9
@@ -65,6 +69,20 @@
 //     ValueError otherwise (C, 3C and hidden multiples of 8).
 //   - sums have a fixed order (k16 steps in k order, no split-K, no
 //     atomics): two calls give the same bits.
+//   - the int8 modes (S8, S8_GROUPS): the same ring, producer and tile
+//     walk, a stage 128 int8 deep (the bf16 stage's byte geometry: 128-
+//     byte rows, 128-byte swizzle, a k32 step 32 bytes along the row, so
+//     the K-major descriptors are the bf16 ones).  wgmma has no transpose
+//     for 8-bit types, so both operands are K-major: B is the weight's
+//     (out, in) int8 copy, which the model makes once per weight version.
+//     wgmma.m64nNk32.s32.s8.s8 sums into int32 registers; at the end of
+//     each K group (one for qkv, proj and fc1; fc2's four 768-wide hidden
+//     chunks, each quantised with its own row scale) the products are
+//     retired (wait_group 0) and the int32 sums flushed into fp32 as
+//     facc + (float(acc)·a[r, g])·s[n] (flush_group), then zeroed.  The
+//     epilogue (store_s8) adds the bias and casts (qkv), adds the residual
+//     to the rounded output (proj, fc2), or applies erf GELU into fp32
+//     (dynamic fc1) or into int8 with the static scale (static fc1).
 //
 // Numbers: gemm_tile.cuh's chain and the Pallas kernels', bf16 operands
 // with fp32 accumulation, the epilogue in fp32 rounded to bf16 once (the
@@ -74,6 +92,11 @@
 // The k sums take the WMMA tile's order too (16-deep tensor-core steps in
 // k order into fp32), and on an H100 K4's outputs equal the WMMA chain's
 // bit for bit.
+//
+// The int8 modes keep vit_block_q8.cu's WMMA kernel's numbers bit for bit:
+// the int32 sums are exact in any order, and the flush and the epilogues
+// round the same operations in the same order (__fmul_rn / __fadd_rn, no
+// FMA).
 //
 // Tensor maps are encoded on the host for every call
 // (cuTensorMapEncodeTiled, reached through the runtime's driver entry
@@ -86,6 +109,8 @@
 
 #include <cuda.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace dfu {
 namespace {
@@ -102,19 +127,51 @@ constexpr int DY_BN = 192;              // the dy product's tile width
 // whose B (k, n) is read as stored, MN-major (a weight of a forward
 // product); B_K: one product whose B is read from an (n, k) matrix,
 // K-major (a weight read transposed: dy = dhpre·w1ᵀ, dattn = g·wprojᵀ).
-enum Mode { DUAL = 0, B_MN = 1, B_K = 2 };
+// S8 and S8_GROUPS: one int8 product of K7/K8, A (m, k) and B (n, k)
+// both K-major (the weight's (out, in) copy), int32 sums dequantised into
+// fp32 at the end of each K group: S8 has one group, S8_GROUPS several
+// (fc2's hidden chunks), whose fp32 sum it keeps in registers.
+enum Mode { DUAL = 0, B_MN = 1, B_K = 2, S8 = 3, S8_GROUPS = 4 };
+
+__host__ __device__ constexpr bool is_s8(int mode) {
+  return mode == S8 || mode == S8_GROUPS;
+}
+
+// The int8 products' epilogues: v = Σ_g (acc_g·a[r, g])·s[n] + bias[n]
+// in fp32 (a = 1 for static scales), then
+enum QEpilogue {
+  QEPI_OUT = 0,       // out = T(v), T the compute dtype
+  QEPI_RESID = 1,     // out = T(resid + T(v)), resid (m, n) T
+  QEPI_GELU_F32 = 2,  // out = gelu(v), fp32
+  QEPI_GELU_Q8 = 3    // out = int8(gelu(v)·inv[0])
+};
+
+// clip(round_half_even(y·inv), -127, 127)
+__device__ __forceinline__ int8_t quant_i8(float y, float inv) {
+  const float r = rintf(__fmul_rn(y, inv));
+  return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(r, -127.f), 127.f)));
+}
 
 // The operands of one launch.  DUAL: a1 = y, b1 = w1 (MN-major), a2 = g,
 // b2 = w2 (read as w2ᵀ), bias = b1, o1 = h, o2 = dhpre (bf16, stored by
 // TMA in 64 x 64 boxes).  Else: out1 (m, n) = epilogue `epi` (gemm_tile.
 // cuh's Epilogue) of a1 · b1, with bias (n) fp32 and aux the (m, n) bf16
-// residual of EPI_BIAS_RESID; out1 fp32 for EPI_F32, else bf16.
+// residual of EPI_BIAS_RESID; out1 fp32 for EPI_F32, else bf16.  The
+// int8 modes: epi is a QEpilogue, dtype the compute dtype (DT_BF16 or
+// DT_F32) of QEPI_OUT / QEPI_RESID and aux their residual, row_scale (m,
+// groups) fp32 the dynamic row scales (null: static), col_scale (n) fp32,
+// inv (1) fp32 QEPI_GELU_Q8's reciprocal scale, and a K group is
+// group_steps k32 steps deep.
 struct Args {
   CUtensorMap a1, b1, a2, b2, o1, o2;
   const float* bias;
   const void* aux;
   void* out1;
   int m, n, k, epi;
+  const float* row_scale;
+  const float* col_scale;
+  const float* inv;
+  int groups, group_steps, dtype;
 };
 
 template <int BN, int MODE>
@@ -123,7 +180,9 @@ struct Tile {
   // 64-column boxes of an MN-major B (BN = 96 loads two, the second
   // half used)
   static constexpr int BOXES = (BN + 63) / 64;
-  static constexpr int TILE_B = MODE == B_K ? BN * BK * 2 : BOXES * BOX_MN;
+  // a K-major B (bf16 or int8): BN rows of 128 bytes
+  static constexpr int TILE_B =
+      MODE == B_K || is_s8(MODE) ? BN * BK * 2 : BOXES * BOX_MN;
   static constexpr int STAGE =
       MODE == DUAL ? 2 * (TILE_A + TILE_B) : TILE_A + TILE_B;
   // offsets in a stage, each a multiple of 1024 (the swizzle's period)
@@ -224,6 +283,11 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 template <int R>
@@ -433,6 +497,148 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a,
   else wgmma_m64n192k16<TRANS_B>(d, a, b);
 }
 
+// d (64 x N, int32) += A (64 x 32) · B (32 x N), int8, both K-major through
+// descriptors (wgmma has no transpose for 8-bit types).
+__device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32], uint64_t a,
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n96k32(int (&d)[48], uint64_t a,
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t a,
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n192k32(int (&d)[96], uint64_t a,
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t a,
+                                         uint64_t b) {
+  static_assert(N == 64 || N == 96 || N == 128 || N == 192, "tile width");
+  if constexpr (N == 64) wgmma_s8_m64n64k32(d, a, b);
+  else if constexpr (N == 96) wgmma_s8_m64n96k32(d, a, b);
+  else if constexpr (N == 128) wgmma_s8_m64n128k32(d, a, b);
+  else wgmma_s8_m64n192k32(d, a, b);
+}
+
 __device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
   uint4 v;
   asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
@@ -456,13 +662,140 @@ __device__ __forceinline__ uint4 add_bf16x8(uint4 a, uint4 b) {
   return r;
 }
 
+// A consumer group's 64 x BN bf16 tile, staged in its padded buffer (row
+// stride LDE elements), out to device memory in 16-byte chunks of the rows
+// below m and the columns below n, adding the (m, n) bf16 residual
+// p.aux chunk by chunk when `resid` (T(aux + o)).  The group syncs before
+// (its threads wrote the buffer) and after (the buffer is the next
+// tile's).
+template <int BN, int LDE>
+__device__ __forceinline__ void copy_out_bf16(uint32_t buf, int m0, int n0,
+                                              int wg, const Args& p,
+                                              bool resid) {
+  sync_group(1 + wg);
+  constexpr int CHUNKS = BN / 8;     // 16-byte chunks of a tile row
+  for (int i = threadIdx.x % 128; i < 64 * CHUNKS; i += 128) {
+    const int rr = i / CHUNKS, cc = i % CHUNKS;
+    const int row = m0 + wg * 64 + rr, col = n0 + 8 * cc;
+    if (row >= p.m || col >= p.n) continue;
+    const size_t at = static_cast<size_t>(row) * p.n + col;
+    uint4 o = ld_shared_v4(buf + 2 * (rr * LDE + 8 * cc));
+    if (resid)
+      o = add_bf16x8(
+          *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.aux) +
+                                          at), o);
+    *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out1) + at) = o;
+  }
+  sync_group(1 + wg);
+}
+
+// The int8 modes' K-group flush: facc += (float(acc)·a[r, g])·s[col] in
+// fp32, each product and sum rounded once (no FMA: the plain version's
+// order), then acc = 0.  Accumulator i of n-octet j = i / 4 is row row0
+// (+8 for i % 4 >= 2) and column n0 + 8j + 2·(lane % 4) (+1 for odd i);
+// rows past m take a = 0 (they are never stored).  Static (no row_scale):
+// facc += float(acc)·s[col].
+template <int R>
+__device__ __forceinline__ void flush_group(float (&facc)[R], int (&acc)[R],
+                                            const Args& p, int row0, int n0,
+                                            int lane, int g) {
+  const bool dynamic = p.row_scale != nullptr;
+  float a[2] = {1.f, 1.f};
+  if (dynamic) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 8 * half;
+      a[half] = row < p.m
+                    ? p.row_scale[static_cast<size_t>(row) * p.groups + g]
+                    : 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane & 3);
+    const float s0 = col < p.n ? p.col_scale[col] : 0.f;
+    const float s1 = col < p.n ? p.col_scale[col + 1] : 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      float v = static_cast<float>(acc[i]);
+      if (dynamic) v = __fmul_rn(v, a[e >> 1]);
+      facc[i] = __fadd_rn(facc[i], __fmul_rn(v, (e & 1) ? s1 : s0));
+      acc[i] = 0;
+    }
+  }
+}
+
+// The int8 modes' epilogue of this group's 64 rows of a tile: v = facc +
+// bias, then the QEpilogue.  bf16 QEPI_OUT / QEPI_RESID go through the
+// group's padded buffer and copy_out_bf16, as the bf16 products do; the
+// fp32 and int8 outputs are stored as pairs straight from the registers
+// (a quad of lanes writes 32 contiguous bytes of fp32 a row).
+template <int BN, int LDE>
+__device__ __forceinline__ void store_s8(const float (&facc)[BN / 2],
+                                         const Args& p, uint32_t buf, int m0,
+                                         int n0, int wg, int warp, int lane) {
+  const int r = warp * 16 + (lane >> 2);
+  if (p.dtype == DT_BF16 && (p.epi == QEPI_OUT || p.epi == QEPI_RESID)) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane & 3);
+      const float b0 = col < p.n ? p.bias[col] : 0.f;
+      const float b1 = col < p.n ? p.bias[col + 1] : 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = 4 * j + 2 * half;
+        st_shared_bf16x2(
+            buf + 2 * ((r + 8 * half) * LDE + 8 * j + 2 * (lane & 3)),
+            __fadd_rn(facc[i], b0), __fadd_rn(facc[i + 1], b1));
+      }
+    }
+    copy_out_bf16<BN, LDE>(buf, m0, n0, wg, p, p.epi == QEPI_RESID);
+    return;
+  }
+  const float inv = p.epi == QEPI_GELU_Q8 ? p.inv[0] : 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane & 3);
+    if (col >= p.n) continue;          // n % 8 == 0: col + 1 < n too
+    const float b0 = p.bias[col], b1 = p.bias[col + 1];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + wg * 64 + r + 8 * half;
+      if (row >= p.m) continue;
+      const size_t at = static_cast<size_t>(row) * p.n + col;
+      const int i = 4 * j + 2 * half;
+      const float v0 = __fadd_rn(facc[i], b0), v1 = __fadd_rn(facc[i + 1], b1);
+      if (p.epi == QEPI_GELU_Q8) {
+        *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out1) + at) =
+            make_char2(quant_i8(gelu_erf(v0), inv),
+                       quant_i8(gelu_erf(v1), inv));
+        continue;
+      }
+      float2 o = make_float2(v0, v1);
+      if (p.epi == QEPI_GELU_F32) {
+        o = make_float2(gelu_erf(v0), gelu_erf(v1));
+      } else if (p.epi == QEPI_RESID) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(static_cast<const float*>(p.aux) +
+                                             at);
+        o = make_float2(__fadd_rn(x.x, v0), __fadd_rn(x.y, v1));
+      }
+      *reinterpret_cast<float2*>(static_cast<float*>(p.out1) + at) = o;
+    }
+  }
+}
+
 // One block: 384 threads; warpgroups 0 and 1 consume (64 rows each),
-// warpgroup 2 produces.  Output tiles BM x BN, walked persistently.
+// warpgroup 2 produces.  Output tiles BM x BN, walked persistently.  A
+// stage is 128 bytes of k deep: 64 bf16 or 128 int8.
 template <int BN, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ Args p) {
   using T = Tile<BN, MODE>;
   constexpr bool DUALP = MODE == DUAL;
+  constexpr bool S8P = is_s8(MODE);
+  constexpr int KSTAGE = S8P ? 2 * BK : BK;      // k elements a stage
   extern __shared__ uint8_t smem_raw[];
   // the ring starts on a 1024-byte boundary of the shared window
   const uint32_t raw = smem_u32(smem_raw);
@@ -481,7 +814,7 @@ gemm_kernel(const __grid_constant__ Args p) {
   __syncthreads();
   const int n_tiles = (p.n + BN - 1) / BN;
   const int tiles = (p.m + BM - 1) / BM * n_tiles;
-  const int kblocks = (p.k + BK - 1) / BK;
+  const int kblocks = (p.k + KSTAGE - 1) / KSTAGE;
 
   if (wg == 2) {
     // ---------------------------------------------------------- producer
@@ -498,7 +831,7 @@ gemm_kernel(const __grid_constant__ Args p) {
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
         for (int kb = 0; kb < kblocks; ++kb) {
-          const int k0 = kb * BK;
+          const int k0 = kb * KSTAGE;
           const uint32_t st = ring + stage * T::STAGE, bar = full + 8 * stage;
           mbar_wait(empty + 8 * stage, phase ^ 1);   // the slot is free
           mbar_expect_tx(bar, T::STAGE);
@@ -512,7 +845,7 @@ gemm_kernel(const __grid_constant__ Args p) {
 #pragma unroll
             for (int i = 0; i < T::BOXES; ++i)
               tma_load(st + T::B1 + i * BOX_MN, &p.b1, bar, n0 + 64 * i, k0);
-          } else {
+          } else {                       // B_K and the int8 modes
             tma_load(st + T::B1, &p.b1, bar, k0, n0);
           }
           if (++stage == T::STAGES) {
@@ -526,18 +859,27 @@ gemm_kernel(const __grid_constant__ Args p) {
     // --------------------------------------------------------- consumers
     setmaxnreg_inc<232>();
     constexpr int R = BN / 2;
-    float acc1[R], acc2[DUALP ? R : 1];
+    using Acc = std::conditional_t<S8P, int, float>;
+    Acc acc1[R];
+    float acc2[DUALP ? R : 1];
+    float facc[MODE == S8_GROUPS ? R : 1];   // the flushed K groups' sum
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const uint32_t a_rows = wg * 64 * 128;   // this group's 64 rows of A
     int stage = 0;
     uint32_t phase = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
+      // this thread's first row (accumulators i % 4 < 2; +8 for the rest)
+      const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
 #pragma unroll
-      for (int i = 0; i < R; ++i) acc1[i] = 0.f;
+      for (int i = 0; i < R; ++i) acc1[i] = Acc(0);
       if constexpr (DUALP) {
 #pragma unroll
         for (int i = 0; i < R; ++i) acc2[i] = 0.f;
+      }
+      if constexpr (MODE == S8_GROUPS) {
+#pragma unroll
+        for (int i = 0; i < R; ++i) facc[i] = 0.f;
       }
       for (int kb = 0; kb < kblocks; ++kb) {
         mbar_wait(full + 8 * stage, phase);
@@ -547,8 +889,8 @@ gemm_kernel(const __grid_constant__ Args p) {
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
-          // a k16 step is 32 bytes along a K-major row, 16 rows (2048
-          // bytes) down an MN-major box
+          // a k16 (bf16) or k32 (int8) step is 32 bytes along a K-major
+          // row, 16 rows (2048 bytes) down an MN-major box
           const uint64_t a1 = desc_sw128(st + T::A1 + a_rows + 32 * kk, 16,
                                          1024);
           if constexpr (DUALP) {
@@ -560,6 +902,23 @@ gemm_kernel(const __grid_constant__ Args p) {
           } else if constexpr (MODE == B_MN) {
             wgmma<BN, 1>(acc1, a1,
                          desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
+          } else if constexpr (S8P) {
+            wgmma_s8<BN>(acc1, a1, desc_sw128(st + T::B1 + 32 * kk, 16, 1024));
+            if constexpr (MODE == S8_GROUPS) {
+              // the k32 steps done; a K group ends here: retire the
+              // products, flush, and restart the int32 sums (steps past k
+              // read TMA's zeros and end no group)
+              const int steps = kb * (BK / 16) + kk + 1;
+              if (steps % p.group_steps == 0 && 32 * steps <= p.k) {
+                wgmma_commit();
+                fence_regs(acc1);
+                wgmma_wait();
+                flush_group(facc, acc1, p, row0, n0, lane,
+                            steps / p.group_steps - 1);
+                fence_regs(acc1);
+                wgmma_fence();
+              }
+            }
           } else {
             wgmma<BN, 0>(acc1, a1, desc_sw128(st + T::B1 + 32 * kk, 16, 1024));
           }
@@ -579,7 +938,19 @@ gemm_kernel(const __grid_constant__ Args p) {
 
       // epilogue: accumulator i of n-octet j holds row 16·warp + lane/4
       // (+8 for i = 2, 3) and columns 8j + 2·(lane % 4) (+1 for odd i)
-      if constexpr (DUALP) {
+      if constexpr (S8P) {
+        const uint32_t buf = epi + wg * T::EPI_WG;
+        if constexpr (MODE == S8_GROUPS) {
+          store_s8<BN, T::LDE>(facc, p, buf, m0, n0, wg, warp, lane);
+        } else {
+          // the one K group's flush into a fresh fp32 sum
+          float sum[R];
+#pragma unroll
+          for (int i = 0; i < R; ++i) sum[i] = 0.f;
+          flush_group(sum, acc1, p, row0, n0, lane, 0);
+          store_s8<BN, T::LDE>(sum, p, buf, m0, n0, wg, warp, lane);
+        }
+      } else if constexpr (DUALP) {
         // h to this group's 64 x 128 buffer (the layout TMA stores:
         // two 64-column boxes, 128-byte rows, chunks swizzled by row),
         // dhpre kept in acc2; stored by TMA, then dhpre likewise
@@ -610,7 +981,6 @@ gemm_kernel(const __grid_constant__ Args p) {
                              acc2[4 * j + 2 * half + 1]);
         store_tile(&p.o2, buf, n0, m0 + wg * 64, p, wg);
       } else if (p.epi == EPI_F32) {
-        const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           const int col = n0 + 8 * j + 2 * (lane & 3);
@@ -657,22 +1027,8 @@ gemm_kernel(const __grid_constant__ Args p) {
                 v0, v1);
           }
         }
-        sync_group(1 + wg);
-        constexpr int CHUNKS = BN / 8;     // 16-byte chunks of a tile row
-        const bool resid = p.epi == EPI_BIAS_RESID;
-        for (int i = threadIdx.x % 128; i < 64 * CHUNKS; i += 128) {
-          const int rr = i / CHUNKS, cc = i % CHUNKS;
-          const int row = m0 + wg * 64 + rr, col = n0 + 8 * cc;
-          if (row >= p.m || col >= p.n) continue;
-          const size_t at = static_cast<size_t>(row) * p.n + col;
-          uint4 o = ld_shared_v4(buf + 2 * (rr * T::LDE + 8 * cc));
-          if (resid)
-            o = add_bf16x8(
-                *reinterpret_cast<const uint4*>(
-                    static_cast<const bf16*>(p.aux) + at), o);
-          *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out1) + at) = o;
-        }
-        sync_group(1 + wg);                // the buffer is the next tile's
+        copy_out_bf16<BN, T::LDE>(buf, m0, n0, wg, p,
+                                  p.epi == EPI_BIAS_RESID);
       }
     }
   }
@@ -707,18 +1063,23 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A row-major (rows, cols) bf16 matrix as boxes of 64 columns (128 bytes,
-// swizzled) x box_rows rows; out-of-bounds elements load as zeros.
+// A row-major (rows, cols) bf16 (elem = 2) or int8 (elem = 1) matrix as
+// boxes of 128 bytes of columns (swizzled) x box_rows rows; out-of-bounds
+// elements load as zeros.
 inline cudaError_t encode(CUtensorMap* map, const void* base, int rows,
-                          int cols, int box_rows) {
+                          int cols, int box_rows, int elem = 2) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const CUresult r = fn(map,
+                        elem == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        2,
                         const_cast<void*>(base), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -743,67 +1104,49 @@ cudaError_t launch(const Args& args, int device, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// K4's bf16 products: (y, g) -> h, dhpre (the dual product), then
-// dy = dhpre·w1ᵀ in fp32.  y, g (rows, c); w1 (c, hidden); w2 (hidden, c);
-// b1 (hidden) fp32; h, dhpre (rows, hidden) bf16; dy (rows, c) fp32.  All
-// bases 16-byte aligned, c and hidden multiples of 8.
-inline cudaError_t mlp_bwd_products(const void* y, const void* g,
-                                    const void* w1, const float* b1,
-                                    const void* w2, void* h, void* dhpre,
-                                    float* dy, int rows, int c, int hidden,
-                                    int device, cudaStream_t s) {
-  if (rows < 1 || c < 8 || hidden < 8 || c % 8 || hidden % 8)
-    return cudaErrorInvalidValue;
-  Args dual{};
-  cudaError_t err = encode(&dual.a1, y, rows, c, BM);
-  if (err == cudaSuccess) err = encode(&dual.b1, w1, c, hidden, BK);
-  if (err == cudaSuccess) err = encode(&dual.a2, g, rows, c, BM);
-  if (err == cudaSuccess) err = encode(&dual.b2, w2, hidden, c, 128);
-  if (err == cudaSuccess) err = encode(&dual.o1, h, rows, hidden, 64);
-  if (err == cudaSuccess) err = encode(&dual.o2, dhpre, rows, hidden, 64);
-  if (err != cudaSuccess) return err;
-  dual.bias = b1;
-  dual.m = rows;
-  dual.n = hidden;
-  dual.k = c;
-  err = launch<128, DUAL>(dual, device, s);
-  if (err != cudaSuccess) return err;
-  Args dyp{};
-  err = encode(&dyp.a1, dhpre, rows, hidden, BM);
-  if (err == cudaSuccess) err = encode(&dyp.b1, w1, c, hidden, DY_BN);
-  if (err != cudaSuccess) return err;
-  dyp.out1 = dy;
-  dyp.m = rows;
-  dyp.n = c;
-  dyp.k = hidden;
-  dyp.epi = EPI_F32;
-  return launch<DY_BN, B_K>(dyp, device, s);
-}
-
-// The tile width of a product of m rows, n columns and depth k: the one
-// whose rounds of tiles over the card's SMs cost least, a tile of width w
-// taking w + TILE_FIXED column-equivalents (its A tile, the k loop's fixed
-// steps and the epilogue).  An MN-major B at width 96 loads two 64-column
-// boxes and its n96 steps ran about twice as long per k step as n128's
-// (tools/bench_vit_fwd.py: fc2, k = 3072, 1576 rows, 0.0292 ms at 96
-// against 0.0203 at 128), so past MN96_MAX_K it is not picked.
-constexpr int TILE_FIXED = 64, MN96_MAX_K = 1024;
-
-inline int pick_bn(int m, int n, int k, bool mn_major, int sms) {
-  const int widths[4] = {192, 128, 96, 64};
-  int best = widths[0];
+// Of `widths` (0: skipped), the tile width of a product of m rows and n
+// columns whose rounds of tiles over the card's SMs cost least, a tile of
+// width w taking w + fixed column-equivalents (its A tile, the k loop's
+// fixed steps and the epilogue); the first of equal costs.
+inline int least_rounds(int m, int n, int sms, int fixed,
+                        const int (&widths)[4]) {
+  int best = 0;
   long long best_cost = -1;
   for (const int w : widths) {
-    if (w == 96 && mn_major && k > MN96_MAX_K) continue;
+    if (w == 0) continue;
     const long long tiles =
         static_cast<long long>(cdiv(m, BM)) * cdiv(n, w);
-    const long long cost = (tiles + sms - 1) / sms * (w + TILE_FIXED);
+    const long long cost = (tiles + sms - 1) / sms * (w + fixed);
     if (best_cost < 0 || cost < best_cost) {
       best = w;
       best_cost = cost;
     }
   }
   return best;
+}
+
+// The bf16 products' tile width (m rows, n columns, depth k): the least
+// rounds at a fixed cost of TILE_FIXED.  An MN-major B at width 96 loads
+// two 64-column boxes and its n96 steps ran about twice as long per k step
+// as n128's (tools/bench_vit_fwd.py: fc2, k = 3072, 1576 rows, 0.0292 ms
+// at 96 against 0.0203 at 128), so past MN96_MAX_K it is not picked.
+constexpr int TILE_FIXED = 64, MN96_MAX_K = 1024;
+
+inline int pick_bn(int m, int n, int k, bool mn_major, int sms) {
+  const int widths[4] = {192, 128, mn_major && k > MN96_MAX_K ? 0 : 96, 64};
+  return least_rounds(m, n, sms, TILE_FIXED, widths);
+}
+
+// The int8 products' tile width: the least rounds at a fixed cost of
+// S8_TILE_FIXED (their k = 768 loop is 6 stages, the bf16 products' 12),
+// and, when `narrow`, no 192-wide tile.  Fitted on ViT-B/16's products at
+// 197-25216 rows (tools/bench_vit_fwd.py, NVIDIA H100 80GB HBM3): the
+// fastest width at each but qkv at 3152 rows (96, 6% behind 192).
+constexpr int S8_TILE_FIXED = 16;
+
+inline int pick_bn_s8(int m, int n, bool narrow, int sms) {
+  const int widths[4] = {narrow ? 0 : 192, 128, 96, 64};
+  return least_rounds(m, n, sms, S8_TILE_FIXED, widths);
 }
 
 template <int MODE>
@@ -813,49 +1156,14 @@ cudaError_t launch_width(int bn, const Args& args, int device,
     case 64: return launch<64, MODE>(args, device, s);
     case 96: return launch<96, MODE>(args, device, s);
     case 128: return launch<128, MODE>(args, device, s);
-    case 192: return launch<192, MODE>(args, device, s);
+    case 192:
+      // the grouped int8 product's consumers hold an int32 and an fp32
+      // sum of BN / 2 registers each: at 192 ptxas spilled them (520
+      // bytes a thread), so it stops at 128
+      if constexpr (MODE == S8_GROUPS) return cudaErrorInvalidValue;
+      else return launch<192, MODE>(args, device, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// out (m, n) = epilogue(a (m, k) · B) with bf16 operands: B = b (k, n)
-// read as stored (MN-major), or b (n, k) read transposed (K-major) when
-// trans_b; epi one of EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESID (aux the
-// (m, n) bf16 residual), EPI_NONE (bf16 out) or EPI_F32 (fp32 out);
-// bias (n) fp32.  bn: the tile width, 64, 96, 128 or 192, or 0 for
-// pick_bn's.  Bases 16-byte aligned, n and k multiples of 8 (else
-// cudaErrorInvalidValue).  Two tensor maps are encoded a call (a, b).
-inline cudaError_t gemm(int epi, int trans_b, int bn, const void* a,
-                        const void* b, const float* bias, const void* aux,
-                        void* out, int m, int n, int k, int device,
-                        cudaStream_t s) {
-  const bool ok_epi = epi == EPI_BIAS || epi == EPI_BIAS_GELU ||
-                      epi == EPI_BIAS_RESID || epi == EPI_NONE ||
-                      epi == EPI_F32;
-  if (!ok_epi || m < 1 || n < 8 || k < 8 || n % 8 || k % 8)
-    return cudaErrorInvalidValue;
-  if (bn == 0) {
-    int sms = 0;
-    const cudaError_t err = sm_count(device, &sms);
-    if (err != cudaSuccess) return err;
-    bn = pick_bn(m, n, k, !trans_b, sms);
-  }
-  if (bn != 64 && bn != 96 && bn != 128 && bn != 192)
-    return cudaErrorInvalidValue;
-  Args p{};
-  cudaError_t err = encode(&p.a1, a, m, k, BM);
-  if (err == cudaSuccess)
-    err = trans_b ? encode(&p.b1, b, n, k, bn) : encode(&p.b1, b, k, n, BK);
-  if (err != cudaSuccess) return err;
-  p.bias = bias;
-  p.aux = aux;
-  p.out1 = out;
-  p.m = m;
-  p.n = n;
-  p.k = k;
-  p.epi = epi;
-  return trans_b ? launch_width<B_K>(bn, p, device, s)
-                 : launch_width<B_MN>(bn, p, device, s);
 }
 
 }  // namespace sm90

@@ -64,6 +64,91 @@
 
 #include <chrono>
 
+namespace dfu {
+namespace {
+namespace sm90 {
+
+// K4's bf16 products: (y, g) -> h, dhpre (the dual product), then
+// dy = dhpre·w1ᵀ in fp32.  y, g (rows, c); w1 (c, hidden); w2 (hidden, c);
+// b1 (hidden) fp32; h, dhpre (rows, hidden) bf16; dy (rows, c) fp32.  All
+// bases 16-byte aligned, c and hidden multiples of 8.
+inline cudaError_t mlp_bwd_products(const void* y, const void* g,
+                                    const void* w1, const float* b1,
+                                    const void* w2, void* h, void* dhpre,
+                                    float* dy, int rows, int c, int hidden,
+                                    int device, cudaStream_t s) {
+  if (rows < 1 || c < 8 || hidden < 8 || c % 8 || hidden % 8)
+    return cudaErrorInvalidValue;
+  Args dual{};
+  cudaError_t err = encode(&dual.a1, y, rows, c, BM);
+  if (err == cudaSuccess) err = encode(&dual.b1, w1, c, hidden, BK);
+  if (err == cudaSuccess) err = encode(&dual.a2, g, rows, c, BM);
+  if (err == cudaSuccess) err = encode(&dual.b2, w2, hidden, c, 128);
+  if (err == cudaSuccess) err = encode(&dual.o1, h, rows, hidden, 64);
+  if (err == cudaSuccess) err = encode(&dual.o2, dhpre, rows, hidden, 64);
+  if (err != cudaSuccess) return err;
+  dual.bias = b1;
+  dual.m = rows;
+  dual.n = hidden;
+  dual.k = c;
+  err = launch<128, DUAL>(dual, device, s);
+  if (err != cudaSuccess) return err;
+  Args dyp{};
+  err = encode(&dyp.a1, dhpre, rows, hidden, BM);
+  if (err == cudaSuccess) err = encode(&dyp.b1, w1, c, hidden, DY_BN);
+  if (err != cudaSuccess) return err;
+  dyp.out1 = dy;
+  dyp.m = rows;
+  dyp.n = c;
+  dyp.k = hidden;
+  dyp.epi = EPI_F32;
+  return launch<DY_BN, B_K>(dyp, device, s);
+}
+
+// out (m, n) = epilogue(a (m, k) · B) with bf16 operands: B = b (k, n)
+// read as stored (MN-major), or b (n, k) read transposed (K-major) when
+// trans_b; epi one of EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESID (aux the
+// (m, n) bf16 residual), EPI_NONE (bf16 out) or EPI_F32 (fp32 out);
+// bias (n) fp32.  bn: the tile width, 64, 96, 128 or 192, or 0 for
+// pick_bn's.  Bases 16-byte aligned, n and k multiples of 8 (else
+// cudaErrorInvalidValue).  Two tensor maps are encoded a call (a, b).
+inline cudaError_t gemm(int epi, int trans_b, int bn, const void* a,
+                        const void* b, const float* bias, const void* aux,
+                        void* out, int m, int n, int k, int device,
+                        cudaStream_t s) {
+  const bool ok_epi = epi == EPI_BIAS || epi == EPI_BIAS_GELU ||
+                      epi == EPI_BIAS_RESID || epi == EPI_NONE ||
+                      epi == EPI_F32;
+  if (!ok_epi || m < 1 || n < 8 || k < 8 || n % 8 || k % 8)
+    return cudaErrorInvalidValue;
+  if (bn == 0) {
+    int sms = 0;
+    const cudaError_t err = sm_count(device, &sms);
+    if (err != cudaSuccess) return err;
+    bn = pick_bn(m, n, k, !trans_b, sms);
+  }
+  if (bn != 64 && bn != 96 && bn != 128 && bn != 192)
+    return cudaErrorInvalidValue;
+  Args p{};
+  cudaError_t err = encode(&p.a1, a, m, k, BM);
+  if (err == cudaSuccess)
+    err = trans_b ? encode(&p.b1, b, n, k, bn) : encode(&p.b1, b, k, n, BK);
+  if (err != cudaSuccess) return err;
+  p.bias = bias;
+  p.aux = aux;
+  p.out1 = out;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.epi = epi;
+  return trans_b ? launch_width<B_K>(bn, p, device, s)
+                 : launch_width<B_MN>(bn, p, device, s);
+}
+
+}  // namespace sm90
+}  // namespace
+}  // namespace dfu
+
 using namespace dfu;
 
 namespace {

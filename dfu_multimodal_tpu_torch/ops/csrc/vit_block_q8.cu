@@ -10,7 +10,7 @@
 //   rows) the attention block does 7.44 GOP of int8 products and 0.95 GFLOP
 //   of attention against 7.2 MB of operands (4.7 us at 1979 TOP/s int8 and
 //   989 TFLOP/s bf16), the MLP block 14.9 GOP against 9.6 MB (7.5 us): both
-//   are operation-bound.
+//   are operation-bound, and only wgmma reaches the int8 rate.
 //
 // What the design does about it: the TPU kernels keep two images' (or 384
 //   rows') whole block in VMEM.  A Hopper SM has 227 KB of shared memory and
@@ -18,23 +18,27 @@
 //   of launches that each fill the card:
 //   - ln_quant: one warp per row, LayerNorm in fp32, the row absmax, int8
 //     y_q and the row scale a[r] (or, static, the calibrated 1/s);
-//   - gemm_s8: int8 x int8 -> int32 on the tensor cores (WMMA signed char
-//     16x16x16, a 64x64 tile per block of 4 warps, K in steps of 64).  The
-//     int32 sum is flushed into an fp32 accumulator at the end of every
-//     K group: acc·a[r, g]·s[m] (dynamic) or acc·s_eff[m] (static).  The fc2
-//     product has one group per 768-wide hidden chunk, because each chunk of
-//     h was quantised with its own row scale; the other products have one
-//     group.  The epilogue adds the bias, then casts to the compute dtype
-//     (qkv), adds the residual (proj, fc2), applies exact-erf GELU into fp32
-//     (dynamic fc1) or GELU and the static quantisation into int8 (static
-//     fc1);
+//   - the int8 products on gemm_sm90.cuh's persistent TMA + wgmma GEMM
+//     (its S8 / S8_GROUPS modes): int8 x int8 -> int32 on wgmma.m64nNk32,
+//     A and the weight both K-major (the weight's (out, in) copy, made by
+//     the model once per weight version), 128 x BN tiles with BN from
+//     pick_bn.  The int32 sum is flushed into an fp32 accumulator at the
+//     end of every K group: acc·a[r, g]·s[m] (dynamic) or acc·s_eff[m]
+//     (static).  The fc2 product has one group per 768-wide hidden chunk,
+//     because each chunk of h was quantised with its own row scale; the
+//     other products have one group.  The epilogue adds the bias, then
+//     casts to the compute dtype (qkv), adds the residual (proj, fc2),
+//     applies exact-erf GELU into fp32 (dynamic fc1) or GELU and the
+//     static quantisation into int8 (static fc1);
 //   - quant_rows: one warp per (row, group) of an fp32 tensor, the absmax,
 //     int8 and the scale (the attention output over C, the GELU output over
 //     each 768 chunk), or the static quantisation;
-//   - the attention core of attention_core.cuh with an fp32 output.
+//   - the attention step with an fp32 output: in bf16 the tensor-core
+//     forward of attention_fwd_mma.cuh with the softmax division deferred
+//     past e·V (the Pallas kernel's _attention_head, as K1's), in fp32 the
+//     SIMT core of attention_core.cuh.
 //   The int8 activations, the fp32 attention output and the fp32 GELU
-//   output go through HBM; fusing them away and wgmma/TMA pipelining are
-//   later work.
+//   output go through HBM; fusing them away is later work.
 //
 // Numerics follow the Pallas kernels and the plain versions in
 // ops/vit_block_q8.py operation by operation: round half to even (rintf),
@@ -43,37 +47,22 @@
 // order.  The arithmetic that decides a rounding uses __fmul_rn / __fadd_rn
 // so that nvcc cannot contract it into an FMA the plain version does not
 // do; the int32 products are exact.  What still differs is the order of the
-// LayerNorm and attention sums and erff's last bit, which can move a value
-// across a rounding boundary (one int8 step) now and then.  GELU is exact
-// erf (the Pallas kernels' logistic form exists only because Mosaic cannot
-// lower erf).
+// LayerNorm and attention sums, the bf16 attention's ex2 exponential, and
+// erff's last bit, which can move a value across a rounding boundary (one
+// int8 step) now and then.  GELU is exact erf (the Pallas kernels'
+// logistic form exists only because Mosaic cannot lower erf).
 
 #include "attention_core.cuh"
+#include "attention_kernels.cuh"
 #include "common.cuh"
-
-#include <mma.h>
+#include "gemm_sm90.cuh"
 
 #include <cstdint>
 
 namespace dfu {
 namespace {
 
-enum QEpilogue {
-  QEPI_OUT = 0,       // out = T(v)
-  QEPI_RESID = 1,     // out = T(resid + T(v))
-  QEPI_GELU_F32 = 2,  // out = gelu(v), fp32
-  QEPI_GELU_Q8 = 3    // out = int8(gelu(v)·inv[0])
-};
-
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-}
-
-// clip(round_half_even(y·inv), -127, 127)
-__device__ __forceinline__ int8_t quant_i8(float y, float inv) {
-  const float r = rintf(__fmul_rn(y, inv));
-  return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(r, -127.f), 127.f)));
-}
+using sm90::quant_i8;
 
 // a = max(absmax / 127, 1e-12)
 __device__ __forceinline__ float row_scale_of(float absmax) {
@@ -152,159 +141,73 @@ __global__ void quant_rows_kernel(const float* __restrict__ y,
     q[base + i] = quant_i8(y[base + i], scale_inv);
 }
 
-// ------------------------------------------------ int8 GEMM (WMMA s8)
-// out (m, n) = epilogue(Σ_g (A (m, k) @ B (k, n))_g · row_scale[r, g] ·
-// col_scale[n] + bias), row-major, A and B int8.  K is cut into groups of
-// `group` (a multiple of QBK): the int32 fragments are flushed into fp32
-// registers at each group's end.  row_scale (m, groups) is null for the
-// static kernels.  A 64x64 output tile per block of 4 warps, each warp a
-// 32x32 quadrant of 2x2 16x16x16 fragments.  The tiles sit in shared
-// memory as 16-byte-wide planes (A by 16 k-columns, B by 16 n-columns) so
-// that every fragment starts 256-bit aligned with a 16-byte stride.  k and
-// n are multiples of 64 (the wrapper checks); ragged m is zero-filled on
-// load and masked on store.
-constexpr int QBM = 64, QBN = 64, QBK = 64, QTHREADS = 128;
-constexpr int QLDC = QBN + 4;
-constexpr int QPER = QBM * QBN / QTHREADS;  // fp32 accumulators per thread
+namespace sm90 {
 
-template <typename T, int EPI>
-__global__ void __launch_bounds__(QTHREADS)
-gemm_s8_wmma(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-             const float* __restrict__ row_scale, int groups,
-             const float* __restrict__ col_scale,
-             const float* __restrict__ bias, const T* __restrict__ resid,
-             const float* __restrict__ inv, void* __restrict__ out, int m,
-             int n, int k, int group) {
-  using namespace nvcuda;
-  __shared__ __align__(128) int8_t As[QBK / 16][QBM * 16];
-  __shared__ __align__(128) int8_t Bs[QBN / 16][QBK * 16];
-  __shared__ __align__(128) int Cs[QBM * QLDC];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int row0 = blockIdx.y * QBM, col0 = blockIdx.x * QBN;
-
-  float facc[QPER];
-#pragma unroll
-  for (int i = 0; i < QPER; ++i) facc[i] = 0.f;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  for (int k0 = 0; k0 < k; k0 += QBK) {
-    // 16-byte vectors: A row r, k-plane p; B k-row r, n-plane p
-    for (int v = tid; v < QBM * QBK / 16; v += QTHREADS) {
-      const int r = v >> 2, p = v & 3;
-      const int gr = row0 + r;
-      int4 val = make_int4(0, 0, 0, 0);
-      if (gr < m)
-        val = *reinterpret_cast<const int4*>(
-            A + static_cast<size_t>(gr) * k + k0 + 16 * p);
-      *reinterpret_cast<int4*>(&As[p][r * 16]) = val;
-    }
-    for (int v = tid; v < QBK * QBN / 16; v += QTHREADS) {
-      const int r = v >> 2, p = v & 3;
-      *reinterpret_cast<int4*>(&Bs[p][r * 16]) =
-          *reinterpret_cast<const int4*>(
-              B + static_cast<size_t>(k0 + r) * n + col0 + 16 * p);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < QBK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                     wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                     wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &As[kk][(wm * 32 + i * 16) * 16], 16);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[wn * 2 + j][kk * 16 * 16], 16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-    if ((k0 + QBK) % group == 0) {
-      // end of a K group: fp32 += (acc·a[r, g])·s[col], then restart
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(
-              Cs + (wm * 32 + i * 16) * QLDC + wn * 32 + j * 16, acc[i][j],
-              QLDC, wmma::mem_row_major);
-      __syncthreads();
-      const int gi = (k0 + QBK) / group - 1;
-#pragma unroll
-      for (int i = 0; i < QPER; ++i) {
-        const int e = tid + i * QTHREADS;
-        const int r = e / QBN, c = e % QBN, gr = row0 + r;
-        float v = static_cast<float>(Cs[r * QLDC + c]);
-        if (row_scale != nullptr)
-          v = __fmul_rn(
-              v, gr < m ? row_scale[static_cast<size_t>(gr) * groups + gi]
-                        : 0.f);
-        facc[i] = __fadd_rn(facc[i], __fmul_rn(v, col_scale[col0 + c]));
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < QPER; ++i) {
-    const int e = tid + i * QTHREADS;
-    const int r = e / QBN, c = e % QBN;
-    const int gr = row0 + r, gc = col0 + c;
-    if (gr >= m) continue;
-    const size_t o = static_cast<size_t>(gr) * n + gc;
-    const float v = __fadd_rn(facc[i], bias[gc]);
-    if constexpr (EPI == QEPI_OUT) {
-      static_cast<T*>(out)[o] = from_f<T>(v);
-    } else if constexpr (EPI == QEPI_RESID) {
-      // x + o with o rounded to the compute dtype first, as the TPU kernel
-      static_cast<T*>(out)[o] =
-          from_f<T>(__fadd_rn(to_f(resid[o]), to_f(from_f<T>(v))));
-    } else if constexpr (EPI == QEPI_GELU_F32) {
-      static_cast<float*>(out)[o] = gelu_erf(v);
-    } else {
-      static_cast<int8_t*>(out)[o] = quant_i8(gelu_erf(v), inv[0]);
-    }
-  }
+// The tile width gemm_s8 takes for an (m, n, k) product with K groups of
+// `group` under epilogue `qepi`: pick_bn_s8's, narrow (at most 128) for
+// the grouped product (its two sums spilled at 192) and for the GELU
+// epilogues (fc1 ran 1.2-1.35x slower at 192 than at 128 at every row
+// count: tools/bench_vit_fwd.py).
+inline cudaError_t s8_width(int qepi, int m, int n, int k, int group,
+                            int device, int* bn) {
+  int sms = 0;
+  const cudaError_t err = sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
+  const bool narrow =
+      group < k || qepi == QEPI_GELU_F32 || qepi == QEPI_GELU_Q8;
+  *bn = pick_bn_s8(m, n, narrow, sms);
+  return cudaSuccess;
 }
 
-template <typename T>
-void launch_gemm_s8(int epi, const void* a, const void* b,
-                    const float* row_scale, int groups,
-                    const float* col_scale, const float* bias,
-                    const void* resid, const float* inv, void* out, int m,
-                    int n, int k, int group, cudaStream_t s) {
-  dim3 grid(n / QBN, cdiv(m, QBM));
-  const int8_t* A = static_cast<const int8_t*>(a);
-  const int8_t* B = static_cast<const int8_t*>(b);
-  const T* R = static_cast<const T*>(resid);
-  switch (epi) {
-#define DFU_Q8_CASE(E)                                                       \
-    case E:                                                                  \
-      gemm_s8_wmma<T, E><<<grid, QTHREADS, 0, s>>>(                          \
-          A, B, row_scale, groups, col_scale, bias, R, inv, out, m, n, k,    \
-          group);                                                            \
-      break;
-    DFU_Q8_CASE(QEPI_OUT)
-    DFU_Q8_CASE(QEPI_RESID)
-    DFU_Q8_CASE(QEPI_GELU_F32)
-    DFU_Q8_CASE(QEPI_GELU_Q8)
-#undef DFU_Q8_CASE
+// K7/K8's int8 products: out (m, n) = QEpilogue `qepi` of v = Σ_g
+// (a_g · b_gᵀ)·row_scale[r, g]·col_scale[n] + bias, a (m, k) int8, b (n,
+// k) int8 (the weight's K-major (out, in) copy), the k sums cut into K
+// groups of `group` (k / group of them; dynamic row_scale (m, k / group)
+// fp32, or null for static scales), each group's int32 sum dequantised
+// into fp32 when it ends.  dtype: the compute dtype of QEPI_OUT /
+// QEPI_RESID's out and resid; QEPI_GELU_F32's out is fp32 and
+// QEPI_GELU_Q8's int8 (scaled by inv[0] first).  col_scale, bias (n)
+// fp32.  bn: 64, 96, 128 or 192, or 0 for s8_width's.  Bases 16-byte
+// aligned; n a multiple of 8, k and group of 32, group dividing k (else
+// cudaErrorInvalidValue).
+inline cudaError_t gemm_s8(int qepi, int dtype, int bn, const void* a,
+                           const void* b, const float* row_scale,
+                           const float* col_scale, const float* bias,
+                           const void* resid, const float* inv, void* out,
+                           int m, int n, int k, int group, int device,
+                           cudaStream_t s) {
+  if (qepi < QEPI_OUT || qepi > QEPI_GELU_Q8 ||
+      (dtype != DT_F32 && dtype != DT_BF16) || m < 1 || n < 8 || n % 8 ||
+      k < 32 || k % 32 || group < 32 || group % 32 || k % group)
+    return cudaErrorInvalidValue;
+  if (bn == 0) {
+    const cudaError_t err = s8_width(qepi, m, n, k, group, device, &bn);
+    if (err != cudaSuccess) return err;
   }
+  if (bn != 64 && bn != 96 && bn != 128 && bn != 192)
+    return cudaErrorInvalidValue;
+  Args p{};
+  cudaError_t err = encode(&p.a1, a, m, k, BM, 1);
+  if (err == cudaSuccess) err = encode(&p.b1, b, n, k, bn, 1);
+  if (err != cudaSuccess) return err;
+  p.bias = bias;
+  p.aux = resid;
+  p.out1 = out;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.epi = qepi;
+  p.row_scale = row_scale;
+  p.col_scale = col_scale;
+  p.inv = inv;
+  p.groups = k / group;
+  p.group_steps = group / 32;
+  p.dtype = dtype;
+  return group < k ? launch_width<S8_GROUPS>(bn, p, device, s)
+                   : launch_width<S8>(bn, p, device, s);
 }
+
+}  // namespace sm90
 
 }  // namespace
 }  // namespace dfu
@@ -363,46 +266,52 @@ int dfu_q8_quant_rows(int device, const void* y, void* q, void* a,
   DFU_RETURN_LAST_ERROR();
 }
 
-// out (m, n) = epilogue(int8 a (m, k) @ int8 b (k, n)) dequantised per
-// K group (see gemm_s8_wmma).  epi is a QEpilogue; row_scale (m, groups)
+// out (m, n) = epilogue(int8 a (m, k) @ the weight) dequantised per K
+// group of `group` (gemm_sm90.cuh's sm90::gemm_s8).  b is the weight's
+// K-major (n, k) int8 copy; epi is a QEpilogue; row_scale (m, k / group)
 // fp32 or null; col_scale, bias (n) fp32; resid (m, n) in the compute
 // dtype for QEPI_RESID; inv (1) fp32 for QEPI_GELU_Q8; out in the compute
 // dtype (QEPI_OUT, QEPI_RESID), fp32 (QEPI_GELU_F32) or int8
-// (QEPI_GELU_Q8).  k, n and group multiples of 64, group dividing k.
+// (QEPI_GELU_Q8).  bn: the tile width (64, 96, 128, 192) or 0 for the
+// launcher's pick.  n a multiple of 8, k and group of 32, group dividing
+// k.
 int dfu_q8_gemm(int device, int dtype, int epi, const void* a, const void* b,
-                const void* row_scale, int groups, const void* col_scale,
+                const void* row_scale, const void* col_scale,
                 const void* bias, const void* resid, const void* inv,
-                void* out, int m, int n, int k, int group, void* stream) {
+                void* out, int m, int n, int k, int group, int bn,
+                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (epi < QEPI_OUT || epi > QEPI_GELU_Q8 || n % QBN || k % QBK ||
-      group % QBK || k % group)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* rs = static_cast<const float*>(row_scale);
-  const float* cs = static_cast<const float*>(col_scale);
-  const float* bs = static_cast<const float*>(bias);
-  const float* iv = static_cast<const float*>(inv);
-  if (dtype == DT_BF16)
-    launch_gemm_s8<bf16>(epi, a, b, rs, groups, cs, bs, resid, iv, out, m, n,
-                         k, group, s);
-  else
-    launch_gemm_s8<float>(epi, a, b, rs, groups, cs, bs, resid, iv, out, m,
-                          n, k, group, s);
-  DFU_RETURN_LAST_ERROR();
+  return static_cast<int>(sm90::gemm_s8(
+      epi, dtype, bn, a, b, static_cast<const float*>(row_scale),
+      static_cast<const float*>(col_scale), static_cast<const float*>(bias),
+      resid, static_cast<const float*>(inv), out, m, n, k, group, device,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The tile width dfu_q8_gemm picks for an (m, n, k) product with K groups
+// of `group` under epilogue `epi`.
+int dfu_q8_gemm_width(int device, int epi, int m, int n, int k, int group,
+                      int* bn) {
+  return static_cast<int>(sm90::s8_width(epi, m, n, k, group, device, bn));
 }
 
 // qkv (batch, n, 3·heads·d) in the compute dtype -> out (batch, n,
-// heads·d) fp32; d in {16, 32, 64, 128}.
+// heads·d) fp32; d in {16, 32, 64, 128}.  bf16: the tensor-core forward
+// with the deferred division (attention_kernels.cuh::qkv_fwd_deferred);
+// fp32: the SIMT core.
 int dfu_q8_attention(int device, int dtype, const void* qkv, void* out,
                      int batch, int n, int heads, int d, float scale,
                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_BF16)
-    return dispatch_attention<bf16, float>(d, qkv, out, batch, n, heads,
-                                           scale, s);
+  if (dtype == DT_BF16) {
+    int e2 = 0;     // q is scaled in bf16 when the scale is a power of two
+    const int pow2 = frexpf(scale, &e2) == 0.5f;
+    return qkv_fwd_deferred<bf16, float>(qkv, out, batch, n, heads, d, scale,
+                                         pow2, s);
+  }
   return dispatch_attention<float, float>(d, qkv, out, batch, n, heads, scale,
                                           s);
 }

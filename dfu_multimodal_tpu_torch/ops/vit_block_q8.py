@@ -34,7 +34,11 @@ Dispatch is by device only.  A CPU tensor takes the plain versions
 (``*_ref``); a CUDA tensor launches the kernels of ``csrc/vit_block_q8.cu``
 or raises.  Arguments keep the JAX order and layouts: x (B, N, C) in the
 compute dtype, weights int8 (in, out), scales, biases and LayerNorm params
-fp32.  The plain versions compute each int8 product exactly in floating
+fp32.  The card's int8 products (wgmma) read both operands K-major, so
+they read each weight's (out, in) copy: the keyword ``kmajor`` passes the
+two copies (``w.t().contiguous()``, which the model keeps once per weight
+version, ``models/vit.py::QDense``); without it each call makes them.  The
+plain versions compute each int8 product exactly in floating
 point: in fp32 on the CPU when every partial sum stays below 2²⁴
 (K·127² < 2²⁴, so K <= 1040: C and the 768 chunks of ViT-B/16), in fp64
 otherwise and on the card (where a TF32 setting could otherwise round an
@@ -55,16 +59,18 @@ from dfu_multimodal_tpu_torch.ops.vit_block import (LN_EPS, _HEAD_DIMS,
                                                    _layernorm_f32)
 
 Q_MAX = 127.0
-_TILE = 64                          # csrc QBN / QBK: n, k, chunk multiples
-# epilogues of csrc/vit_block_q8.cu::gemm_s8_wmma
-_QEPI_OUT, _QEPI_RESID, _QEPI_GELU_F32, _QEPI_GELU_Q8 = range(4)
+# the int8 GEMM's k32 step: C and the hidden chunk width are multiples
+_TILE = 32
+# epilogues of the int8 products (csrc/gemm_sm90.cuh::QEpilogue)
+QEPI_OUT, QEPI_RESID, QEPI_GELU_F32, QEPI_GELU_Q8 = range(4)
 
 _I, _P, _F = _build.I, _build.P, _build.F
 _SIGNATURES = {
     "dfu_q8_ln_quant": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "dfu_q8_quant_rows": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
-    "dfu_q8_gemm": [_I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+    "dfu_q8_gemm": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                     _I, _I, _P],
+    "dfu_q8_gemm_width": [_I, _I, _I, _I, _I, _I, _P],
     "dfu_q8_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
@@ -115,6 +121,40 @@ def _int_mm(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     exact32 = a_q.device.type == "cpu" and a_q.shape[-1] * 127 * 127 < 2 ** 24
     acc = torch.float32 if exact32 else torch.float64
     return torch.matmul(a_q.to(acc), w_q.to(acc)).float()
+
+
+def gemm_q8_ref(epi: int, a_q: torch.Tensor, w_q8: torch.Tensor,
+                row_scale: Optional[torch.Tensor], col_scale: torch.Tensor,
+                bias: torch.Tensor, resid: Optional[torch.Tensor] = None,
+                inv: Optional[torch.Tensor] = None,
+                group: Optional[int] = None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of one int8 product of the blocks (the kernels' GEMM,
+    ``csrc/gemm_sm90.cuh``'s int8 modes): a_q (m, k) int8 times w_q8
+    (k, n) int8 over K groups of ``group`` (all of k when None), each
+    group's exact int32 sum rounded to fp32 and flushed as facc +
+    (acc·row_scale[:, g])·col_scale (row_scale (m, k / group) fp32, None
+    for static scales), then v = facc + bias and the epilogue ``epi``:
+    QEPI_OUT dtype(v), QEPI_RESID dtype(resid + dtype(v)), QEPI_GELU_F32
+    gelu(v) in fp32, QEPI_GELU_Q8 int8(gelu(v)·inv[0])."""
+    k = a_q.shape[1]
+    group = k if group is None else group
+    facc = torch.zeros((a_q.shape[0], w_q8.shape[1]), dtype=torch.float32,
+                       device=a_q.device)
+    for g in range(k // group):
+        sl = slice(g * group, (g + 1) * group)
+        v = _int_mm(a_q[:, sl], w_q8[sl])
+        if row_scale is not None:
+            v = v * row_scale[:, g:g + 1]
+        facc = facc + v * col_scale
+    v = facc + bias
+    if epi == QEPI_OUT:
+        return v.to(dtype)
+    if epi == QEPI_RESID:
+        return (resid.float() + v.to(dtype).float()).to(dtype)
+    if epi == QEPI_GELU_F32:
+        return F.gelu(v)
+    return static_quant(F.gelu(v), inv[0])
 
 
 def _attention_f32(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -222,8 +262,8 @@ def _ptr(t: Optional[torch.Tensor], index: int = 0) -> Optional[int]:
 
 
 def _check_shapes(name, int8, vectors, shapes):
-    """int8 weights 16-byte aligned (the GEMM loads them 16 bytes at a
-    time) and every operand of the shape the block needs."""
+    """int8 weights 16-byte aligned (the GEMM's TMA loads read the K-major
+    copies) and every operand of the shape the block needs."""
     for arg, t in int8.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
@@ -260,27 +300,38 @@ def _quant_rows(lib, y, groups, inv, what):
     return q, a
 
 
-def _gemm(lib, dtype, epi, a_q, w_q, row_scale, col_scale, bias, resid,
-          inv, out, group, what):
-    """out = epilogue(a_q @ w_q dequantised per K group of ``group``)."""
+def _gemm(lib, dtype, epi, a_q, w_t, row_scale, col_scale, bias, resid,
+          inv, out, group, what, bn=0):
+    """out = epilogue(a_q @ w_tᵀ dequantised per K group of ``group``); w_t
+    the weight's K-major (out, in) copy, ``bn`` the tile width (0: the
+    launcher's pick)."""
     m, k = a_q.shape
     _build.check(lib, lib.dfu_q8_gemm(
         a_q.device.index, _build.DTYPE_CODES[dtype], epi, a_q.data_ptr(),
-        w_q.data_ptr(), _ptr(row_scale),
-        1 if row_scale is None else row_scale.shape[1],
-        col_scale.data_ptr(), bias.data_ptr(), _ptr(resid), inv,
-        out.data_ptr(), m, w_q.shape[1], k, group, _build.stream_of(a_q)),
-        what)
+        w_t.data_ptr(), _ptr(row_scale), col_scale.data_ptr(),
+        bias.data_ptr(), _ptr(resid), inv, out.data_ptr(), m, w_t.shape[0],
+        k, group, bn, _build.stream_of(a_q)), what)
+
+
+def _kmajor(kmajor, w_in, w_out):
+    """The two weights' K-major (out, in) copies: ``kmajor`` as given, or
+    made now from the (in, out) weights."""
+    if kmajor is not None:
+        return tuple(kmajor)
+    return w_in.t().contiguous(), w_out.t().contiguous()
 
 
 def _attn_cuda(name, x, g1, b1, wqkv, sqkv, bqkv, wproj, sproj, bproj,
-               num_heads, inv_scales):
+               num_heads, inv_scales, kmajor):
     vectors = {"g1": g1, "b1": b1, "sqkv": sqkv, "bqkv": bqkv,
                "sproj": sproj, "bproj": bproj}
     if inv_scales is not None:
         vectors["inv_scales"] = inv_scales
     int8 = {"wqkv_q8": wqkv, "wproj_q8": wproj}
     _build.check_cuda_operands(name, x, {"x": x}, vectors, int8)
+    wqkv_t, wproj_t = _kmajor(kmajor, wqkv, wproj)
+    int8.update(wqkv_t=wqkv_t, wproj_t=wproj_t)
+    _build.check_cuda_operands(name, x, {}, {}, int8)
     bsz, n, c = x.shape
     d = c // num_heads
     if d * num_heads != c or d not in _HEAD_DIMS or c % _TILE:
@@ -288,15 +339,15 @@ def _attn_cuda(name, x, g1, b1, wqkv, sqkv, bqkv, wproj, sproj, bproj,
                          f"heads: want C = heads * D, D in {_HEAD_DIMS}, "
                          f"C a multiple of {_TILE}")
     _check_shapes(name, int8, vectors, {
-        "wqkv_q8": (c, 3 * c), "wproj_q8": (c, c), "g1": (c,), "b1": (c,),
-        "sqkv": (3 * c,), "bqkv": (3 * c,), "sproj": (c,), "bproj": (c,),
-        "inv_scales": (2,)})
+        "wqkv_q8": (c, 3 * c), "wproj_q8": (c, c), "wqkv_t": (3 * c, c),
+        "wproj_t": (c, c), "g1": (c,), "b1": (c,), "sqkv": (3 * c,),
+        "bqkv": (3 * c,), "sproj": (c,), "bproj": (c,), "inv_scales": (2,)})
     lib, rows, dev = _lib(), bsz * n, x.device
     y_q, a = _ln_quant(lib, x, g1, b1, rows, c, _ptr(inv_scales, 0),
                        f"{name} LayerNorm")
     qkv = torch.empty((bsz, n, 3 * c), dtype=x.dtype, device=dev)
-    _gemm(lib, x.dtype, _QEPI_OUT, y_q, wqkv, a, sqkv, bqkv, None, None, qkv,
-          c, f"{name} qkv")
+    _gemm(lib, x.dtype, QEPI_OUT, y_q, wqkv_t, a, sqkv, bqkv, None, None,
+          qkv, c, f"{name} qkv")
     attn = torch.empty((rows, c), dtype=torch.float32, device=dev)
     _build.check(lib, lib.dfu_q8_attention(
         dev.index, _build.DTYPE_CODES[x.dtype], qkv.data_ptr(),
@@ -305,18 +356,21 @@ def _attn_cuda(name, x, g1, b1, wqkv, sqkv, bqkv, wproj, sproj, bproj,
     attn_q, a2 = _quant_rows(lib, attn, 1, _ptr(inv_scales, 1),
                              f"{name} quantise attention")
     out = torch.empty_like(x)
-    _gemm(lib, x.dtype, _QEPI_RESID, attn_q, wproj, a2, sproj, bproj, x,
+    _gemm(lib, x.dtype, QEPI_RESID, attn_q, wproj_t, a2, sproj, bproj, x,
           None, out, c, f"{name} proj")
     return out
 
 
 def _mlp_cuda(name, x, g2, b2, w1, s1, b1, w2, s2, b2b, hidden_chunks,
-              inv_scales):
+              inv_scales, kmajor):
     vectors = {"g2": g2, "b2": b2, "s1": s1, "b1": b1, "s2": s2, "b2b": b2b}
     if inv_scales is not None:
         vectors["inv_scales"] = inv_scales
     int8 = {"w1_q8": w1, "w2_q8": w2}
     _build.check_cuda_operands(name, x, {"x": x}, vectors, int8)
+    w1_t, w2_t = _kmajor(kmajor, w1, w2)
+    int8.update(w1_t=w1_t, w2_t=w2_t)
+    _build.check_cuda_operands(name, x, {}, {}, int8)
     c = x.shape[-1]
     hidden = w1.shape[-1]
     chunk = hidden // hidden_chunks
@@ -325,44 +379,50 @@ def _mlp_cuda(name, x, g2, b2, w1, s1, b1, w2, s2, b2b, hidden_chunks,
                          f"chunks of {hidden}: want C and the chunk width "
                          f"multiples of {_TILE}")
     _check_shapes(name, int8, vectors, {
-        "w1_q8": (c, hidden), "w2_q8": (hidden, c), "g2": (c,), "b2": (c,),
-        "s1": (hidden,), "b1": (hidden,), "s2": (c,), "b2b": (c,),
-        "inv_scales": (2,)})
+        "w1_q8": (c, hidden), "w2_q8": (hidden, c), "w1_t": (hidden, c),
+        "w2_t": (c, hidden), "g2": (c,), "b2": (c,), "s1": (hidden,),
+        "b1": (hidden,), "s2": (c,), "b2b": (c,), "inv_scales": (2,)})
     lib, rows, dev = _lib(), x.numel() // c, x.device
     y_q, a = _ln_quant(lib, x, g2, b2, rows, c, _ptr(inv_scales, 0),
                        f"{name} LayerNorm")
     if inv_scales is None:
         h = torch.empty((rows, hidden), dtype=torch.float32, device=dev)
-        _gemm(lib, x.dtype, _QEPI_GELU_F32, y_q, w1, a, s1, b1, None, None,
+        _gemm(lib, x.dtype, QEPI_GELU_F32, y_q, w1_t, a, s1, b1, None, None,
               h, c, f"{name} fc1")
         h_q, ah = _quant_rows(lib, h, hidden_chunks, None,
                               f"{name} quantise hidden")
     else:
         h_q, ah = torch.empty((rows, hidden), dtype=torch.int8,
                               device=dev), None
-        _gemm(lib, x.dtype, _QEPI_GELU_Q8, y_q, w1, None, s1, b1, None,
+        _gemm(lib, x.dtype, QEPI_GELU_Q8, y_q, w1_t, None, s1, b1, None,
               _ptr(inv_scales, 1), h_q, c, f"{name} fc1")
     out = torch.empty_like(x)
-    _gemm(lib, x.dtype, _QEPI_RESID, h_q, w2, ah, s2, b2b, x, None, out,
+    _gemm(lib, x.dtype, QEPI_RESID, h_q, w2_t, ah, s2, b2b, x, None, out,
           chunk, f"{name} fc2")
     return out
+
+
+# the two weights' K-major (out, in) int8 copies, or None
+Kmajor = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def attn_block_q8(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
                   wqkv_q8: torch.Tensor, sqkv: torch.Tensor,
                   bqkv: torch.Tensor, wproj_q8: torch.Tensor,
                   sproj: torch.Tensor, bproj: torch.Tensor,
-                  num_heads: int, bias=None) -> torch.Tensor:
+                  num_heads: int, bias=None, *,
+                  kmajor: Kmajor = None) -> torch.Tensor:
     """Serving-only int8 variant of ``ops.vit_block.attn_block``, dynamic
     per-row activation scales.  x (B, N, C); wqkv_q8 (C, 3C) and wproj_q8
     (C, C) int8 from :func:`quantize_weight`; their scales, the biases and
-    g1, b1 fp32."""
+    g1, b1 fp32.  ``kmajor``: (wqkv_q8ᵀ, wproj_q8ᵀ) contiguous, read by the
+    card's products (made per call when None; ignored on the CPU)."""
     _no_bias(bias)
     if x.device.type == "cpu":
         return attn_block_q8_ref(x, g1, b1, wqkv_q8, sqkv, bqkv, wproj_q8,
                                  sproj, bproj, num_heads)
     out = _attn_cuda("attn_block_q8", x, g1, b1, wqkv_q8, sqkv, bqkv,
-                     wproj_q8, sproj, bproj, num_heads, None)
+                     wproj_q8, sproj, bproj, num_heads, None, kmajor)
     attn_block_q8.launches += 1
     return out
 
@@ -370,15 +430,17 @@ def attn_block_q8(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
 def mlp_block_q8(x: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
                  w1_q8: torch.Tensor, s1: torch.Tensor, b1: torch.Tensor,
                  w2_q8: torch.Tensor, s2: torch.Tensor, b2b: torch.Tensor,
-                 hidden_chunks: int = 4) -> torch.Tensor:
+                 hidden_chunks: int = 4, *,
+                 kmajor: Kmajor = None) -> torch.Tensor:
     """Serving-only int8 variant of ``ops.vit_block.mlp_block``, dynamic
     per-row activation scales (each hidden chunk its own).  w1_q8 (C, H),
-    w2_q8 (H, C) int8; scales, biases, g2, b2 fp32."""
+    w2_q8 (H, C) int8; scales, biases, g2, b2 fp32.  ``kmajor``: (w1_q8ᵀ,
+    w2_q8ᵀ) contiguous, as :func:`attn_block_q8`'s."""
     if x.device.type == "cpu":
         return mlp_block_q8_ref(x, g2, b2, w1_q8, s1, b1, w2_q8, s2, b2b,
                                 hidden_chunks)
     out = _mlp_cuda("mlp_block_q8", x, g2, b2, w1_q8, s1, b1, w2_q8, s2,
-                    b2b, hidden_chunks, None)
+                    b2b, hidden_chunks, None, kmajor)
     mlp_block_q8.launches += 1
     return out
 
@@ -388,17 +450,19 @@ def attn_block_q8s(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
                    bqkv: torch.Tensor, wproj_q8: torch.Tensor,
                    sproj_eff: torch.Tensor, bproj: torch.Tensor,
                    inv_scales: torch.Tensor, num_heads: int,
-                   bias=None) -> torch.Tensor:
+                   bias=None, *, kmajor: Kmajor = None) -> torch.Tensor:
     """Static-scale int8 attention block.  ``sqkv_eff`` / ``sproj_eff`` are
     the per-channel weight scales pre-multiplied by the calibrated input
-    act scales; ``inv_scales`` (2,) fp32 = [1/s_ln1_out, 1/s_attn_out]."""
+    act scales; ``inv_scales`` (2,) fp32 = [1/s_ln1_out, 1/s_attn_out];
+    ``kmajor`` as :func:`attn_block_q8`'s."""
     _no_bias(bias)
     if x.device.type == "cpu":
         return attn_block_q8s_ref(x, g1, b1, wqkv_q8, sqkv_eff, bqkv,
                                   wproj_q8, sproj_eff, bproj, inv_scales,
                                   num_heads)
     out = _attn_cuda("attn_block_q8s", x, g1, b1, wqkv_q8, sqkv_eff, bqkv,
-                     wproj_q8, sproj_eff, bproj, num_heads, inv_scales)
+                     wproj_q8, sproj_eff, bproj, num_heads, inv_scales,
+                     kmajor)
     attn_block_q8s.launches += 1
     return out
 
@@ -408,14 +472,15 @@ def mlp_block_q8s(x: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
                   b1: torch.Tensor, w2_q8: torch.Tensor,
                   s2_eff: torch.Tensor, b2b: torch.Tensor,
                   inv_scales: torch.Tensor,
-                  hidden_chunks: int = 4) -> torch.Tensor:
+                  hidden_chunks: int = 4, *,
+                  kmajor: Kmajor = None) -> torch.Tensor:
     """Static-scale int8 MLP block; ``inv_scales`` (2,) fp32 =
-    [1/s_ln2_out, 1/s_gelu_out]."""
+    [1/s_ln2_out, 1/s_gelu_out]; ``kmajor`` as :func:`mlp_block_q8`'s."""
     if x.device.type == "cpu":
         return mlp_block_q8s_ref(x, g2, b2, w1_q8, s1_eff, b1, w2_q8, s2_eff,
                                  b2b, inv_scales, hidden_chunks)
     out = _mlp_cuda("mlp_block_q8s", x, g2, b2, w1_q8, s1_eff, b1, w2_q8,
-                    s2_eff, b2b, hidden_chunks, inv_scales)
+                    s2_eff, b2b, hidden_chunks, inv_scales, kmajor)
     mlp_block_q8s.launches += 1
     return out
 

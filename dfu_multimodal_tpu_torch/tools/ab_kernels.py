@@ -10,7 +10,8 @@ this checkout twice, then from PARENT_DIR again — parent, change,
 change, parent — each in a process of its own, which builds its
 checkout's kernels into that checkout's ``build/``.  Each turn also
 hashes the outputs of K1, K2, K4, K5 (alone and in the chain rule
-``attn_block_bwd``), K6, K7, K8, K9 and, where the checkout has it, K10
+``attn_block_bwd``), K6, K7 and K8 (attention and MLP blocks), K9 and,
+where the checkout has it, K10
 at ViT-B/16's attention (N = 197, B = 16, seeded inputs, fp32 and bf16),
 of K11 at ResNet-50's stage 3 identity block and stage 1 projection
 block and, where the checkout has it, of K12 at stage 3's tail (B = 8)
@@ -25,13 +26,13 @@ prefixed by its turn, and whether every turn's hash of each output is
 the same.  Two versions are compared only within one run: two runs may
 land on two cards.  Needs a CUDA device; exits non-zero without one.
 
-Against a parent whose bf16 K1/K2 products run on the WMMA tile
-(``csrc/gemm_tile.cuh``) and whose bf16 K1 attention runs the SIMT core
-(``csrc/attention_core.cuh``), only the bf16 K1 line changes (its
-attention sums in another order, with the ex2 exponential) and must
-agree across the two change turns; K2's and the K5 chain rule's bf16
-lines stay equal when the wgmma products equal the WMMA tile's bit for
-bit, and every fp32 line and every other bf16 line is held equal.
+Against a parent whose int8 K7/K8 products run the int8 WMMA kernel and
+whose bf16 K7/K8 attention runs the SIMT core (``csrc/attention_core.cuh``),
+only the bf16 K7 and K8 attention-block lines change (their attention
+sums in another order, with the ex2 exponential) and must agree across
+the two change turns; the MLP blocks' lines (bf16 and fp32) and the fp32
+attention blocks' stay equal when the wgmma products equal the WMMA
+kernel's bit for bit, and every other line is held equal.
 """
 
 from __future__ import annotations
@@ -101,6 +102,10 @@ for dt in (torch.float32, torch.bfloat16):
     mlp = (r(c, 4 * c, s=c ** -0.5), r(4 * c, s=0.1, dtype=torch.float32),
            r(4 * c, c, s=(4 * c) ** -0.5))
     b2b = r(c, s=0.1, dtype=torch.float32)
+    wm = (*q8.quantize_weight(mlp[0].float()), mlp[1],
+          *q8.quantize_weight(mlp[2].float()), b2b)
+    wms = (wm[0], wm[1] * act[0], wm[2], wm[3], wm[4] * act[1], wm[5],
+           wqs[-1])
 
     def bottleneck(cin, cmid, cout):       # BN-folded, fused_bottleneck's
         return [r(cin, cmid, s=cin ** -0.5),   # layouts
@@ -125,7 +130,9 @@ for dt in (torch.float32, torch.bfloat16):
         "K6 qkv_attention_fwd": (at.qkv_attention_fwd(qkv, heads),),
         "K6 qkv_attention_bwd": (at.qkv_attention_bwd(qkv, do, heads),),
         "K7 attn_block_q8": (q8.attn_block_q8(x, *ln, *wq, heads),),
+        "K7 mlp_block_q8": (q8.mlp_block_q8(x, *ln, *wm),),
         "K8 attn_block_q8s": (q8.attn_block_q8s(x, *ln, *wqs, heads),),
+        "K8 mlp_block_q8s": (q8.mlp_block_q8s(x, *ln, *wms),),
         "K9 flash_attention_fwd": (at.flash_attention_fwd(q, k, v),),
         "K9 flash_attention_bwd": at.flash_attention_bwd(q, k, v, d9)}
     qkv_l = r(2, 577, 3 * c)                  # a 384² image's tokens

@@ -3,6 +3,7 @@
     python -m dfu_multimodal_tpu_torch.tools.profile_train [--steps 3]
         [--top 25] [--block-impl fused|flax]
         [--attention-impl auto|pallas|xla] [--eval-multimodal]
+        [--eval-int8 dynamic|static]
 
 Builds the full-width thermal_only ViT-B/16 through :func:`recipe_trainer`
 (seeded weights, bf16 compute, the thermal recipe's batch of 16 — the
@@ -19,8 +20,14 @@ share of the window, and one JSON line with the totals.
 full-width multimodal model (ResNet-50 + ViT-B/16 on K1/K2, the fusion
 head on K3; seeded weights, bf16) through ``Trainer.eval_step`` on a
 batch of 8 random image pairs (``ServingEngine``'s largest bucket), each
-step ending in a copy of the probabilities to the host.  Needs a CUDA
-device; exits non-zero without one.
+step ending in a copy of the probabilities to the host.
+``--eval-int8`` profiles the int8 serving step: the full-width
+thermal_only ViT-B/16 (seeded weights, bf16) quantised on the card,
+``dynamic`` by ``quantize_for_serving`` (K7's blocks), ``static`` by
+``quantize_variables`` calibrated on 16 synthetic images (K8's blocks),
+through ``Trainer.eval_step`` on a batch of 8 random thermal images, each
+step ending in the probabilities' copy to the host.  Needs a CUDA device;
+exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -36,7 +43,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from dfu_multimodal_tpu_torch.data.transforms import eval_normalize
 from dfu_multimodal_tpu_torch.models import zoo
+from dfu_multimodal_tpu_torch.models.vit import quantize_variables
 from dfu_multimodal_tpu_torch.train.engine import (Trainer, TrainConfig,
                                                    class_weights_from_labels,
                                                    rgb_modality,
@@ -94,6 +103,39 @@ def _multimodal_eval(device):
     return step
 
 
+def _int8_eval(device, scales: str):
+    """One int8 serving step of the full-width thermal_only model in bf16
+    (seeded weights), quantised on the card with ``dynamic`` or
+    calibrated ``static`` activation scales, on a batch of EVAL_BATCH
+    random thermal images, ending in the probabilities' copy to the
+    host."""
+    from dfu_multimodal_tpu_torch.serve.engine import quantize_for_serving
+    images, _ = synthetic_thermal(EVAL_BATCH + 16, seed=3)
+    base = Trainer("thermal_only", TrainConfig(compute_dtype="bfloat16"),
+                   {"thermal": thermal_modality()}, device=device,
+                   image_size=IMAGE)
+    zoo.init_model(base.module,
+                   torch.Generator(device=device).manual_seed(0))
+    if scales == "dynamic":
+        trainer = quantize_for_serving(base, image_size=IMAGE)
+    else:
+        calib = eval_normalize(torch.as_tensor(images[EVAL_BATCH:],
+                                               device=device),
+                               thermal_modality(), torch.float32)
+        trainer = Trainer("thermal_only",
+                          TrainConfig(compute_dtype="bfloat16"),
+                          {"thermal": thermal_modality()}, device=device,
+                          image_size=IMAGE, block_impl="fused_q8s")
+        trainer.module.load_state_dict(
+            quantize_variables(base.variables(), calib_batches=[calib]))
+    batch = {"thermal": images[:EVAL_BATCH]}
+
+    def step():
+        with torch.inference_mode():
+            trainer.eval_step(batch)["probs"].cpu()
+    return step
+
+
 def _device_ms(event) -> float:
     us = getattr(event, "self_device_time_total", None)
     if us is None:                     # older torch
@@ -110,6 +152,7 @@ def main(argv=None) -> int:
     ap.add_argument("--attention-impl", default="auto",
                     choices=("auto", "pallas", "xla"))
     ap.add_argument("--eval-multimodal", action="store_true")
+    ap.add_argument("--eval-int8", choices=("dynamic", "static"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -122,6 +165,9 @@ def main(argv=None) -> int:
 
     if args.eval_multimodal:
         step, batch_size, what = _multimodal_eval(dev), EVAL_BATCH, "eval"
+    elif args.eval_int8:
+        step, batch_size, what = (_int8_eval(dev, args.eval_int8),
+                                  EVAL_BATCH, "eval")
     else:
         images, labels = synthetic_thermal(TRAIN_BATCH)
         batch = {"thermal": images, "label": labels,
@@ -151,6 +197,8 @@ def main(argv=None) -> int:
     busy_ms = sum(_device_ms(e) for e in events)
     events.sort(key=_device_ms, reverse=True)
     label = ("multimodal eval" if args.eval_multimodal else
+             f"thermal_only int8 eval, {args.eval_int8} scales"
+             if args.eval_int8 else
              f"block_impl {args.block_impl}, attention_impl "
              f"{args.attention_impl}")
     print(f"[profile] {label}, batch {batch_size}, {args.steps} "
@@ -164,6 +212,7 @@ def main(argv=None) -> int:
               f"calls/step {e.count / args.steps:7.1f}  {e.key[:110]}",
               flush=True)
     print(json.dumps({"step": what, "block_impl": args.block_impl,
+                      "eval_int8": args.eval_int8,
                       "attention_impl": args.attention_impl,
                       "batch": batch_size, "steps": args.steps,
                       "step_ms": wall_ms / args.steps,

@@ -11,6 +11,7 @@ and the forward kernel defers the softmax division past P·V (2e-2).
 Each bound is tol·(1 + |ref|).
 """
 
+import ctypes
 import dataclasses
 import math
 
@@ -356,9 +357,11 @@ def test_thermal_train_step_on_card_matches_cpu():
 # within 2e-2·(1+|ref|); the mean of |err|/(1+|ref|) within 5e-4, which a
 # systematic fault (a wrong scale, a wrong chunk) would exceed.
 Q8_TOL, Q8_MEAN_TOL = 2e-2, 5e-4
-# 60 and 1576 rows: neither a multiple of the GEMM's 64-row tile; C = 64
-# with 4 hidden chunks of 64, and the ViT-B/16 block at the serving batch
-Q8_SHAPES = [(3, 20, 64, 4), (8, 197, 768, 12)]
+# 60 rows and 197·B: none a multiple of the GEMM's 128-row tile; C = 64
+# with 4 hidden chunks of 64 (K groups that end inside a 128-deep stage),
+# and the ViT-B/16 block at B = 1, 2 and the serving batch 8
+Q8_SHAPES = [(3, 20, 64, 4), (1, 197, 768, 12), (2, 197, 768, 12),
+             (8, 197, 768, 12)]
 Q8_ACT = (4.5 / 127, 1.5 / 127)        # calibrated act scales (static)
 Q8_KERNELS = {"attn_block_q8": (q8.attn_block_q8, q8.attn_block_q8_ref),
               "mlp_block_q8": (q8.mlp_block_q8, q8.mlp_block_q8_ref),
@@ -428,6 +431,126 @@ def test_q8_kernels_refuse_bad_int8_weights():
     with pytest.raises(ValueError):         # inv_scales on the CPU
         q8.mlp_block_q8s(x, g2, b2, w1, s1, bb1, w2, s2, bb2, inv.cpu())
     assert q8.attn_block_q8.launches == before
+
+
+def test_q8_kernels_take_kmajor_copies():
+    """The K-major copies passed as ``kmajor`` give the bits the blocks
+    give when they make the copies themselves; a copy of the wrong shape,
+    dtype or alignment raises before any launch."""
+    dev = _cuda()
+    x, args = _q8_args(dev, "attn_block_q8", (2, 197, 768, 12),
+                       torch.bfloat16, seed=13)
+    g1, b1, wq, sq, bq, wp, sp, bp, heads = args
+    kmajor = (wq.t().contiguous(), wp.t().contiguous())
+    assert torch.equal(q8.attn_block_q8(x, *args, kmajor=kmajor),
+                       q8.attn_block_q8(x, *args))
+    x, args = _q8_args(dev, "mlp_block_q8s", (2, 197, 768, 12),
+                       torch.bfloat16, seed=14)
+    w1, w2 = args[2], args[5]
+    kmajor = (w1.t().contiguous(), w2.t().contiguous())
+    assert torch.equal(q8.mlp_block_q8s(x, *args, kmajor=kmajor),
+                       q8.mlp_block_q8s(x, *args))
+    before = q8.mlp_block_q8s.launches
+    with pytest.raises(ValueError):         # (in, out), not (out, in)
+        q8.mlp_block_q8s(x, *args, kmajor=(w1, w2))
+    with pytest.raises(TypeError):          # not int8
+        q8.mlp_block_q8s(x, *args, kmajor=(kmajor[0].float(), kmajor[1]))
+    shifted = torch.empty(kmajor[0].numel() + 1, dtype=torch.int8,
+                          device=dev)[1:].view(kmajor[0].shape)
+    shifted.copy_(kmajor[0])
+    with pytest.raises(ValueError):         # not 16-byte aligned (TMA)
+        q8.mlp_block_q8s(x, *args, kmajor=(shifted, kmajor[1]))
+    assert q8.mlp_block_q8s.launches == before
+
+
+# the int8 GEMM's epilogues (csrc/gemm_sm90.cuh's int8 modes) against the
+# plain integer arithmetic (q8.gemm_q8_ref), bit for bit: the int32 sums
+# are exact in any order and the flush and epilogue round the same
+# operations in the same order.  GELU_F32's erf may differ in its last
+# bits (erff against PyTorch's gelu), within Q8_ERF_TOL·(1+|ref|);
+# GELU_Q8 rounds that GELU to int8 and is held bit for bit.
+Q8_ERF_TOL = 1e-6
+# name: (epilogue, dynamic row scales)
+Q8_GEMM_EPIS = {"out": (q8.QEPI_OUT, True),
+                "out_static": (q8.QEPI_OUT, False),
+                "resid": (q8.QEPI_RESID, True),
+                "resid_static": (q8.QEPI_RESID, False),
+                "gelu_f32": (q8.QEPI_GELU_F32, True),
+                "gelu_q8": (q8.QEPI_GELU_Q8, False)}
+
+
+def _q8_gemm_case(dev, name, dtype, rows, groups, seed, k=768, n=384,
+                  bn=0):
+    """The card's int8 product of seeded operands and the plain integer
+    arithmetic on the same operands: (out, ref)."""
+    epi, dynamic = Q8_GEMM_EPIS[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a_q = torch.randint(-127, 128, (rows, k), generator=g, device=dev,
+                        dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                      dtype=torch.int8)
+    row_scale = (torch.rand(rows, groups, generator=g, device=dev) * 0.02
+                 + 1e-3) if dynamic else None
+    col_scale = torch.rand(n, generator=g, device=dev) * 2e-3 + 1e-4
+    if not dynamic:
+        col_scale = col_scale * 0.02
+    bias = _randn(g, n, scale=0.1)
+    resid = _randn(g, rows, n, dtype=dtype)
+    inv = torch.tensor([127 / 1.5], device=dev)
+    out_dtype = {q8.QEPI_GELU_F32: torch.float32,
+                 q8.QEPI_GELU_Q8: torch.int8}.get(epi, dtype)
+    out = torch.empty(rows, n, dtype=out_dtype, device=dev)
+    q8._gemm(q8._lib(), dtype, epi, a_q, w.t().contiguous(), row_scale,
+             col_scale, bias, resid, inv.data_ptr(), out, k // groups,
+             f"int8 product {name}", bn)
+    torch.cuda.synchronize()
+    ref = q8.gemm_q8_ref(epi, a_q, w, row_scale, col_scale, bias, resid,
+                         inv, k // groups, dtype)
+    return out, ref
+
+
+def _assert_q8_gemm(name, out, ref):
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    if Q8_GEMM_EPIS[name][0] == q8.QEPI_GELU_F32:
+        err = (out - ref).abs() / (1 + ref.abs())
+        assert float(err.max()) <= Q8_ERF_TOL, float(err.max())
+    else:
+        assert torch.equal(out, ref), int((out != ref).sum())
+
+
+# k = 768 in 1 group, or 4 groups of 192 (each ending inside a stage)
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("rows", [5, 197, 394, 1576])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(Q8_GEMM_EPIS))
+def test_q8_gemm_epilogue_bit_equal_to_plain(name, dtype, rows, groups):
+    dev = _cuda()
+    out, ref = _q8_gemm_case(dev, name, dtype, rows, groups, seed=rows)
+    _assert_q8_gemm(name, out, ref)
+
+
+# every tile width at fc2's depth, ragged rows: one K group (every width)
+# or fc2's 4 groups of 768 (the grouped mode stops at 128 wide)
+@pytest.mark.parametrize("bn,groups", [(64, 1), (96, 1), (128, 1), (192, 1),
+                                       (64, 4), (96, 4), (128, 4)])
+@pytest.mark.parametrize("name", list(Q8_GEMM_EPIS))
+def test_q8_gemm_every_width_bit_equal(name, bn, groups):
+    dev = _cuda()
+    out, ref = _q8_gemm_case(dev, name, torch.bfloat16, 394, groups,
+                             seed=bn, k=3072, n=768, bn=bn)
+    _assert_q8_gemm(name, out, ref)
+
+
+def test_q8_gemm_refuses_a_grouped_tile_past_its_widest():
+    """The grouped int8 product at BN = 192 (its sums spill) is refused."""
+    dev = _cuda()
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        _q8_gemm_case(dev, "resid", torch.bfloat16, 197, 4, seed=0, bn=192)
+    lib, width = q8._lib(), ctypes.c_int()    # fc2 at B = 128: 192 unpicked
+    q8._build.check(lib, lib.dfu_q8_gemm_width(
+        0, q8.QEPI_RESID, 25216, 768, 3072, 768, ctypes.addressof(width)),
+        "pick")
+    assert width.value == 128
 
 
 @pytest.mark.parametrize("block_impl", ["fused_q8", "fused_q8s"])
