@@ -18,15 +18,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               and the attention chain rule (gemm_sm90.cuh's
               gemm_kernel), the int8 warpgroup (IGMMA) count of every
               int8 product of K7/K8 (gemm_kernel in vit_block_q8.cu) and
-              the HMMA count of their bf16 attention step, failing on a
-              count of zero but the K6/K9 forward's, and on any int8
-              WMMA (IMMA) left in vit_block_q8.cu;
+              the HMMA count of their bf16 attention step, the HGMMA
+              count of every instantiation of K11's bf16 products and
+              3x3 (gemm_kernel in resnet_block.cu), failing on a
+              count of zero but the K6/K9 forward's, on any int8
+              WMMA (IMMA) left in vit_block_q8.cu and on any
+              gemm_tile.cuh WMMA GEMM kernel left in resnet_block.cu;
 3. kernels  — each forward kernel against its plain PyTorch version on
               the card at the serving and training paths' shapes
               (ViT-B/16 blocks at B = 8, 16 and 128 in fp32 and bf16, K1
               at N = 577 — a 384² image, its fp32 attention on the tiled
-              kernel — the fusion head at B = 8, 13, 128 in fp32), with
-              error and CUDA-event times; the bf16 K1 and K2 (TMA + wgmma
+              kernel — the fusion head K3 at B = 8, 13, 128 in fp32 and
+              bf16), with error and CUDA-event times; K3 also with its
+              weights as nn.Linear's transposed views bit-equal to
+              row-major ones, two calls bit-equal, and the device time
+              (profiler) of the kernel and of its plain version; the
+              bf16 K1 and K2 (TMA + wgmma
               products, K1's attention on the tensor cores) also no
               further from the fp32 result than their plain versions
               (BF16_VS_PLAIN) and two calls bit-equal, at each B and at
@@ -59,9 +66,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               never calls) on the same operands;
 3d. ResNet kernels — the fused bottleneck (K11, identity and projection)
               against its plain version at ResNet-50's five stride-1 block
-              shapes, B = 8 and 128, fp32 and bf16, each beside the time
-              of the port's cuDNN ``Bottleneck.forward`` (eval) and the
-              kernel's bound;
+              shapes, B = 8 and 128, fp32 and bf16, each with its device
+              time (profiler) beside the CUDA-event and device times of
+              the port's cuDNN ``Bottleneck.forward`` (eval) and the
+              kernel's bound, and two calls bit-equal;
 3e. attention kernels — K6 ``qkv_attention_fwd`` / ``_bwd`` and K9
               ``flash_attention_fwd`` / ``_bwd`` against their plain
               versions at ViT-B/16's attention (N = 197, 12 heads, D = 64)
@@ -301,6 +309,12 @@ def phase_build() -> None:
                           required=True)
     _log_tensor_core_sass("vit_block_q8", "attention_fwd_mma", required=True)
     _log_tensor_core_sass("vit_block_q8", "", op="IMMA", forbidden=True)
+    # K11 in bf16: its products (B_MN) and its 3x3 (CONV) on warpgroup MMAs
+    # in every instantiation, and no gemm_tile.cuh WMMA GEMM kernel left in
+    # the library (K12's stage kernel keeps the WMMA tile, by design)
+    _log_tensor_core_sass("resnet_block", "gemm_kernel", op="HGMMA",
+                          required=True)
+    _log_tensor_core_sass("resnet_block", "gemm_bf16_wmma", forbidden=True)
     # bind the entry points now, so a missing symbol fails this phase
     vb._lib()
     at._lib()
@@ -494,19 +508,50 @@ def phase_kernels(dev) -> dict:
             del x, p
         _log_split(f"attn_block {str(dtype).split('.')[1]} B=8", rows[1:])
     dims = (2816, 512, 256, 2)
-    for b in (8, 13, 128):
-        g = torch.Generator(device=dev).manual_seed(1000 + b)
-        args = [_randn(g, b, dims[0])]
-        for din, dout in zip(dims[:-1], dims[1:]):
-            args += [_randn(g, din, dout, scale=din ** -0.5),
-                     _randn(g, dout, scale=0.1)]
-        res = _check_and_time(f"fused_mlp float32 B={b}",
-                              lambda: fm.fused_mlp(*args),
-                              lambda: fm.fused_mlp_ref(*args),
-                              KERNEL_TOL[torch.float32])
-        if b == 8:
-            main["fused_mlp"] = res
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (8, 13, 128):
+            g = torch.Generator(device=dev).manual_seed(1000 + b)
+            args = [_randn(g, b, dims[0], dtype=dtype)]
+            for din, dout in zip(dims[:-1], dims[1:]):
+                args += [_randn(g, din, dout, scale=din ** -0.5,
+                                dtype=dtype),
+                         _randn(g, dout, scale=0.1)]
+            tag = f"{str(dtype).split('.')[1]} B={b}"
+            res = _check_and_time(f"fused_mlp {tag}",
+                                  lambda: fm.fused_mlp(*args),
+                                  lambda: fm.fused_mlp_ref(*args),
+                                  KERNEL_TOL[dtype])
+            _k3_checks(tag, args, res)
+            if dtype == torch.float32 and b == 8:
+                main["fused_mlp"] = res
     return main
+
+
+def _k3_checks(tag, args, res) -> None:
+    """K3 as the model calls it: each weight the transposed view of an
+    (out, in) row-major matrix (``fusion_mlp_params``), bit-equal to the
+    same weights row-major (in, out); two calls bit-equal (no atomics);
+    device ms of the kernel and of the plain version from the profiler
+    (``res`` takes the kernel's as ``device_ms``)."""
+    x, w1, b1, w2, b2, w3, b3 = args
+    views = [w.t().contiguous().t() for w in (w1, w2, w3)]
+
+    def linear_views():
+        return fm.fused_mlp(x, views[0], b1, views[1], b2, views[2], b3)
+
+    out = fm.fused_mlp(*args)
+    calls = torch.equal(out, fm.fused_mlp(*args))
+    layouts = torch.equal(out, linear_views())
+    res["device_ms"] = _device_ms(lambda: fm.fused_mlp(*args))
+    views_ms = _device_ms(linear_views)
+    plain_ms = _device_ms(lambda: fm.fused_mlp_ref(*args))
+    log(f"[kernel] fused_mlp {tag}: device {_ms_or_none(res['device_ms'])}"
+        f" (nn.Linear views {_ms_or_none(views_ms)}, plain "
+        f"{_ms_or_none(plain_ms)}); views bit-equal to (in, out) weights: "
+        f"{layouts}; two calls bit-equal: {calls} "
+        f"{'ok' if calls and layouts else 'FAIL'}")
+    if not (calls and layouts):
+        raise AssertionError(f"fused_mlp {tag}: bits differ")
 
 
 # the host's tensor maps of one bf16 forward block: two a product (A and
@@ -950,19 +995,25 @@ def _bottleneck_weights(gen, cin, cmid, cout, dtype):
     return args
 
 
-def _cudnn_block_ms(dev, x, cin, cmid) -> float:
+def _cudnn_block_ms(dev, x, cin, cmid) -> tuple:
     """The default path's yardstick for the same block: the port's
     ``Bottleneck.forward`` in eval (cuDNN convs, BatchNorm, ReLU, add: a
-    few launches, not one library call) on x's channels-last view."""
+    few launches, not one library call) on x's channels-last view; (CUDA
+    events ms, profiler device ms)."""
     block = Bottleneck(cin, cmid).to(dev).eval()
     xc = x.permute(0, 3, 1, 2)
-    with torch.inference_mode():
-        return cuda_ms(lambda: block(xc))
+
+    def run():
+        with torch.inference_mode():
+            return block(xc)
+
+    return cuda_ms(run), _device_ms(run)
 
 
 def phase_resnet_kernels(dev) -> dict:
     """K11 against its plain version at every stride-1 bottleneck shape of
-    ResNet-50, B = 8 and 128, fp32 and bf16."""
+    ResNet-50, B = 8 and 128, fp32 and bf16, beside the cuDNN block (CUDA
+    events and profiler device ms of both); in bf16 two calls bit-equal."""
     main = {}
     for dtype in (torch.float32, torch.bfloat16):
         for b in RESNET_BATCHES:
@@ -972,13 +1023,24 @@ def phase_resnet_kernels(dev) -> dict:
                 args = _bottleneck_weights(g, cin, cmid, cout, dtype)
                 tag = f"{label} {str(dtype).split('.')[1]} B={b}"
                 bound = _bottleneck_bound(b, hw, cin, cmid, cout)
-                log(f"[resnet] {tag}: cuDNN Bottleneck.forward (eval) "
-                    f"{_cudnn_block_ms(dev, x, cin, cmid):.4f} ms; bound "
-                    f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})")
                 res = _check_and_time(
                     f"fused_bottleneck {tag}",
                     lambda: rb.fused_bottleneck(x, *args),
                     lambda: rb.bottleneck_ref(x, *args), KERNEL_TOL[dtype])
+                res["device_ms"] = _device_ms(
+                    lambda: rb.fused_bottleneck(x, *args))
+                cudnn_ms, cudnn_dev = _cudnn_block_ms(dev, x, cin, cmid)
+                calls = torch.equal(rb.fused_bottleneck(x, *args),
+                                    rb.fused_bottleneck(x, *args))
+                log(f"[resnet] {tag}: device {_ms_or_none(res['device_ms'])};"
+                    f" cuDNN Bottleneck.forward (eval) {cudnn_ms:.4f} ms, "
+                    f"device {_ms_or_none(cudnn_dev)}; bound "
+                    f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})"
+                    f"; two calls bit-equal: {calls} "
+                    f"{'ok' if calls else 'FAIL'}")
+                if not calls:
+                    raise AssertionError(f"fused_bottleneck {tag}: bits "
+                                         f"differ across calls")
                 if dtype == torch.bfloat16 and b == 8 and label in RESNET_MAIN:
                     main[RESNET_MAIN[label]] = res
                 del x, args

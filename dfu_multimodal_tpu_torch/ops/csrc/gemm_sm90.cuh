@@ -14,7 +14,12 @@
 //     hidden chunk, so "no fp32 GELU/LN intermediate ever reaches HBM";
 // and the data products of the attention-block chain rule (vit_block.py::
 // _attn_block_bwd: the qkv recompute, dattn = g·wprojᵀ, dy = dqkv·wqkvᵀ),
-// which the JAX package leaves to XLA.  fp32 (the parity dtype) keeps
+// which the JAX package leaves to XLA; and the bf16 products of
+// dfu_multimodal_tpu/ops/resnet_block.py's _bottleneck_kernel and
+// _bottleneck_proj_kernel (K11, launched by resnet_block.cu): conv1, the
+// 3x3 as an implicit GEMM (the CONV mode) and conv3, with the projection
+// shortcut folded into conv3's launch (the PROJ mode), 64-row tiles where
+// 128-row tiles leave SMs idle.  fp32 (the parity dtype) keeps
 // gemm_tile.cuh's SIMT chain.  And, in both compute dtypes, the four int8
 // products of dfu_multimodal_tpu/ops/vit_block_q8.py's _attn_block_q8_
 // kernel / _mlp_block_q8_kernel (K7) and _attn_block_q8s_kernel /
@@ -69,6 +74,15 @@
 //     ValueError otherwise (C, 3C and hidden multiples of 8).
 //   - sums have a fixed order (k16 steps in k order, no split-K, no
 //     atomics): two calls give the same bits.
+//   - K11's modes: CONV, the 3x3's implicit GEMM (A from y1 by a TMA box
+//     of rows shifted by the stage's tap, the rows whose neighbour lies
+//     outside their image zeroed in the consumers' ldmatrix fragments and
+//     wgmma fed A from registers; or, for Cmid % 64 != 0, gathered by the
+//     producer warpgroup with cp.async), and PROJ, conv3 and the
+//     projection shortcut over one k loop in two accumulators; both
+//     products MN-major B, as B_MN.  Where 128-row tiles leave SMs idle,
+//     B_MN and CONV take 64 x 64 tiles (Tile<..., 64>: one consumer
+//     warpgroup, two blocks an SM);
 //   - the int8 modes (S8, S8_GROUPS): the same ring, producer and tile
 //     walk, a stage 128 int8 deep (the bf16 stage's byte geometry: 128-
 //     byte rows, 128-byte swizzle, a k32 step 32 bytes along the row, so
@@ -116,8 +130,7 @@ namespace dfu {
 namespace {
 namespace sm90 {
 
-constexpr int BM = 128, BK = 64, THREADS = 384;
-constexpr int TILE_A = BM * BK * 2;     // 16 KB: 128 rows of 128 bytes
+constexpr int BM = 128, BK = 64;
 constexpr int BOX_MN = 64 * BK * 2;     // one 64 x 64 MN-major box, 8 KB
 constexpr int SMEM_RING = 196608;       // bytes of stages the dual takes
 constexpr int SMEM_MAX = 232448;        // bytes a block may hold on sm_90
@@ -130,8 +143,15 @@ constexpr int DY_BN = 192;              // the dy product's tile width
 // S8 and S8_GROUPS: one int8 product of K7/K8, A (m, k) and B (n, k)
 // both K-major (the weight's (out, in) copy), int32 sums dequantised into
 // fp32 at the end of each K group: S8 has one group, S8_GROUPS several
-// (fc2's hidden chunks), whose fp32 sum it keeps in registers.
-enum Mode { DUAL = 0, B_MN = 1, B_K = 2, S8 = 3, S8_GROUPS = 4 };
+// (fc2's hidden chunks), whose fp32 sum it keeps in registers.  CONV: the
+// implicit GEMM of K11's 3x3 (B_MN's B, w2 (9·c, c) as stored), its A
+// tile loaded from y (m, c) by TMA or gathered by the producer warpgroup
+// (conv_tma_a, conv_a below).  PROJ: K11's conv3 with its projection
+// shortcut, out = T(max(T(a2·b2 + bias2) + T(a1·b1 + bias), 0)), both Bs
+// MN-major, over one k loop (Cmid == Cin).
+enum Mode {
+  DUAL = 0, B_MN = 1, B_K = 2, S8 = 3, S8_GROUPS = 4, CONV = 5, PROJ = 6
+};
 
 __host__ __device__ constexpr bool is_s8(int mode) {
   return mode == S8 || mode == S8_GROUPS;
@@ -161,10 +181,14 @@ __device__ __forceinline__ int8_t quant_i8(float y, float inv) {
 // DT_F32) of QEPI_OUT / QEPI_RESID and aux their residual, row_scale (m,
 // groups) fp32 the dynamic row scales (null: static), col_scale (n) fp32,
 // inv (1) fp32 QEPI_GELU_Q8's reciprocal scale, and a K group is
-// group_steps k32 steps deep.
+// group_steps k32 steps deep.  CONV: A is conv_y, the (m, conv_c) bf16
+// rows of conv_h x conv_w images (k = 9·conv_c); with conv_tma, a1 is its
+// tensor map (128-row boxes) and A comes by TMA (conv_tma_a), else by the
+// producer's gather (conv_a).
 struct Args {
   CUtensorMap a1, b1, a2, b2, o1, o2;
   const float* bias;
+  const float* bias2;     // PROJ: the shortcut's bias
   const void* aux;
   void* out1;
   int m, n, k, epi;
@@ -172,11 +196,23 @@ struct Args {
   const float* col_scale;
   const float* inv;
   int groups, group_steps, dtype;
+  const bf16* conv_y;
+  int conv_c, conv_h, conv_w, conv_tma;
 };
 
-template <int BN, int MODE>
+// A tile of RM rows (BM, or 64 for products whose 128-row tiles cannot
+// fill the card: one consumer warpgroup, two blocks an SM) and BN columns.
+template <int BN, int MODE, int RM = BM>
 struct Tile {
-  static_assert(MODE != DUAL || BN == 128, "the dual product's B1 is two boxes");
+  static_assert((MODE != DUAL && MODE != PROJ) || BN == 128,
+                "the dual products' Bs are two boxes");
+  static_assert(RM == BM || (RM == 64 && (MODE == B_MN || MODE == CONV)),
+                "64-row tiles: the single bf16 products");
+  static constexpr int GROUPS = RM / 64;              // consumer warpgroups
+  static constexpr int THREADS = (GROUPS + 1) * 128;  // and one producer
+  static constexpr int BLOCKS_PER_SM = RM == BM ? 1 : 2;
+  static constexpr int BUDGET = SMEM_MAX / BLOCKS_PER_SM;
+  static constexpr int TILE_A = RM * BK * 2;          // RM rows of 128 bytes
   // 64-column boxes of an MN-major B (BN = 96 loads two, the second
   // half used)
   static constexpr int BOXES = (BN + 63) / 64;
@@ -184,7 +220,7 @@ struct Tile {
   static constexpr int TILE_B =
       MODE == B_K || is_s8(MODE) ? BN * BK * 2 : BOXES * BOX_MN;
   static constexpr int STAGE =
-      MODE == DUAL ? 2 * (TILE_A + TILE_B) : TILE_A + TILE_B;
+      MODE == DUAL || MODE == PROJ ? 2 * (TILE_A + TILE_B) : TILE_A + TILE_B;
   // offsets in a stage, each a multiple of 1024 (the swizzle's period)
   static constexpr int A1 = 0, B1 = TILE_A, A2 = TILE_A + TILE_B,
                        B2 = 2 * TILE_A + TILE_B;
@@ -196,15 +232,24 @@ struct Tile {
   static constexpr int EPI_WG = MODE == DUAL ? 64 * BN * 2 : 64 * LDE * 2;
   // as many stages as fit beside the epilogue buffers, barriers and the
   // 1 KB that aligns the ring (3 dual; 4 at BN = 192, 8 at 64)
-  static constexpr int FIT = (SMEM_MAX - 1024 - 2 * EPI_WG - 2 * 8 * 8) /
+  static constexpr int FIT = (BUDGET - 1024 - GROUPS * EPI_WG - 2 * 8 * 8) /
                              STAGE;
   static constexpr int STAGES =
       MODE == DUAL ? SMEM_RING / STAGE : (FIT < 8 ? FIT : 8);
   // the ring, the epilogue buffers, the full and empty barriers, and 1 KB
   // to align the ring
-  static constexpr int SMEM = STAGES * STAGE + 2 * EPI_WG + 2 * STAGES * 8 +
-                              1024;
-  static_assert(SMEM <= SMEM_MAX, "shared memory");
+  static constexpr int SMEM = STAGES * STAGE + GROUPS * EPI_WG +
+                              2 * STAGES * 8 + 1024;
+  static_assert(SMEM <= BUDGET, "shared memory");
+  // registers a thread after setmaxnreg: the producer's (more for the
+  // CONV gather's coordinates), and the consumers' share of the rest
+  static constexpr int PRODUCER_REGS = MODE == CONV ? 56 : 40;
+  static constexpr int CONSUMER_REGS =
+      (65536 / BLOCKS_PER_SM - 128 * PRODUCER_REGS) / (128 * GROUPS) / 8 * 8 >
+              232
+          ? 232
+          : (65536 / BLOCKS_PER_SM - 128 * PRODUCER_REGS) / (128 * GROUPS) /
+                8 * 8;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -249,6 +294,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// 16 bytes from src to shared memory at dst, or 16 zero bytes when
+// bytes == 0 (src is then not read).
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
@@ -497,6 +551,174 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a,
   else wgmma_m64n192k16<TRANS_B>(d, a, b);
 }
 
+// d (64 x N, fp32) += A (64 x 16, bf16 fragments in registers, each
+// warp's 16 rows laid out as mma.m16n8k16's A) · B (16 x N) through a
+// descriptor, K-major, or MN-major when TRANS_B.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_m64n96k16(float (&d)[48],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_m64n192k16(float (&d)[96],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TRANS_B));
+}
+
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 64 || N == 96 || N == 128 || N == 192, "tile width");
+  if constexpr (N == 64) wgmma_rs_m64n64k16<TRANS_B>(d, a, b);
+  else if constexpr (N == 96) wgmma_rs_m64n96k16<TRANS_B>(d, a, b);
+  else if constexpr (N == 128) wgmma_rs_m64n128k16<TRANS_B>(d, a, b);
+  else wgmma_rs_m64n192k16<TRANS_B>(d, a, b);
+}
+
+// The A fragment of one warp's 16 rows x 16 k of a 128-byte-swizzled
+// K-major tile (rows of 128 bytes, 16-byte chunks XORed with row % 8):
+// lane l addresses row row0 + l % 16, chunk chunk0 + l / 16.
+__device__ __forceinline__ void ldmatrix_a(uint32_t (&a)[4], uint32_t tile,
+                                           int row0, int chunk0, int lane) {
+  const int r = row0 + (lane & 15), c = chunk0 + (lane >> 4);
+  const uint32_t addr = tile + r * 128 + ((c ^ (r & 7)) << 4);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
 // d (64 x N, int32) += A (64 x 32) · B (32 x N), int8, both K-major through
 // descriptors (wgmma has no transpose for 8-bit types).
 __device__ __forceinline__ void wgmma_s8_m64n64k32(int (&d)[32], uint64_t a,
@@ -647,44 +869,98 @@ __device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
   return v;
 }
 
-// Eight bf16 of `a` plus eight of `b`, each sum in fp32 rounded to bf16:
-// EPI_BIAS_RESID's T(aux + T(acc + bias)) once `b` holds T(acc + bias).
-__device__ __forceinline__ uint4 add_bf16x8(uint4 a, uint4 b) {
+// Eight bf16 of `a` plus eight of `b`, each sum in fp32 (with `relu`,
+// max(sum, 0)) rounded to bf16: EPI_BIAS_RESID's T(aux + T(acc + bias))
+// and EPI_BIAS_RESID_RELU's T(max(aux + T(acc + bias), 0)) once `b` holds
+// T(acc + bias).
+__device__ __forceinline__ uint4 add_bf16x8(uint4 a, uint4 b, bool relu) {
   const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
   const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
   uint4 r;
   __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&r);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    o[i] = __nv_bfloat162(from_f<bf16>(__low2float(x[i]) + __low2float(y[i])),
-                          from_f<bf16>(__high2float(x[i]) +
-                                       __high2float(y[i])));
+  for (int i = 0; i < 4; ++i) {
+    float lo = __low2float(x[i]) + __low2float(y[i]);
+    float hi = __high2float(x[i]) + __high2float(y[i]);
+    if (relu) {
+      lo = fmaxf(lo, 0.f);
+      hi = fmaxf(hi, 0.f);
+    }
+    o[i] = __nv_bfloat162(from_f<bf16>(lo), from_f<bf16>(hi));
+  }
   return r;
+}
+
+// max(o, 0) of eight bf16, each compared in fp32 (exact).
+__device__ __forceinline__ uint4 relu_bf16x8(uint4 a) {
+  __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    x[i] = __nv_bfloat162(from_f<bf16>(fmaxf(__low2float(x[i]), 0.f)),
+                          from_f<bf16>(fmaxf(__high2float(x[i]), 0.f)));
+  return a;
 }
 
 // A consumer group's 64 x BN bf16 tile, staged in its padded buffer (row
 // stride LDE elements), out to device memory in 16-byte chunks of the rows
 // below m and the columns below n, adding the (m, n) bf16 residual
-// p.aux chunk by chunk when `resid` (T(aux + o)).  The group syncs before
-// (its threads wrote the buffer) and after (the buffer is the next
-// tile's).
-template <int BN, int LDE>
+// p.aux chunk by chunk when `resid` (T(aux + o), or T(max(aux + o, 0))
+// when `relu`), else max(o, 0) when `relu`.  The group syncs before (its
+// threads wrote the buffer) and after (the buffer is the next tile's).
+template <int BN, int LDE, int BATCH = BN / 16>
 __device__ __forceinline__ void copy_out_bf16(uint32_t buf, int m0, int n0,
                                               int wg, const Args& p,
-                                              bool resid) {
+                                              bool resid, bool relu = false) {
   sync_group(1 + wg);
   constexpr int CHUNKS = BN / 8;     // 16-byte chunks of a tile row
-  for (int i = threadIdx.x % 128; i < 64 * CHUNKS; i += 128) {
-    const int rr = i / CHUNKS, cc = i % CHUNKS;
-    const int row = m0 + wg * 64 + rr, col = n0 + 8 * cc;
-    if (row >= p.m || col >= p.n) continue;
-    const size_t at = static_cast<size_t>(row) * p.n + col;
-    uint4 o = ld_shared_v4(buf + 2 * (rr * LDE + 8 * cc));
-    if (resid)
-      o = add_bf16x8(
-          *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.aux) +
-                                          at), o);
-    *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out1) + at) = o;
+  constexpr int PER = 64 * CHUNKS / 128;     // a thread's chunks
+  static_assert(PER % BATCH == 0, "whole batches");
+  const int t = threadIdx.x % 128;
+  if (BATCH == 1 || !resid) {
+    // a chunk at a time: nothing to wait for without a residual (the
+    // int8 products take this loop with one too: batches made the
+    // 192-wide kernel spill)
+    for (int i = t; i < 64 * CHUNKS; i += 128) {
+      const int rr = i / CHUNKS, cc = i % CHUNKS;
+      const int row = m0 + wg * 64 + rr, col = n0 + 8 * cc;
+      if (row >= p.m || col >= p.n) continue;
+      const size_t at = static_cast<size_t>(row) * p.n + col;
+      uint4 o = ld_shared_v4(buf + 2 * (rr * LDE + 8 * cc));
+      if (resid)
+        o = add_bf16x8(
+            *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.aux) +
+                                            at), o, relu);
+      else if (relu)
+        o = relu_bf16x8(o);
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out1) + at) = o;
+    }
+  } else {
+    // the residual's chunks loaded BATCH at a time, all of a batch's
+    // loads in flight before its first add (a load and its add chunk by
+    // chunk left conv3 at stage 1 20% slower)
+#pragma unroll
+    for (int j0 = 0; j0 < PER; j0 += BATCH) {
+      uint4 res[BATCH];
+#pragma unroll
+      for (int j = 0; j < BATCH; ++j) {
+        const int i = t + 128 * (j0 + j), rr = i / CHUNKS, cc = i % CHUNKS;
+        const int row = m0 + wg * 64 + rr, col = n0 + 8 * cc;
+        if (row < p.m && col < p.n)
+          res[j] = *reinterpret_cast<const uint4*>(
+              static_cast<const bf16*>(p.aux) +
+              static_cast<size_t>(row) * p.n + col);
+      }
+#pragma unroll
+      for (int j = 0; j < BATCH; ++j) {
+        const int i = t + 128 * (j0 + j), rr = i / CHUNKS, cc = i % CHUNKS;
+        const int row = m0 + wg * 64 + rr, col = n0 + 8 * cc;
+        if (row >= p.m || col >= p.n) continue;
+        const size_t at = static_cast<size_t>(row) * p.n + col;
+        const uint4 o = add_bf16x8(
+            res[j], ld_shared_v4(buf + 2 * (rr * LDE + 8 * cc)), relu);
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out1) + at) = o;
+      }
+    }
   }
   sync_group(1 + wg);
 }
@@ -750,7 +1026,7 @@ __device__ __forceinline__ void store_s8(const float (&facc)[BN / 2],
             __fadd_rn(facc[i], b0), __fadd_rn(facc[i + 1], b1));
       }
     }
-    copy_out_bf16<BN, LDE>(buf, m0, n0, wg, p, p.epi == QEPI_RESID);
+    copy_out_bf16<BN, LDE, 1>(buf, m0, n0, wg, p, p.epi == QEPI_RESID);
     return;
   }
   const float inv = p.epi == QEPI_GELU_Q8 ? p.inv[0] : 0.f;
@@ -786,50 +1062,175 @@ __device__ __forceinline__ void store_s8(const float (&facc)[BN / 2],
   }
 }
 
+// A row's (row in image) << 16 | column, or a row past every image for
+// rows past m, so that no neighbour of it is inside.
+__device__ __forceinline__ int image_yx(int r, int m, int h, int w) {
+  return r < m ? ((r / w) % h) << 16 | (r % w) : 0x7FFF << 16;
+}
+
+// Whether the neighbour (dy, dx) of the row packed as yx lies in its image.
+__device__ __forceinline__ bool inside(int yx, int dy, int dx, int h, int w) {
+  const int yy = (yx >> 16) + dy, xx = (yx & 0xFFFF) + dx;
+  return yy >= 0 && yy < h && xx >= 0 && xx < w;
+}
+
+// The CONV producer when c % 64 == 0: a 64-deep stage lies inside one tap
+// (dy, dx), and its A tile is y's flat rows m0 + dy·w + dx .. +127,
+// channels c0 .. c0 + 63: one TMA load of the tensor map a1 (rows outside
+// y load as zeros), beside B's.  A row whose neighbour falls outside its
+// own image (the shift carries it into the next image row, or image) reads
+// a real row of y here: the consumers zero those rows in their A
+// fragments.  One thread issues every load, as for the dense products.
+template <int BN, int RM>
+__device__ __forceinline__ void conv_tma_a(const Args& p, uint32_t ring,
+                                           uint32_t full, uint32_t empty,
+                                           int n_tiles, int tiles,
+                                           int kblocks) {
+  using T = Tile<BN, CONV, RM>;
+  if (threadIdx.x != T::GROUPS * 128) return;
+  tma_prefetch(&p.a1);
+  tma_prefetch(&p.b1);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / n_tiles * RM, n0 = tile % n_tiles * BN;
+    for (int kb = 0; kb < kblocks; ++kb) {
+      const int k0 = kb * BK, tap = k0 / p.conv_c;
+      const int shift = (tap / 3 - 1) * p.conv_w + tap % 3 - 1;
+      const uint32_t st = ring + stage * T::STAGE, bar = full + 8 * stage;
+      mbar_wait(empty + 8 * stage, phase ^ 1);
+      mbar_expect_tx(bar, T::STAGE);
+      tma_load(st + T::A1, &p.a1, bar, k0 - tap * p.conv_c, m0 + shift);
+#pragma unroll
+      for (int i = 0; i < T::BOXES; ++i)
+        tma_load(st + T::B1 + i * BOX_MN, &p.b1, bar, n0 + 64 * i, k0);
+      if (++stage == T::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// The CONV producer: all 128 threads of warpgroup 2 fill each stage's
+// 128 x 64 A tile of the 3x3's implicit GEMM, A[r, t·c + ch] = y[r + dy·w
+// + dx, ch] when the neighbour (dy, dx) = (t / 3 - 1, t % 3 - 1) of row r
+// lies inside r's own image, else 0 (gemm_tile.cuh's Conv3x3A): k in the
+// flat (tap, channel) order, so the 16-deep wgmma steps sum what the WMMA
+// tile's steps sum.  c % 8 == 0 keeps each 16-byte chunk inside one tap.
+// Thread t copies chunk t % 8 of rows t / 8 + 16j (j < RM / 16) with cp.async
+// (zero-filled outside the image, past m and past k) into TMA's 128-byte
+// swizzled layout; thread 0 also loads B by TMA.  A stage's full barrier
+// counts 129 arrivals: thread 0's expect_tx for B, and one from each
+// thread that the hardware makes once the thread's copies have landed
+// (cp.async.mbarrier.arrive.noinc), so no thread waits for its own
+// copies.  cp.async writes through the generic proxy, which wgmma's
+// descriptors do not read without a proxy fence (a fence per stage, in
+// the producer or the consumers, measured 2.5-3x slower a stage than the
+// TMA products): the consumers take A into registers with ldmatrix and
+// issue wgmma with A from registers, B through its descriptor.
+template <int BN, int RM>
+__device__ __forceinline__ void conv_a(const Args& p, uint32_t ring,
+                                       uint32_t full, uint32_t empty,
+                                       int n_tiles, int tiles, int kblocks) {
+  using T = Tile<BN, CONV, RM>;
+  constexpr int J = RM / 16;          // rows a thread copies
+  const int t = threadIdx.x - T::GROUPS * 128, cc = t & 7, rb = t >> 3;
+  const int c = p.conv_c, h = p.conv_h, w = p.conv_w, k_end = 9 * c;
+  if (t == 0) tma_prefetch(&p.b1);
+  int n = 0;                          // stages issued, over all tiles
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / n_tiles * RM, n0 = tile % n_tiles * BN;
+    // (row in image) << 16 | column of this thread's rows; rows past m
+    // take a row past every image, so no tap is inside
+    int yx[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) yx[j] = image_yx(m0 + rb + 16 * j, p.m, h, w);
+    for (int kb = 0; kb < kblocks; ++kb, ++n) {
+      const int slot = n % T::STAGES;
+      const uint32_t st = ring + slot * T::STAGE, bar = full + 8 * slot;
+      mbar_wait(empty + 8 * slot, ((n / T::STAGES) & 1) ^ 1);
+      if (t == 0) {
+        mbar_expect_tx(bar, T::TILE_B);
+#pragma unroll
+        for (int i = 0; i < T::BOXES; ++i)
+          tma_load(st + T::B1 + i * BOX_MN, &p.b1, bar, n0 + 64 * i, kb * BK);
+      }
+      const int k = kb * BK + 8 * cc;
+      const bool k_in = k < k_end;
+      const int tap = k_in ? k / c : 4;
+      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+      const bf16* src0 = p.conv_y + (k - tap * c) +
+                         static_cast<ptrdiff_t>(dy * w + dx) * c;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int r = rb + 16 * j;
+        const bool in = k_in && inside(yx[j], dy, dx, h, w);
+        cp_async_16(st + T::A1 + r * 128 + ((cc ^ (r & 7)) << 4),
+                    in ? src0 + static_cast<size_t>(m0 + r) * c : p.conv_y,
+                    in ? 16 : 0);
+      }
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                       "r"(bar)
+                   : "memory");
+    }
+  }
+}
+
 // One block: 384 threads; warpgroups 0 and 1 consume (64 rows each),
-// warpgroup 2 produces.  Output tiles BM x BN, walked persistently.  A
-// stage is 128 bytes of k deep: 64 bf16 or 128 int8.
-template <int BN, int MODE>
-__global__ void __launch_bounds__(THREADS, 1)
+// warpgroup 2 produces (64-row tiles: 256 threads, warpgroup 0 consumes,
+// 1 produces).  Output tiles RM x BN, walked persistently.  A stage is 128
+// bytes of k deep: 64 bf16 or 128 int8.
+template <int BN, int MODE, int RM = BM>
+__global__ void __launch_bounds__(Tile<BN, MODE, RM>::THREADS,
+                                  Tile<BN, MODE, RM>::BLOCKS_PER_SM)
 gemm_kernel(const __grid_constant__ Args p) {
-  using T = Tile<BN, MODE>;
+  using T = Tile<BN, MODE, RM>;
   constexpr bool DUALP = MODE == DUAL;
+  constexpr bool TWO = MODE == DUAL || MODE == PROJ;   // two accumulators
   constexpr bool S8P = is_s8(MODE);
   constexpr int KSTAGE = S8P ? 2 * BK : BK;      // k elements a stage
   extern __shared__ uint8_t smem_raw[];
   // the ring starts on a 1024-byte boundary of the shared window
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
-  const uint32_t epi = ring + T::STAGES * T::STAGE;    // 2 x EPI_WG
-  const uint32_t full = epi + 2 * T::EPI_WG;            // STAGES barriers
+  const uint32_t epi = ring + T::STAGES * T::STAGE;    // GROUPS x EPI_WG
+  const uint32_t full = epi + T::GROUPS * T::EPI_WG;    // STAGES barriers
   const uint32_t empty = full + T::STAGES * 8;          // STAGES barriers
   const int wg = threadIdx.x >> 7;
   if (threadIdx.x == 0) {
     for (int s = 0; s < T::STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);        // the producer's expect_tx
-      mbar_init(empty + 8 * s, 2);       // one arrival per consumer group
+      // the producer's expect_tx (CONV: and each gathering thread's)
+      mbar_init(full + 8 * s, MODE == CONV && !p.conv_tma ? 129 : 1);
+      mbar_init(empty + 8 * s, T::GROUPS);  // one per consumer group
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   const int n_tiles = (p.n + BN - 1) / BN;
-  const int tiles = (p.m + BM - 1) / BM * n_tiles;
+  const int tiles = (p.m + RM - 1) / RM * n_tiles;
   const int kblocks = (p.k + KSTAGE - 1) / KSTAGE;
 
-  if (wg == 2) {
+  if (wg == T::GROUPS) {
     // ---------------------------------------------------------- producer
-    setmaxnreg_dec<40>();
-    if (threadIdx.x == 2 * 128) {
+    // (CONV: 128 gathering threads, each holding its rows' coordinates)
+    setmaxnreg_dec<T::PRODUCER_REGS>();
+    if constexpr (MODE == CONV) {
+      if (p.conv_tma)
+        conv_tma_a<BN, RM>(p, ring, full, empty, n_tiles, tiles, kblocks);
+      else
+        conv_a<BN, RM>(p, ring, full, empty, n_tiles, tiles, kblocks);
+    } else if (threadIdx.x == T::GROUPS * 128) {
       tma_prefetch(&p.a1);
       tma_prefetch(&p.b1);
-      if constexpr (DUALP) {
+      if constexpr (TWO) {
         tma_prefetch(&p.a2);
         tma_prefetch(&p.b2);
       }
       int stage = 0;
       uint32_t phase = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
+        const int m0 = tile / n_tiles * RM, n0 = tile % n_tiles * BN;
         for (int kb = 0; kb < kblocks; ++kb) {
           const int k0 = kb * KSTAGE;
           const uint32_t st = ring + stage * T::STAGE, bar = full + 8 * stage;
@@ -841,6 +1242,13 @@ gemm_kernel(const __grid_constant__ Args p) {
             tma_load(st + T::B1 + BOX_MN, &p.b1, bar, n0 + 64, k0);
             tma_load(st + T::A2, &p.a2, bar, k0, m0);
             tma_load(st + T::B2, &p.b2, bar, k0, n0);
+          } else if constexpr (MODE == PROJ) {
+#pragma unroll
+            for (int i = 0; i < T::BOXES; ++i) {
+              tma_load(st + T::B1 + i * BOX_MN, &p.b1, bar, n0 + 64 * i, k0);
+              tma_load(st + T::B2 + i * BOX_MN, &p.b2, bar, n0 + 64 * i, k0);
+            }
+            tma_load(st + T::A2, &p.a2, bar, k0, m0);
           } else if constexpr (MODE == B_MN) {
 #pragma unroll
             for (int i = 0; i < T::BOXES; ++i)
@@ -857,23 +1265,30 @@ gemm_kernel(const __grid_constant__ Args p) {
     }
   } else {
     // --------------------------------------------------------- consumers
-    setmaxnreg_inc<232>();
+    setmaxnreg_inc<T::CONSUMER_REGS>();
     constexpr int R = BN / 2;
     using Acc = std::conditional_t<S8P, int, float>;
     Acc acc1[R];
-    float acc2[DUALP ? R : 1];
+    float acc2[TWO ? R : 1];
     float facc[MODE == S8_GROUPS ? R : 1];   // the flushed K groups' sum
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const uint32_t a_rows = wg * 64 * 128;   // this group's 64 rows of A
     int stage = 0;
     uint32_t phase = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
+      const int m0 = tile / n_tiles * RM, n0 = tile % n_tiles * BN;
       // this thread's first row (accumulators i % 4 < 2; +8 for the rest)
       const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
+      // CONV by TMA: the image positions of the two rows whose A fragments
+      // this thread holds (row0 and row0 + 8)
+      int yx_lo = 0, yx_hi = 0;
+      if constexpr (MODE == CONV) {
+        yx_lo = image_yx(row0, p.m, p.conv_h, p.conv_w);
+        yx_hi = image_yx(row0 + 8, p.m, p.conv_h, p.conv_w);
+      }
 #pragma unroll
       for (int i = 0; i < R; ++i) acc1[i] = Acc(0);
-      if constexpr (DUALP) {
+      if constexpr (TWO) {
 #pragma unroll
         for (int i = 0; i < R; ++i) acc2[i] = 0.f;
       }
@@ -884,8 +1299,33 @@ gemm_kernel(const __grid_constant__ Args p) {
       for (int kb = 0; kb < kblocks; ++kb) {
         mbar_wait(full + 8 * stage, phase);
         const uint32_t st = ring + stage * T::STAGE;
+        // CONV: A into registers (the gather writes it through the generic
+        // proxy); wgmma reads only B through its descriptor.  By TMA, the
+        // rows whose neighbour at this stage's tap lies outside their
+        // image are zeroed here.
+        uint32_t af[MODE == CONV ? BK / 16 : 1][4];
+        if constexpr (MODE == CONV) {
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            ldmatrix_a(af[kk], st + T::A1, wg * 64 + warp * 16, 2 * kk, lane);
+          if (p.conv_tma) {
+            const int tap = kb * BK / p.conv_c, dy = tap / 3 - 1,
+                      dx = tap % 3 - 1;
+            const uint32_t lo = inside(yx_lo, dy, dx, p.conv_h, p.conv_w)
+                                    ? ~0u : 0u;
+            const uint32_t hi = inside(yx_hi, dy, dx, p.conv_h, p.conv_w)
+                                    ? ~0u : 0u;
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk) {
+              af[kk][0] &= lo;
+              af[kk][2] &= lo;
+              af[kk][1] &= hi;
+              af[kk][3] &= hi;
+            }
+          }
+        }
         fence_regs(acc1);
-        if constexpr (DUALP) fence_regs(acc2);
+        if constexpr (TWO) fence_regs(acc2);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
@@ -899,6 +1339,15 @@ gemm_kernel(const __grid_constant__ Args p) {
             wgmma<BN, 0>(acc2,
                          desc_sw128(st + T::A2 + a_rows + 32 * kk, 16, 1024),
                          desc_sw128(st + T::B2 + 32 * kk, 16, 1024));
+          } else if constexpr (MODE == PROJ) {
+            wgmma<BN, 1>(acc1, a1,
+                         desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
+            wgmma<BN, 1>(acc2,
+                         desc_sw128(st + T::A2 + a_rows + 32 * kk, 16, 1024),
+                         desc_sw128(st + T::B2 + 2048 * kk, BOX_MN, 1024));
+          } else if constexpr (MODE == CONV) {
+            wgmma_rs<BN, 1>(acc1, af[kk],
+                            desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
           } else if constexpr (MODE == B_MN) {
             wgmma<BN, 1>(acc1, a1,
                          desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
@@ -925,7 +1374,7 @@ gemm_kernel(const __grid_constant__ Args p) {
         }
         wgmma_commit();
         fence_regs(acc1);
-        if constexpr (DUALP) fence_regs(acc2);
+        if constexpr (TWO) fence_regs(acc2);
         wgmma_wait();       // this stage's products have read it
         if (threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * stage);
         if (++stage == T::STAGES) {
@@ -934,7 +1383,7 @@ gemm_kernel(const __grid_constant__ Args p) {
         }
       }
       fence_regs(acc1);
-      if constexpr (DUALP) fence_regs(acc2);
+      if constexpr (TWO) fence_regs(acc2);
 
       // epilogue: accumulator i of n-octet j holds row 16·warp + lane/4
       // (+8 for i = 2, 3) and columns 8j + 2·(lane % 4) (+1 for odd i)
@@ -996,12 +1445,42 @@ gemm_kernel(const __grid_constant__ Args p) {
                             acc1[4 * j + 2 * half + 1]);
           }
         }
+      } else if constexpr (MODE == PROJ) {
+        // the chain's arithmetic (EPI_BIAS for the shortcut, then
+        // EPI_BIAS_RESID_RELU): sc = T(acc2 + bias2), y3 = T(acc1 + bias),
+        // out = T(max(sc + y3, 0)) through the padded buffer
+        const uint32_t buf = epi + wg * T::EPI_WG;
+        const int r = warp * 16 + (lane >> 2);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * (lane & 3);
+          const bool in = col < p.n;
+          const float b0 = in ? p.bias[col] : 0.f;
+          const float b1 = in ? p.bias[col + 1] : 0.f;
+          const float s0 = in ? p.bias2[col] : 0.f;
+          const float s1 = in ? p.bias2[col + 1] : 0.f;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int i = 4 * j + 2 * half;
+            const float v0 = to_f(from_f<bf16>(acc2[i] + s0)) +
+                             to_f(from_f<bf16>(acc1[i] + b0));
+            const float v1 = to_f(from_f<bf16>(acc2[i + 1] + s1)) +
+                             to_f(from_f<bf16>(acc1[i + 1] + b1));
+            st_shared_bf16x2(
+                buf + 2 * ((r + 8 * half) * T::LDE + 8 * j + 2 * (lane & 3)),
+                fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+          }
+        }
+        copy_out_bf16<BN, T::LDE>(buf, m0, n0, wg, p, false);
       } else {
         // bf16 out, gemm_tile.cuh's store_out arithmetic: o = T(acc +
-        // bias), T(gelu(acc + bias)) or T(acc) into this group's padded
-        // 64 x BN buffer, then 16-byte chunks of rows below m and columns
-        // below n out to device memory (EPI_BIAS_RESID adds its residual
-        // chunk there: T(aux + o))
+        // bias), T(gelu(acc + bias)) or T(acc) into this group's padded 64
+        // x BN buffer, then 16-byte chunks of rows below m and columns
+        // below n out to device memory (EPI_BIAS_RELU takes max(o, 0)
+        // there, the same bits as T(max(acc + bias, 0)): rounding keeps
+        // the sign and 0; EPI_BIAS_RESID adds its residual chunk: T(aux +
+        // o); EPI_BIAS_RESID_RELU T(max(aux + o, 0))).  A ReLU branch in
+        // the register loop above cost the ViT products 4-30%.
         const uint32_t buf = epi + wg * T::EPI_WG;
         const int r = warp * 16 + (lane >> 2);
         const bool bias = p.epi != EPI_NONE;
@@ -1027,8 +1506,10 @@ gemm_kernel(const __grid_constant__ Args p) {
                 v0, v1);
           }
         }
-        copy_out_bf16<BN, T::LDE>(buf, m0, n0, wg, p,
-                                  p.epi == EPI_BIAS_RESID);
+        copy_out_bf16<BN, T::LDE>(
+            buf, m0, n0, wg, p,
+            p.epi == EPI_BIAS_RESID || p.epi == EPI_BIAS_RESID_RELU,
+            p.epi == EPI_BIAS_RESID_RELU || p.epi == EPI_BIAS_RELU);
       }
     }
   }
@@ -1088,19 +1569,22 @@ inline cudaError_t encode(CUtensorMap* map, const void* base, int rows,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// One persistent launch of gemm_kernel<BN, MODE>: min(tiles, SMs) blocks.
-// The shared-memory limit is set and the SM count asked once per device.
-template <int BN, int MODE>
+// One persistent launch of gemm_kernel<BN, MODE, RM>: min(tiles, blocks
+// the SMs hold at once) blocks.  The shared-memory limit is set and the SM
+// count asked once per device.
+template <int BN, int MODE, int RM = BM>
 cudaError_t launch(const Args& args, int device, cudaStream_t s) {
-  using T = Tile<BN, MODE>;
+  using T = Tile<BN, MODE, RM>;
   static std::atomic<int> limit[MAX_DEVICES];
   int sms = 0;
-  cudaError_t err = smem_limit_once(gemm_kernel<BN, MODE>, T::SMEM, limit);
+  cudaError_t err =
+      smem_limit_once(gemm_kernel<BN, MODE, RM>, T::SMEM, limit);
   if (err == cudaSuccess) err = sm_count(device, &sms);
   if (err != cudaSuccess) return err;
-  const int tiles = cdiv(args.m, BM) * cdiv(args.n, BN);
-  gemm_kernel<BN, MODE><<<tiles < sms ? tiles : sms, THREADS, T::SMEM, s>>>(
-      args);
+  const int tiles = cdiv(args.m, RM) * cdiv(args.n, BN);
+  const int slots = sms * T::BLOCKS_PER_SM;
+  gemm_kernel<BN, MODE, RM>
+      <<<tiles < slots ? tiles : slots, T::THREADS, T::SMEM, s>>>(args);
   return cudaGetLastError();
 }
 

@@ -12,31 +12,45 @@
 //   of x, output and weights: 3.5-7.7 us at the card's peaks, bytes-bound
 //   at 56x56 and 28x28 and 7x7, operation-bound at 14x14
 //   (chip_smoke.py::kernel_bounds).  The three products are small (K = 64
-//   to 2048, N = 64 to 2048), and at 7x7 only 392 rows (7 row tiles) are
-//   there to spread over 132 SMs.
+//   to 4608, N = 64 to 2048), and at 7x7 only 392 rows (4 row tiles of
+//   128) are there to spread over 132 SMs.
 //
 // What the design does about it: the TPU kernel keeps one image's rows in
-//   VMEM and builds the 3x3 from sublane rolls plus masks.  Here the 3x3 is
-//   an implicit GEMM (gemm_tile.cuh::Conv3x3A): M = B·H·W rows, N = Cmid,
-//   K = 9·Cmid, the A tile gathered tap by tap from y1 with the neighbour
-//   masked when it falls outside its own image, so no im2col buffer is
-//   written.  Each block is a short chain of launches of the port's hand
-//   GEMM tile (WMMA bf16 / SIMT fp32, fp32 accumulation) with fused
-//   epilogues: conv1 + bias + ReLU -> y1, 3x3 + bias + ReLU -> y2,
-//   [projection + bias -> sc], conv3 + bias rounded to the compute dtype,
-//   + shortcut in the compute dtype, ReLU -> out.  y1, y2 (and sc) go
-//   through device memory: 2·rows·Cmid·2 bytes each way (plus rows·Cout·2
-//   for sc) beyond the bound's x and out, ~2x the bound's bytes at 56x56.
-//   Keeping y1 (a spatial tile plus a one-row halo) and y2 in shared
-//   memory, pipelined loads (TMA + wgmma) and split-K for the 7x7 stage
-//   are the next speed work.
+//   VMEM and builds the 3x3 from sublane rolls plus masks.  Here each block
+//   is a short chain of launches with fused epilogues: conv1 + bias + ReLU
+//   -> y1, the 3x3 + bias + ReLU -> y2, [projection + bias -> sc], conv3 +
+//   bias rounded to the compute dtype, + shortcut in the compute dtype,
+//   ReLU -> out.  In bf16 every product runs on gemm_sm90.cuh's persistent
+//   TMA + wgmma GEMM (128-row tiles at pick_bn's widths, or 64 x 64 tiles
+//   two blocks an SM where 128-row tiles would leave SMs idle: the 7x7 and
+//   14x14 stages at the serving batch; the weights read as stored through
+//   wgmma's transpose bit, no copy).  The 3x3 is its CONV mode, an
+//   implicit GEMM (M = B·H·W rows, N = Cmid, K = 9·Cmid) read from y1 in
+//   place, so no im2col buffer is written: where Cmid % 64 == 0 (every
+//   ResNet-50 stage) each 64-deep stage lies inside one tap and its A tile
+//   is one TMA box of y1's rows shifted by the tap, the rows whose
+//   neighbour lies outside their own image zeroed in the consumers'
+//   registers; other Cmid (multiples of 8) are gathered by the producer
+//   warpgroup with cp.async (whose issue rate, not the tensor cores, then
+//   sets the pace).  A projection block with Cin == Cmid (ResNet-50's)
+//   runs conv3 and the shortcut in one launch (PROJ: two accumulators over
+//   one k loop), so sc never goes through device memory.  No split-K: the
+//   k sums keep the WMMA tile's order.  fp32 (the parity dtype) runs
+//   gemm_tile.cuh's SIMT tile, the 3x3 through its Conv3x3A loader.  y1
+//   and y2 go through device memory: 2·rows·Cmid·2 bytes each way beyond
+//   the bound's x and out; the 3x3 reads y1 nine times, mostly from L2.
+//   Keeping y1 (a spatial tile plus a one-row halo) and y2 on chip is the
+//   next speed work.
 //
 // Numerics follow the Pallas kernel: operands in the compute dtype, fp32
 // accumulation, y1 and y2 rounded to the compute dtype after bias and
 // ReLU, y3 rounded after its bias, the residual add and the final ReLU in
-// the compute dtype.
+// the compute dtype.  The bf16 k sums run in 16-deep tensor-core steps in
+// the flat k order of gemm_tile.cuh's WMMA tile (tap-major for the 3x3),
+// so K11 equals K12's stage kernel, which chains that tile, bit for bit.
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
 
 #include <cooperative_groups.h>
@@ -177,6 +191,97 @@ stage_f32_simt(const __grid_constant__ StageParams p) {
 }  // namespace
 }  // namespace dfu
 
+// ------------------------------------------------------- the bottleneck
+
+namespace dfu {
+namespace {
+namespace sm90 {
+
+// One bf16 product of the bottleneck on the TMA + wgmma GEMM: out (m, n) =
+// epilogue `epi` (EPI_BIAS, EPI_BIAS_RELU, EPI_BIAS_RESID_RELU with aux the
+// (m, n) shortcut) of a (m, k) · b, b (k, n) read as stored (MN-major);
+// with conv_h > 0 the 3x3's implicit GEMM over a = y (m, k / 9) of conv_h x
+// conv_w images.  Bases 16-byte aligned, n and k multiples of 8.
+inline cudaError_t product(int epi, const void* a, const void* b,
+                           const float* bias, const void* aux, void* out,
+                           int m, int n, int k, int device, cudaStream_t s,
+                           int conv_h = 0, int conv_w = 0) {
+  if (m < 1 || n < 8 || k < 8 || n % 8 || k % 8)
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
+  // 64 x 64 tiles, two blocks an SM, where even 128 x 64 tiles leave SMs
+  // idle (the 7x7 and 14x14 stages at the serving batch); else pick_bn's
+  const bool small = cdiv(m, BM) * cdiv(n, 64) < sms;
+  const int rows = small ? 64 : BM;
+  const int bn = small ? 64 : pick_bn(m, n, k, true, sms);
+  Args p{};
+  // the 3x3's A by TMA when every 64-deep stage lies inside one tap
+  const int tma_a = conv_h == 0 || (k / 9) % BK == 0;
+  err = encode(&p.b1, b, k, n, BK);
+  if (err == cudaSuccess && tma_a)
+    err = encode(&p.a1, a, m, conv_h == 0 ? k : k / 9, rows);
+  if (err != cudaSuccess) return err;
+  p.bias = bias;
+  p.aux = aux;
+  p.out1 = out;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.epi = epi;
+  if (conv_h == 0)
+    return small ? launch<64, B_MN, 64>(p, device, s)
+                 : launch_width<B_MN>(bn, p, device, s);
+  p.conv_y = static_cast<const bf16*>(a);
+  p.conv_c = k / 9;
+  p.conv_h = conv_h;
+  p.conv_w = conv_w;
+  p.conv_tma = tma_a;
+  return small ? launch<64, CONV, 64>(p, device, s)
+               : launch_width<CONV>(bn, p, device, s);
+}
+
+// K11's conv3 with its projection shortcut in one launch (PROJ, 128 x 128
+// tiles): out (m, n) = T(max(T(x·wd + bd) + T(y2·w3 + b3), 0)), y2 (m, k)
+// and x (m, k) (Cmid == Cin == k), w3 and wd (k, n) read as stored.
+inline cudaError_t conv3_proj(const void* y2, const void* w3,
+                              const float* b3, const void* x, const void* wd,
+                              const float* bd, void* out, int m, int n, int k,
+                              int device, cudaStream_t s) {
+  if (m < 1 || n < 8 || k < 8 || n % 8 || k % 8) return cudaErrorInvalidValue;
+  Args p{};
+  cudaError_t err = encode(&p.a1, y2, m, k, BM);
+  if (err == cudaSuccess) err = encode(&p.b1, w3, k, n, BK);
+  if (err == cudaSuccess) err = encode(&p.a2, x, m, k, BM);
+  if (err == cudaSuccess) err = encode(&p.b2, wd, k, n, BK);
+  if (err != cudaSuccess) return err;
+  p.bias = b3;
+  p.bias2 = bd;
+  p.out1 = out;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  return launch<128, PROJ>(p, device, s);
+}
+
+}  // namespace sm90
+
+// One fp32 product on gemm_tile.cuh's SIMT tile, A staged by ALoad<float>
+// {a, m, args...} (DenseA: k; Conv3x3A: c, h, w).
+template <int EPI, template <typename> class ALoad, typename... Args>
+void launch_simt(const void* a, const void* b, const float* bias, void* aux,
+                 void* out, int m, int n, int k, cudaStream_t s,
+                 Args... args) {
+  const dim3 grid(cdiv(n, SBN), cdiv(m, SBM));
+  gemm_f32_simt<EPI, false><<<grid, STHREADS, 0, s>>>(
+      ALoad<float>{static_cast<const float*>(a), m, args...},
+      static_cast<const float*>(b), bias, aux, out, m, n, k);
+}
+
+}  // namespace
+}  // namespace dfu
+
 extern "C" {
 
 const char* dfu_error_string(int code) {
@@ -187,8 +292,11 @@ const char* dfu_error_string(int code) {
 // image-major; w1 (cin, cmid), w2 (9·cmid, cmid) row-stacked 3x3 taps
 // ((dy, dx) row-major), w3 (cmid, cout) in the compute dtype; b1, b2 (cmid)
 // and b3 (cout) fp32.  Projection: wd (cin, cout) and bd (cout) with the
-// scratch sc (rows, cout); identity (cin == cout): wd, bd and sc null.
-// Scratch y1, y2 (rows, cmid) in the compute dtype.
+// scratch sc (rows, cout), null in bf16 when cin == cmid (one product);
+// identity (cin == cout): wd, bd and sc null.
+// Scratch y1, y2 (rows, cmid) in the compute dtype.  bf16 runs the TMA +
+// wgmma GEMM: bases 16-byte aligned, cin, cmid and cout multiples of 8
+// (else cudaErrorInvalidValue); fp32 the SIMT tile.
 int dfu_bottleneck(int device, int dtype, const void* x, const void* w1,
                    const void* b1, const void* w2, const void* b2,
                    const void* w3, const void* b3, const void* wd,
@@ -198,22 +306,41 @@ int dfu_bottleneck(int device, int dtype, const void* x, const void* w1,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  launch_gemm<EPI_BIAS_RELU, false, DenseA>(
-      dtype, x, w1, static_cast<const float*>(b1), nullptr, y1, rows, cmid,
-      cin, s, cin);
-  launch_gemm<EPI_BIAS_RELU, false, Conv3x3A>(
-      dtype, y1, w2, static_cast<const float*>(b2), nullptr, y2, rows, cmid,
-      9 * cmid, s, cmid, h, w);
-  const void* shortcut = x;
-  if (wd != nullptr) {
-    launch_gemm<EPI_BIAS, false, DenseA>(
-        dtype, x, wd, static_cast<const float*>(bd), nullptr, sc, rows, cout,
-        cin, s, cin);
-    shortcut = sc;
+  const float* f1 = static_cast<const float*>(b1);
+  const float* f2 = static_cast<const float*>(b2);
+  const float* f3 = static_cast<const float*>(b3);
+  const float* fd = static_cast<const float*>(bd);
+  const void* shortcut = wd != nullptr ? sc : x;
+  if (dtype == DT_BF16) {
+    if (cin % 8 || cmid % 8 || cout % 8)
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = sm90::product(EPI_BIAS_RELU, x, w1, f1, nullptr, y1, rows, cmid,
+                        cin, device, s);
+    if (err == cudaSuccess)
+      err = sm90::product(EPI_BIAS_RELU, y1, w2, f2, nullptr, y2, rows, cmid,
+                          9 * cmid, device, s, h, w);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (wd != nullptr && cin == cmid)    // the shortcut in conv3's launch
+      return static_cast<int>(sm90::conv3_proj(y2, w3, f3, x, wd, fd, out,
+                                               rows, cout, cmid, device, s));
+    if (wd != nullptr)
+      err = sm90::product(EPI_BIAS, x, wd, fd, nullptr, sc, rows, cout, cin,
+                          device, s);
+    if (err == cudaSuccess)
+      err = sm90::product(EPI_BIAS_RESID_RELU, y2, w3, f3, shortcut, out,
+                          rows, cout, cmid, device, s);
+    return static_cast<int>(err);
   }
-  launch_gemm<EPI_BIAS_RESID_RELU, false, DenseA>(
-      dtype, y2, w3, static_cast<const float*>(b3),
-      const_cast<void*>(shortcut), out, rows, cout, cmid, s, cmid);
+  launch_simt<EPI_BIAS_RELU, DenseA>(x, w1, f1, nullptr, y1, rows, cmid, cin,
+                                     s, cin);
+  launch_simt<EPI_BIAS_RELU, Conv3x3A>(y1, w2, f2, nullptr, y2, rows, cmid,
+                                       9 * cmid, s, cmid, h, w);
+  if (wd != nullptr)
+    launch_simt<EPI_BIAS, DenseA>(x, wd, fd, nullptr, sc, rows, cout, cin, s,
+                                  cin);
+  launch_simt<EPI_BIAS_RESID_RELU, DenseA>(y2, w3, f3,
+                                           const_cast<void*>(shortcut), out,
+                                           rows, cout, cmid, s, cmid);
   DFU_RETURN_LAST_ERROR();
 }
 

@@ -18,7 +18,11 @@ compute dtype; biases fp32.
 
 Dispatch is by device only: a CPU tensor takes the plain version
 (:func:`bottleneck_ref`, :func:`stage_ref`), a CUDA tensor launches
-``csrc/resnet_block.cu`` or raises.  :class:`FusedBottleneck` and
+``csrc/resnet_block.cu`` or raises.  In bf16 :func:`fused_bottleneck`
+runs its products on ``csrc/gemm_sm90.cuh``'s TMA + wgmma GEMM (the 3x3
+as its implicit-GEMM mode), which takes channel counts that are
+multiples of 8 and 16-byte-aligned operands; fp32 and :func:`fused_stage`
+run ``csrc/gemm_tile.cuh``'s tiles.  :class:`FusedBottleneck` and
 :class:`FusedStage` are the ``torch.autograd.Function``s: forward the
 kernel, backward autograd through the plain version from the saved
 inputs (remat, as the JAX custom VJPs; there is no backward kernel).
@@ -75,8 +79,10 @@ def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                      bd: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One stride-1 bottleneck with BatchNorm pre-folded.  x (B, H, W, Cin)
     contiguous NHWC; returns (B, H, W, Cout) contiguous in x's dtype.
-    ``wd``/``bd`` give the projection shortcut, else Cin == Cout.  Counts
-    ``fused_bottleneck.launches`` (identity) and ``.proj_launches``."""
+    ``wd``/``bd`` give the projection shortcut, else Cin == Cout.  bf16
+    needs Cin, Cmid and Cout multiples of 8 and 16-byte-aligned x and
+    weights (ValueError otherwise).  Counts ``fused_bottleneck.launches``
+    (identity) and ``.proj_launches``."""
     if (wd is None) != (bd is None):
         raise ValueError("fused_bottleneck: give both wd and bd, or neither")
     if x.device.type == "cpu":
@@ -102,11 +108,15 @@ def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(
             f"fused_bottleneck: x {tuple(x.shape)} with {got}; want {want}"
             + ("" if proj else " and Cin == Cout (identity shortcut)"))
+    if x.dtype == torch.bfloat16:
+        _check_tma(x, compute, cin, cmid, cout)
     lib, rows = _lib(), bsz * h * w
     y1 = torch.empty((rows, cmid), dtype=x.dtype, device=x.device)
     y2 = torch.empty_like(y1)
+    # the shortcut's scratch, but where bf16 runs conv3 and the projection
+    # as one product (Cin == Cmid)
     sc = (torch.empty((rows, cout), dtype=x.dtype, device=x.device)
-          if proj else None)
+          if proj and (x.dtype != torch.bfloat16 or cin != cmid) else None)
     out = torch.empty((bsz, h, w, cout), dtype=x.dtype, device=x.device)
 
     def ptr(t):
@@ -123,6 +133,22 @@ def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     else:
         fused_bottleneck.launches += 1
     return out
+
+
+def _check_tma(x: torch.Tensor, operands: dict, cin: int, cmid: int,
+               cout: int) -> None:
+    """Raise ValueError unless the bf16 bottleneck's TMA + wgmma products
+    take these operands: every row stride (Cin, Cmid, Cout) a multiple of
+    8 elements (16 bytes; the 3x3's gather also copies 16-byte chunks of
+    one tap) and every base 16-byte aligned."""
+    if cin % 8 or cmid % 8 or cout % 8:
+        raise ValueError(
+            f"fused_bottleneck: bf16 takes Cin, Cmid and Cout that are "
+            f"multiples of 8, got {cin}, {cmid}, {cout} (x {tuple(x.shape)})")
+    for name, t in operands.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_bottleneck: bf16 {name} must be 16-byte "
+                             f"aligned")
 
 
 # launch counts: one per call that ran the kernels (CPU calls do not count)

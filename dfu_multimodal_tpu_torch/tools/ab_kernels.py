@@ -15,8 +15,9 @@ where the checkout has it, K10
 at ViT-B/16's attention (N = 197, B = 16, seeded inputs, fp32 and bf16),
 of K11 at ResNet-50's stage 3 identity block and stage 1 projection
 block and, where the checkout has it, of K12 at stage 3's tail (B = 8)
-through the public entry points, and of the K6 and K9 forwards at N = 577
-as well (:data:`BITS`), and runs phase 6 (int8 serving, its card vs CPU
+through the public entry points, of the K6 and K9 forwards at N = 577
+and of K3 (the fusion head, B = 8) as well (:data:`BITS`), and runs
+phase 6 (int8 serving, its card vs CPU
 checks)
 with this checkout's ``zoo.init_model`` in both checkouts, so that a
 change of the int8 path shows apart from a change of the initial weights
@@ -68,6 +69,7 @@ BITS = r"""
 import hashlib
 import torch
 from dfu_multimodal_tpu_torch.ops import attention as at
+from dfu_multimodal_tpu_torch.ops import fused_mlp as fm
 from dfu_multimodal_tpu_torch.ops import resnet_block as rb
 from dfu_multimodal_tpu_torch.ops import vit_block as vb
 from dfu_multimodal_tpu_torch.ops import vit_block_q8 as q8
@@ -153,6 +155,11 @@ for dt in (torch.float32, torch.bfloat16):
     outs["K11 chain stage3"] = (h,)
     if hasattr(rb, "fused_stage"):
         outs["K12 fused_stage stage3"] = (rb.fused_stage(x3, stage3),)
+    head = [r(8, 2816)]                       # the fusion head, B = 8
+    for din, dout in ((2816, 512), (512, 256), (256, 2)):
+        head += [r(din, dout, s=din ** -0.5),
+                 r(dout, s=0.1, dtype=torch.float32)]
+    outs["K3 fused_mlp"] = (fm.fused_mlp(*head),)
     for name, ts in outs.items():
         print(f"[bits] {name} {str(dt).split('.')[1]} {sha(*ts)}")
 """

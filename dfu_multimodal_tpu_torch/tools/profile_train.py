@@ -3,7 +3,7 @@
     python -m dfu_multimodal_tpu_torch.tools.profile_train [--steps 3]
         [--top 25] [--block-impl fused|flax]
         [--attention-impl auto|pallas|xla] [--eval-multimodal]
-        [--eval-int8 dynamic|static]
+        [--eval-int8 dynamic|static] [--eval-rgb-only fused|flax]
 
 Builds the full-width thermal_only ViT-B/16 through :func:`recipe_trainer`
 (seeded weights, bf16 compute, the thermal recipe's batch of 16 — the
@@ -26,8 +26,12 @@ thermal_only ViT-B/16 (seeded weights, bf16) quantised on the card,
 ``dynamic`` by ``quantize_for_serving`` (K7's blocks), ``static`` by
 ``quantize_variables`` calibrated on 16 synthetic images (K8's blocks),
 through ``Trainer.eval_step`` on a batch of 8 random thermal images, each
-step ending in the probabilities' copy to the host.  Needs a CUDA device;
-exits non-zero without one.
+step ending in the probabilities' copy to the host.
+``--eval-rgb-only`` profiles the rgb_only serving step: the full-width
+ResNet-50 (seeded weights, bf16) with its stride-1 bottlenecks on K11
+(``fused``) or on cuDNN (``flax``), through ``Trainer.eval_step`` on a
+batch of 8 random RGB images, each step ending in the probabilities' copy
+to the host.  Needs a CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -103,6 +107,24 @@ def _multimodal_eval(device):
     return step
 
 
+def _rgb_only_eval(device, block_impl: str):
+    """One serving step of the full-width rgb_only ResNet-50 in bf16
+    (seeded weights) with ``block_impl`` on a batch of EVAL_BATCH random
+    RGB images, ending in the probabilities' copy to the host."""
+    trainer = Trainer("rgb_only", TrainConfig(compute_dtype="bfloat16"),
+                      {"rgb": rgb_modality()}, device=device,
+                      image_size=IMAGE, block_impl=block_impl)
+    zoo.init_model(trainer.module,
+                   torch.Generator(device=device).manual_seed(0))
+    batch = {"rgb": np.random.default_rng(0).integers(
+        0, 256, (EVAL_BATCH, IMAGE, IMAGE, 3), dtype=np.uint8)}
+
+    def step():
+        with torch.inference_mode():
+            trainer.eval_step(batch)["probs"].cpu()
+    return step
+
+
 def _int8_eval(device, scales: str):
     """One int8 serving step of the full-width thermal_only model in bf16
     (seeded weights), quantised on the card with ``dynamic`` or
@@ -153,6 +175,7 @@ def main(argv=None) -> int:
                     choices=("auto", "pallas", "xla"))
     ap.add_argument("--eval-multimodal", action="store_true")
     ap.add_argument("--eval-int8", choices=("dynamic", "static"))
+    ap.add_argument("--eval-rgb-only", choices=("fused", "flax"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -167,6 +190,9 @@ def main(argv=None) -> int:
         step, batch_size, what = _multimodal_eval(dev), EVAL_BATCH, "eval"
     elif args.eval_int8:
         step, batch_size, what = (_int8_eval(dev, args.eval_int8),
+                                  EVAL_BATCH, "eval")
+    elif args.eval_rgb_only:
+        step, batch_size, what = (_rgb_only_eval(dev, args.eval_rgb_only),
                                   EVAL_BATCH, "eval")
     else:
         images, labels = synthetic_thermal(TRAIN_BATCH)
@@ -199,6 +225,8 @@ def main(argv=None) -> int:
     label = ("multimodal eval" if args.eval_multimodal else
              f"thermal_only int8 eval, {args.eval_int8} scales"
              if args.eval_int8 else
+             f"rgb_only eval, block_impl {args.eval_rgb_only}"
+             if args.eval_rgb_only else
              f"block_impl {args.block_impl}, attention_impl "
              f"{args.attention_impl}")
     print(f"[profile] {label}, batch {batch_size}, {args.steps} "
@@ -213,6 +241,7 @@ def main(argv=None) -> int:
               flush=True)
     print(json.dumps({"step": what, "block_impl": args.block_impl,
                       "eval_int8": args.eval_int8,
+                      "eval_rgb_only": args.eval_rgb_only,
                       "attention_impl": args.attention_impl,
                       "batch": batch_size, "steps": args.steps,
                       "step_ms": wall_ms / args.steps,

@@ -122,6 +122,55 @@ def test_fused_mlp_kernel_matches_plain(batch, dtype):
     _assert_close(out, fm.fused_mlp_ref(*args), TOL[dtype])
 
 
+def _fused_mlp_args(dev, batch, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dims = (2816, 512, 256, 2)
+    args = [_randn(g, batch, dims[0], dtype=dtype)]
+    for din, dout in zip(dims[:-1], dims[1:]):
+        args += [_randn(g, din, dout, scale=din ** -0.5, dtype=dtype),
+                 _randn(g, dout, scale=0.1)]
+    return args
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_mlp_kernel_matches_plain_at_batch_128(dtype):
+    """A batch of many 8-row passes through each weight tile."""
+    dev = _cuda()
+    args = _fused_mlp_args(dev, 128, dtype, seed=128)
+    before = fm.fused_mlp.launches
+    out = fm.fused_mlp(*args)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp.launches == before + 1
+    _assert_close(out, fm.fused_mlp_ref(*args), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_mlp_is_deterministic(dtype):
+    """No atomics: the split sums run in a fixed order, two calls give
+    equal bits."""
+    dev = _cuda()
+    for batch in (8, 13):
+        args = _fused_mlp_args(dev, batch, dtype, seed=200 + batch)
+        assert torch.equal(fm.fused_mlp(*args), fm.fused_mlp(*args))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("batch", [1, 8, 13])
+def test_fused_mlp_reads_transposed_weights(batch, dtype):
+    """nn.Linear's (out, in) weights seen transposed, read in place, give
+    the bits of the same weights made row-major (in, out)."""
+    dev = _cuda()
+    x, w1, b1, w2, b2, w3, b3 = _fused_mlp_args(dev, batch, dtype,
+                                                seed=300 + batch)
+    views = [w.t().contiguous().t() for w in (w1, w2, w3)]
+    assert all(v.stride(0) == 1 and not v.is_contiguous() for v in views)
+    out = fm.fused_mlp(x, views[0], b1, views[1], b2, views[2], b3)
+    assert torch.equal(out, fm.fused_mlp(x, w1, b1, w2, b2, w3, b3))
+    with pytest.raises(ValueError):          # neither layout: a strided view
+        fm.fused_mlp(x, w1[:, ::2], b1[::2].contiguous(), w2[::2], b2, w3,
+                     b3)
+
+
 def test_kernels_refuse_bad_operands():
     dev = _cuda()
     x, (g1, b1), (wqkv, bqkv, wproj, bproj), _ = _block_args(
@@ -690,6 +739,48 @@ def test_bottleneck_refuses_bad_operands():
         rb.fused_bottleneck(x, args[0], args[1], args[2][:64].contiguous(),
                             *args[3:])
     assert rb.fused_bottleneck.launches == before
+
+
+@pytest.mark.parametrize("shape", [(2, 14, 1024, 256, 1024),
+                                   (2, 56, 64, 64, 256), (2, 5, 40, 24, 40)])
+def test_bottleneck_bf16_is_deterministic(shape):
+    """The bf16 products on the TMA + wgmma GEMM (no split-K, no atomics):
+    two calls give equal bits."""
+    dev = _cuda()
+    x, args = _bottleneck_args(dev, shape, torch.bfloat16, seed=13)
+    assert torch.equal(rb.fused_bottleneck(x, *args),
+                       rb.fused_bottleneck(x, *args))
+
+
+def test_bottleneck_bf16_refuses_what_the_gemm_does_not_take():
+    """The bf16 products read 16-byte rows by TMA and the 3x3 gathers
+    16-byte chunks of one tap: a channel count that is no multiple of 8
+    or an operand off a 16-byte boundary raises ValueError (fp32 takes
+    any of them on the SIMT tile); nothing falls back."""
+    dev = _cuda()
+    before = (rb.fused_bottleneck.launches, rb.fused_bottleneck.proj_launches)
+    for shape in [(2, 6, 32, 12, 32), (2, 6, 20, 8, 20), (2, 6, 16, 8, 36)]:
+        x, args = _bottleneck_args(dev, shape, torch.bfloat16, seed=14)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            rb.fused_bottleneck(x, *args)
+    x, args = _bottleneck_args(dev, (2, 6, 32, 8, 32), torch.bfloat16,
+                               seed=15)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    shifted = flat[1:].view(x.shape)                 # 2 bytes off
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte"):
+        rb.fused_bottleneck(shifted, *args)
+    w1 = torch.empty(args[0].numel() + 1, dtype=x.dtype, device=dev)
+    w1 = w1[1:].view(args[0].shape)
+    w1.copy_(args[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        rb.fused_bottleneck(x, w1, *args[1:])
+    assert (rb.fused_bottleneck.launches,
+            rb.fused_bottleneck.proj_launches) == before
+    x, args = _bottleneck_args(dev, (2, 6, 32, 12, 32), torch.float32,
+                               seed=16)
+    _assert_close(rb.fused_bottleneck(x, *args), rb.bottleneck_ref(x, *args),
+                  TOL[torch.float32])
 
 
 def test_rgb_only_fused_eval_on_card_matches_cpu_and_cudnn():

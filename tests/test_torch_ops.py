@@ -154,3 +154,29 @@ def test_fusion_mlp_eval_kernel_path_equals_train_path():
         eval_out = head.eval()(x)
     np.testing.assert_allclose(eval_out.numpy(), train_out.numpy(),
                                rtol=1e-6, atol=1e-6)
+
+
+def test_fusion_mlp_eval_path_copies_no_weight(monkeypatch):
+    """The eval forward hands the kernel each nn.Linear weight as its
+    (in, out) transposed view: the same storage, no copy per call."""
+    from dfu_multimodal_tpu_torch.models import fusion
+    head = fusion.FusionMLP(in_dim=48, num_classes=2, drop_rate=0.0).eval()
+    params = port_fused_mlp.fusion_mlp_params(head)
+    for w, fc in zip(params[::2], (head.fc1, head.fc2, head.fc3)):
+        assert w.data_ptr() == fc.weight.data_ptr()
+        assert w.untyped_storage().data_ptr() == \
+            fc.weight.untyped_storage().data_ptr()
+        assert w.shape == fc.weight.shape[::-1]
+        assert w.stride() == (1, w.shape[0])
+    seen = []
+
+    def spy(x, w1, b1, w2, b2, w3, b3):
+        seen.extend(w.data_ptr() for w in (w1, w2, w3))
+        return port_fused_mlp.fused_mlp(x, w1, b1, w2, b2, w3, b3)
+
+    monkeypatch.setattr(fusion, "fused_mlp", spy)
+    x = torch.from_numpy(_mlp_head_inputs(3, seed=7)[0])
+    with torch.no_grad():
+        head(x)
+    assert seen == [fc.weight.data_ptr()
+                    for fc in (head.fc1, head.fc2, head.fc3)]
