@@ -20,10 +20,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               int8 product of K7/K8 (gemm_kernel in vit_block_q8.cu) and
               the HMMA count of their bf16 attention step, the HGMMA
               count of every instantiation of K11's bf16 products and
-              3x3 (gemm_kernel in resnet_block.cu), failing on a
-              count of zero but the K6/K9 forward's, on any int8
-              WMMA (IMMA) left in vit_block_q8.cu and on any
-              gemm_tile.cuh WMMA GEMM kernel left in resnet_block.cu;
+              3x3 (gemm_kernel in resnet_block.cu), of K12's bf16
+              stage kernel (stage_kernel) and of K10's bf16 products
+              (gemm_kernel in attn_block_bwd.cu, the WGRAD weight
+              gradients among them), failing on a count of zero but the
+              K6/K9 forward's, on any int8 WMMA (IMMA) left in
+              vit_block_q8.cu and on any WMMA kernel (gemm_bf16_wmma,
+              stage_bf16_wmma, wgrad_bf16_wmma) left in resnet_block.cu
+              or attn_block_bwd.cu;
 3. kernels  — each forward kernel against its plain PyTorch version on
               the card at the serving and training paths' shapes
               (ViT-B/16 blocks at B = 8, 16 and 128 in fp32 and bf16, K1
@@ -94,8 +98,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               B = 16 and 32, fp32 and bf16, each beside the K5 chain rule
               ``attn_block_bwd`` in turns (and, in fp32, held against
               its gradients), at N = 40 with D = 8 and 32 and at N = 5,
-              226 and 577; two calls bit-equal; its bf16 device time (and
-              its attention step's) at B = 16 and 32; the device kernels
+              226 and 577; two calls bit-equal; its bf16 device time by
+              kernel (and its attention step's) at B = 16 and 32, beside
+              the chain rule's by kernel; the device kernels
               one call runs (the
               port's own only, from the profiler); then its entry point,
               a 12-block ``AttnBlockFusedBwd`` chain through autograd at
@@ -115,7 +120,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               activations of 8 images) on K12 against its cuDNN blocks
               within phase 7's budget; the device kernels of one call (the
               port's stage kernel only, no GEMM-tile launch; profiled in
-              a fresh process);
+              a fresh process); in bf16 at each tail and batch, in a
+              fresh process, the tile shape (``dfu_stage_tile``, held to
+              the plain mirror ``_stage_tile``), the 3n - 1 grid
+              barriers, and the device time of the stage kernel beside
+              the K11 chain's and the bound;
               ``FusedStage`` gradients on the card (fp32) against autograd
               through ``stage_ref`` on the CPU; then its entry point,
               ``FusedStage`` over the four stage tails of a ResNet-50
@@ -310,11 +319,22 @@ def phase_build() -> None:
     _log_tensor_core_sass("vit_block_q8", "attention_fwd_mma", required=True)
     _log_tensor_core_sass("vit_block_q8", "", op="IMMA", forbidden=True)
     # K11 in bf16: its products (B_MN) and its 3x3 (CONV) on warpgroup MMAs
-    # in every instantiation, and no gemm_tile.cuh WMMA GEMM kernel left in
-    # the library (K12's stage kernel keeps the WMMA tile, by design)
+    # in every instantiation; K12's bf16 stage kernel walks the same tiles
+    # (warpgroup MMAs in every instantiation); K10's bf16 products (qkv,
+    # dattn, dy and the WGRAD weight gradients) too, beside its mma.sync
+    # attention step (HMMA, above).  No WMMA kernel left in either library
     _log_tensor_core_sass("resnet_block", "gemm_kernel", op="HGMMA",
                           required=True)
-    _log_tensor_core_sass("resnet_block", "gemm_bf16_wmma", forbidden=True)
+    _log_tensor_core_sass("resnet_block", "stage_kernel", op="HGMMA",
+                          required=True)
+    _log_tensor_core_sass("attn_block_bwd", "gemm_kernel", op="HGMMA",
+                          required=True)
+    for name, kernels in (("resnet_block", ("gemm_bf16_wmma",
+                                            "stage_bf16_wmma")),
+                          ("attn_block_bwd", ("gemm_bf16_wmma",
+                                              "wgrad_bf16_wmma"))):
+        for kernel in kernels:
+            _log_tensor_core_sass(name, kernel, forbidden=True)
     # bind the entry points now, so a missing symbol fails this phase
     vb._lib()
     at._lib()
@@ -1399,7 +1419,13 @@ def _k10_case(gen, b, heads, n, c, dtype, chain=True) -> dict:
                         if "attention_bwd" in name)
         log(f"[k10] {tag}: device (profiler) "
             f"{_ms_or_none(res['device_ms'])}, of which the attention step "
-            f"(attention_bwd_*) {attention:.4f} ms")
+            f"(attention_bwd_*) {attention:.4f} ms; by kernel "
+            f"(gemm_kernel<BN, mode>: 1 B_MN, 2 B_K, 7 WGRAD) "
+            f"{({k: round(v, 4) for k, v in sorted(split.items(), key=lambda kv: -kv[1])})}")
+        chain_split = _device_split(chain_fn)
+        log(f"[k10] {tag}: the K5 chain rule's device (profiler) "
+            f"{sum(chain_split.values()):.4f} ms, by kernel "
+            f"{({k: round(v, 4) for k, v in sorted(chain_split.items(), key=lambda kv: -kv[1])})}")
     if dtype == torch.float32:
         errs = {}
         for name, a, r in zip(K10_NAMES, first, chain_fn()):
@@ -1674,6 +1700,98 @@ def _stage_kernel_names(dtype) -> tuple:
     return [tuple(n) for n in names], [tuple(c) for c in calls]
 
 
+# the bf16 K12 and K11 chain's device times at the four stage tails, B = 8
+# and 128, in a fresh process (as STAGE_PROFILE, for the cooperative
+# kernel's device record).  Prints [label, batch, K12 device ms by kernel,
+# K11 chain device ms] rows as JSON.
+STAGE_DEVICE = r"""
+import json, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from dfu_multimodal_tpu_torch.ops import resnet_block as rb
+dev = torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(7400)
+def r(*shape, s=1.0, d=torch.bfloat16):
+    return (s * torch.randn(*shape, generator=g, device=dev)).to(d)
+def split(fn, iters=10):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {{}}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            key = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            out[key] = out.get(key, 0.0) + e.device_time_total / 1e3 / iters
+    return out
+rows = []
+for b in {batches}:
+    for label, hw, c, m, n in {stages}:
+        x = r(b, hw, hw, c)
+        blocks = [(r(c, m, s=c ** -0.5), r(m, s=0.1, d=torch.float32),
+                   r(9 * m, m, s=(9 * m) ** -0.5), r(m, s=0.1, d=torch.float32),
+                   r(m, c, s=m ** -0.5), r(c, s=0.1, d=torch.float32))
+                  for _ in range(n)]
+        def chain():
+            h = x
+            for blk in blocks:
+                h = rb.fused_bottleneck(h, *blk)
+            return h
+        rows.append([label, b, split(lambda: rb.fused_stage(x, blocks)),
+                     sum(split(chain).values())])
+        del x, blocks
+        torch.cuda.empty_cache()
+print(json.dumps(rows))
+"""
+
+
+def _stage_device_rows() -> list:
+    """STAGE_DEVICE's rows: the bf16 stage kernel's and the K11 chain's
+    device ms at every stage tail and batch."""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         STAGE_DEVICE.format(batches=RESNET_BATCHES,
+                             stages=RESNET_STAGES)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        check=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _log_stage_device(dev, main) -> None:
+    """bf16 K12 by stage tail and batch: the tile shape (dfu_stage_tile,
+    held to the plain mirror rb._stage_tile), the grid barriers (3n - 1),
+    device ms by kernel beside the K11 chain's device ms and the bound,
+    and (K12 - chain) / barriers, an upper estimate of a barrier's cost."""
+    lib = rb._lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = {label: (hw, c, cmid, n)
+              for label, hw, c, cmid, n in RESNET_STAGES}
+    for label, b, split, chain_ms in _stage_device_rows():
+        hw, c, cmid, n = shapes[label]
+        rm, bn = ctypes.c_int(), ctypes.c_int()
+        _build.check(lib, lib.dfu_stage_tile(
+            dev.index, b * hw * hw, cmid, ctypes.addressof(rm),
+            ctypes.addressof(bn)), "dfu_stage_tile")
+        tile = (rm.value, bn.value)
+        if tile != rb._stage_tile(b * hw * hw, cmid, sms):
+            raise AssertionError(f"stage tile {tile} != the mirror's")
+        k12_ms = sum(split.values())
+        barriers = 3 * n - 1
+        bound = _stage_bound(b, hw, c, [cmid] * n)["bound_ms"]
+        log(f"[stage] {label} bfloat16 B={b}: {tile[0]}x{tile[1]} tiles, "
+            f"{barriers} grid barriers; device K12 {k12_ms:.4f} ms "
+            f"({({k: round(v, 4) for k, v in split.items()})}), K11 chain "
+            f"{chain_ms:.4f} ms, bound {bound * 1e3:.2f} us; (K12 - chain) "
+            f"/ barriers {(k12_ms - chain_ms) / barriers * 1e3:.2f} us")
+        if (len(split) != 1 or "stage_kernel" not in next(iter(split))):
+            raise AssertionError(f"fused_stage {label} ran {split}")
+        if b == 8 and label == STAGE_MAIN:
+            main["stage"]["device_ms"] = k12_ms
+            main["stage"]["chain_device_ms"] = chain_ms
+
+
 def phase_stage(dev) -> tuple:
     """K12 against its plain version at ResNet-50's four stage tails, B = 8
     and 128, fp32 and bf16 (bit-equal to the K11 chain, two calls
@@ -1702,6 +1820,8 @@ def phase_stage(dev) -> tuple:
                     main["stage"] = res
                 del x, blocks, mods
                 torch.cuda.empty_cache()
+
+    _log_stage_device(dev, main)
 
     # a seeded full-width ResNet-50 (BN off identity): layer3's tail on
     # K12 against its cuDNN blocks, on the activations a batch of images

@@ -20,18 +20,26 @@
 //   blocks revisited by every step of a sequential grid.  Blocks of a
 //   Hopper grid run in parallel and in no order, so here the chain is a
 //   fixed sequence of the port's own kernels on the caller's stream, each
-//   filling the card: LN1 (layernorm.cuh), the qkv and dattn products
-//   (gemm_tile.cuh), the attention forward + backward (K5's kernel of
-//   attention_kernels.cuh, tiled past the shared memory of one block), the
-//   weight-gradient products dwproj = attnᵀ·g and dwqkv = yᵀ·dqkv over
-//   all B·N rows, split into fixed WG_ROWS-row chunks whose fp32 partials
-//   a second pass sums in chunk order, the bias column sums the same way,
-//   dy = dqkv·wqkvᵀ in fp32, and the LN backward with its dg1/db1 column
-//   partials.  No atomics anywhere: two calls give equal bits.  The
-//   intermediates (y, qkv, dattn, attn, dqkv, dy, the partials) live in
-//   one scratch buffer the caller allocates (dfu_attn_block_bwd_scratch
-//   gives its size).  One persistent launch with grid-wide barriers, and
-//   wgmma/TMA for the products, are later work.
+//   filling the card: LN1 (layernorm.cuh), the qkv and dattn products,
+//   the attention forward + backward (K5's kernels: in bf16 the mma.sync
+//   pair of attention_bwd_mma.cuh, in fp32 attention_kernels.cuh's, tiled
+//   past the shared memory of one block), the weight-gradient products
+//   dwproj = attnᵀ·g and dwqkv = yᵀ·dqkv over all B·N rows, split into
+//   fixed WG_ROWS-row chunks whose fp32 partials a second pass sums in
+//   chunk order, the bias column sums the same way, dy = dqkv·wqkvᵀ in
+//   fp32, and the LN backward with its dg1/db1 column partials.  In bf16
+//   every product runs on gemm_sm90.cuh's persistent TMA + wgmma GEMM:
+//   qkv, dattn and dy in the chain rule's modes (B_MN with its bias; B_K,
+//   a weight read transposed), and the weight gradients in its WGRAD mode
+//   (both operands MN-major, A through wgmma's transpose bit, 128 x 128
+//   tiles of each chunk: 144 + 432 tiles at B = 16); fp32 on gemm_tile.
+//   cuh's SIMT tile and a SIMT weight-gradient tile.  The k sums keep the
+//   WMMA tiles' order (16-deep steps in k order, a chunk's rows in row
+//   order), so the bf16 results kept their bits.  No atomics anywhere:
+//   two calls give equal bits.  The intermediates (y, qkv, dattn, attn,
+//   dqkv, dy, the partials) live in one scratch buffer the caller
+//   allocates (dfu_attn_block_bwd_scratch gives its size).  One
+//   persistent launch with grid-wide barriers is later work.
 //
 // Numerics are K10's (vit_block.py:264-399), not the chain rule's: LN in
 // fp32; qkv and dattn rounded to the compute dtype; q scaled by d^-0.5 in
@@ -46,93 +54,49 @@
 
 #include "attention_kernels.cuh"
 #include "common.cuh"
+#include "gemm_sm90.cuh"
+#include "gemm_sm90_single.cuh"
 #include "gemm_tile.cuh"
 #include "layernorm.cuh"
-
-#include <mma.h>
 
 namespace dfu {
 namespace {
 
-constexpr int WG_ROWS = 1024;                   // rows per fp32 partial
+using sm90::WG_ROWS;                    // rows per fp32 partial
+
+namespace sm90 {
+
+// The weight-gradient partials (WGRAD): partial[z] (m, n) fp32 = Σ over
+// the rows r of chunk z (rows z·WG_ROWS .. +WG_ROWS-1) of a[r][i]·b[r][j],
+// a (rows, m) and b (rows, n) bf16 row-major; partial holds ceil(rows /
+// WG_ROWS) chunks.  128 x 128 tiles of each chunk, its rows in 16-deep
+// steps in row order.  Bases 16-byte aligned, m and n multiples of 8
+// (else cudaErrorInvalidValue).
+inline cudaError_t wgrad(const void* a, const void* b, float* partial,
+                         int rows, int m, int n, int device,
+                         cudaStream_t s) {
+  if (rows < 1 || m < 8 || n < 8 || m % 8 || n % 8)
+    return cudaErrorInvalidValue;
+  Args p{};
+  cudaError_t err = encode(&p.a1, a, rows, m, BK);
+  if (err == cudaSuccess) err = encode(&p.b1, b, rows, n, BK);
+  if (err != cudaSuccess) return err;
+  p.out1 = partial;
+  p.m = m;
+  p.n = n;
+  p.k = rows;
+  return launch<WG_BN, WGRAD>(p, device, s);
+}
+
+}  // namespace sm90
 
 // ------------------------------------------------ weight-gradient tiles
 // partial[z] (m, n) = Σ over rows r of chunk z of a[r][m]·b[r][n]: both
 // operands row-major over the B·N rows, so the reduction runs down their
-// rows.  A 64x64 output tile per block; a K step stages 32 rows of a and
-// b, each coalesced along its row.
-constexpr int GBM = 64, GBN = 64, GBK = 32, GTHREADS = 128;
-constexpr int GLDA = GBM + 8, GLDB = GBN + 8, GLDC = GBN + 4;
-
-// bf16 on the tensor cores: the staged a tile is [k][m], read as the
-// column-major A fragment of aᵀ.
-__global__ void __launch_bounds__(GTHREADS)
-wgrad_bf16_wmma(const bf16* __restrict__ a, const bf16* __restrict__ b,
-                float* __restrict__ partial, int rows, int m, int n) {
-  using namespace nvcuda;
-  __shared__ __align__(32) bf16 As[GBK * GLDA];
-  __shared__ __align__(32) bf16 Bs[GBK * GLDB];
-  __shared__ __align__(32) float Cs[GBM * GLDC];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  const int r0 = blockIdx.z * WG_ROWS, r1 = min(rows, r0 + WG_ROWS);
-  const bf16 zero = __float2bfloat16_rn(0.f);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = r0; k0 < r1; k0 += GBK) {
-    for (int i = tid; i < GBK * GBM; i += GTHREADS) {
-      const int kk = i / GBM, c = i % GBM, r = k0 + kk;
-      As[kk * GLDA + c] = (r < r1 && m0 + c < m)
-                              ? a[static_cast<size_t>(r) * m + m0 + c]
-                              : zero;
-    }
-    for (int i = tid; i < GBK * GBN; i += GTHREADS) {
-      const int kk = i / GBN, c = i % GBN, r = k0 + kk;
-      Bs[kk * GLDB + c] = (r < r1 && n0 + c < n)
-                              ? b[static_cast<size_t>(r) * n + n0 + c]
-                              : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + kk * GLDA + wm * 32 + i * 16,
-                               GLDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * GLDB + wn * 32 + j * 16,
-                               GLDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * GLDC + wn * 32 + j * 16,
-                              acc[i][j], GLDC, wmma::mem_row_major);
-  __syncthreads();
-  float* out = partial + static_cast<size_t>(blockIdx.z) * m * n;
-  for (int i = tid; i < GBM * GBN; i += GTHREADS) {
-    const int r = i / GBN, c = i % GBN;
-    if (m0 + r < m && n0 + c < n)
-      out[static_cast<size_t>(m0 + r) * n + n0 + c] = Cs[r * GLDC + c];
-  }
-}
+// rows.  bf16 runs gemm_sm90.cuh's WGRAD mode; fp32 a 64x64 output tile
+// per block, a K step staging 16 rows of a and b, each coalesced along
+// its row.
+constexpr int GBM = 64, GBN = 64;
 
 // fp32 on the FMA pipes (no TF32): 256 threads, 4x4 outputs each, K in
 // steps of 16 rows.
@@ -187,17 +151,20 @@ wgrad_f32_simt(const float* __restrict__ a, const float* __restrict__ b,
 // out (m, n) fp32 = Σ over all rows of a[r][m]·b[r][n]: chunk partials
 // into `part` (ceil(rows / WG_ROWS) x m x n), then their sum in order.
 template <typename T>
-void launch_wgrad(const T* a, const T* b, float* part, float* out, int rows,
-                  int m, int n, cudaStream_t s) {
+cudaError_t launch_wgrad(const T* a, const T* b, float* part, float* out,
+                         int rows, int m, int n, int device,
+                         cudaStream_t s) {
   const int parts = cdiv(rows, WG_ROWS);
-  if constexpr (sizeof(T) == 2)
-    wgrad_bf16_wmma<<<dim3(cdiv(n, GBN), cdiv(m, GBM), parts), GTHREADS, 0,
-                      s>>>(a, b, part, rows, m, n);
-  else
+  if constexpr (sizeof(T) == 2) {
+    const cudaError_t err = sm90::wgrad(a, b, part, rows, m, n, device, s);
+    if (err != cudaSuccess) return err;
+  } else {
     wgrad_f32_simt<<<dim3(cdiv(n, GBN), cdiv(m, GBM), parts), FTHREADS, 0,
                      s>>>(a, b, part, rows, m, n);
+  }
   launch_reduce<1>(part, out, nullptr, parts, static_cast<long long>(m) * n,
                    256, s);
+  return cudaGetLastError();
 }
 
 // out (c) fp32 = Σ over all rows of t[r][col]: LNB_ROWS-row partials
@@ -254,9 +221,9 @@ int attn_block_bwd(const void* x, const void* g, const void* g1,
                    const void* wproj, void* dx, float* dwqkv, float* dbqkv,
                    float* dwproj, float* dbproj, float* dg1, float* db1,
                    void* scratch, int batch, int n, int c, int heads,
-                   float scale, float eps, cudaStream_t s) {
+                   float scale, float eps, int device, cudaStream_t s) {
+  constexpr bool BF16 = sizeof(T) == 2;
   const int rows = batch * n, d = c / heads;
-  const int dt = sizeof(T) == 2 ? DT_BF16 : DT_F32;
   const Scratch sc = scratch_layout(sizeof(T), batch, n, c, heads);
   char* base = static_cast<char*>(scratch);
   T* y = reinterpret_cast<T*>(base + sc.y);
@@ -265,28 +232,50 @@ int attn_block_bwd(const void* x, const void* g, const void* g1,
   T* attn = reinterpret_cast<T*>(base + sc.attn);
   T* dqkv = reinterpret_cast<T*>(base + sc.dqkv);
   float* dy = reinterpret_cast<float*>(base + sc.dy);
+  const float* fqkv = static_cast<const float*>(bqkv);
 
   launch_layernorm<T>(x, g1, b1, y, rows, c, eps, s);
-  launch_gemm_t<EPI_BIAS>(dt, 0, y, wqkv, static_cast<const float*>(bqkv),
-                          nullptr, qkv, rows, 3 * c, c, s);
-  launch_gemm_t<EPI_NONE>(dt, 1, g, wproj, nullptr, nullptr, dattn, rows, c,
-                          c, s);
+  // the data products: bf16 on the TMA + wgmma GEMM in the chain rule's
+  // modes (qkv: wqkv MN-major; dattn, dy: the weight read transposed)
+  cudaError_t err = cudaSuccess;
+  if constexpr (BF16) {
+    err = sm90::gemm(EPI_BIAS, 0, 0, y, wqkv, fqkv, nullptr, qkv, rows,
+                     3 * c, c, device, s);
+    if (err == cudaSuccess)
+      err = sm90::gemm(EPI_NONE, 1, 0, g, wproj, nullptr, nullptr, dattn,
+                       rows, c, c, device, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    launch_gemm_t<EPI_BIAS>(0, y, wqkv, fqkv, nullptr, qkv, rows, 3 * c, c,
+                            s);
+    launch_gemm_t<EPI_NONE>(1, g, wproj, nullptr, nullptr, dattn, rows, c, c,
+                            s);
+  }
   // K10 pre-scales q in the compute dtype for every head dim (pow2 = 1)
-  int err = qkv_bwd<T, true>(qkv, dattn, attn, dqkv, base + sc.attn_stats,
-                             batch, n, heads, d, scale, 1, s);
-  if (err != 0) return err;
-  launch_wgrad<T>(attn, static_cast<const T*>(g),
-                  reinterpret_cast<float*>(base + sc.wpart_proj), dwproj,
-                  rows, c, c, s);
-  launch_wgrad<T>(y, dqkv, reinterpret_cast<float*>(base + sc.wpart_qkv),
-                  dwqkv, rows, c, 3 * c, s);
+  int rc = qkv_bwd<T, true>(qkv, dattn, attn, dqkv, base + sc.attn_stats,
+                            batch, n, heads, d, scale, 1, s);
+  if (rc != 0) return rc;
+  err = launch_wgrad<T>(attn, static_cast<const T*>(g),
+                        reinterpret_cast<float*>(base + sc.wpart_proj),
+                        dwproj, rows, c, c, device, s);
+  if (err == cudaSuccess)
+    err = launch_wgrad<T>(y, dqkv,
+                          reinterpret_cast<float*>(base + sc.wpart_qkv),
+                          dwqkv, rows, c, 3 * c, device, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   launch_colsum<T>(dqkv, reinterpret_cast<float*>(base + sc.cpart_qkv),
                    dbqkv, rows, 3 * c, s);
   launch_colsum<T>(static_cast<const T*>(g),
                    reinterpret_cast<float*>(base + sc.cpart_proj), dbproj,
                    rows, c, s);
-  launch_gemm_t<EPI_F32>(dt, 1, dqkv, wqkv, nullptr, nullptr, dy, rows, c,
-                         3 * c, s);
+  if constexpr (BF16) {
+    err = sm90::gemm(EPI_F32, 1, sm90::DY_BN, dqkv, wqkv, nullptr, nullptr,
+                     dy, rows, c, 3 * c, device, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    launch_gemm_t<EPI_F32>(1, dqkv, wqkv, nullptr, nullptr, dy, rows, c,
+                           3 * c, s);
+  }
   launch_layernorm_bwd<T>(x, g, dy, g1, dx, base + sc.ln_stats,
                           base + sc.ln_part, dg1, db1, rows, c, eps, s);
   return static_cast<int>(cudaGetLastError());
@@ -332,10 +321,11 @@ int dfu_attn_block_bwd_fused(int device, int dtype, const void* x,
     return attn_block_bwd<bf16>(x, g, g1, b1, wqkv, bqkv, wproj, dx,
                                 f(dwqkv), f(dbqkv), f(dwproj), f(dbproj),
                                 f(dg1), f(db1), scratch, batch, n, c, heads,
-                                scale, eps, s);
+                                scale, eps, device, s);
   return attn_block_bwd<float>(x, g, g1, b1, wqkv, bqkv, wproj, dx, f(dwqkv),
                                f(dbqkv), f(dwproj), f(dbproj), f(dg1), f(db1),
-                               scratch, batch, n, c, heads, scale, eps, s);
+                               scratch, batch, n, c, heads, scale, eps,
+                               device, s);
 }
 
 }  // extern "C"

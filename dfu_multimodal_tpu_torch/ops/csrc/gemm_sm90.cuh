@@ -19,8 +19,14 @@
 // _bottleneck_proj_kernel (K11, launched by resnet_block.cu): conv1, the
 // 3x3 as an implicit GEMM (the CONV mode) and conv3, with the projection
 // shortcut folded into conv3's launch (the PROJ mode), 64-row tiles where
-// 128-row tiles leave SMs idle.  fp32 (the parity dtype) keeps
-// gemm_tile.cuh's SIMT chain.  And, in both compute dtypes, the four int8
+// 128-row tiles leave SMs idle; the same tiles walked phase by phase in
+// one cooperative launch for ::_stage_kernel (K12, resnet_block.cu's
+// stage kernel, over the device functions produce / consume below); the
+// products of vit_block.py::_attn_block_bwd_kernel (K10, launched by
+// attn_block_bwd.cu): qkv, dattn and dy in the chain rule's modes, and
+// its weight gradients in the WGRAD mode (aᵀ·b over row chunks, both
+// operands MN-major).  fp32 (the parity dtype) keeps gemm_tile.cuh's
+// SIMT chain.  And, in both compute dtypes, the four int8
 // products of dfu_multimodal_tpu/ops/vit_block_q8.py's _attn_block_q8_
 // kernel / _mlp_block_q8_kernel (K7) and _attn_block_q8s_kernel /
 // _mlp_block_q8s_kernel (K8), launched by vit_block_q8.cu (the int8
@@ -97,6 +103,14 @@
 //     epilogue (store_s8) adds the bias and casts (qkv), adds the residual
 //     to the rounded output (proj, fc2), or applies erf GELU into fp32
 //     (dynamic fc1) or into int8 with the static scale (static fc1).
+//   - WGRAD (K10's dwproj = attnᵀ·g, dwqkv = yᵀ·dqkv): K is the B·N
+//     rows, so A = aᵀ is MN-major like B_MN's B: two 64-column boxes of
+//     64 rows a stage, read through wgmma's transpose bit for A; 128 x 128
+//     tiles of each WG_ROWS-row chunk, each into its chunk's fp32 partial
+//     (attn_block_bwd.cu sums them in chunk order); a box that starts past
+//     m or n is not loaded (its rows and columns are never stored);
+//   - produce and consume take the ring's stage and parity, so one
+//     persistent kernel (K12's) runs product after product on one ring.
 //
 // Numbers: gemm_tile.cuh's chain and the Pallas kernels', bf16 operands
 // with fp32 accumulation, the epilogue in fp32 rounded to bf16 once (the
@@ -135,6 +149,8 @@ constexpr int BOX_MN = 64 * BK * 2;     // one 64 x 64 MN-major box, 8 KB
 constexpr int SMEM_RING = 196608;       // bytes of stages the dual takes
 constexpr int SMEM_MAX = 232448;        // bytes a block may hold on sm_90
 constexpr int DY_BN = 192;              // the dy product's tile width
+constexpr int WG_ROWS = 1024;           // WGRAD's rows per fp32 partial
+constexpr int WG_BN = 128;              // and its tile width
 
 // What a launch computes.  DUAL: K4's dual product.  B_MN: one product
 // whose B (k, n) is read as stored, MN-major (a weight of a forward
@@ -148,9 +164,14 @@ constexpr int DY_BN = 192;              // the dy product's tile width
 // tile loaded from y (m, c) by TMA or gathered by the producer warpgroup
 // (conv_tma_a, conv_a below).  PROJ: K11's conv3 with its projection
 // shortcut, out = T(max(T(a2·b2 + bias2) + T(a1·b1 + bias), 0)), both Bs
-// MN-major, over one k loop (Cmid == Cin).
+// MN-major, over one k loop (Cmid == Cin).  WGRAD: K10's weight
+// gradients, partial[z] (m, n) = a[rows of chunk z]ᵀ · b[rows of chunk z]
+// over WG_ROWS-row chunks of a (rows, m) and b (rows, n), both row-major:
+// K is the rows, so both operands are MN-major (A read through wgmma's
+// transpose bit, as B_MN reads B), loaded as 64-column boxes of 64 rows.
 enum Mode {
-  DUAL = 0, B_MN = 1, B_K = 2, S8 = 3, S8_GROUPS = 4, CONV = 5, PROJ = 6
+  DUAL = 0, B_MN = 1, B_K = 2, S8 = 3, S8_GROUPS = 4, CONV = 5, PROJ = 6,
+  WGRAD = 7
 };
 
 __host__ __device__ constexpr bool is_s8(int mode) {
@@ -184,9 +205,13 @@ __device__ __forceinline__ int8_t quant_i8(float y, float inv) {
 // group_steps k32 steps deep.  CONV: A is conv_y, the (m, conv_c) bf16
 // rows of conv_h x conv_w images (k = 9·conv_c); with conv_tma, a1 is its
 // tensor map (128-row boxes) and A comes by TMA (conv_tma_a), else by the
-// producer's gather (conv_a).
-struct Args {
-  CUtensorMap a1, b1, a2, b2, o1, o2;
+// producer's gather (conv_a).  WGRAD: k is the rows, out1 the fp32
+// partials (ceil(k / WG_ROWS), m, n).
+//
+// Scalars is what the tiles read besides the tensor maps: the stage
+// kernel (resnet_block.cu) builds one for each phase on the device, with
+// the maps in its own parameter space (Maps points at them).
+struct Scalars {
   const float* bias;
   const float* bias2;     // PROJ: the shortcut's bias
   const void* aux;
@@ -200,6 +225,16 @@ struct Args {
   int conv_c, conv_h, conv_w, conv_tma;
 };
 
+struct Args : Scalars {
+  CUtensorMap a1, b1, a2, b2, o1, o2;
+};
+
+// The tensor maps a launch's tiles read (null where unused): in the
+// parameter space, where TMA takes them.
+struct Maps {
+  const CUtensorMap *a1, *b1, *a2, *b2, *o1, *o2;
+};
+
 // A tile of RM rows (BM, or 64 for products whose 128-row tiles cannot
 // fill the card: one consumer warpgroup, two blocks an SM) and BN columns.
 template <int BN, int MODE, int RM = BM>
@@ -208,11 +243,13 @@ struct Tile {
                 "the dual products' Bs are two boxes");
   static_assert(RM == BM || (RM == 64 && (MODE == B_MN || MODE == CONV)),
                 "64-row tiles: the single bf16 products");
+  static_assert(MODE != WGRAD || RM == BM, "WGRAD: two A boxes a tile");
   static constexpr int GROUPS = RM / 64;              // consumer warpgroups
   static constexpr int THREADS = (GROUPS + 1) * 128;  // and one producer
   static constexpr int BLOCKS_PER_SM = RM == BM ? 1 : 2;
   static constexpr int BUDGET = SMEM_MAX / BLOCKS_PER_SM;
-  static constexpr int TILE_A = RM * BK * 2;          // RM rows of 128 bytes
+  // RM rows of 128 bytes (WGRAD: RM / 64 MN-major boxes of 64 k rows)
+  static constexpr int TILE_A = RM * BK * 2;
   // 64-column boxes of an MN-major B (BN = 96 loads two, the second
   // half used)
   static constexpr int BOXES = (BN + 63) / 64;
@@ -229,7 +266,10 @@ struct Tile {
   // the single product's 64 rows of BN bf16, each padded by 16 bytes so
   // that the eight rows a warp writes at once fall on distinct banks
   static constexpr int LDE = BN + 8;
-  static constexpr int EPI_WG = MODE == DUAL ? 64 * BN * 2 : 64 * LDE * 2;
+  // (WGRAD stores fp32 from its registers: no buffer)
+  static constexpr int EPI_WG = MODE == DUAL    ? 64 * BN * 2
+                                : MODE == WGRAD ? 0
+                                                : 64 * LDE * 2;
   // as many stages as fit beside the epilogue buffers, barriers and the
   // 1 KB that aligns the ring (3 dual; 4 at BN = 192, 8 at 64)
   static constexpr int FIT = (BUDGET - 1024 - GROUPS * EPI_WG - 2 * 8 * 8) /
@@ -405,9 +445,10 @@ __device__ __forceinline__ void store_tile(const CUtensorMap* map,
   sync_group(1 + wg);
 }
 
-// d (64 x N, fp32) += A (64 x 16) · B (16 x N): A K-major, B K-major, or
-// MN-major when TRANS_B; both through descriptors.
-template <int TRANS_B>
+// d (64 x N, fp32) += A (64 x 16) · B (16 x N) through descriptors: A
+// K-major, or MN-major when TRANS_A (WGRAD); B K-major, or MN-major when
+// TRANS_B.
+template <int TRANS_B, int TRANS_A>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
                                                 uint64_t b) {
   asm volatile(
@@ -418,7 +459,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -427,10 +468,10 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A>
 __device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], uint64_t a,
                                                 uint64_t b) {
   asm volatile(
@@ -443,7 +484,7 @@ __device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], uint64_t a,
       "%24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, "
       "%40, %41, %42, %43, %44, %45, %46, %47"
-      "}, %48, %49, p, 1, 1, 0, %51;\n}\n"
+      "}, %48, %49, p, 1, 1, %52, %51;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -456,10 +497,10 @@ __device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], uint64_t a,
         "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
         "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
                                                  uint64_t b) {
   asm volatile(
@@ -474,7 +515,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -491,10 +532,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A>
 __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t a,
                                                  uint64_t b) {
   asm volatile(
@@ -513,7 +554,7 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t a,
       "%72, %73, %74, %75, %76, %77, %78, %79, "
       "%80, %81, %82, %83, %84, %85, %86, %87, "
       "%88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, %99;\n}\n"
+      "}, %96, %97, p, 1, 1, %100, %99;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -538,17 +579,17 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t a,
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
         "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int N, int TRANS_B>
+template <int N, int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a,
                                       uint64_t b) {
   static_assert(N == 64 || N == 96 || N == 128 || N == 192, "tile width");
-  if constexpr (N == 64) wgmma_m64n64k16<TRANS_B>(d, a, b);
-  else if constexpr (N == 96) wgmma_m64n96k16<TRANS_B>(d, a, b);
-  else if constexpr (N == 128) wgmma_m64n128k16<TRANS_B>(d, a, b);
-  else wgmma_m64n192k16<TRANS_B>(d, a, b);
+  if constexpr (N == 64) wgmma_m64n64k16<TRANS_B, TRANS_A>(d, a, b);
+  else if constexpr (N == 96) wgmma_m64n96k16<TRANS_B, TRANS_A>(d, a, b);
+  else if constexpr (N == 128) wgmma_m64n128k16<TRANS_B, TRANS_A>(d, a, b);
+  else wgmma_m64n192k16<TRANS_B, TRANS_A>(d, a, b);
 }
 
 // d (64 x N, fp32) += A (64 x 16, bf16 fragments in registers, each
@@ -909,7 +950,7 @@ __device__ __forceinline__ uint4 relu_bf16x8(uint4 a) {
 // threads wrote the buffer) and after (the buffer is the next tile's).
 template <int BN, int LDE, int BATCH = BN / 16>
 __device__ __forceinline__ void copy_out_bf16(uint32_t buf, int m0, int n0,
-                                              int wg, const Args& p,
+                                              int wg, const Scalars& p,
                                               bool resid, bool relu = false) {
   sync_group(1 + wg);
   constexpr int CHUNKS = BN / 8;     // 16-byte chunks of a tile row
@@ -973,7 +1014,7 @@ __device__ __forceinline__ void copy_out_bf16(uint32_t buf, int m0, int n0,
 // facc += float(acc)·s[col].
 template <int R>
 __device__ __forceinline__ void flush_group(float (&facc)[R], int (&acc)[R],
-                                            const Args& p, int row0, int n0,
+                                            const Scalars& p, int row0, int n0,
                                             int lane, int g) {
   const bool dynamic = p.row_scale != nullptr;
   float a[2] = {1.f, 1.f};
@@ -1009,7 +1050,7 @@ __device__ __forceinline__ void flush_group(float (&facc)[R], int (&acc)[R],
 // (a quad of lanes writes 32 contiguous bytes of fp32 a row).
 template <int BN, int LDE>
 __device__ __forceinline__ void store_s8(const float (&facc)[BN / 2],
-                                         const Args& p, uint32_t buf, int m0,
+                                         const Scalars& p, uint32_t buf, int m0,
                                          int n0, int wg, int warp, int lane) {
   const int r = warp * 16 + (lane >> 2);
   if (p.dtype == DT_BF16 && (p.epi == QEPI_OUT || p.epi == QEPI_RESID)) {
@@ -1074,36 +1115,125 @@ __device__ __forceinline__ bool inside(int yx, int dy, int dx, int h, int w) {
   return yy >= 0 && yy < h && xx >= 0 && xx < w;
 }
 
+// The tiles of one launch a block computes (tile = blockIdx.x + i ·
+// gridDim.x, row-major over the tile grid) and the k stages of each.
+// WGRAD: the tiles of each WG_ROWS-row chunk z in turn, each k loop over
+// its own chunk's rows only (the last chunk's ragged end zero-filled by
+// TMA), so no stage reads the next chunk's rows.
+template <int BN, int MODE, int RM>
+struct Walk {
+  static constexpr int KSTAGE = is_s8(MODE) ? 2 * BK : BK;  // k a stage
+  int n_tiles, mn_tiles, tiles, kblocks;
+
+  __device__ __forceinline__ explicit Walk(const Scalars& p) {
+    n_tiles = (p.n + BN - 1) / BN;
+    mn_tiles = (p.m + RM - 1) / RM * n_tiles;
+    if constexpr (MODE == WGRAD) {
+      tiles = mn_tiles * ((p.k + WG_ROWS - 1) / WG_ROWS);
+      kblocks = WG_ROWS / BK;
+    } else {
+      tiles = mn_tiles;
+      kblocks = (p.k + KSTAGE - 1) / KSTAGE;
+    }
+  }
+
+  // `tile`'s rows m0.., columns n0.., and its k loop: kb stages from k0
+  __device__ __forceinline__ void at(int tile, const Scalars& p, int& m0,
+                                     int& n0, int& k0, int& kb) const {
+    k0 = 0;
+    kb = kblocks;
+    if constexpr (MODE == WGRAD) {
+      const int z = tile / mn_tiles;
+      tile -= z * mn_tiles;
+      k0 = z * WG_ROWS;
+      if (p.k - k0 < WG_ROWS) kb = (p.k - k0 + BK - 1) / BK;
+    }
+    m0 = tile / n_tiles * RM;
+    n0 = tile % n_tiles * BN;
+  }
+
+  // the ring stages this block's tiles take
+  __device__ __forceinline__ int stages(const Scalars& p) const {
+    int n = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int m0, n0, k0, kb;
+      at(tile, p, m0, n0, k0, kb);
+      n += kb;
+    }
+    return n;
+  }
+};
+
+// Arrive `count` times on barrier bar.
+__device__ __forceinline__ void mbar_arrive_n(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// A block's shared memory: the ring of stages (from a 1024-byte boundary
+// of the shared window), the consumer groups' epilogue buffers, then the
+// full and empty barriers of the stages.  A block uses its stages in
+// order over all the tiles it computes: its n-th stage is slot n %
+// STAGES, of parity (n / STAGES) % 2.
+template <class T>
+struct Ring {
+  uint32_t base, epi, full, empty;
+
+  __device__ __forceinline__ explicit Ring(const void* smem) {
+    base = (smem_u32(smem) + 1023u) & ~1023u;
+    epi = base + T::STAGES * T::STAGE;             // GROUPS x EPI_WG
+    full = epi + T::GROUPS * T::EPI_WG;            // STAGES barriers
+    empty = full + T::STAGES * 8;                  // STAGES barriers
+  }
+
+  // thread 0: a full barrier counts `arrivals` a stage, an empty one one
+  // arrival from each consumer group; then the block synchronises
+  __device__ __forceinline__ void init(int arrivals) const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < T::STAGES; ++s) {
+        mbar_init(full + 8 * s, arrivals);
+        mbar_init(empty + 8 * s, T::GROUPS);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+};
+
 // The CONV producer when c % 64 == 0: a 64-deep stage lies inside one tap
-// (dy, dx), and its A tile is y's flat rows m0 + dy·w + dx .. +127,
+// (dy, dx), and its A tile is y's flat rows m0 + dy·w + dx .. +RM-1,
 // channels c0 .. c0 + 63: one TMA load of the tensor map a1 (rows outside
 // y load as zeros), beside B's.  A row whose neighbour falls outside its
 // own image (the shift carries it into the next image row, or image) reads
 // a real row of y here: the consumers zero those rows in their A
-// fragments.  One thread issues every load, as for the dense products.
+// fragments.  One thread issues every load, as for the dense products,
+// and arrives `extra` times more on each full barrier (the stage kernel's
+// barriers count 129 arrivals where one of its phases gathers).
 template <int BN, int RM>
-__device__ __forceinline__ void conv_tma_a(const Args& p, uint32_t ring,
-                                           uint32_t full, uint32_t empty,
-                                           int n_tiles, int tiles,
-                                           int kblocks) {
+__device__ __forceinline__ void conv_tma_a(const Scalars& p, const Maps& mp,
+                                           const Ring<Tile<BN, CONV, RM>>& r,
+                                           int stage, uint32_t phase,
+                                           int extra) {
   using T = Tile<BN, CONV, RM>;
   if (threadIdx.x != T::GROUPS * 128) return;
-  tma_prefetch(&p.a1);
-  tma_prefetch(&p.b1);
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = tile / n_tiles * RM, n0 = tile % n_tiles * BN;
-    for (int kb = 0; kb < kblocks; ++kb) {
-      const int k0 = kb * BK, tap = k0 / p.conv_c;
+  tma_prefetch(mp.a1);
+  tma_prefetch(mp.b1);
+  const Walk<BN, CONV, RM> walk(p);
+  for (int tile = blockIdx.x; tile < walk.tiles; tile += gridDim.x) {
+    int m0, n0, k0, kbs;
+    walk.at(tile, p, m0, n0, k0, kbs);
+    for (int kb = 0; kb < kbs; ++kb) {
+      const int kk0 = kb * BK, tap = kk0 / p.conv_c;
       const int shift = (tap / 3 - 1) * p.conv_w + tap % 3 - 1;
-      const uint32_t st = ring + stage * T::STAGE, bar = full + 8 * stage;
-      mbar_wait(empty + 8 * stage, phase ^ 1);
+      const uint32_t st = r.base + stage * T::STAGE, bar = r.full + 8 * stage;
+      mbar_wait(r.empty + 8 * stage, phase ^ 1);
       mbar_expect_tx(bar, T::STAGE);
-      tma_load(st + T::A1, &p.a1, bar, k0 - tap * p.conv_c, m0 + shift);
+      if (extra) mbar_arrive_n(bar, extra);
+      tma_load(st + T::A1, mp.a1, bar, kk0 - tap * p.conv_c, m0 + shift);
 #pragma unroll
       for (int i = 0; i < T::BOXES; ++i)
-        tma_load(st + T::B1 + i * BOX_MN, &p.b1, bar, n0 + 64 * i, k0);
+        tma_load(st + T::B1 + i * BOX_MN, mp.b1, bar, n0 + 64 * i, kk0);
       if (++stage == T::STAGES) {
         stage = 0;
         phase ^= 1;
@@ -1112,49 +1242,49 @@ __device__ __forceinline__ void conv_tma_a(const Args& p, uint32_t ring,
   }
 }
 
-// The CONV producer: all 128 threads of warpgroup 2 fill each stage's
-// 128 x 64 A tile of the 3x3's implicit GEMM, A[r, t·c + ch] = y[r + dy·w
-// + dx, ch] when the neighbour (dy, dx) = (t / 3 - 1, t % 3 - 1) of row r
-// lies inside r's own image, else 0 (gemm_tile.cuh's Conv3x3A): k in the
-// flat (tap, channel) order, so the 16-deep wgmma steps sum what the WMMA
-// tile's steps sum.  c % 8 == 0 keeps each 16-byte chunk inside one tap.
-// Thread t copies chunk t % 8 of rows t / 8 + 16j (j < RM / 16) with cp.async
-// (zero-filled outside the image, past m and past k) into TMA's 128-byte
-// swizzled layout; thread 0 also loads B by TMA.  A stage's full barrier
-// counts 129 arrivals: thread 0's expect_tx for B, and one from each
-// thread that the hardware makes once the thread's copies have landed
-// (cp.async.mbarrier.arrive.noinc), so no thread waits for its own
+// The CONV producer: all 128 threads of the producer warpgroup fill each
+// stage's RM x 64 A tile of the 3x3's implicit GEMM, A[r, t·c + ch] =
+// y[r + dy·w + dx, ch] when the neighbour (dy, dx) = (t / 3 - 1, t % 3 -
+// 1) of row r lies inside r's own image, else 0 (gemm_tile.cuh's
+// Conv3x3A): k in the flat (tap, channel) order, the order of the k16
+// steps of every other mode.  c % 8 == 0 keeps each 16-byte chunk inside
+// one tap.  Thread t copies chunk t % 8 of rows t / 8 + 16j (j < RM / 16)
+// with cp.async (zero-filled outside the image, past m and past k) into
+// TMA's 128-byte swizzled layout; thread 0 also loads B by TMA.  A stage's
+// full barrier counts 129 arrivals: thread 0's expect_tx for B, and one
+// from each thread that the hardware makes once the thread's copies have
+// landed (cp.async.mbarrier.arrive.noinc), so no thread waits for its own
 // copies.  cp.async writes through the generic proxy, which wgmma's
 // descriptors do not read without a proxy fence (a fence per stage, in
 // the producer or the consumers, measured 2.5-3x slower a stage than the
 // TMA products): the consumers take A into registers with ldmatrix and
 // issue wgmma with A from registers, B through its descriptor.
 template <int BN, int RM>
-__device__ __forceinline__ void conv_a(const Args& p, uint32_t ring,
-                                       uint32_t full, uint32_t empty,
-                                       int n_tiles, int tiles, int kblocks) {
+__device__ __forceinline__ void conv_a(const Scalars& p, const Maps& mp,
+                                       const Ring<Tile<BN, CONV, RM>>& r,
+                                       int stage, uint32_t phase) {
   using T = Tile<BN, CONV, RM>;
   constexpr int J = RM / 16;          // rows a thread copies
   const int t = threadIdx.x - T::GROUPS * 128, cc = t & 7, rb = t >> 3;
   const int c = p.conv_c, h = p.conv_h, w = p.conv_w, k_end = 9 * c;
-  if (t == 0) tma_prefetch(&p.b1);
-  int n = 0;                          // stages issued, over all tiles
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = tile / n_tiles * RM, n0 = tile % n_tiles * BN;
+  if (t == 0) tma_prefetch(mp.b1);
+  const Walk<BN, CONV, RM> walk(p);
+  for (int tile = blockIdx.x; tile < walk.tiles; tile += gridDim.x) {
+    int m0, n0, k0, kbs;
+    walk.at(tile, p, m0, n0, k0, kbs);
     // (row in image) << 16 | column of this thread's rows; rows past m
     // take a row past every image, so no tap is inside
     int yx[J];
 #pragma unroll
     for (int j = 0; j < J; ++j) yx[j] = image_yx(m0 + rb + 16 * j, p.m, h, w);
-    for (int kb = 0; kb < kblocks; ++kb, ++n) {
-      const int slot = n % T::STAGES;
-      const uint32_t st = ring + slot * T::STAGE, bar = full + 8 * slot;
-      mbar_wait(empty + 8 * slot, ((n / T::STAGES) & 1) ^ 1);
+    for (int kb = 0; kb < kbs; ++kb) {
+      const uint32_t st = r.base + stage * T::STAGE, bar = r.full + 8 * stage;
+      mbar_wait(r.empty + 8 * stage, phase ^ 1);
       if (t == 0) {
         mbar_expect_tx(bar, T::TILE_B);
 #pragma unroll
         for (int i = 0; i < T::BOXES; ++i)
-          tma_load(st + T::B1 + i * BOX_MN, &p.b1, bar, n0 + 64 * i, kb * BK);
+          tma_load(st + T::B1 + i * BOX_MN, mp.b1, bar, n0 + 64 * i, kb * BK);
       }
       const int k = kb * BK + 8 * cc;
       const bool k_in = k < k_end;
@@ -1164,15 +1294,376 @@ __device__ __forceinline__ void conv_a(const Args& p, uint32_t ring,
                          static_cast<ptrdiff_t>(dy * w + dx) * c;
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        const int r = rb + 16 * j;
+        const int rr = rb + 16 * j;
         const bool in = k_in && inside(yx[j], dy, dx, h, w);
-        cp_async_16(st + T::A1 + r * 128 + ((cc ^ (r & 7)) << 4),
-                    in ? src0 + static_cast<size_t>(m0 + r) * c : p.conv_y,
+        cp_async_16(st + T::A1 + rr * 128 + ((cc ^ (rr & 7)) << 4),
+                    in ? src0 + static_cast<size_t>(m0 + rr) * c : p.conv_y,
                     in ? 16 : 0);
       }
       asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
                        "r"(bar)
                    : "memory");
+      if (++stage == T::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// The producer warpgroup's part of a launch, from the ring's stage and
+// parity given (the stage kernel's phases carry them on): CONV's
+// producers above, else one thread that issues every TMA load, arriving
+// `extra` times more on each full barrier.  WGRAD loads only the boxes
+// that start inside a or b (a box wholly past m or n would hold only
+// zeros, for rows and columns that are never stored) and expects their
+// bytes.
+template <int BN, int MODE, int RM>
+__device__ __forceinline__ void produce(const Scalars& p, const Maps& mp,
+                                        const Ring<Tile<BN, MODE, RM>>& r,
+                                        int stage, uint32_t phase,
+                                        int extra) {
+  using T = Tile<BN, MODE, RM>;
+  constexpr bool TWO = MODE == DUAL || MODE == PROJ;
+  if constexpr (MODE == CONV) {
+    if (p.conv_tma)
+      conv_tma_a<BN, RM>(p, mp, r, stage, phase, extra);
+    else
+      conv_a<BN, RM>(p, mp, r, stage, phase);
+  } else {
+    if (threadIdx.x != T::GROUPS * 128) return;
+    tma_prefetch(mp.a1);
+    tma_prefetch(mp.b1);
+    if constexpr (TWO) {
+      tma_prefetch(mp.a2);
+      tma_prefetch(mp.b2);
+    }
+    const Walk<BN, MODE, RM> walk(p);
+    for (int tile = blockIdx.x; tile < walk.tiles; tile += gridDim.x) {
+      int m0, n0, k0, kbs;
+      walk.at(tile, p, m0, n0, k0, kbs);
+      for (int kb = 0; kb < kbs; ++kb) {
+        const int kk0 = k0 + kb * Walk<BN, MODE, RM>::KSTAGE;
+        const uint32_t st = r.base + stage * T::STAGE,
+                       bar = r.full + 8 * stage;
+        mbar_wait(r.empty + 8 * stage, phase ^ 1);   // the slot is free
+        if constexpr (MODE == WGRAD) {
+          int boxes = 0;
+#pragma unroll
+          for (int i = 0; i < RM / 64; ++i) boxes += m0 + 64 * i < p.m;
+#pragma unroll
+          for (int i = 0; i < T::BOXES; ++i) boxes += n0 + 64 * i < p.n;
+          mbar_expect_tx(bar, boxes * BOX_MN);
+        } else {
+          mbar_expect_tx(bar, T::STAGE);
+        }
+        if (extra) mbar_arrive_n(bar, extra);
+        if constexpr (MODE == WGRAD) {
+#pragma unroll
+          for (int i = 0; i < RM / 64; ++i)
+            if (m0 + 64 * i < p.m)
+              tma_load(st + T::A1 + i * BOX_MN, mp.a1, bar, m0 + 64 * i, kk0);
+#pragma unroll
+          for (int i = 0; i < T::BOXES; ++i)
+            if (n0 + 64 * i < p.n)
+              tma_load(st + T::B1 + i * BOX_MN, mp.b1, bar, n0 + 64 * i, kk0);
+        } else {
+          tma_load(st + T::A1, mp.a1, bar, kk0, m0);
+          if constexpr (MODE == DUAL) {
+            tma_load(st + T::B1, mp.b1, bar, n0, kk0);
+            tma_load(st + T::B1 + BOX_MN, mp.b1, bar, n0 + 64, kk0);
+            tma_load(st + T::A2, mp.a2, bar, kk0, m0);
+            tma_load(st + T::B2, mp.b2, bar, kk0, n0);
+          } else if constexpr (MODE == PROJ) {
+#pragma unroll
+            for (int i = 0; i < T::BOXES; ++i) {
+              tma_load(st + T::B1 + i * BOX_MN, mp.b1, bar, n0 + 64 * i, kk0);
+              tma_load(st + T::B2 + i * BOX_MN, mp.b2, bar, n0 + 64 * i, kk0);
+            }
+            tma_load(st + T::A2, mp.a2, bar, kk0, m0);
+          } else if constexpr (MODE == B_MN) {
+#pragma unroll
+            for (int i = 0; i < T::BOXES; ++i)
+              tma_load(st + T::B1 + i * BOX_MN, mp.b1, bar, n0 + 64 * i, kk0);
+          } else {                       // B_K and the int8 modes
+            tma_load(st + T::B1, mp.b1, bar, kk0, n0);
+          }
+        }
+        if (++stage == T::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  }
+}
+
+// The consumer warpgroups' part of a launch (64 rows of each tile a
+// group), from the ring's stage and parity given.
+template <int BN, int MODE, int RM>
+__device__ __forceinline__ void consume(const Scalars& p, const Maps& mp,
+                                        const Ring<Tile<BN, MODE, RM>>& r,
+                                        int stage, uint32_t phase) {
+  using T = Tile<BN, MODE, RM>;
+  constexpr bool DUALP = MODE == DUAL;
+  constexpr bool TWO = MODE == DUAL || MODE == PROJ;   // two accumulators
+  constexpr bool S8P = is_s8(MODE);
+  constexpr int R = BN / 2;
+  using Acc = std::conditional_t<S8P, int, float>;
+  Acc acc1[R];
+  float acc2[TWO ? R : 1];
+  float facc[MODE == S8_GROUPS ? R : 1];   // the flushed K groups' sum
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const uint32_t a_rows = wg * 64 * 128;   // this group's 64 rows of A
+  const Walk<BN, MODE, RM> walk(p);
+  for (int tile = blockIdx.x; tile < walk.tiles; tile += gridDim.x) {
+    int m0, n0, k0, kbs;
+    walk.at(tile, p, m0, n0, k0, kbs);
+    // this thread's first row (accumulators i % 4 < 2; +8 for the rest)
+    const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
+    // CONV by TMA: the image positions of the two rows whose A fragments
+    // this thread holds (row0 and row0 + 8)
+    int yx_lo = 0, yx_hi = 0;
+    if constexpr (MODE == CONV) {
+      yx_lo = image_yx(row0, p.m, p.conv_h, p.conv_w);
+      yx_hi = image_yx(row0 + 8, p.m, p.conv_h, p.conv_w);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc1[i] = Acc(0);
+    if constexpr (TWO) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc2[i] = 0.f;
+    }
+    if constexpr (MODE == S8_GROUPS) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) facc[i] = 0.f;
+    }
+    for (int kb = 0; kb < kbs; ++kb) {
+      mbar_wait(r.full + 8 * stage, phase);
+      const uint32_t st = r.base + stage * T::STAGE;
+      // CONV: A into registers (the gather writes it through the generic
+      // proxy); wgmma reads only B through its descriptor.  By TMA, the
+      // rows whose neighbour at this stage's tap lies outside their
+      // image are zeroed here.
+      uint32_t af[MODE == CONV ? BK / 16 : 1][4];
+      if constexpr (MODE == CONV) {
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          ldmatrix_a(af[kk], st + T::A1, wg * 64 + warp * 16, 2 * kk, lane);
+        if (p.conv_tma) {
+          const int tap = kb * BK / p.conv_c, dy = tap / 3 - 1,
+                    dx = tap % 3 - 1;
+          const uint32_t lo = inside(yx_lo, dy, dx, p.conv_h, p.conv_w)
+                                  ? ~0u : 0u;
+          const uint32_t hi = inside(yx_hi, dy, dx, p.conv_h, p.conv_w)
+                                  ? ~0u : 0u;
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            af[kk][0] &= lo;
+            af[kk][2] &= lo;
+            af[kk][1] &= hi;
+            af[kk][3] &= hi;
+          }
+        }
+      }
+      fence_regs(acc1);
+      if constexpr (TWO) fence_regs(acc2);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // a k16 (bf16) or k32 (int8) step is 32 bytes along a K-major
+        // row, 16 rows (2048 bytes) down an MN-major box
+        const uint64_t a1 = desc_sw128(st + T::A1 + a_rows + 32 * kk, 16,
+                                       1024);
+        if constexpr (DUALP) {
+          wgmma<BN, 1>(acc1, a1,
+                       desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
+          wgmma<BN, 0>(acc2,
+                       desc_sw128(st + T::A2 + a_rows + 32 * kk, 16, 1024),
+                       desc_sw128(st + T::B2 + 32 * kk, 16, 1024));
+        } else if constexpr (MODE == PROJ) {
+          wgmma<BN, 1>(acc1, a1,
+                       desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
+          wgmma<BN, 1>(acc2,
+                       desc_sw128(st + T::A2 + a_rows + 32 * kk, 16, 1024),
+                       desc_sw128(st + T::B2 + 2048 * kk, BOX_MN, 1024));
+        } else if constexpr (MODE == CONV) {
+          wgmma_rs<BN, 1>(acc1, af[kk],
+                          desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
+        } else if constexpr (MODE == B_MN) {
+          wgmma<BN, 1>(acc1, a1,
+                       desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
+        } else if constexpr (MODE == WGRAD) {
+          // A: this group's 64-column box of a, its k16 step 16 rows
+          // down, read transposed (MN-major) as B is
+          wgmma<BN, 1, 1>(
+              acc1, desc_sw128(st + T::A1 + wg * BOX_MN + 2048 * kk, BOX_MN,
+                               1024),
+              desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
+        } else if constexpr (S8P) {
+          wgmma_s8<BN>(acc1, a1, desc_sw128(st + T::B1 + 32 * kk, 16, 1024));
+          if constexpr (MODE == S8_GROUPS) {
+            // the k32 steps done; a K group ends here: retire the
+            // products, flush, and restart the int32 sums (steps past k
+            // read TMA's zeros and end no group)
+            const int steps = kb * (BK / 16) + kk + 1;
+            if (steps % p.group_steps == 0 && 32 * steps <= p.k) {
+              wgmma_commit();
+              fence_regs(acc1);
+              wgmma_wait();
+              flush_group(facc, acc1, p, row0, n0, lane,
+                          steps / p.group_steps - 1);
+              fence_regs(acc1);
+              wgmma_fence();
+            }
+          }
+        } else {
+          wgmma<BN, 0>(acc1, a1, desc_sw128(st + T::B1 + 32 * kk, 16, 1024));
+        }
+      }
+      wgmma_commit();
+      fence_regs(acc1);
+      if constexpr (TWO) fence_regs(acc2);
+      wgmma_wait();       // this stage's products have read it
+      if (threadIdx.x % 128 == 0) mbar_arrive(r.empty + 8 * stage);
+      if (++stage == T::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    fence_regs(acc1);
+    if constexpr (TWO) fence_regs(acc2);
+
+    // epilogue: accumulator i of n-octet j holds row 16·warp + lane/4
+    // (+8 for i = 2, 3) and columns 8j + 2·(lane % 4) (+1 for odd i)
+    if constexpr (S8P) {
+      const uint32_t buf = r.epi + wg * T::EPI_WG;
+      if constexpr (MODE == S8_GROUPS) {
+        store_s8<BN, T::LDE>(facc, p, buf, m0, n0, wg, warp, lane);
+      } else {
+        // the one K group's flush into a fresh fp32 sum
+        float sum[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) sum[i] = 0.f;
+        flush_group(sum, acc1, p, row0, n0, lane, 0);
+        store_s8<BN, T::LDE>(sum, p, buf, m0, n0, wg, warp, lane);
+      }
+    } else if constexpr (DUALP) {
+      // h to this group's 64 x 128 buffer (the layout TMA stores:
+      // two 64-column boxes, 128-byte rows, chunks swizzled by row),
+      // dhpre kept in acc2; stored by TMA, then dhpre likewise
+      const uint32_t buf = r.epi + wg * T::EPI_WG;
+      const int rr = warp * 16 + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane & 3);
+        const float bias0 = col < p.n ? p.bias[col] : 0.f;
+        const float bias1 = col < p.n ? p.bias[col + 1] : 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = 4 * j + 2 * half;
+          const float hp0 = acc1[i] + bias0, hp1 = acc1[i + 1] + bias1;
+          acc2[i] *= dgelu_erf(hp0);
+          acc2[i + 1] *= dgelu_erf(hp1);
+          st_shared_bf16x2(buf + epi_offset(rr + 8 * half, j, lane),
+                           gelu_erf(hp0), gelu_erf(hp1));
+        }
+      }
+      store_tile(mp.o1, buf, n0, m0 + wg * 64, p, wg);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          st_shared_bf16x2(buf + epi_offset(rr + 8 * half, j, lane),
+                           acc2[4 * j + 2 * half],
+                           acc2[4 * j + 2 * half + 1]);
+      store_tile(mp.o2, buf, n0, m0 + wg * 64, p, wg);
+    } else if (MODE == WGRAD || p.epi == EPI_F32) {
+      // fp32 pairs straight from the registers (WGRAD: into the partial
+      // of the tile's chunk)
+      float* out = static_cast<float*>(p.out1);
+      if constexpr (MODE == WGRAD)
+        out += static_cast<size_t>(k0 / WG_ROWS) * p.m * p.n;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane & 3);
+        if (col >= p.n) continue;        // n % 8 == 0: col + 1 < n too
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = row0 + 8 * half;
+          if (row >= p.m) continue;
+          reinterpret_cast<float2*>(out + static_cast<size_t>(row) * p.n +
+                                    col)[0] =
+              make_float2(acc1[4 * j + 2 * half],
+                          acc1[4 * j + 2 * half + 1]);
+        }
+      }
+    } else if constexpr (MODE == PROJ) {
+      // the chain's arithmetic (EPI_BIAS for the shortcut, then
+      // EPI_BIAS_RESID_RELU): sc = T(acc2 + bias2), y3 = T(acc1 + bias),
+      // out = T(max(sc + y3, 0)) through the padded buffer
+      const uint32_t buf = r.epi + wg * T::EPI_WG;
+      const int rr = warp * 16 + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane & 3);
+        const bool in = col < p.n;
+        const float b0 = in ? p.bias[col] : 0.f;
+        const float b1 = in ? p.bias[col + 1] : 0.f;
+        const float s0 = in ? p.bias2[col] : 0.f;
+        const float s1 = in ? p.bias2[col + 1] : 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = 4 * j + 2 * half;
+          const float v0 = to_f(from_f<bf16>(acc2[i] + s0)) +
+                           to_f(from_f<bf16>(acc1[i] + b0));
+          const float v1 = to_f(from_f<bf16>(acc2[i + 1] + s1)) +
+                           to_f(from_f<bf16>(acc1[i + 1] + b1));
+          st_shared_bf16x2(
+              buf + 2 * ((rr + 8 * half) * T::LDE + 8 * j + 2 * (lane & 3)),
+              fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+        }
+      }
+      copy_out_bf16<BN, T::LDE>(buf, m0, n0, wg, p, false);
+    } else {
+      // bf16 out, gemm_tile.cuh's store_out arithmetic: o = T(acc +
+      // bias), T(gelu(acc + bias)) or T(acc) into this group's padded 64
+      // x BN buffer, then 16-byte chunks of rows below m and columns
+      // below n out to device memory (EPI_BIAS_RELU takes max(o, 0)
+      // there, the same bits as T(max(acc + bias, 0)): rounding keeps
+      // the sign and 0; EPI_BIAS_RESID adds its residual chunk: T(aux +
+      // o); EPI_BIAS_RESID_RELU T(max(aux + o, 0))).  A ReLU branch in
+      // the register loop above cost the ViT products 4-30%.
+      const uint32_t buf = r.epi + wg * T::EPI_WG;
+      const int rr = warp * 16 + (lane >> 2);
+      const bool bias = p.epi != EPI_NONE;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane & 3);
+        const bool in = bias && col < p.n;
+        const float bias0 = in ? p.bias[col] : 0.f;
+        const float bias1 = in ? p.bias[col + 1] : 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float v0 = acc1[4 * j + 2 * half], v1 = acc1[4 * j + 2 * half + 1];
+          if (bias) {
+            v0 += bias0;
+            v1 += bias1;
+          }
+          if (p.epi == EPI_BIAS_GELU) {
+            v0 = gelu_erf(v0);
+            v1 = gelu_erf(v1);
+          }
+          st_shared_bf16x2(
+              buf + 2 * ((rr + 8 * half) * T::LDE + 8 * j + 2 * (lane & 3)),
+              v0, v1);
+        }
+      }
+      copy_out_bf16<BN, T::LDE>(
+          buf, m0, n0, wg, p,
+          p.epi == EPI_BIAS_RESID || p.epi == EPI_BIAS_RESID_RELU,
+          p.epi == EPI_BIAS_RESID_RELU || p.epi == EPI_BIAS_RELU);
     }
   }
 }
@@ -1186,332 +1677,19 @@ __global__ void __launch_bounds__(Tile<BN, MODE, RM>::THREADS,
                                   Tile<BN, MODE, RM>::BLOCKS_PER_SM)
 gemm_kernel(const __grid_constant__ Args p) {
   using T = Tile<BN, MODE, RM>;
-  constexpr bool DUALP = MODE == DUAL;
-  constexpr bool TWO = MODE == DUAL || MODE == PROJ;   // two accumulators
-  constexpr bool S8P = is_s8(MODE);
-  constexpr int KSTAGE = S8P ? 2 * BK : BK;      // k elements a stage
   extern __shared__ uint8_t smem_raw[];
-  // the ring starts on a 1024-byte boundary of the shared window
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t ring = (raw + 1023u) & ~1023u;
-  const uint32_t epi = ring + T::STAGES * T::STAGE;    // GROUPS x EPI_WG
-  const uint32_t full = epi + T::GROUPS * T::EPI_WG;    // STAGES barriers
-  const uint32_t empty = full + T::STAGES * 8;          // STAGES barriers
-  const int wg = threadIdx.x >> 7;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < T::STAGES; ++s) {
-      // the producer's expect_tx (CONV: and each gathering thread's)
-      mbar_init(full + 8 * s, MODE == CONV && !p.conv_tma ? 129 : 1);
-      mbar_init(empty + 8 * s, T::GROUPS);  // one per consumer group
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  const int n_tiles = (p.n + BN - 1) / BN;
-  const int tiles = (p.m + RM - 1) / RM * n_tiles;
-  const int kblocks = (p.k + KSTAGE - 1) / KSTAGE;
-
-  if (wg == T::GROUPS) {
-    // ---------------------------------------------------------- producer
-    // (CONV: 128 gathering threads, each holding its rows' coordinates)
+  const Ring<T> r(smem_raw);
+  // the producer's expect_tx (CONV's gather: and each gathering thread's)
+  r.init(MODE == CONV && !p.conv_tma ? 129 : 1);
+  const Maps mp{&p.a1, &p.b1, &p.a2, &p.b2, &p.o1, &p.o2};
+  if (threadIdx.x >> 7 == T::GROUPS) {
+    // (CONV's gather: 128 producing threads, each holding its rows'
+    // coordinates)
     setmaxnreg_dec<T::PRODUCER_REGS>();
-    if constexpr (MODE == CONV) {
-      if (p.conv_tma)
-        conv_tma_a<BN, RM>(p, ring, full, empty, n_tiles, tiles, kblocks);
-      else
-        conv_a<BN, RM>(p, ring, full, empty, n_tiles, tiles, kblocks);
-    } else if (threadIdx.x == T::GROUPS * 128) {
-      tma_prefetch(&p.a1);
-      tma_prefetch(&p.b1);
-      if constexpr (TWO) {
-        tma_prefetch(&p.a2);
-        tma_prefetch(&p.b2);
-      }
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = tile / n_tiles * RM, n0 = tile % n_tiles * BN;
-        for (int kb = 0; kb < kblocks; ++kb) {
-          const int k0 = kb * KSTAGE;
-          const uint32_t st = ring + stage * T::STAGE, bar = full + 8 * stage;
-          mbar_wait(empty + 8 * stage, phase ^ 1);   // the slot is free
-          mbar_expect_tx(bar, T::STAGE);
-          tma_load(st + T::A1, &p.a1, bar, k0, m0);
-          if constexpr (DUALP) {
-            tma_load(st + T::B1, &p.b1, bar, n0, k0);
-            tma_load(st + T::B1 + BOX_MN, &p.b1, bar, n0 + 64, k0);
-            tma_load(st + T::A2, &p.a2, bar, k0, m0);
-            tma_load(st + T::B2, &p.b2, bar, k0, n0);
-          } else if constexpr (MODE == PROJ) {
-#pragma unroll
-            for (int i = 0; i < T::BOXES; ++i) {
-              tma_load(st + T::B1 + i * BOX_MN, &p.b1, bar, n0 + 64 * i, k0);
-              tma_load(st + T::B2 + i * BOX_MN, &p.b2, bar, n0 + 64 * i, k0);
-            }
-            tma_load(st + T::A2, &p.a2, bar, k0, m0);
-          } else if constexpr (MODE == B_MN) {
-#pragma unroll
-            for (int i = 0; i < T::BOXES; ++i)
-              tma_load(st + T::B1 + i * BOX_MN, &p.b1, bar, n0 + 64 * i, k0);
-          } else {                       // B_K and the int8 modes
-            tma_load(st + T::B1, &p.b1, bar, k0, n0);
-          }
-          if (++stage == T::STAGES) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-      }
-    }
+    produce<BN, MODE, RM>(p, mp, r, 0, 0, 0);
   } else {
-    // --------------------------------------------------------- consumers
     setmaxnreg_inc<T::CONSUMER_REGS>();
-    constexpr int R = BN / 2;
-    using Acc = std::conditional_t<S8P, int, float>;
-    Acc acc1[R];
-    float acc2[TWO ? R : 1];
-    float facc[MODE == S8_GROUPS ? R : 1];   // the flushed K groups' sum
-    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-    const uint32_t a_rows = wg * 64 * 128;   // this group's 64 rows of A
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m0 = tile / n_tiles * RM, n0 = tile % n_tiles * BN;
-      // this thread's first row (accumulators i % 4 < 2; +8 for the rest)
-      const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
-      // CONV by TMA: the image positions of the two rows whose A fragments
-      // this thread holds (row0 and row0 + 8)
-      int yx_lo = 0, yx_hi = 0;
-      if constexpr (MODE == CONV) {
-        yx_lo = image_yx(row0, p.m, p.conv_h, p.conv_w);
-        yx_hi = image_yx(row0 + 8, p.m, p.conv_h, p.conv_w);
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i) acc1[i] = Acc(0);
-      if constexpr (TWO) {
-#pragma unroll
-        for (int i = 0; i < R; ++i) acc2[i] = 0.f;
-      }
-      if constexpr (MODE == S8_GROUPS) {
-#pragma unroll
-        for (int i = 0; i < R; ++i) facc[i] = 0.f;
-      }
-      for (int kb = 0; kb < kblocks; ++kb) {
-        mbar_wait(full + 8 * stage, phase);
-        const uint32_t st = ring + stage * T::STAGE;
-        // CONV: A into registers (the gather writes it through the generic
-        // proxy); wgmma reads only B through its descriptor.  By TMA, the
-        // rows whose neighbour at this stage's tap lies outside their
-        // image are zeroed here.
-        uint32_t af[MODE == CONV ? BK / 16 : 1][4];
-        if constexpr (MODE == CONV) {
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk)
-            ldmatrix_a(af[kk], st + T::A1, wg * 64 + warp * 16, 2 * kk, lane);
-          if (p.conv_tma) {
-            const int tap = kb * BK / p.conv_c, dy = tap / 3 - 1,
-                      dx = tap % 3 - 1;
-            const uint32_t lo = inside(yx_lo, dy, dx, p.conv_h, p.conv_w)
-                                    ? ~0u : 0u;
-            const uint32_t hi = inside(yx_hi, dy, dx, p.conv_h, p.conv_w)
-                                    ? ~0u : 0u;
-#pragma unroll
-            for (int kk = 0; kk < BK / 16; ++kk) {
-              af[kk][0] &= lo;
-              af[kk][2] &= lo;
-              af[kk][1] &= hi;
-              af[kk][3] &= hi;
-            }
-          }
-        }
-        fence_regs(acc1);
-        if constexpr (TWO) fence_regs(acc2);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          // a k16 (bf16) or k32 (int8) step is 32 bytes along a K-major
-          // row, 16 rows (2048 bytes) down an MN-major box
-          const uint64_t a1 = desc_sw128(st + T::A1 + a_rows + 32 * kk, 16,
-                                         1024);
-          if constexpr (DUALP) {
-            wgmma<BN, 1>(acc1, a1,
-                         desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
-            wgmma<BN, 0>(acc2,
-                         desc_sw128(st + T::A2 + a_rows + 32 * kk, 16, 1024),
-                         desc_sw128(st + T::B2 + 32 * kk, 16, 1024));
-          } else if constexpr (MODE == PROJ) {
-            wgmma<BN, 1>(acc1, a1,
-                         desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
-            wgmma<BN, 1>(acc2,
-                         desc_sw128(st + T::A2 + a_rows + 32 * kk, 16, 1024),
-                         desc_sw128(st + T::B2 + 2048 * kk, BOX_MN, 1024));
-          } else if constexpr (MODE == CONV) {
-            wgmma_rs<BN, 1>(acc1, af[kk],
-                            desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
-          } else if constexpr (MODE == B_MN) {
-            wgmma<BN, 1>(acc1, a1,
-                         desc_sw128(st + T::B1 + 2048 * kk, BOX_MN, 1024));
-          } else if constexpr (S8P) {
-            wgmma_s8<BN>(acc1, a1, desc_sw128(st + T::B1 + 32 * kk, 16, 1024));
-            if constexpr (MODE == S8_GROUPS) {
-              // the k32 steps done; a K group ends here: retire the
-              // products, flush, and restart the int32 sums (steps past k
-              // read TMA's zeros and end no group)
-              const int steps = kb * (BK / 16) + kk + 1;
-              if (steps % p.group_steps == 0 && 32 * steps <= p.k) {
-                wgmma_commit();
-                fence_regs(acc1);
-                wgmma_wait();
-                flush_group(facc, acc1, p, row0, n0, lane,
-                            steps / p.group_steps - 1);
-                fence_regs(acc1);
-                wgmma_fence();
-              }
-            }
-          } else {
-            wgmma<BN, 0>(acc1, a1, desc_sw128(st + T::B1 + 32 * kk, 16, 1024));
-          }
-        }
-        wgmma_commit();
-        fence_regs(acc1);
-        if constexpr (TWO) fence_regs(acc2);
-        wgmma_wait();       // this stage's products have read it
-        if (threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * stage);
-        if (++stage == T::STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-      fence_regs(acc1);
-      if constexpr (TWO) fence_regs(acc2);
-
-      // epilogue: accumulator i of n-octet j holds row 16·warp + lane/4
-      // (+8 for i = 2, 3) and columns 8j + 2·(lane % 4) (+1 for odd i)
-      if constexpr (S8P) {
-        const uint32_t buf = epi + wg * T::EPI_WG;
-        if constexpr (MODE == S8_GROUPS) {
-          store_s8<BN, T::LDE>(facc, p, buf, m0, n0, wg, warp, lane);
-        } else {
-          // the one K group's flush into a fresh fp32 sum
-          float sum[R];
-#pragma unroll
-          for (int i = 0; i < R; ++i) sum[i] = 0.f;
-          flush_group(sum, acc1, p, row0, n0, lane, 0);
-          store_s8<BN, T::LDE>(sum, p, buf, m0, n0, wg, warp, lane);
-        }
-      } else if constexpr (DUALP) {
-        // h to this group's 64 x 128 buffer (the layout TMA stores:
-        // two 64-column boxes, 128-byte rows, chunks swizzled by row),
-        // dhpre kept in acc2; stored by TMA, then dhpre likewise
-        const uint32_t buf = epi + wg * T::EPI_WG;
-        const int r = warp * 16 + (lane >> 2);
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int col = n0 + 8 * j + 2 * (lane & 3);
-          const float bias0 = col < p.n ? p.bias[col] : 0.f;
-          const float bias1 = col < p.n ? p.bias[col + 1] : 0.f;
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int i = 4 * j + 2 * half;
-            const float hp0 = acc1[i] + bias0, hp1 = acc1[i + 1] + bias1;
-            acc2[i] *= dgelu_erf(hp0);
-            acc2[i + 1] *= dgelu_erf(hp1);
-            st_shared_bf16x2(buf + epi_offset(r + 8 * half, j, lane),
-                             gelu_erf(hp0), gelu_erf(hp1));
-          }
-        }
-        store_tile(&p.o1, buf, n0, m0 + wg * 64, p, wg);
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-          for (int half = 0; half < 2; ++half)
-            st_shared_bf16x2(buf + epi_offset(r + 8 * half, j, lane),
-                             acc2[4 * j + 2 * half],
-                             acc2[4 * j + 2 * half + 1]);
-        store_tile(&p.o2, buf, n0, m0 + wg * 64, p, wg);
-      } else if (p.epi == EPI_F32) {
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int col = n0 + 8 * j + 2 * (lane & 3);
-          if (col >= p.n) continue;        // n % 8 == 0: col + 1 < n too
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int row = row0 + 8 * half;
-            if (row >= p.m) continue;
-            reinterpret_cast<float2*>(static_cast<float*>(p.out1) +
-                                      static_cast<size_t>(row) * p.n +
-                                      col)[0] =
-                make_float2(acc1[4 * j + 2 * half],
-                            acc1[4 * j + 2 * half + 1]);
-          }
-        }
-      } else if constexpr (MODE == PROJ) {
-        // the chain's arithmetic (EPI_BIAS for the shortcut, then
-        // EPI_BIAS_RESID_RELU): sc = T(acc2 + bias2), y3 = T(acc1 + bias),
-        // out = T(max(sc + y3, 0)) through the padded buffer
-        const uint32_t buf = epi + wg * T::EPI_WG;
-        const int r = warp * 16 + (lane >> 2);
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int col = n0 + 8 * j + 2 * (lane & 3);
-          const bool in = col < p.n;
-          const float b0 = in ? p.bias[col] : 0.f;
-          const float b1 = in ? p.bias[col + 1] : 0.f;
-          const float s0 = in ? p.bias2[col] : 0.f;
-          const float s1 = in ? p.bias2[col + 1] : 0.f;
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int i = 4 * j + 2 * half;
-            const float v0 = to_f(from_f<bf16>(acc2[i] + s0)) +
-                             to_f(from_f<bf16>(acc1[i] + b0));
-            const float v1 = to_f(from_f<bf16>(acc2[i + 1] + s1)) +
-                             to_f(from_f<bf16>(acc1[i + 1] + b1));
-            st_shared_bf16x2(
-                buf + 2 * ((r + 8 * half) * T::LDE + 8 * j + 2 * (lane & 3)),
-                fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-          }
-        }
-        copy_out_bf16<BN, T::LDE>(buf, m0, n0, wg, p, false);
-      } else {
-        // bf16 out, gemm_tile.cuh's store_out arithmetic: o = T(acc +
-        // bias), T(gelu(acc + bias)) or T(acc) into this group's padded 64
-        // x BN buffer, then 16-byte chunks of rows below m and columns
-        // below n out to device memory (EPI_BIAS_RELU takes max(o, 0)
-        // there, the same bits as T(max(acc + bias, 0)): rounding keeps
-        // the sign and 0; EPI_BIAS_RESID adds its residual chunk: T(aux +
-        // o); EPI_BIAS_RESID_RELU T(max(aux + o, 0))).  A ReLU branch in
-        // the register loop above cost the ViT products 4-30%.
-        const uint32_t buf = epi + wg * T::EPI_WG;
-        const int r = warp * 16 + (lane >> 2);
-        const bool bias = p.epi != EPI_NONE;
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int col = n0 + 8 * j + 2 * (lane & 3);
-          const bool in = bias && col < p.n;
-          const float bias0 = in ? p.bias[col] : 0.f;
-          const float bias1 = in ? p.bias[col + 1] : 0.f;
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            float v0 = acc1[4 * j + 2 * half], v1 = acc1[4 * j + 2 * half + 1];
-            if (bias) {
-              v0 += bias0;
-              v1 += bias1;
-            }
-            if (p.epi == EPI_BIAS_GELU) {
-              v0 = gelu_erf(v0);
-              v1 = gelu_erf(v1);
-            }
-            st_shared_bf16x2(
-                buf + 2 * ((r + 8 * half) * T::LDE + 8 * j + 2 * (lane & 3)),
-                v0, v1);
-          }
-        }
-        copy_out_bf16<BN, T::LDE>(
-            buf, m0, n0, wg, p,
-            p.epi == EPI_BIAS_RESID || p.epi == EPI_BIAS_RESID_RELU,
-            p.epi == EPI_BIAS_RESID_RELU || p.epi == EPI_BIAS_RELU);
-      }
-    }
+    consume<BN, MODE, RM>(p, mp, r, 0, 0);
   }
 }
 
@@ -1581,7 +1759,8 @@ cudaError_t launch(const Args& args, int device, cudaStream_t s) {
       smem_limit_once(gemm_kernel<BN, MODE, RM>, T::SMEM, limit);
   if (err == cudaSuccess) err = sm_count(device, &sms);
   if (err != cudaSuccess) return err;
-  const int tiles = cdiv(args.m, RM) * cdiv(args.n, BN);
+  const int tiles = cdiv(args.m, RM) * cdiv(args.n, BN) *
+                    (MODE == WGRAD ? cdiv(args.k, WG_ROWS) : 1);
   const int slots = sms * T::BLOCKS_PER_SM;
   gemm_kernel<BN, MODE, RM>
       <<<tiles < slots ? tiles : slots, T::THREADS, T::SMEM, s>>>(args);

@@ -1,27 +1,25 @@
-// The port's hand-written GEMM tiles, shared by the ViT blocks
-// (vit_block.cu) and the ResNet bottleneck (resnet_block.cu):
+// The port's fp32 GEMM tile (the parity dtype's products), shared by the
+// ViT blocks (vit_block.cu), K10 (attn_block_bwd.cu) and the ResNet
+// bottleneck and stage (resnet_block.cu), and the epilogues and A loaders
+// every product of the port follows:
 //
 //   out (M, N) = epilogue(A (M, K) @ B)
 //
-// row-major, fp32 accumulation; B is stored (K, N), or (N, K) and read
-// transposed when TRANS_B.  bf16 operands run on the tensor cores through
-// WMMA, fp32 operands on the FMA pipes (no TF32).  A is staged through a
-// loader: DenseA reads a row-major (M, K) matrix, Conv3x3A gathers the
-// nine taps of a stride-1, same-padding 3x3 convolution on image-major
-// NHWC rows (the implicit GEMM of the ResNet bottleneck).  Ragged M/N/K
-// are zero-filled on load and masked on store.  The A and B tiles are
-// loaded element by element and not pipelined (TMA + wgmma is later work).
-// Each tile body is a __device__ function of its origin and its shared
-// buffers: the __global__ kernels below run one tile per block, and a
-// persistent kernel (resnet_block.cu's stage kernel) loops one block
-// over many tiles with buffers (WmmaSmem, SimtSmem) it declares once.
+// row-major, fp32 accumulation on the FMA pipes (no TF32); B is stored
+// (K, N), or (N, K) and read transposed when TRANS_B.  A is staged
+// through a loader: DenseA reads a row-major (M, K) matrix, Conv3x3A
+// gathers the nine taps of a stride-1, same-padding 3x3 convolution on
+// image-major NHWC rows (the implicit GEMM of the ResNet bottleneck).
+// Ragged M/N/K are zero-filled on load and masked on store.  The A and B
+// tiles are loaded element by element and not pipelined.  The tile body
+// is a __device__ function of its origin and its shared buffers: the
+// __global__ kernel below runs one tile per block, and a persistent
+// kernel (resnet_block.cu's fp32 stage kernel) loops one block over many
+// tiles with buffers (SimtSmem) it declares once.  bf16 runs
+// gemm_sm90.cuh's TMA + wgmma GEMM over the same epilogues.
 #pragma once
 
 #include "common.cuh"
-
-#include <mma.h>
-
-#include <type_traits>
 
 namespace dfu {
 namespace {
@@ -132,131 +130,9 @@ struct Conv3x3A {
   }
 };
 
-// --------------------------------------------------- bf16 GEMM (WMMA)
-// A 64x64 output tile per block of 4 warps, each warp a 32x32 quadrant of
-// 2x2 16x16x16 WMMA fragments; K in steps of 32.  A transposed B tile is
-// staged as stored ((N, K) rows, coalesced along K) and read by col_major
-// fragments.
-constexpr int WBM = 64, WBN = 64, WBK = 32, WTHREADS = 128;
-constexpr int WLDA = WBK + 8, WLDB = WBN + 8, WLDBT = WBK + 8, WLDC = WBN + 4;
-constexpr int WBS = (WBK * WLDB > WBN * WLDBT) ? WBK * WLDB : WBN * WLDBT;
-
-// The shared memory of one bf16 tile: a persistent kernel declares it
-// once and passes it to every tile it computes (a __shared__ array
-// declared inside the tile function would be allocated once for each
-// instantiation).
-struct WmmaSmem {
-  __align__(32) bf16 As[WBM * WLDA];
-  __align__(32) bf16 Bs[WBS];
-  __align__(32) float Cs[WBM * WLDC];
-};
-
-// The output tile at (row0, col0), computed by the block's WTHREADS
-// threads.  It ends with the epilogue reading Cs: a caller that runs
-// another tile with the same buffers synchronises the block first.
-template <int EPI, bool TRANS_B, typename ALoad>
-__device__ __forceinline__ void
-gemm_bf16_tile(ALoad A, const bf16* __restrict__ B,
-               const float* __restrict__ bias, void* __restrict__ aux,
-               void* __restrict__ out, int m, int n, int k, int row0,
-               int col0, bf16* __restrict__ As, bf16* __restrict__ Bs,
-               float* __restrict__ Cs) {
-  using namespace nvcuda;
-  using BLayout = std::conditional_t<TRANS_B, wmma::col_major,
-                                     wmma::row_major>;
-  constexpr int RSTEP = WTHREADS / WBK, NROWS = WBM / RSTEP;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int a_col = tid % WBK, a_row = tid / WBK;
-  const bf16 zero = __float2bfloat16_rn(0.f);
-
-  typename ALoad::Row rows[NROWS];
-#pragma unroll
-  for (int j = 0; j < NROWS; ++j) rows[j] = A.row(row0 + a_row + j * RSTEP);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < k; k0 += WBK) {
-    const typename ALoad::Col col = A.col(k0 + a_col);
-#pragma unroll
-    for (int j = 0; j < NROWS; ++j)
-      As[(a_row + j * RSTEP) * WLDA + a_col] = A.at(rows[j], col);
-    if constexpr (TRANS_B) {
-      for (int i = tid; i < WBN * WBK; i += WTHREADS) {
-        const int c = i / WBK, r = i % WBK;      // c: n index, r: k index
-        const int gr = k0 + r, gc = col0 + c;
-        Bs[c * WLDBT + r] =
-            (gr < k && gc < n) ? B[static_cast<size_t>(gc) * k + gr] : zero;
-      }
-    } else {
-      for (int i = tid; i < WBK * WBN; i += WTHREADS) {
-        const int r = i / WBN, c = i % WBN;
-        const int gr = k0 + r, gc = col0 + c;
-        Bs[r * WLDB + c] =
-            (gr < k && gc < n) ? B[static_cast<size_t>(gr) * n + gc] : zero;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < WBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * WLDA + kk,
-                               WLDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n0 = wn * 32 + j * 16;
-        if constexpr (TRANS_B)
-          wmma::load_matrix_sync(b[j], Bs + n0 * WLDBT + kk, WLDBT);
-        else
-          wmma::load_matrix_sync(b[j], Bs + kk * WLDB + n0, WLDB);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * WLDC + wn * 32 + j * 16,
-                              acc[i][j], WLDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < WBM * WBN; i += WTHREADS) {
-    const int r = i / WBN, c = i % WBN;
-    const int gr = row0 + r, gc = col0 + c;
-    if (gr < m && gc < n)
-      store_out<bf16, EPI>(Cs[r * WLDC + c], gr, gc, n, bias, aux, out);
-  }
-}
-
-// One 64x64 output tile per block: grid (cdiv(n, WBN), cdiv(m, WBM)).
-template <int EPI, bool TRANS_B, typename ALoad>
-__global__ void __launch_bounds__(WTHREADS)
-gemm_bf16_wmma(ALoad A, const bf16* __restrict__ B,
-               const float* __restrict__ bias, void* __restrict__ aux,
-               void* __restrict__ out, int m, int n, int k) {
-  __shared__ __align__(32) bf16 As[WBM * WLDA];
-  __shared__ __align__(32) bf16 Bs[WBS];
-  __shared__ __align__(32) float Cs[WBM * WLDC];
-  gemm_bf16_tile<EPI, TRANS_B>(A, B, bias, aux, out, m, n, k,
-                               blockIdx.y * WBM, blockIdx.x * WBN, As, Bs,
-                               Cs);
-}
-
 // ---------------------------------------------------- fp32 GEMM (SIMT)
-// Same contract with fp32 operands on the FMA pipes (no TF32): a 64x64
-// tile per block of 256 threads, 4x4 outputs per thread, K in steps of 16.
+// A 64x64 tile per block of 256 threads, 4x4 outputs per thread, K in
+// steps of 16.
 constexpr int SBM = 64, SBN = 64, SBK = 16, STHREADS = 256;
 
 struct SimtSmem {
@@ -265,8 +141,8 @@ struct SimtSmem {
 };
 
 // The output tile at (row0, col0), computed by the block's STHREADS
-// threads; as gemm_bf16_tile, a caller that runs another tile with the
-// same buffers synchronises the block first.
+// threads; a caller that runs another tile with the same buffers
+// synchronises the block first.
 template <int EPI, bool TRANS_B, typename ALoad>
 __device__ __forceinline__ void
 gemm_f32_tile(ALoad A, const float* __restrict__ B,
@@ -339,38 +215,21 @@ gemm_f32_simt(ALoad A, const float* __restrict__ B,
                               blockIdx.y * SBM, blockIdx.x * SBN, As, Bs);
 }
 
-// out (m, n) = epilogue(A @ B) in the compute dtype `dtype`, with A staged
-// by ALoad<T>{a, m, args...} (DenseA: args = k; Conv3x3A: c, h, w).
-template <int EPI, bool TRANS_B, template <typename> class ALoad,
-          typename... Args>
-void launch_gemm(int dtype, const void* a, const void* b, const float* bias,
-                 void* aux, void* out, int m, int n, int k, cudaStream_t s,
-                 Args... args) {
-  if (dtype == DT_BF16) {
-    dim3 grid(cdiv(n, WBN), cdiv(m, WBM));
-    gemm_bf16_wmma<EPI, TRANS_B><<<grid, WTHREADS, 0, s>>>(
-        ALoad<bf16>{static_cast<const bf16*>(a), m, args...},
-        static_cast<const bf16*>(b), bias, aux, out, m, n, k);
-  } else {
-    dim3 grid(cdiv(n, SBN), cdiv(m, SBM));
-    gemm_f32_simt<EPI, TRANS_B><<<grid, STHREADS, 0, s>>>(
-        ALoad<float>{static_cast<const float*>(a), m, args...},
-        static_cast<const float*>(b), bias, aux, out, m, n, k);
-  }
-}
-
-// out (m, n) = epilogue(a (m, k) @ B) over a dense row-major A, with B
-// = b (k, n), or b (n, k) read transposed when trans_b.
+// out (m, n) = epilogue(a (m, k) @ B) in fp32 over a dense row-major A,
+// with B = b (k, n), or b (n, k) read transposed when trans_b.
 template <int EPI>
-void launch_gemm_t(int dtype, int trans_b, const void* a, const void* b,
+void launch_gemm_t(int trans_b, const void* a, const void* b,
                    const float* bias, void* aux, void* out, int m, int n,
                    int k, cudaStream_t s) {
+  const dim3 grid(cdiv(n, SBN), cdiv(m, SBM));
+  const DenseA<float> A{static_cast<const float*>(a), m, k};
+  const float* B = static_cast<const float*>(b);
   if (trans_b)
-    launch_gemm<EPI, true, DenseA>(dtype, a, b, bias, aux, out, m, n, k, s,
-                                   k);
+    gemm_f32_simt<EPI, true><<<grid, STHREADS, 0, s>>>(A, B, bias, aux, out,
+                                                       m, n, k);
   else
-    launch_gemm<EPI, false, DenseA>(dtype, a, b, bias, aux, out, m, n, k, s,
-                                    k);
+    gemm_f32_simt<EPI, false><<<grid, STHREADS, 0, s>>>(A, B, bias, aux, out,
+                                                        m, n, k);
 }
 
 }  // namespace

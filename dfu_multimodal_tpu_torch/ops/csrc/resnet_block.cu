@@ -46,8 +46,8 @@
 // accumulation, y1 and y2 rounded to the compute dtype after bias and
 // ReLU, y3 rounded after its bias, the residual add and the final ReLU in
 // the compute dtype.  The bf16 k sums run in 16-deep tensor-core steps in
-// the flat k order of gemm_tile.cuh's WMMA tile (tap-major for the 3x3),
-// so K11 equals K12's stage kernel, which chains that tile, bit for bit.
+// the flat k order (tap-major for the 3x3), so the stage kernel below,
+// which walks the same tiles, equals the chain of K11 calls bit for bit.
 
 #include "common.cuh"
 #include "gemm_sm90.cuh"
@@ -78,17 +78,28 @@ using namespace dfu;
 //   a grid no larger than the card can hold at once walks block by block
 //   through three phases, conv1 + bias + ReLU -> y1, the 3x3 implicit GEMM
 //   + bias + ReLU -> y2, conv3 + bias + residual + ReLU -> the next
-//   activation, each block of threads looping over the phase's 64x64
-//   output tiles (gemm_tile.cuh, the tiles K11 runs, so the result equals
-//   the chain of K11 calls bit for bit) with a grid-wide barrier between
-//   phases (3n - 1 in all): the 3x3 reads neighbouring rows of y1, conv3
-//   all of y2's columns and the next conv1 all of the activation's.  y1,
-//   y2 and a second activation buffer are scratch that the wrapper
-//   allocates; at the serving batch they fit the 50 MB L2 (stage 1: 12.8
-//   MB per activation, 3.2 MB each for y1 and y2), so the barrier takes
-//   the place of a launch gap and most inter-block traffic stays in L2.
-//   Tiles plus a halo kept in shared memory, or clusters with distributed
-//   shared memory, are the next speed work.
+//   activation, with a grid-wide barrier between phases (3n - 1 in all):
+//   the 3x3 reads neighbouring rows of y1, conv3 all of y2's columns and
+//   the next conv1 all of the activation's.  In bf16 each phase walks
+//   gemm_sm90.cuh's tile body, the warp-specialised TMA + wgmma GEMM that
+//   K11 launches (B_MN for conv1 and conv3, CONV for the 3x3), at K11's
+//   tile shape for the stage's 3x3 (128 rows at pick_bn's width, or 64 x
+//   64 two blocks an SM where 128-row tiles leave SMs idle), so the
+//   stage equals the chain of K11 calls bit for bit.  The ring of stages
+//   and its barriers live across the phases: a block's stage index and
+//   parity carry on from one phase into the next.  Every tensor map (each
+//   block's three weights and its y1 / y2 views, the three activation
+//   buffers) is encoded on the host and travels in the kernel's parameter
+//   space.  The epilogues write with generic stores and the next phase
+//   reads by TMA (the async proxy) on other SMs, so each thread fences
+//   the async proxy on both sides of the barrier.  fp32 (the parity
+//   dtype) walks gemm_tile.cuh's SIMT tiles.  y1, y2 and a second
+//   activation buffer are scratch that the wrapper allocates; at the
+//   serving batch they fit the 50 MB L2 (stage 1: 12.8 MB per activation,
+//   3.2 MB each for y1 and y2), so the barrier takes the place of a launch
+//   gap and most inter-block traffic stays in L2.  Tiles plus a halo kept
+//   in shared memory, or clusters with distributed shared memory, are the
+//   next speed work.
 //
 // Block k reads its input (x for k = 0) and writes the other buffer; the
 // caller's x is never written, and the order is chosen so that the last
@@ -103,6 +114,7 @@ namespace cg = cooperative_groups;
 // blocks): the weight pointers travel in the kernel's parameter space
 constexpr int kMaxStageBlocks = 40;
 
+// The fp32 stage kernel's operands (pointers; bf16: sm90::StageArgs).
 struct StageParams {
   const void* x;
   void* out;
@@ -115,23 +127,9 @@ struct StageParams {
   int nblocks, rows, h, w_img, c;
 };
 
-// The tiles of one phase, out (m, n) = epilogue(A @ B): block i of the
-// grid computes tiles i, i + gridDim.x, ... (row-major over the tile
+// The tiles of one fp32 phase, out (m, n) = epilogue(A @ B): block i of
+// the grid computes tiles i, i + gridDim.x, ... (row-major over the tile
 // grid), then synchronises so that the next tile may reuse its buffers.
-template <int EPI, typename ALoad>
-__device__ __forceinline__ void phase_tiles(ALoad A, const bf16* B,
-                                            const float* bias, void* aux,
-                                            void* out, int m, int n, int k,
-                                            WmmaSmem& sm) {
-  const int tn = (n + WBN - 1) / WBN, tiles = tn * ((m + WBM - 1) / WBM);
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    gemm_bf16_tile<EPI, false>(A, B, bias, aux, out, m, n, k,
-                               (t / tn) * WBM, (t % tn) * WBN, sm.As, sm.Bs,
-                               sm.Cs);
-    __syncthreads();
-  }
-}
-
 template <int EPI, typename ALoad>
 __device__ __forceinline__ void phase_tiles(ALoad A, const float* B,
                                             const float* bias, void* aux,
@@ -145,47 +143,37 @@ __device__ __forceinline__ void phase_tiles(ALoad A, const float* B,
   }
 }
 
-template <typename T, typename Smem>
-__device__ __forceinline__ void stage_body(const StageParams& p, Smem& sm) {
-  cg::grid_group grid = cg::this_grid();
-  const int rows = p.rows, c = p.c;
-  T* y1 = static_cast<T*>(p.y1);
-  T* y2 = static_cast<T*>(p.y2);
-  const T* cur = static_cast<const T*>(p.x);
-  for (int blk = 0; blk < p.nblocks; ++blk) {
-    const int cmid = p.cmid[blk];
-    T* nxt = static_cast<T*>(((p.nblocks - 1 - blk) % 2 == 0) ? p.out
-                                                              : p.buf);
-    phase_tiles<EPI_BIAS_RELU>(DenseA<T>{cur, rows, c},
-                               static_cast<const T*>(p.w[blk][0]),
-                               p.b[blk][0], nullptr, y1, rows, cmid, c, sm);
-    grid.sync();
-    phase_tiles<EPI_BIAS_RELU>(Conv3x3A<T>{y1, rows, cmid, p.h, p.w_img},
-                               static_cast<const T*>(p.w[blk][1]),
-                               p.b[blk][1], nullptr, y2, rows, cmid,
-                               9 * cmid, sm);
-    grid.sync();
-    phase_tiles<EPI_BIAS_RESID_RELU>(DenseA<T>{y2, rows, cmid},
-                                     static_cast<const T*>(p.w[blk][2]),
-                                     p.b[blk][2], const_cast<T*>(cur), nxt,
-                                     rows, c, cmid, sm);
-    if (blk + 1 < p.nblocks) grid.sync();
-    cur = nxt;
-  }
-}
-
 // __grid_constant__: the blocks' tables are indexed at run time, read in
 // the parameter space where they arrive, not copied per thread.
-__global__ void __launch_bounds__(WTHREADS)
-stage_bf16_wmma(const __grid_constant__ StageParams p) {
-  __shared__ WmmaSmem sm;
-  stage_body<bf16>(p, sm);
-}
-
 __global__ void __launch_bounds__(STHREADS)
 stage_f32_simt(const __grid_constant__ StageParams p) {
   __shared__ SimtSmem sm;
-  stage_body<float>(p, sm);
+  cg::grid_group grid = cg::this_grid();
+  const int rows = p.rows, c = p.c;
+  float* y1 = static_cast<float*>(p.y1);
+  float* y2 = static_cast<float*>(p.y2);
+  const float* cur = static_cast<const float*>(p.x);
+  for (int blk = 0; blk < p.nblocks; ++blk) {
+    const int cmid = p.cmid[blk];
+    float* nxt = static_cast<float*>(((p.nblocks - 1 - blk) % 2 == 0)
+                                         ? p.out
+                                         : p.buf);
+    phase_tiles<EPI_BIAS_RELU>(DenseA<float>{cur, rows, c},
+                               static_cast<const float*>(p.w[blk][0]),
+                               p.b[blk][0], nullptr, y1, rows, cmid, c, sm);
+    grid.sync();
+    phase_tiles<EPI_BIAS_RELU>(Conv3x3A<float>{y1, rows, cmid, p.h, p.w_img},
+                               static_cast<const float*>(p.w[blk][1]),
+                               p.b[blk][1], nullptr, y2, rows, cmid,
+                               9 * cmid, sm);
+    grid.sync();
+    phase_tiles<EPI_BIAS_RESID_RELU>(DenseA<float>{y2, rows, cmid},
+                                     static_cast<const float*>(p.w[blk][2]),
+                                     p.b[blk][2], const_cast<float*>(cur),
+                                     nxt, rows, c, cmid, sm);
+    if (blk + 1 < p.nblocks) grid.sync();
+    cur = nxt;
+  }
 }
 
 }  // namespace
@@ -263,6 +251,228 @@ inline cudaError_t conv3_proj(const void* y2, const void* w3,
   p.n = n;
   p.k = k;
   return launch<128, PROJ>(p, device, s);
+}
+
+
+// ------------------------------------------------- the bf16 stage kernel
+
+// One bf16 stage launch's operands: every tensor map the phases read, in
+// the kernel's parameter space where TMA takes them (three a block and
+// two views of the scratch: 27 KB at kMaxStageBlocks, under the 32 KB of
+// parameters sm_90 takes since CUDA 12.1), and the pointers the
+// epilogues read and write.
+struct StageArgs {
+  CUtensorMap act[3];                   // x, buf, out (rows, c): RM rows
+  CUtensorMap w1[kMaxStageBlocks];      // (c, cmid), 64-row boxes
+  CUtensorMap w2[kMaxStageBlocks];      // (9·cmid, cmid)
+  CUtensorMap w3[kMaxStageBlocks];      // (cmid, c)
+  CUtensorMap y1[kMaxStageBlocks];      // (rows, cmid) views: RM rows
+  CUtensorMap y2[kMaxStageBlocks];
+  const float* b[kMaxStageBlocks][3];   // b1, b2, b3
+  void* act_ptr[3];
+  bf16* y1_ptr;
+  bf16* y2_ptr;
+  int cmid[kMaxStageBlocks];
+  int nblocks, rows, h, w, c;
+  int gather;        // some block's Cmid % 64 != 0: its 3x3 gathers A
+};
+static_assert(sizeof(StageArgs) <= 32764, "kernel parameter space");
+
+// The barrier between two phases, over the whole grid: every thread of
+// every block, the producer warpgroup's included, so no TMA load of the
+// next phase is issued before it.  The epilogues wrote the phase's
+// outputs with generic stores and the next phase reads them by TMA (the
+// async proxy) on other SMs: each thread fences the async proxy before
+// the grid's release / acquire, and after it.
+__device__ __forceinline__ void grid_barrier() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  cg::this_grid().sync();
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// One phase of the stage: this block's tiles of a MODE product (B_MN or
+// CONV) on the ring from its `used`-th stage on; returns the stages the
+// block has used after it (every thread counts them, so the producer
+// threads that issue no load of a phase stay in step).
+template <int BN, int MODE, int RM>
+__device__ __forceinline__ int stage_phase(const Scalars& q, const Maps& mp,
+                                           const void* smem, bool producer,
+                                           int used, int extra) {
+  using T = Tile<BN, MODE, RM>;
+  const Ring<T> r(smem);
+  const int stage = used % T::STAGES;
+  const uint32_t phase = (used / T::STAGES) & 1;
+  if (producer)
+    produce<BN, MODE, RM>(q, mp, r, stage, phase, extra);
+  else
+    consume<BN, MODE, RM>(q, mp, r, stage, phase);
+  // the producer warp whose lane 0 issued the loads reconverges before
+  // the grid barrier
+  __syncwarp();
+  return used + Walk<BN, MODE, RM>(q).stages(q);
+}
+
+// K12 in bf16: the blocks' three phases on gemm_sm90.cuh's tile body, RM
+// x BN tiles, one ring shared by the B_MN and CONV phases.  A full
+// barrier counts 129 arrivals a stage where a 3x3 gathers (its 128
+// gathering threads and the expect_tx; the TMA phases' producer then
+// arrives 128 times more), else 1.
+template <int BN, int RM>
+__global__ void __launch_bounds__(Tile<BN, CONV, RM>::THREADS,
+                                  Tile<BN, CONV, RM>::BLOCKS_PER_SM)
+stage_kernel(const __grid_constant__ StageArgs s) {
+  using T = Tile<BN, CONV, RM>;
+  using D = Tile<BN, B_MN, RM>;
+  static_assert(T::STAGE == D::STAGE && T::STAGES == D::STAGES &&
+                    T::EPI_WG == D::EPI_WG && T::SMEM == D::SMEM,
+                "one ring for both modes");
+  extern __shared__ uint8_t smem_raw[];
+  Ring<T>(smem_raw).init(s.gather ? 129 : 1);
+  const bool producer = threadIdx.x >> 7 == T::GROUPS;
+  if (producer)
+    setmaxnreg_dec<T::PRODUCER_REGS>();
+  else
+    setmaxnreg_inc<T::CONSUMER_REGS>();
+  const int extra = s.gather ? 128 : 0;
+  int used = 0, cur = 0;           // ring stages used; cur's act index
+  for (int blk = 0; blk < s.nblocks; ++blk) {
+    const int cmid = s.cmid[blk];
+    const int nxt = (s.nblocks - 1 - blk) % 2 == 0 ? 2 : 1;
+    Scalars q{};                   // conv1 + bias + ReLU -> y1
+    q.m = s.rows;
+    q.n = cmid;
+    q.k = s.c;
+    q.epi = EPI_BIAS_RELU;
+    q.bias = s.b[blk][0];
+    q.out1 = s.y1_ptr;
+    used = stage_phase<BN, B_MN, RM>(q, Maps{&s.act[cur], &s.w1[blk]},
+                                     smem_raw, producer, used, extra);
+    grid_barrier();
+    q.k = 9 * cmid;                // the 3x3 + bias + ReLU -> y2
+    q.bias = s.b[blk][1];
+    q.out1 = s.y2_ptr;
+    q.conv_y = s.y1_ptr;
+    q.conv_c = cmid;
+    q.conv_h = s.h;
+    q.conv_w = s.w;
+    q.conv_tma = cmid % BK == 0;
+    used = stage_phase<BN, CONV, RM>(q, Maps{&s.y1[blk], &s.w2[blk]},
+                                     smem_raw, producer, used, extra);
+    grid_barrier();
+    Scalars q3{};                  // conv3 + bias + x + ReLU -> next
+    q3.m = s.rows;
+    q3.n = s.c;
+    q3.k = cmid;
+    q3.epi = EPI_BIAS_RESID_RELU;
+    q3.bias = s.b[blk][2];
+    q3.aux = s.act_ptr[cur];
+    q3.out1 = s.act_ptr[nxt];
+    used = stage_phase<BN, B_MN, RM>(q3, Maps{&s.y2[blk], &s.w3[blk]},
+                                     smem_raw, producer, used, extra);
+    if (blk + 1 < s.nblocks) grid_barrier();
+    cur = nxt;
+  }
+}
+
+// The stage kernel's tile for rows of a stage whose widest Cmid is cmid:
+// K11's shape for the stage's 3x3 (product above, n = cmid, k = 9·cmid),
+// 64 x 64 where 128 x 64 tiles would leave SMs idle, else 128 rows at
+// pick_bn's width.
+inline cudaError_t stage_tile(int device, int rows, int cmid, int* rm,
+                              int* bn) {
+  int sms = 0;
+  const cudaError_t err = sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
+  const bool small = cdiv(rows, BM) * cdiv(cmid, 64) < sms;
+  *rm = small ? 64 : BM;
+  *bn = small ? 64 : pick_bn(rows, cmid, 9 * cmid, true, sms);
+  return cudaSuccess;
+}
+
+// One cooperative launch of stage_kernel<BN, RM>: min(tiles, blocks the
+// card holds at once) blocks.  The shared-memory limit is set once per
+// device before the occupancy is asked.  A refused launch returns its
+// error (cudaErrorCooperativeLaunchTooLarge among them).
+template <int BN, int RM>
+cudaError_t stage_launch(const StageArgs& s, int tiles, int device,
+                         cudaStream_t st) {
+  using T = Tile<BN, CONV, RM>;
+  static std::atomic<int> limit[MAX_DEVICES];
+  const auto kernel = stage_kernel<BN, RM>;
+  int sms = 0, per_sm = 0;
+  cudaError_t err = smem_limit_once(kernel, T::SMEM, limit);
+  if (err == cudaSuccess) err = sm_count(device, &sms);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        T::THREADS, T::SMEM);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int grid = tiles < per_sm * sms ? tiles : per_sm * sms;
+  void* args[] = {const_cast<StageArgs*>(&s)};
+  // a refused launch returns its error and leaves it as the last error:
+  // read it back so that it is cleared, not reported by the next call
+  cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                              dim3(grid), dim3(T::THREADS), args, T::SMEM,
+                              st);
+  return cudaGetLastError();
+}
+
+// dfu_resnet_stage in bf16: the tensor maps of every block, then one
+// launch.  Bases 16-byte aligned, c and every Cmid multiples of 8 (else
+// cudaErrorInvalidValue).
+inline cudaError_t stage(const void* x, const void* const* weights,
+                         const int* cmids, int nblocks, void* y1, void* y2,
+                         void* buf, void* out, int rows, int h, int w, int c,
+                         int device, cudaStream_t st) {
+  if (c < 8 || c % 8) return cudaErrorInvalidValue;
+  int widest = 0, gather = 0;
+  for (int i = 0; i < nblocks; ++i) {
+    if (cmids[i] < 8 || cmids[i] % 8) return cudaErrorInvalidValue;
+    widest = cmids[i] > widest ? cmids[i] : widest;
+    gather |= cmids[i] % BK != 0;
+  }
+  int rm = 0, bn = 0;
+  cudaError_t err = stage_tile(device, rows, widest, &rm, &bn);
+  if (err != cudaSuccess) return err;
+  StageArgs s{};
+  // one block has no second buffer: its slot maps out, never read
+  const void* acts[3] = {x, buf != nullptr ? buf : out, out};
+  for (int a = 0; a < 3 && err == cudaSuccess; ++a) {
+    err = encode(&s.act[a], acts[a], rows, c, rm);
+    s.act_ptr[a] = const_cast<void*>(acts[a]);
+  }
+  int tiles = 0;                      // of the largest phase
+  for (int i = 0; i < nblocks && err == cudaSuccess; ++i) {
+    const void* const* wb = weights + 6 * i;
+    const int cmid = cmids[i];
+    err = encode(&s.w1[i], wb[0], c, cmid, BK);
+    if (err == cudaSuccess) err = encode(&s.w2[i], wb[2], 9 * cmid, cmid, BK);
+    if (err == cudaSuccess) err = encode(&s.w3[i], wb[4], cmid, c, BK);
+    if (err == cudaSuccess) err = encode(&s.y1[i], y1, rows, cmid, rm);
+    if (err == cudaSuccess) err = encode(&s.y2[i], y2, rows, cmid, rm);
+    for (int j = 0; j < 3; ++j)
+      s.b[i][j] = static_cast<const float*>(wb[2 * j + 1]);
+    s.cmid[i] = cmid;
+    const int t = cdiv(rows, rm) * cdiv(cmid > c ? cmid : c, bn);
+    tiles = t > tiles ? t : tiles;
+  }
+  if (err != cudaSuccess) return err;
+  s.y1_ptr = static_cast<bf16*>(y1);
+  s.y2_ptr = static_cast<bf16*>(y2);
+  s.nblocks = nblocks;
+  s.rows = rows;
+  s.h = h;
+  s.w = w;
+  s.c = c;
+  s.gather = gather;
+  if (rm == 64) return stage_launch<64, 64>(s, tiles, device, st);
+  switch (bn) {
+    case 64: return stage_launch<64, BM>(s, tiles, device, st);
+    case 96: return stage_launch<96, BM>(s, tiles, device, st);
+    case 128: return stage_launch<128, BM>(s, tiles, device, st);
+    case 192: return stage_launch<192, BM>(s, tiles, device, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace sm90
@@ -346,13 +556,22 @@ int dfu_bottleneck(int device, int dtype, const void* x, const void* w1,
 
 int dfu_stage_max_blocks() { return kMaxStageBlocks; }
 
+// The bf16 stage kernel's tile for `rows` rows and a widest Cmid of cmid
+// (K11's shape for the stage's 3x3): *rm rows x *bn columns.
+int dfu_stage_tile(int device, int rows, int cmid, int* rm, int* bn) {
+  return static_cast<int>(sm90::stage_tile(device, rows, cmid, rm, bn));
+}
+
 // One cooperative launch for n identity bottlenecks on x (rows, c) in the
 // compute dtype, rows = B·h·w image-major.  weights holds 6·n pointers,
 // block by block (w1, b1, w2, b2, w3, b3) in fused_bottleneck's layouts;
 // cmids the n Cmid.  Scratch: y1, y2 (rows, max cmid) and, for n >= 2,
-// buf (rows, c), all in the compute dtype.  Returns cudaErrorNotSupported
-// on a card without cooperative launch, and the launch's own error
-// (cudaErrorCooperativeLaunchTooLarge among them) otherwise.
+// buf (rows, c), all in the compute dtype.  bf16 runs the TMA + wgmma
+// stage kernel (16-byte-aligned bases, c and every Cmid multiples of 8,
+// else cudaErrorInvalidValue), fp32 the SIMT one.  Returns
+// cudaErrorNotSupported on a card without cooperative launch, and the
+// launch's own error (cudaErrorCooperativeLaunchTooLarge among them)
+// otherwise.
 int dfu_resnet_stage(int device, int dtype, const void* x,
                      const void* const* weights, const int* cmids,
                      int nblocks, void* y1, void* y2, void* buf, void* out,
@@ -365,7 +584,11 @@ int dfu_resnet_stage(int device, int dtype, const void* x,
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_BF16)
+    return static_cast<int>(sm90::stage(x, weights, cmids, nblocks, y1, y2,
+                                        buf, out, rows, h, w, c, device, s));
+  err = sm_count(device, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   StageParams p{};
@@ -379,8 +602,6 @@ int dfu_resnet_stage(int device, int dtype, const void* x,
   p.h = h;
   p.w_img = w;
   p.c = c;
-  const bool bf = dtype == DT_BF16;
-  const int bm = bf ? WBM : SBM, bn = bf ? WBN : SBN;
   int tiles = 0;                 // of the largest phase
   for (int i = 0; i < nblocks; ++i) {
     const void* const* wb = weights + 6 * i;
@@ -392,23 +613,20 @@ int dfu_resnet_stage(int device, int dtype, const void* x,
     p.b[i][2] = static_cast<const float*>(wb[5]);
     p.cmid[i] = cmids[i];
     const int widest = cmids[i] > c ? cmids[i] : c;
-    const int t = cdiv(rows, bm) * cdiv(widest, bn);
+    const int t = cdiv(rows, SBM) * cdiv(widest, SBN);
     if (t > tiles) tiles = t;
   }
-  const void* kernel = bf ? reinterpret_cast<const void*>(stage_bf16_wmma)
-                          : reinterpret_cast<const void*>(stage_f32_simt);
-  const int threads = bf ? WTHREADS : STHREADS;
+  const void* kernel = reinterpret_cast<const void*>(stage_f32_simt);
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, 0);
+                                                      STHREADS, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const int grid = tiles < per_sm * sms ? tiles : per_sm * sms;
   void* args[] = {&p};
   // a refused launch returns its error and leaves it as the last error:
   // read it back so that it is cleared, not reported by the next call
-  cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args, 0,
-                              static_cast<cudaStream_t>(stream));
+  cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(STHREADS), args, 0, s);
   DFU_RETURN_LAST_ERROR();
 }
 

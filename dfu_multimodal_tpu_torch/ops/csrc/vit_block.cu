@@ -8,8 +8,8 @@
 //   The attention-block backward chain rule (vit_block.py::_attn_block_bwd)
 //   also runs its LayerNorm, data products and LN backward on these
 //   kernels; the one-kernel attention-block backward K10 has its own entry
-//   in attn_block_bwd.cu over the same LayerNorm (layernorm.cuh) and
-//   gemm_tile.cuh's WMMA / SIMT tiles in both dtypes.
+//   in attn_block_bwd.cu over the same LayerNorm (layernorm.cuh) and GEMMs
+//   (gemm_sm90.cuh in bf16, gemm_tile.cuh's SIMT tile in fp32).
 //
 // What bounds it on the H100: at the serving batch (8 images, 1576 token
 //   rows) each forward block reads 14 MB of bf16 weights for ~22 GFLOP,
@@ -59,6 +59,7 @@
 #include "attention_kernels.cuh"
 #include "common.cuh"
 #include "gemm_sm90.cuh"
+#include "gemm_sm90_single.cuh"
 #include "gemm_tile.cuh"
 #include "layernorm.cuh"
 
@@ -103,46 +104,6 @@ inline cudaError_t mlp_bwd_products(const void* y, const void* g,
   dyp.k = hidden;
   dyp.epi = EPI_F32;
   return launch<DY_BN, B_K>(dyp, device, s);
-}
-
-// out (m, n) = epilogue(a (m, k) · B) with bf16 operands: B = b (k, n)
-// read as stored (MN-major), or b (n, k) read transposed (K-major) when
-// trans_b; epi one of EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESID (aux the
-// (m, n) bf16 residual), EPI_NONE (bf16 out) or EPI_F32 (fp32 out);
-// bias (n) fp32.  bn: the tile width, 64, 96, 128 or 192, or 0 for
-// pick_bn's.  Bases 16-byte aligned, n and k multiples of 8 (else
-// cudaErrorInvalidValue).  Two tensor maps are encoded a call (a, b).
-inline cudaError_t gemm(int epi, int trans_b, int bn, const void* a,
-                        const void* b, const float* bias, const void* aux,
-                        void* out, int m, int n, int k, int device,
-                        cudaStream_t s) {
-  const bool ok_epi = epi == EPI_BIAS || epi == EPI_BIAS_GELU ||
-                      epi == EPI_BIAS_RESID || epi == EPI_NONE ||
-                      epi == EPI_F32;
-  if (!ok_epi || m < 1 || n < 8 || k < 8 || n % 8 || k % 8)
-    return cudaErrorInvalidValue;
-  if (bn == 0) {
-    int sms = 0;
-    const cudaError_t err = sm_count(device, &sms);
-    if (err != cudaSuccess) return err;
-    bn = pick_bn(m, n, k, !trans_b, sms);
-  }
-  if (bn != 64 && bn != 96 && bn != 128 && bn != 192)
-    return cudaErrorInvalidValue;
-  Args p{};
-  cudaError_t err = encode(&p.a1, a, m, k, BM);
-  if (err == cudaSuccess)
-    err = trans_b ? encode(&p.b1, b, n, k, bn) : encode(&p.b1, b, k, n, BK);
-  if (err != cudaSuccess) return err;
-  p.bias = bias;
-  p.aux = aux;
-  p.out1 = out;
-  p.m = m;
-  p.n = n;
-  p.k = k;
-  p.epi = epi;
-  return trans_b ? launch_width<B_K>(bn, p, device, s)
-                 : launch_width<B_MN>(bn, p, device, s);
 }
 
 }  // namespace sm90

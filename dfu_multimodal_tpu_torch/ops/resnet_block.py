@@ -20,9 +20,10 @@ Dispatch is by device only: a CPU tensor takes the plain version
 (:func:`bottleneck_ref`, :func:`stage_ref`), a CUDA tensor launches
 ``csrc/resnet_block.cu`` or raises.  In bf16 :func:`fused_bottleneck`
 runs its products on ``csrc/gemm_sm90.cuh``'s TMA + wgmma GEMM (the 3x3
-as its implicit-GEMM mode), which takes channel counts that are
-multiples of 8 and 16-byte-aligned operands; fp32 and :func:`fused_stage`
-run ``csrc/gemm_tile.cuh``'s tiles.  :class:`FusedBottleneck` and
+as its implicit-GEMM mode), and :func:`fused_stage` walks the same tiles
+in one cooperative launch; both take channel counts that are multiples
+of 8 and 16-byte-aligned operands.  fp32 runs ``csrc/gemm_tile.cuh``'s
+SIMT tiles.  :class:`FusedBottleneck` and
 :class:`FusedStage` are the ``torch.autograd.Function``s: forward the
 kernel, backward autograd through the plain version from the saved
 inputs (remat, as the JAX custom VJPs; there is no backward kernel).
@@ -46,6 +47,7 @@ _SIGNATURES = {
     "dfu_resnet_stage": [_I, _I, _P, _P, _P, _I] + [_P] * 4 + [_I] * 4
     + [_P],
     "dfu_stage_max_blocks": [],
+    "dfu_stage_tile": [_I, _I, _I, _P, _P],
 }
 
 
@@ -109,7 +111,8 @@ def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             f"fused_bottleneck: x {tuple(x.shape)} with {got}; want {want}"
             + ("" if proj else " and Cin == Cout (identity shortcut)"))
     if x.dtype == torch.bfloat16:
-        _check_tma(x, compute, cin, cmid, cout)
+        _check_tma("fused_bottleneck", x, compute,
+                   {"Cin": cin, "Cmid": cmid, "Cout": cout})
     lib, rows = _lib(), bsz * h * w
     y1 = torch.empty((rows, cmid), dtype=x.dtype, device=x.device)
     y2 = torch.empty_like(y1)
@@ -135,20 +138,20 @@ def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return out
 
 
-def _check_tma(x: torch.Tensor, operands: dict, cin: int, cmid: int,
-               cout: int) -> None:
-    """Raise ValueError unless the bf16 bottleneck's TMA + wgmma products
-    take these operands: every row stride (Cin, Cmid, Cout) a multiple of
-    8 elements (16 bytes; the 3x3's gather also copies 16-byte chunks of
-    one tap) and every base 16-byte aligned."""
-    if cin % 8 or cmid % 8 or cout % 8:
+def _check_tma(name: str, x: torch.Tensor, operands: dict,
+               channels: dict) -> None:
+    """Raise ValueError unless the bf16 TMA + wgmma products take these
+    operands: every channel count (each a row stride) a multiple of 8
+    elements (16 bytes; the 3x3's gather also copies 16-byte chunks of one
+    tap) and every base 16-byte aligned."""
+    bad = {k: v for k, v in channels.items() if v % 8}
+    if bad:
         raise ValueError(
-            f"fused_bottleneck: bf16 takes Cin, Cmid and Cout that are "
-            f"multiples of 8, got {cin}, {cmid}, {cout} (x {tuple(x.shape)})")
-    for name, t in operands.items():
+            f"{name}: bf16 takes channel counts that are multiples of 8, got "
+            f"{bad} (x {tuple(x.shape)})")
+    for key, t in operands.items():
         if t.data_ptr() % 16:
-            raise ValueError(f"fused_bottleneck: bf16 {name} must be 16-byte "
-                             f"aligned")
+            raise ValueError(f"{name}: bf16 {key} must be 16-byte aligned")
 
 
 # launch counts: one per call that ran the kernels (CPU calls do not count)
@@ -237,8 +240,9 @@ def fused_stage(x: torch.Tensor, blocks: Sequence[Block]) -> torch.Tensor:
     sequence of (w1, b1, w2, b2, w3, b3) in :func:`fused_bottleneck`'s
     layouts, each with Cin == Cout == C and its own Cmid.  Returns (B, H,
     W, C) contiguous in x's dtype, equal bit for bit to the chain of
-    :func:`fused_bottleneck` calls over the same blocks.  Counts
-    ``fused_stage.launches``."""
+    :func:`fused_bottleneck` calls over the same blocks.  bf16 needs C and
+    every Cmid multiples of 8 and 16-byte-aligned x and weights
+    (ValueError otherwise).  Counts ``fused_stage.launches``."""
     cmids = _check_stage(x, blocks)
     if x.device.type == "cpu":
         return stage_ref(x, blocks)
@@ -248,6 +252,11 @@ def fused_stage(x: torch.Tensor, blocks: Sequence[Block]) -> torch.Tensor:
             f"fused_stage block {i}", x, {"x": x, "w1": w1, "w2": w2,
                                           "w3": w3},
             {"b1": b1, "b2": b2, "b3": b3})
+    if x.dtype == torch.bfloat16:
+        for i, (w1, _, w2, _, w3, _) in enumerate(blocks):
+            _check_tma(f"fused_stage block {i}", x,
+                       {"x": x, "w1": w1, "w2": w2, "w3": w3},
+                       {"C": x.shape[-1], "Cmid": cmids[i]})
     lib = _lib()
     if len(blocks) > lib.dfu_stage_max_blocks():
         raise ValueError(f"fused_stage: {len(blocks)} blocks; one launch "
@@ -271,6 +280,38 @@ def fused_stage(x: torch.Tensor, blocks: Sequence[Block]) -> torch.Tensor:
 
 # launch count: one per call that ran the kernel (CPU calls do not count)
 fused_stage.launches = 0
+
+# csrc/gemm_sm90.cuh's tile rows and the least-rounds width rule
+# (pick_bn, least_rounds: TILE_FIXED, MN96_MAX_K), mirrored for the CPU
+# walk of the stage kernel's schedule (tests/test_torch_resnet_stage.py);
+# chip_smoke.py holds the mirror against dfu_stage_tile on the card
+_BM, _TILE_FIXED, _MN96_MAX_K = 128, 64, 1024
+
+
+def _pick_bn(m: int, n: int, k: int, sms: int) -> int:
+    """gemm_sm90.cuh::pick_bn for an MN-major B: of the widths 192, 128,
+    96 (not past k = 1024) and 64, the one whose rounds of 128-row tiles
+    over the SMs cost least, a tile of width w costing w + 64; the first
+    of equal costs."""
+    best, best_cost = 0, None
+    for w in (192, 128, 0 if k > _MN96_MAX_K else 96, 64):
+        if w:
+            tiles = -(-m // _BM) * -(-n // w)
+            cost = -(-tiles // sms) * (w + _TILE_FIXED)
+            if best_cost is None or cost < best_cost:
+                best, best_cost = w, cost
+    return best
+
+
+def _stage_tile(rows: int, cmid: int, sms: int) -> Tuple[int, int]:
+    """The bf16 stage kernel's tile (rows, columns) for a stage of
+    ``rows`` rows whose widest Cmid is ``cmid`` (resnet_block.cu::
+    stage_tile): K11's shape for the stage's 3x3 (n = Cmid, k = 9·Cmid),
+    64 x 64 where 128 x 64 tiles leave SMs idle, else 128 rows at
+    pick_bn's width."""
+    if -(-rows // _BM) * -(-cmid // 64) < sms:
+        return 64, 64
+    return _BM, _pick_bn(rows, cmid, 9 * cmid, sms)
 
 
 class FusedStage(torch.autograd.Function):

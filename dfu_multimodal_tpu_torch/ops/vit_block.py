@@ -28,7 +28,9 @@ csrc/attention_core.cuh.
 JAX package's alternative one-kernel VJP ``_attn_block_bwd_fused``): the
 whole attention-block backward, dx and all six parameter gradients, from
 one C entry of ``csrc/attn_block_bwd.cu`` that runs only the port's own
-kernels, the weight gradients included.  :class:`AttnBlockFusedBwd` puts
+kernels, the weight gradients included (in bf16 every product on the TMA
++ wgmma GEMM of csrc/gemm_sm90.cuh, the weight gradients in its WGRAD
+mode; fp32 on csrc/gemm_tile.cuh's SIMT tile).  :class:`AttnBlockFusedBwd` puts
 it behind autograd (forward K1, backward K10).  No model selects it, as
 no model of the JAX package does; its entry point is the op.  Attention
 at any token count: a head too long for one block's shared memory runs
@@ -625,8 +627,8 @@ def attn_block_bwd_fused(x: torch.Tensor, g: torch.Tensor,
             f"with {num_heads} heads, wqkv {tuple(wqkv.shape)}, wproj "
             f"{tuple(wproj.shape)}: want C = heads * D with D in "
             f"{_ATTN_HEAD_DIMS} and (C, 3C), (C, C) weights")
-    # bf16 operands 16-byte aligned, as every bf16 attention entry takes
-    # them (the attention step itself reads the aligned scratch below)
+    # bf16 operands 16-byte aligned, as the TMA products and every bf16
+    # attention entry take them (C = heads * D is a multiple of 8)
     _check_aligned("attn_block_bwd_fused", x=x, g=g, wqkv=wqkv,
                    wproj=wproj)
     lib, dev = _k10_lib(), x.device

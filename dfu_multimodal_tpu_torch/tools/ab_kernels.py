@@ -11,7 +11,7 @@ change, parent — each in a process of its own, which builds its
 checkout's kernels into that checkout's ``build/``.  Each turn also
 hashes the outputs of K1, K2, K4, K5 (alone and in the chain rule
 ``attn_block_bwd``), K6, K7 and K8 (attention and MLP blocks), K9 and,
-where the checkout has it, K10
+where the checkout has it, K10 (all seven results, and each alone)
 at ViT-B/16's attention (N = 197, B = 16, seeded inputs, fp32 and bf16),
 of K11 at ResNet-50's stage 3 identity block and stage 1 projection
 block and, where the checkout has it, of K12 at stage 3's tail (B = 8)
@@ -146,6 +146,9 @@ for dt in (torch.float32, torch.bfloat16):
     if hasattr(vb, "attn_block_bwd_fused"):
         outs["K10 attn_block_bwd_fused"] = vb.attn_block_bwd_fused(
             x, do, *ln, *w, heads)
+        for name, t in zip(("dx", "dg1", "db1", "dwqkv", "dbqkv", "dwproj",
+                            "dbproj"), outs["K10 attn_block_bwd_fused"]):
+            outs[f"K10 attn_block_bwd_fused {name}"] = (t,)
     outs["K11 fused_bottleneck stage3"] = (rb.fused_bottleneck(
         x3, *stage3[0]),)
     outs["K11 fused_bottleneck proj"] = (rb.fused_bottleneck(x1, *proj),)

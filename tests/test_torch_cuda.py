@@ -924,7 +924,85 @@ def test_stage_refuses_bad_operands():
         rb.fused_stage(x, [(w1, b1, w2[:64].contiguous(), b2, w3, b3)])
     with pytest.raises(ValueError):         # more blocks than one launch
         rb.fused_stage(x, blocks * 14)
+    # bf16 (the TMA + wgmma stage kernel): channel counts that are not
+    # multiples of 8, and operands not 16-byte aligned
+    for shape in ((2, 6, 36, 8, 2), (2, 6, 32, 12, 2)):
+        xb, bb = _stage_args(dev, shape, torch.bfloat16, seed=11)
+        with pytest.raises(ValueError):
+            rb.fused_stage(xb, bb)
+    xb, bb = _stage_args(dev, (2, 6, 32, 8, 2), torch.bfloat16, seed=11)
+
+    def offset(t):                          # t's values two bytes off
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 == 2
+        return out
+
+    with pytest.raises(ValueError):
+        rb.fused_stage(offset(xb), bb)
+    for i in (0, 2, 4):                     # w1, w2, w3
+        blk = list(bb[1])
+        blk[i] = offset(blk[i])
+        with pytest.raises(ValueError):
+            rb.fused_stage(xb, [bb[0], tuple(blk)])
     assert (rb.fused_stage.launches, rb.fused_bottleneck.launches) == before
+
+
+# ResNet-50's four stage tails at the serving batch and at 128: the tile
+# shapes the stage kernel takes (64 x 64 at stages 2-4 of batch 8, 128
+# rows at 64 or 128 columns elsewhere) and stage 1's 401,408 rows
+@pytest.mark.parametrize("batch", [8, 128])
+@pytest.mark.parametrize("tail", [(56, 256, 64, 2), (28, 512, 128, 3),
+                                  (14, 1024, 256, 5), (7, 2048, 512, 2)])
+def test_stage_kernel_equals_the_k11_chain_at_the_stage_tails(tail, batch):
+    dev = _cuda()
+    x, blocks = _stage_args(dev, (batch,) + tail, torch.bfloat16, seed=13)
+    h = x
+    for blk in blocks:
+        h = rb.fused_bottleneck(h, *blk)
+    out = rb.fused_stage(x, blocks)
+    assert torch.equal(out, h)
+    assert torch.equal(rb.fused_stage(x, blocks), out)
+
+
+def test_stage_kernel_mixes_gathered_and_tma_3x3s():
+    """bf16 blocks of one launch whose 3x3s take both A paths (Cmid 64:
+    TMA boxes; Cmid 24: the cp.async gather, whose full barriers count 129
+    arrivals, so every TMA phase's producer arrives 128 times more), equal
+    to the K11 chain bit for bit."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(14)
+    c = 64
+    x = _randn(g, 2, 7, 7, c, dtype=torch.bfloat16)
+    blocks = [(_randn(g, c, m, scale=c ** -0.5, dtype=torch.bfloat16),
+               _randn(g, m, scale=0.1),
+               _randn(g, 9 * m, m, scale=(9 * m) ** -0.5,
+                      dtype=torch.bfloat16),
+               _randn(g, m, scale=0.1),
+               _randn(g, m, c, scale=m ** -0.5, dtype=torch.bfloat16),
+               _randn(g, c, scale=0.1)) for m in (64, 24, 64)]
+    h = x
+    for blk in blocks:
+        h = rb.fused_bottleneck(h, *blk)
+    assert torch.equal(rb.fused_stage(x, blocks), h)
+
+
+def test_stage_tile_mirror():
+    """The stage kernel's tile shape (dfu_stage_tile) equals the plain
+    mirror the CPU schedule walk uses, at the four stage tails."""
+    dev = _cuda()
+    lib = rb._lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for batch in (2, 8, 128):
+        for hw, _, cmid, _ in ((56, 256, 64, 2), (28, 512, 128, 3),
+                               (14, 1024, 256, 5), (7, 2048, 512, 2)):
+            rm, bn = ctypes.c_int(), ctypes.c_int()
+            rows = batch * hw * hw
+            assert lib.dfu_stage_tile(dev.index, rows, cmid,
+                                      ctypes.addressof(rm),
+                                      ctypes.addressof(bn)) == 0
+            assert (rm.value, bn.value) == rb._stage_tile(rows, cmid, sms)
 
 
 def test_stage_kernel_is_deterministic():

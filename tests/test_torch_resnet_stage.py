@@ -258,3 +258,81 @@ def test_stage_refuses_bad_operands(case, match):
     x, blocks = _bad_blocks(case)
     with pytest.raises(ValueError, match=match):
         rb.fused_stage(x, blocks)
+
+
+# --------------------------------------------- the bf16 kernel's schedule
+#
+# The bf16 stage kernel (csrc/resnet_block.cu::stage_kernel) walks, in each
+# phase, the output tiles of one product on gemm_sm90.cuh's tile body:
+# block i of a grid of G takes tiles i, i + G, ... (row-major over the
+# tile grid), at one tile shape per launch, rb._stage_tile (the card's
+# dfu_stage_tile is held to it in tests/test_torch_cuda.py).
+
+SMS = 132                                     # an H100's SMs
+# ResNet-50's stride-1 stage tails: (H = W, C, Cmid, blocks)
+STAGE_TAILS = [(56, 256, 64, 2), (28, 512, 128, 3), (14, 1024, 256, 5),
+               (7, 2048, 512, 2)]
+# the shape K11's launcher takes for each tail's 3x3 (n = Cmid, k =
+# 9·Cmid) at batch 8 and 128: 64 x 64 where 128 x 64 tiles leave SMs idle,
+# else 128 rows at pick_bn's width
+K11_3X3_TILE = {8: [(128, 64), (64, 64), (64, 64), (64, 64)],
+                128: [(128, 64), (128, 128), (128, 128), (128, 128)]}
+
+
+@pytest.mark.parametrize("batch", [8, 128])
+def test_stage_tile_is_k11s_for_its_3x3(batch):
+    got = [rb._stage_tile(batch * hw * hw, cmid, SMS)
+           for hw, _, cmid, _ in STAGE_TAILS]
+    assert got == K11_3X3_TILE[batch]
+
+
+def _phase_tiles(rows, n, tile, grid):
+    """Each block's (m0, n0) origins in one phase: block i takes tiles i,
+    i + grid, ... of the (ceil(rows / RM), ceil(n / BN)) tile grid."""
+    rm, bn = tile
+    n_tiles = -(-n // bn)
+    tiles = -(-rows // rm) * n_tiles
+    return [[(t // n_tiles * rm, t % n_tiles * bn)
+             for t in range(i, tiles, grid)] for i in range(grid)]
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132, 264])
+@pytest.mark.parametrize("batch,tail", [(8, t) for t in STAGE_TAILS]
+                         + [(128, STAGE_TAILS[3]), (3, (5, 40, 24, 3))])
+def test_stage_schedule_computes_every_tile_once(batch, tail, grid):
+    """Every output tile of every phase (conv1 and the 3x3: Cmid columns;
+    conv3: C columns) is computed by exactly one block of the grid, and
+    the tiles tile the (rows, columns) output without overlap."""
+    hw, c, cmid, nblocks = tail
+    rows = batch * hw * hw
+    tile = rb._stage_tile(rows, cmid, SMS)
+    for n in [cmid, cmid, c] * nblocks:
+        origins = [o for blk in _phase_tiles(rows, n, tile, grid) for o in blk]
+        assert len(origins) == len(set(origins))
+        covered = np.zeros((-(-rows // tile[0]) * tile[0],
+                            -(-n // tile[1]) * tile[1]), np.int32)
+        for m0, n0 in origins:
+            covered[m0:m0 + tile[0], n0:n0 + tile[1]] += 1
+        assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_stage_of_the_walk_matches_pallas_interpret(dtype, tol):
+    """The stage as the bf16 kernel computes it, each block the K11 tile
+    walk of tests/test_torch_bottleneck_gemm.py (the 3x3's A as the card
+    builds it, 16-deep k steps), against the JAX fused_stage in interpret
+    mode, at the tolerances of test_stage_matches_pallas_interpret_and_
+    oracle."""
+    from test_torch_bottleneck_gemm import _walk_bottleneck
+    x, blocks = _stage_args(25)
+    xt, bt = _to_torch(x, blocks, dtype)
+    h = xt
+    for blk in bt:
+        h = _walk_bottleneck(h, *blk)
+    xj, bj = _to_jax(x, blocks, JAX_DTYPES[dtype])
+    ref = np.asarray(jax_rb.fused_stage(xj, bj, interpret=True), np.float32)
+    got = h.float().numpy()
+    err = float(np.max(np.abs(got - ref) / (1.0 + np.abs(ref))))
+    print(f"\nwalked stage {dtype} vs JAX interpret: {err:.3e} (tol {tol:g})")
+    np.testing.assert_allclose(got, ref, rtol=tol, atol=tol)
