@@ -185,6 +185,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               loss finite; then for each a depth-2 model's fp32 train
               step on the card against the CPU's plain step at phase 5's
               budgets;
+11. train all — rgb_only (ResNet-50, batch 32) and multimodal (ResNet-50
+              + ViT-B/16, batch 6) at 224², bf16: four steps of
+              ``run_train_epoch`` each after a warm-up step (step ms,
+              images/s, peak memory, finite losses, every BatchNorm
+              buffer moved by every step; multimodal 12 launches a step
+              of K1, K2, K4 and K5 and none of K3, rgb_only none of the
+              port's kernels: its convolutions train on cuDNN); an fp32
+              step of each on the card against the CPU's (TF32 off; each
+              gradient and BatchNorm statistic within phase 5's 1e-5 of
+              its own max); then multimodal ``fit`` for two epochs
+              (save_last, async saves) into a directory under build/, a
+              fresh Trainer restoring its best checkpoint with eval logits
+              bit-equal to the saving model's, and a third Trainer
+              resuming at epoch 3 with its optimizer count restored;
 then the kernels' JSON line (times, bounds, launches, the SDPA times,
 the K6/K9 forwards' device times and SDPA's, K10's and K12's chain
 times),
@@ -2076,6 +2090,23 @@ TRAIN_IMAGES, TRAIN_PARAMS = 128, 85_800_194
 # one AdamW step within 2·lr (Adam's first step is lr·sign(g), and a
 # gradient that is ~0 — e.g. the key bias's — may take either sign)
 GRAD_TOL = 1e-5
+# The gradients of a ResNet trunk in train mode (ReLU after BatchNorm)
+# are not continuous at fp32's rounding: moving the trunk's normalised
+# input by 1e-7 moves its fp64 gradient 8.0e3 times as far as moving it by
+# 1e-9, where softplus in place of ReLU moves it 100 times as far
+# (tests/test_torch_train_bn.py::test_trunk_gradient_jumps_at_relu_kinks,
+# image 64).  So the card's fp32 trunk gradient is held as one vector
+# within TRUNK_L2_TOL of the CPU's (this phase on an H100: 2.1e-2 for
+# rgb_only, 2.4e-2 for multimodal; single parameters up to 20%), and the
+# trunk's arithmetic in fp64, where no pre-activation crosses 0, at
+# GRAD_TOL per parameter (_trunk_fp64_vs_cpu).
+TRUNK_L2_TOL = 5e-2
+# The layers right after such a trunk (AFTER_TRUNK) see its fp32 forward:
+# with the same inputs on both sides the rgb_only loss moved by 4.2e-6
+# relative and the head's weight gradient by 3.9e-5 of its max|g|, the
+# multimodal fusion head's first weight by 1.8e-5 (this phase on an H100),
+# so they are held per parameter at AFTER_TRUNK_TOL, not GRAD_TOL.
+AFTER_TRUNK_TOL = 1e-3
 TRAIN_KERNELS = ("attn_block", "mlp_block", "mlp_block_bwd",
                  "qkv_attention_fwdbwd")
 
@@ -2205,45 +2236,104 @@ def phase_train(dev) -> dict:
 
 def _fp32_step_vs_cpu(tag, dev, state, images, labels, weights,
                       image_size=IMAGE, **model_kw) -> None:
-    """One fp32 train step on the card against the CPU's plain fp32 step
-    on the weights ``state`` and the first 4 ``images``: each
-    parameter's gradient within GRAD_TOL of its own max|g|, the params
+    """One fp32 thermal_only train step on the card against the CPU's
+    (``_fp32_model_step_vs_cpu``) on the first 4 ``images``."""
+    batch = {"thermal": images[:4], "label": labels[:4],
+             "valid": np.array([1, 1, 1, 0], np.float32)}
+    _fp32_model_step_vs_cpu(tag, "thermal_only",
+                            {"thermal": _neutral_thermal()}, dev, state,
+                            batch, weights, image_size, **model_kw)
+
+
+def _fp32_model_step_vs_cpu(tag, name, modalities, dev, state, batch,
+                            weights, image_size=IMAGE, trunk=None,
+                            after_trunk=(), **model_kw) -> None:
+    """One fp32 train step of zoo model ``name`` on the card against the
+    CPU's plain fp32 step on the weights ``state`` and ``batch``: each
+    parameter's gradient within GRAD_TOL of its own max|g|, each
+    BatchNorm running statistic within GRAD_TOL of its own max, the params
     after AdamW within 2·lr, the loss within 1e-4 relative and the
-    confusion counts equal."""
-    cfg32 = TrainConfig(batch_size=4, compute_dtype="float32",
+    confusion counts equal.  With a ReLU/BatchNorm ``trunk`` (the prefix
+    of its parameters' names) both steps take the inputs normalised once
+    on the CPU, so that they see the same bits; the trunk's gradients are
+    held as one vector within TRUNK_L2_TOL (see there), its per-parameter
+    distance logged, and the parameters under the ``after_trunk``
+    prefixes at AFTER_TRUNK_TOL."""
+    cfg32 = TrainConfig(batch_size=len(batch["label"]),
+                        compute_dtype="float32",
                         optimizer_mu_dtype="float32", drop_rate=0.0)
-    mods = {"thermal": _neutral_thermal()}
-    card = Trainer("thermal_only", cfg32, mods, class_weights=weights,
+    card = Trainer(name, cfg32, modalities, class_weights=weights,
                    device=dev, image_size=image_size, **model_kw)
-    cpu = Trainer("thermal_only", cfg32, mods, class_weights=weights,
+    cpu = Trainer(name, cfg32, modalities, class_weights=weights,
                   device="cpu", image_size=image_size, **model_kw)
     state = {k: v.detach().cpu() for k, v in state.items()}
     card.module.load_state_dict(state)
     cpu.module.load_state_dict(state)
-    batch = {"thermal": images[:4], "label": labels[:4],
-             "valid": np.array([1, 1, 1, 0], np.float32)}
+    if trunk is not None:
+        inputs = cpu._preprocess_eval({m: torch.from_numpy(batch[m])
+                                       for m in cpu.spec.inputs})
+        for tr in (card, cpu):
+            tr._preprocess_train = (lambda b, g, d=tr.device:
+                                    tuple(x.to(d) for x in inputs))
     out_card = card.train_step(batch, torch.Generator(device=dev))
     out_cpu = cpu.train_step(batch, torch.Generator())
     cpu_params = dict(cpu.module.named_parameters())
-    g_rel, p_err = {}, 0.0
-    for name, p in card.module.named_parameters():
-        q = cpu_params[name]
-        g_rel[name] = float((p.grad.cpu() - q.grad).abs().max()) / float(
-            q.grad.abs().max())
+    g_rel, p_err, sq = {}, 0.0, [0.0, 0.0]
+    for pname, p in card.module.named_parameters():
+        q = cpu_params[pname]
+        d = p.grad.cpu().double() - q.grad.double()
+        g_rel[pname] = float(d.abs().max()) / float(q.grad.abs().max())
+        if trunk is not None and pname.startswith(trunk):
+            sq[0] += float(d.square().sum())
+            sq[1] += float(q.grad.double().square().sum())
         p_err = max(p_err, float((p.detach().cpu() - q.detach()).abs().max()))
-    worst = sorted(g_rel, key=g_rel.get, reverse=True)[:3]
+    trunk_l2 = (sq[0] / sq[1]) ** 0.5 if sq[1] else 0.0
+    held = {k: v for k, v in g_rel.items()
+            if trunk is None or not k.startswith(trunk)}
+    tols = {k: AFTER_TRUNK_TOL if after_trunk and k.startswith(after_trunk)
+            else GRAD_TOL for k in held}
+    cpu_buffers = dict(cpu.module.named_buffers())
+    s_rel = {}
+    for bname, b in card.module.named_buffers():
+        if bname.endswith(("running_mean", "running_var")):
+            q = cpu_buffers[bname]
+            s_rel[bname] = float((b.cpu() - q).abs().max()) / float(
+                q.abs().max())
+    worst = sorted(held, key=lambda k: held[k] / tols[k], reverse=True)[:3]
     lr = cfg32.learning_rate
     loss_card, loss_cpu = float(out_card["loss"]), float(out_cpu["loss"])
     loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    ok = (max(g_rel.values()) <= GRAD_TOL and p_err <= 2 * lr
-          and loss_rel <= 1e-4
+    # a trunk's gradients take either sign where they are ~0, so some
+    # parameter lands lr·(1 - -1) apart after Adam's first step, plus the
+    # two roundings of p ± lr to fp32 (an ulp of the largest |p|)
+    p_tol = 2 * lr
+    if trunk is not None:
+        p_tol += torch.finfo(torch.float32).eps * max(
+            float(p.detach().abs().max()) for p in cpu_params.values())
+    ok = (all(held[k] <= tols[k] for k in held) and p_err <= p_tol
+          and loss_rel <= 1e-4 and trunk_l2 <= TRUNK_L2_TOL
+          and max(s_rel.values(), default=0.0) <= GRAD_TOL
           and torch.equal(out_card["counts"].cpu(), out_cpu["counts"]))
+    extra = ""
+    if s_rel:
+        s_worst = max(s_rel, key=s_rel.get)
+        extra += (f"; BatchNorm statistics max|d| / their max, worst of "
+                  f"{len(s_rel)}: {s_worst} {s_rel[s_worst]:.3e} (tol "
+                  f"{GRAD_TOL:g})")
+    if trunk is not None:
+        in_trunk = {k: v for k, v in g_rel.items() if k not in held}
+        t_worst = max(in_trunk, key=in_trunk.get)
+        extra += (f"; {trunk}* gradients ({len(in_trunk)} parameters) as "
+                  f"one vector: |d|_2 / |g|_2 {trunk_l2:.3e} (tol "
+                  f"{TRUNK_L2_TOL:g}), per parameter worst {t_worst} "
+                  f"{in_trunk[t_worst]:.3e} (not held)")
     log(f"[{tag}] card fp32 vs CPU fp32 step: loss {loss_card:.6f} vs "
         f"{loss_cpu:.6f} (rel {loss_rel:.2e}, tol 1e-4); grad max|d| per "
-        f"parameter / its max|g|, worst {len(worst)} of {len(g_rel)}: "
-        f"{ {k: f'{g_rel[k]:.3e}' for k in worst} } (tol {GRAD_TOL:g}); "
-        f"param max|d| after AdamW {p_err:.3e} (tol 2*lr = {2 * lr:g}) "
-        f"{'ok' if ok else 'FAIL'}")
+        f"parameter / its max|g|, worst {len(worst)} of {len(held)}: "
+        f"{ {k: f'{held[k]:.3e} (tol {tols[k]:g})' for k in worst} }; "
+        f"param max|d| after AdamW {p_err:.6e} (tol 2*lr = {2 * lr:g}"
+        f"{'' if trunk is None else f' + an ulp: {p_tol:.6e}'})"
+        f"{extra} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"[{tag}] card fp32 train step disagrees with "
                              "the CPU")
@@ -2700,6 +2790,259 @@ def phase_large_images(dev) -> None:
                           image_size=LARGE_IMAGE, **small)
 
 
+# --------------------------------------------------------------- phase 11
+
+# the reference trainers' batches (PERF.md §2) and the steps of each run
+ALL_BATCH = {"rgb_only": 32, "multimodal": 6}
+ALL_STEPS = 4
+ALL_PARAMS = {"rgb_only": RGB_PARAMS, "multimodal": 110_880_834}
+ALL_INPUTS = {"rgb_only": ("rgb",), "multimodal": ("rgb", "thermal")}
+TRUNKS = {"rgb_only": "resnet.", "multimodal": "rgb_branch."}
+AFTER_TRUNK = {"rgb_only": ("head.",), "multimodal": ("fusion.",)}
+# fit: train and validation pairs, epochs before and after the resume
+FIT_TRAIN, FIT_VAL, FIT_EPOCHS = 12, 6, 2
+
+
+def _all_data(name, n, seed):
+    """(arrays of ``n`` random uint8 images per input, alternating
+    labels)."""
+    rng = np.random.default_rng(seed)
+    arrays = {m: rng.integers(0, 256, (n, IMAGE, IMAGE, 3), dtype=np.uint8)
+              for m in ALL_INPUTS[name]}
+    return arrays, np.arange(n, dtype=np.int32) % 2
+
+
+def _all_modalities(name, neutral=False) -> dict:
+    mods = {"rgb": rgb_modality(), "thermal": thermal_modality()}
+    if neutral:
+        mods = {m: dataclasses.replace(v, augment=_neutral_thermal().augment)
+                for m, v in mods.items()}
+    return {m: mods[m] for m in ALL_INPUTS[name]}
+
+
+def _bn_buffers(module) -> dict:
+    return {k: v.detach().clone() for k, v in module.named_buffers()
+            if k.endswith(("running_mean", "running_var",
+                           "num_batches_tracked"))}
+
+
+def _train_all_run(name, dev) -> Trainer:
+    """ALL_STEPS bf16 steps of ``run_train_epoch`` of the full-width model
+    at its recipe batch (after a warm-up step), every launch count set to
+    0 just before: step ms, images/s, peak memory, the losses, the launch
+    counts (12 a step of K1, K2, K4, K5 for multimodal's ViT; none of
+    K3, whose head trains as separate layers, nor of K11, since training
+    runs cuDNN's convolutions; no kernel of the port for rgb_only), and
+    every BatchNorm buffer moved by every step."""
+    tag = f"train all {name}"
+    b = ALL_BATCH[name]
+    arrays, labels = _all_data(name, ALL_STEPS * b, seed=5)
+    tr = Trainer(name, TrainConfig(batch_size=b, compute_dtype="bfloat16"),
+                 _all_modalities(name),
+                 class_weights=class_weights_from_labels(labels),
+                 device=dev, image_size=IMAGE)
+    zoo.init_model(tr.module, torch.Generator(device=dev).manual_seed(0))
+    n_params = zoo.param_count(tr.module)
+    log(f"[{tag}] {name} at {IMAGE}x{IMAGE}: {n_params:,} params on {dev}, "
+        f"compute bfloat16, batch {b}, lr {tr.cfg.learning_rate:g}, AdamW "
+        f"mu {tr.cfg.optimizer_mu_dtype}, BatchNorm live")
+    if n_params != ALL_PARAMS[name]:
+        raise AssertionError(f"param count {n_params} != "
+                             f"{ALL_PARAMS[name]:,}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    first = {**{m: v[:b] for m, v in arrays.items()}, "label": labels[:b],
+             "valid": np.ones(b, np.float32)}
+    t0 = time.perf_counter()
+    tr.train_step(first, gen)                 # warm-up: optimizer, plans
+    torch.cuda.synchronize(dev)
+    log(f"[{tag}] warm-up step {1e3 * (time.perf_counter() - t0):.1f} ms")
+    before = _bn_buffers(tr.module)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    meter = _StepMeter()
+    epoch = tr.run_train_epoch(ArrayDataset(arrays, labels),
+                               np.random.default_rng(1), gen, meter=meter)
+    launches = _all_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = len(meter.ms)
+    mean_ms = sum(meter.ms[1:]) / (steps - 1)
+    log(f"[{tag}] {steps} steps, step ms {[round(m, 3) for m in meter.ms]}"
+        f"; mean of steps 2-{steps} {mean_ms:.3f} ms = "
+        f"{1e3 * b / mean_ms:.1f} images/s; peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+    log(f"[{tag}] loss per step {[round(x, 5) for x in meter.losses]}; "
+        f"epoch loss {epoch.loss:.5f} acc {epoch.accuracy:.4f} "
+        f"f1 {epoch.f1:.4f}")
+    log(f"[{tag}] launches {launches}")
+    if steps != ALL_STEPS:
+        raise AssertionError(f"{steps} steps, expected {ALL_STEPS}")
+    if not all(np.isfinite(meter.losses)):
+        raise AssertionError(f"non-finite loss: {meter.losses}")
+    want = {k: 0 for k in launches}
+    if name == "multimodal":
+        want.update({k: 12 * steps for k in TRAIN_KERNELS})
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    after = _bn_buffers(tr.module)
+    still = [k for k, v in before.items()
+             if not k.endswith("num_batches_tracked")
+             and torch.equal(v, after[k])]
+    counts = {int(v) for k, v in after.items()
+              if k.endswith("num_batches_tracked")}
+    log(f"[{tag}] BatchNorm buffers: {len(before)} (running mean, var, "
+        f"count of {len(before) // 3} layers), unchanged by the epoch "
+        f"{len(still)}, counts {sorted(counts)}")
+    if still or counts != {1 + steps}:
+        raise AssertionError(f"BatchNorm buffers did not move: {still[:3]} "
+                             f"counts {counts}")
+    return tr
+
+
+def _fit_run(dev) -> None:
+    """multimodal ``fit`` for FIT_EPOCHS epochs (bf16, batch 6, save_last,
+    async saves) on FIT_TRAIN/FIT_VAL synthetic pairs into a directory
+    under build/; the head's ulcer bias starts at +10, so every validation
+    prediction is "ulcer" and the all-ulcer validation set gives epoch 1 a
+    val F1 of 1, hence a best checkpoint.  The eval logits of the live
+    model are taken when the best checkpoint is saved; a fresh Trainer
+    restoring it must give the same logits bit for bit.  Then a new
+    Trainer resumes with num_epochs FIT_EPOCHS + 1 from last_model: epoch
+    FIT_EPOCHS + 1 only, its optimizer count restored."""
+    import tempfile
+    tag = "fit"
+    arrays, labels = _all_data("multimodal", FIT_TRAIN + FIT_VAL, seed=6)
+    train = ArrayDataset({m: v[:FIT_TRAIN] for m, v in arrays.items()},
+                         labels[:FIT_TRAIN])
+    val_arrays = {m: v[FIT_TRAIN:] for m, v in arrays.items()}
+    val = ArrayDataset(val_arrays, np.ones(FIT_VAL, np.int32))
+    steps = FIT_TRAIN // ALL_BATCH["multimodal"]
+
+    def trainer(epochs):
+        cfg = TrainConfig(batch_size=ALL_BATCH["multimodal"],
+                          compute_dtype="bfloat16", num_epochs=epochs,
+                          save_best_after_epoch=1, save_last=True,
+                          async_checkpoint=True)
+        return Trainer("multimodal", cfg, _all_modalities("multimodal"),
+                       class_weights=class_weights_from_labels(
+                           labels[:FIT_TRAIN]), device=dev,
+                       image_size=IMAGE)
+
+    tr = trainer(FIT_EPOCHS)
+    zoo.init_model(tr.module, torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        tr.module.fusion.fc3.bias.copy_(torch.tensor([0.0, 10.0]))
+    saved = {}
+    lines = []
+
+    def capture(msg):
+        lines.append(msg)
+        log(f"[{tag}] {msg}")
+        if msg.strip().startswith("Saved BEST"):
+            saved["logits"] = _logits(tr, val_arrays)
+            saved["epoch"] = sum(m.startswith("[Epoch") for m in lines)
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        t0 = time.perf_counter()
+        history, best = tr.fit(train, val, Path(d), log=capture)
+        log(f"[{tag}] {FIT_EPOCHS} epochs of {steps} steps + validation + "
+            f"saves: {time.perf_counter() - t0:.2f} s; best val F1 {best}, "
+            f"saved at epoch {saved.get('epoch')}; files "
+            f"{sorted(p.name for p in Path(d).iterdir())}")
+        if "logits" not in saved or len(history["val_f1"]) != FIT_EPOCHS:
+            raise AssertionError("fit saved no best checkpoint or ran "
+                                 f"{len(history['val_f1'])} epochs")
+        restored = trainer(FIT_EPOCHS)
+        restored.restore(Path(d))
+        logits = _logits(restored, val_arrays)
+        equal = torch.equal(logits, saved["logits"])
+        log(f"[{tag}] restored best_model eval logits bit-equal to the "
+            f"saving model's: {equal}")
+        if not equal:
+            raise AssertionError("the restored best checkpoint's logits "
+                                 "differ from the model that saved it")
+
+        resumed = trainer(FIT_EPOCHS + 1)
+        lines.clear()
+        t0 = time.perf_counter()
+        history, _ = resumed.fit(train, val, Path(d), resume_from=Path(d),
+                                 log=capture)
+        log(f"[{tag}] resumed run: {time.perf_counter() - t0:.2f} s, "
+            f"history of {len(history['val_f1'])} epochs, optimizer count "
+            f"{resumed.optimizer.count}")
+        want = f"at epoch {FIT_EPOCHS + 1}"
+        if (want not in lines[0] or len(history["val_f1"]) != FIT_EPOCHS + 1
+                or resumed.optimizer.count != (FIT_EPOCHS + 1) * steps):
+            raise AssertionError(f"resume: {lines[0]!r}, "
+                                 f"{len(history['val_f1'])} epochs, count "
+                                 f"{resumed.optimizer.count}")
+
+
+def _trunk_fp64_vs_cpu(tag, dev, state, images) -> None:
+    """The full-width ResNet-50 trunk in train mode, fp64, on the card
+    (cuDNN) and on the CPU from the same weights (``state``, the
+    ``resnet.`` keys) and the same normalised ``images``: a fixed random
+    projection of its features backpropagated; each parameter's gradient
+    within GRAD_TOL of its own max|g| and each BatchNorm running
+    statistic within GRAD_TOL of its own max."""
+    trunk = {k[len("resnet."):]: v.detach().cpu().double()
+             for k, v in state.items() if k.startswith("resnet.")}
+    x = eval_normalize(torch.from_numpy(images), rgb_modality()).double()
+    proj = torch.randn(4, 2048, dtype=torch.float64,
+                       generator=torch.Generator().manual_seed(3))
+    grads, stats = {}, {}
+    for device in (dev, "cpu"):
+        net = ResNet50(dtype=torch.float64).double().to(device).train()
+        net.load_state_dict(trunk)
+        feats = net(x.to(device)).double()
+        (feats * proj.to(device)).sum().backward()
+        grads[str(device)] = {k: p.grad.cpu() for k, p in
+                              net.named_parameters()}
+        stats[str(device)] = {k: b.cpu() for k, b in net.named_buffers()
+                              if k.endswith(("running_mean", "running_var"))}
+    card, cpu = grads[str(dev)], grads["cpu"]
+    g_rel = {k: float((card[k] - v).abs().max() / v.abs().max())
+             for k, v in cpu.items()}
+    s_rel = {k: float((stats[str(dev)][k] - v).abs().max() / v.abs().max())
+             for k, v in stats["cpu"].items()}
+    g_worst, s_worst = max(g_rel, key=g_rel.get), max(s_rel, key=s_rel.get)
+    ok = g_rel[g_worst] <= GRAD_TOL and s_rel[s_worst] <= GRAD_TOL
+    log(f"[{tag}] ResNet-50 trunk, train mode, fp64, card vs CPU: grad "
+        f"max|d| / its max|g|, worst of {len(g_rel)}: {g_worst} "
+        f"{g_rel[g_worst]:.3e}; BatchNorm statistics worst of {len(s_rel)}"
+        f": {s_worst} {s_rel[s_worst]:.3e} (tol {GRAD_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[{tag}] the fp64 trunk step disagrees with "
+                             "the CPU")
+
+
+def phase_train_all(dev) -> None:
+    """rgb_only and multimodal training at full width: their bf16 train
+    steps, an fp32 step of each on the card against the CPU, and
+    multimodal ``fit`` with a checkpoint restore and a resume."""
+    torch.backends.cuda.matmul.allow_tf32 = False    # fp32 is compared
+    torch.backends.cudnn.allow_tf32 = False
+    for name in ("rgb_only", "multimodal"):
+        tr = _train_all_run(name, dev)
+        arrays, labels = _all_data(name, 4, seed=7)
+        batch = {**arrays, "label": labels,
+                 "valid": np.array([1, 1, 1, 0], np.float32)}
+        _fp32_model_step_vs_cpu(f"train all {name}", name,
+                                _all_modalities(name, neutral=True), dev,
+                                tr.variables(), batch,
+                                class_weights_from_labels(labels), IMAGE,
+                                trunk=TRUNKS[name],
+                                after_trunk=AFTER_TRUNK[name])
+        if name == "rgb_only":
+            _trunk_fp64_vs_cpu(f"train all {name}", dev, tr.variables(),
+                               arrays["rgb"])
+        del tr
+    _fit_run(dev)
+
+
 # ---------------------------------------------------------------- bounds
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
@@ -2835,6 +3178,7 @@ def main() -> int:
     launches.update(phase_flax_serve(dev))
     launches.update(phase_flax_train(dev))
     phase_large_images(dev)
+    phase_train_all(dev)
     for mod in ("jax", "dfu_multimodal_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"the port imported {mod}")

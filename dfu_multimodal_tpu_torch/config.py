@@ -92,8 +92,8 @@ class MeshConfig:
 class TrainConfig:
     """Reference constants: train_rgb_only.py (batch 32),
     train_thermal_only.py (batch 16), train_multimodal_fusion.py (batch 6).
-    The port's train step honours the default path only; see
-    ``train.engine.Trainer`` for the options that raise."""
+    ``qat`` and ``mesh`` raise in the port's train step
+    (``train.engine.Trainer``)."""
 
     batch_size: int = 32
     num_epochs: int = 10
@@ -121,3 +121,7 @@ class TrainConfig:
     weighted_sampling: bool = True         # WeightedRandomSampler equivalent
     class_weighted_loss: bool = True       # class-weighted CE equivalent
     mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    @property
+    def eval_bs(self) -> int:
+        return self.eval_batch_size or self.batch_size

@@ -3,19 +3,21 @@
 ``dfu_multimodal_tpu/models/fusion.py``).
 
 ResNet50(RGB) ⊕ ViT-B/16(thermal) -> concat (2816) -> MLP 512 -> 256 -> 2
-with ReLU + Dropout.  Submodule names follow the reference's torch model
+with ReLU + Dropout (drawn from an explicit generator in train mode).
+Submodule names follow the reference's torch model
 (``rgb_branch``, ``thermal_branch``, ``fusion.{0,3,6}``), the keys
 ``tools/convert_torch.py::convert_state_dict("multimodal", ...)`` reads.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from dfu_multimodal_tpu_torch.models.common import canonical_dtype
+from dfu_multimodal_tpu_torch.models.common import canonical_dtype, dropout
 from dfu_multimodal_tpu_torch.models.resnet import ResNet50
 from dfu_multimodal_tpu_torch.models.vit import ViTBase16
 from dfu_multimodal_tpu_torch.ops.fused_mlp import (fused_mlp,
@@ -23,17 +25,22 @@ from dfu_multimodal_tpu_torch.ops.fused_mlp import (fused_mlp,
 
 
 class FusionMLP(nn.Sequential):
-    """Linear, ReLU, Dropout, Linear, ReLU, Dropout, Linear.  In eval mode
-    the three layers run as the one fused kernel (``ops.fused_mlp``) in
-    the features' dtype; in train mode as the Sequential (dropout sits
-    between the layers there)."""
+    """Linear, ReLU, Dropout, Linear, ReLU, Dropout, Linear (the
+    Sequential fixes the reference's keys).  In eval mode the three layers
+    run as the one fused kernel (``ops.fused_mlp``) in the features'
+    dtype.  In train mode they run one by one, as the flax head does: the
+    first two Linears in ``dtype``, the last in fp32, each dropout drawn
+    from the ``generator`` given to forward (required then)."""
 
     def __init__(self, in_dim: int = 2816, num_classes: int = 2,
-                 drop_rate: float = 0.5):
+                 drop_rate: float = 0.5,
+                 dtype: Union[str, torch.dtype] = torch.float32):
         super().__init__(
             nn.Linear(in_dim, 512), nn.ReLU(), nn.Dropout(drop_rate),
             nn.Linear(512, 256), nn.ReLU(), nn.Dropout(drop_rate),
             nn.Linear(256, num_classes))
+        self.drop_rate = drop_rate
+        self.dtype = canonical_dtype(dtype)
 
     @property
     def fc1(self) -> nn.Linear:
@@ -47,12 +54,25 @@ class FusionMLP(nn.Sequential):
     def fc3(self) -> nn.Linear:
         return self[6]
 
-    def forward(self, fused: torch.Tensor) -> torch.Tensor:
+    def forward(self, fused: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.training:
-            return super().forward(fused)
+            return self._train_forward(fused, generator)
         w1, b1, w2, b2, w3, b3 = fusion_mlp_params(self)
         dt = fused.dtype
         return fused_mlp(fused, w1.to(dt), b1, w2.to(dt), b2, w3.to(dt), b3)
+
+    def _train_forward(self, fused: torch.Tensor,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+        if self.drop_rate > 0.0 and generator is None:
+            raise ValueError("FusionMLP in train mode draws its dropout "
+                             "from an explicit generator")
+        dt = self.dtype
+        x = fused
+        for fc in (self.fc1, self.fc2):
+            x = F.relu(F.linear(x.to(dt), fc.weight.to(dt), fc.bias.to(dt)))
+            x = dropout(x, self.drop_rate, generator)
+        return self.fc3(x.float())
 
 
 class MultimodalFusionClassifier(nn.Module):
@@ -71,10 +91,12 @@ class MultimodalFusionClassifier(nn.Module):
         self.thermal_branch = ViTBase16(dtype=dtype, image_size=image_size,
                                         block_impl=block_impl,
                                         attention_impl=attention_impl)
-        self.fusion = FusionMLP(2048 + 768, num_classes, drop_rate)
+        self.fusion = FusionMLP(2048 + 768, num_classes, drop_rate, dtype)
 
-    def forward(self, rgb: torch.Tensor,
-                thermal: torch.Tensor) -> torch.Tensor:
+    def forward(self, rgb: torch.Tensor, thermal: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """In train mode the head's dropout draws from ``generator``
+        (required then, as in ``ResNetClassifier``)."""
         fused = torch.cat([self.rgb_branch(rgb), self.thermal_branch(thermal)],
                           dim=-1)                      # (B, 2816) fp32
-        return self.fusion(fused)
+        return self.fusion(fused, generator)

@@ -6,7 +6,10 @@ Counterpart of ``dfu_multimodal_tpu/models/resnet.py`` (``ResNet50``,
 bottleneck (stride on the 3x3 conv), keys ``conv1``, ``bn1``,
 ``layer{1-4}.{i}.conv{1,2,3}/bn{1,2,3}`` and ``layer{s}.0.downsample.{0,1}``.
 BN eps 1e-5; flax ``momentum=0.9`` is torch's ``momentum=0.1`` (the
-default).
+default).  In train mode :class:`BatchNorm2d` keeps flax's statistics:
+it normalises with the biased batch variance, as torch does, but moves
+its running variance by the biased variance too (torch's ``BatchNorm2d``
+moves it by the unbiased one, n/(n-1) larger).
 
 The public input is NHWC like the JAX trunk; it is viewed as channels-last
 NCHW (no copy) and the convs run channels-last in the compute dtype, with
@@ -55,6 +58,31 @@ def _dense(conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype
     return w[:, :, 0, 0].t().to(dtype).contiguous(), b.contiguous()
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax ``nn.BatchNorm``'s train-mode
+    statistics: the batch is normalised with its biased variance, and the
+    running buffers move by ``momentum`` towards the batch mean and the
+    biased variance.  ``F.batch_norm`` computes the batch statistics once
+    (in fp32 for every input dtype) and moves the buffers by the unbiased
+    variance; the batch's share of the running variance is then rescaled
+    by (n − 1)/n, a per-channel fix.  Every row of the batch counts,
+    padding rows included, as in JAX.  Eval mode is ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # the op keeps the variance for its backward: move a copy
+        var = self.running_var.detach().clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         training=True, momentum=self.momentum, eps=self.eps)
+        with torch.no_grad():
+            n = x.numel() // x.shape[1]
+            self.running_var.mul_(1.0 - self.momentum).lerp_(var,
+                                                            (n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 class Bottleneck(nn.Module):
     expansion = 4
 
@@ -63,17 +91,17 @@ class Bottleneck(nn.Module):
         cout = width * self.expansion
         self.stride = stride
         self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, cout, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(cout)
+        self.bn3 = BatchNorm2d(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
                 nn.Conv2d(cin, cout, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(cout))
+                BatchNorm2d(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(_conv(self.conv1, x)))
@@ -128,7 +156,7 @@ class ResNet(nn.Module):
         self.dtype = canonical_dtype(dtype)
         self.block_impl = block_impl
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         cin = 64
         for i, (blocks, width) in enumerate(zip(stage_sizes, widths),
                                             start=1):

@@ -19,14 +19,21 @@ checkpoint restore produce them) and returns the port model's
 Models: ``multimodal`` (``rgb_branch`` / ``thermal_branch`` / ``fusion``),
 ``thermal_only`` (the JAX trunk scope ``ViT_0`` -> ``vit.``, the ``head``
 Dense -> ``head``) and ``rgb_only`` (``ResNet_0`` params and batch stats
--> ``resnet.``, ``head`` -> ``head``).
+-> ``resnet.``, ``head`` -> ``head``).  A tree without ``batch_stats``
+(the optimizer's moments) gives the parameters' keys only.
 
-No jax import: the arrays only need ``numpy.asarray``.
+:func:`adamw_state_from_optax` carries an ``optax.adamw`` chain state
+(its moments through the same key map) into ``train.optim.AdamW``, and
+:func:`port_payload` a whole JAX checkpoint (``utils/checkpoint.py``'s
+msgpack payload) into the port's checkpoint keys.
+
+No jax import: a leaf is a numpy array or a torch tensor (the port's
+msgpack reader gives tensors, which hold bfloat16 where numpy cannot).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -34,18 +41,24 @@ import torch
 StateDict = Dict[str, torch.Tensor]
 
 
+def _f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, dtype=np.float32)
+
+
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+    return torch.from_numpy(np.array(_f32(a), order="C"))
 
 
 def _conv(kernel) -> torch.Tensor:
     """HWIO -> OIHW."""
-    return _t(np.asarray(kernel).transpose(3, 2, 0, 1))
+    return _t(_f32(kernel).transpose(3, 2, 0, 1))
 
 
 def _dense(kernel) -> torch.Tensor:
     """(in, out) -> (out, in)."""
-    return _t(np.asarray(kernel).T)
+    return _t(_f32(kernel).T)
 
 
 def _vit_dense(out: StateDict, key: str, params: Mapping) -> None:
@@ -61,32 +74,37 @@ def _vit_dense(out: StateDict, key: str, params: Mapping) -> None:
 
 
 def _batchnorm(out: StateDict, key: str, params: Mapping,
-               stats: Mapping) -> None:
+               stats: Optional[Mapping]) -> None:
     out[f"{key}.weight"] = _t(params["scale"])
     out[f"{key}.bias"] = _t(params["bias"])
+    if stats is None:
+        return
     out[f"{key}.running_mean"] = _t(stats["mean"])
     out[f"{key}.running_var"] = _t(stats["var"])
     out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
-def resnet_state_dict(params: Mapping, stats: Mapping,
+def resnet_state_dict(params: Mapping, stats: Optional[Mapping],
                       prefix: str = "") -> StateDict:
-    """JAX ResNet trunk subtree -> torchvision-layout keys."""
+    """JAX ResNet trunk subtree -> torchvision-layout keys (no running
+    statistics when ``stats`` is None)."""
     out: StateDict = {}
     out[f"{prefix}conv1.weight"] = _conv(params["stem_conv"]["kernel"])
-    _batchnorm(out, f"{prefix}bn1", params["stem_bn"], stats["stem_bn"])
+    _batchnorm(out, f"{prefix}bn1", params["stem_bn"],
+               None if stats is None else stats["stem_bn"])
     for scope in sorted(k for k in params if k.startswith("stage")):
         stage, block = scope[len("stage"):].split("_block")
         base = f"{prefix}layer{stage}.{block}"
-        p, s = params[scope], stats[scope]
+        p, s = params[scope], None if stats is None else stats[scope]
         for i in (1, 2, 3):
             out[f"{base}.conv{i}.weight"] = _conv(p[f"conv{i}"]["kernel"])
-            _batchnorm(out, f"{base}.bn{i}", p[f"bn{i}"], s[f"bn{i}"])
+            _batchnorm(out, f"{base}.bn{i}", p[f"bn{i}"],
+                       None if s is None else s[f"bn{i}"])
         if "down_conv" in p:
             out[f"{base}.downsample.0.weight"] = _conv(
                 p["down_conv"]["kernel"])
             _batchnorm(out, f"{base}.downsample.1", p["down_bn"],
-                       s["down_bn"])
+                       None if s is None else s["down_bn"])
     return out
 
 
@@ -96,14 +114,14 @@ def vit_state_dict(params: Mapping, prefix: str = "") -> StateDict:
     out: StateDict = {}
     out[f"{prefix}cls_token"] = _t(params["cls_token"])
     out[f"{prefix}pos_embed"] = _t(params["pos_embed"])
-    kernel = np.asarray(params["patch_embed"]["kernel"])    # (P·P·C, O)
+    kernel = _f32(params["patch_embed"]["kernel"])          # (P·P·C, O)
     patch = int(round((kernel.shape[0] / 3) ** 0.5))
     out[f"{prefix}patch_embed.proj.weight"] = _t(
         kernel.reshape(patch, patch, 3, -1).transpose(3, 2, 0, 1))
     out[f"{prefix}patch_embed.proj.bias"] = _t(params["patch_embed"]["bias"])
 
     enc = params["encoder"]                        # scanned (depth, ...) stack
-    depth = np.asarray(enc["norm1"]["scale"]).shape[0]
+    depth = enc["norm1"]["scale"].shape[0]
     for i in range(depth):
         blk = _index_tree(enc, i)
         base = f"{prefix}blocks.{i}"
@@ -123,33 +141,74 @@ def vit_state_dict(params: Mapping, prefix: str = "") -> StateDict:
 
 
 def _index_tree(tree: Mapping, i: int) -> Dict[str, Any]:
-    return {k: (_index_tree(v, i) if isinstance(v, Mapping)
-                else np.asarray(v)[i]) for k, v in tree.items()}
+    return {k: (_index_tree(v, i) if isinstance(v, Mapping) else v[i])
+            for k, v in tree.items()}
 
 
 def variables_to_state_dict(model_name: str,
                             variables: Mapping) -> StateDict:
     """JAX variables of zoo model ``model_name`` -> the port model's
-    state_dict (load with ``load_state_dict(..., strict=True)``)."""
+    state_dict (load with ``load_state_dict(..., strict=True)``).  Without
+    ``batch_stats`` only the parameters' keys come out."""
     params = variables["params"]
+    stats = variables.get("batch_stats")
     if model_name in ("thermal_only", "rgb_only"):
         if model_name == "thermal_only":
             out = vit_state_dict(params["ViT_0"], "vit.")
         else:
-            out = resnet_state_dict(params["ResNet_0"],
-                                    variables["batch_stats"]["ResNet_0"],
-                                    "resnet.")
+            out = resnet_state_dict(
+                params["ResNet_0"],
+                None if stats is None else stats["ResNet_0"], "resnet.")
         out["head.weight"] = _dense(params["head"]["kernel"])
         out["head.bias"] = _t(params["head"]["bias"])
         return out
     if model_name != "multimodal":
         raise ValueError(f"no bridge for model {model_name!r} yet")
-    stats = variables["batch_stats"]
-    out = resnet_state_dict(params["rgb_branch"], stats["rgb_branch"],
+    out = resnet_state_dict(params["rgb_branch"],
+                            None if stats is None else stats["rgb_branch"],
                             "rgb_branch.")
     out.update(vit_state_dict(params["thermal_branch"], "thermal_branch."))
     # fusion/fc{1,2,3} -> the Sequential's Linear layers at 0, 3, 6
     for idx, name in (("0", "fc1"), ("3", "fc2"), ("6", "fc3")):
         out[f"fusion.{idx}.weight"] = _dense(params["fusion"][name]["kernel"])
         out[f"fusion.{idx}.bias"] = _t(params["fusion"][name]["bias"])
+    return out
+
+
+def _adam_state(opt_state: Mapping) -> Mapping:
+    """The ``ScaleByAdamState`` (count, mu, nu) of an adamw chain state in
+    flax's state-dict form: element "0" of the chain, whose other elements
+    are the decay's empty state and the learning rate's (empty, or a
+    schedule's own count)."""
+    adam = opt_state["0"] if "0" in opt_state else opt_state
+    if not {"count", "mu", "nu"} <= set(adam):
+        raise KeyError("not an optax.adamw state: its first element has "
+                       f"{sorted(adam)}")
+    return adam
+
+
+def adamw_state_from_optax(model_name: str, opt_state: Mapping) -> Dict:
+    """An ``optax.adamw`` state (flax ``to_state_dict`` form, as a JAX
+    checkpoint holds it) -> ``AdamW.load_state_dict``'s dict: the count,
+    and mu (fp32 here; the optimizer casts it to its own dtype) and nu
+    keyed as the port model's parameters."""
+    adam = _adam_state(opt_state)
+    count = adam["count"]
+    return {"count": int(count.item() if hasattr(count, "item") else count),
+            "mu": variables_to_state_dict(model_name, {"params": adam["mu"]}),
+            "nu": variables_to_state_dict(model_name, {"params": adam["nu"]})}
+
+
+def port_payload(model_name: str, payload: Mapping) -> Dict:
+    """A JAX checkpoint payload (``model_state``, ``opt_state`` and, from
+    an EMA run, ``raw_params``) -> the port's checkpoint keys
+    (``model_state_dict``, ``optimizer_state_dict``, ``raw_params``)."""
+    out = {"model_state_dict": variables_to_state_dict(
+        model_name, payload["model_state"])}
+    if payload.get("opt_state"):
+        out["optimizer_state_dict"] = adamw_state_from_optax(
+            model_name, payload["opt_state"])
+    if payload.get("raw_params"):
+        out["raw_params"] = variables_to_state_dict(
+            model_name, {"params": payload["raw_params"]})
     return out

@@ -4,41 +4,51 @@
 Eval step (the serving path):
 
     uint8 NHWC batch -> eval_normalize -> model -> softmax P(ulcer), argmax
+      (+ the weighted CE and confusion counts when the batch has labels)
 
-Train step (the default path of the JAX ``train_step``), for the
-BatchNorm-free ``thermal_only`` ViT:
+Train step (``train_step``) for all three models:
 
-    uint8 batch -> augment_and_normalize -> model (train mode, dropout)
-      -> class-weighted CE over the valid rows -> backward -> AdamW
+    uint8 batch -> augment_and_normalize [-> mixup] -> model (train mode:
+      dropout from the step's generator, live BatchNorm statistics)
+      -> class-weighted CE or focal loss over the valid rows -> backward
+      [over grad_accum microbatches] -> AdamW [-> EMA of the parameters]
 
-where the backward runs, on the card, the fused blocks' hand chain rules
-(kernels K4/K5; ``block_impl="fused"``, the default) or, with
+where the ViT's backward runs, on the card, the fused blocks' hand chain
+rules (kernels K4/K5; ``block_impl="fused"``, the default) or, with
 ``block_impl="flax", attention_impl="pallas"``, PyTorch's autograd
-through the flax blocks' LayerNorms and Linears with the packed-qkv
-attention's own backward kernel (K6); ``attention_impl="xla"`` runs the
-flax blocks' attention as plain PyTorch ops.  The int8 block impls are
+through the flax blocks with the packed-qkv attention's own backward
+kernel (K6); ``attention_impl="xla"`` runs the flax blocks' attention as
+plain PyTorch ops.  The ResNet trains on cuDNN convolutions in
+channels-last, as the JAX ResNet trains on XLA's (its fused bottleneck
+is eval-only there too), with flax's BatchNorm statistics
+(``models/resnet.py::BatchNorm2d``).  The int8 block impls are
 serving-only.
 
-with the reference's semantics: torch's weighted-mean reduction
+The reference's semantics: torch's weighted-mean reduction
 Σ wᵢ·ceᵢ / Σ wᵢ with wᵢ = class_weight[yᵢ]·validᵢ, weighted-with-
 replacement sampling per epoch, and per-step confusion counts reduced
-once per epoch.  Randomness (augmentation, dropout) comes from an explicit
-``torch.Generator`` on the device.
+once per epoch.  Randomness (augmentation, mixup, dropout) comes from an
+explicit ``torch.Generator`` on the device.
 
-Not ported: mixup, grad_accum > 1, EMA, focal loss, QAT, non-constant
-learning-rate schedules, the shard_map (``*_spmd``) steps and any mesh
-but the single-device default — each raises ``NotImplementedError`` when
-the train step is first built — and ``fit`` (it needs checkpoint restore,
-ROADMAP Queue A1).  The multimodal and rgb_only train steps (cuDNN
-ResNet training with BatchNorm) are not ported yet either; their eval
-steps are (``rgb_only`` with ``block_impl="fused"`` runs each stride-1
-bottleneck through the fused kernel).
+``fit`` runs the reference's epoch loop with its checkpoint contract
+(``utils/checkpoint.py``): best-by-val-F1 saves, ``save_last``, resume,
+``init_from``, EMA weights, early stopping and a metrics JSONL.
+
+Not ported: QAT and any mesh but the single-device default (the
+``*_spmd`` steps) — each raises ``NotImplementedError`` when the train
+step is first built.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import json
+import time
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from pathlib import Path
+from typing import (Callable, Dict, Iterator, List, Mapping, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -54,8 +64,11 @@ from dfu_multimodal_tpu_torch.eval import metrics as metrics_mod
 from dfu_multimodal_tpu_torch.models import zoo
 from dfu_multimodal_tpu_torch.models.common import canonical_dtype
 from dfu_multimodal_tpu_torch.train.optim import AdamW, learning_rate_schedule
+from dfu_multimodal_tpu_torch.utils import checkpoint as ckpt_mod
+from dfu_multimodal_tpu_torch.utils.logging import (ThroughputMeter,
+                                                    profile_trace)
 
-TRAINABLE_MODELS = ("thermal_only",)
+TRAINABLE_MODELS = ("thermal_only", "rgb_only", "multimodal")
 
 
 def class_weights_from_labels(labels: np.ndarray) -> np.ndarray:
@@ -70,6 +83,14 @@ def per_sample_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return F.cross_entropy(logits.float(), labels.long(), reduction="none")
 
 
+def per_sample_focal(logits: torch.Tensor, labels: torch.Tensor,
+                     gamma: float) -> torch.Tensor:
+    """Focal loss (Lin et al. 2017): (1 - p_y)^gamma · CE with
+    p_y = exp(-CE); gamma = 0 is CE.  The class weights carry alpha."""
+    ce = per_sample_ce(logits, labels)
+    return ce * (1.0 - torch.exp(-ce)) ** gamma
+
+
 def weighted_mean(terms: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     return (weights * terms).sum() / weights.sum().clamp_min(1e-12)
 
@@ -80,6 +101,48 @@ def weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
     return weighted_mean(per_sample_ce(logits, labels), weights)
 
 
+def sample_mixup(generator: torch.Generator, alpha: float, batch: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One lam ~ Beta(alpha, alpha) for the batch, as G₁/(G₁ + G₂) of two
+    Gamma(alpha) draws, and a partner permutation, both from
+    ``generator`` (on its device)."""
+    dev = generator.device
+    g = torch._standard_gamma(torch.full((2,), alpha, device=dev),
+                              generator=generator)
+    lam = g[0] / (g[0] + g[1]).clamp_min(torch.finfo(torch.float32).tiny)
+    return lam, torch.randperm(batch, generator=generator, device=dev)
+
+
+def mixup_batch(inputs: Tuple[torch.Tensor, ...], valid: torch.Tensor,
+                lam: torch.Tensor, perm: torch.Tensor
+                ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+    """Mix each input with its permutation partner: x·lam + x[perm]·(1 -
+    lam), with lam demoted to 1 on a row whose partner is padding, so
+    padding never bleeds into a real sample.  Returns (mixed, lam_row)."""
+    b = valid.shape[0]
+    lam_row = torch.where(valid[perm] > 0, lam, 1.0).float()
+
+    def mix(x):
+        lr = lam_row.reshape((b,) + (1,) * (x.ndim - 1)).to(x.dtype)
+        return x * lr + x[perm] * (1 - lr)
+
+    return tuple(mix(x) for x in inputs), lam_row
+
+
+def mixup_loss(per_sample: Callable, logits: torch.Tensor,
+               labels: torch.Tensor, weights: torch.Tensor,
+               valid: torch.Tensor, perm: torch.Tensor,
+               lam_row: torch.Tensor) -> torch.Tensor:
+    """lam-weighted two-target loss over the lam-weighted weight mass
+    (``weighted_mean`` at lam = 1); both terms gated by the row's own
+    validity."""
+    la = per_sample(logits, labels)
+    lb = per_sample(logits, labels[perm])
+    v = valid.float()
+    wa, wb = v * lam_row * weights, v * (1.0 - lam_row) * weights[perm]
+    return (wa * la + wb * lb).sum() / (wa + wb).sum().clamp_min(1e-12)
+
+
 @dataclass
 class EpochMetrics:
     loss: float
@@ -88,12 +151,9 @@ class EpochMetrics:
 
 
 def _check_train_config(cfg: TrainConfig) -> None:
-    """Raise for every train option the port does not implement."""
+    """Raise for the train options the port does not implement and for
+    the combinations the JAX Trainer refuses."""
     unported = {
-        "mixup_alpha > 0": cfg.mixup_alpha > 0.0,
-        "grad_accum > 1": cfg.grad_accum > 1,
-        "ema_decay > 0": cfg.ema_decay > 0.0,
-        f"loss={cfg.loss!r}": cfg.loss != "ce",
         "qat": cfg.qat,
         f"mesh={cfg.mesh}": (cfg.mesh.data not in (-1, 1)
                              or cfg.mesh.model != 1 or cfg.mesh.fsdp),
@@ -102,18 +162,28 @@ def _check_train_config(cfg: TrainConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"train options not ported yet: {', '.join(bad)} (the port "
-            "trains the default single-device path)")
+            "trains on one device without QAT)")
+    if cfg.loss not in ("ce", "focal"):
+        raise ValueError(f"unknown loss {cfg.loss!r} (choose 'ce' or "
+                         "'focal')")
+    if cfg.mixup_alpha > 0.0 and cfg.grad_accum > 1:
+        raise ValueError("mixup does not compose with grad_accum (mix "
+                         "pairs would be confined to one microbatch); use "
+                         "one or the other")
 
 
 class Trainer:
     """Train/eval engine for one model-zoo entry on one device (the card
     unless the caller asks for the CPU).  Weights are the module's own:
     load them with ``module.load_state_dict`` (e.g. from
-    ``tools.convert_jax.variables_to_state_dict``) or draw them with
-    ``models.zoo.init_model``.  Extra keyword arguments go to the model
-    class (e.g. ``depth`` for a cut-down trunk, ``block_impl`` for the
-    ViT blocks, ``attention_impl`` for the flax block's attention, or the
-    fused ResNet bottleneck)."""
+    ``tools.convert_jax.variables_to_state_dict``), :meth:`restore` them
+    from a checkpoint, or draw them with ``models.zoo.init_model``.  Extra
+    keyword arguments go to the model class (e.g. ``depth`` for a cut-down
+    trunk, ``block_impl`` for the ViT blocks or the ResNet bottleneck,
+    ``attention_impl`` for the flax block's attention).
+
+    The optimizer (and, with ``ema_decay > 0``, the EMA copy of the
+    parameters) is built at the first train step, or by :meth:`fit`."""
 
     def __init__(self, model_name: str, cfg: TrainConfig,
                  modalities: Dict[str, ModalityConfig], *,
@@ -136,6 +206,9 @@ class Trainer:
                                                          np.float32),
                                               device=self.device))
         self.optimizer: Optional[AdamW] = None
+        # the EMA of the parameters by name (ema_decay > 0): the JAX
+        # TrainState's ema_params; BatchNorm buffers stay live
+        self.ema_params: Optional[Dict[str, torch.Tensor]] = None
 
     def variables(self) -> Dict[str, torch.Tensor]:
         """The model's weights and BatchNorm statistics (the JAX
@@ -164,27 +237,63 @@ class Trainer:
             return self.class_weights[labels.long()] * valid
         return valid
 
+    def _per_sample(self) -> Callable:
+        if self.cfg.loss == "focal":
+            return functools.partial(per_sample_focal,
+                                     gamma=float(self.cfg.focal_gamma))
+        return per_sample_ce
+
     def _build_optimizer(self) -> AdamW:
+        """A fresh AdamW over the module's parameters (and a fresh EMA
+        copy of them when ``ema_decay > 0``)."""
         if self.spec.name not in TRAINABLE_MODELS:
             raise NotImplementedError(
                 f"the {self.spec.name!r} train step is not ported yet "
-                f"(trainable: {TRAINABLE_MODELS}); the ResNet models "
-                "(rgb_only, multimodal) need cuDNN ResNet training with "
-                "live BatchNorm statistics, which has no kernel and is "
-                "queued after the kernels")
+                f"(trainable: {TRAINABLE_MODELS})")
         _check_train_config(self.cfg)
-        return AdamW(self.module.parameters(),
-                     lr=learning_rate_schedule(self.cfg),
+        names, params = zip(*self.module.named_parameters())
+        if self.cfg.ema_decay > 0.0:
+            # copies, not aliases: the optimizer updates params in place
+            self.ema_params = {n: p.detach().clone()
+                               for n, p in zip(names, params)}
+        return AdamW(params, lr=learning_rate_schedule(self.cfg),
                      weight_decay=self.cfg.weight_decay,
-                     mu_dtype=canonical_dtype(self.cfg.optimizer_mu_dtype))
+                     mu_dtype=canonical_dtype(self.cfg.optimizer_mu_dtype),
+                     names=names)
+
+    @torch.no_grad()
+    def _ema_update(self) -> None:
+        """ema = ema·decay + params·(1 - decay), after the step."""
+        decay = float(self.cfg.ema_decay)
+        ema = [self.ema_params[n] for n in self.optimizer.names]
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, self.optimizer.params, alpha=1.0 - decay)
+
+    @contextlib.contextmanager
+    def _ema_weights(self) -> Iterator[None]:
+        """The module runs on the EMA parameters inside the block (its
+        BatchNorm buffers stay live); a no-op without EMA."""
+        if self.ema_params is None:
+            yield
+            return
+        params = dict(self.module.named_parameters())
+        live = {n: p.data for n, p in params.items()}
+        try:
+            for n, p in params.items():
+                p.data = self.ema_params[n]
+            yield
+        finally:
+            for n, p in params.items():
+                p.data = live[n]
 
     def train_step(self, batch: Mapping[str, Union[np.ndarray, torch.Tensor]],
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """One optimizer step.  ``batch``: {modality: (B, S, S, 3) uint8,
         "label": (B,) int, "valid": (B,) float} (numpy or tensors);
-        ``generator`` on this trainer's device draws the augmentation and
-        the dropout.  Returns device tensors ``loss`` (the weighted CE)
-        and ``counts`` ([tn, fp, fn, tp] over the valid rows)."""
+        ``generator`` on this trainer's device draws the augmentation,
+        mixup and dropout.  Returns device tensors ``loss`` (the weighted
+        CE or focal loss) and ``counts`` ([tn, fp, fn, tp] over the valid
+        rows)."""
         if self.optimizer is None:
             self.optimizer = self._build_optimizer()
         batch = {k: torch.as_tensor(v).to(self.device)
@@ -192,28 +301,83 @@ class Trainer:
         inputs = self._preprocess_train(batch, generator)
         labels, valid = batch["label"].long(), batch["valid"].float()
         weights = self._sample_weights(labels, valid)
+        per_sample = self._per_sample()
         self.module.train()
         self.optimizer.zero_grad()
-        logits = self.module(*inputs, generator=generator)
-        loss = weighted_mean(per_sample_ce(logits, labels), weights)
-        loss.backward()
+        if self.cfg.grad_accum > 1:
+            loss, counts = self._accumulate(inputs, labels, valid, weights,
+                                            generator, per_sample)
+        else:
+            if self.cfg.mixup_alpha > 0.0:
+                lam, perm = sample_mixup(generator, self.cfg.mixup_alpha,
+                                         labels.shape[0])
+                inputs, lam_row = mixup_batch(inputs, valid, lam, perm)
+            logits = self.module(*inputs, generator=generator)
+            if self.cfg.mixup_alpha > 0.0:
+                loss = mixup_loss(per_sample, logits, labels, weights, valid,
+                                  perm, lam_row)
+            else:
+                loss = weighted_mean(per_sample(logits, labels), weights)
+            loss.backward()
+            counts = metrics_mod.confusion_counts(
+                logits.detach().argmax(-1), labels, valid)
         self.optimizer.step()
-        counts = metrics_mod.confusion_counts(logits.detach().argmax(-1),
-                                              labels, valid)
+        if self.ema_params is not None:
+            self._ema_update()
         return {"loss": loss.detach(), "counts": counts}
+
+    def _accumulate(self, inputs, labels, valid, weights, generator,
+                    per_sample) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The full batch's gradient from ``grad_accum`` sequential
+        microbatches: the numerator Σ wᵢ·lossᵢ and denominator Σ wᵢ
+        accumulate apart and the summed gradient is divided once, since
+        ∇(N/W) = (Σ ∇Nₖ)/W.  BatchNorm statistics move once per microbatch
+        and each microbatch draws its own dropout, as in JAX's scan."""
+        accum = self.cfg.grad_accum
+        b = labels.shape[0]
+        if b % accum:
+            raise ValueError(f"batch {b} not divisible by "
+                             f"grad_accum={accum}")
+        mb = b // accum
+        numer = torch.zeros((), device=self.device)
+        counts = torch.zeros(4, device=self.device)
+        for k in range(accum):
+            rows = slice(k * mb, (k + 1) * mb)
+            logits = self.module(*(x[rows] for x in inputs),
+                                 generator=generator)
+            part = (weights[rows] * per_sample(logits, labels[rows])).sum()
+            part.backward()
+            numer += part.detach()
+            counts += metrics_mod.confusion_counts(
+                logits.detach().argmax(-1), labels[rows], valid[rows])
+        wtotal = weights.sum().clamp_min(1e-12)
+        grads = [p.grad for p in self.optimizer.params if p.grad is not None]
+        torch._foreach_div_(grads, wtotal)
+        return numer / wtotal, counts
 
     @torch.inference_mode()
     def eval_step(self, batch: Mapping[str, Union[np.ndarray, torch.Tensor]]
                   ) -> Dict[str, torch.Tensor]:
         """``batch``: {modality: (B, S, S, 3) uint8} (numpy or tensors).
         Returns device tensors ``probs`` = softmax(logits)[:, 1] and
-        ``preds`` = argmax(logits)."""
+        ``preds`` = argmax(logits); with ``label`` (and ``valid``, all rows
+        by default) in the batch also ``loss`` (the weighted CE over the
+        valid rows) and ``counts``, as the JAX eval step."""
         self.module.eval()
         inputs = {m: torch.as_tensor(batch[m]).to(self.device)
                   for m in self.spec.inputs}
         logits = self.module(*self._preprocess_eval(inputs)).float()
-        return {"probs": torch.softmax(logits, dim=-1)[:, 1],
-                "preds": torch.argmax(logits, dim=-1)}
+        out = {"probs": torch.softmax(logits, dim=-1)[:, 1],
+               "preds": torch.argmax(logits, dim=-1)}
+        if "label" in batch:
+            labels = torch.as_tensor(batch["label"]).to(self.device).long()
+            valid = (torch.as_tensor(batch["valid"]).to(self.device).float()
+                     if "valid" in batch else torch.ones_like(logits[:, 0]))
+            out["loss"] = weighted_mean(per_sample_ce(logits, labels),
+                                        self._sample_weights(labels, valid))
+            out["counts"] = metrics_mod.confusion_counts(out["preds"],
+                                                         labels, valid)
+        return out
 
     # ------------------------------------------------------------- loops
 
@@ -237,6 +401,26 @@ class Trainer:
                 meter.update(bs, m)
         return self._reduce_epoch(step_metrics)
 
+    def run_eval_epoch(self, dataset: ArrayDataset
+                       ) -> Tuple[EpochMetrics, Dict[str, np.ndarray]]:
+        """The whole dataset in ``eval_bs`` batches.  Returns (metrics,
+        {'y_true', 'y_pred', 'y_probs'}) with padding rows stripped."""
+        if len(dataset) == 0:
+            raise ValueError(
+                "cannot evaluate an empty dataset: the split directory "
+                "has no images (check the data-dir layout)")
+        outs = []
+        for batch in data_loader.device_prefetch(
+                data_loader.batch_slices(dataset, np.arange(len(dataset)),
+                                         self.cfg.eval_bs), self.device):
+            outs.append(self.eval_step(batch))
+        n = len(dataset)
+        preds = torch.cat([o["preds"] for o in outs])[:n].cpu().numpy()
+        probs = torch.cat([o["probs"] for o in outs])[:n].cpu().numpy()
+        metrics = self._reduce_epoch(outs)
+        return metrics, {"y_true": np.asarray(dataset.labels),
+                         "y_pred": preds, "y_probs": probs}
+
     def _reduce_epoch(self, step_metrics: List[Dict]) -> EpochMetrics:
         losses = torch.stack([m["loss"] for m in step_metrics]).cpu()
         counts = torch.stack([m["counts"] for m in step_metrics]).sum(0)
@@ -244,3 +428,198 @@ class Trainer:
         return EpochMetrics(loss=float(losses.mean()),
                             accuracy=metrics_mod.accuracy_from_counts(counts),
                             f1=metrics_mod.f1_from_counts(counts))
+
+    # --------------------------------------------------------------- fit
+
+    def _epoch_generator(self, epoch: int) -> torch.Generator:
+        """The epoch's generator on this device, seeded from (seed, epoch)
+        as JAX folds the epoch into its key."""
+        seed = np.random.SeedSequence([self.cfg.seed, epoch]).generate_state(
+            1, np.uint64)[0]
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _model_state(self) -> Dict[str, torch.Tensor]:
+        """What a checkpoint holds as the model: the EMA parameters when
+        EMA is on (the weights a deployment serves), and the live
+        BatchNorm buffers."""
+        state = self.module.state_dict()
+        if self.ema_params is not None:
+            state.update(self.ema_params)
+        return state
+
+    def fit(self, train_ds: ArrayDataset, val_ds: ArrayDataset,
+            checkpoint_dir: Optional[Path] = None,
+            log: Callable[[str], None] = print,
+            profile_dir: Optional[Path] = None,
+            resume_from: Optional[Path] = None,
+            init_from: Optional[Path] = None,
+            metrics_jsonl: Optional[Path] = None
+            ) -> Tuple[Dict[str, List[float]], float]:
+        """A full training run with the reference's epoch loop contract.
+        Returns (history, best_val_f1); the trained weights stay in
+        ``self.module`` (and the optimizer in ``self.optimizer``).  The JAX
+        ``fit`` returns (final_state, history, best_val_f1): its
+        final_state is this trainer's module and optimizer.
+
+        The run starts from the module's weights as they stand (JAX's
+        ``fit`` draws them from ``cfg.seed``: draw them with
+        ``zoo.init_model`` for the same start) and a fresh optimizer.
+        ``resume_from`` (a checkpoint directory of the port or of the JAX
+        package) restores the model and optimizer from whichever of
+        ``last_model`` and ``best_model`` is newer and continues at its
+        epoch + 1 with its history and best F1; ``init_from`` loads the
+        weights only (fresh optimizer, epoch 1).  The best checkpoint is
+        saved from epoch ``save_best_after_epoch`` on, when the val F1
+        strictly improves; ``save_last`` also saves every epoch as
+        ``last_model``; with ``ema_decay > 0`` validation and checkpoints
+        use the EMA weights and the checkpoints carry ``raw_params``;
+        ``early_stop_patience`` stops after that many epochs without a
+        better val F1; ``async_checkpoint`` writes on a background thread,
+        joined before ``fit`` returns.  ``metrics_jsonl`` gets one JSON
+        object per epoch (the JAX package's keys), appended;
+        ``profile_dir`` a ``torch.profiler`` trace of epoch 2."""
+        cfg = self.cfg
+        np_rng = np.random.default_rng(cfg.seed)
+        history: Dict[str, List[float]] = {
+            "train_loss": [], "train_acc": [], "train_f1": [],
+            "val_loss": [], "val_acc": [], "val_f1": []}
+        best_val_f1 = 0.0
+        start_epoch = 1
+        self.optimizer = self._build_optimizer()
+
+        resume_base = (ckpt_mod.resume_basename(resume_from)
+                       if resume_from is not None else None)
+        if init_from is not None and resume_base is None:
+            self.restore(init_from, with_opt_state=False)
+            log(f"Initialized model weights from {init_from}")
+        if resume_base is not None:
+            self.restore(resume_from, with_opt_state=True,
+                         basename=resume_base)
+            meta = ckpt_mod.load_meta(resume_from, resume_base)
+            start_epoch = int(meta.get("epoch", 0)) + 1
+            best_val_f1 = float(meta.get("val_f1", 0.0))
+            saved_history = meta.get("history", {})
+            for key in history:
+                history[key] = list(saved_history.get(key, []))
+            log(f"Resumed from {resume_from} ({resume_base}) at epoch "
+                f"{start_epoch} (best val F1 {best_val_f1:.4f})")
+
+        use_ema = self.ema_params is not None
+        ema_meta = {"ema_decay": cfg.ema_decay} if use_ema else {}
+        patience = int(cfg.early_stop_patience)
+        best_seen, epochs_since_best = -1.0, 0
+        saver = ckpt_mod.AsyncCheckpointer() if cfg.async_checkpoint else None
+        save_fn = saver.save if saver is not None else ckpt_mod.save_checkpoint
+        meter = ThroughputMeter()
+        try:
+            for epoch in range(start_epoch, cfg.num_epochs + 1):
+                t0 = time.perf_counter()
+                meter.reset()
+                with profile_trace(profile_dir if epoch == 2 else None):
+                    train_m = self.run_train_epoch(
+                        train_ds, np_rng, self._epoch_generator(epoch),
+                        meter=meter)
+                throughput = meter.summary()
+                train_rate = meter.images_per_sec_per_chip
+                with self._ema_weights():
+                    val_m, _ = self.run_eval_epoch(val_ds)
+                dt = time.perf_counter() - t0
+                for split, m in (("train", train_m), ("val", val_m)):
+                    history[f"{split}_loss"].append(m.loss)
+                    history[f"{split}_acc"].append(m.accuracy)
+                    history[f"{split}_f1"].append(m.f1)
+                log(f"[Epoch {epoch}/{cfg.num_epochs}] "
+                    f"Train Loss: {train_m.loss:.4f}, Acc: "
+                    f"{train_m.accuracy:.4f}, F1: {train_m.f1:.4f} | "
+                    f"Val Loss: {val_m.loss:.4f}, Acc: {val_m.accuracy:.4f},"
+                    f" F1: {val_m.f1:.4f} ({dt:.1f}s, {throughput})")
+                if metrics_jsonl is not None:
+                    rec = {"epoch": epoch, "model": self.spec.name,
+                           "train_loss": train_m.loss,
+                           "train_acc": train_m.accuracy,
+                           "train_f1": train_m.f1,
+                           "val_loss": val_m.loss, "val_acc": val_m.accuracy,
+                           "val_f1": val_m.f1, "seconds": round(dt, 3),
+                           "images_per_sec_per_chip": round(train_rate, 2)}
+                    path = Path(metrics_jsonl)
+                    path.parent.mkdir(parents=True, exist_ok=True)
+                    with path.open("a") as f:
+                        f.write(json.dumps(rec) + "\n")
+
+                if checkpoint_dir is not None:
+                    raw = ({"raw_params": dict(self.module.named_parameters())}
+                           if use_ema else None)
+                    if (epoch >= cfg.save_best_after_epoch
+                            and val_m.f1 > best_val_f1):
+                        best_val_f1 = val_m.f1
+                        save_fn(checkpoint_dir, epoch=epoch,
+                                model_state=self._model_state(),
+                                opt_state=self.optimizer.state_dict(),
+                                val_f1=val_m.f1, history=history,
+                                extra_meta={"model": self.spec.name,
+                                            **ema_meta},
+                                extra_state=raw)
+                        log(f"  Saved BEST model (Val F1: {val_m.f1:.4f})")
+                    if cfg.save_last:
+                        # meta val_f1 carries the running best, so a
+                        # resumed run keeps the best-save threshold
+                        save_fn(checkpoint_dir, epoch=epoch,
+                                model_state=self._model_state(),
+                                opt_state=self.optimizer.state_dict(),
+                                val_f1=best_val_f1, history=history,
+                                extra_meta={"model": self.spec.name,
+                                            "last_val_f1": val_m.f1,
+                                            **ema_meta},
+                                extra_state=raw,
+                                basename=ckpt_mod.LAST_BASENAME)
+
+                if val_m.f1 > best_seen + 1e-12:
+                    best_seen, epochs_since_best = val_m.f1, 0
+                else:
+                    epochs_since_best += 1
+                if patience and epochs_since_best >= patience:
+                    log(f"Early stopping at epoch {epoch}: no val-F1 "
+                        f"improvement in {patience} epoch(s) "
+                        f"(best {best_seen:.4f})")
+                    break
+        finally:
+            if saver is not None:
+                saver.wait()                 # the last checkpoint on disk
+        return history, best_val_f1
+
+    # ------------------------------------------------------------- load
+
+    def restore(self, checkpoint_dir: Path, with_opt_state: bool = False,
+                basename: str = "best_model") -> None:
+        """Load a checkpoint of the port (``{basename}.pt``) or of the JAX
+        package (``{basename}.msgpack``) into this trainer, flexibly (keys
+        absent or of another shape keep their current values).  Builds a
+        fresh optimizer if there is none; ``with_opt_state`` also loads
+        its state (a failure is reported and the optimizer stays as it
+        was).  With EMA on, the EMA restarts at the loaded weights, and a
+        checkpoint's ``raw_params`` (an EMA run's) become the live
+        parameters, so a resume continues both exactly."""
+        payload, _ = ckpt_mod.load_checkpoint(checkpoint_dir, basename,
+                                              self.spec.name)
+        merged, _, _ = ckpt_mod.load_flexible(self.module.state_dict(),
+                                              payload["model_state_dict"])
+        self.module.load_state_dict(merged)
+        if self.optimizer is None:
+            self.optimizer = self._build_optimizer()
+        saved_opt = payload.get("optimizer_state_dict")
+        if with_opt_state and saved_opt:
+            try:
+                self.optimizer.load_state_dict(saved_opt)
+            except (KeyError, ValueError, TypeError) as e:
+                print(f"  (optimizer state not restored: {e})")
+        if self.ema_params is not None:
+            params = dict(self.module.named_parameters())
+            self.ema_params = {n: p.detach().clone()
+                               for n, p in params.items()}
+            if payload.get("raw_params"):
+                raw, _, _ = ckpt_mod.load_flexible(
+                    {n: p.detach() for n, p in params.items()},
+                    payload["raw_params"], verbose=False)
+                with torch.no_grad():
+                    for n, p in params.items():
+                        p.copy_(raw[n])

@@ -335,7 +335,8 @@ def test_trainer_block_impl_auto_takes_a_train_step():
 
 NO_JAX_SCRIPT = r"""
 import sys
-for name in ("jax", "jaxlib", "flax", "dfu_multimodal_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "dfu_multimodal_tpu"):
     sys.modules[name] = None            # any import of them now fails
 import numpy as np
 import torch
@@ -357,6 +358,10 @@ batch = {m: rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
          for m in ("rgb", "thermal")}
 probs = trainer.eval_step(batch)["probs"]
 assert probs.shape == (2,) and bool(torch.isfinite(probs).all())
+out = trainer.train_step({**batch, "label": np.array([0, 1]),
+                          "valid": np.ones(2, np.float32)},
+                         torch.Generator().manual_seed(0))
+assert bool(torch.isfinite(out["loss"])), out
 
 thermal = Trainer("thermal_only",
                   TrainConfig(compute_dtype="float32", batch_size=2),
@@ -395,8 +400,8 @@ zoo.init_model(rgb.module, torch.Generator().manual_seed(0))
 probs = rgb.eval_step({"rgb": batch["rgb"]})["probs"]
 assert probs.shape == (2,) and bool(torch.isfinite(probs).all())
 loaded = [m for m, v in sys.modules.items() if v is not None
-          and m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                  "dfu_multimodal_tpu")]
+          and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                  "msgpack", "dfu_multimodal_tpu")]
 assert not loaded, loaded
 print("ok")
 """

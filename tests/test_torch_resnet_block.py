@@ -245,12 +245,20 @@ def test_unported_options_raise():
     # a tensor on no CPU takes no plain version: the kernel or an error
     with pytest.raises(ValueError, match="no kernel for device meta"):
         rb.fused_bottleneck(xt.to("meta"), *[a.to("meta") for a in at])
-    # the rgb_only train step is not ported (no kernel; BN training)
+    # one rgb_only train step runs (cuDNN-style blocks in train mode with
+    # block_impl="fused", live BatchNorm), and moves weights and statistics
     trainer = _rgb_trainer()
-    batch = {"rgb": np.zeros((2, IMAGE, IMAGE, 3), np.uint8),
+    rng = np.random.default_rng(13)
+    batch = {"rgb": rng.integers(0, 256, (2, IMAGE, IMAGE, 3), np.uint8),
              "label": np.array([0, 1]), "valid": np.ones(2, np.float32)}
-    with pytest.raises(NotImplementedError, match="'rgb_only' train step"):
-        trainer.train_step(batch, torch.Generator())
+    before = {k: v.clone() for k, v in trainer.module.state_dict().items()}
+    out = trainer.train_step(batch, torch.Generator().manual_seed(0))
+    assert np.isfinite(float(out["loss"])) and trainer.optimizer.count == 1
+    after = trainer.module.state_dict()
+    for k in ("resnet.conv1.weight", "resnet.bn1.running_var",
+              "resnet.layer4.2.bn3.running_mean", "head.bias"):
+        assert not torch.equal(before[k], after[k]), k
+    assert int(after["resnet.layer4.2.bn3.num_batches_tracked"]) == 1
 
 
 # ------------------------------------------------------- the rgb_only slice

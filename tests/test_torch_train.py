@@ -418,12 +418,167 @@ def test_run_train_epoch_and_meter():
 
 
 @pytest.mark.parametrize("override", [
-    dict(mixup_alpha=0.2), dict(grad_accum=2), dict(ema_decay=0.99),
-    dict(loss="focal"), dict(qat=True), dict(lr_schedule="cosine"),
-    dict(warmup_epochs=1.0),
+    dict(qat=True),
     dict(mesh=port_config.MeshConfig(data=2)),
     dict(mesh=port_config.MeshConfig(fsdp=True))])
 def test_unported_train_options_raise(override):
     pt = _port_trainer(**override)
     with pytest.raises(NotImplementedError):
         pt.train_step(_batches()[0], torch.Generator().manual_seed(0))
+
+
+# ------------------------------------------------- the other train options
+
+
+@pytest.mark.parametrize("sched,warmup", [("cosine", 0.0), ("cosine", 1.0),
+                                          ("constant", 1.0)])
+def test_learning_rate_schedule_matches_optax(sched, warmup):
+    """The schedule of every update count of a 3-epoch run of 4 steps an
+    epoch (and past its end) against the JAX Trainer's optax schedule:
+    within 1e-6 of the peak rate, since optax takes the cosine in fp32 (a
+    few fp32 steps of the peak; the port's is rounded to fp32 once); a
+    warm-up's first step has lr = 0."""
+    from dfu_multimodal_tpu.train import engine as jax_engine
+    kw = dict(learning_rate=1e-3, lr_schedule=sched, warmup_epochs=warmup,
+              steps_per_epoch=4, num_epochs=3)
+    ours = port_engine.learning_rate_schedule(port_config.TrainConfig(**kw))
+    ref = jax_engine.learning_rate_schedule(jax_config.TrainConfig(**kw))
+    counts = np.arange(15)
+    np.testing.assert_allclose([ours(int(c)) for c in counts],
+                               np.asarray(jax.vmap(ref)(counts)), rtol=0,
+                               atol=1e-6 * kw["learning_rate"])
+    if warmup:
+        assert ours(0) == 0.0
+    with pytest.raises(ValueError, match="steps_per_epoch"):
+        port_engine.learning_rate_schedule(port_config.TrainConfig(
+            **{**kw, "steps_per_epoch": 0}))
+
+
+MIXUP_LAM, MIXUP_PERM = 0.3, np.array([2, 0, 5, 1, 3, 4])
+
+OPTIONS = {
+    "focal": dict(loss="focal", focal_gamma=2.0),
+    "ema": dict(ema_decay=0.9),
+    "cosine_warmup": dict(lr_schedule="cosine", warmup_epochs=1.0,
+                          steps_per_epoch=1, num_epochs=3),
+    "mixup": dict(mixup_alpha=0.4),
+}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_train_options_match_jax_trainer(option, monkeypatch):
+    """The train options against the JAX jit ``Trainer.train_step`` on the
+    tiny ViT, at ``test_train_steps_match_jax_trainer``'s budgets: focal
+    loss; EMA of the parameters (see ``_check_ema``); a cosine schedule with one
+    warm-up step over three steps (the first leaves the weights as they
+    were: lr = 0); mixup on an injected (lam, perm): JAX's ``mixup_batch``
+    draws them through the patched ``jax.random.beta`` / ``permutation``,
+    the port's through the patched ``sample_mixup``, and each package
+    mixes and weighs the loss with its own code (row 5, padding, is
+    partner 2's, so its lam drops to 1 there)."""
+    from dfu_multimodal_tpu.train import engine as jax_engine
+    overrides = OPTIONS[option]
+    if option == "mixup":
+        monkeypatch.setattr(jax.random, "beta",
+                            lambda *a, **k: jnp.float32(MIXUP_LAM))
+        monkeypatch.setattr(jax.random, "permutation",
+                            lambda *a, **k: jnp.asarray(MIXUP_PERM))
+        monkeypatch.setattr(port_engine, "sample_mixup",
+                            lambda gen, alpha, b: (
+                                torch.tensor(MIXUP_LAM),
+                                torch.from_numpy(MIXUP_PERM)))
+        assert jax_engine.mixup_batch is not None
+    variables = _tiny_variables()
+    cfg = jax_config.TrainConfig(**{**CFG, **overrides},
+                                 mesh=jax_config.MeshConfig(data=1))
+    mod = _neutral(jax_config.thermal_modality, jax_config.AugmentConfig)
+    jt = JaxTrainer("thermal_only", cfg, {"thermal": mod},
+                    class_weights=CLASS_WEIGHTS, attention_impl="xla",
+                    block_impl="flax")
+    jt.module = _TinyJaxViTClassifier()
+    state = jt.init_state(jax.random.PRNGKey(0), image_size=IMAGE)
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    state = state.replace(
+        params=params, opt_state=jt.tx.init(variables["params"]),
+        ema_params=(jax.tree.map(jnp.copy, params)
+                    if option == "ema" else None))
+    pt = _port_trainer(**overrides)
+    pt.module.load_state_dict(variables_to_state_dict("thermal_only",
+                                                      variables))
+    before = {k: v.clone() for k, v in pt.module.state_dict().items()}
+    lr = CFG["learning_rate"]
+    batches = _batches() + (_batches()[:1] if option == "cosine_warmup"
+                            else [])
+    gen = torch.Generator().manual_seed(0)
+    ema_expect = ({k: v.numpy() for k, v in before.items()},
+                  {k: np.zeros(v.shape, np.float32) for k, v in before.items()})
+    for i, batch in enumerate(batches):
+        state, jm = jt.train_step(state, jax.device_put(batch,
+                                                        jt.batch_sharding),
+                                  jax.random.PRNGKey(1))
+        pm = pt.train_step(batch, gen)
+        if option == "ema":
+            ema_expect = _check_ema(pt, state, before, ema_expect,
+                                    overrides["ema_decay"], lr)
+        assert float(pm["loss"]) == pytest.approx(float(jm["loss"]),
+                                                  rel=1e-5)
+        np.testing.assert_array_equal(pm["counts"].numpy(),
+                                      np.asarray(jm["counts"]))
+        ref = variables_to_state_dict("thermal_only", {
+            "params": jax.tree.map(np.asarray, state.params)})
+        ours = pt.module.state_dict()
+        for k, v in ref.items():
+            np.testing.assert_allclose(ours[k].numpy(), v.numpy(), rtol=0,
+                                       atol=2 * lr, err_msg=k)
+        if option == "cosine_warmup" and i == 0:
+            for k, v in before.items():
+                torch.testing.assert_close(ours[k], v, rtol=0, atol=0)
+    assert pt.optimizer.count == len(batches)
+
+
+def _check_ema(pt, state, p0, expect, decay, lr):
+    """After a step: the port's EMA against JAX's rule
+    ``e·decay + p·(1 - decay)`` (``jax.tree.map`` over jnp, as in the JAX
+    trainer) applied to the port's own parameters, and against JAX's own
+    EMA.  Where a gradient is ~0 the two packages' Adam steps may differ in
+    sign, so the second check allows, entry by entry, the gap that the
+    same rule carries from the parameters into the EMA (gap ← gap·decay +
+    |p − p_jax|·(1 - decay)).  Both at 1e-2·(1 - decay)·lr beyond that: a
+    step moves the EMA by up to (1 - decay)·lr, so an EMA left as it was,
+    or with decay and 1 - decay swapped, fails.  The EMA shares no storage
+    with the parameters.  ``expect``: (the EMA the rule gives, the gap)
+    after the last step, returned for the next."""
+    atol = 1e-2 * (1.0 - decay) * lr
+    params = {k: p.detach().numpy()
+              for k, p in pt.module.named_parameters()}
+    assert pt.ema_params.keys() == params.keys()
+    ema, gap = expect
+    ref_p, ref_ema = (variables_to_state_dict("thermal_only", {
+        "params": jax.tree.map(np.asarray, tree)})
+        for tree in (state.params, state.ema_params))
+    ema = jax.tree.map(lambda e, p: e * decay + p * (1.0 - decay),
+                       {k: jnp.asarray(v) for k, v in ema.items()},
+                       {k: jnp.asarray(v) for k, v in params.items()})
+    ema = {k: np.asarray(v) for k, v in ema.items()}
+    gap = {k: gap[k] * decay
+           + np.abs(params[k] - ref_p[k].numpy()) * (1.0 - decay)
+           for k in gap}
+    live = dict(pt.module.named_parameters())
+    for k, ours in pt.ema_params.items():
+        assert ours.data_ptr() != live[k].data_ptr(), k
+        start = p0[k].numpy()
+        np.testing.assert_allclose(ours.numpy() - start, ema[k] - start,
+                                   rtol=0, atol=atol, err_msg=k)
+        off = np.abs(ours.numpy() - ref_ema[k].numpy()) - gap[k]
+        assert off.max() <= atol, (k, float(off.max()))
+    return ema, gap
+
+
+def test_sample_mixup_draws_from_the_generator():
+    """lam in [0, 1] and a permutation, the same for the same seed."""
+    draws = [port_engine.sample_mixup(torch.Generator().manual_seed(5),
+                                      0.4, 6) for _ in range(2)]
+    (lam, perm), (lam2, perm2) = draws
+    assert 0.0 <= float(lam) <= 1.0 and float(lam) == float(lam2)
+    assert sorted(perm.tolist()) == list(range(6))
+    assert torch.equal(perm, perm2)
