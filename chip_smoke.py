@@ -199,6 +199,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               fresh Trainer restoring its best checkpoint with eval logits
               bit-equal to the saving model's, and a third Trainer
               resuming at epoch 3 with its optimizer count restored;
+12. train from disk — the JPEG decode route (libjpeg, or nvJPEG where
+              the host has no libjpeg) and what selected it; every file
+              of ``dfu_multimodal_tpu_torch/data/fixtures`` decoded at
+              48² and 128² against the JAX package's decode of it
+              (bit-equal, but a JPEG on the nvJPEG route within
+              NVJPEG_MAX_ABS / NVJPEG_MEAN_ABS levels); a 224² synthetic
+              tree written by the port's ``make_synthetic_dataset`` (20
+              images per class and modality) and decoded, with the
+              seconds of each; the three reference train CLIs through
+              their ``main(argv)`` at full width with their own models and
+              batches (32 / 16 / 6) in bf16, ``--epochs 2
+              --save-best-after 1 --save-last``: each epoch's seconds, the
+              artifact contract (checkpoints, ``test_results.pt`` with its
+              six keys, ``run_info.json``, the drift baseline), and the
+              launches of each run (thermal_only and multimodal K1, K2, K4
+              and K5, multimodal also K3 in its evaluations, rgb_only none
+              of the port's kernels); then the multimodal CLI again with
+              ``--resume --epochs 3``, which runs epoch 3 only;
 then the kernels' JSON line (times, bounds, launches, the SDPA times,
 the K6/K9 forwards' device times and SDPA's, K10's and K12's chain
 times),
@@ -3043,6 +3061,168 @@ def phase_train_all(dev) -> None:
     _fit_run(dev)
 
 
+# --------------------------------------------------------------- phase 12
+
+FIXTURES = Path(__file__).resolve().parent / "dfu_multimodal_tpu_torch" / \
+    "data" / "fixtures"
+# nvJPEG against the JAX package's libjpeg decode of the fixture: its IDCT
+# and its 4:2:0 chroma upsampling (not libjpeg's "fancy" one) are its own.
+# Measured on an H100 host (PERF.md §6): worst JPEG max 20 levels
+# (progressive 4:2:0 at 128²), worst mean 1.196 levels; 4:4:4 max 3, mean
+# 0.48; grayscale max 1.  PNGs and every libjpeg-route file bit-equal.
+NVJPEG_MAX_ABS, NVJPEG_MEAN_ABS = 24, 1.5
+# the reference trainers: CLI module, model, batch
+DISK_CLIS = {"rgb_only": ("train_rgb_only", 32),
+             "thermal_only": ("train_thermal_only", 16),
+             "multimodal": ("train_multimodal_fusion", 6)}
+DISK_IMAGES_PER_CLASS, DISK_EPOCHS = 20, 2
+DISK_KERNELS = {"rgb_only": (),
+                "thermal_only": TRAIN_KERNELS,
+                "multimodal": TRAIN_KERNELS + ("fused_mlp",)}
+TEST_KEYS = {"test_preds", "test_labels", "test_probs", "test_acc",
+             "test_f1", "test_loss"}
+
+
+def _decode_vs_fixture(route: str) -> None:
+    """Each fixture file through the port's decoder against the JAX
+    package's decode of it (``decode.npz``): bit-equal, but a JPEG on the
+    nvJPEG route within NVJPEG_MAX_ABS / NVJPEG_MEAN_ABS levels."""
+    from dfu_multimodal_tpu_torch.data.loader import decode_raw, image_format
+    ref = np.load(FIXTURES / "decode.npz")
+    worst = {"max": 0, "mean": 0.0}
+    for key in sorted(ref.files):
+        name, size = key.split("@")
+        got = decode_raw([FIXTURES / name], int(size))[0].astype(np.int16)
+        diff = np.abs(got - ref[key].astype(np.int16))
+        near = route == "nvjpeg" and image_format(FIXTURES / name) == "jpeg"
+        log(f"[disk] decode {key}: max {int(diff.max())} mean "
+            f"{float(diff.mean()):.4f} levels "
+            f"({'within tolerance' if near else 'bit-equal'} expected)")
+        if near:
+            worst["max"] = max(worst["max"], int(diff.max()))
+            worst["mean"] = max(worst["mean"], float(diff.mean()))
+            if diff.max() > NVJPEG_MAX_ABS or diff.mean() > NVJPEG_MEAN_ABS:
+                raise AssertionError(
+                    f"nvJPEG decode of {key}: max {diff.max()} / mean "
+                    f"{diff.mean():.4f} levels, tolerance "
+                    f"{NVJPEG_MAX_ABS} / {NVJPEG_MEAN_ABS}")
+        elif diff.any():
+            raise AssertionError(f"decode of {key} is not bit-equal to the "
+                                 "JAX package's")
+    if route == "nvjpeg":
+        log(f"[disk] nvJPEG vs libjpeg on the fixture: worst max "
+            f"{worst['max']} levels, worst mean {worst['mean']:.4f} "
+            f"(tolerance {NVJPEG_MAX_ABS} / {NVJPEG_MEAN_ABS})")
+
+
+def _check_artifacts(tag, ckpt: Path, epochs: int, batch: int) -> None:
+    """The JAX package's artifact contract with the port's checkpoints,
+    from a bf16 run on the card at the recipe's batch."""
+    from dfu_multimodal_tpu_torch.eval import drift
+    from dfu_multimodal_tpu_torch.utils.artifacts import load_pt
+    files = sorted(p.name for p in ckpt.iterdir())
+    log(f"[{tag}] artifacts: {files}")
+    saved = load_pt(ckpt / "test_results.pt")
+    meta = json.loads((ckpt / "last_model.meta.json").read_text())
+    info = json.loads((ckpt / "run_info.json").read_text())
+    drift._validate_baseline(drift.load_baseline(
+        ckpt / drift.BASELINE_FILENAME))
+    ok = (set(saved) == TEST_KEYS
+          and len(saved["test_preds"]) == len(saved["test_probs"])
+          and np.isfinite(saved["test_loss"])
+          and ((ckpt / "best_model.pt").exists()
+               == (ckpt / "best_model.meta.json").exists())
+          and (ckpt / "last_model.pt").exists() and meta["epoch"] == epochs
+          and len(meta["history"]["val_f1"]) == epochs
+          and info["backend"] == "gpu"
+          and info["config"]["batch_size"] == batch
+          and info["config"]["compute_dtype"] == "bfloat16")
+    if not ok:
+        raise AssertionError(f"{tag}: artifact contract broken: {files}, "
+                             f"test keys {sorted(saved)}, last epoch "
+                             f"{meta['epoch']}, run_info {info}")
+
+
+def _run_cli(tag, name, argv, jsonl: Path) -> list:
+    """One CLI run through its ``main(argv)`` with every launch count set to
+    0 just before it; returns the epochs it logged to ``jsonl``."""
+    import importlib
+    module = importlib.import_module(
+        f"dfu_multimodal_tpu_torch.cli.{DISK_CLIS[name][0]}")
+    before = len(jsonl.read_text().splitlines()) if jsonl.exists() else 0
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: v for k, v in _all_launches().items() if v}
+    epochs = [json.loads(x) for x in jsonl.read_text().splitlines()[before:]]
+    log(f"[{tag}] {seconds:.2f} s in main (load, gate, epochs, saves, test); "
+        f"epochs " + ", ".join(f"{e['epoch']}: {e['seconds']} s "
+                               f"({e['images_per_sec_per_chip']} img/s)"
+                               for e in epochs)
+        + f"; test acc {res['test_acc']:.4f} F1 {res['test_f1']:.4f}; "
+        f"launches {counts}")
+    missing = [k for k in DISK_KERNELS[name] if not counts.get(k)]
+    extra = sorted(set(counts) - set(DISK_KERNELS[name]))
+    if missing or extra:
+        raise AssertionError(f"{tag}: kernels not launched {missing}, "
+                             f"launched unexpectedly {extra}")
+    return [e["epoch"] for e in epochs]
+
+
+def phase_train_disk(dev) -> None:
+    """The three reference train CLIs from a synthetic image tree on disk,
+    at full width, through their ``main(argv)``."""
+    import tempfile
+    from dfu_multimodal_tpu_torch import native
+    from dfu_multimodal_tpu_torch.data.loader import decode_raw
+    from dfu_multimodal_tpu_torch.data.layout import list_images
+    from dfu_multimodal_tpu_torch.data.synthetic import make_synthetic_dataset
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"[disk] {native.describe()}; {card}")
+    route = native.route()
+    _decode_vs_fixture(route)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        data, logs = Path(d) / "data", Path(d) / "logs"
+        t0 = time.perf_counter()
+        make_synthetic_dataset(data, images_per_class=DISK_IMAGES_PER_CLASS,
+                               size=IMAGE)
+        files = list_images(data)
+        t1 = time.perf_counter()
+        decode_raw(files, IMAGE)
+        t2 = time.perf_counter()
+        log(f"[disk] wrote {len(files)} JPEGs at {IMAGE}² in {t1 - t0:.3f} s; "
+            f"decoded them ({route}) in {t2 - t1:.3f} s (host clock; {card})")
+        for name, (_, batch) in DISK_CLIS.items():
+            tag = f"disk {name}"
+            jsonl = Path(d) / f"{name}.jsonl"
+            argv = ["--data-dir", str(data), "--checkpoint-root", str(logs),
+                    "--epochs", str(DISK_EPOCHS), "--save-best-after", "1",
+                    "--save-last", "--log-jsonl", str(jsonl), "--seed", "0"]
+            epochs = _run_cli(tag, name, argv, jsonl)
+            if epochs != list(range(1, DISK_EPOCHS + 1)):
+                raise AssertionError(f"{tag}: ran epochs {epochs}")
+            _check_artifacts(tag, logs / f"checkpoints_{name}", DISK_EPOCHS,
+                             batch)
+        tag = "disk multimodal resume"
+        jsonl = Path(d) / "multimodal.jsonl"
+        epochs = _run_cli(tag, "multimodal", [
+            "--data-dir", str(data), "--checkpoint-root", str(logs),
+            "--epochs", str(DISK_EPOCHS + 1), "--save-best-after", "1",
+            "--save-last", "--log-jsonl", str(jsonl), "--seed", "0",
+            "--resume"], jsonl)
+        if epochs != [DISK_EPOCHS + 1]:
+            raise AssertionError(f"{tag}: ran epochs {epochs}")
+        _check_artifacts(tag, logs / "checkpoints_multimodal",
+                         DISK_EPOCHS + 1, DISK_CLIS["multimodal"][1])
+
+
 # ---------------------------------------------------------------- bounds
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
@@ -3179,7 +3359,9 @@ def main() -> int:
     launches.update(phase_flax_train(dev))
     phase_large_images(dev)
     phase_train_all(dev)
-    for mod in ("jax", "dfu_multimodal_tpu"):
+    phase_train_disk(dev)
+    for mod in ("jax", "flax", "optax", "PIL", "torchvision",
+                "dfu_multimodal_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"the port imported {mod}")
     bounds = kernel_bounds()

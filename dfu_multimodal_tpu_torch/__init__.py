@@ -4,7 +4,8 @@
 The JAX package stays the reference; this package mirrors its module
 names.  Ported so far: the serving path of the three reference models,
 their train steps and ``Trainer.fit`` with the reference's checkpoint
-contract (JAX checkpoints load too), and the thermal_only int8 serving
+contract (JAX checkpoints load too), the three train CLIs reading the
+reference's image tree from disk, and the thermal_only int8 serving
 path (dynamic and calibrated static activation scales).
 
 - ``ops``      hand-written Hopper kernels (``ops/csrc/*.cu``, built with
@@ -14,19 +15,29 @@ path (dynamic and calibrated static activation scales).
 - ``models``   ResNet50 (torchvision layout), ViT-B/16 (timm layout) with
                bf16/fp32 or int8 encoder blocks and the int8 converters,
                the ViT and fusion classifiers and the model registry
-- ``data``     the eval and train transforms, the in-memory dataset and
-               batching
-- ``eval``     confusion counts, accuracy and F1
+- ``native``   the JPEG decoder / encoder and the PIL-exact resize
+               (``decode.cpp``, built with g++ at first use; libjpeg, or
+               nvJPEG on a GPU host without libjpeg)
+- ``data``     decoding from disk (JPEG natively, PNG in numpy), the
+               layout scan, pairings, leakage gate, decode cache and
+               synthetic trees, the eval and train transforms, the
+               in-memory dataset and batching
+- ``eval``     confusion counts, accuracy and F1; the host metrics; the
+               drift baseline
 - ``train``    the Trainer (eval and train steps, epochs, ``fit``,
                ``restore``) and AdamW with its learning-rate schedules
 - ``utils``    checkpoints (``.pt`` files, the JAX package's msgpack ones
-               read without flax), throughput meter and profiler trace
+               read without flax), result artifacts (``test_results.pt``),
+               throughput meter and profiler trace
 - ``serve``    the micro-batching ServingEngine and the int8 rebuild
                (``quantize_for_serving``)
 - ``tools``    the JAX -> port weight and optimizer-state bridge
-- ``config``   the port's copy of the configuration dataclasses
+- ``config``   the port's copy of the configuration dataclasses and the
+               CLIs' argparse glue
+- ``cli``      ``train_rgb_only``, ``train_thermal_only``,
+               ``train_multimodal_fusion``
 
-No module imports jax, flax or the JAX package.
+No module imports jax, flax, PIL, torchvision or the JAX package.
 """
 
 __version__ = "0.3.0"

@@ -10,14 +10,23 @@ that these defaults equal the JAX package's, so the copy cannot drift.
 ``MeshConfig`` is kept only as an inert field of ``TrainConfig`` (so the
 two configs stay field-for-field equal): the port trains on one device,
 and ``train.engine.Trainer`` raises ``NotImplementedError`` for any mesh
-other than the single-device default.  The argparse glue and
-``DataConfig`` belong to the CLIs and are not ported yet.
+other than the single-device default.
+
+The CLIs' argparse glue (``DataConfig``, ``add_common_args``,
+``train_config_from_args``, ``data_config_from_args``) has the JAX
+package's flags, defaults and help, and one flag of the port's own:
+``--device`` (default ``cuda``), how a caller asks for the CPU.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Optional, Tuple
+
+IMAGE_SIZE = 224
 
 # Normalisation constants (reference scripts/dataloader.py:157-159, 180-183)
 RGB_MEAN = (0.485, 0.456, 0.406)
@@ -125,3 +134,144 @@ class TrainConfig:
     @property
     def eval_bs(self) -> int:
         return self.eval_batch_size or self.batch_size
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    data_dir: Path = Path.home() / "CompVis" / "Dataset" / "data"
+    checkpoint_root: Path = Path("logs")
+    image_size: int = IMAGE_SIZE
+    cache_images: bool = True      # decode+resize once, keep uint8 in RAM
+    prefetch: int = 2              # device prefetch depth (double buffering)
+    # Persistent mmap-backed decode cache (data/cache.py): decode once
+    # ACROSS runs, bounded-RAM build, datasets larger than host memory.
+    # None = in-RAM decode per run (fine at reference scale).
+    cache_dir: Optional[Path] = None
+
+
+def add_common_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--data-dir", type=Path, default=None,
+                        help="Root containing rgb/ and thermal/ split dirs")
+    parser.add_argument("--checkpoint-root", type=Path, default=Path("logs"),
+                        help="Directory for checkpoints and result artifacts")
+    parser.add_argument("--cache-dir", type=Path, default=None,
+                        help="persistent mmap-backed decode cache directory "
+                             "(decode once across runs; datasets larger "
+                             "than RAM). Also settable as DFU_CACHE_DIR.")
+    parser.add_argument("--batch-size", type=int, default=None)
+    parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--lr", type=float, default=None)
+    parser.add_argument("--weight-decay", type=float, default=None)
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--save-best-after", type=int, default=None,
+                        help="first epoch eligible for best-checkpoint save "
+                             "(reference: 3)")
+    parser.add_argument("--compute-dtype", choices=["bfloat16", "float32"],
+                        default="bfloat16")
+    parser.add_argument("--optimizer-mu-dtype",
+                        choices=["bfloat16", "float32"], default="bfloat16",
+                        help="AdamW first-moment storage dtype (bf16 halves "
+                             "the m-state HBM traffic; float32 for "
+                             "bit-level optax parity)")
+    parser.add_argument("--mesh-data", type=int, default=-1,
+                        help="DP axis size (-1 = all devices)")
+    parser.add_argument("--lr-schedule", choices=["constant", "cosine"],
+                        default="constant",
+                        help="constant (reference behavior) or cosine "
+                             "decay over the full run")
+    parser.add_argument("--warmup-epochs", type=float, default=0.0,
+                        help="linear LR warmup over this many epochs "
+                             "(fractional ok; composes with either "
+                             "schedule)")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="fully-sharded data parallelism: params + "
+                             "optimizer state shard over the data axis "
+                             "(ZeRO-3 memory scaling; XLA inserts the "
+                             "per-use all-gathers)")
+    parser.add_argument("--grad-accum", type=int, default=1,
+                        help="microbatches per optimizer step (exact "
+                             "full-batch gradients, ~N× lower activation "
+                             "memory; batch size must divide evenly)")
+    parser.add_argument("--ema-decay", type=float, default=0.0,
+                        help="model EMA decay (e.g. 0.999): validate and "
+                             "checkpoint with exponentially-averaged "
+                             "weights; 0 = off (reference behavior)")
+    parser.add_argument("--early-stop-patience", type=int, default=0,
+                        help="stop after this many epochs without val-F1 "
+                             "improvement; 0 = off (reference always "
+                             "runs the full epoch budget)")
+    parser.add_argument("--save-last", action="store_true",
+                        help="also checkpoint every epoch as last_model.* "
+                             "so --resume continues from the last "
+                             "completed epoch (preemption-safe); the "
+                             "best_model contract is unchanged")
+    parser.add_argument("--async-checkpoint", action="store_true",
+                        help="write best-model checkpoints in a "
+                             "background thread over an on-device "
+                             "snapshot (overlaps the device->host fetch "
+                             "and disk write with the next epoch)")
+    parser.add_argument("--qat", action="store_true",
+                        help="quantization-aware training: loss through "
+                             "ViT encoder kernels and ResNet stage convs "
+                             "snapped to their int8 serving grids "
+                             "(straight-through estimator), making "
+                             "predict --int8 conversion ~lossless")
+    parser.add_argument("--loss", choices=["ce", "focal"], default="ce",
+                        help="training loss: class-weighted CE (reference "
+                             "default) or focal loss (down-weights easy "
+                             "examples; eval stays CE)")
+    parser.add_argument("--focal-gamma", type=float, default=2.0,
+                        help="focal-loss focusing exponent (with "
+                             "--loss focal)")
+    parser.add_argument("--mixup-alpha", type=float, default=0.0,
+                        help="mixup Beta(a, a) strength (e.g. 0.2); "
+                             "0 = off (reference behavior)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to train on (default cuda, the "
+                             "card); 'cpu' runs on the host")
+
+
+def train_config_from_args(args: argparse.Namespace,
+                           defaults: TrainConfig) -> TrainConfig:
+    updates = {}
+    if args.batch_size is not None:
+        updates["batch_size"] = args.batch_size
+    if args.epochs is not None:
+        updates["num_epochs"] = args.epochs
+    if args.lr is not None:
+        updates["learning_rate"] = args.lr
+    if args.weight_decay is not None:
+        updates["weight_decay"] = args.weight_decay
+    if args.save_best_after is not None:
+        updates["save_best_after_epoch"] = args.save_best_after
+    updates["seed"] = args.seed
+    updates["compute_dtype"] = args.compute_dtype
+    updates["optimizer_mu_dtype"] = args.optimizer_mu_dtype
+    updates["grad_accum"] = args.grad_accum
+    updates["qat"] = args.qat
+    updates["loss"] = getattr(args, "loss", "ce")
+    updates["focal_gamma"] = getattr(args, "focal_gamma", 2.0)
+    updates["mixup_alpha"] = getattr(args, "mixup_alpha", 0.0)
+    updates["lr_schedule"] = getattr(args, "lr_schedule", "constant")
+    updates["warmup_epochs"] = getattr(args, "warmup_epochs", 0.0)
+    updates["ema_decay"] = getattr(args, "ema_decay", 0.0)
+    updates["early_stop_patience"] = getattr(args, "early_stop_patience", 0)
+    updates["async_checkpoint"] = getattr(args, "async_checkpoint", False)
+    updates["save_last"] = getattr(args, "save_last", False)
+    updates["mesh"] = MeshConfig(data=args.mesh_data,
+                                 fsdp=getattr(args, "fsdp", False))
+    return dataclasses.replace(defaults, **updates)
+
+
+def data_config_from_args(args: argparse.Namespace) -> DataConfig:
+    kwargs = {}
+    if args.data_dir is not None:
+        kwargs["data_dir"] = args.data_dir
+    kwargs["checkpoint_root"] = args.checkpoint_root
+    if getattr(args, "cache_dir", None) is not None:
+        kwargs["cache_dir"] = args.cache_dir
+        # Process-wide so every decode_all in this run — dataset loads,
+        # predict/serve calibration batches — hits the same cache.
+        import os
+        os.environ["DFU_CACHE_DIR"] = str(args.cache_dir)
+    return DataConfig(**kwargs)

@@ -1,18 +1,39 @@
 """Host half of the data path (counterpart of
-``dfu_multimodal_tpu/data/loader.py``): an in-memory uint8 dataset,
-weighted-with-replacement epoch sampling, fixed-shape masked batches, and
-a double-buffered host->device copy.  Decoding from disk is not ported
-yet (the train CLIs need it; ROADMAP Queue A)."""
+``dfu_multimodal_tpu/data/loader.py``): decode from disk once into an
+in-memory (or memmap-cached) uint8 dataset, weighted-with-replacement
+epoch sampling, fixed-shape masked batches, and a double-buffered
+host->device copy.
+
+Decoding: a JPEG goes through the native decoder (``native/``: libjpeg,
+bit-equal to PIL, or nvJPEG on a GPU host without libjpeg), a PNG
+through the port's own reader (``data/png.py``), and both are resized
+with the PIL-exact BILINEAR resampler (torchvision's ``Resize((S, S))``
+after ``convert('RGB')``, reference train_rgb_only.py:91, 102-103).
+There is no PIL fallback: a file of another format (BMP, TIFF, GIF), a
+CMYK JPEG, a 16-bit or interlaced PNG and a corrupt file each raise an
+error that names the file and its format.
+"""
 
 from __future__ import annotations
 
 import collections
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+
+from dfu_multimodal_tpu_torch import native
+from dfu_multimodal_tpu_torch.data import pairing as pairing_mod
+from dfu_multimodal_tpu_torch.data.layout import SplitIndex, scan_split
+from dfu_multimodal_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE
+from dfu_multimodal_tpu_torch.data.png import read_png
+
+_JPEG_STATUS = {1: "cannot be opened", 2: "is corrupt or not a baseline/"
+                "progressive JPEG", 3: "is a CMYK/YCCK JPEG, which the "
+                "port's decoder does not convert", 4: "failed on the GPU "
+                "decoder (nvJPEG)"}
 
 
 @dataclass
@@ -34,6 +55,182 @@ class ArrayDataset:
     @property
     def class_counts(self) -> np.ndarray:
         return np.bincount(self.labels, minlength=2)
+
+
+def image_format(path) -> str:
+    """The file's format from its first bytes: ``"jpeg"``, ``"png"``,
+    ``"bmp"``, ``"tiff"``, ``"gif"`` or ``"unknown"``."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head.startswith(b"\xff\xd8"):
+        return "jpeg"
+    if head.startswith(PNG_SIGNATURE):
+        return "png"
+    if head.startswith(b"BM"):
+        return "bmp"
+    if head[:4] in (b"II*\x00", b"MM\x00*"):
+        return "tiff"
+    if head.startswith(b"GIF8"):
+        return "gif"
+    return "unknown"
+
+
+class DecodeError(ValueError):
+    """A file the port cannot decode (its format is named)."""
+
+
+def load_image(path: Path, image_size: int) -> np.ndarray:
+    """Decode -> RGB -> PIL-exact bilinear resize to (image_size,
+    image_size), uint8: the JAX package's ``load_image`` (PIL's
+    ``convert('RGB')`` + ``resize(BILINEAR)``) for the formats the port
+    decodes."""
+    return decode_raw([Path(path)], image_size)[0]
+
+
+def decode_all(paths: Sequence[Optional[Path]], image_size: int,
+               cache_dir: Optional[Path] = None) -> np.ndarray:
+    """Decode a path list into an (N, S, S, 3) uint8 array; ``None``
+    entries are black placeholder rows (a missing modality).
+
+    With a cache directory (``cache_dir=``, the ``DFU_CACHE_DIR``
+    environment variable or the ``--cache-dir`` flag) decoding goes
+    through the persistent mmap-backed cache (``data/cache.py``)."""
+    from dfu_multimodal_tpu_torch.data import cache as cache_mod
+
+    resolved = cache_mod.resolve_cache_dir(cache_dir)
+    if resolved is not None:
+        return cache_mod.cached_decode(paths, image_size, resolved)
+    return decode_raw(paths, image_size)
+
+
+def decode_raw(paths: Sequence[Optional[Path]],
+               image_size: int) -> np.ndarray:
+    """The uncached decode behind :func:`decode_all` (and behind each chunk
+    of the cache's build — it must never re-enter the cache).  JPEGs
+    decode together on the native decoder's threads; PNGs one by one."""
+    out = np.zeros((len(paths), image_size, image_size, 3), np.uint8)
+    jpegs: List[int] = []
+    for i, p in enumerate(paths):
+        if p is None:
+            continue
+        fmt = image_format(p)
+        if fmt == "jpeg":
+            jpegs.append(i)
+        elif fmt == "png":
+            try:
+                img = read_png(p)
+            except ValueError as e:
+                raise DecodeError(str(e)) from e
+            out[i] = native.resize_rgb(img, image_size)
+        else:
+            raise DecodeError(
+                f"{p}: {fmt} image — the port decodes JPEG and PNG only "
+                "(no PIL fallback)")
+    if jpegs:
+        imgs, status = native.decode_jpegs_resized(
+            [str(paths[i]) for i in jpegs], image_size)
+        for k, i in enumerate(jpegs):
+            if status[k]:
+                raise DecodeError(f"{paths[i]}: jpeg image "
+                                  f"{_JPEG_STATUS.get(int(status[k]))} "
+                                  f"(status {int(status[k])})")
+        out[np.asarray(jpegs)] = imgs
+    return out
+
+
+def load_single_modality(modality_dir: Path, split: str,
+                         image_size: int = 224,
+                         modality: str = "rgb",
+                         cache_dir: Optional[Path] = None) -> ArrayDataset:
+    """Single-modality dataset (RGBDataset/ThermalDataset contract,
+    train_rgb_only.py:55-97)."""
+    index: SplitIndex = scan_split(Path(modality_dir), split)
+    return ArrayDataset(
+        arrays={modality: decode_all(index.paths, image_size,
+                                     cache_dir=cache_dir)},
+        labels=np.asarray(index.labels, np.int32),
+        paths={modality: list(index.paths)},
+    )
+
+
+def load_paired(data_dir: Path, split: str, image_size: int = 224,
+                strategy: str = "aligned",
+                seed: Optional[int] = None,
+                cache_dir: Optional[Path] = None) -> ArrayDataset:
+    """Paired dataset. ``strategy='aligned'`` = DFUPairedDataset semantics
+    (truncate-to-min); ``'pseudo'`` = MultimodalDataset modulo cycling;
+    ``'random'`` = the early-files random label-matched pairing."""
+    data_dir = Path(data_dir)
+    rgb_by_class = scan_split(data_dir / "rgb", split).by_class()
+    th_by_class = scan_split(data_dir / "thermal", split).by_class()
+    rgb_counts = [len(rgb_by_class[c]) for c in (0, 1)]
+    th_counts = [len(th_by_class[c]) for c in (0, 1)]
+
+    if strategy == "aligned":
+        pairs = pairing_mod.aligned_pairs(rgb_counts, th_counts)
+    elif strategy == "pseudo":
+        pairs = pairing_mod.pseudo_pairs(rgb_counts, th_counts, seed=seed)
+    elif strategy == "random":
+        pairs = pairing_mod.random_pairs(rgb_counts, th_counts, seed=seed)
+    else:
+        raise ValueError(f"unknown pairing strategy {strategy!r}")
+
+    rgb_paths = [rgb_by_class[p.label][p.rgb] if p.rgb is not None else None
+                 for p in pairs]
+    th_paths = [th_by_class[p.label][p.thermal] if p.thermal is not None
+                else None for p in pairs]
+    labels = np.asarray([p.label for p in pairs], np.int32)
+
+    return ArrayDataset(
+        arrays={"rgb": decode_all(rgb_paths, image_size,
+                                  cache_dir=cache_dir),
+                "thermal": decode_all(th_paths, image_size,
+                                      cache_dir=cache_dir)},
+        labels=labels,
+        paths={"rgb": rgb_paths, "thermal": th_paths},
+    )
+
+
+def get_dataloaders(data_dir: Path, batch_size: int = 12,
+                    image_size: int = 224, strategy: str = "aligned",
+                    seed: Optional[int] = None, modality: str = "both"):
+    """Datasets + a batch-iterator factory per split — the reference's
+    ``get_dataloaders`` contract (scripts/dataloader.py:203-244) as
+    (datasets, make_batches(split, rng)).
+
+    ``modality``: ``"both"`` (default) pairs the modalities;
+    ``"rgb"``/``"thermal"`` return single-modality datasets, and — as in
+    the early-files lineage — eval splits batch at
+    ``max(16, batch_size // 2)``.  ``make_batches`` yields fixed-shape
+    masked batch dicts; training splits shuffle (one generator across
+    calls, so every epoch gets a new order), eval splits are
+    sequential."""
+    if modality not in ("rgb", "thermal", "both"):
+        raise ValueError(f"Unknown modality: {modality}")
+    if modality == "both":
+        datasets = {split: load_paired(data_dir, split, image_size,
+                                       strategy=strategy, seed=seed)
+                    for split in ("train", "val", "test")}
+    else:
+        datasets = {split: load_single_modality(
+            Path(data_dir) / modality, split, image_size, modality)
+            for split in ("train", "val", "test")}
+
+    default_rng = np.random.default_rng(seed)
+
+    def make_batches(split: str, rng: Optional[np.random.Generator] = None):
+        ds = datasets[split]
+        bs = batch_size
+        if split == "train":
+            rng = rng or default_rng
+            order = rng.permutation(len(ds))
+        else:
+            order = np.arange(len(ds))
+            if modality != "both":
+                bs = max(16, batch_size // 2)
+        return batch_slices(ds, order, bs)
+
+    return datasets, make_batches
 
 
 def sample_weights(labels: np.ndarray) -> np.ndarray:

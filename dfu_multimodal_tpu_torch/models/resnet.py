@@ -66,11 +66,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     (in fp32 for every input dtype) and moves the buffers by the unbiased
     variance; the batch's share of the running variance is then rescaled
     by (n − 1)/n, a per-channel fix.  Every row of the batch counts,
-    padding rows included, as in JAX.  Eval mode is ``nn.BatchNorm2d``'s."""
+    padding rows included, as in JAX.  Eval mode is ``nn.BatchNorm2d``'s.
+
+    A channel with one value (N·H·W = 1, which ``F.batch_norm`` refuses in
+    train mode) is normalised as flax does: its batch variance is 0, so
+    the output is the bias, the input and weight gradients are 0, and the
+    running variance moves towards 0."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if x.numel() == x.shape[1]:
+            return self._one_value(x)
         # the op keeps the variance for its backward: move a copy
         var = self.running_var.detach().clone()
         y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
@@ -81,6 +88,24 @@ class BatchNorm2d(nn.BatchNorm2d):
                                                             (n - 1) / n)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _one_value(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode on an (1, C, 1, 1) batch, in fp32 as flax's
+        statistics are: y = (x − mean)·rsqrt(var + eps)·w + b with the
+        biased variance (0 here), written out so that autograd gives
+        flax's gradients."""
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3), keepdim=True)
+        var = (xf - mean).square().mean(dim=(0, 2, 3), keepdim=True)
+        shape = (1, -1, 1, 1)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)
+             * self.weight.view(shape) + self.bias.view(shape))
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.lerp_(mean.flatten(), m)
+            self.running_var.lerp_(var.flatten(), m)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class Bottleneck(nn.Module):

@@ -2,7 +2,9 @@
 
 Ported so far: the three reference models — the flagship ``multimodal``
 fusion model, the ``thermal_only`` ViT classifier and the ``rgb_only``
-ResNet-50 classifier; the other families join as their modules land.
+ResNet-50 classifier — and the small smoke models ``tiny_rgb``,
+``tiny_thermal`` and ``tiny_fusion``; the other families join as their
+modules land.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from torch import nn
 
 from dfu_multimodal_tpu_torch.models.fusion import MultimodalFusionClassifier
 from dfu_multimodal_tpu_torch.models.resnet import ResNetClassifier
+from dfu_multimodal_tpu_torch.models.tiny import TinyCNN, TinyFusion
 from dfu_multimodal_tpu_torch.models.vit import ViT, ViTClassifier
 
 
@@ -33,6 +36,9 @@ def register(spec: ModelSpec) -> ModelSpec:
     return spec
 
 
+register(ModelSpec("tiny_rgb", TinyCNN, ("rgb",)))
+register(ModelSpec("tiny_thermal", TinyCNN, ("thermal",)))
+register(ModelSpec("tiny_fusion", TinyFusion, ("rgb", "thermal")))
 register(ModelSpec("rgb_only", ResNetClassifier, ("rgb",)))
 register(ModelSpec("thermal_only", ViTClassifier, ("thermal",)))
 register(ModelSpec("multimodal", MultimodalFusionClassifier,

@@ -82,6 +82,38 @@ def build(name: str) -> Path:
     return so
 
 
+def build_host(source: Path, name: str, flags: Sequence[str]) -> Path:
+    """Build host C++ ``source`` with g++ into ``lib{name}.so`` under
+    BUILD_ROOT, keyed like :func:`build` by the source, the headers
+    beside it and ``flags`` (macros, include dirs, libraries).  Raises
+    with g++'s message on failure."""
+    source = Path(source)
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+           "-I", str(source.parent), *flags]
+    h = hashlib.sha256(" ".join(cmd).encode())
+    for src in [source, *sorted(source.parent.glob("*.h"))]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    so = BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
+    if so.exists():
+        return so
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    # libraries come after the source for the linker
+    libs = [f for f in flags if f.startswith(("-l", "-L", "-Wl"))]
+    other = [f for f in cmd if f not in libs]
+    try:
+        proc = subprocess.run([*other, str(source), "-o", str(tmp), *libs],
+                              capture_output=True, text=True)
+    except OSError as e:               # no g++ at all
+        raise RuntimeError(f"g++ unavailable for {source.name}: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed on {source.name} "
+                           f"({' '.join(flags)}):\n{proc.stderr[-2000:]}")
+    os.replace(tmp, so)
+    return so
+
+
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; declare ``argtypes``
     for each entry point in ``signatures`` (all return a CUDA error code)."""

@@ -18,8 +18,11 @@ checkpoint restore produce them) and returns the port model's
 
 Models: ``multimodal`` (``rgb_branch`` / ``thermal_branch`` / ``fusion``),
 ``thermal_only`` (the JAX trunk scope ``ViT_0`` -> ``vit.``, the ``head``
-Dense -> ``head``) and ``rgb_only`` (``ResNet_0`` params and batch stats
--> ``resnet.``, ``head`` -> ``head``).  A tree without ``batch_stats``
+Dense -> ``head``), ``rgb_only`` (``ResNet_0`` params and batch stats
+-> ``resnet.``, ``head`` -> ``head``), and the smoke models ``tiny_rgb``
+/ ``tiny_thermal`` (``conv0``, ``bn0``, ``conv1``, ``bn1``, ``head`` at
+the top level) and ``tiny_fusion`` (those layers under ``rgb_branch`` /
+``thermal_branch``, and ``head``).  A tree without ``batch_stats``
 (the optimizer's moments) gives the parameters' keys only.
 
 :func:`adamw_state_from_optax` carries an ``optax.adamw`` chain state
@@ -108,6 +111,19 @@ def resnet_state_dict(params: Mapping, stats: Optional[Mapping],
     return out
 
 
+def tiny_state_dict(params: Mapping, stats: Optional[Mapping],
+                    prefix: str = "") -> StateDict:
+    """A JAX TinyCNN / TinyTrunk subtree -> the port's keys (conv biases
+    included)."""
+    out: StateDict = {}
+    for i in (0, 1):
+        out[f"{prefix}conv{i}.weight"] = _conv(params[f"conv{i}"]["kernel"])
+        out[f"{prefix}conv{i}.bias"] = _t(params[f"conv{i}"]["bias"])
+        _batchnorm(out, f"{prefix}bn{i}", params[f"bn{i}"],
+                   None if stats is None else stats[f"bn{i}"])
+    return out
+
+
 def vit_state_dict(params: Mapping, prefix: str = "") -> StateDict:
     """JAX ViT trunk subtree (fp32, or int8 from ``quantize_variables``)
     -> timm-layout keys."""
@@ -152,6 +168,18 @@ def variables_to_state_dict(model_name: str,
     ``batch_stats`` only the parameters' keys come out."""
     params = variables["params"]
     stats = variables.get("batch_stats")
+    if model_name.startswith("tiny_"):
+        if model_name == "tiny_fusion":
+            out = {}
+            for branch in ("rgb_branch", "thermal_branch"):
+                out.update(tiny_state_dict(
+                    params[branch], None if stats is None else stats[branch],
+                    f"{branch}."))
+        else:
+            out = tiny_state_dict(params, stats)
+        out["head.weight"] = _dense(params["head"]["kernel"])
+        out["head.bias"] = _t(params["head"]["bias"])
+        return out
     if model_name in ("thermal_only", "rgb_only"):
         if model_name == "thermal_only":
             out = vit_state_dict(params["ViT_0"], "vit.")

@@ -68,7 +68,8 @@ from dfu_multimodal_tpu_torch.utils import checkpoint as ckpt_mod
 from dfu_multimodal_tpu_torch.utils.logging import (ThroughputMeter,
                                                     profile_trace)
 
-TRAINABLE_MODELS = ("thermal_only", "rgb_only", "multimodal")
+TRAINABLE_MODELS = ("thermal_only", "rgb_only", "multimodal", "tiny_rgb",
+                    "tiny_thermal", "tiny_fusion")
 
 
 def class_weights_from_labels(labels: np.ndarray) -> np.ndarray:
@@ -270,7 +271,7 @@ class Trainer:
         torch._foreach_add_(ema, self.optimizer.params, alpha=1.0 - decay)
 
     @contextlib.contextmanager
-    def _ema_weights(self) -> Iterator[None]:
+    def ema_weights(self) -> Iterator[None]:
         """The module runs on the EMA parameters inside the block (its
         BatchNorm buffers stay live); a no-op without EMA."""
         if self.ema_params is None:
@@ -339,6 +340,14 @@ class Trainer:
             raise ValueError(f"batch {b} not divisible by "
                              f"grad_accum={accum}")
         mb = b // accum
+        # each parameter accumulates into a buffer of its own: left to
+        # itself autograd may hand two parameters views of one gradient
+        # (a broadcast add that reduces nothing passes its gradient on
+        # as it is, e.g. the one-row BatchNorm biases of a residual sum),
+        # and every later += and the division below would then hit it
+        # twice
+        for p in self.optimizer.params:
+            p.grad = torch.zeros_like(p)
         numer = torch.zeros((), device=self.device)
         counts = torch.zeros(4, device=self.device)
         for k in range(accum):
@@ -521,7 +530,7 @@ class Trainer:
                         meter=meter)
                 throughput = meter.summary()
                 train_rate = meter.images_per_sec_per_chip
-                with self._ema_weights():
+                with self.ema_weights():
                     val_m, _ = self.run_eval_epoch(val_ds)
                 dt = time.perf_counter() - t0
                 for split, m in (("train", train_m), ("val", val_m)):

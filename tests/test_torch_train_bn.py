@@ -341,3 +341,77 @@ def test_trunk_gradient_jumps_at_relu_kinks(smooth, monkeypatch):
         assert 90.0 <= ratio <= 110.0, moved
     else:
         assert ratio >= 1e3, moved
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_value_batchnorm_matches_flax(dtype):
+    """A train-mode BatchNorm over one value a channel (N·H·W = 1, which
+    ``F.batch_norm`` refuses): the port normalises it as flax's
+    ``nn.BatchNorm`` does (batch variance 0, output the bias), with flax's
+    input gradient and running statistics (momentum 0.9 in flax's terms),
+    all within 1e-6; bf16 input gives the fp32 result rounded."""
+    from dfu_multimodal_tpu_torch.models.resnet import BatchNorm2d
+    rng = np.random.default_rng(5)
+    c = 8
+    x = rng.standard_normal((1, 1, 1, c)).astype(np.float32)     # NHWC
+    # both sides see the same input values
+    x = torch.from_numpy(x).to(getattr(torch, dtype)).float().numpy()
+    g = rng.standard_normal((1, 1, 1, c)).astype(np.float32)
+    scale = 1.0 + 0.1 * rng.standard_normal(c).astype(np.float32)
+    bias = 0.1 * rng.standard_normal(c).astype(np.float32)
+    mean0 = 0.1 * rng.standard_normal(c).astype(np.float32)
+    var0 = 1.0 + np.abs(0.1 * rng.standard_normal(c)).astype(np.float32)
+
+    bn = fnn.BatchNorm(use_running_average=False, momentum=0.9,
+                       epsilon=1e-5)
+    variables = {"params": {"scale": scale, "bias": bias},
+                 "batch_stats": {"mean": mean0, "var": var0}}
+
+    def loss(xx):
+        y, upd = bn.apply(variables, xx, mutable=["batch_stats"])
+        return jnp.sum(y * g), (y, upd["batch_stats"])
+
+    (_, (y_ref, stats)), dx_ref = jax.value_and_grad(loss, has_aux=True)(
+        jnp.asarray(x))
+
+    ours = BatchNorm2d(c).train()
+    with torch.no_grad():
+        ours.weight.copy_(torch.from_numpy(scale))
+        ours.bias.copy_(torch.from_numpy(bias))
+        ours.running_mean.copy_(torch.from_numpy(mean0))
+        ours.running_var.copy_(torch.from_numpy(var0))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).to(getattr(torch, dtype))
+    xt.requires_grad_(True)
+    y = ours(xt)
+    (y.float() * torch.from_numpy(g).permute(0, 3, 1, 2)).sum().backward()
+    y_ref = np.asarray(y_ref).transpose(0, 3, 1, 2)
+    if dtype == "bfloat16":
+        y_ref = torch.tensor(y_ref).bfloat16().float().numpy()
+    np.testing.assert_allclose(y.detach().float().numpy(), y_ref, rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        xt.grad.float().numpy(), np.asarray(dx_ref).transpose(0, 3, 1, 2),
+        rtol=0, atol=1e-6)
+    np.testing.assert_allclose(ours.running_mean.numpy(),
+                               np.asarray(stats["mean"]), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(ours.running_var.numpy(),
+                               np.asarray(stats["var"]), rtol=0, atol=1e-6)
+    assert int(ours.num_batches_tracked) == 1
+
+
+def test_one_row_microbatch_matches_jax():
+    """rgb_only at image 32, batch 2, grad_accum 2: microbatches of one
+    row, so stage 4's 1x1 map gives its BatchNorm one value a channel
+    (the second microbatch is the padding row).  The port's step against
+    the JAX single-device step, at this module's budgets.  (Here autograd
+    hands layer 4's bn3 and downsample biases views of one gradient;
+    divided in place once for each, their first moments stood 4/3 of
+    JAX's, the class weight 0.75 divided twice.)"""
+    jt, state, variables = jax_trainer("rgb_only", grad_accum=2,
+                                       batch_size=2)
+    pt = port_trainer("rgb_only", variables, grad_accum=2, batch_size=2)
+    batch = batches("rgb_only", n=1, size=2)[0]
+    state = step_both(jt, state, pt, batch)
+    assert_state_matches("rgb_only", pt, state, CFG["learning_rate"])
+    bn = pt.module.state_dict()
+    assert int(bn["resnet.layer4.0.bn3.num_batches_tracked"]) == 2
