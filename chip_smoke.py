@@ -217,6 +217,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               and K5, multimodal also K3 in its evaluations, rgb_only none
               of the port's kernels); then the multimodal CLI again with
               ``--resume --epochs 3``, which runs epoch 3 only;
+13. from a download to the artifacts — on phase 12's tree and
+              checkpoints: its JPEGs laid out as the two raw Kaggle
+              downloads (cross-class duplicates, a 224 x 160 PNG), then
+              ``organize_clean_dataset`` (the duplicate counts, ulcer wins,
+              each split's size by scikit-learn's ceil rule, no hash in
+              two splits) and ``dataset_tools`` ``verify``, ``analyze``,
+              ``standardize --verify`` (each output within STD_MAX_ABS /
+              STD_MEAN_ABS levels of its canvas before the q95 write),
+              ``patient-split`` and ``stats``; ``extended_metrics`` in
+              bf16 over the three checkpoints with ``--operating-point
+              youden --calibration --temperature-from-val --bootstrap 200
+              --save-deployment`` (every artifact, each PNG decoded at its
+              size, each model's launches: thermal_only K1/K2, multimodal
+              K1/K2/K3, rgb_only none); ``extended_metrics --models
+              multimodal`` in fp32 on the card (TF32 off) against the
+              same on the CPU; ``test_time_augmentation --num-tta 5`` (its
+              clean metrics equal extended_metrics' on rgb_only and
+              thermal_only, its launches); ``ablation_study --epochs 1
+              --with-multimodal`` (finite F1s, its launches); the seconds
+              of each step;
 then the kernels' JSON line (times, bounds, launches, the SDPA times,
 the K6/K9 forwards' device times and SDPA's, K10's and K12's chain
 times),
@@ -230,9 +250,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -294,14 +316,19 @@ def max_errors(out: torch.Tensor, ref: torch.Tensor):
 # ---------------------------------------------------------------- phase 1
 
 
+def card() -> str:
+    """nvidia-smi's name and power limit of the first card."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_device() -> str:
     name = torch.cuda.get_device_name(0)
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{name}; device_count={torch.cuda.device_count()}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    log(card())
     return name
 
 
@@ -3171,56 +3198,386 @@ def _run_cli(tag, name, argv, jsonl: Path) -> list:
     return [e["epoch"] for e in epochs]
 
 
-def phase_train_disk(dev) -> None:
-    """The three reference train CLIs from a synthetic image tree on disk,
-    at full width, through their ``main(argv)``."""
-    import tempfile
+def phase_train_disk(dev, d: Path) -> None:
+    """The three reference train CLIs from a synthetic image tree on disk
+    (``d/data``), at full width, through their ``main(argv)``, writing
+    their checkpoints under ``d/logs`` (phase 13 evaluates them)."""
     from dfu_multimodal_tpu_torch import native
     from dfu_multimodal_tpu_torch.data.loader import decode_raw
     from dfu_multimodal_tpu_torch.data.layout import list_images
     from dfu_multimodal_tpu_torch.data.synthetic import make_synthetic_dataset
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    log(f"[disk] {native.describe()}; {card}")
+    gpu = card()
+    log(f"[disk] {native.describe()}; {gpu}")
     route = native.route()
     _decode_vs_fixture(route)
-    build = Path(__file__).resolve().parent / "build"
-    build.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build) as d:
-        data, logs = Path(d) / "data", Path(d) / "logs"
-        t0 = time.perf_counter()
-        make_synthetic_dataset(data, images_per_class=DISK_IMAGES_PER_CLASS,
-                               size=IMAGE)
-        files = list_images(data)
-        t1 = time.perf_counter()
-        decode_raw(files, IMAGE)
-        t2 = time.perf_counter()
-        log(f"[disk] wrote {len(files)} JPEGs at {IMAGE}² in {t1 - t0:.3f} s; "
-            f"decoded them ({route}) in {t2 - t1:.3f} s (host clock; {card})")
-        for name, (_, batch) in DISK_CLIS.items():
-            tag = f"disk {name}"
-            jsonl = Path(d) / f"{name}.jsonl"
-            argv = ["--data-dir", str(data), "--checkpoint-root", str(logs),
-                    "--epochs", str(DISK_EPOCHS), "--save-best-after", "1",
-                    "--save-last", "--log-jsonl", str(jsonl), "--seed", "0"]
-            epochs = _run_cli(tag, name, argv, jsonl)
-            if epochs != list(range(1, DISK_EPOCHS + 1)):
-                raise AssertionError(f"{tag}: ran epochs {epochs}")
-            _check_artifacts(tag, logs / f"checkpoints_{name}", DISK_EPOCHS,
-                             batch)
-        tag = "disk multimodal resume"
-        jsonl = Path(d) / "multimodal.jsonl"
-        epochs = _run_cli(tag, "multimodal", [
-            "--data-dir", str(data), "--checkpoint-root", str(logs),
-            "--epochs", str(DISK_EPOCHS + 1), "--save-best-after", "1",
-            "--save-last", "--log-jsonl", str(jsonl), "--seed", "0",
-            "--resume"], jsonl)
-        if epochs != [DISK_EPOCHS + 1]:
+    data, logs = d / "data", d / "logs"
+    t0 = time.perf_counter()
+    make_synthetic_dataset(data, images_per_class=DISK_IMAGES_PER_CLASS,
+                           size=IMAGE)
+    files = list_images(data)
+    t1 = time.perf_counter()
+    decode_raw(files, IMAGE)
+    t2 = time.perf_counter()
+    log(f"[disk] wrote {len(files)} JPEGs at {IMAGE}² in {t1 - t0:.3f} s; "
+        f"decoded them ({route}) in {t2 - t1:.3f} s (host clock; {gpu})")
+    for name, (_, batch) in DISK_CLIS.items():
+        tag = f"disk {name}"
+        jsonl = d / f"{name}.jsonl"
+        argv = ["--data-dir", str(data), "--checkpoint-root", str(logs),
+                "--epochs", str(DISK_EPOCHS), "--save-best-after", "1",
+                "--save-last", "--log-jsonl", str(jsonl), "--seed", "0"]
+        epochs = _run_cli(tag, name, argv, jsonl)
+        if epochs != list(range(1, DISK_EPOCHS + 1)):
             raise AssertionError(f"{tag}: ran epochs {epochs}")
-        _check_artifacts(tag, logs / "checkpoints_multimodal",
-                         DISK_EPOCHS + 1, DISK_CLIS["multimodal"][1])
+        _check_artifacts(tag, logs / f"checkpoints_{name}", DISK_EPOCHS,
+                         batch)
+    tag = "disk multimodal resume"
+    jsonl = d / "multimodal.jsonl"
+    epochs = _run_cli(tag, "multimodal", [
+        "--data-dir", str(data), "--checkpoint-root", str(logs),
+        "--epochs", str(DISK_EPOCHS + 1), "--save-best-after", "1",
+        "--save-last", "--log-jsonl", str(jsonl), "--seed", "0",
+        "--resume"], jsonl)
+    if epochs != [DISK_EPOCHS + 1]:
+        raise AssertionError(f"{tag}: ran epochs {epochs}")
+    _check_artifacts(tag, logs / "checkpoints_multimodal",
+                     DISK_EPOCHS + 1, DISK_CLIS["multimodal"][1])
+
+
+# --------------------------------------------------------------- phase 13
+
+# The q95 round trip of a standardized file: ``dataset_tools standardize``
+# writes each canvas with ``native.encode_jpeg(quality=95)`` (4:2:0) and
+# the decoder reads it back; held against the canvas before the write.
+# On phase 12's blocky synthetic textures at 224 -> 160 the worst file
+# measured max 48 / mean 3.46 levels on nvJPEG (an H100 host, PERF.md).
+STD_TARGET = 160
+STD_MAX_ABS, STD_MEAN_ABS = 64, 4.5
+# --bootstrap and the rest of the reference evaluation's options
+EM_OPTIONS = ["--operating-point", "youden", "--calibration",
+              "--temperature-from-val", "--bootstrap", "200",
+              "--save-deployment"]
+EM_MODELS = {"rgb_only": ("checkpoints_rgb_only", "RGB-Only", ()),
+             "thermal_only": ("checkpoints_thermal_only", "Thermal-Only",
+                              ("attn_block", "mlp_block")),
+             "multimodal": ("checkpoints_multimodal", "Multimodal",
+                            ("attn_block", "mlp_block", "fused_mlp"))}
+EM_FP32_TOL, EM_PRED_MARGIN = 1e-4, 1e-3
+NUM_TTA = 5
+# the kernels TTA launches over the three models (rgb_only runs on cuDNN)
+# and those the ablation's three trainings and validations launch
+TTA_KERNELS = {"attn_block", "mlp_block", "fused_mlp"}
+ABLATION_KERNELS = set(TRAIN_KERNELS) | {"fused_mlp"}
+
+
+def _step(tag: str, t0: float) -> float:
+    """Log a step's host seconds; returns the clock for the next."""
+    t = time.perf_counter()
+    log(f"[artifacts] {tag}: {t - t0:.2f} s (host clock)")
+    return t
+
+
+def _raw_download(data: Path, raw: Path) -> dict:
+    """Phase 12's 224² JPEGs laid out as the two Kaggle downloads: RGB
+    ``Patches/{Normal,Abnormal}`` (every split's healthy / ulcer images,
+    the ulcer test images in ``TestSet``),
+    thermal ``ThermoDataBase/{train,val}/{Control Group,DM Group}`` (train
+    and val images as train, test images as val), two RGB and one thermal
+    healthy image copied into the ulcer folder (cross-class duplicates,
+    ulcer wins), and one RGB healthy image cropped to 224 x 160 as a PNG
+    (at IMAGE = 224).
+    Returns the unique healthy / ulcer counts each modality should give."""
+    import shutil
+    from dfu_multimodal_tpu_torch.data.layout import list_images
+    from dfu_multimodal_tpu_torch.data.loader import load_image
+    from dfu_multimodal_tpu_torch.data.png import write_png
+    rgb = raw / "DFU_RGB" / "Patches"
+    th = raw / "DFU_Thermal" / "ThermoDataBase"
+    expect = {}
+    for cls, folder in (("healthy", "Normal"), ("ulcer", "Abnormal")):
+        dst = rgb / folder
+        dst.mkdir(parents=True)
+        for split in ("train", "val", "test"):
+            for p in list_images(data / "rgb" / split / cls):
+                shutil.copy(p, dst / f"{split}_{p.name}")
+    test_set = raw / "DFU_RGB" / "TestSet"
+    test_set.mkdir()
+    for p in sorted((rgb / "Abnormal").glob("test_*")):
+        p.rename(test_set / p.name)
+    healthy = sorted((rgb / "Normal").iterdir())
+    for p in healthy[:2]:
+        shutil.copy(p, rgb / "Abnormal" / f"dup_{p.name}")
+    write_png(rgb / "Normal" / "crop.png",
+              load_image(healthy[3], IMAGE)[:IMAGE * 5 // 7])
+    # the two copies' hashes move to ulcer; the PNG is one more healthy
+    expect["rgb"] = (len(healthy) - 2 + 1,
+                     len(list((rgb / "Abnormal").iterdir()))
+                     + len(list(test_set.iterdir())))
+    for cls, folder in (("healthy", "Control Group"), ("ulcer", "DM Group")):
+        for split, raw_split in (("train", "train"), ("val", "train"),
+                                 ("test", "val")):
+            dst = th / raw_split / folder
+            dst.mkdir(parents=True, exist_ok=True)
+            for p in list_images(data / "thermal" / split / cls):
+                shutil.copy(p, dst / f"{split}_{p.name}")
+    dup = sorted((th / "train" / "Control Group").iterdir())[0]
+    shutil.copy(dup, th / "train" / "DM Group" / "dup.jpg")
+    n_h = sum(len(list((th / s / "Control Group").iterdir()))
+              for s in ("train", "val"))
+    n_u = sum(len(list((th / s / "DM Group").iterdir()))
+              for s in ("train", "val"))
+    expect["thermal"] = (n_h - 1, n_u - 1 + 1)
+    return expect
+
+
+def _split_sizes(n: int) -> dict:
+    """The organizer's 70/15/15 by scikit-learn's rule: the test side of
+    each split is ceil(t·n), the train side the rest."""
+    if n < 3:
+        return {"train": n, "val": 0, "test": 0}
+    temp = math.ceil(0.3 * n)
+    test = math.ceil(0.5 * temp)
+    return {"train": n - temp, "val": temp - test, "test": test}
+
+
+def _check_organized(out: Path, res: dict, expect: dict) -> None:
+    from dfu_multimodal_tpu_torch.data.leakage import compute_sha256
+    for modality, (n_h, n_u) in expect.items():
+        r = res[modality]
+        want = {"healthy": _split_sizes(n_h), "ulcer": _split_sizes(n_u)}
+        dups = 2 if modality == "rgb" else 1
+        log(f"[artifacts] organize {modality}: {r.dedupe_report}, healthy "
+            f"{r.healthy}, ulcer {r.ulcer}, splits {r.split_counts}")
+        if ((r.healthy, r.ulcer) != (n_h, n_u) or r.errors
+                or r.dedupe_report["duplicates_removed"] != dups
+                or r.split_counts != want):
+            raise AssertionError(f"organize {modality}: expected healthy "
+                                 f"{n_h} ulcer {n_u}, {dups} duplicates, "
+                                 f"splits {want}")
+        seen = {}
+        for split in ("train", "val", "test"):
+            for p in sorted((out / modality / split).rglob("*.jpg")):
+                h = compute_sha256(p)
+                if h in seen and seen[h] != split:
+                    raise AssertionError(f"{p}: its hash is also in "
+                                         f"{seen[h]}")
+                seen[h] = split
+        if len(seen) != n_h + n_u:
+            raise AssertionError(f"{modality}: {len(seen)} unique files, "
+                                 f"expected {n_h + n_u}")
+
+
+def _check_standardized(src: Path, dst: Path) -> None:
+    """Each standardized file against its canvas (the source decoded,
+    resized and padded as ``standardize_image`` does, before the write)."""
+    from dfu_multimodal_tpu_torch.data.loader import image_info, load_image
+    worst_max, worst_mean = 0, 0.0
+    for p in sorted(src.rglob("*.jpg")):
+        ow, oh, _, _ = image_info(p)
+        s = STD_TARGET / max(ow, oh)
+        nw, nh = max(1, round(ow * s)), max(1, round(oh * s))
+        canvas = np.zeros((STD_TARGET, STD_TARGET, 3), np.int16)
+        x0, y0 = (STD_TARGET - nw) // 2, (STD_TARGET - nh) // 2
+        canvas[y0:y0 + nh, x0:x0 + nw] = load_image(p, (nw, nh))
+        got = load_image(dst / p.relative_to(src), STD_TARGET)
+        diff = np.abs(got.astype(np.int16) - canvas)
+        worst_max = max(worst_max, int(diff.max()))
+        worst_mean = max(worst_mean, float(diff.mean()))
+    log(f"[artifacts] standardize round trip (decode, resize to "
+        f"{STD_TARGET}, q95 write, decode): worst max {worst_max} levels, "
+        f"worst mean {worst_mean:.4f} (tolerance {STD_MAX_ABS} / "
+        f"{STD_MEAN_ABS})")
+    if worst_max > STD_MAX_ABS or worst_mean > STD_MEAN_ABS:
+        raise AssertionError("standardized JPEGs beyond the round-trip "
+                             "tolerance")
+
+
+def _em_run(argv, per_model: dict) -> dict:
+    """``extended_metrics.main(argv)``, every launch count set to 0 before
+    each model's evaluation and read after it into ``per_model``."""
+    from dfu_multimodal_tpu_torch.cli import extended_metrics as em
+    evaluate = em.evaluate_model
+
+    def counted(trainer, ckpt_dir, dataset, val_dataset=None):
+        _reset_launches()
+        out = evaluate(trainer, ckpt_dir, dataset, val_dataset)
+        torch.cuda.synchronize()
+        per_model[Path(ckpt_dir).name] = {
+            k: v for k, v in _all_launches().items() if v}
+        return out
+
+    em.evaluate_model = counted
+    try:
+        return em.main(argv)
+    finally:
+        em.evaluate_model = evaluate
+
+
+def _check_em_artifacts(out: Path, logs: Path, launches: dict) -> None:
+    from dfu_multimodal_tpu_torch.data.png import read_png
+    from dfu_multimodal_tpu_torch.utils.artifacts import load_pt
+    keys = {"y_true", "y_pred", "y_probs", "metrics", "operating_point",
+            "calibration", "bootstrap"}
+    for subdir, (ckpt, display, kernels) in EM_MODELS.items():
+        saved = load_pt(out / subdir / "results.pt")
+        for name, size in (("confusion_matrix", (1800, 2400)),
+                           ("roc_curve", (1800, 2400)),
+                           ("pr_curve", (1800, 2400)),
+                           ("reliability_diagram", (2400, 2400))):
+            img = read_png(out / subdir / f"{name}_{display}.png")
+            if img.shape[:2] != size or img.min() == 255:
+                raise AssertionError(f"{subdir} {name}: {img.shape}")
+        dep = json.loads((logs / ckpt / "deployment.json").read_text())
+        got = launches[ckpt]
+        missing = [k for k in kernels if not got.get(k)]
+        extra = sorted(set(got) - set(kernels))
+        log(f"[artifacts] extended_metrics {subdir}: accuracy "
+            f"{saved['metrics']['accuracy']:.4f} F1 "
+            f"{saved['metrics']['f1']:.4f}, youden threshold "
+            f"{saved['operating_point']['info']['threshold']:.4f}, T = "
+            f"{dep['temperature']:.4f}, bootstrap F1 "
+            f"[{saved['bootstrap']['f1']['lo']:.4f}, "
+            f"{saved['bootstrap']['f1']['hi']:.4f}]; launches {got}")
+        if (set(saved) != keys or not np.isfinite(saved["y_probs"]).all()
+                or missing or extra):
+            raise AssertionError(f"{subdir}: keys {sorted(saved)}, kernels "
+                                 f"not launched {missing}, launched "
+                                 f"unexpectedly {extra}")
+    summary = (out / "EVALUATION_SUMMARY.txt").read_text()
+    if not all(f"{d.upper()} MODEL:" in summary
+               for _, d, _ in EM_MODELS.values()):
+        raise AssertionError(f"EVALUATION_SUMMARY.txt: {summary}")
+
+
+def _em_fp32_vs_cpu(data: Path, logs: Path, d: Path) -> None:
+    """``extended_metrics --models multimodal`` in fp32 on the card (TF32
+    off) and on the CPU, on the same checkpoint and test split."""
+    from dfu_multimodal_tpu_torch.cli import extended_metrics as em
+    from dfu_multimodal_tpu_torch.utils.artifacts import load_pt
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    try:
+        for device in ("cuda", "cpu"):
+            out = d / f"em_fp32_{device}"
+            em.main(["--data-dir", str(data), "--checkpoint-root", str(logs),
+                     "--output-dir", str(out), "--models", "multimodal",
+                     "--compute-dtype", "float32", "--device", device])
+            res[device] = load_pt(out / "multimodal" / "results.pt")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    card, cpu = res["cuda"], res["cpu"]
+    err = float(np.abs(card["y_probs"] - cpu["y_probs"]).max())
+    clear = np.abs(cpu["y_probs"] - 0.5) > EM_PRED_MARGIN
+    same = bool((card["y_pred"][clear] == cpu["y_pred"][clear]).all())
+    log(f"[artifacts] extended_metrics multimodal fp32 card vs CPU: max "
+        f"|dp| {err:.3e} (tolerance {EM_FP32_TOL}), predictions equal on "
+        f"{int(clear.sum())}/{len(clear)} rows with |p - 0.5| > "
+        f"{EM_PRED_MARGIN}: {same}")
+    if err > EM_FP32_TOL or not same:
+        raise AssertionError("extended_metrics fp32 card vs CPU")
+
+
+def phase_artifacts(dev, d: Path) -> None:
+    """From a download to the reference's evaluation artifacts, on phase
+    12's tree and checkpoints (``d``), through the CLIs' ``main(argv)``."""
+    from dfu_multimodal_tpu_torch.cli import ablation_study
+    from dfu_multimodal_tpu_torch.cli import dataset_tools
+    from dfu_multimodal_tpu_torch.cli import organize_clean_dataset
+    from dfu_multimodal_tpu_torch.cli import test_time_augmentation
+    from dfu_multimodal_tpu_torch.utils.artifacts import load_pt
+    data, logs = d / "data", d / "logs"
+    t = t_start = time.perf_counter()
+    expect = _raw_download(data, d / "raw")
+    organized = d / "organized"
+    res = organize_clean_dataset.main([
+        "--rgb-source", str(d / "raw" / "DFU_RGB"), "--thermal-source",
+        str(d / "raw" / "DFU_Thermal"), "--output", str(organized)])
+    _check_organized(organized, res, expect)
+    t = _step("raw layout + organize_clean_dataset", t)
+
+    checks = dataset_tools.main([
+        "verify", "--rgb-source", str(d / "raw" / "DFU_RGB"),
+        "--thermal-source", str(d / "raw" / "DFU_Thermal"), "--organized",
+        str(organized)])
+    if not all(all(v.values()) for v in checks.values()):
+        raise AssertionError(f"verify: {checks}")
+    stats = dataset_tools.main(["analyze", "--root",
+                                str(organized / "rgb")])
+    n_rgb = sum(expect["rgb"])
+    log(f"[artifacts] analyze rgb: count {stats['count']}, modes "
+        f"{stats['modes']}, formats {stats['formats']}, width "
+        f"{stats['width']}, height {stats['height']}")
+    if (stats["count"] != n_rgb or stats["formats"] != {
+            "JPEG": n_rgb - 1, "PNG": 1}
+            or stats["height"]["min"] != IMAGE * 5 // 7):
+        raise AssertionError(f"analyze: {stats}")
+    std = d / "standardized"
+    res = dataset_tools.main(["standardize", "--src", str(organized / "rgb"),
+                              "--dst", str(std / "rgb"), "--target",
+                              str(STD_TARGET), "--verify"])
+    if res != {"processed": n_rgb, "errors": 0, "ok": n_rgb, "bad": 0}:
+        raise AssertionError(f"standardize: {res}")
+    _check_standardized(organized / "rgb", std / "rgb")
+    counts = dataset_tools.main([
+        "patient-split", "--src", str(organized / "rgb" / "train"),
+        "--out", str(d / "patient_split")])
+    n_split = sum(sum(c.values()) for c in counts.values())
+    if n_split != sum(_split_sizes(n)["train"] for n in expect["rgb"]):
+        raise AssertionError(f"patient-split: {counts}")
+    dataset_tools.main(["stats", "--data-dir", str(organized)])
+    t = _step("dataset_tools verify / analyze / standardize --verify / "
+              "patient-split / stats", t)
+
+    em_out = logs / "extended_metrics"
+    per_model = {}
+    _em_run(["--data-dir", str(data), "--checkpoint-root", str(logs)]
+            + EM_OPTIONS, per_model)
+    _check_em_artifacts(em_out, logs, per_model)
+    t = _step("extended_metrics bf16, three models, every option", t)
+
+    _em_fp32_vs_cpu(data, logs, d)
+    t = _step("extended_metrics multimodal fp32, card and CPU", t)
+
+    _reset_launches()
+    tta = test_time_augmentation.main([
+        "--data-dir", str(data), "--checkpoint-root", str(logs),
+        "--num-tta", str(NUM_TTA)])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _all_launches().items() if v}
+    for subdir in ("rgb_only", "thermal_only"):
+        em_metrics = load_pt(em_out / subdir / "results.pt")["metrics"]
+        clean = tta[subdir]["clean"]
+        pairs = {k: (clean[k], em_metrics[k]) for k in (
+            "accuracy", "f1", "sensitivity", "specificity")}
+        pairs["auc"] = (clean["auc"], em_metrics["auc_roc"])
+        log(f"[artifacts] TTA {subdir}: clean vs extended_metrics {pairs}; "
+            f"TTA accuracy {tta[subdir]['tta']['accuracy']:.4f}")
+        if any(a != b for a, b in pairs.values()):
+            raise AssertionError(f"TTA {subdir} clean metrics differ")
+    log(f"[artifacts] TTA launches (three models, clean + {NUM_TTA} views): "
+        f"{launches}")
+    if (set(launches) != TTA_KERNELS
+            or not all((logs / c / "tta_results.pt").exists()
+                       for c, _, _ in EM_MODELS.values())):
+        raise AssertionError(f"TTA: launches {launches}")
+    t = _step(f"test_time_augmentation --num-tta {NUM_TTA}", t)
+
+    _reset_launches()
+    f1s = ablation_study.main(["--data-dir", str(data), "--epochs", "1",
+                               "--with-multimodal"])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _all_launches().items() if v}
+    log(f"[artifacts] ablation F1s {f1s}; launches {launches}")
+    if (set(f1s) != set(EM_MODELS) or not all(np.isfinite(list(
+            f1s.values()))) or set(launches) != ABLATION_KERNELS):
+        raise AssertionError(f"ablation: {f1s}, launches {launches}")
+    t = _step("ablation_study --epochs 1 --with-multimodal", t)
+    log(f"[artifacts] phase 13 in {t - t_start:.2f} s (host clock; "
+        f"{card()})")
 
 
 # ---------------------------------------------------------------- bounds
@@ -3359,9 +3716,13 @@ def main() -> int:
     launches.update(phase_flax_train(dev))
     phase_large_images(dev)
     phase_train_all(dev)
-    phase_train_disk(dev)
-    for mod in ("jax", "flax", "optax", "PIL", "torchvision",
-                "dfu_multimodal_tpu"):
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        phase_train_disk(dev, Path(d))
+        phase_artifacts(dev, Path(d))
+    for mod in ("jax", "flax", "optax", "PIL", "torchvision", "matplotlib",
+                "sklearn", "cv2", "dfu_multimodal_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"the port imported {mod}")
     bounds = kernel_bounds()

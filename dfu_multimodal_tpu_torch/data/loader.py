@@ -17,9 +17,11 @@ error that names the file and its format.
 from __future__ import annotations
 
 import collections
+import struct
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Sequence, Union
+from typing import (Dict, Iterator, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -79,12 +81,84 @@ class DecodeError(ValueError):
     """A file the port cannot decode (its format is named)."""
 
 
-def load_image(path: Path, image_size: int) -> np.ndarray:
-    """Decode -> RGB -> PIL-exact bilinear resize to (image_size,
-    image_size), uint8: the JAX package's ``load_image`` (PIL's
-    ``convert('RGB')`` + ``resize(BILINEAR)``) for the formats the port
-    decodes."""
-    return decode_raw([Path(path)], image_size)[0]
+# PIL's PNG modes by (bit depth, colour type) (PngImagePlugin._MODES)
+_PNG_MODES = {(1, 0): "1", (2, 0): "L", (4, 0): "L", (8, 0): "L",
+              (16, 0): "I;16", (8, 2): "RGB", (16, 2): "RGB", (1, 3): "P",
+              (2, 3): "P", (4, 3): "P", (8, 3): "P", (8, 4): "LA",
+              (16, 4): "RGBA", (8, 6): "RGBA", (16, 6): "RGBA"}
+_JPEG_MODES = {1: "L", 3: "RGB", 4: "CMYK"}
+# start-of-frame markers (baseline, extended, progressive, lossless,
+# arithmetic): not DHT C4, JPG C8 or DAC CC
+_SOF = {0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD,
+        0xCE, 0xCF}
+
+
+def _jpeg_info(path, f) -> Tuple[int, int, str]:
+    """Walk a JPEG's marker segments to its start-of-frame header."""
+    f.seek(2)
+    while True:
+        b = f.read(1)
+        if not b:
+            break
+        if b != b"\xff":
+            continue
+        marker = f.read(1)
+        while marker == b"\xff":                  # fill bytes
+            marker = f.read(1)
+        if not marker:
+            break
+        m = marker[0]
+        if m == 0x01 or 0xD0 <= m <= 0xD8:          # no length
+            continue
+        if m in (0xD9, 0xDA):                       # EOI, or scan data
+            break
+        head = f.read(2)
+        if len(head) < 2:
+            break
+        length = int.from_bytes(head, "big")
+        if m in _SOF:
+            s = f.read(length - 2)
+            if len(s) < 6:
+                break
+            bits, h, w, layers = (s[0], int.from_bytes(s[1:3], "big"),
+                                  int.from_bytes(s[3:5], "big"), s[5])
+            if bits != 8 or layers not in _JPEG_MODES:
+                raise DecodeError(f"{path}: jpeg image with {bits}-bit "
+                                  f"samples and {layers} components")
+            return w, h, _JPEG_MODES[layers]
+        f.seek(length - 2, 1)
+    raise DecodeError(f"{path}: jpeg image without a frame header")
+
+
+def image_info(path) -> Tuple[int, int, str, str]:
+    """``(width, height, mode, format)`` of a JPEG or PNG from its header
+    alone (no decode), as PIL's ``Image.open`` reports ``size``, ``mode``
+    and ``format``: JPEG ``L`` / ``RGB`` / ``CMYK`` by component count,
+    PNG by bit depth and colour type.  Any other format, or a header that
+    cannot be read, raises :class:`DecodeError` naming the file."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+        if head.startswith(b"\xff\xd8"):
+            return (*_jpeg_info(path, f), "JPEG")
+        if head.startswith(PNG_SIGNATURE):
+            ihdr = f.read(25)
+            if len(ihdr) == 25 and ihdr[4:8] == b"IHDR":
+                w, h, depth, colour = struct.unpack(">IIBB", ihdr[8:18])
+                mode = _PNG_MODES.get((depth, colour))
+                if mode is not None:
+                    return w, h, mode, "PNG"
+            raise DecodeError(f"{path}: png image with an unreadable "
+                              "header")
+    raise DecodeError(f"{path}: {image_format(path)} image — the port "
+                      "reads JPEG and PNG only (no PIL fallback)")
+
+
+def load_image(path: Path, size: native.Size) -> np.ndarray:
+    """Decode -> RGB -> PIL-exact bilinear resize to ``size`` (an int S for
+    S x S, or ``(width, height)``), uint8: the JAX package's
+    ``load_image`` (PIL's ``convert('RGB')`` + ``resize(BILINEAR)``) for
+    the formats the port decodes."""
+    return decode_raw([Path(path)], size)[0]
 
 
 def decode_all(paths: Sequence[Optional[Path]], image_size: int,
@@ -104,11 +178,13 @@ def decode_all(paths: Sequence[Optional[Path]], image_size: int,
 
 
 def decode_raw(paths: Sequence[Optional[Path]],
-               image_size: int) -> np.ndarray:
+               image_size: native.Size) -> np.ndarray:
     """The uncached decode behind :func:`decode_all` (and behind each chunk
     of the cache's build — it must never re-enter the cache).  JPEGs
-    decode together on the native decoder's threads; PNGs one by one."""
-    out = np.zeros((len(paths), image_size, image_size, 3), np.uint8)
+    decode together on the native decoder's threads; PNGs one by one.
+    ``image_size``: an int S (S x S) or ``(width, height)``."""
+    w, h = native.target_size(image_size)
+    out = np.zeros((len(paths), h, w, 3), np.uint8)
     jpegs: List[int] = []
     for i, p in enumerate(paths):
         if p is None:

@@ -8,6 +8,10 @@ ignored), grayscale is replicated, and a low-bit grayscale sample is
 scaled to 0–255 as PIL's ``L;1/2/4`` unpackers do.  Anything else
 (16-bit samples, interlaced images, a bad CRC or stream) raises
 :class:`PNGError` naming the file.
+
+:func:`write_png` writes 8-bit RGB (the standardizer's ``.png`` outputs
+and the evaluation plots): each row Up-filtered, zlib level 6.  Its
+pixels are what PIL's writer would store; its bytes are not PIL's.
 """
 
 from __future__ import annotations
@@ -138,3 +142,28 @@ def read_png(path) -> np.ndarray:
         grey = samples.reshape(h, w, -1)[..., 0]
         return np.repeat(grey[..., None], 3, axis=2)
     return np.ascontiguousarray(samples[..., :3])
+
+
+def _chunk(ctype: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + ctype + body
+            + struct.pack(">I", zlib.crc32(ctype + body)))
+
+
+def write_png(path, img: np.ndarray) -> None:
+    """Write one (H, W, 3) uint8 RGB image as an 8-bit, non-interlaced
+    PNG: every row Up-filtered (its difference from the row above, which
+    keeps the flat regions of a plot to runs of zeros), zlib level 6."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3 or 0 in img.shape:
+        raise ValueError(f"write_png takes a non-empty (H, W, 3) uint8 "
+                         f"image, got {img.shape}")
+    h, w, _ = img.shape
+    rows = img.reshape(h, w * 3)
+    up = rows.copy()
+    up[1:] -= rows[:-1]                       # uint8 wraps: mod 256
+    raw = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    Path(path).write_bytes(
+        SIGNATURE + _chunk(b"IHDR", header)
+        + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+        + _chunk(b"IEND", b""))

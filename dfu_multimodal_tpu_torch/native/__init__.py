@@ -24,7 +24,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -97,12 +97,13 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_build.build_host(
             SOURCE, f"dfu_decode_{name}", _flags(name))))
         lib.resize_rgb.argtypes = [_U8P, ctypes.c_int, ctypes.c_int, _U8P,
-                                   ctypes.c_int]
+                                   ctypes.c_int, ctypes.c_int]
         lib.resize_rgb.restype = None
         if name != "none":
             lib.decode_jpegs_resized.argtypes = [
                 ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
-                _U8P, ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+                ctypes.c_int, _U8P, ctypes.POINTER(ctypes.c_int),
+                ctypes.c_int]
             lib.decode_jpegs_resized.restype = None
             lib.encode_jpeg.argtypes = [_U8P, ctypes.c_int, ctypes.c_int,
                                         ctypes.c_int, ctypes.c_char_p]
@@ -124,40 +125,50 @@ def _u8(a: np.ndarray):
     return a.ctypes.data_as(_U8P)
 
 
-def decode_jpegs_resized(paths: Sequence[str], image_size: int,
+Size = Union[int, Tuple[int, int]]
+
+
+def target_size(size: Size) -> Tuple[int, int]:
+    """An ``int`` S (a square S x S) or PIL's ``(width, height)`` ->
+    ``(width, height)``, each positive."""
+    w, h = (size, size) if isinstance(size, (int, np.integer)) else size
+    if w <= 0 or h <= 0:
+        raise ValueError(f"target size must be positive, got {size}")
+    return int(w), int(h)
+
+
+def decode_jpegs_resized(paths: Sequence[str], size: Size,
                          threads: int = 0
                          ) -> Tuple[np.ndarray, np.ndarray]:
-    """Threaded decode + PIL-BILINEAR-exact resize to ``(N, S, S, 3)``
-    uint8.  Returns ``(images, status)``: ``status[i]`` is 0 on success,
-    1 if the file cannot be opened, 2 if it is not a JPEG or is corrupt,
-    3 for a CMYK / YCCK JPEG, 4 if the GPU decoder failed."""
-    if image_size <= 0:
-        raise ValueError(f"image_size must be positive, got {image_size}")
+    """Threaded decode + PIL-BILINEAR-exact resize to ``(N, H, W, 3)``
+    uint8, ``size`` an int S (S x S) or ``(W, H)``.  Returns ``(images,
+    status)``: ``status[i]`` is 0 on success, 1 if the file cannot be
+    opened, 2 if it is not a JPEG or is corrupt, 3 for a CMYK / YCCK JPEG,
+    4 if the GPU decoder failed."""
+    w, h = target_size(size)
     n = len(paths)
-    out = np.zeros((n, image_size, image_size, 3), np.uint8)
+    out = np.zeros((n, h, w, 3), np.uint8)
     status = np.zeros((n,), np.int32)
     if n == 0:
         return out, status
     lib = _need_jpeg(f"decoding {paths[0]}")
     arr = (ctypes.c_char_p * n)(*[str(p).encode() for p in paths])
     lib.decode_jpegs_resized(
-        arr, n, image_size, _u8(out),
+        arr, n, h, w, _u8(out),
         status.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), threads)
     return out, status
 
 
-def resize_rgb(img: np.ndarray, image_size: int) -> np.ndarray:
-    """PIL's ``Image.resize((S, S), BILINEAR)`` of one (H, W, 3) uint8
-    image, bit for bit."""
+def resize_rgb(img: np.ndarray, size: Size) -> np.ndarray:
+    """PIL's ``Image.resize(size, BILINEAR)`` of one (H, W, 3) uint8
+    image, bit for bit; ``size`` an int S (S x S) or ``(W, H)``."""
     img = np.ascontiguousarray(img, np.uint8)
-    if img.ndim != 3 or img.shape[2] != 3 or 0 in img.shape \
-            or image_size <= 0:
+    if img.ndim != 3 or img.shape[2] != 3 or 0 in img.shape:
         raise ValueError(f"resize_rgb takes a non-empty (H, W, 3) uint8 "
-                         f"image and a positive size, got {img.shape}, "
-                         f"{image_size}")
-    h, w, _ = img.shape
-    out = np.empty((image_size, image_size, 3), np.uint8)
-    _load().resize_rgb(_u8(img), h, w, _u8(out), image_size)
+                         f"image, got {img.shape}")
+    w, h = target_size(size)
+    out = np.empty((h, w, 3), np.uint8)
+    _load().resize_rgb(_u8(img), img.shape[0], img.shape[1], _u8(out), h, w)
     return out
 
 

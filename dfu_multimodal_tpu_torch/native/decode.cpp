@@ -14,14 +14,15 @@
 //                       library).
 //
 // The resize reproduces PIL's BILINEAR resample exactly (torchvision's
-// Resize((S, S)) on a PIL image): a separable two-pass triangle filter
+// Resize((S, S)) on a PIL image, and PIL's resize((W, H)) for the
+// standardizer's aspect-kept targets): a separable two-pass triangle filter
 // whose support widens with the downscale factor (and stays 1 on an
 // upscale), coefficients quantized to 22-bit fixed point, each pass
 // rounding to uint8.
 //
 // C ABI for ctypes:
-//   decode_jpegs_resized(paths, n, size, out, status, threads)
-//   resize_rgb(src, h, w, dst, size)
+//   decode_jpegs_resized(paths, n, out_h, out_w, out, status, threads)
+//   resize_rgb(src, h, w, dst, out_h, out_w)
 //   encode_jpeg(rgb, h, w, quality, path) -> 0 on success
 
 #include <atomic>
@@ -142,17 +143,20 @@ void resample_vertical(const uint8_t* src, int in_h, int w,
   }
 }
 
-// (h, w, 3) → (size, size, 3); the loader skips the no-op resize.
-void resize(const uint8_t* rgb, int h, int w, uint8_t* out, int size) {
-  if (w == size && h == size) {
-    memcpy(out, rgb, size_t(size) * size * 3);
+// (h, w, 3) → (out_h, out_w, 3).  An axis whose size does not change
+// goes through the pass as well: at scale 1 its window is the pixel
+// itself with weight 1, so the pass copies it, as PIL's skipped pass.
+void resize(const uint8_t* rgb, int h, int w, uint8_t* out, int out_h,
+            int out_w) {
+  if (w == out_w && h == out_h) {
+    memcpy(out, rgb, size_t(h) * w * 3);
     return;
   }
-  AxisCoeffs ch = precompute(w, size);
-  AxisCoeffs cv = precompute(h, size);
-  std::vector<uint8_t> tmp(size_t(h) * size * 3);
-  resample_horizontal(rgb, h, w, tmp.data(), size, ch);
-  resample_vertical(tmp.data(), h, size, out, size, cv);
+  AxisCoeffs ch = precompute(w, out_w);
+  AxisCoeffs cv = precompute(h, out_h);
+  std::vector<uint8_t> tmp(size_t(h) * out_w * 3);
+  resample_horizontal(rgb, h, w, tmp.data(), out_w, ch);
+  resample_vertical(tmp.data(), h, out_w, out, out_h, cv);
 }
 
 // ---------------------------------------------------------------- decode
@@ -176,7 +180,7 @@ void on_fatal(j_common_ptr cinfo) {
 void on_message(j_common_ptr, int) {}
 
 struct Decoder {
-  int decode(const char* path, int size, uint8_t* out) {
+  int decode(const char* path, int out_h, int out_w, uint8_t* out) {
     FILE* f = fopen(path, "rb");
     if (!f) return 1;
     jpeg_decompress_struct cinfo;
@@ -215,7 +219,7 @@ struct Decoder {
     jpeg_finish_decompress(&cinfo);
     jpeg_destroy_decompress(&cinfo);
     fclose(f);
-    resize(rgb.data(), h, w, out, size);
+    resize(rgb.data(), h, w, out, out_h, out_w);
     return 0;
   }
 };
@@ -295,7 +299,7 @@ struct Decoder {
     if (stream) cudaStreamDestroy(stream);
   }
 
-  int decode(const char* path, int size, uint8_t* out) {
+  int decode(const char* path, int out_h, int out_w, uint8_t* out) {
     std::vector<uint8_t> data;
     if (!read_file(path, &data)) return 1;
     if (!handle()) return 4;
@@ -345,7 +349,7 @@ struct Decoder {
         rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = host[i];
       host.swap(rgb);
     }
-    resize(host.data(), h, w, out, size);
+    resize(host.data(), h, w, out, out_h, out_w);
     return 0;
   }
 };
@@ -417,17 +421,18 @@ int encode(const uint8_t* rgb, int h, int w, int quality, const char* path) {
 extern "C" {
 
 // The PIL-exact BILINEAR resize of one (h, w, 3) uint8 image into
-// dst (size, size, 3).
-void resize_rgb(const uint8_t* src, int h, int w, uint8_t* dst, int size) {
-  resize(src, h, w, dst, size);
+// dst (out_h, out_w, 3).
+void resize_rgb(const uint8_t* src, int h, int w, uint8_t* dst, int out_h,
+                int out_w) {
+  resize(src, h, w, dst, out_h, out_w);
 }
 
 #if defined(DFU_JPEG_LIBJPEG) || defined(DFU_JPEG_NVJPEG)
 
-// Decode n JPEGs, resize each to (size, size, 3) RGB uint8 into
-// out[i * size*size*3]; status[i] as above.  `threads` <= 0 uses the
+// Decode n JPEGs, resize each to (out_h, out_w, 3) RGB uint8 into
+// out[i * out_h*out_w*3]; status[i] as above.  `threads` <= 0 uses the
 // route's default: every hardware thread for libjpeg, one for nvJPEG.
-void decode_jpegs_resized(const char** paths, int n, int size,
+void decode_jpegs_resized(const char** paths, int n, int out_h, int out_w,
                           uint8_t* out, int* status, int threads) {
   if (threads <= 0) {
 #if defined(DFU_JPEG_NVJPEG)
@@ -441,13 +446,14 @@ void decode_jpegs_resized(const char** paths, int n, int size,
 #endif
   }
   if (threads > n) threads = n > 0 ? n : 1;
-  size_t stride = size_t(size) * size * 3;
+  size_t stride = size_t(out_h) * out_w * 3;
   std::atomic<int> next{0};
   auto worker = [&]() {
     Decoder dec;
     int i;
     while ((i = next.fetch_add(1)) < n)
-      status[i] = dec.decode(paths[i], size, out + size_t(i) * stride);
+      status[i] = dec.decode(paths[i], out_h, out_w,
+                             out + size_t(i) * stride);
   };
   if (threads == 1) {
     worker();

@@ -13,8 +13,10 @@ use, against the JAX package.
   ``load_pt`` both ways, the argparse glue, and the tiny models' forward
   and one train step through the weight bridge, each against JAX.
 - The slice's modules import, and decode a JPEG and a PNG, in a process
-  where PIL, torchvision, jax, flax, optax and the JAX package cannot be
-  imported.
+  where PIL, torchvision, jax, flax, optax, matplotlib, scikit-learn,
+  OpenCV and the JAX package cannot be imported; there a raw download is
+  organised, standardized and evaluated by ``extended_metrics --device
+  cpu``.
 """
 
 import argparse
@@ -250,7 +252,11 @@ def test_argparse_glue_matches_jax(argv, monkeypatch):
     """The same argv through both packages' add_common_args gives equal
     TrainConfig and DataConfig fields (the port adds only --device), and
     the same help text for every shared flag."""
-    monkeypatch.delenv("DFU_CACHE_DIR", raising=False)
+    # data_config_from_args exports --cache-dir process-wide: set the
+    # variable through monkeypatch first, so teardown unsets it again and
+    # later tests in this worker do not decode into a relative cache dir
+    monkeypatch.setenv("DFU_CACHE_DIR", "")
+    monkeypatch.delenv("DFU_CACHE_DIR")
     parsers = []
     for mod in (jax_config, port_config):
         p = argparse.ArgumentParser()
@@ -355,8 +361,9 @@ def test_tiny_models_match_jax(name):
 
 NO_PIL_SCRIPT = r"""
 import sys
-for name in ("PIL", "torchvision", "jax", "jaxlib", "flax", "optax",
-             "dfu_multimodal_tpu"):
+BLOCKED = ("PIL", "torchvision", "jax", "jaxlib", "flax", "optax",
+           "matplotlib", "sklearn", "cv2", "dfu_multimodal_tpu")
+for name in BLOCKED:
     sys.modules[name] = None            # any import of them now fails
 import importlib, pkgutil
 from pathlib import Path
@@ -367,19 +374,68 @@ for mod in ("native", "config", "data.layout", "data.pairing",
             "data.synthetic", "eval.metrics", "eval.drift",
             "utils.artifacts", "models.tiny", "models.zoo",
             "cli._train_common", "cli.train_rgb_only",
-            "cli.train_thermal_only", "cli.train_multimodal_fusion"):
+            "cli.train_thermal_only", "cli.train_multimodal_fusion",
+            "tools.splits", "tools.organize", "tools.verify",
+            "tools.analyze", "tools.standardize", "tools.prepare_legacy",
+            "eval.threshold", "eval.bootstrap", "eval.calibration",
+            "eval.deployment", "eval.plots", "eval.tta",
+            "cli.organize_clean_dataset", "cli.dataset_tools",
+            "cli.extended_metrics", "cli.test_time_augmentation",
+            "cli.ablation_study"):
     importlib.import_module(f"dfu_multimodal_tpu_torch.{mod}")
+import torch
 from dfu_multimodal_tpu_torch import native
+from dfu_multimodal_tpu_torch.cli import (dataset_tools, extended_metrics,
+                                          organize_clean_dataset)
 from dfu_multimodal_tpu_torch.data.loader import decode_raw
+from dfu_multimodal_tpu_torch.models import zoo
+from dfu_multimodal_tpu_torch.utils.checkpoint import save_checkpoint
 tmp = Path(sys.argv[1])
 img = (np.arange(24 * 30 * 3) % 251).astype(np.uint8).reshape(24, 30, 3)
 native.encode_jpeg(img, tmp / "a.jpg", 90)
 (tmp / "b.png").write_bytes(bytes.fromhex(sys.argv[2]))
 out = decode_raw([tmp / "a.jpg", tmp / "b.png"], 16)
 assert out.shape == (2, 16, 16, 3) and out[0].any() and out[1].any()
+
+# a raw download -> an organised tree -> standardized -> evaluated
+rng = np.random.default_rng(0)
+dirs = {"rgb": ("DFU_RGB/Patches/Normal", "DFU_RGB/Patches/Abnormal"),
+        "thermal": ("DFU_Thermal/ThermoDataBase/train/Control Group",
+                    "DFU_Thermal/ThermoDataBase/train/DM Group")}
+for pair in dirs.values():
+    for c, d in enumerate(pair):
+        (tmp / d).mkdir(parents=True)
+        for i in range(8):
+            im = rng.integers(0, 256, (20, 28, 3), np.uint8)
+            im[..., 0] = 60 + 150 * c
+            native.encode_jpeg(im, tmp / d / f"{i}.jpg", 90)
+(tmp / "DFU_RGB/TestSet").mkdir()
+(tmp / "DFU_RGB/TestSet/x.png").write_bytes(bytes.fromhex(sys.argv[2]))
+res = organize_clean_dataset.main([
+    "--rgb-source", str(tmp / "DFU_RGB"), "--thermal-source",
+    str(tmp / "DFU_Thermal"), "--output", str(tmp / "data")])
+assert res["rgb"].healthy == 8 and res["rgb"].ulcer == 9
+std = dataset_tools.main(["standardize", "--src", str(tmp / "data" / "rgb"),
+                          "--dst", str(tmp / "std" / "rgb"), "--target",
+                          "16", "--verify"])
+assert std == {"processed": 17, "errors": 0, "ok": 17, "bad": 0}, std
+module, _ = zoo.build("tiny_rgb")
+zoo.init_model(module, torch.Generator().manual_seed(0))
+save_checkpoint(tmp / "logs" / "checkpoints_rgb_only", epoch=1,
+                model_state=module.state_dict(), opt_state=None, val_f1=0.5,
+                history={}, extra_meta={"model": "tiny_rgb"})
+extended_metrics.main(["--data-dir", str(tmp / "std"), "--checkpoint-root",
+                       str(tmp / "logs"), "--models", "rgb_only",
+                       "--image-size", "16", "--compute-dtype", "float32",
+                       "--calibration", "--bootstrap", "10", "--device",
+                       "cpu"])
+em = tmp / "logs" / "extended_metrics" / "rgb_only"
+assert sorted(p.name for p in em.iterdir()) == [
+    "confusion_matrix_RGB-Only.png", "pr_curve_RGB-Only.png",
+    "reliability_diagram_RGB-Only.png", "results.pt",
+    "roc_curve_RGB-Only.png"], sorted(em.iterdir())
 loaded = [m for m, v in sys.modules.items() if v is not None
-          and m.split(".")[0] in ("PIL", "torchvision", "jax", "jaxlib",
-                                  "flax", "optax", "dfu_multimodal_tpu")]
+          and m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 print("ok")
 """
