@@ -237,9 +237,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               thermal_only, its launches); ``ablation_study --epochs 1
               --with-multimodal`` (finite F1s, its launches); the seconds
               of each step;
+14. explain — on phase 12's tree and checkpoints: K3's backward
+              (``FusedMlp``: the kernel's forward, autograd through the
+              plain version) at B = 8 in fp32 and bf16 against plain
+              autograd, each gradient within K3_GRAD_TOL of its max;
+              the Grad-CAM CLI over the three models in fp32 (the JAX
+              file names, the figures' sizes, each model's launches:
+              thermal_only K1/K2/K4/K5, multimodal those and K3, rgb_only
+              none); the multimodal CAMs (fused and strict) and
+              thermal_only's rollout and Chefer on the card and, the model
+              moved there on purpose, on the CPU (fp32, TF32 off, within
+              CAM_CARD_TOL, predictions equal), and the bf16 explanation's
+              distance from the fp32 one (recorded); ``cli/serve`` on
+              127.0.0.1:0 three times — multimodal and rgb_only in bf16
+              with ``--explain`` behind one router (JPEG bytes and base64
+              JSON, probabilities equal to the eval step's on the same
+              decoded image, ``/v1/explain`` overlays decoded at the
+              submitted size, ``/healthz``, ``/metrics``,
+              ``/metrics/prometheus``, a duplicate-field 400 and an
+              unknown-model 404, p50 / p99 of 16 requests from 4 threads
+              at the client over HTTP and in the engine),
+              thermal_only ``--int8 --explain`` (int8 predictions, the
+              full-fidelity model explained), rgb_only without
+              ``--explain`` (501); ``cli/predict`` over a directory pair
+              (its rows equal to the eval step's); the phase's seconds;
 then the kernels' JSON line (times, bounds, launches, the SDPA times,
 the K6/K9 forwards' device times and SDPA's, K10's and K12's chain
-times),
+times, and phase 14's launches as ``explain_launches``),
 and the device JSON line last.
 
 Exits non-zero with no result line when no CUDA device is present.
@@ -3580,6 +3604,427 @@ def phase_artifacts(dev, d: Path) -> None:
         f"{card()})")
 
 
+# --------------------------------------------------------------- phase 14
+
+# K3's backward: FusedMlp's gradients (autograd through the plain version
+# after the kernel's forward) against plain autograd on the same inputs,
+# each gradient within K3_GRAD_TOL of its own max|g|: both backwards are
+# the same plain computation, only the forward differs.
+K3_GRAD_BATCH, K3_GRAD_TOL = 8, 1e-5
+# the kernels each model's explanation runs on the card (fp32 CLI)
+EXPLAIN_KERNELS = {"rgb_only": set(),
+                   "thermal_only": {"attn_block", "mlp_block",
+                                    "mlp_block_bwd", "qkv_attention_fwdbwd"},
+                   "multimodal": {"attn_block", "mlp_block", "mlp_block_bwd",
+                                  "qkv_attention_fwdbwd", "fused_mlp"}}
+# card fp32 (TF32 off) against the CPU: max |Δcam| of CAMs each divided by
+# its max, and the probabilities
+CAM_CARD_TOL, CAM_PROB_TOL = 1e-2, 1e-4
+CAM_SAMPLES = 2                 # per class, for the card-vs-CPU checks
+# daemon B (thermal_only --int8 --explain): the int8 blocks predict, the
+# full-fidelity blocks explain (forward and backward)
+DAEMON_B_KERNELS = {"attn_block_q8", "mlp_block_q8", "attn_block",
+                    "mlp_block", "mlp_block_bwd", "qkv_attention_fwdbwd"}
+SERVE_REQUESTS, SERVE_THREADS = 16, 4
+# a served probability against the eval step's on the same decoded image,
+# both at batch 1 (measured up to 4e-7 in bf16 on the card)
+SERVE_PROB_TOL = 1e-5
+
+
+def _k3_backward(dev) -> dict:
+    """FusedMlp forward (K3) and backward on the card against plain
+    autograd through ``fused_mlp_ref``, B = 8, fp32 and bf16; returns the
+    launches of the FusedMlp calls."""
+    from dfu_multimodal_tpu_torch.models.fusion import FusionMLP
+    head = FusionMLP().to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    launches = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        w = [t.detach() for t in fm.fusion_mlp_params(head)]
+        args = [torch.randn(K3_GRAD_BATCH, 2816, generator=gen,
+                            device=dev).to(dtype)]
+        args += [t.to(dtype) if i % 2 == 0 else t for i, t in enumerate(w)]
+        g = torch.randn(K3_GRAD_BATCH, 2, generator=gen, device=dev)
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        before = fm.fused_mlp.launches
+        out = fm.FusedMlp.apply(*leaves)
+        launches += fm.fused_mlp.launches - before
+        if fm.fused_mlp.launches != before + 1:
+            raise AssertionError("FusedMlp did not launch K3")
+        ours = torch.autograd.grad(out, leaves, g)
+        plain_leaves = [a.clone().requires_grad_(True) for a in args]
+        ref_out = fm.fused_mlp_ref(*plain_leaves)
+        ref = torch.autograd.grad(ref_out, plain_leaves, g)
+        fwd = float((out - ref_out).detach().abs().max())
+        errs = [float((a.float() - b.float()).abs().max())
+                / max(float(b.float().abs().max()), 1e-30)
+                for a, b in zip(ours, ref)]
+        log(f"[explain] K3 FusedMlp B={K3_GRAD_BATCH} {str(dtype)[6:]}: "
+            f"forward max|d| {fwd:.3e} (tolerance {KERNEL_TOL[dtype]}); "
+            f"gradients x, w1, b1, w2, b2, w3, b3 max|d|/max|g| "
+            + ", ".join(f"{e:.2e}" for e in errs)
+            + f" (tolerance {K3_GRAD_TOL})")
+        if fwd > KERNEL_TOL[dtype] or max(errs) > K3_GRAD_TOL:
+            raise AssertionError(f"FusedMlp {dtype} disagrees")
+    return launches
+
+
+def _gradcam_cli(dev, data: Path, logs: Path, out: Path) -> dict:
+    """The Grad-CAM CLI over each model in turn (fp32, its defaults),
+    with its files, sizes and launches checked; returns the launches."""
+    from dfu_multimodal_tpu_torch.cli import grad_cam_visualization as gc
+    from dfu_multimodal_tpu_torch.data.png import read_png
+    total = {}
+    for name in ("rgb_only", "thermal_only", "multimodal"):
+        _reset_launches()
+        t0 = time.perf_counter()
+        n = gc.main(["--data-dir", str(data), "--checkpoint-root", str(logs),
+                     "--output-dir", str(out), "--models", name,
+                     "--seed", "0", "--image-size", str(IMAGE),
+                     "--device", str(dev)])[name]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in _all_launches().items() if v}
+        files = sorted(p.name for p in (out / name).iterdir())
+        per_class = n // 2
+        want = sorted(f"{c}_{i:02d}.png" for c in ("healthy", "ulcer")
+                      for i in range(per_class))
+        size = gc.MULTI_SIZE if name == "multimodal" else gc.SINGLE_SIZE
+        shapes = {read_png(out / name / f).shape for f in files}
+        log(f"[explain] grad_cam_visualization {name}: {n} figures "
+            f"{files[0]}..{files[-1]}, {shapes} in {seconds:.2f} s; "
+            f"launches {launches}")
+        if (files != want or n != 8 or shapes != {(size[1], size[0], 3)}
+                or set(launches) != EXPLAIN_KERNELS[name]):
+            raise AssertionError(f"grad_cam_visualization {name}: {files}, "
+                                 f"{shapes}, launches {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _cams_card_vs_cpu(dev, data: Path, logs: Path) -> None:
+    """The multimodal CAMs (fused and strict) and thermal_only's rollout
+    and Chefer on the card and, the model moved there on purpose, on the
+    CPU: fp32 (TF32 off), the same checkpoints and samples."""
+    from dfu_multimodal_tpu_torch.cli import grad_cam_visualization as gc
+    from dfu_multimodal_tpu_torch.data.loader import (load_paired,
+                                                      load_single_modality)
+    from dfu_multimodal_tpu_torch.serve.explain import normalize_inputs
+    cases = {
+        "multimodal": load_paired(data, "test", IMAGE, strategy="pseudo",
+                                  seed=0),
+        "thermal_only": load_single_modality(data / "thermal", "test", IMAGE,
+                                             "thermal")}
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, ds in cases.items():
+            sel = np.asarray(gc._select_samples(ds.labels, CAM_SAMPLES))
+            outs = {}
+            for label, device in (("card", dev), ("cpu", "cpu")):
+                tr = Trainer(name, TrainConfig(batch_size=1,
+                                               compute_dtype="float32"),
+                             {"rgb": rgb_modality(),
+                              "thermal": thermal_modality()},
+                             device=device, image_size=IMAGE)
+                tr.restore(logs / f"checkpoints_{name}")
+                inputs = normalize_inputs(
+                    tr, {m: ds.arrays[m][sel] for m in tr.spec.inputs})
+                if name == "multimodal":
+                    outs[label] = {
+                        f"{mode} {branch}": o for mode in ("fused", "strict")
+                        for branch, o in zip(("rgb", "thermal"),
+                                             gc.multimodal_cams(
+                                                 tr, inputs, 0, mode))}
+                else:
+                    outs[label] = {method: gc._vit_branch_cam(
+                        tr, inputs, "pred", 0, method)
+                        for method in ("rollout", "chefer")}
+            if name == "multimodal":
+                _bf16_vs_fp32_cams(dev, ds, sel, logs)
+            for key, card_outs in outs["card"].items():
+                cpu_outs = outs["cpu"][key]
+                dcam = max(float(np.abs(a["cam"] - b["cam"]).max())
+                           for a, b in zip(card_outs, cpu_outs))
+                dprob = max(float(np.abs(np.asarray(a["probs"])
+                                         - np.asarray(b["probs"])).max())
+                            for a, b in zip(card_outs, cpu_outs))
+                same = all(a["pred"] == b["pred"]
+                           for a, b in zip(card_outs, cpu_outs))
+                log(f"[explain] {name} {key} card vs CPU, {len(sel)} "
+                    f"samples fp32: max |dcam| {dcam:.3e} (tolerance "
+                    f"{CAM_CARD_TOL}), max |dp| {dprob:.3e} (tolerance "
+                    f"{CAM_PROB_TOL}), predictions equal {same}")
+                if dcam > CAM_CARD_TOL or dprob > CAM_PROB_TOL or not same:
+                    raise AssertionError(f"{name} {key}: card vs CPU")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+def _bf16_vs_fp32_cams(dev, ds, sel, logs: Path) -> None:
+    """The daemon's explanation (``Explainer``, class "pred") of the same
+    multimodal samples in bf16, its serving dtype, and in fp32, on the
+    card: the difference is recorded, not held to a budget."""
+    from dfu_multimodal_tpu_torch.serve.explain import Explainer
+    outs = {}
+    for dtype in ("bfloat16", "float32"):
+        tr = Trainer("multimodal", TrainConfig(compute_dtype=dtype),
+                     {"rgb": rgb_modality(), "thermal": thermal_modality()},
+                     device=dev, image_size=IMAGE)
+        tr.restore(logs / "checkpoints_multimodal")
+        ex = Explainer(tr)
+        outs[dtype] = [ex.explain_one({m: ds.arrays[m][i]
+                                       for m in ("rgb", "thermal")})
+                       for i in sel]
+    for m in ("rgb", "thermal"):
+        d = [float(np.abs(a["cams"][m]["cam"] - b["cams"][m]["cam"]).max())
+             for a, b in zip(outs["bfloat16"], outs["float32"])]
+        log(f"[explain] multimodal {m} CAM bf16 vs fp32 on the card "
+            f"(Explainer, class pred, {len(d)} samples): max |dcam| "
+            + ", ".join(f"{v:.3e}" for v in d))
+        if not all(np.isfinite(d)):
+            raise AssertionError("bf16 CAM not finite")
+    same = [a["class_explained"] == b["class_explained"]
+            for a, b in zip(outs["bfloat16"], outs["float32"])]
+    log(f"[explain] bf16 vs fp32 explained class equal: {same}")
+
+
+def _http(url, body=None, ctype=None):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=body, headers={"Content-Type": ctype} if ctype else {})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _daemon(dev, argv):
+    """``cli/serve``'s daemon on 127.0.0.1:0 in a thread: (url, server,
+    router, thread)."""
+    from dfu_multimodal_tpu_torch.cli import serve
+    server, router, _ = serve.build_daemon(
+        argv + ["--host", "127.0.0.1", "--port", "0", "--max-batch", "4",
+                "--ignore-deployment", "--device", str(dev),
+                "--image-size", str(IMAGE)])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return f"http://127.0.0.1:{server.server_address[1]}", server, router, \
+        thread
+
+
+def _stop_daemon(server, router, thread) -> None:
+    server.shutdown()
+    server.server_close()
+    router.stop()
+    thread.join(timeout=30)
+
+
+def _serve_http(dev, data: Path, logs: Path) -> dict:
+    """The serving daemon over HTTP: multimodal and rgb_only (bf16,
+    --explain) behind one router, thermal_only --int8 --explain (int8
+    predictions, explanations of the full-fidelity restore), rgb_only
+    without --explain (501); returns daemon A's and B's launches."""
+    import base64
+    from dfu_multimodal_tpu_torch.data.loader import decode_bytes
+    from dfu_multimodal_tpu_torch.data.png import decode_png
+    jpegs = {m: sorted((data / m / "test").rglob("*.jpg"))[:4]
+             for m in ("rgb", "thermal")}
+    raw = {m: [p.read_bytes() for p in ps] for m, ps in jpegs.items()}
+    b64 = {m: [base64.b64encode(r).decode() for r in rs]
+           for m, rs in raw.items()}
+    launches = {}
+
+    _reset_launches()
+    url, *a = _daemon(dev, ["--checkpoint", str(logs / "checkpoints_multimodal"),
+                       "--checkpoint", str(logs / "checkpoints_rgb_only"),
+                       "--explain"])
+    router = a[1]
+    try:
+        # one request at a time: bucket 1, the eval step's batch below
+        for k in range(2):
+            code, body = _http(url + "/v1/predict", raw["rgb"][k],
+                               "image/jpeg")
+            res = json.loads(body)
+            step = router.engines["rgb_only"].trainer.eval_step(
+                {"rgb": decode_bytes(raw["rgb"][k], IMAGE)[None]})
+            code2, body2 = _http(url + "/v1/predict", json.dumps(
+                {"rgb": b64["rgb"][k], "thermal": b64["thermal"][k]}
+            ).encode(), "application/json")
+            res2 = json.loads(body2)
+            step2 = router.engines["multimodal"].trainer.eval_step(
+                {m: decode_bytes(raw[m][k], IMAGE)[None]
+                 for m in ("rgb", "thermal")})
+            d1 = abs(res["prob_ulcer"] - float(step["probs"][0]))
+            d2 = abs(res2["prob_ulcer"] - float(step2["probs"][0]))
+            log(f"[explain] daemon A request {k}: JPEG -> {res['model']} "
+                f"p {res['prob_ulcer']} (eval step |d| {d1:.2e}); JSON "
+                f"base64 -> {res2['model']} p {res2['prob_ulcer']} (|d| "
+                f"{d2:.2e}; tolerance {SERVE_PROB_TOL})")
+            if (code, code2) != (200, 200) or res["model"] != "rgb_only" \
+                    or res2["model"] != "multimodal" \
+                    or max(d1, d2) > SERVE_PROB_TOL:
+                raise AssertionError(f"daemon A predict: {res}, {res2}")
+        code, body = _http(url + "/v1/explain", json.dumps(
+            {"rgb": b64["rgb"][0], "thermal": b64["thermal"][0]}).encode(),
+            "application/json")
+        exp = json.loads(body)
+        shapes = {m: decode_png(base64.b64decode(e["overlay_png"])).shape
+                  for m, e in exp["explanations"].items()}
+        methods = {m: e["method"] for m, e in exp["explanations"].items()}
+        log(f"[explain] daemon A /v1/explain multimodal: {code}, class "
+            f"{exp.get('class_explained')}, methods {methods}, overlays "
+            f"{shapes}")
+        if code != 200 or shapes != {m: (IMAGE, IMAGE, 3)
+                                     for m in ("rgb", "thermal")}:
+            raise AssertionError(f"daemon A explain: {code} {exp}")
+        code, body = _http(url + "/v1/predict/multimodal", json.dumps(
+            {"image": b64["rgb"][0], "rgb": b64["rgb"][0]}).encode(),
+            "application/json")
+        code404, _ = _http(url + "/v1/predict/nope", raw["rgb"][0],
+                           "image/jpeg")
+        health = json.loads(_http(url + "/healthz")[1])
+        metrics = json.loads(_http(url + "/metrics")[1])
+        prom = _http(url + "/metrics/prometheus")[1].decode()
+        log(f"[explain] daemon A: duplicate field {code} "
+            f"{json.loads(body)['error']!r}; unknown model {code404}; "
+            f"healthz {health}; prometheus {len(prom.splitlines())} lines")
+        if (code != 400 or code404 != 404 or health["status"] != "ok"
+                or health["explain"] != ["multimodal", "rgb_only"]
+                or 'dfu_explains_total{model="multimodal"} 1' not in prom):
+            raise AssertionError("daemon A health / errors / metrics")
+        # p50 / p99 of concurrent multimodal requests (smoke figures): at
+        # the client (HTTP, base64 and the two JPEG decodes included) and
+        # in the engine (submit to result)
+        body = json.dumps({"rgb": b64["rgb"][1],
+                           "thermal": b64["thermal"][1]}).encode()
+
+        def timed(_):
+            t0 = time.perf_counter()
+            code = _http(url + "/v1/predict/multimodal", body,
+                         "application/json")[0]
+            return code, 1e3 * (time.perf_counter() - t0)
+
+        with ThreadPoolExecutor(SERVE_THREADS) as ex:
+            codes, client_ms = zip(*ex.map(timed, range(SERVE_REQUESTS)))
+        lat = json.loads(_http(url + "/metrics")[1])["models"][
+            "multimodal"]["latency_ms"]
+        c50, c99 = np.percentile(client_ms, [50, 99])
+        log(f"[explain] daemon A multimodal bf16, {SERVE_REQUESTS} requests "
+            f"from {SERVE_THREADS} threads: HTTP end to end at the client "
+            f"p50 {c50:.2f} ms, p99 {c99:.2f} ms; engine (submit to "
+            f"result) p50 {lat['p50']:.2f} ms, p99 {lat['p99']:.2f} ms "
+            f"(smoke figures; {card()})")
+        if set(codes) != {200}:
+            raise AssertionError(f"daemon A load: {codes}")
+        del metrics
+    finally:
+        _stop_daemon(*a)
+    torch.cuda.synchronize()
+    launches["A"] = {k: v for k, v in _all_launches().items() if v}
+
+    _reset_launches()
+    url, *b = _daemon(dev, ["--checkpoint", str(logs / "checkpoints_thermal_only"),
+                       "--int8", "--explain"])
+    try:
+        code, body = _http(url + "/v1/predict", raw["thermal"][0],
+                           "image/jpeg")
+        code2, body2 = _http(url + "/v1/explain", raw["thermal"][0],
+                             "image/jpeg")
+        exp = json.loads(body2)
+        shape = decode_png(base64.b64decode(
+            exp["explanations"]["thermal"]["overlay_png"])).shape
+        log(f"[explain] daemon B thermal_only int8: predict {code} "
+            f"{json.loads(body)}; explain {code2} method "
+            f"{exp['explanations']['thermal']['method']} overlay {shape}")
+        if (code, code2) != (200, 200) or shape != (IMAGE, IMAGE, 3):
+            raise AssertionError("daemon B")
+    finally:
+        _stop_daemon(*b)
+    torch.cuda.synchronize()
+    launches["B"] = {k: v for k, v in _all_launches().items() if v}
+    if not DAEMON_B_KERNELS <= set(launches["B"]):
+        raise AssertionError(f"daemon B launches {launches['B']}")
+
+    url, *c = _daemon(dev, ["--checkpoint", str(logs / "checkpoints_rgb_only")])
+    try:
+        code, body = _http(url + "/v1/explain", raw["rgb"][0], "image/jpeg")
+        log(f"[explain] daemon C rgb_only without --explain: /v1/explain "
+            f"{code} {json.loads(body)['error']!r}")
+        if code != 501:
+            raise AssertionError("daemon C: no 501")
+    finally:
+        _stop_daemon(*c)
+    log(f"[explain] daemon launches A (multimodal + rgb_only bf16) "
+        f"{launches['A']}, B (thermal_only int8 + explain) {launches['B']}")
+    if not EXPLAIN_KERNELS["multimodal"] <= set(launches["A"]):
+        raise AssertionError(f"daemon A launches {launches['A']}")
+    return launches
+
+
+def _predict_cli(dev, data: Path, logs: Path, out: Path) -> None:
+    """``cli/predict`` over a directory pair: its rows against the eval
+    step's on the same decoded images and batches."""
+    from dfu_multimodal_tpu_torch.cli import predict
+    from dfu_multimodal_tpu_torch.data.layout import list_images
+    from dfu_multimodal_tpu_torch.data.loader import decode_all
+    ckpt = logs / "checkpoints_multimodal"
+    rgb, thermal = data / "rgb" / "test", data / "thermal" / "test"
+    res = predict.main(["--checkpoint", str(ckpt), "--images", str(rgb),
+                        "--thermal-images", str(thermal), "--batch-size",
+                        "8", "--output", str(out / "preds.csv"),
+                        "--explain-dir", str(out / "explain"),
+                        "--drift-check", "--ignore-deployment",
+                        "--image-size", str(IMAGE), "--device", str(dev)])
+    tr = Trainer("multimodal", TrainConfig(batch_size=8, eval_batch_size=8),
+                 {"rgb": rgb_modality(), "thermal": thermal_modality()},
+                 device=dev, image_size=IMAGE)
+    tr.restore(ckpt)
+    n = len(res)
+    ds = ArrayDataset({"rgb": decode_all(list_images(rgb)[:n], IMAGE),
+                       "thermal": decode_all(list_images(thermal)[:n],
+                                             IMAGE)}, np.zeros(n, np.int32))
+    _, ref = tr.run_eval_epoch(ds)
+    probs = np.asarray([p for p, _ in res.values()])
+    preds = [d for _, d in res.values()]
+    err = float(np.abs(probs - ref["y_probs"]).max())
+    overlays = sorted((out / "explain").iterdir())
+    rows = (out / "preds.csv").read_text().splitlines()
+    log(f"[explain] predict CLI multimodal bf16: {n} rows, max |dp| vs the "
+        f"eval step {err:.2e}, predictions equal "
+        f"{preds == ref['y_pred'].tolist()}, {len(overlays)} overlays, CSV "
+        f"{len(rows)} lines")
+    if (err > 1e-6 or preds != ref["y_pred"].tolist()
+            or len(overlays) != 2 * n or len(rows) != n + 1):
+        raise AssertionError("predict CLI")
+
+
+def phase_explain(dev, d: Path) -> dict:
+    """Explanations on the card, on phase 12's tree and checkpoints
+    (``d``): K3's backward, the Grad-CAM CLI, the CAMs card against CPU,
+    the serving daemon over HTTP and the predict CLI.  Returns the
+    launches of the explain paths by kernel."""
+    data, logs = d / "data", d / "logs"
+    t0 = time.perf_counter()
+    launches = {"fused_mlp": _k3_backward(dev)}
+    for k, v in _gradcam_cli(dev, data, logs, d / "gradcam").items():
+        launches[k] = launches.get(k, 0) + v
+    _cams_card_vs_cpu(dev, data, logs)
+    for daemon in _serve_http(dev, data, logs).values():
+        for k, v in daemon.items():
+            launches[k] = launches.get(k, 0) + v
+    _predict_cli(dev, data, logs, d / "predict")
+    log(f"[explain] phase 14 in {time.perf_counter() - t0:.2f} s (host "
+        f"clock; {card()}); launches {launches}")
+    return launches
+
+
 # ---------------------------------------------------------------- bounds
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
@@ -3721,6 +4166,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=build) as d:
         phase_train_disk(dev, Path(d))
         phase_artifacts(dev, Path(d))
+        explain = phase_explain(dev, Path(d))
     for mod in ("jax", "flax", "optax", "PIL", "torchvision", "matplotlib",
                 "sklearn", "cv2", "dfu_multimodal_tpu"):
         if mod in sys.modules:
@@ -3752,7 +4198,8 @@ def main() -> int:
                 "source": f"dfu_multimodal_tpu_torch/ops/csrc/{src}",
                 "replaces": f"dfu_multimodal_tpu/ops/{tpu}",
                 "launches": launches[k], "library_ms": None, **times[k],
-                **bounds[k]}
+                **bounds[k], **({"explain_launches": explain[k]}
+                                if k in explain else {})}
                for k, (src, tpu) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

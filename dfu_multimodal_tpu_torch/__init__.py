@@ -7,8 +7,10 @@ their train steps and ``Trainer.fit`` with the reference's checkpoint
 contract (JAX checkpoints load too), the three train CLIs reading the
 reference's image tree from disk, the dataset tools that build that tree
 from the raw downloads, the evaluation CLIs (extended metrics, TTA, the
-ablation harness), and the thermal_only int8 serving path (dynamic and
-calibrated static activation scales).
+ablation harness), Grad-CAM and transformer attribution, the serving
+daemon with per-request explanations and the batch predict CLI, and the
+thermal_only int8 serving path (dynamic and calibrated static activation
+scales).
 
 - ``ops``      hand-written Hopper kernels (``ops/csrc/*.cu``, built with
                nvcc at first use) beside their plain PyTorch versions;
@@ -16,7 +18,8 @@ calibrated static activation scales).
                kernel; the ViT blocks' autograd Functions
 - ``models``   ResNet50 (torchvision layout), ViT-B/16 (timm layout) with
                bf16/fp32 or int8 encoder blocks and the int8 converters,
-               the ViT and fusion classifiers and the model registry
+               the ViT and fusion classifiers and the model registry, each
+               forward's Grad-CAM tap points
 - ``native``   the JPEG decoder / encoder and the PIL-exact resize
                (``decode.cpp``, built with g++ at first use; libjpeg, or
                nvJPEG on a GPU host without libjpeg)
@@ -27,14 +30,16 @@ calibrated static activation scales).
 - ``eval``     confusion counts, accuracy and F1; the host metrics; the
                drift baseline; operating points, bootstrap CIs,
                calibration, deployment.json, TTA and the evaluation
-               figures (drawn by the port)
+               figures (drawn by the port); the drift monitor; Grad-CAM,
+               attention rollout and Chefer relevance
 - ``train``    the Trainer (eval and train steps, epochs, ``fit``,
                ``restore``) and AdamW with its learning-rate schedules
 - ``utils``    checkpoints (``.pt`` files, the JAX package's msgpack ones
                read without flax), result artifacts (``test_results.pt``),
                throughput meter and profiler trace
-- ``serve``    the micro-batching ServingEngine and the int8 rebuild
-               (``quantize_for_serving``)
+- ``serve``    the micro-batching ServingEngine, the model router, the
+               int8 rebuild (``quantize_for_serving``), the explainer,
+               the HTTP daemon and its Prometheus text
 - ``tools``    the JAX -> port weight and optimizer-state bridge; the
                dataset tools (organize, splits, verify, analyze,
                standardize, the legacy split)
@@ -43,7 +48,8 @@ calibrated static activation scales).
 - ``cli``      ``train_rgb_only``, ``train_thermal_only``,
                ``train_multimodal_fusion``, ``organize_clean_dataset``,
                ``dataset_tools``, ``extended_metrics``,
-               ``test_time_augmentation``, ``ablation_study``
+               ``test_time_augmentation``, ``ablation_study``,
+               ``grad_cam_visualization``, ``serve``, ``predict``
 
 No module imports jax, flax, PIL, torchvision, matplotlib, scikit-learn,
 OpenCV or the JAX package.

@@ -30,7 +30,7 @@ from dfu_multimodal_tpu_torch import native
 from dfu_multimodal_tpu_torch.data import pairing as pairing_mod
 from dfu_multimodal_tpu_torch.data.layout import SplitIndex, scan_split
 from dfu_multimodal_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE
-from dfu_multimodal_tpu_torch.data.png import read_png
+from dfu_multimodal_tpu_torch.data.png import decode_png, read_png
 
 _JPEG_STATUS = {1: "cannot be opened", 2: "is corrupt or not a baseline/"
                 "progressive JPEG", 3: "is a CMYK/YCCK JPEG, which the "
@@ -63,7 +63,11 @@ def image_format(path) -> str:
     """The file's format from its first bytes: ``"jpeg"``, ``"png"``,
     ``"bmp"``, ``"tiff"``, ``"gif"`` or ``"unknown"``."""
     with open(path, "rb") as f:
-        head = f.read(8)
+        return bytes_format(f.read(8))
+
+
+def bytes_format(head: bytes) -> str:
+    """:func:`image_format` of an image's first bytes."""
     if head.startswith(b"\xff\xd8"):
         return "jpeg"
     if head.startswith(PNG_SIGNATURE):
@@ -159,6 +163,28 @@ def load_image(path: Path, size: native.Size) -> np.ndarray:
     ``load_image`` (PIL's ``convert('RGB')`` + ``resize(BILINEAR)``) for
     the formats the port decodes."""
     return decode_raw([Path(path)], size)[0]
+
+
+def decode_bytes(data: bytes, size: native.Size) -> np.ndarray:
+    """:func:`load_image` of an image held in memory (an upload): a JPEG
+    through the native decoder's in-memory entry, a PNG through
+    ``data/png.py``, then the same PIL-exact resize.  Any other format
+    raises :class:`DecodeError` naming it."""
+    fmt = bytes_format(data[:8])
+    if fmt == "jpeg":
+        img, status = native.decode_jpeg_bytes_resized(data, size)
+        if status:
+            raise DecodeError(f"jpeg image {_JPEG_STATUS.get(status)} "
+                              f"(status {status})")
+        return img
+    if fmt == "png":
+        try:
+            return native.resize_rgb(decode_png(data, "uploaded image"),
+                                     size)
+        except ValueError as e:
+            raise DecodeError(str(e)) from e
+    raise DecodeError(f"{fmt} image — the port decodes JPEG and PNG only "
+                      "(no PIL fallback)")
 
 
 def decode_all(paths: Sequence[Optional[Path]], image_size: int,

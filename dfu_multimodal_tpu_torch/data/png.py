@@ -7,10 +7,12 @@ alpha is dropped (not composited), a palette is expanded (``tRNS`` is
 ignored), grayscale is replicated, and a low-bit grayscale sample is
 scaled to 0–255 as PIL's ``L;1/2/4`` unpackers do.  Anything else
 (16-bit samples, interlaced images, a bad CRC or stream) raises
-:class:`PNGError` naming the file.
+:class:`PNGError` naming the file.  :func:`decode_png` reads the same
+from bytes in memory (an uploaded image).
 
-:func:`write_png` writes 8-bit RGB (the standardizer's ``.png`` outputs
-and the evaluation plots): each row Up-filtered, zlib level 6.  Its
+:func:`write_png` writes 8-bit RGB (the standardizer's ``.png`` outputs,
+the evaluation plots, and, to a bytes buffer, the daemon's explanation
+overlays): each row Up-filtered, zlib level 6.  Its
 pixels are what PIL's writer would store; its bytes are not PIL's.
 """
 
@@ -82,7 +84,11 @@ def _unpack_bits(rows: np.ndarray, w: int, depth: int) -> np.ndarray:
 
 def read_png(path) -> np.ndarray:
     """Decode the PNG at ``path`` to (H, W, 3) uint8 (module doc)."""
-    data = Path(path).read_bytes()
+    return decode_png(Path(path).read_bytes(), path)
+
+
+def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
+    """Decode PNG ``data`` to (H, W, 3) uint8; errors name ``path``."""
     if not data.startswith(SIGNATURE):
         raise PNGError(f"{path}: not a PNG file")
     pos, header, palette, idat = len(SIGNATURE), None, None, []
@@ -152,7 +158,8 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
 def write_png(path, img: np.ndarray) -> None:
     """Write one (H, W, 3) uint8 RGB image as an 8-bit, non-interlaced
     PNG: every row Up-filtered (its difference from the row above, which
-    keeps the flat regions of a plot to runs of zeros), zlib level 6."""
+    keeps the flat regions of a plot to runs of zeros), zlib level 6.
+    ``path``: a file path, or a binary file object (``io.BytesIO``)."""
     img = np.ascontiguousarray(img, np.uint8)
     if img.ndim != 3 or img.shape[2] != 3 or 0 in img.shape:
         raise ValueError(f"write_png takes a non-empty (H, W, 3) uint8 "
@@ -163,7 +170,10 @@ def write_png(path, img: np.ndarray) -> None:
     up[1:] -= rows[:-1]                       # uint8 wraps: mod 256
     raw = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
     header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    Path(path).write_bytes(
-        SIGNATURE + _chunk(b"IHDR", header)
-        + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-        + _chunk(b"IEND", b""))
+    data = (SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+    if hasattr(path, "write"):
+        path.write(data)
+    else:
+        Path(path).write_bytes(data)

@@ -1,13 +1,24 @@
 """Shared model utilities (counterpart of ``dfu_multimodal_tpu/models/
-common.py``).  Only dtype plumbing is ported, plus the classifiers'
-dropout from an explicit generator: the port's kernels have no
-partitioner limit, so the Mosaic/SPMD gating has no counterpart."""
+common.py``): dtype plumbing, the classifiers' dropout from an explicit
+generator, and Grad-CAM tap points.  The port's kernels have no
+partitioner limit, so the Mosaic/SPMD gating has no counterpart.
+
+Tap points: every forward takes an optional ``taps`` record (a dict) and
+fills it with its named activations, as the JAX models ``sow`` them into
+``intermediates``.  The recorded tensor is the one the forward goes on
+with, so it stays in the autograd graph and ``torch.autograd.grad`` of a
+score with respect to it is d score / d activation: no hook, no second
+forward, and no zero perturbation (JAX adds one only because ``jax.grad``
+differentiates with respect to inputs).
+"""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
+
+Taps = Optional[Dict[str, torch.Tensor]]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -34,3 +45,20 @@ def dropout(x: torch.Tensor, rate: float,
         return torch.zeros_like(x)
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return x * keep.to(x.dtype) / (1.0 - rate)
+
+
+def tap(taps: Taps, name: str, x: torch.Tensor,
+        channels_last: bool = False) -> torch.Tensor:
+    """Record ``x`` as tap ``name`` in ``taps`` (when given) and return
+    the tensor the forward goes on with.  ``channels_last``: ``x`` is a
+    channels-last NCHW activation; its NHWC view is recorded (the JAX
+    tap's (B, H, W, C) layout, no copy) and the forward continues from
+    that view, so the recorded tensor is on the path to the output."""
+    if taps is None:
+        return x
+    if channels_last:
+        nhwc = x.permute(0, 2, 3, 1)
+        taps[name] = nhwc
+        return nhwc.permute(0, 3, 1, 2)
+    taps[name] = x
+    return x

@@ -17,10 +17,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dfu_multimodal_tpu_torch.models.common import canonical_dtype, dropout
+from dfu_multimodal_tpu_torch.models.common import (Taps, canonical_dtype,
+                                                    dropout)
 from dfu_multimodal_tpu_torch.models.resnet import ResNet50
 from dfu_multimodal_tpu_torch.models.vit import ViTBase16
-from dfu_multimodal_tpu_torch.ops.fused_mlp import (fused_mlp,
+from dfu_multimodal_tpu_torch.ops.fused_mlp import (FusedMlp,
                                                     fusion_mlp_params)
 
 
@@ -28,7 +29,8 @@ class FusionMLP(nn.Sequential):
     """Linear, ReLU, Dropout, Linear, ReLU, Dropout, Linear (the
     Sequential fixes the reference's keys).  In eval mode the three layers
     run as the one fused kernel (``ops.fused_mlp``) in the features'
-    dtype.  In train mode they run one by one, as the flax head does: the
+    dtype, differentiable through its plain version (``FusedMlp``: an
+    explanation's gradient goes through the eval head).  In train mode they run one by one, as the flax head does: the
     first two Linears in ``dtype``, the last in fp32, each dropout drawn
     from the ``generator`` given to forward (required then)."""
 
@@ -60,7 +62,8 @@ class FusionMLP(nn.Sequential):
             return self._train_forward(fused, generator)
         w1, b1, w2, b2, w3, b3 = fusion_mlp_params(self)
         dt = fused.dtype
-        return fused_mlp(fused, w1.to(dt), b1, w2.to(dt), b2, w3.to(dt), b3)
+        return FusedMlp.apply(fused, w1.to(dt), b1, w2.to(dt), b2,
+                              w3.to(dt), b3)
 
     def _train_forward(self, fused: torch.Tensor,
                        generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -94,9 +97,13 @@ class MultimodalFusionClassifier(nn.Module):
         self.fusion = FusionMLP(2048 + 768, num_classes, drop_rate, dtype)
 
     def forward(self, rgb: torch.Tensor, thermal: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                taps: Taps = None) -> torch.Tensor:
         """In train mode the head's dropout draws from ``generator``
-        (required then, as in ``ResNetClassifier``)."""
-        fused = torch.cat([self.rgb_branch(rgb), self.thermal_branch(thermal)],
+        (required then, as in ``ResNetClassifier``).  ``taps`` goes to both
+        branches: ``stage1``..``stage4`` of the ResNet, ``blocks`` of the
+        ViT."""
+        fused = torch.cat([self.rgb_branch(rgb, taps),
+                           self.thermal_branch(thermal, taps=taps)],
                           dim=-1)                      # (B, 2816) fp32
         return self.fusion(fused, generator)

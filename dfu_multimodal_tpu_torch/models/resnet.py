@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dfu_multimodal_tpu_torch.models.common import canonical_dtype, dropout
+from dfu_multimodal_tpu_torch.models.common import (Taps, canonical_dtype,
+                                                    dropout, tap)
 from dfu_multimodal_tpu_torch.ops.resnet_block import FusedBottleneck
 
 BLOCK_IMPLS = ("auto", "flax", "fused")
@@ -193,8 +194,9 @@ class ResNet(nn.Module):
             self.add_module(f"layer{i}", nn.Sequential(*layer))
         self.num_stages = len(stage_sizes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, H, W, 3) NHWC -> (B, C) fp32."""
+    def forward(self, x: torch.Tensor, taps: Taps = None) -> torch.Tensor:
+        """x (B, H, W, 3) NHWC -> (B, C) fp32.  ``taps`` records
+        ``stage1``..``stage4``, each stage's output as (B, H, W, C)."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)      # channels-last NCHW
         x = F.relu(self.bn1(_conv(self.conv1, x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
@@ -204,6 +206,7 @@ class ResNet(nn.Module):
             for block in getattr(self, f"layer{i}"):
                 x = (block.forward_fused(x) if fused and block.stride == 1
                      else block(x))
+            x = tap(taps, f"stage{i}", x, channels_last=True)
         return x.mean(dim=(2, 3)).float()
 
 
@@ -241,8 +244,9 @@ class ResNetClassifier(nn.Module):
         self.head = nn.Linear(2048, num_classes)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        feats = self.resnet(x)
+                generator: Optional[torch.Generator] = None,
+                taps: Taps = None) -> torch.Tensor:
+        feats = self.resnet(x, taps)
         if self.training and self.drop_rate > 0.0:
             if generator is None:
                 raise ValueError("ResNetClassifier in train mode draws its "

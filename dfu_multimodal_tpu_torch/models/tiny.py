@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dfu_multimodal_tpu_torch.models.common import canonical_dtype, dropout
+from dfu_multimodal_tpu_torch.models.common import (Taps, canonical_dtype,
+                                                    dropout, tap)
 from dfu_multimodal_tpu_torch.models.resnet import BatchNorm2d
 
 
@@ -52,7 +53,8 @@ class TinyTrunk(nn.Module):
         self.conv1 = nn.Conv2d(16, 32, 3, stride=2)
         self.bn1 = BatchNorm2d(32, momentum=0.5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, taps: Taps = None) -> torch.Tensor:
+        """``taps`` records ``features``, the last ReLU's (B, H, W, 32)."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)            # NCHW view
         for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
             (top, bottom), (left, right) = (_same_pad(x.shape[2]),
@@ -61,6 +63,7 @@ class TinyTrunk(nn.Module):
                          conv.weight.to(x.dtype), conv.bias.to(x.dtype),
                          stride=2)
             x = F.relu(bn(x))
+        x = tap(taps, "features", x, channels_last=True)
         return x.mean(dim=(2, 3)).float()
 
 
@@ -80,13 +83,15 @@ class TinyCNN(TinyTrunk):
         self.head = nn.Linear(32, num_classes)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.head(_dropout(self, super().forward(x), generator))
+                generator: Optional[torch.Generator] = None,
+                taps: Taps = None) -> torch.Tensor:
+        return self.head(_dropout(self, super().forward(x, taps), generator))
 
 
 class TinyFusion(nn.Module):
     """``tiny_fusion``: ``rgb_branch`` and ``thermal_branch`` trunks, their
-    features concatenated (B, 64), dropout and ``head``."""
+    features concatenated (B, 64), dropout and ``head``.  Its trunks have
+    no tap point, as in JAX: ``taps`` is taken and left empty."""
 
     def __init__(self, num_classes: int = 2, drop_rate: float = 0.2,
                  dtype: Union[str, torch.dtype] = torch.float32,
@@ -99,7 +104,9 @@ class TinyFusion(nn.Module):
         self.head = nn.Linear(64, num_classes)
 
     def forward(self, rgb: torch.Tensor, thermal: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                taps: Taps = None) -> torch.Tensor:
+        del taps
         fused = torch.cat([self.rgb_branch(rgb),
                            self.thermal_branch(thermal)], dim=-1)
         return self.head(_dropout(self, fused, generator))

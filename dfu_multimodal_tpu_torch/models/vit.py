@@ -47,7 +47,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dfu_multimodal_tpu_torch.models.common import canonical_dtype, dropout
+from dfu_multimodal_tpu_torch.models.common import (Taps, canonical_dtype,
+                                                    dropout, tap)
 from dfu_multimodal_tpu_torch.ops.attention import qkv_attention
 from dfu_multimodal_tpu_torch.ops.vit_block import AttnBlock, MlpBlock
 from dfu_multimodal_tpu_torch.ops.vit_block_q8 import (
@@ -380,16 +381,19 @@ class ViT(nn.Module):
         self.norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor,
-                calibration: Optional[Calibration] = None) -> torch.Tensor:
+                calibration: Optional[Calibration] = None,
+                taps: Taps = None) -> torch.Tensor:
         """x (B, H, W, 3) NHWC.  ``calibration`` (flax blocks only): a
         record of :data:`CALIBRATION_POINTS` to lists, to which every block
-        appends its max|·| at each point."""
+        appends its max|·| at each point.  ``taps`` records ``blocks``, the
+        (B, N, C) tokens after the last block, before the final norm."""
         dt = self.dtype
         x = self.patch_embed(x.to(dt))
         cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         for block in self.blocks:
             x = block(x) if calibration is None else block(x, calibration)
+        x = tap(taps, "blocks", x)
         # LayerNorm is per token: normalising only the CLS row is the
         # same as normalising all and taking row 0.
         cls = F.layer_norm(x[:, 0].float(), x.shape[-1:], self.norm.weight,
@@ -424,8 +428,9 @@ class ViTClassifier(nn.Module):
         self.head = nn.Linear(hidden, num_classes)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        feats = self.vit(x)
+                generator: Optional[torch.Generator] = None,
+                taps: Taps = None) -> torch.Tensor:
+        feats = self.vit(x, taps=taps)
         if self.training and self.drop_rate > 0.0:
             if generator is None:
                 raise ValueError("ViTClassifier in train mode draws its "

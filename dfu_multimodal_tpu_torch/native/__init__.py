@@ -105,6 +105,9 @@ def _load() -> ctypes.CDLL:
                 ctypes.c_int, _U8P, ctypes.POINTER(ctypes.c_int),
                 ctypes.c_int]
             lib.decode_jpegs_resized.restype = None
+            lib.decode_jpeg_bytes_resized.argtypes = [
+                _U8P, ctypes.c_long, ctypes.c_int, ctypes.c_int, _U8P]
+            lib.decode_jpeg_bytes_resized.restype = ctypes.c_int
             lib.encode_jpeg.argtypes = [_U8P, ctypes.c_int, ctypes.c_int,
                                         ctypes.c_int, ctypes.c_char_p]
             lib.encode_jpeg.restype = ctypes.c_int
@@ -157,6 +160,19 @@ def decode_jpegs_resized(paths: Sequence[str], size: Size,
         arr, n, h, w, _u8(out),
         status.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), threads)
     return out, status
+
+
+def decode_jpeg_bytes_resized(data: bytes, size: Size
+                              ) -> Tuple[np.ndarray, int]:
+    """One JPEG held in memory (an uploaded image) decoded and resized as
+    :func:`decode_jpegs_resized` does a file: ``(image, status)`` with
+    the same status codes (1 does not occur)."""
+    w, h = target_size(size)
+    out = np.zeros((h, w, 3), np.uint8)
+    buf = np.frombuffer(data, np.uint8)
+    status = _need_jpeg("decoding an in-memory JPEG").decode_jpeg_bytes_resized(
+        _u8(buf), len(buf), h, w, _u8(out))
+    return out, int(status)
 
 
 def resize_rgb(img: np.ndarray, size: Size) -> np.ndarray:

@@ -30,6 +30,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -38,7 +39,6 @@
 #include <jpeglib.h>
 #elif defined(DFU_JPEG_NVJPEG)
 #include <cuda_runtime.h>
-#include <mutex>
 #include <nvjpeg.h>
 #endif
 
@@ -183,6 +183,20 @@ struct Decoder {
   int decode(const char* path, int out_h, int out_w, uint8_t* out) {
     FILE* f = fopen(path, "rb");
     if (!f) return 1;
+    int rc = decode_from(f, nullptr, 0, out_h, out_w, out);
+    fclose(f);
+    return rc;
+  }
+
+  int decode_mem(const uint8_t* data, size_t n, int out_h, int out_w,
+                 uint8_t* out) {
+    if (n == 0) return 2;
+    return decode_from(nullptr, data, n, out_h, out_w, out);
+  }
+
+  // From an open file, or from `data` (n bytes) when f is null.
+  int decode_from(FILE* f, const uint8_t* data, size_t n, int out_h,
+                  int out_w, uint8_t* out) {
     jpeg_decompress_struct cinfo;
     JmpErrorMgr err;
     cinfo.err = jpeg_std_error(&err.mgr);
@@ -191,16 +205,17 @@ struct Decoder {
     std::vector<uint8_t> rgb;
     if (setjmp(err.jb)) {
       jpeg_destroy_decompress(&cinfo);
-      fclose(f);
       return 2;
     }
     jpeg_create_decompress(&cinfo);
-    jpeg_stdio_src(&cinfo, f);
+    if (f)
+      jpeg_stdio_src(&cinfo, f);
+    else
+      jpeg_mem_src(&cinfo, data, static_cast<unsigned long>(n));
     jpeg_read_header(&cinfo, TRUE);
     if (cinfo.jpeg_color_space == JCS_CMYK ||
         cinfo.jpeg_color_space == JCS_YCCK) {
       jpeg_destroy_decompress(&cinfo);
-      fclose(f);
       return 3;
     }
     cinfo.out_color_space = JCS_RGB;  // grayscale/YCbCr → RGB, like PIL
@@ -208,7 +223,6 @@ struct Decoder {
     int w = int(cinfo.output_width), h = int(cinfo.output_height);
     if (w <= 0 || h <= 0 || cinfo.output_components != 3) {
       jpeg_destroy_decompress(&cinfo);
-      fclose(f);
       return 2;
     }
     rgb.resize(size_t(w) * h * 3);
@@ -218,7 +232,6 @@ struct Decoder {
     }
     jpeg_finish_decompress(&cinfo);
     jpeg_destroy_decompress(&cinfo);
-    fclose(f);
     resize(rgb.data(), h, w, out, out_h, out_w);
     return 0;
   }
@@ -302,6 +315,12 @@ struct Decoder {
   int decode(const char* path, int out_h, int out_w, uint8_t* out) {
     std::vector<uint8_t> data;
     if (!read_file(path, &data)) return 1;
+    return decode_mem(data.data(), data.size(), out_h, out_w, out);
+  }
+
+  int decode_mem(const uint8_t* data, size_t n, int out_h, int out_w,
+                 uint8_t* out) {
+    if (n == 0) return 2;
     if (!handle()) return 4;
     if (!state) {
       if (nvjpegJpegStateCreate(g_handle, &state) != NVJPEG_STATUS_SUCCESS ||
@@ -312,8 +331,8 @@ struct Decoder {
     int ncomp = 0;
     nvjpegChromaSubsampling_t css;
     int widths[NVJPEG_MAX_COMPONENT], heights[NVJPEG_MAX_COMPONENT];
-    if (nvjpegGetImageInfo(g_handle, data.data(), data.size(), &ncomp, &css,
-                           widths, heights) != NVJPEG_STATUS_SUCCESS)
+    if (nvjpegGetImageInfo(g_handle, data, n, &ncomp, &css, widths,
+                           heights) != NVJPEG_STATUS_SUCCESS)
       return 2;
     if (ncomp == 4) return 3;
     if (ncomp != 1 && ncomp != 3) return 2;
@@ -335,8 +354,8 @@ struct Decoder {
     img.channel[0] = dbuf;
     img.pitch[0] = size_t(w) * ch;
     nvjpegOutputFormat_t fmt = ch == 1 ? NVJPEG_OUTPUT_Y : NVJPEG_OUTPUT_RGBI;
-    if (nvjpegDecode(g_handle, state, data.data(), data.size(), fmt, &img,
-                     stream) != NVJPEG_STATUS_SUCCESS)
+    if (nvjpegDecode(g_handle, state, data, n, fmt, &img, stream) !=
+        NVJPEG_STATUS_SUCCESS)
       return 2;
     std::vector<uint8_t> host(bytes);
     if (cudaMemcpyAsync(host.data(), dbuf, bytes, cudaMemcpyDeviceToHost,
@@ -462,6 +481,35 @@ void decode_jpegs_resized(const char** paths, int n, int out_h, int out_w,
   std::vector<std::thread> pool;
   for (int t = 0; t < threads; ++t) pool.emplace_back(worker);
   for (auto& th : pool) th.join();
+}
+
+// Decoders kept for the in-memory entry: a daemon's request threads live
+// one request each, so a decoder per call (or per thread) would create
+// and free the GPU route's stream, state and buffer on every upload, and
+// cudaFree synchronises the device under the serving batcher's kernels.
+// A call takes an idle decoder or makes one; the pool grows to the most
+// uploads decoded at once and is never freed (process exit may come after
+// the CUDA context is gone).
+static std::mutex g_pool_mu;
+static std::vector<Decoder*> g_pool;
+
+// Decode one JPEG held in memory (n bytes) and resize it to (out_h,
+// out_w, 3) RGB uint8 into out; returns the status above.
+int decode_jpeg_bytes_resized(const uint8_t* data, long n, int out_h,
+                              int out_w, uint8_t* out) {
+  Decoder* dec = nullptr;
+  {
+    std::lock_guard<std::mutex> lock(g_pool_mu);
+    if (!g_pool.empty()) {
+      dec = g_pool.back();
+      g_pool.pop_back();
+    }
+  }
+  if (!dec) dec = new Decoder();
+  int rc = dec->decode_mem(data, n > 0 ? size_t(n) : 0, out_h, out_w, out);
+  std::lock_guard<std::mutex> lock(g_pool_mu);
+  g_pool.push_back(dec);
+  return rc;
 }
 
 // Write one (h, w, 3) RGB uint8 image as a JPEG at `quality`.  Returns 0

@@ -8,6 +8,11 @@ Weights are (in, out) in x's dtype, biases fp32; the result is fp32.  A
 weight may be row-major (the JAX layout) or the transposed view of an
 (out, in) row-major matrix (``nn.Linear.weight.t()``): the kernel reads
 either in place.
+
+:class:`FusedMlp` is the differentiable form (the JAX custom VJP):
+forward the kernel, backward autograd through :func:`fused_mlp_ref` on
+the saved inputs.  JAX has no backward kernel for the head, so neither
+has the port.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import torch
 from torch import nn
 
 from dfu_multimodal_tpu_torch.ops import _build
+from dfu_multimodal_tpu_torch.ops.attention import acc_dtype
+from dfu_multimodal_tpu_torch.ops.resnet_block import remat_grads
 
 _I, _P = _build.I, _build.P
 _SIGNATURES = {
@@ -28,16 +35,18 @@ _SIGNATURES = {
 }
 
 
-def _mm_f32(a, b):
-    return torch.matmul(a.float(), b.float())
+def _layer(a, w, b):
+    acc = acc_dtype(a)
+    return torch.matmul(a.to(acc), w.to(acc)) + b.to(acc)
 
 
 def fused_mlp_ref(x, w1, b1, w2, b2, w3, b3):
     """Plain version with the kernel's numerics (mirrors the JAX
-    ``_fused_mlp_ref``)."""
-    h = torch.relu(_mm_f32(x, w1) + b1.float()).to(x.dtype)
-    h = torch.relu(_mm_f32(h, w2) + b2.float()).to(x.dtype)
-    return _mm_f32(h, w3) + b3.float()
+    ``_fused_mlp_ref``): fp32 accumulation (fp64 for fp64 inputs, for
+    ``torch.autograd.gradcheck``)."""
+    h = torch.relu(_layer(x, w1, b1)).to(x.dtype)
+    h = torch.relu(_layer(h, w2, b2)).to(x.dtype)
+    return _layer(h, w3, b3)
 
 
 def _layout(name: str, w: torch.Tensor, x: torch.Tensor) -> Tuple[int, int]:
@@ -100,6 +109,22 @@ def fused_mlp(x: torch.Tensor,
 
 # launch count: one per call that ran the kernel (CPU calls do not count)
 fused_mlp.launches = 0
+
+
+class FusedMlp(torch.autograd.Function):
+    """Differentiable :func:`fused_mlp` (the JAX ``_fused_mlp_fwd`` /
+    ``_fused_mlp_bwd``): forward the kernel, saving only its inputs;
+    backward rematerialises through :func:`fused_mlp_ref` under autograd.
+    ``apply(x, w1, b1, w2, b2, w3, b3)``."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, w3, b3):
+        ctx.save_for_backward(x, w1, b1, w2, b2, w3, b3)
+        return fused_mlp(x, w1, b1, w2, b2, w3, b3)
+
+    @staticmethod
+    def backward(ctx, g):
+        return remat_grads(fused_mlp_ref, ctx, g)
 
 
 def fusion_mlp_params(fusion: nn.Module) -> Tuple[torch.Tensor, ...]:

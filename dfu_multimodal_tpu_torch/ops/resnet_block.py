@@ -173,10 +173,10 @@ class FusedBottleneck(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _remat_grads(bottleneck_ref, ctx, g)
+        return remat_grads(bottleneck_ref, ctx, g)
 
 
-def _remat_grads(plain, ctx, g) -> tuple:
+def remat_grads(plain, ctx, g) -> tuple:
     """The gradients an autograd Function's backward returns: autograd
     through ``plain`` run again on the saved inputs (None stays None)."""
     needs = ctx.needs_input_grad
@@ -332,7 +332,7 @@ class FusedStage(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _remat_grads(lambda x, *flat: stage_ref(x, _blocks(flat)),
+        return remat_grads(lambda x, *flat: stage_ref(x, _blocks(flat)),
                             ctx, g)
 
 

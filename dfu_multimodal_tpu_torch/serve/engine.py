@@ -1,5 +1,6 @@
 """Dynamic micro-batching serving engine over the Trainer's eval step
-(counterpart of ``ServingEngine`` in ``dfu_multimodal_tpu/serve/engine.py``).
+(counterpart of ``ServingEngine`` and ``ModelRouter`` in
+``dfu_multimodal_tpu/serve/engine.py``).
 
 - ONE thread owns the device.  Request threads enqueue (sample, Future)
   pairs; the batcher thread drains the queue, coalescing up to
@@ -8,15 +9,28 @@
 - Batches are padded with black images to a power-of-two bucket, so the
   kernels see a small fixed set of shapes; :meth:`warmup` runs every
   bucket once before traffic (the first call also builds the kernels).
-- Latency is end to end per request (submit -> result on the caller's
-  future), kept in a bounded reservoir for p50/p99.
+- Deployment tuning: a temperature scales the responded P(ulcer) and a
+  threshold on it decides the class (else the argmax); a bounded queue
+  (``max_queue``) refuses with :class:`EngineOverloaded`.
+- Explanations (``serve/explain.py::Explainer``) wait in their own small
+  queue and run one at a time on the batcher thread between predict
+  batches; a borderline request whose tuned decision differs from the
+  argmax is explained again for the class it was served.
+- A :class:`eval.drift.DriftMonitor` folds each batch's provided
+  modalities in; :meth:`stats` reports it beside the counters and the
+  end-to-end latency percentiles.
+- :class:`ModelRouter` serves several engines, routing a request to the
+  model whose inputs match its modalities.
 
 One device, so no mesh padding.  :func:`quantize_for_serving` rebuilds a
 trainer around the int8 serving path (``thermal_only``: the fused int8 ViT
 blocks, ``ops/vit_block_q8.py``).  Not ported yet: the int8 ResNet trunk
-(``models/resnet_q8.py``, so int8 ``multimodal``), explanations, drift
-monitoring, shadow traffic, ``pipeline_depth > 1``, the decision threshold
-and temperature, and the ToMe rebuild.
+(``models/resnet_q8.py``, so int8 ``multimodal`` and ``rgb_only``:
+:func:`quantize_for_serving` raises); the overlapped loop of
+``pipeline_depth > 1``, shadow traffic (``serve/shadow.py``), the ToMe
+rebuild (``ops/token_merge.py``) and exported bundles
+(``serve/export.py``), whose flags the serve and predict CLIs refuse
+with the module named.
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from dfu_multimodal_tpu_torch.eval.calibration import apply_temperature
 from dfu_multimodal_tpu_torch.models.vit import quantize_variables
 from dfu_multimodal_tpu_torch.train.engine import Trainer
 
@@ -77,21 +92,45 @@ def quantize_for_serving(trainer: Trainer, image_size: int = 224,
 class EngineOverloaded(RuntimeError):
     """Raised by :meth:`ServingEngine.submit` when the bounded request
     queue (``max_queue``) is full — backpressure instead of unbounded
-    memory growth under overload."""
+    memory growth under overload.  The HTTP layer maps it to 503."""
+
+
+class ExplainUnavailable(RuntimeError):
+    """Raised by :meth:`ServingEngine.submit_explain` when the engine was
+    built without an explainer (``serve --explain`` opts in).  The HTTP
+    layer maps it to 501."""
 
 
 class ServingEngine:
     """Coalesce concurrent single-image requests into bucketed batches.
 
     Thread-safe entry points: :meth:`submit` (a ``Future`` of
-    ``(prob_ulcer, prediction)``), :meth:`predict` (synchronous, over
-    :meth:`submit`) and :meth:`stats`.  Use as a context manager or call
-    :meth:`start` / :meth:`stop`.
+    ``(prob_ulcer, prediction)``), :meth:`submit_explain`, :meth:`predict`
+    (synchronous, over :meth:`submit`) and :meth:`stats`.  Use as a
+    context manager or call :meth:`start` / :meth:`stop`.
+
+    ``threshold``: predict ulcer when P(ulcer) >= it instead of the
+    argmax; ``temperature``: scale the responded probabilities (an
+    explicit threshold applies to the scaled ones); ``drift_monitor``: an
+    ``eval.drift.DriftMonitor``; ``explainer``: a
+    ``serve.explain.Explainer`` (None: :meth:`submit_explain` raises
+    :class:`ExplainUnavailable`).
     """
 
     def __init__(self, trainer, *, image_size: int = 224,
                  max_batch: int = 64, max_wait_ms: float = 2.0,
-                 max_queue: Optional[int] = None):
+                 max_queue: Optional[int] = None,
+                 threshold: Optional[float] = None,
+                 temperature: Optional[float] = None,
+                 drift_monitor=None, explainer=None):
+        self.threshold = None if threshold is None else float(threshold)
+        self.temperature = (None if temperature is None
+                            else float(temperature))
+        if self.temperature is not None and self.temperature <= 0:
+            raise ValueError(f"temperature must be > 0: {temperature}")
+        self.drift_monitor = drift_monitor
+        self.explainer = explainer
+        self._explain_queue: "queue.Queue" = queue.Queue(maxsize=64)
         self.trainer = trainer
         self.image_size = int(image_size)
         self.inputs: Tuple[str, ...] = tuple(trainer.spec.inputs)
@@ -118,6 +157,7 @@ class ServingEngine:
         self._requests = 0
         self._errors = 0
         self._rejected = 0
+        self._explains = 0
 
     # ------------------------------------------------------------ lifecycle
 
@@ -154,13 +194,14 @@ class ServingEngine:
                 return          # keep the reference; start() waits it out
             self._thread = None
         # fail any stragglers enqueued after the drain
-        while True:
-            try:
-                _, fut, _ = self._queue.get_nowait()
-            except queue.Empty:
-                break
-            if not fut.done():
-                fut.set_exception(RuntimeError("serving engine stopped"))
+        for q in (self._queue, self._explain_queue):
+            while True:
+                try:
+                    _, fut, _ = q.get_nowait()
+                except queue.Empty:
+                    break
+                if not fut.done():
+                    fut.set_exception(RuntimeError("serving engine stopped"))
 
     def __enter__(self) -> "ServingEngine":
         return self.start()
@@ -215,18 +256,94 @@ class ServingEngine:
                     f"sample[{m!r}] must be ({S}, {S}, 3) uint8, got "
                     f"{a.shape} {a.dtype}")
 
+    def submit_explain(self, sample: Dict[str, np.ndarray]) -> Future:
+        """Enqueue one explanation.  Returns a Future of ``{"prob_ulcer",
+        "prediction", "class_explained", "cams": {modality: {"cam",
+        "method"}}}``: the probability and decision carry the deployment
+        tuning, as :meth:`submit`'s, and when the tuned decision differs
+        from the argmax the CAM is computed again for the served class
+        (``class_explained`` states it).  Raises
+        :class:`ExplainUnavailable` without an explainer."""
+        if self._closed:
+            raise RuntimeError("serving engine stopped")
+        if self.explainer is None:
+            raise ExplainUnavailable(
+                f"model {self.model_name!r} is served without "
+                "explanations (start the daemon with --explain)")
+        if not sample:
+            raise ValueError("explanation needs at least one modality")
+        self._validate_sample(sample)
+        fut: Future = Future()
+        try:
+            self._explain_queue.put_nowait((sample, fut, time.monotonic()))
+        except queue.Full:
+            with self._lock:
+                self._rejected += 1
+            raise EngineOverloaded("explanation queue full; retry")
+        return fut
+
+    def _run_explains(self, max_items: int = 4) -> None:
+        """Run up to ``max_items`` queued explanations on the batcher
+        thread (one forward and backward each), so a burst of them cannot
+        starve the predict path."""
+        for _ in range(max_items):
+            try:
+                sample, fut, _ = self._explain_queue.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                out = self.explainer.explain_one(sample)
+                probs, preds = self._apply_deployment(
+                    np.asarray([out["probs"][1]], np.float64))
+                decided = int(preds[0])
+                if (self.explainer.class_index == "pred"
+                        and out["class_explained"] != decided):
+                    # borderline: the threshold on the scaled P(ulcer)
+                    # decided the other class than the argmax the CAM
+                    # explained; explain the served decision (a
+                    # class-agnostic map would come out the same)
+                    if self.explainer.class_agnostic:
+                        out = {**out, "class_explained": decided}
+                    else:
+                        out = self.explainer.explain_one(
+                            sample, class_override=decided)
+                fut.set_result({"prob_ulcer": float(probs[0]),
+                                "prediction": decided,
+                                "class_explained": out["class_explained"],
+                                "cams": out["cams"]})
+                with self._lock:
+                    self._explains += 1
+            except Exception as exc:
+                if not fut.done():
+                    fut.set_exception(exc)
+                with self._lock:
+                    self._errors += 1
+
+    def _explain_warmup_classes(self) -> Tuple[int, ...]:
+        """The fixed classes a borderline re-explain may ask for: (0, 1)
+        when a threshold can overrule the argmax, else none."""
+        if (self.threshold is not None
+                and self.explainer.class_index == "pred"
+                and not self.explainer.class_agnostic):
+            return (0, 1)
+        return ()
+
     def warmup(self) -> None:
         """Run every bucket once on the calling thread before taking
-        traffic (the first call also builds the kernels).  Fail-fast: a
-        bucket that cannot run fails startup here (re-raised from its
-        futures) instead of failing live requests later.  :meth:`start`
-        runs the buckets again on the batcher thread, whose per-thread
-        library state this call cannot warm."""
+        traffic (the first call also builds the kernels), and an
+        explanation when there is an explainer.  Fail-fast: a bucket that
+        cannot run fails startup here (re-raised from its futures)
+        instead of failing live requests later.  :meth:`start` runs them
+        again on the batcher thread, whose per-thread library state this
+        call cannot warm."""
         for bucket in self.buckets:
             items = self._blank_items(bucket)
             self._execute(items, record=False)
             for _, fut, _ in items:     # _execute is synchronous
                 fut.result(timeout=0)
+        if self.explainer is not None:
+            self.explainer.warmup(self.image_size,
+                                  self._explain_warmup_classes())
 
     def _blank_items(self, n: int):
         zero = {m: np.zeros((self.image_size, self.image_size, 3), np.uint8)
@@ -267,12 +384,17 @@ class ServingEngine:
         try:
             for bucket in self.buckets:
                 self._execute(self._blank_items(bucket), record=False)
+            if self.explainer is not None:
+                self.explainer.warmup(self.image_size,
+                                      self._explain_warmup_classes())
         finally:
             ready.set()
         while not self._stop.is_set():
             items = self._collect(0.05)
             if items:
                 self._execute(items)
+            if self.explainer is not None:
+                self._run_explains()
 
     def _bucket(self, n: int) -> int:
         return next(b for b in self.buckets if b >= n)
@@ -290,9 +412,18 @@ class ServingEngine:
                 for m in self.inputs:
                     if m in sample:
                         batch[m][i] = sample[m]
+            if self.drift_monitor is not None and record:
+                # provided modalities only: black fill-ins are padding,
+                # not camera output
+                for m in self.inputs:
+                    rows = [i for i, (s, _, _) in enumerate(items)
+                            if m in s]
+                    if rows:
+                        self.drift_monitor.update(m, batch[m][rows])
             out = self.trainer.eval_step(batch)
-            probs = out["probs"][:n].cpu().numpy()
-            preds = out["preds"][:n].cpu().numpy()
+            probs, preds = self._apply_deployment(
+                out["probs"][:n].cpu().numpy(),
+                out["preds"][:n].cpu().numpy())
         except Exception as exc:                     # fan the failure out
             for _, fut, _ in items:
                 if not fut.done():
@@ -313,6 +444,19 @@ class ServingEngine:
                 self._requests += n
                 self._batch_sizes[n] += 1
 
+    def _apply_deployment(self, probs: np.ndarray,
+                          preds: Optional[np.ndarray] = None):
+        """Deployment tuning of a (B,) P(ulcer) vector: temperature-scale
+        it, then decide by the threshold when one is set (else keep the
+        argmax ``preds``, or the equivalent 0.5 cut without them)."""
+        if self.temperature is not None:
+            probs = apply_temperature(probs, self.temperature)
+        if self.threshold is not None:
+            preds = (probs >= self.threshold).astype(np.int64)
+        elif preds is None:
+            preds = (probs >= 0.5).astype(np.int64)
+        return probs, preds
+
     # ------------------------------------------------------------- metrics
 
     def stats(self) -> Dict:
@@ -320,12 +464,14 @@ class ServingEngine:
             lat = np.asarray(self._latencies, np.float64) * 1e3
             sizes = dict(sorted(self._batch_sizes.items()))
             requests, errors = self._requests, self._errors
-            rejected = self._rejected
+            rejected, explains = self._rejected, self._explains
         out = {"model": self.model_name,
                "inputs": list(self.inputs),
                "requests": requests,
                "errors": errors,
                "rejected": rejected,
+               "explains": explains,
+               "explain_enabled": self.explainer is not None,
                "queue_depth": self._queue.qsize(),
                "buckets": list(self.buckets),
                "batch_size_hist": sizes}
@@ -336,4 +482,110 @@ class ServingEngine:
                 "p99": float(np.percentile(lat, 99)),
                 "mean": float(lat.mean()),
                 "window": int(lat.size)}
+        if self.drift_monitor is not None:
+            # a reporting bug degrades to an error string: monitoring must
+            # never take down the metrics and liveness surface
+            try:
+                out["drift"] = self.drift_monitor.report()
+            except Exception as exc:            # pragma: no cover
+                out["drift"] = {"verdict": "error", "error": str(exc)}
         return out
+
+
+class ModelRouter:
+    """Serve several models from one daemon, routing each request to the
+    engine whose input set matches the modalities the request carries.
+
+    The clinical deployment shape: one box holds the rgb_only,
+    thermal_only and multimodal checkpoints; a request with only an RGB
+    photo hits the RGB model, one with both modalities hits the fusion
+    model — no client-side model selection needed (an explicit
+    ``/v1/predict/<model>`` path still forces one).  Each engine keeps its
+    own batcher thread and queue; their kernels share the card's stream
+    order, so mixed traffic shares it without cross-engine locking.
+    """
+
+    def __init__(self, engines: Dict[str, "ServingEngine"]):
+        if not engines:
+            raise ValueError("ModelRouter needs at least one engine")
+        self.engines = dict(engines)
+
+    # Lifecycle fans out to every engine.
+    def start(self) -> "ModelRouter":
+        for e in self.engines.values():
+            e.start()
+        return self
+
+    def stop(self, timeout: float = 5.0) -> None:
+        for e in self.engines.values():
+            e.stop(timeout=timeout)
+
+    def warmup(self) -> None:
+        for e in self.engines.values():
+            e.warmup()
+
+    def __enter__(self) -> "ModelRouter":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    @property
+    def single(self) -> Optional["ServingEngine"]:
+        """The one engine when exactly one is registered, else None."""
+        if len(self.engines) == 1:
+            return next(iter(self.engines.values()))
+        return None
+
+    def select(self, modalities, explicit: Optional[str] = None
+               ) -> "ServingEngine":
+        """Explicit model name wins; otherwise prefer the engine whose
+        inputs EXACTLY match the provided modalities, then the
+        largest-input engine fully covered by them."""
+        if explicit is not None:
+            try:
+                return self.engines[explicit]
+            except KeyError:
+                raise KeyError(
+                    f"unknown model {explicit!r}; serving "
+                    f"{sorted(self.engines)}") from None
+        if self.single is not None:
+            return self.single
+        mods = set(modalities)
+        exact = [(n, e) for n, e in self.engines.items()
+                 if set(e.inputs) == mods]
+        if len(exact) > 1:
+            # two served models take the same inputs (e.g. two RGB
+            # checkpoints): implicit routing would pick one silently, and
+            # WHICH one could flip across restarts — refuse, like the
+            # explicit path 404s on an unknown name
+            raise KeyError(
+                "ambiguous request: models "
+                + ", ".join(sorted(n for n, _ in exact))
+                + f" all take {sorted(mods)} — use /v1/predict/<model>")
+        if exact:
+            return exact[0][1]
+        covered = [e for e in self.engines.values()
+                   if set(e.inputs) <= mods]
+        if covered:
+            best = max(len(e.inputs) for e in covered)
+            top = [(n, e) for n, e in self.engines.items()
+                   if e in covered and len(e.inputs) == best]
+            if len(top) > 1:
+                raise KeyError(
+                    "ambiguous request: models "
+                    + ", ".join(sorted(n for n, _ in top))
+                    + " match equally — use /v1/predict/<model>")
+            return top[0][1]
+        raise KeyError(
+            f"no served model accepts modalities {sorted(mods)}; "
+            f"serving " + ", ".join(
+                f"{n}={list(e.inputs)}" for n, e in self.engines.items()))
+
+    def stats(self) -> Dict:
+        if self.single is not None:     # back-compat single-model shape
+            return self.single.stats()
+        per = {n: e.stats() for n, e in self.engines.items()}
+        return {"models": per,
+                "requests": sum(s["requests"] for s in per.values()),
+                "errors": sum(s["errors"] for s in per.values())}

@@ -381,7 +381,9 @@ for mod in ("native", "config", "data.layout", "data.pairing",
             "eval.deployment", "eval.plots", "eval.tta",
             "cli.organize_clean_dataset", "cli.dataset_tools",
             "cli.extended_metrics", "cli.test_time_augmentation",
-            "cli.ablation_study"):
+            "cli.ablation_study", "eval.gradcam", "eval.vit_attribution",
+            "serve.explain", "serve.prometheus", "serve.http",
+            "cli.grad_cam_visualization", "cli.serve", "cli.predict"):
     importlib.import_module(f"dfu_multimodal_tpu_torch.{mod}")
 import torch
 from dfu_multimodal_tpu_torch import native
@@ -434,6 +436,37 @@ assert sorted(p.name for p in em.iterdir()) == [
     "confusion_matrix_RGB-Only.png", "pr_curve_RGB-Only.png",
     "reliability_diagram_RGB-Only.png", "results.pt",
     "roc_curve_RGB-Only.png"], sorted(em.iterdir())
+
+# an explanation, then an HTTP predict and explain round trip
+import base64, json, threading, urllib.request
+from dfu_multimodal_tpu_torch.cli import grad_cam_visualization, serve
+from dfu_multimodal_tpu_torch.data.png import decode_png
+assert grad_cam_visualization.main([
+    "--data-dir", str(tmp / "std"), "--checkpoint-root", str(tmp / "logs"),
+    "--models", "rgb_only", "--image-size", "16", "--num-per-class", "1",
+    "--device", "cpu"]) == {"rgb_only": 2}
+server, router, _ = serve.build_daemon([
+    "--checkpoint", str(tmp / "logs" / "checkpoints_rgb_only"), "--device",
+    "cpu", "--image-size", "16", "--host", "127.0.0.1", "--port", "0",
+    "--explain", "--max-batch", "2", "--compute-dtype", "float32"])
+threading.Thread(target=server.serve_forever, daemon=True).start()
+url = f"http://127.0.0.1:{server.server_address[1]}/v1/"
+jpeg = (tmp / "a.jpg").read_bytes()
+for op, body, ctype in (
+        ("predict", jpeg, "image/jpeg"),
+        ("explain", json.dumps({"rgb": base64.b64encode(jpeg).decode()})
+         .encode(), "application/json")):
+    req = urllib.request.Request(url + op, data=body,
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        res = json.loads(r.read())
+    assert 0.0 <= res["prob_ulcer"] <= 1.0, res
+overlay = decode_png(base64.b64decode(
+    res["explanations"]["rgb"]["overlay_png"]))
+assert overlay.shape == (16, 16, 3)
+server.shutdown()
+server.server_close()
+router.stop()
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in BLOCKED]
 assert not loaded, loaded

@@ -336,7 +336,7 @@ def test_trainer_block_impl_auto_takes_a_train_step():
 NO_JAX_SCRIPT = r"""
 import sys
 for name in ("jax", "jaxlib", "flax", "optax", "msgpack",
-             "dfu_multimodal_tpu"):
+             "dfu_multimodal_tpu", "PIL", "cv2", "matplotlib"):
     sys.modules[name] = None            # any import of them now fails
 import numpy as np
 import torch
@@ -358,6 +358,11 @@ batch = {m: rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
          for m in ("rgb", "thermal")}
 probs = trainer.eval_step(batch)["probs"]
 assert probs.shape == (2,) and bool(torch.isfinite(probs).all())
+from dfu_multimodal_tpu_torch.serve.explain import Explainer
+explained = Explainer(trainer).explain_one({m: batch[m][0] for m in batch})
+assert {m: c["method"] for m, c in explained["cams"].items()} == {
+    "rgb": "gradcam", "thermal": "saliency"}
+assert all(p.grad is None for p in trainer.module.parameters())
 out = trainer.train_step({**batch, "label": np.array([0, 1]),
                           "valid": np.ones(2, np.float32)},
                          torch.Generator().manual_seed(0))
@@ -401,7 +406,8 @@ probs = rgb.eval_step({"rgb": batch["rgb"]})["probs"]
 assert probs.shape == (2,) and bool(torch.isfinite(probs).all())
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                  "msgpack", "dfu_multimodal_tpu")]
+                                  "msgpack", "dfu_multimodal_tpu", "PIL",
+                                  "cv2", "matplotlib")]
 assert not loaded, loaded
 print("ok")
 """

@@ -169,12 +169,14 @@ def test_fusion_mlp_eval_path_copies_no_weight(monkeypatch):
         assert w.shape == fc.weight.shape[::-1]
         assert w.stride() == (1, w.shape[0])
     seen = []
+    kernel = port_fused_mlp.fused_mlp
 
     def spy(x, w1, b1, w2, b2, w3, b3):
         seen.extend(w.data_ptr() for w in (w1, w2, w3))
-        return port_fused_mlp.fused_mlp(x, w1, b1, w2, b2, w3, b3)
+        return kernel(x, w1, b1, w2, b2, w3, b3)
 
-    monkeypatch.setattr(fusion, "fused_mlp", spy)
+    # the eval head calls the kernel through FusedMlp (ops/fused_mlp.py)
+    monkeypatch.setattr(port_fused_mlp, "fused_mlp", spy)
     x = torch.from_numpy(_mlp_head_inputs(3, seed=7)[0])
     with torch.no_grad():
         head(x)
