@@ -18,6 +18,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               and the attention chain rule (gemm_sm90.cuh's
               gemm_kernel), the int8 warpgroup (IGMMA) count of every
               int8 product of K7/K8 (gemm_kernel in vit_block_q8.cu) and
+              of the int8 convolution (gemm_kernel in conv_q8.cu), and
               the HMMA count of their bf16 attention step, the HGMMA
               count of every instantiation of K11's bf16 products and
               3x3 (gemm_kernel in resnet_block.cu), of K12's bf16
@@ -25,7 +26,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               (gemm_kernel in attn_block_bwd.cu, the WGRAD weight
               gradients among them), failing on a count of zero but the
               K6/K9 forward's, on any int8 WMMA (IMMA) left in
-              vit_block_q8.cu and on any WMMA kernel (gemm_bf16_wmma,
+              vit_block_q8.cu or conv_q8.cu and on any WMMA kernel
+              (gemm_bf16_wmma,
               stage_bf16_wmma, wgrad_bf16_wmma) left in resnet_block.cu
               or attn_block_bwd.cu;
 3. kernels  — each forward kernel against its plain PyTorch version on
@@ -261,9 +263,44 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               full-fidelity model explained), rgb_only without
               ``--explain`` (501); ``cli/predict`` over a directory pair
               (its rows equal to the eval step's); the phase's seconds;
+15. int8    — ``conv_q8`` (the int8 convolution, ``ops/csrc/conv_q8.cu``)
+              against ``conv_q8_ref`` on the card, bit for bit, at every
+              distinct conv of ResNet-50 at B = 8 in fp32 and bf16, each
+              bf16 shape's CUDA-event and device time beside the plain
+              version's, the library route's (the plain gather and
+              ``torch._int_mm``) and its bound, and their sums over the 52
+              convs of one trunk forward; ``quantize_act_q8`` likewise at
+              the inputs of the four projection blocks, its sums over the
+              4 quantisations of a forward; ``quantize_for_serving`` of the
+              full-width rgb_only and multimodal (seeded weights, BatchNorm
+              statistics off identity, calibrated on 32 images on the
+              card): the int8 trunk with the kernels against the same
+              trunk on the plain version, features and taps bit-equal, 52
+              convs and 4 quantisations a forward; each model behind the
+              ServingEngine at b1 and b8 in bf16 (p50 / p99, the int8
+              against bf16 probability gap and decision agreement, launches
+              a batch: 52 ``conv_q8`` and 4 ``quantize_act_q8``, multimodal
+              12 of each K7 block and 1 K3); then on phase 12's tree and checkpoints ``cli/predict
+              --int8 --calib-images`` for rgb_only and multimodal (rows
+              equal to an int8 trainer of the same checkpoint and
+              calibration), the daemon with the int8 multimodal as its
+              primary (``--int8 --calib-images``) and the same checkpoint
+              as its bf16 ``--shadow`` at ``--pipeline-depth`` 1 and 2,
+              one request a batch, 4 client threads
+              (``dfu_shadow_compared_total`` equal to the requests; at
+              depth 2 batches dispatched while another was in flight, at
+              depth 1 none; each answer equal to depth 1's for the same
+              request),
+              and the three train CLIs with ``--qat`` for one epoch (their
+              launches; the snapped ViT and ResNet weights equal the
+              serving grid's and requantise to the same int8 codes);
 then the kernels' JSON line (times, bounds, launches, the SDPA times,
 the K6/K9 forwards' device times and SDPA's, K10's and K12's chain
-times, and phase 14's launches as ``explain_launches``),
+times, phase 14's launches as ``explain_launches``, and the rows of
+``conv_q8`` and ``quantize_act_q8``: the int8 convolution and the int8
+quantisation, which replace no TPU kernel but ``models/resnet_q8.py``'s
+XLA conv and quantisation, their times the sums over a trunk forward and
+their launches phase 15's serving drive's),
 and the device JSON line last.
 
 Exits non-zero with no result line when no CUDA device is present.
@@ -298,6 +335,7 @@ from dfu_multimodal_tpu_torch.models.resnet import Bottleneck, ResNet50
 from dfu_multimodal_tpu_torch.models.vit import quantize_variables
 from dfu_multimodal_tpu_torch.ops import _build
 from dfu_multimodal_tpu_torch.ops import attention as at
+from dfu_multimodal_tpu_torch.ops import conv_q8 as cq
 from dfu_multimodal_tpu_torch.ops import fused_mlp as fm
 from dfu_multimodal_tpu_torch.ops import resnet_block as rb
 from dfu_multimodal_tpu_torch.ops import vit_block as vb
@@ -360,7 +398,7 @@ def phase_device() -> str:
 
 
 SOURCES = ("vit_block", "fused_mlp", "attention", "vit_block_q8",
-           "resnet_block", "attn_block_bwd")
+           "resnet_block", "attn_block_bwd", "conv_q8")
 
 
 def phase_build() -> None:
@@ -401,6 +439,11 @@ def phase_build() -> None:
                           required=True)
     _log_tensor_core_sass("vit_block_q8", "attention_fwd_mma", required=True)
     _log_tensor_core_sass("vit_block_q8", "", op="IMMA", forbidden=True)
+    # the int8 convolution's products: int8 warpgroup MMAs in every
+    # instantiation of its GEMM, no int8 WMMA
+    _log_tensor_core_sass("conv_q8", "gemm_kernel", op="IGMMA",
+                          required=True)
+    _log_tensor_core_sass("conv_q8", "", op="IMMA", forbidden=True)
     # K11 in bf16: its products (B_MN) and its 3x3 (CONV) on warpgroup MMAs
     # in every instantiation; K12's bf16 stage kernel walks the same tiles
     # (warpgroup MMAs in every instantiation); K10's bf16 products (qkv,
@@ -424,6 +467,7 @@ def phase_build() -> None:
     q8._lib()
     rb._lib()
     vb._k10_lib()
+    cq._lib()
     _build.load("fused_mlp", fm._SIGNATURES)
 
 
@@ -2201,6 +2245,7 @@ def _reset_launches() -> None:
     q8.attn_block_q8s.launches = q8.mlp_block_q8s.launches = 0
     rb.fused_bottleneck.launches = rb.fused_bottleneck.proj_launches = 0
     rb.fused_stage.launches = 0
+    cq.conv_q8.launches = cq.quantize_act_q8.launches = 0
 
 
 def _resnet_launches() -> dict:
@@ -2701,7 +2746,9 @@ def _all_launches() -> dict:
             "fused_mlp": fm.fused_mlp.launches,
             "flash_attention_fwd": at.flash_attention_fwd.launches,
             "flash_attention_bwd": at.flash_attention_bwd.launches,
-            "attn_block_bwd_fused": vb.attn_block_bwd_fused.launches}
+            "attn_block_bwd_fused": vb.attn_block_bwd_fused.launches,
+            "conv_q8": cq.conv_q8.launches,
+            "quantize_act_q8": cq.quantize_act_q8.launches}
 
 
 def phase_flax_serve(dev) -> dict:
@@ -3805,12 +3852,13 @@ def _http(url, body=None, ctype=None):
         return e.code, e.read()
 
 
-def _daemon(dev, argv):
+def _daemon(dev, argv, max_batch=4):
     """``cli/serve``'s daemon on 127.0.0.1:0 in a thread: (url, server,
     router, thread)."""
     from dfu_multimodal_tpu_torch.cli import serve
     server, router, _ = serve.build_daemon(
-        argv + ["--host", "127.0.0.1", "--port", "0", "--max-batch", "4",
+        argv + ["--host", "127.0.0.1", "--port", "0", "--max-batch",
+                str(max_batch),
                 "--ignore-deployment", "--device", str(dev),
                 "--image-size", str(IMAGE)])
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -4025,6 +4073,628 @@ def phase_explain(dev, d: Path) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 15
+
+Q8_CONV_BATCH = 8            # the serving batch of the conv checks
+Q8_CALIB = 32                # calibration images (the CLIs take the first 32)
+Q8_REQUESTS = 16             # requests a served model answers at b1 and b8
+Q8_DAEMON_REQUESTS = 8       # HTTP requests a round to a phase-15 daemon
+Q8_DAEMON_ROUNDS = 4         # at most, at depth 2, until batches overlap
+# what one batch of each int8 model launches: 52 convs a trunk forward
+# (48 of the bottlenecks, 4 projections); multimodal's ViT on the int8
+# blocks (12 of each) and its head on K3
+TRUNK_CONVS, TRUNK_QUANTS = 52, 4
+Q8_SERVE_KERNELS = {"rgb_only": {"conv_q8": TRUNK_CONVS,
+                                 "quantize_act_q8": TRUNK_QUANTS},
+                    "multimodal": {"conv_q8": TRUNK_CONVS,
+                                   "quantize_act_q8": TRUNK_QUANTS,
+                                   "attn_block_q8": DEPTH,
+                                   "mlp_block_q8": DEPTH, "fused_mlp": 1}}
+# the predict CLI's int8 runs: the kernels each model must launch
+Q8_PREDICT_KERNELS = {"rgb_only": {"conv_q8"},
+                      "multimodal": {"conv_q8", "attn_block_q8",
+                                     "mlp_block_q8", "fused_mlp"}}
+# the daemon's: the int8 multimodal primary's and its bf16 shadow's
+Q8_DAEMON_KERNELS = {"attn_block", "mlp_block", "fused_mlp", "conv_q8",
+                     "quantize_act_q8", "attn_block_q8", "mlp_block_q8"}
+
+
+def resnet_conv_shapes(image: int = 224,
+                       stage_sizes=(3, 4, 6, 3),
+                       widths=(64, 128, 256, 512),
+                       distinct: bool = True) -> list:
+    """The convs of an int8 bottleneck trunk at ``image``², in the order
+    the forward runs them (only the first of equal ones when
+    ``distinct``): (name, H, Cin, Cout, k, stride, role) with H the
+    input's side and role "conv1" (ReLU; the block input, int8 when the
+    block has a projection), "conv2" (ReLU), "conv3" (the shortcut added,
+    then ReLU) or "down" (the projection, int8 input)."""
+    h = -(-(-(-image // 2)) // 2)              # the stem's two halvings
+    cin, seen, out = 64, set(), []
+    for s, (blocks, width) in enumerate(zip(stage_sizes, widths), start=1):
+        for j in range(blocks):
+            stride = 2 if s > 1 and j == 0 else 1
+            ho = -(-h // stride)
+            proj = j == 0
+            convs = [("conv1", h, cin, width, 1, 1),
+                     ("conv2", h, width, width, 3, stride),
+                     ("conv3", ho, width, 4 * width, 1, 1)]
+            if proj:
+                convs.append(("down", h, cin, 4 * width, 1, stride))
+            for role, hh, ci, co, k, st in convs:
+                key = (hh, ci, co, k, st, role, proj and role == "conv1")
+                if not distinct or key not in seen:
+                    seen.add(key)
+                    out.append((f"stage{s} block{j} {role}", hh, ci, co, k,
+                                st, role))
+            h, cin = ho, 4 * width
+    return out
+
+
+def _q8_conv_case(dev, b, h, cin, cout, k, stride, role, int8_in, dtype,
+                  seed) -> dict:
+    """Seeded operands of one conv of the int8 trunk in ``conv_q8``'s
+    keywords: x in the compute dtype, or int8 for a projection block's
+    conv1 and its projection; the kernel's K-major int8 copy, its column
+    scale and bias, the shortcut of a conv3."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ho = -(-h // stride)
+    act = torch.tensor(0.02 + 0.01 * (seed % 3), device=dev)
+    x = _randn(g, b, h, h, cin, dtype=dtype)
+    if int8_in:
+        x = cq.quantize_act(x, act)
+    w = torch.randint(-127, 128, (cout, k * k * cin), generator=g,
+                      device=dev, dtype=torch.int32).to(torch.int8)
+    scale = _randn(g, cout, scale=1e-3, offset=4e-3).abs()
+    resid = (_randn(g, b, ho, ho, cout, dtype=dtype) if role == "conv3"
+             else None)
+    return dict(x=x, kernel_kmajor=w, col_scale=act * scale,
+                bias=_randn(g, cout, scale=0.1), act_scale=act, k=k,
+                stride=stride, relu=role != "down", resid=resid,
+                dtype=dtype)
+
+
+def _library_conv_q8(x, kernel_kmajor, col_scale, bias, act_scale, k,
+                     stride):
+    """The same conv (no shortcut, no ReLU) on PyTorch's calls: the plain
+    gather and ``torch._int_mm`` (cuBLASLt s8·s8→s32), dequantised in
+    PyTorch ops; a yardstick the port never calls."""
+    a = cq.im2col_q8_ref(x, act_scale, k, stride)
+    acc = torch._int_mm(a, kernel_kmajor.t())
+    b, h, w, _ = x.shape
+    ho, wo = cq.out_hw(h, w, k, stride)
+    dtype = x.dtype if x.dtype != torch.int8 else torch.bfloat16
+    return (acc.float() * col_scale + bias).to(dtype).reshape(b, ho, wo, -1)
+
+
+def _q8_conv_bound(b, h, cin, cout, k, stride, role, int8_in,
+                   dtype) -> tuple:
+    """(operations, bytes) of one conv: 2·M·K·Cout int8 operations (M =
+    B·Ho·Wo, K = k²·Cin); x read once (int8 or the compute dtype), the
+    int8 kernel, the scales and biases, the shortcut of a conv3, and the
+    output written once."""
+    ho = -(-h // stride)
+    m, depth, t = b * ho * ho, k * k * cin, torch.finfo(dtype).bits // 8
+    nbytes = (b * h * h * cin * (1 if int8_in else t) + cout * depth
+              + 8 * cout + 4 + m * cout * t * (2 if role == "conv3" else 1))
+    return 2 * m * depth * cout, nbytes
+
+
+def _q8_conv_key(name, h, cin, cout, k, stride, role) -> tuple:
+    return (h, cin, cout, k, stride, role,
+            name.endswith("block0 conv1") or role == "down")
+
+
+def phase_q8_conv(dev) -> dict:
+    """``conv_q8`` against ``conv_q8_ref`` on the card, bit for bit, at
+    every distinct ResNet-50 conv at B = 8 in bf16 and fp32; in bf16 each
+    shape's CUDA-event and device (profiler) time beside the plain
+    version's, the library route's (the plain gather and
+    ``torch._int_mm``) and its bound; then the sums over the 52 convs of
+    one trunk forward, the kernels line's row."""
+    gpu = card()
+    rows, worst = {}, 0.0
+    for name, h, cin, cout, k, stride, role in resnet_conv_shapes(IMAGE):
+        key = _q8_conv_key(name, h, cin, cout, k, stride, role)
+        for dtype in (torch.float32, torch.bfloat16):
+            case = _q8_conv_case(dev, Q8_CONV_BATCH, h, cin, cout, k, stride,
+                                 role, key[-1], dtype, seed=h + cin + cout)
+            out = cq.conv_q8(**case)
+            ref = cq.conv_q8_ref(**case)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            worst = max(worst, err)
+            if not torch.equal(out, ref):
+                raise AssertionError(
+                    f"conv_q8 {name} {dtype}: not bit-equal to plain, max "
+                    f"{err}")
+            if dtype != torch.bfloat16:
+                continue
+            lib_args = {a: case[a] for a in ("x", "kernel_kmajor",
+                                              "col_scale", "bias",
+                                              "act_scale", "k", "stride")}
+            ms = cuda_ms(lambda: cq.conv_q8(**case))
+            plain = cuda_ms(lambda: cq.conv_q8_ref(**case), iters=5)
+            library = cuda_ms(lambda: _library_conv_q8(**lib_args))
+            # the profiler now and then records no kernel of a short
+            # region: ask again before calling the time not measured
+            split = {}
+            for _ in range(3):
+                split = _device_split(lambda: cq.conv_q8(**case))
+                if split:
+                    break
+            dev_ms = sum(split.values()) or None
+            ops, nbytes = _q8_conv_bound(Q8_CONV_BATCH, h, cin, cout, k,
+                                         stride, role, key[-1], dtype)
+            bound = _bound({torch.int8: ops}, nbytes)
+            rows[key] = dict(ms=ms, plain_ms=plain, library_ms=library,
+                             device_ms=dev_ms, ops=ops, nbytes=nbytes,
+                             **bound)
+            log(f"[q8 conv] {name} ({h}², {cin}->{cout}, {k}x{k}/{stride}, "
+                f"{'int8' if key[-1] else 'bf16'} in): bit-equal to plain "
+                f"(fp32 and bf16); events {ms:.4f} ms, device "
+                f"{_ms_or_none(dev_ms)} ("
+                + ", ".join(f"{n.split('<')[0]} {t:.4f}"
+                            for n, t in split.items())
+                + f"), plain {plain:.4f} ms, library (im2col + "
+                f"torch._int_mm) {library:.4f} ms, bound "
+                f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})")
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "device_ms": 0.0, "ops": 0, "nbytes": 0}
+    convs = resnet_conv_shapes(IMAGE, distinct=False)
+    for name, *shape in convs:
+        row = rows[_q8_conv_key(name, *shape)]
+        for field in total:
+            # a shape the profiler never saw leaves the device sum unknown
+            total[field] = (None if total[field] is None or row[field] is None
+                            else total[field] + row[field])
+    bound = _bound({torch.int8: total["ops"]}, total["nbytes"])
+    log(f"[q8 conv] the {len(convs)} convs of one ResNet-50 int8 trunk "
+        f"forward at B = {Q8_CONV_BATCH}, bf16: events {total['ms']:.4f} "
+        f"ms, device {_ms_or_none(total['device_ms'])}, plain "
+        f"{total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms, "
+        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+        f"{total['ops'] / 1e9:.2f} GOP, {total['nbytes'] / 1e6:.1f} MB); "
+        f"max |kernel - plain| {worst} over every shape and dtype ({gpu})")
+    return {"conv_q8": {"max_abs_err": worst, "ms": total["ms"],
+                        "plain_ms": total["plain_ms"],
+                        "library_ms": total["library_ms"],
+                        "device_ms": total["device_ms"], **bound},
+            "quantize_act_q8": _q8_quant_times(dev, gpu)}
+
+
+def _q8_quant_times(dev, gpu) -> dict:
+    """``quantize_act_q8`` against the plain ``quantize_act`` on the card,
+    bit for bit in fp32 and bf16, at the inputs of the trunk's four
+    projection blocks (the 4 quantisations of one forward; a projection
+    block's conv1 and its projection share them); in bf16 each shape's
+    CUDA-event, device and plain times and its bound, then their sums.
+    No single PyTorch call computes it (library_ms null)."""
+    total = {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0, "ops": 0,
+             "nbytes": 0}
+    worst = 0.0
+    shapes = [(name, h, cin) for name, h, cin, *_ in
+              resnet_conv_shapes(IMAGE, distinct=False)
+              if name.endswith("block0 conv1")]
+    for name, h, cin in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(h + cin)
+            x = _randn(g, Q8_CONV_BATCH, h, h, cin, dtype=dtype)
+            act = torch.tensor(0.03, device=dev)
+            out = cq.quantize_act_q8(x, act)
+            ref = cq.quantize_act(x, act)
+            torch.cuda.synchronize()
+            err = float((out.int() - ref.int()).abs().max())
+            worst = max(worst, err)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"quantize_act_q8 {name} {dtype}: not "
+                                     f"bit-equal to plain, max {err}")
+        ms = cuda_ms(lambda: cq.quantize_act_q8(x, act))
+        plain = cuda_ms(lambda: cq.quantize_act(x, act))
+        split = {}
+        for _ in range(3):
+            split = _device_split(lambda: cq.quantize_act_q8(x, act))
+            if split:
+                break
+        dev_ms = sum(split.values()) or None
+        # one division an element; x read in bf16, the int8 written
+        n = x.numel()
+        ops, nbytes = n, 3 * n + 4
+        bound = _bound({torch.float32: ops}, nbytes)
+        for field, v in (("ms", ms), ("plain_ms", plain),
+                         ("device_ms", dev_ms), ("ops", ops),
+                         ("nbytes", nbytes)):
+            total[field] = (None if total[field] is None or v is None
+                            else total[field] + v)
+        log(f"[q8 quant] {name} input ({h}², {cin}): bit-equal to plain "
+            f"(fp32 and bf16); events {ms:.4f} ms, device "
+            f"{_ms_or_none(dev_ms)}, plain {plain:.4f} ms, bound "
+            f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']})")
+    bound = _bound({torch.float32: total["ops"]}, total["nbytes"])
+    log(f"[q8 quant] the {len(shapes)} quantisations of one ResNet-50 int8 "
+        f"trunk forward at B = {Q8_CONV_BATCH}, bf16: events "
+        f"{total['ms']:.4f} ms, device {_ms_or_none(total['device_ms'])}, "
+        f"plain {total['plain_ms']:.4f} ms, bound {bound['bound_ms']:.4f} "
+        f"ms ({bound['bound_by']}); max |kernel - plain| {worst} ({gpu})")
+    if len(shapes) != TRUNK_QUANTS:
+        raise AssertionError(f"quantize_act_q8: {len(shapes)} shapes")
+    return {"max_abs_err": worst, "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "library_ms": None,
+            "device_ms": total["device_ms"], **bound}
+
+
+def _q8_float_trainer(name, dev, seed) -> Trainer:
+    """The full-width ``name`` in bf16 with weights from ``seed`` and
+    BatchNorm statistics off identity."""
+    tr = Trainer(name, TrainConfig(compute_dtype="bfloat16", batch_size=8,
+                                   eval_batch_size=8),
+                 {"rgb": rgb_modality(), "thermal": thermal_modality()},
+                 device=dev, image_size=IMAGE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    zoo.init_model(tr.module, gen)
+    with torch.no_grad():
+        _perturb_batchnorm(tr.module, gen)
+    return tr
+
+
+def _q8_images(n, seed) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256,
+                                                (n, IMAGE, IMAGE, 3),
+                                                dtype=np.uint8)
+
+
+def _q8_trunk_vs_plain(dev, q) -> None:
+    """The int8 trunk of the served ``rgb_only`` with the kernels against
+    the same trunk on ``conv_q8_ref`` (and the plain quantisation), on the
+    card: features and taps bit-equal; one forward launches 52 convs and
+    4 quantisations."""
+    from unittest import mock
+    from dfu_multimodal_tpu_torch.models import resnet_q8 as rq
+    trunk = q.module.resnet
+    x = eval_normalize(torch.from_numpy(_q8_images(8, 40)).to(dev),
+                       rgb_modality(), torch.bfloat16)
+    with torch.inference_mode():
+        before = (cq.conv_q8.launches, cq.quantize_act_q8.launches)
+        taps = {}
+        out = trunk(x, taps)
+        torch.cuda.synchronize()
+        counts = (cq.conv_q8.launches - before[0],
+                  cq.quantize_act_q8.launches - before[1])
+        with mock.patch.object(rq, "conv_q8", cq.conv_q8_ref), \
+                mock.patch.object(rq, "quantize_act_q8", cq.quantize_act):
+            ref_taps = {}
+            ref = trunk(x, ref_taps)
+    equal = torch.equal(out, ref) and all(
+        torch.equal(taps[k], ref_taps[k]) for k in ref_taps)
+    log(f"[q8 trunk] ResNet-50 int8 trunk, B = 8, bf16: features and taps "
+        f"kernel vs plain bit-equal {equal} (max |d| "
+        f"{float((out - ref).abs().max()):.3e}); launches a forward: "
+        f"conv_q8 {counts[0]}, quantize_act_q8 {counts[1]}")
+    if not equal or counts != (TRUNK_CONVS, TRUNK_QUANTS):
+        raise AssertionError("int8 trunk: kernel vs plain, or launches")
+
+
+def _q8_serve_one(tag, q, base, samples, batch_np) -> dict:
+    """``q`` behind the ServingEngine at b1 (one request at a time) and b8
+    (Q8_REQUESTS submitted together, max_batch 8), bf16; latency p50 /
+    p99, int8 against bf16 on the same samples, launches per batch of the
+    b8 drive (its counts set to 0 just before it).  Returns the b8
+    drive's launches."""
+    name = q.spec.name
+    lat = {}
+    for label, max_batch in (("b1", 1), ("b8", 8)):
+        eng = ServingEngine(q, image_size=IMAGE, max_batch=max_batch,
+                            max_wait_ms=5.0)
+        with eng:
+            _reset_launches()
+            if max_batch == 1:
+                got = [eng.submit(s).result(timeout=120) for s in samples]
+            else:
+                futs = [eng.submit(s) for s in samples]
+                got = [f.result(timeout=120) for f in futs]
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _all_launches().items() if v}
+            stats = eng.stats()
+        lat[label] = stats["latency_ms"]
+    batches = sum(stats["batch_size_hist"].values())
+    per_batch = {k: v / batches for k, v in launches.items()}
+    probs = np.asarray([p for p, _ in got])
+    preds = np.asarray([c for _, c in got])
+    ref = base.eval_step(batch_np)
+    ref_p, ref_c = ref["probs"].float().cpu().numpy(), \
+        ref["preds"].cpu().numpy()
+    gap = float(np.abs(probs - ref_p).max())
+    agree = float((preds == ref_c).mean())
+    log(f"[{tag}] {name} int8 ServingEngine bf16, {len(samples)} requests: "
+        f"b1 p50 {lat['b1']['p50']:.2f} ms p99 {lat['b1']['p99']:.2f} ms; "
+        f"b8 p50 {lat['b8']['p50']:.2f} ms p99 {lat['b8']['p99']:.2f} ms "
+        f"(batches {stats['batch_size_hist']}); int8 vs bf16 max |dP| "
+        f"{gap:.4e}, decisions agree {agree:.4f}; launches a batch "
+        f"{per_batch} ({card()})")
+    want = Q8_SERVE_KERNELS[name]
+    if (set(per_batch) != set(want)
+            or any(per_batch[k] != v for k, v in want.items())
+            or not np.isfinite(probs).all()):
+        raise AssertionError(f"{tag} {name}: launches a batch {per_batch}, "
+                             f"want {want}")
+    return launches
+
+
+def phase_q8_serve(dev) -> dict:
+    """``quantize_for_serving`` of the full-width rgb_only and multimodal
+    (seeded weights, BatchNorm statistics off identity, calibrated on
+    Q8_CALIB synthetic images on the card) behind the ServingEngine, and
+    the int8 trunk against its plain version.  Returns the main path's
+    launches (both models' b8 drives)."""
+    launches = {}
+    for seed, name in enumerate(("rgb_only", "multimodal")):
+        t0 = time.perf_counter()
+        base = _q8_float_trainer(name, dev, 70 + seed)
+        calib = _q8_images(Q8_CALIB, 50 + seed)
+        q = quantize_for_serving(base, image_size=IMAGE, calib_u8=calib)
+        torch.cuda.synchronize()
+        log(f"[q8 serve] {name}: quantised and calibrated on {Q8_CALIB} "
+            f"images on the card in {time.perf_counter() - t0:.2f} s "
+            "(host clock)")
+        if name == "rgb_only":
+            _q8_trunk_vs_plain(dev, q)
+        inputs = q.spec.inputs
+        batch_np = {m: _q8_images(Q8_REQUESTS, 60 + i)
+                    for i, m in enumerate(inputs)}
+        samples = [{m: batch_np[m][i] for m in inputs}
+                   for i in range(Q8_REQUESTS)]
+        for k, v in _q8_serve_one("q8 serve", q, base, samples,
+                                  batch_np).items():
+            launches[k] = launches.get(k, 0) + v
+        del base, q
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _q8_predict_cli(dev, data: Path, logs: Path) -> None:
+    """``cli/predict --int8 --calib-images`` for rgb_only and multimodal on
+    phase 12's checkpoints: its rows against an int8 trainer built from
+    the same checkpoint and calibration images, and its launches."""
+    from dfu_multimodal_tpu_torch.cli import predict
+    from dfu_multimodal_tpu_torch.cli.serve import calibration_images
+    from dfu_multimodal_tpu_torch.data.layout import list_images
+    from dfu_multimodal_tpu_torch.data.loader import decode_all
+    calib_dir = data / "rgb" / "train"
+    for name in ("rgb_only", "multimodal"):
+        ckpt = logs / f"checkpoints_{name}"
+        argv = ["--checkpoint", str(ckpt), "--images",
+                str(data / "rgb" / "test"), "--int8", "--calib-images",
+                str(calib_dir), "--batch-size", "8", "--ignore-deployment",
+                "--image-size", str(IMAGE), "--device", str(dev)]
+        if name == "multimodal":
+            argv += ["--thermal-images", str(data / "thermal" / "test")]
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = predict.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in _all_launches().items() if v}
+        tr = Trainer(name, TrainConfig(batch_size=8, eval_batch_size=8),
+                     {"rgb": rgb_modality(), "thermal": thermal_modality()},
+                     device=dev, image_size=IMAGE)
+        tr.restore(ckpt)
+        q = quantize_for_serving(
+            tr, image_size=IMAGE,
+            calib_u8=calibration_images(calib_dir, IMAGE))
+        n = len(res)
+        arrays = {"rgb": decode_all(list_images(data / "rgb" / "test")[:n],
+                                    IMAGE)}
+        if name == "multimodal":
+            arrays["thermal"] = decode_all(
+                list_images(data / "thermal" / "test")[:n], IMAGE)
+        _, ref = q.run_eval_epoch(ArrayDataset(arrays,
+                                               np.zeros(n, np.int32)))
+        probs = np.asarray([p for p, _ in res.values()])
+        err = float(np.abs(probs - ref["y_probs"]).max())
+        same = [d for _, d in res.values()] == ref["y_pred"].tolist()
+        log(f"[q8 cli] predict --int8 {name}: {n} rows in {seconds:.2f} s "
+            f"(host clock), max |dp| vs an int8 trainer of the same "
+            f"checkpoint and calibration {err:.2e}, predictions equal "
+            f"{same}; launches {launches}")
+        if (err > 1e-6 or not same
+                or not Q8_PREDICT_KERNELS[name] <= set(launches)
+                or {"attn_block", "mlp_block", "bottleneck"} & set(launches)):
+            raise AssertionError(f"predict --int8 {name}")
+        del tr, q
+
+
+def _count_in_flight(engine) -> dict:
+    """Wrap ``engine``'s dispatch and resolve (both run on its batcher
+    thread) to count the batches in flight: ``overlapped`` counts the
+    recorded batches dispatched while another was not yet resolved."""
+    seen = {"in_flight": 0, "overlapped": 0, "most": 0}
+    dispatch, resolve = engine._dispatch, engine._resolve
+
+    def counted_dispatch(items, record=True):
+        handle = dispatch(items, record)
+        if handle is not None and record:
+            seen["overlapped"] += seen["in_flight"] > 0
+            seen["in_flight"] += 1
+            seen["most"] = max(seen["most"], seen["in_flight"])
+        return handle
+
+    def counted_resolve(items, results, event, record=True):
+        try:
+            resolve(items, results, event, record)
+        finally:
+            if record:
+                seen["in_flight"] -= 1
+
+    engine._dispatch, engine._resolve = counted_dispatch, counted_resolve
+    return seen
+
+
+def _q8_daemon(dev, data: Path, logs: Path) -> None:
+    """The daemon with the int8 multimodal as its primary (``--int8
+    --calib-images``) and the same checkpoint as its full-fidelity bf16
+    ``--shadow``, at ``--pipeline-depth`` 1 and 2, one request a batch
+    (``--max-batch 1``: every batch has the same shape at both depths).
+    SERVE_THREADS clients send the requests in rounds: each answer equals
+    depth 1's for the same request; at depth 2 batches were dispatched
+    while the one before was in flight (rounds are sent until one was, at
+    most Q8_DAEMON_ROUNDS), at depth 1 none was; and after them
+    ``/metrics/prometheus`` counts every request compared by the
+    shadow."""
+    import base64
+    ckpt = logs / "checkpoints_multimodal"
+    jpegs = {m: sorted((data / m / "test").rglob("*.jpg"))
+             [:Q8_DAEMON_REQUESTS] for m in ("rgb", "thermal")}
+    bodies = [json.dumps({m: base64.b64encode(jpegs[m][i].read_bytes())
+                          .decode() for m in jpegs}).encode()
+              for i in range(min(len(v) for v in jpegs.values()))]
+    answers = {}
+    for depth in (1, 2):
+        t0 = time.perf_counter()
+        url, *a = _daemon(dev, ["--checkpoint", str(ckpt), "--int8",
+                                "--calib-images", str(data / "rgb" / "train"),
+                                "--shadow", str(ckpt),
+                                "--pipeline-depth", str(depth)], max_batch=1)
+        up = time.perf_counter() - t0
+        router = a[1]
+
+        def ask(i):
+            code, res = _http(url + "/v1/predict", bodies[i],
+                              "application/json")
+            res = json.loads(res)
+            if code != 200:
+                raise AssertionError(f"daemon depth {depth}: {res}")
+            return i, (res["prob_ulcer"], res["prediction"])
+
+        try:
+            seen = _count_in_flight(router.single)
+            _reset_launches()
+            got, sent, rounds = {}, 0, 0
+            while rounds < (1 if depth == 1 else Q8_DAEMON_ROUNDS):
+                with ThreadPoolExecutor(SERVE_THREADS) as ex:
+                    for i, ans in ex.map(ask, range(len(bodies))):
+                        got.setdefault(i, set()).add(ans)
+                sent, rounds = sent + len(bodies), rounds + 1
+                if depth == 2 and seen["overlapped"]:
+                    break
+            answers[depth] = got
+            tracker = router.single.shadow
+            deadline = time.monotonic() + 60
+            while (tracker.stats()["compared"] < sent
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _all_launches().items() if v}
+            prom = _http(url + "/metrics/prometheus")[1].decode()
+            metrics = json.loads(_http(url + "/metrics")[1])
+            health = json.loads(_http(url + "/healthz")[1])
+        finally:
+            _stop_daemon(*a)
+        shadow = metrics["shadow"]
+        line = (f'dfu_shadow_compared_total{{model="multimodal",'
+                f'shadow="multimodal"}} {sent}')
+        log(f"[q8 daemon] multimodal int8 primary + bf16 shadow, "
+            f"--pipeline-depth {depth}, --max-batch 1: up in {up:.2f} s; "
+            f"{sent} requests from {SERVE_THREADS} threads in {rounds} "
+            f"round(s); batches {metrics['batch_size_hist']}, dispatched "
+            f"with another in flight {seen['overlapped']} (most in flight "
+            f"{seen['most']}); shadow compared {shadow['compared']}, "
+            f"agreement {shadow['agreement']}, mean |P_bf16 - P_int8| "
+            f"{shadow['mean_abs_prob_delta']}, errors {shadow['errors']}; "
+            f"prometheus has '{line}': {line in prom}; healthz shadows "
+            f"{health.get('shadows')}; launches {launches}")
+        if (line not in prom or shadow["errors"]
+                or health.get("shadows") != {"multimodal": "multimodal"}
+                or not Q8_DAEMON_KERNELS <= set(launches)):
+            raise AssertionError(f"daemon depth {depth}: shadow")
+        if (seen["overlapped"] == 0) == (depth == 2) or seen["in_flight"]:
+            raise AssertionError(f"daemon depth {depth}: batches in flight "
+                                 f"{seen}")
+    # one answer for each request, whatever the depth and the round
+    same = all(len(answers[2][i] | answers[1][i]) == 1 for i in answers[1])
+    log(f"[q8 daemon] every depth-2 answer equals depth 1's for the same "
+        f"request: {same}")
+    if not same or set(answers[2]) != set(answers[1]):
+        raise AssertionError(f"depth 2 {answers[2]} != depth 1 {answers[1]}")
+
+
+def _qat_requantizes(tag, ckpt: Path, dev) -> None:
+    """The QAT run's weights on the card: each ViT encoder dense weight and
+    ResNet stage conv of ``last_model.pt``, snapped by ``--qat``'s
+    transform, equals the serving quantiser's dequantised weight, and
+    quantising the snapped weight again gives the same int8 codes and
+    each channel's scale back, or one ulp from it (fl(fl(127·s)/127)
+    misses s by one ulp for under 1% of scales)."""
+    from dfu_multimodal_tpu_torch.models.resnet_q8 import (
+        quantize_conv_weight)
+    from dfu_multimodal_tpu_torch.train.qat import fake_quant_trunks
+
+    def quantize(w):
+        """(int8 codes, scales, dequantised) in the port's layout."""
+        if w.dim() == 2:
+            q, s = q8.quantize_weight(w.t())
+            return q, s, (q.float() * s).t()
+        q, s = quantize_conv_weight(w.permute(2, 3, 1, 0))
+        return q, s, (q.float() * s).permute(3, 2, 0, 1)
+
+    state = torch.load(ckpt / "last_model.pt", weights_only=True)
+    weights = {k: v.to(dev) for k, v in state["model_state_dict"].items()
+               if v.is_floating_point()}
+    snapped = fake_quant_trunks(weights)
+    changed = [k for k in weights if snapped[k] is not weights[k]]
+    kinds, moved, channels = {2: 0, 4: 0}, 0, 0
+    for k in changed:
+        q1, s1, dq = quantize(weights[k])
+        q2, s2, _ = quantize(snapped[k])
+        ulp = torch.nextafter(s1, torch.full_like(s1, math.inf)) - s1
+        if (not torch.equal(snapped[k], dq) or not torch.equal(q1, q2)
+                or bool(((s2 - s1).abs() > ulp).any())):
+            raise AssertionError(f"{tag}: {k} does not requantise "
+                                 "losslessly")
+        kinds[weights[k].dim()] += 1
+        moved += int((s2 != s1).sum())
+        channels += s1.numel()
+    log(f"[{tag}] snapped weights = the serving grid's, requantised to "
+        f"the same int8 codes: {kinds[2]} ViT dense weights, {kinds[4]} "
+        f"ResNet stage convs; {moved} of {channels} channel scales one ulp "
+        f"off")
+    if not changed:
+        raise AssertionError(f"{tag}: no trunk weight in scope")
+
+
+def _qat_cli(dev, data: Path, d: Path) -> None:
+    """The three reference train CLIs with ``--qat`` for one epoch on phase
+    12's tree (their own models and batches, bf16), their launches, then
+    the lossless requantisation of their snapped weights."""
+    logs = d / "qat_logs"
+    for name, (_, batch) in DISK_CLIS.items():
+        tag = f"qat {name}"
+        jsonl = d / f"qat_{name}.jsonl"
+        epochs = _run_cli(tag, name, [
+            "--data-dir", str(data), "--checkpoint-root", str(logs),
+            "--epochs", "1", "--save-best-after", "1", "--save-last",
+            "--log-jsonl", str(jsonl), "--seed", "0", "--qat"], jsonl)
+        if epochs != [1]:
+            raise AssertionError(f"{tag}: ran epochs {epochs}")
+        ckpt = logs / f"checkpoints_{name}"
+        meta = json.loads((ckpt / "run_info.json").read_text())
+        if not meta["config"].get("qat"):
+            raise AssertionError(f"{tag}: run_info has no qat: {meta}")
+        _qat_requantizes(tag, ckpt, dev)
+
+
+def phase_q8_cli(dev, d: Path) -> None:
+    """Phase 15's CLIs on phase 12's tree and checkpoints (``d``): predict
+    --int8, the daemon with an int8 primary and its bf16 shadow at pipeline
+    depths 1 and 2, and the --qat train CLIs."""
+    data, logs = d / "data", d / "logs"
+    t0 = time.perf_counter()
+    _q8_predict_cli(dev, data, logs)
+    _q8_daemon(dev, data, logs)
+    _qat_cli(dev, data, d)
+    log(f"[q8 cli] in {time.perf_counter() - t0:.2f} s (host clock; "
+        f"{card()})")
+
+
 # ---------------------------------------------------------------- bounds
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
@@ -4163,10 +4833,17 @@ def main() -> int:
     phase_train_all(dev)
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
+    times.update(phase_q8_conv(dev))
+    # the int8 trunk's main path: conv_q8's and quantize_act_q8's launches
+    # (K7's and K3's stand from phases 6 and 4)
+    q8_serve = phase_q8_serve(dev)
+    for k in ("conv_q8", "quantize_act_q8"):
+        launches[k] = q8_serve[k]
     with tempfile.TemporaryDirectory(dir=build) as d:
         phase_train_disk(dev, Path(d))
         phase_artifacts(dev, Path(d))
         explain = phase_explain(dev, Path(d))
+        phase_q8_cli(dev, Path(d))
     for mod in ("jax", "flax", "optax", "PIL", "torchvision", "matplotlib",
                 "sklearn", "cv2", "dfu_multimodal_tpu"):
         if mod in sys.modules:
@@ -4190,16 +4867,21 @@ def main() -> int:
         "bottleneck": ("resnet_block.cu", "resnet_block.py:108"),
         "bottleneck_proj": ("resnet_block.cu", "resnet_block.py:130"),
         "attn_block_bwd_fused": ("attn_block_bwd.cu", "vit_block.py:264"),
-        "stage": ("resnet_block.cu", "resnet_block.py:116")}
+        "stage": ("resnet_block.cu", "resnet_block.py:116"),
+        "conv_q8": ("conv_q8.cu", "resnet_q8.py:59 (_QConv, an XLA conv)"),
+        "quantize_act_q8": ("conv_q8.cu",
+                            "resnet_q8.py:44 (quantize_act, XLA ops)")}
     # library_ms: SDPA's time where one call computes the kernel's
     # function (the K6/K9 forwards), else null (no single PyTorch call
     # computes K10: its row carries the K5 chain rule's time as chain_ms)
     kernels = [{"name": k, "route": "cuda",
                 "source": f"dfu_multimodal_tpu_torch/ops/csrc/{src}",
-                "replaces": f"dfu_multimodal_tpu/ops/{tpu}",
+                "replaces": (f"dfu_multimodal_tpu/models/{tpu}"
+                             if tpu.startswith("resnet_q8") else
+                             f"dfu_multimodal_tpu/ops/{tpu}"),
                 "launches": launches[k], "library_ms": None, **times[k],
-                **bounds[k], **({"explain_launches": explain[k]}
-                                if k in explain else {})}
+                **bounds.get(k, {}), **({"explain_launches": explain[k]}
+                                        if k in explain else {})}
                for k, (src, tpu) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,13 @@ per-image probabilities and a CSV:
     python -m dfu_multimodal_tpu_torch.cli.predict --checkpoint logs/checkpoints_rgb_only \
         --images <dir> [--thermal-images <dir>] [--output preds.csv] \
         [--explain-dir <dir>]   # Grad-CAM evidence overlay per image
+        [--int8 [--calib-images <dir>]]
 
 The model runs on ``--device`` (default ``cuda``).  ``--int8`` serves
-``thermal_only`` on the int8 blocks; ``--explain-dir`` always
-differentiates the full-fidelity restore.  ``--token-merge`` needs
-``ops/token_merge.py`` and ``--int8`` of a ResNet trunk
-``models/resnet_q8.py``, neither ported yet: both are refused with that
+the int8 paths (the int8 ViT blocks; the ResNet trunk calibrated on
+``--calib-images``, by default the first 32 inputs); ``--explain-dir``
+always differentiates the full-fidelity restore.  ``--token-merge``
+needs ``ops/token_merge.py``, not ported yet: it is refused with that
 named.
 """
 
@@ -28,7 +29,8 @@ import numpy as np
 from dfu_multimodal_tpu_torch import config as cfg_mod
 from dfu_multimodal_tpu_torch.cli._train_common import (VIT_MODELS,
                                                         resolve_device)
-from dfu_multimodal_tpu_torch.cli.serve import UNPORTED
+from dfu_multimodal_tpu_torch.cli.serve import (CALIB_IMAGES, UNPORTED,
+                                                calibration_images)
 from dfu_multimodal_tpu_torch.config import TrainConfig
 from dfu_multimodal_tpu_torch.data.layout import list_images
 from dfu_multimodal_tpu_torch.data.loader import ArrayDataset, decode_all
@@ -38,7 +40,8 @@ from dfu_multimodal_tpu_torch.eval.calibration import apply_temperature
 from dfu_multimodal_tpu_torch.eval.deployment import resolve_deployment
 from dfu_multimodal_tpu_torch.eval.threshold import apply_threshold
 from dfu_multimodal_tpu_torch.eval.tta import tta_predictions
-from dfu_multimodal_tpu_torch.serve.engine import quantize_for_serving
+from dfu_multimodal_tpu_torch.serve.engine import (RESNET_TRUNK_MODELS,
+                                                   quantize_for_serving)
 from dfu_multimodal_tpu_torch.serve.explain import (explain_batch,
                                                     normalize_inputs,
                                                     render_overlay)
@@ -66,8 +69,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--attention-impl", default="auto",
                         choices=["auto", "xla", "pallas"])
     parser.add_argument("--int8", action="store_true",
-                        help="serve thermal_only on the int8 blocks "
-                             "(weights quantised at load)")
+                        help="int8 serving: the ViT branch on the int8 "
+                             "blocks, the ResNet branch on calibrated "
+                             "int8 convs (weights quantised at load, "
+                             "activation scales calibrated on "
+                             "--calib-images or the inputs)")
+    parser.add_argument("--calib-images", type=Path, default=None,
+                        help="directory of images to calibrate the int8 "
+                             "ResNet activation scales (the first 32, "
+                             "sorted); default: the first <=32 inputs")
     parser.add_argument("--threshold", type=float, default=None,
                         help="classify ulcer when P(ulcer) >= this value "
                              "instead of argmax")
@@ -195,9 +205,16 @@ def main(argv=None):
     # int8 rebuild below
     base_trainer = trainer
     if args.int8:
+        calib_u8 = None
+        if model_name in RESNET_TRUNK_MODELS:
+            calib_u8 = (calibration_images(args.calib_images,
+                                           args.image_size)
+                        if args.calib_images is not None
+                        else arrays[primary][:CALIB_IMAGES])
         try:
             trainer = quantize_for_serving(trainer,
-                                           image_size=args.image_size)
+                                           image_size=args.image_size,
+                                           calib_u8=calib_u8)
         except (ValueError, NotImplementedError) as e:
             raise SystemExit(f"--int8: {e}")
 

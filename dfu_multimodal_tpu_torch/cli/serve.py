@@ -4,7 +4,8 @@
     # one model
     python -m dfu_multimodal_tpu_torch.cli.serve \
         --checkpoint logs/checkpoints_multimodal --port 8000 \
-        [--explain] [--max-batch 64] [--max-wait-ms 2]
+        [--explain] [--int8 --calib-images <dir>] [--max-batch 64] \
+        [--max-wait-ms 2] [--pipeline-depth 2] [--shadow <ckpt>]
 
     # the clinical router: every checkpoints_* under logs/ is served, and
     # each request goes to the model matching its modalities
@@ -19,17 +20,23 @@ Then:
 The models run on ``--device`` (default ``cuda``).  Each checkpoint
 directory's ``deployment.json`` (threshold, temperature) and
 ``drift_baseline.json`` are loaded unless switched off.  ``--int8``
-serves ``thermal_only`` on the int8 blocks; ``--explain`` differentiates
-the full-fidelity model captured before quantisation.  Not ported yet,
-refused with the missing module named: ``--exported``
-(``serve/export.py``), ``--shadow`` (``serve/shadow.py``),
-``--token-merge`` (``ops/token_merge.py``), ``--pipeline-depth > 1`` and
-``--int8`` for a ResNet trunk (``models/resnet_q8.py``).
+serves every model on its int8 paths (the int8 ViT blocks, the
+calibrated int8 ResNet trunk, which needs ``--calib-images``);
+``--explain`` differentiates the full-fidelity model captured before
+quantisation.  ``--shadow <ckpt>`` scores a candidate on the live
+traffic of the primary that takes its inputs, full-fidelity with its
+own ``deployment.json`` whatever the primary's ``--int8`` (an int8
+primary beside its full-fidelity shadow asks whether int8 may replace
+it), and ``/metrics`` reports the agreement; ``--pipeline-depth 2``
+dispatches the next batch before the last one's results are fetched.  Not ported yet, refused with the
+missing module named: ``--exported`` (``serve/export.py``) and
+``--token-merge`` (``ops/token_merge.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -37,21 +44,26 @@ from dfu_multimodal_tpu_torch import config as cfg_mod
 from dfu_multimodal_tpu_torch.cli._train_common import (VIT_MODELS,
                                                         resolve_device)
 from dfu_multimodal_tpu_torch.config import TrainConfig
+from dfu_multimodal_tpu_torch.data.layout import list_images
+from dfu_multimodal_tpu_torch.data.loader import decode_all
 from dfu_multimodal_tpu_torch.eval import drift as drift_mod
 from dfu_multimodal_tpu_torch.eval import vit_attribution as va
 from dfu_multimodal_tpu_torch.eval.deployment import resolve_deployment
-from dfu_multimodal_tpu_torch.serve.engine import (ModelRouter,
+from dfu_multimodal_tpu_torch.serve.engine import (RESNET_TRUNK_MODELS,
+                                                   ModelRouter,
                                                    ServingEngine,
                                                    quantize_for_serving)
 from dfu_multimodal_tpu_torch.serve.explain import Explainer
 from dfu_multimodal_tpu_torch.serve.http import make_server
+from dfu_multimodal_tpu_torch.serve.shadow import attach_shadow
 from dfu_multimodal_tpu_torch.train.engine import Trainer
 from dfu_multimodal_tpu_torch.utils import checkpoint as ckpt_mod
 
 # flags of the JAX daemon whose modules the port has not ported yet
 UNPORTED = {"exported": "serve/export.py (exported bundles)",
-            "shadow": "serve/shadow.py (shadow traffic)",
             "token_merge": "ops/token_merge.py (ToMe)"}
+# calibration images the int8 ResNet trunk takes (the first of them)
+CALIB_IMAGES = 32
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -89,15 +101,32 @@ def build_parser() -> argparse.ArgumentParser:
                         help="batching window after the first queued "
                              "request")
     parser.add_argument("--pipeline-depth", type=int, default=1,
-                        help="1 only: the overlapped pipeline is not "
-                             "ported yet")
+                        help="2 dispatches the next batch (its pinned "
+                             "upload and eval step) before fetching the "
+                             "previous batch's results")
     parser.add_argument("--compute-dtype", default="bfloat16",
                         choices=["bfloat16", "float32"])
     parser.add_argument("--attention-impl", default="auto",
                         choices=["auto", "xla", "pallas"])
     parser.add_argument("--int8", action="store_true",
-                        help="serve thermal_only on the int8 blocks "
-                             "(dynamic activation scales)")
+                        help="serve the int8 paths (the int8 ViT blocks, "
+                             "dynamic activation scales; the calibrated "
+                             "int8 ResNet trunk)")
+    parser.add_argument("--calib-images", type=Path, default=None,
+                        help="REQUIRED with --int8 for models with a "
+                             "ResNet trunk: a directory of images (the "
+                             "first 32, sorted) fixing the static int8 "
+                             "activation scales")
+    parser.add_argument("--shadow", type=Path, action="append",
+                        default=None,
+                        help="shadow-deploy a candidate checkpoint: it "
+                             "scores every request its matching primary "
+                             "answers (matched by input modalities) but "
+                             "never responds; /metrics reports live "
+                             "decision agreement, flips and probability "
+                             "deltas (serve/shadow.py). Repeatable, one "
+                             "shadow per primary, with its OWN "
+                             "deployment.json; served full-fidelity")
     parser.add_argument("--explain", action="store_true",
                         help="enable POST /v1/explain: per-request "
                              "Grad-CAM evidence heatmaps of the "
@@ -123,8 +152,6 @@ def build_parser() -> argparse.ArgumentParser:
     # refused: their modules are not ported yet
     parser.add_argument("--exported", type=Path, action="append",
                         default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--shadow", type=Path, action="append",
-                        default=None, help=argparse.SUPPRESS)
     parser.add_argument("--token-merge", default=None, help=argparse.SUPPRESS)
     return parser
 
@@ -136,18 +163,28 @@ def refuse_unported(args) -> None:
         if getattr(args, flag, None):
             raise SystemExit(f"--{flag.replace('_', '-')} needs {module}, "
                              "which is not ported yet")
-    if getattr(args, "pipeline_depth", 1) > 1:
-        raise SystemExit("--pipeline-depth > 1 needs the overlapped "
-                         "pipeline of serve/engine.py, which is not ported "
-                         "yet")
+
+
+def calibration_images(directory: Optional[Path], image_size: int):
+    """The first CALIB_IMAGES images (sorted) under ``directory``, decoded
+    at ``image_size``; exits without a directory or images."""
+    if directory is None:
+        raise SystemExit("--int8 with a ResNet trunk requires "
+                         "--calib-images (static activation-scale "
+                         "calibration set)")
+    paths = list_images(directory)[:CALIB_IMAGES]
+    if not paths:
+        raise SystemExit(f"No calibration images under {directory}")
+    return decode_all(paths, image_size)
 
 
 def restore_trainer(ckpt: Path, model_name: Optional[str], args, cfg,
                     modalities, device) -> Tuple[str, Trainer, Trainer]:
     """(model name, the serving trainer, the full-fidelity trainer) from a
     checkpoint dir: with ``--int8`` the serving trainer is the int8
-    rebuild and the second is the restore it was quantised from (the one
-    an explainer differentiates)."""
+    rebuild (a ResNet trunk calibrated on ``--calib-images``) and the
+    second is the restore it was quantised from (the one an explainer
+    differentiates)."""
     model_name = model_name or ckpt_mod.load_meta(ckpt).get(
         "model", "rgb_only")
     kwargs = ({"attention_impl": args.attention_impl}
@@ -157,8 +194,11 @@ def restore_trainer(ckpt: Path, model_name: Optional[str], args, cfg,
     base.restore(ckpt)
     trainer = base
     if args.int8:
+        calib_u8 = (calibration_images(args.calib_images, args.image_size)
+                    if model_name in RESNET_TRUNK_MODELS else None)
         try:
-            trainer = quantize_for_serving(base, image_size=args.image_size)
+            trainer = quantize_for_serving(base, image_size=args.image_size,
+                                           calib_u8=calib_u8)
         except (ValueError, NotImplementedError) as e:
             raise SystemExit(f"--int8 {ckpt}: {e}")
     return model_name, trainer, base
@@ -206,7 +246,36 @@ def _load_engine(ckpt: Path, model_name, args, cfg, modalities, device):
         trainer, image_size=args.image_size, max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, threshold=threshold,
         temperature=temperature, max_queue=args.max_queue,
-        drift_monitor=_drift_monitor(ckpt, args), explainer=explainer)
+        drift_monitor=_drift_monitor(ckpt, args), explainer=explainer,
+        pipeline_depth=args.pipeline_depth)
+
+
+def _attach_shadows(router: ModelRouter, args, cfg, modalities, device):
+    """Restore each ``--shadow`` candidate full-fidelity with its own
+    deployment.json behind a small bounded queue and attach it to the
+    primary that takes its inputs."""
+    for sh in args.shadow or []:
+        # the comparison is the candidate as it would deploy against the
+        # live primary, independent of the primary's --int8 and threshold
+        sh_args = copy.copy(args)
+        sh_args.int8 = False
+        sh_args.threshold = sh_args.temperature = None
+        name, trainer, _ = restore_trainer(sh, None, sh_args, cfg,
+                                           modalities, device)
+        threshold, temperature = _resolve_deployment(sh, sh_args)
+        # shadow traffic has no client backpressure: bound its queue small
+        # (overflow counts as sampling, ShadowTracker's dropped_overloaded)
+        engine = ServingEngine(
+            trainer, image_size=args.image_size, max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms, threshold=threshold,
+            temperature=temperature, max_queue=max(32, 4 * args.max_batch),
+            pipeline_depth=args.pipeline_depth)
+        try:
+            tracker = attach_shadow(router, engine)
+        except KeyError as exc:
+            raise SystemExit(f"--shadow {sh}: {exc}")
+        print(f"{sh.name}: {name} ({args.compute_dtype}) shadowing "
+              f"{tracker.primary_name}")
 
 
 def build_daemon(argv=None):
@@ -239,19 +308,20 @@ def build_daemon(argv=None):
             raise SystemExit(f"model {name!r} served twice ({ckpt})")
         engines[name] = engine
     router = ModelRouter(engines)
+    _attach_shadows(router, args, cfg, modalities, device)
     if not args.no_warmup:
         for name, engine in engines.items():
             print(f"warming {name}: buckets {list(engine.buckets)} ...",
                   flush=True)
-        router.warmup()
+        router.warmup()             # the shadows too
     router.start()
     server = make_server(router, args.host, args.port)
     mode = "int8" if args.int8 else args.compute_dtype
     served = ", ".join(f"{n}{list(e.inputs)}" for n, e in engines.items())
     print(f"serving {served} ({mode}) on "
           f"http://{args.host}:{server.server_address[1]}  "
-          f"[max_batch={args.max_batch}, wait={args.max_wait_ms}ms]",
-          flush=True)
+          f"[max_batch={args.max_batch}, wait={args.max_wait_ms}ms, "
+          f"pipeline_depth={args.pipeline_depth}]", flush=True)
     return server, router, args
 
 

@@ -101,8 +101,8 @@ class MeshConfig:
 class TrainConfig:
     """Reference constants: train_rgb_only.py (batch 32),
     train_thermal_only.py (batch 16), train_multimodal_fusion.py (batch 6).
-    ``qat`` and ``mesh`` raise in the port's train step
-    (``train.engine.Trainer``)."""
+    ``mesh`` raises in the port's train step (``train.engine.Trainer``);
+    ``qat`` trains through the int8 serving grids (``train/qat.py``)."""
 
     batch_size: int = 32
     num_epochs: int = 10

@@ -10,8 +10,9 @@ them by default (explicit ``--threshold`` / ``--temperature`` flags
 override; ``--ignore-deployment`` opts out), so a deployment can't silently
 drop its tuning. Written by ``extended_metrics --save-deployment``;
 ``export_model`` copies it into frozen serving bundles.  (The port writes
-the file with its ``extended_metrics``; its ``predict``, ``serve`` and
-``export_model`` are not ported yet.)
+the file with its ``extended_metrics`` and reads it in its ``predict`` and
+``serve``, shadows included; ``export_model`` is not ported yet,
+``serve/export.py``.)
 
 No reference analogue: the reference hard-codes argmax-0.5 and has no
 calibration concept (notebooks/extended_metrics.py:592-593).

@@ -82,15 +82,26 @@ class MultimodalFusionClassifier(nn.Module):
     """Late fusion of ResNet50 (RGB) and ViT-B/16 (thermal); inputs are
     NHWC images already normalised, returns (B, num_classes) logits.
     ``block_impl`` and ``attention_impl`` go to the thermal branch's ViT,
-    as in the JAX fusion model."""
+    as in the JAX fusion model; ``rgb_impl`` picks the RGB trunk:
+    ``"auto"`` the float ResNet-50, ``"int8"`` the int8 serving trunk
+    (``models/resnet_q8.py::Int8ResNet50``, weights from
+    ``quantize_rgb_trunks``)."""
 
     def __init__(self, num_classes: int = 2, drop_rate: float = 0.5,
                  dtype: Union[str, torch.dtype] = torch.float32,
                  image_size: int = 224, block_impl: str = "fused",
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", rgb_impl: str = "auto"):
         super().__init__()
         dtype = canonical_dtype(dtype)
-        self.rgb_branch = ResNet50(dtype=dtype)
+        if rgb_impl == "int8":
+            from dfu_multimodal_tpu_torch.models.resnet_q8 import (
+                Int8ResNet50)
+            self.rgb_branch = Int8ResNet50(dtype=dtype)
+        elif rgb_impl == "auto":
+            self.rgb_branch = ResNet50(dtype=dtype)
+        else:
+            raise ValueError(f"unknown rgb_impl {rgb_impl!r}; have 'auto', "
+                             "'int8'")
         self.thermal_branch = ViTBase16(dtype=dtype, image_size=image_size,
                                         block_impl=block_impl,
                                         attention_impl=attention_impl)

@@ -25,7 +25,7 @@ the JAX default does.  Both impls hold the same parameters and buffers.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -109,6 +109,16 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
+def _record(calibration: Optional[Dict[str, torch.Tensor]], key: str,
+            x: torch.Tensor) -> None:
+    """Fold max|x| (fp32) into ``calibration[key]`` (a running max)."""
+    if calibration is None:
+        return
+    m = x.detach().float().abs().amax()
+    calibration[key] = (m if key not in calibration
+                        else torch.maximum(calibration[key], m))
+
+
 class Bottleneck(nn.Module):
     expansion = 4
 
@@ -129,9 +139,18 @@ class Bottleneck(nn.Module):
                 nn.Conv2d(cin, cout, 1, stride=stride, bias=False),
                 BatchNorm2d(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                calibration: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """``calibration``: a dict in which the block keeps the running
+        absmax of each conv input (``conv1_in``, ``conv2_in``,
+        ``conv3_in``: the JAX ``calibrate=True`` keys; the projection
+        reads conv1's input)."""
+        _record(calibration, "conv1_in", x)
         y = F.relu(self.bn1(_conv(self.conv1, x)))
+        _record(calibration, "conv2_in", y)
         y = F.relu(self.bn2(_conv(self.conv2, y)))
+        _record(calibration, "conv3_in", y)
         y = self.bn3(_conv(self.conv3, y))
         shortcut = x
         if self.downsample is not None:
@@ -194,18 +213,30 @@ class ResNet(nn.Module):
             self.add_module(f"layer{i}", nn.Sequential(*layer))
         self.num_stages = len(stage_sizes)
 
-    def forward(self, x: torch.Tensor, taps: Taps = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, taps: Taps = None,
+                calibration: Optional[Dict[str, Dict[str, torch.Tensor]]]
+                = None) -> torch.Tensor:
         """x (B, H, W, 3) NHWC -> (B, C) fp32.  ``taps`` records
-        ``stage1``..``stage4``, each stage's output as (B, H, W, C)."""
+        ``stage1``..``stage4``, each stage's output as (B, H, W, C).
+        ``calibration`` (a dict) receives, per block scope
+        ``stage{s}_block{i}``, the running absmax of each conv input
+        (:meth:`Bottleneck.forward`; the int8 trunk's calibration,
+        ``models/resnet_q8.py``); the blocks then run on cuDNN."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)      # channels-last NCHW
         x = F.relu(self.bn1(_conv(self.conv1, x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         # eval only: train-mode BN needs batch statistics
-        fused = self.block_impl == "fused" and not self.training
+        fused = (self.block_impl == "fused" and not self.training
+                 and calibration is None)
         for i in range(1, self.num_stages + 1):
-            for block in getattr(self, f"layer{i}"):
-                x = (block.forward_fused(x) if fused and block.stride == 1
-                     else block(x))
+            for j, block in enumerate(getattr(self, f"layer{i}")):
+                if fused and block.stride == 1:
+                    x = block.forward_fused(x)
+                elif calibration is not None:
+                    x = block(x, calibration.setdefault(
+                        f"stage{i}_block{j}", {}))
+                else:
+                    x = block(x)
             x = tap(taps, f"stage{i}", x, channels_last=True)
         return x.mean(dim=(2, 3)).float()
 
@@ -222,7 +253,9 @@ class ResNetClassifier(nn.Module):
     The trunk's keys carry the ``resnet.`` prefix, the head is ``head``.
     Dropout is active in train mode and draws from the ``generator`` given
     to forward (required then).  ``block_impl`` picks the trunk's
-    bottleneck (:class:`ResNet`).  ``image_size`` is accepted for the
+    bottleneck (:class:`ResNet`), or ``"int8"`` the int8 serving trunk
+    (``models/resnet_q8.py::Int8ResNet50``, weights from
+    ``quantize_rgb_trunks``).  ``image_size`` is accepted for the
     Trainer's uniform model arguments; the trunk pools any size."""
 
     def __init__(self, num_classes: int = 2, drop_rate: float = 0.5,
@@ -233,14 +266,17 @@ class ResNetClassifier(nn.Module):
         if trunk != "resnet50":
             raise NotImplementedError(
                 f"trunk {trunk!r} is not ported yet (the ResNet-18 "
-                "BasicBlock student); the port has trunk='resnet50'")
-        if block_impl == "int8":
-            raise NotImplementedError(
-                "block_impl='int8' needs the int8 ResNet "
-                "(models/resnet_q8.py), which is not ported yet")
+                "BasicBlock student, models/resnet.py's ResNet18, and its "
+                "int8 twin in models/resnet_q8.py); the port has "
+                "trunk='resnet50'")
         del image_size
         self.drop_rate = drop_rate
-        self.resnet = ResNet50(dtype=dtype, block_impl=block_impl)
+        if block_impl == "int8":
+            from dfu_multimodal_tpu_torch.models.resnet_q8 import (
+                Int8ResNet50)
+            self.resnet = Int8ResNet50(dtype=dtype)
+        else:
+            self.resnet = ResNet50(dtype=dtype, block_impl=block_impl)
         self.head = nn.Linear(2048, num_classes)
 
     def forward(self, x: torch.Tensor,

@@ -102,7 +102,11 @@
 //     facc + (float(acc)·a[r, g])·s[n] (flush_group), then zeroed.  The
 //     epilogue (store_s8) adds the bias and casts (qkv), adds the residual
 //     to the rounded output (proj, fc2), or applies erf GELU into fp32
-//     (dynamic fc1) or into int8 with the static scale (static fc1).
+//     (dynamic fc1) or into int8 with the static scale (static fc1).  The
+//     int8 ResNet's convolutions (conv_q8.cu, no TPU kernel: they replace
+//     models/resnet_q8.py's XLA convs) run the S8 mode with static scales
+//     on an im2col A and add ReLU variants of the bias and residual
+//     epilogues.
 //   - WGRAD (K10's dwproj = attnᵀ·g, dwqkv = yᵀ·dqkv): K is the B·N
 //     rows, so A = aᵀ is MN-major like B_MN's B: two 64-column boxes of
 //     64 rows a stage, read through wgmma's transpose bit for A; 128 x 128
@@ -181,10 +185,12 @@ __host__ __device__ constexpr bool is_s8(int mode) {
 // The int8 products' epilogues: v = Σ_g (acc_g·a[r, g])·s[n] + bias[n]
 // in fp32 (a = 1 for static scales), then
 enum QEpilogue {
-  QEPI_OUT = 0,       // out = T(v), T the compute dtype
-  QEPI_RESID = 1,     // out = T(resid + T(v)), resid (m, n) T
-  QEPI_GELU_F32 = 2,  // out = gelu(v), fp32
-  QEPI_GELU_Q8 = 3    // out = int8(gelu(v)·inv[0])
+  QEPI_OUT = 0,         // out = T(v), T the compute dtype
+  QEPI_RESID = 1,       // out = T(resid + T(v)), resid (m, n) T
+  QEPI_GELU_F32 = 2,    // out = gelu(v), fp32
+  QEPI_GELU_Q8 = 3,     // out = int8(gelu(v)·inv[0])
+  QEPI_OUT_RELU = 4,    // out = max(T(v), 0) (the int8 convolution's)
+  QEPI_RESID_RELU = 5   // out = max(T(resid + T(v)), 0)
 };
 
 // clip(round_half_even(y·inv), -127, 127)
@@ -1044,7 +1050,8 @@ __device__ __forceinline__ void flush_group(float (&facc)[R], int (&acc)[R],
 }
 
 // The int8 modes' epilogue of this group's 64 rows of a tile: v = facc +
-// bias, then the QEpilogue.  bf16 QEPI_OUT / QEPI_RESID go through the
+// bias, then the QEpilogue.  bf16 QEPI_OUT / QEPI_RESID (and their ReLU
+// variants) go through the
 // group's padded buffer and copy_out_bf16, as the bf16 products do; the
 // fp32 and int8 outputs are stored as pairs straight from the registers
 // (a quad of lanes writes 32 contiguous bytes of fp32 a row).
@@ -1053,7 +1060,9 @@ __device__ __forceinline__ void store_s8(const float (&facc)[BN / 2],
                                          const Scalars& p, uint32_t buf, int m0,
                                          int n0, int wg, int warp, int lane) {
   const int r = warp * 16 + (lane >> 2);
-  if (p.dtype == DT_BF16 && (p.epi == QEPI_OUT || p.epi == QEPI_RESID)) {
+  const bool resid = p.epi == QEPI_RESID || p.epi == QEPI_RESID_RELU;
+  const bool relu = p.epi == QEPI_OUT_RELU || p.epi == QEPI_RESID_RELU;
+  if (p.dtype == DT_BF16 && p.epi != QEPI_GELU_F32 && p.epi != QEPI_GELU_Q8) {
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = n0 + 8 * j + 2 * (lane & 3);
@@ -1067,7 +1076,7 @@ __device__ __forceinline__ void store_s8(const float (&facc)[BN / 2],
             __fadd_rn(facc[i], b0), __fadd_rn(facc[i + 1], b1));
       }
     }
-    copy_out_bf16<BN, LDE, 1>(buf, m0, n0, wg, p, p.epi == QEPI_RESID);
+    copy_out_bf16<BN, LDE, 1>(buf, m0, n0, wg, p, resid, relu);
     return;
   }
   const float inv = p.epi == QEPI_GELU_Q8 ? p.inv[0] : 0.f;
@@ -1092,12 +1101,13 @@ __device__ __forceinline__ void store_s8(const float (&facc)[BN / 2],
       float2 o = make_float2(v0, v1);
       if (p.epi == QEPI_GELU_F32) {
         o = make_float2(gelu_erf(v0), gelu_erf(v1));
-      } else if (p.epi == QEPI_RESID) {
+      } else if (resid) {
         const float2 x =
             *reinterpret_cast<const float2*>(static_cast<const float*>(p.aux) +
                                              at);
         o = make_float2(__fadd_rn(x.x, v0), __fadd_rn(x.y, v1));
       }
+      if (relu) o = make_float2(fmaxf(o.x, 0.f), fmaxf(o.y, 0.f));
       *reinterpret_cast<float2*>(static_cast<float*>(p.out1) + at) = o;
     }
   }

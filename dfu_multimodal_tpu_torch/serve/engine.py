@@ -22,15 +22,22 @@
 - :class:`ModelRouter` serves several engines, routing a request to the
   model whose inputs match its modalities.
 
+- ``pipeline_depth=2`` overlaps: batch N+1 is assembled, copied to the
+  card from its own pinned host buffers and dispatched before batch N's
+  results are fetched (each batch's results land in pinned memory behind
+  a CUDA event); futures resolve in dispatch order, and the answers are
+  depth 1's row for row.
+- A shadow (``serve/shadow.py::attach_shadow``) scores the live traffic
+  of the engine it is attached to, fire-and-forget, and :meth:`stats`
+  reports its agreement ledger.
+
 One device, so no mesh padding.  :func:`quantize_for_serving` rebuilds a
-trainer around the int8 serving path (``thermal_only``: the fused int8 ViT
-blocks, ``ops/vit_block_q8.py``).  Not ported yet: the int8 ResNet trunk
-(``models/resnet_q8.py``, so int8 ``multimodal`` and ``rgb_only``:
-:func:`quantize_for_serving` raises); the overlapped loop of
-``pipeline_depth > 1``, shadow traffic (``serve/shadow.py``), the ToMe
-rebuild (``ops/token_merge.py``) and exported bundles
-(``serve/export.py``), whose flags the serve and predict CLIs refuse
-with the module named.
+trainer around the int8 serving paths: the fused int8 ViT blocks
+(``ops/vit_block_q8.py``) and the calibrated int8 ResNet trunk
+(``models/resnet_q8.py`` on ``ops/conv_q8.py``).  Not ported yet: the
+ToMe rebuild (``ops/token_merge.py``), exported bundles
+(``serve/export.py``) and the int8 ResNet-18 students, whose flags the
+serve and predict CLIs refuse with the module named.
 """
 
 from __future__ import annotations
@@ -43,8 +50,11 @@ from concurrent.futures import Future, InvalidStateError
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from dfu_multimodal_tpu_torch.data.transforms import eval_normalize
 from dfu_multimodal_tpu_torch.eval.calibration import apply_temperature
+from dfu_multimodal_tpu_torch.models.resnet_q8 import quantize_rgb_trunks
 from dfu_multimodal_tpu_torch.models.vit import quantize_variables
 from dfu_multimodal_tpu_torch.train.engine import Trainer
 
@@ -53,21 +63,29 @@ from dfu_multimodal_tpu_torch.train.engine import Trainer
 RESNET_TRUNK_MODELS = frozenset(
     {"rgb_only", "multimodal", "resnet18_rgb", "resnet18_thermal"})
 INT8_MODELS = RESNET_TRUNK_MODELS | {"thermal_only"}
+# those the port has (not the ResNet-18 students yet), and the
+# model argument that makes each one's ResNet trunk the int8 one
+PORTED_INT8_MODELS = frozenset({"rgb_only", "multimodal", "thermal_only"})
+RGB_IMPL_ARG = {"rgb_only": "block_impl", "multimodal": "rgb_impl"}
 
 
 def quantize_for_serving(trainer: Trainer, image_size: int = 224,
                          calib_u8: Optional[np.ndarray] = None) -> Trainer:
-    """Rebuild a trainer around the int8 serving path: a new ``Trainer``
-    on the same device with ``block_impl="fused_q8"`` (the fused int8 ViT
-    blocks, dynamic per-row activation scales) holding the trunk quantised
-    once by ``models/vit.py::quantize_variables``; the source trainer's
-    fp32 weights are left as they are.  On the card the quantisation runs
-    on the card.
+    """Rebuild a trainer around the int8 serving paths (JAX
+    ``serve/engine.py::quantize_for_serving``): a new ``Trainer`` on the
+    same device whose ViT branch runs the fused int8 blocks
+    (``block_impl="fused_q8"``, dynamic per-row activation scales; trunk
+    quantised by ``models/vit.py::quantize_variables``) and whose ResNet
+    trunk is the calibrated static-scale int8 trunk (``rgb_impl="int8"``,
+    ``models/resnet_q8.py::quantize_rgb_trunks``).  The source trainer's
+    weights are left as they are.  On the card the quantisation and the
+    calibration run on the card.
 
-    ``calib_u8`` calibrates a ResNet trunk's activation scales in the JAX
-    package; ``thermal_only`` has none and ignores it.  Models with a
-    ResNet trunk raise ``NotImplementedError``: the int8 ResNet
-    (``models/resnet_q8.py``) is not ported yet."""
+    ``calib_u8``: (N, S, S, 3) uint8 images that fix the ResNet trunk's
+    activation scales (the first 32, normalised as the eval step does, in
+    the compute dtype, of the modality that feeds the trunk); required
+    for ``rgb_only`` and ``multimodal``, ignored by ``thermal_only``.  The
+    ResNet-18 students raise ``NotImplementedError``."""
     model_name = trainer.spec.name
     if model_name not in INT8_MODELS:
         # the int8 paths are trunk-specific — reject other models with
@@ -76,16 +94,36 @@ def quantize_for_serving(trainer: Trainer, image_size: int = 224,
             f"int8 serving is not supported for model {model_name!r}: "
             f"it covers {sorted(INT8_MODELS)}. Serve other models "
             "fp32/bf16.")
-    if model_name in RESNET_TRUNK_MODELS:
+    if model_name in RESNET_TRUNK_MODELS and (calib_u8 is None
+                                              or len(calib_u8) == 0):
+        raise ValueError(
+            "int8 serving of a ResNet trunk needs calibration images "
+            "(calib_u8) to fix the static activation scales")
+    if model_name not in PORTED_INT8_MODELS:
         raise NotImplementedError(
-            f"int8 serving of {model_name!r} needs the int8 ResNet trunk "
-            "(models/resnet_q8.py), which is not ported yet")
+            f"int8 serving of {model_name!r} needs the ResNet-18 student "
+            "and its int8 twin (models/resnet.py's ResNet18, "
+            "models/resnet_q8.py's Int8ResNet18), not ported yet")
+    state = trainer.variables()
+    impls = {}
+    if model_name in ("thermal_only", "multimodal"):
+        state = quantize_variables(state)
+        impls["block_impl"] = "fused_q8"
+    if model_name in RESNET_TRUNK_MODELS:
+        # calibrate with the modality that feeds the ResNet trunk
+        modality = ("rgb" if "rgb" in trainer.spec.inputs
+                    else trainer.spec.inputs[0])
+        u8 = torch.as_tensor(np.asarray(calib_u8[:32])).to(trainer.device)
+        calib = eval_normalize(u8, trainer.modalities[modality],
+                               trainer.compute_dtype)
+        state = quantize_rgb_trunks(state, [calib],
+                                    dtype=trainer.compute_dtype)
+        impls[RGB_IMPL_ARG[model_name]] = "int8"
     qtrainer = Trainer(model_name, trainer.cfg, trainer.modalities,
                        device=trainer.device,
                        **{**trainer.model_kwargs, "image_size": image_size,
-                          "block_impl": "fused_q8"})
-    qtrainer.module.load_state_dict(quantize_variables(trainer.variables()),
-                                    strict=True)
+                          **impls})
+    qtrainer.module.load_state_dict(state, strict=True)
     return qtrainer
 
 
@@ -114,7 +152,9 @@ class ServingEngine:
     explicit threshold applies to the scaled ones); ``drift_monitor``: an
     ``eval.drift.DriftMonitor``; ``explainer``: a
     ``serve.explain.Explainer`` (None: :meth:`submit_explain` raises
-    :class:`ExplainUnavailable`).
+    :class:`ExplainUnavailable`); ``pipeline_depth``: 1 runs a batch to
+    its results before the next, 2 dispatches the next batch before
+    fetching the last one's (the module docstring).
     """
 
     def __init__(self, trainer, *, image_size: int = 224,
@@ -122,7 +162,8 @@ class ServingEngine:
                  max_queue: Optional[int] = None,
                  threshold: Optional[float] = None,
                  temperature: Optional[float] = None,
-                 drift_monitor=None, explainer=None):
+                 drift_monitor=None, explainer=None,
+                 pipeline_depth: int = 1):
         self.threshold = None if threshold is None else float(threshold)
         self.temperature = (None if temperature is None
                             else float(temperature))
@@ -130,6 +171,10 @@ class ServingEngine:
             raise ValueError(f"temperature must be > 0: {temperature}")
         self.drift_monitor = drift_monitor
         self.explainer = explainer
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        # a candidate fed this engine's traffic (serve/shadow.py), set by
+        # attach_shadow; it never answers a request
+        self.shadow = None
         self._explain_queue: "queue.Queue" = queue.Queue(maxsize=64)
         self.trainer = trainer
         self.image_size = int(image_size)
@@ -389,22 +434,37 @@ class ServingEngine:
                                       self._explain_warmup_classes())
         finally:
             ready.set()
+        # depth 2: with a batch in flight, take what is queued without
+        # waiting and dispatch it before fetching the one in flight
+        pending = None
         while not self._stop.is_set():
-            items = self._collect(0.05)
-            if items:
-                self._execute(items)
+            items = self._collect(0.0 if pending else 0.05)
+            handle = self._dispatch(items) if items else None
+            if self.pipeline_depth < 2 and handle is not None:
+                self._resolve(*handle)
+                handle = None
+            if pending is not None:
+                self._resolve(*pending)
+            pending = handle
             if self.explainer is not None:
                 self._run_explains()
+        if pending is not None:
+            self._resolve(*pending)
 
     def _bucket(self, n: int) -> int:
         return next(b for b in self.buckets if b >= n)
 
-    def _execute(self, items, record: bool = True) -> None:
-        """Assemble one padded batch, run the eval step, and resolve the
-        items' futures (with the results, or with the failure)."""
+    def _dispatch(self, items, record: bool = True):
+        """Assemble one padded batch and enqueue its eval step on the
+        device without waiting: on the card the batch is copied from its
+        own pinned host buffers and the results are copied back into
+        pinned memory behind a CUDA event.  Returns (items, results,
+        event, record) for :meth:`_resolve`, or None when the dispatch
+        failed (the items' futures are failed)."""
         n = len(items)
         bucket = self._bucket(n)
         S = self.image_size
+        device = self.trainer.device
         try:
             batch = {m: np.zeros((bucket, S, S, 3), np.uint8)
                      for m in self.inputs}
@@ -420,17 +480,33 @@ class ServingEngine:
                             if m in s]
                     if rows:
                         self.drift_monitor.update(m, batch[m][rows])
+            event = None
+            if device.type == "cuda":
+                batch = {m: torch.from_numpy(a).pin_memory().to(
+                    device, non_blocking=True) for m, a in batch.items()}
             out = self.trainer.eval_step(batch)
-            probs, preds = self._apply_deployment(
-                out["probs"][:n].cpu().numpy(),
-                out["preds"][:n].cpu().numpy())
+            results = (out["probs"][:n], out["preds"][:n])
+            if device.type == "cuda":
+                results = tuple(r.to("cpu", non_blocking=True)
+                                for r in results)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(device))
         except Exception as exc:                     # fan the failure out
-            for _, fut, _ in items:
-                if not fut.done():
-                    fut.set_exception(exc)
-            if record:
-                with self._lock:
-                    self._errors += n
+            self._fail(items, exc, record)
+            return None
+        return items, results, event, record
+
+    def _resolve(self, items, results, event, record: bool = True) -> None:
+        """Wait for a dispatched batch's results and resolve its
+        futures."""
+        n = len(items)
+        try:
+            if event is not None:
+                event.synchronize()
+            probs, preds = self._apply_deployment(results[0].numpy(),
+                                                  results[1].numpy())
+        except Exception as exc:
+            self._fail(items, exc, record)
             return
         now = time.monotonic()
         for (_, fut, t0), prob, pred in zip(items, probs, preds):
@@ -443,6 +519,20 @@ class ServingEngine:
             with self._lock:
                 self._requests += n
                 self._batch_sizes[n] += 1
+
+    def _fail(self, items, exc, record: bool) -> None:
+        for _, fut, _ in items:
+            if not fut.done():
+                fut.set_exception(exc)
+        if record:
+            with self._lock:
+                self._errors += len(items)
+
+    def _execute(self, items, record: bool = True) -> None:
+        """One batch to its results (warm-up, and the tests)."""
+        handle = self._dispatch(items, record)
+        if handle is not None:
+            self._resolve(*handle)
 
     def _apply_deployment(self, probs: np.ndarray,
                           preds: Optional[np.ndarray] = None):
@@ -489,6 +579,8 @@ class ServingEngine:
                 out["drift"] = self.drift_monitor.report()
             except Exception as exc:            # pragma: no cover
                 out["drift"] = {"verdict": "error", "error": str(exc)}
+        if self.shadow is not None:
+            out["shadow"] = self.shadow.stats()
         return out
 
 
@@ -510,18 +602,24 @@ class ModelRouter:
             raise ValueError("ModelRouter needs at least one engine")
         self.engines = dict(engines)
 
-    # Lifecycle fans out to every engine.
+    # Lifecycle fans out to every engine, then to their shadows
+    # (serve/shadow.py), which no request reaches through the router.
+    def _lifecycle(self) -> list:
+        return [*self.engines.values(),
+                *(e.shadow for e in self.engines.values()
+                  if e.shadow is not None)]
+
     def start(self) -> "ModelRouter":
-        for e in self.engines.values():
+        for e in self._lifecycle():
             e.start()
         return self
 
     def stop(self, timeout: float = 5.0) -> None:
-        for e in self.engines.values():
+        for e in self._lifecycle():
             e.stop(timeout=timeout)
 
     def warmup(self) -> None:
-        for e in self.engines.values():
+        for e in self._lifecycle():
             e.warmup()
 
     def __enter__(self) -> "ModelRouter":

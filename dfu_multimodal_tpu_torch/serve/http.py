@@ -27,7 +27,10 @@ Endpoints:
   the prediction PLUS per-modality Grad-CAM evidence (base64 PNG JET
   overlay on the submitted image + raw heatmap; serve/explain.py).
   501 when the daemon runs without ``--explain``.
-- ``GET /healthz`` — liveness + served model identities.
+- ``GET /healthz`` — liveness + served model identities (and
+  ``shadows``: each primary's shadow candidate, ``serve/shadow.py``).
+  A predict answered by a primary with a shadow is scored by the shadow
+  after the answer is ready, fire-and-forget.
 - ``GET /metrics`` — engine counters and latency percentiles (JSON;
   per-model when serving several); ``GET /metrics/prometheus`` the same
   in the Prometheus text format.
@@ -105,6 +108,11 @@ class PredictHandler(BaseHTTPRequestHandler):
                              if e.explainer is not None)
             if explain:
                 health["explain"] = explain
+            shadows = {n: e.shadow.engine.model_name
+                       for n, e in self.router.engines.items()
+                       if e.shadow is not None}
+            if shadows:
+                health["shadows"] = shadows
             # input-drift verdict per monitored model (PSI vs the
             # training-split baseline, eval/drift.py) — the ops signal
             # that the camera/site distribution moved
@@ -262,6 +270,10 @@ class PredictHandler(BaseHTTPRequestHandler):
         except Exception as exc:
             self._send_json(500, {"error": f"inference failed: {exc}"})
             return
+        if engine.shadow is not None:
+            # fire-and-forget candidate scoring (serve/shadow.py); the
+            # response below never waits on the shadow engine
+            engine.shadow.observe(sample, prob, pred)
         self._send_json(200, {
             "prob_ulcer": round(prob, 6),
             "prediction": "ulcer" if pred == 1 else "healthy",

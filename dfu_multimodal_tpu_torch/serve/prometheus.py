@@ -3,8 +3,8 @@
 stats).
 
 ``GET /metrics/prometheus`` renders the same counters the JSON
-``/metrics`` endpoint reports (engine stats, drift verdicts; the JAX
-package's shadow ledger joins with ``serve/shadow.py``) in the
+``/metrics`` endpoint reports (engine stats, drift verdicts, the
+shadow ledger of ``serve/shadow.py``) in the
 Prometheus text format (version 0.0.4) so a
 standard scrape job can alert on the daemon — no client library, the
 format is plain lines.  JSON stays the default ``/metrics`` payload
@@ -112,6 +112,38 @@ def _engine_lines(w: _Writer, name: str, stats: Dict) -> None:
                          "Largest per-channel Population Stability "
                          "Index vs the training baseline",
                          rep["psi_max"], modality=modality, **lab)
+    shadow = stats.get("shadow")
+    if shadow:
+        slab = {"model": name, "shadow": shadow["model"]}
+        w.metric("dfu_shadow_compared_total", "counter",
+                 "Live requests scored by the shadow candidate",
+                 shadow["compared"], **slab)
+        w.metric("dfu_shadow_decision_flips_total", "counter",
+                 "Shadow decisions differing from the primary",
+                 shadow["decision_flips"], **slab)
+        w.metric("dfu_shadow_flips_healthy_to_ulcer_total", "counter",
+                 "Discordant cell: primary healthy, shadow ulcer",
+                 shadow["flips_healthy_to_ulcer"], **slab)
+        w.metric("dfu_shadow_flips_ulcer_to_healthy_total", "counter",
+                 "Discordant cell: primary ulcer, shadow healthy",
+                 shadow["flips_ulcer_to_healthy"], **slab)
+        w.metric("dfu_shadow_skipped_total", "counter",
+                 "Requests carrying none of the shadow's modalities",
+                 shadow["skipped_no_input"], **slab)
+        w.metric("dfu_shadow_dropped_total", "counter",
+                 "Requests dropped by the shadow's bounded queue "
+                 "(sampling, not failure)",
+                 shadow.get("dropped_overloaded", 0), **slab)
+        w.metric("dfu_shadow_errors_total", "counter",
+                 "Shadow scoring failures", shadow["errors"], **slab)
+        if shadow["agreement"] is not None:
+            w.metric("dfu_shadow_agreement", "gauge",
+                     "Fraction of compared decisions agreeing",
+                     shadow["agreement"], **slab)
+        if shadow["mean_abs_prob_delta"] is not None:
+            w.metric("dfu_shadow_mean_abs_prob_delta", "gauge",
+                     "Mean |P_shadow - P_primary| over compared "
+                     "requests", shadow["mean_abs_prob_delta"], **slab)
 
 
 def render_prometheus(router) -> str:

@@ -14,7 +14,11 @@ checkpoint restore produce them) and returns the port model's
   ``bias``, and a static block's ``act_scales`` (4,) comes along;
 - the patch-embed dense kernel (P·P·C, O) -> the conv (O, C, P, P);
 - BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, ``batch_stats``
-  ``mean``/``var`` -> ``running_mean``/``running_var``.
+  ``mean``/``var`` -> ``running_mean``/``running_var``;
+- an int8 ResNet trunk (``models/resnet_q8.py::quantize_rgb_trunks``
+  trees: ``stem_kernel``, ``stem_bias`` and ``_QConv`` scopes) maps to
+  the port's ``models/resnet_q8.py`` keys (:func:`int8_resnet_state_dict`;
+  :func:`int8_resnet_params` goes back).
 
 Models: ``multimodal`` (``rgb_branch`` / ``thermal_branch`` / ``fusion``),
 ``thermal_only`` (the JAX trunk scope ``ViT_0`` -> ``vit.``, the ``head``
@@ -111,6 +115,61 @@ def resnet_state_dict(params: Mapping, stats: Optional[Mapping],
     return out
 
 
+_QCONV_KEYS = ("kernel_q8", "scale", "bias", "act_scale")
+
+
+def int8_resnet_state_dict(params: Mapping, prefix: str = "") -> StateDict:
+    """A JAX ``Int8ResNet`` trunk subtree (``models/resnet_q8.py::
+    quantize_rgb_trunks``'s) -> the port's ``models/resnet_q8.py`` keys:
+    ``stem_kernel`` HWIO -> OIHW, each ``_QConv`` (``kernel_q8`` int8
+    HWIO as it is, ``scale``, ``bias``, ``act_scale``) under
+    ``layer{s}.{i}.{conv1,conv2,conv3,down}``."""
+    out: StateDict = {f"{prefix}stem_kernel": _conv(params["stem_kernel"]),
+                      f"{prefix}stem_bias": _t(params["stem_bias"])}
+    for scope in sorted(k for k in params if k.startswith("stage")):
+        stage, block = scope[len("stage"):].split("_block")
+        base = f"{prefix}layer{stage}.{block}"
+        if "conv3" not in params[scope]:
+            raise NotImplementedError(
+                "the int8 ResNet-18 student tree (basic blocks) is not "
+                "ported yet (models/resnet_q8.py's Int8BasicBlock)")
+        for conv, p in params[scope].items():
+            out[f"{base}.{conv}.kernel_q8"] = torch.from_numpy(
+                np.array(p["kernel_q8"], dtype=np.int8, order="C"))
+            for key in _QCONV_KEYS[1:]:
+                out[f"{base}.{conv}.{key}"] = _t(p[key])
+    return out
+
+
+def int8_resnet_params(state_dict: Mapping[str, torch.Tensor],
+                       prefix: str = "") -> Dict[str, Any]:
+    """The inverse of :func:`int8_resnet_state_dict`: the port's int8
+    trunk keys under ``prefix`` -> a JAX ``Int8ResNet`` param tree of
+    numpy arrays (``stem_kernel`` OIHW -> HWIO)."""
+    sub = {k[len(prefix):]: v.detach().cpu() for k, v in state_dict.items()
+           if k.startswith(prefix)}
+    tree: Dict[str, Any] = {
+        "stem_kernel": sub["stem_kernel"].float().numpy().transpose(
+            2, 3, 1, 0).copy(),
+        "stem_bias": sub["stem_bias"].float().numpy()}
+    for key, v in sub.items():
+        if not key.startswith("layer"):
+            continue
+        layer, block, conv, leaf = key.split(".")
+        scope = f"stage{layer[len('layer'):]}_block{block}"
+        tree.setdefault(scope, {}).setdefault(conv, {})[leaf] = (
+            v.numpy() if leaf == "kernel_q8" else v.float().numpy())
+    return tree
+
+
+def _resnet_trunk(params: Mapping, stats: Optional[Mapping],
+                  prefix: str) -> StateDict:
+    """A float (``stem_conv``) or int8 (``stem_kernel``) ResNet trunk."""
+    if "stem_kernel" in params:
+        return int8_resnet_state_dict(params, prefix)
+    return resnet_state_dict(params, stats, prefix)
+
+
 def tiny_state_dict(params: Mapping, stats: Optional[Mapping],
                     prefix: str = "") -> StateDict:
     """A JAX TinyCNN / TinyTrunk subtree -> the port's keys (conv biases
@@ -184,17 +243,18 @@ def variables_to_state_dict(model_name: str,
         if model_name == "thermal_only":
             out = vit_state_dict(params["ViT_0"], "vit.")
         else:
-            out = resnet_state_dict(
+            out = _resnet_trunk(
                 params["ResNet_0"],
-                None if stats is None else stats["ResNet_0"], "resnet.")
+                None if stats is None else stats.get("ResNet_0"),
+                "resnet.")
         out["head.weight"] = _dense(params["head"]["kernel"])
         out["head.bias"] = _t(params["head"]["bias"])
         return out
     if model_name != "multimodal":
         raise ValueError(f"no bridge for model {model_name!r} yet")
-    out = resnet_state_dict(params["rgb_branch"],
-                            None if stats is None else stats["rgb_branch"],
-                            "rgb_branch.")
+    out = _resnet_trunk(params["rgb_branch"],
+                        None if stats is None else stats.get("rgb_branch"),
+                        "rgb_branch.")
     out.update(vit_state_dict(params["thermal_branch"], "thermal_branch."))
     # fusion/fc{1,2,3} -> the Sequential's Linear layers at 0, 3, 6
     for idx, name in (("0", "fc1"), ("3", "fc2"), ("6", "fc3")):

@@ -34,9 +34,13 @@ explicit ``torch.Generator`` on the device.
 (``utils/checkpoint.py``): best-by-val-F1 saves, ``save_last``, resume,
 ``init_from``, EMA weights, early stopping and a metrics JSONL.
 
-Not ported: QAT and any mesh but the single-device default (the
-``*_spmd`` steps) — each raises ``NotImplementedError`` when the train
-step is first built.
+``cfg.qat`` computes the train and eval steps through the trunks' weights
+snapped to their int8 serving grids (``train/qat.py``, straight-through
+gradients; the optimizer and checkpoints keep the real weights).
+
+Not ported: any mesh but the single-device default (the ``*_spmd``
+steps) — it raises ``NotImplementedError`` when the train step is first
+built.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from dfu_multimodal_tpu_torch.data.transforms import (augment_and_normalize,
 from dfu_multimodal_tpu_torch.eval import metrics as metrics_mod
 from dfu_multimodal_tpu_torch.models import zoo
 from dfu_multimodal_tpu_torch.models.common import canonical_dtype
+from dfu_multimodal_tpu_torch.train import qat as qat_mod
 from dfu_multimodal_tpu_torch.train.optim import AdamW, learning_rate_schedule
 from dfu_multimodal_tpu_torch.utils import checkpoint as ckpt_mod
 from dfu_multimodal_tpu_torch.utils.logging import (ThroughputMeter,
@@ -154,16 +159,10 @@ class EpochMetrics:
 def _check_train_config(cfg: TrainConfig) -> None:
     """Raise for the train options the port does not implement and for
     the combinations the JAX Trainer refuses."""
-    unported = {
-        "qat": cfg.qat,
-        f"mesh={cfg.mesh}": (cfg.mesh.data not in (-1, 1)
-                             or cfg.mesh.model != 1 or cfg.mesh.fsdp),
-    }
-    bad = [name for name, on in unported.items() if on]
-    if bad:
+    if cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1 or cfg.mesh.fsdp:
         raise NotImplementedError(
-            f"train options not ported yet: {', '.join(bad)} (the port "
-            "trains on one device without QAT)")
+            f"train options not ported yet: mesh={cfg.mesh} (the port "
+            "trains on one device)")
     if cfg.loss not in ("ce", "focal"):
         raise ValueError(f"unknown loss {cfg.loss!r} (choose 'ce' or "
                          "'focal')")
@@ -210,6 +209,17 @@ class Trainer:
         # the EMA of the parameters by name (ema_decay > 0): the JAX
         # TrainState's ema_params; BatchNorm buffers stay live
         self.ema_params: Optional[Dict[str, torch.Tensor]] = None
+
+    def _forward(self, *inputs: torch.Tensor, **kwargs) -> torch.Tensor:
+        """The module on ``inputs``; with ``cfg.qat`` through its trunk
+        weights snapped to the int8 serving grids (``train/qat.py``), the
+        parameters themselves untouched."""
+        if not self.cfg.qat:
+            return self.module(*inputs, **kwargs)
+        params = dict(self.module.named_parameters())
+        return torch.func.functional_call(
+            self.module, qat_mod.fake_quant_trunks(params), inputs, kwargs,
+            strict=False)
 
     def variables(self) -> Dict[str, torch.Tensor]:
         """The model's weights and BatchNorm statistics (the JAX
@@ -313,7 +323,7 @@ class Trainer:
                 lam, perm = sample_mixup(generator, self.cfg.mixup_alpha,
                                          labels.shape[0])
                 inputs, lam_row = mixup_batch(inputs, valid, lam, perm)
-            logits = self.module(*inputs, generator=generator)
+            logits = self._forward(*inputs, generator=generator)
             if self.cfg.mixup_alpha > 0.0:
                 loss = mixup_loss(per_sample, logits, labels, weights, valid,
                                   perm, lam_row)
@@ -352,8 +362,8 @@ class Trainer:
         counts = torch.zeros(4, device=self.device)
         for k in range(accum):
             rows = slice(k * mb, (k + 1) * mb)
-            logits = self.module(*(x[rows] for x in inputs),
-                                 generator=generator)
+            logits = self._forward(*(x[rows] for x in inputs),
+                                   generator=generator)
             part = (weights[rows] * per_sample(logits, labels[rows])).sum()
             part.backward()
             numer += part.detach()
@@ -375,7 +385,7 @@ class Trainer:
         self.module.eval()
         inputs = {m: torch.as_tensor(batch[m]).to(self.device)
                   for m in self.spec.inputs}
-        logits = self.module(*self._preprocess_eval(inputs)).float()
+        logits = self._forward(*self._preprocess_eval(inputs)).float()
         out = {"probs": torch.softmax(logits, dim=-1)[:, 1],
                "preds": torch.argmax(logits, dim=-1)}
         if "label" in batch:

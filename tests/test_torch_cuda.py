@@ -1451,3 +1451,77 @@ def test_flax_thermal_on_card_matches_cpu():
             <= 1e-4 * float(q.grad.abs().max()), name
         assert float((p.detach().cpu() - q.detach()).abs().max()) \
             <= 2 * cfg.learning_rate
+
+
+# ------------------------------------------------- the int8 convolution
+
+from chip_smoke import resnet_conv_shapes  # noqa: E402
+from dfu_multimodal_tpu_torch.ops import conv_q8 as cq  # noqa: E402
+
+# every distinct conv of ResNet-50 at 224² (name, H, Cin, Cout, k, stride,
+# role), and one odd batch
+CONV_SHAPES = resnet_conv_shapes()
+
+
+def _conv_case(dev, b, h, cin, cout, k, stride, role, dtype, seed):
+    """Seeded operands of one conv of the int8 trunk: x in the compute
+    dtype (int8 for a projection block's conv1 and its "down"), the
+    kernel's K-major int8 copy, its column scale and bias, and the
+    shortcut of a conv3."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ho = -(-h // stride)
+    act = torch.tensor(0.02 + 0.01 * (seed % 3), device=dev)
+    x = _randn(g, b, h, h, cin, dtype=dtype)
+    if role == "down":
+        x = cq.quantize_act(x, act)
+    w = torch.randint(-127, 128, (cout, k * k * cin), generator=g,
+                      device=dev, dtype=torch.int32).to(torch.int8)
+    scale = _randn(g, cout, scale=1e-3, offset=4e-3).abs()
+    resid = (_randn(g, b, ho, ho, cout, dtype=dtype) if role == "conv3"
+             else None)
+    return dict(x=x, kernel_kmajor=w, col_scale=act * scale,
+                bias=_randn(g, cout, scale=0.1), act_scale=act, k=k,
+                stride=stride, relu=role != "down", resid=resid,
+                dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=[s[0] for s in CONV_SHAPES])
+def test_conv_q8_bit_equal_to_plain(shape, dtype):
+    """Every ResNet-50 conv at B = 8 (and B = 3, a ragged last row tile)
+    bit-equal to ``conv_q8_ref`` on the card: exact int32 sums, the flush
+    and epilogue rounded in the same order."""
+    dev = _cuda()
+    _, h, cin, cout, k, stride, role = shape
+    for b in (8, 3):
+        case = _conv_case(dev, b, h, cin, cout, k, stride, role, dtype,
+                          seed=h + cin + b)
+        before = cq.conv_q8.launches
+        out = cq.conv_q8(**case)
+        assert cq.conv_q8.launches == before + 1
+        ref = cq.conv_q8_ref(**case)
+        assert out.dtype == ref.dtype == dtype
+        assert torch.equal(out, ref), float((out.float() - ref.float())
+                                            .abs().max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_quantize_act_q8_equals_plain(dtype):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = _randn(g, 8, 56, 56, 256, scale=3.0, dtype=dtype)
+    s = torch.tensor(0.0213, device=dev)
+    assert torch.equal(cq.quantize_act_q8(x, s), cq.quantize_act(x, s))
+
+
+def test_conv_q8_refuses_what_the_gemm_does_not_take():
+    dev = _cuda()
+    case = _conv_case(dev, 2, 8, 64, 64, 3, 1, "conv2", torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="multiple"):
+        cq.conv_q8(**{**case, "x": case["x"][..., :24].contiguous(),
+                      "kernel_kmajor": case["kernel_kmajor"][:, :216]
+                      .contiguous()})
+    with pytest.raises(TypeError, match="col_scale"):
+        cq.conv_q8(**{**case, "col_scale": case["col_scale"].double()})
+    with pytest.raises(ValueError, match="contiguous"):
+        cq.conv_q8(**{**case, "x": case["x"].transpose(1, 2)})

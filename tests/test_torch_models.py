@@ -343,7 +343,10 @@ import torch
 torch.set_num_threads(1)
 import dfu_multimodal_tpu_torch.ops._build
 import dfu_multimodal_tpu_torch.serve.engine
+import dfu_multimodal_tpu_torch.serve.shadow
 import dfu_multimodal_tpu_torch.tools.convert_jax
+import dfu_multimodal_tpu_torch.train.qat
+import dfu_multimodal_tpu_torch.cli.serve
 from dfu_multimodal_tpu_torch.data.loader import ArrayDataset
 from dfu_multimodal_tpu_torch.models import zoo
 from dfu_multimodal_tpu_torch.train.engine import (
@@ -378,6 +381,12 @@ data = ArrayDataset({"thermal": batch["thermal"]}, np.array([0, 1]))
 epoch = thermal.run_train_epoch(data, np.random.default_rng(0),
                                 torch.Generator().manual_seed(0))
 assert np.isfinite(epoch.loss), epoch
+import dataclasses
+thermal.cfg = dataclasses.replace(thermal.cfg, qat=True)
+epoch = thermal.run_train_epoch(data, np.random.default_rng(0),
+                                torch.Generator().manual_seed(0))
+assert np.isfinite(epoch.loss), epoch
+thermal.cfg = dataclasses.replace(thermal.cfg, qat=False)
 
 from dfu_multimodal_tpu_torch.serve.engine import quantize_for_serving
 int8 = quantize_for_serving(thermal, image_size=32)

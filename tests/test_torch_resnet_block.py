@@ -237,7 +237,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="resnet18"):
         ResNetClassifier(trunk="resnet18")
     with pytest.raises(NotImplementedError, match="resnet_q8"):
-        ResNetClassifier(block_impl="int8")
+        ResNetClassifier(trunk="resnet18", block_impl="int8")
     x, args = _bottleneck_args(12, 1, 4, 32, 8, 32, True)
     xt, at = _to_torch(x, args, torch.float32)
     with pytest.raises(ValueError, match="wd and bd"):

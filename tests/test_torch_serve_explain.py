@@ -437,9 +437,11 @@ def test_http_501_and_503(pairs):
     full.stop()
 
 
-@pytest.mark.parametrize("flag", [["--exported", "x"], ["--shadow", "x"],
+@pytest.mark.parametrize("flag", [["--exported", "x"],
+                                  ["--exported", "x", "--shadow", "y"],
                                   ["--token-merge", "4:64"],
-                                  ["--pipeline-depth", "2"]])
+                                  ["--token-merge", "4:64",
+                                   "--pipeline-depth", "2"]])
 def test_serve_refuses_unported_flags(flag):
     with pytest.raises(SystemExit, match="not ported"):
         port_serve.build_daemon(["--checkpoint", "x", "--device", "cpu"]

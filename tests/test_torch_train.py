@@ -418,7 +418,7 @@ def test_run_train_epoch_and_meter():
 
 
 @pytest.mark.parametrize("override", [
-    dict(qat=True),
+    dict(mesh=port_config.MeshConfig(model=2)),
     dict(mesh=port_config.MeshConfig(data=2)),
     dict(mesh=port_config.MeshConfig(fsdp=True))])
 def test_unported_train_options_raise(override):
