@@ -294,13 +294,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               and the three train CLIs with ``--qat`` for one epoch (their
               launches; the snapped ViT and ResNet weights equal the
               serving grid's and requantise to the same int8 codes);
+16. token merging (ToMe) — K1, K7 and K8 with the key bias of
+              proportional attention against their plain versions at B = 8,
+              N = 128 (``--token-merge 4:128``) and 99 (the least keep at
+              224²), fp32 and bf16, a random log-size bias, in bf16 at
+              N = 128 timed beside the unbiased kernel (turns, and device
+              time); full-width thermal_only and multimodal on the fused,
+              ``fused_q8`` (``quantize_for_serving``) and ``fused_q8s``
+              (calibrated) blocks, each rebuilt by ``tome_for_serving(...,
+              4, 128)`` with and without proportional attention behind the
+              ServingEngine (9 requests: batches of 8 and 1; 12 launches a
+              batch of the family's attention and MLP kernels, 8 of the
+              attention ones biased with proportional attention);
+              ``keep = 197`` bit-equal to the unmerged model on each
+              family; thermal_only 4:128 with proportional attention in
+              fp32 on the card against the CPU; the bf16 ViT-B/16 trunk's
+              device time at B = 8 and 128 without and with the merge;
+              then on phase 12's checkpoints the daemon over all three
+              with ``--token-merge 4:128 --tome-prop-attn`` (rgb_only's
+              skip line; two requests a model, each answer equal to its
+              engine's eval step) and ``predict --int8 --token-merge
+              4:128`` for thermal_only and multimodal (rows equal to
+              ``tome_for_serving(quantize_for_serving(...))``'s);
 then the kernels' JSON line (times, bounds, launches, the SDPA times,
 the K6/K9 forwards' device times and SDPA's, K10's and K12's chain
 times, phase 14's launches as ``explain_launches``, and the rows of
 ``conv_q8`` and ``quantize_act_q8``: the int8 convolution and the int8
 quantisation, which replace no TPU kernel but ``models/resnet_q8.py``'s
 XLA conv and quantisation, their times the sums over a trunk forward and
-their launches phase 15's serving drive's),
+their launches phase 15's serving drive's; and phase 16's rows
+``attn_block_bias``, ``attn_block_q8_bias`` and ``attn_block_q8s_bias``,
+each with ``unbiased_ms`` beside its time and its launches phase 16's
+serving drives'),
 and the device JSON line last.
 
 Exits non-zero with no result line when no CUDA device is present.
@@ -341,7 +366,8 @@ from dfu_multimodal_tpu_torch.ops import resnet_block as rb
 from dfu_multimodal_tpu_torch.ops import vit_block as vb
 from dfu_multimodal_tpu_torch.ops import vit_block_q8 as q8
 from dfu_multimodal_tpu_torch.serve.engine import (ServingEngine,
-                                                   quantize_for_serving)
+                                                   quantize_for_serving,
+                                                   tome_for_serving)
 from dfu_multimodal_tpu_torch.tools.profile_train import (TRAIN_BATCH,
                                                           recipe_trainer,
                                                           synthetic_thermal)
@@ -2246,6 +2272,8 @@ def _reset_launches() -> None:
     rb.fused_bottleneck.launches = rb.fused_bottleneck.proj_launches = 0
     rb.fused_stage.launches = 0
     cq.conv_q8.launches = cq.quantize_act_q8.launches = 0
+    vb.attn_block.bias_launches = q8.attn_block_q8.bias_launches = 0
+    q8.attn_block_q8s.bias_launches = 0
 
 
 def _resnet_launches() -> dict:
@@ -4695,6 +4723,397 @@ def phase_q8_cli(dev, d: Path) -> None:
         f"{card()})")
 
 
+# --------------------------------------------------------------- phase 16
+
+TOME = (4, 128)              # --token-merge 4:128, the JAX CLIs' example
+TOME_KEEP_MIN = 99           # the least keep at 224²: r = 98, all of A
+TOME_TOKENS = (IMAGE // 16) ** 2 + 1      # 197: keep them all, merge none
+TOME_REQUESTS = 9            # served as a batch of 8 and a batch of 1
+# block family -> (its attention kernel, its MLP kernel)
+TOME_FAMILIES = {"fused": (vb.attn_block, vb.mlp_block),
+                 "fused_q8": (q8.attn_block_q8, q8.mlp_block_q8),
+                 "fused_q8s": (q8.attn_block_q8s, q8.mlp_block_q8s)}
+# the kernels line's rows: each attention kernel with ToMe's key bias
+TOME_ROWS = {"attn_block_bias": "fused", "attn_block_q8_bias": "fused_q8",
+             "attn_block_q8s_bias": "fused_q8s"}
+
+
+def _bias_launches() -> dict:
+    """The attention kernels' launches that carried ToMe's key bias."""
+    return {row: TOME_FAMILIES[fam][0].bias_launches
+            for row, fam in TOME_ROWS.items()}
+
+
+def _log_sizes(gen, b, n) -> torch.Tensor:
+    """A proportional-attention bias: log of random token sizes 1..8,
+    (B, N) fp32."""
+    return torch.randint(1, 9, (b, n), generator=gen,
+                         device=gen.device).float().log()
+
+
+def phase_tome_kernels(dev) -> dict:
+    """K1, K7 and K8 with ToMe's key bias against their plain versions at
+    the token-merged path's shapes: ViT-B/16 blocks at B = 8 with N = 128
+    (``--token-merge 4:128``) and N = 99 (the least keep at 224², a
+    partial second key tile), fp32 and bf16, a random log-size bias; in
+    bf16 at N = 128 each also beside the same kernel without the bias, in
+    turns, and both device times (profiler).  Returns the kernels line's
+    rows (bf16, N = 128)."""
+    c, heads, b = 768, 12, 8
+    inv = torch.tensor([1.0 / a for a in Q8_ACT], device=dev)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (TOME[1], TOME_KEEP_MIN):
+            g = torch.Generator(device=dev).manual_seed(5000 + n)
+            x, p = _attn_block_args(g, b, n, c, dtype)
+            wqkv, sqkv, bqkv = _q8_dense(g, c, 3 * c)
+            wproj, sproj, bproj = _q8_dense(g, c, c)
+            attn = (*p[:2], wqkv, sqkv, bqkv, wproj, sproj, bproj)
+            attn_s = (*p[:2], wqkv, sqkv * Q8_ACT[0], bqkv, wproj,
+                      sproj * Q8_ACT[1], bproj, inv)
+            kt = (wqkv.t().contiguous(), wproj.t().contiguous())
+            bias = _log_sizes(g, b, n)
+            kernels = {
+                "attn_block_bias": lambda kb: vb.attn_block(
+                    x, *p, heads, bias=kb),
+                "attn_block_q8_bias": lambda kb: q8.attn_block_q8(
+                    x, *attn, heads, kb, kmajor=kt),
+                "attn_block_q8s_bias": lambda kb: q8.attn_block_q8s(
+                    x, *attn_s, heads, kb, kmajor=kt)}
+            plains = {
+                "attn_block_bias": lambda: vb.attn_block_ref(
+                    x, *p, heads, bias=bias),
+                "attn_block_q8_bias": lambda: q8.attn_block_q8_ref(
+                    x, *attn, heads, bias),
+                "attn_block_q8s_bias": lambda: q8.attn_block_q8s_ref(
+                    x, *attn_s, heads, bias)}
+            tag = f"{str(dtype).split('.')[1]} B={b} N={n}"
+            for name, kernel in kernels.items():
+                q8_row = name != "attn_block_bias"
+                res = _check_and_time(
+                    f"{name} {tag}", lambda: kernel(bias), plains[name],
+                    Q8_TOL if q8_row else KERNEL_TOL[dtype],
+                    Q8_MEAN_TOL if q8_row else None)
+                if dtype != torch.bfloat16 or n != TOME[1]:
+                    continue
+                ms, unbiased = _turns(lambda: kernel(bias),
+                                      lambda: kernel(None))
+                dev_ms = _device_ms(lambda: kernel(bias))
+                dev_unbiased = _device_ms(lambda: kernel(None))
+                res.update(ms=ms, unbiased_ms=unbiased, device_ms=dev_ms,
+                           unbiased_device_ms=dev_unbiased)
+                log(f"[tome kernel] {name} {tag}: with the bias {ms:.4f} "
+                    f"ms, without {unbiased:.4f} ms (turns); device "
+                    f"{_ms_or_none(dev_ms)} with, {_ms_or_none(dev_unbiased)}"
+                    f" without ({card()})")
+                rows[name] = res
+            del x, p, attn, attn_s, kt, kernels, plains
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _tome_sources(name, dev, seed) -> dict:
+    """The full-width ``name`` (seeded, BatchNorm statistics off identity,
+    bf16) on each block family: the fused trainer itself, its
+    ``quantize_for_serving`` rebuild (``fused_q8``; multimodal's ResNet
+    trunk calibrated too) and the calibrated static rebuild
+    (``fused_q8s``), each the source a serving process hands
+    ``tome_for_serving``."""
+    base = _q8_float_trainer(name, dev, seed)
+    calib = _q8_images(Q8_CALIB, seed + 1)
+    dyn = quantize_for_serving(base, image_size=IMAGE,
+                               calib_u8=calib if name == "multimodal"
+                               else None)
+    normalised = eval_normalize(torch.as_tensor(calib[:CALIB_IMAGES])
+                                .to(dev), thermal_modality(), torch.float32)
+    static = Trainer(name, base.cfg, base.modalities, device=dev,
+                     **{**base.model_kwargs, "block_impl": "fused_q8s"})
+    static.module.load_state_dict(quantize_variables(
+        base.variables(), calib_batches=[normalised]))
+    return {"fused": base, "fused_q8": dyn, "fused_q8s": static}
+
+
+def _tome_serve_one(tag, t, family, prop, samples) -> dict:
+    """``t`` behind the ServingEngine (max_batch 8): TOME_REQUESTS
+    requests submitted together, counts set to 0 after the warm-up;
+    every probability finite, and a batch's launches: 12 of the family's
+    attention and MLP kernels, 8 of the attention ones with the key bias
+    when ``prop``, none of another family's.  Returns the launches."""
+    attn_k, mlp_k = TOME_FAMILIES[family]
+    eng = ServingEngine(t, image_size=IMAGE, max_batch=8, max_wait_ms=50.0)
+    with eng:
+        _reset_launches()
+        got = eng.predict(samples)
+        torch.cuda.synchronize()
+        stats = eng.stats()
+    launches = {k: v for k, v in {**_all_launches(),
+                                  **_bias_launches()}.items() if v}
+    batches = sum(stats["batch_size_hist"].values())
+    want = {attn_k.__name__: DEPTH * batches,
+            mlp_k.__name__: DEPTH * batches}
+    if prop:
+        want[next(r for r, f in TOME_ROWS.items() if f == family)] = \
+            (DEPTH - TOME[0]) * batches
+    vit_kernels = {f.__name__ for pair in TOME_FAMILIES.values()
+                   for f in pair} | set(TOME_ROWS)
+    vit_launches = {k: v for k, v in launches.items() if k in vit_kernels}
+    probs = np.asarray([p for p, _ in got])
+    log(f"[{tag}] {len(samples)} requests in batches "
+        f"{stats['batch_size_hist']}, p50 {stats['latency_ms']['p50']:.2f} "
+        f"ms; ViT launches {vit_launches}")
+    if vit_launches != want or not np.isfinite(probs).all():
+        raise AssertionError(f"{tag}: launches {vit_launches}, want {want}")
+    return launches
+
+
+def _tome_fp32_vs_cpu(dev, src, batch) -> None:
+    """thermal_only with ``--token-merge 4:128 --tome-prop-attn`` in fp32,
+    the card's kernels against the CPU's plain path on the same weights:
+    the tokens entering the merge (blocks 0-3 from the same images), then
+    the logits, the CPU's blocks 4-11 running from the card's merged
+    tokens and sizes.  The merge picks among near-equal similarities, a
+    choice two summation orders may tip either way, so the CPU's own merge
+    of the card's tokens is compared and recorded, not held."""
+    from unittest import mock
+    from dfu_multimodal_tpu_torch.models import vit as vit_mod
+    from dfu_multimodal_tpu_torch.ops.token_merge import bipartite_merge
+    state = {k: v.detach().cpu() for k, v in src.variables().items()}
+    pair = []
+    for device in (dev, "cpu"):
+        tr = _thermal("float32", device)
+        tr.module.load_state_dict(state)
+        pair.append(tome_for_serving(tr, *TOME, image_size=IMAGE,
+                                     prop_attn=True))
+    seen = {}
+
+    def record(x, sizes, r):
+        seen["card_in"] = x.cpu()
+        out = bipartite_merge(x, sizes, r)
+        seen["card_out"] = tuple(t.cpu() for t in out)
+        seen["cpu_own"] = bipartite_merge(seen["card_in"], sizes.cpu(), r)
+        return out
+
+    def replay(x, sizes, r):
+        seen["cpu_in"] = x
+        return seen["card_out"]
+
+    with mock.patch.object(vit_mod, "bipartite_merge", record):
+        logits = _logits(pair[0], batch)
+    with mock.patch.object(vit_mod, "bipartite_merge", replay):
+        ref = _logits(pair[1], batch)
+    scale = 1.0 + float(seen["cpu_in"].abs().max())
+    d_in = float((seen["card_in"] - seen["cpu_in"]).abs().max())
+    moved = int((seen["cpu_own"][1] != seen["card_out"][1]).sum())
+    log(f"[tome] thermal_only 4:128 prop-attn float32: tokens entering the "
+        f"merge, card vs CPU max|d| {d_in:.3e} (tol "
+        f"{SLICE_TOL['float32']['logits']:g}*(1+max|x|={scale:.3f})); the "
+        f"CPU's merge of the card's tokens gives {moved} of "
+        f"{seen['cpu_own'][1].numel()} token sizes otherwise (recorded)")
+    if d_in > SLICE_TOL["float32"]["logits"] * scale:
+        raise AssertionError("tome fp32: tokens entering the merge")
+    _compare("[tome] thermal_only 4:128 prop-attn card float32 vs CPU "
+             "float32 (blocks 4-11 from the card's merge)", pair[0], ref,
+             [batch], SLICE_TOL["float32"])
+
+
+def _encoder_device_ms(dev) -> None:
+    """The bf16 fused ViT-B/16 trunk's device time (profiler) at B = 8
+    and 128: without ToMe, with ``--token-merge 4:128``, and with
+    proportional attention too."""
+    tr = _thermal("bfloat16", dev)
+    zoo.init_model(tr.module, torch.Generator(device=dev).manual_seed(95))
+    vits = {"no merge": tr.module.vit}
+    for label, prop in (("4:128", False), ("4:128 prop-attn", True)):
+        vits[label] = tome_for_serving(tr, *TOME, image_size=IMAGE,
+                                       prop_attn=prop).module.vit
+    for b in (8, 128):
+        x = eval_normalize(torch.as_tensor(_q8_images(b, 96 + b)).to(dev),
+                           thermal_modality(), torch.bfloat16)
+        ms = {}
+        with torch.inference_mode():
+            for label, vit in vits.items():
+                ms[label] = _device_ms(lambda: vit.eval()(x), iters=10)
+        log(f"[tome encoder] bf16 ViT-B/16 trunk, B = {b}, device ms "
+            f"(profiler): " + ", ".join(f"{k} {_ms_or_none(v)}"
+                                        for k, v in ms.items())
+            + f" ({card()})")
+    del tr, vits
+    torch.cuda.empty_cache()
+
+
+def phase_tome(dev) -> dict:
+    """The token-merged serving path at full width: the biased kernels
+    against their plain versions (phase_tome_kernels); thermal_only and
+    multimodal at 224² on the three block families, each rebuilt by
+    ``tome_for_serving(..., 4, 128)`` with and without proportional
+    attention behind the ServingEngine (a batch of 8 and one of 1);
+    ``keep = 197`` bit-equal to the unmerged model on each family with
+    proportional attention (its bias log 1 = 0 goes through the biased
+    kernels); thermal_only fused in fp32 on the card against the CPU;
+    the encoder's device time with and without the merge.  Returns the
+    kernels line's rows, their launches the serving drives'."""
+    t0 = time.perf_counter()
+    rows = phase_tome_kernels(dev)
+    for row in rows:
+        rows[row]["launches"] = 0
+    for seed, name in enumerate(("thermal_only", "multimodal")):
+        sources = _tome_sources(name, dev, 80 + 2 * seed)
+        inputs = sources["fused"].spec.inputs
+        batch_np = {m: _q8_images(TOME_REQUESTS, 85 + i)
+                    for i, m in enumerate(inputs)}
+        samples = [{m: batch_np[m][i] for m in inputs}
+                   for i in range(TOME_REQUESTS)]
+        first8 = {m: v[:8] for m, v in batch_np.items()}
+        for family, src in sources.items():
+            for prop in (False, True):
+                t = tome_for_serving(src, *TOME, image_size=IMAGE,
+                                     prop_attn=prop)
+                launches = _tome_serve_one(
+                    f"tome {name} {family} 4:128"
+                    + (" prop-attn" if prop else ""), t, family, prop,
+                    samples)
+                for row in rows:
+                    rows[row]["launches"] += launches.get(row, 0)
+                del t
+            keep_all = tome_for_serving(src, TOME[0], TOME_TOKENS,
+                                        image_size=IMAGE, prop_attn=True)
+            same = torch.equal(_logits(keep_all, first8),
+                               _logits(src, first8))
+            log(f"[tome] {name} {family}: --token-merge {TOME[0]}:"
+                f"{TOME_TOKENS} --tome-prop-attn bit-equal to the unmerged "
+                f"model {same}")
+            if not same:
+                raise AssertionError(f"{name} {family}: keep = "
+                                     f"{TOME_TOKENS} differs")
+            del keep_all
+        if name == "thermal_only":
+            _tome_fp32_vs_cpu(dev, sources["fused"], first8)
+        del sources
+        torch.cuda.empty_cache()
+    _encoder_device_ms(dev)
+    log(f"[tome] in {time.perf_counter() - t0:.2f} s (host clock; "
+        f"{card()}); launches of the biased kernels "
+        f"{ {r: v['launches'] for r, v in rows.items()} }")
+    return rows
+
+
+def phase_tome_cli(dev, d: Path) -> None:
+    """ToMe on phase 12's tree and checkpoints (``d``): the daemon over
+    every checkpoint with ``--token-merge 4:128 --tome-prop-attn`` (the
+    skip line for rgb_only; a few requests to each model, each answer
+    equal to its engine's eval step on the same decoded image; the biased
+    K1 launched), then ``predict --token-merge 4:128 --int8`` for
+    thermal_only and multimodal (rows equal to
+    ``tome_for_serving(quantize_for_serving(...))`` of the same checkpoint
+    and calibration images, the biased kernels not launched without
+    ``--tome-prop-attn``)."""
+    import base64
+    import contextlib
+    import io
+    from dfu_multimodal_tpu_torch.cli import predict
+    from dfu_multimodal_tpu_torch.cli.serve import calibration_images
+    from dfu_multimodal_tpu_torch.data.layout import list_images
+    from dfu_multimodal_tpu_torch.data.loader import decode_all, decode_bytes
+    data, logs = d / "data", d / "logs"
+    flag = f"{TOME[0]}:{TOME[1]}"
+    t0 = time.perf_counter()
+    raw = {m: [p.read_bytes()
+               for p in sorted((data / m / "test").rglob("*.jpg"))[:2]]
+           for m in ("rgb", "thermal")}
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        url, *a = _daemon(dev, ["--checkpoint-root", str(logs),
+                                "--token-merge", flag,
+                                "--tome-prop-attn"])
+    log(printed.getvalue().rstrip())
+    router = a[1]
+    try:
+        _reset_launches()
+        worst = 0.0
+        for k in range(2):
+            bodies = {
+                "rgb_only": (raw["rgb"][k], "image/jpeg", ("rgb",)),
+                "thermal_only": (raw["thermal"][k], "image/jpeg",
+                                 ("thermal",)),
+                "multimodal": (json.dumps(
+                    {m: base64.b64encode(raw[m][k]).decode()
+                     for m in ("rgb", "thermal")}).encode(),
+                    "application/json", ("rgb", "thermal"))}
+            for name, (body, ctype, mods) in bodies.items():
+                code, out = _http(f"{url}/v1/predict/{name}", body, ctype)
+                res = json.loads(out)
+                step = router.engines[name].trainer.eval_step(
+                    {m: decode_bytes(raw[m][k], IMAGE)[None] for m in mods})
+                dp = abs(res["prob_ulcer"] - float(step["probs"][0]))
+                worst = max(worst, dp)
+                if code != 200 or dp > SERVE_PROB_TOL:
+                    raise AssertionError(f"tome daemon {name}: {code} {res}")
+        torch.cuda.synchronize()
+        bias = _bias_launches()
+        merged = {n: e.trainer.module for n, e in router.engines.items()}
+    finally:
+        _stop_daemon(*a)
+    skip = "checkpoints_rgb_only: --token-merge skipped (rgb_only has no " \
+           "ViT trunk)"
+    log(f"[tome cli] daemon --token-merge {flag} --tome-prop-attn over "
+        f"{sorted(merged)}: 6 requests, max |dP| vs each engine's eval step "
+        f"{worst:.2e} (tolerance {SERVE_PROB_TOL}); skip line printed "
+        f"{skip in printed.getvalue()}; biased launches {bias}")
+    vit = {n: getattr(m, "vit", getattr(m, "thermal_branch", None))
+           for n, m in merged.items()}
+    if (skip not in printed.getvalue() or bias["attn_block_bias"] == 0
+            or vit["rgb_only"] is not None
+            or vit["thermal_only"].token_merge != TOME
+            or vit["multimodal"].token_merge != TOME):
+        raise AssertionError("tome daemon: skip line, merge or launches")
+
+    calib_dir = data / "rgb" / "train"
+    for name in ("thermal_only", "multimodal"):
+        ckpt = logs / f"checkpoints_{name}"
+        mods = ("thermal",) if name == "thermal_only" else ("rgb",
+                                                           "thermal")
+        argv = ["--checkpoint", str(ckpt), "--images",
+                str(data / mods[0] / "test"), "--int8", "--calib-images",
+                str(calib_dir), "--token-merge", flag, "--batch-size",
+                "8", "--ignore-deployment", "--image-size", str(IMAGE),
+                "--device", str(dev)]
+        if name == "multimodal":
+            argv += ["--thermal-images", str(data / "thermal" / "test")]
+        _reset_launches()
+        res = predict.main(argv)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in {**_all_launches(),
+                                      **_bias_launches()}.items() if v}
+        tr = Trainer(name, TrainConfig(batch_size=8, eval_batch_size=8),
+                     {"rgb": rgb_modality(), "thermal": thermal_modality()},
+                     device=dev, image_size=IMAGE)
+        tr.restore(ckpt)
+        q = tome_for_serving(quantize_for_serving(
+            tr, image_size=IMAGE,
+            calib_u8=(calibration_images(calib_dir, IMAGE)
+                      if name == "multimodal" else None)),
+            *TOME, image_size=IMAGE)
+        n = len(res)
+        arrays = {m: decode_all(list_images(data / m / "test")[:n], IMAGE)
+                  for m in mods}
+        _, ref = q.run_eval_epoch(ArrayDataset(arrays,
+                                               np.zeros(n, np.int32)))
+        err = float(np.abs(np.asarray([p for p, _ in res.values()])
+                           - ref["y_probs"]).max())
+        same = [c for _, c in res.values()] == ref["y_pred"].tolist()
+        log(f"[tome cli] predict --int8 --token-merge {flag} {name}: {n} "
+            f"rows, max |dp| vs tome_for_serving(quantize_for_serving()) "
+            f"{err:.2e}, predictions equal {same}; launches {launches}")
+        if (err > 1e-6 or not same or "attn_block_q8" not in launches
+                or "attn_block" in launches
+                or any(_bias_launches().values())):
+            raise AssertionError(f"predict --token-merge --int8 {name}")
+        del tr, q
+        torch.cuda.empty_cache()
+    log(f"[tome cli] in {time.perf_counter() - t0:.2f} s (host clock; "
+        f"{card()})")
+
+
 # ---------------------------------------------------------------- bounds
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
@@ -4800,7 +5219,28 @@ def kernel_bounds() -> dict:
             + (5 * c + 6 * c) * f32),
     } | {f"flash_attention_{p}": bounds for p, bounds in (
         ("fwd", _bound({torch.bfloat16: attn_flops}, 4 * r8 * c * bf)),
-        ("bwd", _attention_bwd_bound(TRAIN_BATCH, n, c)))}
+        ("bwd", _attention_bwd_bound(TRAIN_BATCH, n, c)))} | _tome_bounds()
+
+
+def _tome_bounds() -> dict:
+    """The biased K1, K7 and K8 at their phase-16 row's shape: ViT-B/16's
+    attention block at B = 8 and N = 128 tokens (``--token-merge 4:128``),
+    bf16, as kernel_bounds counts the unbiased blocks, plus the fp32
+    (B, N) bias read once."""
+    n, c, b, bf, f32 = TOME[1], 768, 8, 2, 4
+    rows = b * n
+    attn_flops = 4 * b * n * n * c
+    q8_bytes = 2 * rows * c * bf + 4 * c * c + 10 * c * f32 + rows * f32
+    return {
+        "attn_block_bias": _bound(
+            {torch.bfloat16: 2 * rows * c * 4 * c + attn_flops},
+            2 * rows * c * bf + 4 * c * c * bf + 6 * c * f32 + rows * f32),
+        "attn_block_q8_bias": _bound(
+            {torch.int8: 2 * rows * c * 4 * c, torch.bfloat16: attn_flops},
+            q8_bytes),
+        "attn_block_q8s_bias": _bound(
+            {torch.int8: 2 * rows * c * 4 * c, torch.bfloat16: attn_flops},
+            q8_bytes + 2 * f32)}
 
 
 def main() -> int:
@@ -4839,11 +5279,17 @@ def main() -> int:
     q8_serve = phase_q8_serve(dev)
     for k in ("conv_q8", "quantize_act_q8"):
         launches[k] = q8_serve[k]
+    # the token-merged path's biased K1/K7/K8: its rows and launches
+    tome = phase_tome(dev)
+    for k, row in tome.items():
+        launches[k] = row.pop("launches")
+        times[k] = row
     with tempfile.TemporaryDirectory(dir=build) as d:
         phase_train_disk(dev, Path(d))
         phase_artifacts(dev, Path(d))
         explain = phase_explain(dev, Path(d))
         phase_q8_cli(dev, Path(d))
+        phase_tome_cli(dev, Path(d))
     for mod in ("jax", "flax", "optax", "PIL", "torchvision", "matplotlib",
                 "sklearn", "cv2", "dfu_multimodal_tpu"):
         if mod in sys.modules:
@@ -4870,7 +5316,11 @@ def main() -> int:
         "stage": ("resnet_block.cu", "resnet_block.py:116"),
         "conv_q8": ("conv_q8.cu", "resnet_q8.py:59 (_QConv, an XLA conv)"),
         "quantize_act_q8": ("conv_q8.cu",
-                            "resnet_q8.py:44 (quantize_act, XLA ops)")}
+                            "resnet_q8.py:44 (quantize_act, XLA ops)"),
+        # K1, K7 and K8 with ToMe's key bias (their bias_ref operand)
+        "attn_block_bias": ("vit_block.cu", "vit_block.py:122"),
+        "attn_block_q8_bias": ("vit_block_q8.cu", "vit_block_q8.py:70"),
+        "attn_block_q8s_bias": ("vit_block_q8.cu", "vit_block_q8.py:157")}
     # library_ms: SDPA's time where one call computes the kernel's
     # function (the K6/K9 forwards), else null (no single PyTorch call
     # computes K10: its row carries the K5 chain rule's time as chain_ms)

@@ -8,13 +8,16 @@ per-image probabilities and a CSV:
         --images <dir> [--thermal-images <dir>] [--output preds.csv] \
         [--explain-dir <dir>]   # Grad-CAM evidence overlay per image
         [--int8 [--calib-images <dir>]]
+        [--token-merge 4:128 [--tome-prop-attn]]
 
 The model runs on ``--device`` (default ``cuda``).  ``--int8`` serves
 the int8 paths (the int8 ViT blocks; the ResNet trunk calibrated on
-``--calib-images``, by default the first 32 inputs); ``--explain-dir``
-always differentiates the full-fidelity restore.  ``--token-merge``
-needs ``ops/token_merge.py``, not ported yet: it is refused with that
-named.
+``--calib-images``, by default the first 32 inputs); ``--token-merge
+L:K`` runs a ViT trunk token-merged (``serve/engine.py::
+tome_for_serving``, after ``--int8`` where both are given; a model
+without a ViT trunk skips it with a line that says so),
+``--tome-prop-attn`` with proportional attention; ``--explain-dir``
+always differentiates the full-fidelity restore.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import numpy as np
 from dfu_multimodal_tpu_torch import config as cfg_mod
 from dfu_multimodal_tpu_torch.cli._train_common import (VIT_MODELS,
                                                         resolve_device)
-from dfu_multimodal_tpu_torch.cli.serve import (CALIB_IMAGES, UNPORTED,
+from dfu_multimodal_tpu_torch.cli.serve import (CALIB_IMAGES,
                                                 calibration_images)
 from dfu_multimodal_tpu_torch.config import TrainConfig
 from dfu_multimodal_tpu_torch.data.layout import list_images
@@ -40,8 +43,11 @@ from dfu_multimodal_tpu_torch.eval.calibration import apply_temperature
 from dfu_multimodal_tpu_torch.eval.deployment import resolve_deployment
 from dfu_multimodal_tpu_torch.eval.threshold import apply_threshold
 from dfu_multimodal_tpu_torch.eval.tta import tta_predictions
+from dfu_multimodal_tpu_torch.models.zoo import VIT_TRUNK_MODELS
 from dfu_multimodal_tpu_torch.serve.engine import (RESNET_TRUNK_MODELS,
-                                                   quantize_for_serving)
+                                                   parse_token_merge,
+                                                   quantize_for_serving,
+                                                   tome_for_serving)
 from dfu_multimodal_tpu_torch.serve.explain import (explain_batch,
                                                     normalize_inputs,
                                                     render_overlay)
@@ -112,8 +118,19 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda, the card); "
                              "'cpu' runs on the host")
-    # refused: its module is not ported yet
-    parser.add_argument("--token-merge", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--token-merge", default=None, metavar="L:K",
+                        help="ViT-trunk token merging (thermal_only/"
+                             "multimodal): run L encoder blocks on the "
+                             "full token set, bipartite-merge to K "
+                             "tokens, run the remaining blocks reduced "
+                             "(e.g. 4:128; validate the accuracy cost on "
+                             "real data before deploying; composes with "
+                             "--int8)")
+    parser.add_argument("--tome-prop-attn", action="store_true",
+                        help="with --token-merge: ToMe proportional "
+                             "attention (full Bolya et al. recipe) — "
+                             "post-merge blocks bias each key's scores "
+                             "by log(token size)")
     return parser
 
 
@@ -148,9 +165,6 @@ def write_explanations(trainer, arrays, paths, provided, out_dir: Path,
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.token_merge:
-        raise SystemExit(f"--token-merge needs {UNPORTED['token_merge']}, "
-                         "which is not ported yet")
     device = resolve_device(args.device)
     model_name = args.model or ckpt_mod.load_meta(args.checkpoint).get(
         "model", "rgb_only")
@@ -202,7 +216,7 @@ def main(argv=None):
             print(json.dumps(rep["modalities"], indent=2))
 
     # --explain-dir differentiates this full-fidelity restore, never the
-    # int8 rebuild below
+    # int8 or token-merged rebuilds below
     base_trainer = trainer
     if args.int8:
         calib_u8 = None
@@ -217,6 +231,20 @@ def main(argv=None):
                                            calib_u8=calib_u8)
         except (ValueError, NotImplementedError) as e:
             raise SystemExit(f"--int8: {e}")
+
+    if args.token_merge:
+        # composes with --int8: tome_for_serving keeps the int8 blocks
+        if model_name not in VIT_TRUNK_MODELS:
+            print(f"--token-merge skipped ({model_name} has no ViT trunk)")
+        else:
+            merge_at, keep = parse_token_merge(args.token_merge)
+            trainer = tome_for_serving(trainer, merge_at, keep,
+                                       image_size=args.image_size,
+                                       prop_attn=args.tome_prop_attn)
+            print(f"Token merging: {merge_at} full-token blocks, "
+                  f"then {keep} tokens"
+                  + (" (proportional attention)"
+                     if args.tome_prop_attn else ""))
 
     n = len(paths)
     ds = ArrayDataset(arrays=arrays, labels=np.zeros(n, np.int32))

@@ -5,7 +5,8 @@
     python -m dfu_multimodal_tpu_torch.cli.serve \
         --checkpoint logs/checkpoints_multimodal --port 8000 \
         [--explain] [--int8 --calib-images <dir>] [--max-batch 64] \
-        [--max-wait-ms 2] [--pipeline-depth 2] [--shadow <ckpt>]
+        [--max-wait-ms 2] [--pipeline-depth 2] [--shadow <ckpt>] \
+        [--token-merge 4:128 [--tome-prop-attn]]
 
     # the clinical router: every checkpoints_* under logs/ is served, and
     # each request goes to the model matching its modalities
@@ -28,9 +29,14 @@ traffic of the primary that takes its inputs, full-fidelity with its
 own ``deployment.json`` whatever the primary's ``--int8`` (an int8
 primary beside its full-fidelity shadow asks whether int8 may replace
 it), and ``/metrics`` reports the agreement; ``--pipeline-depth 2``
-dispatches the next batch before the last one's results are fetched.  Not ported yet, refused with the
-missing module named: ``--exported`` (``serve/export.py``) and
-``--token-merge`` (``ops/token_merge.py``).
+dispatches the next batch before the last one's results are fetched.
+``--token-merge L:K`` serves every ViT-trunk model (thermal_only,
+multimodal) token-merged (``serve/engine.py::tome_for_serving``; after
+``--int8`` where both are given), ``--tome-prop-attn`` with proportional
+attention; other models are served as they are, with a line that says
+so; shadows and explanations use the model without merging.  Not ported
+yet, refused with the missing module named: ``--exported``
+(``serve/export.py``).
 """
 
 from __future__ import annotations
@@ -49,10 +55,13 @@ from dfu_multimodal_tpu_torch.data.loader import decode_all
 from dfu_multimodal_tpu_torch.eval import drift as drift_mod
 from dfu_multimodal_tpu_torch.eval import vit_attribution as va
 from dfu_multimodal_tpu_torch.eval.deployment import resolve_deployment
+from dfu_multimodal_tpu_torch.models.zoo import VIT_TRUNK_MODELS
 from dfu_multimodal_tpu_torch.serve.engine import (RESNET_TRUNK_MODELS,
                                                    ModelRouter,
                                                    ServingEngine,
-                                                   quantize_for_serving)
+                                                   parse_token_merge,
+                                                   quantize_for_serving,
+                                                   tome_for_serving)
 from dfu_multimodal_tpu_torch.serve.explain import Explainer
 from dfu_multimodal_tpu_torch.serve.http import make_server
 from dfu_multimodal_tpu_torch.serve.shadow import attach_shadow
@@ -60,8 +69,7 @@ from dfu_multimodal_tpu_torch.train.engine import Trainer
 from dfu_multimodal_tpu_torch.utils import checkpoint as ckpt_mod
 
 # flags of the JAX daemon whose modules the port has not ported yet
-UNPORTED = {"exported": "serve/export.py (exported bundles)",
-            "token_merge": "ops/token_merge.py (ToMe)"}
+UNPORTED = {"exported": "serve/export.py (exported bundles)"}
 # calibration images the int8 ResNet trunk takes (the first of them)
 CALIB_IMAGES = 32
 
@@ -117,6 +125,19 @@ def build_parser() -> argparse.ArgumentParser:
                              "ResNet trunk: a directory of images (the "
                              "first 32, sorted) fixing the static int8 "
                              "activation scales")
+    parser.add_argument("--token-merge", default=None, metavar="L:K",
+                        help="ViT-trunk token merging for thermal_only/"
+                             "multimodal models: L full-token encoder "
+                             "blocks, bipartite-merge to K tokens, rest "
+                             "reduced (validate accuracy on real data "
+                             "first). Non-ViT models in a --checkpoint-root "
+                             "router are served unmodified; composes with "
+                             "--int8")
+    parser.add_argument("--tome-prop-attn", action="store_true",
+                        help="with --token-merge: ToMe proportional "
+                             "attention (full Bolya et al. recipe) — "
+                             "post-merge blocks bias each key's scores "
+                             "by log(token size)")
     parser.add_argument("--shadow", type=Path, action="append",
                         default=None,
                         help="shadow-deploy a candidate checkpoint: it "
@@ -149,10 +170,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda, the card); "
                              "'cpu' serves on the host")
-    # refused: their modules are not ported yet
+    # refused: its module is not ported yet
     parser.add_argument("--exported", type=Path, action="append",
                         default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--token-merge", default=None, help=argparse.SUPPRESS)
     return parser
 
 
@@ -182,9 +202,10 @@ def restore_trainer(ckpt: Path, model_name: Optional[str], args, cfg,
                     modalities, device) -> Tuple[str, Trainer, Trainer]:
     """(model name, the serving trainer, the full-fidelity trainer) from a
     checkpoint dir: with ``--int8`` the serving trainer is the int8
-    rebuild (a ResNet trunk calibrated on ``--calib-images``) and the
-    second is the restore it was quantised from (the one an explainer
-    differentiates)."""
+    rebuild (a ResNet trunk calibrated on ``--calib-images``), with
+    ``--token-merge`` the token-merged rebuild of that (a model without a
+    ViT trunk is skipped with a line that says so), and the second is the
+    restore they were built from (the one an explainer differentiates)."""
     model_name = model_name or ckpt_mod.load_meta(ckpt).get(
         "model", "rgb_only")
     kwargs = ({"attention_impl": args.attention_impl}
@@ -201,6 +222,17 @@ def restore_trainer(ckpt: Path, model_name: Optional[str], args, cfg,
                                            calib_u8=calib_u8)
         except (ValueError, NotImplementedError) as e:
             raise SystemExit(f"--int8 {ckpt}: {e}")
+    if args.token_merge:
+        if model_name in VIT_TRUNK_MODELS:
+            merge_at, keep = parse_token_merge(args.token_merge)
+            trainer = tome_for_serving(
+                trainer, merge_at, keep, image_size=args.image_size,
+                prop_attn=args.tome_prop_attn)
+            print(f"{ckpt.name}: token merging ({merge_at} full-token "
+                  f"blocks, then {keep} tokens)")
+        else:
+            print(f"{ckpt.name}: --token-merge skipped "
+                  f"({model_name} has no ViT trunk)")
     return model_name, trainer, base
 
 
@@ -259,6 +291,7 @@ def _attach_shadows(router: ModelRouter, args, cfg, modalities, device):
         # live primary, independent of the primary's --int8 and threshold
         sh_args = copy.copy(args)
         sh_args.int8 = False
+        sh_args.token_merge = None
         sh_args.threshold = sh_args.temperature = None
         name, trainer, _ = restore_trainer(sh, None, sh_args, cfg,
                                            modalities, device)

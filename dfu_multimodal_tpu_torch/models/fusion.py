@@ -11,7 +11,7 @@ Submodule names follow the reference's torch model
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -82,15 +82,19 @@ class MultimodalFusionClassifier(nn.Module):
     """Late fusion of ResNet50 (RGB) and ViT-B/16 (thermal); inputs are
     NHWC images already normalised, returns (B, num_classes) logits.
     ``block_impl`` and ``attention_impl`` go to the thermal branch's ViT,
-    as in the JAX fusion model; ``rgb_impl`` picks the RGB trunk:
-    ``"auto"`` the float ResNet-50, ``"int8"`` the int8 serving trunk
+    as in the JAX fusion model, and so do ``token_merge`` and
+    ``tome_prop_attn`` (its inference-only ToMe path, ``models/vit.py``);
+    ``rgb_impl`` picks the RGB trunk: ``"auto"`` the float ResNet-50,
+    ``"int8"`` the int8 serving trunk
     (``models/resnet_q8.py::Int8ResNet50``, weights from
     ``quantize_rgb_trunks``)."""
 
     def __init__(self, num_classes: int = 2, drop_rate: float = 0.5,
                  dtype: Union[str, torch.dtype] = torch.float32,
                  image_size: int = 224, block_impl: str = "fused",
-                 attention_impl: str = "auto", rgb_impl: str = "auto"):
+                 attention_impl: str = "auto", rgb_impl: str = "auto",
+                 token_merge: Optional[Tuple[int, int]] = None,
+                 tome_prop_attn: bool = False):
         super().__init__()
         dtype = canonical_dtype(dtype)
         if rgb_impl == "int8":
@@ -104,7 +108,9 @@ class MultimodalFusionClassifier(nn.Module):
                              "'int8'")
         self.thermal_branch = ViTBase16(dtype=dtype, image_size=image_size,
                                         block_impl=block_impl,
-                                        attention_impl=attention_impl)
+                                        attention_impl=attention_impl,
+                                        token_merge=token_merge,
+                                        tome_prop_attn=tome_prop_attn)
         self.fusion = FusionMLP(2048 + 768, num_classes, drop_rate, dtype)
 
     def forward(self, rgb: torch.Tensor, thermal: torch.Tensor,

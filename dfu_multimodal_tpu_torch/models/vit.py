@@ -22,6 +22,18 @@ the CPU):
   with dynamic per-row activation scales (K7);
 - ``"fused_q8s"``: the same with calibrated static activation scales (K8).
 
+``token_merge=(merge_at, keep)`` (serving only, ToMe: Bolya et al.
+ICLR'23) runs blocks ``[:merge_at]`` on all N tokens, merges them once down
+to ``keep`` (``ops/token_merge.py::bipartite_merge``) and runs blocks
+``[merge_at:]`` on ``keep`` tokens; with ``tome_prop_attn`` those blocks
+add log(token size) to each key's attention scores (proportional
+attention), an operand every block family takes (the fused and int8
+blocks inside their attention kernel).  The blocks keep their
+``blocks.{i}`` keys: a token-merged model loads the same ``state_dict``
+as the plain one (the JAX package splits its scanned stack into
+``encoder`` / ``encoder2`` instead, ``split_encoder_variables``, which
+``tools/convert_jax.py`` maps both ways).
+
 Every block declares the same keys: fp32 parameters in timm's layout
 (``patch_embed.proj`` conv-shaped, ``blocks.{i}.norm1/attn.qkv/attn.proj/
 norm2/mlp.fc1/mlp.fc2``, ``norm``; the int8 blocks hold ``kernel_q8`` and
@@ -41,7 +53,7 @@ call.
 from __future__ import annotations
 
 from typing import (Dict, Iterable, List, Mapping, Optional, Sequence,
-                    Union)
+                    Tuple, Union)
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +62,7 @@ from torch import nn
 from dfu_multimodal_tpu_torch.models.common import (Taps, canonical_dtype,
                                                     dropout, tap)
 from dfu_multimodal_tpu_torch.ops.attention import qkv_attention
+from dfu_multimodal_tpu_torch.ops.token_merge import bipartite_merge
 from dfu_multimodal_tpu_torch.ops.vit_block import AttnBlock, MlpBlock
 from dfu_multimodal_tpu_torch.ops.vit_block_q8 import (
     attn_block_q8, attn_block_q8s, mlp_block_q8, mlp_block_q8s, over_qmax,
@@ -91,15 +104,18 @@ def _tap(calibration: Optional[Calibration], point: str,
     return t
 
 
-def xla_attention(q: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor) -> torch.Tensor:
+def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain softmax attention in PyTorch ops, the JAX ``xla_attention``:
     q, k, v (B, H, N, D) -> (B, H, N, D).  q is scaled in the compute
-    dtype, the scores accumulate in fp32, the softmax is fp32 and P is
-    cast to the compute dtype before P·V.  JAX runs this outside Pallas,
-    so it is no kernel's plain version and runs on any device."""
+    dtype, the scores accumulate in fp32, plus ``bias`` (B, N), ToMe's
+    per-key score bias, the softmax is fp32 and P is cast to the compute
+    dtype before P·V.  JAX runs this outside Pallas, so it is no kernel's
+    plain version and runs on any device."""
     logits = torch.matmul((q * q.shape[-1] ** -0.5).float(),
                           k.float().transpose(-1, -2))
+    if bias is not None:
+        logits = logits + bias.float()[:, None, None, :]
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(probs, v)
 
@@ -136,7 +152,9 @@ class MultiHeadAttention(Attention):
     """The flax block's attention (the JAX ``MultiHeadAttention``): the qkv
     Linear, attention by ``attention_impl``, the output projection.
     ``"pallas"`` runs the packed-qkv kernel on the (B, N, 3C) qkv output;
-    ``"xla"`` splits the heads and runs :func:`xla_attention`."""
+    ``"xla"``, and any call with ToMe's key ``bias`` (as in JAX, whose
+    packed-qkv kernel takes none), splits the heads and runs
+    :func:`xla_attention`."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
                  attention_impl: str = "auto"):
@@ -147,16 +165,15 @@ class MultiHeadAttention(Attention):
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
                 calibration: Optional[Calibration] = None) -> torch.Tensor:
-        if bias is not None:
-            raise NotImplementedError("the ToMe key bias is not ported yet")
         b, n, c = x.shape
         qkv = _linear(x, self.qkv, self.dtype)
-        if self.attention_impl == "pallas":
+        if self.attention_impl == "pallas" and bias is None:
             out = qkv_attention(qkv, self.num_heads)
         else:
             q, k, v = qkv.reshape(b, n, 3, self.num_heads,
                                   c // self.num_heads).permute(2, 0, 3, 1, 4)
-            out = xla_attention(q, k, v).transpose(1, 2).reshape(b, n, c)
+            out = xla_attention(q, k, v, bias).transpose(1, 2).reshape(
+                b, n, c)
         return _linear(_tap(calibration, "proj_in", out), self.proj,
                        self.dtype)
 
@@ -174,7 +191,8 @@ class EncoderBlock(nn.Module):
     """The flax pre-LN encoder block (the JAX ``EncoderBlock``): LN1,
     :class:`MultiHeadAttention`, residual, LN2, fc1, exact-erf GELU, fc2,
     residual.  ``calibration`` records max|·| at the four int8
-    quantisation points (:data:`CALIBRATION_POINTS`)."""
+    quantisation points (:data:`CALIBRATION_POINTS`); ``bias`` is ToMe's
+    (B, N) key bias for the attention (every block family takes it)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int,
                  dtype: torch.dtype, attention_impl: str = "auto"):
@@ -186,10 +204,11 @@ class EncoderBlock(nn.Module):
         self.mlp = Mlp(dim, mlp_ratio * dim)
 
     def forward(self, x: torch.Tensor,
-                calibration: Optional[Calibration] = None) -> torch.Tensor:
+                calibration: Optional[Calibration] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt = self.dtype
         y = _tap(calibration, "ln1_out", _layer_norm(x, self.norm1, dt))
-        x = x + self.attn(y, calibration=calibration)
+        x = x + self.attn(y, bias, calibration=calibration)
         y = _tap(calibration, "ln2_out", _layer_norm(x, self.norm2, dt))
         y = _tap(calibration, "gelu_out",
                  F.gelu(_linear(y, self.mlp.fc1, dt)))
@@ -209,12 +228,13 @@ class FusedEncoderBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, mlp_ratio * dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt = self.dtype
         x = AttnBlock.apply(x, self.norm1.weight, self.norm1.bias,
                             _in_out(self.attn.qkv, dt), self.attn.qkv.bias,
                             _in_out(self.attn.proj, dt), self.attn.proj.bias,
-                            self.num_heads)
+                            self.num_heads, bias)
         return MlpBlock.apply(x, self.norm2.weight, self.norm2.bias,
                               _in_out(self.mlp.fc1, dt), self.mlp.fc1.bias,
                               _in_out(self.mlp.fc2, dt), self.mlp.fc2.bias)
@@ -295,10 +315,11 @@ class QuantizedEncoderBlock(nn.Module):
         return ((self.attn.qkv.kernel_kmajor, self.attn.proj.kernel_kmajor),
                 (self.mlp.fc1.kernel_kmajor, self.mlp.fc2.kernel_kmajor))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         attn, mlp = self._operands()
         attn_t, mlp_t = self._kmajor()
-        x = attn_block_q8(x, *attn, self.num_heads, kmajor=attn_t)
+        x = attn_block_q8(x, *attn, self.num_heads, bias, kmajor=attn_t)
         return mlp_block_q8(x, *mlp, kmajor=mlp_t)
 
 
@@ -314,11 +335,12 @@ class StaticQuantizedEncoderBlock(QuantizedEncoderBlock):
         super().__init__(dim, num_heads, mlp_ratio, dtype)
         self.register_buffer("act_scales", torch.ones(4))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         attn, mlp = self._operands()
         attn_t, mlp_t = self._kmajor()
         a = self.act_scales
-        x = attn_block_q8s(x, *attn, 1.0 / a[:2], self.num_heads,
+        x = attn_block_q8s(x, *attn, 1.0 / a[:2], self.num_heads, bias,
                            kmajor=attn_t)
         return mlp_block_q8s(x, *mlp, 1.0 / a[2:], kmajor=mlp_t)
 
@@ -357,18 +379,31 @@ class ViT(nn.Module):
     ``"fused"``, ``"flax"``, ``"fused_q8"`` or ``"fused_q8s"``;
     ``attention_impl`` (``"auto"``, ``"pallas"``, ``"xla"``) is taken for
     every block impl, as in JAX, and used by the flax block only (module
-    docstring)."""
+    docstring).  ``token_merge=(merge_at, keep)`` and ``tome_prop_attn``:
+    the inference-only ToMe path (module docstring), with JAX's checks:
+    ``merge_at`` in (0, depth), ``keep`` at most the token count."""
 
     def __init__(self, image_size: int = 224, patch_size: int = 16,
                  hidden_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_ratio: int = 4,
                  dtype: Union[str, torch.dtype] = torch.float32,
-                 block_impl: str = "fused", attention_impl: str = "auto"):
+                 block_impl: str = "fused", attention_impl: str = "auto",
+                 token_merge: Optional[Tuple[int, int]] = None,
+                 tome_prop_attn: bool = False):
         super().__init__()
         block_impl = resolve_block_impl(block_impl)
         attention_impl = resolve_attention_impl(attention_impl)
         self.dtype = canonical_dtype(dtype)
         tokens = (image_size // patch_size) ** 2 + 1
+        if token_merge is not None:
+            merge_at, keep = token_merge
+            if not 0 < merge_at < depth:
+                raise ValueError(f"merge_at must be in (0, {depth})")
+            if keep > tokens:
+                raise ValueError(f"keep={keep} exceeds the {tokens} tokens")
+            token_merge = (merge_at, keep)
+        self.token_merge = token_merge
+        self.tome_prop_attn = bool(tome_prop_attn)
         self.patch_embed = PatchEmbed(patch_size, hidden_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, hidden_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, tokens, hidden_dim))
@@ -386,13 +421,23 @@ class ViT(nn.Module):
         """x (B, H, W, 3) NHWC.  ``calibration`` (flax blocks only): a
         record of :data:`CALIBRATION_POINTS` to lists, to which every block
         appends its max|·| at each point.  ``taps`` records ``blocks``, the
-        (B, N, C) tokens after the last block, before the final norm."""
+        (B, N, C) tokens after the last block, before the final norm (with
+        ``token_merge``, the ``keep`` merged tokens, as in JAX)."""
         dt = self.dtype
         x = self.patch_embed(x.to(dt))
         cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
-        for block in self.blocks:
-            x = block(x) if calibration is None else block(x, calibration)
+        merge_at, keep = self.token_merge or (len(self.blocks), None)
+        for block in self.blocks[:merge_at]:
+            x = _block(block, x, calibration)
+        if self.token_merge is not None:
+            sizes = torch.ones(x.shape[:2], dtype=torch.float32,
+                               device=x.device)
+            x, sizes = bipartite_merge(x, sizes, x.shape[1] - keep)
+            # proportional attention: each key's scores + log(its size)
+            bias = torch.log(sizes) if self.tome_prop_attn else None
+            for block in self.blocks[merge_at:]:
+                x = _block(block, x, calibration, bias)
         x = tap(taps, "blocks", x)
         # LayerNorm is per token: normalising only the CLS row is the
         # same as normalising all and taking row 0.
@@ -401,11 +446,24 @@ class ViT(nn.Module):
         return cls.to(dt).float()
 
 
+def _block(block: nn.Module, x: torch.Tensor,
+           calibration: Optional[Calibration],
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One encoder block with ToMe's key bias (None for none) and the
+    calibration record (flax blocks only) where given."""
+    if calibration is None:
+        return block(x, bias=bias)
+    return block(x, calibration, bias=bias)
+
+
 def ViTBase16(dtype: Union[str, torch.dtype] = torch.float32,
               image_size: int = 224, block_impl: str = "fused",
-              attention_impl: str = "auto") -> ViT:
+              attention_impl: str = "auto",
+              token_merge: Optional[Tuple[int, int]] = None,
+              tome_prop_attn: bool = False) -> ViT:
     return ViT(image_size=image_size, dtype=dtype, block_impl=block_impl,
-               attention_impl=attention_impl)
+               attention_impl=attention_impl, token_merge=token_merge,
+               tome_prop_attn=tome_prop_attn)
 
 
 class ViTClassifier(nn.Module):
@@ -414,7 +472,8 @@ class ViTClassifier(nn.Module):
     ``vit.`` prefix, which the JAX package's torch converter strips; the
     head is ``head``.  Dropout is active in train mode and draws from the
     ``generator`` given to forward (required then).  ``block_impl`` picks
-    the trunk's encoder block (``ViT``)."""
+    the trunk's encoder block, and ``token_merge`` / ``tome_prop_attn``
+    (among ``vit_kwargs``) its ToMe serving path (``ViT``)."""
 
     def __init__(self, num_classes: int = 2, drop_rate: float = 0.5,
                  dtype: Union[str, torch.dtype] = torch.float32,

@@ -45,6 +45,12 @@ register(ModelSpec("multimodal", MultimodalFusionClassifier,
                    ("rgb", "thermal")))
 
 
+# models whose thermal/primary trunk is a ViT: the set --token-merge
+# applies to (the Trainer guard and the predict/serve CLIs consult this
+# constant, as in the JAX package)
+VIT_TRUNK_MODELS = frozenset({"thermal_only", "multimodal"})
+
+
 def get(name: str) -> ModelSpec:
     try:
         return _REGISTRY[name]
@@ -62,8 +68,9 @@ def build(name: str, *, num_classes: int = 2,
     ``"fused_q8s"``), ``attention_impl`` (``"auto"``, ``"pallas"``,
     ``"xla"``; the flax block's attention) and cut-down widths
     (``depth``...); for ``multimodal`` the thermal branch's ``block_impl``
-    and ``attention_impl``; for ``rgb_only`` the trunk's ``block_impl``
-    (``"auto"``, ``"flax"``, ``"fused"``)."""
+    and ``attention_impl``; for both the ViT's ``token_merge`` and
+    ``tome_prop_attn`` (serving only); for ``rgb_only`` the trunk's
+    ``block_impl`` (``"auto"``, ``"flax"``, ``"fused"``)."""
     spec = get(name)
     dr = {} if drop_rate is None else {"drop_rate": drop_rate}
     return spec.make(num_classes=num_classes, dtype=dtype, **dr,

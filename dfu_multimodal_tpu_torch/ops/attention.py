@@ -112,7 +112,8 @@ def _attend(p_c: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _attend_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     tile: int = 64, defer: bool = False) -> torch.Tensor:
+                     tile: int = 64, defer: bool = False,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The bf16 forward kernel's algorithm (``csrc/attention_fwd_mma.cuh``)
     in plain PyTorch, for the tests: pass 1 walks the key tiles keeping the
     running row max and the running sum of exp(S − max), rescaled when the
@@ -122,8 +123,10 @@ def _attend_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel's DEFER flag, the Pallas ``_attention_head``): pass 1 keeps the
     row max alone; pass 2 adds e = exp(S − max) into the fp32 sum uncast
     and e rounded to the compute dtype times V into O; O / sum at the end.
-    q, k, v (B, H, N, D) in the compute dtype -> o in the accumulation
-    dtype, as :func:`_attend`."""
+    ``bias``: ToMe's (B, N) fp32 key bias, added to each tile's scaled S
+    in both passes (the kernel's ``bias`` operand).  q, k, v (B, H, N, D)
+    in the compute dtype -> o in the accumulation dtype, as
+    :func:`_attend`."""
     dt, acc = q.dtype, acc_dtype(q)
     n, d = q.shape[-2:]
     scale = d ** -0.5
@@ -133,11 +136,15 @@ def _attend_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kp, vp = (torch.nn.functional.pad(t.to(acc), (0, 0, 0, pad))
               for t in (k, v))
     past = torch.arange(n + pad, device=q.device) >= n
+    bp = (None if bias is None else torch.nn.functional.pad(
+        bias.to(acc), (0, pad))[:, None, None, :])
 
     def scores(j0: int) -> torch.Tensor:
         s = torch.matmul(qs, kp[..., j0:j0 + tile, :].transpose(-1, -2))
         if not pow2:
             s = s * scale
+        if bp is not None:
+            s = s + bp[..., j0:j0 + tile]
         return s.masked_fill(past[j0:j0 + tile], -math.inf)
 
     m = torch.full((*q.shape[:-1], 1), -math.inf, dtype=acc,

@@ -17,6 +17,10 @@
 // to the compute dtype as the P·V operand, and the division by the fp32
 // row sum deferred past P·V.
 //
+// ToMe's key bias (proportional attention): an optional fp32 (B, N) row
+// added to every score of key j after the scale, s·scale + bias[b][j],
+// in both passes of the tiled kernel; nullptr for none.
+//
 // A head whose K and V do not fit one block's shared memory (N ≈ 420 at
 // D = 64: serving at 336² or 384², N = 442 or 577) runs attention_tiled
 // instead: ATT_TROWS query rows per block, K and V streamed through
@@ -39,7 +43,7 @@ constexpr size_t ATT_MAX_SMEM = 232448;          // bytes a block may hold
 template <typename T, typename TO, int D>
 __global__ void __launch_bounds__(ATT_THREADS)
 attention_kernel(const T* __restrict__ qkv, TO* __restrict__ out, int n,
-                 int heads, float scale) {
+                 int heads, float scale, const float* __restrict__ bias) {
   extern __shared__ float smem[];
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_QCHUNK;
   const int c = heads * D, ld = 3 * c;
@@ -47,6 +51,8 @@ attention_kernel(const T* __restrict__ qkv, TO* __restrict__ out, int n,
   float* vs = ks + n * (D + 1);        // n x D
   float* ps = vs + n * D;              // one n-row of scores per warp
   const T* base = qkv + static_cast<size_t>(b) * n * ld;
+  const float* brow =
+      bias != nullptr ? bias + static_cast<size_t>(b) * n : nullptr;
 
   for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
     const int j = i / D, d = i % D;
@@ -74,7 +80,9 @@ attention_kernel(const T* __restrict__ qkv, TO* __restrict__ out, int n,
       float s = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) s = fmaf(q[d], kr[d], s);
-      s *= scale;
+      // the bias after the rounded scale (no FMA contraction)
+      s = brow != nullptr ? __fadd_rn(__fmul_rn(s, scale), brow[j])
+                          : s * scale;
       p[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -112,7 +120,7 @@ attention_kernel(const T* __restrict__ qkv, TO* __restrict__ out, int n,
 template <typename T, typename TO, int D>
 __global__ void __launch_bounds__(ATT_THREADS)
 attention_tiled(const T* __restrict__ qkv, TO* __restrict__ out, int n,
-                int heads, float scale) {
+                int heads, float scale, const float* __restrict__ bias) {
   extern __shared__ float smem[];
   constexpr int PER = (D + 31) / 32;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ATT_TROWS;
@@ -122,6 +130,8 @@ attention_tiled(const T* __restrict__ qkv, TO* __restrict__ out, int n,
   float* qs = vs + ATT_TK * D;         // ATT_TROWS x D
   float* ps = qs + ATT_TROWS * D;      // one ATT_TK-row of e per warp
   const T* base = qkv + static_cast<size_t>(b) * n * ld;
+  const float* brow =
+      bias != nullptr ? bias + static_cast<size_t>(b) * n : nullptr;
   for (int i = threadIdx.x; i < ATT_TROWS * D; i += blockDim.x) {
     const int qi = q0 + i / D, d = i % D;
     qs[i] = qi < n ? to_f(base[static_cast<size_t>(qi) * ld + h * D + d])
@@ -156,7 +166,9 @@ attention_tiled(const T* __restrict__ qkv, TO* __restrict__ out, int n,
           float s = 0.f;
 #pragma unroll
           for (int d = 0; d < D; ++d) s = fmaf(q[d], kr[d], s);
-          s *= scale;
+          s = brow != nullptr
+                  ? __fadd_rn(__fmul_rn(s, scale), brow[j0 + jj])
+                  : s * scale;
           if (pass == 0) {
             mx[r] = fmaxf(mx[r], s);
           } else {
@@ -205,7 +217,7 @@ attention_tiled(const T* __restrict__ qkv, TO* __restrict__ out, int n,
 // tiled one (the same output).
 template <typename T, typename TO, int D>
 int launch_attention(const void* qkv, void* out, int batch, int n, int heads,
-                     float scale, cudaStream_t s) {
+                     float scale, const float* bias, cudaStream_t s) {
   const size_t whole =
       sizeof(float) * (static_cast<size_t>(n) * (2 * D + 1) +
                        static_cast<size_t>(ATT_THREADS / 32) * n);
@@ -223,27 +235,30 @@ int launch_attention(const void* qkv, void* out, int batch, int n, int heads,
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(cdiv(n, tiled ? ATT_TROWS : ATT_QCHUNK), heads, batch);
   kernel<<<grid, ATT_THREADS, smem, s>>>(
-      static_cast<const T*>(qkv), static_cast<TO*>(out), n, heads, scale);
+      static_cast<const T*>(qkv), static_cast<TO*>(out), n, heads, scale,
+      bias);
   return static_cast<int>(cudaGetLastError());
 }
 
-// head dim d in {16, 32, 64, 128}
+// head dim d in {16, 32, 64, 128}; bias: the fp32 (batch, n) key bias, or
+// nullptr
 template <typename T, typename TO>
 int dispatch_attention(int d, const void* qkv, void* out, int batch, int n,
-                       int heads, float scale, cudaStream_t s) {
+                       int heads, float scale, const float* bias,
+                       cudaStream_t s) {
   switch (d) {
     case 16:
       return launch_attention<T, TO, 16>(qkv, out, batch, n, heads, scale,
-                                          s);
+                                          bias, s);
     case 32:
       return launch_attention<T, TO, 32>(qkv, out, batch, n, heads, scale,
-                                          s);
+                                          bias, s);
     case 64:
       return launch_attention<T, TO, 64>(qkv, out, batch, n, heads, scale,
-                                          s);
+                                          bias, s);
     case 128:
       return launch_attention<T, TO, 128>(qkv, out, batch, n, heads, scale,
-                                           s);
+                                           bias, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

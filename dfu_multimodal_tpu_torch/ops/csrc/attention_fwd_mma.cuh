@@ -57,6 +57,14 @@
 // normalisation after P·V is a different function).  Keys past N get −inf
 // before the max; query rows past N are zero-filled and never stored.
 //
+// ToMe's key bias (K1/K7/K8 with proportional attention): an optional
+// fp32 (batch, n) row, bias[b][j] added to every query's score of key j
+// in natural-log units, as the Pallas kernels add it: S·scale (S alone
+// when q was pre-scaled) rounded, plus the bias, rounded, then times
+// log2 e; never S·(scale·log2 e) + bias.  Both passes add it to the
+// recomputed S of each tile before the last tile's −inf mask, so they
+// see the same scores; keys past n read no bias.  K6 and K9 pass none.
+//
 // DEFER, K1's numerics (_attention_head): the softmax division is
 // deferred past P·V.  Pass 1 takes the row max alone (no exponential);
 // pass 2 forms e = exp(S − m) in fp32, adds the uncast e into the fp32
@@ -244,7 +252,8 @@ __device__ __forceinline__ void score_tile(
 // K6/K9's (P normalised before P·V).
 template <int D, bool DEFER, typename In, typename Out>
 __global__ void __launch_bounds__(MMA_THREADS)
-attention_fwd_mma(In q, In k, In v, Out o, int n, float scale, int pow2) {
+attention_fwd_mma(In q, In k, In v, Out o, int n, float scale, int pow2,
+                  const float* __restrict__ bias) {
   using S = MmaFwd<D>;
   // Q | K stage 0 | V stage 0 | K stage 1 | V stage 1; O is staged in Q's
   extern __shared__ __align__(16) bf16 fwd_mma_sm[];
@@ -276,8 +285,13 @@ attention_fwd_mma(In q, In k, In v, Out o, int n, float scale, int pow2) {
   for (int t = 0; t < S::OT; ++t) oacc[t][0] = oacc[t][1] = oacc[t][2] =
       oacc[t][3] = 0.f;
   // the scale after the product (1 when q was scaled before it), times
-  // log2 e: exp(x − y) = 2^(x·log2 e − y·log2 e), one FFMA and one ex2
-  const float post = (pow2 ? 1.f : scale) * LOG2E;
+  // log2 e: exp(x − y) = 2^(x·log2 e − y·log2 e), one FFMA and one ex2.
+  // With a key bias the scale goes in first (pre, below) and post is
+  // log2 e alone.
+  const float pre = pow2 ? 1.f : scale;
+  const float post = (bias != nullptr ? 1.f : pre) * LOG2E;
+  const float* brow = bias != nullptr ? bias + static_cast<size_t>(b) * n
+                                      : nullptr;
 
   for (int st = 0; st < steps; ++st) {
     if (st + 1 < steps) prefetch(st + 1);
@@ -309,7 +323,20 @@ attention_fwd_mma(In q, In k, In v, Out o, int n, float scale, int pow2) {
     float s[8][4];
     score_tile<D>(qf, ks, lane, s);
     // fragment s[j]: keys j0 + 8j + 2(lane % 4) + {0, 1}, rows g ([0], [1])
-    // and g + 8 ([2], [3]); in the last tile keys past n get −inf
+    // and g + 8 ([2], [3]); the key bias (natural-log units), then in the
+    // last tile keys past n get −inf
+    if (brow != nullptr) {
+      const int c0 = j0 + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = c0 + 8 * j + e;
+          const float bk = key < n ? __ldg(brow + key) : 0.f;
+          s[j][e] = __fadd_rn(__fmul_rn(s[j][e], pre), bk);
+          s[j][e + 2] = __fadd_rn(__fmul_rn(s[j][e + 2], pre), bk);
+        }
+    }
     if (n - j0 < MMA_BN) {
       const int c0 = j0 + 2 * (lane & 3);
 #pragma unroll
@@ -458,11 +485,13 @@ attention_fwd_mma(In q, In k, In v, Out o, int n, float scale, int pow2) {
 }
 
 // Launches the bf16 forward on (batch, heads, n) of strided q, k, v, o
-// (DEFER: K1's numerics); returns the CUDA error of the launch.  Past
-// 48 KB of shared memory (D = 128) the limit is raised once per device.
+// (DEFER: K1's numerics; bias: the fp32 (batch, n) key bias, or none);
+// returns the CUDA error of the launch.  Past 48 KB of shared memory
+// (D = 128) the limit is raised once per device.
 template <int D, bool DEFER = false, typename In, typename Out>
 int launch_attention_fwd_mma(In q, In k, In v, Out o, int batch, int heads,
-                             int n, float scale, int pow2, cudaStream_t s) {
+                             int n, float scale, int pow2, cudaStream_t s,
+                             const float* bias = nullptr) {
   constexpr int smem = MmaFwd<D>::SMEM;
   if constexpr (smem > 48 * 1024) {
     static std::atomic<int> limit[MAX_DEVICES];
@@ -472,7 +501,7 @@ int launch_attention_fwd_mma(In q, In k, In v, Out o, int batch, int heads,
   }
   attention_fwd_mma<D, DEFER><<<dim3(cdiv(n, MMA_BM), heads, batch),
                                 MMA_THREADS, smem, s>>>(q, k, v, o, n, scale,
-                                                        pow2);
+                                                        pow2, bias);
   return static_cast<int>(cudaGetLastError());
 }
 

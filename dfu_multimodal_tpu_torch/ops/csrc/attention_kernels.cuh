@@ -839,11 +839,11 @@ int bhnd_bwd(const void* q, const void* k, const void* v, const void* dout,
 // output (TO = float, vit_block_q8.cu): the tensor-core forward with the
 // softmax division deferred past P·V (attention_fwd_mma.cuh, DEFER), qkv
 // (batch, n, 3·heads·d) -> attn (batch, n, heads·d), d in {16, 32, 64,
-// 128}.
+// 128}; bias: ToMe's fp32 (batch, n) key bias, or nullptr.
 template <typename T, typename TO = T>
 int qkv_fwd_deferred(const void* qkv_, void* attn_, int batch, int n,
                      int heads, int d, float scale, int pow2,
-                     cudaStream_t s) {
+                     const float* bias, cudaStream_t s) {
   static_assert(std::is_same_v<T, bf16>, "the tensor-core forward is bf16");
   const T* qkv = static_cast<const T*>(qkv_);
   const int c = heads * d;
@@ -852,18 +852,14 @@ int qkv_fwd_deferred(const void* qkv_, void* attn_, int batch, int n,
                          v = packed(qkv, 2, n, heads, d, 3 * c);
   const Strided<TO> o = packed(static_cast<TO*>(attn_), 0, n, heads, d, c);
   switch (d) {
-    case 16: return launch_attention_fwd_mma<16, true>(q, k, v, o, batch,
-                                                       heads, n, scale, pow2,
-                                                       s);
-    case 32: return launch_attention_fwd_mma<32, true>(q, k, v, o, batch,
-                                                       heads, n, scale, pow2,
-                                                       s);
-    case 64: return launch_attention_fwd_mma<64, true>(q, k, v, o, batch,
-                                                       heads, n, scale, pow2,
-                                                       s);
-    case 128: return launch_attention_fwd_mma<128, true>(q, k, v, o, batch,
-                                                         heads, n, scale,
-                                                         pow2, s);
+    case 16: return launch_attention_fwd_mma<16, true>(
+        q, k, v, o, batch, heads, n, scale, pow2, s, bias);
+    case 32: return launch_attention_fwd_mma<32, true>(
+        q, k, v, o, batch, heads, n, scale, pow2, s, bias);
+    case 64: return launch_attention_fwd_mma<64, true>(
+        q, k, v, o, batch, heads, n, scale, pow2, s, bias);
+    case 128: return launch_attention_fwd_mma<128, true>(
+        q, k, v, o, batch, heads, n, scale, pow2, s, bias);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -269,23 +269,25 @@ int dfu_tensor_map_encode_ns(const void* base, int rows, int cols, int iters,
 }
 
 // qkv (batch, n, 3·heads·d) -> out (batch, n, heads·d); d in {16,32,64,128}.
-// bf16 runs the tensor-core forward with K1's deferred division
-// (attention_fwd_mma.cuh; 16-byte-aligned qkv and out), fp32 the SIMT
-// core of attention_core.cuh.
+// bias: ToMe's fp32 (batch, n) key bias (proportional attention), added to
+// every query's score of each key, or null.  bf16 runs the tensor-core
+// forward with K1's deferred division (attention_fwd_mma.cuh;
+// 16-byte-aligned qkv and out), fp32 the SIMT core of attention_core.cuh.
 int dfu_attention(int device, int dtype, const void* qkv, void* out,
                   int batch, int n, int heads, int d, float scale,
-                  void* stream) {
+                  const void* bias, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* kb = static_cast<const float*>(bias);
   if (dtype == DT_BF16) {
     int e2 = 0;     // q is scaled in bf16 when the scale is a power of two
     const int pow2 = frexpf(scale, &e2) == 0.5f;
     return qkv_fwd_deferred<bf16>(qkv, out, batch, n, heads, d, scale, pow2,
-                                  s);
+                                  kb, s);
   }
   return dispatch_attention<float, float>(d, qkv, out, batch, n, heads,
-                                         scale, s);
+                                         scale, kb, s);
 }
 
 }  // extern "C"

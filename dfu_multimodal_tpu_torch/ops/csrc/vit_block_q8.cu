@@ -297,23 +297,24 @@ int dfu_q8_gemm_width(int device, int epi, int m, int n, int k, int group,
 }
 
 // qkv (batch, n, 3·heads·d) in the compute dtype -> out (batch, n,
-// heads·d) fp32; d in {16, 32, 64, 128}.  bf16: the tensor-core forward
-// with the deferred division (attention_kernels.cuh::qkv_fwd_deferred);
-// fp32: the SIMT core.
+// heads·d) fp32; d in {16, 32, 64, 128}; bias: ToMe's fp32 (batch, n) key
+// bias, or null.  bf16: the tensor-core forward with the deferred division
+// (attention_kernels.cuh::qkv_fwd_deferred); fp32: the SIMT core.
 int dfu_q8_attention(int device, int dtype, const void* qkv, void* out,
                      int batch, int n, int heads, int d, float scale,
-                     void* stream) {
+                     const void* bias, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* kb = static_cast<const float*>(bias);
   if (dtype == DT_BF16) {
     int e2 = 0;     // q is scaled in bf16 when the scale is a power of two
     const int pow2 = frexpf(scale, &e2) == 0.5f;
     return qkv_fwd_deferred<bf16, float>(qkv, out, batch, n, heads, d, scale,
-                                         pow2, s);
+                                         pow2, kb, s);
   }
   return dispatch_attention<float, float>(d, qkv, out, batch, n, heads, scale,
-                                          s);
+                                          kb, s);
 }
 
 }  // extern "C"

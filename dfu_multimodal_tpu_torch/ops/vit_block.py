@@ -48,9 +48,13 @@ kernel does.
 
 GELU is exact erf on both paths (the Pallas kernels use a logistic
 approximation only because Mosaic cannot lower erf), so the backward uses
-the exact dGELU Φ(x) + x·φ(x).  The ToMe key ``bias`` is not ported
-(``bias`` raises ``NotImplementedError``).  Plain versions accumulate in
-fp32, or in fp64 for fp64 inputs (``torch.autograd.gradcheck``).
+the exact dGELU Φ(x) + x·φ(x).  ``attn_block``'s optional ``bias`` is
+ToMe's per-key score bias (proportional attention: log token sizes,
+``ops/token_merge.py``), a (B, N) fp32 operand of the same kernels; the
+biased block is inference-only, as in JAX, where the biased call bypasses
+the custom VJP (:class:`AttnBlock` raises if a gradient is asked through
+it).  Plain versions accumulate in fp32, or in fp64 for fp64 inputs
+(``torch.autograd.gradcheck``).
 """
 
 from __future__ import annotations
@@ -86,7 +90,7 @@ _SIGNATURES = {
     "dfu_gemm": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dfu_gemm_sm90": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dfu_gemm_sm90_width": [_I, _I, _I, _I, _I, _P],
-    "dfu_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _P],
+    "dfu_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "dfu_mlp_block_bwd_gemms": [_I] + [_P] * 8 + [_I, _I, _I, _P],
     "dfu_tensor_map_encode_ns": [_P, _I, _I, _I, _P],
 }
@@ -149,9 +153,8 @@ def _ln_bwd_ref(x, resid, dy, gamma):
 def attn_block_ref(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads: int,
                    bias=None):
     """Plain version of :func:`attn_block` (mirrors the JAX
-    ``_attn_block_ref``: softmax normalised before P·V)."""
-    if bias is not None:
-        raise NotImplementedError("the ToMe key bias is not ported yet")
+    ``_attn_block_ref``: softmax normalised before P·V; ``bias`` (B, N)
+    added to the scaled scores of each key)."""
     b, n, c = x.shape
     d = c // num_heads
     y = _layernorm_f32(x, g1, b1).to(x.dtype)
@@ -159,6 +162,8 @@ def attn_block_ref(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads: int,
     qkv = qkv.reshape(b, n, 3, num_heads, d)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     logits = _mm_f32(q.to(_acc(x)) * d ** -0.5, k.transpose(-1, -2))
+    if bias is not None:
+        logits = logits + bias.to(logits.dtype)[:, None, None, :]
     p = torch.softmax(logits, dim=-1)
     attn = _mm_f32(p.to(x.dtype), v)
     attn = attn.transpose(1, 2).reshape(b, n, c).to(x.dtype)
@@ -167,18 +172,19 @@ def attn_block_ref(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads: int,
 
 
 def _attn_block_tiled_ref(x, g1, b1, wqkv, bqkv, wproj, bproj,
-                          num_heads: int):
+                          num_heads: int, bias=None):
     """The bf16 K1 kernels' algorithm in plain PyTorch, for the tests (the
     kernels run only on the card): :func:`attn_block_ref`'s LayerNorm and
     products around the tile walk of the attention step,
     ``attention._attend_two_pass(defer=True)`` (csrc/attention_fwd_mma.cuh
     with DEFER: 64-key tiles, pass 1 the row max, pass 2 e = exp(S − max),
     its uncast fp32 sum and bf16(e)·V, then O / sum), which is the Pallas
-    kernel's deferred division (``_attention_head``)."""
+    kernel's deferred division (``_attention_head``); ``bias`` as
+    :func:`attn_block`'s."""
     y = _layernorm_f32(x, g1, b1).to(x.dtype)
     qkv = (_mm_f32(y, wqkv) + bqkv.to(_acc(x))).to(x.dtype)
     attn = _merge_heads(_attend_two_pass(*_unpack(qkv, num_heads),
-                                         defer=True), x.dtype)
+                                         defer=True, bias=bias), x.dtype)
     o = (_mm_f32(attn, wproj) + bproj.to(_acc(x))).to(x.dtype)
     return x + o
 
@@ -290,11 +296,13 @@ def attn_block(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
     bf16 runs LN1, qkv and proj on the TMA + wgmma GEMM, and attention on
     the tensor cores with the deferred division (its tile walk:
     :func:`_attn_block_tiled_ref`); it needs C a multiple of 8 and
-    16-byte-aligned x, wqkv, wproj (ValueError otherwise)."""
-    if bias is not None:
-        raise NotImplementedError("the ToMe key bias is not ported yet")
+    16-byte-aligned x, wqkv, wproj (ValueError otherwise).  ``bias``:
+    ToMe's per-key score bias (B, N), cast to fp32 as JAX casts it, added
+    to the scaled scores inside the same attention kernel (a call with
+    one also counts in ``attn_block.bias_launches``).  Inference only."""
     if x.device.type == "cpu":
-        return attn_block_ref(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads)
+        return attn_block_ref(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads,
+                              bias)
     _build.check_cuda_operands(
         "attn_block", x, {"x": x, "wqkv": wqkv, "wproj": wproj},
         {"g1": g1, "b1": b1, "bqkv": bqkv, "bproj": bproj})
@@ -312,6 +320,7 @@ def attn_block(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
     if x.dtype == torch.bfloat16:
         _check_tma_operands("attn_block", c, 3 * c, x=x, wqkv=wqkv,
                             wproj=wproj)
+    bias = _key_bias("attn_block", x, bias)
     lib, rows = _lib(), bsz * n
     y = torch.empty_like(x)
     qkv = torch.empty((bsz, n, 3 * c), dtype=x.dtype, device=x.device)
@@ -323,11 +332,25 @@ def attn_block(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
     _build.check(lib, lib.dfu_attention(
         x.device.index, _build.DTYPE_CODES[x.dtype], qkv.data_ptr(),
         attn.data_ptr(), bsz, n, num_heads, d, d ** -0.5,
+        None if bias is None else bias.data_ptr(),
         _build.stream_of(x)), "attn_block attention")
     _launch_gemm(lib, _EPI_BIAS_RESID, False, attn, wproj, bproj, x, out,
                  rows, c, c, "attn_block proj")
     attn_block.launches += 1
+    attn_block.bias_launches += bias is not None
     return out
+
+
+def _key_bias(name, x, bias):
+    """ToMe's key bias as the attention kernels take it: (B, N) fp32,
+    contiguous, on x's device (JAX casts it to fp32 likewise); None stays
+    None.  Raises ValueError for another shape or device."""
+    if bias is None:
+        return None
+    if bias.shape != x.shape[:2] or bias.device != x.device:
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} on {bias.device}"
+                         f", want {tuple(x.shape[:2])} on {x.device}")
+    return bias.to(torch.float32).contiguous()
 
 
 def _check_mlp(name, x, g2, b2, w1, b1, w2, extra=None):
@@ -424,6 +447,7 @@ def mlp_block_bwd(x: torch.Tensor, g: torch.Tensor, g2: torch.Tensor,
 
 # launch counts: one per call that ran the kernels (CPU calls do not count)
 attn_block.launches = 0
+attn_block.bias_launches = 0        # those of them with ToMe's key bias
 mlp_block.launches = 0
 mlp_block_bwd.launches = 0
 
@@ -539,22 +563,32 @@ def attn_block_bwd(x: torch.Tensor, g: torch.Tensor, g1: torch.Tensor,
 class AttnBlock(torch.autograd.Function):
     """Trainable :func:`attn_block` (the JAX custom VJP): forward K1,
     saving only the block inputs; backward :func:`attn_block_bwd`.
-    ``apply(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads)``."""
+    ``apply(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads[, bias])``: with
+    ToMe's key bias the block is inference-only (JAX's biased call has no
+    VJP), and a gradient asked through it raises RuntimeError."""
 
     @staticmethod
-    def forward(ctx, x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads):
+    def forward(ctx, x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads,
+                bias=None):
         ctx.num_heads = num_heads
+        ctx.biased = bias is not None
         ctx.save_for_backward(x, g1, b1, wqkv, bqkv, wproj)
-        return attn_block(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads)
+        return attn_block(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads,
+                          bias)
 
     @staticmethod
     def backward(ctx, g):
         if not any(ctx.needs_input_grad):
-            return (None,) * 8
+            return (None,) * 9
+        if ctx.biased:
+            raise RuntimeError(
+                "attn_block with ToMe's key bias is inference-only: it "
+                "has no backward (token merging serves, it does not "
+                "train)")
         x, g1, b1, wqkv, bqkv, wproj = ctx.saved_tensors
         grads = attn_block_bwd(x, g.contiguous(), g1, b1, wqkv, bqkv, wproj,
                                ctx.num_heads, ctx.needs_input_grad[:7])
-        return grads + (None,)
+        return grads + (None, None)
 
 
 class MlpBlock(torch.autograd.Function):

@@ -42,8 +42,10 @@ plain versions compute each int8 product exactly in floating
 point: in fp32 on the CPU when every partial sum stays below 2²⁴
 (K·127² < 2²⁴, so K <= 1040: C and the 768 chunks of ViT-B/16), in fp64
 otherwise and on the card (where a TF32 setting could otherwise round an
-fp32 product).  The ToMe key ``bias`` is not ported (``bias`` raises
-``NotImplementedError``).
+fp32 product).  The attention blocks' optional ``bias`` is ToMe's
+per-key score bias (B, N) (proportional attention), added to the scaled
+scores inside the same attention kernel, as ``ops.vit_block.attn_block``
+takes it.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ import torch.nn.functional as F
 from dfu_multimodal_tpu_torch.ops import _build
 from dfu_multimodal_tpu_torch.ops.attention import _is_pow2
 from dfu_multimodal_tpu_torch.ops.vit_block import (LN_EPS, _HEAD_DIMS,
+                                                   _key_bias,
                                                    _layernorm_f32)
 
 Q_MAX = 127.0
@@ -71,17 +74,12 @@ _SIGNATURES = {
     "dfu_q8_gemm": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                     _I, _I, _P],
     "dfu_q8_gemm_width": [_I, _I, _I, _I, _I, _I, _P],
-    "dfu_q8_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _P],
+    "dfu_q8_attention": [_I, _I, _P, _P, _I, _I, _I, _I, _F, _P, _P],
 }
 
 
 def _lib():
     return _build.load("vit_block_q8", _SIGNATURES)
-
-
-def _no_bias(bias) -> None:
-    if bias is not None:
-        raise NotImplementedError("the ToMe key bias is not ported yet")
 
 
 # ------------------------------------------------------- plain versions
@@ -157,12 +155,14 @@ def gemm_q8_ref(epi: int, a_q: torch.Tensor, w_q8: torch.Tensor,
     return static_quant(F.gelu(v), inv[0])
 
 
-def _attention_f32(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+def _attention_f32(qkv: torch.Tensor, num_heads: int,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, N, 3C) packed qkv in the compute dtype -> (B, N, C) fp32: the
     TPU kernel's ``_attention_head`` per head (q pre-scaled in the compute
-    dtype when d**-0.5 is a power of two, fp32 scores and softmax
-    statistics, the un-normalised exp matrix rounded to the compute dtype
-    for e·V, the division by the fp32 row sum after it)."""
+    dtype when d**-0.5 is a power of two, fp32 scores plus the (B, N) key
+    ``bias`` and fp32 softmax statistics, the un-normalised exp matrix
+    rounded to the compute dtype for e·V, the division by the fp32 row
+    sum after it)."""
     b, n, c3 = qkv.shape
     c = c3 // 3
     d = c // num_heads
@@ -173,6 +173,8 @@ def _attention_f32(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         s = torch.matmul((q * scale).float(), kt)
     else:
         s = torch.matmul(q.float(), kt) * scale
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
     e = torch.exp(s - s.amax(-1, keepdim=True))
     o = torch.matmul(e.to(qkv.dtype).float(), v.float())
     o = o / e.sum(-1, keepdim=True)
@@ -180,7 +182,7 @@ def _attention_f32(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def _attn_ref(x, g1, b1, wqkv_q8, sqkv, bqkv, wproj_q8, sproj, bproj,
-              num_heads, inv_scales):
+              num_heads, inv_scales, bias=None):
     b, n, c = x.shape
     y = _layernorm_f32(x.reshape(-1, c), g1, b1)
     if inv_scales is None:
@@ -188,7 +190,8 @@ def _attn_ref(x, g1, b1, wqkv_q8, sqkv, bqkv, wproj_q8, sproj, bproj,
         qkv = _int_mm(y_q, wqkv_q8) * a * sqkv + bqkv
     else:
         qkv = _int_mm(static_quant(y, inv_scales[0]), wqkv_q8) * sqkv + bqkv
-    attn = _attention_f32(qkv.to(x.dtype).reshape(b, n, 3 * c), num_heads)
+    attn = _attention_f32(qkv.to(x.dtype).reshape(b, n, 3 * c), num_heads,
+                          bias)
     attn = attn.reshape(-1, c)
     if inv_scales is None:
         attn_q, a2 = row_quant(attn)
@@ -226,9 +229,8 @@ def _mlp_ref(x, g2, b2, w1_q8, s1, b1, w2_q8, s2, b2b, hidden_chunks,
 def attn_block_q8_ref(x, g1, b1, wqkv_q8, sqkv, bqkv, wproj_q8, sproj,
                       bproj, num_heads: int, bias=None):
     """Plain version of :func:`attn_block_q8` (the TPU kernel's numerics)."""
-    _no_bias(bias)
     return _attn_ref(x, g1, b1, wqkv_q8, sqkv, bqkv, wproj_q8, sproj, bproj,
-                     num_heads, None)
+                     num_heads, None, bias)
 
 
 def mlp_block_q8_ref(x, g2, b2, w1_q8, s1, b1, w2_q8, s2, b2b,
@@ -242,9 +244,8 @@ def attn_block_q8s_ref(x, g1, b1, wqkv_q8, sqkv_eff, bqkv, wproj_q8,
                        sproj_eff, bproj, inv_scales, num_heads: int,
                        bias=None):
     """Plain version of :func:`attn_block_q8s`."""
-    _no_bias(bias)
     return _attn_ref(x, g1, b1, wqkv_q8, sqkv_eff, bqkv, wproj_q8, sproj_eff,
-                     bproj, num_heads, inv_scales)
+                     bproj, num_heads, inv_scales, bias)
 
 
 def mlp_block_q8s_ref(x, g2, b2, w1_q8, s1_eff, b1, w2_q8, s2_eff, b2b,
@@ -322,7 +323,7 @@ def _kmajor(kmajor, w_in, w_out):
 
 
 def _attn_cuda(name, x, g1, b1, wqkv, sqkv, bqkv, wproj, sproj, bproj,
-               num_heads, inv_scales, kmajor):
+               num_heads, inv_scales, kmajor, bias):
     vectors = {"g1": g1, "b1": b1, "sqkv": sqkv, "bqkv": bqkv,
                "sproj": sproj, "bproj": bproj}
     if inv_scales is not None:
@@ -342,6 +343,7 @@ def _attn_cuda(name, x, g1, b1, wqkv, sqkv, bqkv, wproj, sproj, bproj,
         "wqkv_q8": (c, 3 * c), "wproj_q8": (c, c), "wqkv_t": (3 * c, c),
         "wproj_t": (c, c), "g1": (c,), "b1": (c,), "sqkv": (3 * c,),
         "bqkv": (3 * c,), "sproj": (c,), "bproj": (c,), "inv_scales": (2,)})
+    bias = _key_bias(name, x, bias)
     lib, rows, dev = _lib(), bsz * n, x.device
     y_q, a = _ln_quant(lib, x, g1, b1, rows, c, _ptr(inv_scales, 0),
                        f"{name} LayerNorm")
@@ -352,6 +354,7 @@ def _attn_cuda(name, x, g1, b1, wqkv, sqkv, bqkv, wproj, sproj, bproj,
     _build.check(lib, lib.dfu_q8_attention(
         dev.index, _build.DTYPE_CODES[x.dtype], qkv.data_ptr(),
         attn.data_ptr(), bsz, n, num_heads, d, d ** -0.5,
+        None if bias is None else bias.data_ptr(),
         _build.stream_of(x)), f"{name} attention")
     attn_q, a2 = _quant_rows(lib, attn, 1, _ptr(inv_scales, 1),
                              f"{name} quantise attention")
@@ -416,14 +419,16 @@ def attn_block_q8(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
     per-row activation scales.  x (B, N, C); wqkv_q8 (C, 3C) and wproj_q8
     (C, C) int8 from :func:`quantize_weight`; their scales, the biases and
     g1, b1 fp32.  ``kmajor``: (wqkv_q8ᵀ, wproj_q8ᵀ) contiguous, read by the
-    card's products (made per call when None; ignored on the CPU)."""
-    _no_bias(bias)
+    card's products (made per call when None; ignored on the CPU).
+    ``bias``: ToMe's (B, N) key bias, as ``ops.vit_block.attn_block``'s (a
+    call with one also counts in ``attn_block_q8.bias_launches``)."""
     if x.device.type == "cpu":
         return attn_block_q8_ref(x, g1, b1, wqkv_q8, sqkv, bqkv, wproj_q8,
-                                 sproj, bproj, num_heads)
+                                 sproj, bproj, num_heads, bias)
     out = _attn_cuda("attn_block_q8", x, g1, b1, wqkv_q8, sqkv, bqkv,
-                     wproj_q8, sproj, bproj, num_heads, None, kmajor)
+                     wproj_q8, sproj, bproj, num_heads, None, kmajor, bias)
     attn_block_q8.launches += 1
+    attn_block_q8.bias_launches += bias is not None
     return out
 
 
@@ -454,16 +459,16 @@ def attn_block_q8s(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
     """Static-scale int8 attention block.  ``sqkv_eff`` / ``sproj_eff`` are
     the per-channel weight scales pre-multiplied by the calibrated input
     act scales; ``inv_scales`` (2,) fp32 = [1/s_ln1_out, 1/s_attn_out];
-    ``kmajor`` as :func:`attn_block_q8`'s."""
-    _no_bias(bias)
+    ``kmajor`` and ``bias`` as :func:`attn_block_q8`'s."""
     if x.device.type == "cpu":
         return attn_block_q8s_ref(x, g1, b1, wqkv_q8, sqkv_eff, bqkv,
                                   wproj_q8, sproj_eff, bproj, inv_scales,
-                                  num_heads)
+                                  num_heads, bias)
     out = _attn_cuda("attn_block_q8s", x, g1, b1, wqkv_q8, sqkv_eff, bqkv,
                      wproj_q8, sproj_eff, bproj, num_heads, inv_scales,
-                     kmajor)
+                     kmajor, bias)
     attn_block_q8s.launches += 1
+    attn_block_q8s.bias_launches += bias is not None
     return out
 
 
@@ -487,6 +492,8 @@ def mlp_block_q8s(x: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
 
 # launch counts: one per call that ran the kernels (CPU calls do not count)
 attn_block_q8.launches = 0
+attn_block_q8.bias_launches = 0     # those of them with ToMe's key bias
 mlp_block_q8.launches = 0
 attn_block_q8s.launches = 0
+attn_block_q8s.bias_launches = 0
 mlp_block_q8s.launches = 0

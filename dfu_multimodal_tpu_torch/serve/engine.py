@@ -34,8 +34,9 @@
 One device, so no mesh padding.  :func:`quantize_for_serving` rebuilds a
 trainer around the int8 serving paths: the fused int8 ViT blocks
 (``ops/vit_block_q8.py``) and the calibrated int8 ResNet trunk
-(``models/resnet_q8.py`` on ``ops/conv_q8.py``).  Not ported yet: the
-ToMe rebuild (``ops/token_merge.py``), exported bundles
+(``models/resnet_q8.py`` on ``ops/conv_q8.py``); :func:`tome_for_serving`
+around the token-merged ViT (``ops/token_merge.py``, ``models/vit.py``
+``token_merge``), after it or alone.  Not ported yet: exported bundles
 (``serve/export.py``) and the int8 ResNet-18 students, whose flags the
 serve and predict CLIs refuse with the module named.
 """
@@ -125,6 +126,42 @@ def quantize_for_serving(trainer: Trainer, image_size: int = 224,
                           **impls})
     qtrainer.module.load_state_dict(state, strict=True)
     return qtrainer
+
+
+def parse_token_merge(spec: str) -> Tuple[int, int]:
+    """Parse a CLI ``--token-merge`` value 'L:K' -> (merge_at, keep): the
+    one definition of that flag's format, shared by the serve and predict
+    CLIs (both feed :func:`tome_for_serving`)."""
+    try:
+        merge_at, keep = (int(v) for v in spec.split(":"))
+    except ValueError:
+        raise SystemExit("--token-merge expects L:K (e.g. 4:128)")
+    return merge_at, keep
+
+
+def tome_for_serving(trainer: Trainer, merge_at: int, keep: int,
+                     image_size: int = 224,
+                     prop_attn: bool = False) -> Trainer:
+    """Rebuild a restored trainer around the token-merged ViT serving path
+    (JAX ``serve/engine.py::tome_for_serving``): a new ``Trainer`` on the
+    same device whose ViT runs blocks [0, merge_at) on all tokens, one
+    bipartite merge down to ``keep`` tokens, and the rest on ``keep``
+    (``models/vit.py`` ``token_merge``); with ``prop_attn`` those blocks
+    bias each key's scores by log(token size) (ToMe's proportional
+    attention).  Inference only.  It keeps the source's model arguments,
+    so it composes after :func:`quantize_for_serving` with the int8 block
+    impls kept.  The blocks keep their keys, so the source's state_dict
+    loads as it is (JAX splits its scanned stack here); the source's
+    weights are left as they are."""
+    kwargs = {k: v for k, v in trainer.model_kwargs.items()
+              if k not in ("token_merge", "tome_prop_attn")}
+    ttrainer = Trainer(trainer.spec.name, trainer.cfg, trainer.modalities,
+                       device=trainer.device,
+                       **{**kwargs, "image_size": image_size},
+                       token_merge=(merge_at, keep),
+                       tome_prop_attn=prop_attn)
+    ttrainer.module.load_state_dict(trainer.variables(), strict=True)
+    return ttrainer
 
 
 class EngineOverloaded(RuntimeError):

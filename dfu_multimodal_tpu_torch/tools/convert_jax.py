@@ -7,7 +7,11 @@ checkpoint restore produce them) and returns the port model's
 ``state_dict``:
 
 - the scanned ViT ``encoder`` leaves (depth, ...) are un-stacked into
-  ``blocks.{i}``;
+  ``blocks.{i}``; a token-merge tree (``models/vit.py::
+  split_encoder_variables``: ``encoder`` [:merge_at] and ``encoder2``
+  [merge_at:]) is joined along depth, since the port's token-merged ViT
+  keeps the plain model's keys (:func:`vit_params` writes either tree
+  back, float or int8);
 - conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in);
 - an int8 dense (``models/vit.py::quantize_variables`` trees) keeps its
   ``kernel_q8`` int8 (in, out) as it is, beside its ``scale`` and
@@ -195,10 +199,12 @@ def vit_state_dict(params: Mapping, prefix: str = "") -> StateDict:
         kernel.reshape(patch, patch, 3, -1).transpose(3, 2, 0, 1))
     out[f"{prefix}patch_embed.proj.bias"] = _t(params["patch_embed"]["bias"])
 
-    enc = params["encoder"]                        # scanned (depth, ...) stack
-    depth = enc["norm1"]["scale"].shape[0]
-    for i in range(depth):
-        blk = _index_tree(enc, i)
+    # the scanned (depth, ...) stack, or a token-merge tree's two stacks
+    blocks = [_index_tree(enc, i)
+              for enc in (params[s] for s in ("encoder", "encoder2")
+                          if s in params)
+              for i in range(enc["norm1"]["scale"].shape[0])]
+    for i, blk in enumerate(blocks):
         base = f"{prefix}blocks.{i}"
         for norm in ("norm1", "norm2"):
             out[f"{base}.{norm}.weight"] = _t(blk[norm]["scale"])
@@ -218,6 +224,68 @@ def vit_state_dict(params: Mapping, prefix: str = "") -> StateDict:
 def _index_tree(tree: Mapping, i: int) -> Dict[str, Any]:
     return {k: (_index_tree(v, i) if isinstance(v, Mapping) else v[i])
             for k, v in tree.items()}
+
+
+def _stack_trees(trees) -> Dict[str, Any]:
+    return {k: (_stack_trees([t[k] for t in trees])
+                if isinstance(trees[0][k], Mapping)
+                else np.stack([t[k] for t in trees]))
+            for k in trees[0]}
+
+
+def _vit_dense_params(sub: Mapping[str, torch.Tensor], key: str) -> Dict:
+    if f"{key}.kernel_q8" in sub:
+        return {"kernel_q8": sub[f"{key}.kernel_q8"].numpy(),
+                "scale": _f32(sub[f"{key}.scale"]),
+                "bias": _f32(sub[f"{key}.bias"])}
+    return {"kernel": _f32(sub[f"{key}.weight"]).T.copy(),
+            "bias": _f32(sub[f"{key}.bias"])}
+
+
+def vit_params(state_dict: Mapping[str, torch.Tensor], prefix: str = "",
+               merge_at: Optional[int] = None) -> Dict[str, Any]:
+    """The inverse of :func:`vit_state_dict`: the port's ViT trunk keys
+    under ``prefix`` (fp32, or int8 from ``quantize_variables``) -> a JAX
+    ViT trunk param tree of numpy arrays, the blocks stacked as the
+    scanned ``encoder`` (depth, ...), or with ``merge_at`` split as
+    ``split_encoder_variables`` splits it: ``encoder`` [:merge_at] and
+    ``encoder2`` [merge_at:], the tree of a ``token_merge`` model."""
+    sub = {k[len(prefix):]: v.detach().cpu() for k, v in state_dict.items()
+           if k.startswith(prefix)}
+    weight = _f32(sub["patch_embed.proj.weight"])          # (O, C, P, P)
+    tree: Dict[str, Any] = {
+        "cls_token": _f32(sub["cls_token"]),
+        "pos_embed": _f32(sub["pos_embed"]),
+        "patch_embed": {
+            "kernel": weight.transpose(2, 3, 1, 0).reshape(
+                -1, weight.shape[0]).copy(),
+            "bias": _f32(sub["patch_embed.proj.bias"])},
+        "norm": {"scale": _f32(sub["norm.weight"]),
+                 "bias": _f32(sub["norm.bias"])}}
+    ids = sorted({int(k.split(".")[1]) for k in sub
+                  if k.startswith("blocks.")})
+    blocks = []
+    for i in ids:
+        base = f"blocks.{i}"
+        blk = {norm: {"scale": _f32(sub[f"{base}.{norm}.weight"]),
+                      "bias": _f32(sub[f"{base}.{norm}.bias"])}
+               for norm in ("norm1", "norm2")}
+        blk["attn"] = {d: _vit_dense_params(sub, f"{base}.attn.{d}")
+                       for d in ("qkv", "proj")}
+        for ours, theirs in (("mlp.fc1", "mlp_fc1"), ("mlp.fc2", "mlp_fc2")):
+            blk[theirs] = _vit_dense_params(sub, f"{base}.{ours}")
+        if f"{base}.act_scales" in sub:
+            blk["act_scales"] = _f32(sub[f"{base}.act_scales"])
+        blocks.append(blk)
+    if merge_at is None:
+        tree["encoder"] = _stack_trees(blocks)
+    else:
+        if not 0 < merge_at < len(blocks):
+            raise ValueError(f"merge_at={merge_at} outside "
+                             f"(0, {len(blocks)})")
+        tree["encoder"] = _stack_trees(blocks[:merge_at])
+        tree["encoder2"] = _stack_trees(blocks[merge_at:])
+    return tree
 
 
 def variables_to_state_dict(model_name: str,

@@ -180,7 +180,9 @@ class Trainer:
     from a checkpoint, or draw them with ``models.zoo.init_model``.  Extra
     keyword arguments go to the model class (e.g. ``depth`` for a cut-down
     trunk, ``block_impl`` for the ViT blocks or the ResNet bottleneck,
-    ``attention_impl`` for the flax block's attention).
+    ``attention_impl`` for the flax block's attention).  ``token_merge``
+    and ``tome_prop_attn`` select the ViT trunk's inference-only ToMe path
+    (``models/vit.py``); a model without a ViT trunk refuses them.
 
     The optimizer (and, with ``ema_decay > 0``, the EMA copy of the
     parameters) is built at the first train step, or by :meth:`fit`."""
@@ -189,7 +191,15 @@ class Trainer:
                  modalities: Dict[str, ModalityConfig], *,
                  class_weights: Optional[np.ndarray] = None,
                  device: Union[str, torch.device] = "cuda",
-                 image_size: int = 224, **model_kwargs):
+                 image_size: int = 224, token_merge=None,
+                 tome_prop_attn: bool = False, **model_kwargs):
+        if token_merge is not None:
+            if model_name not in zoo.VIT_TRUNK_MODELS:
+                raise ValueError(
+                    f"token_merge applies to ViT-trunk models "
+                    f"({sorted(zoo.VIT_TRUNK_MODELS)}), not {model_name!r}")
+            model_kwargs.update(token_merge=tuple(token_merge),
+                                tome_prop_attn=bool(tome_prop_attn))
         self.cfg = cfg
         self.device = torch.device(device)
         self.compute_dtype = canonical_dtype(cfg.compute_dtype)

@@ -650,6 +650,78 @@ def test_thermal_int8_eval_on_card_matches_cpu(block_impl):
                                ref["probs"].numpy(), rtol=0, atol=1e-2)
 
 
+# ------------------------------------------- ToMe's key bias (K1, K7, K8)
+
+# (batch, tokens, width, heads): the token-merged ViT-B/16 block at
+# --token-merge 4:128 and at the least keep at 224² (99 tokens, a partial
+# second key tile), small widths at head dims 16 and 32 (no power-of-two
+# scale), and 577 tokens (the fp32 core's tiled kernel)
+BIAS_SHAPES = [(8, 128, 768, 12), (2, 99, 768, 12), (3, 40, 64, 4),
+               (2, 33, 64, 2), (1, 577, 128, 2)]
+
+
+def _log_sizes(dev, b, n, seed):
+    """A proportional-attention bias: log of token sizes 1..8, (B, N)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(1, 9, (b, n), generator=g, device=dev).float().log()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", BIAS_SHAPES)
+def test_biased_attn_block_kernel_matches_plain(shape, dtype):
+    """K1 with the key bias against ``attn_block_ref(bias=)``, counted in
+    ``launches`` and ``bias_launches``; a zero bias gives the unbiased
+    kernel's bits."""
+    dev = _cuda()
+    b, n, c, heads = shape
+    x, ln, attn, _ = _block_args(dev, b, n, c, dtype, seed=30)
+    bias = _log_sizes(dev, b, n, seed=31)
+    before = (vb.attn_block.launches, vb.attn_block.bias_launches)
+    out = vb.attn_block(x, *ln, *attn, heads, bias=bias)
+    torch.cuda.synchronize()
+    assert (vb.attn_block.launches, vb.attn_block.bias_launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_close(out, vb.attn_block_ref(x, *ln, *attn, heads, bias=bias),
+                  TOL[dtype])
+    assert torch.equal(vb.attn_block(x, *ln, *attn, heads,
+                                     bias=torch.zeros_like(bias)),
+                       vb.attn_block(x, *ln, *attn, heads))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", BIAS_SHAPES[:4])
+@pytest.mark.parametrize("name", ["attn_block_q8", "attn_block_q8s"])
+def test_biased_q8_attn_kernel_matches_plain(name, shape, dtype):
+    dev = _cuda()
+    kernel, plain = Q8_KERNELS[name]
+    x, args = _q8_args(dev, name, shape, dtype, seed=32)
+    bias = _log_sizes(dev, shape[0], shape[1], seed=33)
+    before = kernel.bias_launches
+    out = kernel(x, *args, bias)
+    torch.cuda.synchronize()
+    assert kernel.bias_launches == before + 1
+    ref = plain(x, *args, bias)
+    scaled = (out.float() - ref.float()).abs() / (1.0 + ref.float().abs())
+    assert bool(torch.isfinite(out.float()).all())
+    assert float(scaled.max()) <= Q8_TOL, float(scaled.max())
+    assert float(scaled.mean()) <= Q8_MEAN_TOL, float(scaled.mean())
+    assert torch.equal(kernel(x, *args, torch.zeros_like(bias)),
+                       kernel(x, *args))
+
+
+def test_biased_kernels_refuse_a_bias_of_another_shape():
+    dev = _cuda()
+    x, ln, attn, _ = _block_args(dev, 2, 40, 64, torch.bfloat16, seed=34)
+    for bad in (torch.zeros(2, 41, device=dev), torch.zeros(40, device=dev),
+                torch.zeros(2, 40)):
+        with pytest.raises(ValueError, match="bias"):
+            vb.attn_block(x, *ln, *attn, 4, bias=bad)
+    x, args = _q8_args(dev, "attn_block_q8", (2, 40, 64, 4), torch.bfloat16,
+                       seed=35)
+    with pytest.raises(ValueError, match="bias"):
+        q8.attn_block_q8(x, *args, torch.zeros(2, 39, device=dev))
+
+
 # ------------------------------------------------- fused ResNet bottleneck
 
 # (batch, H=W, Cin, Cmid, Cout): ResNet-50's stage 1 projection block and

@@ -124,16 +124,25 @@ def test_fused_mlp_matches_jax(batch, oracle):
 
 
 def test_unported_options_and_devices_raise():
-    """No hidden fallback: the ToMe bias is refused, and a tensor that is
-    neither on the CPU nor on a CUDA device has no kernel."""
+    """No hidden fallback: a tensor that is neither on the CPU nor on a
+    CUDA device has no kernel, with or without ToMe's key bias; the bias
+    itself is taken and matches JAX's biased oracle (2e-5)."""
     p = _block_inputs(1, 5, 16, seed=4)
-    args = _port(p["x"], p["g"], p["beta"], p["wqkv"], p["bqkv"],
-                 p["wproj"], p["bproj"])
-    with pytest.raises(NotImplementedError):
-        port_vit_block.attn_block(*args, 2, bias=torch.zeros(1, 5))
+    arrays = (p["x"], p["g"], p["beta"], p["wqkv"], p["bqkv"], p["wproj"],
+              p["bproj"])
+    args = _port(*arrays)
+    bias = np.log(np.arange(1, 6, dtype=np.float32))[None]
+    out = port_vit_block.attn_block(*args, 2, bias=torch.from_numpy(bias))
+    ref = jax_vit_block._attn_block_ref(*map(jnp.asarray, arrays),
+                                        num_heads=2, bias=jnp.asarray(bias))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="no kernel"):
         port_vit_block.attn_block(*meta, 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        port_vit_block.attn_block(*meta, 2,
+                                  bias=torch.zeros(1, 5, device="meta"))
     with pytest.raises(ValueError, match="no kernel"):
         port_fused_mlp.fused_mlp(
             *[torch.from_numpy(a).to("meta")

@@ -180,20 +180,33 @@ def test_mlp_block_q8_matches_jax(static):
 
 
 def test_q8_ops_refuse_bias_and_unknown_devices():
-    """No hidden fallback: the ToMe bias is refused, and a tensor that is
-    neither on the CPU nor on a CUDA device has no kernel."""
+    """No hidden fallback: a tensor that is neither on the CPU nor on a
+    CUDA device has no kernel; ToMe's key bias, once refused, is taken by
+    both attention blocks and matches JAX's (interpret) within the
+    attention blocks' 1e-3."""
     x, (g, b), (wqkv, sqkv, bqkv), (wproj, sproj, bproj), (w1, s1, b1), \
         (w2, s2, b2) = _block_inputs(seed=5)
-    attn = [_t(a) for a in (x, g, b, wqkv, sqkv, bqkv, wproj, sproj, bproj)]
+    arrays = (x, g, b, wqkv, sqkv, bqkv, wproj, sproj, bproj)
+    attn = [_t(a) for a in arrays]
     mlp = [_t(a) for a in (x, g, b, w1, s1, b1, w2, s2, b2)]
     inv = _t(np.float32(1.0) / ACT)
-    with pytest.raises(NotImplementedError):
-        port_q8.attn_block_q8(*attn, HEADS, bias=torch.zeros(B, N))
-    with pytest.raises(NotImplementedError):
-        port_q8.attn_block_q8s(*attn, inv, HEADS, bias=torch.zeros(B, N))
+    bias = np.log(np.random.default_rng(5).integers(1, 6, (B, N))).astype(
+        np.float32)
+    jargs, jbias = [jnp.asarray(a) for a in arrays], jnp.asarray(bias)
+    _close("attn_block_q8 with the key bias vs JAX, |d|/(1+|ref|)",
+           port_q8.attn_block_q8(*attn, HEADS, bias=_t(bias)).numpy(),
+           jax_q8.attn_block_q8(*jargs, num_heads=HEADS, interpret=True,
+                                bias=jbias), 1e-3)
+    _close("attn_block_q8s with the key bias vs JAX, |d|/(1+|ref|)",
+           port_q8.attn_block_q8s(*attn, inv, HEADS, bias=_t(bias)).numpy(),
+           jax_q8.attn_block_q8s(*jargs, jnp.asarray(inv), num_heads=HEADS,
+                                 interpret=True, bias=jbias), 1e-3)
     meta = [a.to("meta") for a in attn]
     with pytest.raises(ValueError, match="no kernel"):
         port_q8.attn_block_q8(*meta, HEADS)
+    with pytest.raises(ValueError, match="no kernel"):
+        port_q8.attn_block_q8s(*meta, inv.to("meta"), HEADS,
+                               bias=torch.zeros(B, N, device="meta"))
     with pytest.raises(ValueError, match="no kernel"):
         port_q8.mlp_block_q8s(*[a.to("meta") for a in mlp], inv.to("meta"))
     assert (port_q8.attn_block_q8.launches, port_q8.mlp_block_q8.launches,

@@ -82,6 +82,9 @@ def tiny():
     port = ResNet(dtype=torch.float32, block_impl="flax", **TINY)
     port.load_state_dict(resnet_state_dict(v["params"], v["batch_stats"]),
                          strict=True)
+    # eval mode from the start: the tests serve it, and calibration leaves
+    # it there anyway (a test run alone must not see train-mode BatchNorm)
+    port.eval()
     cal = jax_resnet.ResNet(block_impl="flax", calibrate=True, **TINY)
     absmax = jax_q8.calibrate_resnet(cal, v, [jnp.asarray(x)])
     tree = jax_q8.quantize_resnet_params(

@@ -442,10 +442,32 @@ def test_http_501_and_503(pairs):
                                   ["--token-merge", "4:64"],
                                   ["--token-merge", "4:64",
                                    "--pipeline-depth", "2"]])
-def test_serve_refuses_unported_flags(flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        port_serve.build_daemon(["--checkpoint", "x", "--device", "cpu"]
-                                + flag)
+def test_serve_refuses_unported_flags(flag, checkpoints, capsys):
+    """``--exported`` waits for serve/export.py and is refused; the
+    ``--token-merge`` cases, once refused, now build the daemon, which
+    serves the two models without a ViT trunk as they are and says so
+    with the JAX daemon's line."""
+    if flag[0] == "--exported":
+        with pytest.raises(SystemExit, match="not ported"):
+            port_serve.build_daemon(["--checkpoint", "x", "--device", "cpu"]
+                                    + flag)
+        return
+    _, _, logs = checkpoints
+    server, router, args = port_serve.build_daemon(
+        ["--checkpoint-root", str(logs), "--device", "cpu", "--image-size",
+         str(SIZE), "--host", "127.0.0.1", "--port", "0", "--no-warmup",
+         "--compute-dtype", "float32"] + flag)
+    try:
+        assert args.token_merge == "4:64"
+        assert set(router.engines) == {"tiny_rgb", "tiny_thermal"}
+        out = capsys.readouterr().out
+        for ckpt, name in (("checkpoints_rgb_only", "tiny_rgb"),
+                           ("checkpoints_thermal_only", "tiny_thermal")):
+            assert (f"{ckpt}: --token-merge skipped ({name} has no ViT "
+                    "trunk)") in out
+    finally:
+        server.server_close()
+        router.stop()
 
 
 # ------------------------------------------------------------- predict
@@ -481,12 +503,25 @@ def test_predict_cli_matches_jax(checkpoints, capsys):
     assert out.count("DRIFT CHECK vs training-split baseline") == 2
 
 
-def test_predict_cli_refuses_token_merge(checkpoints):
-    _, data, logs = checkpoints
-    with pytest.raises(SystemExit, match="token_merge.py"):
-        port_predict.main(["--checkpoint", str(logs / "checkpoints_rgb_only"),
-                           "--images", str(data), "--device", "cpu",
-                           "--token-merge", "4:64"])
+def test_predict_cli_refuses_token_merge(checkpoints, capsys):
+    """``--token-merge``, once refused, now runs: on a model without a ViT
+    trunk both CLIs print the JAX skip line and give the same rows (the
+    token-merged ViT itself is held against JAX in
+    tests/test_torch_token_merge.py)."""
+    root, data, logs = checkpoints
+    argv = ["--checkpoint", str(logs / "checkpoints_rgb_only"), "--images",
+            str(data / "rgb" / "test"), "--image-size", str(SIZE),
+            "--compute-dtype", "float32", "--batch-size", "4",
+            "--token-merge", "4:64", "--tome-prop-attn"]
+    ref = jax_predict.main(argv)
+    ours = port_predict.main(argv + ["--device", "cpu"])
+    assert list(ours) == list(ref) and len(ours) == 6
+    for path, (p, d) in ours.items():
+        assert p == pytest.approx(ref[path][0], abs=1e-5)
+        assert d == ref[path][1]
+    out = capsys.readouterr().out
+    assert out.count("--token-merge skipped (tiny_rgb has no ViT trunk)") \
+        == 2
 
 
 def test_predict_cli_tta(checkpoints):
