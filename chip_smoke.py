@@ -316,6 +316,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               engine's eval step) and ``predict --int8 --token-merge
               4:128`` for thermal_only and multimodal (rows equal to
               ``tome_for_serving(quantize_for_serving(...))``'s);
+17. export  — on phase 12's checkpoints, ``cli/export_model --verify``
+              of three bundles (``serve/export.py``: one
+              ``torch.export`` program a bucket, the kernels as ``dfu::``
+              ops, the weights once): bf16 multimodal with the fused ViT
+              blocks, K3 and the fused ResNet-50 trunk (buckets 1 and 8),
+              int8 multimodal (bucket 8) and thermal_only ``--token-merge
+              4:128 --tome-prop-attn`` (bucket 8); each bundle and its
+              checkpoint behind a ServingEngine (seconds from load or
+              restore to the first answer, p50), 16 requests each
+              (predictions equal, |dP| within 1e-5, 1e-2 int8), the
+              bundle's launches a batch, its program's ``dfu::`` ops, the
+              hand-written kernels of one replayed step (profiler), and
+              no plain version called; export seconds by bucket and the
+              bundle's MB;
+18. students — ``conv_q8`` bit-equal to plain at the ResNet-18 trunk's
+              10 distinct conv shapes (fp32, bf16); ``resnet18_rgb`` and
+              ``resnet18_thermal`` at full width served in bf16 and int8
+              at b1 and b8 (p50), each against the CPU's fp32 forward,
+              the int8 one also against the CPU's plain int8 path (19
+              conv_q8 and 3 quantize_act_q8 launches a batch, none in
+              bf16), and an int8 student bundle replayed;
 then the kernels' JSON line (times, bounds, launches, the SDPA times,
 the K6/K9 forwards' device times and SDPA's, K10's and K12's chain
 times, phase 14's launches as ``explain_launches``, and the rows of
@@ -325,7 +346,9 @@ XLA conv and quantisation, their times the sums over a trunk forward and
 their launches phase 15's serving drive's; and phase 16's rows
 ``attn_block_bias``, ``attn_block_q8_bias`` and ``attn_block_q8s_bias``,
 each with ``unbiased_ms`` beside its time and its launches phase 16's
-serving drives'),
+serving drives'; phase 17's bundle replays as ``export_launches`` and
+phase 18's int8 students' b1 and b8 serving drives and bundle replay as
+``student_launches``),
 and the device JSON line last.
 
 Exits non-zero with no result line when no CUDA device is present.
@@ -5114,6 +5137,426 @@ def phase_tome_cli(dev, d: Path) -> None:
         f"{card()})")
 
 
+# --------------------------------------------------------------- phase 17
+
+EXPORT_REQUESTS = 16         # requests each bundle and its checkpoint answer
+EXPORT_GROUP = 8             # submitted together: one batch of bucket 8
+# the bundles exported from phase 12's checkpoints: tag -> (model, the
+# export CLI's flags, buckets, what one batch of bucket 8 launches, the
+# dfu:: ops of its programs, the hand-written kernels the profiler must
+# see in one replayed step, the |dP| budget against the live engine)
+EXPORTS = {
+    "bf16": ("multimodal", ["--resnet-block-impl", "fused"], "1,8",
+             {"attn_block": 12, "mlp_block": 12, "fused_mlp": 1,
+              "bottleneck": 12, "bottleneck_proj": 1},
+             {"attn_block", "mlp_block", "fused_mlp", "fused_bottleneck"},
+             {"layernorm_kernel", "gemm_kernel", "attention_fwd_mma",
+              "fused_mlp_kernel"}, 1e-5),
+    "int8": ("multimodal", ["--int8", "--calib-images", "{calib}"], "8",
+             {"attn_block_q8": 12, "mlp_block_q8": 12, "fused_mlp": 1,
+              "conv_q8": TRUNK_CONVS, "quantize_act_q8": TRUNK_QUANTS},
+             {"attn_block_q8", "mlp_block_q8", "fused_mlp", "conv_q8",
+              "quantize_act_q8"},
+             {"ln_quant_kernel", "quant_rows_kernel", "gemm_kernel",
+              "attention_fwd_mma", "im2col_q8_kernel", "fused_mlp_kernel"},
+             1e-2),
+    "tome": ("thermal_only", ["--token-merge", f"{TOME[0]}:{TOME[1]}",
+                              "--tome-prop-attn"], "8",
+             {"attn_block": 12, "mlp_block": 12, "attn_block_bias": 8},
+             {"attn_block", "mlp_block"},
+             {"layernorm_kernel", "gemm_kernel", "attention_fwd_mma"}, 1e-5)}
+# the plain versions of the registered ops: none may run on the card
+PLAINS = ((vb, "attn_block_ref"), (vb, "mlp_block_ref"),
+          (fm, "fused_mlp_ref"), (at, "qkv_attention_ref"),
+          (rb, "bottleneck_ref"), (q8, "attn_block_q8_ref"),
+          (q8, "mlp_block_q8_ref"), (q8, "attn_block_q8s_ref"),
+          (q8, "mlp_block_q8s_ref"), (cq, "conv_q8_ref"),
+          (cq, "quantize_act"))
+
+
+class _PlainCalls:
+    """Count the calls of every plain version in PLAINS while active
+    (each op's CPU implementation looks its plain version up at call
+    time, so a plain version reached from an op counts too)."""
+
+    def __enter__(self):
+        self.calls, self._saved = {}, []
+        for mod, name in PLAINS:
+            real = getattr(mod, name)
+
+            def counted(*args, _real=real, _name=name, **kwargs):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _real(*args, **kwargs)
+
+            self._saved.append((mod, name, real))
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self._saved:
+            setattr(mod, name, real)
+
+
+def _launches_now() -> dict:
+    return {k: v for k, v in {**_all_launches(),
+                              **_bias_launches()}.items() if v}
+
+
+def _program_ops(path: Path) -> dict:
+    """The dfu:: ops of an exported program and how many nodes each."""
+    ops = {}
+    for node in torch.export.load(path).graph.nodes:
+        target = str(node.target)
+        if target.startswith("dfu."):
+            op = target.split(".")[1]
+            ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
+def _replayed_kernels(fn) -> dict:
+    """The device kernels one call of ``fn`` runs (profiler): each
+    kernel's name without its template arguments -> device ms."""
+    names = {}
+    for name, ms in _device_split(fn, 1).items():
+        names[name.split("<")[0]] = names.get(name.split("<")[0], 0.0) + ms
+    return names
+
+
+def _first_answer(make_engine, sample) -> tuple:
+    """(seconds from nothing to the first answer, the started engine):
+    ``make_engine`` restores or loads and builds the engine, which then
+    warms every bucket on its batcher thread and answers ``sample``."""
+    t0 = time.perf_counter()
+    engine = make_engine().start()
+    engine.submit(sample).result(timeout=300)
+    return time.perf_counter() - t0, engine
+
+
+def _answer(engine, samples) -> tuple:
+    """Every sample's (P(ulcer), prediction) from ``engine``, EXPORT_GROUP
+    at a time (one batch each), and the engine's latency p50."""
+    got = []
+    for i in range(0, len(samples), EXPORT_GROUP):
+        got += engine.predict(samples[i:i + EXPORT_GROUP])
+    return got, engine.stats()["latency_ms"]["p50"]
+
+
+def _export_one(dev, tag, d: Path) -> dict:
+    """Phase 17 for one bundle: the export CLI with --verify, then the
+    bundle and its checkpoint each behind a ServingEngine (the seconds
+    from loading to the first answer beside those from the checkpoint's
+    restore), both answering the same EXPORT_REQUESTS; returns the
+    bundle's launches."""
+    from dfu_multimodal_tpu_torch.cli import export_model
+    from dfu_multimodal_tpu_torch.cli.serve import restore_trainer
+    from dfu_multimodal_tpu_torch.data.layout import list_images
+    from dfu_multimodal_tpu_torch.data.loader import decode_all
+    from dfu_multimodal_tpu_torch.serve.export import load_bundle
+    import contextlib
+    import io
+    name, flags, buckets, want, ops, kernels, tol = EXPORTS[tag]
+    data, logs, out = d / "data", d / "logs", d / "export" / tag
+    flags = [f.format(calib=data / "rgb" / "train") for f in flags]
+    argv = ["--checkpoint", str(logs / f"checkpoints_{name}"), "--out",
+            str(out), "--image-size", str(IMAGE), "--buckets", buckets,
+            "--device", str(dev), "--verify", *flags]
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        meta = export_model.main(argv)
+    cli_s = time.perf_counter() - t0
+    mb = sum(p.stat().st_size for p in out.iterdir()) / 1e6
+    verify = [ln for ln in printed.getvalue().splitlines()
+              if ln.startswith("verify:")]
+    log(f"[export {tag}] export_model {' '.join(flags)} --buckets {buckets}"
+        f" --verify: {cli_s:.2f} s of CLI, export s by bucket "
+        + ", ".join(f"b{b} {s:.2f}" for b, s in
+                    meta["export_seconds"].items())
+        + f"; bundle {mb:.1f} MB; {verify[0] if verify else 'no verify'}")
+
+    mods = ("rgb", "thermal") if name == "multimodal" else ("thermal",)
+    images = {m: decode_all(list_images(data / m)[:EXPORT_REQUESTS], IMAGE)
+              for m in mods}
+    n = min(len(v) for v in images.values())
+    samples = [{m: images[m][i] for m in mods} for i in range(n)]
+    args = export_model.build_parser().parse_args(argv)
+    cfg = TrainConfig(batch_size=8, eval_batch_size=8,
+                      compute_dtype="bfloat16")
+    modalities = {"rgb": rgb_modality(), "thermal": thermal_modality()}
+    bucket_list = [int(b) for b in buckets.split(",")]
+    ckpt_s, live = _first_answer(lambda: ServingEngine(
+        restore_trainer(args.checkpoint, None, args, cfg, modalities,
+                        dev)[1], image_size=IMAGE, buckets=bucket_list,
+        max_wait_ms=20.0), samples[0])
+    load_s, frozen = _first_answer(lambda: ServingEngine(
+        load_bundle(out, dev), image_size=IMAGE, buckets=bucket_list,
+        max_wait_ms=20.0), samples[0])
+    try:
+        live_got, live_p50 = _answer(live, samples)
+        _reset_launches()
+        with _PlainCalls() as plain:
+            got, p50 = _answer(frozen, samples)
+            torch.cuda.synchronize()
+            launches = _launches_now()
+            batch = {m: np.stack([s[m] for s in samples[:8]]) for m in mods}
+            seen = _replayed_kernels(
+                lambda: frozen.trainer.eval_step(batch))
+        batches = sum(frozen.stats()["batch_size_hist"].values()) - 1
+    finally:
+        live.stop()
+        frozen.stop()
+    dp = max(abs(a[0] - b[0]) for a, b in zip(got, live_got))
+    same = [a[1] for a in got] == [b[1] for b in live_got]
+    per_batch = {k: v / batches for k, v in launches.items()}
+    graph = _program_ops(out / "forward_b8.pt2")
+    own = {k: round(v, 4) for k, v in seen.items() if k in kernels}
+    log(f"[export {tag}] {name}: {n} requests, bundle vs checkpoint engine "
+        f"max |dP| {dp:.2e} (tolerance {tol:g}), predictions equal {same}; "
+        f"seconds to the first answer: checkpoint restore {ckpt_s:.2f}, "
+        f"bundle load {load_s:.2f}; served p50 live {live_p50:.2f} ms, "
+        f"bundle {p50:.2f} ms; bundle launches a batch {per_batch}; "
+        f"program ops {graph}; hand-written kernels of one replayed step "
+        f"(device ms) {own}; plain versions called {plain.calls} ({card()})")
+    if (not verify or dp > tol or not same or per_batch != want
+            or set(graph) != ops or set(own) != kernels or plain.calls):
+        raise AssertionError(f"export {tag}: rows, launches, program ops, "
+                             f"kernels or a plain version")
+    return {k: v for k, v in launches.items() if k in want}
+
+
+def phase_export(dev, d: Path) -> dict:
+    """Phase 17 on phase 12's checkpoints (``d``): the EXPORTS bundles.
+    Returns their launches by kernel (the kernels line's
+    ``export_launches``)."""
+    t0 = time.perf_counter()
+    launches = {}
+    for tag in EXPORTS:
+        for k, v in _export_one(dev, tag, d).items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+    log(f"[export] in {time.perf_counter() - t0:.2f} s (host clock; "
+        f"{card()})")
+    return launches
+
+
+# --------------------------------------------------------------- phase 18
+
+STUDENTS = ("resnet18_rgb", "resnet18_thermal")
+STUDENT_PARAMS = 11_177_538
+# one int8 student forward: 16 block convs and 3 projections, and the
+# input of each of the 3 projection blocks quantised once
+STUDENT_CONVS, STUDENT_QUANTS = 19, 3
+
+
+def resnet18_conv_shapes(image: int = 224) -> list:
+    """The distinct convs of the int8 ResNet-18 trunk at ``image``², in
+    ``resnet_conv_shapes``' form and roles: a block's conv1 is "conv1"
+    (ReLU; an int8 input in a projection block), conv2 "conv3" (the
+    shortcut added, then ReLU), the projection "down" (int8 input)."""
+    h, cin, seen, out = -(-(-(-image // 2)) // 2), 64, set(), []
+    for s, width in enumerate((64, 128, 256, 512), start=1):
+        for j in range(2):
+            stride = 2 if s > 1 and j == 0 else 1
+            ho = -(-h // stride)
+            proj = stride != 1 or cin != width
+            convs = [("conv1", h, cin, width, 3, stride, "conv1"),
+                     ("conv2", ho, width, width, 3, 1, "conv3")]
+            if proj:
+                convs.append(("proj", h, cin, width, 1, stride, "down"))
+            for label, hh, ci, co, k, st, role in convs:
+                key = (hh, ci, co, k, st, role, proj and role != "conv3")
+                if key not in seen:
+                    seen.add(key)
+                    out.append((f"stage{s} block{j} {label}", key))
+            h, cin = ho, width
+    return out
+
+
+def _student_convs(dev) -> None:
+    """``conv_q8`` bit-equal to ``conv_q8_ref`` at every distinct conv of
+    the ResNet-18 student, B = 8, fp32 and bf16."""
+    cases = resnet18_conv_shapes(IMAGE)
+    shapes = {key[:5] for _, key in cases}
+    for label, (h, cin, cout, k, stride, role, int8_in) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            case = _q8_conv_case(dev, Q8_CONV_BATCH, h, cin, cout, k,
+                                 stride, role, int8_in, dtype,
+                                 seed=h + cin + cout + k)
+            out, ref = cq.conv_q8(**case), cq.conv_q8_ref(**case)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"conv_q8 {label} {dtype}: not "
+                                     "bit-equal to plain")
+    log(f"[students] conv_q8 bit-equal to plain at the ResNet-18 trunk's "
+        f"{len(shapes)} distinct conv shapes ({len(cases)} with their "
+        f"epilogue and input type), B = {Q8_CONV_BATCH}, fp32 and bf16")
+
+
+def _student_engine(trainer, samples) -> tuple:
+    """``trainer`` behind the ServingEngine at b1 and b8: the b8 drive's
+    answers, and by drive its p50 and (launches, batches) counted from a
+    reset just before it."""
+    lat, drives = {}, {}
+    for label, max_batch in (("b1", 1), ("b8", 8)):
+        with ServingEngine(trainer, image_size=IMAGE, max_batch=max_batch,
+                           max_wait_ms=20.0) as eng:
+            _reset_launches()
+            if max_batch == 1:
+                [eng.submit(s).result(timeout=120) for s in samples]
+            else:
+                got = eng.predict(samples[:8]) + eng.predict(samples[8:])
+            torch.cuda.synchronize()
+            launches = _launches_now()
+            stats = eng.stats()
+        lat[label] = stats["latency_ms"]["p50"]
+        drives[label] = (launches, sum(stats["batch_size_hist"].values()))
+    return got, lat, drives
+
+
+def _student_features(tr, images) -> torch.Tensor:
+    """The student trunk's pooled fp32 features of ``images`` (N, S, S,
+    3) uint8 on the trainer's device, eight images a forward, on the
+    CPU."""
+    mod, out = tr.spec.inputs[0], []
+    tr.module.eval()
+    with torch.inference_mode():
+        for i in range(0, len(images), 8):
+            x = torch.from_numpy(images[i:i + 8]).to(tr.device)
+            out.append(tr.module.resnet(
+                *tr._preprocess_eval({mod: x})).float().cpu())
+    return torch.cat(out)
+
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| over max |ref|."""
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def _with_wrong_scale(tr, images, key) -> torch.Tensor:
+    """The known-bad control: ``tr``'s features with the state entry
+    ``key`` (one conv's weight or per-channel scale) doubled, the state
+    then put back."""
+    state = {k: v.clone() for k, v in tr.module.state_dict().items()}
+    tr.module.load_state_dict({**state, key: 2 * state[key]})
+    try:
+        return _student_features(tr, images)
+    finally:
+        tr.module.load_state_dict(state)
+
+
+# phase 18's student features on the card (pooled trunk features of the
+# Q8_REQUESTS images, max |d| over max |feature|) against the fp32 forward
+# on the CPU, and the int8 path against its plain version on the CPU.
+# Each limit is about twice the largest sound reading on an H100 (bf16
+# 7.3e-3, int8 1.5e-2, int8 vs plain 6.0e-3; both students) and far under
+# the known-bad control's (one block conv's weight or scale doubled,
+# STUDENT_CONTROL: 0.56-0.58)
+STUDENT_FEAT_TOL = {"bf16": 1.5e-2, "int8": 3e-2, "int8_vs_plain": 1.5e-2}
+STUDENT_CONTROL = {"bf16": "resnet.layer3.0.conv2.weight",
+                   "int8": "resnet.layer3.0.conv2.scale"}
+
+
+def phase_students(dev, d: Path) -> dict:
+    """Phase 18: the ResNet-18 students.  ``conv_q8`` at the trunk's convs;
+    both students at full width (seeded weights, BatchNorm statistics off
+    identity) served in bf16 and int8 (``quantize_for_serving``,
+    calibrated on Q8_CALIB images) at b1 and b8, and their trunk features
+    against the fp32 forward on the CPU (STUDENT_FEAT_TOL, beside a
+    known-bad control); an int8 student bundle (under ``d``) replayed.
+    Returns the launches of the serving drives and the replay."""
+    from dfu_multimodal_tpu_torch.serve.export import (export_bundle,
+                                                       load_bundle)
+    t0 = time.perf_counter()
+    _student_convs(dev)
+    launches = {}
+    for seed, name in enumerate(STUDENTS):
+        base = _q8_float_trainer(name, dev, 90 + seed)
+        n_params = zoo.param_count(base.module)
+        if n_params != STUDENT_PARAMS:
+            raise AssertionError(f"{name}: {n_params} params")
+        mod = base.spec.inputs[0]
+        images = _q8_images(Q8_REQUESTS, 95 + seed)
+        batch_np = {mod: images}
+        samples = [{mod: images[i]} for i in range(Q8_REQUESTS)]
+        cpu = Trainer(name, TrainConfig(compute_dtype="float32"),
+                      base.modalities, device="cpu", image_size=IMAGE)
+        cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                    base.variables().items()})
+        ref = cpu.eval_step(batch_np)["probs"].numpy()
+        ref_feat = _student_features(cpu, images)
+        q = quantize_for_serving(base, image_size=IMAGE,
+                                 calib_u8=_q8_images(Q8_CALIB, 97 + seed))
+        int8 = {k: v for k, v in (("conv_q8", STUDENT_CONVS),
+                                  ("quantize_act_q8", STUDENT_QUANTS)) if v}
+        # the int8 student's plain version on the CPU
+        qcpu = Trainer(name, TrainConfig(compute_dtype="bfloat16"),
+                       base.modalities, device="cpu", image_size=IMAGE,
+                       block_impl="int8")
+        qcpu.module.load_state_dict({k: v.cpu() for k, v in
+                                     q.variables().items()})
+        plain_feat = _student_features(qcpu, images)
+        errs = {}
+        for label, tr, want in (("bf16", base, {}), ("int8", q, int8)):
+            got, lat, drives = _student_engine(tr, samples)
+            dp = float(np.abs(np.asarray([p for p, _ in got]) - ref).max())
+            feat = _student_features(tr, images)
+            bad = _with_wrong_scale(tr, images, STUDENT_CONTROL[label])
+            errs[label] = (_rel_err(feat, ref_feat),
+                           _rel_err(bad, ref_feat))
+            if label == "int8":
+                errs["int8_vs_plain"] = (_rel_err(feat, plain_feat),
+                                         _rel_err(bad, plain_feat))
+            per_batch = {k: {op: v / n for op, v in counts.items()}
+                         for k, (counts, n) in drives.items()}
+            log(f"[students] {name} {label} on the card: p50 b1 "
+                f"{lat['b1']:.2f} ms, b8 {lat['b8']:.2f} ms; served max "
+                f"|dP| vs the CPU's fp32 forward {dp:.3e}; launches "
+                f"{ {k: c for k, (c, _) in drives.items()} } in "
+                f"{ {k: n for k, (_, n) in drives.items()} } batches ("
+                f"{card()})")
+            if (any(pb != want for pb in per_batch.values())
+                    or not np.isfinite(dp)):
+                raise AssertionError(f"{name} {label}: launches a batch "
+                                     f"{per_batch}")
+            for counts, _ in drives.values():
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+        for label, (sound, bad) in errs.items():
+            tol = STUDENT_FEAT_TOL[label]
+            log(f"[students] {name} {label} features: max |d| / max |f| "
+                f"{sound:.3e}, known-bad control ({STUDENT_CONTROL[label[:4]]}"
+                f" doubled) {bad:.3e}; limit {tol:g}")
+            if not sound <= tol < bad:
+                raise AssertionError(f"{name} {label} features: {sound} "
+                                     f"(control {bad}, limit {tol})")
+        if name == "resnet18_rgb":
+            out = d / "export" / "student"
+            meta = export_bundle(q, out, image_size=IMAGE, buckets=[8])
+            frozen = load_bundle(out, dev)
+            b8 = {mod: images[:8]}
+            _reset_launches()
+            with _PlainCalls() as plain:
+                res = frozen.eval_step(b8)
+                torch.cuda.synchronize()
+                replay = _launches_now()
+            live = q.eval_step(b8)
+            dp = float((res["probs"] - live["probs"]).abs().max())
+            same = torch.equal(res["preds"], live["preds"])
+            log(f"[students] int8 {name} bundle: exported in "
+                f"{meta['export_seconds']['8']:.2f} s; replayed b8 vs the "
+                f"live eval step max |dP| {dp:.2e}, predictions equal "
+                f"{same}; launches {replay}; plain versions called "
+                f"{plain.calls}")
+            if dp > 1e-2 or not same or plain.calls or replay != int8:
+                raise AssertionError(f"{name} bundle replay")
+            for k, v in replay.items():
+                launches[k] = launches.get(k, 0) + v
+        del base, q, cpu, qcpu
+        torch.cuda.empty_cache()
+    log(f"[students] in {time.perf_counter() - t0:.2f} s (host clock; "
+        f"{card()})")
+    return launches
+
+
 # ---------------------------------------------------------------- bounds
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
@@ -5290,6 +5733,8 @@ def main() -> int:
         explain = phase_explain(dev, Path(d))
         phase_q8_cli(dev, Path(d))
         phase_tome_cli(dev, Path(d))
+        export = phase_export(dev, Path(d))
+        students = phase_students(dev, Path(d))
     for mod in ("jax", "flax", "optax", "PIL", "torchvision", "matplotlib",
                 "sklearn", "cv2", "dfu_multimodal_tpu"):
         if mod in sys.modules:
@@ -5331,7 +5776,10 @@ def main() -> int:
                              f"dfu_multimodal_tpu/ops/{tpu}"),
                 "launches": launches[k], "library_ms": None, **times[k],
                 **bounds.get(k, {}), **({"explain_launches": explain[k]}
-                                        if k in explain else {})}
+                                        if k in explain else {}),
+                **({"export_launches": export[k]} if k in export else {}),
+                **({"student_launches": students[k]}
+                   if k in students else {})}
                for k, (src, tpu) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

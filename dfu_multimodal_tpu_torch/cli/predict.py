@@ -9,6 +9,7 @@ per-image probabilities and a CSV:
         [--explain-dir <dir>]   # Grad-CAM evidence overlay per image
         [--int8 [--calib-images <dir>]]
         [--token-merge 4:128 [--tome-prop-attn]]
+        [--resnet-block-impl fused]
 
 The model runs on ``--device`` (default ``cuda``).  ``--int8`` serves
 the int8 paths (the int8 ViT blocks; the ResNet trunk calibrated on
@@ -16,8 +17,10 @@ the int8 paths (the int8 ViT blocks; the ResNet trunk calibrated on
 L:K`` runs a ViT trunk token-merged (``serve/engine.py::
 tome_for_serving``, after ``--int8`` where both are given; a model
 without a ViT trunk skips it with a line that says so),
-``--tome-prop-attn`` with proportional attention; ``--explain-dir``
-always differentiates the full-fidelity restore.
+``--tome-prop-attn`` with proportional attention; ``--resnet-block-impl
+fused`` runs a ResNet-50 trunk on the fused bottleneck kernel (K11, as
+serve and export_model take it); ``--explain-dir`` always differentiates
+the full-fidelity restore.
 """
 
 from __future__ import annotations
@@ -30,10 +33,11 @@ from pathlib import Path
 import numpy as np
 
 from dfu_multimodal_tpu_torch import config as cfg_mod
-from dfu_multimodal_tpu_torch.cli._train_common import (VIT_MODELS,
-                                                        resolve_device)
+from dfu_multimodal_tpu_torch.cli._train_common import resolve_device
 from dfu_multimodal_tpu_torch.cli.serve import (CALIB_IMAGES,
-                                                calibration_images)
+                                                add_resnet_block_impl,
+                                                calibration_images,
+                                                model_impl_kwargs)
 from dfu_multimodal_tpu_torch.config import TrainConfig
 from dfu_multimodal_tpu_torch.data.layout import list_images
 from dfu_multimodal_tpu_torch.data.loader import ArrayDataset, decode_all
@@ -74,6 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["bfloat16", "float32"])
     parser.add_argument("--attention-impl", default="auto",
                         choices=["auto", "xla", "pallas"])
+    add_resnet_block_impl(parser)
     parser.add_argument("--int8", action="store_true",
                         help="int8 serving: the ViT branch on the int8 "
                              "blocks, the ResNet branch on calibrated "
@@ -173,10 +178,9 @@ def main(argv=None):
                       compute_dtype=args.compute_dtype)
     modalities = {"rgb": cfg_mod.rgb_modality(),
                   "thermal": cfg_mod.thermal_modality()}
-    kwargs = ({"attention_impl": args.attention_impl}
-              if model_name in VIT_MODELS else {})
     trainer = Trainer(model_name, cfg, modalities, device=device,
-                      image_size=args.image_size, **kwargs)
+                      image_size=args.image_size,
+                      **model_impl_kwargs(model_name, args))
     trainer.restore(args.checkpoint)
 
     paths = list_images(args.images)

@@ -6,11 +6,15 @@
         --checkpoint logs/checkpoints_multimodal --port 8000 \
         [--explain] [--int8 --calib-images <dir>] [--max-batch 64] \
         [--max-wait-ms 2] [--pipeline-depth 2] [--shadow <ckpt>] \
-        [--token-merge 4:128 [--tome-prop-attn]]
+        [--token-merge 4:128 [--tome-prop-attn]] \
+        [--resnet-block-impl fused]
 
     # the clinical router: every checkpoints_* under logs/ is served, and
     # each request goes to the model matching its modalities
     python -m dfu_multimodal_tpu_torch.cli.serve --checkpoint-root logs
+
+    # a frozen bundle (cli/export_model.py), with no model source
+    python -m dfu_multimodal_tpu_torch.cli.serve --exported export/multimodal
 
 Then:
 
@@ -34,9 +38,14 @@ dispatches the next batch before the last one's results are fetched.
 multimodal) token-merged (``serve/engine.py::tome_for_serving``; after
 ``--int8`` where both are given), ``--tome-prop-attn`` with proportional
 attention; other models are served as they are, with a line that says
-so; shadows and explanations use the model without merging.  Not ported
-yet, refused with the missing module named: ``--exported``
-(``serve/export.py``).
+so; shadows and explanations use the model without merging.
+``--resnet-block-impl fused`` runs a ResNet-50 trunk's stride-1
+bottlenecks on the fused kernel (K11, a port option shared with predict
+and export_model, so a live engine runs the trunk a bundle froze).
+``--exported <bundle>`` (repeatable) serves a frozen bundle
+(``serve/export.py``) at its own buckets, with the ``deployment.json``
+and drift baseline it carries; bundles carry no model source, so
+``--explain`` refuses them.
 """
 
 from __future__ import annotations
@@ -57,21 +66,43 @@ from dfu_multimodal_tpu_torch.eval import vit_attribution as va
 from dfu_multimodal_tpu_torch.eval.deployment import resolve_deployment
 from dfu_multimodal_tpu_torch.models.zoo import VIT_TRUNK_MODELS
 from dfu_multimodal_tpu_torch.serve.engine import (RESNET_TRUNK_MODELS,
+                                                   RGB_IMPL_ARG,
                                                    ModelRouter,
                                                    ServingEngine,
                                                    parse_token_merge,
                                                    quantize_for_serving,
                                                    tome_for_serving)
 from dfu_multimodal_tpu_torch.serve.explain import Explainer
+from dfu_multimodal_tpu_torch.serve.export import load_bundle
 from dfu_multimodal_tpu_torch.serve.http import make_server
 from dfu_multimodal_tpu_torch.serve.shadow import attach_shadow
 from dfu_multimodal_tpu_torch.train.engine import Trainer
 from dfu_multimodal_tpu_torch.utils import checkpoint as ckpt_mod
 
-# flags of the JAX daemon whose modules the port has not ported yet
-UNPORTED = {"exported": "serve/export.py (exported bundles)"}
 # calibration images the int8 ResNet trunk takes (the first of them)
 CALIB_IMAGES = 32
+# models whose ResNet-50 trunk --resnet-block-impl picks
+FUSED_TRUNK_MODELS = ("rgb_only", "multimodal")
+
+
+def add_resnet_block_impl(parser: argparse.ArgumentParser) -> None:
+    """``--resnet-block-impl``, which serve, predict and export_model
+    share (read by :func:`model_impl_kwargs`)."""
+    parser.add_argument("--resnet-block-impl", default="auto",
+                        choices=["auto", "fused"],
+                        help="the ResNet-50 trunks' blocks (rgb_only, "
+                             "multimodal): cuDNN ('auto') or the fused "
+                             "bottleneck kernel ('fused'; a port option)")
+
+
+def model_impl_kwargs(model_name: str, args) -> dict:
+    """The model kwargs that ``--attention-impl`` and
+    ``--resnet-block-impl`` give ``model_name``."""
+    kwargs = ({"attention_impl": args.attention_impl}
+              if model_name in VIT_MODELS else {})
+    if args.resnet_block_impl != "auto" and model_name in FUSED_TRUNK_MODELS:
+        kwargs[RGB_IMPL_ARG[model_name]] = args.resnet_block_impl
+    return kwargs
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -116,6 +147,7 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["bfloat16", "float32"])
     parser.add_argument("--attention-impl", default="auto",
                         choices=["auto", "xla", "pallas"])
+    add_resnet_block_impl(parser)
     parser.add_argument("--int8", action="store_true",
                         help="serve the int8 paths (the int8 ViT blocks, "
                              "dynamic activation scales; the calibrated "
@@ -167,22 +199,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-drift-monitor", action="store_true",
                         help="do not score live inputs against each "
                              "model's drift_baseline.json")
+    parser.add_argument("--exported", type=Path, action="append",
+                        default=None,
+                        help="serve a frozen bundle (cli/export_model.py); "
+                             "repeatable, beside checkpoints or alone")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda, the card); "
                              "'cpu' serves on the host")
-    # refused: its module is not ported yet
-    parser.add_argument("--exported", type=Path, action="append",
-                        default=None, help=argparse.SUPPRESS)
     return parser
-
-
-def refuse_unported(args) -> None:
-    """Exit with the missing module named for a flag whose module the
-    port has not ported yet."""
-    for flag, module in UNPORTED.items():
-        if getattr(args, flag, None):
-            raise SystemExit(f"--{flag.replace('_', '-')} needs {module}, "
-                             "which is not ported yet")
 
 
 def calibration_images(directory: Optional[Path], image_size: int):
@@ -208,10 +232,9 @@ def restore_trainer(ckpt: Path, model_name: Optional[str], args, cfg,
     restore they were built from (the one an explainer differentiates)."""
     model_name = model_name or ckpt_mod.load_meta(ckpt).get(
         "model", "rgb_only")
-    kwargs = ({"attention_impl": args.attention_impl}
-              if model_name in VIT_MODELS else {})
     base = Trainer(model_name, cfg, modalities, device=device,
-                   image_size=args.image_size, **kwargs)
+                   image_size=args.image_size,
+                   **model_impl_kwargs(model_name, args))
     base.restore(ckpt)
     trainer = base
     if args.int8:
@@ -282,6 +305,21 @@ def _load_engine(ckpt: Path, model_name, args, cfg, modalities, device):
         pipeline_depth=args.pipeline_depth)
 
 
+def _load_bundle_engine(bundle: Path, args, device):
+    """(model name, engine) of an exported bundle: served at the bundle's
+    buckets with the deployment config and drift baseline it carries."""
+    servable = load_bundle(bundle, device)
+    threshold, temperature = _resolve_deployment(bundle, args)
+    print(f"{bundle.name}: exported {servable.spec.name}, buckets "
+          f"{list(servable.buckets)}")
+    return servable.spec.name, ServingEngine(
+        servable, image_size=servable.image_size, buckets=servable.buckets,
+        max_wait_ms=args.max_wait_ms, threshold=threshold,
+        temperature=temperature, max_queue=args.max_queue,
+        drift_monitor=_drift_monitor(bundle, args),
+        pipeline_depth=args.pipeline_depth)
+
+
 def _attach_shadows(router: ModelRouter, args, cfg, modalities, device):
     """Restore each ``--shadow`` candidate full-fidelity with its own
     deployment.json behind a small bounded queue and attach it to the
@@ -317,15 +355,19 @@ def build_daemon(argv=None):
     args)``; ``server.serve_forever()`` serves, ``server.shutdown()`` and
     ``router.stop()`` end it.  :func:`main` is this plus the loop."""
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
-    device = resolve_device(args.device)
     ckpts = list(args.checkpoint or [])
     if args.checkpoint_root is not None:
         ckpts += sorted(p for p in args.checkpoint_root.glob("checkpoints_*")
                         if p.is_dir())
-    if not ckpts:
-        raise SystemExit("need --checkpoint (repeatable) and/or "
-                         "--checkpoint-root")
+    bundles = list(args.exported or [])
+    if not ckpts and not bundles:
+        raise SystemExit("need --checkpoint (repeatable), --checkpoint-root "
+                         "and/or --exported")
+    if args.explain and bundles:
+        raise SystemExit("--explain differentiates a checkpoint's model; an "
+                         "exported bundle carries no model source (serve "
+                         "--exported without --explain)")
+    device = resolve_device(args.device)
     if args.model and len(ckpts) > 1:
         raise SystemExit("--model only applies to a single --checkpoint")
     cfg = TrainConfig(batch_size=args.max_batch,
@@ -339,6 +381,11 @@ def build_daemon(argv=None):
                                     device)
         if name in engines:
             raise SystemExit(f"model {name!r} served twice ({ckpt})")
+        engines[name] = engine
+    for bundle in bundles:
+        name, engine = _load_bundle_engine(bundle, args, device)
+        if name in engines:
+            raise SystemExit(f"model {name!r} served twice ({bundle})")
         engines[name] = engine
     router = ModelRouter(engines)
     _attach_shadows(router, args, cfg, modalities, device)

@@ -84,9 +84,11 @@ class MultimodalFusionClassifier(nn.Module):
     ``block_impl`` and ``attention_impl`` go to the thermal branch's ViT,
     as in the JAX fusion model, and so do ``token_merge`` and
     ``tome_prop_attn`` (its inference-only ToMe path, ``models/vit.py``);
-    ``rgb_impl`` picks the RGB trunk: ``"auto"`` the float ResNet-50,
-    ``"int8"`` the int8 serving trunk
-    (``models/resnet_q8.py::Int8ResNet50``, weights from
+    ``rgb_impl`` picks the RGB trunk: ``"auto"`` the float ResNet-50 on
+    cuDNN, ``"fused"`` the same weights with its stride-1 bottlenecks on
+    the fused kernel in eval mode (``models/resnet.py``'s
+    ``block_impl="fused"``, K11; a port option), ``"int8"`` the int8
+    serving trunk (``models/resnet_q8.py::Int8ResNet50``, weights from
     ``quantize_rgb_trunks``)."""
 
     def __init__(self, num_classes: int = 2, drop_rate: float = 0.5,
@@ -101,11 +103,11 @@ class MultimodalFusionClassifier(nn.Module):
             from dfu_multimodal_tpu_torch.models.resnet_q8 import (
                 Int8ResNet50)
             self.rgb_branch = Int8ResNet50(dtype=dtype)
-        elif rgb_impl == "auto":
-            self.rgb_branch = ResNet50(dtype=dtype)
+        elif rgb_impl in ("auto", "fused"):
+            self.rgb_branch = ResNet50(dtype=dtype, block_impl=rgb_impl)
         else:
             raise ValueError(f"unknown rgb_impl {rgb_impl!r}; have 'auto', "
-                             "'int8'")
+                             "'fused', 'int8'")
         self.thermal_branch = ViTBase16(dtype=dtype, image_size=image_size,
                                         block_impl=block_impl,
                                         attention_impl=attention_impl,

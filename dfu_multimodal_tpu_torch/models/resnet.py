@@ -1,10 +1,15 @@
-"""ResNet-50 in PyTorch, torchvision key layout, and the ``rgb_only``
-classifier.
+"""ResNet-50 and the ResNet-18 student in PyTorch, torchvision key
+layout, and their classifiers (``rgb_only``, ``resnet18_rgb``,
+``resnet18_thermal``).
 
 Counterpart of ``dfu_multimodal_tpu/models/resnet.py`` (``ResNet50``,
-``FusedBottleneck``, ``ResNetClassifier``).  torchvision "v1.5"
-bottleneck (stride on the 3x3 conv), keys ``conv1``, ``bn1``,
-``layer{1-4}.{i}.conv{1,2,3}/bn{1,2,3}`` and ``layer{s}.0.downsample.{0,1}``.
+``ResNet18``, ``BasicBlock``, ``FusedBottleneck``, ``ResNetClassifier``).
+torchvision "v1.5" bottleneck (stride on the 3x3 conv), keys ``conv1``,
+``bn1``, ``layer{1-4}.{i}.conv{1,2,3}/bn{1,2,3}`` and
+``layer{s}.0.downsample.{0,1}``; the ResNet-18 basic block (3x3 with the
+stride, then 3x3; a 1x1 projection shortcut when the shape changes) has
+torchvision's ``layer{s}.{i}.conv{1,2}/bn{1,2}`` and
+``downsample.{0,1}``.
 BN eps 1e-5; flax ``momentum=0.9`` is torch's ``momentum=0.1`` (the
 default).  In train mode :class:`BatchNorm2d` keeps flax's statistics:
 it normalises with the biased batch variance, as torch does, but moves
@@ -21,6 +26,8 @@ bottleneck in eval mode through the fused kernel (``ops/resnet_block.py``,
 K11), BatchNorm folded into the convs per call; strided blocks and train
 mode stay on cuDNN.  ``"auto"`` resolves to ``"flax"`` on every device, as
 the JAX default does.  Both impls hold the same parameters and buffers.
+Basic blocks have no kernel (as in JAX): they run on cuDNN whatever the
+impl.
 """
 
 from __future__ import annotations
@@ -186,18 +193,59 @@ class Bottleneck(nn.Module):
         return out.permute(0, 3, 1, 2)
 
 
+class BasicBlock(nn.Module):
+    """The ResNet-18/34 block (the JAX ``BasicBlock``, torchvision keys):
+    relu(bn1(conv1 3x3, stride)), bn2(conv2 3x3), plus the shortcut (the
+    block input, or bn(1x1 conv, stride) when the shape changes), ReLU."""
+
+    expansion = 1
+
+    def __init__(self, cin: int, width: int, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.conv1 = nn.Conv2d(cin, width, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn1 = BatchNorm2d(width)
+        self.conv2 = nn.Conv2d(width, width, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm2d(width)
+        self.downsample = None
+        if stride != 1 or cin != width:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(cin, width, 1, stride=stride, bias=False),
+                BatchNorm2d(width))
+
+    def forward(self, x: torch.Tensor,
+                calibration: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """``calibration`` as :meth:`Bottleneck.forward`'s: ``conv1_in``
+        (which the projection shares) and ``conv2_in``."""
+        _record(calibration, "conv1_in", x)
+        shortcut = x
+        if self.downsample is not None:
+            shortcut = self.downsample[1](_conv(self.downsample[0], x))
+        y = F.relu(self.bn1(_conv(self.conv1, x)))
+        _record(calibration, "conv2_in", y)
+        y = self.bn2(_conv(self.conv2, y))
+        return F.relu(y + shortcut)
+
+
+BLOCK_TYPES = {"bottleneck": Bottleneck, "basic": BasicBlock}
+
+
 class ResNet(nn.Module):
-    """Bottleneck ResNet trunk returning pooled fp32 features
-    (B, 4·widths[-1])."""
+    """ResNet trunk returning pooled fp32 features (B, widths[-1] x the
+    block's expansion): bottleneck blocks (ResNet-50) or basic blocks
+    (``block_type="basic"``, the ResNet-18 student)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  widths: Sequence[int] = (64, 128, 256, 512),
                  dtype: Union[str, torch.dtype] = torch.float32,
-                 block_impl: str = "auto"):
+                 block_impl: str = "auto", block_type: str = "bottleneck"):
         super().__init__()
         if block_impl not in BLOCK_IMPLS:
             raise ValueError(f"unknown block_impl {block_impl!r}; have "
                              f"{BLOCK_IMPLS}")
+        block_cls = BLOCK_TYPES[block_type]
         self.dtype = canonical_dtype(dtype)
         self.block_impl = block_impl
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
@@ -208,8 +256,8 @@ class ResNet(nn.Module):
             layer = []
             for j in range(blocks):
                 stride = 2 if i > 1 and j == 0 else 1
-                layer.append(Bottleneck(cin, width, stride))
-                cin = width * Bottleneck.expansion
+                layer.append(block_cls(cin, width, stride))
+                cin = width * block_cls.expansion
             self.add_module(f"layer{i}", nn.Sequential(*layer))
         self.num_stages = len(stage_sizes)
 
@@ -230,7 +278,8 @@ class ResNet(nn.Module):
                  and calibration is None)
         for i in range(1, self.num_stages + 1):
             for j, block in enumerate(getattr(self, f"layer{i}")):
-                if fused and block.stride == 1:
+                if fused and block.stride == 1 and isinstance(block,
+                                                              Bottleneck):
                     x = block.forward_fused(x)
                 elif calibration is not None:
                     x = block(x, calibration.setdefault(
@@ -247,15 +296,25 @@ def ResNet50(dtype: Union[str, torch.dtype] = torch.float32,
                   block_impl=block_impl)
 
 
+def ResNet18(dtype: Union[str, torch.dtype] = torch.float32) -> ResNet:
+    """The 11.2M-parameter trunk (512-d features): the distillation
+    student."""
+    return ResNet((2, 2, 2, 2), (64, 128, 256, 512), dtype=dtype,
+                  block_type="basic")
+
+
 class ResNetClassifier(nn.Module):
     """ResNet-50 trunk + Dropout + Linear(2048 -> num_classes) head in
-    fp32: the reference's ``RGBOnlyModel`` (the ``rgb_only`` zoo model).
-    The trunk's keys carry the ``resnet.`` prefix, the head is ``head``.
-    Dropout is active in train mode and draws from the ``generator`` given
-    to forward (required then).  ``block_impl`` picks the trunk's
-    bottleneck (:class:`ResNet`), or ``"int8"`` the int8 serving trunk
-    (``models/resnet_q8.py::Int8ResNet50``, weights from
-    ``quantize_rgb_trunks``).  ``image_size`` is accepted for the
+    fp32: the reference's ``RGBOnlyModel`` (the ``rgb_only`` zoo model);
+    ``trunk="resnet18"`` the ResNet-18 student with a 512-wide head
+    (``resnet18_rgb``, ``resnet18_thermal``).  The trunk's keys carry the
+    ``resnet.`` prefix, the head is ``head``.  Dropout is active in train
+    mode and draws from the ``generator`` given to forward (required
+    then).  ``block_impl`` picks the ResNet-50's bottleneck
+    (:class:`ResNet`; the student's basic blocks have no kernel and
+    ignore it, as in JAX), or ``"int8"`` the int8 serving trunk
+    (``models/resnet_q8.py::Int8ResNet50`` / ``Int8ResNet18``, weights
+    from ``quantize_rgb_trunks``).  ``image_size`` is accepted for the
     Trainer's uniform model arguments; the trunk pools any size."""
 
     def __init__(self, num_classes: int = 2, drop_rate: float = 0.5,
@@ -263,21 +322,22 @@ class ResNetClassifier(nn.Module):
                  image_size: int = 224, block_impl: str = "auto",
                  trunk: str = "resnet50"):
         super().__init__()
-        if trunk != "resnet50":
-            raise NotImplementedError(
-                f"trunk {trunk!r} is not ported yet (the ResNet-18 "
-                "BasicBlock student, models/resnet.py's ResNet18, and its "
-                "int8 twin in models/resnet_q8.py); the port has "
-                "trunk='resnet50'")
+        if trunk not in ("resnet50", "resnet18"):
+            raise ValueError(f"unknown trunk {trunk!r}; have 'resnet50', "
+                             "'resnet18'")
         del image_size
         self.drop_rate = drop_rate
+        student = trunk == "resnet18"
         if block_impl == "int8":
             from dfu_multimodal_tpu_torch.models.resnet_q8 import (
-                Int8ResNet50)
-            self.resnet = Int8ResNet50(dtype=dtype)
+                Int8ResNet18, Int8ResNet50)
+            self.resnet = (Int8ResNet18 if student else Int8ResNet50)(
+                dtype=dtype)
+        elif student:
+            self.resnet = ResNet18(dtype=dtype)
         else:
             self.resnet = ResNet50(dtype=dtype, block_impl=block_impl)
-        self.head = nn.Linear(2048, num_classes)
+        self.head = nn.Linear(512 if student else 2048, num_classes)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,

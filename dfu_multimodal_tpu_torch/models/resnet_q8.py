@@ -1,5 +1,5 @@
-"""Int8 ResNet-50 serving trunk on the card's int8 convolution
-(counterpart of ``dfu_multimodal_tpu/models/resnet_q8.py``).
+"""Int8 ResNet-50 and ResNet-18 serving trunks on the card's int8
+convolution (counterpart of ``dfu_multimodal_tpu/models/resnet_q8.py``).
 
 Scheme (post-training quantisation, the JAX package's):
 
@@ -13,7 +13,7 @@ Scheme (post-training quantisation, the JAX package's):
 - every stage conv runs on ``ops/conv_q8.py`` (int8 × int8 → int32, then
   float(acc)·(act_scale·scale) + bias in fp32, cast to the compute dtype);
   the projection shortcut reads the block input with conv1's scale, so the
-  block input is quantised once for both;
+  block input is quantised once for both (bottleneck and basic blocks);
 - the stem stays in the compute dtype: a convolution of the bf16-valued
   input and kernel whose products accumulate in fp32 (an fp32 conv on the
   rounded operands; exact products, since bf16 values fit fp32 and TF32),
@@ -23,10 +23,9 @@ Activations run NHWC contiguous; the taps ``stage1``..``stage4`` record
 each stage's (B, H, W, C) output, as the float trunk's.  Serving only:
 no backward.  Keys: ``stem_kernel`` (64, 3, 7, 7) OIHW fp32 (the folded
 stem), ``stem_bias``, and per conv ``layer{s}.{i}.{conv1,conv2,conv3,
-down}.{kernel_q8, scale, bias, act_scale}`` with ``kernel_q8`` HWIO int8,
-the JAX layout.  The distilled ResNet-18 student (``Int8ResNet18``,
-``Int8BasicBlock``) is not ported yet: a basic-block tree
-raises ``NotImplementedError``.
+down}.{kernel_q8, scale, bias, act_scale}`` (the ResNet-18 student's
+basic blocks: ``{conv1,conv2,proj}``) with ``kernel_q8`` HWIO int8, the
+JAX layout.
 """
 
 from __future__ import annotations
@@ -43,8 +42,6 @@ from dfu_multimodal_tpu_torch.ops.vit_block_q8 import Q_MAX, over_qmax
 
 StateDict = Dict[str, torch.Tensor]
 BN_EPS = 1e-5
-_STUDENT = ("the int8 ResNet-18 student (Int8ResNet18, models/"
-            "resnet_q8.py's basic blocks) is not ported yet")
 
 
 def quantize_conv_weight(w: torch.Tensor
@@ -101,6 +98,8 @@ class Int8Bottleneck(nn.Module):
     conv3 + shortcut then ReLU; the projection ``down`` when the shape
     changes.  Residual math in the compute dtype."""
 
+    expansion = 4
+
     def __init__(self, cin: int, width: int, stride: int = 1):
         super().__init__()
         cout = 4 * width
@@ -123,15 +122,46 @@ class Int8Bottleneck(nn.Module):
         return self.conv3(y, relu=True, resid=shortcut)
 
 
+class Int8BasicBlock(nn.Module):
+    """Serving-only int8 ResNet-18 block (the JAX ``Int8BasicBlock``):
+    relu(conv1 3x3 (stride)), conv2 3x3 + shortcut then ReLU; the 1x1
+    projection ``proj`` (stride) when the shape changes, which reads the
+    block input with conv1's scale, so the input is quantised once for
+    both.  Residual math in the compute dtype."""
+
+    expansion = 1
+
+    def __init__(self, cin: int, width: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = QConv(cin, width, 3, stride)
+        self.conv2 = QConv(width, width, 3)
+        self.proj = (QConv(cin, width, 1, stride)
+                     if stride != 1 or cin != width else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, H, W, C) NHWC contiguous in the compute dtype."""
+        shortcut = x
+        if self.proj is not None:
+            x = quantize_act_q8(x, self.conv1.act_scale)
+            shortcut = self.proj(x, dtype=shortcut.dtype)
+        y = self.conv1(x, relu=True, dtype=shortcut.dtype)
+        return self.conv2(y, relu=True, resid=shortcut)
+
+
+INT8_BLOCK_TYPES = {"bottleneck": Int8Bottleneck, "basic": Int8BasicBlock}
+
+
 class Int8ResNet(nn.Module):
-    """Int8 serving twin of ``models/resnet.py::ResNet`` (bottleneck
-    trunks): weights from :func:`quantize_resnet_params`, the same tap
-    points, pooled fp32 features (B, 4·widths[-1])."""
+    """Int8 serving twin of ``models/resnet.py::ResNet`` (bottleneck or
+    basic blocks): weights from :func:`quantize_resnet_params`, the same
+    tap points, pooled fp32 features (B, widths[-1] x the expansion)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  widths: Sequence[int] = (64, 128, 256, 512),
-                 dtype: Union[str, torch.dtype] = torch.bfloat16):
+                 dtype: Union[str, torch.dtype] = torch.bfloat16,
+                 block_type: str = "bottleneck"):
         super().__init__()
+        block_cls = INT8_BLOCK_TYPES[block_type]
         self.dtype = canonical_dtype(dtype)
         self.register_buffer("stem_kernel", torch.zeros(64, 3, 7, 7))
         self.register_buffer("stem_bias", torch.zeros(64))
@@ -140,9 +170,9 @@ class Int8ResNet(nn.Module):
                                             start=1):
             layer = []
             for j in range(blocks):
-                layer.append(Int8Bottleneck(cin, width,
-                                            2 if i > 1 and j == 0 else 1))
-                cin = 4 * width
+                layer.append(block_cls(cin, width,
+                                       2 if i > 1 and j == 0 else 1))
+                cin = block_cls.expansion * width
             self.add_module(f"layer{i}", nn.Sequential(*layer))
         self.num_stages = len(stage_sizes)
 
@@ -173,6 +203,13 @@ class Int8ResNet(nn.Module):
 def Int8ResNet50(dtype: Union[str, torch.dtype] = torch.bfloat16
                  ) -> Int8ResNet:
     return Int8ResNet((3, 4, 6, 3), (64, 128, 256, 512), dtype=dtype)
+
+
+def Int8ResNet18(dtype: Union[str, torch.dtype] = torch.bfloat16
+                 ) -> Int8ResNet:
+    """Int8 twin of the ResNet-18 student."""
+    return Int8ResNet((2, 2, 2, 2), (64, 128, 256, 512), dtype=dtype,
+                      block_type="basic")
 
 
 # ------------------------------------------------------------- conversion
@@ -229,13 +266,14 @@ def trunk_architecture(trunk: Mapping[str, torch.Tensor]
 
 def quantize_resnet_params(trunk: Mapping[str, torch.Tensor],
                            act_absmax: Mapping[str, Mapping[str, float]],
-                           stage_sizes: Sequence[int] = (3, 4, 6, 3)
-                           ) -> StateDict:
+                           stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                           block_type: str = "bottleneck") -> StateDict:
     """A float trunk's state_dict (weights and BN buffers) and the
     calibration absmaxes -> the :class:`Int8ResNet` state_dict: BN folded
     in fp32 (eps 1e-5), per-channel int8 kernels (HWIO), act_scale =
     float32(max(absmax, 1e-6) / 127) as JAX's Python arithmetic gives it.
-    The projection takes conv1's scale."""
+    The projection (``down`` of a bottleneck, ``proj`` of a basic block)
+    takes conv1's scale."""
     def bn(key):
         return {n: trunk[f"{key}.{n}"] for n in ("weight", "bias",
                                                   "running_mean",
@@ -254,22 +292,22 @@ def quantize_resnet_params(trunk: Mapping[str, torch.Tensor],
         w, b = _fold(trunk[f"{base}.{conv_key}.weight"].float(),
                      bn(f"{base}.{bn_key}"))
         kq, ws = quantize_conv_weight(w.permute(2, 3, 1, 0))
-        name = f"{base}.{'down' if conv_key == 'downsample.0' else conv_key}"
+        name = f"{base}.{proj if conv_key == 'downsample.0' else conv_key}"
         out[f"{name}.kernel_q8"] = kq
         out[f"{name}.scale"] = ws
         out[f"{name}.bias"] = b.float().contiguous()
         out[f"{name}.act_scale"] = torch.tensor(
             absmax_for(block, cal_conv) / 127.0, dtype=torch.float32)
 
+    convs, proj = ((1, 2, 3), "down") if block_type == "bottleneck" else (
+        (1, 2), "proj")
     stem_w, stem_b = _fold(trunk["conv1.weight"].float(), bn("bn1"))
     out["stem_kernel"], out["stem_bias"] = (stem_w.contiguous(),
                                             stem_b.float().contiguous())
     for s, blocks in enumerate(stage_sizes, start=1):
         for i in range(blocks):
             base, block = f"layer{s}.{i}", f"stage{s}_block{i}"
-            if f"{base}.conv3.weight" not in trunk:
-                raise NotImplementedError(_STUDENT)
-            for c in (1, 2, 3):
+            for c in convs:
                 qconv(base, f"conv{c}", f"bn{c}", block, f"conv{c}")
             if f"{base}.downsample.0.weight" in trunk:
                 qconv(base, "downsample.0", "downsample.1", block, "conv1")
@@ -291,8 +329,8 @@ def quantize_rgb_trunks(state_dict: Mapping[str, torch.Tensor],
     trunk in ``dtype`` with cuDNN blocks, fold BN, quantise the weights.
     Returns a new state_dict with the trunk's keys replaced by the
     :class:`Int8ResNet` keys (its BN buffers dropped); the original is
-    untouched.  A basic-block (ResNet-18) trunk raises
-    ``NotImplementedError``."""
+    untouched.  The architecture (ResNet-50 or the ResNet-18 student)
+    comes from the state_dict's keys."""
     from dfu_multimodal_tpu_torch.models.resnet import ResNet
 
     batches = list(calib_batches)
@@ -304,17 +342,15 @@ def quantize_rgb_trunks(state_dict: Mapping[str, torch.Tensor],
             continue
         found = True
         sizes, widths, block_type = trunk_architecture(trunk)
-        if block_type != "bottleneck":
-            raise NotImplementedError(_STUDENT)
         device = trunk["conv1.weight"].device
-        calib = ResNet(sizes, widths, dtype=dtype,
-                       block_impl="flax").to(device)
+        calib = ResNet(sizes, widths, dtype=dtype, block_impl="flax",
+                       block_type=block_type).to(device)
         calib.load_state_dict(trunk, strict=True)
         absmax = calibrate_resnet(calib, batches)
         for k in trunk:
             del new[prefix + k]
-        new.update((prefix + k, v) for k, v in
-                   quantize_resnet_params(trunk, absmax, sizes).items())
+        new.update((prefix + k, v) for k, v in quantize_resnet_params(
+            trunk, absmax, sizes, block_type).items())
     if not found:
         raise ValueError(f"no ResNet trunk found under {trunk_prefixes}")
     return new

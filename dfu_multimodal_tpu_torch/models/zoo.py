@@ -2,14 +2,16 @@
 
 Ported so far: the three reference models — the flagship ``multimodal``
 fusion model, the ``thermal_only`` ViT classifier and the ``rgb_only``
-ResNet-50 classifier — and the small smoke models ``tiny_rgb``,
-``tiny_thermal`` and ``tiny_fusion``; the other families join as their
-modules land.
+ResNet-50 classifier —, the ResNet-18 distillation students
+``resnet18_rgb`` and ``resnet18_thermal``, and the small smoke models
+``tiny_rgb``, ``tiny_thermal`` and ``tiny_fusion``; the other families
+join as their modules land.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -40,6 +42,12 @@ register(ModelSpec("tiny_rgb", TinyCNN, ("rgb",)))
 register(ModelSpec("tiny_thermal", TinyCNN, ("thermal",)))
 register(ModelSpec("tiny_fusion", TinyFusion, ("rgb", "thermal")))
 register(ModelSpec("rgb_only", ResNetClassifier, ("rgb",)))
+# the ResNet-18 students (11M parameters, 512-d features) for distillation
+register(ModelSpec("resnet18_rgb", partial(ResNetClassifier,
+                                           trunk="resnet18"), ("rgb",)))
+register(ModelSpec("resnet18_thermal", partial(ResNetClassifier,
+                                               trunk="resnet18"),
+                   ("thermal",)))
 register(ModelSpec("thermal_only", ViTClassifier, ("thermal",)))
 register(ModelSpec("multimodal", MultimodalFusionClassifier,
                    ("rgb", "thermal")))
@@ -70,7 +78,9 @@ def build(name: str, *, num_classes: int = 2,
     (``depth``...); for ``multimodal`` the thermal branch's ``block_impl``
     and ``attention_impl``; for both the ViT's ``token_merge`` and
     ``tome_prop_attn`` (serving only); for ``rgb_only`` the trunk's
-    ``block_impl`` (``"auto"``, ``"flax"``, ``"fused"``)."""
+    ``block_impl`` (``"auto"``, ``"flax"``, ``"fused"``, ``"int8"``), for
+    the ResNet-18 students ``"int8"`` (their basic blocks run on cuDNN
+    otherwise)."""
     spec = get(name)
     dr = {} if drop_rate is None else {"drop_rate": drop_rate}
     return spec.make(num_classes=num_classes, dtype=dtype, **dr,

@@ -11,6 +11,13 @@ Every pointer and the stream cross as ``c_void_p``, every int as
 ``c_int``; each C entry point returns ``cudaGetLastError()`` after its
 launch and :func:`check` raises on anything but 0.  Without ``nvcc`` the
 build raises: there is no fallback.
+
+The serving kernels are also ``torch.library`` custom ops in the ``dfu``
+namespace (:func:`define_op`): each has a schema, its kernel launch as
+the CUDA implementation, its plain version as the CPU implementation and
+a fake implementation that gives the output's shape, so the dispatcher is
+the one place that picks one or the other and ``torch.export`` records
+each call as one ``dfu::`` node (``serve/export.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -37,6 +44,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+# the port's custom ops (define_op)
+OPS = torch.library.Library("dfu", "DEF")
 
 
 def nvcc() -> str:
@@ -166,6 +176,26 @@ def check_cuda_operands(name: str, x: torch.Tensor,
                     f"{name}: {arg} must be {want}, got {t.dtype}")
             if not t.is_contiguous():
                 raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def check_device(name: str, x: torch.Tensor) -> None:
+    """Raise unless ``x`` lies on the CPU (the plain version) or a CUDA
+    device (the kernel): a tensor anywhere else has neither."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+
+
+def define_op(name: str, schema: str, *, cpu: Callable, cuda: Callable,
+              fake: Callable):
+    """Define ``dfu::<name><schema>`` with ``cuda`` (the kernel launch)
+    as its CUDA implementation, ``cpu`` (the plain version, looked up at
+    call time so that a test may wrap it) as its CPU one and ``fake``
+    (shapes only) for tracing; returns the op."""
+    OPS.define(name + schema)
+    OPS.impl(name, cpu, "CPU")
+    OPS.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"dfu::{name}", fake, lib=OPS)
+    return getattr(torch.ops.dfu, name).default
 
 
 I, P, F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float

@@ -373,9 +373,16 @@ def _scale_args(d: int) -> Tuple[float, int]:
 
 
 def qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """K6 forward: qkv (B, N, 3C) -> attn (B, N, C) in qkv's dtype."""
-    if qkv.device.type == "cpu":
-        return qkv_attention_ref(qkv, num_heads)
+    """K6 forward: qkv (B, N, 3C) -> attn (B, N, C) in qkv's dtype.  The
+    call is the op ``dfu::qkv_attention_fwd`` (CPU:
+    :func:`qkv_attention_ref`; CUDA: the kernel)."""
+    _build.check_device("qkv_attention_fwd", qkv)
+    return _QKV_ATTENTION_FWD_OP(qkv, num_heads)
+
+
+def _qkv_attention_fwd_cuda(qkv: torch.Tensor,
+                            num_heads: int) -> torch.Tensor:
+    """``dfu::qkv_attention_fwd`` on the card."""
     _build.check_cuda_operands("qkv_attention_fwd", qkv, {"qkv": qkv}, {})
     b, n, d = _packed_dims("qkv_attention_fwd", qkv, num_heads)
     _check_head("qkv_attention_fwd", d)
@@ -388,6 +395,13 @@ def qkv_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         _build.stream_of(qkv)), "qkv_attention_fwd")
     qkv_attention_fwd.launches += 1
     return attn
+
+
+_QKV_ATTENTION_FWD_OP = _build.define_op(
+    "qkv_attention_fwd", "(Tensor qkv, int num_heads) -> Tensor",
+    cpu=lambda *a: qkv_attention_ref(*a), cuda=_qkv_attention_fwd_cuda,
+    fake=lambda qkv, num_heads: qkv.new_empty(
+        (*qkv.shape[:-1], qkv.shape[-1] // 3)))
 
 
 def qkv_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,

@@ -22,7 +22,8 @@ K-major copy, which the model keeps once per weight version
 (the block input quantised once for conv1 and the projection) takes that
 input as A.
 
-Dispatch is by device only: a CPU tensor takes the plain versions
+Dispatch is by device only, through the ops ``dfu::conv_q8`` and
+``dfu::quantize_act_q8``: a CPU tensor takes the plain versions
 (:func:`im2col_q8_ref`, ``ops/vit_block_q8.py::gemm_q8_ref``'s exact
 integer sums); a CUDA tensor launches ``csrc/conv_q8.cu`` (the gather,
 then ``gemm_sm90.cuh``'s int8 GEMM) or raises.  Serving only: no
@@ -187,11 +188,18 @@ def conv_q8(x: torch.Tensor, kernel_kmajor: torch.Tensor,
     act_scale·scale and ``bias`` (Cout,) fp32; ``resid`` (B, Ho, Wo,
     Cout) in the compute dtype, added to the rounded output; ``relu``
     last.  Padding k // 2.  Returns (B, Ho, Wo, Cout) in ``dtype`` (x's,
-    or the shortcut's for an int8 x, unless given)."""
+    or the shortcut's for an int8 x, unless given).  The call is the op
+    ``dfu::conv_q8`` (CPU: :func:`conv_q8_ref`; CUDA: the kernels)."""
     dtype = _out_dtype(x, resid, dtype)
-    if x.device.type == "cpu":
-        return conv_q8_ref(x, kernel_kmajor, col_scale, bias, act_scale, k,
-                           stride, relu, resid, dtype)
+    _build.check_device("conv_q8", x)
+    return _CONV_Q8_OP(x, kernel_kmajor, col_scale, bias, act_scale, k,
+                       stride, relu, resid, dtype)
+
+
+def _conv_q8_cuda(x, kernel_kmajor, col_scale, bias, act_scale, k, stride,
+                  relu, resid, dtype):
+    """``dfu::conv_q8`` on the card: the gather (but for an int8 1x1
+    stride-1 x), then the int8 GEMM."""
     _check("conv_q8", x, kernel_kmajor, col_scale, bias, act_scale, k,
            resid, dtype)
     b, h, w, cin = x.shape
@@ -227,9 +235,15 @@ def conv_q8(x: torch.Tensor, kernel_kmajor: torch.Tensor,
 def quantize_act_q8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """int8 of x (B, H, W, C) in the compute dtype by the static ``scale``
     (:func:`quantize_act`): on the card the gather's kernel as a 1x1
-    stride-1 gather, whose A is x's int8 (B, H, W, C)."""
-    if x.device.type == "cpu":
-        return quantize_act(x, scale)
+    stride-1 gather, whose A is x's int8 (B, H, W, C).  The call is the
+    op ``dfu::quantize_act_q8`` (CPU: :func:`quantize_act`)."""
+    _build.check_device("quantize_act_q8", x)
+    return _QUANTIZE_ACT_Q8_OP(x, scale)
+
+
+def _quantize_act_q8_cuda(x: torch.Tensor,
+                          scale: torch.Tensor) -> torch.Tensor:
+    """``dfu::quantize_act_q8`` on the card: the gather's kernel."""
     if x.dtype not in _build.DTYPE_CODES or not x.is_contiguous() \
             or x.dim() != 4 or x.shape[-1] % _C_UNIT or x.data_ptr() % 16:
         raise ValueError(f"quantize_act_q8: want a contiguous, 16-byte "
@@ -247,6 +261,24 @@ def quantize_act_q8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     quantize_act_q8.launches += 1
     return q
 
+
+def _conv_q8_fake(x, kernel_kmajor, col_scale, bias, act_scale, k, stride,
+                  relu, resid, dtype):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, *out_hw(h, w, k, stride), kernel_kmajor.shape[0]),
+                       dtype=dtype)
+
+
+_CONV_Q8_OP = _build.define_op(
+    "conv_q8",
+    "(Tensor x, Tensor kernel_kmajor, Tensor col_scale, Tensor bias, "
+    "Tensor? act_scale, int k, int stride, bool relu, Tensor? resid, "
+    "ScalarType dtype) -> Tensor",
+    cpu=lambda *a: conv_q8_ref(*a), cuda=_conv_q8_cuda, fake=_conv_q8_fake)
+_QUANTIZE_ACT_Q8_OP = _build.define_op(
+    "quantize_act_q8", "(Tensor x, Tensor scale) -> Tensor",
+    cpu=lambda *a: quantize_act(*a), cuda=_quantize_act_q8_cuda,
+    fake=lambda x, scale: torch.empty_like(x, dtype=torch.int8))
 
 # launch counts: one per call that ran the kernels (CPU calls do not count)
 conv_q8.launches = 0

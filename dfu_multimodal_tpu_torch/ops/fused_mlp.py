@@ -3,7 +3,8 @@
 Counterpart of ``dfu_multimodal_tpu/ops/fused_mlp.py``:
 relu(relu(x@w1+b1)@w2+b2)@w3+b3 in one launch (``csrc/fused_mlp.cu``),
 the eval forward of the multimodal late-fusion head.  A CPU tensor takes
-:func:`fused_mlp_ref`; a CUDA tensor launches the kernel or raises.
+:func:`fused_mlp_ref`; a CUDA tensor launches the kernel or raises (the
+op ``dfu::fused_mlp`` dispatches).
 Weights are (in, out) in x's dtype, biases fp32; the result is fp32.  A
 weight may be row-major (the JAX layout) or the transposed view of an
 (out, in) row-major matrix (``nn.Linear.weight.t()``): the kernel reads
@@ -74,9 +75,14 @@ def fused_mlp(x: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor,
               w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
     """x (B, D0) -> (B, D3) float32 through the three layers.  Each weight
-    (in, out), row-major or ``nn.Linear.weight.t()``."""
-    if x.device.type == "cpu":
-        return fused_mlp_ref(x, w1, b1, w2, b2, w3, b3)
+    (in, out), row-major or ``nn.Linear.weight.t()``.  The call is the op
+    ``dfu::fused_mlp`` (CPU: :func:`fused_mlp_ref`; CUDA: the kernel)."""
+    _build.check_device("fused_mlp", x)
+    return _FUSED_MLP_OP(x, w1, b1, w2, b2, w3, b3)
+
+
+def _fused_mlp_cuda(x, w1, b1, w2, b2, w3, b3):
+    """``dfu::fused_mlp`` on the card: one cooperative launch."""
     _build.check_cuda_operands("fused_mlp", x, {"x": x},
                                {"b1": b1, "b2": b2, "b3": b3})
     layouts = [_layout(name, w, x) for name, w in
@@ -106,6 +112,14 @@ def fused_mlp(x: torch.Tensor,
     fused_mlp.launches += 1
     return out
 
+
+_FUSED_MLP_OP = _build.define_op(
+    "fused_mlp",
+    "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor w3, "
+    "Tensor b3) -> Tensor",
+    cpu=lambda *a: fused_mlp_ref(*a), cuda=_fused_mlp_cuda,
+    fake=lambda x, w1, b1, w2, b2, w3, b3: x.new_empty(
+        (x.shape[0], w3.shape[1]), dtype=torch.float32))
 
 # launch count: one per call that ran the kernel (CPU calls do not count)
 fused_mlp.launches = 0

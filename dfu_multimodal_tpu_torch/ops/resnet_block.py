@@ -18,7 +18,8 @@ compute dtype; biases fp32.
 
 Dispatch is by device only: a CPU tensor takes the plain version
 (:func:`bottleneck_ref`, :func:`stage_ref`), a CUDA tensor launches
-``csrc/resnet_block.cu`` or raises.  In bf16 :func:`fused_bottleneck`
+``csrc/resnet_block.cu`` or raises (for the bottleneck the op
+``dfu::fused_bottleneck`` dispatches).  In bf16 :func:`fused_bottleneck`
 runs its products on ``csrc/gemm_sm90.cuh``'s TMA + wgmma GEMM (the 3x3
 as its implicit-GEMM mode), and :func:`fused_stage` walks the same tiles
 in one cooperative launch; both take channel counts that are multiples
@@ -84,11 +85,17 @@ def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     ``wd``/``bd`` give the projection shortcut, else Cin == Cout.  bf16
     needs Cin, Cmid and Cout multiples of 8 and 16-byte-aligned x and
     weights (ValueError otherwise).  Counts ``fused_bottleneck.launches``
-    (identity) and ``.proj_launches``."""
+    (identity) and ``.proj_launches``.  The call is the op
+    ``dfu::fused_bottleneck`` (CPU: :func:`bottleneck_ref`; CUDA: the
+    kernel)."""
     if (wd is None) != (bd is None):
         raise ValueError("fused_bottleneck: give both wd and bd, or neither")
-    if x.device.type == "cpu":
-        return bottleneck_ref(x, w1, b1, w2, b2, w3, b3, wd, bd)
+    _build.check_device("fused_bottleneck", x)
+    return _FUSED_BOTTLENECK_OP(x, w1, b1, w2, b2, w3, b3, wd, bd)
+
+
+def _fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3, wd, bd):
+    """``dfu::fused_bottleneck`` on the card: one launch."""
     proj = wd is not None
     compute = {"x": x, "w1": w1, "w2": w2, "w3": w3}
     fp32 = {"b1": b1, "b2": b2, "b3": b3}
@@ -153,6 +160,14 @@ def _check_tma(name: str, x: torch.Tensor, operands: dict,
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: bf16 {key} must be 16-byte aligned")
 
+
+_FUSED_BOTTLENECK_OP = _build.define_op(
+    "fused_bottleneck",
+    "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor w3, "
+    "Tensor b3, Tensor? wd, Tensor? bd) -> Tensor",
+    cpu=lambda *a: bottleneck_ref(*a), cuda=_fused_bottleneck_cuda,
+    fake=lambda x, w1, b1, w2, b2, w3, *_: x.new_empty(
+        (*x.shape[:-1], w3.shape[-1])))
 
 # launch counts: one per call that ran the kernels (CPU calls do not count)
 fused_bottleneck.launches = 0

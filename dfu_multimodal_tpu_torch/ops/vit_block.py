@@ -299,10 +299,16 @@ def attn_block(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
     16-byte-aligned x, wqkv, wproj (ValueError otherwise).  ``bias``:
     ToMe's per-key score bias (B, N), cast to fp32 as JAX casts it, added
     to the scaled scores inside the same attention kernel (a call with
-    one also counts in ``attn_block.bias_launches``).  Inference only."""
-    if x.device.type == "cpu":
-        return attn_block_ref(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads,
-                              bias)
+    one also counts in ``attn_block.bias_launches``).  Inference only.
+    The call is the op ``dfu::attn_block``: its CPU implementation is
+    :func:`attn_block_ref`, its CUDA one the kernels."""
+    _build.check_device("attn_block", x)
+    return _ATTN_BLOCK_OP(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads,
+                          bias)
+
+
+def _attn_block_cuda(x, g1, b1, wqkv, bqkv, wproj, bproj, num_heads, bias):
+    """``dfu::attn_block`` on the card: LN1, qkv, attention, proj."""
     _build.check_cuda_operands(
         "attn_block", x, {"x": x, "wqkv": wqkv, "wproj": wproj},
         {"g1": g1, "b1": b1, "bqkv": bqkv, "bproj": bproj})
@@ -374,9 +380,14 @@ def mlp_block(x: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
     """x + fc2(gelu(fc1(LN2(x)))).  x (B, N, C); w1 (C, H) and w2 (H, C)
     in x's dtype; g2, b2, b1, b2b fp32.  On the card, bf16 runs fc1 and fc2
     on the TMA + wgmma GEMM; it needs C and H multiples of 8 and
-    16-byte-aligned x, w1, w2 (ValueError otherwise)."""
-    if x.device.type == "cpu":
-        return mlp_block_ref(x, g2, b2, w1, b1, w2, b2b)
+    16-byte-aligned x, w1, w2 (ValueError otherwise).  The call is the op
+    ``dfu::mlp_block`` (CPU: :func:`mlp_block_ref`; CUDA: the kernels)."""
+    _build.check_device("mlp_block", x)
+    return _MLP_BLOCK_OP(x, g2, b2, w1, b1, w2, b2b)
+
+
+def _mlp_block_cuda(x, g2, b2, w1, b1, w2, b2b):
+    """``dfu::mlp_block`` on the card: LN2, fc1 + GELU, fc2 + residual."""
     rows, c, hidden = _check_mlp("mlp_block", x, g2, b2, w1, b1, w2)
     _build.check_cuda_operands("mlp_block", x, {}, {"b2b": b2b})
     if b2b.shape != (c,):
@@ -444,6 +455,22 @@ def mlp_block_bwd(x: torch.Tensor, g: torch.Tensor, g2: torch.Tensor,
     mlp_block_bwd.launches += 1
     return dx, y, h, dhpre, dg2, db2
 
+
+def _like_x(x, *args):
+    """The blocks' fake implementation: an output shaped as x."""
+    return torch.empty_like(x)
+
+
+_ATTN_BLOCK_OP = _build.define_op(
+    "attn_block",
+    "(Tensor x, Tensor g1, Tensor b1, Tensor wqkv, Tensor bqkv, "
+    "Tensor wproj, Tensor bproj, int num_heads, Tensor? bias) -> Tensor",
+    cpu=lambda *a: attn_block_ref(*a), cuda=_attn_block_cuda, fake=_like_x)
+_MLP_BLOCK_OP = _build.define_op(
+    "mlp_block",
+    "(Tensor x, Tensor g2, Tensor b2, Tensor w1, Tensor b1, Tensor w2, "
+    "Tensor b2b) -> Tensor",
+    cpu=lambda *a: mlp_block_ref(*a), cuda=_mlp_block_cuda, fake=_like_x)
 
 # launch counts: one per call that ran the kernels (CPU calls do not count)
 attn_block.launches = 0

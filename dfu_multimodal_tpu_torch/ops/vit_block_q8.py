@@ -30,9 +30,10 @@ Rounding is half to even, clipped to [-127, 127].  GELU is exact erf (the
 Pallas kernels' logistic form exists only because Mosaic cannot lower
 erf).  Serving only: no backward.
 
-Dispatch is by device only.  A CPU tensor takes the plain versions
-(``*_ref``); a CUDA tensor launches the kernels of ``csrc/vit_block_q8.cu``
-or raises.  Arguments keep the JAX order and layouts: x (B, N, C) in the
+Dispatch is by device only: each block is an op ``dfu::<name>``, whose
+CPU implementation is its plain version (``*_ref``) and whose CUDA one
+launches the kernels of ``csrc/vit_block_q8.cu`` or raises.  Arguments
+keep the JAX order and layouts: x (B, N, C) in the
 compute dtype, weights int8 (in, out), scales, biases and LayerNorm params
 fp32.  The card's int8 products (wgmma) read both operands K-major, so
 they read each weight's (out, in) copy: the keyword ``kmajor`` passes the
@@ -59,7 +60,7 @@ from dfu_multimodal_tpu_torch.ops import _build
 from dfu_multimodal_tpu_torch.ops.attention import _is_pow2
 from dfu_multimodal_tpu_torch.ops.vit_block import (LN_EPS, _HEAD_DIMS,
                                                    _key_bias,
-                                                   _layernorm_f32)
+                                                   _layernorm_f32, _like_x)
 
 Q_MAX = 127.0
 # the int8 GEMM's k32 step: C and the hidden chunk width are multiples
@@ -422,14 +423,9 @@ def attn_block_q8(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
     card's products (made per call when None; ignored on the CPU).
     ``bias``: ToMe's (B, N) key bias, as ``ops.vit_block.attn_block``'s (a
     call with one also counts in ``attn_block_q8.bias_launches``)."""
-    if x.device.type == "cpu":
-        return attn_block_q8_ref(x, g1, b1, wqkv_q8, sqkv, bqkv, wproj_q8,
-                                 sproj, bproj, num_heads, bias)
-    out = _attn_cuda("attn_block_q8", x, g1, b1, wqkv_q8, sqkv, bqkv,
-                     wproj_q8, sproj, bproj, num_heads, None, kmajor, bias)
-    attn_block_q8.launches += 1
-    attn_block_q8.bias_launches += bias is not None
-    return out
+    _build.check_device("attn_block_q8", x)
+    return _ATTN_Q8_OP(x, g1, b1, wqkv_q8, sqkv, bqkv, wproj_q8, sproj,
+                       bproj, num_heads, bias, *_pair(kmajor))
 
 
 def mlp_block_q8(x: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
@@ -441,13 +437,9 @@ def mlp_block_q8(x: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
     per-row activation scales (each hidden chunk its own).  w1_q8 (C, H),
     w2_q8 (H, C) int8; scales, biases, g2, b2 fp32.  ``kmajor``: (w1_q8ᵀ,
     w2_q8ᵀ) contiguous, as :func:`attn_block_q8`'s."""
-    if x.device.type == "cpu":
-        return mlp_block_q8_ref(x, g2, b2, w1_q8, s1, b1, w2_q8, s2, b2b,
-                                hidden_chunks)
-    out = _mlp_cuda("mlp_block_q8", x, g2, b2, w1_q8, s1, b1, w2_q8, s2,
-                    b2b, hidden_chunks, None, kmajor)
-    mlp_block_q8.launches += 1
-    return out
+    _build.check_device("mlp_block_q8", x)
+    return _MLP_Q8_OP(x, g2, b2, w1_q8, s1, b1, w2_q8, s2, b2b,
+                      hidden_chunks, *_pair(kmajor))
 
 
 def attn_block_q8s(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
@@ -460,16 +452,10 @@ def attn_block_q8s(x: torch.Tensor, g1: torch.Tensor, b1: torch.Tensor,
     the per-channel weight scales pre-multiplied by the calibrated input
     act scales; ``inv_scales`` (2,) fp32 = [1/s_ln1_out, 1/s_attn_out];
     ``kmajor`` and ``bias`` as :func:`attn_block_q8`'s."""
-    if x.device.type == "cpu":
-        return attn_block_q8s_ref(x, g1, b1, wqkv_q8, sqkv_eff, bqkv,
-                                  wproj_q8, sproj_eff, bproj, inv_scales,
-                                  num_heads, bias)
-    out = _attn_cuda("attn_block_q8s", x, g1, b1, wqkv_q8, sqkv_eff, bqkv,
-                     wproj_q8, sproj_eff, bproj, num_heads, inv_scales,
-                     kmajor, bias)
-    attn_block_q8s.launches += 1
-    attn_block_q8s.bias_launches += bias is not None
-    return out
+    _build.check_device("attn_block_q8s", x)
+    return _ATTN_Q8S_OP(x, g1, b1, wqkv_q8, sqkv_eff, bqkv, wproj_q8,
+                        sproj_eff, bproj, inv_scales, num_heads, bias,
+                        *_pair(kmajor))
 
 
 def mlp_block_q8s(x: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
@@ -481,14 +467,77 @@ def mlp_block_q8s(x: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
                   kmajor: Kmajor = None) -> torch.Tensor:
     """Static-scale int8 MLP block; ``inv_scales`` (2,) fp32 =
     [1/s_ln2_out, 1/s_gelu_out]; ``kmajor`` as :func:`mlp_block_q8`'s."""
-    if x.device.type == "cpu":
-        return mlp_block_q8s_ref(x, g2, b2, w1_q8, s1_eff, b1, w2_q8, s2_eff,
-                                 b2b, inv_scales, hidden_chunks)
-    out = _mlp_cuda("mlp_block_q8s", x, g2, b2, w1_q8, s1_eff, b1, w2_q8,
-                    s2_eff, b2b, hidden_chunks, inv_scales, kmajor)
+    _build.check_device("mlp_block_q8s", x)
+    return _MLP_Q8S_OP(x, g2, b2, w1_q8, s1_eff, b1, w2_q8, s2_eff, b2b,
+                       inv_scales, hidden_chunks, *_pair(kmajor))
+
+
+def _pair(kmajor: Kmajor) -> Tuple[Optional[torch.Tensor], ...]:
+    return (None, None) if kmajor is None else tuple(kmajor)
+
+
+def _kept(a, b):
+    return None if a is None else (a, b)
+
+
+# the four blocks as ops ``dfu::<name>``: CPU the plain version, CUDA the
+# kernels; the K-major weight copies are the last two (optional) operands
+def _attn_q8_cuda(*args):
+    *args, bias, wa_t, wb_t = args
+    out = _attn_cuda("attn_block_q8", *args, None, _kept(wa_t, wb_t), bias)
+    attn_block_q8.launches += 1
+    attn_block_q8.bias_launches += bias is not None
+    return out
+
+
+def _mlp_q8_cuda(*args):
+    *args, wa_t, wb_t = args
+    out = _mlp_cuda("mlp_block_q8", *args, None, _kept(wa_t, wb_t))
+    mlp_block_q8.launches += 1
+    return out
+
+
+def _attn_q8s_cuda(*args):
+    *args, inv_scales, num_heads, bias, wa_t, wb_t = args
+    out = _attn_cuda("attn_block_q8s", *args, num_heads, inv_scales,
+                     _kept(wa_t, wb_t), bias)
+    attn_block_q8s.launches += 1
+    attn_block_q8s.bias_launches += bias is not None
+    return out
+
+
+def _mlp_q8s_cuda(*args):
+    *args, inv_scales, hidden_chunks, wa_t, wb_t = args
+    out = _mlp_cuda("mlp_block_q8s", *args, hidden_chunks, inv_scales,
+                    _kept(wa_t, wb_t))
     mlp_block_q8s.launches += 1
     return out
 
+
+_Q8_ATTN = ("Tensor x, Tensor g1, Tensor b1, Tensor wqkv_q8, Tensor sqkv, "
+            "Tensor bqkv, Tensor wproj_q8, Tensor sproj, Tensor bproj, ")
+_Q8_MLP = ("Tensor x, Tensor g2, Tensor b2, Tensor w1_q8, Tensor s1, "
+           "Tensor b1, Tensor w2_q8, Tensor s2, Tensor b2b, ")
+_Q8_KMAJOR = "Tensor? wa_t, Tensor? wb_t) -> Tensor"
+_ATTN_Q8_OP = _build.define_op(
+    "attn_block_q8", f"({_Q8_ATTN}int num_heads, Tensor? bias, {_Q8_KMAJOR}",
+    cpu=lambda *a: attn_block_q8_ref(*a[:-2]), cuda=_attn_q8_cuda,
+    fake=_like_x)
+_MLP_Q8_OP = _build.define_op(
+    "mlp_block_q8", f"({_Q8_MLP}int hidden_chunks, {_Q8_KMAJOR}",
+    cpu=lambda *a: mlp_block_q8_ref(*a[:-2]), cuda=_mlp_q8_cuda,
+    fake=_like_x)
+_ATTN_Q8S_OP = _build.define_op(
+    "attn_block_q8s",
+    f"({_Q8_ATTN}Tensor inv_scales, int num_heads, Tensor? bias, "
+    f"{_Q8_KMAJOR}",
+    cpu=lambda *a: attn_block_q8s_ref(*a[:-2]), cuda=_attn_q8s_cuda,
+    fake=_like_x)
+_MLP_Q8S_OP = _build.define_op(
+    "mlp_block_q8s",
+    f"({_Q8_MLP}Tensor inv_scales, int hidden_chunks, {_Q8_KMAJOR}",
+    cpu=lambda *a: mlp_block_q8s_ref(*a[:-2]), cuda=_mlp_q8s_cuda,
+    fake=_like_x)
 
 # launch counts: one per call that ran the kernels (CPU calls do not count)
 attn_block_q8.launches = 0

@@ -34,11 +34,12 @@
 One device, so no mesh padding.  :func:`quantize_for_serving` rebuilds a
 trainer around the int8 serving paths: the fused int8 ViT blocks
 (``ops/vit_block_q8.py``) and the calibrated int8 ResNet trunk
-(``models/resnet_q8.py`` on ``ops/conv_q8.py``); :func:`tome_for_serving`
-around the token-merged ViT (``ops/token_merge.py``, ``models/vit.py``
-``token_merge``), after it or alone.  Not ported yet: exported bundles
-(``serve/export.py``) and the int8 ResNet-18 students, whose flags the
-serve and predict CLIs refuse with the module named.
+(``models/resnet_q8.py`` on ``ops/conv_q8.py``, the ResNet-18 students'
+basic-block trunks too); :func:`tome_for_serving` around the
+token-merged ViT (``ops/token_merge.py``, ``models/vit.py``
+``token_merge``), after it or alone.  An exported bundle
+(``serve/export.py::load_bundle``) serves through the same engine:
+pass its buckets (``buckets=servable.buckets``).
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ from dfu_multimodal_tpu_torch.data.transforms import eval_normalize
 from dfu_multimodal_tpu_torch.eval.calibration import apply_temperature
 from dfu_multimodal_tpu_torch.models.resnet_q8 import quantize_rgb_trunks
 from dfu_multimodal_tpu_torch.models.vit import quantize_variables
+from dfu_multimodal_tpu_torch.serve.export import default_buckets
 from dfu_multimodal_tpu_torch.train.engine import Trainer
 
 # models with an int8 serving path, and the subset whose ResNet trunk
@@ -64,10 +66,11 @@ from dfu_multimodal_tpu_torch.train.engine import Trainer
 RESNET_TRUNK_MODELS = frozenset(
     {"rgb_only", "multimodal", "resnet18_rgb", "resnet18_thermal"})
 INT8_MODELS = RESNET_TRUNK_MODELS | {"thermal_only"}
-# those the port has (not the ResNet-18 students yet), and the
-# model argument that makes each one's ResNet trunk the int8 one
-PORTED_INT8_MODELS = frozenset({"rgb_only", "multimodal", "thermal_only"})
-RGB_IMPL_ARG = {"rgb_only": "block_impl", "multimodal": "rgb_impl"}
+# the model argument that picks each one's ResNet trunk (int8, or the
+# ResNet-50's fused bottlenecks)
+RGB_IMPL_ARG = {"rgb_only": "block_impl", "multimodal": "rgb_impl",
+                "resnet18_rgb": "block_impl",
+                "resnet18_thermal": "block_impl"}
 
 
 def quantize_for_serving(trainer: Trainer, image_size: int = 224,
@@ -85,8 +88,8 @@ def quantize_for_serving(trainer: Trainer, image_size: int = 224,
     ``calib_u8``: (N, S, S, 3) uint8 images that fix the ResNet trunk's
     activation scales (the first 32, normalised as the eval step does, in
     the compute dtype, of the modality that feeds the trunk); required
-    for ``rgb_only`` and ``multimodal``, ignored by ``thermal_only``.  The
-    ResNet-18 students raise ``NotImplementedError``."""
+    for ``rgb_only``, ``multimodal`` and the ResNet-18 students, ignored
+    by ``thermal_only``."""
     model_name = trainer.spec.name
     if model_name not in INT8_MODELS:
         # the int8 paths are trunk-specific — reject other models with
@@ -100,11 +103,6 @@ def quantize_for_serving(trainer: Trainer, image_size: int = 224,
         raise ValueError(
             "int8 serving of a ResNet trunk needs calibration images "
             "(calib_u8) to fix the static activation scales")
-    if model_name not in PORTED_INT8_MODELS:
-        raise NotImplementedError(
-            f"int8 serving of {model_name!r} needs the ResNet-18 student "
-            "and its int8 twin (models/resnet.py's ResNet18, "
-            "models/resnet_q8.py's Int8ResNet18), not ported yet")
     state = trainer.variables()
     impls = {}
     if model_name in ("thermal_only", "multimodal"):
@@ -191,7 +189,9 @@ class ServingEngine:
     ``serve.explain.Explainer`` (None: :meth:`submit_explain` raises
     :class:`ExplainUnavailable`); ``pipeline_depth``: 1 runs a batch to
     its results before the next, 2 dispatches the next batch before
-    fetching the last one's (the module docstring).
+    fetching the last one's (the module docstring); ``buckets``: the batch
+    sizes to pad to (an exported bundle's; default the power-of-two
+    ladder up to ``max_batch``, which is then the largest bucket).
     """
 
     def __init__(self, trainer, *, image_size: int = 224,
@@ -200,7 +200,8 @@ class ServingEngine:
                  threshold: Optional[float] = None,
                  temperature: Optional[float] = None,
                  drift_monitor=None, explainer=None,
-                 pipeline_depth: int = 1):
+                 pipeline_depth: int = 1,
+                 buckets: Optional[Sequence[int]] = None):
         self.threshold = None if threshold is None else float(threshold)
         self.temperature = (None if temperature is None
                             else float(temperature))
@@ -218,14 +219,10 @@ class ServingEngine:
         self.inputs: Tuple[str, ...] = tuple(trainer.spec.inputs)
         self.model_name: str = trainer.spec.name
         self.max_wait_s = float(max_wait_ms) * 1e-3
-        # power-of-two ladder capped by max_batch
-        self.max_batch = int(max_batch)
-        ladder: List[int] = []
-        b = 1
-        while b < self.max_batch:
-            ladder.append(b)
-            b *= 2
-        self.buckets = tuple(ladder) + (self.max_batch,)
+        self.buckets = tuple(sorted(set(int(b) for b in (
+            buckets if buckets is not None
+            else default_buckets(max_batch)))))
+        self.max_batch = self.buckets[-1]
         # bounded admission: None keeps an unbounded queue
         self.max_queue = None if max_queue is None else int(max_queue)
         self._queue: "queue.Queue" = queue.Queue(

@@ -19,15 +19,20 @@ checkpoint restore produce them) and returns the port model's
 - the patch-embed dense kernel (P·P·C, O) -> the conv (O, C, P, P);
 - BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, ``batch_stats``
   ``mean``/``var`` -> ``running_mean``/``running_var``;
+- a ResNet trunk's bottlenecks (``conv1..3``, ``bn1..3``, ``down_*``)
+  or the ResNet-18 student's basic blocks (``conv1``, ``bn1``, ``conv2``,
+  ``bn2``, ``proj_*``) map to torchvision's keys
+  (:func:`resnet_state_dict`; :func:`resnet_params` goes back);
 - an int8 ResNet trunk (``models/resnet_q8.py::quantize_rgb_trunks``
-  trees: ``stem_kernel``, ``stem_bias`` and ``_QConv`` scopes) maps to
-  the port's ``models/resnet_q8.py`` keys (:func:`int8_resnet_state_dict`;
-  :func:`int8_resnet_params` goes back).
+  trees: ``stem_kernel``, ``stem_bias`` and ``_QConv`` scopes, the
+  student's too) maps to the port's ``models/resnet_q8.py`` keys
+  (:func:`int8_resnet_state_dict`; :func:`int8_resnet_params` goes back).
 
 Models: ``multimodal`` (``rgb_branch`` / ``thermal_branch`` / ``fusion``),
 ``thermal_only`` (the JAX trunk scope ``ViT_0`` -> ``vit.``, the ``head``
 Dense -> ``head``), ``rgb_only`` (``ResNet_0`` params and batch stats
--> ``resnet.``, ``head`` -> ``head``), and the smoke models ``tiny_rgb``
+-> ``resnet.``, ``head`` -> ``head``; the students ``resnet18_rgb`` /
+``resnet18_thermal`` likewise), and the smoke models ``tiny_rgb``
 / ``tiny_thermal`` (``conv0``, ``bn0``, ``conv1``, ``bn1``, ``head`` at
 the top level) and ``tiny_fusion`` (those layers under ``rgb_branch`` /
 ``thermal_branch``, and ``head``).  A tree without ``batch_stats``
@@ -95,10 +100,18 @@ def _batchnorm(out: StateDict, key: str, params: Mapping,
     out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
+def _block_convs(block: Mapping) -> tuple:
+    """(conv count, shortcut scope prefix) of a JAX ResNet block: a
+    bottleneck (conv1..3, ``down_``) or a basic block (conv1..2,
+    ``proj_``)."""
+    return (3, "down_") if "conv3" in block else (2, "proj_")
+
+
 def resnet_state_dict(params: Mapping, stats: Optional[Mapping],
                       prefix: str = "") -> StateDict:
-    """JAX ResNet trunk subtree -> torchvision-layout keys (no running
-    statistics when ``stats`` is None)."""
+    """JAX ResNet trunk subtree (bottleneck or basic blocks) ->
+    torchvision-layout keys (no running statistics when ``stats`` is
+    None)."""
     out: StateDict = {}
     out[f"{prefix}conv1.weight"] = _conv(params["stem_conv"]["kernel"])
     _batchnorm(out, f"{prefix}bn1", params["stem_bn"],
@@ -107,16 +120,56 @@ def resnet_state_dict(params: Mapping, stats: Optional[Mapping],
         stage, block = scope[len("stage"):].split("_block")
         base = f"{prefix}layer{stage}.{block}"
         p, s = params[scope], None if stats is None else stats[scope]
-        for i in (1, 2, 3):
+        convs, short = _block_convs(p)
+        for i in range(1, convs + 1):
             out[f"{base}.conv{i}.weight"] = _conv(p[f"conv{i}"]["kernel"])
             _batchnorm(out, f"{base}.bn{i}", p[f"bn{i}"],
                        None if s is None else s[f"bn{i}"])
-        if "down_conv" in p:
+        if f"{short}conv" in p:
             out[f"{base}.downsample.0.weight"] = _conv(
-                p["down_conv"]["kernel"])
-            _batchnorm(out, f"{base}.downsample.1", p["down_bn"],
-                       None if s is None else s["down_bn"])
+                p[f"{short}conv"]["kernel"])
+            _batchnorm(out, f"{base}.downsample.1", p[f"{short}bn"],
+                       None if s is None else s[f"{short}bn"])
     return out
+
+
+def resnet_params(state_dict: Mapping[str, torch.Tensor],
+                  prefix: str = "") -> tuple:
+    """The inverse of :func:`resnet_state_dict`: the port's float ResNet
+    trunk keys under ``prefix`` -> the JAX trunk's (params, batch_stats)
+    trees of numpy arrays (OIHW -> HWIO; bottleneck or basic blocks, as
+    the keys show; no batch_stats entries without running statistics)."""
+    sub = {k[len(prefix):]: v.detach().cpu() for k, v in state_dict.items()
+           if k.startswith(prefix)}
+
+    def conv(name):
+        return {"kernel": _f32(sub[f"{name}.weight"]).transpose(
+            2, 3, 1, 0).copy()}
+
+    def bn(p, st, key, name):
+        p[key] = {"scale": _f32(sub[f"{name}.weight"]),
+                  "bias": _f32(sub[f"{name}.bias"])}
+        if f"{name}.running_mean" in sub:
+            st[key] = {"mean": _f32(sub[f"{name}.running_mean"]),
+                       "var": _f32(sub[f"{name}.running_var"])}
+
+    params: Dict[str, Any] = {"stem_conv": conv("conv1")}
+    stats: Dict[str, Any] = {}
+    bn(params, stats, "stem_bn", "bn1")
+    basic = "layer1.0.conv3.weight" not in sub
+    short = "proj_" if basic else "down_"
+    for layer, block in sorted({tuple(k.split(".")[:2]) for k in sub
+                                if k.startswith("layer")}):
+        scope, base = f"stage{layer[len('layer'):]}_block{block}", \
+            f"{layer}.{block}"
+        p, st = params.setdefault(scope, {}), stats.setdefault(scope, {})
+        for i in range(1, 3 if basic else 4):
+            p[f"conv{i}"] = conv(f"{base}.conv{i}")
+            bn(p, st, f"bn{i}", f"{base}.bn{i}")
+        if f"{base}.downsample.0.weight" in sub:
+            p[f"{short}conv"] = conv(f"{base}.downsample.0")
+            bn(p, st, f"{short}bn", f"{base}.downsample.1")
+    return params, {k: v for k, v in stats.items() if v}
 
 
 _QCONV_KEYS = ("kernel_q8", "scale", "bias", "act_scale")
@@ -127,16 +180,13 @@ def int8_resnet_state_dict(params: Mapping, prefix: str = "") -> StateDict:
     quantize_rgb_trunks``'s) -> the port's ``models/resnet_q8.py`` keys:
     ``stem_kernel`` HWIO -> OIHW, each ``_QConv`` (``kernel_q8`` int8
     HWIO as it is, ``scale``, ``bias``, ``act_scale``) under
-    ``layer{s}.{i}.{conv1,conv2,conv3,down}``."""
+    ``layer{s}.{i}.{conv1,conv2,conv3,down}`` (a basic block's
+    ``{conv1,conv2,proj}``)."""
     out: StateDict = {f"{prefix}stem_kernel": _conv(params["stem_kernel"]),
                       f"{prefix}stem_bias": _t(params["stem_bias"])}
     for scope in sorted(k for k in params if k.startswith("stage")):
         stage, block = scope[len("stage"):].split("_block")
         base = f"{prefix}layer{stage}.{block}"
-        if "conv3" not in params[scope]:
-            raise NotImplementedError(
-                "the int8 ResNet-18 student tree (basic blocks) is not "
-                "ported yet (models/resnet_q8.py's Int8BasicBlock)")
         for conv, p in params[scope].items():
             out[f"{base}.{conv}.kernel_q8"] = torch.from_numpy(
                 np.array(p["kernel_q8"], dtype=np.int8, order="C"))
@@ -307,7 +357,8 @@ def variables_to_state_dict(model_name: str,
         out["head.weight"] = _dense(params["head"]["kernel"])
         out["head.bias"] = _t(params["head"]["bias"])
         return out
-    if model_name in ("thermal_only", "rgb_only"):
+    if model_name in ("thermal_only", "rgb_only", "resnet18_rgb",
+                      "resnet18_thermal"):
         if model_name == "thermal_only":
             out = vit_state_dict(params["ViT_0"], "vit.")
         else:

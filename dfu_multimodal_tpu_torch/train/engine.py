@@ -51,8 +51,8 @@ import json
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import (Callable, Dict, Iterator, List, Mapping, Optional, Tuple,
-                    Union)
+from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -149,6 +149,38 @@ def mixup_loss(per_sample: Callable, logits: torch.Tensor,
     return (wa * la + wb * lb).sum() / (wa + wb).sum().clamp_min(1e-12)
 
 
+def serving_outputs(forward: Callable[..., torch.Tensor],
+                    batch: Mapping[str, torch.Tensor],
+                    inputs: Sequence[str],
+                    modalities: Dict[str, ModalityConfig],
+                    compute_dtype: torch.dtype,
+                    class_weights: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """The eval step's tensor part, which :meth:`Trainer.eval_step` and
+    the exported serving programs (``serve/export.py``) both run, so the
+    two cannot drift: ``batch`` {modality: (B, S, S, 3) uint8 on the
+    model's device[, "label", "valid"]} -> ``probs`` = softmax(logits)[:,
+    1], ``preds`` = argmax(logits) and, with ``label``, ``loss`` (the CE
+    over the valid rows, weighted by ``class_weights`` of each label when
+    given) and ``counts``.  ``forward`` maps the normalised inputs, in
+    ``inputs`` order, to logits."""
+    logits = forward(*(eval_normalize(batch[m], modalities[m],
+                                      compute_dtype)
+                       for m in inputs)).float()
+    out = {"probs": torch.softmax(logits, dim=-1)[:, 1],
+           "preds": torch.argmax(logits, dim=-1)}
+    if "label" in batch:
+        labels = batch["label"].long()
+        valid = (batch["valid"].float() if "valid" in batch
+                 else torch.ones_like(logits[:, 0]))
+        weights = (valid if class_weights is None
+                   else class_weights[labels] * valid)
+        out["loss"] = weighted_mean(per_sample_ce(logits, labels), weights)
+        out["counts"] = metrics_mod.confusion_counts(out["preds"], labels,
+                                                     valid)
+    return out
+
+
 @dataclass
 class EpochMetrics:
     loss: float
@@ -220,16 +252,22 @@ class Trainer:
         # TrainState's ema_params; BatchNorm buffers stay live
         self.ema_params: Optional[Dict[str, torch.Tensor]] = None
 
-    def _forward(self, *inputs: torch.Tensor, **kwargs) -> torch.Tensor:
-        """The module on ``inputs``; with ``cfg.qat`` through its trunk
-        weights snapped to the int8 serving grids (``train/qat.py``), the
-        parameters themselves untouched."""
-        if not self.cfg.qat:
+    def _forward(self, *inputs: torch.Tensor,
+                 state: Optional[Mapping[str, torch.Tensor]] = None,
+                 **kwargs) -> torch.Tensor:
+        """The module on ``inputs``, on its own tensors or on ``state``
+        (parameters and buffers by name: an exported program's inputs);
+        with ``cfg.qat`` through its trunk weights snapped to the int8
+        serving grids (``train/qat.py``), the tensors themselves
+        untouched."""
+        if state is None and not self.cfg.qat:
             return self.module(*inputs, **kwargs)
-        params = dict(self.module.named_parameters())
-        return torch.func.functional_call(
-            self.module, qat_mod.fake_quant_trunks(params), inputs, kwargs,
-            strict=False)
+        if state is None:
+            state = dict(self.module.named_parameters())
+        if self.cfg.qat:
+            state = qat_mod.fake_quant_trunks(state)
+        return torch.func.functional_call(self.module, state, inputs,
+                                          kwargs, strict=False)
 
     def variables(self) -> Dict[str, torch.Tensor]:
         """The model's weights and BatchNorm statistics (the JAX
@@ -254,9 +292,8 @@ class Trainer:
 
     def _sample_weights(self, labels: torch.Tensor,
                         valid: torch.Tensor) -> torch.Tensor:
-        if self.class_weights is not None and self.cfg.class_weighted_loss:
-            return self.class_weights[labels.long()] * valid
-        return valid
+        weights = self.loss_class_weights()
+        return valid if weights is None else weights[labels.long()] * valid
 
     def _per_sample(self) -> Callable:
         if self.cfg.loss == "focal":
@@ -393,20 +430,19 @@ class Trainer:
         by default) in the batch also ``loss`` (the weighted CE over the
         valid rows) and ``counts``, as the JAX eval step."""
         self.module.eval()
-        inputs = {m: torch.as_tensor(batch[m]).to(self.device)
-                  for m in self.spec.inputs}
-        logits = self._forward(*self._preprocess_eval(inputs)).float()
-        out = {"probs": torch.softmax(logits, dim=-1)[:, 1],
-               "preds": torch.argmax(logits, dim=-1)}
-        if "label" in batch:
-            labels = torch.as_tensor(batch["label"]).to(self.device).long()
-            valid = (torch.as_tensor(batch["valid"]).to(self.device).float()
-                     if "valid" in batch else torch.ones_like(logits[:, 0]))
-            out["loss"] = weighted_mean(per_sample_ce(logits, labels),
-                                        self._sample_weights(labels, valid))
-            out["counts"] = metrics_mod.confusion_counts(out["preds"],
-                                                         labels, valid)
-        return out
+        tensors = {k: torch.as_tensor(batch[k]).to(self.device)
+                   for k in (*self.spec.inputs, "label", "valid")
+                   if k in batch}
+        return serving_outputs(self._forward, tensors, self.spec.inputs,
+                               self.modalities, self.compute_dtype,
+                               self.loss_class_weights())
+
+    def loss_class_weights(self) -> Optional[torch.Tensor]:
+        """The class weights the loss applies (None: every row counts
+        by its validity alone)."""
+        if self.class_weights is not None and self.cfg.class_weighted_loss:
+            return self.class_weights
+        return None
 
     # ------------------------------------------------------------- loops
 

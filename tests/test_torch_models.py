@@ -393,6 +393,13 @@ int8 = quantize_for_serving(thermal, image_size=32)
 assert int8.variables()["vit.blocks.0.attn.qkv.kernel_q8"].dtype == torch.int8
 probs = int8.eval_step({"thermal": batch["thermal"]})["probs"]
 assert probs.shape == (2,) and bool(torch.isfinite(probs).all())
+import tempfile
+from dfu_multimodal_tpu_torch.serve import export
+with tempfile.TemporaryDirectory() as bundle:
+    export.export_bundle(int8, bundle, image_size=32, buckets=[2])
+    frozen = export.load_bundle(bundle, "cpu").eval_step(
+        {"thermal": batch["thermal"]})["probs"]
+assert torch.equal(frozen, probs)
 
 flax = Trainer("thermal_only",
                TrainConfig(compute_dtype="float32", batch_size=2),

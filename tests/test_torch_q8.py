@@ -419,16 +419,17 @@ def test_quantize_for_serving_thermal_only():
 
 
 def test_quantize_for_serving_refuses_other_models():
-    """A ResNet trunk needs calibration images, the ResNet-18 students
-    wait for their int8 twin (models/resnet_q8.py's Int8ResNet18); a model
-    outside the int8 set gets the JAX package's ValueError."""
+    """A ResNet trunk needs calibration images, the ResNet-18 students'
+    too (their int8 twin is ported: tests/test_torch_students.py); a
+    model outside the int8 set gets the JAX package's ValueError."""
     def stub(name):
         return SimpleNamespace(spec=SimpleNamespace(name=name))
 
     with pytest.raises(ValueError, match="calibration images"):
         quantize_for_serving(stub("multimodal"))
-    with pytest.raises(NotImplementedError, match="resnet_q8"):
-        quantize_for_serving(stub("resnet18_rgb"),
-                             calib_u8=np.zeros((1, 8, 8, 3), np.uint8))
+    for student in ("resnet18_rgb", "resnet18_thermal"):
+        with pytest.raises(ValueError, match="calibration images"):
+            quantize_for_serving(stub(student),
+                                 calib_u8=np.zeros((0, 8, 8, 3), np.uint8))
     with pytest.raises(ValueError, match="int8 serving is not supported"):
         quantize_for_serving(stub("efficientnet_b0"))

@@ -258,13 +258,18 @@ def test_conv_q8_ref_equals_a_direct_int64_conv(k, stride, role):
 
 def test_int8_classifier_keys_and_refusals():
     """``ResNetClassifier(block_impl="int8")`` holds the int8 tree's keys;
-    the ResNet-18 student stays refused."""
+    so does the ResNet-18 student's int8 twin (basic blocks: conv1,
+    conv2 and the projection ``proj``, JAX's scope names)."""
     keys = set(ResNetClassifier(block_impl="int8").state_dict())
     assert "resnet.stem_kernel" in keys
     assert "resnet.layer4.0.down.kernel_q8" in keys
     assert not any("running" in k for k in keys)
-    with pytest.raises(NotImplementedError, match="resnet18"):
-        ResNetClassifier(trunk="resnet18", block_impl="int8")
+    student = set(ResNetClassifier(trunk="resnet18",
+                                   block_impl="int8").state_dict())
+    assert "resnet.layer4.0.proj.kernel_q8" in student
+    assert "resnet.layer4.1.conv2.act_scale" in student
+    assert not any("conv3" in k or "down" in k or "running" in k
+                   for k in student)
     with pytest.raises(ValueError, match="rgb_impl"):
         zoo.build("multimodal", rgb_impl="int4")
 

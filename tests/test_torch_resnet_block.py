@@ -234,10 +234,15 @@ def test_state_dict_keys_match_across_block_impls():
 def test_unported_options_raise():
     with pytest.raises(ValueError, match="block_impl"):
         ResNet(block_impl="pallas")
-    with pytest.raises(NotImplementedError, match="resnet18"):
-        ResNetClassifier(trunk="resnet18")
-    with pytest.raises(NotImplementedError, match="resnet_q8"):
-        ResNetClassifier(trunk="resnet18", block_impl="int8")
+    # the ResNet-18 student is ported (tests/test_torch_students.py): its
+    # basic blocks take no kernel, so "fused" leaves them on cuDNN; a
+    # trunk the JAX package does not have raises
+    with pytest.raises(ValueError, match="trunk"):
+        ResNetClassifier(trunk="resnet34")
+    student = ResNetClassifier(trunk="resnet18", block_impl="fused")
+    assert student.head.in_features == 512
+    assert not any(hasattr(b, "forward_fused")
+                   for b in student.resnet.modules())
     x, args = _bottleneck_args(12, 1, 4, 32, 8, 32, True)
     xt, at = _to_torch(x, args, torch.float32)
     with pytest.raises(ValueError, match="wd and bd"):

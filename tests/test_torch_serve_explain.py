@@ -437,22 +437,51 @@ def test_http_501_and_503(pairs):
     full.stop()
 
 
-@pytest.mark.parametrize("flag", [["--exported", "x"],
-                                  ["--exported", "x", "--shadow", "y"],
+@pytest.mark.parametrize("flag", [["--exported", "BUNDLE"],
+                                  ["--exported", "BUNDLE", "--shadow",
+                                   "CKPT"],
                                   ["--token-merge", "4:64"],
                                   ["--token-merge", "4:64",
                                    "--pipeline-depth", "2"]])
-def test_serve_refuses_unported_flags(flag, checkpoints, capsys):
-    """``--exported`` waits for serve/export.py and is refused; the
-    ``--token-merge`` cases, once refused, now build the daemon, which
-    serves the two models without a ViT trunk as they are and says so
-    with the JAX daemon's line."""
-    if flag[0] == "--exported":
-        with pytest.raises(SystemExit, match="not ported"):
-            port_serve.build_daemon(["--checkpoint", "x", "--device", "cpu"]
-                                    + flag)
-        return
+def test_serve_refuses_unported_flags(flag, checkpoints, capsys,
+                                      tmp_path):
+    """Every flag these cases once refused now builds the daemon: an
+    ``--exported`` bundle of the tiny_rgb checkpoint (cli/export_model)
+    is served at its buckets, alone or with that checkpoint as its
+    ``--shadow``, its answers the checkpoint's; the ``--token-merge``
+    cases serve the two models without a ViT trunk as they are and say
+    so with the JAX daemon's line."""
     _, _, logs = checkpoints
+    if flag[0] == "--exported":
+        from dfu_multimodal_tpu_torch.cli import export_model
+        ckpt = logs / "checkpoints_rgb_only"
+        bundle = tmp_path / "bundle"
+        export_model.main(["--checkpoint", str(ckpt), "--out", str(bundle),
+                           "--image-size", str(SIZE), "--buckets", "1,2",
+                           "--compute-dtype", "float32", "--device", "cpu",
+                           "--verify"])
+        argv = [{"BUNDLE": str(bundle), "CKPT": str(ckpt)}.get(a, a)
+                for a in flag]
+        server, router, _ = port_serve.build_daemon(
+            argv + ["--device", "cpu", "--image-size", str(SIZE), "--host",
+                    "127.0.0.1", "--port", "0", "--no-warmup",
+                    "--compute-dtype", "float32"])
+        try:
+            engine = router.engines["tiny_rgb"]
+            assert engine.buckets == (1, 2)
+            assert (engine.shadow is not None) == ("--shadow" in flag)
+            img = _images(1, seed=9)[0]
+            prob, _ = engine.predict([{"rgb": img}])[0]
+        finally:
+            server.server_close()
+            router.stop()
+        pt = Trainer("tiny_rgb", port_config.TrainConfig(
+            compute_dtype="float32"), {"rgb": port_config.rgb_modality()},
+            device="cpu", image_size=SIZE)
+        pt.restore(ckpt)
+        ref = float(pt.eval_step({"rgb": img[None]})["probs"][0])
+        assert prob == pytest.approx(ref, abs=1e-7)
+        return
     server, router, args = port_serve.build_daemon(
         ["--checkpoint-root", str(logs), "--device", "cpu", "--image-size",
          str(SIZE), "--host", "127.0.0.1", "--port", "0", "--no-warmup",
