@@ -337,6 +337,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               the int8 one also against the CPU's plain int8 path (19
               conv_q8 and 3 quantize_act_q8 launches a batch, none in
               bf16), and an int8 student bundle replayed;
+19. research — on phase 12's tree and checkpoints and phase 13's
+              extended_metrics, through each CLI's ``main(argv)`` at
+              224²: ``embed`` (a multimodal index over train, the test
+              images retrieved against it, 5 neighbours, ranked by
+              uncertainty; 8 rows of each feature space against the
+              CPU's fp32 forward, RESEARCH_FEAT_TOL, beside a known-bad
+              control; the index's probabilities equal to the eval
+              step's; a row's self-match), ``robustness`` (multimodal
+              over 4 corruptions at severities 1 and 5, each cell's
+              counts the split's size, the clean counts the eval step's;
+              rgb_only once on the fused trunk, K11), ``compare``
+              (rgb_only vs multimodal: the flip table of the eval steps'
+              decisions), ``model_card`` for the three checkpoints
+              (parameters, SHA-256, results.pt's metric lines),
+              ``cross_validate`` (thermal, 2 folds, 1 epoch), ``sweep``
+              (two learning rates, then ``--resume``, which trains
+              nothing) and ``soup`` (phase 12's thermal_only with a
+              ``--seed 1`` fine-tune of it, uniform and ``--greedy``; a
+              self-soup bit-equal; the soup answers ``predict``); each
+              drive's host seconds and launches, and no plain version
+              called on the card;
 then the kernels' JSON line (times, bounds, launches, the SDPA times,
 the K6/K9 forwards' device times and SDPA's, K10's and K12's chain
 times, phase 14's launches as ``explain_launches``, and the rows of
@@ -348,7 +369,7 @@ their launches phase 15's serving drive's; and phase 16's rows
 each with ``unbiased_ms`` beside its time and its launches phase 16's
 serving drives'; phase 17's bundle replays as ``export_launches`` and
 phase 18's int8 students' b1 and b8 serving drives and bundle replay as
-``student_launches``),
+``student_launches``, phase 19's drives as ``research_launches``),
 and the device JSON line last.
 
 Exits non-zero with no result line when no CUDA device is present.
@@ -5175,13 +5196,17 @@ PLAINS = ((vb, "attn_block_ref"), (vb, "mlp_block_ref"),
 
 
 class _PlainCalls:
-    """Count the calls of every plain version in PLAINS while active
-    (each op's CPU implementation looks its plain version up at call
-    time, so a plain version reached from an op counts too)."""
+    """Count the calls of every plain version in ``plains`` (PLAINS by
+    default) while active (each op's CPU implementation looks its plain
+    version up at call time, so a plain version reached from an op counts
+    too)."""
+
+    def __init__(self, plains=PLAINS):
+        self.plains = plains
 
     def __enter__(self):
         self.calls, self._saved = {}, []
-        for mod, name in PLAINS:
+        for mod, name in self.plains:
             real = getattr(mod, name)
 
             def counted(*args, _real=real, _name=name, **kwargs):
@@ -5557,6 +5582,397 @@ def phase_students(dev, d: Path) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 19
+
+# the feature spaces embed writes for multimodal, and the known-bad
+# control: one ResNet conv's and one ViT block's weight doubled at once
+# (of eight single weights probed on an H100, the ones each space reads
+# most: layer4.0.conv2 0.489 rgb, blocks.5's attention projection 0.173
+# thermal; block 5's fc1 read 0.127, block 11's fc2 0.086)
+RESEARCH_SPACES = ("feat_rgb", "feat_thermal", "feat_fused")
+RESEARCH_CONTROL = ("rgb_branch.layer4.0.conv2.weight",
+                    "thermal_branch.blocks.5.attn.proj.weight")
+# phase 19's bf16 index features on the card (RESEARCH_ROWS train rows,
+# max |d| over max |feature| a space) against the fp32 forward on the
+# CPU: about twice the largest sound reading (rgb 6.45e-3, thermal
+# 1.37e-2 on an H100); the control must read at least five times the
+# limit
+RESEARCH_FEAT_TOL = 3e-2
+RESEARCH_ROWS = 8
+RESEARCH_CORRUPTIONS = ("gaussian_noise", "gaussian_blur", "brightness",
+                        "contrast")
+# the plain versions of every kernel the phase's drives run (the
+# registered ops' and the ViT's backward chain)
+RESEARCH_PLAINS = PLAINS + ((vb, "mlp_block_bwd_ref"),
+                            (vb, "attn_block_bwd_ref"),
+                            (at, "qkv_attention_fwdbwd_ref"))
+# the kernels a drive launches: a ViT eval forward, with the fusion head,
+# and a thermal_only training run (its validation and test included)
+VIT_EVAL = {"attn_block", "mlp_block"}
+FUSION_EVAL = VIT_EVAL | {"fused_mlp"}
+VIT_TRAIN = set(TRAIN_KERNELS)
+
+
+def _subset_rows(ds, n: int):
+    return ArrayDataset({m: a[:n] for m, a in ds.arrays.items()},
+                        ds.labels[:n])
+
+
+def _research_cpu_features(ckpt: Path, rows) -> dict:
+    """The fp32 forward of ``ckpt``'s multimodal model on the CPU: the
+    reference of the card's index features."""
+    from dfu_multimodal_tpu_torch.eval import embed
+    cpu = Trainer("multimodal", TrainConfig(compute_dtype="float32",
+                                            eval_batch_size=RESEARCH_ROWS),
+                  {"rgb": rgb_modality(), "thermal": thermal_modality()},
+                  device="cpu", image_size=IMAGE)
+    cpu.restore(ckpt)
+    with torch.inference_mode():
+        return embed.extract_features(cpu, rows)
+
+
+class _Drives:
+    """Each drive through a CLI's ``main(argv)`` with the launch counts
+    set to 0 just before it: its host seconds and launches logged, the
+    kernels it launched checked against ``kernels``, its launches
+    summed."""
+
+    def __init__(self, gpu: str):
+        self.gpu, self.total = gpu, {}
+
+    def __call__(self, tag: str, kernels: set, fn, argv):
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = fn(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launches_now()
+        log(f"[research] {tag}: {seconds:.2f} s (host clock; {self.gpu}); "
+            f"launches {launches}")
+        if set(launches) != kernels:
+            raise AssertionError(f"research {tag}: launched {launches}, "
+                                 f"expected {sorted(kernels)}")
+        for k, v in launches.items():
+            self.total[k] = self.total.get(k, 0) + v
+        return res
+
+
+def _research_embed(drive, dev, data: Path, logs: Path, d: Path,
+                    ref: dict) -> None:
+    """embed: a multimodal index over train, the test images retrieved
+    against it (5 neighbours) and ranked by uncertainty; the index's
+    features against the CPU's fp32 forward beside the known-bad control,
+    its probabilities against the card eval step's, a row's self-match."""
+    from dfu_multimodal_tpu_torch.cli import embed as embed_cli
+    from dfu_multimodal_tpu_torch.data.loader import load_paired
+    from dfu_multimodal_tpu_torch.eval import embed
+    from dfu_multimodal_tpu_torch.eval.calibration import apply_temperature
+    ckpt, out = logs / "checkpoints_multimodal", d / "research"
+    index = out / "train_index.npz"
+    res = drive("embed index", FUSION_EVAL, embed_cli.main, [
+        "--checkpoint", str(ckpt), "--data-dir", str(data), "--split",
+        "train", "--output", str(index)])
+    table = out / "retrieval.csv"
+    got = drive("embed retrieval", FUSION_EVAL, embed_cli.main, [
+        "--checkpoint", str(ckpt), "--images", str(data / "rgb" / "test"),
+        "--thermal-images", str(data / "thermal" / "test"), "--index",
+        str(index), "--neighbors", "5", "--rank-uncertainty", "--csv",
+        str(table)])
+    idx = embed.load_embeddings(index)
+    rows = table.read_text().splitlines()
+    probs = np.asarray([float(r.split(",")[1]) for r in rows[1:]])
+    dep = json.loads((ckpt / "deployment.json").read_text())
+    dist = np.abs(probs - dep["threshold"])
+    errs = {}
+    for space in RESEARCH_SPACES:
+        f = torch.from_numpy(idx[space][:RESEARCH_ROWS])
+        errs[space] = _rel_err(f, torch.from_numpy(ref[space]))
+    # the card's eval step on the index's rows, then the control
+    tr = Trainer("multimodal", TrainConfig(batch_size=64,
+                                           eval_batch_size=64),
+                 {"rgb": rgb_modality(), "thermal": thermal_modality()},
+                 device=dev, image_size=IMAGE)
+    tr.restore(ckpt)
+    train = load_paired(data, "train", IMAGE, strategy="pseudo", seed=42)
+    _, arrays = tr.run_eval_epoch(train)
+    eval_probs = apply_temperature(arrays["y_probs"], dep["temperature"])
+    state = {k: v.clone() for k, v in tr.module.state_dict().items()}
+    tr.module.load_state_dict({**state, **{k: 2 * state[k]
+                                           for k in RESEARCH_CONTROL}})
+    bad = embed.extract_features(tr, _subset_rows(train, RESEARCH_ROWS))
+    control = {s: _rel_err(torch.from_numpy(bad[s]),
+                           torch.from_numpy(ref[s])) for s in errs}
+    del tr, state
+    top, sims = embed.cosine_topk(idx["feat_fused"], idx["feat_fused"], 1)
+    self_match = float(np.abs(sims[:, 0] - 1.0).max())
+    log(f"[research] embed: index {res}, retrieval {got}; bf16 index "
+        f"features vs the CPU's fp32 forward (max |d| / max |f|, "
+        f"{RESEARCH_ROWS} rows) {({k: f'{v:.3e}' for k, v in errs.items()})}"
+        f", limit {RESEARCH_FEAT_TOL:g}; known-bad control "
+        f"({' and '.join(RESEARCH_CONTROL)} doubled) "
+        f"{({k: f'{v:.3e}' for k, v in control.items()})}; index probs "
+        f"vs the eval step's (temperature {dep['temperature']:.4f}) max "
+        f"|d| {float(np.abs(idx['probs'] - eval_probs).max()):.2e}; "
+        f"self-match |cos - 1| {self_match:.2e}")
+    if (res["n"] != len(train) or res["embedding"] != "fused"
+            or res["dims"] != idx["feat_rgb"].shape[1]
+            + idx["feat_thermal"].shape[1] or got["n"] != len(probs)
+            or len(rows[0].split(",")) != 3 + 3 * 5
+            or np.any(np.diff(dist) < -1e-6)):
+        raise AssertionError(f"embed: {res}, {got}, {rows[:2]}")
+    if (max(errs.values()) > RESEARCH_FEAT_TOL
+            or min(control.values()) < 5 * RESEARCH_FEAT_TOL):
+        raise AssertionError(f"embed features: {errs}, control {control}")
+    if (not np.array_equal(idx["probs"], eval_probs)
+            or not np.array_equal(top[:, 0], np.arange(len(top)))
+            or self_match > 1e-5):
+        raise AssertionError("embed: index probabilities or self-match")
+
+
+def _research_robustness(drive, dev, data: Path, logs: Path) -> None:
+    """robustness: multimodal over RESEARCH_CORRUPTIONS at severities 1 and
+    5 (each cell's counts sum to the split, the clean counts the eval
+    step's), rgb_only once on the fused trunk (K11)."""
+    from dfu_multimodal_tpu_torch.cli import robustness as rob_cli
+    from dfu_multimodal_tpu_torch.data.loader import load_paired
+    from dfu_multimodal_tpu_torch.eval import metrics as M
+    from dfu_multimodal_tpu_torch.eval import robustness as rob
+    cells, real = [], rob.corrupted_counts
+
+    def recorded(*args, **kwargs):
+        out = real(*args, **kwargs)
+        cells.append((args[2], tuple(args[3]), out))
+        return out
+
+    ckpt = logs / "checkpoints_multimodal"
+    rob.corrupted_counts = recorded
+    try:
+        drive("robustness multimodal", FUSION_EVAL, rob_cli.main, [
+            "--checkpoint", str(ckpt), "--data-dir", str(data),
+            "--corruptions", *RESEARCH_CORRUPTIONS, "--severities", "1",
+            "5"])
+    finally:
+        rob.corrupted_counts = real
+    report = json.loads((ckpt / "robustness_report.json").read_text())
+    test = load_paired(data, "test", IMAGE, strategy="pseudo", seed=42)
+    tr = Trainer("multimodal", TrainConfig(batch_size=32,
+                                           eval_batch_size=32),
+                 {"rgb": rgb_modality(), "thermal": thermal_modality()},
+                 device=dev, image_size=IMAGE)
+    tr.restore(ckpt)
+    m, arrays = tr.run_eval_epoch(test)
+    clean = M.binary_confusion(arrays["y_true"], arrays["y_pred"]).ravel()
+    step = rob.make_step(tr, ("rgb", "thermal"))
+    zero = sum(step(b, "brightness", 0.0, 0, i).cpu().numpy()
+               for i, b in enumerate(_batches(test, 32, dev)))
+    del tr
+    sums = {c.sum() for _, _, counts in cells for c in counts}
+    log(f"[research] robustness multimodal: {len(cells)} corruption x "
+        f"subset rows of 2 severities, counts summing to {sorted(sums)} "
+        f"(split {len(test)}); clean F1 {report['clean_f1']:.4f}; worst "
+        + ", ".join(f"{r['corruption']}/{'+'.join(r['modalities'])} "
+                    f"{r['worst_f1']:.3f} {r['verdict']}"
+                    for r in report["results"])
+        + f"; clean counts {clean.tolist()}, the corruption step at "
+        f"brightness 0 {zero.tolist()}")
+    if (len(cells) != 2 * len(RESEARCH_CORRUPTIONS) or sums != {len(test)}
+            or len(report["results"]) != len(cells)
+            or report["clean_f1"] != m.f1
+            or not np.array_equal(zero, clean)):
+        raise AssertionError(f"robustness multimodal: {report}")
+    drive("robustness rgb_only fused", {"bottleneck", "bottleneck_proj"},
+          rob_cli.main, [
+        "--checkpoint", str(logs / "checkpoints_rgb_only"), "--data-dir",
+        str(data), "--corruptions", "contrast", "--severities", "3",
+        "--resnet-block-impl", "fused"])
+
+
+def _batches(ds, bs: int, dev):
+    from dfu_multimodal_tpu_torch.data import loader
+    return loader.device_prefetch(loader.batch_slices(
+        ds, np.arange(len(ds)), bs), dev)
+
+
+def _research_compare(drive, dev, data: Path, logs: Path) -> None:
+    """compare rgb_only (A) against multimodal (B) on test: the flip table
+    sums to the rows; each side's decisions are its checkpoint's eval
+    step on the card under its deployment.json."""
+    from dfu_multimodal_tpu_torch.cli import compare as compare_cli
+    from dfu_multimodal_tpu_torch.data.loader import load_paired
+    from dfu_multimodal_tpu_torch.eval.calibration import apply_temperature
+    from dfu_multimodal_tpu_torch.eval.compare import flip_table
+    from dfu_multimodal_tpu_torch.eval.threshold import apply_threshold
+    a, b = logs / "checkpoints_rgb_only", logs / "checkpoints_multimodal"
+    drive("compare", FUSION_EVAL, compare_cli.main, [
+        "--checkpoint-a", str(a), "--checkpoint-b", str(b), "--data-dir",
+        str(data)])
+    report = json.loads((b / "compare_report.json").read_text())
+    test = load_paired(data, "test", IMAGE, strategy="pseudo", seed=42)
+    preds = {}
+    for side, ckpt in (("a", a), ("b", b)):
+        name = ckpt.name.replace("checkpoints_", "")
+        tr = Trainer(name, TrainConfig(batch_size=32, eval_batch_size=32),
+                     {"rgb": rgb_modality(), "thermal": thermal_modality()},
+                     device=dev, image_size=IMAGE)
+        tr.restore(ckpt)
+        _, arrays = tr.run_eval_epoch(test)
+        dep = json.loads((ckpt / "deployment.json").read_text())
+        probs = apply_temperature(arrays["y_probs"], dep["temperature"])
+        preds[side] = apply_threshold(probs, dep["threshold"])
+        del tr
+    flips = report["flip_table"]
+    ours = flip_table(test.labels, preds["a"], preds["b"])
+    log(f"[research] compare rgb_only vs multimodal on {report['n']} rows: "
+        f"flips {flips}, McNemar p {report['mcnemar']['p_value']:.4f}, "
+        f"Δaccuracy {report['deltas']['accuracy']['delta']:+.4f}; the "
+        f"eval steps' flip table {ours}")
+    if (report["n"] != len(test) or flips != ours
+            or sum(flips[k] for k in ("both_correct", "only_a", "only_b",
+                                      "both_wrong")) != len(test)):
+        raise AssertionError(f"compare: {report}")
+
+
+def _research_cards(drive, dev, logs: Path) -> None:
+    """model_card for the three checkpoints: parameter counts equal the
+    restored models', the SHA-256 hashlib's, the metric lines phase 13's
+    results.pt."""
+    import hashlib
+    from dfu_multimodal_tpu_torch.cli import model_card
+    from dfu_multimodal_tpu_torch.utils.artifacts import load_pt
+    for name in DISK_CLIS:
+        ckpt = logs / f"checkpoints_{name}"
+        drive(f"model_card {name}", set(), model_card.main,
+              ["--checkpoint", str(ckpt)])
+        card_md = (ckpt / "MODEL_CARD.md").read_text()
+        with torch.device("meta"):
+            module, _ = zoo.build(name, image_size=IMAGE)
+        n_params = sum(p.numel() for p in module.parameters())
+        sha = hashlib.sha256((ckpt / "best_model.pt").read_bytes())
+        metrics = load_pt(logs / "extended_metrics" / name
+                          / "results.pt")["metrics"]
+        lines = [f"| {label} | {float(metrics[k]):.4f} |"
+                 for k, label in model_card.METRIC_ROWS
+                 if metrics.get(k) is not None]
+        missing = [x for x in lines if x not in card_md]
+        log(f"[research] model_card {name}: {n_params:,} parameters, "
+            f"SHA-256 {sha.hexdigest()[:16]}…, {len(lines)} metric lines "
+            f"of results.pt, missing {missing}")
+        if (f"| Parameters | {n_params:,} |" not in card_md
+                or f"`{sha.hexdigest()[:16]}…`" not in card_md or missing
+                or not lines):
+            raise AssertionError(f"model_card {name}:\n{card_md}")
+
+
+def _research_harness(drive, data: Path, logs: Path) -> None:
+    """cross_validate (2 folds, 1 epoch) and sweep (two learning rates,
+    then --resume, which trains nothing) on thermal_only."""
+    from dfu_multimodal_tpu_torch.cli import cross_validate, sweep
+    from dfu_multimodal_tpu_torch.utils.artifacts import load_pt
+    summary = drive("cross_validate", VIT_TRAIN, cross_validate.main, [
+        "--data-dir", str(data), "--checkpoint-root", str(logs),
+        "--modality", "thermal", "--folds", "2", "--epochs", "1"])
+    cv = load_pt(logs / "cross_validation_thermal" / "cv_results.pt")
+    log(f"[research] cross_validate: folds of "
+        f"{[len(f) for f in cv['folds']['thermal']]} rows, F1 by fold "
+        f"{[round(m['f1'], 4) for m in cv['fold_metrics']]}")
+    if len(cv["fold_metrics"]) != 2 or summary != cv["summary"]:
+        raise AssertionError(f"cross_validate: {cv}")
+    argv = ["--data-dir", str(data), "--checkpoint-root", str(logs),
+            "--modality", "thermal", "--param", "lr=1e-4,3e-4", "--epochs",
+            "1"]
+    jsonl = logs / "sweep_thermal" / "trials.jsonl"
+    first = drive("sweep", VIT_TRAIN, sweep.main, argv)
+    before = jsonl.read_text()
+    again = drive("sweep --resume", set(), sweep.main, argv + ["--resume"])
+    log(f"[research] sweep: {first['n_trials']} trials, best "
+        f"{first['best']['params']} val F1 "
+        f"{first['best']['best_val_f1_mean']:.4f}; --resume ranked "
+        f"{again['n_trials']} and trained none")
+    if (first["n_trials"] != 2 or again["n_trials"] != 2
+            or jsonl.read_text() != before
+            or len(before.splitlines()) != 2):
+        raise AssertionError(f"sweep: {first}, {again}")
+
+
+def _research_soup(drive, data: Path, logs: Path, d: Path) -> None:
+    """A second thermal_only checkpoint (the train CLI, --seed 1, one
+    epoch from phase 12's weights) souped with phase 12's, uniform and
+    --greedy; phase 12's souped with itself is bit-equal to it; the
+    uniform soup's directory answers predict."""
+    from dfu_multimodal_tpu_torch.cli import predict, soup
+    from dfu_multimodal_tpu_torch.cli import train_thermal_only
+    from dfu_multimodal_tpu_torch.utils import checkpoint as ckpt_mod
+    a = logs / "checkpoints_thermal_only"
+    seed1 = d / "logs_seed1"
+    drive("train thermal_only --seed 1", VIT_TRAIN, train_thermal_only.main, [
+        "--data-dir", str(data), "--checkpoint-root", str(seed1),
+        "--epochs", "1", "--seed", "1", "--save-best-after", "1",
+        "--init-from", str(a)])
+    b = seed1 / "checkpoints_thermal_only"
+    out = d / "research"
+    for tag, extra in (("uniform", []), ("greedy", ["--greedy"])):
+        drive(f"soup {tag}", VIT_EVAL, soup.main, [
+            "--checkpoints", str(a), str(b), "--data-dir", str(data),
+            "--out", str(out / f"soup_{tag}"), *extra])
+    drive("soup self", VIT_EVAL, soup.main, [
+        "--checkpoints", str(a), str(a), "--data-dir", str(data), "--out",
+        str(out / "soup_self"), "--skip-test-eval"])
+    own = ckpt_mod.load_checkpoint(a)[0]["model_state_dict"]
+    souped = ckpt_mod.load_checkpoint(out / "soup_self")[0][
+        "model_state_dict"]
+    unequal = [k for k, v in own.items() if not torch.equal(v, souped[k])]
+    metas = {t: ckpt_mod.load_meta(out / f"soup_{t}")
+             for t in ("uniform", "greedy")}
+    rows = drive("predict soup", VIT_EVAL, predict.main, [
+        "--checkpoint", str(out / "soup_uniform"), "--images",
+        str(data / "thermal" / "test")])
+    log(f"[research] soup: uniform val F1 {metas['uniform']['val_f1']:.4f}, "
+        f"greedy {metas['greedy']['val_f1']:.4f} with "
+        f"{len(metas['greedy']['soup']['ingredients'])} ingredient(s); "
+        f"self-soup entries unequal to the checkpoint {unequal}; predict "
+        f"on the soup answered {len(rows)} images")
+    if (unequal or set(souped) != set(own) or len(rows) != len(
+            list((data / "thermal" / "test").rglob("*.jpg")))
+            or metas["uniform"]["soup"]["recipe"] != "uniform"):
+        raise AssertionError(f"soup: {metas}, {unequal}")
+
+
+def phase_research(dev, d: Path) -> dict:
+    """Phase 19 on phase 12's tree and checkpoints and phase 13's
+    extended_metrics (``d``): embed, robustness, compare, model_card,
+    cross_validate, sweep and soup through their ``main(argv)`` at full
+    width, 224², with no plain version called on the card.  Returns the
+    drives' launches by kernel (the kernels line's
+    ``research_launches``)."""
+    from dfu_multimodal_tpu_torch.data.loader import load_paired
+    t0 = time.perf_counter()
+    data, logs = d / "data", d / "logs"
+    (d / "research").mkdir()
+    gpu = card()
+    train = load_paired(data, "train", IMAGE, strategy="pseudo", seed=42)
+    ref = _research_cpu_features(logs / "checkpoints_multimodal",
+                                 _subset_rows(train, RESEARCH_ROWS))
+    log(f"[research] the CPU's fp32 features of {RESEARCH_ROWS} train rows "
+        f"in {time.perf_counter() - t0:.2f} s (host clock)")
+    drive = _Drives(gpu)
+    with _PlainCalls(RESEARCH_PLAINS) as plain:
+        _research_embed(drive, dev, data, logs, d, ref)
+        _research_robustness(drive, dev, data, logs)
+        _research_compare(drive, dev, data, logs)
+        _research_cards(drive, dev, logs)
+        _research_harness(drive, data, logs)
+        _research_soup(drive, data, logs, d)
+        torch.cuda.synchronize()
+    log(f"[research] launches over the phase's drives {drive.total}; "
+        f"plain versions called {plain.calls}")
+    if plain.calls:
+        raise AssertionError(f"research: plain versions ran {plain.calls}")
+    torch.cuda.empty_cache()
+    log(f"[research] phase 19 in {time.perf_counter() - t0:.2f} s (host "
+        f"clock; {gpu})")
+    return drive.total
+
+
 # ---------------------------------------------------------------- bounds
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
@@ -5735,6 +6151,7 @@ def main() -> int:
         phase_tome_cli(dev, Path(d))
         export = phase_export(dev, Path(d))
         students = phase_students(dev, Path(d))
+        research = phase_research(dev, Path(d))
     for mod in ("jax", "flax", "optax", "PIL", "torchvision", "matplotlib",
                 "sklearn", "cv2", "dfu_multimodal_tpu"):
         if mod in sys.modules:
@@ -5779,7 +6196,9 @@ def main() -> int:
                                         if k in explain else {}),
                 **({"export_launches": export[k]} if k in export else {}),
                 **({"student_launches": students[k]}
-                   if k in students else {})}
+                   if k in students else {}),
+                **({"research_launches": research[k]}
+                   if k in research else {})}
                for k, (src, tpu) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

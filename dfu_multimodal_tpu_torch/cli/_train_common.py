@@ -113,6 +113,7 @@ def _write_run_info(ckpt_dir: Path, recipe: TrainRecipe, args, train_cfg,
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,
         "backend": "gpu" if device.type == "cuda" else device.type,
+        "device_count": 1,                # the port trains on one device
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
         "python": sys.version.split()[0],

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dfu_multimodal_tpu_torch.models.common import (Taps, canonical_dtype,
-                                                    dropout)
+                                                    dropout, tap)
 from dfu_multimodal_tpu_torch.models.resnet import ResNet50
 from dfu_multimodal_tpu_torch.models.vit import ViTBase16
 from dfu_multimodal_tpu_torch.ops.fused_mlp import (FusedMlp,
@@ -117,12 +117,16 @@ class MultimodalFusionClassifier(nn.Module):
 
     def forward(self, rgb: torch.Tensor, thermal: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                taps: Taps = None) -> torch.Tensor:
+                taps: Taps = None, features: Taps = None) -> torch.Tensor:
         """In train mode the head's dropout draws from ``generator``
         (required then, as in ``ResNetClassifier``).  ``taps`` goes to both
         branches: ``stage1``..``stage4`` of the ResNet, ``blocks`` of the
-        ViT."""
-        fused = torch.cat([self.rgb_branch(rgb, taps),
-                           self.thermal_branch(thermal, taps=taps)],
+        ViT.  ``features`` records each branch's features, ``rgb_branch``
+        (B, 2048) and ``thermal_branch`` (B, 768): the halves of the head's
+        input."""
+        rgb_feats = tap(features, "rgb_branch", self.rgb_branch(rgb, taps))
+        thermal_feats = tap(features, "thermal_branch",
+                            self.thermal_branch(thermal, taps=taps))
+        fused = torch.cat([rgb_feats, thermal_feats],
                           dim=-1)                      # (B, 2816) fp32
         return self.fusion(fused, generator)

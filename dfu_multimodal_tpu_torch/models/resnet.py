@@ -341,8 +341,11 @@ class ResNetClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                taps: Taps = None) -> torch.Tensor:
-        feats = self.resnet(x, taps)
+                taps: Taps = None, features: Taps = None) -> torch.Tensor:
+        """``taps`` records the trunk's ``stage1``..``stage4``;
+        ``features`` records ``trunk``, its pooled (B, C) fp32 features:
+        the head's input."""
+        feats = tap(features, "trunk", self.resnet(x, taps))
         if self.training and self.drop_rate > 0.0:
             if generator is None:
                 raise ValueError("ResNetClassifier in train mode draws its "

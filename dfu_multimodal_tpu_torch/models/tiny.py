@@ -84,14 +84,19 @@ class TinyCNN(TinyTrunk):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                taps: Taps = None) -> torch.Tensor:
-        return self.head(_dropout(self, super().forward(x, taps), generator))
+                taps: Taps = None, features: Taps = None) -> torch.Tensor:
+        """``features`` records ``trunk``, the pooled (B, 32) fp32
+        features: the head's input."""
+        feats = tap(features, "trunk", super().forward(x, taps))
+        return self.head(_dropout(self, feats, generator))
 
 
 class TinyFusion(nn.Module):
     """``tiny_fusion``: ``rgb_branch`` and ``thermal_branch`` trunks, their
     features concatenated (B, 64), dropout and ``head``.  Its trunks have
-    no tap point, as in JAX: ``taps`` is taken and left empty."""
+    no tap point, as in JAX: ``taps`` is taken and left empty.
+    ``features`` records each trunk's (B, 32) features, ``rgb_branch``
+    and ``thermal_branch``."""
 
     def __init__(self, num_classes: int = 2, drop_rate: float = 0.2,
                  dtype: Union[str, torch.dtype] = torch.float32,
@@ -105,8 +110,9 @@ class TinyFusion(nn.Module):
 
     def forward(self, rgb: torch.Tensor, thermal: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                taps: Taps = None) -> torch.Tensor:
+                taps: Taps = None, features: Taps = None) -> torch.Tensor:
         del taps
-        fused = torch.cat([self.rgb_branch(rgb),
-                           self.thermal_branch(thermal)], dim=-1)
+        fused = torch.cat([tap(features, "rgb_branch", self.rgb_branch(rgb)),
+                           tap(features, "thermal_branch",
+                               self.thermal_branch(thermal))], dim=-1)
         return self.head(_dropout(self, fused, generator))

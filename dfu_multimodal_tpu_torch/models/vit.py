@@ -488,8 +488,10 @@ class ViTClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                taps: Taps = None) -> torch.Tensor:
-        feats = self.vit(x, taps=taps)
+                taps: Taps = None, features: Taps = None) -> torch.Tensor:
+        """``taps`` records the trunk's ``blocks``; ``features`` records
+        ``trunk``, its (B, C) fp32 CLS features: the head's input."""
+        feats = tap(features, "trunk", self.vit(x, taps=taps))
         if self.training and self.drop_rate > 0.0:
             if generator is None:
                 raise ValueError("ViTClassifier in train mode draws its "

@@ -1597,3 +1597,50 @@ def test_conv_q8_refuses_what_the_gemm_does_not_take():
         cq.conv_q8(**{**case, "col_scale": case["col_scale"].double()})
     with pytest.raises(ValueError, match="contiguous"):
         cq.conv_q8(**{**case, "x": case["x"].transpose(1, 2)})
+
+
+# ------------------------------------------- the research modules' steps
+
+
+def test_research_steps_on_card_match_cpu():
+    """``eval/embed.py::extract_features`` and a corruption eval step
+    (``eval/robustness.py``) of a narrow fp32 thermal_only model on the
+    card (its blocks on K1/K2) against the CPU: features and
+    probabilities within 1e-4·(1 + |ref|), predictions and confusion
+    counts equal; the blur and contrast corruptions within 1e-4."""
+    dev = _cuda()
+    from dfu_multimodal_tpu_torch.data.loader import ArrayDataset
+    from dfu_multimodal_tpu_torch.eval import embed
+    from dfu_multimodal_tpu_torch.eval import robustness as rob
+    from dfu_multimodal_tpu_torch.models import zoo
+    from dfu_multimodal_tpu_torch.train.engine import (Trainer, TrainConfig,
+                                                       thermal_modality)
+    cfg = TrainConfig(compute_dtype="float32", eval_batch_size=4)
+    narrow = dict(image_size=32, depth=2, hidden_dim=64, num_heads=4,
+                  patch_size=8)
+    mods = {"thermal": thermal_modality()}
+    cpu = Trainer("thermal_only", cfg, mods, device="cpu", **narrow)
+    zoo.init_model(cpu.module, torch.Generator().manual_seed(0))
+    card = Trainer("thermal_only", cfg, mods, device=dev, **narrow)
+    card.module.load_state_dict(cpu.module.state_dict())
+    rng = np.random.default_rng(0)
+    ds = ArrayDataset({"thermal": rng.integers(0, 256, (6, 32, 32, 3),
+                                               dtype=np.uint8)},
+                      np.array([0, 1, 1, 0, 1, 0], np.int32))
+    before = vb.attn_block.launches
+    ours, ref = (embed.extract_features(t, ds) for t in (card, cpu))
+    assert vb.attn_block.launches == before + 2 * 2     # 2 batches, depth 2
+    assert set(ours) == set(ref) == {"feat_thermal", "probs", "preds"}
+    np.testing.assert_array_equal(ours["preds"], ref["preds"])
+    for k in ("feat_thermal", "probs"):
+        assert ours[k].shape == ref[k].shape and ours[k].dtype == np.float32
+        assert np.all(np.abs(ours[k] - ref[k])
+                      <= 1e-4 * (1 + np.abs(ref[k]))), k
+    x = torch.from_numpy(ds.arrays["thermal"]).float()
+    for name, param in (("gaussian_blur", 1.5), ("contrast", 0.4)):
+        out = rob.apply_corruption(name, x.to(dev), param).cpu()
+        torch.testing.assert_close(out, rob.apply_corruption(name, x, param),
+                                   rtol=0, atol=1e-4)
+    counts = [rob.corrupted_counts(t, ds, "gaussian_blur", ("thermal",),
+                                   [1, 5]) for t in (card, cpu)]
+    np.testing.assert_array_equal(np.stack(counts[0]), np.stack(counts[1]))

@@ -420,6 +420,27 @@ rgb = Trainer("rgb_only", TrainConfig(compute_dtype="float32"),
 zoo.init_model(rgb.module, torch.Generator().manual_seed(0))
 probs = rgb.eval_step({"rgb": batch["rgb"]})["probs"]
 assert probs.shape == (2,) and bool(torch.isfinite(probs).all())
+
+import dfu_multimodal_tpu_torch.cli.compare
+import dfu_multimodal_tpu_torch.cli.cross_validate
+import dfu_multimodal_tpu_torch.cli.embed
+import dfu_multimodal_tpu_torch.cli.model_card
+import dfu_multimodal_tpu_torch.cli.robustness
+import dfu_multimodal_tpu_torch.cli.soup
+import dfu_multimodal_tpu_torch.cli.sweep
+import dfu_multimodal_tpu_torch.eval.embed
+import dfu_multimodal_tpu_torch.train.soup
+from dfu_multimodal_tpu_torch.eval.compare import compare_models
+from dfu_multimodal_tpu_torch.eval.robustness import apply_corruption
+report = compare_models(np.array([0, 1, 1, 0]), np.array([0, 1, 0, 0]),
+                        None, np.array([0, 1, 1, 1]), None, n_boot=20)
+assert report["flip_table"]["n_flips"] == 2, report
+x = torch.from_numpy(batch["rgb"]).float()
+for name in ("gaussian_blur", "brightness", "contrast"):
+    y = apply_corruption(name, x, 2.0)
+    assert y.shape == x.shape and 0 <= float(y.min()) <= float(y.max()) <= 255
+y = apply_corruption("gaussian_noise", x, 8.0, torch.randn(x.shape))
+assert y.shape == x.shape
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                   "msgpack", "dfu_multimodal_tpu", "PIL",
