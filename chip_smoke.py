@@ -358,6 +358,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               self-soup bit-equal; the soup answers ``predict``); each
               drive's host seconds and launches, and no plain version
               called on the card;
+20. trainers — on phase 12's tree and checkpoints, through each CLI's
+              ``main(argv)`` at full width and 224²: ``pretrain`` SimCLR
+              on ViT-B/16 (fused blocks, batch 64: 128 views a step),
+              SimCLR on ResNet-50 (train-mode BatchNorm) and MAE on
+              ViT-B/16 (mask 0.75, decoder 256x2x8), then
+              ``train_thermal_only`` and ``train_multimodal_fusion``
+              ``--init-from`` the ViT checkpoint (the loaded trunk under
+              ``vit.`` / ``thermal_branch.`` bit-equal to it); ``distill``
+              of the multimodal teacher into ``resnet18_rgb`` and of the
+              thermal_only one into ``resnet18_thermal``; ``self_train``
+              (thermal_only, 2 rounds, the test split as the pool: the
+              adopted counts, best_model promoted); ``train_legacy``'s
+              four variants; ``convert_checkpoint`` of a reference-layout
+              rgb_only ``.pt`` written from seeded weights (its logits on
+              the card equal to the source's in the same module); each
+              new step's first outputs and loss in bf16 against the CPU's
+              fp32 on the same weights and injected views (TRAINER_TOL,
+              beside an internal known-bad control); each drive's host seconds and
+              launches, and no plain version called on the card;
 then the kernels' JSON line (times, bounds, launches, the SDPA times,
 the K6/K9 forwards' device times and SDPA's, K10's and K12's chain
 times, phase 14's launches as ``explain_launches``, and the rows of
@@ -369,8 +388,8 @@ their launches phase 15's serving drive's; and phase 16's rows
 each with ``unbiased_ms`` beside its time and its launches phase 16's
 serving drives'; phase 17's bundle replays as ``export_launches`` and
 phase 18's int8 students' b1 and b8 serving drives and bundle replay as
-``student_launches``, phase 19's drives as ``research_launches``),
-and the device JSON line last.
+``student_launches``, phase 19's drives as ``research_launches``,
+phase 20's as ``trainer_launches``), and the device JSON line last.
 
 Exits non-zero with no result line when no CUDA device is present.
 """
@@ -5637,8 +5656,8 @@ class _Drives:
     kernels it launched checked against ``kernels``, its launches
     summed."""
 
-    def __init__(self, gpu: str):
-        self.gpu, self.total = gpu, {}
+    def __init__(self, gpu: str, phase: str = "research"):
+        self.gpu, self.total, self.phase = gpu, {}, phase
 
     def __call__(self, tag: str, kernels: set, fn, argv):
         _reset_launches()
@@ -5647,10 +5666,10 @@ class _Drives:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = _launches_now()
-        log(f"[research] {tag}: {seconds:.2f} s (host clock; {self.gpu}); "
-            f"launches {launches}")
+        log(f"[{self.phase}] {tag}: {seconds:.2f} s (host clock; "
+            f"{self.gpu}); launches {launches}")
         if set(launches) != kernels:
-            raise AssertionError(f"research {tag}: launched {launches}, "
+            raise AssertionError(f"{self.phase} {tag}: launched {launches}, "
                                  f"expected {sorted(kernels)}")
         for k, v in launches.items():
             self.total[k] = self.total.get(k, 0) + v
@@ -5973,6 +5992,510 @@ def phase_research(dev, d: Path) -> dict:
     return drive.total
 
 
+# --------------------------------------------------------------- phase 20
+
+# phase 20's first outputs on the card in bf16 (SimCLR's projections,
+# MAE's patch predictions, the distilled students' train-mode logits, the
+# self-trained model's pool logits, the legacy model's two trunks'
+# features: max |d| over max |ref|) and their losses (|d| over |ref|)
+# against the fp32 forward on the CPU on the same weights and injected
+# views: (outputs limit, loss limit), each sized from an H100's reading
+# (deterministic over four calls; NVIDIA H100 80GB HBM3, 700 W), outputs
+# then loss: SimCLR ViT 1.24e-2, 2.2e-4; SimCLR ResNet-50 5.88e-2, 1.38e-3
+# (50 train-mode BatchNorms in bf16); MAE 1.21e-2, 1.1e-4; the
+# distillations 1.32e-2 / 2.53e-2, 2.4e-4 / 2.8e-4; the pool 1.6e-3,
+# 5.7e-4; the legacy model 4.64e-3, 1.35e-3.  Each limit is about twice
+# its reading or more but the ResNet-50's outputs', which its controls
+# leave no more room for
+TRAINER_TOL = {"simclr vit": (3e-2, 1e-3), "simclr resnet": (7e-2, 3e-3),
+               "mae": (3e-2, 1e-3), "distill": (5e-2, 1e-3),
+               "self_train": (5e-3, 2e-3), "legacy": (1.5e-2, 3e-3)}
+TRAINER_ROWS = 8
+# the known-bad controls: internal weights of each checked model, each
+# doubled on the card in turn until one moves the outputs five times
+# their limit (the readings of those tried are logged): a BatchNorm
+# scale in a train-mode ResNet, whose conv weights the batch statistics
+# undo; an attention projection or the patch embedding of a ViT; the
+# last MBConv's project conv.  No last layer, which would double the
+# outputs outright whatever the limit.  An H100 read 0.343 for SimCLR's
+# block 5 projection, 0.451 for the ResNet-50's layer4.2.bn3 (0.374 for
+# its layer4.1.bn3), 0.19 for
+# MAE's block 5, 0.51 / 0.48 for the students' layer4.1.bn2, 0.045 /
+# 0.105 for the pool model's block 5 and patch embedding, 0.315 for the
+# EfficientNet's last project conv
+TRAINER_CONTROL = {
+    "simclr vit": ("vit.blocks.5.attn.proj.weight",),
+    "simclr resnet": ("resnet.layer4.2.bn3.weight",
+                      "resnet.layer4.1.bn3.weight"),
+    "mae": ("vit.blocks.5.attn.proj.weight",),
+    "distill": ("resnet.layer4.1.bn2.weight",),
+    "self_train": ("vit.blocks.5.attn.proj.weight",
+                   "vit.patch_embed.proj.weight"),
+    "legacy": ("thermal_encoder.features.7.0.block.3.0.weight",)}
+
+
+def _ssl_pair(dev, method: str, trunk: str):
+    """(card bf16, CPU fp32) SSLTrainers of one pretraining run's model
+    with the same seeded weights."""
+    from dfu_multimodal_tpu_torch.config import rgb_modality as rgb
+    from dfu_multimodal_tpu_torch.config import thermal_modality as thermal
+    from dfu_multimodal_tpu_torch.train import ssl
+    cfg = ssl.PretrainConfig(method=method)
+    mod = rgb() if trunk == "resnet" else thermal()
+    cpu = ssl.SSLTrainer(trunk, dataclasses.replace(
+        cfg, compute_dtype="float32"), mod, IMAGE, device="cpu")
+    ssl.init_ssl_model(cpu.module, torch.Generator().manual_seed(20))
+    card = ssl.SSLTrainer(trunk, cfg, mod, IMAGE, device=dev)
+    card.module.load_state_dict(cpu.module.state_dict())
+    return card, cpu
+
+
+def _ssl_outputs(tr, views, valid, keep_ids):
+    """(loss, outputs) of one train-mode forward on injected views:
+    SimCLR's 2B projections, MAE's patch predictions."""
+    from dfu_multimodal_tpu_torch.train import ssl
+    dev = tr.device
+    views = tuple(v.to(dev) for v in views)
+    valid = valid.to(dev)
+    if tr.cfg.method == "simclr":
+        z1, z2 = tr.project_views(*views)
+        return (ssl.nt_xent_loss(z1, z2, valid, tr.cfg.temperature),
+                torch.cat([z1, z2]))
+    keep_ids = keep_ids.to(dev)
+    tr.module.train()
+    pred = tr.module(views[0], keep_ids)
+    target = ssl.patchify(views[0].float(), tr.cfg.vit_patch)
+    return (ssl.masked_pixel_loss(pred, target, keep_ids, valid,
+                                  tr.cfg.norm_pix), pred)
+
+
+class _FirstStep:
+    """A card-vs-CPU check of one new step: the CPU's fp32 reference made
+    first (outside the plain-call guard), the card's bf16 reading and the
+    known-bad control's inside it."""
+
+    def __init__(self, tag, card, cpu_fn, card_fn, kind):
+        self.tag, self.card, self.card_fn = tag, card, card_fn
+        self.control = TRAINER_CONTROL[kind]
+        self.tol, self.loss_tol = TRAINER_TOL[kind]
+        with torch.no_grad():
+            self.ref_loss, self.ref = self._host(cpu_fn())
+
+    @staticmethod
+    def _host(res):
+        """(loss, outputs) as fp32 CPU tensors; the outputs one tensor or
+        a tuple of parts, each held against its own largest entry."""
+        loss, out = res
+        parts = out if isinstance(out, tuple) else (out,)
+        return loss.float().cpu(), tuple(t.float().cpu() for t in parts)
+
+    def _err(self, out) -> float:
+        return max(_rel_err(o, r) for o, r in zip(out, self.ref))
+
+    def check(self) -> dict:
+        module = self.card.module
+        with torch.no_grad():
+            loss, out = self._host(self.card_fn())
+            state = {k: v.clone() for k, v in module.state_dict().items()}
+            controls = {}
+            for key in self.control:
+                module.load_state_dict({**state, key: 2 * state[key]})
+                try:
+                    controls[key] = self._err(self._host(self.card_fn())[1])
+                finally:
+                    module.load_state_dict(state)
+                if controls[key] >= 5 * self.tol:
+                    break
+        err, bad_err = self._err(out), max(controls.values())
+        loss_err = float((loss - self.ref_loss).abs()
+                         / self.ref_loss.abs().clamp_min(1e-12))
+        log(f"[trainers] {self.tag} first step, bf16 card vs fp32 CPU: "
+            f"outputs {err:.3e}, loss {loss_err:.3e} "
+            f"({float(loss):.5f} vs {float(self.ref_loss):.5f}; limits "
+            f"{self.tol:g}, {self.loss_tol:g}); controls (one weight "
+            f"doubled) " + ", ".join(f"{k} {v:.3e}"
+                                     for k, v in controls.items()))
+        if (not math.isfinite(float(loss)) or err > self.tol
+                or loss_err > self.loss_tol or bad_err < 5 * self.tol):
+            raise AssertionError(f"{self.tag}: first step outputs {err}, "
+                                 f"loss {loss_err}, controls {controls}")
+        return {"outputs": err, "loss": loss_err, "control": bad_err}
+
+
+def _ssl_first_step(dev, tag, method, trunk, images) -> _FirstStep:
+    card, cpu = _ssl_pair(dev, method, trunk)
+    views, keep_ids = cpu.draw_views(torch.from_numpy(images),
+                                     torch.Generator().manual_seed(21))
+    valid = torch.ones(len(images))
+    return _FirstStep(
+        tag, card, lambda: _ssl_outputs(cpu, views, valid, keep_ids),
+        lambda: _ssl_outputs(card, views, valid, keep_ids), tag)
+
+
+def _kd_outputs(tr, batch, views):
+    """(KD loss, student logits) of one train-mode forward (dropout off)
+    on injected views, the teacher's logits of the same step."""
+    from dfu_multimodal_tpu_torch.train.distill import kd_loss
+    dev = tr.device
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    views = {m: v.to(dev) for m, v in views.items()}
+    t_logits = tr.teacher_logits(batch, views)
+    tr.module.train()
+    logits = tr.module(*(views[m] for m in tr.spec.inputs)).float()
+    valid = batch["valid"].float()
+    return kd_loss(logits, t_logits, batch["label"].long(), valid, valid,
+                   tr.dcfg.alpha, tr.dcfg.temperature), logits
+
+
+def _kd_first_step(dev, logs: Path, teacher_name: str, student: str,
+                   ds) -> _FirstStep:
+    """The distill step of ``student`` under phase 12's ``teacher_name``
+    checkpoint: the card's bf16 trainer and the CPU's fp32 one with the
+    same seeded student (dropout off), views drawn on the CPU."""
+    from dfu_multimodal_tpu_torch.config import rgb_modality, thermal_modality
+    from dfu_multimodal_tpu_torch.train.distill import (DistillConfig,
+                                                        DistillTrainer)
+    mods = {"rgb": rgb_modality(),
+            "thermal": thermal_modality(blur=teacher_name != "multimodal")}
+    pair = []
+    for dtype, device in (("float32", "cpu"), ("bfloat16", dev)):
+        cfg = TrainConfig(compute_dtype=dtype, drop_rate=0.0)
+        teacher = Trainer(teacher_name, cfg, mods, device=device,
+                          image_size=IMAGE)
+        teacher.load_weights(logs / f"checkpoints_{teacher_name}")
+        pair.append(DistillTrainer(student, teacher_name, teacher.module,
+                                   DistillConfig(), cfg, mods,
+                                   device=device, image_size=IMAGE))
+    cpu, card = pair
+    zoo.init_model(cpu.module, torch.Generator().manual_seed(22))
+    card.module.load_state_dict(cpu.module.state_dict())
+    batch = {k: torch.from_numpy(v[:TRAINER_ROWS])
+             for k, v in ds.arrays.items()}
+    batch["label"] = torch.from_numpy(ds.labels[:TRAINER_ROWS])
+    batch["valid"] = torch.ones(TRAINER_ROWS)
+    views = dict(zip(cpu.spec.inputs, cpu._preprocess_train(
+        batch, torch.Generator().manual_seed(23))))
+    return _FirstStep(f"distill {teacher_name} -> {student}", card,
+                      lambda: _kd_outputs(cpu, batch, views),
+                      lambda: _kd_outputs(card, batch, views), "distill")
+
+
+def _logits_outputs(tr, inputs, labels):
+    """(CE, logits) of a forward in the trainer's current mode."""
+    dev = tr.device
+    logits = tr.module(*(x.to(dev) for x in inputs)).float()
+    return F.cross_entropy(logits, labels.to(dev).long()), logits
+
+
+def _pool_first_step(dev, logs: Path, pool: np.ndarray) -> _FirstStep:
+    """The self-training pool's logits (thermal_only, phase 12's weights,
+    eval mode, the pool's first rows)."""
+    from dfu_multimodal_tpu_torch.config import thermal_modality
+    mod = {"thermal": thermal_modality()}
+    pair = []
+    for dtype, device in (("float32", "cpu"), ("bfloat16", dev)):
+        tr = Trainer("thermal_only", TrainConfig(compute_dtype=dtype), mod,
+                     device=device, image_size=IMAGE)
+        tr.load_weights(logs / "checkpoints_thermal_only")
+        tr.module.eval()
+        pair.append(tr)
+    cpu, card = pair
+    x = torch.from_numpy(pool[:TRAINER_ROWS])
+    labels = torch.zeros(TRAINER_ROWS)
+
+    def outputs(tr):
+        return _logits_outputs(tr, (eval_normalize(
+            x.to(tr.device), mod["thermal"], tr.compute_dtype),), labels)
+
+    return _FirstStep("self_train pool", card, lambda: outputs(cpu),
+                      lambda: outputs(card), "self_train")
+
+
+def _legacy_first_step(dev, ds) -> _FirstStep:
+    """legacy_rgb_resnet_fusion (ResNet-50 and EfficientNet-B0) on the
+    phase's images in eval mode, its BatchNorm statistics off identity:
+    its two trunks' features (the model's ``features`` record) and the CE
+    of its logits.  Eval mode, because at a
+    seeded init train-mode BatchNorm amplifies bf16 rounding in its
+    near-constant channels by up to 1/sqrt(eps) (a CPU rehearsal read
+    0.32 / 0.29 on the two trunks' train-mode features in bf16 against
+    fp32, 1.6e-2 / 2.4e-2 in eval mode); the train path itself runs in
+    the legacy drives."""
+    from dfu_multimodal_tpu_torch import config as cfg_mod
+    mods = {"rgb": cfg_mod.legacy_rgb_modality(),
+            "thermal": cfg_mod.legacy_thermal_modality()}
+    pair = []
+    for dtype, device in (("float32", "cpu"), ("bfloat16", dev)):
+        pair.append(Trainer("legacy_rgb_resnet_fusion", TrainConfig(
+            compute_dtype=dtype, drop_rate=0.0), mods, device=device,
+            image_size=IMAGE))
+    cpu, card = pair
+    zoo.init_model(cpu.module, torch.Generator().manual_seed(24))
+    with torch.no_grad():
+        _perturb_batchnorm(cpu.module, torch.Generator().manual_seed(25))
+    card.module.load_state_dict(cpu.module.state_dict())
+    batch = {m: torch.from_numpy(ds.arrays[m][:TRAINER_ROWS])
+             for m in ("rgb", "thermal")}
+    labels = torch.from_numpy(ds.labels[:TRAINER_ROWS])
+
+    def outputs(tr):
+        m, dev = tr.module, tr.device
+        m.eval()
+        rgb, thermal = (eval_normalize(batch[k].to(dev), mods[k],
+                                       tr.compute_dtype)
+                        for k in ("rgb", "thermal"))
+        record = {}
+        logits = m(rgb, thermal, features=record).float()
+        return (F.cross_entropy(logits, labels.to(dev).long()),
+                (record["rgb_encoder"], record["thermal_encoder"]))
+
+    return _FirstStep("legacy_rgb_resnet_fusion", card,
+                      lambda: outputs(cpu), lambda: outputs(card),
+                      "legacy")
+
+
+class _CaptureRestore:
+    """Records the module state of every ``Trainer.restore`` of
+    ``directory`` (a train CLI's ``--init-from``) right after it loads."""
+
+    def __init__(self, directory: Path):
+        self.directory, self.states = Path(directory), []
+
+    def __enter__(self):
+        self._real = real = Trainer.restore
+        capture = self
+
+        def restore(tr, checkpoint_dir, *args, **kwargs):
+            real(tr, checkpoint_dir, *args, **kwargs)
+            if Path(checkpoint_dir) == capture.directory:
+                capture.states.append({k: v.detach().cpu().clone() for k, v
+                                       in tr.module.state_dict().items()})
+
+        Trainer.restore = restore
+        return self
+
+    def __exit__(self, *exc):
+        Trainer.restore = self._real
+
+
+def _trainers_pretrain(drive, data: Path, d: Path, checks: dict) -> None:
+    """pretrain SimCLR (ViT-B/16 fused, ResNet-50) and MAE; their first
+    steps; the ViT checkpoint warm-starting thermal_only and multimodal
+    with the trunk bit-equal under both names; every checkpoint's trunk
+    equal under both names."""
+    from dfu_multimodal_tpu_torch.cli import (pretrain, train_multimodal_fusion,
+                                              train_thermal_only)
+    common = ["--data-dir", str(data), "--epochs", "2", "--warmup-epochs",
+              "1"]
+    runs = (("simclr vit", VIT_TRAIN, ["--modality", "thermal"]),
+            ("simclr resnet", set(), ["--modality", "rgb"]),
+            ("mae", set(), ["--modality", "thermal", "--method", "mae"]))
+    for tag, kernels, extra in runs:
+        out = d / "pretrain" / tag.replace(" ", "_")
+        checks[tag].check()
+        drive(f"pretrain {tag}", kernels, pretrain.main,
+              common + ["--out", str(out)] + extra)
+        state = torch.load(out / "best_model.pt", map_location="cpu",
+                           weights_only=True)["model_state_dict"]
+        meta = json.loads((out / "best_model.meta.json").read_text())
+        canon, alias = (("resnet.", "rgb_branch.") if "resnet" in tag
+                        else ("vit.", "thermal_branch."))
+        trunk = {k: v for k, v in state.items() if k.startswith(canon)}
+        unequal = [k for k, v in trunk.items()
+                   if not torch.equal(v, state[alias + k[len(canon):]])]
+        log(f"[trainers] pretrain {tag}: losses {meta['history']['loss']}, "
+            f"{len(trunk)} trunk arrays under {canon} and {alias}")
+        if (unequal or not trunk or len(meta["history"]["loss"]) != 2
+                or not all(map(math.isfinite, meta["history"]["loss"]))):
+            raise AssertionError(f"pretrain {tag}: {meta}, {unequal}")
+    vit = d / "pretrain" / "simclr_vit"
+    state = torch.load(vit / "best_model.pt", map_location="cpu",
+                       weights_only=True)["model_state_dict"]
+    for tag, cli, kernels, prefix in (
+            ("thermal_only", train_thermal_only, VIT_TRAIN, "vit."),
+            ("multimodal", train_multimodal_fusion,
+             VIT_TRAIN | {"fused_mlp"}, "thermal_branch.")):
+        with _CaptureRestore(vit) as cap:
+            drive(f"train {tag} --init-from", kernels, cli.main, [
+                "--data-dir", str(data), "--checkpoint-root",
+                str(d / "warm"), "--epochs", "1", "--init-from", str(vit),
+                "--skip-test-eval"])
+        keys = [k for k in state if k.startswith(prefix)]
+        unequal = [k for k in keys
+                   if not torch.equal(cap.states[0][k], state[k])]
+        log(f"[trainers] {tag} --init-from: {len(keys)} {prefix} arrays "
+            f"loaded, unequal to the checkpoint {unequal}")
+        if len(cap.states) != 1 or unequal or not keys:
+            raise AssertionError(f"{tag} --init-from: {unequal}")
+
+
+def _trainers_distill(drive, data: Path, logs: Path, d: Path,
+                      checks: dict) -> None:
+    from dfu_multimodal_tpu_torch.cli import distill
+    from dfu_multimodal_tpu_torch.utils.artifacts import load_pt
+    for teacher, student, kernels in (
+            ("multimodal", "resnet18_rgb", FUSION_EVAL),
+            ("thermal_only", "resnet18_thermal", VIT_EVAL)):
+        checks[f"distill {teacher}"].check()
+        drive(f"distill {teacher} -> {student}", kernels, distill.main, [
+            "--teacher-checkpoint", str(logs / f"checkpoints_{teacher}"),
+            "--student", student, "--data-dir", str(data),
+            "--checkpoint-root", str(d / "distill"), "--epochs", "1"])
+        saved = load_pt(d / "distill" / f"checkpoints_{student}_distilled"
+                        / "test_results.pt")
+        log(f"[trainers] distill {teacher} -> {student}: student test F1 "
+            f"{saved['test_f1']:.4f}, teacher {saved['teacher_test_f1']:.4f}")
+        if (saved["teacher_model"] != teacher
+                or not np.isfinite(saved["test_loss"])):
+            raise AssertionError(f"distill {teacher}: {sorted(saved)}")
+
+
+def _trainers_self_train(drive, data: Path, d: Path, checks: dict) -> None:
+    from dfu_multimodal_tpu_torch.cli import self_train
+    checks["self_train"].check()
+    out = d / "self_train" / "checkpoints_thermal_only_selftrain"
+    report = drive("self_train thermal_only", VIT_TRAIN, self_train.main, [
+        "--data-dir", str(data), "--unlabeled-dir",
+        str(data / "thermal" / "test"), "--modality", "thermal",
+        "--checkpoint-root", str(d / "self_train"), "--rounds", "2",
+        "--epochs", "1", "--threshold", "0.5", "--no-balance"])
+    rounds = report["rounds"]
+    best = max(rounds, key=lambda r: r["val_f1"])
+    promoted = ((out / "best_model.pt").exists()
+                and (out / "best_model.meta.json").exists())
+    src = out / f"round_{best['round']}" / "best_model.pt"
+    same = src.exists() and src.read_bytes() == (
+        out / "best_model.pt").read_bytes()
+    log(f"[trainers] self_train: rounds {rounds}; best round "
+        f"{best['round']}; best_model promoted {promoted} (the round's own "
+        f"file: {same}); test {report.get('test')}")
+    if (len(rounds) != 2 or "adopted" not in rounds[0] or not promoted
+            or (best["val_f1"] > 0 and not same)):
+        raise AssertionError(f"self_train: {report}")
+
+
+def _trainers_legacy(drive, data: Path, d: Path, checks: dict) -> None:
+    from dfu_multimodal_tpu_torch.cli import train_legacy
+    checks["legacy"].check()
+    for variant in ("gated_fusion", "rgb_resnet_fusion", "single_rgb",
+                    "smoke"):
+        res = drive(f"train_legacy {variant}", set(), train_legacy.main, [
+            "--variant", variant, "--data-dir", str(data),
+            "--checkpoint-root", str(d / "legacy"), "--epochs", "1",
+            "--save-last"])
+        ckpt = d / "legacy" / f"checkpoints_legacy_{variant}"
+        if not ((ckpt / "last_model.pt").exists()
+                and np.isfinite(res["test_loss"])):
+            raise AssertionError(f"train_legacy {variant}: {res}")
+
+
+def _reference_layout(state: dict) -> dict:
+    """The port's rgb_only state as the reference saves it: the trunk
+    under ``backbone.``, the head a Sequential(Dropout, Linear)'s
+    ``backbone.fc.1``."""
+    return {("backbone.fc.1." + k[len("head."):]) if k.startswith("head.")
+            else "backbone." + k[len("resnet."):]: v
+            for k, v in state.items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def _trainers_convert(drive, dev, d: Path) -> dict:
+    """convert_checkpoint of a reference-layout rgb_only .pt written from
+    seeded weights: the converted checkpoint's logits on the card equal
+    to the source's loaded into the same module (limit 0), beside a
+    control."""
+    from dfu_multimodal_tpu_torch.cli import convert_checkpoint
+    from dfu_multimodal_tpu_torch.config import rgb_modality
+    src = Trainer("rgb_only", TrainConfig(), {"rgb": rgb_modality()},
+                  device="cpu", image_size=IMAGE)
+    zoo.init_model(src.module, torch.Generator().manual_seed(27))
+    with torch.no_grad():
+        _perturb_batchnorm(src.module, torch.Generator().manual_seed(28))
+    ref_pt = d / "reference" / "best_model.pt"
+    ref_pt.parent.mkdir(parents=True)
+    torch.save({"model_state_dict": _reference_layout(
+        src.module.state_dict()), "epoch": 5, "val_f1": 0.5}, ref_pt)
+    out = d / "converted"
+    drive("convert_checkpoint rgb_only", set(), convert_checkpoint.main, [
+        "--model", "rgb_only", "--torch-checkpoint", str(ref_pt),
+        "--output", str(out)])
+    tr = Trainer("rgb_only", TrainConfig(), {"rgb": rgb_modality()},
+                 device=dev, image_size=IMAGE)
+    images = np.random.default_rng(29).integers(
+        0, 256, (TRAINER_ROWS, IMAGE, IMAGE, 3), dtype=np.uint8)
+    x = eval_normalize(torch.from_numpy(images).to(dev), rgb_modality(),
+                       tr.compute_dtype)
+    tr.module.eval()
+    with torch.no_grad():
+        tr.module.load_state_dict(src.module.state_dict())
+        ref = tr.module(x).float().cpu()
+        tr.load_weights(out)
+        got = tr.module(x).float().cpu()
+        key = "resnet.layer4.2.conv3.weight"
+        state = tr.module.state_dict()
+        tr.module.load_state_dict({**state, key: 2 * state[key]})
+        bad = tr.module(x).float().cpu()
+    err, bad_err = float((got - ref).abs().max()), _rel_err(bad, ref)
+    log(f"[trainers] convert_checkpoint: logits on the card, converted vs "
+        f"the source in the same module: max |d| {err} (limit 0); control "
+        f"({key} doubled) {bad_err:.3e}")
+    if err != 0.0 or bad_err == 0.0:
+        raise AssertionError(f"convert_checkpoint: {err}, {bad_err}")
+    return {"logits": err, "control": bad_err}
+
+
+def phase_trainers(dev, d: Path) -> dict:
+    """Phase 20 on phase 12's tree and checkpoints (``d``): pretrain,
+    warm starts, distill, self_train, train_legacy and convert_checkpoint
+    through their ``main(argv)`` at full width, 224², each new step's
+    first outputs against the CPU's fp32 beside a control, with no plain
+    version called on the card.  Returns the drives' launches by kernel
+    (the kernels line's ``trainer_launches``)."""
+    from dfu_multimodal_tpu_torch.data.loader import (load_paired,
+                                                      load_single_modality)
+    t0 = time.perf_counter()
+    data, logs = d / "data", d / "logs"
+    gpu = card()
+    rgb = load_single_modality(data / "rgb", "train", IMAGE, "rgb")
+    thermal = load_single_modality(data / "thermal", "train", IMAGE,
+                                   "thermal")
+    paired = load_paired(data, "train", IMAGE, strategy="pseudo", seed=42)
+    pool = load_single_modality(data / "thermal", "test", IMAGE, "thermal")
+    rows = lambda ds, m: ds.arrays[m][:TRAINER_ROWS]
+    checks = {
+        "simclr vit": _ssl_first_step(dev, "simclr vit", "simclr", "vit",
+                                      rows(thermal, "thermal")),
+        "simclr resnet": _ssl_first_step(dev, "simclr resnet", "simclr",
+                                         "resnet", rows(rgb, "rgb")),
+        "mae": _ssl_first_step(dev, "mae", "mae", "vit",
+                               rows(thermal, "thermal")),
+        "distill multimodal": _kd_first_step(dev, logs, "multimodal",
+                                             "resnet18_rgb", paired),
+        "distill thermal_only": _kd_first_step(dev, logs, "thermal_only",
+                                               "resnet18_thermal", thermal),
+        "self_train": _pool_first_step(dev, logs, pool.arrays["thermal"]),
+        "legacy": _legacy_first_step(dev, paired)}
+    log(f"[trainers] the CPU's fp32 references of {len(checks)} first steps "
+        f"in {time.perf_counter() - t0:.2f} s (host clock)")
+    drive = _Drives(gpu, "trainers")
+    with _PlainCalls(RESEARCH_PLAINS) as plain:
+        _trainers_pretrain(drive, data, d, checks)
+        _trainers_distill(drive, data, logs, d, checks)
+        _trainers_self_train(drive, data, d, checks)
+        _trainers_legacy(drive, data, d, checks)
+        _trainers_convert(drive, dev, d)
+        torch.cuda.synchronize()
+    log(f"[trainers] launches over the phase's drives {drive.total}; plain "
+        f"versions called {plain.calls}")
+    if plain.calls:
+        raise AssertionError(f"trainers: plain versions ran {plain.calls}")
+    del checks
+    torch.cuda.empty_cache()
+    log(f"[trainers] phase 20 in {time.perf_counter() - t0:.2f} s (host "
+        f"clock; {gpu})")
+    return drive.total
+
+
 # ---------------------------------------------------------------- bounds
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
@@ -6152,6 +6675,7 @@ def main() -> int:
         export = phase_export(dev, Path(d))
         students = phase_students(dev, Path(d))
         research = phase_research(dev, Path(d))
+        trainers = phase_trainers(dev, Path(d))
     for mod in ("jax", "flax", "optax", "PIL", "torchvision", "matplotlib",
                 "sklearn", "cv2", "dfu_multimodal_tpu"):
         if mod in sys.modules:
@@ -6198,7 +6722,9 @@ def main() -> int:
                 **({"student_launches": students[k]}
                    if k in students else {}),
                 **({"research_launches": research[k]}
-                   if k in research else {})}
+                   if k in research else {}),
+                **({"trainer_launches": trainers[k]}
+                   if k in trainers else {})}
                for k, (src, tpu) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 
 A copy, field for field, of the dataclasses and factories the port uses:
 the normalisation constants, ``AugmentConfig``, ``ModalityConfig`` with
-``rgb_modality`` / ``thermal_modality``, and ``TrainConfig``.  The port
+``rgb_modality`` / ``thermal_modality`` and the legacy lineage's
+``legacy_augment`` / ``legacy_rgb_modality`` / ``legacy_thermal_modality``,
+and ``TrainConfig``.  The port
 imports nothing of the JAX package; ``tests/test_torch_models.py`` checks
 that these defaults equal the JAX package's, so the copy cannot drift.
 
@@ -70,6 +72,15 @@ def thermal_augment(blur: bool = True) -> AugmentConfig:
     return AugmentConfig(color_jitter=False, gaussian_blur=blur)
 
 
+def legacy_augment() -> AugmentConfig:
+    """The early-files pipeline (reference scripts/early files/
+    dataloader.py:123-147): h/v flips and rotation ±15° only, applied
+    after Normalize, hence the mean-valued rotation fill."""
+    return AugmentConfig(rotation_degrees=15.0, color_jitter=False,
+                         affine=False, gaussian_blur=False,
+                         fill_with_mean=True)
+
+
 @dataclass(frozen=True)
 class ModalityConfig:
     name: str = "rgb"
@@ -85,6 +96,15 @@ def rgb_modality() -> ModalityConfig:
 def thermal_modality(blur: bool = True) -> ModalityConfig:
     return ModalityConfig("thermal", THERMAL_MEAN, THERMAL_STD,
                           thermal_augment(blur))
+
+
+def legacy_rgb_modality() -> ModalityConfig:
+    return ModalityConfig("rgb", RGB_MEAN, RGB_STD, legacy_augment())
+
+
+def legacy_thermal_modality() -> ModalityConfig:
+    return ModalityConfig("thermal", THERMAL_MEAN, THERMAL_STD,
+                          legacy_augment())
 
 
 @dataclass(frozen=True)

@@ -54,11 +54,13 @@ TRUNK_FEATURES: Dict[str, Dict[str, str]] = {
 
 def trunk_features(model_name: str) -> Dict[str, str]:
     """The features-record entries of ``model_name``; ``ValueError``
-    naming it for a zoo model the port does not build."""
+    naming it for a zoo model whose features the port does not record
+    (the legacy lineage's)."""
     if model_name not in TRUNK_FEATURES:
         raise ValueError(
-            f"no trunk-feature mapping for model {model_name!r} (the port "
-            f"does not build it); supported: {sorted(TRUNK_FEATURES)}")
+            f"no trunk-feature mapping for model {model_name!r} (its "
+            f"features are not recorded in the port); supported: "
+            f"{sorted(TRUNK_FEATURES)}")
     return TRUNK_FEATURES[model_name]
 
 

@@ -130,3 +130,165 @@ class MultimodalFusionClassifier(nn.Module):
         fused = torch.cat([rgb_feats, thermal_feats],
                           dim=-1)                      # (B, 2816) fp32
         return self.fusion(fused, generator)
+
+
+# ------------------------------------------------------------ the legacy
+#
+# The early-files lineage (reference models/{models,fusion,classifier}.py
+# and notebooks/early files/*): counterparts of the JAX package's
+# ``LegacyConcatFusion``, ``GatedFusion``, ``LegacyGatedFusionClassifier``,
+# ``LegacyResNetEfficientNetFusion`` and ``LegacyClassifier``, with their
+# scope names as keys.  The legacy heads of the reference emit one sigmoid
+# unit trained with BCE; the two fusion classifiers are standardised on
+# the 2-class softmax contract, as in the JAX package (SURVEY §7f).  Dense
+# layers run in the compute dtype but the last, which is fp32; dropout in
+# train mode draws from the ``generator`` given to forward.
+
+
+def _dense(x: torch.Tensor, fc: nn.Linear, dtype: torch.dtype
+           ) -> torch.Tensor:
+    return F.linear(x.to(dtype), fc.weight.to(dtype), fc.bias.to(dtype))
+
+
+def _train_dropout(module: nn.Module, x: torch.Tensor, rate: float,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    if not module.training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError(f"{type(module).__name__} in train mode draws its "
+                         "dropout from an explicit generator")
+    return dropout(x, rate, generator)
+
+
+class LegacyConcatFusion(nn.Module):
+    """concat -> fc1 -> ReLU -> Dropout(0.3) -> fc2 (1) -> sigmoid."""
+
+    def __init__(self, rgb_dim: int = 2048, thermal_dim: int = 768,
+                 hidden_dim: int = 512,
+                 dtype: Union[str, torch.dtype] = torch.float32):
+        super().__init__()
+        self.dtype = canonical_dtype(dtype)
+        self.fc1 = nn.Linear(rgb_dim + thermal_dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, 1)
+
+    def forward(self, rgb_feat: torch.Tensor, thermal_feat: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = F.relu(_dense(torch.cat([rgb_feat, thermal_feat], dim=-1),
+                          self.fc1, self.dtype))
+        x = _train_dropout(self, x, 0.3, generator)
+        return torch.sigmoid(self.fc2(x.float()))
+
+
+class GatedFusion(nn.Module):
+    """g = sigmoid(gate_fc2(ReLU(gate_fc1(concat)))), in fp32;
+    g·rgb + (1 − g)·thermal."""
+
+    def __init__(self, feat_dim: int = 1280,
+                 dtype: Union[str, torch.dtype] = torch.float32):
+        super().__init__()
+        self.dtype = canonical_dtype(dtype)
+        self.gate_fc1 = nn.Linear(2 * feat_dim, feat_dim)
+        self.gate_fc2 = nn.Linear(feat_dim, feat_dim)
+
+    def forward(self, rgb_feat: torch.Tensor,
+                th_feat: torch.Tensor) -> torch.Tensor:
+        combined = torch.cat([rgb_feat.float(), th_feat.float()], dim=-1)
+        g = F.relu(_dense(combined, self.gate_fc1, self.dtype))
+        g = torch.sigmoid(_dense(g, self.gate_fc2, self.dtype).float())
+        return g * rgb_feat + (1.0 - g) * th_feat
+
+
+class _LegacyFusionHead(nn.Module):
+    """The legacy classifiers' tail: gated fusion -> cls_fc1 (256) ->
+    ReLU -> Dropout -> head (fp32)."""
+
+    def __init__(self, num_classes: int, drop_rate: float, feat_dim: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.drop_rate = drop_rate
+        self.dtype = dtype
+        self.fusion = GatedFusion(feat_dim, dtype)
+        self.cls_fc1 = nn.Linear(feat_dim, 256)
+        self.head = nn.Linear(256, num_classes)
+
+    def classify(self, rgb_feat: torch.Tensor, th_feat: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+        x = F.relu(_dense(self.fusion(rgb_feat, th_feat), self.cls_fc1,
+                          self.dtype))
+        x = _train_dropout(self, x, self.drop_rate, generator)
+        return self.head(x.float())
+
+
+class LegacyGatedFusionClassifier(_LegacyFusionHead):
+    """Two EfficientNet-B0 encoders (``rgb_encoder``, ``thermal_encoder``)
+    -> gated fusion -> 256 -> head (``legacy_gated_fusion``)."""
+
+    def __init__(self, num_classes: int = 2, drop_rate: float = 0.3,
+                 feat_dim: int = 1280,
+                 dtype: Union[str, torch.dtype] = torch.float32,
+                 image_size: int = 224):
+        from dfu_multimodal_tpu_torch.models.efficientnet import (
+            EfficientNetB0)
+        del image_size
+        dtype = canonical_dtype(dtype)
+        super().__init__(num_classes, drop_rate, feat_dim, dtype)
+        self.rgb_encoder = EfficientNetB0(dtype)
+        self.thermal_encoder = EfficientNetB0(dtype)
+
+    def forward(self, rgb: torch.Tensor, thermal: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                features: Taps = None) -> torch.Tensor:
+        """``features`` records each encoder's (B, 1280) features,
+        ``rgb_encoder`` and ``thermal_encoder``."""
+        return self.classify(
+            tap(features, "rgb_encoder", self.rgb_encoder(rgb, generator)),
+            tap(features, "thermal_encoder",
+                self.thermal_encoder(thermal, generator)), generator)
+
+
+class LegacyResNetEfficientNetFusion(_LegacyFusionHead):
+    """ResNet-50 (``rgb_encoder``, torchvision keys) projected 2048 ->
+    1280 (``rgb_proj``) and an EfficientNet-B0 ``thermal_encoder`` ->
+    gated fusion -> 256 -> head (``legacy_rgb_resnet_fusion``)."""
+
+    def __init__(self, num_classes: int = 2, drop_rate: float = 0.3,
+                 feat_dim: int = 1280,
+                 dtype: Union[str, torch.dtype] = torch.float32,
+                 image_size: int = 224):
+        from dfu_multimodal_tpu_torch.models.efficientnet import (
+            EfficientNetB0)
+        del image_size
+        dtype = canonical_dtype(dtype)
+        super().__init__(num_classes, drop_rate, feat_dim, dtype)
+        self.rgb_encoder = ResNet50(dtype=dtype)
+        self.rgb_proj = nn.Linear(2048, feat_dim)
+        self.thermal_encoder = EfficientNetB0(dtype)
+
+    def forward(self, rgb: torch.Tensor, thermal: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                features: Taps = None) -> torch.Tensor:
+        """``features`` records each encoder's features: ``rgb_encoder``
+        the ResNet-50's (B, 2048), before ``rgb_proj``, and
+        ``thermal_encoder`` the EfficientNet's (B, 1280)."""
+        rgb_feat = tap(features, "rgb_encoder", self.rgb_encoder(rgb))
+        return self.classify(
+            _dense(rgb_feat, self.rgb_proj, self.dtype),
+            tap(features, "thermal_encoder",
+                self.thermal_encoder(thermal, generator)), generator)
+
+
+class LegacyClassifier(nn.Module):
+    """1280 -> fc1 (256) -> ReLU -> Dropout(0.3) -> fc2 (1) -> sigmoid."""
+
+    def __init__(self, feat_dim: int = 1280,
+                 dtype: Union[str, torch.dtype] = torch.float32):
+        super().__init__()
+        self.dtype = canonical_dtype(dtype)
+        self.fc1 = nn.Linear(feat_dim, 256)
+        self.fc2 = nn.Linear(256, 1)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = F.relu(_dense(x, self.fc1, self.dtype))
+        x = _train_dropout(self, x, 0.3, generator)
+        return torch.sigmoid(self.fc2(x.float()))

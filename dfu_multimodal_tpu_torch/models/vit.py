@@ -417,16 +417,26 @@ class ViT(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 calibration: Optional[Calibration] = None,
-                taps: Taps = None) -> torch.Tensor:
+                taps: Taps = None, keep_ids: Optional[torch.Tensor] = None,
+                return_tokens: bool = False) -> torch.Tensor:
         """x (B, H, W, 3) NHWC.  ``calibration`` (flax blocks only): a
         record of :data:`CALIBRATION_POINTS` to lists, to which every block
         appends its max|·| at each point.  ``taps`` records ``blocks``, the
         (B, N, C) tokens after the last block, before the final norm (with
-        ``token_merge``, the ``keep`` merged tokens, as in JAX)."""
+        ``token_merge``, the ``keep`` merged tokens, as in JAX).
+
+        ``keep_ids`` (B, K) patch indices (the masked-autoencoder path,
+        ``train/ssl.py``): after the position embedding only those patch
+        tokens go on, CLS always first.  ``return_tokens`` returns the
+        whole post-norm sequence (B, 1+K, C) in fp32 instead of the CLS
+        features.  Both off, the classifier forward is unchanged."""
         dt = self.dtype
         x = self.patch_embed(x.to(dt))
         cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+        if keep_ids is not None:
+            idx = keep_ids.long()[:, :, None].expand(-1, -1, x.shape[-1])
+            x = torch.cat([x[:, :1], torch.gather(x[:, 1:], 1, idx)], dim=1)
         merge_at, keep = self.token_merge or (len(self.blocks), None)
         for block in self.blocks[:merge_at]:
             x = _block(block, x, calibration)
@@ -439,6 +449,9 @@ class ViT(nn.Module):
             for block in self.blocks[merge_at:]:
                 x = _block(block, x, calibration, bias)
         x = tap(taps, "blocks", x)
+        if return_tokens:
+            return F.layer_norm(x.float(), x.shape[-1:], self.norm.weight,
+                                self.norm.bias, LN_EPS).to(dt).float()
         # LayerNorm is per token: normalising only the CLS row is the
         # same as normalising all and taking row 0.
         cls = F.layer_norm(x[:, 0].float(), x.shape[-1:], self.norm.weight,

@@ -1,11 +1,12 @@
 """Model registry (counterpart of ``dfu_multimodal_tpu/models/zoo.py``).
 
-Ported so far: the three reference models — the flagship ``multimodal``
-fusion model, the ``thermal_only`` ViT classifier and the ``rgb_only``
-ResNet-50 classifier —, the ResNet-18 distillation students
-``resnet18_rgb`` and ``resnet18_thermal``, and the small smoke models
-``tiny_rgb``, ``tiny_thermal`` and ``tiny_fusion``; the other families
-join as their modules land.
+Every JAX entry: the three reference models — the flagship
+``multimodal`` fusion model, the ``thermal_only`` ViT classifier and the
+``rgb_only`` ResNet-50 classifier —, the ResNet-18 distillation students
+``resnet18_rgb`` and ``resnet18_thermal``, the legacy lineage
+(``efficientnet_rgb``, ``efficientnet_thermal``, ``legacy_gated_fusion``,
+``legacy_rgb_resnet_fusion``) and the small smoke models ``tiny_rgb``,
+``tiny_thermal`` and ``tiny_fusion``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,11 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from dfu_multimodal_tpu_torch.models.fusion import MultimodalFusionClassifier
+from dfu_multimodal_tpu_torch.models.efficientnet import (
+    EfficientNetClassifier)
+from dfu_multimodal_tpu_torch.models.fusion import (
+    LegacyGatedFusionClassifier, LegacyResNetEfficientNetFusion,
+    MultimodalFusionClassifier)
 from dfu_multimodal_tpu_torch.models.resnet import ResNetClassifier
 from dfu_multimodal_tpu_torch.models.tiny import TinyCNN, TinyFusion
 from dfu_multimodal_tpu_torch.models.vit import ViT, ViTClassifier
@@ -51,6 +56,14 @@ register(ModelSpec("resnet18_thermal", partial(ResNetClassifier,
 register(ModelSpec("thermal_only", ViTClassifier, ("thermal",)))
 register(ModelSpec("multimodal", MultimodalFusionClassifier,
                    ("rgb", "thermal")))
+# the legacy lineage (early-files trainers, cli/train_legacy.py)
+register(ModelSpec("efficientnet_rgb", EfficientNetClassifier, ("rgb",)))
+register(ModelSpec("efficientnet_thermal", EfficientNetClassifier,
+                   ("thermal",)))
+register(ModelSpec("legacy_gated_fusion", LegacyGatedFusionClassifier,
+                   ("rgb", "thermal")))
+register(ModelSpec("legacy_rgb_resnet_fusion",
+                   LegacyResNetEfficientNetFusion, ("rgb", "thermal")))
 
 
 # models whose thermal/primary trunk is a ViT: the set --token-merge

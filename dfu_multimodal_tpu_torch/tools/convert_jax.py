@@ -35,7 +35,12 @@ Dense -> ``head``), ``rgb_only`` (``ResNet_0`` params and batch stats
 ``resnet18_thermal`` likewise), and the smoke models ``tiny_rgb``
 / ``tiny_thermal`` (``conv0``, ``bn0``, ``conv1``, ``bn1``, ``head`` at
 the top level) and ``tiny_fusion`` (those layers under ``rgb_branch`` /
-``thermal_branch``, and ``head``).  A tree without ``batch_stats``
+``thermal_branch``, and ``head``); the legacy lineage's
+``efficientnet_rgb`` / ``efficientnet_thermal`` (torchvision's
+``efficientnet_b0`` keys under ``encoder.``) and ``legacy_gated_fusion``
+/ ``legacy_rgb_resnet_fusion`` (:func:`legacy_variables` goes back); and
+``"pretrain"``, a pretraining checkpoint's tree
+(:func:`pretrain_state_dict`).  A tree without ``batch_stats``
 (the optimizer's moments) gives the parameters' keys only.
 
 :func:`adamw_state_from_optax` carries an ``optax.adamw`` chain state
@@ -255,20 +260,28 @@ def vit_state_dict(params: Mapping, prefix: str = "") -> StateDict:
                           if s in params)
               for i in range(enc["norm1"]["scale"].shape[0])]
     for i, blk in enumerate(blocks):
-        base = f"{prefix}blocks.{i}"
-        for norm in ("norm1", "norm2"):
-            out[f"{base}.{norm}.weight"] = _t(blk[norm]["scale"])
-            out[f"{base}.{norm}.bias"] = _t(blk[norm]["bias"])
-        for ours, theirs in (("attn.qkv", blk["attn"]["qkv"]),
-                             ("attn.proj", blk["attn"]["proj"]),
-                             ("mlp.fc1", blk["mlp_fc1"]),
-                             ("mlp.fc2", blk["mlp_fc2"])):
-            _vit_dense(out, f"{base}.{ours}", theirs)
-        if "act_scales" in blk:
-            out[f"{base}.act_scales"] = _t(blk["act_scales"])
-    out[f"{prefix}norm.weight"] = _t(params["norm"]["scale"])
-    out[f"{prefix}norm.bias"] = _t(params["norm"]["bias"])
+        _vit_block(out, f"{prefix}blocks.{i}", blk)
+    _layernorm(out, f"{prefix}norm", params["norm"])
     return out
+
+
+def _layernorm(out: StateDict, key: str, params: Mapping) -> None:
+    out[f"{key}.weight"] = _t(params["scale"])
+    out[f"{key}.bias"] = _t(params["bias"])
+
+
+def _vit_block(out: StateDict, base: str, blk: Mapping) -> None:
+    """One encoder block's subtree (an unstacked slice of the scanned
+    ``encoder``, or a flax ``EncoderBlock`` scope) -> timm's keys."""
+    for norm in ("norm1", "norm2"):
+        _layernorm(out, f"{base}.{norm}", blk[norm])
+    for ours, theirs in (("attn.qkv", blk["attn"]["qkv"]),
+                         ("attn.proj", blk["attn"]["proj"]),
+                         ("mlp.fc1", blk["mlp_fc1"]),
+                         ("mlp.fc2", blk["mlp_fc2"])):
+        _vit_dense(out, f"{base}.{ours}", theirs)
+    if "act_scales" in blk:
+        out[f"{base}.act_scales"] = _t(blk["act_scales"])
 
 
 def _index_tree(tree: Mapping, i: int) -> Dict[str, Any]:
@@ -338,13 +351,213 @@ def vit_params(state_dict: Mapping[str, torch.Tensor], prefix: str = "",
     return tree
 
 
+def _linear(out: StateDict, key: str, params: Mapping) -> None:
+    """A flax Dense (kernel (in, out), bias when it has one)."""
+    out[f"{key}.weight"] = _dense(params["kernel"])
+    if "bias" in params:
+        out[f"{key}.bias"] = _t(params["bias"])
+
+
+def _linear_params(sub: Mapping[str, torch.Tensor], key: str) -> Dict:
+    p = {"kernel": _f32(sub[f"{key}.weight"]).T.copy()}
+    if f"{key}.bias" in sub:
+        p["bias"] = _f32(sub[f"{key}.bias"])
+    return p
+
+
+def efficientnet_state_dict(params: Mapping, stats: Optional[Mapping],
+                            prefix: str = "") -> StateDict:
+    """A JAX ``EfficientNetB0`` subtree -> torchvision's
+    ``efficientnet_b0`` keys (``models/efficientnet.py``): ``stem_*`` ->
+    ``features.0``, ``stage{s}_block{i}`` -> ``features.{s+1}.{i}.block``
+    (``expand_*``, ``dw_*``, ``se`` ``reduce`` / ``expand`` -> ``fc1`` /
+    ``fc2``, ``project_*``), ``head_*`` -> the last ``features`` entry.
+    Depthwise kernels (k, k, 1, C) become (C, 1, k, k) like any HWIO."""
+    out: StateDict = {}
+
+    def pair(key, p, s, conv, bn):
+        out[f"{key}.0.weight"] = _conv(p[conv]["kernel"])
+        _batchnorm(out, f"{key}.1", p[bn], None if s is None else s[bn])
+
+    pair(f"{prefix}features.0", params, stats, "stem_conv", "stem_bn")
+    stages = 0
+    for scope in sorted(k for k in params if k.startswith("stage")):
+        si, bi = (int(v) for v in scope[len("stage"):].split("_block"))
+        stages = max(stages, si + 1)
+        p, st = params[scope], None if stats is None else stats[scope]
+        base = f"{prefix}features.{si + 1}.{bi}.block"
+        j = int("expand_conv" in p)
+        if j:
+            pair(f"{base}.0", p, st, "expand_conv", "expand_bn")
+        pair(f"{base}.{j}", p, st, "dw_conv", "dw_bn")
+        for ours, theirs in (("fc1", "reduce"), ("fc2", "expand")):
+            out[f"{base}.{j + 1}.{ours}.weight"] = _conv(
+                p["se"][theirs]["kernel"])
+            out[f"{base}.{j + 1}.{ours}.bias"] = _t(p["se"][theirs]["bias"])
+        pair(f"{base}.{j + 2}", p, st, "project_conv", "project_bn")
+    pair(f"{prefix}features.{stages + 1}", params, stats, "head_conv",
+         "head_bn")
+    return out
+
+
+def efficientnet_params(state_dict: Mapping[str, torch.Tensor],
+                        prefix: str = "") -> tuple:
+    """The inverse of :func:`efficientnet_state_dict`: (params,
+    batch_stats) trees of numpy arrays (no batch_stats entries without
+    running statistics)."""
+    sub = {k[len(prefix):]: v.detach().cpu() for k, v in state_dict.items()
+           if k.startswith(prefix)}
+
+    def pair(p, st, key, conv, bn):
+        p[conv] = {"kernel": _f32(sub[f"{key}.0.weight"]).transpose(
+            2, 3, 1, 0).copy()}
+        p[bn] = {"scale": _f32(sub[f"{key}.1.weight"]),
+                 "bias": _f32(sub[f"{key}.1.bias"])}
+        if f"{key}.1.running_mean" in sub:
+            st[bn] = {"mean": _f32(sub[f"{key}.1.running_mean"]),
+                      "var": _f32(sub[f"{key}.1.running_var"])}
+
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    pair(params, stats, "features.0", "stem_conv", "stem_bn")
+    blocks = sorted({tuple(int(v) for v in k.split(".")[1:3]) for k in sub
+                     if ".block." in k})
+    for s, i in blocks:
+        scope, base = f"stage{s - 1}_block{i}", f"features.{s}.{i}.block"
+        p, st = params.setdefault(scope, {}), stats.setdefault(scope, {})
+        j = int(f"{base}.3.0.weight" in sub)
+        if j:
+            pair(p, st, f"{base}.0", "expand_conv", "expand_bn")
+        pair(p, st, f"{base}.{j}", "dw_conv", "dw_bn")
+        p["se"] = {theirs: {
+            "kernel": _f32(sub[f"{base}.{j + 1}.{ours}.weight"]).transpose(
+                2, 3, 1, 0).copy(),
+            "bias": _f32(sub[f"{base}.{j + 1}.{ours}.bias"])}
+            for ours, theirs in (("fc1", "reduce"), ("fc2", "expand"))}
+        pair(p, st, f"{base}.{j + 2}", "project_conv", "project_bn")
+    pair(params, stats, f"features.{blocks[-1][0] + 1}", "head_conv",
+         "head_bn")
+    return params, {k: v for k, v in stats.items() if v}
+
+
+EFFICIENTNETS = ("efficientnet_rgb", "efficientnet_thermal")
+LEGACY_FUSIONS = ("legacy_gated_fusion", "legacy_rgb_resnet_fusion")
+_LEGACY_DENSES = (("fusion.gate_fc1", ("fusion", "gate_fc1")),
+                  ("fusion.gate_fc2", ("fusion", "gate_fc2")),
+                  ("cls_fc1", ("cls_fc1",)), ("head", ("head",)))
+
+
+def _legacy_state_dict(model_name: str, params: Mapping,
+                       stats: Optional[Mapping]) -> StateDict:
+    """An EfficientNet classifier (trunk scope ``EfficientNetB0_0`` ->
+    ``encoder.``) or a legacy fusion classifier (``rgb_encoder`` — an
+    EfficientNet, or the ResNet-50 with ``rgb_proj`` —,
+    ``thermal_encoder``, ``fusion/gate_fc{1,2}``, ``cls_fc1``, ``head``)."""
+    stat = lambda scope: None if stats is None else stats.get(scope)
+    if model_name in EFFICIENTNETS:
+        out = efficientnet_state_dict(params["EfficientNetB0_0"],
+                                      stat("EfficientNetB0_0"), "encoder.")
+        _linear(out, "head", params["head"])
+        return out
+    rgb = (resnet_state_dict if model_name == "legacy_rgb_resnet_fusion"
+           else efficientnet_state_dict)
+    out = rgb(params["rgb_encoder"], stat("rgb_encoder"), "rgb_encoder.")
+    out.update(efficientnet_state_dict(params["thermal_encoder"],
+                                       stat("thermal_encoder"),
+                                       "thermal_encoder."))
+    if "rgb_proj" in params:
+        _linear(out, "rgb_proj", params["rgb_proj"])
+    for key, path in _LEGACY_DENSES:
+        node = params
+        for p in path:
+            node = node[p]
+        _linear(out, key, node)
+    return out
+
+
+def legacy_variables(model_name: str,
+                     state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of the legacy models' bridge: the port's state_dict of
+    an EfficientNet or legacy fusion classifier -> the JAX variables
+    (``params``, and ``batch_stats`` when the running statistics are
+    there) of numpy arrays."""
+    sub = {k: v.detach().cpu() for k, v in state_dict.items()}
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    if model_name in EFFICIENTNETS:
+        trunks = (("EfficientNetB0_0", "encoder.", efficientnet_params),)
+        denses = (("head", ("head",)),)
+    elif model_name in LEGACY_FUSIONS:
+        rgb = (resnet_params if model_name == "legacy_rgb_resnet_fusion"
+               else efficientnet_params)
+        trunks = (("rgb_encoder", "rgb_encoder.", rgb),
+                  ("thermal_encoder", "thermal_encoder.",
+                   efficientnet_params))
+        denses = _LEGACY_DENSES + ((("rgb_proj", ("rgb_proj",)),)
+                                   if "rgb_proj.weight" in sub else ())
+    else:
+        raise ValueError(f"{model_name!r} is not a legacy model")
+    for scope, prefix, fn in trunks:
+        params[scope], st = fn(sub, prefix)
+        if st:
+            stats[scope] = st
+    for key, path in denses:
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = _linear_params(sub, key)
+    return {"params": params, **({"batch_stats": stats} if stats else {})}
+
+
+def pretrain_state_dict(params: Mapping,
+                        stats: Optional[Mapping]) -> StateDict:
+    """A JAX pretraining tree (``train/ssl.py``'s SimCLR or MAE model,
+    with the trunk's aliases) -> the port's ``train/ssl.py`` keys:
+    ``ResNet_0`` / ``rgb_branch`` -> ``resnet.`` / ``rgb_branch.``,
+    ``ViT_0`` / ``thermal_branch`` -> ``vit.`` / ``thermal_branch.``, the
+    tiny ``trunk``, ``proj_fc1`` / ``proj_fc2``, and MAE's decoder
+    (``dec_embed``, ``mask_token``, ``dec_pos_embed``, ``dec_block{i}``
+    -> ``dec_blocks.{i}``, ``dec_norm``, ``dec_pred``).  Scopes absent
+    from the tree (an optimizer moment has no aliases) are skipped."""
+    stat = lambda scope: None if stats is None else stats.get(scope)
+    out: StateDict = {}
+    for scope, prefix in (("ResNet_0", "resnet."),
+                          ("rgb_branch", "rgb_branch.")):
+        if scope in params:
+            out.update(resnet_state_dict(params[scope], stat(scope), prefix))
+    for scope, prefix in (("ViT_0", "vit."),
+                          ("thermal_branch", "thermal_branch.")):
+        if scope in params:
+            out.update(vit_state_dict(params[scope], prefix))
+    if "trunk" in params:
+        out.update(tiny_state_dict(params["trunk"], stat("trunk"), "trunk."))
+    for dense in ("proj_fc1", "proj_fc2", "dec_embed", "dec_pred"):
+        if dense in params:
+            _linear(out, dense, params[dense])
+    for leaf in ("mask_token", "dec_pos_embed"):
+        if leaf in params:
+            out[leaf] = _t(params[leaf])
+    for scope in sorted(k for k in params if k.startswith("dec_block")):
+        _vit_block(out, f"dec_blocks.{scope[len('dec_block'):]}",
+                   params[scope])
+    if "dec_norm" in params:
+        _layernorm(out, "dec_norm", params["dec_norm"])
+    return out
+
+
 def variables_to_state_dict(model_name: str,
                             variables: Mapping) -> StateDict:
     """JAX variables of zoo model ``model_name`` -> the port model's
     state_dict (load with ``load_state_dict(..., strict=True)``).  Without
-    ``batch_stats`` only the parameters' keys come out."""
+    ``batch_stats`` only the parameters' keys come out.  ``"pretrain"``
+    names a pretraining tree of any method or trunk
+    (:func:`pretrain_state_dict`)."""
     params = variables["params"]
     stats = variables.get("batch_stats")
+    if model_name == "pretrain":
+        return pretrain_state_dict(params, stats)
+    if model_name in EFFICIENTNETS + LEGACY_FUSIONS:
+        return _legacy_state_dict(model_name, params, stats)
     if model_name.startswith("tiny_"):
         if model_name == "tiny_fusion":
             out = {}

@@ -73,10 +73,6 @@ from dfu_multimodal_tpu_torch.utils import checkpoint as ckpt_mod
 from dfu_multimodal_tpu_torch.utils.logging import (ThroughputMeter,
                                                     profile_trace)
 
-TRAINABLE_MODELS = ("thermal_only", "rgb_only", "multimodal", "tiny_rgb",
-                    "tiny_thermal", "tiny_fusion")
-
-
 def class_weights_from_labels(labels: np.ndarray) -> np.ndarray:
     """total/count_c per class, 0 for empty classes."""
     counts = np.bincount(labels, minlength=2).astype(np.float64)
@@ -179,6 +175,15 @@ def serving_outputs(forward: Callable[..., torch.Tensor],
         out["counts"] = metrics_mod.confusion_counts(out["preds"], labels,
                                                      valid)
     return out
+
+
+def epoch_generator(seed: int, epoch: int,
+                    device: torch.device) -> torch.Generator:
+    """An epoch's generator on ``device``, seeded from (seed, epoch) as
+    JAX folds the epoch into its key."""
+    state = np.random.SeedSequence([seed, epoch]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
 
 
 @dataclass
@@ -304,10 +309,6 @@ class Trainer:
     def _build_optimizer(self) -> AdamW:
         """A fresh AdamW over the module's parameters (and a fresh EMA
         copy of them when ``ema_decay > 0``)."""
-        if self.spec.name not in TRAINABLE_MODELS:
-            raise NotImplementedError(
-                f"the {self.spec.name!r} train step is not ported yet "
-                f"(trainable: {TRAINABLE_MODELS})")
         _check_train_config(self.cfg)
         names, params = zip(*self.module.named_parameters())
         if self.cfg.ema_decay > 0.0:
@@ -497,11 +498,7 @@ class Trainer:
     # --------------------------------------------------------------- fit
 
     def _epoch_generator(self, epoch: int) -> torch.Generator:
-        """The epoch's generator on this device, seeded from (seed, epoch)
-        as JAX folds the epoch into its key."""
-        seed = np.random.SeedSequence([self.cfg.seed, epoch]).generate_state(
-            1, np.uint64)[0]
-        return torch.Generator(device=self.device).manual_seed(int(seed))
+        return epoch_generator(self.cfg.seed, epoch, self.device)
 
     def _model_state(self) -> Dict[str, torch.Tensor]:
         """What a checkpoint holds as the model: the EMA parameters when
@@ -654,6 +651,15 @@ class Trainer:
 
     # ------------------------------------------------------------- load
 
+    def load_weights(self, checkpoint_dir: Path,
+                     basename: str = "best_model") -> Dict:
+        """Load a checkpoint's model weights (the port's or the JAX
+        package's) into the module, flexibly, and nothing else (no
+        optimizer is built); returns the checkpoint's payload."""
+        payload, _ = ckpt_mod.load_weights(self.module, checkpoint_dir,
+                                           basename, self.spec.name)
+        return payload
+
     def restore(self, checkpoint_dir: Path, with_opt_state: bool = False,
                 basename: str = "best_model") -> None:
         """Load a checkpoint of the port (``{basename}.pt``) or of the JAX
@@ -664,11 +670,7 @@ class Trainer:
         was).  With EMA on, the EMA restarts at the loaded weights, and a
         checkpoint's ``raw_params`` (an EMA run's) become the live
         parameters, so a resume continues both exactly."""
-        payload, _ = ckpt_mod.load_checkpoint(checkpoint_dir, basename,
-                                              self.spec.name)
-        merged, _, _ = ckpt_mod.load_flexible(self.module.state_dict(),
-                                              payload["model_state_dict"])
-        self.module.load_state_dict(merged)
+        payload = self.load_weights(checkpoint_dir, basename)
         if self.optimizer is None:
             self.optimizer = self._build_optimizer()
         saved_opt = payload.get("optimizer_state_dict")

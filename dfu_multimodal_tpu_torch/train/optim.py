@@ -51,13 +51,25 @@ def learning_rate_schedule(cfg) -> Union[float, Schedule]:
         if total - warm <= 0:
             raise ValueError(f"the cosine decay needs steps after the "
                              f"warm-up: {warm} warm-up of {total} steps")
-        tail = lambda t: lr * 0.5 * (1.0 + math.cos(
-            math.pi * min(t, total - warm) / (total - warm)))
-    elif sched == "constant":
-        tail = lambda t: lr
-    else:
+        return warmup_cosine_schedule(lr, warm, total)
+    if sched != "constant":
         raise ValueError(f"unknown lr_schedule {sched!r} "
                          "(choose 'constant' or 'cosine')")
+    return _warmup_then(lr, warm, lambda t: lr)
+
+
+def warmup_cosine_schedule(lr: float, warm: int, total: int) -> Schedule:
+    """optax's ``warmup_cosine_decay_schedule(0, lr, warm, total, 0)``: a
+    linear warm-up from 0 over ``warm`` steps, then a cosine from ``lr``
+    to 0 over the ``total - warm`` steps after it (held at 0 past
+    them)."""
+    span = total - warm
+    return _warmup_then(lr, warm, lambda t: lr * 0.5 * (1.0 + math.cos(
+        math.pi * min(t, span) / span)))
+
+
+def _warmup_then(lr: float, warm: int, tail: Schedule) -> Schedule:
+    """A linear warm-up from 0 to ``lr`` joined to ``tail``, in fp32."""
 
     def schedule(count: int) -> float:
         # optax.join_schedules: the warm-up below the boundary, the tail

@@ -10,7 +10,9 @@ per-epoch resume point).  Tensors are saved on the CPU.
 
 A directory the JAX package wrote (``{basename}.msgpack``, flax msgpack)
 loads too, with no flax: ``utils/flax_msgpack.py`` reads it and
-``tools/convert_jax.py::port_payload`` maps it onto the port's keys.
+``tools/convert_jax.py::port_payload`` maps it onto the port's keys (a
+pretraining checkpoint's, whose meta names its ``ssl_method``, onto the
+port's pretraining keys, which hold the trunk under both of its names).
 """
 
 from __future__ import annotations
@@ -117,6 +119,10 @@ def load_checkpoint(directory: Path, basename: str = "best_model",
         if not jax_path.exists():
             raise FileNotFoundError(f"no {ckpt_name} or {jax_path.name} "
                                     f"in {directory}")
+        meta = load_meta(directory, basename)
+        if "ssl_method" in meta:
+            # a pretraining checkpoint: its trunk keys, whatever loads it
+            model_name = "pretrain"
         if model_name is None:
             raise ValueError(f"{jax_path} is a JAX checkpoint: its model "
                              "name is needed to map its keys")
@@ -145,6 +151,21 @@ def load_flexible(target: Mapping[str, torch.Tensor],
         print(f"  Loaded {loaded} arrays from checkpoint"
               + (f"; skipped {skipped}" if skipped else ""))
     return merged, loaded, skipped
+
+
+def load_weights(module: torch.nn.Module, directory: Path,
+                 basename: str = "best_model",
+                 model_name: Optional[str] = None, verbose: bool = True
+                 ) -> Tuple[Dict, Dict]:
+    """Load a checkpoint's model weights (the port's, or the JAX
+    package's mapped for zoo ``model_name``) into ``module`` flexibly (see
+    :func:`load_flexible`); returns (payload, meta) of
+    :func:`load_checkpoint`."""
+    payload, meta = load_checkpoint(directory, basename, model_name)
+    merged, _, _ = load_flexible(module.state_dict(),
+                                 payload["model_state_dict"], verbose)
+    module.load_state_dict(merged)
+    return payload, meta
 
 
 def load_meta(directory: Path, basename: str = "best_model") -> Dict:

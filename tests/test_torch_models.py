@@ -347,6 +347,11 @@ import dfu_multimodal_tpu_torch.serve.shadow
 import dfu_multimodal_tpu_torch.tools.convert_jax
 import dfu_multimodal_tpu_torch.train.qat
 import dfu_multimodal_tpu_torch.cli.serve
+for mod in ("train.ssl", "train.distill", "train.self_train",
+            "models.efficientnet", "cli.pretrain", "cli.distill",
+            "cli.self_train", "cli.train_legacy", "cli.fix_checkpoint_keys",
+            "cli.convert_checkpoint"):
+    __import__(f"dfu_multimodal_tpu_torch.{mod}")
 from dfu_multimodal_tpu_torch.data.loader import ArrayDataset
 from dfu_multimodal_tpu_torch.models import zoo
 from dfu_multimodal_tpu_torch.train.engine import (
