@@ -377,6 +377,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               fp32 on the same weights and injected views (TRAINER_TOL,
               beside an internal known-bad control); each drive's host seconds and
               launches, and no plain version called on the card;
+21. parallel — a: two ranks on the one card over gloo (an explicit
+              backend: NCCL refuses two ranks on one card; gloo reduces
+              CUDA tensors), started by ``spawn`` with a 120 s collective
+              timeout and joined by a deadline: the data-parallel step of
+              thermal_only (bf16, fused blocks, global batch 16) and of
+              multimodal (fp32, TF32 off, cross-rank BatchNorm, global
+              batch 6), each against the one-rank step from the same
+              weights and views (loss, counts, first moments; the
+              multimodal trunk's as one vector), every launch count set
+              to 0 just before the step (12 a rank of K1, K2, K4, K5),
+              both steps' host ms; b: one NCCL rank, FSDP, tensor
+              parallelism over a model axis of 1, the one-stage pipeline,
+              the SimCLR and KD data-parallel steps and ``fit`` against
+              the single-device step; c: two NCCL ranks, only where the
+              host has two cards (else one line says why not);
 then the kernels' JSON line (times, bounds, launches, the SDPA times,
 the K6/K9 forwards' device times and SDPA's, K10's and K12's chain
 times, phase 14's launches as ``explain_launches``, and the rows of
@@ -389,7 +404,8 @@ each with ``unbiased_ms`` beside its time and its launches phase 16's
 serving drives'; phase 17's bundle replays as ``export_launches`` and
 phase 18's int8 students' b1 and b8 serving drives and bundle replay as
 ``student_launches``, phase 19's drives as ``research_launches``,
-phase 20's as ``trainer_launches``), and the device JSON line last.
+phase 20's as ``trainer_launches``, phase 21a's two ranks' as
+``parallel_launches``), and the device JSON line last.
 
 Exits non-zero with no result line when no CUDA device is present.
 """
@@ -2478,7 +2494,7 @@ def _fp32_model_step_vs_cpu(tag, name, modalities, dev, state, batch,
         inputs = cpu._preprocess_eval({m: torch.from_numpy(batch[m])
                                        for m in cpu.spec.inputs})
         for tr in (card, cpu):
-            tr._preprocess_train = (lambda b, g, d=tr.device:
+            tr._preprocess_train = (lambda b, g, rows=None, d=tr.device:
                                     tuple(x.to(d) for x in inputs))
     out_card = card.train_step(batch, torch.Generator(device=dev))
     out_cpu = cpu.train_step(batch, torch.Generator())
@@ -6496,6 +6512,470 @@ def phase_trainers(dev, d: Path) -> dict:
     return drive.total
 
 
+# ---------------------------------------------------------------- phase 21
+
+# global batches of the two-rank steps (8 and 3 rows a rank); the last row
+# is padding, so the ranks' weight masses differ (class weights too)
+PAR_BATCH = {"thermal_only": 16, "multimodal": 6}
+PAR_INPUTS = {"thermal_only": ("thermal",), "multimodal": ("rgb", "thermal")}
+PAR_DTYPE = {"thermal_only": "bfloat16", "multimodal": "float32"}
+PAR_CLASS_WEIGHTS = np.array([0.75, 1.5], np.float32)
+# two ranks against one, on the same card: the loss within PAR_LOSS_TOL
+# relative and every first moment within PAR_MU_TOL of its leaf's largest
+# entry (a leaf whose moment is under PAR_ZERO of the model's largest
+# must stay under it): the rows' arithmetic is the same, the weight
+# gradients' sums over the rows run in another order (in bf16 for
+# thermal_only), and multimodal's BatchNorm statistics are flax's
+# E[x²] − E[x]² of the global batch where one rank takes two passes.
+# The multimodal ResNet-50 trunk's fp32 gradient is held as one vector
+# within PAR_TRUNK_L2 (L2, relative), as phase 11 holds it: at random
+# weights single leaves of it stand 15-18% of their largest entry from
+# the same step in fp64 with either BatchNorm formula, the vector 1.9-2.0%,
+# and the two formulas' vectors 2.1% apart (the trunk on the CPU, batch
+# 6, 224²); this check's two steps stood 5.6e-2 apart on the CPU, the
+# layers after the trunk (the fusion head) 2.2e-4 (PERF.md §6, PR 24).
+# A gradient averaged over the ranks, or BatchNorm without the other
+# rank's rows, stands ~0.5-1 apart
+PAR_LOSS_TOL = {"thermal_only": 1e-3, "multimodal": 1e-4}
+PAR_MU_TOL = {"thermal_only": 1e-2, "multimodal": 1e-3}
+PAR_TRUNK = {"multimodal": "rgb_branch."}
+PAR_TRUNK_L2 = 1e-1
+PAR_ZERO = 1e-4
+PAR_TIMEOUT = 120          # seconds: every process group's collectives
+PAR_DEADLINE = 240         # seconds: the spawned ranks' join
+# 21b, one NCCL rank against the single-device step: the same arithmetic
+# (FSDP, SimCLR, KD, fit); the tensor-parallel Linears run as DTensor ops
+# (fp32, cuBLAS may pick other algorithms: TP_TOL); the one-stage
+# pipeline's rows are the plain forward's, its weight gradients two
+# microbatches' fp32 sums (PIPELINE_GRAD_TOL)
+ONE_RANK_TOL = 1e-5
+TP_TOL = 1e-4
+# the KD student is a ResNet-18 in fp32: cuDNN's weight-gradient
+# convolutions may sum in another order from run to run (an identical
+# step read 1.48e-5 of a leaf's largest entry on an H100 80GB HBM3 at
+# 700 W, PERF.md §6, PR 24)
+KD_TOL = 1e-4
+PIPELINE_GRAD_TOL = 1e-4
+PAR_KERNELS = ("attn_block", "mlp_block", "mlp_block_bwd",
+               "qkv_attention_fwdbwd")
+
+
+def _par_trainer(name, dev, mesh_cfg, **kw):
+    cfg = TrainConfig(batch_size=PAR_BATCH[name],
+                      compute_dtype=PAR_DTYPE[name],
+                      optimizer_mu_dtype="float32", drop_rate=0.0,
+                      mesh=mesh_cfg)
+    tr = Trainer(name, cfg, _par_modalities(name),
+                 class_weights=PAR_CLASS_WEIGHTS, device=dev,
+                 image_size=IMAGE, **kw)
+    zoo.init_model(tr.module, torch.Generator(device=dev).manual_seed(0))
+    return tr
+
+
+def _par_modalities(name) -> dict:
+    mods = {"rgb": rgb_modality(), "thermal": thermal_modality()}
+    return {m: mods[m] for m in PAR_INPUTS[name]}
+
+
+def _par_data(name, n, seed) -> tuple:
+    rng = np.random.default_rng(seed)
+    arrays = {m: rng.integers(0, 256, (n, IMAGE, IMAGE, 3), dtype=np.uint8)
+              for m in PAR_INPUTS[name]}
+    return arrays, np.arange(n, dtype=np.int32) % 2
+
+
+def _par_batch(name, seed=21):
+    """A global batch, its last row padding."""
+    arrays, labels = _par_data(name, PAR_BATCH[name], seed)
+    valid = np.ones(PAR_BATCH[name], np.float32)
+    valid[-1] = 0.0
+    return {**arrays, "label": labels, "valid": valid}
+
+
+def _mu(tr) -> dict:
+    return {k: v.detach().float().clone()
+            for k, v in tr.optimizer.state_dict()["mu"].items()}
+
+
+def _mu_errors(mu, ref, trunk=None) -> tuple:
+    """(largest leaf-relative error, the leaf, leaves held as zero, the
+    L2 relative error of the leaves under the prefix ``trunk``, which
+    are held as one vector)."""
+    top = max(float(v.abs().max()) for v in ref.values())
+    worst, where, zero = 0.0, None, 0
+    l2 = None
+    if trunk is not None:
+        keys = [k for k in ref if k.startswith(trunk)]
+        l2 = math.sqrt(
+            sum(float((mu[k] - ref[k]).double().square().sum())
+                for k in keys)
+            / sum(float(ref[k].double().square().sum()) for k in keys))
+    for k, v in ref.items():
+        if trunk is not None and k.startswith(trunk):
+            continue
+        scale = float(v.abs().max())
+        if scale < PAR_ZERO * top:
+            zero += 1
+            if float(mu[k].abs().max()) >= PAR_ZERO * top:
+                return math.inf, k, zero, l2
+            continue
+        err = float((mu[k] - v).abs().max()) / scale
+        if err > worst:
+            worst, where = err, k
+    return worst, where, zero, l2
+
+
+def _timed_step(tr, batch, gen) -> tuple:
+    """(host ms, metrics, loss) of one train step, from a synchronised
+    device to its loss on the host."""
+    if tr.device.type == "cuda":
+        torch.cuda.synchronize(tr.device)
+    t0 = time.perf_counter()
+    m = tr.train_step(batch, gen)
+    loss = float(m["loss"])
+    return (time.perf_counter() - t0) * 1e3, m, loss
+
+
+def _no_tf32() -> None:
+    """fp32 products and convolutions in fp32, not TF32: cuDNN's TF32
+    convolutions (on by default) round each product to 10 bits, and the
+    algorithms it picks differ between a batch of 3 and of 6, so the
+    two steps' multimodal losses stood 7.3e-4 apart on an H100 80GB HBM3
+    at 700 W (PERF.md §6, PR 24)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _parallel_rank(rank: int, directory: str, backend: str,
+                   device_type: str = "cuda") -> None:
+    """One of two ranks (phase 21a over gloo on one card, 21c over NCCL
+    on two): for thermal_only and multimodal, rank 0 first takes the
+    single-device step on the global batch, then both ranks take the
+    data-parallel step from the same weights on their rows, every launch
+    count set to 0 just before it; rank 0 holds it against the one-rank
+    step.  A second step of each is timed (host clock), both ranks
+    starting it together."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from dfu_multimodal_tpu_torch.config import MeshConfig
+
+    dev = torch.device(device_type, rank if backend == "nccl" else 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    _no_tf32()
+    dist.init_process_group(
+        backend, init_method=f"file://{directory}/rendezvous", rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=PAR_TIMEOUT),
+        **({"device_id": dev} if backend == "nccl" else {}))
+    out = {}
+    try:
+        for name in PAR_BATCH:
+            batch = _par_batch(name)
+            res = {}
+            if rank == 0:
+                one = _par_trainer(name, dev, MeshConfig(data=1))
+                _, m, loss = _timed_step(one, batch, torch.Generator(
+                    device=dev).manual_seed(1))
+                ref = (loss, m["counts"].tolist(), _mu(one))
+                res["one_ms"], _, _ = _timed_step(
+                    one, _par_batch(name, 22), torch.Generator(
+                        device=dev).manual_seed(2))
+                del one
+                torch.cuda.empty_cache()
+            dist.barrier()
+            tr = _par_trainer(name, dev, MeshConfig())
+            _reset_launches()
+            _, m, loss = _timed_step(tr, batch, torch.Generator(
+                device=dev).manual_seed(1))
+            res["launches"] = {k: v for k, v in _train_launches().items()
+                               if k in PAR_KERNELS}
+            res["loss"], res["counts"] = loss, m["counts"].tolist()
+            if rank == 0:
+                err, where, zero, l2 = _mu_errors(_mu(tr), ref[2],
+                                                  PAR_TRUNK.get(name))
+                res.update(ref_loss=ref[0], ref_counts=ref[1], mu_err=err,
+                           mu_leaf=where, zero_leaves=zero, trunk_l2=l2)
+            dist.barrier()            # both ranks start the timed step
+            res["two_ms"], _, _ = _timed_step(
+                tr, _par_batch(name, 22), torch.Generator(
+                    device=dev).manual_seed(2))
+            out[name] = res
+            del tr
+            torch.cuda.empty_cache()
+        Path(directory, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(directory: str, backend: str) -> list:
+    """The two ranks by the ``spawn`` start method, joined by
+    PAR_DEADLINE (a hung rank fails the phase, never the script)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(_parallel_rank, args=(directory, backend),
+                             nprocs=2, join=False, start_method="spawn")
+    end = time.perf_counter() + PAR_DEADLINE
+    try:
+        while not ctx.join(timeout=max(0.1, end - time.perf_counter())):
+            if time.perf_counter() > end:
+                raise AssertionError(f"parallel ({backend}): the ranks did "
+                                     f"not finish in {PAR_DEADLINE} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [json.loads(Path(directory, f"rank{r}.json").read_text())
+            for r in range(2)]
+
+
+def _check_two_ranks(tag, ranks, where) -> dict:
+    """Each rank's launches (12 a step of K1, K2, K4, K5 on the ViT's 12
+    blocks), its loss and counts equal to rank 0's, and rank 0's against
+    the one-rank step.  Returns the launches summed over the ranks."""
+    total = {}
+    for name in PAR_BATCH:
+        r0 = ranks[0][name]
+        log(f"[{tag}] {name} ({PAR_DTYPE[name]}, global batch "
+            f"{PAR_BATCH[name]}, {PAR_BATCH[name] // 2} a rank): loss "
+            f"{r0['loss']:.6f} vs one rank {r0['ref_loss']:.6f}; counts "
+            f"{r0['counts']} vs {r0['ref_counts']}; first moments within "
+            f"{r0['mu_err']:.3e} of each leaf's largest (worst "
+            f"{r0['mu_leaf']}; {r0['zero_leaves']} leaves under "
+            f"{PAR_ZERO:g} of the model's largest)"
+            + ("" if r0["trunk_l2"] is None else
+               f", the {PAR_TRUNK[name]} trunk's within "
+               f"{r0['trunk_l2']:.3e} (L2)") + "; launches "
+            f"{[r[name]['launches'] for r in ranks]}; step host ms "
+            f"{[round(r[name]['two_ms'], 3) for r in ranks]} (two ranks "
+            f"{where}) vs {r0['one_ms']:.3f} (one rank)")
+        for r in ranks:
+            if r[name]["launches"] != {k: 12 for k in PAR_KERNELS}:
+                raise AssertionError(f"{tag} {name}: launches "
+                                     f"{r[name]['launches']}")
+            if r[name]["loss"] != r0["loss"] or \
+                    r[name]["counts"] != r0["counts"]:
+                raise AssertionError(f"{tag} {name}: the ranks disagree")
+            for k, v in r[name]["launches"].items():
+                total[k] = total.get(k, 0) + v
+        if abs(r0["loss"] - r0["ref_loss"]) > \
+                PAR_LOSS_TOL[name] * abs(r0["ref_loss"]):
+            raise AssertionError(f"{tag} {name}: loss {r0['loss']} vs "
+                                 f"{r0['ref_loss']}")
+        if r0["counts"] != r0["ref_counts"]:
+            raise AssertionError(f"{tag} {name}: counts")
+        if not r0["mu_err"] <= PAR_MU_TOL[name]:
+            raise AssertionError(f"{tag} {name}: first moment "
+                                 f"{r0['mu_leaf']} {r0['mu_err']:.3e}")
+        if r0["trunk_l2"] is not None and not r0["trunk_l2"] <= \
+                PAR_TRUNK_L2:
+            raise AssertionError(f"{tag} {name}: trunk first moment "
+                                 f"{r0['trunk_l2']:.3e} (L2)")
+    return total
+
+
+def _close(tag, got, ref, tol=ONE_RANK_TOL) -> float:
+    """max |got - ref| over max |ref| (tensors, or dicts of them)."""
+    if isinstance(ref, dict):
+        return max(_close(f"{tag} {k}", got[k], v, tol)
+                   for k, v in ref.items())
+    err = float((got.float() - ref.float()).abs().max()) / max(
+        float(ref.float().abs().max()), 1e-30)
+    if not err <= tol:
+        raise AssertionError(f"{tag}: {err:.3e} > {tol:g}")
+    return err
+
+
+def _one_rank_steps(dev, d: Path, backend: str = "nccl") -> None:
+    """21b: one NCCL rank on the card; every mode against the single-
+    device step from the same weights and draws."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from dfu_multimodal_tpu_torch.config import MeshConfig
+    from dfu_multimodal_tpu_torch.parallel import mesh as mesh_mod
+    from dfu_multimodal_tpu_torch.parallel import pipeline, sharding
+    from dfu_multimodal_tpu_torch.train import distill, ssl
+
+    dist.init_process_group(
+        backend, init_method=f"file://{d}/rendezvous", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=PAR_TIMEOUT),
+        **({"device_id": dev} if dev.type == "cuda" else {}))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    _no_tf32()
+    try:
+        tag = "parallel 21b"
+        batch = _par_batch("thermal_only")
+        gen = lambda: torch.Generator(device=dev).manual_seed(1)
+        # FSDP (flax blocks) against the flax blocks on one device
+        res = {}
+        for key, mesh in (("fsdp", MeshConfig(fsdp=True)),
+                          ("one", MeshConfig(data=1))):
+            tr = _par_trainer("thermal_only", dev, mesh, block_impl="flax")
+            m = tr.train_step(batch, gen())
+            res[key] = (float(m["loss"]), tr._checkpoint_state()[1]["mu"])
+            del tr
+        err = _close(f"{tag} fsdp mu", res["fsdp"][1], res["one"][1])
+        log(f"[{tag}] fsdp step: loss {res['fsdp'][0]:.6f} vs "
+            f"{res['one'][0]:.6f}, first moments within {err:.2e}")
+        if abs(res["fsdp"][0] - res["one"][0]) > ONE_RANK_TOL * abs(
+                res["one"][0]):
+            raise AssertionError(f"{tag} fsdp loss")
+        del res
+        # tensor parallelism over a model axis of 1: the DTensor Linears
+        plain, _ = zoo.build("thermal_only", block_impl="flax",
+                             drop_rate=0.0, image_size=IMAGE)
+        zoo.init_model(plain, torch.Generator().manual_seed(0))
+        tp, _ = zoo.build("thermal_only", block_impl="flax", drop_rate=0.0,
+                          image_size=IMAGE)
+        tp.load_state_dict(plain.state_dict())
+        plain.to(dev).eval()
+        tp.to(dev).eval()
+        plan = sharding.apply_tp(tp, mesh_mod.make_mesh(
+            MeshConfig(data=1, model=1), dev.type))
+        x = eval_normalize(torch.from_numpy(batch["thermal"]).to(dev),
+                           thermal_modality())
+        outs = {}
+        for key, mod in (("tp", tp), ("plain", plain)):
+            logits = mod(x)
+            logits.float().square().sum().backward()
+            outs[key] = (logits.detach(), {
+                k: p.grad for k, p in mod.named_parameters()})
+        grads = sharding.full_state(outs["tp"][1], tp, plan)
+        err = (_close(f"{tag} tp logits", outs["tp"][0], outs["plain"][0],
+                      TP_TOL),
+               _close(f"{tag} tp grads", grads, outs["plain"][1], TP_TOL))
+        log(f"[{tag}] tensor parallel (model axis 1, {len(plan)} Linears "
+            f"as DTensors, fp32): logits within {err[0]:.2e}, gradients "
+            f"within {err[1]:.2e}")
+        del plain, tp, outs, grads
+        # the pipeline over one stage, on the fused blocks
+        vit, _ = zoo.build("thermal_only", image_size=IMAGE)
+        zoo.init_model(vit, torch.Generator().manual_seed(0))
+        vit.to(dev)
+        pp = pipeline.vit_pipeline_fn(pipeline.make_pp_mesh(1, 1, dev.type),
+                                      depth=12, num_microbatches=2)
+        outs = {}
+        for key, fn in (("pipeline", lambda v, im: pp(v, im)),
+                        ("plain", lambda v, im: v(im))):
+            vit.vit.zero_grad()
+            feats = fn(vit.vit, x)
+            feats.square().sum().backward()
+            outs[key] = (feats.detach(), {k: p.grad.clone() for k, p in
+                                          vit.vit.named_parameters()})
+        err = (_close(f"{tag} pipeline features", outs["pipeline"][0],
+                      outs["plain"][0]),
+               _close(f"{tag} pipeline grads", outs["pipeline"][1],
+                      outs["plain"][1], PIPELINE_GRAD_TOL))
+        log(f"[{tag}] pipeline (1 stage, 2 microbatches, fused blocks, "
+            f"fp32): "
+            f"features within {err[0]:.2e}, gradients within {err[1]:.2e}")
+        del vit, outs
+        # the SimCLR and KD data-parallel steps
+        images = torch.from_numpy(batch["thermal"][:8]).to(dev)
+        res = {}
+        for key, mesh in (("dp", None), ("one", MeshConfig(data=1))):
+            st = ssl.SSLTrainer("vit", ssl.PretrainConfig(
+                method="simclr", batch_size=8, mesh=mesh),
+                thermal_modality(), image_size=IMAGE, device=dev)
+            ssl.init_ssl_model(st.module, torch.Generator(
+                device=dev).manual_seed(0))
+            st.build_optimizer(1)
+            loss = st.train_step({"thermal": images, "valid": torch.ones(
+                8, device=dev)}, gen())
+            res[key] = (float(loss), _mu(st))
+            del st
+        err = _close(f"{tag} simclr mu", res["dp"][1], res["one"][1])
+        log(f"[{tag}] SimCLR data-parallel step (ViT-B/16, batch 8): loss "
+            f"{res['dp'][0]:.6f} vs {res['one'][0]:.6f}, first moments "
+            f"within {err:.2e}")
+        teacher = _par_trainer("multimodal", dev, MeshConfig(data=1)).module
+        kd_batch = _par_batch("multimodal")
+        res = {}
+        for key, mesh in (("dp", MeshConfig()), ("one", MeshConfig(data=1))):
+            kd = distill.DistillTrainer(
+                "resnet18_rgb", "multimodal", teacher,
+                distill.DistillConfig(), TrainConfig(
+                    batch_size=6, compute_dtype="float32",
+                    optimizer_mu_dtype="float32", mesh=mesh),
+                _par_modalities("multimodal"),
+                class_weights=PAR_CLASS_WEIGHTS, device=dev,
+                image_size=IMAGE)
+            zoo.init_model(kd.module, torch.Generator(
+                device=dev).manual_seed(3))
+            m = kd.train_step(kd_batch, gen())
+            res[key] = (float(m["loss"]), _mu(kd))
+            del kd
+        err = _close(f"{tag} kd mu", res["dp"][1], res["one"][1], KD_TOL)
+        log(f"[{tag}] KD data-parallel step (multimodal -> resnet18_rgb, "
+            f"fp32): loss {res['dp'][0]:.6f} vs {res['one'][0]:.6f}, first "
+            f"moments within {err:.2e}")
+        del teacher, res
+        # fit with rank 0 writing
+        arrays, labels = _par_data("thermal_only", 16, seed=23)
+        ds = ArrayDataset(arrays, labels)
+        hist = {}
+        for key, mesh in (("dp", MeshConfig()), ("one", MeshConfig(data=1))):
+            tr = _par_trainer("thermal_only", dev, mesh)
+            tr.cfg = dataclasses.replace(tr.cfg, num_epochs=1, batch_size=8,
+                                         save_best_after_epoch=1,
+                                         save_last=True)
+            hist[key], _ = tr.fit(ds, ds, d / key, log=lambda s: None,
+                                  metrics_jsonl=d / f"{key}.jsonl")
+            del tr
+        files = {k: sorted(p.name for p in (d / k).iterdir())
+                 for k in hist}
+        log(f"[{tag}] fit (1 epoch, rank 0 writes): files {files['dp']}, "
+            f"history {hist['dp']} vs {hist['one']}")
+        if files["dp"] != files["one"] or any(
+                not np.allclose(hist["dp"][k], hist["one"][k], rtol=1e-5)
+                for k in hist["one"]):
+            raise AssertionError(f"{tag} fit: {files} {hist}")
+    finally:
+        dist.destroy_process_group()
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+        torch.cuda.empty_cache()
+
+
+def phase_parallel(dev) -> dict:
+    """Phase 21.  a: two ranks on the one card over gloo (an explicit
+    backend: NCCL refuses two ranks on one card), the data-parallel step
+    of thermal_only (bf16, fused blocks: K1/K2 forward, K4/K5 backward
+    in each rank) and multimodal (fp32, cross-rank BatchNorm) against the
+    one-rank step; b: one NCCL rank, FSDP, tensor parallelism, the
+    pipeline, the SimCLR and KD data-parallel steps and fit against the
+    single-device step; c: the two-rank run over NCCL where the host has
+    two cards.  The kernels were built by phase 2, so the ranks only load
+    them.  Returns 21a's launches summed over its ranks."""
+    t0 = time.perf_counter()
+    gpu = card()
+    build = Path(__file__).resolve().parent / "build"
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        launches = _check_two_ranks("parallel 21a gloo",
+                                    _spawn_ranks(d, "gloo"),
+                                    "sharing the card")
+    log(f"[parallel 21a] {time.perf_counter() - t0:.2f} s (host clock; "
+        f"{gpu})")
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        _one_rank_steps(dev, Path(d))
+    log(f"[parallel 21b] done at {time.perf_counter() - t0:.2f} s")
+    if torch.cuda.device_count() >= 2:
+        with tempfile.TemporaryDirectory(dir=build) as d:
+            _check_two_ranks("parallel 21c nccl", _spawn_ranks(d, "nccl"),
+                             "on two cards")
+    else:
+        log(f"[parallel 21c] not run: {torch.cuda.device_count()} CUDA "
+            "device, and NCCL refuses two ranks on one card")
+    log(f"[parallel] phase 21 in {time.perf_counter() - t0:.2f} s (host "
+        f"clock; {gpu})")
+    return launches
+
+
 # ---------------------------------------------------------------- bounds
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
@@ -6676,6 +7156,7 @@ def main() -> int:
         students = phase_students(dev, Path(d))
         research = phase_research(dev, Path(d))
         trainers = phase_trainers(dev, Path(d))
+    parallel = phase_parallel(dev)
     for mod in ("jax", "flax", "optax", "PIL", "torchvision", "matplotlib",
                 "sklearn", "cv2", "dfu_multimodal_tpu"):
         if mod in sys.modules:
@@ -6724,7 +7205,9 @@ def main() -> int:
                 **({"research_launches": research[k]}
                    if k in research else {}),
                 **({"trainer_launches": trainers[k]}
-                   if k in trainers else {})}
+                   if k in trainers else {}),
+                **({"parallel_launches": parallel[k]}
+                   if k in parallel else {})}
                for k, (src, tpu) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

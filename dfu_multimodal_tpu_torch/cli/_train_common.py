@@ -38,6 +38,7 @@ from dfu_multimodal_tpu_torch.data.loader import ArrayDataset
 from dfu_multimodal_tpu_torch.eval import drift as drift_mod
 from dfu_multimodal_tpu_torch.eval import metrics as metrics_mod
 from dfu_multimodal_tpu_torch.models import zoo
+from dfu_multimodal_tpu_torch.parallel import mesh as mesh_mod
 from dfu_multimodal_tpu_torch.train.engine import (Trainer,
                                                    class_weights_from_labels)
 from dfu_multimodal_tpu_torch.utils import checkpoint as ckpt_mod
@@ -91,13 +92,32 @@ def build_parser(recipe: TrainRecipe) -> argparse.ArgumentParser:
 
 def resolve_device(name: str) -> torch.device:
     """``--device``: the card unless the caller asks for the CPU; a CUDA
-    device on a host without one is an error, never a silent CPU run."""
+    device on a host without one is an error, never a silent CPU run.
+    Under ``torchrun`` this joins the process group (NCCL for the card,
+    gloo for the CPU) and returns the rank's card, ``cuda:LOCAL_RANK``."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             f"--device {name}: no CUDA device is available on this host; "
             "pass --device cpu to train on the CPU")
-    return device
+    return mesh_mod.init_from_env(device)
+
+
+def add_mesh_args(parser: argparse.ArgumentParser) -> None:
+    """``--mesh-data``, ``--mesh-model`` and ``--fsdp`` of the trainers
+    that do not take :func:`config.add_common_args`."""
+    parser.add_argument("--mesh-data", type=int, default=-1,
+                        help="DP axis size (-1 = all devices)")
+    parser.add_argument("--mesh-model", type=int, default=1,
+                        help="tensor-parallel axis size")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="fully-sharded data parallelism: params + "
+                             "optimizer state shard over the data axis")
+
+
+def mesh_config(args) -> cfg_mod.MeshConfig:
+    return cfg_mod.MeshConfig(data=args.mesh_data, model=args.mesh_model,
+                              fsdp=args.fsdp)
 
 
 def _write_run_info(ckpt_dir: Path, recipe: TrainRecipe, args, train_cfg,
@@ -113,7 +133,7 @@ def _write_run_info(ckpt_dir: Path, recipe: TrainRecipe, args, train_cfg,
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,
         "backend": "gpu" if device.type == "cuda" else device.type,
-        "device_count": 1,                # the port trains on one device
+        "device_count": mesh_mod.world()[1],
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
         "python": sys.version.split()[0],
@@ -195,14 +215,16 @@ def run_training(recipe: TrainRecipe,
     print(f"TRAINING COMPLETE - Best Val F1: {best_val_f1:.4f}")
     print("=" * 70)
 
-    _write_run_info(ckpt_dir, recipe, args, train_cfg, argv, device)
-
-    # Drift baseline: per-channel intensity histograms + moments of the
-    # TRAIN split's raw uint8 images (eval/drift.py)
-    drift_mod.save_baseline(
-        ckpt_dir / drift_mod.BASELINE_FILENAME,
-        drift_mod.baseline_from_arrays(datasets["train"].arrays,
-                                       paths=datasets["train"].paths))
+    # one writer on a process group (fit writes from rank 0 alone too)
+    writer = mesh_mod.world()[0] == 0
+    if writer:
+        _write_run_info(ckpt_dir, recipe, args, train_cfg, argv, device)
+        # Drift baseline: per-channel intensity histograms + moments of
+        # the TRAIN split's raw uint8 images (eval/drift.py)
+        drift_mod.save_baseline(
+            ckpt_dir / drift_mod.BASELINE_FILENAME,
+            drift_mod.baseline_from_arrays(datasets["train"].arrays,
+                                           paths=datasets["train"].paths))
 
     results = {"best_val_f1": best_val_f1}
     if not args.skip_test_eval:
@@ -221,7 +243,8 @@ def run_training(recipe: TrainRecipe,
         print(f"Test F1:   {test_m.f1:.4f}")
         print("=" * 70)
 
-        save_pt({
+        save = save_pt if writer else (lambda *a, **k: None)
+        save({
             "test_preds": arrays["y_pred"],
             "test_labels": arrays["y_true"],
             "test_probs": arrays["y_probs"],

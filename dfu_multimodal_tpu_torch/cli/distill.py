@@ -27,7 +27,10 @@ from pathlib import Path
 
 import torch
 
-from dfu_multimodal_tpu_torch.cli._train_common import resolve_device
+from dfu_multimodal_tpu_torch.cli._train_common import (add_mesh_args,
+                                                        mesh_config,
+                                                        resolve_device)
+from dfu_multimodal_tpu_torch.parallel import mesh as mesh_mod
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,6 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "straight-through gradients, train/qat.py), so "
                         "the int8 student deployment is ~lossless")
     p.add_argument("--skip-test-eval", action="store_true")
+    add_mesh_args(p)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the card; "
                         "'cpu' asks for the host)")
@@ -113,7 +117,7 @@ def main(argv=None) -> int:
         learning_rate=args.lr, weight_decay=args.weight_decay,
         seed=args.seed, compute_dtype=args.compute_dtype,
         lr_schedule=args.lr_schedule, save_best_after_epoch=1,
-        qat=args.qat,
+        qat=args.qat, mesh=mesh_config(args),
         steps_per_epoch=max(1, -(-len(train_ds) // args.batch_size)))
     dcfg = DistillConfig(alpha=args.alpha, temperature=args.temperature)
     trainer = DistillTrainer(args.student, teacher_model, t_trainer.module,
@@ -141,7 +145,9 @@ def main(argv=None) -> int:
         print(f"Student test: acc {m.accuracy:.4f}, F1 {m.f1:.4f}")
         tm, _ = t_trainer.run_eval_epoch(test_ds)
         print(f"Teacher test: acc {tm.accuracy:.4f}, F1 {tm.f1:.4f}")
-        save_pt({
+        save = (save_pt if mesh_mod.world()[0] == 0
+                else (lambda *a, **k: None))
+        save({
             "test_preds": arrays["y_pred"], "test_labels": arrays["y_true"],
             "test_probs": arrays["y_probs"], "test_acc": m.accuracy,
             "test_f1": m.f1, "test_loss": m.loss,

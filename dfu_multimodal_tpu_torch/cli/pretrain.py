@@ -14,8 +14,10 @@ training images (SimCLR for either trunk, MAE for the ViT —
 
 Only the train split is used (with ``--include-val`` the val split's
 images too; test never).  Labels are ignored.  It runs on ``--device``
-(default ``cuda``; ``cpu`` asks for the host).  The JAX flags, with
-``--mesh-data`` beyond one device refused (the port trains on one).
+(default ``cuda``; ``cpu`` asks for the host), under ``torchrun`` data-
+parallel over ``--mesh-data`` ranks (``train/ssl.py``).  The JAX flags,
+and ``--mesh-model`` / ``--fsdp``, which pretraining refuses (it shards
+no parameters).
 """
 
 from __future__ import annotations
@@ -29,7 +31,10 @@ from pathlib import Path
 import numpy as np
 
 from dfu_multimodal_tpu_torch import config as cfg_mod
-from dfu_multimodal_tpu_torch.cli._train_common import resolve_device
+from dfu_multimodal_tpu_torch.cli._train_common import (add_mesh_args,
+                                                        mesh_config,
+                                                        resolve_device)
+from dfu_multimodal_tpu_torch.parallel import mesh as mesh_mod
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,9 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(labels unused; test is never touched)")
     p.add_argument("--cache-dir", type=Path, default=None,
                    help="persistent decode cache directory")
-    p.add_argument("--mesh-data", type=int, default=-1,
-                   help="DP axis size (-1 or 1: this one device; the port "
-                        "refuses more)")
+    add_mesh_args(p)
     p.add_argument("--block-impl", default="auto",
                    help="ViT block impl (auto/flax/fused): 'auto' is the "
                         "fused kernels (SimCLR); MAE refuses fused impls")
@@ -111,7 +114,7 @@ def main(argv=None) -> int:
         save_every=args.save_every,
         vit_patch=args.vit_patch, vit_hidden=args.vit_hidden,
         vit_depth=args.vit_depth, vit_heads=args.vit_heads,
-        mesh=cfg_mod.MeshConfig(data=args.mesh_data))
+        mesh=mesh_config(args))
 
     modality = (cfg_mod.rgb_modality() if args.modality == "rgb"
                 else cfg_mod.thermal_modality())
@@ -142,8 +145,9 @@ def main(argv=None) -> int:
             "device": str(device),
             "config": dataclasses.asdict(
                 dataclasses.replace(cfg, mesh=None))}
-    (Path(args.out) / "run_info.json").write_text(
-        json.dumps(info, indent=2, default=str))
+    if mesh_mod.world()[0] == 0:
+        (Path(args.out) / "run_info.json").write_text(
+            json.dumps(info, indent=2, default=str))
     return 0
 
 

@@ -28,7 +28,9 @@ from pathlib import Path
 
 import numpy as np
 
-from dfu_multimodal_tpu_torch.cli._train_common import resolve_device
+from dfu_multimodal_tpu_torch.cli._train_common import (add_mesh_args,
+                                                        mesh_config,
+                                                        resolve_device)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,6 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--init-from", type=Path, default=None,
                    help="warm-start EVERY round from this checkpoint "
                         "(e.g. a pretrain CLI's SSL trunk)")
+    add_mesh_args(p)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the card; "
                         "'cpu' asks for the host)")
@@ -111,7 +114,8 @@ def main(argv=None) -> dict:
         batch_size=args.batch_size, num_epochs=args.epochs,
         learning_rate=args.lr, weight_decay=args.weight_decay,
         seed=args.seed, compute_dtype=args.compute_dtype,
-        lr_schedule=args.lr_schedule, save_best_after_epoch=1)
+        lr_schedule=args.lr_schedule, save_best_after_epoch=1,
+        mesh=mesh_config(args))
     st_cfg = SelfTrainConfig(rounds=args.rounds, threshold=args.threshold,
                              max_per_class=args.max_per_class,
                              balance=not args.no_balance)
@@ -122,8 +126,10 @@ def main(argv=None) -> dict:
         image_size=args.image_size, device=device)
 
     out = {"model": model, "threshold": args.threshold, "rounds": report}
-    (ckpt_dir / "self_train_report.json").write_text(
-        json.dumps(out, indent=2))
+    from dfu_multimodal_tpu_torch.parallel import mesh as mesh_mod
+    if mesh_mod.world()[0] == 0:
+        (ckpt_dir / "self_train_report.json").write_text(
+            json.dumps(out, indent=2))
     print(f"Report: {ckpt_dir / 'self_train_report.json'}")
 
     test_dir = args.data_dir / args.modality / "test"

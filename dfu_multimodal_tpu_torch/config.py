@@ -9,15 +9,17 @@ and ``TrainConfig``.  The port
 imports nothing of the JAX package; ``tests/test_torch_models.py`` checks
 that these defaults equal the JAX package's, so the copy cannot drift.
 
-``MeshConfig`` is kept only as an inert field of ``TrainConfig`` (so the
-two configs stay field-for-field equal): the port trains on one device,
-and ``train.engine.Trainer`` raises ``NotImplementedError`` for any mesh
-other than the single-device default.
+``MeshConfig`` is the trainers' ``(data, model)`` mesh and FSDP switch
+(``parallel/mesh.py``): outside a process group only the one device
+exists, so a larger mesh raises; under ``torchrun`` ``data = -1`` takes
+every rank.
 
 The CLIs' argparse glue (``DataConfig``, ``add_common_args``,
 ``train_config_from_args``, ``data_config_from_args``) has the JAX
-package's flags, defaults and help, and one flag of the port's own:
-``--device`` (default ``cuda``), how a caller asks for the CPU.
+package's flags, defaults and help, and two flags of the port's own:
+``--device`` (default ``cuda``), how a caller asks for the CPU, and
+``--mesh-model``, the tensor-parallel axis the JAX package sets only in
+code.
 """
 
 from __future__ import annotations
@@ -109,8 +111,9 @@ def legacy_thermal_modality() -> ModalityConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Inert in the port (see the module docstring): ``data`` -1 or 1,
-    ``model`` 1 and ``fsdp`` False mean "this one device"."""
+    """``data`` ranks split the batch (-1: every rank ÷ ``model``),
+    ``model`` ranks split the ViT blocks' Linears, ``fsdp`` shards the
+    parameters over ``data`` (``parallel/``)."""
 
     data: int = -1
     model: int = 1
@@ -249,6 +252,10 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default cuda, the "
                              "card); 'cpu' runs on the host")
+    parser.add_argument("--mesh-model", type=int, default=1,
+                        help="tensor-parallel axis size (Megatron splits "
+                             "of the ViT blocks' Linears over this many "
+                             "ranks; the data axis takes the rest)")
 
 
 def train_config_from_args(args: argparse.Namespace,
@@ -279,6 +286,7 @@ def train_config_from_args(args: argparse.Namespace,
     updates["async_checkpoint"] = getattr(args, "async_checkpoint", False)
     updates["save_last"] = getattr(args, "save_last", False)
     updates["mesh"] = MeshConfig(data=args.mesh_data,
+                                 model=getattr(args, "mesh_model", 1),
                                  fsdp=getattr(args, "fsdp", False))
     return dataclasses.replace(defaults, **updates)
 

@@ -383,6 +383,24 @@ def batch_slices(dataset: ArrayDataset, order: np.ndarray, batch_size: int,
         yield batch
 
 
+def shard_batch(batch: Dict[str, Union[np.ndarray, torch.Tensor]],
+                rank: int, world: int) -> Tuple[Dict, int, int]:
+    """(this rank's rows of a global batch, lo, n): rank ``rank`` of
+    ``world`` data-parallel ranks takes its ``process_shard`` slice of
+    the n rows; every rank iterates the same batch stream (same dataset,
+    same epoch order), as in JAX's multi-process loading."""
+    n = len(next(iter(batch.values())))
+    if n % world:
+        raise ValueError(
+            f"global batch size {n} must divide evenly over "
+            f"{world} processes — pick a batch size "
+            "divisible by process_count (pad_batch_to_mesh already "
+            "rounds to the data axis)")
+    from dfu_multimodal_tpu_torch.parallel.mesh import process_shard
+    lo, hi = process_shard(n, rank, world)
+    return {k: v[lo:hi] for k, v in batch.items()}, lo, n
+
+
 def device_prefetch(batches: Iterator[Dict[str, np.ndarray]],
                     device: Union[str, torch.device], depth: int = 2
                     ) -> Iterator[Dict[str, torch.Tensor]]:

@@ -19,7 +19,7 @@ cannot be reproduced in torch.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -174,41 +174,51 @@ def gaussian_blur(images: torch.Tensor, sigma: torch.Tensor,
 def augment_batch(images: torch.Tensor, cfg: AugmentConfig,
                   gen: torch.Generator,
                   work_dtype: torch.dtype = torch.float32,
-                  fill: Optional[Sequence[float]] = None) -> torch.Tensor:
+                  fill: Optional[Sequence[float]] = None,
+                  rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Augment (B, H, W, C) uint8 images -> [0, 255] ``work_dtype`` (the
     batch counterpart of the JAX ``_augment_one``).  ``fill``: per-channel
     constant for out-of-coverage pixels; the resample is linear and maps
     constants to constants, so ``warp(x - fill) + fill`` fills with
-    ``fill`` at no extra pass."""
+    ``fill`` at no extra pass.  ``rows = (lo, n)``: ``images`` are rows
+    ``lo:lo + B`` of an n-row batch; every draw is made for all n rows
+    and these rows' are kept, so a data-parallel rank's views are the
+    ones a single device makes of the whole batch."""
     b, h, w, _ = images.shape
+    lo, n = rows if rows is not None else (0, b)
+    mine = slice(lo, lo + b)
     x = images.to(work_dtype)
     if cfg.color_jitter:
-        apply = _bernoulli(gen, b, cfg.aug_prob)
-        one = torch.ones(b, device=gen.device)
-        factors = [torch.where(apply, _uniform(gen, b, 1 - f, 1 + f), one)
+        apply = _bernoulli(gen, n, cfg.aug_prob)
+        one = torch.ones(n, device=gen.device)
+        factors = [torch.where(apply, _uniform(gen, n, 1 - f, 1 + f),
+                               one)[mine]
                    for f in (cfg.brightness, cfg.contrast, cfg.saturation)]
         x = color_jitter(x, *factors)
-    inv = sample_inverse_affine(gen, cfg, h, w, b)
+    inv = sample_inverse_affine(gen, cfg, h, w, n)[mine]
     if fill is not None:
         f = torch.tensor(fill, dtype=x.dtype, device=x.device)
         x = affine_warp(x - f, inv) + f
     else:
         x = affine_warp(x, inv)
     if cfg.gaussian_blur:
-        apply = _bernoulli(gen, b, cfg.aug_prob)
-        x = gaussian_blur(x, _uniform(gen, b, *cfg.blur_sigma), apply)
+        apply = _bernoulli(gen, n, cfg.aug_prob)[mine]
+        x = gaussian_blur(x, _uniform(gen, n, *cfg.blur_sigma)[mine], apply)
     return x
 
 
 def augment_and_normalize(images: torch.Tensor, modality: ModalityConfig,
-                          dtype: torch.dtype,
-                          gen: torch.Generator) -> torch.Tensor:
+                          dtype: torch.dtype, gen: torch.Generator,
+                          rows: Optional[Tuple[int, int]] = None
+                          ) -> torch.Tensor:
     """Train-time transform: per-sample random augment + normalize.
     ``images``: uint8 (B, H, W, C) on ``gen``'s device -> normalized
     (B, H, W, C) ``dtype``.  The warp works in bf16 when ``dtype`` is
-    bf16 (as the JAX package), else fp32."""
+    bf16 (as the JAX package), else fp32.  ``rows``: a data-parallel
+    rank's place in the global batch (:func:`augment_batch`; the JAX
+    ``augment_and_normalize_spmd``)."""
     work = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
     fill = (tuple(255.0 * m for m in modality.mean)
             if modality.augment.fill_with_mean else None)
-    x = augment_batch(images, modality.augment, gen, work, fill)
+    x = augment_batch(images, modality.augment, gen, work, fill, rows)
     return normalize(x, modality.mean, modality.std, dtype)

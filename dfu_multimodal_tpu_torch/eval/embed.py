@@ -45,6 +45,12 @@ TRUNK_FEATURES: Dict[str, Dict[str, str]] = {
     "thermal_only": {"thermal": "trunk"},                  # (B, 768)
     "multimodal": {"rgb": "rgb_branch",                    # (B, 2048)
                    "thermal": "thermal_branch"},           # (B, 768)
+    "efficientnet_rgb": {"rgb": "trunk"},                  # (B, 1280)
+    "efficientnet_thermal": {"thermal": "trunk"},
+    "legacy_gated_fusion": {"rgb": "rgb_encoder",          # (B, 1280) each
+                            "thermal": "thermal_encoder"},
+    "legacy_rgb_resnet_fusion": {"rgb": "rgb_encoder",     # (B, 2048)
+                                 "thermal": "thermal_encoder"},  # (B, 1280)
     "tiny_rgb": {"rgb": "trunk"},                          # (B, 32)
     "tiny_thermal": {"thermal": "trunk"},
     "tiny_fusion": {"rgb": "rgb_branch",                   # (B, 32) each
@@ -54,8 +60,8 @@ TRUNK_FEATURES: Dict[str, Dict[str, str]] = {
 
 def trunk_features(model_name: str) -> Dict[str, str]:
     """The features-record entries of ``model_name``; ``ValueError``
-    naming it for a zoo model whose features the port does not record
-    (the legacy lineage's)."""
+    naming it for a model the table does not hold (every zoo model, as
+    the JAX package's ``TRUNK_SCOPES``)."""
     if model_name not in TRUNK_FEATURES:
         raise ValueError(
             f"no trunk-feature mapping for model {model_name!r} (its "

@@ -10,6 +10,10 @@ with, so it stays in the autograd graph and ``torch.autograd.grad`` of a
 score with respect to it is d score / d activation: no hook, no second
 forward, and no zero perturbation (JAX adds one only because ``jax.grad``
 differentiates with respect to inputs).
+
+:func:`dense` is the Linear of the flax-style blocks and heads, in the
+compute dtype; it also takes a tensor-parallel Linear's sharded weight
+(``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -17,10 +21,34 @@ from __future__ import annotations
 from typing import Dict, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 Taps = Optional[Dict[str, torch.Tensor]]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """x·weightᵀ + bias in ``dtype`` (the fp32 parameters cast per call,
+    as flax's ``nn.Dense(dtype=...)``).  A DTensor weight is a Linear of
+    ``parallelize_module``: ``ColwiseParallel`` (Shard(0)) takes the
+    whole input and returns this rank's columns of the output (the
+    input's gradient is summed over the model ranks), ``RowwiseParallel``
+    (Shard(1)) takes this rank's slice of the input features and returns
+    the whole output, summed over the model ranks."""
+    if not hasattr(weight, "device_mesh"):
+        return F.linear(x, weight.to(dtype), bias.to(dtype))
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = weight.device_mesh
+    row = weight.placements[0] == Shard(1)
+    xd = DTensor.from_local(x, mesh, [Shard(x.ndim - 1) if row
+                                      else Replicate()], run_check=False)
+    y = F.linear(xd, weight.to(dtype), bias.to(dtype))
+    if row:
+        y = y.redistribute(mesh, [Replicate()])
+    return y.to_local()
 
 
 def canonical_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dfu_multimodal_tpu_torch.models.common import (Taps, canonical_dtype,
-                                                    dropout, tap)
+                                                    dense, dropout, tap)
 from dfu_multimodal_tpu_torch.models.resnet import ResNet50
 from dfu_multimodal_tpu_torch.models.vit import ViTBase16
 from dfu_multimodal_tpu_torch.ops.fused_mlp import (FusedMlp,
@@ -73,7 +73,7 @@ class FusionMLP(nn.Sequential):
         dt = self.dtype
         x = fused
         for fc in (self.fc1, self.fc2):
-            x = F.relu(F.linear(x.to(dt), fc.weight.to(dt), fc.bias.to(dt)))
+            x = F.relu(dense(x.to(dt), fc.weight, fc.bias, dt))
             x = dropout(x, self.drop_rate, generator)
         return self.fc3(x.float())
 

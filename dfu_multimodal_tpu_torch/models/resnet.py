@@ -79,11 +79,23 @@ class BatchNorm2d(nn.BatchNorm2d):
     A channel with one value (N·H·W = 1, which ``F.batch_norm`` refuses in
     train mode) is normalised as flax does: its batch variance is 0, so
     the output is the bias, the input and weight gradients are 0, and the
-    running variance moves towards 0."""
+    running variance moves towards 0.
+
+    ``group`` (a process group, set by the data-parallel trainers; the
+    JAX ``bn_axis_name``) makes the train-mode statistics the global
+    batch's, as flax's ``BatchNorm(axis_name=...)``: one all-reduce of
+    the per-channel Σx, Σx² and the row count, then flax's variance
+    E[x²] − E[x]² (clipped at 0), in fp32, with gradients through the
+    all-reduce.  ``torch.nn.SyncBatchNorm`` computes its statistics and
+    running variance otherwise."""
+
+    group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.group is not None:
+            return self._global(x)
         if x.numel() == x.shape[1]:
             return self._one_value(x)
         # the op keeps the variance for its backward: move a copy
@@ -96,6 +108,28 @@ class BatchNorm2d(nn.BatchNorm2d):
                                                             (n - 1) / n)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global(self, x: torch.Tensor) -> torch.Tensor:
+        from dfu_multimodal_tpu_torch.parallel.mesh import all_reduce
+
+        xf = x.float()
+        c = x.shape[1]
+        count = xf.new_full((1,), x.numel() // c)
+        sums = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                     xf.square().sum(dim=(0, 2, 3)),
+                                     count]), self.group)
+        n = sums[-1]
+        mean = sums[:c] / n
+        var = (sums[c:2 * c] / n - mean.square()).clamp_min(0.0)
+        shape = (1, -1, 1, 1)
+        y = ((xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+             * self.weight.view(shape) + self.bias.view(shape))
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.lerp_(mean, m)
+            self.running_var.lerp_(var, m)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
     def _one_value(self, x: torch.Tensor) -> torch.Tensor:
         """Train mode on an (1, C, 1, 1) batch, in fp32 as flax's

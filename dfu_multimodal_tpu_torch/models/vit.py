@@ -60,7 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dfu_multimodal_tpu_torch.models.common import (Taps, canonical_dtype,
-                                                    dropout, tap)
+                                                    dense, dropout, tap)
 from dfu_multimodal_tpu_torch.ops.attention import qkv_attention
 from dfu_multimodal_tpu_torch.ops.token_merge import bipartite_merge
 from dfu_multimodal_tpu_torch.ops.vit_block import AttnBlock, MlpBlock
@@ -86,8 +86,9 @@ def _in_out(linear: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
 def _linear(x: torch.Tensor, linear: nn.Linear,
             dtype: torch.dtype) -> torch.Tensor:
     """A Linear in the compute dtype (weights cast per call, as flax's
-    ``nn.Dense(dtype=...)`` does)."""
-    return F.linear(x, linear.weight.to(dtype), linear.bias.to(dtype))
+    ``nn.Dense(dtype=...)`` does; a tensor-parallel one on its shards,
+    ``models/common.py::dense``)."""
+    return dense(x, linear.weight, linear.bias, dtype)
 
 
 def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm,
@@ -167,13 +168,16 @@ class MultiHeadAttention(Attention):
                 calibration: Optional[Calibration] = None) -> torch.Tensor:
         b, n, c = x.shape
         qkv = _linear(x, self.qkv, self.dtype)
+        # this rank's heads: all of them, or under tensor parallelism the
+        # [q, k, v] block of its share (parallel/sharding.py)
+        hd = c // self.num_heads
+        heads = qkv.shape[-1] // (3 * hd)
         if self.attention_impl == "pallas" and bias is None:
-            out = qkv_attention(qkv, self.num_heads)
+            out = qkv_attention(qkv, heads)
         else:
-            q, k, v = qkv.reshape(b, n, 3, self.num_heads,
-                                  c // self.num_heads).permute(2, 0, 3, 1, 4)
+            q, k, v = qkv.reshape(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
             out = xla_attention(q, k, v, bias).transpose(1, 2).reshape(
-                b, n, c)
+                b, n, heads * hd)
         return _linear(_tap(calibration, "proj_in", out), self.proj,
                        self.dtype)
 

@@ -21,12 +21,18 @@ best-by-val-F1 checkpoints, evaluation (plain CE on the student, so
 selection and test artifacts compare with a non-distilled run); only the
 train step's loss changes.  ``cfg.qat`` trains the student through its
 int8 serving grid (``train/qat.py``); the teacher runs at full fidelity.
+
+On a data-parallel mesh (the JAX ``_build_spmd_train_step``) each rank
+takes its rows and views of the global batch; the two denominators, Σ
+valid for the KL and Σ w for the CE, are all-reduced before the
+backward, each rank back-propagates only its rows' numerators over them
+and the gradients are summed over the ranks.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,6 +40,7 @@ import torch
 from dfu_multimodal_tpu_torch.data.transforms import eval_normalize
 from dfu_multimodal_tpu_torch.eval import metrics as metrics_mod
 from dfu_multimodal_tpu_torch.models import zoo
+from dfu_multimodal_tpu_torch.parallel import mesh as mesh_mod
 from dfu_multimodal_tpu_torch.train.engine import Trainer, per_sample_ce
 
 
@@ -59,15 +66,16 @@ def kd_numerators(student_logits: torch.Tensor,
 
 def kd_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
             labels: torch.Tensor, ce_weights: torch.Tensor,
-            valid: torch.Tensor, alpha: float,
-            temperature: float) -> torch.Tensor:
+            valid: torch.Tensor, alpha: float, temperature: float,
+            total: Callable = lambda den: den) -> torch.Tensor:
     """alpha·T²·KL(p_T || q_T) over the valid rows + (1 - alpha)·the
-    weighted CE."""
+    weighted CE; ``total`` maps each denominator to the global batch's
+    (a sum over the data ranks)."""
     t = temperature
     kl_num, ce_num = kd_numerators(student_logits, teacher_logits, labels,
                                    ce_weights, valid, t)
-    kl = kl_num / valid.float().sum().clamp_min(1e-12)
-    ce = ce_num / ce_weights.sum().clamp_min(1e-12)
+    kl = kl_num / total(valid.float().sum()).clamp_min(1e-12)
+    ce = ce_num / total(ce_weights.sum()).clamp_min(1e-12)
     return alpha * (t * t) * kl + (1.0 - alpha) * ce
 
 
@@ -121,17 +129,22 @@ class DistillTrainer(Trainer):
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """One KD step: the student's views drawn from ``generator``
         (augmentation, then dropout in the forward)."""
+        if self.optimizer is None:
+            self.optimizer = self._build_optimizer()
+        batch, rows = self._local(batch)
         batch = {k: torch.as_tensor(v).to(self.device)
                  for k, v in batch.items()}
         views = dict(zip(self.spec.inputs,
-                         self._preprocess_train(batch, generator)))
+                         self._preprocess_train(batch, generator, rows)))
         return self.step_on_views(batch, views, generator)
 
     def step_on_views(self, batch: Mapping[str, torch.Tensor],
                       views: Mapping[str, torch.Tensor],
                       generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """The KD step after its augmentation: ``views`` {modality:
-        normalised student input}; returns ``loss`` and ``counts``."""
+        normalised student input}; returns ``loss`` and ``counts``.  On a
+        mesh ``batch`` and ``views`` are this rank's rows and the results
+        the global batch's."""
         if self.optimizer is None:
             self.optimizer = self._build_optimizer()
         labels, valid = batch["label"].long(), batch["valid"].float()
@@ -140,11 +153,16 @@ class DistillTrainer(Trainer):
         self.module.train()
         self.optimizer.zero_grad()
         logits = self._forward(*(views[m] for m in self.spec.inputs),
-                               generator=generator)
+                               generator=self._dropout_generator(generator))
+        # the denominators are the global batch's, summed before the
+        # backward: each rank back-propagates only its rows' numerators
         loss = kd_loss(logits, t_logits, labels, weights, valid,
-                       self.dcfg.alpha, self.dcfg.temperature)
+                       self.dcfg.alpha, self.dcfg.temperature, self._sum)
         loss.backward()
-        self.optimizer.step()
         counts = metrics_mod.confusion_counts(logits.detach().argmax(-1),
                                               labels, valid)
-        return {"loss": loss.detach(), "counts": counts}
+        if self.mesh is not None and self._data[1] > 1 and not self.fsdp:
+            mesh_mod.sum_grads(self.optimizer.params, self._data[2])
+        loss, counts = self._sum(loss.detach()), self._sum(counts)
+        self.optimizer.step()
+        return {"loss": loss, "counts": counts}

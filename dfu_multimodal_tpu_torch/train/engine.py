@@ -38,9 +38,32 @@ explicit ``torch.Generator`` on the device.
 snapped to their int8 serving grids (``train/qat.py``, straight-through
 gradients; the optimizer and checkpoints keep the real weights).
 
-Not ported: any mesh but the single-device default (the ``*_spmd``
-steps) — it raises ``NotImplementedError`` when the train step is first
-built.
+On a mesh (``mesh=``, or ``cfg.mesh`` under a process group:
+``parallel/mesh.py``) every rank runs the same steps on the same global
+batches and takes its rows of each (``data/loader.py::shard_batch``);
+the augmentation draws are the global batch's (``rows=``), so the views
+are the single device's.  The reduction is the JAX ``*_spmd`` steps':
+the weight mass Σ wᵢ is all-reduced first, each rank back-propagates its
+rows' Σ wᵢ·lossᵢ over it and the gradients are summed (not averaged, as
+DDP would: DDP's mean equals this only when every rank holds the same
+weight mass, which class weights and padded rows break).  BatchNorm
+statistics are the global batch's (``models/resnet.py::BatchNorm2d``'s
+``group``).  ``cfg.mesh.fsdp`` shards the parameters with FSDP2 and
+``cfg.mesh.model > 1`` splits the ViT blocks' Linears Megatron-style
+(``parallel/sharding.py``, JAX's rules); both run the flax blocks, as
+JAX does.  Evaluation splits each batch the same way and gathers the
+probabilities in row order.  Every collective is an ``all_reduce``, so
+gloo ranks sharing one card compute what NCCL ranks do.
+
+Refused on a mesh, with the JAX package's words where it has them: int8
+blocks for training (any mesh), fused or int8 blocks under FSDP or
+tensor parallelism, FSDP with a model axis, and, over more than one data
+rank, mixup (its partner permutation is batch-global) and grad-accum for
+a BatchNorm model or one whose per-rank batch it does not divide (JAX
+runs both as one global program; microbatch statistics and pairs would
+differ here).  Under FSDP or tensor parallelism also EMA and QAT (both
+swap whole parameters in).  Checkpoints hold whole tensors: a sharded
+trainer gathers them to save and shards them again to load.
 """
 
 from __future__ import annotations
@@ -67,6 +90,9 @@ from dfu_multimodal_tpu_torch.data.transforms import (augment_and_normalize,
 from dfu_multimodal_tpu_torch.eval import metrics as metrics_mod
 from dfu_multimodal_tpu_torch.models import zoo
 from dfu_multimodal_tpu_torch.models.common import canonical_dtype
+from dfu_multimodal_tpu_torch.models.resnet import BatchNorm2d
+from dfu_multimodal_tpu_torch.parallel import mesh as mesh_mod
+from dfu_multimodal_tpu_torch.parallel import sharding
 from dfu_multimodal_tpu_torch.train import qat as qat_mod
 from dfu_multimodal_tpu_torch.train.optim import AdamW, learning_rate_schedule
 from dfu_multimodal_tpu_torch.utils import checkpoint as ckpt_mod
@@ -150,8 +176,8 @@ def serving_outputs(forward: Callable[..., torch.Tensor],
                     inputs: Sequence[str],
                     modalities: Dict[str, ModalityConfig],
                     compute_dtype: torch.dtype,
-                    class_weights: Optional[torch.Tensor] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    class_weights: Optional[torch.Tensor] = None,
+                    group=None) -> Dict[str, torch.Tensor]:
     """The eval step's tensor part, which :meth:`Trainer.eval_step` and
     the exported serving programs (``serve/export.py``) both run, so the
     two cannot drift: ``batch`` {modality: (B, S, S, 3) uint8 on the
@@ -159,7 +185,8 @@ def serving_outputs(forward: Callable[..., torch.Tensor],
     1], ``preds`` = argmax(logits) and, with ``label``, ``loss`` (the CE
     over the valid rows, weighted by ``class_weights`` of each label when
     given) and ``counts``.  ``forward`` maps the normalised inputs, in
-    ``inputs`` order, to logits."""
+    ``inputs`` order, to logits.  With a data-parallel ``group`` the loss
+    and counts are those of every rank's rows together."""
     logits = forward(*(eval_normalize(batch[m], modalities[m],
                                       compute_dtype)
                        for m in inputs)).float()
@@ -171,9 +198,14 @@ def serving_outputs(forward: Callable[..., torch.Tensor],
                  else torch.ones_like(logits[:, 0]))
         weights = (valid if class_weights is None
                    else class_weights[labels] * valid)
-        out["loss"] = weighted_mean(per_sample_ce(logits, labels), weights)
-        out["counts"] = metrics_mod.confusion_counts(out["preds"], labels,
-                                                     valid)
+        num = (weights * per_sample_ce(logits, labels)).sum()
+        den = weights.sum()
+        counts = metrics_mod.confusion_counts(out["preds"], labels, valid)
+        if group is not None:
+            num, den, counts = (mesh_mod.sum_(t, group)
+                                for t in (num, den, counts))
+        out["loss"] = num / den.clamp_min(1e-12)        # weighted_mean's
+        out["counts"] = counts
     return out
 
 
@@ -186,6 +218,14 @@ def epoch_generator(seed: int, epoch: int,
     return torch.Generator(device=device).manual_seed(int(state))
 
 
+def set_batchnorm_group(module: torch.nn.Module, group) -> None:
+    """Give every BatchNorm of ``module`` the global batch's statistics
+    over ``group`` (``models/resnet.py::BatchNorm2d``)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = group
+
+
 @dataclass
 class EpochMetrics:
     loss: float
@@ -194,12 +234,7 @@ class EpochMetrics:
 
 
 def _check_train_config(cfg: TrainConfig) -> None:
-    """Raise for the train options the port does not implement and for
-    the combinations the JAX Trainer refuses."""
-    if cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1 or cfg.mesh.fsdp:
-        raise NotImplementedError(
-            f"train options not ported yet: mesh={cfg.mesh} (the port "
-            "trains on one device)")
+    """Raise for the combinations the JAX Trainer refuses."""
     if cfg.loss not in ("ce", "focal"):
         raise ValueError(f"unknown loss {cfg.loss!r} (choose 'ce' or "
                          "'focal')")
@@ -211,7 +246,9 @@ def _check_train_config(cfg: TrainConfig) -> None:
 
 class Trainer:
     """Train/eval engine for one model-zoo entry on one device (the card
-    unless the caller asks for the CPU).  Weights are the module's own:
+    unless the caller asks for the CPU), or on this rank's device of a
+    ``mesh`` (``parallel/mesh.py``; by default ``cfg.mesh``'s under a
+    process group, none without one).  Weights are the module's own:
     load them with ``module.load_state_dict`` (e.g. from
     ``tools.convert_jax.variables_to_state_dict``), :meth:`restore` them
     from a checkpoint, or draw them with ``models.zoo.init_model``.  Extra
@@ -229,7 +266,7 @@ class Trainer:
                  class_weights: Optional[np.ndarray] = None,
                  device: Union[str, torch.device] = "cuda",
                  image_size: int = 224, token_merge=None,
-                 tome_prop_attn: bool = False, **model_kwargs):
+                 tome_prop_attn: bool = False, mesh=None, **model_kwargs):
         if token_merge is not None:
             if model_name not in zoo.VIT_TRUNK_MODELS:
                 raise ValueError(
@@ -240,6 +277,12 @@ class Trainer:
         self.cfg = cfg
         self.device = torch.device(device)
         self.compute_dtype = canonical_dtype(cfg.compute_dtype)
+        self.mesh = (mesh if mesh is not None
+                     else mesh_mod.trainer_mesh(cfg.mesh, self.device))
+        self._sharded = self.fsdp = self._tp = False
+        self._tp_plan: Dict[str, str] = {}
+        if self.mesh is not None:
+            self._parallel_kwargs(model_name, model_kwargs)
         # the model class's arguments, so a rebuild (e.g. the int8 serving
         # trainer of serve/engine.py) gets the same architecture
         self.model_kwargs = dict(image_size=image_size, **model_kwargs)
@@ -256,6 +299,116 @@ class Trainer:
         # the EMA of the parameters by name (ema_decay > 0): the JAX
         # TrainState's ema_params; BatchNorm buffers stay live
         self.ema_params: Optional[Dict[str, torch.Tensor]] = None
+
+    # --------------------------------------------------------- the mesh
+
+    def _parallel_kwargs(self, model_name: str, model_kwargs: Dict) -> None:
+        """The mesh's axes, JAX's refusals of its layouts, and the flax
+        blocks that FSDP and tensor parallelism run on."""
+        self._data = mesh_mod.axis(self.mesh, mesh_mod.DATA_AXIS)
+        model = self.mesh[mesh_mod.MODEL_AXIS].size()
+        self.fsdp = bool(self.cfg.mesh.fsdp)
+        self._tp = model > 1
+        if self.fsdp and self._tp:
+            raise ValueError(
+                "fsdp=True combined with a model axis > 1 is not supported: "
+                "pick ZeRO-3 param sharding (fsdp) OR Megatron tensor "
+                "parallelism (--mesh model axis), not both.")
+        if not (self.fsdp or self._tp) or zoo.get(model_name).name not in (
+                "thermal_only", "multimodal"):
+            return
+        block_impl = model_kwargs.get("block_impl", "auto")
+        if block_impl not in ("auto", "flax"):
+            mode = ("fsdp" if self.fsdp else
+                    f"tensor parallelism (model axis {model} > 1)")
+            raise ValueError(
+                f"block_impl={block_impl!r} is incompatible with "
+                f"{mode}: the fused Pallas kernels are opaque to "
+                "the XLA partitioner. Use block_impl='flax'/'auto' "
+                "or disable the sharded-param mode.")
+        model_kwargs["block_impl"] = "flax"
+
+    def _check_mesh_step(self) -> None:
+        """Refuse the train configurations the data-parallel step cannot
+        compute as the single global program would."""
+        if self.mesh is None:
+            return
+        if (self.fsdp or self._tp) and (self.cfg.ema_decay > 0.0
+                                        or self.cfg.qat):
+            raise ValueError("ema_decay and qat are not supported with "
+                             "fsdp or tensor parallelism")
+        size = self._data[1]
+        if size == 1:
+            return
+        reason = None
+        accum = int(self.cfg.grad_accum)
+        per_dev = mesh_mod.pad_batch_to_mesh(self.cfg.batch_size,
+                                             size) // size
+        if self.cfg.mixup_alpha > 0.0:
+            reason = "mixup pairs rows across the whole batch"
+        elif accum > 1 and any(isinstance(m, BatchNorm2d)
+                               for m in self.module.modules()):
+            reason = "BatchNorm statistics of global microbatches"
+        elif accum > 1 and per_dev % accum:
+            reason = (f"grad_accum={accum} does not divide the per-device "
+                      f"batch {per_dev}")
+        if reason:
+            raise ValueError(
+                f"this configuration cannot run the data-parallel train "
+                f"step over {size} ranks (no mixup; grad-accum only for "
+                "the BN-free model and only when it divides the "
+                f"per-device batch): {reason}")
+
+    def _shard(self) -> None:
+        """Put FSDP or tensor parallelism on the module (once, before the
+        optimizer takes its parameters)."""
+        if self.mesh is None or self._sharded:
+            return
+        if self.fsdp:
+            sharding.apply_fsdp(self.module, self.mesh)
+        elif self._tp:
+            self._tp_plan = sharding.apply_tp(self.module, self.mesh)
+        self._sharded = self.fsdp or self._tp
+
+    def _local(self, batch: Mapping) -> Tuple[Dict, Optional[Tuple[int,
+                                                                   int]]]:
+        """This rank's rows of a global batch and their place, (lo, n);
+        the batch itself and None off a mesh."""
+        if self.mesh is None:
+            return dict(batch), None
+        local, lo, n = data_loader.shard_batch(dict(batch), self._data[0],
+                                               self._data[1])
+        return local, (lo, n)
+
+    def _dropout_generator(self, generator: torch.Generator
+                           ) -> torch.Generator:
+        """The generator dropout draws from: the step's own on one data
+        rank; over several, one seeded from (seed, step, data rank), so
+        each rank's rows get their own masks (the JAX spmd steps fold the
+        axis index into the dropout key) and the shared stream the
+        augmentation draws from stays in step on every rank."""
+        if self.mesh is None or self._data[1] == 1:
+            return generator
+        state = np.random.SeedSequence(
+            [self.cfg.seed, self.optimizer.count, self._data[0]]
+        ).generate_state(1, np.uint64)[0]
+        return torch.Generator(device=self.device).manual_seed(int(state))
+
+    def _checkpoint_state(self) -> Tuple[Dict, Dict, Optional[Dict]]:
+        """(model state, optimizer state, raw parameters or None) as a
+        checkpoint holds them: whole tensors, gathered from their shards
+        under FSDP or tensor parallelism (a collective every rank
+        joins)."""
+        model = self._model_state()
+        opt = self.optimizer.state_dict()
+        raw = (dict(self.module.named_parameters())
+               if self.ema_params is not None else None)
+        if self._sharded:
+            full = functools.partial(sharding.full_state,
+                                     module=self.module, plan=self._tp_plan)
+            model = full(model)
+            opt = {**opt, "mu": full(opt["mu"]), "nu": full(opt["nu"])}
+        return model, opt, raw
 
     def _forward(self, *inputs: torch.Tensor,
                  state: Optional[Mapping[str, torch.Tensor]] = None,
@@ -288,11 +441,12 @@ class Trainer:
             for m in self.spec.inputs)
 
     def _preprocess_train(self, batch: Mapping[str, torch.Tensor],
-                          generator: torch.Generator
+                          generator: torch.Generator,
+                          rows: Optional[Tuple[int, int]] = None
                           ) -> Tuple[torch.Tensor, ...]:
         return tuple(
             augment_and_normalize(batch[m], self.modalities[m],
-                                  self.compute_dtype, generator)
+                                  self.compute_dtype, generator, rows)
             for m in self.spec.inputs)
 
     def _sample_weights(self, labels: torch.Tensor,
@@ -310,6 +464,17 @@ class Trainer:
         """A fresh AdamW over the module's parameters (and a fresh EMA
         copy of them when ``ema_decay > 0``)."""
         _check_train_config(self.cfg)
+        block_impl = str(self.model_kwargs.get("block_impl", ""))
+        if block_impl.startswith("fused_q8"):
+            raise ValueError(
+                f"training with block_impl={block_impl!r} is not supported: "
+                "the int8 kernels are serving-only (no VJP). Train bf16/fp32 "
+                "and quantize at deployment (serve/predict --int8, or "
+                "--qat to train through the serving grid).")
+        self._check_mesh_step()
+        if self.mesh is not None and self._data[1] > 1:
+            set_batchnorm_group(self.module, self._data[2])
+        self._shard()
         names, params = zip(*self.module.named_parameters())
         if self.cfg.ema_decay > 0.0:
             # copies, not aliases: the optimizer updates params in place
@@ -355,72 +520,75 @@ class Trainer:
         rows)."""
         if self.optimizer is None:
             self.optimizer = self._build_optimizer()
+        batch, rows = self._local(batch)
         batch = {k: torch.as_tensor(v).to(self.device)
                  for k, v in batch.items()}
-        inputs = self._preprocess_train(batch, generator)
+        inputs = self._preprocess_train(batch, generator, rows)
         labels, valid = batch["label"].long(), batch["valid"].float()
         weights = self._sample_weights(labels, valid)
         per_sample = self._per_sample()
         self.module.train()
         self.optimizer.zero_grad()
-        if self.cfg.grad_accum > 1:
-            loss, counts = self._accumulate(inputs, labels, valid, weights,
-                                            generator, per_sample)
-        else:
-            if self.cfg.mixup_alpha > 0.0:
-                lam, perm = sample_mixup(generator, self.cfg.mixup_alpha,
-                                         labels.shape[0])
-                inputs, lam_row = mixup_batch(inputs, valid, lam, perm)
-            logits = self._forward(*inputs, generator=generator)
-            if self.cfg.mixup_alpha > 0.0:
-                loss = mixup_loss(per_sample, logits, labels, weights, valid,
-                                  perm, lam_row)
-            else:
-                loss = weighted_mean(per_sample(logits, labels), weights)
-            loss.backward()
-            counts = metrics_mod.confusion_counts(
-                logits.detach().argmax(-1), labels, valid)
+        loss, counts = self._backward(inputs, labels, valid, weights,
+                                      generator, per_sample)
         self.optimizer.step()
         if self.ema_params is not None:
             self._ema_update()
-        return {"loss": loss.detach(), "counts": counts}
+        return {"loss": loss, "counts": counts}
 
-    def _accumulate(self, inputs, labels, valid, weights, generator,
-                    per_sample) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The full batch's gradient from ``grad_accum`` sequential
-        microbatches: the numerator Σ wᵢ·lossᵢ and denominator Σ wᵢ
-        accumulate apart and the summed gradient is divided once, since
-        ∇(N/W) = (Σ ∇Nₖ)/W.  BatchNorm statistics move once per microbatch
-        and each microbatch draws its own dropout, as in JAX's scan."""
-        accum = self.cfg.grad_accum
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Σ of ``t`` over the data ranks (``t`` itself off a mesh)."""
+        return t if self.mesh is None else mesh_mod.sum_(t, self._data[2])
+
+    def _backward(self, inputs, labels, valid, weights, generator,
+                  per_sample) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The step's gradient.  The weight mass W = Σ wᵢ first (the
+        global batch's on a mesh), then each of ``grad_accum`` sequential
+        microbatches back-propagates Σ wᵢ·lossᵢ / W, since ∇(N/W) =
+        (Σ ∇Nₖ)/W; on a mesh the gradients are then summed over the data
+        ranks (FSDP's reduce-scatter sums them itself), as the JAX
+        ``*_spmd`` steps psum theirs.  BatchNorm statistics move once a
+        microbatch and each draws its own dropout, as in JAX's scan; with
+        mixup (no grad_accum; one data rank) the loss is the mixed pairs'.
+        Returns the (global) loss and confusion counts."""
+        accum = int(self.cfg.grad_accum)
         b = labels.shape[0]
         if b % accum:
-            raise ValueError(f"batch {b} not divisible by "
-                             f"grad_accum={accum}")
+            raise ValueError(
+                f"{'per-device ' if self.mesh is not None else ''}batch {b} "
+                f"not divisible by grad_accum={accum}")
         mb = b // accum
-        # each parameter accumulates into a buffer of its own: left to
-        # itself autograd may hand two parameters views of one gradient
-        # (a broadcast add that reduces nothing passes its gradient on
-        # as it is, e.g. the one-row BatchNorm biases of a residual sum),
-        # and every later += and the division below would then hit it
-        # twice
-        for p in self.optimizer.params:
-            p.grad = torch.zeros_like(p)
-        numer = torch.zeros((), device=self.device)
+        if accum > 1:
+            # each parameter accumulates into a buffer of its own: left to
+            # itself autograd may hand two parameters views of one
+            # gradient (a broadcast add that reduces nothing passes its
+            # gradient on as it is, e.g. the one-row BatchNorm biases of a
+            # residual sum), and every later += would then hit it twice
+            for p in self.optimizer.params:
+                p.grad = torch.zeros_like(p)
+        wtotal = self._sum(weights.sum()).clamp_min(1e-12)
+        dropout_gen = self._dropout_generator(generator)
+        loss = torch.zeros((), device=self.device)
         counts = torch.zeros(4, device=self.device)
         for k in range(accum):
             rows = slice(k * mb, (k + 1) * mb)
-            logits = self._forward(*(x[rows] for x in inputs),
-                                   generator=generator)
-            part = (weights[rows] * per_sample(logits, labels[rows])).sum()
+            x, y, w = tuple(t[rows] for t in inputs), labels[rows], weights[rows]
+            if self.cfg.mixup_alpha > 0.0:
+                lam, perm = sample_mixup(generator, self.cfg.mixup_alpha, b)
+                x, lam_row = mixup_batch(x, valid, lam, perm)
+            logits = self._forward(*x, generator=dropout_gen)
+            if self.cfg.mixup_alpha > 0.0:
+                part = mixup_loss(per_sample, logits, y, w, valid, perm,
+                                  lam_row)
+            else:
+                part = (w * per_sample(logits, y)).sum() / wtotal
             part.backward()
-            numer += part.detach()
+            loss += part.detach()
             counts += metrics_mod.confusion_counts(
-                logits.detach().argmax(-1), labels[rows], valid[rows])
-        wtotal = weights.sum().clamp_min(1e-12)
-        grads = [p.grad for p in self.optimizer.params if p.grad is not None]
-        torch._foreach_div_(grads, wtotal)
-        return numer / wtotal, counts
+                logits.detach().argmax(-1), y, valid[rows])
+        if self.mesh is not None and self._data[1] > 1 and not self.fsdp:
+            mesh_mod.sum_grads(self.optimizer.params, self._data[2])
+        return self._sum(loss), self._sum(counts)
 
     @torch.inference_mode()
     def eval_step(self, batch: Mapping[str, Union[np.ndarray, torch.Tensor]]
@@ -431,12 +599,18 @@ class Trainer:
         by default) in the batch also ``loss`` (the weighted CE over the
         valid rows) and ``counts``, as the JAX eval step."""
         self.module.eval()
-        tensors = {k: torch.as_tensor(batch[k]).to(self.device)
-                   for k in (*self.spec.inputs, "label", "valid")
-                   if k in batch}
-        return serving_outputs(self._forward, tensors, self.spec.inputs,
-                               self.modalities, self.compute_dtype,
-                               self.loss_class_weights())
+        batch, rows = self._local({k: batch[k] for k in (
+            *self.spec.inputs, "label", "valid") if k in batch})
+        tensors = {k: torch.as_tensor(v).to(self.device)
+                   for k, v in batch.items()}
+        group = None if self.mesh is None else self._data[2]
+        out = serving_outputs(self._forward, tensors, self.spec.inputs,
+                              self.modalities, self.compute_dtype,
+                              self.loss_class_weights(), group)
+        if rows is not None:
+            for k in ("probs", "preds"):
+                out[k] = mesh_mod.gather_rows(out[k], *rows, group)
+        return out
 
     def loss_class_weights(self) -> Optional[torch.Tensor]:
         """The class weights the loss applies (None: every row counts
@@ -457,7 +631,7 @@ class Trainer:
         is called after every step when given."""
         order = data_loader.epoch_indices(
             dataset.labels, np_rng, weighted=self.cfg.weighted_sampling)
-        bs = self.cfg.batch_size
+        bs = self._global_batch(self.cfg.batch_size)
         step_metrics = []
         for batch in data_loader.device_prefetch(
                 data_loader.batch_slices(dataset, order, bs), self.device):
@@ -478,7 +652,9 @@ class Trainer:
         outs = []
         for batch in data_loader.device_prefetch(
                 data_loader.batch_slices(dataset, np.arange(len(dataset)),
-                                         self.cfg.eval_bs), self.device):
+                                         self._global_batch(
+                                             self.cfg.eval_bs)),
+                self.device):
             outs.append(self.eval_step(batch))
         n = len(dataset)
         preds = torch.cat([o["preds"] for o in outs])[:n].cpu().numpy()
@@ -486,6 +662,12 @@ class Trainer:
         metrics = self._reduce_epoch(outs)
         return metrics, {"y_true": np.asarray(dataset.labels),
                          "y_pred": preds, "y_probs": probs}
+
+    def _global_batch(self, batch_size: int) -> int:
+        """The batch rounded up to a multiple of the data ranks."""
+        if self.mesh is None:
+            return batch_size
+        return mesh_mod.pad_batch_to_mesh(batch_size, self._data[1])
 
     def _reduce_epoch(self, step_metrics: List[Dict]) -> EpochMetrics:
         losses = torch.stack([m["loss"] for m in step_metrics]).cpu()
@@ -539,7 +721,13 @@ class Trainer:
         better val F1; ``async_checkpoint`` writes on a background thread,
         joined before ``fit`` returns.  ``metrics_jsonl`` gets one JSON
         object per epoch (the JAX package's keys), appended;
-        ``profile_dir`` a ``torch.profiler`` trace of epoch 2."""
+        ``profile_dir`` a ``torch.profiler`` trace of epoch 2.
+
+        On a process group every rank runs the loop and only rank 0
+        writes checkpoints and the JSONL; a save of sharded parameters
+        gathers them with a collective every rank joins; asynchronous
+        saves are refused (synchronous, logged) over more than one rank,
+        as in JAX."""
         cfg = self.cfg
         np_rng = np.random.default_rng(cfg.seed)
         history: Dict[str, List[float]] = {
@@ -570,9 +758,25 @@ class Trainer:
         ema_meta = {"ema_decay": cfg.ema_decay} if use_ema else {}
         patience = int(cfg.early_stop_patience)
         best_seen, epochs_since_best = -1.0, 0
-        saver = ckpt_mod.AsyncCheckpointer() if cfg.async_checkpoint else None
-        save_fn = saver.save if saver is not None else ckpt_mod.save_checkpoint
-        meter = ThroughputMeter()
+        rank, world = mesh_mod.world()
+        use_async = cfg.async_checkpoint and world == 1
+        if cfg.async_checkpoint and world > 1:
+            log("async checkpointing is single-process only; saving "
+                "synchronously")
+        saver = ckpt_mod.AsyncCheckpointer() if use_async else None
+        base_save = (saver.save if saver is not None
+                     else ckpt_mod.save_checkpoint)
+        # one writer: two ranks racing on the same files could leave a
+        # truncated checkpoint and the JSONL duplicate lines
+        is_writer = rank == 0
+        if not is_writer:
+            metrics_jsonl = None
+
+        def save_fn(*args, **kwargs):
+            if is_writer:
+                base_save(*args, **kwargs)
+
+        meter = ThroughputMeter(n_chips=world)
         try:
             for epoch in range(start_epoch, cfg.num_epochs + 1):
                 t0 = time.perf_counter()
@@ -609,25 +813,33 @@ class Trainer:
                         f.write(json.dumps(rec) + "\n")
 
                 if checkpoint_dir is not None:
-                    raw = ({"raw_params": dict(self.module.named_parameters())}
-                           if use_ema else None)
+                    model_state = opt_state = raw = None
+                    saving = ((epoch >= cfg.save_best_after_epoch
+                               and val_m.f1 > best_val_f1) or cfg.save_last)
+                    # gathered on every rank (the same decision on each)
+                    if saving and (is_writer or self._sharded):
+                        model_state, opt_state, raw = (
+                            self._checkpoint_state())
+                    raw = {"raw_params": raw} if use_ema else None
                     if (epoch >= cfg.save_best_after_epoch
                             and val_m.f1 > best_val_f1):
                         best_val_f1 = val_m.f1
                         save_fn(checkpoint_dir, epoch=epoch,
-                                model_state=self._model_state(),
-                                opt_state=self.optimizer.state_dict(),
+                                model_state=model_state,
+                                opt_state=opt_state,
                                 val_f1=val_m.f1, history=history,
                                 extra_meta={"model": self.spec.name,
                                             **ema_meta},
                                 extra_state=raw)
-                        log(f"  Saved BEST model (Val F1: {val_m.f1:.4f})")
+                        if is_writer:
+                            log(f"  Saved BEST model (Val F1: "
+                                f"{val_m.f1:.4f})")
                     if cfg.save_last:
                         # meta val_f1 carries the running best, so a
                         # resumed run keeps the best-save threshold
                         save_fn(checkpoint_dir, epoch=epoch,
-                                model_state=self._model_state(),
-                                opt_state=self.optimizer.state_dict(),
+                                model_state=model_state,
+                                opt_state=opt_state,
                                 val_f1=best_val_f1, history=history,
                                 extra_meta={"model": self.spec.name,
                                             "last_val_f1": val_m.f1,
@@ -647,6 +859,8 @@ class Trainer:
         finally:
             if saver is not None:
                 saver.wait()                 # the last checkpoint on disk
+        if self.mesh is not None and world > 1:
+            mesh_mod.barrier()                # rank 0's files on disk
         return history, best_val_f1
 
     # ------------------------------------------------------------- load
@@ -656,8 +870,19 @@ class Trainer:
         """Load a checkpoint's model weights (the port's or the JAX
         package's) into the module, flexibly, and nothing else (no
         optimizer is built); returns the checkpoint's payload."""
-        payload, _ = ckpt_mod.load_weights(self.module, checkpoint_dir,
-                                           basename, self.spec.name)
+        if not self._sharded:
+            payload, _ = ckpt_mod.load_weights(self.module, checkpoint_dir,
+                                               basename, self.spec.name)
+            return payload
+        # FSDP / tensor parallelism: merged into the gathered state, then
+        # sharded back (collectives every rank joins)
+        payload, _ = ckpt_mod.load_checkpoint(checkpoint_dir, basename,
+                                              self.spec.name)
+        full = sharding.full_state(self.module.state_dict(), self.module,
+                                   self._tp_plan)
+        merged, _, _ = ckpt_mod.load_flexible(full,
+                                              payload["model_state_dict"])
+        sharding.load_full_state(self.module, merged, self._tp_plan)
         return payload
 
     def restore(self, checkpoint_dir: Path, with_opt_state: bool = False,
@@ -676,6 +901,12 @@ class Trainer:
         saved_opt = payload.get("optimizer_state_dict")
         if with_opt_state and saved_opt:
             try:
+                if self._sharded:         # whole moments -> this shard
+                    own = self.optimizer.state_dict()
+                    saved_opt = {**saved_opt, **{
+                        key: sharding.shard_like(saved_opt[key], own[key],
+                                                 self.module, self._tp_plan)
+                        for key in ("mu", "nu")}}
                 self.optimizer.load_state_dict(saved_opt)
             except (KeyError, ValueError, TypeError) as e:
                 print(f"  (optimizer state not restored: {e})")

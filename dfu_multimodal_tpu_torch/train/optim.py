@@ -114,28 +114,39 @@ class AdamW:
         counts as zero, as JAX's gradient of an unused leaf)."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
-        b1, b2 = self.b1, self.b2
         lr = self.lr(self.count) if callable(self.lr) else self.lr
         self.count += 1
+        # foreach lists may not mix DTensors (parameters sharded by FSDP or
+        # tensor parallelism) with plain tensors: one update for each kind
+        kinds: Dict[bool, List[int]] = {}
+        for i, p in enumerate(self.params):
+            kinds.setdefault(hasattr(p, "device_mesh"), []).append(i)
+        for idx in kinds.values():
+            self._update([self.params[i] for i in idx],
+                         [grads[i] for i in idx], [self.mu[i] for i in idx],
+                         [self.nu[i] for i in idx], lr)
+
+    def _update(self, params, grads, mus, nus, lr: float) -> None:
+        b1, b2 = self.b1, self.b2
         # optax computes 1 - decay**count in fp32
         bc1 = float(np.float32(1) - np.float32(b1) ** np.int32(self.count))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.int32(self.count))
 
         mu = torch._foreach_mul(grads, 1.0 - b1)
-        torch._foreach_add_(mu, torch._foreach_mul(self.mu, b1))
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_add_(self.nu, torch._foreach_mul(
+        torch._foreach_add_(mu, torch._foreach_mul(mus, b1))
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_add_(nus, torch._foreach_mul(
             torch._foreach_mul(grads, grads), 1.0 - b2))
-        denom = torch._foreach_div(self.nu, bc2)
+        denom = torch._foreach_div(nus, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         update = torch._foreach_div(mu, bc1)
         torch._foreach_div_(update, denom)
         del denom
-        torch._foreach_add_(update, self.params, alpha=self.weight_decay)
+        torch._foreach_add_(update, params, alpha=self.weight_decay)
         torch._foreach_mul_(update, -lr)
-        torch._foreach_add_(self.params, update)
-        for dst, src in zip(self.mu, mu):
+        torch._foreach_add_(params, update)
+        for dst, src in zip(mus, mu):
             dst.copy_(src)
 
     def state_dict(self) -> Dict:

@@ -29,6 +29,7 @@ from dfu_multimodal_tpu_torch.config import ModalityConfig, TrainConfig
 from dfu_multimodal_tpu_torch.data.loader import ArrayDataset
 from dfu_multimodal_tpu_torch.data.transforms import eval_normalize
 from dfu_multimodal_tpu_torch.models import zoo
+from dfu_multimodal_tpu_torch.parallel import mesh as mesh_mod
 from dfu_multimodal_tpu_torch.train.engine import (Trainer,
                                                    class_weights_from_labels)
 from dfu_multimodal_tpu_torch.utils import checkpoint as ckpt_mod
@@ -179,21 +180,23 @@ def self_train(model_name: str, st_cfg: SelfTrainConfig,
     val_f1, rnd, trainer = best
     log(f"[self-train] best round: {rnd} (val F1 {val_f1:.4f})")
     src = checkpoint_dir / f"round_{rnd}"
-    promoted = False
+    writer = mesh_mod.world()[0] == 0       # one writer on a process group
+    promoted = (src / "best_model.pt").exists()
     for name in ("best_model.pt", "best_model.meta.json"):
-        if (src / name).exists():
+        if (src / name).exists() and writer:
             shutil.copy2(src / name, checkpoint_dir / name)
-            promoted = True
     if not promoted:
         # a degenerate winning round (val F1 0.0 every epoch) never
         # passed fit's best-save gate; best_model must exist all the same
         # for predict / serve on this directory
-        ckpt_mod.save_checkpoint(
-            checkpoint_dir, epoch=train_cfg.num_epochs,
-            model_state=trainer.module.state_dict(), opt_state={},
-            val_f1=float(val_f1), history={},
-            extra_meta={"model": model_name, "self_train_round": rnd,
-                        "degenerate_round": True})
+        state = trainer._checkpoint_state()[0]    # every rank gathers
+        if writer:
+            ckpt_mod.save_checkpoint(
+                checkpoint_dir, epoch=train_cfg.num_epochs,
+                model_state=state, opt_state={},
+                val_f1=float(val_f1), history={},
+                extra_meta={"model": model_name, "self_train_round": rnd,
+                            "degenerate_round": True})
         log("  (round never beat F1 0.0 — saved its final state as "
             "best_model)")
     return trainer, report

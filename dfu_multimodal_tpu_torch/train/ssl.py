@@ -26,8 +26,18 @@ from them through the flexible restore (the projection and decoder keys
 are skipped).
 
 Randomness (views, masks) comes from an explicit ``torch.Generator`` on
-the device.  Not ported: the SPMD SimCLR step over a mesh (the port
-trains on one device; any other mesh raises).
+the device.
+
+On a data-parallel mesh (``cfg.mesh`` under a process group,
+``parallel/mesh.py``) each rank takes its rows of every global batch and
+the views and masks drawn for the whole batch (the JAX ``*_spmd``
+recipe).  SimCLR gathers z1, z2 and the validity mask over the ranks
+with autograd (an all-reduce of zero-padded rows), weighs only its own
+rows as anchors, divides by the global anchor count and the gradients
+are summed over the ranks: the single device's loss and gradient.  MAE
+divides its rows' masked-patch sum by the all-reduced patch count.  A
+BatchNorm trunk keeps its two passes with the global batch's statistics.
+Pretraining shards no parameters: a model axis or FSDP is refused.
 """
 
 from __future__ import annotations
@@ -43,7 +53,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dfu_multimodal_tpu_torch.config import AugmentConfig, ModalityConfig
+from dfu_multimodal_tpu_torch.config import (AugmentConfig, MeshConfig,
+                                             ModalityConfig)
 from dfu_multimodal_tpu_torch.data import loader as data_loader
 from dfu_multimodal_tpu_torch.data.loader import ArrayDataset
 from dfu_multimodal_tpu_torch.data.transforms import augment_and_normalize
@@ -53,7 +64,9 @@ from dfu_multimodal_tpu_torch.models.resnet import ResNet50
 from dfu_multimodal_tpu_torch.models.tiny import TinyTrunk
 from dfu_multimodal_tpu_torch.models.vit import (LN_EPS, ViT, EncoderBlock,
                                                  _layer_norm, _linear)
-from dfu_multimodal_tpu_torch.train.engine import epoch_generator
+from dfu_multimodal_tpu_torch.parallel import mesh as mesh_mod
+from dfu_multimodal_tpu_torch.train.engine import (epoch_generator,
+                                                   set_batchnorm_group)
 from dfu_multimodal_tpu_torch.train.optim import AdamW, warmup_cosine_schedule
 from dfu_multimodal_tpu_torch.utils import checkpoint as ckpt_mod
 
@@ -193,6 +206,16 @@ def masked_pixel_loss(pred: torch.Tensor, target: torch.Tensor,
                       norm_pix: bool = True) -> torch.Tensor:
     """MSE over the masked patches of the valid rows; ``norm_pix``
     normalises each target patch to zero mean and unit variance."""
+    numer, count = masked_pixel_terms(pred, target, keep_ids, valid,
+                                      norm_pix)
+    return numer / count.clamp_min(1e-12)
+
+
+def masked_pixel_terms(pred: torch.Tensor, target: torch.Tensor,
+                       keep_ids: torch.Tensor, valid: torch.Tensor,
+                       norm_pix: bool = True
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`masked_pixel_loss`'s numerator and masked-patch count."""
     if norm_pix:
         mean = target.mean(dim=-1, keepdim=True)
         var = target.var(dim=-1, keepdim=True, unbiased=False)
@@ -200,7 +223,7 @@ def masked_pixel_loss(pred: torch.Tensor, target: torch.Tensor,
     per_patch = ((pred.float() - target.float()) ** 2).mean(dim=-1)
     masked = 1.0 - keep_mask_from_ids(keep_ids, target.shape[1])
     w = masked * valid[:, None].float()
-    return (per_patch * w).sum() / w.sum().clamp_min(1e-12)
+    return (per_patch * w).sum(), w.sum()
 
 
 # ----------------------------------------------------------------- models
@@ -341,7 +364,7 @@ class SSLTrainer:
     def __init__(self, trunk: str, cfg: PretrainConfig,
                  modality: ModalityConfig, image_size: int = 224,
                  block_impl: str = "auto", attention_impl: str = "auto",
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh=None):
         if cfg.method not in ("simclr", "mae"):
             raise ValueError(f"unknown SSL method {cfg.method!r}")
         if cfg.method == "mae" and trunk != "vit":
@@ -356,16 +379,20 @@ class SSLTrainer:
                 "kernels are tuned for the 197-token production "
                 "shape, so MAE impls are fixed to the XLA blocks "
                 f"(got block_impl={block_impl!r})")
-        mesh = cfg.mesh
-        if mesh is not None and (mesh.data not in (-1, 1) or mesh.model != 1
-                                 or mesh.fsdp):
-            raise NotImplementedError(
-                f"pretraining on mesh={mesh} is not ported (the port "
-                "trains on one device)")
         self.cfg = cfg
         self.trunk = trunk
         self.image_size = image_size
         self.device = torch.device(device)
+        mesh_cfg = cfg.mesh if cfg.mesh is not None else MeshConfig()
+        self.mesh = (mesh if mesh is not None
+                     else mesh_mod.trainer_mesh(mesh_cfg, self.device))
+        if self.mesh is not None:
+            if mesh_cfg.fsdp or self.mesh[mesh_mod.MODEL_AXIS].size() > 1:
+                raise ValueError(
+                    f"pretraining on mesh={mesh_cfg}: pretraining shards "
+                    "no parameters (fsdp and the model axis are for the "
+                    "supervised trainers)")
+            self._data = mesh_mod.axis(self.mesh, mesh_mod.DATA_AXIS)
         self.compute_dtype = canonical_dtype(cfg.compute_dtype)
         self.modality = ssl_modality(modality, cfg.method,
                                      cfg.simclr_color_jitter)
@@ -386,6 +413,8 @@ class SSLTrainer:
         self.optimizer: Optional[AdamW] = None
 
     def build_optimizer(self, steps_per_epoch: int) -> AdamW:
+        if self.mesh is not None and self._data[1] > 1:
+            set_batchnorm_group(self.module, self._data[2])
         names, params = zip(*self.module.named_parameters())
         self.optimizer = AdamW(params, lr=ssl_schedule(self.cfg,
                                                        steps_per_epoch),
@@ -410,59 +439,97 @@ class SSLTrainer:
 
     def loss_on_views(self, views: Tuple[torch.Tensor, ...],
                       valid: torch.Tensor,
-                      keep_ids: Optional[torch.Tensor] = None
+                      keep_ids: Optional[torch.Tensor] = None,
+                      rows: Optional[Tuple[int, int]] = None
                       ) -> torch.Tensor:
         """The loss of normalised views (SimCLR: two, MAE: one, with its
-        ``keep_ids``) in train mode, differentiable in the module."""
+        ``keep_ids``) in train mode, differentiable in the module.  On a
+        mesh the views are rows ``lo:lo + B`` of an n-row batch (``rows``)
+        and the result is this rank's share of the global loss (the
+        shares sum to it)."""
         if self.cfg.method == "simclr":
-            z1, z2 = self.project_views(*views)
-            return nt_xent_loss(z1, z2, valid, self.cfg.temperature)
+            z = self.project_views(*views)
+            b = valid.shape[0]
+            lo, n = rows if rows is not None else (0, b)
+            z1, z2, valid = (
+                (z[0], z[1], valid) if rows is None else
+                (mesh_mod.gather_rows(t, lo, n, self._data[2])
+                 for t in (*z, valid)))
+            losses, v2 = nt_xent_row_losses(z1, z2, valid,
+                                            self.cfg.temperature)
+            # this rank's rows are its anchors; every row is a negative
+            mine = torch.zeros(n, device=v2.device)
+            mine[lo:lo + b] = 1.0
+            anchors = v2 * torch.cat([mine, mine])
+            return (losses * anchors).sum() / v2.sum().clamp_min(1e-12)
         (x,) = views
         self.module.train()
         target = patchify(x.float(), self.cfg.vit_patch)
         pred = self.module(x, keep_ids)
-        return masked_pixel_loss(pred, target, keep_ids, valid,
-                                 self.cfg.norm_pix)
+        numer, count = masked_pixel_terms(pred, target, keep_ids, valid,
+                                          self.cfg.norm_pix)
+        if rows is not None:
+            count = mesh_mod.sum_(count, self._data[2])
+        return numer / count.clamp_min(1e-12)
 
     def step_on_views(self, views: Tuple[torch.Tensor, ...],
                       valid: torch.Tensor,
-                      keep_ids: Optional[torch.Tensor] = None
+                      keep_ids: Optional[torch.Tensor] = None,
+                      rows: Optional[Tuple[int, int]] = None
                       ) -> torch.Tensor:
         """One AdamW step on given views (and mask): the train step after
-        its draws.  Returns the loss (a device tensor)."""
+        its draws.  Returns the loss (a device tensor); on a mesh
+        (``rows``, see :meth:`loss_on_views`) the global one."""
         if self.optimizer is None:
             raise RuntimeError("build_optimizer first (fit does)")
         self.optimizer.zero_grad()
-        loss = self.loss_on_views(views, valid, keep_ids)
+        loss = self.loss_on_views(views, valid, keep_ids, rows)
         loss.backward()
+        if rows is not None:
+            if self._data[1] > 1:
+                mesh_mod.sum_grads(self.optimizer.params, self._data[2])
+            loss = mesh_mod.sum_(loss, self._data[2])
         self.optimizer.step()
         return loss.detach()
 
-    def draw_views(self, images: torch.Tensor, generator: torch.Generator
+    def draw_views(self, images: torch.Tensor, generator: torch.Generator,
+                   rows: Optional[Tuple[int, int]] = None
                    ) -> Tuple[Tuple[torch.Tensor, ...],
                               Optional[torch.Tensor]]:
         """The step's draws from ``generator``: SimCLR's two augmented
-        views, or MAE's view and its visible-patch ids."""
+        views, or MAE's view and its visible-patch ids (``rows``: the
+        images' place in the global batch, whose draws are made)."""
         aug = lambda: augment_and_normalize(images, self.modality,
-                                            self.compute_dtype, generator)
+                                            self.compute_dtype, generator,
+                                            rows)
         if self.cfg.method == "simclr":
             return (aug(), aug()), None
         x = aug()
-        return (x,), random_keep_ids(generator, x.shape[0],
-                                     self.num_patches, self.keep)
+        lo, n = rows if rows is not None else (0, x.shape[0])
+        return (x,), random_keep_ids(generator, n, self.num_patches,
+                                     self.keep)[lo:lo + x.shape[0]]
 
     def train_step(self, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> torch.Tensor:
         """``batch``: {modality: (B, S, S, 3) uint8, "valid": (B,)} on the
-        device."""
+        device (on a mesh the global batch: this rank takes its rows)."""
+        rows = None
+        if self.mesh is not None:
+            batch, lo, n = data_loader.shard_batch(dict(batch),
+                                                   *self._data[:2])
+            rows = (lo, n)
         views, keep_ids = self.draw_views(batch[self.modality.name],
-                                          generator)
-        return self.step_on_views(views, batch["valid"].float(), keep_ids)
+                                          generator, rows)
+        return self.step_on_views(views, batch["valid"].float(), keep_ids,
+                                  rows)
 
     # --------------------------------------------------------------- fit
 
     def save(self, directory: Path, epoch: int,
              history: Dict[str, List[float]]) -> None:
+        """Write the checkpoint (rank 0 alone on a process group)."""
+        if mesh_mod.world()[0] != 0:
+            return
         ckpt_mod.save_checkpoint(
             Path(directory), epoch=epoch,
             model_state=alias_state(self.module.state_dict()),
@@ -491,7 +558,8 @@ class SSLTrainer:
             log: Callable[[str], None] = print,
             resume: bool = False) -> Dict[str, List[float]]:
         cfg = self.cfg
-        bs = cfg.batch_size
+        bs = (cfg.batch_size if self.mesh is None else
+              mesh_mod.pad_batch_to_mesh(cfg.batch_size, self._data[1]))
         n = len(dataset)
         steps_per_epoch = max(1, -(-n // bs))
         init_ssl_model(self.module, torch.Generator(
@@ -522,7 +590,8 @@ class SSLTrainer:
             dt = time.perf_counter() - t0
             log(f"[Pretrain {cfg.method} {epoch}/{cfg.num_epochs}] "
                 f"loss {mean_loss:.4f} ({dt:.1f}s, "
-                f"{n / max(dt, 1e-9):.0f} img/s/chip)")
+                f"{n / max(dt, 1e-9) / mesh_mod.world()[1]:.0f} "
+                "img/s/chip)")
             if cfg.save_every and epoch % cfg.save_every == 0:
                 self.save(checkpoint_dir, epoch, history)
         self.save(checkpoint_dir, cfg.num_epochs, history)

@@ -22,10 +22,10 @@ TRACE_NAME = "trace.json"
 
 @dataclass
 class ThroughputMeter:
-    """Windowed steps/s and images/s.  The port trains on one device, so
-    images/s per chip is images/s.  The step's work is asynchronous on a
-    card: read the meter after something has waited for the device (the
-    epoch's metrics reduction does)."""
+    """Windowed steps/s and images/s of the global batches, and per chip
+    over ``n_chips`` (the ranks of a data-parallel run; 1 alone).  The
+    step's work is asynchronous on a card: read the meter after something
+    has waited for the device (the epoch's metrics reduction does)."""
 
     n_chips: int = 1
     start_time: float = field(default_factory=time.perf_counter)

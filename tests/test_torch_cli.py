@@ -250,8 +250,8 @@ def test_artifacts_round_trip_with_jax(tmp_path):
 ], ids=["defaults", "every_flag"])
 def test_argparse_glue_matches_jax(argv, monkeypatch):
     """The same argv through both packages' add_common_args gives equal
-    TrainConfig and DataConfig fields (the port adds only --device), and
-    the same help text for every shared flag."""
+    TrainConfig and DataConfig fields (the port adds only --device and
+    --mesh-model), and the same help text for every shared flag."""
     # data_config_from_args exports --cache-dir process-wide: set the
     # variable through monkeypatch first, so teardown unsets it again and
     # later tests in this worker do not decode into a relative cache dir
@@ -274,7 +274,7 @@ def test_argparse_glue_matches_jax(argv, monkeypatch):
         dataclasses.asdict(port_config.data_config_from_args(pa))
     jax_help = {a.dest: (a.help, a.default) for a in parsers[0]._actions}
     port_help = {a.dest: (a.help, a.default) for a in parsers[1]._actions}
-    assert set(port_help) - set(jax_help) == {"device"}
+    assert set(port_help) - set(jax_help) == {"device", "mesh_model"}
     assert all(port_help[k] == v for k, v in jax_help.items())
 
 

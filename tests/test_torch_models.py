@@ -350,7 +350,9 @@ import dfu_multimodal_tpu_torch.cli.serve
 for mod in ("train.ssl", "train.distill", "train.self_train",
             "models.efficientnet", "cli.pretrain", "cli.distill",
             "cli.self_train", "cli.train_legacy", "cli.fix_checkpoint_keys",
-            "cli.convert_checkpoint"):
+            "cli.convert_checkpoint", "cli.check_gpu",
+            "cli.download_datasets", "cli.main", "parallel.mesh",
+            "parallel.sharding", "parallel.pipeline"):
     __import__(f"dfu_multimodal_tpu_torch.{mod}")
 from dfu_multimodal_tpu_torch.data.loader import ArrayDataset
 from dfu_multimodal_tpu_torch.models import zoo

@@ -337,6 +337,35 @@ def test_extract_features_matches_jax(setup, name):
                                        err_msg=k)
 
 
+@pytest.mark.parametrize("name", ["legacy_gated_fusion"])
+def test_extract_features_of_a_legacy_model_matches_jax(setup, name):
+    """The legacy gated fusion's two EfficientNet encoders' features
+    (``rgb_encoder``, ``thermal_encoder``: JAX's scopes) and their
+    concatenation, probabilities and predictions on numpy-drawn weights,
+    within FEAT_TOL of JAX's."""
+    jt = JaxTrainer(name, jax_config.TrainConfig(
+        batch_size=8, eval_batch_size=8, compute_dtype="float32",
+        mesh=jax_config.MeshConfig(data=1)), _modalities(jax_config))
+    variables = _numpy_variables(
+        jax_zoo.init_shapes(jt.module, jt.spec, SIZE), seed=31)
+    state = types.SimpleNamespace(params=variables["params"],
+                                  batch_stats=variables["batch_stats"])
+    pt = Trainer(name, port_config.TrainConfig(
+        batch_size=8, eval_batch_size=8, compute_dtype="float32"),
+        _modalities(port_config), device="cpu", image_size=SIZE)
+    pt.module.load_state_dict(variables_to_state_dict(name, variables),
+                              strict=True)
+    ref = jax_embed.extract_features(jt, state, setup["ds"])
+    ours = port_embed.extract_features(pt, setup["ds"])
+    assert set(ours) == set(ref) == {"feat_rgb", "feat_thermal",
+                                     "feat_fused", "probs", "preds"}
+    assert ours["feat_rgb"].shape == (len(setup["ds"]), 1280)
+    np.testing.assert_array_equal(ours["preds"], ref["preds"])
+    for k in ("feat_rgb", "feat_thermal", "feat_fused", "probs"):
+        np.testing.assert_allclose(ours[k], ref[k], rtol=0, atol=FEAT_TOL,
+                                   err_msg=k)
+
+
 def test_npz_index_loads_both_ways(tmp_path):
     rng = np.random.default_rng(3)
     out = {"feat_rgb": rng.standard_normal((4, 8)).astype(np.float32),
@@ -421,8 +450,11 @@ def test_embed_cli_index_retrieval_and_triage(setup, tmp_path):
     assert audit["embedding"] == "rgb/thermal"
 
 
-@pytest.mark.parametrize("name", ["efficientnet_rgb", "legacy_gated_fusion"])
+@pytest.mark.parametrize("name", ["legacy_concat_fusion", "efficientnet_b4"])
 def test_embed_refuses_models_the_port_does_not_build(setup, name):
+    """Every zoo model has its trunk entries now (the EfficientNets and
+    the legacy fusions since their features are recorded); a model no zoo
+    builds, such as the reference's concat fusion, is refused by name."""
     with pytest.raises(ValueError, match=name):
         port_embed.trunk_features(name)
     with pytest.raises(ValueError, match=name):

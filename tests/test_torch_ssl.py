@@ -202,7 +202,7 @@ def test_refusals_match_jax():
     with pytest.raises(ValueError, match="unknown SSL method"):
         port_ssl.SSLTrainer("vit", port_ssl.PretrainConfig(method="byol"),
                             mod, device="cpu")
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="needs 4 devices, have 1"):
         port_ssl.SSLTrainer("tiny", port_ssl.PretrainConfig(
             mesh=port_config.MeshConfig(data=4)), mod, device="cpu")
 

@@ -417,14 +417,16 @@ def test_run_train_epoch_and_meter():
     assert all(not torch.equal(before[k], after[k]) for k in before)
 
 
-@pytest.mark.parametrize("override", [
-    dict(mesh=port_config.MeshConfig(model=2)),
-    dict(mesh=port_config.MeshConfig(data=2)),
-    dict(mesh=port_config.MeshConfig(fsdp=True))])
-def test_unported_train_options_raise(override):
-    pt = _port_trainer(**override)
-    with pytest.raises(NotImplementedError):
-        pt.train_step(_batches()[0], torch.Generator().manual_seed(0))
+@pytest.mark.parametrize("override,match", [
+    (dict(mesh=port_config.MeshConfig(model=2)), "needs 2 devices, have 1"),
+    (dict(mesh=port_config.MeshConfig(data=2)), "needs 2 devices, have 1"),
+    (dict(mesh=port_config.MeshConfig(fsdp=True)),
+     "fsdp needs a process group")])
+def test_unported_train_options_raise(override, match):
+    """A mesh larger than one device needs a process group of its size
+    (JAX's "needs N devices" error); FSDP needs one at all."""
+    with pytest.raises(ValueError, match=match):
+        _port_trainer(**override)
 
 
 # ------------------------------------------------- the other train options
